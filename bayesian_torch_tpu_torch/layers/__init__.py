@@ -1,0 +1,13 @@
+"""Bayesian layer classes ported so far, re-exported flat (mirrors
+``bayesian_torch_tpu.layers``)."""
+
+from bayesian_torch_tpu_torch.layers.base_variational_layer import (  # noqa: F401,E501
+    BaseVariationalLayer,
+    BaseVariationalLayer_,
+    get_kernel_size,
+    seed_default_generator,
+)
+from bayesian_torch_tpu_torch.layers.batchnorm import BatchNorm2dLayer  # noqa: F401,E501
+from bayesian_torch_tpu_torch.layers.dropout import Dropout  # noqa: F401
+from bayesian_torch_tpu_torch.layers.relu import ReLU  # noqa: F401
+from bayesian_torch_tpu_torch.layers.variational_layers import *  # noqa: F401,F403,E501

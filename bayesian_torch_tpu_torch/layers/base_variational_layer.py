@@ -1,0 +1,106 @@
+"""Base class and shared plumbing for variational layers (counterpart of
+``bayesian_torch_tpu/layers/base_variational_layer.py``).
+
+Layers are ``nn.Module``s whose posteriors are ``nn.Parameter``s and
+whose priors are non-persistent buffers, so a ``state_dict`` holds the
+same keys as the reference's (and as the JAX package's
+``_torch_key_for``). Noise comes from an explicit CPU ``torch.Generator``
+per layer, in place of ``nnx.Rngs``: it initialises the posterior and
+then hands out one seed per forward call (``ops.sampling.draw_seed``).
+"""
+
+from __future__ import annotations
+
+import collections.abc
+import threading
+from itertools import repeat
+
+import torch
+from torch import nn
+
+from bayesian_torch_tpu_torch.ops.kl import gaussian_kl
+
+
+def get_kernel_size(x, n):
+    """Normalise an int-or-iterable kernel spec to an n-tuple."""
+    if isinstance(x, collections.abc.Iterable):
+        return tuple(x)
+    return tuple(repeat(x, n))
+
+
+_default_seed_lock = threading.Lock()
+_default_seed = [0]
+
+
+def default_generator() -> torch.Generator:
+    """A fresh CPU generator for a layer built without one.
+
+    The reference's layers take no RNG argument (torch keeps its RNG state
+    globally); to keep that constructor each such layer takes the next
+    seed of a process-global counter, as the JAX ``default_rngs`` does.
+    Pass ``generator=`` for reproducibility.
+    """
+    with _default_seed_lock:
+        seed = _default_seed[0]
+        _default_seed[0] += 1
+    return torch.Generator().manual_seed(seed)
+
+
+def seed_default_generator(seed: int) -> None:
+    """Reset the process-global seed counter (test determinism helper)."""
+    with _default_seed_lock:
+        _default_seed[0] = seed
+
+
+class BaseVariationalLayer(nn.Module):
+    """Shared base for the Bayesian layers.
+
+    ``dnn_to_bnn_flag``: when True, ``forward`` returns the bare output and
+    the KL is collected out of band (``kl_loss`` / ``get_kl_loss``).
+    ``compute_kl``: when False, ``forward`` returns kl = 0.0 without
+    evaluating it (toggled by ``parallel.mc.mc_forward``).
+    """
+
+    def __init__(self):
+        super().__init__()
+        self.dnn_to_bnn_flag = False
+        self.compute_kl = True
+
+    def kl_div(self, mu_q, sigma_q, mu_p, sigma_p):
+        """KL(Q||P) between diagonal Gaussians, mean-reduced."""
+        return gaussian_kl(mu_q, sigma_q, mu_p, sigma_p)
+
+    def _init_posterior(self, shape, mu_init, rho_init, device=None,
+                        dtype=torch.float32):
+        """mu ~ N(mu_init, 0.1), rho ~ N(rho_init, 0.1), drawn on the CPU
+        from the layer's generator and moved to ``device``."""
+        def draw(init):
+            t = init + 0.1 * torch.randn(shape, generator=self.generator,
+                                         dtype=dtype)
+            return nn.Parameter(t.to(device))
+
+        return draw(mu_init), draw(rho_init)
+
+    def _init_prior(self, mu_name, sigma_name, prior_mean, prior_variance,
+                    device=None, dtype=torch.float32):
+        """Scalar priors as non-persistent buffers. As in the reference,
+        ``prior_variance`` is used as sigma_p in the KL."""
+        self.register_buffer(mu_name, torch.tensor(prior_mean, dtype=dtype,
+                                                   device=device),
+                             persistent=False)
+        self.register_buffer(sigma_name, torch.tensor(prior_variance,
+                                                      dtype=dtype,
+                                                      device=device),
+                             persistent=False)
+
+    def _no_bias(self):
+        for name in ("mu_bias", "rho_bias"):
+            self.register_parameter(name, None)
+        for name in ("prior_bias_mu", "prior_bias_sigma"):
+            self.register_buffer(name, None, persistent=False)
+
+    def _kl_or_zero(self):
+        return self.kl_loss() if self.compute_kl else 0.0
+
+
+BaseVariationalLayer_ = BaseVariationalLayer

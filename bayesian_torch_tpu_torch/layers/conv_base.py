@@ -1,0 +1,122 @@
+"""Shared implementation of the Bayesian conv layers (counterpart of
+``bayesian_torch_tpu/layers/conv_base.py``, reparameterization estimator,
+non-transposed).
+
+The public subclasses pin ``nd`` and keep the reference's class names,
+constructor signatures, parameter names (``mu_kernel`` / ``rho_kernel``)
+and shapes: (out_channels, in_channels // groups, *kernel_size).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from bayesian_torch_tpu_torch.layers.base_variational_layer import (
+    BaseVariationalLayer,
+    default_generator,
+    get_kernel_size,
+)
+from bayesian_torch_tpu_torch.ops import conv as conv_ops
+from bayesian_torch_tpu_torch.ops.kl import gaussian_kl_from_rho
+
+
+class _BaseConvLayer(BaseVariationalLayer):
+    """Common constructor, KL and forward of the Bayesian convs."""
+
+    nd: int = 2
+
+    def __init__(self,
+                 in_channels: int,
+                 out_channels: int,
+                 kernel_size,
+                 stride=1,
+                 padding=0,
+                 dilation=1,
+                 groups: int = 1,
+                 prior_mean: float = 0,
+                 prior_variance: float = 1,
+                 posterior_mu_init: float = 0,
+                 posterior_rho_init: float = -3.0,
+                 bias: bool = True,
+                 *,
+                 generator: Optional[torch.Generator] = None,
+                 device=None,
+                 compute_dtype=None):
+        super().__init__()
+        if in_channels % groups != 0:
+            raise ValueError("invalid in_channels size")
+        if out_channels % groups != 0:
+            raise ValueError("invalid out_channels size")
+        self.generator = generator if generator is not None \
+            else default_generator()
+
+        kernel_size = get_kernel_size(kernel_size, self.nd)
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.dilation = dilation
+        self.groups = groups
+        self.prior_mean = prior_mean
+        self.prior_variance = prior_variance
+        self.posterior_mu_init = posterior_mu_init
+        self.posterior_rho_init = posterior_rho_init
+        self.bias = bias
+        self.compute_dtype = compute_dtype
+
+        kshape = (out_channels, in_channels // groups) + kernel_size
+        self.mu_kernel, self.rho_kernel = self._init_posterior(
+            kshape, posterior_mu_init, posterior_rho_init, device)
+        self._init_prior("prior_weight_mu", "prior_weight_sigma",
+                         prior_mean, prior_variance, device)
+        if bias:
+            self.mu_bias, self.rho_bias = self._init_posterior(
+                (out_channels,), posterior_mu_init, posterior_rho_init,
+                device)
+            self._init_prior("prior_bias_mu", "prior_bias_sigma",
+                             prior_mean, prior_variance, device)
+        else:
+            self._no_bias()
+
+    def kl_loss(self):
+        """Weight-mean KL plus bias-mean KL."""
+        kl = gaussian_kl_from_rho(self.mu_kernel, self.rho_kernel,
+                                  self.prior_weight_mu,
+                                  self.prior_weight_sigma)
+        if self.mu_bias is not None:
+            kl = kl + gaussian_kl_from_rho(self.mu_bias, self.rho_bias,
+                                           self.prior_bias_mu,
+                                           self.prior_bias_sigma)
+        return kl
+
+    def _conv_args(self):
+        return dict(stride=self.stride, padding=self.padding,
+                    dilation=self.dilation, groups=self.groups,
+                    compute_dtype=self.compute_dtype)
+
+    def forward(self, input, return_kl: bool = True, *, eps_k=None,
+                eps_b=None):
+        if self.dnn_to_bnn_flag:
+            return_kl = False
+
+        presampled_w = getattr(self, "_presampled_w", None)
+        if presampled_w is not None:
+            # this draw's kernel from the batch sampler (parallel.mc)
+            out = conv_ops.conv_nd(input, presampled_w,
+                                   getattr(self, "_presampled_b", None),
+                                   **self._conv_args())
+        else:
+            out = conv_ops.sampled_conv(
+                input, self.generator, self.mu_kernel, self.rho_kernel,
+                self.mu_bias, self.rho_bias, eps_k=eps_k, eps_b=eps_b,
+                **self._conv_args())
+
+        if return_kl:
+            return out, self._kl_or_zero()
+        return out
+
+    def __repr__(self):
+        return f"{type(self).__name__}()"

@@ -1,0 +1,204 @@
+"""ImageNet ResNet-18..152, Bayesian (reparameterization) variant
+(counterpart of ``bayesian_torch_tpu/models/_large_resnet.py``).
+
+torchvision-style ResNet: 7x7 s2 stem - BN - ReLU - maxpool 3x3 s2 -
+4 stages - avgpool - fc. Downsample paths are
+``Sequential(Conv-Bayes, BatchNorm2dLayer)`` threading (x, kl) tuples.
+Activations are NCHW at the public surface. The deterministic and Flipout
+variants and the ``remat_blocks`` option come in later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from bayesian_torch_tpu_torch.layers.base_variational_layer import (
+    default_generator,
+)
+from bayesian_torch_tpu_torch.layers.batchnorm import BatchNorm2dLayer
+from bayesian_torch_tpu_torch.nn import Sequential
+
+prior_mu = 0.0
+prior_sigma = 1.0
+posterior_mu_init = 0.0
+posterior_rho_init = -3.0
+
+
+def _layer_factories(estimator, generator, device):
+    if estimator != "Reparameterization":
+        raise NotImplementedError(
+            f"estimator={estimator!r}: only 'Reparameterization' is ported "
+            "(the deterministic and Flipout ResNets are ROADMAP Queue 1 "
+            "items)")
+    from bayesian_torch_tpu_torch.layers import (Conv2dReparameterization,
+                                                 LinearReparameterization)
+    bkw = dict(prior_mean=prior_mu, prior_variance=prior_sigma,
+               posterior_mu_init=posterior_mu_init,
+               posterior_rho_init=posterior_rho_init, generator=generator,
+               device=device)
+
+    def conv(cin, cout, k, **kw):
+        return Conv2dReparameterization(cin, cout, k, bias=False, **bkw,
+                                        **kw)
+
+    def linear(cin, cout):
+        return LinearReparameterization(cin, cout, **bkw)
+    return conv, linear
+
+
+class _Block(nn.Module):
+    def _res(self, x):
+        """Run the downsample (tuple-threading) or identity residual."""
+        if self.downsample is None:
+            return x, 0.0
+        out = self.downsample(x)
+        if isinstance(out, tuple):
+            return out
+        return out, 0.0
+
+
+class BasicBlock(_Block):
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, *,
+                 estimator, generator, device=None):
+        super().__init__()
+        conv, _ = _layer_factories(estimator, generator, device)
+        self.conv1 = conv(inplanes, planes, 3, stride=stride, padding=1)
+        self.bn1 = nn.BatchNorm2d(planes, device=device)
+        self.conv2 = conv(planes, planes, 3, stride=1, padding=1)
+        self.bn2 = nn.BatchNorm2d(planes, device=device)
+        self.downsample = downsample
+
+    def forward(self, x):
+        kl_sum = 0.0
+        out, kl = self.conv1(x)
+        kl_sum += kl
+        out = F.relu(self.bn1(out))
+        out, kl = self.conv2(out)
+        kl_sum += kl
+        out = self.bn2(out)
+        residual, kl = self._res(x)
+        kl_sum += kl
+        return F.relu(out + residual), kl_sum
+
+
+class Bottleneck(_Block):
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, *,
+                 estimator, generator, device=None):
+        super().__init__()
+        conv, _ = _layer_factories(estimator, generator, device)
+        self.conv1 = conv(inplanes, planes, 1)
+        self.bn1 = nn.BatchNorm2d(planes, device=device)
+        self.conv2 = conv(planes, planes, 3, stride=stride, padding=1)
+        self.bn2 = nn.BatchNorm2d(planes, device=device)
+        self.conv3 = conv(planes, planes * 4, 1)
+        self.bn3 = nn.BatchNorm2d(planes * 4, device=device)
+        self.downsample = downsample
+
+    def forward(self, x):
+        kl_sum = 0.0
+        out, kl = self.conv1(x)
+        kl_sum += kl
+        out = F.relu(self.bn1(out))
+        out, kl = self.conv2(out)
+        kl_sum += kl
+        out = F.relu(self.bn2(out))
+        out, kl = self.conv3(out)
+        kl_sum += kl
+        out = self.bn3(out)
+        residual, kl = self._res(x)
+        kl_sum += kl
+        return F.relu(out + residual), kl_sum
+
+
+class LargeResNet(nn.Module):
+    def __init__(self, block_cls, layers, num_classes=1000, *,
+                 estimator=None, generator: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        if generator is None:
+            generator = default_generator()
+        conv, linear = _layer_factories(estimator, generator, device)
+        self.estimator = estimator
+        self.inplanes = 64
+        self.conv1 = conv(3, 64, 7, stride=2, padding=3)
+        self.bn1 = nn.BatchNorm2d(64, device=device)
+        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        self.layer1 = self._make_layer(block_cls, 64, layers[0], 1,
+                                       generator, device)
+        self.layer2 = self._make_layer(block_cls, 128, layers[1], 2,
+                                       generator, device)
+        self.layer3 = self._make_layer(block_cls, 256, layers[2], 2,
+                                       generator, device)
+        self.layer4 = self._make_layer(block_cls, 512, layers[3], 2,
+                                       generator, device)
+        self.avgpool = nn.AdaptiveAvgPool2d(1)
+        self.fc = linear(512 * block_cls.expansion, num_classes)
+
+    def _make_layer(self, block_cls, planes, blocks, stride, generator,
+                    device):
+        conv, _ = _layer_factories(self.estimator, generator, device)
+        kw = dict(estimator=self.estimator, generator=generator,
+                  device=device)
+        downsample = None
+        if stride != 1 or self.inplanes != planes * block_cls.expansion:
+            downsample = Sequential(
+                conv(self.inplanes, planes * block_cls.expansion, 1,
+                     stride=stride),
+                BatchNorm2dLayer(planes * block_cls.expansion,
+                                 device=device),
+            )
+        mods = [block_cls(self.inplanes, planes, stride, downsample, **kw)]
+        self.inplanes = planes * block_cls.expansion
+        for _ in range(1, blocks):
+            mods.append(block_cls(self.inplanes, planes, **kw))
+        return nn.Sequential(*mods)
+
+    def forward(self, x):
+        kl_sum = 0.0
+        out, kl = self.conv1(x)
+        kl_sum += kl
+        out = F.relu(self.bn1(out))
+        out = self.maxpool(out)
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in layer:
+                out, kl = block(out)
+                kl_sum += kl
+        out = self.avgpool(out)
+        out = out.reshape(out.shape[0], -1)
+        out, kl = self.fc(out)
+        kl_sum += kl
+        return out, kl_sum
+
+
+_DEPTHS = {
+    "resnet18": (BasicBlock, [2, 2, 2, 2]),
+    "resnet34": (BasicBlock, [3, 4, 6, 3]),
+    "resnet50": (Bottleneck, [3, 4, 6, 3]),
+    "resnet101": (Bottleneck, [3, 4, 23, 3]),
+    "resnet152": (Bottleneck, [3, 8, 36, 3]),
+}
+
+
+def make_factories(estimator):
+    def make(name, block_cls, layers):
+        def factory(pretrained=False, num_classes=1000, *, generator=None,
+                    **kwargs):
+            if pretrained:
+                raise NotImplementedError(
+                    "model-zoo URLs are not applicable; load weights with "
+                    "utils.checkpoint.load_jax_state or load_state_dict")
+            return LargeResNet(block_cls, layers, num_classes,
+                               estimator=estimator, generator=generator,
+                               **kwargs)
+        factory.__name__ = name
+        return factory
+
+    return {name: make(name, b, l) for name, (b, l) in _DEPTHS.items()}

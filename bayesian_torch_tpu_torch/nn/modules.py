@@ -1,0 +1,24 @@
+"""``Sequential`` that threads (x, kl) tuples (counterpart of the
+``Sequential`` of ``bayesian_torch_tpu/nn/modules.py``; the other modules
+there are twins of ``torch.nn``, which the port uses directly)."""
+
+from torch import nn
+
+
+class Sequential(nn.Sequential):
+    """If a child returns an ``(x, kl)`` pair, its kl is accumulated and
+    the pair is re-formed at the end, so a Bayesian downsample path
+    ``Sequential(conv, BatchNorm2dLayer)`` returns the conv's KL."""
+
+    def forward(self, x):
+        kl_total = None
+        for mod in self:
+            out = mod(x)
+            if isinstance(out, tuple) and len(out) == 2:
+                x, kl = out
+                kl_total = kl if kl_total is None else kl_total + kl
+            else:
+                x = out
+        if kl_total is not None:
+            return x, kl_total
+        return x

@@ -1,0 +1,13 @@
+"""Hand-written Hopper (sm_90a) kernels: the port of the JAX package's
+Pallas kernels (``bayesian_torch_tpu/ops/pallas/``).
+
+- ``sampled_weights.py``: K-A, the batch weight sampler (all S draws of
+  every layer in one launch);
+- ``sampled_matmul.py``: K-B, the fused sampled GEMM (the sampled weight
+  never reaches device memory).
+
+Each wrapper keeps its plain torch version beside it (taken for CPU
+tensors only) and a ``launches`` count of kernel launches. The CUDA
+sources live in ``csrc/`` and are built by ``_build.py`` at first use.
+"""
+

@@ -1,0 +1,144 @@
+"""Weight-noise sampling primitives (counterpart of
+``bayesian_torch_tpu/ops/sampling.py``).
+
+Every random draw of the forward path is a pure function of integers:
+one 64-bit seed per call, taken from the layer's CPU ``torch.Generator``
+(``draw_seed``), a draw index ``s`` and the flat element index. The
+counter-hash Box-Muller below (``normal_fused``) hashes the same integers
+as the JAX package's generator, in int64-masked torch arithmetic, and it
+is the generator the CUDA kernels in ``csrc/`` compute. So a kernel and
+its plain version give the same eps, and a CPU test can hold the
+generator against JAX's own ``normal_fused`` given the same salt (they
+differ only in the last ulp of log and cos).
+
+Counters are 32-bit, as in the JAX generator: a tensor of more than 2**32
+elements would reuse its counters.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+_M32 = 0xFFFFFFFF
+_SM32_GOLDEN = 0x9E3779B9  # splitmix increment (2^32 / golden ratio)
+_SALT2_XOR = 0xDEADBEEF
+_U24 = 1.0 / (1 << 24)
+_TWO_PI = 2.0 * math.pi
+
+
+def sigma_from_rho(rho):
+    """sigma = softplus(rho) = log1p(exp(rho))."""
+    return F.softplus(rho)
+
+
+def log_sigma_from_rho(rho):
+    """log(softplus(rho)) with the JAX package's asymptote branch.
+
+    XLA flushes the subnormal softplus of rho << 0 to zero, so the JAX
+    function switches to the asymptote log(softplus(rho)) -> rho below
+    rho = -20. torch keeps subnormals and would give a slightly different
+    value there; the port reproduces the JAX output.
+    """
+    safe = torch.where(rho < -20.0, torch.zeros_like(rho), rho)
+    return torch.where(rho < -20.0, rho, torch.log(F.softplus(safe)))
+
+
+def _splitmix32(x):
+    """splitmix32 finalizer on uint32 values held in an int64 tensor (in
+    place) or in a Python int. A tensor product may wrap modulo 2**64, as
+    int64 multiplication does on every torch backend; the mask keeps the
+    low 32 bits, which is all uint32 arithmetic needs."""
+    x ^= x >> 16
+    x *= 0x7FEB352D
+    x &= _M32
+    x ^= x >> 15
+    x *= 0x846CA68B
+    x &= _M32
+    x ^= x >> 16
+    return x
+
+
+def draw_seed(generator: torch.Generator) -> int:
+    """One 63-bit seed from a CPU generator: the per-call key of the
+    counter-hash draws (the JAX layers split ``rngs.noise()`` instead).
+    Drawn on the host, so no device synchronises for it."""
+    return int(torch.randint(0, 2**63 - 1, (), generator=generator))
+
+
+def draw_salt(seed: int, s: int) -> int:
+    """32-bit salt of draw ``s`` under a 64-bit ``seed``; the kernels mix
+    it the same way (csrc/noise.cuh ``btt_draw_salt``)."""
+    lo = seed & _M32
+    hi = (seed >> 32) & _M32
+    return _splitmix32(lo ^ _splitmix32((hi + (s + 1) * _SM32_GOLDEN) & _M32))
+
+
+# On the CPU the hash runs in chunks that stay in cache (about 15x faster
+# than whole-tensor passes at ResNet-50 size); elsewhere in one pass.
+_CPU_CHUNK = 1 << 16
+
+
+def _hashes(salt: int, start: int, n: int, device):
+    """splitmix32(salt + (i+1)*GOLDEN) for i in [start, start + n)."""
+    h = torch.arange(start + 1, start + n + 1, dtype=torch.int64,
+                     device=device)
+    h *= _SM32_GOLDEN
+    h += salt
+    h &= _M32
+    return _splitmix32(h)
+
+
+def _normals(salt: int, start: int, n: int, device):
+    h1 = _hashes(salt, start, n, device)
+    h2 = _hashes(salt ^ _SALT2_XOR, start, n, device)
+    # 24-bit uniforms: u1 in (0, 1] (no log(0)), u2 in [0, 1)
+    u1 = (h1 >> 8).to(torch.float32).mul_(_U24).add_(_U24 * 0.5)
+    u2 = (h2 >> 8).to(torch.float32).mul_(_U24)
+    r = u1.log_().mul_(-2.0).sqrt_()
+    return r.mul_(u2.mul_(_TWO_PI).cos_())
+
+
+def normal_fused(salt: int, shape, dtype=torch.float32, device=None):
+    """iid N(0,1) from the counter hash: the value at flat position i is
+    Box-Muller on two splitmix32 hashes of ``salt + (i+1)*GOLDEN``.
+    Equals the JAX ``normal_fused`` for the JAX key whose ``_key_salt``
+    is ``salt``."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    device = torch.device("cpu") if device is None else torch.device(device)
+    chunk = _CPU_CHUNK if device.type == "cpu" else max(n, 1)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    for start in range(0, n, chunk):
+        m = min(chunk, n - start)
+        out[start:start + m] = _normals(salt, start, m, device)
+    return out.reshape(shape).to(dtype)
+
+
+def rademacher_fused(salt: int, shape, dtype=torch.float32, device=None):
+    """iid signs in {-1, +1}: bit 31 of splitmix32(salt + (i+1)*GOLDEN),
+    bit-identical to the JAX ``rademacher_fused`` for the same salt."""
+    shape = tuple(shape)
+    h = _hashes(salt, 0, math.prod(shape), device)
+    one = torch.ones((), dtype=dtype, device=device)
+    return torch.where((h >> 31).bool(), -one, one).reshape(shape)
+
+
+def sample_gaussian_weight(generator, mu, rho, eps=None):
+    """W = mu + softplus(rho) * eps; returns (W, sigma).
+
+    ``eps`` may be injected (golden-value tests). Without it the draw goes
+    through the batch sampler with one draw (its kernel on a CUDA tensor,
+    its plain version on a CPU one), seeded from ``generator``.
+    """
+    sigma = sigma_from_rho(rho)
+    if eps is not None:
+        return mu + sigma * eps, sigma
+    from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
+        sample_scaled_normals_batch,
+    )
+    w = sample_scaled_normals_batch(draw_seed(generator), mu, sigma, 1,
+                                    out_dtype=mu.dtype)[0]
+    return w, sigma

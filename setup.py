@@ -10,7 +10,11 @@ setup(
     long_description=open("README.md").read(),
     long_description_content_type="text/markdown",
     packages=find_packages(include=["bayesian_torch_tpu",
-                                    "bayesian_torch_tpu.*"]),
+                                    "bayesian_torch_tpu.*",
+                                    "bayesian_torch_tpu_torch",
+                                    "bayesian_torch_tpu_torch.*"]),
+    # the PyTorch/CUDA port builds its kernels from these at first use
+    package_data={"bayesian_torch_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.5",

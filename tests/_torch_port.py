@@ -1,0 +1,149 @@
+"""Shared helpers of the torch-port parity tests (tests/test_torch_port_*).
+
+Inputs are numpy arrays made from a fixed seed and handed to both
+packages. torch runs on one thread per xdist worker.
+"""
+
+import jax
+import numpy as np
+import torch
+from flax import nnx
+from torch import nn
+
+from bayesian_torch_tpu.utils.checkpoint import _torch_key_for
+
+torch.set_num_threads(1)
+
+REPARAM = "Reparameterization"
+
+
+def jax_state(model):
+    """{torch-style key: variable} of an nnx model's Param + BatchStat
+    state (the keys ``import_torch_state_dict`` maps by)."""
+    state = nnx.state(model, nnx.Any(nnx.Param, nnx.BatchStat))
+    return {_torch_key_for(path): var
+            for path, var in nnx.to_flat_state(state)}
+
+
+def jax_arrays(model):
+    return {k: np.asarray(v[...]) for k, v in jax_state(model).items()}
+
+
+def random_state(arrays, seed=0, rho=None):
+    """Replace every array with random values of a sensible range: mu
+    N(0, 0.3), rho N(-4, 0.5) (or the constant ``rho``), BN affine and
+    running statistics near 1 / 0."""
+    rs = np.random.RandomState(seed)
+    out = {}
+    for key, a in arrays.items():
+        name = key.rsplit(".", 1)[-1]
+        shape = np.shape(a)
+        if name.startswith("rho"):
+            v = (rs.normal(-4.0, 0.5, shape) if rho is None
+                 else np.full(shape, rho))
+        elif name.startswith("mu"):
+            v = rs.normal(0.0, 0.3, shape)
+        elif name in ("weight", "running_var"):
+            v = rs.uniform(0.5, 1.5, shape)
+        elif name in ("bias", "running_mean"):
+            v = rs.normal(0.0, 0.1, shape)
+        else:  # num_batches_tracked
+            out[key] = np.zeros(shape, np.int64)
+            continue
+        out[key] = v.astype(np.float32)
+    return out
+
+
+def set_jax_eval(model):
+    for _, mod in nnx.iter_modules(model):
+        if hasattr(mod, "training"):
+            mod.training = False
+
+
+def to_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+# --- a narrow ResNet: stem, two Bottlenecks (one downsampling), head ---
+
+
+class JaxTiny(nnx.Module):
+    def __init__(self, rngs):
+        import bayesian_torch_tpu.nn as dnn
+        from bayesian_torch_tpu.layers import (BatchNorm2dLayer,
+                                               Conv2dReparameterization,
+                                               LinearReparameterization)
+        from bayesian_torch_tpu.models._large_resnet import Bottleneck
+
+        self.conv1 = Conv2dReparameterization(3, 16, 3, padding=1,
+                                              bias=False, rngs=rngs)
+        self.bn1 = dnn.BatchNorm2d(16)
+        down = dnn.Sequential(
+            Conv2dReparameterization(16, 32, 1, stride=2, bias=False,
+                                     rngs=rngs),
+            BatchNorm2dLayer(32))
+        self.layer1 = dnn.Sequential(
+            Bottleneck(16, 8, 2, down, estimator=REPARAM, rngs=rngs),
+            Bottleneck(32, 8, estimator=REPARAM, rngs=rngs))
+        self.fc = LinearReparameterization(32, 10, rngs=rngs)
+
+    def __call__(self, x):
+        out, kl_sum = self.conv1(x)
+        out = jax.nn.relu(self.bn1(out))
+        for block in self.layer1:
+            out, kl = block(out)
+            kl_sum = kl_sum + kl
+        out = out.mean(axis=(2, 3))
+        out, kl = self.fc(out)
+        return out, kl_sum + kl
+
+
+class TorchTiny(nn.Module):
+    def __init__(self, generator=None):
+        super().__init__()
+        from bayesian_torch_tpu_torch.layers import (
+            BatchNorm2dLayer, Conv2dReparameterization,
+            LinearReparameterization)
+        from bayesian_torch_tpu_torch.models._large_resnet import Bottleneck
+        from bayesian_torch_tpu_torch.nn import Sequential
+
+        g = generator
+        self.conv1 = Conv2dReparameterization(3, 16, 3, padding=1,
+                                              bias=False, generator=g)
+        self.bn1 = nn.BatchNorm2d(16)
+        down = Sequential(
+            Conv2dReparameterization(16, 32, 1, stride=2, bias=False,
+                                     generator=g),
+            BatchNorm2dLayer(32))
+        self.layer1 = nn.Sequential(
+            Bottleneck(16, 8, 2, down, estimator=REPARAM, generator=g),
+            Bottleneck(32, 8, estimator=REPARAM, generator=g))
+        self.fc = LinearReparameterization(32, 10, generator=g)
+
+    def forward(self, x):
+        out, kl_sum = self.conv1(x)
+        out = torch.relu(self.bn1(out))
+        for block in self.layer1:
+            out, kl = block(out)
+            kl_sum = kl_sum + kl
+        out = out.mean(dim=(2, 3))
+        out, kl = self.fc(out)
+        return out, kl_sum + kl
+
+
+def tiny_twins(seed=0, rho=None):
+    """(jax model, torch model, arrays): the narrow ResNet in both
+    packages, eval mode, holding the same random weights."""
+    from bayesian_torch_tpu.utils.checkpoint import import_torch_state_dict
+    from bayesian_torch_tpu_torch.utils.checkpoint import load_jax_state
+
+    jm = JaxTiny(nnx.Rngs(params=seed, noise=seed + 1))
+    arrays = random_state(jax_arrays(jm), seed=seed, rho=rho)
+    import_torch_state_dict(jm, arrays)
+    set_jax_eval(jm)
+    tm = TorchTiny(torch.Generator().manual_seed(seed))
+    load_jax_state(tm, arrays)
+    tm.eval()
+    return jm, tm, arrays
