@@ -1,0 +1,218 @@
+"""Shared train/eval engine of the example trainers (counterpart of
+``bayesian_torch_tpu/examples/_engine.py``).
+
+One ELBO train step over ``mc_forward``'s draw loop, one MC-predictive
+eval step, AverageMeter-style reporting, and ``torch.save`` training
+checkpoints. Batches come from the numpy iterator ``_data.batches`` and
+go to the model's device; ``optax.sgd(lr, m)`` becomes
+``torch.optim.SGD(lr, momentum=m)`` and ``optax.adam`` ``torch.optim.Adam``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from bayesian_torch_tpu_torch.examples._data import batches
+from bayesian_torch_tpu_torch.parallel import mc_forward
+from bayesian_torch_tpu_torch.utils.util import (mutual_information,
+                                                 predictive_entropy)
+
+
+class AverageMeter:
+    """Running average tracker (the reference's AverageMeter)."""
+
+    def __init__(self, name, fmt=":f"):
+        self.name = name
+        self.fmt = fmt
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n=1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+
+    @property
+    def avg(self):
+        return self.sum / max(self.count, 1)
+
+    def __str__(self):
+        return f"{self.name} {self.val:.4f} ({self.avg:.4f})"
+
+
+def _device(model):
+    return next(model.parameters()).device
+
+
+def make_train_step(num_mc: int, batch_size: int, mesh=None,
+                    presample: str = "auto"):
+    """ELBO step: loss = NLL of the mean over draws of the per-draw
+    ``log_softmax`` + KL / batch_size; one optimizer step.
+
+    ``train_step(model, optimizer, x, y)`` returns (loss, nll, kl) as
+    detached tensors; the gradients stay in the parameters' ``.grad``.
+    BatchNorm running statistics update inside ``mc_forward`` (one EMA
+    update per step for ``num_mc > 1``). ``presample`` is passed to
+    ``mc_forward`` ("auto" draws inside the layers in training mode).
+    """
+
+    def train_step(model, optimizer, x, y):
+        optimizer.zero_grad(set_to_none=True)
+        outs, kl = mc_forward(model, x, num_mc, mesh=mesh,
+                              presample=presample)
+        log_probs = torch.log_softmax(outs.float(), dim=-1)
+        mean_out = log_probs.mean(dim=0)
+        nll = -mean_out.gather(1, y.long()[:, None]).mean()
+        loss = nll + kl / batch_size
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), nll.detach(), kl.detach()
+
+    return train_step
+
+
+def make_eval_step(num_mc: int, mesh=None, structured: bool = False,
+                   emission: str = "auto"):
+    """MC predictive step: per-draw class probabilities of shape
+    (num_mc, batch, classes), without gradients."""
+
+    def eval_step(model, x):
+        with torch.no_grad():
+            outs = mc_forward(model, x, num_mc, return_kl=False, mesh=mesh,
+                              structured=structured, emission=emission)
+            return torch.softmax(outs.float(), dim=-1)
+
+    return eval_step
+
+
+def train(model, optimizer, data, *, epochs, batch_size, num_mc=1,
+          log_every=50, writer=None, mesh=None, checkpoint_dir=None,
+          resume=False, eval_fn=None):
+    """Training loop over (x, y) host arrays.
+
+    With ``checkpoint_dir``, a full training checkpoint (model, optimizer,
+    epoch, best_acc, generator states) is written to
+    ``<checkpoint_dir>/last.pt`` after every epoch; ``resume=True``
+    restores it and continues from the next epoch.
+    ``eval_fn(model, epoch) -> acc`` optionally tracks best_acc.
+    """
+    from bayesian_torch_tpu_torch.utils.checkpoint import (
+        load_training_checkpoint,
+        save_training_checkpoint,
+    )
+
+    x_all, y_all = data
+    device = _device(model)
+    step_fn = make_train_step(num_mc, batch_size, mesh)
+    start_epoch, best_acc = 0, 0.0
+    last_path = (os.path.join(checkpoint_dir, "last.pt")
+                 if checkpoint_dir else None)
+    if resume and last_path and os.path.isfile(last_path):
+        meta = load_training_checkpoint(last_path, model, optimizer)
+        start_epoch, best_acc = meta["epoch"], meta["best_acc"]
+        print(f"resumed from '{last_path}': epoch {start_epoch}, "
+              f"best_acc {best_acc:.4f}")
+    history = []
+    for epoch in range(start_epoch, epochs):
+        losses = AverageMeter("loss")
+        t0 = time.time()
+        seen = 0
+        for i, (xb, yb) in enumerate(batches(x_all, y_all, batch_size,
+                                             seed=epoch)):
+            xb = torch.from_numpy(xb).to(device)
+            yb = torch.from_numpy(yb).to(device)
+            loss, nll, kl = step_fn(model, optimizer, xb, yb)
+            seen += xb.shape[0]
+            if i % log_every == 0:
+                loss_f = float(loss)
+                losses.update(loss_f, xb.shape[0])
+                print(f"epoch {epoch} step {i}: loss {loss_f:.4f} "
+                      f"nll {float(nll):.4f} kl {float(kl):.4f}")
+        dt = time.time() - t0
+        print(f"epoch {epoch}: {losses} | {seen / dt:.1f} imgs/s")
+        if writer is not None:
+            writer.add_scalar("train/elbo_loss", losses.avg, epoch)
+            writer.add_scalar("train/imgs_per_sec", seen / dt, epoch)
+        history.append({"epoch": epoch, "loss": losses.avg,
+                        "imgs_per_sec": seen / dt})
+        if eval_fn is not None:
+            best_acc = max(best_acc, float(eval_fn(model, epoch)))
+        if last_path:
+            save_training_checkpoint(last_path, model, optimizer,
+                                     epoch=epoch + 1, best_acc=best_acc)
+    return history
+
+
+def evaluate(model, data, *, batch_size, num_monte_carlo=20,
+             save_probs_to=None, writer=None, epoch=0, mesh=None,
+             structured=False):
+    """MC-predictive evaluation: accuracy and the uncertainty metrics,
+    optionally a .npy dump of the MC probability stack.
+
+    Batches drop the last partial one, as the JAX engine's loader does,
+    so fewer examples than ``batch_size`` leave nothing to evaluate: that
+    raises ``ValueError``, as it does in the JAX engine.
+    """
+    x_all, y_all = data
+    if len(x_all) < batch_size:
+        raise ValueError(
+            f"evaluate: {len(x_all)} examples make no full batch of "
+            f"{batch_size} (the last partial batch is dropped); use a "
+            "batch size of at most the number of test examples")
+    device = _device(model)
+    eval_fn = make_eval_step(num_monte_carlo, mesh, structured)
+    correct = 0
+    total = 0
+    all_probs = []
+    all_labels = []
+    t0 = time.time()
+    for xb, yb in batches(x_all, y_all, batch_size, shuffle=False):
+        probs = eval_fn(model, torch.from_numpy(xb).to(device))
+        probs = probs.cpu().numpy()  # (MC, B, C)
+        correct += int((probs.mean(axis=0).argmax(1) == yb).sum())
+        total += xb.shape[0]
+        all_probs.append(probs)
+        all_labels.append(yb)
+    dt = time.time() - t0
+    probs = np.concatenate(all_probs, axis=1)
+    acc = correct / max(total, 1)
+    pe = predictive_entropy(probs)
+    mi = mutual_information(probs)
+    print(f"test: accuracy {acc * 100:.2f}% | {total / dt:.1f} imgs/s | "
+          f"predictive entropy {pe.mean():.4f} | "
+          f"mutual information {mi.mean():.4f}")
+    if writer is not None:
+        writer.add_scalar("val/accuracy", acc, epoch)
+        writer.add_scalar("val/predictive_entropy", float(pe.mean()), epoch)
+        writer.add_scalar("val/mutual_information", float(mi.mean()), epoch)
+    if save_probs_to:
+        os.makedirs(os.path.dirname(save_probs_to) or ".", exist_ok=True)
+        np.save(save_probs_to, probs)
+        print(f"saved MC probabilities to {save_probs_to}")
+    return {"accuracy": acc, "predictive_entropy": float(pe.mean()),
+            "mutual_information": float(mi.mean()),
+            "imgs_per_sec": total / dt}
+
+
+def save_metrics(metrics, path):
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(metrics, f, indent=2)
+
+
+def make_optimizer(model, lr, kind="adam", momentum=0.9):
+    """``torch.optim.Adam(lr)``, or ``torch.optim.SGD(lr, momentum)``
+    for any other ``kind`` (the JAX engine's optax choice), over every
+    parameter (the JAX ``wrt=nnx.Param``)."""
+    if kind == "adam":
+        return torch.optim.Adam(model.parameters(), lr=lr)
+    return torch.optim.SGD(model.parameters(), lr=lr, momentum=momentum)

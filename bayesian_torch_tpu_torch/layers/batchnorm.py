@@ -1,10 +1,18 @@
-"""BatchNorm wrapper layer with the (out, kl) tuple convention
-(counterpart of ``bayesian_torch_tpu/layers/batchnorm.py``).
+"""BatchNorm layers with the MC batch-statistics path (counterpart of
+``bayesian_torch_tpu/layers/batchnorm.py``).
 
-``torch.nn.BatchNorm2d`` with the reference's calling convention: a
+``BatchNorm2d`` is ``torch.nn.BatchNorm2d`` with the JAX layer's
+``stats_frozen`` switch: while it is set, a training-mode forward still
+normalizes by the batch's own statistics but writes no running statistic
+(and does not count the batch). ``parallel.mc.mc_forward`` sets it for its
+draw loop; with a ``MCBatchStats`` record attached, each draw's batch
+(mean, unbiased variance) is recorded, and the caller applies ONE EMA
+update from their average after the loop. Otherwise the eval path and the
+plain training path are torch's own.
+
+``BatchNorm2dLayer`` adds the reference's calling convention: a
 ``(x, kl)`` tuple in gives ``(out, 0)`` out, a bare tensor gives the bare
-output. The eval path and the plain training path are torch's own. The
-MC batch-statistics path (``MCBatchStats``) comes with the training slice.
+output.
 """
 
 from __future__ import annotations
@@ -12,10 +20,52 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
-class BatchNorm2dLayer(nn.BatchNorm2d):
+class MCBatchStats:
+    """Per-draw batch statistics of one BatchNorm layer under an MC draw
+    loop: draw s records (mean, unbiased variance) per channel, in f32
+    and detached (the JAX ``MCBatchStats`` variable, (num_mc, 2, C))."""
+
+    def __init__(self):
+        self.draws = []
+
+    def record(self, x):
+        dims = (0,) + tuple(range(2, x.dim()))
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.detach().float(), dim=dims,
+                                       unbiased=True)
+        self.draws.append(torch.stack([mean, var]))
+
+    def stacked(self):
+        """(num_draws, 2, C): each draw's (mean, unbiased variance)."""
+        return torch.stack(self.draws)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``torch.nn.BatchNorm2d`` with ``stats_frozen`` and an optional
+    per-draw ``MCBatchStats`` record (``_mc_stats``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.stats_frozen = False
+        self._mc_stats: Optional[MCBatchStats] = None
+
+    def forward(self, input):
+        if not (self.stats_frozen and self.training
+                and self.track_running_stats):
+            return super().forward(input)
+        self._check_input_dim(input)
+        if self._mc_stats is not None:
+            self._mc_stats.record(input)
+        # batch statistics, no running statistic read or written
+        return F.batch_norm(input, None, None, self.weight, self.bias,
+                            True, 0.0, self.eps)
+
+
+class BatchNorm2dLayer(BatchNorm2d):
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: Optional[float] = 0.1, affine: bool = True,

@@ -4,8 +4,11 @@
 torchvision-style ResNet: 7x7 s2 stem - BN - ReLU - maxpool 3x3 s2 -
 4 stages - avgpool - fc. Downsample paths are
 ``Sequential(Conv-Bayes, BatchNorm2dLayer)`` threading (x, kl) tuples.
-Activations are NCHW at the public surface. The deterministic and Flipout
-variants and the ``remat_blocks`` option come in later slices.
+Activations are NCHW at the public surface. Every BatchNorm is the port's
+MC-aware ``BatchNorm2d`` (``layers/batchnorm.py``), as the JAX model uses
+its own, so ``mc_forward`` can train with one EMA update per step. The
+deterministic and Flipout variants and the ``remat_blocks`` option come in
+later slices.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ from torch import nn
 from bayesian_torch_tpu_torch.layers.base_variational_layer import (
     default_generator,
 )
-from bayesian_torch_tpu_torch.layers.batchnorm import BatchNorm2dLayer
+from bayesian_torch_tpu_torch.layers.batchnorm import (BatchNorm2d,
+                                                       BatchNorm2dLayer)
 from bayesian_torch_tpu_torch.nn import Sequential
 
 prior_mu = 0.0
@@ -69,9 +73,9 @@ class BasicBlock(_Block):
         super().__init__()
         conv, _ = _layer_factories(estimator, generator, device)
         self.conv1 = conv(inplanes, planes, 3, stride=stride, padding=1)
-        self.bn1 = nn.BatchNorm2d(planes, device=device)
+        self.bn1 = BatchNorm2d(planes, device=device)
         self.conv2 = conv(planes, planes, 3, stride=1, padding=1)
-        self.bn2 = nn.BatchNorm2d(planes, device=device)
+        self.bn2 = BatchNorm2d(planes, device=device)
         self.downsample = downsample
 
     def forward(self, x):
@@ -95,11 +99,11 @@ class Bottleneck(_Block):
         super().__init__()
         conv, _ = _layer_factories(estimator, generator, device)
         self.conv1 = conv(inplanes, planes, 1)
-        self.bn1 = nn.BatchNorm2d(planes, device=device)
+        self.bn1 = BatchNorm2d(planes, device=device)
         self.conv2 = conv(planes, planes, 3, stride=stride, padding=1)
-        self.bn2 = nn.BatchNorm2d(planes, device=device)
+        self.bn2 = BatchNorm2d(planes, device=device)
         self.conv3 = conv(planes, planes * 4, 1)
-        self.bn3 = nn.BatchNorm2d(planes * 4, device=device)
+        self.bn3 = BatchNorm2d(planes * 4, device=device)
         self.downsample = downsample
 
     def forward(self, x):
@@ -129,7 +133,7 @@ class LargeResNet(nn.Module):
         self.estimator = estimator
         self.inplanes = 64
         self.conv1 = conv(3, 64, 7, stride=2, padding=3)
-        self.bn1 = nn.BatchNorm2d(64, device=device)
+        self.bn1 = BatchNorm2d(64, device=device)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         self.layer1 = self._make_layer(block_cls, 64, layers[0], 1,
                                        generator, device)

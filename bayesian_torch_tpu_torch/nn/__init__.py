@@ -1,3 +1,4 @@
-"""Tuple-threading containers; everything else is ``torch.nn``."""
+"""Tuple-threading containers and the MC-aware ``BatchNorm2d``; everything
+else is ``torch.nn``."""
 
-from bayesian_torch_tpu_torch.nn.modules import Sequential  # noqa: F401
+from bayesian_torch_tpu_torch.nn.modules import BatchNorm2d, Sequential  # noqa: F401,E501

@@ -1,8 +1,11 @@
-"""``Sequential`` that threads (x, kl) tuples (counterpart of the
-``Sequential`` of ``bayesian_torch_tpu/nn/modules.py``; the other modules
-there are twins of ``torch.nn``, which the port uses directly)."""
+"""``Sequential`` that threads (x, kl) tuples, and the MC-aware
+``BatchNorm2d`` (counterparts of ``Sequential`` and ``BatchNorm2d`` of
+``bayesian_torch_tpu/nn/modules.py``; the other modules there are twins of
+``torch.nn``, which the port uses directly)."""
 
 from torch import nn
+
+from bayesian_torch_tpu_torch.layers.batchnorm import BatchNorm2d  # noqa: F401,E501
 
 
 class Sequential(nn.Sequential):

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (no JAX counterpart).
 
-``nvcc`` compiles every ``csrc/*.cu`` of this package for ``sm_90a`` into
-one shared library with a plain C interface, at first use, into
+``nvcc`` compiles every ``csrc/*.cu`` of this package for ``sm_90a``, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, at first use, into
 ``bayesian_torch_tpu_torch/_build/`` (git-ignored). A hash of the sources
 and flags names the library, so an unchanged tree builds once. The
 library is loaded with ``ctypes``; each C entry point returns the launch's
@@ -27,8 +28,9 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -39,6 +41,15 @@ _SIGNATURES = {
     # x, mu, sigma, out, M, N, K, seed, stream
     "btt_sampled_matmul": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_uint64, _P),
+    # g, g_bf16, rho (or NULL), out, n, num_samples, seed, stream
+    "btt_sampled_weights_bwd": (_P, ctypes.c_int, _P, _P, ctypes.c_int64,
+                                ctypes.c_int, ctypes.c_uint64, _P),
+    # g, mu, sigma, dx, M, N, K, seed, stream
+    "btt_sampled_matmul_dx": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_uint64, _P),
+    # g, x, dmu, dsigma, M, N, K, seed, stream
+    "btt_sampled_matmul_dw": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_uint64, _P),
 }
 
 
@@ -79,21 +90,38 @@ def build() -> tuple[Path, float, str]:
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        tmp = Path(tmp)
+        jobs = []
+        for src in _sources():
+            obj = tmp / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            with open(tmp / f"{src.stem}.log", "w") as log:
+                proc = subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT, text=True)
+            jobs.append((cmd, obj, proc))
+        logs, failed = [], []
+        for cmd, obj, proc in jobs:
+            proc.wait()
+            text = (tmp / f"{obj.stem}.log").read_text()
+            logs.append(f"$ {' '.join(cmd)}\n{text}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{text}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = tmp / "lib.so"
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib),
+               *(str(o) for _, o, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               check=False)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent build loses nothing
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    log = proc.stdout + proc.stderr
+        os.replace(lib, out)  # atomic: a concurrent build loses nothing
+    log = "".join(logs) + proc.stdout + proc.stderr
     out.with_suffix(".log").write_text(log)
     return out, time.perf_counter() - t0, log
 

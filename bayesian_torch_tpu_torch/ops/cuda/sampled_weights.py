@@ -1,24 +1,33 @@
-"""K-A: batch weight sampler (counterpart of
+"""K-A and K-C: the weight samplers and their backward (counterpart of
 ``bayesian_torch_tpu/ops/pallas/sampled_weights.py``).
 
 ``sample_scaled_normals_batch(seed, mu, sigma, S)`` returns all S draws
 ``mu + sigma * eps(seed, s, i)`` in one launch of the CUDA kernel in
-``csrc/sampled_weights.cu``, reading mu and sigma once. eps is the
-counter-hash normal of ``ops/sampling.py``, so the plain version beside
-the kernel gives the same values.
+``csrc/sampled_weights.cu`` (K-A), reading mu and sigma once.
+``sample_gaussian(seed, mu, rho)`` is the single draw ``mu + softplus(rho)
+* eps``: K-A with S = 1 on ``sigma = softplus(rho)``. eps is the
+counter-hash normal of ``ops/sampling.py``, so the plain versions beside
+the kernels give the same values.
 
-A CPU tensor takes the plain version, which autograd differentiates. A
-CUDA tensor launches the kernel or raises; this slice has no backward
-kernel, so a CUDA input that needs a gradient raises.
+Both are ``torch.autograd.Function``s that save the seed, never eps: the
+backward draws eps again in ``csrc/sampled_weights_bwd.cu`` (K-C), as the
+JAX VJPs regenerate it. ``dmu`` is a torch sum (JAX takes it in XLA,
+outside the kernel); ``dsigma`` (K-C) or ``drho`` (K-C in its rho mode,
+``g * eps * sigmoid(rho)``) come from the kernel.
+
+A CPU tensor takes the plain versions, forward and backward. A CUDA
+tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from bayesian_torch_tpu_torch.ops.sampling import draw_salt, normal_fused
+from bayesian_torch_tpu_torch.ops.sampling import (draw_salt, normal_fused,
+                                                   sigma_from_rho)
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+_G_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def scale_shift(mu, sigma, eps, out_dtype):
@@ -27,43 +36,68 @@ def scale_shift(mu, sigma, eps, out_dtype):
     return (mu.float() + sigma.float() * eps).to(out_dtype)
 
 
+def noise_grad(g, eps_of):
+    """sum_s g[s] * eps_of(s) in f32, draw by draw (the order K-C sums
+    in); ``eps_of(s)`` gives draw s's noise."""
+    acc = g[0].float() * eps_of(0)
+    for s in range(1, g.shape[0]):
+        acc = acc + g[s].float() * eps_of(s)
+    return acc
+
+
+def _eps(seed, s, shape, device):
+    return normal_fused(draw_salt(seed, s), shape, device=device)
+
+
 def sample_scaled_normals_batch_plain(seed, mu, sigma, num_samples,
                                       out_dtype=torch.bfloat16):
-    """Plain torch version of the kernel: the same eps, draw by draw."""
+    """Plain torch version of K-A: the same eps, draw by draw."""
     n = mu.numel()
     draws = [scale_shift(mu.reshape(-1), sigma.reshape(-1),
-                         normal_fused(draw_salt(seed, s), (n,),
-                                      device=mu.device), out_dtype)
+                         _eps(seed, s, (n,), mu.device), out_dtype)
              for s in range(num_samples)]
     return torch.stack(draws).reshape((num_samples,) + tuple(mu.shape))
 
 
-def sample_scaled_normals_batch(seed, mu, sigma, num_samples,
-                                out_dtype=torch.bfloat16):
-    """All ``num_samples`` draws of mu + sigma * eps: (S, *mu.shape)."""
-    if out_dtype not in _OUT_DTYPES:
-        raise ValueError(f"out_dtype must be one of {_OUT_DTYPES}, "
-                         f"got {out_dtype}")
-    if mu.shape != sigma.shape:
-        raise ValueError(f"mu {tuple(mu.shape)} and sigma "
-                         f"{tuple(sigma.shape)} differ in shape")
-    num_samples = int(num_samples)
-    if num_samples < 1:
-        raise ValueError(f"num_samples must be >= 1, got {num_samples}")
-    if mu.device.type == "cpu" and sigma.device.type == "cpu":
-        return sample_scaled_normals_batch_plain(seed, mu, sigma,
-                                                 num_samples, out_dtype)
-    if mu.device.type != "cuda" or sigma.device != mu.device:
-        raise ValueError(f"mu on {mu.device} and sigma on {sigma.device}: "
-                         "both must be on one CUDA device, or on the CPU")
-    if torch.is_grad_enabled() and (mu.requires_grad or sigma.requires_grad):
-        raise NotImplementedError(
-            "sample_scaled_normals_batch has no backward kernel yet "
-            "(ROADMAP Queue 2, the training slice); call it under "
-            "torch.no_grad()")
+def dsigma_plain(seed, g):
+    """Plain torch version of K-C's dsigma mode: for g of shape
+    (S, *shape), sum_s g[s] * eps(seed, s) in f32, of shape ``shape``."""
+    return noise_grad(g, lambda s: _eps(seed, s, g.shape[1:], g.device))
+
+
+def drho_from_noise(g, eps, rho):
+    """K-C rho mode's algebra on given noise: g * eps * sigmoid(rho) in
+    f32, for a single draw."""
+    return noise_grad(g[None], lambda s: eps) * torch.sigmoid(rho.float())
+
+
+def drho_plain(seed, g, rho):
+    """Plain torch version of K-C's rho mode: g * eps(seed, 0) *
+    sigmoid(rho) in f32, for a single draw g of rho's shape."""
+    return drho_from_noise(g, _eps(seed, 0, g.shape, g.device), rho)
+
+
+def _on_cpu(*tensors):
+    """True for CPU tensors (the plain versions); raise unless all lie
+    on one CUDA device otherwise."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return True
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"tensors on {sorted(map(str, devices))}: all "
+                         "must be on one CUDA device, or on the CPU")
+    return False
+
+
+def _library():
     from bayesian_torch_tpu_torch.ops.cuda import _build
 
-    lib = _build.load_library()
+    return _build, _build.load_library()
+
+
+def _launch_sample(seed, mu, sigma, num_samples, out_dtype):
+    """K-A on CUDA tensors: (S, *mu.shape) in ``out_dtype``."""
+    build, lib = _library()
     mu32 = mu.detach().float().contiguous()
     sigma32 = sigma.detach().float().contiguous()
     out = torch.empty((num_samples,) + tuple(mu.shape), dtype=out_dtype,
@@ -74,19 +108,141 @@ def sample_scaled_normals_batch(seed, mu, sigma, num_samples,
             mu32.data_ptr(), sigma32.data_ptr(), out.data_ptr(),
             mu32.numel(), num_samples, seed & 0xFFFFFFFFFFFFFFFF,
             int(out_dtype == torch.bfloat16), stream)
-    _build.check(lib, code, "sample_scaled_normals_batch")
+    build.check(lib, code, "sample_scaled_normals_batch")
     sample_scaled_normals_batch.launches += 1
     return out
 
 
-sample_scaled_normals_batch.launches = 0
+def _launch_noise_grad(seed, g, rho, what):
+    """K-C on CUDA tensors: g (S, *shape) in f32 or bf16, rho (shape) or
+    None; returns the f32 gradient of shape ``shape``."""
+    build, lib = _library()
+    if g.dtype not in _G_DTYPES:
+        g = g.float()
+    g = g.contiguous()
+    rho32 = None if rho is None else rho.detach().float().contiguous()
+    out = torch.empty(g.shape[1:], dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.btt_sampled_weights_bwd(
+            g.data_ptr(), int(g.dtype == torch.bfloat16),
+            None if rho32 is None else rho32.data_ptr(), out.data_ptr(),
+            out.numel(), g.shape[0], seed & 0xFFFFFFFFFFFFFFFF, stream)
+    build.check(lib, code, what)
+    return out
+
+
+def dsigma(seed, g):
+    """K-C, dsigma mode: sum_s g[s] * eps(seed, s) for g (S, *shape),
+    f32 out. CPU tensors take ``dsigma_plain``."""
+    if _on_cpu(g):
+        return dsigma_plain(seed, g)
+    out = _launch_noise_grad(seed, g, None, "dsigma")
+    dsigma.launches += 1
+    return out
+
+
+def drho(seed, g, rho):
+    """K-C, rho mode: g * eps(seed, 0) * sigmoid(rho) for a single draw
+    g of rho's shape, f32 out. CPU tensors take ``drho_plain``."""
+    if g.shape != rho.shape:
+        raise ValueError(f"g {tuple(g.shape)} and rho {tuple(rho.shape)} "
+                         "differ in shape")
+    if _on_cpu(g, rho):
+        return drho_plain(seed, g, rho)
+    out = _launch_noise_grad(seed, g[None], rho, "drho")
+    drho.launches += 1
+    return out
+
+
+dsigma.launches = 0
+drho.launches = 0
+
+
+class _BatchSampler(torch.autograd.Function):
+    """K-A forward, K-C backward; saves (seed, S, shape), never eps."""
+
+    @staticmethod
+    def forward(ctx, seed, mu, sigma, num_samples, out_dtype):
+        ctx.seed = seed
+        ctx.dtypes = (mu.dtype, sigma.dtype)
+        if _on_cpu(mu, sigma):
+            return sample_scaled_normals_batch_plain(seed, mu, sigma,
+                                                     num_samples, out_dtype)
+        return _launch_sample(seed, mu, sigma, num_samples, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        dmu = dsig = None
+        if ctx.needs_input_grad[1]:
+            dmu = g.float().sum(0).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[2]:
+            dsig = dsigma(ctx.seed, g).to(ctx.dtypes[1])
+        return None, dmu, dsig, None, None
+
+
+class _GaussianSampler(torch.autograd.Function):
+    """sigma = softplus(rho) and K-A with S = 1 forward; dmu = g and
+    K-C's rho mode backward. Saves the seed and rho, never eps."""
+
+    @staticmethod
+    def forward(ctx, seed, mu, rho, out_dtype):
+        ctx.seed = seed
+        ctx.mu_dtype = mu.dtype
+        ctx.save_for_backward(rho)
+        sigma = sigma_from_rho(rho.float())
+        if _on_cpu(mu, rho):
+            w = sample_scaled_normals_batch_plain(seed, mu, sigma, 1,
+                                                  out_dtype)
+        else:
+            w = _launch_sample(seed, mu, sigma, 1, out_dtype)
+        return w[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        (rho,) = ctx.saved_tensors
+        dmu = d_rho = None
+        if ctx.needs_input_grad[1]:
+            dmu = g.to(ctx.mu_dtype)
+        if ctx.needs_input_grad[2]:
+            d_rho = drho(ctx.seed, g, rho).to(rho.dtype)
+        return None, dmu, d_rho, None
+
+
+def _check_sampler_args(mu, other, name, out_dtype):
+    if out_dtype not in _OUT_DTYPES:
+        raise ValueError(f"out_dtype must be one of {_OUT_DTYPES}, "
+                         f"got {out_dtype}")
+    if mu.shape != other.shape:
+        raise ValueError(f"mu {tuple(mu.shape)} and {name} "
+                         f"{tuple(other.shape)} differ in shape")
+
+
+def sample_scaled_normals_batch(seed, mu, sigma, num_samples,
+                                out_dtype=torch.bfloat16):
+    """All ``num_samples`` draws of mu + sigma * eps: (S, *mu.shape).
+    Differentiable in mu and sigma (backward: K-C, dsigma mode)."""
+    _check_sampler_args(mu, sigma, "sigma", out_dtype)
+    num_samples = int(num_samples)
+    if num_samples < 1:
+        raise ValueError(f"num_samples must be >= 1, got {num_samples}")
+    return _BatchSampler.apply(seed, mu, sigma, num_samples, out_dtype)
+
+
+sample_scaled_normals_batch.launches = 0  # K-A launches, from any caller
+
+
+def sample_gaussian(seed, mu, rho, out_dtype=torch.bfloat16):
+    """One draw of mu + softplus(rho) * eps, in ``out_dtype``; the
+    counterpart of ``sample_gaussian_pallas``. Differentiable in mu and
+    rho (backward: dmu = g, drho from K-C's rho mode)."""
+    _check_sampler_args(mu, rho, "rho", out_dtype)
+    return _GaussianSampler.apply(seed, mu, rho, out_dtype)
 
 
 def sample_gaussian_batch(seed, mu, rho, num_samples,
                           out_dtype=torch.bfloat16):
     """sigma = softplus(rho) in torch (once), draws by the batch sampler;
     the counterpart of ``sample_gaussian_pallas_batch``."""
-    from bayesian_torch_tpu_torch.ops.sampling import sigma_from_rho
-
     return sample_scaled_normals_batch(seed, mu, sigma_from_rho(rho),
                                        num_samples, out_dtype)

@@ -130,15 +130,15 @@ def sample_gaussian_weight(generator, mu, rho, eps=None):
     """W = mu + softplus(rho) * eps; returns (W, sigma).
 
     ``eps`` may be injected (golden-value tests). Without it the draw goes
-    through the batch sampler with one draw (its kernel on a CUDA tensor,
-    its plain version on a CPU one), seeded from ``generator``.
+    through ``sample_gaussian``, seeded from ``generator``: the batch
+    sampler's kernel with one draw forward and the regenerate-eps kernel
+    backward on a CUDA tensor, their plain versions on a CPU one.
     """
     sigma = sigma_from_rho(rho)
     if eps is not None:
         return mu + sigma * eps, sigma
     from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
-        sample_scaled_normals_batch,
+        sample_gaussian,
     )
-    w = sample_scaled_normals_batch(draw_seed(generator), mu, sigma, 1,
-                                    out_dtype=mu.dtype)[0]
-    return w, sigma
+    return sample_gaussian(draw_seed(generator), mu, rho,
+                           out_dtype=mu.dtype), sigma

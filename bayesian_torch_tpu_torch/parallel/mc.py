@@ -1,21 +1,26 @@
-"""Monte-Carlo inference over weight draws (counterpart of
-``bayesian_torch_tpu/parallel/mc.py``, eval-only slice).
+"""Monte-Carlo forwards over weight draws, for inference and training
+(counterpart of ``bayesian_torch_tpu/parallel/mc.py``).
 
-``mc_forward`` is the Python-loop twin of the JAX scan emission
-(``_mc_forward_scan``): every layer's S weight sets are drawn first, by
-the batch-sampler kernel in one launch (``_presample_layers``), then a
-loop runs the model once per draw with that draw's weights attached.
-PyTorch runs eagerly, so the loop is the loop; the JAX ``vmap`` emission,
-the structured (channel-tiled) path and meshes come in later slices.
+``mc_forward`` is the Python-loop twin of the JAX emissions. In eval mode
+it follows the scan emission (``_mc_forward_scan``): every layer's S
+weight sets are drawn first, by the batch-sampler kernel in one launch
+(``_presample_layers``). In training mode it follows the vmapped emission
+(``_mc_forward_inner``): the draws are sampled inside the layers, and the
+BatchNorm statistics of each draw are recorded and applied as one EMA
+update (``_apply_bn_ema``). PyTorch runs eagerly, so the loop is the loop;
+the JAX ``vmap`` emission itself, the structured (channel-tiled) path and
+meshes come in later slices.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch import nn
 
+from bayesian_torch_tpu_torch.layers.batchnorm import MCBatchStats
 from bayesian_torch_tpu_torch.models.dnn_to_bnn import iter_bayesian_layers
 from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
     sample_scaled_normals_batch,
@@ -23,6 +28,7 @@ from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
 from bayesian_torch_tpu_torch.ops.sampling import draw_seed, sigma_from_rho
 
 _PRESAMPLE = ("auto", "on", "off", "xla", "hash")
+_BN_STATS = ("ema", "freeze")
 
 
 def _posterior(layer):
@@ -47,6 +53,10 @@ def _presample_layers(model: nn.Module, num_mc: int):
     (*k, O, I) permutation was a choice of XLA layout. The seed is one
     integer from the group's first layer's CPU generator. Biases are tiny
     and drawn with plain ``torch.randn`` from each layer's generator.
+
+    Differentiable when grad is enabled: the sampler's backward is one
+    regenerate-eps launch over the whole flat buffer, and the split back
+    into layers has a single concatenation as its backward.
     """
     groups = {}
     for layer in iter_bayesian_layers(model):
@@ -62,12 +72,9 @@ def _presample_layers(model: nn.Module, num_mc: int):
             torch.cat([m.reshape(-1) for m in mus]),
             torch.cat([sigma_from_rho(_posterior(layer)[1]).reshape(-1)
                        for layer in group]), num_mc, dtype)
-        off = 0
-        for layer, mu in zip(group, mus):
-            n = mu.numel()
-            draws[layer] = w_all[:, off:off + n].reshape(
-                (num_mc,) + tuple(mu.shape))
-            off += n
+        parts = w_all.split([m.numel() for m in mus], dim=1)
+        for layer, mu, w in zip(group, mus, parts):
+            draws[layer] = w.reshape((num_mc,) + tuple(mu.shape))
 
     touched = []
     for layer in iter_bayesian_layers(model):
@@ -84,28 +91,88 @@ def _presample_layers(model: nn.Module, num_mc: int):
     return touched
 
 
+def _apply_bn_ema(mod):
+    """Average the recorded per-draw batch statistics and apply one EMA
+    update, with the factor semantics of torch's own update (momentum, or
+    a cumulative average when momentum is None)."""
+    stats = mod._mc_stats.stacked()  # (num_mc, 2, C)
+    mean, unbiased_var = stats.mean(dim=0)
+    mod.num_batches_tracked.add_(1)
+    if mod.momentum is None:
+        factor = 1.0 / float(mod.num_batches_tracked)
+    else:
+        factor = mod.momentum
+    mod.running_mean.mul_(1 - factor).add_(factor * mean)
+    mod.running_var.mul_(1 - factor).add_(factor * unbiased_var)
+
+
+@contextlib.contextmanager
+def _mc_batch_stats(model: nn.Module, bn_stats: str):
+    """For the draw loop of a training-mode model: freeze every
+    BatchNorm's running-stat writes and, with ``bn_stats="ema"``, record
+    each draw's batch statistics; on success apply one EMA update per
+    layer. Always unfreezes and drops the records."""
+    frozen, collecting = [], []
+    for mod in model.modules():
+        if not (isinstance(mod, nn.modules.batchnorm._BatchNorm)
+                and mod.training and mod.track_running_stats):
+            continue
+        if getattr(mod, "stats_frozen", None) is not False:
+            raise NotImplementedError(
+                f"mc_forward: {type(mod).__name__} in training mode would "
+                "update its running statistics once per draw; use the "
+                "port's MC-aware bayesian_torch_tpu_torch.nn.BatchNorm2d "
+                "(or BatchNorm2dLayer), which records each draw's "
+                "statistics for one EMA update")
+        frozen.append(mod)
+        if bn_stats == "ema":
+            collecting.append(mod)
+    try:
+        for mod in frozen:
+            mod.stats_frozen = True
+        for mod in collecting:
+            mod._mc_stats = MCBatchStats()
+        yield
+        for mod in collecting:
+            _apply_bn_ema(mod)
+    finally:
+        for mod in frozen:
+            mod.stats_frozen = False
+            mod._mc_stats = None
+
+
 def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
                return_kl: bool = True, compute_kl: Optional[bool] = None,
-               presample: str = "auto", structured: bool = False,
-               emission: str = "auto", reduce: Optional[str] = None):
-    """Run ``num_mc`` stochastic forwards of an eval-mode model.
+               presample: str = "auto", bn_stats: str = "ema",
+               structured: bool = False, emission: str = "auto",
+               reduce: Optional[str] = None):
+    """Run ``num_mc`` stochastic forwards of the model.
 
     Returns ``(outputs, kl)``, or ``outputs`` when ``return_kl`` is False.
     Outputs are stacked on a leading MC axis, shape (num_mc, ...), or,
     with ``reduce="mean"``, the predictive mean (batch, ...) in float32,
     accumulated inside the loop. The KL depends on the parameters only,
-    so it is the same for every draw and is returned once.
-    ``return_kl=False`` also skips evaluating the KL (``compute_kl``
-    overrides that link).
+    so it is evaluated in the last draw alone and returned once (it
+    enters a loss once). ``return_kl=False`` also skips evaluating it
+    (``compute_kl`` overrides that link).
 
     ``presample``: "on" draws every layer's weights with the batch-sampler
-    kernel before the loop; "off" samples inside each layer, draw by draw;
-    "auto" means "on" here (the JAX default picks an XLA presample that
-    steers XLA's fusion, which has no meaning on the card). "xla" and
-    "hash" are not ported.
+    kernel before the loop (differentiable: its backward is one
+    regenerate-eps launch); "off" samples inside each layer, draw by draw;
+    "auto" means "on" in eval mode and "off" when any module is in
+    training mode, as the JAX emissions resolve it ("xla" under the scan,
+    "off" under the vmap; "xla" steers XLA's fusion and has no meaning on
+    the card). "xla" and "hash" are not ported.
 
-    Eval-only: a module in training mode raises (the MC batch-statistics
-    path comes with the training slice). Runs under ``torch.no_grad()``.
+    Training mode (any module's ``training`` set) runs with gradients;
+    eval runs under ``torch.no_grad()``. ``num_mc == 1`` is the plain
+    forward, with torch's own BatchNorm update. For ``num_mc > 1``,
+    ``bn_stats`` controls BatchNorm running statistics:
+
+    - ``"ema"`` (default): each draw normalizes by its own batch
+      statistics and records them; after the loop ONE EMA update from
+      their average (``num_batches_tracked`` + 1);
+    - ``"freeze"``: running statistics are left untouched.
     """
     if emission not in ("auto", "vmap", "scan"):
         raise ValueError(f"mc_forward: unknown emission {emission!r} "
@@ -116,6 +183,9 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
     if presample not in _PRESAMPLE:
         raise ValueError(f"mc_forward: unknown presample {presample!r} "
                          f"(expected one of {_PRESAMPLE})")
+    if bn_stats not in _BN_STATS:
+        raise ValueError(f"mc_forward: unknown bn_stats {bn_stats!r} "
+                         f"(expected one of {_BN_STATS})")
     if emission == "vmap" or structured or mesh is not None:
         raise NotImplementedError(
             "mc_forward: the vmap emission, structured=True and mesh= are "
@@ -126,43 +196,45 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
             f"mc_forward: presample={presample!r} is a TPU code-generation "
             "variant and is not ported (ROADMAP 'Not ported'); use 'on' "
             "or 'off'")
-    for mod in model.modules():
-        if mod.training and getattr(mod, "track_running_stats", False):
-            raise NotImplementedError(
-                "mc_forward is eval-only in the port: BN running-stat "
-                "updates under MC draws come with the training slice "
-                "(ROADMAP Queue 1 #8); call model.eval() first")
+    training = any(mod.training for mod in model.modules())
+    if presample == "auto":
+        presample = "off" if training else "on"
     if compute_kl is None:
         compute_kl = return_kl
-    kl_off = []
-    if not compute_kl:
-        for mod in model.modules():
-            if getattr(mod, "compute_kl", None) is True:
-                mod.compute_kl = False
-                kl_off.append(mod)
+    kl_layers = [mod for mod in model.modules()
+                 if getattr(mod, "compute_kl", None) is True]
     presampled = []
+    grad = contextlib.nullcontext() if training else torch.no_grad()
+    bn = (_mc_batch_stats(model, bn_stats) if training and num_mc > 1
+          else contextlib.nullcontext())
     try:
-        with torch.no_grad():
-            if presample in ("auto", "on") and num_mc > 1:
-                presampled = _presample_layers(model, num_mc)
+        with grad:
+            if presample == "on" and num_mc > 1:
+                presampled = [(layer, {name: stacked.unbind(0)
+                                       for name, stacked in attrs.items()})
+                              for layer, attrs in _presample_layers(model,
+                                                                    num_mc)]
             acc, outs, kl = None, [], 0.0
-            for s in range(num_mc):
-                for layer, attrs in presampled:
-                    for name, stacked in attrs.items():
-                        setattr(layer, name, stacked[s])
-                out = model(x)
-                out, kl = out if isinstance(out, tuple) else (out, 0.0)
-                if reduce == "mean":
-                    term = out.float() / num_mc
-                    acc = term if acc is None else acc + term
-                else:
-                    outs.append(out)
+            with bn:
+                for s in range(num_mc):
+                    for mod in kl_layers:
+                        mod.compute_kl = compute_kl and s == num_mc - 1
+                    for layer, attrs in presampled:
+                        for name, per_draw in attrs.items():
+                            setattr(layer, name, per_draw[s])
+                    out = model(x)
+                    out, kl = out if isinstance(out, tuple) else (out, 0.0)
+                    if reduce == "mean":
+                        term = out.float() / num_mc
+                        acc = term if acc is None else acc + term
+                    else:
+                        outs.append(out)
     finally:
         for layer, attrs in presampled:
             for name in attrs:
                 if name in vars(layer):
                     delattr(layer, name)
-        for mod in kl_off:
+        for mod in kl_layers:
             mod.compute_kl = True
     result = acc if reduce == "mean" else torch.stack(outs)
     if return_kl:

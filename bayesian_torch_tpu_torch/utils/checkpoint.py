@@ -1,17 +1,94 @@
-"""Carry weights from the JAX package into the port (the reverse of
-``import_torch_state_dict`` in ``bayesian_torch_tpu/utils/checkpoint.py``).
+"""Checkpoints, and weights carried from the JAX package (counterpart of
+``bayesian_torch_tpu/utils/checkpoint.py``).
 
-The port keeps the reference's parameter names, so a torch ``state_dict``
-key equals the JAX package's ``_torch_key_for`` rendering of an nnx state
-path (``layer1.0.downsample.0.mu_kernel``, ``fc.mu_bias``). Priors are
-non-persistent buffers and are not carried.
+``save_checkpoint`` / ``load_checkpoint`` keep a model's ``state_dict``
+(posteriors, BN affine and running statistics; priors are non-persistent
+buffers and are rebuilt from the config), as the reference's
+``torch.save(state_dict)``. ``save_training_checkpoint`` /
+``load_training_checkpoint`` keep the ``--resume`` payload under the JAX
+payload's keys: ``model``, ``opt`` (the optimizer's ``state_dict``),
+``meta`` (``epoch``, ``best_acc``) and ``rng_count``. Where the JAX
+payload keeps each noise stream's counter, the port keeps each layer's
+CPU generator state, so a resumed run draws the same noise as one that
+never stopped. Files are written with ``torch.save`` and read back with
+``weights_only=True``.
+
+``load_jax_state`` is the reverse of ``import_torch_state_dict``: the port
+keeps the reference's parameter names, so a torch ``state_dict`` key
+equals the JAX package's ``_torch_key_for`` rendering of an nnx state
+path (``layer1.0.downsample.0.mu_kernel``, ``fc.mu_bias``).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 from torch import nn
+
+
+def _save(payload, path):
+    path = os.path.abspath(os.path.expanduser(str(path)))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)  # a run cut mid-write keeps the old checkpoint
+
+
+def _load(path):
+    return torch.load(os.path.expanduser(str(path)), map_location="cpu",
+                      weights_only=True)
+
+
+def _generators(model: nn.Module):
+    """{module name: CPU generator} of every layer that draws noise."""
+    return {name: mod.generator for name, mod in model.named_modules()
+            if isinstance(getattr(mod, "generator", None), torch.Generator)}
+
+
+def save_checkpoint(model: nn.Module, path) -> None:
+    """Save the model's ``state_dict`` to ``path``, overwriting it."""
+    _save(model.state_dict(), path)
+
+
+def load_checkpoint(model: nn.Module, path) -> None:
+    """Restore a ``save_checkpoint`` file into ``model`` in place."""
+    model.load_state_dict(_load(path))
+
+
+def save_training_checkpoint(path, model: nn.Module, optimizer=None, *,
+                             epoch: int = 0, best_acc: float = 0.0) -> None:
+    """Full training checkpoint: model state, optimizer state, every
+    layer's generator state, epoch and best accuracy."""
+    payload = {
+        "model": model.state_dict(),
+        "rng_count": {name: gen.get_state()
+                      for name, gen in _generators(model).items()},
+        "meta": {"epoch": int(epoch), "best_acc": float(best_acc)},
+    }
+    if optimizer is not None:
+        payload["opt"] = optimizer.state_dict()
+    _save(payload, path)
+
+
+def load_training_checkpoint(path, model: nn.Module, optimizer=None) -> dict:
+    """Restore a ``save_training_checkpoint`` payload in place; returns
+    ``{"epoch": int, "best_acc": float}`` so a trainer continues from
+    the next epoch."""
+    payload = _load(path)
+    model.load_state_dict(payload["model"])
+    gens = _generators(model)
+    if set(gens) != set(payload["rng_count"]):
+        raise ValueError(
+            f"{path}: generator states for {sorted(payload['rng_count'])}, "
+            f"model has {sorted(gens)}")
+    for name, gen in gens.items():
+        gen.set_state(payload["rng_count"][name])
+    if optimizer is not None:
+        optimizer.load_state_dict(payload["opt"])
+    return {"epoch": int(payload["meta"]["epoch"]),
+            "best_acc": float(payload["meta"]["best_acc"])}
 
 
 def load_jax_state(model: nn.Module, arrays, *, strict: bool = True):

@@ -1,11 +1,18 @@
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py [--profile]
 
-Main path: Bayesian ResNet-50 (reparameterization), eval mode, bf16
-compute, ``mc_forward`` with 10 weight draws at batch 128 of 224x224
-images, on seeded random weights and images. Phases, each printing its own
-line(s):
+Main paths: Bayesian ResNet-50 (reparameterization) on seeded random
+weights and images, 224x224, 1000 classes, bf16 compute:
+
+- inference: eval mode, ``mc_forward`` with 10 weight draws at batch 128;
+- training: the ELBO train step ``examples._engine.make_train_step`` with
+  4 draws at batch 128, SGD(0.01, momentum 0.9), the head through the fused
+  sampled GEMM (``fc.impl="pallas"``), draws inside the layers;
+- the trainer ``examples/main_bayesian_imagenet.py`` at batch 32, f32:
+  train, resume, test.
+
+Phases, each printing its own line(s):
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
 2. build: the CUDA kernels compiled from ``bayesian_torch_tpu_torch/csrc``;
@@ -14,25 +21,41 @@ line(s):
    eps moments, median times;
 4. K-B (fused sampled GEMM) against its plain version at the head shape
    (M=128, K=2048, N=1000), f32 with TF32 off, median times;
-5. main path: three batches through ``mc_forward(..., num_mc=10,
+5. inference path: three batches through ``mc_forward(..., num_mc=10,
    reduce="mean")`` (presample "auto", i.e. K-A), one K-A launch per
    batch, predictive entropy, ms per batch and images/s;
 6. the head through K-B (``fc.impl = "pallas"``, ``presample="off"``): ten
    K-B launches for one batch; then a sanity run at rho = -30 where ten
    draws must agree with a single draw;
-7. with ``--profile`` only: one main-path batch under ``torch.profiler``
-   (device time, idle share, the top kernels) and the K-B kernel alone.
+7. the backward kernels against their plain versions at full shapes: K-C
+   (dsigma mode, n = all Bayesian weights, S = 4, bf16 g; rho mode, S = 1,
+   f32 g), K-D and K-E at the head shape, f32 with TF32 off, median times;
+   and ``torch.autograd.grad`` through the public ops against autograd
+   through their plain versions;
+8. training path: one warm-up and three timed ELBO steps at MC-4 bs128:
+   ms, images/s, loss, CE, KL and every kernel's launches per step (equal
+   to the counts the model implies), finite and non-zero gradients, one
+   BN EMA update per step; peak memory;
+9. one training step with ``presample="on"``: one K-A and one K-C (dsigma)
+   launch;
+10. a training sanity check at rho = -30: an MC-4 step and an MC-1 step
+    from the same state give the same mu gradients and running stats;
+11. the trainer: ``--epochs=2``, then ``--resume --epochs=3`` (starts at
+    epoch 2), then ``--mode=test``;
+12. with ``--profile`` only: one inference batch and one training step
+    under ``torch.profiler`` (device time, idle share, the top kernels),
+    and the K-B kernel alone.
 
 The line before the last is a JSON object with every kernel's launches,
-counted from zero in the run named by its ``run`` key (K-A: the three
-batches of phase 5; K-B: the one batch of phase 6), its error against its
-plain version and both times; the last line is ``{"ok": true, "device":
-{...}}``, printed only after every phase passed. Any failure raises and
-exits non-zero, as does a machine without CUDA.
+counted from zero in the run named by its ``run`` key, its error against
+its plain version and both times; the last line is ``{"ok": true,
+"device": {...}}``, printed only after every phase passed. Any failure
+raises and exits non-zero, as does a machine without CUDA.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -42,6 +65,8 @@ import time
 
 BATCH = 128
 NUM_MC = 10
+TRAIN_MC = 4
+TRAINER_BATCH = 32
 IMAGE = 224
 SEED = 0
 REPS = 5
@@ -306,32 +331,438 @@ def phase_head(model, ka, kb, x):
     return launches
 
 
-def phase_profile(model, x, kb):
-    """One main-path batch under torch.profiler: host wall time, device
-    time, the device's idle share and the kernels that take it; then the
-    K-B kernel alone at the head shape."""
+@contextlib.contextmanager
+def tf32_off():
+    """f32 matmuls and convolutions in full f32 (TF32 off) inside."""
+    import torch
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def max_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def phase_noise_grad(model):
+    """K-C in both modes against its plain version at ResNet-50's flat
+    size: dsigma mode with S = 4 draws of bf16 g, rho mode with one f32
+    draw."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops.cuda import sampled_weights as ka
+    from bayesian_torch_tpu_torch.ops.sampling import sigma_from_rho
+
+    mu, sigma = flat_posterior(model)
+    n = mu.numel()
+    rho = torch.log(torch.expm1(sigma))
+    check(max_err(sigma_from_rho(rho), sigma) <= 1e-6, "rho round trip")
+    del mu, sigma
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    seed = 0x5EED_0000_0000_0002
+    results = {}
+    g = torch.randn((TRAIN_MC, n), generator=gen,
+                    device="cuda").bfloat16()
+    got, want = ka.dsigma(seed, g), ka.dsigma_plain(seed, g)
+    err, scale = max_err(got, want), want.abs().max().item()
+    del got, want
+    log(f"[K-C dsigma] n={n} S={TRAIN_MC} bf16 g: max|kernel-plain|="
+        f"{err:.3e}, limit 1e-5 x max|plain| = {1e-5 * scale:.3e}")
+    check(err <= 1e-5 * scale, "K-C (dsigma) differs from its plain version")
+    ms, plain_ms = median_ms_pair(lambda: ka.dsigma(seed, g),
+                                  lambda: ka.dsigma_plain(seed, g))
+    gbytes = (2 * TRAIN_MC * n + 4 * n) / 1e9
+    log(f"[K-C dsigma] median of {REPS}: kernel {ms:.3f} ms "
+        f"({gbytes / ms * 1e3:.0f} GB/s of {gbytes * 1e3:.0f} MB moved), "
+        f"plain {plain_ms:.3f} ms")
+    results["dsigma"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    del g
+    g = torch.randn(n, generator=gen, device="cuda")
+    got, want = ka.drho(seed, g, rho), ka.drho_plain(seed, g, rho)
+    err, scale = max_err(got, want), want.abs().max().item()
+    del got, want
+    log(f"[K-C drho] n={n} S=1 f32 g: max|kernel-plain|={err:.3e}, limit "
+        f"1e-5 x max|plain| = {1e-5 * scale:.3e}")
+    check(err <= 1e-5 * scale, "K-C (drho) differs from its plain version")
+    ms, plain_ms = median_ms_pair(lambda: ka.drho(seed, g, rho),
+                                  lambda: ka.drho_plain(seed, g, rho))
+    gbytes = 12 * n / 1e9
+    log(f"[K-C drho] median of {REPS}: kernel {ms:.3f} ms "
+        f"({gbytes / ms * 1e3:.0f} GB/s of {gbytes * 1e3:.0f} MB moved), "
+        f"plain {plain_ms:.3f} ms")
+    results["drho"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return results
+
+
+def phase_gemm_backward(model):
+    """K-D and K-E against their plain versions at the head shape, f32
+    with TF32 off."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops.cuda import sampled_matmul as kb
+    from bayesian_torch_tpu_torch.ops.sampling import sigma_from_rho
+
+    mu = model.fc.mu_weight.detach()
+    sigma = sigma_from_rho(model.fc.rho_weight.detach())
+    N, K = mu.shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    g = torch.randn(BATCH, N, generator=gen, device="cuda")
+    x = torch.randn(BATCH, K, generator=gen, device="cuda")
+    seed = 4243
+    flops = 2 * BATCH * N * K
+    results = {}
+    with tf32_off():
+        got = kb.sampled_matmul_dx(seed, g, mu, sigma)
+        want = kb.sampled_matmul_dx_plain(seed, g, mu, sigma)
+        err, scale = max_err(got, want), want.abs().max().item()
+        log(f"[K-D] dx: M={BATCH} N={N} K={K} f32: max|kernel-plain|="
+            f"{err:.3e}, limit 1e-4 x max|plain| = {1e-4 * scale:.3e}")
+        check(err <= 1e-4 * scale, "K-D differs from its plain version")
+        ms, plain_ms = median_ms_pair(
+            lambda: kb.sampled_matmul_dx(seed, g, mu, sigma),
+            lambda: kb.sampled_matmul_dx_plain(seed, g, mu, sigma))
+        log(f"[K-D] median of {REPS}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f}"
+            f" TFLOP/s), plain {plain_ms:.4f} ms")
+        results["dx"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+        dmu, dsig = kb.sampled_matmul_dw(seed, g, x)
+        dmu_w, dsig_w = kb.sampled_matmul_dw_plain(seed, g, x)
+        err = max(max_err(dmu, dmu_w), max_err(dsig, dsig_w))
+        scale = min(dmu_w.abs().max().item(), dsig_w.abs().max().item())
+        log(f"[K-E] dmu, dsigma: M={BATCH} N={N} K={K} f32: "
+            f"max|kernel-plain|={err:.3e}, limit 1e-4 x max|plain| = "
+            f"{1e-4 * scale:.3e}")
+        check(err <= 1e-4 * scale, "K-E differs from its plain version")
+        ms, plain_ms = median_ms_pair(
+            lambda: kb.sampled_matmul_dw(seed, g, x),
+            lambda: kb.sampled_matmul_dw_plain(seed, g, x))
+        log(f"[K-E] median of {REPS}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f}"
+            f" TFLOP/s), plain {plain_ms:.4f} ms")
+        results["dw"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return results
+
+
+def phase_autograd(model):
+    """torch.autograd.grad through the public ops on CUDA against
+    autograd through their plain versions: the batch sampler (S = 4, bf16
+    draws), the single-draw sampler and the sampled GEMM at the head."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops.cuda import sampled_matmul as kb
+    from bayesian_torch_tpu_torch.ops.cuda import sampled_weights as ka
+    from bayesian_torch_tpu_torch.ops.sampling import sigma_from_rho
+
+    conv = model.layer4[0].conv2
+    mu = conv.mu_kernel.detach().clone().requires_grad_(True)
+    rho = conv.rho_kernel.detach().clone().requires_grad_(True)
+    sigma = sigma_from_rho(rho.detach()).requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    worst = []
+
+    def compare(name, got, want, tol):
+        for a, b in zip(got, want):
+            err, scale = max_err(a, b), b.abs().max().item()
+            check(err <= tol * scale, f"autograd through {name} differs "
+                  f"from its plain version ({err:.3e} > {tol} x {scale:.3e})")
+            worst.append(err / max(scale, 1e-30))
+
+    w = ka.sample_scaled_normals_batch(7, mu, sigma, TRAIN_MC)
+    g = torch.randn(w.shape, generator=gen, device="cuda").bfloat16()
+    compare("sample_scaled_normals_batch",
+            torch.autograd.grad(w, (mu, sigma), g),
+            torch.autograd.grad(ka.sample_scaled_normals_batch_plain(
+                7, mu, sigma, TRAIN_MC), (mu, sigma), g), 1e-5)
+    w = ka.sample_gaussian(8, mu, rho)
+    g = torch.randn(w.shape, generator=gen, device="cuda").bfloat16()
+    plain = ka.sample_scaled_normals_batch_plain(
+        8, mu, sigma_from_rho(rho), 1)[0]
+    compare("sample_gaussian", torch.autograd.grad(w, (mu, rho), g),
+            torch.autograd.grad(plain, (mu, rho), g), 1e-5)
+    fmu = model.fc.mu_weight.detach().clone().requires_grad_(True)
+    frho = model.fc.rho_weight.detach().clone().requires_grad_(True)
+    x = torch.randn(BATCH, fmu.shape[1], generator=gen, device="cuda",
+                    requires_grad=True)
+    g = torch.randn(BATCH, fmu.shape[0], generator=gen, device="cuda")
+    with tf32_off():
+        compare("sampled_matmul",
+                torch.autograd.grad(kb.sampled_matmul(9, x, fmu, frho),
+                                    (x, fmu, frho), g),
+                torch.autograd.grad(kb.sampled_matmul_plain(
+                    9, x, fmu, sigma_from_rho(frho), torch.float32),
+                    (x, fmu, frho), g), 1e-4)
+    log(f"[autograd] grad through sample_scaled_normals_batch (S="
+        f"{TRAIN_MC}, n={mu.numel()}), sample_gaussian and sampled_matmul "
+        f"(head) on CUDA equals grad through their plain versions: worst "
+        f"max|diff| / max|plain| = {max(worst):.3e}")
+
+
+def kernel_counters():
+    """{name: wrapper} of every kernel's launch counter."""
+    from bayesian_torch_tpu_torch.ops.cuda import sampled_matmul as kb
+    from bayesian_torch_tpu_torch.ops.cuda import sampled_weights as ka
+
+    return {"K-A": ka.sample_scaled_normals_batch, "K-B": kb.sampled_matmul,
+            "K-C dsigma": ka.dsigma, "K-C drho": ka.drho,
+            "K-D": kb.sampled_matmul_dx, "K-E": kb.sampled_matmul_dw}
+
+
+def reset_counts():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def counts():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def expected_step_launches(model, num_mc):
+    """Kernel launches of one training step with draws in the layers: per
+    draw, K-A once per in-layer draw (every weight not on the fused GEMM,
+    every bias) and K-C (drho) for each in its backward; the fused-GEMM
+    head's K-B forward and K-D, K-E backward once each."""
+    from bayesian_torch_tpu_torch.models.dnn_to_bnn import (
+        iter_bayesian_layers,
+    )
+
+    layers = list(iter_bayesian_layers(model))
+    fused = sum(getattr(layer, "impl", "xla") == "pallas" for layer in layers)
+    draws = sum((getattr(layer, "impl", "xla") != "pallas")
+                + (layer.mu_bias is not None) for layer in layers)
+    return {"K-A": num_mc * draws, "K-B": num_mc * fused,
+            "K-C dsigma": 0, "K-C drho": num_mc * draws,
+            "K-D": num_mc * fused, "K-E": num_mc * fused}
+
+
+def labels(seed):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, 1000, (BATCH,), generator=gen, device="cuda")
+
+
+def bn_layers(model):
+    from torch import nn
+
+    return [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+
+
+def check_grads(model, what):
+    """Every gradient finite; no mu or rho gradient all zero."""
+    import torch
+
+    for name, p in model.named_parameters():
+        check(p.grad is not None, f"{what}: {name} has no gradient")
+        check(bool(torch.isfinite(p.grad).all()),
+              f"{what}: non-finite gradient of {name}")
+        if "mu_" in name or "rho_" in name:
+            check(bool((p.grad != 0).any()),
+                  f"{what}: gradient of {name} is all zero")
+
+
+def phase_train(model):
+    """The training main path: one warm-up and three timed MC-4 bs128
+    ELBO steps. Returns the kernels' launches in the three timed steps."""
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+
+    model.train()
+    model.fc.impl = "pallas"
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    step = make_train_step(TRAIN_MC, BATCH)
+    step(model, opt, images(SEED + 400), labels(SEED + 400))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = expected_step_launches(model, TRAIN_MC)
+    bns = bn_layers(model)
+    reset_counts()
+    times = []
+    for i in range(3):
+        x, y = images(SEED + 401 + i), labels(SEED + 401 + i)
+        tracked = [int(m.num_batches_tracked) for m in bns]
+        running = [m.running_mean.clone() for m in bns]
+        before = counts()
+        t0 = time.perf_counter()
+        loss, ce, kl = step(model, opt, x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        got = {k: v - before[k] for k, v in counts().items()}
+        log(f"[train] step {i}: {times[-1]:.1f} ms, "
+            f"{BATCH / times[-1] * 1e3:.1f} images/s, loss {float(loss):.4f},"
+            f" CE {float(ce):.4f}, KL {float(kl):.1f}, launches {got}")
+        check(math.isfinite(float(loss)), f"step {i}: loss {float(loss)}")
+        check_grads(model, f"step {i}")
+        check(all(int(m.num_batches_tracked) == t + 1
+                  for m, t in zip(bns, tracked)),
+              f"step {i}: num_batches_tracked did not go up by exactly 1")
+        check(all(not torch.equal(m.running_mean, r)
+                  for m, r in zip(bns, running)),
+              f"step {i}: a running mean did not move")
+        check(got == want, f"step {i}: launches {got}, the model implies "
+              f"{want}")
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train] ResNet-50 MC-{TRAIN_MC} bs{BATCH} {IMAGE}^2 bf16, "
+        f"fc.impl='pallas', presample 'auto' (off): median {ms:.1f} ms/step, "
+        f"{BATCH / ms * 1e3:.1f} images/s, peak {peak:.2f} GiB; launches in "
+        f"the three steps {counts()}")
+    return counts()
+
+
+def phase_train_presample(model):
+    """One training step with presample="on": the whole model's draws in
+    one K-A launch, their backward in one K-C (dsigma) launch."""
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    step = make_train_step(TRAIN_MC, BATCH, presample="on")
+    x, y = images(SEED + 410), labels(SEED + 410)
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, _, _ = step(model, opt, x, y)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = counts()
+    log(f"[train presample] presample='on': {ms:.1f} ms, loss "
+        f"{float(loss):.4f}, launches {got}")
+    check(math.isfinite(float(loss)), "presample step: loss")
+    check_grads(model, "presample step")
+    check(got["K-A"] == 1 and got["K-C dsigma"] == 1,
+          f"presample step: K-A {got['K-A']} and K-C (dsigma) "
+          f"{got['K-C dsigma']} launches, want 1 and 1")
+    return got
+
+
+def phase_train_sanity(model):
+    """rho = -30 (sigma ~ 1e-13): every draw equals the posterior mean,
+    so one MC-4 step and one MC-1 step from the same state give the same
+    mu gradients and the same running statistics."""
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    x, y = images(SEED + 420), labels(SEED + 420)
+
+    def step_from_saved(num_mc):
+        model.load_state_dict(saved)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if "rho" in name:
+                    p.fill_(-30.0)
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        make_train_step(num_mc, BATCH)(model, opt, x, y)
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()
+                 if "mu_" in n}
+        stats = {k: v.clone() for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        return grads, stats
+
+    try:
+        g4, s4 = step_from_saved(TRAIN_MC)
+        g1, s1 = step_from_saved(1)
+    finally:
+        model.load_state_dict(saved)
+    worst = 0.0
+    # bf16 activations; the two steps differ only in cuDNN's order of
+    # accumulation and in how the two BN paths take the variance
+    for what, a, b in (("mu gradient", g4, g1), ("running stat", s4, s1)):
+        for k in b:
+            diff, scale = max_err(a[k], b[k]), b[k].abs().max().item()
+            check(diff <= 2**-6 * scale, f"rho=-30: {what} {k} differs "
+                  f"between MC-{TRAIN_MC} and MC-1 ({diff:.3e} > 2^-6 x "
+                  f"{scale:.3e})")
+            worst = max(worst, diff / max(scale, 1e-30))
+    log(f"[train sanity] rho=-30: MC-{TRAIN_MC} and MC-1 steps agree on "
+        f"{len(g1)} mu gradients and {len(s1)} running statistics; worst "
+        f"max|diff| / max|MC-1| = {worst:.3e}, limit 2^-6 = {2**-6:.3e}")
+
+
+def phase_trainer():
+    """The trainer entry point at full ResNet-50 width: train 2 epochs,
+    resume to 3, test."""
+    import io
+    import os
+    import tempfile
+
+    from bayesian_torch_tpu_torch.examples import main_bayesian_imagenet
+
+    def run(save_dir, *extra):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            metrics = main_bayesian_imagenet.main([
+                "--synthetic", f"--batch-size={TRAINER_BATCH}",
+                "--num_monte_carlo=2", f"--save_dir={save_dir}", *extra])
+        text = out.getvalue()
+        log(f"[trainer] {' '.join(extra)}: {time.perf_counter() - t0:.1f} s"
+            f"; last lines: {' | '.join(text.strip().splitlines()[-2:])}")
+        return metrics, text
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        metrics, _ = run(tmp, "--mode=train", "--epochs=2")
+        trained = counts()
+        log(f"[trainer] launches in --epochs=2: {trained}")
+        check(trained["K-A"] > 1 and trained["K-C drho"] > 0,
+              "the trainer's steps did not go through K-A and K-C (drho)")
+        path = os.path.join(tmp, "imagenet_bayesian_metrics.json")
+        with open(path) as f:
+            saved = json.load(f)
+        check(0.0 <= saved["accuracy"] <= 1.0, f"accuracy {saved}")
+        _, text = run(tmp, "--mode=train", "--epochs=3", "--resume")
+        check("resumed from epoch 2" in text and "epoch 2:" in text
+              and "epoch 0:" not in text and "epoch 1:" not in text,
+              "--resume did not start at epoch 2")
+        tested, _ = run(tmp, "--mode=test")
+        check(0.0 <= tested["accuracy"] <= 1.0, f"test accuracy {tested}")
+    return trained
+
+
+def profile_window(what, fn):
+    """Run ``fn`` once under torch.profiler; log wall time, device time,
+    idle share and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from bayesian_torch_tpu_torch.parallel import mc_forward
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        mc_forward(model, x, NUM_MC, reduce="mean")
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     dev = sum(e.self_device_time_total for e in events
               if e.device_type == DeviceType.CUDA
               and not e.is_user_annotation) / 1e3
-    log(f"[profile] one main-path batch: wall {wall:.1f} ms under the "
-        f"profiler, device time {dev:.1f} ms, idle share "
-        f"{1 - dev / wall:.3f}")
+    log(f"[profile] {what}: wall {wall:.1f} ms under the profiler, device "
+        f"time {dev:.1f} ms, idle share {1 - dev / wall:.3f}")
     log(events.table(sort_by="self_cuda_time_total", row_limit=25,
                      max_name_column_width=70))
+
+
+def phase_profile(model, x, kb):
+    """One main-path batch under torch.profiler: host wall time, device
+    time, the device's idle share and the kernels that take it; then the
+    K-B kernel alone at the head shape."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    profile_window("one inference main-path batch",
+                   lambda: mc_forward(model, x, NUM_MC, reduce="mean"))
 
     mu = model.fc.mu_weight.detach()
     rho = model.fc.rho_weight.detach()
@@ -345,6 +776,20 @@ def phase_profile(model, x, kb):
     log(f"[profile] K-B kernel alone at M={BATCH} K={mu.shape[1]} "
         f"N={mu.shape[0]}: {ev.self_device_time_total / ev.count / 1e3:.4f} "
         f"ms of device time per launch, {ev.count} launches")
+
+
+def phase_profile_train(model):
+    """One training main-path step under torch.profiler."""
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    step = make_train_step(TRAIN_MC, BATCH)
+    x, y = images(SEED + 430), labels(SEED + 430)
+    step(model, opt, x, y)  # warm-up outside the window
+    profile_window(f"one training step (MC-{TRAIN_MC} bs{BATCH} bf16)",
+                   lambda: step(model, opt, x, y))
 
 
 def phase_sanity(model):
@@ -383,8 +828,9 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one main-path batch and the K-B "
-                             "kernel with torch.profiler")
+                        help="also profile one inference batch, one "
+                             "training step and the K-B kernel with "
+                             "torch.profiler")
     profile = parser.parse_args(argv).profile
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -406,6 +852,9 @@ def main(argv=None):
                      device="cuda")
     ka_res = phase_batch_sampler(model)
     kb_res = phase_sampled_gemm(model)
+    kc_res = phase_noise_grad(model)
+    kde_res = phase_gemm_backward(model)
+    phase_autograd(model)
 
     for mod in model.modules():
         if hasattr(mod, "compute_dtype"):
@@ -419,20 +868,53 @@ def main(argv=None):
     phase_sanity(model)
     if profile:
         phase_profile(model, batches[0], sampled_matmul)
+    del batches
 
+    train = phase_train(model)
+    presample = phase_train_presample(model)
+    phase_train_sanity(model)
+    if profile:
+        phase_profile_train(model)
+    del model
+    torch.cuda.empty_cache()
+    phase_trainer()
+
+    csrc = "bayesian_torch_tpu_torch/csrc/"
+    pallas = "bayesian_torch_tpu/ops/pallas/"
+    train_run = (f"training main path: make_train_step(num_mc={TRAIN_MC}, "
+                 f"batch_size={BATCH}), fc.impl='pallas', presample='auto', "
+                 "3 steps")
     kernels = [
         dict(name="sample_scaled_normals_batch", route="cuda",
-             source="bayesian_torch_tpu_torch/csrc/sampled_weights.cu",
-             replaces="bayesian_torch_tpu/ops/pallas/sampled_weights.py:126",
+             source=csrc + "sampled_weights.cu",
+             replaces=pallas + "sampled_weights.py:126",
              run="main path: mc_forward(num_mc=10, reduce='mean'), "
                  "presample='auto', 3 batches",
              launches=ka_launches, **ka_res),
         dict(name="sampled_matmul", route="cuda",
-             source="bayesian_torch_tpu_torch/csrc/sampled_matmul.cu",
-             replaces="bayesian_torch_tpu/ops/pallas/sampled_matmul.py:62",
+             source=csrc + "sampled_matmul.cu",
+             replaces=pallas + "sampled_matmul.py:62",
              run="head: fc.impl='pallas', mc_forward(num_mc=10, "
                  "presample='off'), 1 batch",
              launches=kb_launches, **kb_res),
+        dict(name="sampled_weights_bwd (dsigma)", route="cuda",
+             source=csrc + "sampled_weights_bwd.cu",
+             replaces=pallas + "sampled_weights.py:138",
+             run=f"presample training step: make_train_step(num_mc="
+                 f"{TRAIN_MC}, batch_size={BATCH}, presample='on'), 1 step",
+             launches=presample["K-C dsigma"], **kc_res["dsigma"]),
+        dict(name="sampled_weights_bwd (drho)", route="cuda",
+             source=csrc + "sampled_weights_bwd.cu",
+             replaces=pallas + "sampled_weights.py:68",
+             run=train_run, launches=train["K-C drho"], **kc_res["drho"]),
+        dict(name="sampled_matmul_dx", route="cuda",
+             source=csrc + "sampled_matmul_bwd.cu",
+             replaces=pallas + "sampled_matmul.py:84",
+             run=train_run, launches=train["K-D"], **kde_res["dx"]),
+        dict(name="sampled_matmul_dw", route="cuda",
+             source=csrc + "sampled_matmul_bwd.cu",
+             replaces=pallas + "sampled_matmul.py:110",
+             run=train_run, launches=train["K-E"], **kde_res["dw"]),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never ran in {k['run']}")

@@ -54,10 +54,10 @@ def random_state(arrays, seed=0, rho=None):
     return out
 
 
-def set_jax_eval(model):
+def set_jax_eval(model, training=False):
     for _, mod in nnx.iter_modules(model):
         if hasattr(mod, "training"):
-            mod.training = False
+            mod.training = training
 
 
 def to_np(x):
@@ -107,12 +107,12 @@ class TorchTiny(nn.Module):
             BatchNorm2dLayer, Conv2dReparameterization,
             LinearReparameterization)
         from bayesian_torch_tpu_torch.models._large_resnet import Bottleneck
-        from bayesian_torch_tpu_torch.nn import Sequential
+        from bayesian_torch_tpu_torch.nn import BatchNorm2d, Sequential
 
         g = generator
         self.conv1 = Conv2dReparameterization(3, 16, 3, padding=1,
                                               bias=False, generator=g)
-        self.bn1 = nn.BatchNorm2d(16)
+        self.bn1 = BatchNorm2d(16)
         down = Sequential(
             Conv2dReparameterization(16, 32, 1, stride=2, bias=False,
                                      generator=g),

@@ -1,6 +1,7 @@
 """Card-only checks of the port's CUDA kernels against their plain torch
 versions, at small and ragged shapes (the full shapes are in
-chip_smoke.py). They skip without a CUDA device. On a machine with one,
+chip_smoke.py): K-A and K-B forward, K-C (both modes), K-D and K-E
+backward, and autograd through the public ops. They skip without a CUDA device. On a machine with one,
 and without JAX, run them with
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
@@ -12,6 +13,8 @@ torch and the port only.
 import pytest
 import torch
 
+from bayesian_torch_tpu_torch.ops.cuda import sampled_matmul as kb
+from bayesian_torch_tpu_torch.ops.cuda import sampled_weights as ka
 from bayesian_torch_tpu_torch.ops.cuda.sampled_matmul import (
     sampled_matmul,
     sampled_matmul_plain,
@@ -66,13 +69,84 @@ def test_batch_sampler_unaligned_view_bf16(cuda):
     assert bool(((got - want).abs() <= ulp).all())
 
 
-def test_batch_sampler_refuses_grad(cuda):
-    mu, sigma, _ = _posterior((16,), cuda)
+def _max_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _scale(want):
+    return max(want.abs().max().item(), 1.0)
+
+
+def test_batch_sampler_grad_matches_plain(cuda):
+    """Autograd through K-A (forward) and K-C (dsigma) equals autograd
+    through the plain sampler, bf16 draws."""
+    mu, sigma, _ = _posterior((4099,), cuda)
     mu.requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        sample_scaled_normals_batch(0, mu, sigma, 2)
-    with torch.no_grad():
-        sample_scaled_normals_batch(0, mu, sigma, 2)
+    sigma.requires_grad_(True)
+    g = torch.randn((3, 4099), device=cuda).bfloat16()
+    launches = (ka.sample_scaled_normals_batch.launches, ka.dsigma.launches)
+    w = sample_scaled_normals_batch(5, mu, sigma, 3)
+    got = torch.autograd.grad(w, (mu, sigma), g)
+    want = torch.autograd.grad(
+        sample_scaled_normals_batch_plain(5, mu, sigma, 3), (mu, sigma), g)
+    torch.cuda.synchronize()
+    assert (ka.sample_scaled_normals_batch.launches, ka.dsigma.launches) \
+        == (launches[0] + 1, launches[1] + 1)
+    for a, b in zip(got, want):
+        assert _max_err(a, b) <= 1e-5 * _scale(b)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 1023, 4096 + 5, 300_001])
+@pytest.mark.parametrize("num_samples", [1, 4])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_dsigma_kernel_matches_plain(cuda, n, num_samples, g_dtype):
+    g = torch.randn((num_samples, n), generator=torch.Generator()
+                    .manual_seed(n)).to(cuda, g_dtype)
+    seed = 0xFEED_0000_1234_5678
+    got = ka.dsigma(seed, g)
+    want = ka.dsigma_plain(seed, g)
+    torch.cuda.synchronize()
+    assert got.shape == (n,) and got.dtype == torch.float32
+    # same eps up to the last ulp of log/cos, same f32 order of the sum
+    assert _max_err(got, want) <= 1e-5 * _scale(want)
+
+
+@pytest.mark.parametrize("n", [1, 5, 1024, 300_001])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_drho_kernel_matches_plain(cuda, n, g_dtype):
+    _, _, rho = _posterior((n,), cuda, seed=3)
+    g = torch.randn(n, generator=torch.Generator().manual_seed(4)).to(
+        cuda, g_dtype)
+    got = ka.drho(17, g, rho)
+    want = ka.drho_plain(17, g, rho)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= 1e-5 * _scale(want)
+
+
+def test_dsigma_kernel_unaligned_view(cuda):
+    """A contiguous view at an odd offset takes the scalar path."""
+    g = torch.randn(2 * 4096 + 1, device=cuda)[1:].view(2, 4096)
+    got = ka.dsigma(9, g)
+    want = ka.dsigma_plain(9, g)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= 1e-5 * _scale(want)
+
+
+def test_gaussian_sampler_grad_matches_plain(cuda):
+    mu, _, rho = _posterior((33, 7, 3, 3), cuda, seed=5)
+    mu.requires_grad_(True)
+    rho.requires_grad_(True)
+    w = ka.sample_gaussian(21, mu, rho, torch.bfloat16)
+    g = torch.randn_like(w)
+    got = torch.autograd.grad(w, (mu, rho), g)
+    plain = sample_scaled_normals_batch_plain(
+        21, mu, sigma_from_rho(rho), 1, torch.bfloat16)[0]
+    ulp = torch.finfo(torch.bfloat16).eps * plain.detach().float().abs()
+    assert bool(((w - plain).float().abs() <= ulp).all())
+    want = torch.autograd.grad(plain, (mu, rho), g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _max_err(a, b) <= 1e-5 * _scale(b)
 
 
 @pytest.mark.parametrize("m,n,k", [(1, 1, 1), (5, 33, 17), (128, 1000, 2048),
@@ -88,3 +162,41 @@ def test_sampled_matmul_matches_plain(cuda, m, n, k):
     # f32 sums of k products in another order than cuBLAS's
     tol = 1e-4 * max(want.abs().max().item(), 1.0)
     assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 1, 1), (5, 33, 17), (128, 1000, 2048),
+                                   (130, 64, 40), (17, 65, 129)])
+def test_sampled_matmul_backward_kernels_match_plain(cuda, m, n, k):
+    mu, sigma, _ = _posterior((n, k), cuda, seed=6)
+    gen = torch.Generator().manual_seed(7)
+    g = torch.randn((m, n), generator=gen).to(cuda)
+    x = torch.randn((m, k), generator=gen).to(cuda)
+    seed = 31337
+    dx = kb.sampled_matmul_dx(seed, g, mu, sigma)
+    dx_want = kb.sampled_matmul_dx_plain(seed, g, mu, sigma)
+    dmu, dsig = kb.sampled_matmul_dw(seed, g, x)
+    dmu_want, dsig_want = kb.sampled_matmul_dw_plain(seed, g, x)
+    torch.cuda.synchronize()
+    # f32 sums of n (dx) or m (dw) products in another order than cuBLAS's
+    for got, want in ((dx, dx_want), (dmu, dmu_want), (dsig, dsig_want)):
+        assert got.shape == want.shape
+        assert _max_err(got, want) <= 1e-4 * _scale(want)
+
+
+def test_sampled_matmul_grad_matches_plain(cuda):
+    mu, _, rho = _posterior((70, 90), cuda, seed=8)
+    mu.requires_grad_(True)
+    rho.requires_grad_(True)
+    x = torch.randn((33, 90), device=cuda, requires_grad=True)
+    g = torch.randn((33, 70), device=cuda)
+    counts = (kb.sampled_matmul.launches, kb.sampled_matmul_dx.launches,
+              kb.sampled_matmul_dw.launches)
+    got = torch.autograd.grad(sampled_matmul(3, x, mu, rho), (x, mu, rho), g)
+    assert (kb.sampled_matmul.launches, kb.sampled_matmul_dx.launches,
+            kb.sampled_matmul_dw.launches) == tuple(c + 1 for c in counts)
+    want = torch.autograd.grad(
+        sampled_matmul_plain(3, x, mu, sigma_from_rho(rho), torch.float32),
+        (x, mu, rho), g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _max_err(a, b) <= 1e-4 * _scale(b)

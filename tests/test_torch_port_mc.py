@@ -1,7 +1,8 @@
 """Port ``mc_forward`` against the JAX scan emission on the narrow ResNet,
 with the same per-draw weights injected into both packages; f32 on the
 CPU, tolerance 1e-4 (as in test_torch_port_model.py). Also the port's own
-contract: presampling, cleanup, the eval-only guard, fresh draws.
+contract: presampling, cleanup, the unported modes, fresh draws. The
+training path is in test_torch_port_train.py.
 """
 
 import jax.numpy as jnp
@@ -163,23 +164,34 @@ def test_presample_off_is_layer_sampling_and_auto_is_on(monkeypatch):
 
 
 def test_eval_only_guard_and_unported_modes():
+    """Training mode is ported (a module in training mode now trains, with
+    gradients and one BN update); the vmap/structured/mesh emissions and
+    the TPU presample variants still raise, and so does a plain torch BN
+    that would update once per draw."""
     _, tm, _ = tiny_twins(seed=7)
-    x = torch.randn(1, 3, 16, 16)
+    x = torch.randn(2, 3, 16, 16)
     for kw in (dict(emission="vmap"), dict(structured=True),
                dict(mesh=object()), dict(presample="xla"),
                dict(presample="hash")):
         with pytest.raises(NotImplementedError):
             tmc.mc_forward(tm, x, 2, **kw)
     for kw in (dict(emission="bogus"), dict(reduce="sum"),
-               dict(presample="bogus")):
+               dict(presample="bogus"), dict(bn_stats="bogus")):
         with pytest.raises(ValueError):
             tmc.mc_forward(tm, x, 2, **kw)
     tm.bn1.train()
-    with pytest.raises(NotImplementedError, match="eval-only"):
+    out, kl = tmc.mc_forward(tm, x, 2)
+    assert out.shape == (2, 2, 10) and out.requires_grad
+    out.sum().backward()
+    assert tm.conv1.rho_kernel.grad is not None
+    assert int(tm.bn1.num_batches_tracked) == 1
+    assert not tm.bn1.stats_frozen and tm.bn1._mc_stats is None
+    tm.bn1 = torch.nn.BatchNorm2d(16).train()
+    with pytest.raises(NotImplementedError, match="once per draw"):
         tmc.mc_forward(tm, x, 2)
     tm.eval()
     out = tmc.mc_forward(tm, x, 2, return_kl=False, compute_kl=True)
-    assert out.shape == (2, 1, 10)
+    assert out.shape == (2, 2, 10) and not out.requires_grad
 
 
 def test_cleanup_after_a_failing_forward():

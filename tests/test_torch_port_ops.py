@@ -244,18 +244,39 @@ def test_kernel_build_is_lazy_and_content_named():
     assert a == _build.library_path()
     assert a.parent == _build.BUILD_DIR and a.suffix == ".so"
     assert {p.name for p in _build._sources()} == {
-        "sampled_matmul.cu", "sampled_weights.cu"}
+        "sampled_matmul.cu", "sampled_matmul_bwd.cu", "sampled_weights.cu",
+        "sampled_weights_bwd.cu"}
     assert _build.load_library.cache_info().currsize == 0
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
 def test_port_never_imports_jax():
+    """No module of the port, ``examples/`` included, imports jax: none
+    names it, and importing them all with jax made unimportable works
+    (an indirect import, e.g. through ``bayesian_torch_tpu.data``, would
+    fail)."""
     import pathlib
+    import subprocess
+    import sys
 
     root = pathlib.Path(ts.__file__).resolve().parents[1]
-    for path in root.rglob("*.py"):
+    paths = sorted(root.rglob("*.py"))
+    assert root / "examples" / "main_bayesian_imagenet.py" in paths
+    modules = []
+    for path in paths:
         for line in path.read_text().splitlines():
             code = line.split("#")[0]
             assert not code.lstrip().startswith(("import jax", "from jax")), \
                 f"{path}: {line}"
-
+        rel = path.relative_to(root.parent).with_suffix("")
+        modules.append(".".join(rel.parts[:-1] if rel.name == "__init__"
+                                else rel.parts))
+    probe = ("import importlib, sys\n"
+             "sys.modules['jax'] = None\n"
+             f"for name in {modules!r}:\n"
+             "    importlib.import_module(name)\n"
+             "assert not any(m == 'jax' or m.startswith('jax.')\n"
+             "               for m in sys.modules if sys.modules[m])\n")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=root.parent,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
