@@ -19,6 +19,8 @@ import torch
 from torch import nn
 
 from bayesian_torch_tpu_torch.ops.kl import gaussian_kl
+from bayesian_torch_tpu_torch.ops.sampling import (device_generator,
+                                                   sigma_from_rho)
 
 
 def get_kernel_size(x, n):
@@ -65,6 +67,63 @@ class BaseVariationalLayer(nn.Module):
         super().__init__()
         self.dnn_to_bnn_flag = False
         self.compute_kl = True
+        # post-training quantization calibration: set by prepare(); the
+        # forward then records activation and weight ranges
+        self.quant_prepare = False
+
+    def _make_observers(self, n_qint: int, n_quint: int, qconfig=None):
+        """Build the calibration observers: ``n_qint`` from
+        ``qconfig.weight`` (they watch weight-derived tensors: sigma, mu,
+        eps, the sampled weight) and ``n_quint`` from
+        ``qconfig.activation`` (input and output); per-tensor MinMax
+        without a qconfig. As in the JAX package, each slot's dtype is
+        checked (the quantized layers read ``quant_dict`` by position), so
+        a swapped QConfig fails here."""
+        from bayesian_torch_tpu_torch.quantization.observers import (
+            MinMaxObserver,
+        )
+        wfac = qconfig.weight if qconfig is not None \
+            else MinMaxObserver.with_args(dtype="qint8")
+        afac = qconfig.activation if qconfig is not None \
+            else MinMaxObserver.with_args(dtype="quint8")
+        qint = [wfac() for _ in range(n_qint)]
+        quint = [afac() for _ in range(n_quint)]
+        for slot, want, which in ((qint, "qint8", "weight"),
+                                  (quint, "quint8", "activation")):
+            for ob in slot:
+                got = getattr(ob, "dtype", None)
+                if got != want:
+                    raise ValueError(
+                        f"QConfig.{which} built a {type(ob).__name__} with "
+                        f"dtype={got!r}, but the {want} quant_dict slots "
+                        f"require dtype={want!r}")
+        device = next(self.parameters()).device
+        self.qint_quant = nn.ModuleList(qint).to(device)
+        self.quint_quant = nn.ModuleList(quint).to(device)
+        self.quant_prepare = True
+
+    def _observed_forward(self, input, mu, rho, apply):
+        """Calibration forward in f32 (``apply(input, weight, bias)``),
+        every intermediate observed: qint (sigma, mu, eps, sigma*eps,
+        weight), quint (input, output). eps is drawn on the weights'
+        device from a generator seeded by the layer's."""
+        gen = device_generator(self.generator, mu.device)
+        sigma = sigma_from_rho(rho)
+        eps = torch.randn(mu.shape, generator=gen, device=mu.device)
+        tmp_result = sigma * eps
+        weight = mu + tmp_result
+        bias = None
+        if self.mu_bias is not None:
+            eps_b = torch.randn(self.mu_bias.shape, generator=gen,
+                                device=mu.device)
+            bias = self.mu_bias + sigma_from_rho(self.rho_bias) * eps_b
+        out = apply(input, weight, bias)
+        self.quint_quant[0](input)
+        self.quint_quant[1](out)
+        for ob, v in zip(self.qint_quant, (sigma, mu, eps, tmp_result,
+                                           weight)):
+            ob(v)
+        return out
 
     def kl_div(self, mu_q, sigma_q, mu_p, sigma_p):
         """KL(Q||P) between diagonal Gaussians, mean-reduced."""

@@ -8,7 +8,8 @@ normalizes by the batch's own statistics but writes no running statistic
 draw loop; with a ``MCBatchStats`` record attached, each draw's batch
 (mean, unbiased variance) is recorded, and the caller applies ONE EMA
 update from their average after the loop. Otherwise the eval path and the
-plain training path are torch's own.
+plain training path are torch's own. A ``QTensor`` input (a quantized
+conv's uint8 output) is dequantized first.
 
 ``BatchNorm2dLayer`` adds the reference's calling convention: a
 ``(x, kl)`` tuple in gives ``(out, 0)`` out, a bare tensor gives the bare
@@ -22,6 +23,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from bayesian_torch_tpu_torch.ops.qtensor import dequantize_if_qtensor
 
 
 class MCBatchStats:
@@ -54,6 +57,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         self._mc_stats: Optional[MCBatchStats] = None
 
     def forward(self, input):
+        input = dequantize_if_qtensor(input)
         if not (self.stats_frozen and self.training
                 and self.track_running_stats):
             return super().forward(input)

@@ -97,13 +97,22 @@ class _BaseConvLayer(BaseVariationalLayer):
                     dilation=self.dilation, groups=self.groups,
                     compute_dtype=self.compute_dtype)
 
+    def prepare(self, qconfig=None):
+        """Insert the calibration observers (5 qint8 + 2 quint8)."""
+        self._make_observers(5, 2, qconfig)
+
     def forward(self, input, return_kl: bool = True, *, eps_k=None,
                 eps_b=None):
         if self.dnn_to_bnn_flag:
             return_kl = False
 
         presampled_w = getattr(self, "_presampled_w", None)
-        if presampled_w is not None:
+        if self.quant_prepare:
+            args = dict(self._conv_args(), compute_dtype=None)
+            out = self._observed_forward(
+                input, self.mu_kernel, self.rho_kernel,
+                lambda x, w, b: conv_ops.conv_nd(x, w, b, **args))
+        elif presampled_w is not None:
             # this draw's kernel from the batch sampler (parallel.mc)
             out = conv_ops.conv_nd(input, presampled_w,
                                    getattr(self, "_presampled_b", None),

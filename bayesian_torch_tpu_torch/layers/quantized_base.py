@@ -1,0 +1,275 @@
+"""Shared implementation of the INT8 quantized Bayesian layers (counterpart
+of ``bayesian_torch_tpu/layers/quantized_base.py``, reparameterization
+estimator).
+
+- ``quantize()`` converts the float posterior: symmetric per-tensor int8
+  mu and sigma = softplus(rho), scale 2*clamp(max|x|, 0, 100)/255; the bias
+  stays f32. With ``bn_*`` attributes attached (``bnn_to_qbnn``'s conv+BN
+  folding) gamma/sqrt(var + eps) is folded into mu and sigma first and
+  the bias rebuilt. The float parameters are then deleted, so the
+  ``state_dict`` holds only the quantized persistent buffers, under the
+  JAX names: ``quantized_mu_weight``, ``quantized_sigma_weight``,
+  ``mu_weight_scale``, ``sigma_weight_scale``, ``quantized_mu_bias``,
+  ``quantized_sigma_bias``. The scales are also kept as Python floats
+  (``_mu_scale_f``, ``_sigma_scale_f``), so every requantization
+  multiplier is a host constant; loading a state dict rebuilds them.
+- Each forward draws one quantized weight: eps (``torch.randn`` on the
+  weights' device, seeded from the layer's generator), quantized, then a
+  quantized mul and add build the int8 weight. The calibrated path uses
+  the ``quant_dict`` scales; without one, the reference's defaults
+  (eps at 6/255, activations at scale 0.2, zero point 128).
+- The int8 GEMM or conv runs through ``ops/int8.py`` (K-F on the card),
+  and the output is requantized; ``q_output`` emits a ``QTensor``,
+  otherwise the dequantized f32 tensor.
+- ``forward`` returns ``(out, 0)``: quantized layers carry no KL.
+
+Frozen draws (``quantization.serving``) are buffers ``_frozen_w``,
+``_frozen_wscale`` and ``_frozen_bias``. The flipout branch and the legacy
+``ao`` semantics come with the flipout slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from bayesian_torch_tpu_torch.layers.base_variational_layer import (
+    BaseVariationalLayer,
+    default_generator,
+    get_kernel_size,
+)
+from bayesian_torch_tpu_torch.ops import int8 as q
+from bayesian_torch_tpu_torch.ops.qtensor import QTensor
+from bayesian_torch_tpu_torch.ops.sampling import (device_generator,
+                                                   sigma_from_rho)
+
+FROZEN = ("_frozen_w", "_frozen_wscale", "_frozen_bias")
+
+
+def _refresh_after_load(module, incompatible_keys):
+    module._refresh_scales()
+
+
+class _QuantizedLayerBase(BaseVariationalLayer):
+    """``quantize()`` and the int8 forward; subclasses set ``is_conv``."""
+
+    is_conv = False
+
+    def _init_common(self, generator):
+        super().__init__()
+        self.generator = generator if generator is not None \
+            else default_generator()
+        self.quant_dict = None
+        self.bn_eps = 1e-5  # bn_* attributes attached by batch_norm_folding
+        # emit a QTensor (uint8 + static scale, zp) instead of the
+        # dequantized f32 tensor (set by bnn_to_qbnn(quantize_activations))
+        self.q_output = False
+        self._frozen_wscale_f = None
+        self.register_load_state_dict_post_hook(_refresh_after_load)
+
+    # ---- quantize() ---------------------------------------------------
+
+    def _kernel_attr(self):
+        return "mu_kernel" if self.is_conv else "mu_weight"
+
+    def _rho_attr(self):
+        return "rho_kernel" if self.is_conv else "rho_weight"
+
+    def _bn_coef(self):
+        # the correctly rounded f32 square root, as XLA computes it (torch's
+        # vectorised CPU sqrt is not always correctly rounded; the f64 root
+        # rounded once to f32 is)
+        root = torch.sqrt((self.bn_running_var + self.bn_eps).double())
+        return self.bn_weight / root.float()
+
+    def _refresh_scales(self):
+        """Rebuild the host copies of the scales from the buffers."""
+        if getattr(self, "mu_weight_scale", None) is None:
+            return  # not quantized yet
+        self._mu_scale_f = float(self.mu_weight_scale)
+        self._sigma_scale_f = float(self.sigma_weight_scale)
+        fw = getattr(self, "_frozen_wscale", None)
+        self._frozen_wscale_f = None if fw is None else np.float32(fw.item())
+
+    @torch.no_grad()
+    def quantize(self):
+        """Convert the float posterior to int8 (with BN folding when bn_*
+        attributes are attached) and delete it."""
+        mu = getattr(self, self._kernel_attr()).detach()
+        sigma = sigma_from_rho(getattr(self, self._rho_attr()).detach())
+        folding = getattr(self, "bn_weight", None) is not None
+        if folding:
+            coef = self._bn_coef().reshape((-1,) + (1,) * (mu.dim() - 1))
+            mu = mu * coef
+            sigma = sigma * coef
+
+        mu_scale = q.symmetric_scale(mu)
+        sigma_scale = q.symmetric_scale(sigma)
+        self.register_buffer("quantized_mu_weight",
+                             q.quantize_int8(mu, mu_scale))
+        self.register_buffer("quantized_sigma_weight",
+                             q.quantize_int8(sigma, sigma_scale))
+        self.register_buffer("mu_weight_scale", mu_scale)
+        self.register_buffer("sigma_weight_scale", sigma_scale)
+
+        mu_b = sigma_b = None
+        if getattr(self, "mu_bias", None) is not None:
+            mu_b = self.mu_bias.detach()
+            sigma_b = sigma_from_rho(self.rho_bias.detach())
+            if folding:
+                coef = self._bn_coef()
+                mu_b = (mu_b - self.bn_running_mean) * coef + self.bn_bias
+                sigma_b = sigma_b * coef
+        elif folding:
+            # the conv had no bias; folding makes a mean-only one
+            mu_b = -self.bn_running_mean * self._bn_coef() + self.bn_bias
+            self.bias = True
+        self.register_buffer("quantized_mu_bias", mu_b)
+        self.register_buffer("quantized_sigma_bias", sigma_b)
+        self._refresh_scales()
+
+        for attr in (self._kernel_attr(), self._rho_attr(), "mu_bias",
+                     "rho_bias", "bn_weight", "bn_bias", "bn_running_mean",
+                     "bn_running_var"):
+            if hasattr(self, attr):
+                delattr(self, attr)
+
+    def kl_loss(self):
+        return 0.0
+
+    # ---- the int8 forward ------------------------------------------------
+
+    def _qd(self, i):
+        d = self.quant_dict[i]
+        return float(d["scale"]), float(d["zero_point"])
+
+    def _apply_int8(self, x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale,
+                    out_zp):
+        if self.is_conv:
+            return q.qconv(x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale,
+                           out_zp, stride=self.stride, padding=self.padding,
+                           dilation=self.dilation, groups=self.groups)
+        return q.qlinear(x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale,
+                         out_zp)
+
+    def _quantize_input(self, x, scale, zp):
+        """f32 -> uint8, or a uint8 -> uint8 requantize of a QTensor."""
+        if isinstance(x, QTensor):
+            return x.requantize(scale, zp).q
+        return q.quantize_uint8(x, scale, zp)
+
+    def _emit(self, out_q, scale, zp):
+        if self.q_output:
+            return QTensor(out_q, scale, zp)
+        return q.dequantize(out_q, scale, zp)
+
+    def _noise(self):
+        return device_generator(self.generator,
+                                self.quantized_mu_weight.device)
+
+    def _sample_bias(self, eps_b=None, gen=None):
+        """f32 sampled bias; the mean alone when folding made it."""
+        if self.quantized_mu_bias is None:
+            return None
+        if self.quantized_sigma_bias is None:
+            return self.quantized_mu_bias
+        if eps_b is None:
+            eps_b = torch.randn(self.quantized_mu_bias.shape,
+                                generator=gen if gen is not None
+                                else self._noise(),
+                                device=self.quantized_mu_bias.device)
+        return self.quantized_mu_bias + self.quantized_sigma_bias * eps_b
+
+    @torch.no_grad()
+    def _sampled_qweight_reparam(self, normal_scale, eps=None, eps_b=None):
+        """One quantized weight draw: (w_q int8, w_scale, bias f32 or
+        None). ``eps`` / ``eps_b`` may be injected."""
+        gen = None
+        if eps is None:
+            gen = self._noise()
+            eps = torch.randn(self.quantized_mu_weight.shape, generator=gen,
+                              device=self.quantized_mu_weight.device)
+        s_sigma, s_mu = self._sigma_scale_f, self._mu_scale_f
+        if self.quant_dict is not None:
+            s0, _ = self._qd(0)    # eps
+            s1, z1 = self._qd(1)   # sigma * eps
+            s2, z2 = self._qd(2)   # weight
+            eps_q = q.quantize_int8(eps, s0)
+            w_q = q.qmul(self.quantized_sigma_weight, s_sigma, eps_q, s0, s1,
+                         z1)
+            w_q = q.qadd(w_q, s1, self.quantized_mu_weight, s_mu, s2, z2)
+            return w_q, s2, self._sample_bias(eps_b, gen)
+        # uncalibrated default path (reference quantize_linear_variational
+        # .py:202-219)
+        eps_q = q.quantize_int8(eps, normal_scale)
+        new_scale = s_sigma * normal_scale
+        w_q = q.qmul(self.quantized_sigma_weight, s_sigma, eps_q,
+                     normal_scale, new_scale, 0)
+        add_scale = max(new_scale, s_mu)
+        w_q = q.qadd(w_q, new_scale, self.quantized_mu_weight, s_mu,
+                     add_scale, 0)
+        return w_q, add_scale, self._sample_bias(eps_b, gen)
+
+    def _forward_reparam(self, input, normal_scale, default_scale,
+                         default_zero_point):
+        if getattr(self, "_frozen_w", None) is not None:
+            w_q, w_scale = self._frozen_w, self._frozen_wscale_f
+            bias = getattr(self, "_frozen_bias", None)
+        else:
+            w_q, w_scale, bias = self._sampled_qweight_reparam(normal_scale)
+        if self.quant_dict is not None:
+            s3, z3 = self._qd(3)   # input
+            s4, z4 = self._qd(4)   # output
+        else:
+            s3 = s4 = default_scale
+            z3 = z4 = default_zero_point
+        x_q = self._quantize_input(input, s3, z3)
+        out_q = self._apply_int8(x_q, s3, z3, w_q, w_scale, bias, s4, z4)
+        return self._emit(out_q, s4, z4)
+
+    @torch.no_grad()
+    def forward(self, input, return_kl: bool = True, *,
+                normal_scale: float = 6 / 255,
+                default_scale: Optional[float] = 0.2,
+                default_zero_point: int = 128):
+        if self.dnn_to_bnn_flag:
+            return_kl = False
+        out = self._forward_reparam(input, normal_scale, default_scale,
+                                    default_zero_point)
+        if return_kl:
+            return out, 0  # quantized layers carry no KL
+        return out
+
+    def __repr__(self):
+        return f"{type(self).__name__}()"
+
+
+class _QuantizedLinearBase(_QuantizedLayerBase):
+    is_conv = False
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 generator: Optional[torch.Generator] = None):
+        self._init_common(generator)
+        self.in_features = in_features
+        self.out_features = out_features
+        self.bias = True
+
+
+class _QuantizedConvBase(_QuantizedLayerBase):
+    is_conv = True
+    nd = 2
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, padding=0, dilation=1, groups: int = 1, *,
+                 generator: Optional[torch.Generator] = None):
+        self._init_common(generator)
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = get_kernel_size(kernel_size, self.nd)
+        self.stride = stride
+        self.padding = padding
+        self.dilation = dilation
+        self.groups = groups
+        self.bias = True

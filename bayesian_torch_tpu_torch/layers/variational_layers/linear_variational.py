@@ -84,13 +84,20 @@ class LinearReparameterization(BaseVariationalLayer):
                                            self.prior_bias_sigma)
         return kl
 
+    def prepare(self, qconfig=None):
+        """Insert the calibration observers (5 qint8 + 2 quint8)."""
+        self._make_observers(5, 2, qconfig)
+
     def forward(self, input, return_kl: bool = True, *, eps_w=None,
                 eps_b=None):
         if self.dnn_to_bnn_flag:
             return_kl = False
 
         presampled_w = getattr(self, "_presampled_w", None)
-        if presampled_w is not None:
+        if self.quant_prepare:
+            out = self._observed_forward(input, self.mu_weight,
+                                         self.rho_weight, linear_ops._linear)
+        elif presampled_w is not None:
             # this draw's weights from the batch sampler (parallel.mc)
             out = linear_ops._linear(input, presampled_w,
                                      getattr(self, "_presampled_b", None),

@@ -6,7 +6,9 @@ torchvision-style ResNet: 7x7 s2 stem - BN - ReLU - maxpool 3x3 s2 -
 ``Sequential(Conv-Bayes, BatchNorm2dLayer)`` threading (x, kl) tuples.
 Activations are NCHW at the public surface. Every BatchNorm is the port's
 MC-aware ``BatchNorm2d`` (``layers/batchnorm.py``), as the JAX model uses
-its own, so ``mc_forward`` can train with one EMA update per step. The
+its own, so ``mc_forward`` can train with one EMA update per step. ReLU,
+the residual add and the pools take the uint8 ``QTensor`` activations of a
+converted model (``nn/functional.py``, ``ops/qtensor.py``). The
 deterministic and Flipout variants and the ``remat_blocks`` option come in
 later slices.
 """
@@ -16,7 +18,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from bayesian_torch_tpu_torch.layers.base_variational_layer import (
@@ -24,7 +25,9 @@ from bayesian_torch_tpu_torch.layers.base_variational_layer import (
 )
 from bayesian_torch_tpu_torch.layers.batchnorm import (BatchNorm2d,
                                                        BatchNorm2dLayer)
-from bayesian_torch_tpu_torch.nn import Sequential
+from bayesian_torch_tpu_torch.nn import (AdaptiveAvgPool2d, MaxPool2d,
+                                        Sequential)
+from bayesian_torch_tpu_torch.nn import functional as F
 
 prior_mu = 0.0
 prior_sigma = 1.0
@@ -134,7 +137,7 @@ class LargeResNet(nn.Module):
         self.inplanes = 64
         self.conv1 = conv(3, 64, 7, stride=2, padding=3)
         self.bn1 = BatchNorm2d(64, device=device)
-        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        self.maxpool = MaxPool2d(3, stride=2, padding=1)
         self.layer1 = self._make_layer(block_cls, 64, layers[0], 1,
                                        generator, device)
         self.layer2 = self._make_layer(block_cls, 128, layers[1], 2,
@@ -143,7 +146,7 @@ class LargeResNet(nn.Module):
                                        generator, device)
         self.layer4 = self._make_layer(block_cls, 512, layers[3], 2,
                                        generator, device)
-        self.avgpool = nn.AdaptiveAvgPool2d(1)
+        self.avgpool = AdaptiveAvgPool2d(1)
         self.fc = linear(512 * block_cls.expansion, num_classes)
 
     def _make_layer(self, block_cls, planes, blocks, stride, generator,

@@ -1,11 +1,12 @@
-"""``Sequential`` that threads (x, kl) tuples, and the MC-aware
-``BatchNorm2d`` (counterparts of ``Sequential`` and ``BatchNorm2d`` of
+"""``Sequential`` that threads (x, kl) tuples, the MC-aware ``BatchNorm2d``
+and pooling modules that take ``QTensor``s (counterparts of those of
 ``bayesian_torch_tpu/nn/modules.py``; the other modules there are twins of
 ``torch.nn``, which the port uses directly)."""
 
 from torch import nn
 
 from bayesian_torch_tpu_torch.layers.batchnorm import BatchNorm2d  # noqa: F401,E501
+from bayesian_torch_tpu_torch.nn import functional as F
 
 
 class Sequential(nn.Sequential):
@@ -25,3 +26,18 @@ class Sequential(nn.Sequential):
         if kl_total is not None:
             return x, kl_total
         return x
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """``torch.nn.MaxPool2d`` that pools a QTensor in uint8."""
+
+    def forward(self, x):
+        return F.max_pool_nd(x, self.kernel_size, self.stride, self.padding,
+                             self.dilation, self.ceil_mode)
+
+
+class AdaptiveAvgPool2d(nn.AdaptiveAvgPool2d):
+    """``torch.nn.AdaptiveAvgPool2d`` that dequantizes a QTensor."""
+
+    def forward(self, x):
+        return F.adaptive_avg_pool_nd(x, self.output_size)

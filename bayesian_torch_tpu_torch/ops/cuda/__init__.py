@@ -4,7 +4,9 @@ Pallas kernels (``bayesian_torch_tpu/ops/pallas/``).
 - ``sampled_weights.py``: K-A, the batch weight sampler (all S draws of
   every layer in one launch);
 - ``sampled_matmul.py``: K-B, the fused sampled GEMM (the sampled weight
-  never reaches device memory).
+  never reaches device memory), and its backward K-D and K-E;
+- ``qmatmul.py``: K-F, the fused int8 GEMM + requantize (the s32
+  accumulator never reaches device memory).
 
 Each wrapper keeps its plain torch version beside it (taken for CPU
 tensors only) and a ``launches`` count of kernel launches. The CUDA

@@ -50,6 +50,11 @@ _SIGNATURES = {
     # g, x, dmu, dsigma, M, N, K, seed, stream
     "btt_sampled_matmul_dw": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_uint64, _P),
+    # x, w, corr (or NULL), bias (or NULL), out, M, N, K, mult, out_zp,
+    # vec, stream
+    "btt_qmatmul_requant": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                            ctypes.c_int, _P),
 }
 
 

@@ -1,0 +1,121 @@
+"""K-F: the fused int8 GEMM + requantize (counterpart of
+``bayesian_torch_tpu/ops/pallas/qmatmul.py``).
+
+``qmatmul_requant(x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale,
+out_zp)`` takes uint8 x (M, K) and int8 w (N, K) and returns uint8 (M, N):
+
+    acc[m, n] = sum_k (x[m, k] - 128) * w[n, k]                 (exact)
+    out[m, n] = clamp(round(f32(acc + corr[n]) * mult + b[n]) + out_zp,
+                      0, 255)
+
+with ``corr = (128 - x_zp) * colsum(w)`` (none when x_zp == 128),
+``mult = x_scale * w_scale * (1/out_scale)`` and ``b = bias * (1/out_scale)``,
+computed here in the order of the JAX ``qlinear`` (``requant_args``). That
+is the epilogue of the JAX default (XLA) route, not the folded ``beta`` of
+the Pallas kernel, so the CUDA kernel (``csrc/qmatmul.cu``), its plain
+version below and the JAX default route agree bit for bit.
+
+A CPU tensor takes the plain version: the integer product as a float64
+matmul of the centred operands (exact: |acc| <= 128*127*K < 2**53), then
+the same f32 epilogue. A CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import _on_cpu
+
+
+def requant_multiplier(x_scale, w_scale, out_scale) -> float:
+    """``x_scale * w_scale * (1/out_scale)`` rounded to f32, as JAX
+    evaluates it: in Python floats for static scales, or in f32 steps when
+    ``w_scale`` is an f32 scalar (a frozen draw's scale, held in JAX as an
+    f32 array). Returned as the Python float of that f32 value."""
+    inv = 1.0 / out_scale
+    if isinstance(w_scale, np.float32):
+        m = np.float32(np.float32(x_scale) * w_scale) * np.float32(inv)
+    else:
+        m = x_scale * w_scale * inv
+    return float(np.float32(m))
+
+
+def requant_args(w_q, x_zp, x_scale, w_scale, bias_f32, out_scale):
+    """(corr int32 (N,) or None, mult float, b f32 (N,) or None): the
+    epilogue's integer correction, multiplier and scaled bias."""
+    corr = None
+    if x_zp != 128:
+        corr = (128 - int(x_zp)) * w_q.sum(dim=1, dtype=torch.int32)
+    b = None
+    if bias_f32 is not None:
+        b = bias_f32.float() * (1.0 / out_scale)
+    return corr, requant_multiplier(x_scale, w_scale, out_scale), b
+
+
+def qmatmul_requant_plain(x_q, w_q, corr, mult, b, out_zp):
+    """Plain torch version of K-F on the epilogue's arguments."""
+    acc = (x_q.double() - 128.0) @ w_q.double().T
+    if corr is not None:
+        acc = acc + corr.double()
+    out = acc.float() * mult
+    if b is not None:
+        out = out + b
+    q = torch.round(out) + out_zp
+    return torch.clamp(q, 0, 255).to(torch.uint8)
+
+
+def _check(x_q, w_q, corr, b):
+    if x_q.dtype != torch.uint8 or w_q.dtype != torch.int8:
+        raise ValueError(f"need x uint8 and w int8; got {x_q.dtype} and "
+                         f"{w_q.dtype}")
+    if x_q.dim() != 2 or w_q.dim() != 2 or x_q.shape[1] != w_q.shape[1]:
+        raise ValueError(f"need x (M, K) and w (N, K); got x "
+                         f"{tuple(x_q.shape)}, w {tuple(w_q.shape)}")
+    n = w_q.shape[0]
+    for name, t, dtype in (("corr", corr, torch.int32),
+                           ("bias", b, torch.float32)):
+        if t is not None and (t.dtype != dtype or tuple(t.shape) != (n,)):
+            raise ValueError(f"need {name} {dtype} ({n},); got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def _launch(x_q, w_q, corr, mult, b, out_zp):
+    from bayesian_torch_tpu_torch.ops.cuda import _build
+
+    tensors = [t for t in (x_q, w_q, corr, b) if t is not None]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("qmatmul_requant: x, w, corr and bias must be "
+                         "contiguous")
+    lib = _build.load_library()
+    M, K = x_q.shape
+    N = w_q.shape[0]
+    out = torch.empty((M, N), dtype=torch.uint8, device=x_q.device)
+    vec = K % 16 == 0 and x_q.data_ptr() % 16 == 0 \
+        and w_q.data_ptr() % 16 == 0
+    with torch.cuda.device(x_q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.btt_qmatmul_requant(
+            x_q.data_ptr(), w_q.data_ptr(),
+            None if corr is None else corr.data_ptr(),
+            None if b is None else b.data_ptr(), out.data_ptr(), M, N, K,
+            mult, out_zp, int(vec), stream)
+    _build.check(lib, code, "qmatmul_requant")
+    qmatmul_requant.launches += 1
+    return out
+
+
+def qmatmul_requant(x_q, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale,
+                    out_zp):
+    """uint8 x (M, K) @ int8 w (N, K)^T -> requantized uint8 (M, N), with
+    the semantics of the JAX ``qlinear`` (round half to even, clamp to
+    [0, 255]); the s32 accumulator never reaches device memory."""
+    corr, mult, b = requant_args(w_q, x_zp, x_scale, w_scale, bias_f32,
+                                 out_scale)
+    _check(x_q, w_q, corr, b)
+    if _on_cpu(*(t for t in (x_q, w_q, b) if t is not None)):
+        return qmatmul_requant_plain(x_q, w_q, corr, mult, b, out_zp)
+    return _launch(x_q, w_q, corr, mult, b, float(out_zp))
+
+
+qmatmul_requant.launches = 0

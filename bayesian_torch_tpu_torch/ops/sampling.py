@@ -68,6 +68,16 @@ def draw_seed(generator: torch.Generator) -> int:
     return int(torch.randint(0, 2**63 - 1, (), generator=generator))
 
 
+def device_generator(generator: torch.Generator, device) -> torch.Generator:
+    """A generator on ``device`` seeded with one ``draw_seed`` of the
+    layer's CPU generator: the noise of the draws that the JAX package
+    makes with ``jax.random.normal`` (the calibration forward, the
+    quantized layers' weight builds). ``torch.randn`` on it runs on the
+    device, where the counter hash would cost milliseconds per call."""
+    device = torch.device(device)
+    return torch.Generator(device=device).manual_seed(draw_seed(generator))
+
+
 def draw_salt(seed: int, s: int) -> int:
     """32-bit salt of draw ``s`` under a 64-bit ``seed``; the kernels mix
     it the same way (csrc/noise.cuh ``btt_draw_salt``)."""

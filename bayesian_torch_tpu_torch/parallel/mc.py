@@ -7,7 +7,11 @@ weight sets are drawn first, by the batch-sampler kernel in one launch
 (``_presample_layers``). In training mode it follows the vmapped emission
 (``_mc_forward_inner``): the draws are sampled inside the layers, and the
 BatchNorm statistics of each draw are recorded and applied as one EMA
-update (``_apply_bn_ema``). PyTorch runs eagerly, so the loop is the loop;
+update (``_apply_bn_ema``). A converted INT8 model
+(``quantization.convert``) runs the same loop: its quantized layers draw
+and build their int8 weights inside each draw, as under the JAX vmap
+emission, or reuse their frozen draws (``quantization.serving``). PyTorch
+runs eagerly, so the loop is the loop;
 the JAX ``vmap`` emission itself, the structured (channel-tiled) path and
 meshes come in later slices.
 """
@@ -61,7 +65,10 @@ def _presample_layers(model: nn.Module, num_mc: int):
     groups = {}
     for layer in iter_bayesian_layers(model):
         post = _posterior(layer)
-        if post is not None:
+        # a layer being calibrated draws its own noise in its observed
+        # forward, and a quantized layer builds its int8 weight per draw
+        # inside the layer (it has no float posterior)
+        if post is not None and not layer.quant_prepare:
             dtype = layer.compute_dtype or post[0].dtype
             groups.setdefault(dtype, []).append(layer)
     draws = {}

@@ -3,6 +3,7 @@ metrics."""
 
 from bayesian_torch_tpu_torch.utils.checkpoint import (  # noqa: F401
     load_checkpoint,
+    load_jax_quant_state,
     load_jax_state,
     load_training_checkpoint,
     save_checkpoint,

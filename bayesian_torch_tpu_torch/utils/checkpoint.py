@@ -17,6 +17,8 @@ never stopped. Files are written with ``torch.save`` and read back with
 keeps the reference's parameter names, so a torch ``state_dict`` key
 equals the JAX package's ``_torch_key_for`` rendering of an nnx state
 path (``layer1.0.downsample.0.mu_kernel``, ``fc.mu_bias``).
+``load_jax_quant_state`` does the same for a converted INT8 model, with
+its calibration results and frozen draws.
 """
 
 from __future__ import annotations
@@ -118,3 +120,38 @@ def load_jax_state(model: nn.Module, arrays, *, strict: bool = True):
             dst.copy_(torch.from_numpy(np.asarray(arrays[key])).to(
                 dtype=dst.dtype, device=dst.device))
     return missing, unexpected
+
+
+def load_jax_quant_state(model: nn.Module, arrays, quant_dicts=None, *,
+                         strict: bool = True):
+    """``load_jax_state`` for a converted (INT8) model.
+
+    ``arrays`` holds the JAX model's state under torch-style keys, its
+    ``QuantParam``s included (``conv1.quantized_mu_weight``, ...), and,
+    when the JAX model had frozen draws, ``<layer>._frozen_w``,
+    ``._frozen_wscale`` and ``._frozen_bias``, which become the layer's
+    frozen-draw buffers. ``quant_dicts`` maps a layer's name
+    (``layer1.0.conv1``) to its ``quant_dict`` (None: uncalibrated); a
+    layer missing from it keeps its own. The scales' host copies are
+    rebuilt from the loaded buffers. Returns ``(missing, unexpected)``.
+    """
+    from bayesian_torch_tpu_torch.layers.quantized_base import (
+        FROZEN,
+        _QuantizedLayerBase,
+    )
+
+    for key in arrays:
+        prefix, _, name = key.rpartition(".")
+        if name in FROZEN:
+            layer = model.get_submodule(prefix)
+            if not isinstance(layer, _QuantizedLayerBase):
+                raise ValueError(f"{key}: {prefix} is not a quantized layer")
+            layer.register_buffer(name, torch.from_numpy(
+                np.array(arrays[key])).to(layer.quantized_mu_weight.device))
+    result = load_jax_state(model, arrays, strict=strict)
+    for name, layer in model.named_modules():
+        if isinstance(layer, _QuantizedLayerBase):
+            layer._refresh_scales()
+            if quant_dicts is not None and name in quant_dicts:
+                layer.quant_dict = quant_dicts[name]
+    return result

@@ -10,7 +10,11 @@ weights and images, 224x224, 1000 classes, bf16 compute:
   4 draws at batch 128, SGD(0.01, momentum 0.9), the head through the fused
   sampled GEMM (``fc.impl="pallas"``), draws inside the layers;
 - the trainer ``examples/main_bayesian_imagenet.py`` at batch 32, f32:
-  train, resume, test.
+  train, resume, test;
+- INT8 serving: ``qresnet50`` (f32 float model, calibrated on 3 batches of
+  32 images, converted with conv+BN folding and uint8 activations), MC-10
+  at batch 128, then frozen-draw MC-1, then the uncalibrated model's
+  MC-1; every conv and the head through the fused int8 GEMM (K-F).
 
 Phases, each printing its own line(s):
 
@@ -44,7 +48,22 @@ Phases, each printing its own line(s):
     epoch 2), then ``--mode=test``;
 12. with ``--profile`` only: one inference batch and one training step
     under ``torch.profiler`` (device time, idle share, the top kernels),
-    and the K-B kernel alone.
+    and the K-B kernel alone;
+13. INT8 build: the float ResNet-50 takes BN statistics from one
+    training-mode forward and gives its MC-10 predictive mean, then is
+    calibrated and converted (54 quantized layers, all calibrated);
+14. K-F against its plain version at every GEMM shape of one INT8 forward,
+    x_zp = 128 and x_zp = 117 with a bias, bit for bit; median times of
+    the kernel, the plain version and ``torch._int_mm``, with the bound;
+15. the INT8 main path: three MC-10 bs128 batches after a warm-up, 540 K-F
+    launches each, ms per batch and images/s; top-1 agreement with the
+    float model (printed, not gated); the weight build of one draw alone;
+16. with ``--profile`` only: one INT8 MC-10 batch under the profiler;
+17. frozen-draw MC-1 (``freeze_quantized_draws``), 54 launches per batch;
+18. INT8 sanity: with frozen draws, the card's logits on 2 images against
+    a CPU copy on the plain versions (activations into the pool bit for
+    bit, logits within 3 head quanta); two unfrozen forwards differ;
+19. the uncalibrated model (every tensor at scale 0.2, zp 128): MC-1.
 
 The line before the last is a JSON object with every kernel's launches,
 counted from zero in the run named by its ``run`` key, its error against
@@ -70,6 +89,14 @@ TRAINER_BATCH = 32
 IMAGE = 224
 SEED = 0
 REPS = 5
+CALIB_BATCH = 32
+INT8_LAYERS = 54  # ResNet-50: 53 convs and the head, one K-F launch each
+
+# NVIDIA H100 SXM peaks (data sheet, dense): HBM bytes/s, f32 outside the
+# tensor cores, int8 tensor-core operations/s
+HBM_BPS = 3.35e12
+F32_OPS = 67e12
+INT8_OPS = 1979e12
 
 
 def log(msg):
@@ -94,6 +121,12 @@ def cuda_ms(fn):
     return start.elapsed_time(end)
 
 
+def median_ms(fn, reps=REPS):
+    """Median time of ``fn`` on the card after one warm-up call."""
+    fn()
+    return statistics.median(cuda_ms(fn) for _ in range(reps))
+
+
 def median_ms_pair(kernel, plain, reps=REPS):
     """Median times of kernel and plain, warmed up, taken in turns."""
     kernel(), plain()
@@ -102,6 +135,21 @@ def median_ms_pair(kernel, plain, reps=REPS):
         tp.append(cuda_ms(plain))
         tk.append(cuda_ms(kernel))
     return statistics.median(tk), statistics.median(tp)
+
+
+def bound(nbytes, ops, peak_ops):
+    """(bound_ms, bound_by): the least time for moving ``nbytes`` (each
+    input read once, each output written once) and doing ``ops`` at the
+    card's peak rates, whichever is longer."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def with_bound(res, nbytes, ops, peak_ops=F32_OPS, library_ms=None):
+    """``res`` with the bound and library entries of the kernels line."""
+    bound_ms, bound_by = bound(nbytes, ops, peak_ops)
+    return dict(res, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
 
 
 def bf16_ulp(x):
@@ -196,7 +244,9 @@ def phase_batch_sampler(model):
     log(f"[K-A] bf16 out, median of {REPS}: kernel {ms:.3f} ms "
         f"({gbytes / ms * 1e3:.0f} GB/s of {gbytes * 1e3:.0f} MB moved), "
         f"plain {plain_ms:.3f} ms")
-    return dict(max_abs_err=err32, ms=ms, plain_ms=plain_ms)
+    # no PyTorch call draws the counter-hash normals: no library time
+    return with_bound(dict(max_abs_err=err32, ms=ms, plain_ms=plain_ms),
+                      gbytes * 1e9, 2 * NUM_MC * n)
 
 
 def phase_sampled_gemm(model):
@@ -234,7 +284,9 @@ def phase_sampled_gemm(model):
         f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms")
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    N, K = mu.shape
+    return with_bound(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms),
+                      4 * (BATCH * K + 2 * N * K + BATCH * N), flops)
 
 
 def set_bn_statistics(model, x):
@@ -382,7 +434,9 @@ def phase_noise_grad(model):
     log(f"[K-C dsigma] median of {REPS}: kernel {ms:.3f} ms "
         f"({gbytes / ms * 1e3:.0f} GB/s of {gbytes * 1e3:.0f} MB moved), "
         f"plain {plain_ms:.3f} ms")
-    results["dsigma"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    results["dsigma"] = with_bound(
+        dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), gbytes * 1e9,
+        2 * TRAIN_MC * n)
     del g
     g = torch.randn(n, generator=gen, device="cuda")
     got, want = ka.drho(seed, g, rho), ka.drho_plain(seed, g, rho)
@@ -397,7 +451,8 @@ def phase_noise_grad(model):
     log(f"[K-C drho] median of {REPS}: kernel {ms:.3f} ms "
         f"({gbytes / ms * 1e3:.0f} GB/s of {gbytes * 1e3:.0f} MB moved), "
         f"plain {plain_ms:.3f} ms")
-    results["drho"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    results["drho"] = with_bound(
+        dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), gbytes * 1e9, 4 * n)
     return results
 
 
@@ -430,7 +485,9 @@ def phase_gemm_backward(model):
             lambda: kb.sampled_matmul_dx_plain(seed, g, mu, sigma))
         log(f"[K-D] median of {REPS}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f}"
             f" TFLOP/s), plain {plain_ms:.4f} ms")
-        results["dx"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        results["dx"] = with_bound(
+            dict(max_abs_err=err, ms=ms, plain_ms=plain_ms),
+            4 * (BATCH * N + 2 * N * K + BATCH * K), flops)
 
         dmu, dsig = kb.sampled_matmul_dw(seed, g, x)
         dmu_w, dsig_w = kb.sampled_matmul_dw_plain(seed, g, x)
@@ -445,7 +502,9 @@ def phase_gemm_backward(model):
             lambda: kb.sampled_matmul_dw_plain(seed, g, x))
         log(f"[K-E] median of {REPS}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f}"
             f" TFLOP/s), plain {plain_ms:.4f} ms")
-        results["dw"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        results["dw"] = with_bound(
+            dict(max_abs_err=err, ms=ms, plain_ms=plain_ms),
+            4 * (BATCH * N + BATCH * K + 2 * N * K), flops + N * K)
     return results
 
 
@@ -508,9 +567,12 @@ def kernel_counters():
     from bayesian_torch_tpu_torch.ops.cuda import sampled_matmul as kb
     from bayesian_torch_tpu_torch.ops.cuda import sampled_weights as ka
 
+    from bayesian_torch_tpu_torch.ops.cuda import qmatmul as kf
+
     return {"K-A": ka.sample_scaled_normals_batch, "K-B": kb.sampled_matmul,
             "K-C dsigma": ka.dsigma, "K-C drho": ka.drho,
-            "K-D": kb.sampled_matmul_dx, "K-E": kb.sampled_matmul_dw}
+            "K-D": kb.sampled_matmul_dx, "K-E": kb.sampled_matmul_dw,
+            "K-F": kf.qmatmul_requant}
 
 
 def reset_counts():
@@ -537,7 +599,7 @@ def expected_step_launches(model, num_mc):
                 + (layer.mu_bias is not None) for layer in layers)
     return {"K-A": num_mc * draws, "K-B": num_mc * fused,
             "K-C dsigma": 0, "K-C drho": num_mc * draws,
-            "K-D": num_mc * fused, "K-E": num_mc * fused}
+            "K-D": num_mc * fused, "K-E": num_mc * fused, "K-F": 0}
 
 
 def labels(seed):
@@ -820,6 +882,309 @@ def phase_sanity(model):
         f"limit 2^-6 x max|logit| = {scale * 2**-6:.3e}")
     check(diff <= scale * 2**-6, "MC mean at sigma ~ 0 differs from a draw")
 
+# --- the INT8 post-training-quantization path --------------------------------
+
+
+def int8_shapes(model, x):
+    """{(M, K, N): launches} of K-F in one forward of a converted model:
+    a conv is an (B*Ho*Wo, C*kh*kw) x (O, C*kh*kw) GEMM, the head a
+    (B, in) x (out, in) one."""
+    import collections
+
+    from bayesian_torch_tpu_torch.layers.quantized_base import (
+        _QuantizedLayerBase,
+    )
+
+    shapes = collections.Counter()
+
+    def hook(mod, _, out):
+        out = out[0] if isinstance(out, tuple) else out
+        if mod.is_conv:
+            o = out.shape
+            shapes[(o[0] * math.prod(o[2:]), mod.in_channels
+                    * math.prod(mod.kernel_size), mod.out_channels)] += 1
+        else:
+            shapes[(out.shape[0], mod.in_features, mod.out_features)] += 1
+
+    layers = [m for m in model.modules() if isinstance(m, _QuantizedLayerBase)]
+    handles = [m.register_forward_hook(hook) for m in layers]
+    try:
+        model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    check(sum(shapes.values()) == len(layers),
+          f"{sum(shapes.values())} GEMMs for {len(layers)} quantized layers")
+    return shapes
+
+
+def phase_qmatmul(shapes):
+    """K-F against its plain version at every GEMM shape of the INT8 main
+    path, with x_zp = 128 and no bias and with x_zp = 117 and a bias: bit
+    for bit. Median times of the kernel, the plain version and
+    ``torch._int_mm`` on the centred s8 operands (K, N padded to
+    multiples of 8); summed over one forward's launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from bayesian_torch_tpu_torch.ops.cuda import qmatmul as kf
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               bytes=0.0, ops=0.0)
+    worst = 0
+    for (M, K, N), count in sorted(shapes.items()):
+        x = torch.randint(0, 256, (M, K), dtype=torch.uint8, device="cuda",
+                          generator=gen)
+        w = torch.randint(-128, 128, (N, K), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        b = torch.randn(N, device="cuda", generator=gen)
+        out_scale = 0.02 * 0.01 * 74 * 74 * K ** 0.5 / 40  # ~40 quanta
+        for x_zp, bias in ((128, None), (117, b)):
+            got = kf.qmatmul_requant(x, 0.02, x_zp, w, 0.01, bias, out_scale,
+                                     128)
+            args = kf.requant_args(w, x_zp, 0.02, 0.01, bias, out_scale)
+            want = kf.qmatmul_requant_plain(x, w, *args, 128)
+            err = (got.int() - want.int()).abs().max().item()
+            check(err == 0, f"K-F differs from its plain version at M={M} "
+                  f"K={K} N={N} x_zp={x_zp}: {err} quanta")
+            worst = max(worst, err)
+            del got, want
+        ms, plain_ms = median_ms_pair(
+            lambda: kf.qmatmul_requant(x, 0.02, 117, w, 0.01, b, out_scale,
+                                       128),
+            lambda: kf.qmatmul_requant_plain(x, w, *args, 128))
+        kp, np_ = -(-K // 8) * 8, -(-N // 8) * 8
+        xc = F.pad((x.int() - 128).to(torch.int8), (0, kp - K))
+        wc = F.pad(w, (0, kp - K, 0, np_ - N))
+        lib_ms = median_ms(lambda: torch._int_mm(xc, wc.t()))
+        nbytes, ops = M * K + N * K + M * N + 8 * N, 2 * M * N * K
+        bound_ms, by = bound(nbytes, ops, INT8_OPS)
+        log(f"[K-F] M={M} K={K} N={N} x{count}: kernel {ms:.4f} ms "
+            f"({ops / ms / 1e9:.1f} TOP/s, {nbytes / ms / 1e6:.0f} GB/s), "
+            f"plain {plain_ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({by}); bit-exact at x_zp 128 and 117+bias")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("bound_ms", bound_ms),
+                       ("bytes", nbytes), ("ops", ops)):
+            tot[key] += count * v
+        del x, w, xc, wc
+    log(f"[K-F] one forward ({sum(shapes.values())} launches, "
+        f"{len(shapes)} shapes): kernel {tot['ms']:.3f} ms, plain "
+        f"{tot['plain_ms']:.3f} ms, torch._int_mm {tot['library_ms']:.3f} "
+        f"ms, bound {tot['bound_ms']:.3f} ms ({tot['ops'] / 1e12:.3f} T int8 "
+        f"ops, {tot['bytes'] / 1e9:.3f} GB)")
+    _, by = bound(tot["bytes"], tot["ops"], INT8_OPS)
+    return dict(max_abs_err=float(worst), ms=tot["ms"],
+                plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+                bound_by=by, library_ms=tot["library_ms"])
+
+
+def build_qresnet50(calibrate=None):
+    import torch
+
+    from bayesian_torch_tpu_torch.models.bayesian.\
+        quantized_resnet_variational_large import qresnet50
+
+    return qresnet50(generator=torch.Generator().manual_seed(SEED),
+                     device="cuda", calibrate=calibrate, fuse_conv_bn=True,
+                     quantize_activations=True)
+
+
+def phase_int8_build(eval_x):
+    """The calibrated INT8 model: the float ResNet-50 (f32) takes its BN
+    statistics from one training-mode forward (observers off), gives two
+    MC-10 predictive means on ``eval_x`` for the top-1 comparison, then
+    calibrates on 3 batches of 32 images and is converted with conv+BN
+    folding and uint8 activations."""
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    float_mean = {}
+
+    def calibrate(model):
+        prepared = [m for m in model.modules()
+                    if getattr(m, "quant_prepare", False)]
+        for m in prepared:
+            m.quant_prepare = False
+        set_bn_statistics(model, images(SEED + 500))
+        # two independent f32 MC-10 means: how far apart two float
+        # predictions already are sets the scale of the int8 comparison
+        float_mean["means"] = [mc_forward(model, eval_x, NUM_MC,
+                                          reduce="mean", return_kl=False)
+                               for _ in range(2)]
+        for m in prepared:
+            m.quant_prepare = True
+        with torch.no_grad():
+            for i in range(3):
+                model(images(SEED + 510 + i)[:CALIB_BATCH])
+
+    t0 = time.perf_counter()
+    model = build_qresnet50(calibrate)
+    torch.cuda.synchronize()
+    layers = [m for m in model.modules() if hasattr(m, "quant_dict")]
+    check(len(layers) == INT8_LAYERS and all(m.quant_dict is not None
+                                             for m in layers),
+          "not every layer of the converted model is calibrated")
+    log(f"[int8 build] qresnet50 f32 -> BN statistics, float MC-{NUM_MC} "
+        f"mean, 3 x {CALIB_BATCH} calibration images, convert(fuse_conv_bn"
+        f"=True, quantize_activations=True): {time.perf_counter() - t0:.1f} "
+        f"s; {len(layers)} quantized layers")
+    return model, float_mean["means"]
+
+
+def timed_batches(what, fn, batches, launches_each):
+    """Median ms of ``fn(x)`` over ``batches`` after one warm-up, every
+    count set to 0 before the first and K-F's checked per batch; returns
+    (median ms, outputs, K-F launches)."""
+    import torch
+
+    fn(images(SEED + 600))
+    torch.cuda.synchronize()
+    reset_counts()
+    times, outs = [], []
+    for i, x in enumerate(batches):
+        before = counts()["K-F"]
+        t0 = time.perf_counter()
+        out = fn(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        got = counts()["K-F"] - before
+        check(tuple(out.shape) == (BATCH, 1000)
+              and bool(torch.isfinite(out).all()), f"{what}: output")
+        check(got == launches_each, f"{what}: K-F launched {got} times in "
+              f"batch {i}, want {launches_each}")
+        outs.append(out)
+    ms = statistics.median(times)
+    launches = counts()["K-F"]
+    log(f"[{what}] batches {', '.join(f'{t:.1f}' for t in times)} ms; "
+        f"median {ms:.1f} ms/batch, {BATCH / ms * 1e3:.1f} images/s, K-F "
+        f"launches {launches}")
+    return ms, outs, launches
+
+
+def phase_int8_main(model, batches, float_means):
+    """The INT8 main path: MC-10 at batch 128 (every K-F launch counted
+    from zero), then the weight build alone, then frozen-draw MC-1."""
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    def mc10(x):
+        return mc_forward(model, x, NUM_MC, reduce="mean", return_kl=False)
+
+    torch.cuda.reset_peak_memory_stats()
+    ms, outs, launches = timed_batches(
+        f"int8 main MC-{NUM_MC} bs{BATCH}", mc10, batches,
+        INT8_LAYERS * NUM_MC)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    def agree(a, b):
+        return (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
+    f0, f1 = float_means
+    log(f"[int8 main] peak {peak:.2f} GiB; top-1 agreement on batch 0 "
+        f"(reported, not gated) of the int8 and an f32 MC-{NUM_MC} "
+        f"predictive mean: {agree(outs[0], f0):.4f}; of two f32 MC-{NUM_MC} "
+        f"means: {agree(f0, f1):.4f}; predictive entropy int8 "
+        f"{entropy(outs[0]):.4f}, f32 {entropy(f0):.4f}")
+
+    layers = [m for m in model.modules() if hasattr(m, "quant_dict")]
+    build_ms = []
+    for _ in range(3):
+        build_ms.append(cuda_ms(lambda: [m._sampled_qweight_reparam(6 / 255)
+                                         for m in layers]))
+    log(f"[int8 weight build] all {len(layers)} layers' int8 weights for one "
+        f"draw (eps, quantize, qmul, qadd in torch): median "
+        f"{statistics.median(build_ms):.2f} ms of {build_ms}")
+    return ms, launches
+
+
+def phase_int8_frozen(model, batches):
+    """Frozen-draw serving, MC-1 (``freeze_quantized_draws``)."""
+    from bayesian_torch_tpu_torch.quantization import freeze_quantized_draws
+
+    import torch
+
+    n = freeze_quantized_draws(model)
+    check(n == INT8_LAYERS, f"froze {n} layers")
+    with torch.no_grad():
+        ms, _, _ = timed_batches("int8 frozen MC-1", lambda x: model(x)[0],
+                                 batches, INT8_LAYERS)
+    return ms
+
+
+def phase_int8_sanity(model, x):
+    """With frozen draws the card's logits on 2 images equal a CPU copy's
+    (the plain versions): the activations into the average pool bit for
+    bit (integer GEMMs, the same f32 epilogues and adds), the logits
+    within 3 head-output quanta (the pool's f32 sums run in another order
+    on the CPU, which can move a head input across a rounding boundary).
+    Then two unfrozen MC-1 forwards must differ."""
+    import torch
+
+    from bayesian_torch_tpu_torch.models.bayesian.\
+        quantized_resnet_variational_large import qresnet50
+    from bayesian_torch_tpu_torch.ops.qtensor import dequantize_if_qtensor
+    from bayesian_torch_tpu_torch.quantization import (
+        unfreeze_quantized_draws,
+    )
+    from bayesian_torch_tpu_torch.utils.checkpoint import load_jax_quant_state
+
+    t0 = time.perf_counter()
+    cpu = qresnet50(generator=torch.Generator().manual_seed(SEED + 1),
+                    fuse_conv_bn=True, quantize_activations=True)
+    load_jax_quant_state(
+        cpu, {k: v.cpu().numpy() for k, v in model.state_dict().items()},
+        {name: m.quant_dict for name, m in model.named_modules()
+         if hasattr(m, "quant_dict")})
+    pooled = {}
+
+    def run(m, xs):
+        h = m.avgpool.register_forward_hook(
+            lambda mod, inp, out: pooled.__setitem__(
+                xs.device.type, dequantize_if_qtensor(inp[0]).cpu()))
+        try:
+            with torch.no_grad():
+                return m(xs)[0].cpu()
+        finally:
+            h.remove()
+
+    xs = x[:2]
+    got, want = run(model, xs), run(cpu, xs.cpu())
+    head_q = model.fc.quant_dict[4]["scale"]
+    diff = (got - want).abs()
+    exact = torch.equal(pooled["cuda"], pooled["cpu"])
+    log(f"[int8 sanity] card vs CPU copy, frozen draws, 2 images "
+        f"({time.perf_counter() - t0:.1f} s): activations into the pool "
+        f"equal: {exact}; logits max|diff| {diff.max().item():.3e} = "
+        f"{diff.max().item() / head_q:.2f} head quanta (limit 3), "
+        f"{(diff == 0).float().mean().item():.4f} of them equal")
+    check(exact, "card and CPU activations into the pool differ")
+    check(diff.max().item() <= 3 * head_q * (1 + 1e-6),
+          "card and CPU logits differ by more than 3 head quanta")
+    unfreeze_quantized_draws(model)
+    with torch.no_grad():
+        a, b = model(x)[0], model(x)[0]
+    check(not torch.equal(a, b), "two unfrozen MC-1 forwards are equal")
+    log("[int8 sanity] two unfrozen MC-1 forwards differ")
+
+
+def phase_int8_uncalibrated(batches):
+    """The JAX bench's configuration: no calibration, every tensor at
+    scale 0.2 and zero point 128; MC-1 per-forward redraw."""
+    import torch
+
+
+    model = build_qresnet50()
+    check(all(m.quant_dict is None for m in model.modules()
+              if hasattr(m, "quant_dict")), "uncalibrated model has scales")
+    with torch.no_grad():
+        ms, _, _ = timed_batches("int8 uncalibrated MC-1",
+                                 lambda x: model(x)[0], batches, INT8_LAYERS)
+    return ms
+
+
 
 def main(argv=None):
     import argparse
@@ -879,6 +1244,22 @@ def main(argv=None):
     torch.cuda.empty_cache()
     phase_trainer()
 
+    batches = [images(SEED + 1 + i) for i in range(3)]
+    qmodel, float_means = phase_int8_build(batches[0])
+    with torch.no_grad():
+        shapes = int8_shapes(qmodel, batches[0])
+    kf_res = phase_qmatmul(shapes)
+    kf_launches = phase_int8_main(qmodel, batches, float_means)[1]
+    if profile:
+        from bayesian_torch_tpu_torch.parallel import mc_forward
+        profile_window(f"one INT8 MC-{NUM_MC} batch (bs{BATCH})",
+                       lambda: mc_forward(qmodel, batches[0], NUM_MC,
+                                          reduce="mean", return_kl=False))
+    phase_int8_frozen(qmodel, batches)
+    phase_int8_sanity(qmodel, batches[0])
+    del qmodel
+    phase_int8_uncalibrated(batches)
+
     csrc = "bayesian_torch_tpu_torch/csrc/"
     pallas = "bayesian_torch_tpu/ops/pallas/"
     train_run = (f"training main path: make_train_step(num_mc={TRAIN_MC}, "
@@ -915,6 +1296,14 @@ def main(argv=None):
              source=csrc + "sampled_matmul_bwd.cu",
              replaces=pallas + "sampled_matmul.py:110",
              run=train_run, launches=train["K-E"], **kde_res["dw"]),
+        dict(name="qmatmul_requant", route="cuda",
+             source=csrc + "qmatmul.cu",
+             replaces=pallas + "qmatmul.py:61",
+             run=f"INT8 main path: qresnet50 calibrated, fuse_conv_bn=True, "
+                 f"mc_forward(num_mc={NUM_MC}, reduce='mean'), 3 batches; "
+                 f"ms, plain_ms, bound_ms and library_ms are sums over one "
+                 f"forward's {INT8_LAYERS} GEMMs",
+             launches=kf_launches, **kf_res),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never ran in {k['run']}")

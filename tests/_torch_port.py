@@ -18,9 +18,12 @@ REPARAM = "Reparameterization"
 
 
 def jax_state(model):
-    """{torch-style key: variable} of an nnx model's Param + BatchStat
-    state (the keys ``import_torch_state_dict`` maps by)."""
-    state = nnx.state(model, nnx.Any(nnx.Param, nnx.BatchStat))
+    """{torch-style key: variable} of an nnx model's Param, BatchStat and
+    QuantParam state (the keys ``import_torch_state_dict`` maps by; a
+    converted model's int8 weights and scales)."""
+    from bayesian_torch_tpu.layers.quantized_base import QuantParam
+
+    state = nnx.state(model, nnx.Any(nnx.Param, nnx.BatchStat, QuantParam))
     return {_torch_key_for(path): var
             for path, var in nnx.to_flat_state(state)}
 

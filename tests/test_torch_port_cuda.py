@@ -1,8 +1,9 @@
 """Card-only checks of the port's CUDA kernels against their plain torch
 versions, at small and ragged shapes (the full shapes are in
 chip_smoke.py): K-A and K-B forward, K-C (both modes), K-D and K-E
-backward, and autograd through the public ops. They skip without a CUDA device. On a machine with one,
-and without JAX, run them with
+backward, autograd through the public ops, and K-F (the fused int8 GEMM +
+requantize) with the quantized convs built on it. They skip without a
+CUDA device. On a machine with one, and without JAX, run them with
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
 
@@ -13,6 +14,8 @@ torch and the port only.
 import pytest
 import torch
 
+from bayesian_torch_tpu_torch.ops import int8 as q
+from bayesian_torch_tpu_torch.ops.cuda import qmatmul as kf
 from bayesian_torch_tpu_torch.ops.cuda import sampled_matmul as kb
 from bayesian_torch_tpu_torch.ops.cuda import sampled_weights as ka
 from bayesian_torch_tpu_torch.ops.cuda.sampled_matmul import (
@@ -200,3 +203,79 @@ def test_sampled_matmul_grad_matches_plain(cuda):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert _max_err(a, b) <= 1e-4 * _scale(b)
+
+
+def _int8_operands(m, n, k, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(0, 256, (m, k), dtype=torch.uint8, device=device,
+                      generator=g)
+    w = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=device,
+                      generator=g)
+    bias = torch.randn(n, device=device, generator=g)
+    # output scale for an output spread of ~40 quanta around the zero point
+    out_scale = 0.02 * 0.01 * 74 * 74 * k ** 0.5 / 40
+    return x, w, bias, out_scale
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 1, 1), (37, 64, 147), (300, 1000, 100),
+                                   (129, 65, 576), (250, 1000, 2048),
+                                   (1000, 70, 4608)])
+@pytest.mark.parametrize("x_zp,with_bias", [(128, False), (128, True),
+                                            (117, False), (140, True)])
+def test_qmatmul_matches_plain(cuda, m, n, k, x_zp, with_bias):
+    x, w, bias, out_scale = _int8_operands(m, n, k, cuda)
+    bias = bias if with_bias else None
+    before = kf.qmatmul_requant.launches
+    got = kf.qmatmul_requant(x, 0.02, x_zp, w, 0.01, bias, out_scale, 128)
+    want = kf.qmatmul_requant_plain(
+        x, w, *kf.requant_args(w, x_zp, 0.02, 0.01, bias, out_scale), 128)
+    torch.cuda.synchronize()
+    assert kf.qmatmul_requant.launches == before + 1
+    # integer product and the same f32 epilogue: bit for bit
+    assert torch.equal(got, want)
+
+
+def test_qmatmul_unaligned_view(cuda):
+    """A contiguous view at an odd offset takes the byte-wise loads."""
+    x, w, bias, out_scale = _int8_operands(65, 48, 64, cuda)
+    xv = x.reshape(-1)[1:1 + 64 * 64].reshape(64, 64)
+    got = kf.qmatmul_requant(xv, 0.02, 120, w, 0.01, bias, out_scale, 128)
+    want = kf.qmatmul_requant_plain(
+        xv, w, *kf.requant_args(w, 120, 0.02, 0.01, bias, out_scale), 128)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_qmatmul_raises_on_bad_input(cuda):
+    x, w, bias, out_scale = _int8_operands(8, 4, 32, cuda)
+    args = (0.02, 128)
+    with pytest.raises(ValueError, match="uint8"):
+        kf.qmatmul_requant(x.to(torch.int8), *args, w, 0.01, None, 0.1, 128)
+    with pytest.raises(ValueError, match="uint8"):
+        kf.qmatmul_requant(x, *args, w.to(torch.uint8), 0.01, None, 0.1, 128)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kf.qmatmul_requant(x, *args, w.cpu(), 0.01, None, 0.1, 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        kf.qmatmul_requant(x.t(), *args, w[:, :8].contiguous(), 0.01, None,
+                           0.1, 128)
+    with pytest.raises(ValueError, match="bias"):
+        kf.qmatmul_requant(x, *args, w, 0.01, bias[:2], 0.1, 128)
+
+
+@pytest.mark.parametrize("k,stride,pad,x_zp", [(7, 2, 3, 128), (3, 1, 1, 117),
+                                               (3, 2, 1, 100), (1, 2, 0, 90),
+                                               (1, 1, 0, 128)])
+def test_qconv_on_the_card_matches_the_cpu(cuda, k, stride, pad, x_zp):
+    """The quantized conv route (im2col + K-F on the card) equals the same
+    route on the CPU (plain version), zero-point borders included."""
+    g = torch.Generator().manual_seed(k)
+    x = torch.randint(0, 256, (2, 16, 15, 15), dtype=torch.uint8, generator=g)
+    w = torch.randint(-128, 128, (24, 16, k, k), dtype=torch.int8,
+                      generator=g)
+    b = torch.randn(24, generator=g)
+    want = q.qconv(x, 0.05, x_zp, w, 0.01, b, 0.05 * k, 128, stride=stride,
+                   padding=pad)
+    got = q.qconv(x.to(cuda), 0.05, x_zp, w.to(cuda), 0.01, b.to(cuda),
+                  0.05 * k, 128, stride=stride, padding=pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
