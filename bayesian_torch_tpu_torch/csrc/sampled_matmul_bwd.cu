@@ -1,29 +1,41 @@
 // K-D and K-E: backward of the fused sampled GEMM (K-B,
-// sampled_matmul.cu), with the sampled weight regenerated, never stored.
+// sampled_matmul.cu) with its lane axis, the sampled weight regenerated,
+// never stored. For lanes s < S, W_s = mu + sigma * eps(seed, s, n, k):
 //
-//   K-D: dx[M, K] = g[M, N] @ W[N, K],  W = mu + sigma * eps(seed, n, k)
-//   K-E: dmu[N, K] = g^T @ x;  dsigma[N, K] = dmu * eps(seed, n, k)
+//   K-D: dx[s] = g[s] @ W_s                       (S, M, K)
+//   K-E: dmu = sum_s g[s]^T @ x[s];  dsigma = sum_s (g[s]^T @ x[s]) * eps_s
 //
-// Replace the Pallas kernels _dx_kernel and _dw_kernel of
-// bayesian_torch_tpu/ops/pallas/sampled_matmul.py (_dx_unbatched,
-// _dw_unbatched), the VJP of sampled_matmul_pallas. eps of weight (n, k) is
-// the hash at counter n*K + k under the salt of draw 0 of the seed, as K-B
-// drew it: it depends on (seed, n, k) only, never on the tiling.
+// Replace the Pallas kernels _dx_kernel and _dw_kernel (_dx_unbatched,
+// _dw_unbatched: the VJP of sampled_matmul_pallas, S = 1) and
+// _dx_kernel_s and _dw_kernel_s (_dx_s, _dw_s: the S-batched VJP that the
+// vmap emission dispatches) of bayesian_torch_tpu/ops/pallas/
+// sampled_matmul.py. JAX's _dw_s writes per-lane (S, N, K) outputs, which
+// vmap's transpose then sums over the lanes, because mu and sigma are
+// shared by them; K-E returns those sums directly. eps of lane s, weight
+// (n, k) is the hash at counter n*K + k under the salt of draw s, as K-B
+// drew it: it depends on (seed, s, n, k) only, never on the tiling. Lane 0
+// of each is the single-draw kernel, bit for bit.
 //
 // What bounds them on an H100: at the ResNet-50 head (M=128, K=2048,
-// N=1000) each is 0.5 GFLOP in f32 on CUDA cores (the TPU kernels ran at
-// Precision.HIGHEST), plus one hash normal per weight element; mu, sigma,
-// dmu and dsigma are 8 MB each. Few blocks at that shape, so both are
-// latency-bound, like K-B.
+// N=1000) each lane is 0.5 GFLOP in f32 on CUDA cores (the TPU kernels ran
+// at Precision.HIGHEST), plus one hash normal per weight element; mu,
+// sigma, dmu and dsigma are 8 MB each. At S = 4 (MC-4 training) each
+// kernel is 2.1 GFLOP, 0.031 ms at 67 TFLOP/s. K-D at one lane has 64
+// blocks and is latency-bound; its lanes multiply the blocks (256 at
+// S = 4). K-E has 512 blocks whatever S is, and each walks the lanes.
 //
 // Design: K-B's shared-memory tiled GEMM, f32 FMA with f32 accumulation,
 // 256 threads each owning a 4x4 patch of the output tile, ragged edges
-// masked. K-D builds each (16, 32) weight tile in shared memory from mu,
-// sigma and the hash, K-B's indexing read transposed, so W never reaches
-// device memory; with BM = 128 the head has one M tile and each weight
-// element is generated once. K-E accumulates g^T x over M in registers
-// and draws eps only in the epilogue, once per output element, where it
-// writes dmu and dsigma side by side. No wgmma or TMA yet.
+// masked. K-D builds each (16, 32) weight tile of its lane (blockIdx.z) in
+// shared memory from mu, sigma and the hash, K-B's indexing read
+// transposed, so W never reaches device memory; with BM = 128 the head
+// has one M tile and each weight element is generated once per lane. K-E
+// walks the lanes in order inside the block: it accumulates g[s]^T x[s]
+// over M in registers, then draws that lane's eps once per output element
+// and adds the lane's dmu and dmu * eps to register sums. The lane sum is
+// deterministic, needs no atomics, and no (S, N, K) array reaches device
+// memory. x may be shared by the lanes (a lane stride of 0). No wgmma or
+// TMA yet.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,7 +64,7 @@ __global__ void __launch_bounds__(kThreads)
                              const float* __restrict__ mu,
                              const float* __restrict__ sigma,
                              float* __restrict__ dx, int M, int N, int K,
-                             uint32_t salt) {
+                             uint32_t seed_lo, uint32_t seed_hi) {
   __shared__ float gs[kDxBN][kDxBM + 4];  // g tile, n-major
   __shared__ float ws[kDxBN][kDxBK + 4];  // sampled weight tile (n, k)
   const int tid = threadIdx.x;
@@ -60,6 +72,9 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = tid / (kDxBK / 4);
   const int m0 = blockIdx.y * kDxBM;
   const int k0 = blockIdx.x * kDxBK;
+  const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, blockIdx.z);
+  g += (int64_t)blockIdx.z * M * N;
+  dx += (int64_t)blockIdx.z * M * K;
 
   float acc[4][4];
 #pragma unroll
@@ -108,17 +123,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// K-E. Output tile 64 (n) x 64 (k); reduction over m in steps of 16.
+// K-E. Output tile 64 (n) x 64 (k); reduction over m in steps of 16,
+// then over the lanes.
 constexpr int kDwBN = 64;
 constexpr int kDwBK = 64;
 constexpr int kDwBM = 16;
 
 __global__ void __launch_bounds__(kThreads)
     sampled_matmul_dw_kernel(const float* __restrict__ g,
-                             const float* __restrict__ x,
+                             const float* __restrict__ x, int64_t x_lane,
                              float* __restrict__ dmu,
-                             float* __restrict__ dsigma, int M, int N, int K,
-                             uint32_t salt) {
+                             float* __restrict__ dsigma, int S, int M, int N,
+                             int K, uint32_t seed_lo, uint32_t seed_hi) {
   __shared__ float gs[kDwBM][kDwBN + 4];  // g tile (m, n)
   __shared__ float xs[kDwBM][kDwBK + 4];  // x tile (m, k)
   const int tid = threadIdx.x;
@@ -127,37 +143,57 @@ __global__ void __launch_bounds__(kThreads)
   const int n0 = blockIdx.y * kDwBN;
   const int k0 = blockIdx.x * kDwBK;
 
-  float acc[4][4];
+  float mu_sum[4][4] = {}, sig_sum[4][4] = {};
+  for (int s = 0; s < S; ++s) {
+    const float* gl = g + (int64_t)s * M * N;
+    const float* xl = x + (int64_t)s * x_lane;
+    float acc[4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int m0 = 0; m0 < M; m0 += kDwBM) {
-    for (int e = tid; e < kDwBM * kDwBN; e += kThreads) {
-      const int r = e / kDwBN, c = e % kDwBN;
-      const int gm = m0 + r, gn = n0 + c;
-      gs[r][c] = (gm < M && gn < N) ? g[(int64_t)gm * N + gn] : 0.f;
+    for (int m0 = 0; m0 < M; m0 += kDwBM) {
+      for (int e = tid; e < kDwBM * kDwBN; e += kThreads) {
+        const int r = e / kDwBN, c = e % kDwBN;
+        const int gm = m0 + r, gn = n0 + c;
+        gs[r][c] = (gm < M && gn < N) ? gl[(int64_t)gm * N + gn] : 0.f;
+      }
+      for (int e = tid; e < kDwBM * kDwBK; e += kThreads) {
+        const int r = e / kDwBK, c = e % kDwBK;
+        const int gm = m0 + r, gk = k0 + c;
+        xs[r][c] = (gm < M && gk < K) ? xl[(int64_t)gm * K + gk] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int mm = 0; mm < kDwBM; ++mm) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = gs[mm][ty * 4 + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = xs[mm][tx * 4 + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
     }
-    for (int e = tid; e < kDwBM * kDwBK; e += kThreads) {
-      const int r = e / kDwBK, c = e % kDwBK;
-      const int gm = m0 + r, gk = k0 + c;
-      xs[r][c] = (gm < M && gk < K) ? x[(int64_t)gm * K + gk] : 0.f;
+
+    // this lane's dmu and dmu * eps join the sums in lane order; lane 0
+    // is stored as it is, so S = 1 is the single-draw kernel bit for bit
+    const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, (uint32_t)s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int64_t idx = (int64_t)(n0 + ty * 4 + i) * K + k0 + tx * 4 + j;
+        const float d = __fmul_rn(acc[i][j],
+                                  btt_hash_normal(salt, (uint32_t)idx));
+        mu_sum[i][j] = s == 0 ? acc[i][j] : __fadd_rn(mu_sum[i][j], acc[i][j]);
+        sig_sum[i][j] = s == 0 ? d : __fadd_rn(sig_sum[i][j], d);
+      }
     }
-    __syncthreads();
-#pragma unroll
-    for (int mm = 0; mm < kDwBM; ++mm) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = gs[mm][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = xs[mm][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
 
 #pragma unroll
@@ -169,42 +205,40 @@ __global__ void __launch_bounds__(kThreads)
       const int gk = k0 + tx * 4 + j;
       if (gk >= K) continue;
       const int64_t idx = (int64_t)gn * K + gk;
-      dmu[idx] = acc[i][j];
-      dsigma[idx] = __fmul_rn(acc[i][j], btt_hash_normal(salt, (uint32_t)idx));
+      dmu[idx] = mu_sum[i][j];
+      dsigma[idx] = sig_sum[i][j];
     }
   }
-}
-
-uint32_t draw0_salt(uint64_t seed) {
-  return btt_draw_salt((uint32_t)(seed & 0xFFFFFFFFull),
-                       (uint32_t)(seed >> 32), 0u);
 }
 
 }  // namespace
 
 extern "C" {
 
-// g (M, N), mu and sigma (N, K), dx (M, K); all float32, row-major.
+// g (S, M, N), mu and sigma (N, K), dx (S, M, K); all float32, row-major.
 // Returns the launch's cudaGetLastError().
 int btt_sampled_matmul_dx(const float* g, const float* mu,
-                          const float* sigma, float* dx, int M, int N, int K,
-                          uint64_t seed, cudaStream_t stream) {
-  if (M <= 0 || K <= 0) return (int)cudaSuccess;
-  const dim3 grid((K + kDxBK - 1) / kDxBK, (M + kDxBM - 1) / kDxBM);
+                          const float* sigma, float* dx, int S, int M, int N,
+                          int K, uint64_t seed, cudaStream_t stream) {
+  if (S <= 0 || M <= 0 || K <= 0) return (int)cudaSuccess;
+  const dim3 grid((K + kDxBK - 1) / kDxBK, (M + kDxBM - 1) / kDxBM, S);
   sampled_matmul_dx_kernel<<<grid, kThreads, 0, stream>>>(
-      g, mu, sigma, dx, M, N, K, draw0_salt(seed));
+      g, mu, sigma, dx, M, N, K, (uint32_t)(seed & 0xFFFFFFFFull),
+      (uint32_t)(seed >> 32));
   return (int)cudaGetLastError();
 }
 
-// g (M, N), x (M, K), dmu and dsigma (N, K); all float32, row-major.
-// Returns the launch's cudaGetLastError().
-int btt_sampled_matmul_dw(const float* g, const float* x, float* dmu,
-                          float* dsigma, int M, int N, int K, uint64_t seed,
-                          cudaStream_t stream) {
-  if (N <= 0 || K <= 0) return (int)cudaSuccess;
+// g (S, M, N), x (S, M, K) with lane stride x_lane (M*K, or 0 for one x
+// shared by the lanes), dmu and dsigma (N, K): sums over the lanes; all
+// float32, row-major. Returns the launch's cudaGetLastError().
+int btt_sampled_matmul_dw(const float* g, const float* x, int64_t x_lane,
+                          float* dmu, float* dsigma, int S, int M, int N,
+                          int K, uint64_t seed, cudaStream_t stream) {
+  if (S <= 0 || N <= 0 || K <= 0) return (int)cudaSuccess;
   const dim3 grid((K + kDwBK - 1) / kDwBK, (N + kDwBN - 1) / kDwBN);
   sampled_matmul_dw_kernel<<<grid, kThreads, 0, stream>>>(
-      g, x, dmu, dsigma, M, N, K, draw0_salt(seed));
+      g, x, x_lane, dmu, dsigma, S, M, N, K, (uint32_t)(seed & 0xFFFFFFFFull),
+      (uint32_t)(seed >> 32));
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 """Shared train/eval engine of the example trainers (counterpart of
 ``bayesian_torch_tpu/examples/_engine.py``).
 
-One ELBO train step over ``mc_forward``'s draw loop, one MC-predictive
-eval step, AverageMeter-style reporting, and ``torch.save`` training
+One ELBO train step over ``mc_forward`` (the draw loop, or the vmap
+emission with ``emission="vmap"``), one MC-predictive eval step,
+AverageMeter-style reporting, and ``torch.save`` training
 checkpoints. Batches come from the numpy iterator ``_data.batches`` and
 go to the model's device; ``optax.sgd(lr, m)`` becomes
 ``torch.optim.SGD(lr, momentum=m)`` and ``optax.adam`` ``torch.optim.Adam``.
@@ -54,21 +55,22 @@ def _device(model):
 
 
 def make_train_step(num_mc: int, batch_size: int, mesh=None,
-                    presample: str = "auto"):
+                    presample: str = "auto", emission: str = "auto"):
     """ELBO step: loss = NLL of the mean over draws of the per-draw
     ``log_softmax`` + KL / batch_size; one optimizer step.
 
     ``train_step(model, optimizer, x, y)`` returns (loss, nll, kl) as
     detached tensors; the gradients stay in the parameters' ``.grad``.
     BatchNorm running statistics update inside ``mc_forward`` (one EMA
-    update per step for ``num_mc > 1``). ``presample`` is passed to
-    ``mc_forward`` ("auto" draws inside the layers in training mode).
+    update per step for ``num_mc > 1``). ``presample`` and ``emission``
+    are passed to ``mc_forward`` ("auto" draws inside the layers in
+    training mode; ``emission="vmap"`` runs all draws in one forward).
     """
 
     def train_step(model, optimizer, x, y):
         optimizer.zero_grad(set_to_none=True)
         outs, kl = mc_forward(model, x, num_mc, mesh=mesh,
-                              presample=presample)
+                              presample=presample, emission=emission)
         log_probs = torch.log_softmax(outs.float(), dim=-1)
         mean_out = log_probs.mean(dim=0)
         nll = -mean_out.gather(1, y.long()[:, None]).mean()
@@ -154,7 +156,7 @@ def train(model, optimizer, data, *, epochs, batch_size, num_mc=1,
 
 def evaluate(model, data, *, batch_size, num_monte_carlo=20,
              save_probs_to=None, writer=None, epoch=0, mesh=None,
-             structured=False):
+             structured=False, emission="auto"):
     """MC-predictive evaluation: accuracy and the uncertainty metrics,
     optionally a .npy dump of the MC probability stack.
 
@@ -169,7 +171,7 @@ def evaluate(model, data, *, batch_size, num_monte_carlo=20,
             f"{batch_size} (the last partial batch is dropped); use a "
             "batch size of at most the number of test examples")
     device = _device(model)
-    eval_fn = make_eval_step(num_monte_carlo, mesh, structured)
+    eval_fn = make_eval_step(num_monte_carlo, mesh, structured, emission)
     correct = 0
     total = 0
     all_probs = []

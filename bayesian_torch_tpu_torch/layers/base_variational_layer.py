@@ -7,6 +7,11 @@ same keys as the reference's (and as the JAX package's
 ``_torch_key_for``). Noise comes from an explicit CPU ``torch.Generator``
 per layer, in place of ``nnx.Rngs``: it initialises the posterior and
 then hands out one seed per forward call (``ops.sampling.draw_seed``).
+
+Under ``mc_forward``'s vmap emission, ``_mc_draws`` (the draw count S) is
+set on every module for the call: a layer that takes the draw axis
+(``takes_draw_axis``) then sees activations with draw s in channel block
+s and draws all S weight sets of the call at once (``_sample_draws``).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from torch import nn
 
 from bayesian_torch_tpu_torch.ops.kl import gaussian_kl
 from bayesian_torch_tpu_torch.ops.sampling import (device_generator,
-                                                   sigma_from_rho)
+                                                   draw_seed, sigma_from_rho)
 
 
 def get_kernel_size(x, n):
@@ -124,6 +129,26 @@ class BaseVariationalLayer(nn.Module):
                                            weight)):
             ob(v)
         return out
+
+    def _sample_draws(self, num_samples, mu, rho):
+        """All ``num_samples`` draws of the weight posterior (mu, rho) and
+        of the bias, in the compute dtype, in ONE batch-sampler launch
+        under one seed (weight and bias as one flat buffer): ``(w (S,
+        *mu.shape), b (S, O) or None)``. Differentiable (backward: one
+        regenerate-eps launch)."""
+        from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
+            sample_gaussian_batch,
+        )
+        dtype = self.compute_dtype or mu.dtype
+        seed = draw_seed(self.generator)
+        if self.mu_bias is None:
+            return sample_gaussian_batch(seed, mu, rho, num_samples,
+                                         dtype), None
+        flat = sample_gaussian_batch(
+            seed, torch.cat([mu.reshape(-1), self.mu_bias]),
+            torch.cat([rho.reshape(-1), self.rho_bias]), num_samples, dtype)
+        w, b = flat.split([mu.numel(), self.mu_bias.numel()], dim=1)
+        return w.reshape((num_samples,) + tuple(mu.shape)), b
 
     def kl_div(self, mu_q, sigma_q, mu_p, sigma_p):
         """KL(Q||P) between diagonal Gaussians, mean-reduced."""

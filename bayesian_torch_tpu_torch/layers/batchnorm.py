@@ -11,6 +11,12 @@ update from their average after the loop. Otherwise the eval path and the
 plain training path are torch's own. A ``QTensor`` input (a quantized
 conv's uint8 output) is dequantized first.
 
+Under ``mc_forward``'s vmap emission (``_mc_draws`` = S) the input is
+(B, S*C, ...) with draw s in channel block s. Each block is normalised as
+the plain forward normalises one draw: by its own batch statistics in
+training mode (per-channel statistics of the S*C channels, recorded for
+all S draws at once) and by the running statistics tiled S times in eval.
+
 ``BatchNorm2dLayer`` adds the reference's calling convention: a
 ``(x, kl)`` tuple in gives ``(out, 0)`` out, a bare tensor gives the bare
 output.
@@ -35,21 +41,27 @@ class MCBatchStats:
     def __init__(self):
         self.draws = []
 
-    def record(self, x):
+    def record(self, x, num_draws=1):
+        """Record the statistics of ``num_draws`` draws from x (B,
+        num_draws*C, ...), draw s in channel block s."""
         dims = (0,) + tuple(range(2, x.dim()))
         with torch.no_grad():
             var, mean = torch.var_mean(x.detach().float(), dim=dims,
                                        unbiased=True)
-        self.draws.append(torch.stack([mean, var]))
+        self.draws.append(torch.stack([mean.reshape(num_draws, -1),
+                                       var.reshape(num_draws, -1)], dim=1))
 
     def stacked(self):
         """(num_draws, 2, C): each draw's (mean, unbiased variance)."""
-        return torch.stack(self.draws)
+        return torch.cat(self.draws)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``torch.nn.BatchNorm2d`` with ``stats_frozen`` and an optional
-    per-draw ``MCBatchStats`` record (``_mc_stats``)."""
+    """``torch.nn.BatchNorm2d`` with ``stats_frozen``, an optional
+    per-draw ``MCBatchStats`` record (``_mc_stats``) and the draw-axis
+    forward."""
+
+    takes_draw_axis = True
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -58,6 +70,9 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, input):
         input = dequantize_if_qtensor(input)
+        num_draws = getattr(self, "_mc_draws", None)
+        if num_draws and input.shape[1] == num_draws * self.num_features:
+            return self._forward_draws(input, num_draws)
         if not (self.stats_frozen and self.training
                 and self.track_running_stats):
             return super().forward(input)
@@ -67,6 +82,24 @@ class BatchNorm2d(nn.BatchNorm2d):
         # batch statistics, no running statistic read or written
         return F.batch_norm(input, None, None, self.weight, self.bias,
                             True, 0.0, self.eps)
+
+    def _forward_draws(self, x, num_draws):
+        """x (B, S*C, ...): each draw's block by its own batch statistics
+        (training, recorded if a record is attached) or by the running
+        statistics (eval); no running statistic is written."""
+        self._check_input_dim(x)
+
+        def tile(t):
+            return None if t is None else t.repeat(num_draws)
+
+        if self.training or self.running_mean is None:
+            if self._mc_stats is not None:
+                self._mc_stats.record(x, num_draws)
+            return F.batch_norm(x, None, None, tile(self.weight),
+                                tile(self.bias), True, 0.0, self.eps)
+        return F.batch_norm(x, tile(self.running_mean),
+                            tile(self.running_var), tile(self.weight),
+                            tile(self.bias), False, 0.0, self.eps)
 
 
 class BatchNorm2dLayer(BatchNorm2d):

@@ -5,6 +5,11 @@ non-transposed).
 The public subclasses pin ``nd`` and keep the reference's class names,
 constructor signatures, parameter names (``mu_kernel`` / ``rho_kernel``)
 and shapes: (out_channels, in_channels // groups, *kernel_size).
+
+Under the draw axis (``_mc_draws``, set by ``mc_forward``'s vmap emission)
+the layer takes its S kernels from one batch-sampler launch, or the whole
+presampled (S, ...) stack, and runs them as one conv
+(``ops.conv.conv_draws``), as the JAX layer's structured branch does.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ class _BaseConvLayer(BaseVariationalLayer):
     """Common constructor, KL and forward of the Bayesian convs."""
 
     nd: int = 2
+    takes_draw_axis = True
 
     def __init__(self,
                  in_channels: int,
@@ -107,11 +113,20 @@ class _BaseConvLayer(BaseVariationalLayer):
             return_kl = False
 
         presampled_w = getattr(self, "_presampled_w", None)
+        num_draws = getattr(self, "_mc_draws", None)
         if self.quant_prepare:
             args = dict(self._conv_args(), compute_dtype=None)
             out = self._observed_forward(
                 input, self.mu_kernel, self.rho_kernel,
                 lambda x, w, b: conv_ops.conv_nd(x, w, b, **args))
+        elif num_draws:
+            # all S draws: the presampled (S, ...) stack, or one launch
+            if presampled_w is not None:
+                w, b = presampled_w, getattr(self, "_presampled_b", None)
+            else:
+                w, b = self._sample_draws(num_draws, self.mu_kernel,
+                                          self.rho_kernel)
+            out = conv_ops.conv_draws(input, w, b, **self._conv_args())
         elif presampled_w is not None:
             # this draw's kernel from the batch sampler (parallel.mc)
             out = conv_ops.conv_nd(input, presampled_w,

@@ -7,6 +7,14 @@ KL (weight mean + bias mean) and ``(out, kl)`` return convention with the
 ``dnn_to_bnn_flag`` bare-output mode. ``impl="pallas"`` keeps the JAX
 value, so configs carry over: it routes the sampled GEMM through the
 fused CUDA kernel (``ops/cuda/sampled_matmul.py``).
+
+Under the draw axis (``_mc_draws``, set by ``mc_forward``'s vmap emission)
+the input is (..., S*in_features) with draw s in block s, or shared, and
+the output (..., S*out_features): ``impl="pallas"`` runs all S lanes of
+the fused GEMM in one launch (``sampled_matmul_batched``) and the bias's
+S draws in one batch-sampler launch; ``impl="xla"`` draws weight and bias
+in one batch-sampler launch (or takes the presampled stack) and leaves
+the product to ``torch.matmul`` (``ops.linear.linear_draws``).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ IMPLS = ("xla", "pallas")
 
 
 class LinearReparameterization(BaseVariationalLayer):
+    takes_draw_axis = True
 
     def __init__(self,
                  in_features: int,
@@ -94,9 +103,12 @@ class LinearReparameterization(BaseVariationalLayer):
             return_kl = False
 
         presampled_w = getattr(self, "_presampled_w", None)
+        num_draws = getattr(self, "_mc_draws", None)
         if self.quant_prepare:
             out = self._observed_forward(input, self.mu_weight,
                                          self.rho_weight, linear_ops._linear)
+        elif num_draws:
+            out = self._forward_draws(input, num_draws, presampled_w)
         elif presampled_w is not None:
             # this draw's weights from the batch sampler (parallel.mc)
             out = linear_ops._linear(input, presampled_w,
@@ -128,6 +140,35 @@ class LinearReparameterization(BaseVariationalLayer):
         if return_kl:
             return out, self._kl_or_zero()
         return out
+
+    def _forward_draws(self, input, num_draws, presampled_w):
+        """All S draws at once: (..., S*in) or (..., in) -> (..., S*out)."""
+        if presampled_w is not None:
+            return linear_ops.linear_draws(
+                input, presampled_w, getattr(self, "_presampled_b", None),
+                self.compute_dtype)
+        if self.impl == "xla":
+            w, b = self._sample_draws(num_draws, self.mu_weight,
+                                      self.rho_weight)
+            return linear_ops.linear_draws(input, w, b, self.compute_dtype)
+        from bayesian_torch_tpu_torch.ops.cuda.sampled_matmul import (
+            sampled_matmul_batched,
+        )
+        from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
+            sample_gaussian_batch,
+        )
+        out = sampled_matmul_batched(
+            draw_seed(self.generator),
+            linear_ops.split_draws(input, num_draws, self.in_features),
+            self.mu_weight, self.rho_weight, num_draws,
+            out_dtype=self.compute_dtype or input.dtype)
+        if self.mu_bias is not None:
+            # a seed of its own, as the JAX layer splits its key in two
+            b = sample_gaussian_batch(draw_seed(self.generator),
+                                      self.mu_bias, self.rho_bias,
+                                      num_draws, self.mu_bias.dtype)
+            out = out + b.to(out.dtype)[:, None]
+        return linear_ops.join_draws(out, input.shape[:-1])
 
     def __repr__(self):  # used by MOPED string matching in the reference
         return "LinearReparameterization()"

@@ -1,5 +1,5 @@
-"""K-B, K-D and K-E: the fused sampled GEMM and its backward (counterpart
-of ``bayesian_torch_tpu/ops/pallas/sampled_matmul.py``).
+"""K-B, K-D and K-E: the fused sampled GEMM and its backward, with a lane
+axis (counterpart of ``bayesian_torch_tpu/ops/pallas/sampled_matmul.py``).
 
 ``sampled_matmul(seed, x, mu, rho)`` computes
 ``x @ (mu + softplus(rho) * eps)^T`` with the CUDA kernel in
@@ -9,11 +9,21 @@ memory so the sampled weight never reaches device memory. eps of weight
 of draw 0 of ``seed``: it depends on (seed, n, k) only, never on the
 tiling, so the plain version is ``x @ (mu + sigma * eps_full)^T``.
 
-It is a ``torch.autograd.Function`` whose residuals are (seed, x, mu,
-sigma), as the JAX VJP's: the backward regenerates the weight in
-``csrc/sampled_matmul_bwd.cu``, ``dx = g @ W`` (K-D) and ``dmu = g^T x``,
-``dsigma = dmu * eps`` (K-E). ``drho`` chains through ``softplus`` in
-torch autograd, as the JAX function chains it through XLA.
+``sampled_matmul_batched(seed, x, mu, rho, S)`` is the S-batched form that
+the JAX vmap emission dispatches (``sampled_matmul_pallas_batched``): lane
+s draws eps under the salt of draw s, so its weight is draw s of
+``sample_scaled_normals_batch(seed, mu, sigma, S)``, and all lanes run in
+ONE launch of K-B with its lane axis. x is per lane (S, M, K) or shared by
+the lanes (M, K). Lane 0 is ``sampled_matmul``, bit for bit: the single
+draw is the kernel with one lane.
+
+Both are ``torch.autograd.Function``s whose residuals are (seed, S, x, mu,
+sigma), as the JAX VJP's, never eps: the backward regenerates the weight
+in ``csrc/sampled_matmul_bwd.cu``, ``dx_s = g_s @ W_s`` (K-D) and
+``dmu = sum_s g_s^T x_s``, ``dsigma = sum_s (g_s^T x_s) * eps_s`` (K-E,
+the lane sums that JAX's vmap transpose takes of ``_dw_s``'s per-lane
+outputs). ``drho`` chains through ``softplus`` in torch autograd, as the
+JAX function chains it through XLA.
 
 A CPU tensor takes the plain versions, forward and backward. A CUDA
 tensor launches the kernels or raises.
@@ -29,46 +39,87 @@ from bayesian_torch_tpu_torch.ops.sampling import (draw_salt, normal_fused,
 
 
 def sampled_weight(mu, sigma, eps):
-    """The sampled weight on given noise, in f32: mu + sigma * eps."""
+    """The sampled weight on given noise, in f32: mu + sigma * eps; eps
+    (N, K), or (S, N, K) for S lanes."""
     return mu.float() + sigma.float() * eps
 
 
 def matmul_sampled_weight(x, mu, sigma, eps):
-    """K-B's algebra on given noise, in f32: x @ (mu + sigma*eps)^T."""
-    return x.float() @ sampled_weight(mu, sigma, eps).T
+    """K-B's algebra on given noise, in f32: x @ (mu + sigma*eps)^T. With
+    lanes (eps (S, N, K); x (S, M, K) or shared (M, K)): (S, M, N), lane
+    by lane, so lane 0 is the single draw's product exactly."""
+    if eps.dim() == 2:
+        return x.float() @ sampled_weight(mu, sigma, eps).T
+    return torch.stack([
+        matmul_sampled_weight(x[s] if x.dim() == 3 else x, mu, sigma, e)
+        for s, e in enumerate(eps)])
 
 
 def matmul_dx(g, mu, sigma, eps):
-    """K-D's algebra on given noise, in f32: g @ (mu + sigma*eps)."""
-    return g.float() @ sampled_weight(mu, sigma, eps)
+    """K-D's algebra on given noise, in f32: g @ (mu + sigma*eps), lane by
+    lane for g (S, M, N) and eps (S, N, K)."""
+    if eps.dim() == 2:
+        return g.float() @ sampled_weight(mu, sigma, eps)
+    return torch.stack([matmul_dx(gs, mu, sigma, e) for gs, e in zip(g, eps)])
 
 
 def matmul_dw(g, x, eps):
     """K-E's algebra on given noise, in f32: (dmu, dsigma) = (g^T x,
-    g^T x * eps)."""
-    dmu = g.float().T @ x.float()
-    return dmu, dmu * eps
+    g^T x * eps). With lanes (g (S, M, N), eps (S, N, K); x (S, M, K) or
+    shared (M, K)) the sums over the lanes, added in lane order as K-E
+    adds them."""
+    if g.dim() == 2:
+        g, eps = g[None], eps[None]
+    dmu = dsig = None
+    for s in range(g.shape[0]):
+        d = g[s].float().T @ (x[s] if x.dim() == 3 else x).float()
+        dmu = d if dmu is None else dmu + d
+        dsig = d * eps[s] if dsig is None else dsig + d * eps[s]
+    return dmu, dsig
 
 
-def _eps(seed, mu):
-    return normal_fused(draw_salt(seed, 0), mu.shape, device=mu.device)
+def _eps(seed, shape, device, num_samples=None):
+    """eps of draw 0, or the (S, *shape) stack of draws 0..S-1."""
+    if num_samples is None:
+        return normal_fused(draw_salt(seed, 0), shape, device=device)
+    return torch.stack([normal_fused(draw_salt(seed, s), shape, device=device)
+                        for s in range(num_samples)])
 
 
 def sampled_matmul_plain(seed, x, mu, sigma, out_dtype):
     """Plain torch version of K-B (same eps)."""
-    return matmul_sampled_weight(x, mu, sigma, _eps(seed, mu)).to(out_dtype)
+    return matmul_sampled_weight(x, mu, sigma,
+                                 _eps(seed, mu.shape, x.device)).to(out_dtype)
+
+
+def sampled_matmul_batched_plain(seed, x, mu, sigma, num_samples,
+                                 out_dtype=torch.float32):
+    """Plain torch version of K-B with lanes: (S, M, N), lane s on the
+    eps of draw s."""
+    eps = _eps(seed, mu.shape, x.device, num_samples)
+    return matmul_sampled_weight(x, mu, sigma, eps).to(out_dtype)
+
+
+def sampled_matmul_dx_batched_plain(seed, g, mu, sigma):
+    """Plain torch version of K-D with lanes: f32 (S, M, K)."""
+    return matmul_dx(g, mu, sigma, _eps(seed, mu.shape, g.device, g.shape[0]))
 
 
 def sampled_matmul_dx_plain(seed, g, mu, sigma):
-    """Plain torch version of K-D: f32 (M, K)."""
-    return matmul_dx(g, mu, sigma, _eps(seed, mu))
+    """Plain torch version of K-D: f32 (M, K), lane 0 of the above."""
+    return sampled_matmul_dx_batched_plain(seed, g[None], mu, sigma)[0]
+
+
+def sampled_matmul_dw_batched_plain(seed, g, x):
+    """Plain torch version of K-E with lanes: f32 (dmu, dsigma), each
+    (N, K), summed over the lanes."""
+    eps = _eps(seed, (g.shape[2], x.shape[-1]), x.device, g.shape[0])
+    return matmul_dw(g, x, eps)
 
 
 def sampled_matmul_dw_plain(seed, g, x):
     """Plain torch version of K-E: f32 (dmu, dsigma), each (N, K)."""
-    eps = normal_fused(draw_salt(seed, 0), (g.shape[1], x.shape[1]),
-                       device=x.device)
-    return matmul_dw(g, x, eps)
+    return sampled_matmul_dw_batched_plain(seed, g[None], x)
 
 
 def _library():
@@ -86,83 +137,133 @@ def _stream(device):
         return torch.cuda.current_stream().cuda_stream
 
 
-def _launch_forward(seed, x, mu, sigma):
+def _lane_stride(x32):
+    """Elements between two lanes of x: M*K, or 0 for a shared (M, K)."""
+    return x32.shape[1] * x32.shape[2] if x32.dim() == 3 else 0
+
+
+def _forward(seed, x, mu, sigma, num_samples, counter):
+    """K-B on S lanes (1 for ``num_samples=None``): f32 (S, M, N), or
+    (M, N) for one draw. Counts the launch on ``counter``."""
+    if _on_cpu(x, mu, sigma):
+        return matmul_sampled_weight(
+            x, mu, sigma, _eps(seed, mu.shape, x.device, num_samples))
     build, lib = _library()
     x32, mu32, sigma32 = _f32(x), _f32(mu), _f32(sigma)
-    M, K = x32.shape
+    S = num_samples or 1
+    M, K = x32.shape[-2:]
     N = mu32.shape[0]
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    out = torch.empty((S, M, N), dtype=torch.float32, device=x.device)
     code = lib.btt_sampled_matmul(
-        x32.data_ptr(), mu32.data_ptr(), sigma32.data_ptr(), out.data_ptr(),
-        M, N, K, seed & 0xFFFFFFFFFFFFFFFF, _stream(x.device))
-    build.check(lib, code, "sampled_matmul")
-    sampled_matmul.launches += 1
-    return out
+        x32.data_ptr(), _lane_stride(x32), mu32.data_ptr(),
+        sigma32.data_ptr(), out.data_ptr(), S, M, N, K,
+        seed & 0xFFFFFFFFFFFFFFFF, _stream(x.device))
+    build.check(lib, code, counter.__name__)
+    counter.launches += 1
+    return out if num_samples else out[0]
+
+
+def _dx(seed, g, mu, sigma, counter):
+    """K-D on the lanes of g (S, M, N): f32 (S, M, K)."""
+    if _on_cpu(g, mu, sigma):
+        return sampled_matmul_dx_batched_plain(seed, g, mu, sigma)
+    build, lib = _library()
+    g32, mu32, sigma32 = _f32(g), _f32(mu), _f32(sigma)
+    S, M, N = g32.shape
+    K = mu32.shape[1]
+    dx = torch.empty((S, M, K), dtype=torch.float32, device=g.device)
+    code = lib.btt_sampled_matmul_dx(
+        g32.data_ptr(), mu32.data_ptr(), sigma32.data_ptr(), dx.data_ptr(),
+        S, M, N, K, seed & 0xFFFFFFFFFFFFFFFF, _stream(g.device))
+    build.check(lib, code, counter.__name__)
+    counter.launches += 1
+    return dx
+
+
+def _dw(seed, g, x, counter):
+    """K-E on the lanes of g (S, M, N), x (S, M, K) or shared (M, K): f32
+    (dmu, dsigma), each (N, K), summed over the lanes."""
+    if _on_cpu(g, x):
+        return sampled_matmul_dw_batched_plain(seed, g, x)
+    build, lib = _library()
+    g32, x32 = _f32(g), _f32(x)
+    S, M, N = g32.shape
+    K = x32.shape[-1]
+    dmu = torch.empty((N, K), dtype=torch.float32, device=g.device)
+    dsig = torch.empty_like(dmu)
+    code = lib.btt_sampled_matmul_dw(
+        g32.data_ptr(), x32.data_ptr(), _lane_stride(x32), dmu.data_ptr(),
+        dsig.data_ptr(), S, M, N, K, seed & 0xFFFFFFFFFFFFFFFF,
+        _stream(g.device))
+    build.check(lib, code, counter.__name__)
+    counter.launches += 1
+    return dmu, dsig
 
 
 def sampled_matmul_dx(seed, g, mu, sigma):
     """K-D: dx = g @ (mu + sigma * eps) for g (M, N), mu and sigma
     (N, K); f32 (M, K). CPU tensors take the plain version."""
-    if _on_cpu(g, mu, sigma):
-        return sampled_matmul_dx_plain(seed, g, mu, sigma)
-    build, lib = _library()
-    g32, mu32, sigma32 = _f32(g), _f32(mu), _f32(sigma)
-    M, N = g32.shape
-    K = mu32.shape[1]
-    dx = torch.empty((M, K), dtype=torch.float32, device=g.device)
-    code = lib.btt_sampled_matmul_dx(
-        g32.data_ptr(), mu32.data_ptr(), sigma32.data_ptr(), dx.data_ptr(),
-        M, N, K, seed & 0xFFFFFFFFFFFFFFFF, _stream(g.device))
-    build.check(lib, code, "sampled_matmul_dx")
-    sampled_matmul_dx.launches += 1
-    return dx
+    return _dx(seed, g[None], mu, sigma, sampled_matmul_dx)[0]
 
 
 def sampled_matmul_dw(seed, g, x):
     """K-E: (dmu, dsigma) = (g^T x, g^T x * eps) for g (M, N), x (M, K);
     f32, each (N, K). CPU tensors take the plain version."""
-    if _on_cpu(g, x):
-        return sampled_matmul_dw_plain(seed, g, x)
-    build, lib = _library()
-    g32, x32 = _f32(g), _f32(x)
-    M, N = g32.shape
-    K = x32.shape[1]
-    dmu = torch.empty((N, K), dtype=torch.float32, device=g.device)
-    dsig = torch.empty_like(dmu)
-    code = lib.btt_sampled_matmul_dw(
-        g32.data_ptr(), x32.data_ptr(), dmu.data_ptr(), dsig.data_ptr(),
-        M, N, K, seed & 0xFFFFFFFFFFFFFFFF, _stream(g.device))
-    build.check(lib, code, "sampled_matmul_dw")
-    sampled_matmul_dw.launches += 1
-    return dmu, dsig
+    return _dw(seed, g[None], x, sampled_matmul_dw)
+
+
+def sampled_matmul_dx_batched(seed, g, mu, sigma):
+    """K-D with lanes: dx_s = g_s @ W_s for g (S, M, N); f32 (S, M, K).
+    CPU tensors take the plain version."""
+    return _dx(seed, g, mu, sigma, sampled_matmul_dx_batched)
+
+
+def sampled_matmul_dw_batched(seed, g, x):
+    """K-E with lanes: (sum_s g_s^T x_s, sum_s g_s^T x_s * eps_s) for g
+    (S, M, N), x (S, M, K) or shared (M, K); f32, each (N, K). CPU
+    tensors take the plain version."""
+    return _dw(seed, g, x, sampled_matmul_dw_batched)
 
 
 sampled_matmul_dx.launches = 0
 sampled_matmul_dw.launches = 0
+sampled_matmul_dx_batched.launches = 0
+sampled_matmul_dw_batched.launches = 0
 
 
 class _SampledMatmul(torch.autograd.Function):
-    """K-B forward; K-D and K-E backward. Residuals (seed, x, mu,
-    sigma), as JAX ``_vjp_fwd2``; f32 out."""
+    """K-B forward; K-D and K-E backward, for one draw (``num_samples``
+    None: x (M, K) -> (M, N)) or S lanes (x (S, M, K) or shared (M, K) ->
+    (S, M, N)). Residuals (seed, S, x, mu, sigma), as JAX ``_vjp_fwd2``;
+    f32 out."""
 
     @staticmethod
-    def forward(ctx, seed, x, mu, sigma):
-        ctx.seed = seed
+    def forward(ctx, seed, num_samples, x, mu, sigma):
+        ctx.seed, ctx.num_samples = seed, num_samples
         ctx.save_for_backward(x, mu, sigma)
-        if _on_cpu(x, mu, sigma):
-            return matmul_sampled_weight(x, mu, sigma, _eps(seed, mu))
-        return _launch_forward(seed, x, mu, sigma)
+        counter = sampled_matmul if num_samples is None \
+            else sampled_matmul_batched
+        return _forward(seed, x, mu, sigma, num_samples, counter)
 
     @staticmethod
     def backward(ctx, g):
         x, mu, sigma = ctx.saved_tensors
+        seed = ctx.seed
+        lanes = ctx.num_samples is not None
         dx = dmu = dsig = None
-        if ctx.needs_input_grad[1]:
-            dx = sampled_matmul_dx(ctx.seed, g, mu, sigma).to(x.dtype)
-        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
-            dmu, dsig = sampled_matmul_dw(ctx.seed, g, x)
+        if ctx.needs_input_grad[2]:
+            if not lanes:
+                dx = sampled_matmul_dx(seed, g, mu, sigma)
+            else:
+                dx = sampled_matmul_dx_batched(seed, g, mu, sigma)
+                if x.dim() == 2:  # x shared by the lanes
+                    dx = dx.sum(0)
+            dx = dx.to(x.dtype)
+        if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
+            dmu, dsig = (sampled_matmul_dw_batched(seed, g, x) if lanes
+                         else sampled_matmul_dw(seed, g, x))
             dmu, dsig = dmu.to(mu.dtype), dsig.to(sigma.dtype)
-        return None, dx, dmu, dsig
+        return None, None, dx, dmu, dsig
 
 
 def sampled_matmul(seed, x, mu, rho, *, out_dtype=None):
@@ -177,7 +278,36 @@ def sampled_matmul(seed, x, mu, rho, *, out_dtype=None):
                          f"{tuple(x.shape)}, mu {tuple(mu.shape)}, rho "
                          f"{tuple(rho.shape)}")
     sigma = sigma_from_rho(rho.float())
-    return _SampledMatmul.apply(seed, x, mu, sigma).to(out_dtype)
+    return _SampledMatmul.apply(seed, None, x, mu, sigma).to(out_dtype)
+
+
+def sampled_matmul_batched(seed, x, mu, rho, num_samples=None, *,
+                           out_dtype=None):
+    """All S lanes in one launch: lane s = x_s @ (mu + softplus(rho) *
+    eps_s)^T, eps_s the noise of draw s of ``seed``. ``x`` is (S, M, K),
+    or (M, K) shared by ``num_samples`` lanes; mu/rho (N, K). Returns
+    (S, M, N) in ``out_dtype`` (default: x's dtype). Differentiable in x,
+    mu and rho (``dmu``, ``drho`` summed over the lanes)."""
+    if out_dtype is None:
+        out_dtype = x.dtype
+    if mu.dim() != 2 or rho.dim() != 2:
+        raise NotImplementedError(
+            "sampled_matmul_batched: lanes over mu/rho (posterior "
+            f"ensembles) are not supported, only over the MC draws; got mu "
+            f"{tuple(mu.shape)}, rho {tuple(rho.shape)}")
+    if x.dim() == 3 and num_samples is None:
+        num_samples = x.shape[0]
+    if x.dim() not in (2, 3) or num_samples is None or num_samples < 1 \
+            or (x.dim() == 3 and x.shape[0] != num_samples) \
+            or x.shape[-1] != mu.shape[1] or mu.shape != rho.shape:
+        raise ValueError(f"need x (S, M, K), or (M, K) with num_samples, "
+                         f"and mu, rho (N, K); got x {tuple(x.shape)}, "
+                         f"num_samples {num_samples}, mu {tuple(mu.shape)}, "
+                         f"rho {tuple(rho.shape)}")
+    sigma = sigma_from_rho(rho.float())
+    return _SampledMatmul.apply(seed, int(num_samples), x, mu,
+                                sigma).to(out_dtype)
 
 
 sampled_matmul.launches = 0
+sampled_matmul_batched.launches = 0

@@ -1,19 +1,31 @@
 """Monte-Carlo forwards over weight draws, for inference and training
 (counterpart of ``bayesian_torch_tpu/parallel/mc.py``).
 
-``mc_forward`` is the Python-loop twin of the JAX emissions. In eval mode
-it follows the scan emission (``_mc_forward_scan``): every layer's S
-weight sets are drawn first, by the batch-sampler kernel in one launch
-(``_presample_layers``). In training mode it follows the vmapped emission
-(``_mc_forward_inner``): the draws are sampled inside the layers, and the
-BatchNorm statistics of each draw are recorded and applied as one EMA
-update (``_apply_bn_ema``). A converted INT8 model
-(``quantization.convert``) runs the same loop: its quantized layers draw
-and build their int8 weights inside each draw, as under the JAX vmap
-emission, or reuse their frozen draws (``quantization.serving``). PyTorch
-runs eagerly, so the loop is the loop;
-the JAX ``vmap`` emission itself, the structured (channel-tiled) path and
-meshes come in later slices.
+``mc_forward`` has two emissions:
+
+- the draw loop (``emission="auto"`` or ``"scan"``), the Python-loop twin
+  of the JAX scan emission: S forwards of the model. In eval mode every
+  layer's S weight sets are drawn first, by the batch-sampler kernel in
+  one launch (``_presample_layers``); in training mode the draws are
+  sampled inside the layers;
+- the vmap emission (``emission="vmap"``, JAX ``_mc_forward_inner``): ONE
+  forward in which the draw axis is written out in the tensors. The draw
+  count is set on every module for the call (``_mc_draws``, as the JAX
+  structured path sets ``_mc_structured``); activations are (B, S*C, ...)
+  with draw s in channel block s, so every Bayesian layer draws its S
+  weight sets in one launch, each conv runs all S draws as one grouped
+  conv, the fused head runs all S lanes of its sampled GEMM in one launch,
+  and BatchNorm normalises each draw's block by that draw's statistics.
+  ``torch.func.vmap`` is not used: the layers draw their seeds on the
+  host, which would give every lane the same seed.
+
+In training mode the BatchNorm statistics of each draw are recorded and
+applied as one EMA update (``_apply_bn_ema``) under either emission. A
+converted INT8 model (``quantization.convert``) runs the draw loop: its
+quantized layers draw and build their int8 weights inside each draw, as
+under the JAX vmap emission, or reuse their frozen draws
+(``quantization.serving``). The structured path and meshes are not
+ported.
 """
 
 from __future__ import annotations
@@ -113,9 +125,42 @@ def _apply_bn_ema(mod):
     mod.running_var.mul_(1 - factor).add_(factor * unbiased_var)
 
 
+def _check_draw_axis(model: nn.Module):
+    """Raise, naming the module, if a module of the model mixes channels
+    and has no draw-axis forward: a module with parameters or buffers of
+    its own that does not declare ``takes_draw_axis`` (a plain
+    ``torch.nn.Conv2d``, ``Linear`` or ``BatchNorm2d``, a quantized
+    layer), or a layer being calibrated. Parameter-free modules (ReLU,
+    pools, containers) are channel-agnostic."""
+    for name, mod in model.named_modules():
+        own = next(mod.parameters(recurse=False), None) is not None \
+            or next(mod.buffers(recurse=False), None) is not None
+        if getattr(mod, "quant_prepare", False) or (
+                own and not getattr(mod, "takes_draw_axis", False)):
+            raise NotImplementedError(
+                f"mc_forward(emission='vmap'): module {name or '<model>'!r} "
+                f"({type(mod).__name__}) cannot take the draw axis (it "
+                "mixes channels and has no draw-axis forward); use the draw "
+                "loop (emission='auto')")
+
+
+@contextlib.contextmanager
+def _draw_axis(model: nn.Module, num_mc: int):
+    """Set the draw count on every module for one forward; always
+    remove it."""
+    mods = list(model.modules())
+    for mod in mods:
+        mod._mc_draws = num_mc
+    try:
+        yield
+    finally:
+        for mod in mods:
+            del mod._mc_draws
+
+
 @contextlib.contextmanager
 def _mc_batch_stats(model: nn.Module, bn_stats: str):
-    """For the draw loop of a training-mode model: freeze every
+    """For the draws of a training-mode model: freeze every
     BatchNorm's running-stat writes and, with ``bn_stats="ema"``, record
     each draw's batch statistics; on success apply one EMA update per
     layer. Always unfreezes and drops the records."""
@@ -157,19 +202,26 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
 
     Returns ``(outputs, kl)``, or ``outputs`` when ``return_kl`` is False.
     Outputs are stacked on a leading MC axis, shape (num_mc, ...), or,
-    with ``reduce="mean"``, the predictive mean (batch, ...) in float32,
-    accumulated inside the loop. The KL depends on the parameters only,
-    so it is evaluated in the last draw alone and returned once (it
-    enters a loss once). ``return_kl=False`` also skips evaluating it
-    (``compute_kl`` overrides that link).
+    with ``reduce="mean"``, the predictive mean (batch, ...) in float32.
+    The KL depends on the parameters only, so it is evaluated once and
+    returned once (it enters a loss once). ``return_kl=False`` also skips
+    evaluating it (``compute_kl`` overrides that link).
+
+    ``emission``: "auto" and "scan" run the draw loop, one forward per
+    draw (the mean accumulates inside the loop); "vmap" runs all draws in
+    one forward with the draw axis written out in the tensors (module
+    docstring), and raises ``NotImplementedError`` naming the first module
+    that cannot take it. Which emission "auto" should pick on the card is
+    not measured yet; it keeps the loop.
 
     ``presample``: "on" draws every layer's weights with the batch-sampler
-    kernel before the loop (differentiable: its backward is one
-    regenerate-eps launch); "off" samples inside each layer, draw by draw;
-    "auto" means "on" in eval mode and "off" when any module is in
-    training mode, as the JAX emissions resolve it ("xla" under the scan,
-    "off" under the vmap; "xla" steers XLA's fusion and has no meaning on
-    the card). "xla" and "hash" are not ported.
+    kernel before the forwards (differentiable: its backward is one
+    regenerate-eps launch); "off" samples inside each layer; "auto" means
+    "on" in eval mode under the loop and "off" otherwise, as the JAX
+    emissions resolve it ("xla" under the scan, "off" under the vmap;
+    "xla" steers XLA's fusion and has no meaning on the card). Under the
+    vmap emission each layer draws its S weight sets in one launch either
+    way. "xla" and "hash" are not ported.
 
     Training mode (any module's ``training`` set) runs with gradients;
     eval runs under ``torch.no_grad()``. ``num_mc == 1`` is the plain
@@ -177,7 +229,7 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
     ``bn_stats`` controls BatchNorm running statistics:
 
     - ``"ema"`` (default): each draw normalizes by its own batch
-      statistics and records them; after the loop ONE EMA update from
+      statistics and records them; after the forwards ONE EMA update from
       their average (``num_batches_tracked`` + 1);
     - ``"freeze"``: running statistics are left untouched.
     """
@@ -193,19 +245,22 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
     if bn_stats not in _BN_STATS:
         raise ValueError(f"mc_forward: unknown bn_stats {bn_stats!r} "
                          f"(expected one of {_BN_STATS})")
-    if emission == "vmap" or structured or mesh is not None:
+    if structured or mesh is not None:
         raise NotImplementedError(
-            "mc_forward: the vmap emission, structured=True and mesh= are "
-            "not ported yet (ROADMAP Queue 1, later slices); the port runs "
-            "the draw loop (emission='auto' or 'scan')")
+            "mc_forward: structured=True and mesh= are not ported yet "
+            "(ROADMAP Queue 1); the port runs the draw loop (emission="
+            "'auto' or 'scan') or the vmap emission (emission='vmap')")
     if presample in ("xla", "hash"):
         raise NotImplementedError(
             f"mc_forward: presample={presample!r} is a TPU code-generation "
             "variant and is not ported (ROADMAP 'Not ported'); use 'on' "
             "or 'off'")
+    vmap = emission == "vmap" and num_mc > 1
+    if vmap:
+        _check_draw_axis(model)
     training = any(mod.training for mod in model.modules())
     if presample == "auto":
-        presample = "off" if training else "on"
+        presample = "off" if training or vmap else "on"
     if compute_kl is None:
         compute_kl = return_kl
     kl_layers = [mod for mod in model.modules()
@@ -217,25 +272,14 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
     try:
         with grad:
             if presample == "on" and num_mc > 1:
-                presampled = [(layer, {name: stacked.unbind(0)
-                                       for name, stacked in attrs.items()})
-                              for layer, attrs in _presample_layers(model,
-                                                                    num_mc)]
-            acc, outs, kl = None, [], 0.0
+                presampled = _presample_layers(model, num_mc)
             with bn:
-                for s in range(num_mc):
-                    for mod in kl_layers:
-                        mod.compute_kl = compute_kl and s == num_mc - 1
-                    for layer, attrs in presampled:
-                        for name, per_draw in attrs.items():
-                            setattr(layer, name, per_draw[s])
-                    out = model(x)
-                    out, kl = out if isinstance(out, tuple) else (out, 0.0)
-                    if reduce == "mean":
-                        term = out.float() / num_mc
-                        acc = term if acc is None else acc + term
-                    else:
-                        outs.append(out)
+                if vmap:
+                    result, kl = _forward_draws(model, x, num_mc, presampled,
+                                                kl_layers, compute_kl, reduce)
+                else:
+                    result, kl = _forward_loop(model, x, num_mc, presampled,
+                                               kl_layers, compute_kl, reduce)
     finally:
         for layer, attrs in presampled:
             for name in attrs:
@@ -243,7 +287,47 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
                     delattr(layer, name)
         for mod in kl_layers:
             mod.compute_kl = True
-    result = acc if reduce == "mean" else torch.stack(outs)
     if return_kl:
         return result, torch.as_tensor(kl, dtype=torch.float32)
     return result
+
+
+def _split(out):
+    return out if isinstance(out, tuple) else (out, 0.0)
+
+
+def _forward_loop(model, x, num_mc, presampled, kl_layers, compute_kl,
+                  reduce):
+    """One forward per draw; the KL in the last draw alone."""
+    per_draw = [(layer, {name: stacked.unbind(0)
+                         for name, stacked in attrs.items()})
+                for layer, attrs in presampled]
+    acc, outs, kl = None, [], 0.0
+    for s in range(num_mc):
+        for mod in kl_layers:
+            mod.compute_kl = compute_kl and s == num_mc - 1
+        for layer, attrs in per_draw:
+            for name, draws in attrs.items():
+                setattr(layer, name, draws[s])
+        out, kl = _split(model(x))
+        if reduce == "mean":
+            term = out.float() / num_mc
+            acc = term if acc is None else acc + term
+        else:
+            outs.append(out)
+    return (acc if reduce == "mean" else torch.stack(outs)), kl
+
+
+def _forward_draws(model, x, num_mc, presampled, kl_layers, compute_kl,
+                   reduce):
+    """One forward with the draw axis: the presampled (S, ...) stacks are
+    attached whole, and the (..., S*N) output becomes (S, ..., N)."""
+    for layer, attrs in presampled:
+        for name, stacked in attrs.items():
+            setattr(layer, name, stacked)
+    for mod in kl_layers:
+        mod.compute_kl = compute_kl
+    with _draw_axis(model, num_mc):
+        out, kl = _split(model(x))
+    outs = out.reshape(out.shape[:-1] + (num_mc, -1)).movedim(-2, 0)
+    return (outs.float().mean(0) if reduce == "mean" else outs), kl

@@ -14,7 +14,11 @@ weights and images, 224x224, 1000 classes, bf16 compute:
 - INT8 serving: ``qresnet50`` (f32 float model, calibrated on 3 batches of
   32 images, converted with conv+BN folding and uint8 activations), MC-10
   at batch 128, then frozen-draw MC-1, then the uncalibrated model's
-  MC-1; every conv and the head through the fused int8 GEMM (K-F).
+  MC-1; every conv and the head through the fused int8 GEMM (K-F);
+- the vmap emission (``emission="vmap"``: all draws in one forward, draw s
+  in channel block s, every conv one grouped conv): MC-10 bs128 inference
+  and the MC-4 bs128 ELBO step, the head through K-B with lanes (and K-D,
+  K-E with lanes backward).
 
 Phases, each printing its own line(s):
 
@@ -63,7 +67,23 @@ Phases, each printing its own line(s):
 18. INT8 sanity: with frozen draws, the card's logits on 2 images against
     a CPU copy on the plain versions (activations into the pool bit for
     bit, logits within 3 head quanta); two unfrozen forwards differ;
-19. the uncalibrated model (every tensor at scale 0.2, zp 128): MC-1.
+19. the uncalibrated model (every tensor at scale 0.2, zp 128): MC-1;
+20. K-B with lanes (S = 10) and K-D, K-E with lanes (S = 4) against their
+    plain versions at the head shape, x per lane and x shared, f32 with
+    TF32 off, median times; lane 0 equal to the single-draw kernels bit
+    for bit (run after phase 7);
+21. the vmap inference path: three MC-10 bs128 batches after a warm-up,
+    fc.impl="pallas", presample "auto" (off): ms per batch, images/s, peak
+    memory, every kernel's launches per batch equal to what the model
+    implies; lane for lane against the draw loop fed the same presampled
+    draws; the rho = -30 check (run after phase 10);
+22. the vmap training path: at rho = -60, in f32, a vmap MC-4 step and a
+    loop MC-4 step from the untrained state agree (run before phase 8);
+    after phase 10, one warm-up and three timed MC-4 bs128 ELBO steps,
+    with the checks of phase 8 (launches per step: K-A and K-C dsigma
+    once per layer, K-B, K-D and K-E with lanes once);
+23. with ``--profile`` only: one vmap inference batch and one vmap
+    training step under the profiler.
 
 The line before the last is a JSON object with every kernel's launches,
 counted from zero in the run named by its ``run`` key, its error against
@@ -562,6 +582,102 @@ def phase_autograd(model):
         f"max|diff| / max|plain| = {max(worst):.3e}")
 
 
+def phase_lane_kernels(model):
+    """K-B with lanes at S = 10 (MC-10 inference) and K-D, K-E with lanes
+    at S = 4 (MC-4 training) against their plain versions at the head
+    shape, x per lane and x shared, f32 with TF32 off; lane 0 (K-E: one
+    lane) equals the single-draw kernel bit for bit; median times."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops.cuda import sampled_matmul as kb
+    from bayesian_torch_tpu_torch.ops.sampling import sigma_from_rho
+
+    mu = model.fc.mu_weight.detach()
+    rho = model.fc.rho_weight.detach()
+    sigma = sigma_from_rho(rho)
+    N, K = mu.shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    seed = 4244
+    results = {}
+
+    def gate(name, got, want):
+        err, scale = max_err(got, want), want.abs().max().item()
+        check(err <= 1e-4 * scale, f"{name} differs from its plain version "
+              f"({err:.3e} > 1e-4 x {scale:.3e})")
+        return err, scale
+
+    with tf32_off():
+        S = NUM_MC
+        x = torch.randn(S, BATCH, K, generator=gen, device="cuda")
+        errs = []
+        for what, xl in (("x per lane", x), ("x shared", x[0])):
+            got = kb.sampled_matmul_batched(seed, xl, mu, rho, S)
+            want = kb.sampled_matmul_batched_plain(seed, xl, mu, sigma, S)
+            errs.append(gate(f"K-B lanes ({what})", got, want))
+        check(torch.equal(got[0], kb.sampled_matmul(seed, x[0], mu, rho)),
+              "K-B lanes: lane 0 differs from K-B")
+        ms, plain_ms = median_ms_pair(
+            lambda: kb.sampled_matmul_batched(seed, x, mu, rho, S),
+            lambda: kb.sampled_matmul_batched_plain(seed, x, mu, sigma, S))
+        flops = 2 * S * BATCH * N * K
+        log(f"[K-B lanes] S={S} M={BATCH} K={K} N={N} f32: max|kernel-plain|"
+            f" = {errs[0][0]:.3e} (x per lane), {errs[1][0]:.3e} (x shared), "
+            f"limit 1e-4 x max|plain| = {1e-4 * errs[0][1]:.3e}; lane 0 equal "
+            f"to K-B; median of {REPS}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms")
+        results["fwd"] = with_bound(
+            dict(max_abs_err=max(e for e, _ in errs), ms=ms,
+                 plain_ms=plain_ms),
+            4 * (S * BATCH * K + 2 * N * K + S * BATCH * N), flops)
+
+        S = TRAIN_MC
+        g = torch.randn(S, BATCH, N, generator=gen, device="cuda")
+        x = x[:S].contiguous()
+        got = kb.sampled_matmul_dx_batched(seed, g, mu, sigma)
+        err, scale = gate("K-D lanes", got,
+                          kb.sampled_matmul_dx_batched_plain(seed, g, mu,
+                                                             sigma))
+        check(torch.equal(got[0], kb.sampled_matmul_dx(seed, g[0], mu,
+                                                       sigma)),
+              "K-D lanes: lane 0 differs from K-D")
+        ms, plain_ms = median_ms_pair(
+            lambda: kb.sampled_matmul_dx_batched(seed, g, mu, sigma),
+            lambda: kb.sampled_matmul_dx_batched_plain(seed, g, mu, sigma))
+        flops = 2 * S * BATCH * N * K
+        log(f"[K-D lanes] S={S} M={BATCH} N={N} K={K} f32: max|kernel-plain|"
+            f" = {err:.3e}, limit {1e-4 * scale:.3e}; lane 0 equal to K-D; "
+            f"median of {REPS}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
+            f"TFLOP/s), plain {plain_ms:.4f} ms")
+        results["dx"] = with_bound(
+            dict(max_abs_err=err, ms=ms, plain_ms=plain_ms),
+            4 * (S * BATCH * N + 2 * N * K + S * BATCH * K), flops)
+
+        errs = []
+        for what, xl in (("x per lane", x), ("x shared", x[0])):
+            got = kb.sampled_matmul_dw_batched(seed, g, xl)
+            want = kb.sampled_matmul_dw_batched_plain(seed, g, xl)
+            e = [gate(f"K-E lanes ({what})", a, b) for a, b in zip(got, want)]
+            errs.append(max(e))
+        one = kb.sampled_matmul_dw_batched(seed, g[:1], x[0])
+        check(all(torch.equal(a, b) for a, b in zip(
+            one, kb.sampled_matmul_dw(seed, g[0], x[0]))),
+            "K-E lanes: one lane differs from K-E")
+        ms, plain_ms = median_ms_pair(
+            lambda: kb.sampled_matmul_dw_batched(seed, g, x),
+            lambda: kb.sampled_matmul_dw_batched_plain(seed, g, x))
+        log(f"[K-E lanes] S={S} M={BATCH} N={N} K={K} f32: dmu, dsigma "
+            f"summed over lanes: max|kernel-plain| = {errs[0][0]:.3e} (x per "
+            f"lane), {errs[1][0]:.3e} (x shared); one lane equal to K-E; "
+            f"median of {REPS}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
+            f"TFLOP/s), plain {plain_ms:.4f} ms")
+        results["dw"] = with_bound(
+            dict(max_abs_err=max(e for e, _ in errs), ms=ms,
+                 plain_ms=plain_ms),
+            4 * (S * BATCH * N + S * BATCH * K + 2 * N * K),
+            flops + 3 * S * N * K)
+    return results
+
+
 def kernel_counters():
     """{name: wrapper} of every kernel's launch counter."""
     from bayesian_torch_tpu_torch.ops.cuda import sampled_matmul as kb
@@ -572,7 +688,10 @@ def kernel_counters():
     return {"K-A": ka.sample_scaled_normals_batch, "K-B": kb.sampled_matmul,
             "K-C dsigma": ka.dsigma, "K-C drho": ka.drho,
             "K-D": kb.sampled_matmul_dx, "K-E": kb.sampled_matmul_dw,
-            "K-F": kf.qmatmul_requant}
+            "K-F": kf.qmatmul_requant,
+            "K-B lanes": kb.sampled_matmul_batched,
+            "K-D lanes": kb.sampled_matmul_dx_batched,
+            "K-E lanes": kb.sampled_matmul_dw_batched}
 
 
 def reset_counts():
@@ -599,7 +718,30 @@ def expected_step_launches(model, num_mc):
                 + (layer.mu_bias is not None) for layer in layers)
     return {"K-A": num_mc * draws, "K-B": num_mc * fused,
             "K-C dsigma": 0, "K-C drho": num_mc * draws,
-            "K-D": num_mc * fused, "K-E": num_mc * fused, "K-F": 0}
+            "K-D": num_mc * fused, "K-E": num_mc * fused, "K-F": 0,
+            "K-B lanes": 0, "K-D lanes": 0, "K-E lanes": 0}
+
+
+def expected_vmap_launches(model, training):
+    """Kernel launches of one vmap-emission call with draws in the layers:
+    K-A once per layer (weight and bias in one flat buffer), and once for
+    the fused head's bias; K-B with lanes once per fused head. A training
+    step adds K-C (dsigma) for every K-A launch and K-D, K-E with lanes
+    once per fused head."""
+    from bayesian_torch_tpu_torch.models.dnn_to_bnn import (
+        iter_bayesian_layers,
+    )
+
+    layers = list(iter_bayesian_layers(model))
+    fused = sum(getattr(layer, "impl", "xla") == "pallas" for layer in layers)
+    draws = sum(getattr(layer, "impl", "xla") != "pallas"
+                or layer.mu_bias is not None for layer in layers)
+    want = dict.fromkeys(kernel_counters(), 0)
+    want.update({"K-A": draws, "K-B lanes": fused})
+    if training:
+        want.update({"K-C dsigma": draws, "K-D lanes": fused,
+                     "K-E lanes": fused})
+    return want
 
 
 def labels(seed):
@@ -808,8 +950,19 @@ def profile_window(what, fn):
     dev = sum(e.self_device_time_total for e in events
               if e.device_type == DeviceType.CUDA
               and not e.is_user_annotation) / 1e3
+    # busy: the union of the device rows' spans (rows may overlap, so
+    # their sum can exceed the wall time)
+    busy, end = 0.0, -math.inf
+    for start, stop in sorted(
+            (e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    busy /= 1e3
     log(f"[profile] {what}: wall {wall:.1f} ms under the profiler, device "
-        f"time {dev:.1f} ms, idle share {1 - dev / wall:.3f}")
+        f"rows {dev:.1f} ms, device busy {busy:.1f} ms (union of their "
+        f"spans), idle share {1 - busy / wall:.3f}")
     log(events.table(sort_by="self_cuda_time_total", row_limit=25,
                      max_name_column_width=70))
 
@@ -840,18 +993,18 @@ def phase_profile(model, x, kb):
         f"ms of device time per launch, {ev.count} launches")
 
 
-def phase_profile_train(model):
+def phase_profile_train(model, emission="auto"):
     """One training main-path step under torch.profiler."""
     import torch
 
     from bayesian_torch_tpu_torch.examples._engine import make_train_step
 
     opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
-    step = make_train_step(TRAIN_MC, BATCH)
+    step = make_train_step(TRAIN_MC, BATCH, emission=emission)
     x, y = images(SEED + 430), labels(SEED + 430)
     step(model, opt, x, y)  # warm-up outside the window
-    profile_window(f"one training step (MC-{TRAIN_MC} bs{BATCH} bf16)",
-                   lambda: step(model, opt, x, y))
+    profile_window(f"one training step (MC-{TRAIN_MC} bs{BATCH} bf16, "
+                   f"emission={emission!r})", lambda: step(model, opt, x, y))
 
 
 def phase_sanity(model):
@@ -881,6 +1034,213 @@ def phase_sanity(model):
     log(f"[sanity] rho=-30: max|MC-10 mean - single draw| = {diff:.3e}, "
         f"limit 2^-6 x max|logit| = {scale * 2**-6:.3e}")
     check(diff <= scale * 2**-6, "MC mean at sigma ~ 0 differs from a draw")
+
+
+# --- the vmap emission --------------------------------------------------------
+
+
+def vmap_mc10(model, x):
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    return mc_forward(model, x, NUM_MC, reduce="mean", return_kl=False,
+                      emission="vmap")
+
+
+def phase_vmap_main(model, batches):
+    """The vmap inference path: three MC-10 bs128 batches after a
+    warm-up, the head through K-B with lanes; returns the launches of the
+    three batches."""
+    import torch
+
+    model.fc.impl = "pallas"
+    want = expected_vmap_launches(model, training=False)
+    vmap_mc10(model, images(SEED + 100))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for i, x in enumerate(batches):
+        before = counts()
+        t0 = time.perf_counter()
+        out = vmap_mc10(model, x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        got = {k: v - before[k] for k, v in counts().items()}
+        check(tuple(out.shape) == (BATCH, 1000), f"output shape {out.shape}")
+        check(bool(torch.isfinite(out).all()), "non-finite output")
+        check(got == want, f"vmap batch {i}: launches {got}, the model "
+              f"implies {want}")
+        log(f"[vmap main] batch {i}: {times[-1]:.1f} ms, mean predictive "
+            f"entropy {entropy(out):.4f} nats")
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = counts()
+    log(f"[vmap main] ResNet-50 MC-{NUM_MC} bs{BATCH} {IMAGE}^2 bf16, "
+        f"emission='vmap', fc.impl='pallas', presample 'auto' (off): median "
+        f"{ms:.1f} ms/batch, {BATCH / ms * 1e3:.1f} images/s "
+        f"({BATCH * NUM_MC / ms * 1e3:.1f} image-draws/s), peak {peak:.2f} "
+        f"GiB; launches per batch {want}")
+    return launches
+
+
+def phase_vmap_against_loop(model, x):
+    """Lane for lane against the draw loop, both fed the same presampled
+    draws (presample="on" with the layers' generator rewound), bf16."""
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    gen = model.conv1.generator
+    state = gen.get_state()
+    vmap = mc_forward(model, x, NUM_MC, presample="on", emission="vmap",
+                      return_kl=False)
+    gen.set_state(state)
+    loop = mc_forward(model, x, NUM_MC, presample="on", return_kl=False)
+    diff, scale = max_err(vmap, loop), loop.float().abs().max().item()
+    # bf16 activations: cuDNN's grouped and plain convs round at other
+    # places; a few bf16 ulps of the largest logit at most
+    log(f"[vmap vs loop] same presampled draws, {NUM_MC} lanes: max|vmap - "
+        f"loop| = {diff:.3e}, limit 2^-6 x max|logit| = {scale * 2**-6:.3e}")
+    check(tuple(vmap.shape) == tuple(loop.shape) == (NUM_MC, BATCH, 1000),
+          f"vmap {tuple(vmap.shape)} and loop {tuple(loop.shape)} shapes")
+    check(diff <= scale * 2**-6, "the vmap emission differs from the loop")
+
+
+def phase_vmap_sanity(model):
+    """rho = -30: the vmap MC-10 mean agrees with one draw."""
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    rhos = [p for n, p in model.named_parameters() if "rho" in n]
+    saved = [p.detach().clone() for p in rhos]
+    x = images(SEED + 1)
+    with torch.no_grad():
+        for p in rhos:
+            p.fill_(-30.0)
+    try:
+        ten = vmap_mc10(model, x)
+        one = mc_forward(model, x, 1, reduce="mean", return_kl=False)
+    finally:
+        with torch.no_grad():
+            for p, v in zip(rhos, saved):
+                p.copy_(v)
+    diff, scale = max_err(ten, one), one.abs().max().item()
+    log(f"[vmap sanity] rho=-30: max|vmap MC-10 mean - single draw| = "
+        f"{diff:.3e}, limit 2^-6 x max|logit| = {scale * 2**-6:.3e}")
+    check(diff <= scale * 2**-6, "vmap MC mean at sigma ~ 0 differs from a "
+          "draw")
+
+
+def phase_vmap_train(model):
+    """The vmap training path: one warm-up and three timed MC-4 bs128 ELBO
+    steps; returns the kernels' launches in the three timed steps."""
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+
+    model.train()
+    model.fc.impl = "pallas"
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    step = make_train_step(TRAIN_MC, BATCH, emission="vmap")
+    step(model, opt, images(SEED + 440), labels(SEED + 440))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = expected_vmap_launches(model, training=True)
+    bns = bn_layers(model)
+    reset_counts()
+    times = []
+    for i in range(3):
+        x, y = images(SEED + 441 + i), labels(SEED + 441 + i)
+        tracked = [int(m.num_batches_tracked) for m in bns]
+        running = [m.running_mean.clone() for m in bns]
+        before = counts()
+        t0 = time.perf_counter()
+        loss, ce, kl = step(model, opt, x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        got = {k: v - before[k] for k, v in counts().items()}
+        log(f"[vmap train] step {i}: {times[-1]:.1f} ms, "
+            f"{BATCH / times[-1] * 1e3:.1f} images/s, loss {float(loss):.4f},"
+            f" CE {float(ce):.4f}, KL {float(kl):.1f}")
+        check(math.isfinite(float(loss)), f"vmap step {i}: loss {float(loss)}")
+        check_grads(model, f"vmap step {i}")
+        check(all(int(m.num_batches_tracked) == t + 1
+                  for m, t in zip(bns, tracked)),
+              f"vmap step {i}: num_batches_tracked did not go up by exactly 1")
+        check(all(not torch.equal(m.running_mean, r)
+                  for m, r in zip(bns, running)),
+              f"vmap step {i}: a running mean did not move")
+        check(got == want, f"vmap step {i}: launches {got}, the model implies "
+              f"{want}")
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[vmap train] ResNet-50 MC-{TRAIN_MC} bs{BATCH} {IMAGE}^2 bf16, "
+        f"emission='vmap', fc.impl='pallas', presample 'auto' (off): median "
+        f"{ms:.1f} ms/step, {BATCH / ms * 1e3:.1f} images/s, peak "
+        f"{peak:.2f} GiB; launches per step {want}")
+    return counts()
+
+
+def phase_vmap_train_sanity(model):
+    """sigma ~ 0: a vmap MC-4 step and a loop MC-4 step from the same
+    untrained state give the same mu gradients and running statistics,
+    within 2^-6 of each tensor's largest value; a second loop step shows
+    the spread of the loop against itself. In f32 with TF32 off and at
+    rho = -60 (sigma ~ 1e-26): at rho = -30 (sigma ~ 1e-13) the draws
+    still change this random network's f32 layer4 gradients by more than
+    2^-6 from one loop step to the next, and in bf16 the roundings of the
+    grouped and the plain convs do."""
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+
+    model.train()
+    model.fc.impl = "pallas"
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    dtypes = {m: m.compute_dtype for m in model.modules()
+              if hasattr(m, "compute_dtype")}
+    x, y = images(SEED + 450), labels(SEED + 450)
+
+    def step_from_saved(emission):
+        model.load_state_dict(saved)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if "rho" in name:
+                    p.fill_(-60.0)
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        make_train_step(TRAIN_MC, BATCH, emission=emission)(model, opt, x, y)
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()
+                 if "mu_" in n}
+        stats = {k: v.clone() for k, v in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        return {**grads, **stats}, len(grads), len(stats)
+
+    try:
+        for m in dtypes:
+            m.compute_dtype = None
+        with tf32_off():
+            vmap, _, _ = step_from_saved("vmap")
+            loop, n_grads, n_stats = step_from_saved("auto")
+            loop2, _, _ = step_from_saved("auto")
+    finally:
+        model.load_state_dict(saved)
+        for m, dtype in dtypes.items():
+            m.compute_dtype = dtype
+
+    def worst(a, b):
+        return max((max_err(a[k], b[k]) / max(b[k].abs().max().item(), 1e-30),
+                    k) for k in b)
+
+    err, name = worst(vmap, loop)
+    spread, _ = worst(loop2, loop)
+    log(f"[vmap train sanity] rho=-60, f32: vmap and loop MC-{TRAIN_MC} "
+        f"steps on {n_grads} mu gradients and {n_stats} running statistics: "
+        f"worst max|diff| / max|loop| = {err:.3e} ({name}), limit 2^-6 = "
+        f"{2**-6:.3e}; two loop steps: {spread:.3e}")
+    check(err <= 2**-6, f"rho=-60: {name} differs between the vmap and loop "
+          f"MC-{TRAIN_MC} steps ({err:.3e} > 2^-6 of its largest value)")
+
 
 # --- the INT8 post-training-quantization path --------------------------------
 
@@ -1220,6 +1580,7 @@ def main(argv=None):
     kc_res = phase_noise_grad(model)
     kde_res = phase_gemm_backward(model)
     phase_autograd(model)
+    lane_res = phase_lane_kernels(model)
 
     for mod in model.modules():
         if hasattr(mod, "compute_dtype"):
@@ -1233,13 +1594,24 @@ def main(argv=None):
     phase_sanity(model)
     if profile:
         phase_profile(model, batches[0], sampled_matmul)
+    vmap_main = phase_vmap_main(model, batches)
+    phase_vmap_against_loop(model, batches[0])
+    phase_vmap_sanity(model)
+    if profile:
+        profile_window(f"one vmap inference batch (MC-{NUM_MC} bs{BATCH})",
+                       lambda: vmap_mc10(model, batches[0]))
+    model.fc.impl = "xla"
     del batches
 
+    phase_vmap_train_sanity(model)
     train = phase_train(model)
     presample = phase_train_presample(model)
     phase_train_sanity(model)
     if profile:
         phase_profile_train(model)
+    vmap_train = phase_vmap_train(model)
+    if profile:
+        phase_profile_train(model, emission="vmap")
     del model
     torch.cuda.empty_cache()
     phase_trainer()
@@ -1265,6 +1637,9 @@ def main(argv=None):
     train_run = (f"training main path: make_train_step(num_mc={TRAIN_MC}, "
                  f"batch_size={BATCH}), fc.impl='pallas', presample='auto', "
                  "3 steps")
+    vmap_train_run = (f"vmap training: make_train_step(num_mc={TRAIN_MC}, "
+                      f"batch_size={BATCH}, emission='vmap'), "
+                      "fc.impl='pallas', 3 steps")
     kernels = [
         dict(name="sample_scaled_normals_batch", route="cuda",
              source=csrc + "sampled_weights.cu",
@@ -1304,6 +1679,22 @@ def main(argv=None):
                  f"ms, plain_ms, bound_ms and library_ms are sums over one "
                  f"forward's {INT8_LAYERS} GEMMs",
              launches=kf_launches, **kf_res),
+        dict(name="sampled_matmul_batched", route="cuda",
+             source=csrc + "sampled_matmul.cu",
+             replaces=pallas + "sampled_matmul.py:383",
+             run=f"vmap inference: mc_forward(num_mc={NUM_MC}, reduce='mean',"
+                 f" emission='vmap'), fc.impl='pallas', 3 batches",
+             launches=vmap_main["K-B lanes"], **lane_res["fwd"]),
+        dict(name="sampled_matmul_dx_batched", route="cuda",
+             source=csrc + "sampled_matmul_bwd.cu",
+             replaces=pallas + "sampled_matmul.py:405",
+             run=vmap_train_run, launches=vmap_train["K-D lanes"],
+             **lane_res["dx"]),
+        dict(name="sampled_matmul_dw_batched", route="cuda",
+             source=csrc + "sampled_matmul_bwd.cu",
+             replaces=pallas + "sampled_matmul.py:428",
+             run=vmap_train_run, launches=vmap_train["K-E lanes"],
+             **lane_res["dw"]),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never ran in {k['run']}")

@@ -150,3 +150,87 @@ def tiny_twins(seed=0, rho=None):
     load_jax_state(tm, arrays)
     tm.eval()
     return jm, tm, arrays
+
+
+# --- the same per-draw weights injected into both packages -----------------
+
+
+def draw_noise(tm, num_mc, seed=0):
+    """numpy eps of every Bayesian layer of the torch model by module
+    name: {"w": (S, ...), "b": (S, ...)}."""
+    from bayesian_torch_tpu_torch.models.dnn_to_bnn import (
+        iter_bayesian_layers,
+    )
+    from bayesian_torch_tpu_torch.parallel.mc import _posterior
+
+    rs = np.random.RandomState(seed)
+    layers = set(iter_bayesian_layers(tm))
+    out = {}
+    for name, layer in tm.named_modules():
+        if layer not in layers:
+            continue
+        mu, _ = _posterior(layer)
+        e = {"w": rs.randn(num_mc, *mu.shape).astype(np.float32)}
+        if layer.mu_bias is not None:
+            e["b"] = rs.randn(num_mc,
+                              *layer.mu_bias.shape).astype(np.float32)
+        out[name] = e
+    return out
+
+
+def inject_draws(monkeypatch, noise):
+    """Both packages' presample hooks draw mu + softplus(rho) * eps from
+    ``noise`` (``draw_noise``), differentiably. Layers are matched by
+    name: nnx transforms rebuild the model with its attributes in another
+    order."""
+    from bayesian_torch_tpu.layers.base_variational_layer import Presampled
+    from bayesian_torch_tpu.models.dnn_to_bnn import (
+        iter_bayesian_layers as jax_iter_layers,
+    )
+    from bayesian_torch_tpu.ops.sampling import sigma_from_rho as jax_sigma
+    from bayesian_torch_tpu.parallel import mc as jmc
+    from bayesian_torch_tpu_torch.models.dnn_to_bnn import (
+        iter_bayesian_layers,
+    )
+    from bayesian_torch_tpu_torch.ops.sampling import sigma_from_rho
+    from bayesian_torch_tpu_torch.parallel import mc as tmc
+
+    def jax_presample(model, num_mc, **_):
+        touched = []
+        layers = set(map(id, jax_iter_layers(model)))
+        for path, layer in nnx.iter_modules(model):
+            if id(layer) not in layers:
+                continue
+            e = noise[_torch_key_for(path)]
+            conv = getattr(layer, "mu_kernel", None) is not None
+            mu = (layer.mu_kernel if conv else layer.mu_weight)[...]
+            rho = (layer.rho_kernel if conv else layer.rho_weight)[...]
+            layer._presampled_w = Presampled(mu + jax_sigma(rho) * e["w"])
+            attrs = ["_presampled_w"]
+            if "b" in e:
+                layer._presampled_b = Presampled(
+                    layer.mu_bias[...] + jax_sigma(layer.rho_bias[...])
+                    * e["b"])
+                attrs.append("_presampled_b")
+            touched.append((layer, attrs))
+        return touched
+
+    def torch_presample(model, num_mc):
+        touched = []
+        layers = set(iter_bayesian_layers(model))
+        for name, layer in model.named_modules():
+            if layer not in layers:
+                continue
+            e = noise[name]
+            mu, rho = tmc._posterior(layer)
+            attrs = {"_presampled_w": mu + sigma_from_rho(rho)
+                     * torch.from_numpy(e["w"])}
+            if "b" in e:
+                attrs["_presampled_b"] = (
+                    layer.mu_bias + sigma_from_rho(layer.rho_bias)
+                    * torch.from_numpy(e["b"]))
+            touched.append((layer, attrs))
+        return touched
+
+    monkeypatch.setattr(jmc, "_presample_layers", jax_presample)
+    monkeypatch.setattr(tmc, "_presample_layers", torch_presample)

@@ -1,8 +1,9 @@
 """Card-only checks of the port's CUDA kernels against their plain torch
 versions, at small and ragged shapes (the full shapes are in
 chip_smoke.py): K-A and K-B forward, K-C (both modes), K-D and K-E
-backward, autograd through the public ops, and K-F (the fused int8 GEMM +
-requantize) with the quantized convs built on it. They skip without a
+backward, K-B, K-D and K-E with their lane axis, autograd through the
+public ops, and K-F (the fused int8 GEMM + requantize) with the quantized
+convs built on it. They skip without a
 CUDA device. On a machine with one, and without JAX, run them with
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
@@ -199,6 +200,86 @@ def test_sampled_matmul_grad_matches_plain(cuda):
             kb.sampled_matmul_dw.launches) == tuple(c + 1 for c in counts)
     want = torch.autograd.grad(
         sampled_matmul_plain(3, x, mu, sigma_from_rho(rho), torch.float32),
+        (x, mu, rho), g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _max_err(a, b) <= 1e-4 * _scale(b)
+
+
+@pytest.mark.parametrize("s", [1, 3])
+@pytest.mark.parametrize("m,n,k", [(37, 50, 70), (130, 33, 129)])
+@pytest.mark.parametrize("shared", [False, True])
+def test_lane_kernels_match_plain(cuda, s, m, n, k, shared):
+    """K-B, K-D and K-E with lanes against their plain versions; lane 0
+    equals the single-draw kernels bit for bit."""
+    mu, sigma, rho = _posterior((n, k), cuda, seed=9)
+    gen = torch.Generator().manual_seed(10)
+    x = torch.randn((s, m, k), generator=gen).to(cuda)
+    g = torch.randn((s, m, n), generator=gen).to(cuda)
+    xl = x[0] if shared else x
+    seed = 0xABCD_0000_0000_0042
+    before = (kb.sampled_matmul_batched.launches,
+              kb.sampled_matmul_dx_batched.launches,
+              kb.sampled_matmul_dw_batched.launches)
+    out = kb.sampled_matmul_batched(seed, xl, mu, rho, s,
+                                    out_dtype=torch.float32)
+    dx = kb.sampled_matmul_dx_batched(seed, g, mu, sigma)
+    dmu, dsig = kb.sampled_matmul_dw_batched(seed, g, xl)
+    assert (kb.sampled_matmul_batched.launches,
+            kb.sampled_matmul_dx_batched.launches,
+            kb.sampled_matmul_dw_batched.launches) == tuple(
+                c + 1 for c in before)
+    wants = (kb.sampled_matmul_batched_plain(seed, xl, mu, sigma, s),
+             kb.sampled_matmul_dx_batched_plain(seed, g, mu, sigma),
+             *kb.sampled_matmul_dw_batched_plain(seed, g, xl))
+    torch.cuda.synchronize()
+    # f32 sums of k (out), n (dx) or s*m (dw) products in another order
+    for got, want in zip((out, dx, dmu, dsig), wants):
+        assert got.shape == want.shape
+        assert _max_err(got, want) <= 1e-4 * _scale(want)
+    assert torch.equal(out[0], sampled_matmul(seed, x[0], mu, rho,
+                                              out_dtype=torch.float32))
+    assert torch.equal(dx[0], kb.sampled_matmul_dx(seed, g[0], mu, sigma))
+    one = kb.sampled_matmul_dw_batched(seed, g[:1], x[0])
+    for a, b in zip(one, kb.sampled_matmul_dw(seed, g[0], x[0])):
+        assert torch.equal(a, b)
+
+
+def test_lane_kernels_unaligned_view(cuda):
+    """Contiguous views at an odd offset: the kernels load element-wise."""
+    mu, sigma, rho = _posterior((33, 65), cuda, seed=11)
+    x = torch.randn(3 * 17 * 65 + 1, device=cuda)[1:].view(3, 17, 65)
+    g = torch.randn(3 * 17 * 33 + 1, device=cuda)[1:].view(3, 17, 33)
+    got = (kb.sampled_matmul_batched(7, x, mu, rho),
+           kb.sampled_matmul_dx_batched(7, g, mu, sigma),
+           *kb.sampled_matmul_dw_batched(7, g, x))
+    wants = (kb.sampled_matmul_batched_plain(7, x, mu, sigma, 3),
+             kb.sampled_matmul_dx_batched_plain(7, g, mu, sigma),
+             *kb.sampled_matmul_dw_batched_plain(7, g, x))
+    torch.cuda.synchronize()
+    for a, b in zip(got, wants):
+        assert _max_err(a, b) <= 1e-4 * _scale(b)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_sampled_matmul_batched_grad_matches_plain(cuda, shared):
+    mu, _, rho = _posterior((70, 90), cuda, seed=12)
+    mu.requires_grad_(True)
+    rho.requires_grad_(True)
+    shape = (33, 90) if shared else (4, 33, 90)
+    x = torch.randn(shape, device=cuda, requires_grad=True)
+    g = torch.randn((4, 33, 70), device=cuda)
+    counts = (kb.sampled_matmul_batched.launches,
+              kb.sampled_matmul_dx_batched.launches,
+              kb.sampled_matmul_dw_batched.launches)
+    got = torch.autograd.grad(kb.sampled_matmul_batched(3, x, mu, rho, 4),
+                              (x, mu, rho), g)
+    assert (kb.sampled_matmul_batched.launches,
+            kb.sampled_matmul_dx_batched.launches,
+            kb.sampled_matmul_dw_batched.launches) == tuple(
+                c + 1 for c in counts)
+    want = torch.autograd.grad(
+        kb.sampled_matmul_batched_plain(3, x, mu, sigma_from_rho(rho), 4),
         (x, mu, rho), g)
     torch.cuda.synchronize()
     for a, b in zip(got, want):

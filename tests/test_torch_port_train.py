@@ -1,9 +1,10 @@
 """The port's ELBO training step against the JAX package's vmap path, on
-the narrow ResNet twins in training mode with S = 3 draws.
+the narrow ResNet twins in training mode with S = 3 draws, through the
+port's draw loop and its vmap emission.
 
 Both packages' presample hooks are replaced by a differentiable
-``mu + softplus(rho) * eps`` on the same numpy eps (as
-test_torch_port_mc.py injects draws), so the two steps see the same
+``mu + softplus(rho) * eps`` on the same numpy eps
+(``tests/_torch_port.py::inject_draws``), so the two steps see the same
 weights. Compared after one step of ``SGD(lr, momentum=0.9)``: the loss,
 every parameter's gradient, the BN running statistics and
 ``num_batches_tracked``, and every parameter. f32 on the CPU, tolerance
@@ -18,19 +19,14 @@ import pytest
 import torch
 from flax import nnx
 
-from bayesian_torch_tpu.layers.base_variational_layer import Presampled
-from bayesian_torch_tpu.models.dnn_to_bnn import (
-    iter_bayesian_layers as jax_iter_layers,
-)
-from bayesian_torch_tpu.ops.sampling import sigma_from_rho as jax_sigma
 from bayesian_torch_tpu.parallel import mc as jmc
 from bayesian_torch_tpu.utils.checkpoint import _torch_key_for
 from bayesian_torch_tpu_torch.examples import _engine as engine
 from bayesian_torch_tpu_torch.models.dnn_to_bnn import iter_bayesian_layers
 from bayesian_torch_tpu_torch.ops.cuda import sampled_weights as ka
-from bayesian_torch_tpu_torch.ops.sampling import sigma_from_rho
 from bayesian_torch_tpu_torch.parallel import mc as tmc
-from tests._torch_port import jax_arrays, set_jax_eval, tiny_twins, to_np
+from tests._torch_port import (draw_noise, inject_draws, jax_arrays,
+                               set_jax_eval, tiny_twins, to_np)
 
 S = 3
 B = 4
@@ -43,69 +39,6 @@ def _batch(seed=2):
     x = rs.randn(B, 3, 16, 16).astype(np.float32)
     y = rs.randint(0, 10, B).astype(np.int32)
     return x, y
-
-
-def _noise(tm, seed=0):
-    """numpy eps of every Bayesian layer by module name: {"w": (S, ...),
-    "b": (S, ...)}."""
-    rs = np.random.RandomState(seed)
-    layers = set(iter_bayesian_layers(tm))
-    out = {}
-    for name, layer in tm.named_modules():
-        if layer not in layers:
-            continue
-        mu, _ = tmc._posterior(layer)
-        e = {"w": rs.randn(S, *mu.shape).astype(np.float32)}
-        if layer.mu_bias is not None:
-            e["b"] = rs.randn(S, *layer.mu_bias.shape).astype(np.float32)
-        out[name] = e
-    return out
-
-
-def _inject(monkeypatch, noise):
-    """Both presample hooks draw mu + softplus(rho) * eps from ``noise``,
-    differentiably. Layers are matched by name: nnx transforms rebuild the
-    model with its attributes in another order."""
-
-    def jax_presample(model, num_mc, **_):
-        touched = []
-        layers = set(map(id, jax_iter_layers(model)))
-        for path, layer in nnx.iter_modules(model):
-            if id(layer) not in layers:
-                continue
-            e = noise[_torch_key_for(path)]
-            conv = getattr(layer, "mu_kernel", None) is not None
-            mu = (layer.mu_kernel if conv else layer.mu_weight)[...]
-            rho = (layer.rho_kernel if conv else layer.rho_weight)[...]
-            layer._presampled_w = Presampled(mu + jax_sigma(rho) * e["w"])
-            attrs = ["_presampled_w"]
-            if "b" in e:
-                layer._presampled_b = Presampled(
-                    layer.mu_bias[...] + jax_sigma(layer.rho_bias[...])
-                    * e["b"])
-                attrs.append("_presampled_b")
-            touched.append((layer, attrs))
-        return touched
-
-    def torch_presample(model, num_mc):
-        touched = []
-        layers = set(iter_bayesian_layers(model))
-        for name, layer in model.named_modules():
-            if layer not in layers:
-                continue
-            e = noise[name]
-            mu, rho = tmc._posterior(layer)
-            attrs = {"_presampled_w": mu + sigma_from_rho(rho)
-                     * torch.from_numpy(e["w"])}
-            if "b" in e:
-                attrs["_presampled_b"] = (
-                    layer.mu_bias + sigma_from_rho(layer.rho_bias)
-                    * torch.from_numpy(e["b"]))
-            touched.append((layer, attrs))
-        return touched
-
-    monkeypatch.setattr(jmc, "_presample_layers", jax_presample)
-    monkeypatch.setattr(tmc, "_presample_layers", torch_presample)
 
 
 def _jax_step(jm, x, y, bn_stats):
@@ -140,17 +73,19 @@ def _twins_in_training(seed, momentum=0.1, rho=None):
     return jm, tm
 
 
+@pytest.mark.parametrize("emission", ["auto", "vmap"])
 @pytest.mark.parametrize("bn_stats,momentum", [("ema", 0.1), ("ema", None),
                                                ("freeze", 0.1)])
-def test_elbo_step_matches_jax_vmap_path(monkeypatch, bn_stats, momentum):
+def test_elbo_step_matches_jax_vmap_path(monkeypatch, bn_stats, momentum,
+                                         emission):
     jm, tm = _twins_in_training(seed=11, momentum=momentum)
     before = {k: v.clone() for k, v in tm.state_dict().items()}
-    _inject(monkeypatch, _noise(tm))
+    inject_draws(monkeypatch, draw_noise(tm, S))
     x, y = _batch()
     want_loss, want_grads = _jax_step(jm, jnp.asarray(x), jnp.asarray(y),
                                       bn_stats)
 
-    step = engine.make_train_step(S, B, presample="on")
+    step = engine.make_train_step(S, B, presample="on", emission=emission)
     opt = torch.optim.SGD(tm.parameters(), lr=LR, momentum=0.9)
     if bn_stats == "freeze":
         real = tmc.mc_forward
@@ -181,6 +116,7 @@ def test_elbo_step_matches_jax_vmap_path(monkeypatch, bn_stats, momentum):
     for mod in tm.modules():
         assert getattr(mod, "stats_frozen", False) is False
         assert getattr(mod, "_mc_stats", None) is None
+        assert not hasattr(mod, "_mc_draws")
 
 
 def test_one_draw_updates_bn_as_the_plain_forward_does():
