@@ -1,4 +1,5 @@
-"""Bayesian ResNet on ImageNet (reparameterization), the port's trainer
+"""Bayesian ResNet on ImageNet (reparameterization; the Flipout trainer
+``main_bayesian_flipout_imagenet`` shares ``run``), the port's trainer
 (counterpart of ``bayesian_torch_tpu/examples/main_bayesian_imagenet.py``).
 
     python -m bayesian_torch_tpu_torch.examples.main_bayesian_imagenet \\
@@ -44,8 +45,8 @@ _UNPORTED = {
     "moped": "MOPED initialisation comes with ROADMAP Queue 1 #6",
     "mesh_mc": "MC draws sharded over devices come with ROADMAP Queue 1 "
                "#15 (multi-device)",
-    "structured_mc": "the structured MC path comes with ROADMAP Queue 1 "
-                     "#10 (Flipout)",
+    "structured_mc": "the structured MC path (mc_forward(structured=True)) "
+                     "is ROADMAP Queue 1 #16",
     "remat": "remat_blocks needs its own design (ROADMAP Queue 1 #9): "
              "torch.utils.checkpoint would redraw the weights' seeds when "
              "it recomputes a block",
@@ -87,10 +88,13 @@ def build_parser(desc="Bayesian ImageNet"):
     return p
 
 
-def get_model(arch, seed, num_classes, device):
+def get_model(arch, seed, num_classes, device,
+              estimator="Reparameterization"):
     from bayesian_torch_tpu_torch.models.bayesian import (
-        resnet_variational_large as zoo)
+        resnet_flipout_large, resnet_variational_large)
 
+    zoo = {"Flipout": resnet_flipout_large,
+           "Reparameterization": resnet_variational_large}[estimator]
     return getattr(zoo, arch)(num_classes=num_classes,
                               generator=torch.Generator().manual_seed(seed),
                               device=device)
@@ -104,7 +108,7 @@ def _refuse_unported(args):
                 f"--{flag.replace('_', '-')} is not ported: {why}")
 
 
-def run(args):
+def run(args, estimator="Reparameterization"):
     _refuse_unported(args)
     x, y = load_imagenet_val(args.data_dir, args.synthetic,
                              num_classes=args.num_classes)
@@ -113,9 +117,10 @@ def run(args):
     test_data = (x[:n_val], y[:n_val])
 
     device = torch.device(args.device)
-    model = get_model(args.arch, args.seed, args.num_classes, device)
-    ckpt_path = os.path.join(args.save_dir,
-                             f"imagenet_bayesian_{args.arch}.pt")
+    model = get_model(args.arch, args.seed, args.num_classes, device,
+                      estimator)
+    tag = "flipout" if estimator == "Flipout" else "bayesian"
+    ckpt_path = os.path.join(args.save_dir, f"imagenet_{tag}_{args.arch}.pt")
     num_mc, batch_size = args.num_mc, args.batch_size
 
     def train_step(model, optimizer, xb, yb):
@@ -158,7 +163,7 @@ def run(args):
                                   num_monte_carlo=args.num_monte_carlo)
         save_checkpoint(model, ckpt_path)
         engine.save_metrics(metrics, os.path.join(
-            args.save_dir, "imagenet_bayesian_metrics.json"))
+            args.save_dir, f"imagenet_{tag}_metrics.json"))
         return metrics
     load_checkpoint(model, ckpt_path)
     model.eval()

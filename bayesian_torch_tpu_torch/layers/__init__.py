@@ -11,6 +11,7 @@ from bayesian_torch_tpu_torch.layers.batchnorm import BatchNorm2dLayer  # noqa: 
 from bayesian_torch_tpu_torch.layers.dropout import Dropout  # noqa: F401
 from bayesian_torch_tpu_torch.layers.relu import ReLU  # noqa: F401
 from bayesian_torch_tpu_torch.layers.variational_layers import *  # noqa: F401,F403,E501
+from bayesian_torch_tpu_torch.layers.flipout_layers import *  # noqa: F401,F403,E501
 from bayesian_torch_tpu_torch.layers.variational_layers.quantize_linear_variational import (  # noqa: F401,E501
     QuantizedLinearReparameterization,
 )

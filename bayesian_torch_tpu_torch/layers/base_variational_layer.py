@@ -25,7 +25,8 @@ from torch import nn
 
 from bayesian_torch_tpu_torch.ops.kl import gaussian_kl
 from bayesian_torch_tpu_torch.ops.sampling import (device_generator,
-                                                   draw_seed, sigma_from_rho)
+                                                   draw_seed, sigma_from_rho,
+                                                   sign_salts)
 
 
 def get_kernel_size(x, n):
@@ -130,25 +131,45 @@ class BaseVariationalLayer(nn.Module):
             ob(v)
         return out
 
-    def _sample_draws(self, num_samples, mu, rho):
+    def _sample_draws(self, num_samples, mu, rho, zero_mean=False):
         """All ``num_samples`` draws of the weight posterior (mu, rho) and
         of the bias, in the compute dtype, in ONE batch-sampler launch
         under one seed (weight and bias as one flat buffer): ``(w (S,
-        *mu.shape), b (S, O) or None)``. Differentiable (backward: one
-        regenerate-eps launch)."""
+        *mu.shape), b (S, O) or None)``. With ``zero_mean`` the draws are
+        the Flipout perturbations ``sigma * eps`` (the sampler runs on a
+        zero mean). Differentiable (backward: one regenerate-eps
+        launch)."""
         from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
             sample_gaussian_batch,
         )
         dtype = self.compute_dtype or mu.dtype
         seed = draw_seed(self.generator)
+        mu_flat, rho_flat = mu.reshape(-1), rho.reshape(-1)
+        if self.mu_bias is not None:
+            mu_flat = torch.cat([mu_flat, self.mu_bias])
+            rho_flat = torch.cat([rho_flat, self.rho_bias])
+        if zero_mean:
+            mu_flat = torch.zeros_like(mu_flat)
+        flat = sample_gaussian_batch(seed, mu_flat, rho_flat, num_samples,
+                                     dtype)
         if self.mu_bias is None:
-            return sample_gaussian_batch(seed, mu, rho, num_samples,
-                                         dtype), None
-        flat = sample_gaussian_batch(
-            seed, torch.cat([mu.reshape(-1), self.mu_bias]),
-            torch.cat([rho.reshape(-1), self.rho_bias]), num_samples, dtype)
+            return flat.reshape((num_samples,) + tuple(mu.shape)), None
         w, b = flat.split([mu.numel(), self.mu_bias.numel()], dim=1)
         return w.reshape((num_samples,) + tuple(mu.shape)), b
+
+    def _sign_salts(self, num_draws=None):
+        """The Flipout sign salts of this call: the pair(s) the presample
+        attached (``_presampled_signs``: (2,) for one draw, (S, 2) under
+        the draw axis), else fresh ones under one seed of the layer's
+        generator. One (input, output) pair, or ``num_draws`` pairs."""
+        signs = getattr(self, "_presampled_signs", None)
+        if signs is not None:
+            salts = signs.tolist()
+            return [tuple(p) for p in salts] if num_draws else tuple(salts)
+        seed = draw_seed(self.generator)
+        if num_draws:
+            return [sign_salts(seed, s) for s in range(num_draws)]
+        return sign_salts(seed)
 
     def kl_div(self, mu_q, sigma_q, mu_p, sigma_p):
         """KL(Q||P) between diagonal Gaussians, mean-reduced."""

@@ -1,15 +1,19 @@
 """Shared implementation of the Bayesian conv layers (counterpart of
-``bayesian_torch_tpu/layers/conv_base.py``, reparameterization estimator,
+``bayesian_torch_tpu/layers/conv_base.py``, both estimators,
 non-transposed).
 
-The public subclasses pin ``nd`` and keep the reference's class names,
+The public subclasses pin ``nd`` and ``estimator`` ("reparameterization"
+or "flipout") and keep the reference's class names,
 constructor signatures, parameter names (``mu_kernel`` / ``rho_kernel``)
 and shapes: (out_channels, in_channels // groups, *kernel_size).
 
 Under the draw axis (``_mc_draws``, set by ``mc_forward``'s vmap emission)
 the layer takes its S kernels from one batch-sampler launch, or the whole
 presampled (S, ...) stack, and runs them as one conv
-(``ops.conv.conv_draws``), as the JAX layer's structured branch does.
+(``ops.conv.conv_draws``), as the JAX layer's structured branch does. A
+Flipout layer draws its S perturbations ``sigma * eps`` the same way (the
+sampler on a zero mean) and runs ``ops.conv.flipout_conv_draws``; its
+presampled weight is that perturbation, and the mean conv uses ``mu``.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ class _BaseConvLayer(BaseVariationalLayer):
     """Common constructor, KL and forward of the Bayesian convs."""
 
     nd: int = 2
+    estimator: str = "reparameterization"  # or "flipout"
     takes_draw_axis = True
 
     def __init__(self,
@@ -105,16 +110,50 @@ class _BaseConvLayer(BaseVariationalLayer):
 
     def prepare(self, qconfig=None):
         """Insert the calibration observers (5 qint8 + 2 quint8)."""
+        if self.estimator == "flipout":
+            raise NotImplementedError(
+                f"{type(self).__name__}.prepare(): post-training "
+                "quantization of Flipout layers is not ported yet (ROADMAP "
+                "Queue 1 #14)")
         self._make_observers(5, 2, qconfig)
 
+    def _forward_flipout(self, input, eps_k, eps_b, sign_in, sign_out):
+        presampled_w = getattr(self, "_presampled_w", None)
+        presampled_b = getattr(self, "_presampled_b", None)
+        num_draws = getattr(self, "_mc_draws", None)
+        if num_draws:
+            # all S draws: the presampled (S, ...) perturbations, or one
+            # sampler launch on a zero mean
+            if presampled_w is not None:
+                delta, pert_b = presampled_w, presampled_b
+            else:
+                delta, pert_b = self._sample_draws(
+                    num_draws, self.mu_kernel, self.rho_kernel,
+                    zero_mean=True)
+            return conv_ops.flipout_conv_draws(
+                input, self.mu_kernel, self.mu_bias, delta, pert_b,
+                self._sign_salts(num_draws), **self._conv_args())
+        if presampled_w is not None:
+            # this draw's perturbation from the batch sampler (parallel.mc)
+            return conv_ops.flipout_conv_presampled(
+                input, self.mu_kernel, self.mu_bias, presampled_w,
+                presampled_b, self._sign_salts(), **self._conv_args())
+        return conv_ops.flipout_conv(
+            input, self.generator, self.mu_kernel, self.rho_kernel,
+            self.mu_bias, self.rho_bias, eps_k=eps_k, eps_b=eps_b,
+            sign_in=sign_in, sign_out=sign_out, **self._conv_args())
+
     def forward(self, input, return_kl: bool = True, *, eps_k=None,
-                eps_b=None):
+                eps_b=None, sign_in=None, sign_out=None):
         if self.dnn_to_bnn_flag:
             return_kl = False
 
         presampled_w = getattr(self, "_presampled_w", None)
         num_draws = getattr(self, "_mc_draws", None)
-        if self.quant_prepare:
+        if self.estimator == "flipout":
+            out = self._forward_flipout(input, eps_k, eps_b, sign_in,
+                                        sign_out)
+        elif self.quant_prepare:
             args = dict(self._conv_args(), compute_dtype=None)
             out = self._observed_forward(
                 input, self.mu_kernel, self.rho_kernel,

@@ -1,0 +1,20 @@
+"""Flipout-estimator layers."""
+
+from bayesian_torch_tpu_torch.layers.base_variational_layer import (  # noqa: F401,E501
+    BaseVariationalLayer_,
+)
+from bayesian_torch_tpu_torch.layers.flipout_layers.conv_flipout import (  # noqa: F401,E501
+    Conv1dFlipout,
+    Conv2dFlipout,
+    Conv3dFlipout,
+)
+from bayesian_torch_tpu_torch.layers.flipout_layers.linear_flipout import (  # noqa: F401,E501
+    LinearFlipout,
+)
+
+__all__ = [
+    "Conv1dFlipout",
+    "Conv2dFlipout",
+    "Conv3dFlipout",
+    "LinearFlipout",
+]

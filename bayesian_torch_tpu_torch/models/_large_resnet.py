@@ -1,5 +1,5 @@
-"""ImageNet ResNet-18..152, Bayesian (reparameterization) variant
-(counterpart of ``bayesian_torch_tpu/models/_large_resnet.py``).
+"""ImageNet ResNet-18..152, Bayesian (reparameterization and Flipout)
+variants (counterpart of ``bayesian_torch_tpu/models/_large_resnet.py``).
 
 torchvision-style ResNet: 7x7 s2 stem - BN - ReLU - maxpool 3x3 s2 -
 4 stages - avgpool - fc. Downsample paths are
@@ -9,8 +9,8 @@ MC-aware ``BatchNorm2d`` (``layers/batchnorm.py``), as the JAX model uses
 its own, so ``mc_forward`` can train with one EMA update per step. ReLU,
 the residual add and the pools take the uint8 ``QTensor`` activations of a
 converted model (``nn/functional.py``, ``ops/qtensor.py``). The
-deterministic and Flipout variants and the ``remat_blocks`` option come in
-later slices.
+deterministic variant and the ``remat_blocks`` option come in later
+slices.
 """
 
 from __future__ import annotations
@@ -36,24 +36,25 @@ posterior_rho_init = -3.0
 
 
 def _layer_factories(estimator, generator, device):
-    if estimator != "Reparameterization":
+    from bayesian_torch_tpu_torch import layers
+
+    if estimator not in ("Reparameterization", "Flipout"):
         raise NotImplementedError(
-            f"estimator={estimator!r}: only 'Reparameterization' is ported "
-            "(the deterministic and Flipout ResNets are ROADMAP Queue 1 "
-            "items)")
-    from bayesian_torch_tpu_torch.layers import (Conv2dReparameterization,
-                                                 LinearReparameterization)
+            f"estimator={estimator!r}: 'Reparameterization' and 'Flipout' "
+            "are ported (the deterministic ResNet is a ROADMAP Queue 1 "
+            "item)")
+    conv_cls = getattr(layers, f"Conv2d{estimator}")
+    linear_cls = getattr(layers, f"Linear{estimator}")
     bkw = dict(prior_mean=prior_mu, prior_variance=prior_sigma,
                posterior_mu_init=posterior_mu_init,
                posterior_rho_init=posterior_rho_init, generator=generator,
                device=device)
 
     def conv(cin, cout, k, **kw):
-        return Conv2dReparameterization(cin, cout, k, bias=False, **bkw,
-                                        **kw)
+        return conv_cls(cin, cout, k, bias=False, **bkw, **kw)
 
     def linear(cin, cout):
-        return LinearReparameterization(cin, cout, **bkw)
+        return linear_cls(cin, cout, **bkw)
     return conv, linear
 
 

@@ -1,1 +1,1 @@
-"""Bayesian (reparameterization) model factories."""
+"""Bayesian (reparameterization and Flipout) model factories."""

@@ -136,6 +136,63 @@ def rademacher_fused(salt: int, shape, dtype=torch.float32, device=None):
     return torch.where((h >> 31).bool(), -one, one).reshape(shape)
 
 
+def sign_salts(seed: int, s: int = 0):
+    """(input-sign salt, output-sign salt) of draw ``s`` under one 64-bit
+    ``seed``: the Flipout layers' two sign streams (the JAX ops split
+    their key instead)."""
+    return draw_salt(seed, 2 * s), draw_salt(seed, 2 * s + 1)
+
+
+def rademacher_lanes(salts, shape, dtype=torch.float32, device=None,
+                     axis=1):
+    """Signs over the draw axis: ``shape`` with a lane axis of S =
+    ``len(salts)`` inserted at ``axis``; lane s is
+    ``rademacher_fused(salts[s], shape)``, the signs a single forward of
+    draw s would take for a tensor of ``shape``."""
+    shape = tuple(shape)
+    out = torch.empty(shape[:axis] + (len(salts),) + shape[axis:],
+                      dtype=dtype, device=device)
+    for s, salt in enumerate(salts):
+        out.select(axis, s).copy_(rademacher_fused(salt, shape, dtype,
+                                                   device))
+    return out
+
+
+def cast_to(compute_dtype, *tensors):
+    """Every given tensor in ``compute_dtype`` (None: as they are; a None
+    tensor stays None): the Flipout ops sample and sign-flip in the compute
+    dtype, as the JAX ops do."""
+    if compute_dtype is None:
+        return tensors
+    return tuple(None if t is None else t.to(compute_dtype) for t in tensors)
+
+
+def flipout_combine(x, products, salts, sign_in=None, sign_out=None):
+    """The Flipout algebra ``mean + sign_out * pert`` where ``products(x,
+    x * sign_in)`` gives ``(mean, pert)``; signs not given come from
+    ``salts`` (input-sign salt, output-sign salt)."""
+    if sign_in is None:
+        sign_in = rademacher_fused(salts[0], x.shape, x.dtype, x.device)
+    mean_out, pert = products(x, x * sign_in)
+    if sign_out is None:
+        sign_out = rademacher_fused(salts[1], mean_out.shape, mean_out.dtype,
+                                    mean_out.device)
+    return mean_out + pert * sign_out
+
+
+def sample_gaussian_delta(generator, mu, rho, eps=None):
+    """The Flipout perturbation ``softplus(rho) * eps`` in ``mu``'s dtype:
+    from the injected ``eps``, or one draw of the batch sampler's kernel
+    on a zero mean, seeded from ``generator``."""
+    if eps is not None:
+        return sigma_from_rho(rho) * eps
+    from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
+        sample_gaussian,
+    )
+    return sample_gaussian(draw_seed(generator), torch.zeros_like(mu), rho,
+                           out_dtype=mu.dtype)
+
+
 def sample_gaussian_weight(generator, mu, rho, eps=None):
     """W = mu + softplus(rho) * eps; returns (W, sigma).
 

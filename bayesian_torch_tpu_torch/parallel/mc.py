@@ -24,8 +24,9 @@ applied as one EMA update (``_apply_bn_ema``) under either emission. A
 converted INT8 model (``quantization.convert``) runs the draw loop: its
 quantized layers draw and build their int8 weights inside each draw, as
 under the JAX vmap emission, or reuse their frozen draws
-(``quantization.serving``). The structured path and meshes are not
-ported.
+(``quantization.serving``). Flipout layers run under both emissions; their
+presampled draw is the perturbation ``sigma * eps``. ``structured=True``
+and meshes are not ported.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ from bayesian_torch_tpu_torch.models.dnn_to_bnn import iter_bayesian_layers
 from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
     sample_scaled_normals_batch,
 )
-from bayesian_torch_tpu_torch.ops.sampling import draw_seed, sigma_from_rho
+from bayesian_torch_tpu_torch.ops.sampling import (draw_seed, sigma_from_rho,
+                                                   sign_salts)
 
 _PRESAMPLE = ("auto", "on", "off", "xla", "hash")
 _BN_STATS = ("ema", "freeze")
@@ -57,6 +59,10 @@ def _posterior(layer):
     return None
 
 
+def _is_flipout(layer):
+    return getattr(layer, "estimator", None) == "flipout"
+
+
 def _presample_layers(model: nn.Module, num_mc: int):
     """Draw every Bayesian layer's ``num_mc`` weight sets in ONE batch
     sampler launch per compute dtype (one launch for a model in one
@@ -69,6 +75,13 @@ def _presample_layers(model: nn.Module, num_mc: int):
     (*k, O, I) permutation was a choice of XLA layout. The seed is one
     integer from the group's first layer's CPU generator. Biases are tiny
     and drawn with plain ``torch.randn`` from each layer's generator.
+
+    A Flipout layer's draw is its perturbation ``delta = sigma * eps``
+    (the sampler runs on a zero mean for it; the layer's mean path reads
+    ``mu``), its bias draw is ``sigma_b * eps_b`` without ``mu_bias``, and
+    its sign salts for the S draws come under one seed of its generator
+    (``_presampled_signs``, an (S, 2) int64 tensor on the CPU), so the loop
+    and the vmap emission flip the same signs in draw s.
 
     Differentiable when grad is enabled: the sampler's backward is one
     regenerate-eps launch over the whole flat buffer, and the split back
@@ -88,7 +101,9 @@ def _presample_layers(model: nn.Module, num_mc: int):
         mus = [_posterior(layer)[0] for layer in group]
         w_all = sample_scaled_normals_batch(
             draw_seed(group[0].generator),
-            torch.cat([m.reshape(-1) for m in mus]),
+            torch.cat([(torch.zeros_like(m) if _is_flipout(layer)
+                        else m).reshape(-1)
+                       for layer, m in zip(group, mus)]),
             torch.cat([sigma_from_rho(_posterior(layer)[1]).reshape(-1)
                        for layer in group]), num_mc, dtype)
         parts = w_all.split([m.numel() for m in mus], dim=1)
@@ -103,9 +118,16 @@ def _presample_layers(model: nn.Module, num_mc: int):
         if layer.mu_bias is not None:
             eps_b = torch.randn((num_mc,) + tuple(layer.mu_bias.shape),
                                 generator=layer.generator)
-            attrs["_presampled_b"] = (
-                layer.mu_bias + sigma_from_rho(layer.rho_bias)
-                * eps_b.to(layer.mu_bias.device))
+            b = sigma_from_rho(layer.rho_bias) * eps_b.to(
+                layer.mu_bias.device)
+            # Flipout: the mean bias rides the mean path
+            attrs["_presampled_b"] = b if _is_flipout(layer) \
+                else layer.mu_bias + b
+        if _is_flipout(layer):
+            seed = draw_seed(layer.generator)
+            attrs["_presampled_signs"] = torch.tensor(
+                [sign_salts(seed, s) for s in range(num_mc)],
+                dtype=torch.int64)
         touched.append((layer, attrs))
     return touched
 

@@ -18,7 +18,14 @@ weights and images, 224x224, 1000 classes, bf16 compute:
 - the vmap emission (``emission="vmap"``: all draws in one forward, draw s
   in channel block s, every conv one grouped conv): MC-10 bs128 inference
   and the MC-4 bs128 ELBO step, the head through K-B with lanes (and K-D,
-  K-E with lanes backward).
+  K-E with lanes backward);
+- the pointwise emission (``ops.conv.CONV_1X1_DOT = True``): the same vmap
+  MC-10 bs128 inference with every 1x1 stride-1 conv through the per-draw
+  GEMM kernel K-G;
+- Flipout ResNet-50 (``resnet_flipout_large.resnet50``): MC-10 bs128
+  inference and MC-4 bs128 ELBO steps, through the draw loop and through
+  the vmap emission, and one vmap batch with the pointwise emission (the
+  mean convs through K-G at S = 1, the perturbation convs through K-G).
 
 Phases, each printing its own line(s):
 
@@ -83,7 +90,27 @@ Phases, each printing its own line(s):
     with the checks of phase 8 (launches per step: K-A and K-C dsigma
     once per layer, K-B, K-D and K-E with lanes once);
 23. with ``--profile`` only: one vmap inference batch and one vmap
-    training step under the profiler.
+    training step under the profiler;
+24. K-G (the per-draw GEMM) against its plain version at the 12 pointwise
+    sites of ResNet-50 (S = 10, B = 128, bf16), with the times of the
+    S-way grouped cuDNN conv that ``conv_draws`` runs by default and of
+    ``torch.matmul`` with the broadcast weight; the shared-input and
+    shared-weight cases and a ragged case with a bias, bf16 and f32; the
+    matmul probe's two shapes (4096^3 and 8192 x 4096 x 4096) in bf16 and
+    int8 (bit for bit) beside ``torch.matmul`` and ``torch._int_mm`` (run
+    after phase 20);
+25. the pointwise emission: vmap MC-10 bs128 inference with
+    ``CONV_1X1_DOT = True``, 33 K-G launches per forward, lane for lane
+    against the default route on the same presampled draws, ms per batch
+    beside the default's (run after phase 21);
+26. Flipout ResNet-50: MC-10 bs128 inference through the loop and the vmap
+    emission (ms per batch, images/s, peak memory, launches gated), vmap
+    lane for lane against the loop under the same seeds, the rho = -30
+    check, one vmap batch with ``CONV_1X1_DOT = True`` (33 K-G and 33
+    K-G S = 1 launches) against the default route; MC-4 bs128 ELBO steps
+    through the loop and the vmap emission (finite, non-zero gradients on
+    every mu and rho, launches gated); with ``--profile`` one Flipout
+    inference batch and one step under the profiler.
 
 The line before the last is a JSON object with every kernel's launches,
 counted from zero in the run named by its ``run`` key, its error against
@@ -116,7 +143,17 @@ INT8_LAYERS = 54  # ResNet-50: 53 convs and the head, one K-F launch each
 # tensor cores, int8 tensor-core operations/s
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
+BF16_OPS = 989e12
 INT8_OPS = 1979e12
+
+# ResNet-50's 1x1 stride-1 convs: (in_ch, out_ch, spatial side, count)
+POINTWISE_SITES = [
+    (64, 64, 56, 1), (64, 256, 56, 4), (256, 64, 56, 2), (256, 128, 56, 1),
+    (128, 512, 28, 4), (512, 128, 28, 3), (512, 256, 28, 1),
+    (256, 1024, 14, 6), (1024, 256, 14, 5), (1024, 512, 14, 1),
+    (512, 2048, 7, 3), (2048, 512, 7, 2),
+]
+N_POINTWISE = sum(count for *_, count in POINTWISE_SITES)  # 33
 
 
 def log(msg):
@@ -338,41 +375,6 @@ def images(seed):
 def entropy(logits):
     p = logits.float().softmax(-1)
     return -(p * p.clamp_min(1e-30).log()).sum(-1).mean().item()
-
-
-def phase_main_path(model, ka, batches):
-    """Three batches through the main path; returns K-A's launches in
-    exactly those three calls."""
-    import torch
-
-    from bayesian_torch_tpu_torch.parallel import mc_forward
-
-    mc_forward(model, images(SEED + 100), NUM_MC, reduce="mean")  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ka.launches = 0
-    times = []
-    for i, x in enumerate(batches):
-        before = ka.launches
-        t0 = time.perf_counter()
-        out, kl = mc_forward(model, x, NUM_MC, reduce="mean")
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        check(tuple(out.shape) == (BATCH, 1000), f"output shape {out.shape}")
-        check(bool(torch.isfinite(out).all()), "non-finite output")
-        check(ka.launches - before == 1,
-              f"K-A launched {ka.launches - before} times for batch {i}")
-        log(f"[main] batch {i}: {times[-1]:.1f} ms, mean predictive "
-            f"entropy {entropy(out):.4f} nats (max {math.log(1000):.4f}), "
-            f"kl {float(kl):.1f}")
-    launches = ka.launches
-    ms = statistics.median(times)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[main] ResNet-50 MC-{NUM_MC} bs{BATCH} {IMAGE}^2 bf16: median "
-        f"{ms:.1f} ms/batch, {BATCH / ms * 1e3:.1f} images/s "
-        f"({BATCH * NUM_MC / ms * 1e3:.1f} image-draws/s), peak "
-        f"{peak:.2f} GiB, K-A launches {launches}")
-    return launches
 
 
 def phase_head(model, ka, kb, x):
@@ -683,6 +685,7 @@ def kernel_counters():
     from bayesian_torch_tpu_torch.ops.cuda import sampled_matmul as kb
     from bayesian_torch_tpu_torch.ops.cuda import sampled_weights as ka
 
+    from bayesian_torch_tpu_torch.ops.cuda import mc_gemm as kg
     from bayesian_torch_tpu_torch.ops.cuda import qmatmul as kf
 
     return {"K-A": ka.sample_scaled_normals_batch, "K-B": kb.sampled_matmul,
@@ -691,7 +694,8 @@ def kernel_counters():
             "K-F": kf.qmatmul_requant,
             "K-B lanes": kb.sampled_matmul_batched,
             "K-D lanes": kb.sampled_matmul_dx_batched,
-            "K-E lanes": kb.sampled_matmul_dw_batched}
+            "K-E lanes": kb.sampled_matmul_dw_batched,
+            "K-G": kg.mc_gemm, "K-G S=1": kg.pointwise_gemm}
 
 
 def reset_counts():
@@ -716,10 +720,11 @@ def expected_step_launches(model, num_mc):
     fused = sum(getattr(layer, "impl", "xla") == "pallas" for layer in layers)
     draws = sum((getattr(layer, "impl", "xla") != "pallas")
                 + (layer.mu_bias is not None) for layer in layers)
-    return {"K-A": num_mc * draws, "K-B": num_mc * fused,
-            "K-C dsigma": 0, "K-C drho": num_mc * draws,
-            "K-D": num_mc * fused, "K-E": num_mc * fused, "K-F": 0,
-            "K-B lanes": 0, "K-D lanes": 0, "K-E lanes": 0}
+    want = dict.fromkeys(kernel_counters(), 0)
+    want.update({"K-A": num_mc * draws, "K-B": num_mc * fused,
+                 "K-C drho": num_mc * draws, "K-D": num_mc * fused,
+                 "K-E": num_mc * fused})
+    return want
 
 
 def expected_vmap_launches(model, training):
@@ -1007,54 +1012,56 @@ def phase_profile_train(model, emission="auto"):
                    f"emission={emission!r})", lambda: step(model, opt, x, y))
 
 
-def phase_sanity(model):
-    """rho = -30 (sigma ~ 1e-13): every draw equals the posterior mean,
-    so the MC-10 mean must agree with one draw."""
-    import torch
+# --- helpers of the MC-10 inference paths ----------------------------------
 
-    from bayesian_torch_tpu_torch.parallel import mc_forward
 
-    rhos = [p for n, p in model.named_parameters() if "rho" in n]
-    saved = [p.detach().clone() for p in rhos]
-    x = images(SEED + 1)
-    with torch.no_grad():
-        for p in rhos:
-            p.fill_(-30.0)
+@contextlib.contextmanager
+def pointwise_dot():
+    """``ops.conv.CONV_1X1_DOT = True`` inside; the default after."""
+    from bayesian_torch_tpu_torch.ops import conv as conv_ops
+
+    saved = conv_ops.CONV_1X1_DOT
+    conv_ops.CONV_1X1_DOT = True
     try:
-        ten = mc_forward(model, x, NUM_MC, reduce="mean", return_kl=False)
-        one = mc_forward(model, x, 1, reduce="mean", return_kl=False)
+        yield
     finally:
-        with torch.no_grad():
-            for p, v in zip(rhos, saved):
-                p.copy_(v)
-    diff = (ten - one).abs().max().item()
-    scale = one.abs().max().item()
-    # both take the same bf16(mu) weights; what differs is the order of
-    # the f32 mean: a few bf16 ulps of the largest logit at most
-    log(f"[sanity] rho=-30: max|MC-10 mean - single draw| = {diff:.3e}, "
-        f"limit 2^-6 x max|logit| = {scale * 2**-6:.3e}")
-    check(diff <= scale * 2**-6, "MC mean at sigma ~ 0 differs from a draw")
+        conv_ops.CONV_1X1_DOT = saved
 
 
-# --- the vmap emission --------------------------------------------------------
+def pointwise_sites(model):
+    """The number of the model's convs that take the pointwise emission."""
+    from bayesian_torch_tpu_torch.ops import conv as conv_ops
+
+    return sum(
+        conv_ops._is_pointwise(m.mu_kernel, m.stride, m.padding, m.dilation,
+                               m.groups, True)
+        for m in model.modules() if hasattr(m, "mu_kernel"))
 
 
-def vmap_mc10(model, x):
-    from bayesian_torch_tpu_torch.parallel import mc_forward
+def same_seeds(model, fn):
+    """``fn()`` with the model's (shared) generator rewound after it."""
+    gen = model.conv1.generator
+    state = gen.get_state()
+    try:
+        return fn()
+    finally:
+        gen.set_state(state)
 
-    return mc_forward(model, x, NUM_MC, reduce="mean", return_kl=False,
-                      emission="vmap")
 
-
-def phase_vmap_main(model, batches):
-    """The vmap inference path: three MC-10 bs128 batches after a
-    warm-up, the head through K-B with lanes; returns the launches of the
-    three batches."""
+def timed_mc(what, model, batches, want, **kw):
+    """Three MC-10 bs128 batches after a warm-up through
+    ``mc_forward(model, x, 10, reduce="mean", **kw)``, every count set to 0
+    before the first and every batch's launches equal to ``want``; returns
+    (median ms, the launches of the three batches)."""
     import torch
 
-    model.fc.impl = "pallas"
-    want = expected_vmap_launches(model, training=False)
-    vmap_mc10(model, images(SEED + 100))  # warm-up
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    def run(x):
+        out = mc_forward(model, x, NUM_MC, reduce="mean", **kw)
+        return out[0] if isinstance(out, tuple) else out
+
+    run(images(SEED + 100))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1062,52 +1069,60 @@ def phase_vmap_main(model, batches):
     for i, x in enumerate(batches):
         before = counts()
         t0 = time.perf_counter()
-        out = vmap_mc10(model, x)
+        out = run(x)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         got = {k: v - before[k] for k, v in counts().items()}
-        check(tuple(out.shape) == (BATCH, 1000), f"output shape {out.shape}")
-        check(bool(torch.isfinite(out).all()), "non-finite output")
-        check(got == want, f"vmap batch {i}: launches {got}, the model "
+        check(tuple(out.shape) == (BATCH, 1000), f"{what}: output shape "
+              f"{tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+        check(got == want, f"{what} batch {i}: launches {got}, the model "
               f"implies {want}")
-        log(f"[vmap main] batch {i}: {times[-1]:.1f} ms, mean predictive "
-            f"entropy {entropy(out):.4f} nats")
+        log(f"[{what}] batch {i}: {times[-1]:.1f} ms, mean predictive "
+            f"entropy {entropy(out):.4f} nats (max {math.log(1000):.4f})")
     ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    launches = counts()
-    log(f"[vmap main] ResNet-50 MC-{NUM_MC} bs{BATCH} {IMAGE}^2 bf16, "
-        f"emission='vmap', fc.impl='pallas', presample 'auto' (off): median "
-        f"{ms:.1f} ms/batch, {BATCH / ms * 1e3:.1f} images/s "
+    log(f"[{what}] ResNet-50 MC-{NUM_MC} bs{BATCH} {IMAGE}^2 bf16, "
+        f"mc_forward({', '.join(f'{k}={v!r}' for k, v in kw.items())}): "
+        f"median {ms:.1f} ms/batch, {BATCH / ms * 1e3:.1f} images/s "
         f"({BATCH * NUM_MC / ms * 1e3:.1f} image-draws/s), peak {peak:.2f} "
-        f"GiB; launches per batch {want}")
-    return launches
+        f"GiB; launches per batch { {k: v for k, v in want.items() if v} }")
+    return ms, counts()
 
 
-def phase_vmap_against_loop(model, x):
-    """Lane for lane against the draw loop, both fed the same presampled
-    draws (presample="on" with the layers' generator rewound), bf16."""
-    import torch
-
+def lanes_agree(what, model, x, dot=False):
+    """The vmap emission lane for lane against the draw loop, or, with
+    ``dot``, the vmap emission under the pointwise emission against the
+    vmap emission on the default route: both under presample="on" with the
+    layers' generator rewound, so both take the same presampled draws (and
+    Flipout sign salts). bf16 activations: two conv routes round at other
+    places, a few bf16 ulps of the largest logit at most."""
     from bayesian_torch_tpu_torch.parallel import mc_forward
 
-    gen = model.conv1.generator
-    state = gen.get_state()
-    vmap = mc_forward(model, x, NUM_MC, presample="on", emission="vmap",
-                      return_kl=False)
-    gen.set_state(state)
-    loop = mc_forward(model, x, NUM_MC, presample="on", return_kl=False)
-    diff, scale = max_err(vmap, loop), loop.float().abs().max().item()
-    # bf16 activations: cuDNN's grouped and plain convs round at other
-    # places; a few bf16 ulps of the largest logit at most
-    log(f"[vmap vs loop] same presampled draws, {NUM_MC} lanes: max|vmap - "
-        f"loop| = {diff:.3e}, limit 2^-6 x max|logit| = {scale * 2**-6:.3e}")
-    check(tuple(vmap.shape) == tuple(loop.shape) == (NUM_MC, BATCH, 1000),
-          f"vmap {tuple(vmap.shape)} and loop {tuple(loop.shape)} shapes")
-    check(diff <= scale * 2**-6, "the vmap emission differs from the loop")
+    def run(emission, ctx):
+        with ctx:
+            return same_seeds(model, lambda: mc_forward(
+                model, x, NUM_MC, presample="on", return_kl=False,
+                emission=emission))
+
+    a = run("vmap", pointwise_dot() if dot else contextlib.nullcontext())
+    b = run("vmap" if dot else "auto", contextlib.nullcontext())
+    check(tuple(a.shape) == tuple(b.shape) == (NUM_MC, BATCH, 1000),
+          f"{what}: shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    diff, scale = max_err(a, b), b.float().abs().max().item()
+    # each lane's largest difference in bf16 ulps of that lane's largest
+    # logit: how many roundings apart the two routes end
+    lane_diff = (a.float() - b.float()).abs().flatten(1).amax(1)
+    ulps = lane_diff / bf16_ulp(b.float().abs().flatten(1).amax(1))
+    log(f"[{what}] same presampled draws, {NUM_MC} lanes: max|diff| = "
+        f"{diff:.3e}, limit 2^-6 x max|logit| = {scale * 2**-6:.3e}; per "
+        f"lane in bf16 ulps of the lane's largest logit: "
+        f"{', '.join(f'{u:.1f}' for u in ulps.tolist())}")
+    check(diff <= scale * 2**-6, f"{what}: the two routes differ")
 
 
-def phase_vmap_sanity(model):
-    """rho = -30: the vmap MC-10 mean agrees with one draw."""
+def mc_sanity(what, model, emission):
+    """rho = -30: the MC-10 mean agrees with one draw."""
     import torch
 
     from bayesian_torch_tpu_torch.parallel import mc_forward
@@ -1119,17 +1134,22 @@ def phase_vmap_sanity(model):
         for p in rhos:
             p.fill_(-30.0)
     try:
-        ten = vmap_mc10(model, x)
+        ten = mc_forward(model, x, NUM_MC, reduce="mean", return_kl=False,
+                         emission=emission)
         one = mc_forward(model, x, 1, reduce="mean", return_kl=False)
     finally:
         with torch.no_grad():
             for p, v in zip(rhos, saved):
                 p.copy_(v)
     diff, scale = max_err(ten, one), one.abs().max().item()
-    log(f"[vmap sanity] rho=-30: max|vmap MC-10 mean - single draw| = "
-        f"{diff:.3e}, limit 2^-6 x max|logit| = {scale * 2**-6:.3e}")
-    check(diff <= scale * 2**-6, "vmap MC mean at sigma ~ 0 differs from a "
-          "draw")
+    log(f"[{what}] rho=-30, emission={emission!r}: max|MC-{NUM_MC} mean - "
+        f"single draw| = {diff:.3e}, limit 2^-6 x max|logit| = "
+        f"{scale * 2**-6:.3e}")
+    check(diff <= scale * 2**-6, f"{what}: MC mean at sigma ~ 0 differs "
+          "from a draw")
+
+
+# --- the vmap emission --------------------------------------------------------
 
 
 def phase_vmap_train(model):
@@ -1546,6 +1566,345 @@ def phase_int8_uncalibrated(batches):
 
 
 
+# --- K-G, the pointwise emission and Flipout ---------------------------------
+
+
+def bf16_ulp_of_max(want):
+    """One bf16 ulp of the largest |value| of ``want``."""
+    return bf16_ulp(want.float().abs().max()).item()
+
+
+def kg_gate(what, got, want):
+    """K-G against its plain version: int8 bit for bit; f32 within 1e-4 x
+    max|plain| (order of summation); bf16 within one bf16 ulp of the
+    largest value (both round one f32 sum). Returns the error."""
+    import torch
+
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: {tuple(got.shape)} {got.dtype} against "
+          f"{tuple(want.shape)} {want.dtype}")
+    if got.dtype == torch.int32:
+        err = (got.long() - want.long()).abs().max().item()
+        limit = 0
+    else:
+        err = max_err(got, want)
+        limit = (1e-4 * want.abs().max().item()
+                 if got.dtype == torch.float32 else bf16_ulp_of_max(want))
+    check(err <= limit, f"{what} differs from its plain version "
+          f"({err:.3e} > {limit:.3e})")
+    return float(err), float(limit)
+
+
+def phase_mc_gemm():
+    """K-G against its plain version at the 12 pointwise sites of
+    ResNet-50 (S = 10, B = 128, bf16), beside the S-way grouped cuDNN conv
+    of the default route and ``torch.matmul`` with the broadcast weight;
+    then the shared-input and shared-weight cases and a ragged case.
+    At each site the S = 1 wrapper is held the same way at the shape the
+    Flipout vmap run gives it (the mean conv: one weight over the B*S
+    batch). Returns two kernels-line entries, K-G's and the S = 1
+    wrapper's: sums over one forward's 33 sites."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops import conv as conv_ops
+    from bayesian_torch_tpu_torch.ops.cuda import mc_gemm as kg
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    S = NUM_MC
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, cudnn_ms=0.0,
+               bound_ms=0.0, bytes=0.0, ops=0.0)
+    one = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    worst = worst_one = 0.0
+    for ci, co, sp, count in POINTWISE_SITES:
+        x = rand(BATCH, S * ci, sp, sp)
+        w = rand(S, co, ci, 1, 1)
+        x4, w3 = x.reshape(BATCH, S, ci, sp * sp), w.reshape(S, co, ci)
+        got, want = kg.mc_gemm(x4, w3), kg.mc_gemm_plain(x4, w3)
+        err, limit = kg_gate(f"K-G at {ci}->{co}@{sp}", got, want)
+        worst = max(worst, err)
+        via_conv = conv_ops.conv_draws(x, w, pointwise_dot=True)
+        check(torch.equal(via_conv.reshape(got.shape), got),
+              "conv_draws(pointwise_dot=True) is not K-G's output")
+        del got, want, via_conv
+        ms, plain_ms = median_ms_pair(lambda: kg.mc_gemm(x4, w3),
+                                      lambda: kg.mc_gemm_plain(x4, w3))
+        cudnn_ms = median_ms(lambda: conv_ops.conv_draws(x, w))
+        lib_ms = median_ms(lambda: torch.matmul(w3, x4))
+        nbytes = 2 * (x.numel() + w.numel() + BATCH * S * co * sp * sp)
+        ops = 2 * BATCH * S * co * sp * sp * ci
+        bound_ms, by = bound(nbytes, ops, BF16_OPS)
+        log(f"[K-G] {ci}->{co}@{sp} x{count}: max|kernel-plain| {err:.3e} "
+            f"(limit {limit:.3e}, one bf16 ulp of the largest value); "
+            f"kernel {ms:.3f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+            f"{ops / ms / 1e9:.1f} TFLOP/s), grouped cuDNN conv "
+            f"{cudnn_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({by})")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("cudnn_ms", cudnn_ms),
+                       ("bound_ms", bound_ms), ("bytes", nbytes),
+                       ("ops", ops)):
+            tot[key] += count * v
+        # the S = 1 wrapper on the same bytes: (B*S, C, P) under one weight
+        xs, w0 = x.reshape(BATCH * S, ci, sp * sp), w3[0]
+        got, want = kg.pointwise_gemm(xs, w0), kg.mc_gemm_plain(xs, w0)[:, 0]
+        err, limit = kg_gate(f"K-G S=1 at {ci}->{co}@{sp}", got, want)
+        worst_one = max(worst_one, err)
+        via_conv = conv_ops.conv_nd(xs.reshape(BATCH * S, ci, sp, sp), w[0],
+                                    pointwise_dot=True)
+        check(torch.equal(via_conv.reshape(got.shape), got),
+              "conv_nd(pointwise_dot=True) is not K-G's output")
+        del got, want, via_conv
+        ms, plain_ms = median_ms_pair(
+            lambda: kg.pointwise_gemm(xs, w0),
+            lambda: kg.mc_gemm_plain(xs, w0))
+        lib_ms = median_ms(lambda: torch.matmul(w0, xs))
+        nbytes -= 2 * (S - 1) * w0.numel()  # the weight is read once
+        bound_ms, by = bound(nbytes, ops, BF16_OPS)
+        log(f"[K-G S=1] {ci}->{co}@{sp} x{count}, batch {BATCH * S}: "
+            f"max|kernel-plain| {err:.3e} (limit {limit:.3e}); kernel "
+            f"{ms:.3f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+            f"{ops / ms / 1e9:.1f} TFLOP/s), torch.matmul {lib_ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({by})")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("bound_ms", bound_ms)):
+            one[key] += count * v
+        del x, w, x4, w3, xs, w0
+    log(f"[K-G] one MC-{S} bs{BATCH} forward ({N_POINTWISE} sites, "
+        f"{len(POINTWISE_SITES)} shapes, bf16): kernel {tot['ms']:.2f} ms, "
+        f"grouped cuDNN conv {tot['cudnn_ms']:.2f} ms, torch.matmul "
+        f"{tot['library_ms']:.2f} ms, plain {tot['plain_ms']:.2f} ms, bound "
+        f"{tot['bound_ms']:.2f} ms ({tot['ops'] / 1e12:.3f} TFLOP, "
+        f"{tot['bytes'] / 1e9:.2f} GB)")
+    log(f"[K-G S=1] the same {N_POINTWISE} sites under one weight (batch "
+        f"{BATCH * S}): kernel {one['ms']:.2f} ms, torch.matmul "
+        f"{one['library_ms']:.2f} ms, plain {one['plain_ms']:.2f} ms, bound "
+        f"{one['bound_ms']:.2f} ms")
+
+    # shared input (the stem-side case), shared weight, and ragged shapes
+    # with a bias: 7x7 rows of 98 bytes, C and O off the tiles
+    ci, co, sp = 256, 64, 56
+    x = rand(BATCH, ci, sp * sp)
+    w, b = rand(S, co, ci), rand(S, co)
+    e_in, _ = kg_gate("K-G, shared input", kg.mc_gemm(x, w, b),
+                      kg.mc_gemm_plain(x, w, b))
+    e_w, _ = kg_gate("K-G, shared weight", kg.pointwise_gemm(x, w[0], b[0]),
+                     kg.mc_gemm_plain(x, w[0], b[0])[:, 0])
+    del x, w, b
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        x = rand(3, S, 33, 49, dtype=dtype)
+        w, b = rand(S, 70, 33, dtype=dtype), rand(S, 70, dtype=dtype)
+        with tf32_off():
+            errs.append(kg_gate(f"K-G, ragged {dtype}", kg.mc_gemm(x, w, b),
+                                kg.mc_gemm_plain(x, w, b))[0])
+    log(f"[K-G] shared input {e_in:.3e}, shared weight {e_w:.3e} (256->64@56"
+        f", bias); ragged B=3 S={S} O=70 C=33 P=49 with bias: bf16 "
+        f"{errs[0]:.3e}, f32 {errs[1]:.3e}: all within their limits")
+    _, by = bound(tot["bytes"], tot["ops"], BF16_OPS)
+    return (dict(max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"],
+                 bound_ms=tot["bound_ms"], bound_by=by,
+                 library_ms=tot["library_ms"]),
+            dict(max_abs_err=max(worst_one, e_w), bound_by=by, **one))
+
+
+def phase_matmul_probe():
+    """K-G at S = 1, B = 1 at the matmul probe's shapes, bf16 -> bf16 and
+    s8 -> s32, beside ``torch.matmul`` and ``torch._int_mm``. Returns
+    the sums over the four cases, for the S = 1 kernels-line entry to carry
+    beside its sums at the main path's shapes."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops.cuda import mc_gemm as kg
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    worst = 0.0
+    for M, K, N in ((4096, 4096, 4096), (8192, 4096, 4096)):
+        for dtype in (torch.bfloat16, torch.int8):
+            if dtype == torch.int8:
+                a = torch.randint(-127, 127, (M, K), dtype=dtype,
+                                  device="cuda", generator=gen)
+                b = torch.randint(-127, 127, (K, N), dtype=dtype,
+                                  device="cuda", generator=gen)
+                library, peak, out_size = torch._int_mm, INT8_OPS, 4
+            else:
+                a = torch.randn(M, K, device="cuda", generator=gen).to(dtype)
+                b = torch.randn(K, N, device="cuda", generator=gen).to(dtype)
+                library, peak, out_size = torch.matmul, BF16_OPS, 2
+            plain = lambda: kg.mc_gemm_plain(b[None], a)[0, 0]  # noqa: E731
+            err, limit = kg_gate(f"K-G matmul {M}x{K}x{N} {dtype}",
+                                 kg.matmul(a, b), plain())
+            worst = max(worst, err)
+            ms, plain_ms = median_ms_pair(lambda: kg.matmul(a, b), plain)
+            lib_ms = median_ms(lambda: library(a, b))
+            ops = 2 * M * N * K
+            nbytes = a.element_size() * (M * K + K * N) + out_size * M * N
+            bound_ms, by = bound(nbytes, ops, peak)
+            log(f"[K-G S=1] ({M}, {K}) @ ({K}, {N}) {dtype}: max|kernel-"
+                f"plain| {err:.3e} (limit {limit:.3e}); kernel {ms:.3f} ms "
+                f"({ops / ms / 1e9:.1f} T/s), {library.__name__} "
+                f"{lib_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{bound_ms:.3f} ms ({by})")
+            for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                           ("library_ms", lib_ms), ("bound_ms", bound_ms)):
+                tot[key] += v
+            del a, b
+    return dict(probe_max_abs_err=worst, probe_bound_by="operations",
+                **{"probe_" + key: v for key, v in tot.items()})
+
+
+def phase_pointwise_vmap(model, batches, default_ms):
+    """The reparameterization vmap MC-10 run again with the pointwise
+    emission: every 1x1 stride-1 conv through K-G."""
+    sites = pointwise_sites(model)
+    check(sites == N_POINTWISE, f"{sites} pointwise convs, want "
+          f"{N_POINTWISE}")
+    model.fc.impl = "pallas"
+    want = expected_vmap_launches(model, training=False)
+    want["K-G"] = sites
+    with pointwise_dot():
+        ms, launches = timed_mc("pointwise vmap", model, batches, want,
+                                return_kl=False, emission="vmap")
+    lanes_agree("pointwise vmap vs default", model, batches[0], dot=True)
+    log(f"[pointwise vmap] CONV_1X1_DOT=True {ms:.1f} ms/batch against "
+        f"{default_ms:.1f} ms/batch on the default (grouped cuDNN) route; "
+        f"{sites} K-G launches per forward")
+    return launches
+
+
+def phase_flipout_inference(model, batches, profile):
+    """Flipout ResNet-50 MC-10 bs128 bf16 inference: the loop (one K-A
+    launch per batch: every layer's perturbations drawn first), the vmap
+    emission (one K-A launch per layer), lane for lane, the rho = -30
+    check, and one vmap batch with the pointwise emission. Returns the
+    launches of that last batch."""
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    none = dict.fromkeys(kernel_counters(), 0)
+    timed_mc("flipout loop", model, batches, dict(none, **{"K-A": 1}))
+    timed_mc("flipout vmap", model, batches,
+             expected_vmap_launches(model, training=False), return_kl=False,
+             emission="vmap")
+    lanes_agree("flipout vmap vs loop", model, batches[0])
+    mc_sanity("flipout sanity", model, "auto")
+    mc_sanity("flipout sanity", model, "vmap")
+    sites = pointwise_sites(model)
+    reset_counts()
+    lanes_agree("flipout pointwise vmap vs default", model, batches[0],
+                dot=True)
+    got = counts()
+    # the mean conv of a site is one product at S = 1 over the B * S
+    # batch, its perturbation conv the per-draw product
+    check(got["K-G"] == sites and got["K-G S=1"] == sites,
+          f"Flipout vmap with CONV_1X1_DOT: K-G {got['K-G']} and K-G S=1 "
+          f"{got['K-G S=1']} launches, want {sites} each")
+    with pointwise_dot():
+        ms = median_ms(lambda: mc_forward(
+            model, batches[0], NUM_MC, reduce="mean", return_kl=False,
+            emission="vmap"), reps=3)
+    log(f"[flipout pointwise vmap] CONV_1X1_DOT=True: {ms:.1f} ms/batch "
+        f"(device time), {sites} K-G and {sites} K-G S=1 launches per "
+        "forward")
+    if profile:
+        profile_window(f"one Flipout loop inference batch (MC-{NUM_MC} "
+                       f"bs{BATCH})", lambda: mc_forward(
+                           model, batches[0], NUM_MC, reduce="mean",
+                           return_kl=False))
+        profile_window(f"one Flipout vmap inference batch (MC-{NUM_MC} "
+                       f"bs{BATCH})", lambda: mc_forward(
+                           model, batches[0], NUM_MC, reduce="mean",
+                           return_kl=False, emission="vmap"))
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_flipout_train(model, emission, profile):
+    """Flipout MC-4 bs128 bf16 ELBO steps through ``make_train_step``: one
+    warm-up and three timed steps; finite, non-zero gradients on every mu
+    and rho; launches per step equal to what the model implies (the loop:
+    K-A at S = 1 on a zero mean for every perturbation, and K-C (drho)
+    behind it; vmap: one K-A and one K-C (dsigma) per layer)."""
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+
+    model.train()
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    step = make_train_step(TRAIN_MC, BATCH, emission=emission)
+    step(model, opt, images(SEED + 460), labels(SEED + 460))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = (expected_vmap_launches(model, training=True)
+            if emission == "vmap"
+            else expected_step_launches(model, TRAIN_MC))
+    bns = bn_layers(model)
+    reset_counts()
+    times = []
+    for i in range(3):
+        x, y = images(SEED + 461 + i), labels(SEED + 461 + i)
+        tracked = [int(m.num_batches_tracked) for m in bns]
+        before = counts()
+        t0 = time.perf_counter()
+        loss, ce, kl = step(model, opt, x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        got = {k: v - before[k] for k, v in counts().items()}
+        log(f"[flipout train {emission}] step {i}: {times[-1]:.1f} ms, loss "
+            f"{float(loss):.4f}, CE {float(ce):.4f}, KL {float(kl):.1f}")
+        check(math.isfinite(float(loss)), f"flipout step {i}: loss")
+        check_grads(model, f"flipout {emission} step {i}")
+        check(all(int(m.num_batches_tracked) == t + 1
+                  for m, t in zip(bns, tracked)),
+              f"flipout step {i}: num_batches_tracked did not go up by 1")
+        check(got == want, f"flipout {emission} step {i}: launches {got}, "
+              f"the model implies {want}")
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[flipout train {emission}] Flipout ResNet-50 MC-{TRAIN_MC} "
+        f"bs{BATCH} {IMAGE}^2 bf16, emission={emission!r}: median {ms:.1f} "
+        f"ms/step, {BATCH / ms * 1e3:.1f} images/s, peak {peak:.2f} GiB; "
+        f"launches per step { {k: v for k, v in want.items() if v} }")
+    if profile:
+        x, y = images(SEED + 470), labels(SEED + 470)
+        profile_window(f"one Flipout training step (MC-{TRAIN_MC} bs{BATCH} "
+                       f"bf16, emission={emission!r})",
+                       lambda: step(model, opt, x, y))
+    opt.zero_grad(set_to_none=True)
+    model.eval()
+    torch.cuda.empty_cache()
+    return counts()
+
+
+def phase_flipout(profile):
+    """Build Flipout ResNet-50 (bf16 compute, BN statistics from one
+    batch) and drive its inference and training paths."""
+    import torch
+
+    from bayesian_torch_tpu_torch.models.bayesian.resnet_flipout_large \
+        import resnet50
+
+    model = resnet50(num_classes=1000,
+                     generator=torch.Generator().manual_seed(SEED + 2),
+                     device="cuda")
+    for mod in model.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.bfloat16
+    set_bn_statistics(model, images(SEED + 200))
+    batches = [images(SEED + 1 + i) for i in range(3)]
+    dot = phase_flipout_inference(model, batches, profile)
+    del batches
+    torch.cuda.empty_cache()
+    loop = phase_flipout_train(model, "auto", profile)
+    vmap = phase_flipout_train(model, "vmap", profile)
+    return dot, loop, vmap
+
+
 def main(argv=None):
     import argparse
 
@@ -1553,9 +1912,9 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one inference batch, one "
-                             "training step and the K-B kernel with "
-                             "torch.profiler")
+                        help="also profile one inference batch and one "
+                             "training step of each path and the K-B "
+                             "kernel with torch.profiler")
     profile = parser.parse_args(argv).profile
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -1569,6 +1928,7 @@ def main(argv=None):
         sample_scaled_normals_batch,
     )
 
+    t_start = time.perf_counter()
     name = phase_device()
     phase_build()
     torch.manual_seed(SEED)
@@ -1581,25 +1941,40 @@ def main(argv=None):
     kde_res = phase_gemm_backward(model)
     phase_autograd(model)
     lane_res = phase_lane_kernels(model)
+    kg_res, kg_one_res = phase_mc_gemm()
+    mm_res = phase_matmul_probe()
 
     for mod in model.modules():
         if hasattr(mod, "compute_dtype"):
             mod.compute_dtype = torch.bfloat16
     set_bn_statistics(model, images(SEED + 200))
     batches = [images(SEED + 1 + i) for i in range(3)]
-    ka_launches = phase_main_path(model, sample_scaled_normals_batch,
-                                  batches)
+    none = dict.fromkeys(kernel_counters(), 0)
+    # the loop, presample "auto" (on): one K-A launch per batch
+    _, main_path = timed_mc("main", model, batches, dict(none, **{"K-A": 1}))
     kb_launches = phase_head(model, sample_scaled_normals_batch,
                              sampled_matmul, batches[0])
-    phase_sanity(model)
+    mc_sanity("sanity", model, "auto")
     if profile:
         phase_profile(model, batches[0], sampled_matmul)
-    vmap_main = phase_vmap_main(model, batches)
-    phase_vmap_against_loop(model, batches[0])
-    phase_vmap_sanity(model)
+    model.fc.impl = "pallas"
+    vmap_ms, vmap_main = timed_mc(
+        "vmap main", model, batches,
+        expected_vmap_launches(model, training=False), return_kl=False,
+        emission="vmap")
+    lanes_agree("vmap vs loop", model, batches[0])
+    mc_sanity("vmap sanity", model, "vmap")
+    pointwise = phase_pointwise_vmap(model, batches, vmap_ms)
     if profile:
-        profile_window(f"one vmap inference batch (MC-{NUM_MC} bs{BATCH})",
-                       lambda: vmap_mc10(model, batches[0]))
+        from bayesian_torch_tpu_torch.parallel import mc_forward
+        for what, ctx in (("vmap", contextlib.nullcontext()),
+                          ("vmap, CONV_1X1_DOT=True", pointwise_dot())):
+            with ctx:
+                profile_window(
+                    f"one {what} inference batch (MC-{NUM_MC} bs{BATCH})",
+                    lambda: mc_forward(model, batches[0], NUM_MC,
+                                       reduce="mean", return_kl=False,
+                                       emission="vmap"))
     model.fc.impl = "xla"
     del batches
 
@@ -1613,6 +1988,8 @@ def main(argv=None):
     if profile:
         phase_profile_train(model, emission="vmap")
     del model
+    torch.cuda.empty_cache()
+    flipout_dot, _, _ = phase_flipout(profile)
     torch.cuda.empty_cache()
     phase_trainer()
 
@@ -1646,7 +2023,7 @@ def main(argv=None):
              replaces=pallas + "sampled_weights.py:126",
              run="main path: mc_forward(num_mc=10, reduce='mean'), "
                  "presample='auto', 3 batches",
-             launches=ka_launches, **ka_res),
+             launches=main_path["K-A"], **ka_res),
         dict(name="sampled_matmul", route="cuda",
              source=csrc + "sampled_matmul.cu",
              replaces=pallas + "sampled_matmul.py:62",
@@ -1695,9 +2072,31 @@ def main(argv=None):
              replaces=pallas + "sampled_matmul.py:428",
              run=vmap_train_run, launches=vmap_train["K-E lanes"],
              **lane_res["dw"]),
+        dict(name="mc_gemm", route="cuda", source=csrc + "mc_gemm.cu",
+             replaces="benchmarks/bench_1x1_mc.py:52",
+             run=f"pointwise vmap inference: ops.conv.CONV_1X1_DOT=True, "
+                 f"mc_forward(num_mc={NUM_MC}, reduce='mean', emission="
+                 f"'vmap'), 3 batches; ms, plain_ms, bound_ms and library_ms "
+                 f"(torch.matmul, broadcast weight) are sums over one "
+                 f"forward's {N_POINTWISE} pointwise sites, bf16",
+             launches=pointwise["K-G"], **kg_res),
+        dict(name="mc_gemm (S=1: bf16, int8)", route="cuda",
+             source=csrc + "mc_gemm.cu",
+             replaces="benchmarks/bench_mosaic_matmul.py:34",
+             run=f"Flipout vmap inference with ops.conv.CONV_1X1_DOT=True: "
+                 f"mc_forward(num_mc={NUM_MC}, presample='on', emission="
+                 f"'vmap'), 1 batch (the mean convs, one weight over the "
+                 f"B*S batch); ms, plain_ms, bound_ms and library_ms "
+                 f"(torch.matmul, broadcast weight) are sums over one "
+                 f"forward's {N_POINTWISE} pointwise sites at batch "
+                 f"{BATCH * NUM_MC}, bf16; the probe_* keys are the same "
+                 f"sums (library: torch.matmul, torch._int_mm) over the "
+                 f"matmul probe's 4096^3 and 8192x4096x4096 in bf16 and int8",
+             launches=flipout_dot["K-G S=1"], **kg_one_res, **mm_res),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never ran in {k['run']}")
+    log(f"[time] every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -15,6 +15,7 @@ from bayesian_torch_tpu.utils.checkpoint import _torch_key_for
 torch.set_num_threads(1)
 
 REPARAM = "Reparameterization"
+FLIPOUT = "Flipout"
 
 
 def jax_state(model):
@@ -73,24 +74,21 @@ def to_np(x):
 
 
 class JaxTiny(nnx.Module):
-    def __init__(self, rngs):
+    def __init__(self, rngs, estimator=REPARAM):
+        import bayesian_torch_tpu.layers as layers
         import bayesian_torch_tpu.nn as dnn
-        from bayesian_torch_tpu.layers import (BatchNorm2dLayer,
-                                               Conv2dReparameterization,
-                                               LinearReparameterization)
         from bayesian_torch_tpu.models._large_resnet import Bottleneck
 
-        self.conv1 = Conv2dReparameterization(3, 16, 3, padding=1,
-                                              bias=False, rngs=rngs)
+        conv = getattr(layers, f"Conv2d{estimator}")
+        self.conv1 = conv(3, 16, 3, padding=1, bias=False, rngs=rngs)
         self.bn1 = dnn.BatchNorm2d(16)
         down = dnn.Sequential(
-            Conv2dReparameterization(16, 32, 1, stride=2, bias=False,
-                                     rngs=rngs),
-            BatchNorm2dLayer(32))
+            conv(16, 32, 1, stride=2, bias=False, rngs=rngs),
+            layers.BatchNorm2dLayer(32))
         self.layer1 = dnn.Sequential(
-            Bottleneck(16, 8, 2, down, estimator=REPARAM, rngs=rngs),
-            Bottleneck(32, 8, estimator=REPARAM, rngs=rngs))
-        self.fc = LinearReparameterization(32, 10, rngs=rngs)
+            Bottleneck(16, 8, 2, down, estimator=estimator, rngs=rngs),
+            Bottleneck(32, 8, estimator=estimator, rngs=rngs))
+        self.fc = getattr(layers, f"Linear{estimator}")(32, 10, rngs=rngs)
 
     def __call__(self, x):
         out, kl_sum = self.conv1(x)
@@ -104,26 +102,23 @@ class JaxTiny(nnx.Module):
 
 
 class TorchTiny(nn.Module):
-    def __init__(self, generator=None):
+    def __init__(self, generator=None, estimator=REPARAM):
         super().__init__()
-        from bayesian_torch_tpu_torch.layers import (
-            BatchNorm2dLayer, Conv2dReparameterization,
-            LinearReparameterization)
+        import bayesian_torch_tpu_torch.layers as layers
         from bayesian_torch_tpu_torch.models._large_resnet import Bottleneck
         from bayesian_torch_tpu_torch.nn import BatchNorm2d, Sequential
 
         g = generator
-        self.conv1 = Conv2dReparameterization(3, 16, 3, padding=1,
-                                              bias=False, generator=g)
+        conv = getattr(layers, f"Conv2d{estimator}")
+        self.conv1 = conv(3, 16, 3, padding=1, bias=False, generator=g)
         self.bn1 = BatchNorm2d(16)
         down = Sequential(
-            Conv2dReparameterization(16, 32, 1, stride=2, bias=False,
-                                     generator=g),
-            BatchNorm2dLayer(32))
+            conv(16, 32, 1, stride=2, bias=False, generator=g),
+            layers.BatchNorm2dLayer(32))
         self.layer1 = nn.Sequential(
-            Bottleneck(16, 8, 2, down, estimator=REPARAM, generator=g),
-            Bottleneck(32, 8, estimator=REPARAM, generator=g))
-        self.fc = LinearReparameterization(32, 10, generator=g)
+            Bottleneck(16, 8, 2, down, estimator=estimator, generator=g),
+            Bottleneck(32, 8, estimator=estimator, generator=g))
+        self.fc = getattr(layers, f"Linear{estimator}")(32, 10, generator=g)
 
     def forward(self, x):
         out, kl_sum = self.conv1(x)
@@ -136,17 +131,17 @@ class TorchTiny(nn.Module):
         return out, kl_sum + kl
 
 
-def tiny_twins(seed=0, rho=None):
+def tiny_twins(seed=0, rho=None, estimator=REPARAM):
     """(jax model, torch model, arrays): the narrow ResNet in both
     packages, eval mode, holding the same random weights."""
     from bayesian_torch_tpu.utils.checkpoint import import_torch_state_dict
     from bayesian_torch_tpu_torch.utils.checkpoint import load_jax_state
 
-    jm = JaxTiny(nnx.Rngs(params=seed, noise=seed + 1))
+    jm = JaxTiny(nnx.Rngs(params=seed, noise=seed + 1), estimator)
     arrays = random_state(jax_arrays(jm), seed=seed, rho=rho)
     import_torch_state_dict(jm, arrays)
     set_jax_eval(jm)
-    tm = TorchTiny(torch.Generator().manual_seed(seed))
+    tm = TorchTiny(torch.Generator().manual_seed(seed), estimator)
     load_jax_state(tm, arrays)
     tm.eval()
     return jm, tm, arrays

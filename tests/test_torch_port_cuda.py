@@ -2,8 +2,9 @@
 versions, at small and ragged shapes (the full shapes are in
 chip_smoke.py): K-A and K-B forward, K-C (both modes), K-D and K-E
 backward, K-B, K-D and K-E with their lane axis, autograd through the
-public ops, and K-F (the fused int8 GEMM + requantize) with the quantized
-convs built on it. They skip without a
+public ops, K-F (the fused int8 GEMM + requantize) with the quantized
+convs built on it, and K-G (the per-draw GEMM behind the pointwise
+emission) in bf16, f32 and int8. They skip without a
 CUDA device. On a machine with one, and without JAX, run them with
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
@@ -15,7 +16,9 @@ torch and the port only.
 import pytest
 import torch
 
+from bayesian_torch_tpu_torch.ops import conv as conv_ops
 from bayesian_torch_tpu_torch.ops import int8 as q
+from bayesian_torch_tpu_torch.ops.cuda import mc_gemm as kg
 from bayesian_torch_tpu_torch.ops.cuda import qmatmul as kf
 from bayesian_torch_tpu_torch.ops.cuda import sampled_matmul as kb
 from bayesian_torch_tpu_torch.ops.cuda import sampled_weights as ka
@@ -360,3 +363,122 @@ def test_qconv_on_the_card_matches_the_cpu(cuda, k, stride, pad, x_zp):
                   0.05 * k, 128, stride=stride, padding=pad)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+# --- K-G: the per-draw GEMM ---------------------------------------------------
+
+_KG_DTYPES = [torch.bfloat16, torch.float32, torch.int8]
+
+
+def _kg_rand(shape, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    if dtype == torch.int8:
+        return torch.randint(-128, 128, shape, dtype=torch.int8,
+                             generator=g).to(device)
+    return torch.randn(shape, generator=g).to(dtype).to(device)
+
+
+def _kg_check(got, want, dtype):
+    """int8 bit for bit; f32 1e-4 x max|plain| (order of summation); bf16
+    one ulp of the largest value (one rounding of an f32 sum, and one more
+    after the bias)."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+        return
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    assert _max_err(got, want) <= tol * _scale(want)
+
+
+# (B, S, O, C, P): P = 49 and 196 are ResNet-50's 7x7 and 14x14 maps (rows
+# of 98 and 392 bytes in bf16), C and O off the 16- and 64-wide tiles
+_KG_SHAPES = [(2, 3, 5, 7, 49), (3, 2, 70, 33, 50), (1, 1, 64, 64, 64),
+              (2, 3, 129, 65, 196), (2, 2, 17, 130, 7), (1, 4, 256, 96, 784)]
+
+
+@pytest.mark.parametrize("dtype", _KG_DTYPES)
+@pytest.mark.parametrize("shape", _KG_SHAPES)
+@pytest.mark.parametrize("shared_x", [False, True])
+def test_mc_gemm_matches_plain(cuda, dtype, shape, shared_x):
+    B, S, O, C, P = shape
+    x = _kg_rand((B, C, P) if shared_x else (B, S, C, P), dtype, cuda, 0)
+    w = _kg_rand((S, O, C), dtype, cuda, 1)
+    bias = None if dtype == torch.int8 else _kg_rand((S, O), dtype, cuda, 2)
+    before = kg.mc_gemm.launches
+    got = kg.mc_gemm(x, w, bias)
+    assert kg.mc_gemm.launches == before + 1
+    _kg_check(got, kg.mc_gemm_plain(x, w, bias), dtype)
+
+
+@pytest.mark.parametrize("dtype", _KG_DTYPES)
+@pytest.mark.parametrize("shape", _KG_SHAPES[:4])
+def test_pointwise_gemm_matches_plain(cuda, dtype, shape):
+    """One weight for the whole batch, with and without a bias, and from
+    a view at an odd offset (the narrowest loads)."""
+    B, S, O, C, P = shape
+    x = _kg_rand((B * S, C, P), dtype, cuda, 3)
+    w = _kg_rand((O, C), dtype, cuda, 4)
+    bias = None if dtype == torch.int8 else _kg_rand((O,), dtype, cuda, 5)
+    before = kg.pointwise_gemm.launches
+    for b in (None, bias):
+        _kg_check(kg.pointwise_gemm(x, w, b),
+                  kg.mc_gemm_plain(x, w, b)[:, 0], dtype)
+    odd = _kg_rand((x.numel() + 3,), dtype, cuda, 6)[3:].reshape(x.shape)
+    wodd = _kg_rand((w.numel() + 1,), dtype, cuda, 7)[1:].reshape(w.shape)
+    _kg_check(kg.pointwise_gemm(odd, wodd, bias),
+              kg.mc_gemm_plain(odd, wodd, bias)[:, 0], dtype)
+    assert kg.pointwise_gemm.launches == before + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_matmul_is_the_probe_at_a_small_size(cuda, dtype):
+    a = _kg_rand((200, 136), dtype, cuda, 8)
+    b = _kg_rand((136, 328), dtype, cuda, 9)
+    got = kg.matmul(a, b)
+    torch.cuda.synchronize()
+    if dtype == torch.int8:
+        assert torch.equal(got, (a.double() @ b.double()).to(torch.int32))
+    else:
+        want = (a.float() @ b.float()).to(dtype)
+        assert _max_err(got, want) <= 2.0 ** -7 * _scale(want)
+
+
+def test_mc_gemm_raises_on_bad_input_and_under_grad(cuda):
+    x = torch.randn(2, 3, 8, 16, device=cuda)
+    w = torch.randn(3, 4, 8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        kg.mc_gemm(x.transpose(2, 3).contiguous().transpose(2, 3), w)
+    with pytest.raises(ValueError):
+        kg.mc_gemm(x, w.cpu())
+    with pytest.raises(ValueError):
+        kg.mc_gemm(x.half(), w.half())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kg.mc_gemm(x, w.requires_grad_(True))
+
+
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
+def test_pointwise_emission_on_the_card_matches_cudnn(cuda, monkeypatch,
+                                                      compute_dtype):
+    """conv_nd and conv_draws with pointwise_dot=True launch K-G and give
+    what the default route gives (f32 with TF32 off; bf16 within two ulps
+    of the largest value: two libraries' roundings)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    S, B, C, O = 3, 2, 24, 40
+    x = _kg_rand((B, S * C, 7, 7), torch.float32, cuda, 10)
+    w = _kg_rand((S, O, C, 1, 1), torch.float32, cuda, 11)
+    b = _kg_rand((S, O), torch.float32, cuda, 12)
+    tol = 1e-4 if compute_dtype is None else 2.0 ** -6
+    before = kg.mc_gemm.launches, kg.pointwise_gemm.launches
+    for xs in (x, x[:, :C].contiguous()):
+        got = conv_ops.conv_draws(xs, w, b, compute_dtype=compute_dtype,
+                                  pointwise_dot=True)
+        want = conv_ops.conv_draws(xs, w, b, compute_dtype=compute_dtype)
+        assert _max_err(got, want) <= tol * _scale(want)
+    got = conv_ops.conv_nd(x, w[0].repeat(1, S, 1, 1), b[0],
+                           compute_dtype=compute_dtype, pointwise_dot=True)
+    want = conv_ops.conv_nd(x, w[0].repeat(1, S, 1, 1), b[0],
+                            compute_dtype=compute_dtype)
+    assert _max_err(got, want) <= tol * _scale(want)
+    assert (kg.mc_gemm.launches, kg.pointwise_gemm.launches) == (
+        before[0] + 2, before[1] + 1)

@@ -112,7 +112,7 @@ def test_trainer_resume_equals_an_uninterrupted_run(tmp_path, monkeypatch):
 
 def test_trainer_refuses_unported_flags():
     for flag, item in (("--moped", "#6"), ("--mesh-mc=2", "#15"),
-                       ("--structured-mc", "#10"), ("--remat", "#9")):
+                       ("--structured-mc", "#16"), ("--remat", "#9")):
         with pytest.raises(NotImplementedError, match=item):
             trainer.main(["--synthetic", "--device=cpu", flag])
 

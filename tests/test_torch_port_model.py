@@ -182,8 +182,12 @@ def test_factories_and_unported_estimators():
     )
     m = rvl.resnet18(num_classes=10)
     assert isinstance(m.layer1[0], tres.BasicBlock) and m.fc.out_features == 10
+    flip = tres.LargeResNet(tres.Bottleneck, [1, 1, 1, 1],
+                            estimator="Flipout")
+    assert type(flip.conv1).__name__ == "Conv2dFlipout"
     with pytest.raises(NotImplementedError):
-        tres.LargeResNet(tres.Bottleneck, [1, 1, 1, 1], estimator="Flipout")
+        tres.LargeResNet(tres.Bottleneck, [1, 1, 1, 1],
+                         estimator="Deterministic")
     with pytest.raises(NotImplementedError):
         rvl.resnet50(pretrained=True)
 

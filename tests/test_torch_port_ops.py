@@ -244,24 +244,34 @@ def test_kernel_build_is_lazy_and_content_named():
     assert a == _build.library_path()
     assert a.parent == _build.BUILD_DIR and a.suffix == ".so"
     assert {p.name for p in _build._sources()} == {
-        "qmatmul.cu", "sampled_matmul.cu", "sampled_matmul_bwd.cu",
-        "sampled_weights.cu", "sampled_weights_bwd.cu"}
+        "mc_gemm.cu", "qmatmul.cu", "sampled_matmul.cu",
+        "sampled_matmul_bwd.cu", "sampled_weights.cu",
+        "sampled_weights_bwd.cu"}
     assert _build.load_library.cache_info().currsize == 0
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
 def test_port_never_imports_jax():
-    """No module of the port, ``examples/`` included, imports jax: none
-    names it, and importing them all with jax made unimportable works
-    (an indirect import, e.g. through ``bayesian_torch_tpu.data``, would
-    fail)."""
+    """No module of the port, ``examples/`` included, imports jax or the
+    JAX package: none names jax, and importing them all with jax made
+    unimportable works (an indirect import, e.g. through
+    ``bayesian_torch_tpu.data``, would fail) and leaves
+    ``bayesian_torch_tpu`` unimported."""
     import pathlib
     import subprocess
     import sys
 
     root = pathlib.Path(ts.__file__).resolve().parents[1]
-    paths = sorted(root.rglob("*.py"))
-    assert root / "examples" / "main_bayesian_imagenet.py" in paths
+    # _build/ holds build outputs (git-ignored), no module of the port
+    paths = sorted(p for p in root.rglob("*.py")
+                   if "_build" not in p.relative_to(root).parts)
+    for new in ("examples/main_bayesian_imagenet.py",
+                "examples/main_bayesian_flipout_imagenet.py",
+                "ops/cuda/mc_gemm.py",
+                "layers/flipout_layers/conv_flipout.py",
+                "layers/flipout_layers/linear_flipout.py",
+                "models/bayesian/resnet_flipout_large.py"):
+        assert root / new in paths, new
     modules = []
     for path in paths:
         for line in path.read_text().splitlines():
@@ -276,7 +286,8 @@ def test_port_never_imports_jax():
              f"for name in {modules!r}:\n"
              "    importlib.import_module(name)\n"
              "assert not any(m == 'jax' or m.startswith('jax.')\n"
-             "               for m in sys.modules if sys.modules[m])\n")
+             "               for m in sys.modules if sys.modules[m])\n"
+             "assert 'bayesian_torch_tpu' not in sys.modules\n")
     proc = subprocess.run([sys.executable, "-c", probe], cwd=root.parent,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
