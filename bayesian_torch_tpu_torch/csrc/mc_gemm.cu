@@ -13,7 +13,8 @@
 // riding whole inside each block) and _mm_kernel of
 // benchmarks/bench_mosaic_matmul.py (pallas_matmul: a plain tiled GEMM in
 // bf16 and s8), which is this kernel at S = 1, B = 1: (M, K) @ (K, N) is
-// w (1, M, K), x (1, 1, K, N).
+// w (1, M, K), x (1, 1, K, N). The backward's input gradient (dx = w^T g)
+// is this kernel on the transposed weight.
 //
 // What bounds it on an H100: at Bayesian ResNet-50's 1x1 sites (batch 128,
 // 10 draws, bf16) every site but three moves more bytes than the tensor
@@ -21,62 +22,743 @@
 // 1024 -> 512 at 14x14 and both 7x7 sites are bound by operations, as are
 // the square GEMMs of the matmul probe.
 //
-// Design (a first kernel, right and simple): a block owns a 64 (O) x 64 (P)
-// output tile of one (b, s) and walks C in steps of 64 bytes through shared
-// memory, the next step's global loads held in registers while the tensor
-// cores work on the current one. Four warps, 2 x 2, each 32 x 32, with
-// mma.sync m16n8k16 (bf16, f32 accumulators) or m16n8k32 (s8, s32). w
-// tiles are (O, C) with C contiguous, the row-major A operand as it is. x
-// tiles are (C, P) with P contiguous, a row-major K x N operand where the
-// instruction wants K contiguous per column: bf16 tiles stay (C, P) in
-// shared memory and ldmatrix.trans hands each thread its transposed
-// fragment; s8 tiles are transposed in registers (4 x 4 byte blocks,
-// __byte_perm) on their way into an (P, C) shared tile. Output tiles along
-// O are the fastest grid axis, so the blocks that share an activation tile
-// run together and re-read it from L2, not from device memory. Rows of x
-// at 7x7 are 98 bytes: loads fall back from 16 to 8, 4, 2 or single bytes
-// by what the row length and the base pointer allow, out-of-range elements
-// load as 0 and stores are masked. The f32 lane runs on the CUDA cores (a
-// 64 x 64 tile, 4 x 4 outputs a thread): full f32 products, which TF32
-// would not give. The TPU kernels' sequential C grid axis is the in-block
-// loop. No cp.async, TMA or wgmma yet.
+// The bf16 lane (every model path) is built for Hopper. A block owns a
+// 64*WG (O) x 128 (positions) output tile and walks C in stages of 64
+// through a ring of up to three shared-memory stages under mbarriers: a
+// producer fills it, WG consumer warpgroups (2, or 1 when O <= 64) each
+// run wgmma.m64n128k16 on their 64 rows with f32 accumulators in
+// registers, releasing a stage once the wgmma that read it has retired.
+// The weight tile (O, C) is K-major, as wgmma wants A, and comes by TMA
+// (cp.async.bulk.tensor, 128-byte swizzle; the wrapper pads C to a
+// multiple of 8 with zeros so the tensor map can describe it). The
+// activation tile (C, P) is MN-major, P contiguous: wgmma reads it through
+// the transpose bit of B, so x needs no relayout (the first kernel's
+// ldmatrix.trans goes). Rows past O, C and P load as 0 (TMA's zero fill,
+// or the masks). Output goes through shared memory (the ring, once the
+// consumers are done with it) and leaves in coalesced, masked stores.
+// Three ways to bring x, by what its layout allows:
+// - TMA (P a multiple of 8: 56x56, 28x28, the probe): two 64-column atoms
+//   a stage, the block's 128 positions in one image, one producer warp.
+//   Every 56x56 and 28x28 site is bound by bytes, and a block there walks
+//   only 1-8 stages, so its load, product and store barely overlap within
+//   the block: the ring is sized to C (at most three stages) so that two
+//   blocks share an SM and one's loads overlap the other's epilogue.
+// - At 14x14 and 7x7 rows are 392 and 98 bytes, which no tensor map
+//   takes: a block's 128 positions run across the images of one draw (no
+//   column of the tile is wasted, where a 64-wide tile per image wasted
+//   23 % at 7x7). Where C <= 512 and O > 128 (256 -> 1024 @ 14x14,
+//   512 -> 2048 @ 7x7), every O tile would gather the same x tile again:
+//   mc_gemm_xres_kernel gathers the whole (C, 128) tile into shared memory
+//   once and walks all O tiles over it, the weight streaming by TMA.
+// - Otherwise a producer warpgroup refills the ring: at 7x7 from slabs
+//   (for one (b, s) the 64 rows of a stage are one contiguous, aligned
+//   run of 64 * P elements, brought by one bulk copy per image, then moved
+//   through shared memory into the swizzled layout), at 14x14 and for
+//   ragged shapes with the widest global loads P allows (8, 4 or 2
+//   bytes), issued before the wait for a free stage.
+// What holds it back at 14x14 and 7x7 is the gather: register loads of 98-
+// and 392-byte rows, or slabs carrying 1.5x the tile's positions; a
+// relayout of x by the layer that writes it would make every site a TMA
+// site.
+//
+// The int8 lane (the matmul probe only, no model path) and the f32 lane
+// keep the first kernel's code: the s8 wgmma wants both operands K-major,
+// so the MN-major x would need the transpose that lane does in registers
+// (a 64 x 64 tile, mma.sync m16n8k32, register-staged loads); the f32 lane
+// runs on the CUDA cores (full f32 products, which TF32 would not give).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+struct Geom {
+  int B, S, O, C, P;
+  int64_t x_batch, x_lane, w_lane, b_lane;  // strides in elements
+};
+
+// --- the bf16 lane: TMA + mbarrier ring + wgmma -------------------------------
+
+constexpr int kTN = 128;        // positions per block
+constexpr int kMaxStages = 3;   // ring depth; a stage holds 64 of C
+constexpr int kAtom = 8192;     // 64 rows of 128 bytes
+constexpr int kXTile = 2 * kAtom;
+constexpr int kOutLd = kTN * 2 + 16;  // output staging row, padded
+constexpr int kSmemMax = 232448;      // dynamic shared memory of a block
+
+// kWG consumer warpgroups; the producer is one warp when TMA brings x, a
+// warpgroup when it gathers x. Where TMA brings x, two blocks share an SM
+// (three with one consumer warpgroup), so one block's loads overlap
+// another's epilogue; the gathering block's 384 threads leave registers
+// for one (a wgmma of 128 columns needs more than 80 a thread).
+template <int kWG, bool kGather>
+struct Tile {
+  static constexpr int kBM = 64 * kWG;
+  static constexpr int kWTile = kWG * kAtom;
+  static constexpr int kStage = kWTile + kXTile;
+  static constexpr int kThreads = 128 * kWG + (kGather ? 128 : 32);
+  static constexpr int kMinBlocks = (kWG == 2 ? 2 : 3) - (kGather ? 1 : 0);
+  // the ring (which then stages the output tile) and its barriers
+  __host__ __device__ static int ring_bytes(int stages) {
+    return stages * kStage > kBM * kOutLd ? stages * kStage : kBM * kOutLd;
+  }
+  // the ring, the raw ring of the slab producer (raw_stage bytes a
+  // stage, or none), 1024 bytes to align them, three barriers a stage
+  static int smem(int stages, int raw_stage) {
+    return ring_bytes(stages) + stages * raw_stage + 1024 + 24 * stages;
+  }
+};
+
+// Eight bf16 of one row of x (bits), at element offsets off[e] + row for
+// the columns e whose bit is set in `valid`; the rest 0. V: elements per
+// load (a run of V columns never crosses an image: V divides P).
+template <int V>
+__device__ __forceinline__ uint4 gather8(const uint16_t* __restrict__ x,
+                                         const int64_t (&off)[8],
+                                         unsigned valid, int64_t row) {
+  uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 8; e += V) {
+    if (!((valid >> e) & 1u)) continue;
+    const uint16_t* p = x + off[e] + row;
+    if constexpr (V == 8) {
+      const uint4 q = *reinterpret_cast<const uint4*>(p);
+      v[0] = q.x;
+      v[1] = q.y;
+      v[2] = q.z;
+      v[3] = q.w;
+    } else if constexpr (V == 4) {
+      const uint2 q = *reinterpret_cast<const uint2*>(p);
+      v[e / 2] = q.x;
+      v[e / 2 + 1] = q.y;
+    } else if constexpr (V == 2) {
+      v[e / 2] = *reinterpret_cast<const uint32_t*>(p);
+    } else {
+      v[e / 2] |= (uint32_t)*p << (16 * (e % 2));
+    }
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// The offsets in x (row 0 of draw s) of the 8 positions j, j + 1, ...
+// of the flat (b, p) index, and a mask of those before jend.
+__device__ __forceinline__ unsigned chunk_offsets(int64_t (&off)[8],
+                                                  const Geom& g, int s,
+                                                  int64_t j, int64_t jend) {
+  unsigned valid = 0u;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    off[e] = 0;
+    if (j + e < jend) {
+      const int64_t b = (j + e) / g.P;
+      off[e] = b * g.x_batch + (int64_t)s * g.x_lane + (j + e - b * g.P);
+      valid |= 1u << e;
+    }
+  }
+  return valid;
+}
+
+// The gathering producer: every thread of the warpgroup fills the x tile's
+// 16-byte chunk `cc` (8 positions) in rows kr, kr + 8, ..., kr + 56 of
+// each stage, thread 0 also brings the weight tile by TMA.
+template <int V, int kWG>
+__device__ __forceinline__ void produce_gathered(
+    const CUtensorMap* wmap, const uint16_t* __restrict__ x, const Geom& g,
+    uint8_t* ring, uint32_t bars, int stages, int nk, int o0, int sw, int s,
+    int64_t j0, int64_t jend, int t) {
+  using T = Tile<kWG, true>;
+  const int cc = t % 16;
+  const int kr = t / 16;
+  int64_t off[8];
+  const unsigned valid = chunk_offsets(off, g, s, j0 + cc * 8, jend);
+  // chunk cc of row k lands at chunk (cc % 8) ^ (k % 8) of its atom row
+  const int dst = (cc / 8) * kAtom + kr * 128 + (((cc % 8) ^ kr) * 16);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % stages;
+    const uint32_t full = bars + 8 * st;
+    const uint32_t empty = bars + 8 * (stages + st);
+    uint8_t* stage = ring + st * T::kStage;
+    // the loads go out before the wait: they touch no shared memory
+    uint4 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = kt * 64 + kr + 8 * i;
+      v[i] = c < g.C ? gather8<V>(x, off, valid, (int64_t)c * g.P)
+                     : make_uint4(0u, 0u, 0u, 0u);
+    }
+    btt::mbar_wait(empty, ((kt / stages) & 1) ^ 1);
+    if (t == 0) {
+      btt::mbar_expect_tx(full, T::kWTile);
+      btt::tma_load_3d(btt::smem_addr(stage), wmap, full, kt * 64, o0, sw);
+    }
+    uint8_t* xs = stage + T::kWTile + dst;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<uint4*>(xs + i * 8 * 128) = v[i];
+    btt::fence_async_smem();
+    btt::mbar_arrive(full);
+  }
+}
+
+// The slab producer, where no tensor map describes x (rows of 98 or 392
+// bytes at 7x7 and 14x14) but C is a multiple of 8: for one (b, s) the 64
+// rows of a stage are one contiguous, 16-byte aligned slab of 64 * P
+// elements, so thread 0 brings the slab of every image the tile touches by
+// one bulk copy each (cp.async.bulk), `stages` chunks ahead, into a raw
+// ring. Every thread then copies its chunk `cc` (8 positions) of rows kr,
+// kr + 8, ..., kr + 56 from the raw slab into the swizzled x tile: the
+// global loads are the copy engine's, the threads only move shared memory.
+template <int kWG>
+__device__ __forceinline__ void produce_slabs(
+    const CUtensorMap* wmap, const uint16_t* __restrict__ x, const Geom& g,
+    uint8_t* ring, uint8_t* raw, int raw_stage, uint32_t bars, int stages,
+    int nk, int o0, int sw, int s, int64_t j0, int64_t jend, int t) {
+  using T = Tile<kWG, true>;
+  const uint32_t rawbars = bars + 16 * stages;
+  const int64_t b_first = j0 / g.P;
+  const int64_t tile_end = j0 + kTN < jend ? j0 + kTN : jend;
+  const int nimg = (int)((tile_end - 1) / g.P - b_first + 1);
+  const int slab = 64 * g.P;  // elements of one image's slab
+  auto issue = [&](int kt) {
+    const int st = kt % stages;
+    const int rows = g.C - kt * 64 < 64 ? g.C - kt * 64 : 64;
+    const uint32_t bytes = (uint32_t)rows * g.P * 2;
+    const uint32_t bar = rawbars + 8 * st;
+    btt::mbar_expect_tx(bar, bytes * nimg);
+    for (int i = 0; i < nimg; ++i)
+      btt::bulk_load(
+          btt::smem_addr(raw + st * raw_stage + i * slab * 2),
+          x + (b_first + i) * g.x_batch + (int64_t)s * g.x_lane +
+              (int64_t)kt * slab,
+          bytes, bar);
+  };
+  if (t == 0)
+    for (int kt = 0; kt < stages && kt < nk; ++kt) issue(kt);
+  const int cc = t % 16;
+  const int kr = t / 16;
+  int src[8];
+  unsigned valid = 0u;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int64_t j = j0 + cc * 8 + e;
+    src[e] = 0;
+    if (j < jend) {
+      const int64_t b = j / g.P;
+      src[e] = (int)(b - b_first) * slab + (int)(j - b * g.P);
+      valid |= 1u << e;
+    }
+  }
+  const int dst = (cc / 8) * kAtom + kr * 128 + (((cc % 8) ^ kr) * 16);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % stages;
+    const uint32_t full = bars + 8 * st;
+    uint8_t* stage = ring + st * T::kStage;
+    btt::mbar_wait(bars + 8 * (stages + st), ((kt / stages) & 1) ^ 1);
+    if (t == 0) {
+      btt::mbar_expect_tx(full, T::kWTile);
+      btt::tma_load_3d(btt::smem_addr(stage), wmap, full, kt * 64, o0, sw);
+    }
+    btt::mbar_wait(rawbars + 8 * st, (kt / stages) & 1);
+    const uint16_t* r16 =
+        reinterpret_cast<const uint16_t*>(raw + st * raw_stage);
+    const int rows = g.C - kt * 64;
+    uint8_t* xs = stage + T::kWTile + dst;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = kr + 8 * i;
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+      if (c < rows) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if ((valid >> e) & 1u)
+            v[e / 2] |= (uint32_t)r16[src[e] + c * g.P] << (16 * (e % 2));
+      }
+      *reinterpret_cast<uint4*>(xs + i * 8 * 128) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    btt::fence_async_smem();
+    btt::mbar_arrive(full);
+    // the raw stage is free once every thread has read it
+    btt::named_sync(4, 128);
+    if (t == 0 && kt + stages < nk) issue(kt + stages);
+  }
+}
+
+__device__ __forceinline__ __nv_bfloat16 finish_bf16(float acc, float bias,
+                                                     bool has_bias) {
+  __nv_bfloat16 r = __float2bfloat16(acc);
+  if (has_bias) r = __float2bfloat16(__fadd_rn(__bfloat162float(r), bias));
+  return r;
+}
+
+// A consumer warpgroup's 64 x 128 accumulators (rows o_base.., the
+// m64n128 fragment layout) as bf16, the bias added after the cast, into
+// the staging rows `out` (kOutLd bytes apart).
+__device__ __forceinline__ void stage_rows(const float (&acc)[64],
+                                           uint8_t* out,
+                                           const __nv_bfloat16* bias,
+                                           const Geom& g, int s, int o_base,
+                                           int lt) {
+  const int warp = lt / 32;
+  const int lane = lt % 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + lane / 4 + 8 * h;
+    const int o = o_base + r;
+    const bool has_bias = bias != nullptr && o < g.O;
+    const float bo =
+        has_bias ? __bfloat162float(bias[(int64_t)s * g.b_lane + o]) : 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + (lane % 4) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(out + r * kOutLd + col * 2) =
+          __halves2bfloat162(finish_bf16(acc[4 * j + 2 * h], bo, has_bias),
+                             finish_bf16(acc[4 * j + 2 * h + 1], bo,
+                                         has_bias));
+    }
+  }
+}
+
+// The staged 64 rows (o_base..) of positions j0.. (flat (b, p) of draw s)
+// to y (B, S, O, P), masked at O, at jend and at image edges.
+__device__ __forceinline__ void store_rows(const uint8_t* out,
+                                           __nv_bfloat16* y, const Geom& g,
+                                           int s, int o_base, int64_t j0,
+                                           int64_t jend, int lt) {
+  if (g.P % 8 == 0) {
+    // 8 positions never cross an image: 16-byte stores, 16 lanes a row
+    for (int q = lt; q < 64 * 16; q += 128) {
+      const int r = q / 16;
+      const int cc = q % 16;
+      const int o = o_base + r;
+      const int64_t j = j0 + cc * 8;
+      if (o >= g.O || j >= jend) continue;
+      const int64_t b = j / g.P;
+      const int64_t p = j - b * g.P;
+      *reinterpret_cast<uint4*>(y + ((b * g.S + s) * g.O + o) * g.P + p) =
+          *reinterpret_cast<const uint4*>(out + r * kOutLd + cc * 16);
+    }
+    return;
+  }
+  // the positions run across images: a warp stores a row's positions in
+  // order, two at a time where P is even (a pair at an even position
+  // never crosses an image and is 4-byte aligned), else one
+  const int warp = lt / 32;
+  const int lane = lt % 32;
+  const int64_t b0 = j0 / g.P;
+  const int p0 = (int)(j0 - b0 * g.P);
+  const int step = g.P % 2 == 0 ? 2 : 1;
+  for (int rr = 0; rr < 16; ++rr) {
+    const int r = warp * 16 + rr;
+    const int o = o_base + r;
+    if (o >= g.O) break;
+    const uint8_t* src = out + r * kOutLd;
+    for (int col = lane * step; col < kTN; col += 32 * step) {
+      if (j0 + col >= jend) break;
+      int64_t b = b0;
+      int p = p0 + col;
+      while (p >= g.P) {
+        p -= g.P;
+        ++b;
+      }
+      uint16_t* dst =
+          reinterpret_cast<uint16_t*>(y) + ((b * g.S + s) * g.O + o) * g.P + p;
+      if (step == 2) {
+        *reinterpret_cast<uint32_t*>(dst) =
+            *reinterpret_cast<const uint32_t*>(src + col * 2);
+      } else {
+        *dst = *reinterpret_cast<const uint16_t*>(src + col * 2);
+      }
+    }
+  }
+}
+
+// xvec: 0 when x comes by TMA (kGather false), else the gather's elements
+// per load; raw_stage > 0: x comes in slabs (produce_slabs), raw_stage
+// bytes of raw ring a stage.
+template <int kWG, bool kGather>
+__global__ void __launch_bounds__(Tile<kWG, kGather>::kThreads,
+                                  Tile<kWG, kGather>::kMinBlocks)
+    mc_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
+                         const __grid_constant__ CUtensorMap xmap,
+                         const uint16_t* __restrict__ x,
+                         const __nv_bfloat16* __restrict__ bias,
+                         __nv_bfloat16* __restrict__ y, Geom g, int xvec,
+                         int stages, int raw_stage) {
+  using T = Tile<kWG, kGather>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = btt::smem_addr(smem_raw);
+  uint8_t* ring = smem_raw + ((1024 - (base & 1023)) & 1023);
+  uint8_t* raw = ring + T::ring_bytes(stages);
+  const uint32_t bars = btt::smem_addr(raw + stages * raw_stage);
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+
+  // tile: O rows o0.., and 128 positions j0.. of the flat (b, p) index of
+  // draw s; by TMA they lie in one image b, gathered they run across them
+  const int o0 = blockIdx.x * T::kBM;
+  int s, zx = 0;
+  int64_t j0, jend;
+  if (!kGather) {
+    const int b = blockIdx.z / g.S;
+    s = blockIdx.z % g.S;
+    zx = g.x_lane ? b * g.S + s : b;
+    j0 = (int64_t)b * g.P + (int64_t)blockIdx.y * kTN;
+    jend = (int64_t)(b + 1) * g.P;
+  } else {
+    s = blockIdx.z;
+    j0 = (int64_t)blockIdx.y * kTN;
+    jend = (int64_t)g.B * g.P;
+  }
+  const int sw = g.w_lane ? s : 0;
+  const int nk = (g.C + 63) / 64;
+
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      btt::mbar_init(bars + 8 * i, kGather ? 129 : 1);
+      btt::mbar_init(bars + 8 * (stages + i), kWG * 128);
+      btt::mbar_init(bars + 8 * (2 * stages + i), 1);  // the raw ring's
+    }
+    btt::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == kWG) {  // the producer
+    const int t = tid - kWG * 128;
+    if (!kGather) {
+      if (t != 0) return;
+      const int p0 = blockIdx.y * kTN;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % stages;
+        const uint32_t full = bars + 8 * st;
+        const uint32_t stage = btt::smem_addr(ring + st * T::kStage);
+        btt::mbar_wait(bars + 8 * (stages + st), ((kt / stages) & 1) ^ 1);
+        btt::mbar_expect_tx(full, T::kStage);
+        btt::tma_load_3d(stage, &wmap, full, kt * 64, o0, sw);
+        btt::tma_load_3d(stage + T::kWTile, &xmap, full, p0, kt * 64, zx);
+        btt::tma_load_3d(stage + T::kWTile + kAtom, &xmap, full, p0 + 64,
+                         kt * 64, zx);
+      }
+    } else if (raw_stage > 0) {
+      produce_slabs<kWG>(&wmap, x, g, ring, raw, raw_stage, bars, stages, nk,
+                         o0, sw, s, j0, jend, t);
+    } else if (xvec == 1) {
+      produce_gathered<1, kWG>(&wmap, x, g, ring, bars, stages, nk, o0, sw,
+                               s, j0, jend, t);
+    } else if (xvec == 2) {
+      produce_gathered<2, kWG>(&wmap, x, g, ring, bars, stages, nk, o0, sw,
+                               s, j0, jend, t);
+    } else if (xvec == 4) {
+      produce_gathered<4, kWG>(&wmap, x, g, ring, bars, stages, nk, o0, sw,
+                               s, j0, jend, t);
+    } else {
+      produce_gathered<8, kWG>(&wmap, x, g, ring, bars, stages, nk, o0, sw,
+                               s, j0, jend, t);
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows wg*64 .. wg*64 + 63 of the tile
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % stages;
+    const uint32_t stage = btt::smem_addr(ring + st * T::kStage);
+    btt::mbar_wait(bars + 8 * st, (kt / stages) & 1);
+    btt::wgmma_fence();
+    btt::fence_regs(acc);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      // 16 of C: 32 bytes along the weight's rows, 16 rows of the x atoms
+      const uint64_t da =
+          btt::desc_sw128(stage + wg * kAtom + ks * 32, 16, 1024);
+      const uint64_t db =
+          btt::desc_sw128(stage + T::kWTile + ks * 2048, kAtom, 1024);
+      btt::wgmma_bf16_n128(acc, da, db);
+    }
+    btt::wgmma_commit();
+    btt::fence_regs(acc);
+    btt::wgmma_wait<1>();
+    btt::fence_regs(acc);
+    if (kt > 0) btt::mbar_arrive(bars + 8 * (stages + (kt - 1) % stages));
+  }
+  btt::wgmma_wait<0>();
+  btt::fence_regs(acc);
+
+  // epilogue: every consumer is done with the ring, which now stages the
+  // output; each warpgroup writes its 64 rows, then stores them
+  btt::named_sync(1, kWG * 128);
+  uint8_t* out = ring + wg * 64 * kOutLd;
+  stage_rows(acc, out, bias, g, s, o0 + wg * 64, tid % 128);
+  btt::named_sync(2 + wg, 128);
+  store_rows(out, y, g, s, o0 + wg * 64, j0, jend, tid % 128);
+}
+
+template <int kWG, bool kGather>
+int launch_bf16(const void* x, const void* w, const void* bias, void* y,
+                const Geom& g, int w_row, int xvec_bytes,
+                cudaStream_t stream) {
+  using T = Tile<kWG, kGather>;
+  const int Sx = g.x_lane ? g.S : 1;
+  const int Sw = g.w_lane ? g.S : 1;
+  CUtensorMap wmap, xmap;
+  {
+    const cuuint64_t dims[3] = {(cuuint64_t)w_row, (cuuint64_t)g.O,
+                                (cuuint64_t)Sw};
+    const cuuint64_t strides[2] = {(cuuint64_t)w_row * 2,
+                                   (cuuint64_t)w_row * 2 * g.O};
+    const cuuint32_t box[3] = {64, (cuuint32_t)T::kBM, 1};
+    const int err = btt::make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                                  w, dims, strides, box);
+    if (err != 0) return err;
+  }
+  xmap = wmap;
+  if (!kGather) {
+    const cuuint64_t dims[3] = {(cuuint64_t)g.P, (cuuint64_t)g.C,
+                                (cuuint64_t)g.B * Sx};
+    const cuuint64_t strides[2] = {(cuuint64_t)g.P * 2,
+                                   (cuuint64_t)g.P * 2 * g.C};
+    const cuuint32_t box[3] = {64, 64, 1};
+    const int err = btt::make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                                  x, dims, strides, box);
+    if (err != 0) return err;
+  }
+  const int64_t ytiles = kGather ? ((int64_t)g.B * g.P + kTN - 1) / kTN
+                                 : (g.P + kTN - 1) / kTN;
+  const int64_t lanes = kGather ? g.S : (int64_t)g.B * g.S;
+  if (ytiles > 65535 || lanes > 65535) return (int)cudaErrorInvalidValue;
+  const int nk = (g.C + 63) / 64;
+  int stages = nk < kMaxStages ? nk : kMaxStages;
+  // slabs: C a multiple of 8 and x 16-byte aligned make every (b, s)
+  // slab a legal bulk copy; the tile touches at most `imgs` images. Take
+  // them when they carry at most twice the tile's positions (7x7: 4
+  // images, 196 positions; 14x14 would bring 392) and a ring of at least
+  // two stages (one where C <= 64) fits.
+  int raw_stage = 0;
+  const int imgs = (g.P + kTN - 2) / g.P + 1;
+  if (kGather && g.C % 8 == 0 && imgs * g.P <= 2 * kTN &&
+      reinterpret_cast<uintptr_t>(x) % 16 == 0) {
+    const int64_t bytes = (int64_t)imgs * 64 * g.P * 2;
+    int st = stages;
+    while (st > 1 && T::smem(st, 0) + st * bytes > kSmemMax) --st;
+    if (T::smem(st, 0) + st * bytes <= kSmemMax && (st >= 2 || nk == 1)) {
+      raw_stage = (int)bytes;
+      stages = st;
+    }
+  }
+  static int allowed = -1;
+  if (allowed != 0)
+    allowed = btt::allow_smem(mc_gemm_wgmma_kernel<kWG, kGather>, kSmemMax);
+  if (allowed != 0) return allowed;
+  const dim3 grid((g.O + T::kBM - 1) / T::kBM, (unsigned)ytiles,
+                  (unsigned)lanes);
+  mc_gemm_wgmma_kernel<kWG, kGather>
+      <<<grid, T::kThreads, T::smem(stages, raw_stage), stream>>>(
+          wmap, xmap, static_cast<const uint16_t*>(x),
+          static_cast<const __nv_bfloat16*>(bias),
+          static_cast<__nv_bfloat16*>(y), g, kGather ? xvec_bytes / 2 : 0,
+          stages, raw_stage);
+  return (int)cudaGetLastError();
+}
+
+// --- x resident: the gathered shapes whose C fits in shared memory --------
+//
+// Where no tensor map describes x, every O tile of a block would gather
+// the same x tile again (16 times at 512 -> 2048 @ 7x7). With C <= 512 the
+// whole (C, 128 positions) tile fits in shared memory (128 KB): the two
+// consumer warpgroups gather it once into the swizzled layout, then walk
+// every O tile of the draw over it while the producer warp streams the
+// weight tiles by TMA through a ring of three stages; each O tile leaves
+// through its own staging rows, masked as in store_rows.
+constexpr int kResMaxC = 512;
+constexpr int kResStages = 3;
+constexpr int kResThreads = 288;  // two consumer warpgroups, a producer warp
+
+__host__ __device__ constexpr int res_smem(int nk) {
+  // x tile, weight ring, output staging, 1024 to align, the barriers
+  return nk * kXTile + kResStages * 2 * kAtom + 128 * kOutLd + 1024 +
+         16 * kResStages;
+}
+
+// Consumer thread t (of 256) gathers chunk cc (8 positions) of rows kr,
+// kr + 16, kr + 32, kr + 48 of every 64-row block of C.
+template <int V>
+__device__ __forceinline__ void gather_resident(
+    const uint16_t* __restrict__ x, const Geom& g, uint8_t* xres, int nk,
+    int s, int64_t j0, int64_t jend, int t) {
+  const int cc = t % 16;
+  const int kr = t / 16;
+  int64_t off[8];
+  const unsigned valid = chunk_offsets(off, g, s, j0 + cc * 8, jend);
+  for (int kt = 0; kt < nk; ++kt) {
+    uint4 v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = kt * 64 + kr + 16 * i;
+      v[i] = c < g.C ? gather8<V>(x, off, valid, (int64_t)c * g.P)
+                     : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = kr + 16 * i;  // row in the 64-row block
+      *reinterpret_cast<uint4*>(xres + kt * kXTile + (cc / 8) * kAtom +
+                                k * 128 + (((cc % 8) ^ (k % 8)) * 16)) = v[i];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kResThreads, 1)
+    mc_gemm_xres_kernel(const __grid_constant__ CUtensorMap wmap,
+                        const uint16_t* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ bias,
+                        __nv_bfloat16* __restrict__ y, Geom g, int xvec) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = btt::smem_addr(smem_raw);
+  const int nk = (g.C + 63) / 64;
+  uint8_t* xres = smem_raw + ((1024 - (base & 1023)) & 1023);
+  uint8_t* wring = xres + nk * kXTile;
+  uint8_t* stg = wring + kResStages * 2 * kAtom;
+  const uint32_t bars = btt::smem_addr(stg + 128 * kOutLd);
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int s = blockIdx.z;
+  const int64_t j0 = (int64_t)blockIdx.y * kTN;
+  const int64_t jend = (int64_t)g.B * g.P;
+  const int sw = g.w_lane ? s : 0;
+  const int n_o = (g.O + 127) / 128;
+
+  if (tid == 0) {
+    for (int i = 0; i < kResStages; ++i) {
+      btt::mbar_init(bars + 8 * i, 1);
+      btt::mbar_init(bars + 8 * (kResStages + i), 256);
+    }
+    btt::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warp: weight tiles (O tile, 64 of C)
+    if (tid != 256) return;
+    for (int i = 0; i < n_o * nk; ++i) {
+      const int st = i % kResStages;
+      const uint32_t full = bars + 8 * st;
+      btt::mbar_wait(bars + 8 * (kResStages + st),
+                     ((i / kResStages) & 1) ^ 1);
+      btt::mbar_expect_tx(full, 2 * kAtom);
+      btt::tma_load_3d(btt::smem_addr(wring + st * 2 * kAtom), &wmap, full,
+                       (i % nk) * 64, (i / nk) * 128, sw);
+    }
+    return;
+  }
+
+  if (xvec == 1) {
+    gather_resident<1>(x, g, xres, nk, s, j0, jend, tid);
+  } else if (xvec == 2) {
+    gather_resident<2>(x, g, xres, nk, s, j0, jend, tid);
+  } else if (xvec == 4) {
+    gather_resident<4>(x, g, xres, nk, s, j0, jend, tid);
+  } else {
+    gather_resident<8>(x, g, xres, nk, s, j0, jend, tid);
+  }
+  btt::fence_async_smem();
+  btt::named_sync(1, 256);
+
+  uint8_t* out = stg + wg * 64 * kOutLd;
+  const uint32_t xaddr = btt::smem_addr(xres);
+  int i = 0;
+  for (int ot = 0; ot < n_o; ++ot) {
+    float acc[64];
+#pragma unroll
+    for (int q = 0; q < 64; ++q) acc[q] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++i) {
+      const int st = i % kResStages;
+      const uint32_t wst = btt::smem_addr(wring + st * 2 * kAtom);
+      btt::mbar_wait(bars + 8 * st, (i / kResStages) & 1);
+      btt::wgmma_fence();
+      btt::fence_regs(acc);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint64_t da = btt::desc_sw128(wst + wg * kAtom + ks * 32, 16,
+                                            1024);
+        const uint64_t db = btt::desc_sw128(
+            xaddr + kt * kXTile + ks * 2048, kAtom, 1024);
+        btt::wgmma_bf16_n128(acc, da, db);
+      }
+      btt::wgmma_commit();
+      btt::fence_regs(acc);
+      btt::wgmma_wait<1>();
+      btt::fence_regs(acc);
+      // the previous product has retired: its weight stage is free
+      if (i > 0)
+        btt::mbar_arrive(bars + 8 * (kResStages + (i - 1) % kResStages));
+    }
+    btt::wgmma_wait<0>();
+    btt::fence_regs(acc);
+    stage_rows(acc, out, bias, g, s, ot * 128 + wg * 64, tid % 128);
+    btt::named_sync(2 + wg, 128);
+    store_rows(out, y, g, s, ot * 128 + wg * 64, j0, jend, tid % 128);
+    btt::named_sync(2 + wg, 128);  // the staging rows are free again
+  }
+}
+
+int launch_xres(const void* x, const void* w, const void* bias, void* y,
+                const Geom& g, int w_row, int xvec_bytes,
+                cudaStream_t stream) {
+  CUtensorMap wmap;
+  const cuuint64_t dims[3] = {(cuuint64_t)w_row, (cuuint64_t)g.O,
+                              (cuuint64_t)(g.w_lane ? g.S : 1)};
+  const cuuint64_t strides[2] = {(cuuint64_t)w_row * 2,
+                                 (cuuint64_t)w_row * 2 * g.O};
+  const cuuint32_t box[3] = {64, 128, 1};
+  const int err = btt::make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                                w, dims, strides, box);
+  if (err != 0) return err;
+  const int64_t ytiles = ((int64_t)g.B * g.P + kTN - 1) / kTN;
+  if (ytiles > 65535 || g.S > 65535) return (int)cudaErrorInvalidValue;
+  static int allowed = -1;
+  if (allowed != 0)
+    allowed = btt::allow_smem(mc_gemm_xres_kernel, res_smem(kResMaxC / 64));
+  if (allowed != 0) return allowed;
+  const dim3 grid(1, (unsigned)ytiles, (unsigned)g.S);
+  mc_gemm_xres_kernel<<<grid, kResThreads, res_smem((g.C + 63) / 64),
+                        stream>>>(wmap, static_cast<const uint16_t*>(x),
+                                  static_cast<const __nv_bfloat16*>(bias),
+                                  static_cast<__nv_bfloat16*>(y), g,
+                                  xvec_bytes / 2);
+  return (int)cudaGetLastError();
+}
+
+// xvec_bytes: 16 when a tensor map can describe x (TMA), else the widest
+// load its rows allow (8, 4 or 2 bytes; bf16 has no odd byte count).
+int launch_bf16_any(const void* x, const void* w, const void* bias, void* y,
+                    const Geom& g, int w_row, int xvec_bytes,
+                    cudaStream_t stream) {
+  if (xvec_bytes < 2) return (int)cudaErrorInvalidValue;
+  if (xvec_bytes == 16)
+    return g.O <= 64
+               ? launch_bf16<1, false>(x, w, bias, y, g, w_row, 16, stream)
+               : launch_bf16<2, false>(x, w, bias, y, g, w_row, 16, stream);
+  if (g.O <= 64)
+    return launch_bf16<1, true>(x, w, bias, y, g, w_row, xvec_bytes, stream);
+  // x resident where it fits and more than one O tile reads it
+  if (g.C <= kResMaxC && g.O > 128)
+    return launch_xres(x, w, bias, y, g, w_row, xvec_bytes, stream);
+  return launch_bf16<2, true>(x, w, bias, y, g, w_row, xvec_bytes, stream);
+}
+
+// --- the int8 lane: mma.sync, register-staged -------------------------------
 
 constexpr int kBM = 64;       // output channels per block
 constexpr int kBN = 64;       // positions per block
 constexpr int kKBytes = 64;   // bytes of C per step, two mma k-steps
 constexpr int kThreads = 128;
-// w tile and the s8 x tile: 64 rows of 64 bytes, padded to 80 (20 words):
-// the 8 rows x 4 words of one fragment load fall on 32 distinct banks
+// w and x tiles: 64 rows of 64 bytes, padded to 80 (20 words): the 8 rows
+// x 4 words of one fragment load fall on 32 distinct banks
 constexpr int kLdA = kKBytes + 16;
-// bf16 x tile: 32 rows (C) of 64 elements (P), padded to 144 bytes: rows
-// stay 16-byte aligned for ldmatrix and 8 rows fall on distinct banks
-constexpr int kLdB = kBN * 2 + 16;
-
-struct Geom {
-  int S, O, C, P;
-  int64_t x_batch, x_lane, w_lane, b_lane;  // strides in elements
-};
-
-template <typename T>
-struct Elem;
-template <>
-struct Elem<__nv_bfloat16> {
-  using Acc = float;
-  using Out = __nv_bfloat16;
-  static constexpr int kBBytes = (kKBytes / 2) * kLdB;
-};
-template <>
-struct Elem<int8_t> {
-  using Acc = int;
-  using Out = int;
-  static constexpr int kBBytes = kBN * kLdA;
-};
 
 // Up to 16 bytes from p, of which `avail` lie inside the row (<= 0: none);
 // the rest are 0. `vec` is the widest load the row length and the base
@@ -132,18 +814,8 @@ __device__ __forceinline__ uint32_t load_word(const uint8_t* __restrict__ m,
   return v;
 }
 
-__device__ __forceinline__ void mma_tile(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_tile(int (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
@@ -151,40 +823,16 @@ __device__ __forceinline__ void mma_tile(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ __nv_bfloat16 finish(float acc,
-                                                const __nv_bfloat16* bias) {
-  __nv_bfloat16 r = __float2bfloat16(acc);
-  if (bias != nullptr)
-    r = __float2bfloat16(__fadd_rn(__bfloat162float(r),
-                                   __bfloat162float(*bias)));
-  return r;
-}
-
-__device__ __forceinline__ int finish(int acc, const int*) { return acc; }
-
-// Two neighbouring outputs in one store; dst is aligned to the pair.
-__device__ __forceinline__ void store_pair(__nv_bfloat16* dst,
-                                           __nv_bfloat16 v0,
-                                           __nv_bfloat16 v1) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __halves2bfloat162(v0, v1);
-}
-
-__device__ __forceinline__ void store_pair(int* dst, int v0, int v1) {
-  *reinterpret_cast<int2*>(dst) = make_int2(v0, v1);
-}
-
-template <typename T>
+// A 64 (O) x 64 (P) output tile of one (b, s), C in steps of 64 bytes, the
+// next step's loads held in registers while the tensor cores work. Four
+// warps, 2 x 2, each 32 x 32. x tiles are transposed 4 x 4 bytes at a time
+// (__byte_perm) on their way into an (P, C) shared tile.
 __global__ void __launch_bounds__(kThreads)
-    mc_gemm_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       const typename Elem<T>::Out* __restrict__ bias,
-                       typename Elem<T>::Out* __restrict__ y, Geom g,
-                       int xvec, int wvec) {
-  using Acc = typename Elem<T>::Acc;
-  using Out = typename Elem<T>::Out;
-  constexpr bool kIsS8 = sizeof(T) == 1;
-  constexpr int kBK = kKBytes / (int)sizeof(T);  // elements of C per step
+    mc_gemm_s8_kernel(const int8_t* __restrict__ x,
+                      const int8_t* __restrict__ w, int* __restrict__ y,
+                      Geom g, int xvec, int wvec) {
   __shared__ __align__(16) uint8_t As[kBM * kLdA];
-  __shared__ __align__(16) uint8_t Bs[Elem<T>::kBBytes];
+  __shared__ __align__(16) uint8_t Bs[kBN * kLdA];
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -201,10 +849,10 @@ __global__ void __launch_bounds__(kThreads)
   const uint8_t* wp = reinterpret_cast<const uint8_t*>(w + s * g.w_lane);
   const uint8_t* xp =
       reinterpret_cast<const uint8_t*>(x + b * g.x_batch + s * g.x_lane);
-  const int w_row = g.C * (int)sizeof(T);  // bytes in a row of w
-  const int x_row = g.P * (int)sizeof(T);  // bytes in a row of x
+  const int w_row = g.C;  // bytes in a row of w
+  const int x_row = g.P;  // bytes in a row of x
 
-  Acc acc[2][4][4];
+  int acc[2][4][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -221,30 +869,19 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 2; ++i) {
       const int chunk = tid + i * kThreads;
       const int row = o0 + chunk / 4;
-      const int col = k0 * (int)sizeof(T) + (chunk % 4) * 16;
+      const int col = k0 + (chunk % 4) * 16;
       ra[i] = load_bytes16(wp + (int64_t)row * w_row + col,
                            row < g.O ? w_row - col : 0, wvec);
     }
-    if constexpr (kIsS8) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int blk = tid + i * kThreads;
-        const int n = p0 + (blk % 16) * 4;
-        const int k = k0 + (blk / 16) * 4;
-        rb[i].x = load_word(xp, g.C, x_row, k, n, xvec);
-        rb[i].y = load_word(xp, g.C, x_row, k + 1, n, xvec);
-        rb[i].z = load_word(xp, g.C, x_row, k + 2, n, xvec);
-        rb[i].w = load_word(xp, g.C, x_row, k + 3, n, xvec);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int chunk = tid + i * kThreads;
-        const int row = k0 + chunk / 8;
-        const int col = p0 * 2 + (chunk % 8) * 16;
-        rb[i] = load_bytes16(xp + (int64_t)row * x_row + col,
-                             row < g.C ? x_row - col : 0, xvec);
-      }
+    for (int i = 0; i < 2; ++i) {
+      const int blk = tid + i * kThreads;
+      const int n = p0 + (blk % 16) * 4;
+      const int k = k0 + (blk / 16) * 4;
+      rb[i].x = load_word(xp, g.C, x_row, k, n, xvec);
+      rb[i].y = load_word(xp, g.C, x_row, k + 1, n, xvec);
+      rb[i].z = load_word(xp, g.C, x_row, k + 2, n, xvec);
+      rb[i].w = load_word(xp, g.C, x_row, k + 3, n, xvec);
     }
   };
 
@@ -256,41 +893,32 @@ __global__ void __launch_bounds__(kThreads)
       *reinterpret_cast<uint4*>(&As[(chunk / 4) * kLdA + (chunk % 4) * 16]) =
           ra[i];
     }
-    if constexpr (kIsS8) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int blk = tid + i * kThreads;
-        const int n = (blk % 16) * 4;
-        const int k = (blk / 16) * 4;
-        // rb holds 4 rows (k) of 4 bytes (n): transpose the 4 x 4 block
-        const uint32_t t0 = __byte_perm(rb[i].x, rb[i].y, 0x5140);
-        const uint32_t t1 = __byte_perm(rb[i].z, rb[i].w, 0x5140);
-        const uint32_t t2 = __byte_perm(rb[i].x, rb[i].y, 0x7362);
-        const uint32_t t3 = __byte_perm(rb[i].z, rb[i].w, 0x7362);
-        *reinterpret_cast<uint32_t*>(&Bs[(n + 0) * kLdA + k]) =
-            __byte_perm(t0, t1, 0x5410);
-        *reinterpret_cast<uint32_t*>(&Bs[(n + 1) * kLdA + k]) =
-            __byte_perm(t0, t1, 0x7632);
-        *reinterpret_cast<uint32_t*>(&Bs[(n + 2) * kLdA + k]) =
-            __byte_perm(t2, t3, 0x5410);
-        *reinterpret_cast<uint32_t*>(&Bs[(n + 3) * kLdA + k]) =
-            __byte_perm(t2, t3, 0x7632);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int chunk = tid + i * kThreads;
-        *reinterpret_cast<uint4*>(
-            &Bs[(chunk / 8) * kLdB + (chunk % 8) * 16]) = rb[i];
-      }
+    for (int i = 0; i < 2; ++i) {
+      const int blk = tid + i * kThreads;
+      const int n = (blk % 16) * 4;
+      const int k = (blk / 16) * 4;
+      // rb holds 4 rows (k) of 4 bytes (n): transpose the 4 x 4 block
+      const uint32_t t0 = __byte_perm(rb[i].x, rb[i].y, 0x5140);
+      const uint32_t t1 = __byte_perm(rb[i].z, rb[i].w, 0x5140);
+      const uint32_t t2 = __byte_perm(rb[i].x, rb[i].y, 0x7362);
+      const uint32_t t3 = __byte_perm(rb[i].z, rb[i].w, 0x7362);
+      *reinterpret_cast<uint32_t*>(&Bs[(n + 0) * kLdA + k]) =
+          __byte_perm(t0, t1, 0x5410);
+      *reinterpret_cast<uint32_t*>(&Bs[(n + 1) * kLdA + k]) =
+          __byte_perm(t0, t1, 0x7632);
+      *reinterpret_cast<uint32_t*>(&Bs[(n + 2) * kLdA + k]) =
+          __byte_perm(t2, t3, 0x5410);
+      *reinterpret_cast<uint32_t*>(&Bs[(n + 3) * kLdA + k]) =
+          __byte_perm(t2, t3, 0x7632);
     }
   };
 
   fetch(0);
-  for (int k0 = 0; k0 < g.C; k0 += kBK) {
+  for (int k0 = 0; k0 < g.C; k0 += kKBytes) {
     stage();
     __syncthreads();
-    if (k0 + kBK < g.C) fetch(k0 + kBK);
+    if (k0 + kKBytes < g.C) fetch(k0 + kKBytes);
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {
       const int kb = ks * 32;  // byte offset of this k-step in a tile row
@@ -305,42 +933,22 @@ __global__ void __launch_bounds__(kThreads)
         a[i][3] = *reinterpret_cast<const uint32_t*>(r8 + 16);
       }
       uint32_t bf[4][2];
-      if constexpr (kIsS8) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint8_t* c = &Bs[(wn + j * 8 + gid) * kLdA + kb + t * 4];
-          bf[j][0] = *reinterpret_cast<const uint32_t*>(c);
-          bf[j][1] = *reinterpret_cast<const uint32_t*>(c + 16);
-        }
-      } else {
-        // four 8 x 8 matrices per load: (k 0-7, n), (k 8-15, n),
-        // (k 0-7, n + 8), (k 8-15, n + 8); .trans gives each thread
-        // k = 2t, 2t+1 of column gid, the B fragment
-#pragma unroll
-        for (int jp = 0; jp < 2; ++jp) {
-          const int row = ks * 16 + (lane % 8) + 8 * ((lane / 8) % 2);
-          const int col = wn + jp * 16 + 8 * (lane / 16);
-          const uint32_t addr = (uint32_t)__cvta_generic_to_shared(
-              &Bs[row * kLdB + col * 2]);
-          asm volatile(
-              "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-              "{%0, %1, %2, %3}, [%4];\n"
-              : "=r"(bf[2 * jp][0]), "=r"(bf[2 * jp][1]),
-                "=r"(bf[2 * jp + 1][0]), "=r"(bf[2 * jp + 1][1])
-              : "r"(addr));
-        }
+      for (int j = 0; j < 4; ++j) {
+        const uint8_t* c = &Bs[(wn + j * 8 + gid) * kLdA + kb + t * 4];
+        bf[j][0] = *reinterpret_cast<const uint32_t*>(c);
+        bf[j][1] = *reinterpret_cast<const uint32_t*>(c + 16);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int i = 0; i < 2; ++i)
-          mma_tile(acc[i][j], a[i], bf[j][0], bf[j][1]);
+          mma_s8(acc[i][j], a[i], bf[j][0], bf[j][1]);
     }
     __syncthreads();
   }
 
-  const Out* brow = bias != nullptr ? bias + s * g.b_lane : nullptr;
-  Out* yb = y + (int64_t)bs * g.O * g.P;
+  int* yb = y + (int64_t)bs * g.O * g.P;
   // with P even every (p, p + 1) pair of a fragment starts at an even
   // element of y: one store for both
   const bool pairs = g.P % 2 == 0;
@@ -350,16 +958,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int half = 0; half < 2; ++half) {
       const int o = o0 + wm + i * 16 + gid + half * 8;
       if (o >= g.O) continue;
-      const Out* bo = brow != nullptr ? brow + o : nullptr;
-      Out* yrow = yb + (int64_t)o * g.P;
+      int* yrow = yb + (int64_t)o * g.P;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int p = p0 + wn + j * 8 + t * 2;
         if (p >= g.P) continue;
-        const Out v0 = finish(acc[i][j][half * 2], bo);
-        const Out v1 = finish(acc[i][j][half * 2 + 1], bo);
+        const int v0 = acc[i][j][half * 2];
+        const int v1 = acc[i][j][half * 2 + 1];
         if (pairs && p + 1 < g.P) {
-          store_pair(yrow + p, v0, v1);
+          *reinterpret_cast<int2*>(yrow + p) = make_int2(v0, v1);
         } else {
           yrow[p] = v0;
           if (p + 1 < g.P) yrow[p + 1] = v1;
@@ -369,7 +976,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The f32 lane, on the CUDA cores: full f32 products and sums.
+// --- the f32 lane, on the CUDA cores: full f32 products and sums -------------
+
 constexpr int kFK = 16;
 constexpr int kFThreads = 256;
 
@@ -447,36 +1055,37 @@ __global__ void __launch_bounds__(kFThreads)
 
 extern "C" {
 
-// x (B, S or 1, C, P), w (S or 1, O, C), bias (S or 1, O) or NULL, y
-// (B, S, O, P), all row-major; dtype 0: bf16 -> bf16, 1: f32 -> f32, 2: s8
-// -> s32 (no bias). Strides are in elements; a lane stride of 0 shares the
-// operand between the draws. xvec / wvec: the widest load in bytes (16, 8,
-// 4, 2 or 1) that the rows of x / w allow (row length and base pointer both
-// multiples of it). Returns the launch's cudaGetLastError().
+// x (B, S or 1, C, P), w (S or 1, O, w_row) with C <= w_row (bf16: w_row a
+// multiple of 8, the columns past C zero, 16-byte aligned; int8 and f32:
+// w_row = C), bias (S or 1, O) or NULL, y (B, S, O, P), all row-major;
+// dtype 0: bf16 -> bf16, 1: f32 -> f32, 2: s8 -> s32 (no bias). Strides are
+// in elements; a lane stride of 0 shares the operand between the draws.
+// xvec / wvec: the widest load in bytes (16, 8, 4, 2 or 1) that the rows of
+// x / w allow (row length and base pointer both multiples of it); a bf16 x
+// with xvec 16 comes by TMA. Returns the launch's cudaGetLastError() (or
+// the error of a refused tensor map).
 int btt_mc_gemm(const void* x, const void* w, const void* bias, void* y,
-                int dtype, int B, int S, int O, int C, int P,
+                int dtype, int B, int S, int O, int C, int P, int w_row,
                 int64_t x_batch, int64_t x_lane, int64_t w_lane,
                 int64_t b_lane, int xvec, int wvec, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || O <= 0 || P <= 0) return (int)cudaSuccess;
+  const Geom g = {B, S, O, C, P, x_batch, x_lane, w_lane, b_lane};
+  if (dtype == 0) {
+    if (C <= 0) return (int)cudaErrorInvalidValue;
+    return launch_bf16_any(x, w, bias, y, g, w_row, xvec, stream);
+  }
   const int64_t lanes = (int64_t)B * S;
   const int ptiles = (P + kBN - 1) / kBN;
   if (lanes > 65535 || ptiles > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((O + kBM - 1) / kBM, ptiles, (unsigned)lanes);
-  const Geom g = {S, O, C, P, x_batch, x_lane, w_lane, b_lane};
-  if (dtype == 0) {
-    mc_gemm_mma_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w),
-        static_cast<const __nv_bfloat16*>(bias),
-        static_cast<__nv_bfloat16*>(y), g, xvec, wvec);
-  } else if (dtype == 1) {
+  if (dtype == 1) {
     mc_gemm_f32_kernel<<<grid, kFThreads, 0, stream>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<const float*>(bias), static_cast<float*>(y), g);
   } else if (dtype == 2) {
-    mc_gemm_mma_kernel<int8_t><<<grid, kThreads, 0, stream>>>(
+    mc_gemm_s8_kernel<<<grid, kThreads, 0, stream>>>(
         static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-        nullptr, static_cast<int*>(y), g, xvec, wvec);
+        static_cast<int*>(y), g, xvec, wvec);
   } else {
     return (int)cudaErrorInvalidValue;
   }

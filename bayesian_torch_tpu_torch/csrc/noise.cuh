@@ -18,11 +18,15 @@ __host__ __device__ __forceinline__ uint32_t btt_splitmix32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
-// Salt of draw s under seed = (hi << 32) | lo; sampling.py draw_salt.
+// Salt of lane s of a launch drawing n counters per lane under seed =
+// (hi << 32) | lo: lane 0's salt advanced by s * n counters, so the lanes
+// read consecutive, disjoint windows of one stream; sampling.py draw_salt.
 __host__ __device__ __forceinline__ uint32_t btt_draw_salt(uint32_t lo,
                                                           uint32_t hi,
-                                                          uint32_t s) {
-  return btt_splitmix32(lo ^ btt_splitmix32(hi + (s + 1u) * BTT_GOLDEN));
+                                                          uint32_t s,
+                                                          uint32_t n) {
+  return btt_splitmix32(lo ^ btt_splitmix32(hi + BTT_GOLDEN)) +
+         s * n * BTT_GOLDEN;
 }
 
 // N(0,1) at flat counter i; sampling.py normal_fused.

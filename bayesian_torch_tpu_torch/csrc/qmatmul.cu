@@ -1,9 +1,9 @@
 // K-F: fused int8 GEMM + requantize epilogue,
-//   acc[m, n] = sum_k (x[m, k] - 128) * w[n, k]          (s32, exact)
+//   acc[m, n] = sum_k x[m, k] * w[n, k]                    (s32, exact)
 //   out[m, n] = clamp(rint(f32(acc + corr[n]) * mult + bias[n]) + out_zp,
 //                     0, 255)                              (uint8)
-// with x uint8 (M, K), w int8 (N, K), corr = (128 - x_zp) * colsum(w) or
-// NULL, bias = bias_f32 / out_scale or NULL (the wrapper computes both).
+// with x uint8 (M, K), w int8 (N, K), corr = -x_zp * colsum(w) or NULL,
+// bias = bias_f32 / out_scale or NULL (the wrapper computes both).
 //
 // Replaces the Pallas kernel _kernel of
 // bayesian_torch_tpu/ops/pallas/qmatmul.py (qmatmul_requant), which keeps
@@ -12,7 +12,8 @@
 // integer correction, then one f32 multiply, one f32 add, round half to
 // even), not the TPU kernel's folded beta, so kernel, plain torch version
 // and the JAX default route agree bit for bit. __fmul_rn / __fadd_rn keep
-// the multiply and add from contracting into an FMA.
+// the multiply and add from contracting into an FMA. |acc + corr| <=
+// 2 * 255 * 128 * K < 2^31 for K <= 32,000: exact in s32.
 //
 // What bounds it on an H100: at Bayesian ResNet-50's shapes (batch 128)
 // the stem and layer1-2 launches move more bytes than the int8 tensor
@@ -21,169 +22,237 @@
 // N of 512 or more) are bound by operations. One forward's 54 launches:
 // 4.2 GB and 1.05 T operations, a 1.3 ms bound, bytes the larger part.
 //
-// Design (a first kernel, right and simple): each block owns a 128 x 64
-// output tile and walks K in steps of 32 through shared memory. x is
-// centred to s8 while it is loaded (x ^ 0x80 == x - 128 as s8). Eight
-// warps, 4 along M and 2 along N, each compute 32 x 32 with
-// mma.sync.m16n8k32 s8 x s8 -> s32 in registers. Rows past M, columns
-// past N and K past its end load as 0 (a zero weight adds nothing, whatever
-// x holds). The s32 accumulator never reaches device memory: the epilogue
-// writes uint8 from registers. The TPU kernel's sequential K grid axis is
-// the in-block K loop. No cp.async, TMA or wgmma yet.
+// Design, for Hopper: a block owns a 128 (M) x BN (N; 128, or 64 when N
+// <= 64) output tile and walks K in steps of 128 bytes through a ring of
+// up to three shared-memory stages under mbarriers (sized to K, so that
+// two or three blocks share an SM: most launches walk K in 1-4 steps, and
+// one block's loads then overlap another's epilogue). One producer thread
+// keeps TMA loads (cp.async.bulk.tensor, 128-byte swizzle) of both
+// operands in flight; two consumer warpgroups each run
+// wgmma.m64nBNk32.s32.u8.s8 on their 64 rows, both operands K-major as
+// they lie in memory. wgmma takes
+// x as u8, so x needs no centring pass (the first kernel flipped each byte
+// through registers): sum_k x*w differs from sum_k (x - x_zp)*w by
+// x_zp * colsum(w), which the wrapper folds into corr. Rows past M,
+// columns past N and K past its end load as 0 (TMA's zero fill; a zero
+// weight adds nothing); the wrapper pads K to a multiple of 16, which the
+// tensor maps need, with zero weight columns (the stem's im2col builds its
+// patches that wide). The s32 accumulator never reaches device memory: the
+// epilogue requantizes from registers into shared memory, whence rows leave
+// in 16-byte stores. The TPU kernel's sequential K grid axis is the
+// in-block K loop.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kBM = 128;
-constexpr int kBN = 64;
-constexpr int kBK = 32;
-// a shared row of 48 bytes (12 words) puts the 8 rows x 4 words of one
-// fragment load on 32 distinct banks
-constexpr int kLd = kBK + 16;
-constexpr int kThreads = 256;
+constexpr int kMaxStages = 3;
+constexpr int kAtile = kBM * 128;  // 128 rows of 128 bytes
+constexpr int kThreads = 288;  // two consumer warpgroups, a producer warp
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// Two blocks share an SM (three with 64-wide tiles), so one block's loads
+// overlap another's epilogue.
+template <int kBN>
+struct Tile {
+  static constexpr int kWtile = kBN * 128;
+  static constexpr int kStage = kAtile + kWtile;
+  static constexpr int kOutLd = kBN + 16;  // output staging row, padded
+  static constexpr int kMinBlocks = kBN == 128 ? 2 : 3;
+  // the ring (the output staging, 128 rows of kOutLd, fits in one stage),
+  // 1024 bytes to align it, the full and empty barriers
+  static int smem(int stages) { return stages * kStage + 1024 + 16 * stages; }
+};
 
-// 16 bytes of row `row` from column `col` of a (rows, K) byte matrix into
-// shared memory, bytes XOR `flip`; out-of-range bytes are 0. `vec`: K is a
-// multiple of 16 and the base 16-byte aligned, so one vector load does.
-__device__ __forceinline__ void load16(const uint8_t* __restrict__ src,
-                                       int rows, int K, int row, int col,
-                                       uint32_t flip, bool vec,
-                                       uint8_t* dst) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (row < rows) {
-    const uint8_t* p = src + (int64_t)row * K + col;
-    if (vec) {
-      if (col < K) {
-        v = *reinterpret_cast<const uint4*>(p);
-        v.x ^= flip;
-        v.y ^= flip;
-        v.z ^= flip;
-        v.w ^= flip;
-      }
-    } else {
-      uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        if (col + j < K)
-          w[j / 4] |= (uint32_t)(p[j] ^ (uint8_t)flip) << (8 * (j % 4));
-      }
-      v = make_uint4(w[0], w[1], w[2], w[3]);
-    }
+template <int kBN>
+__device__ __forceinline__ void mma_step(int (&acc)[kBN / 2], uint64_t a,
+                                         uint64_t b) {
+  if constexpr (kBN == 128) {
+    btt::wgmma_u8s8_n128(acc, a, b);
+  } else {
+    btt::wgmma_u8s8_n64(acc, a, b);
   }
-  *reinterpret_cast<uint4*>(dst) = v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    qmatmul_requant_kernel(const uint8_t* __restrict__ x,
-                           const int8_t* __restrict__ w,
-                           const int32_t* __restrict__ corr,
-                           const float* __restrict__ bias,
-                           uint8_t* __restrict__ out, int M, int N, int K,
-                           float mult, float out_zp, bool vec) {
-  __shared__ __align__(16) uint8_t xs[kBM][kLd];
-  __shared__ __align__(16) uint8_t ws[kBN][kLd];
+__device__ __forceinline__ uint8_t requant(int acc, int corr, float mult,
+                                           float bias, bool has_bias,
+                                           float out_zp) {
+  float v = __fmul_rn(__int2float_rn(acc + corr), mult);
+  if (has_bias) v = __fadd_rn(v, bias);
+  v = __fadd_rn(rintf(v), out_zp);
+  return (uint8_t)fminf(fmaxf(v, 0.f), 255.f);
+}
+
+template <int kBN>
+__global__ void __launch_bounds__(kThreads, Tile<kBN>::kMinBlocks)
+    qmatmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap wmap,
+                         const int32_t* __restrict__ corr,
+                         const float* __restrict__ bias,
+                         uint8_t* __restrict__ out, int M, int N, int K,
+                         float mult, float out_zp, int stages) {
+  using T = Tile<kBN>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = btt::smem_addr(smem_raw);
+  uint8_t* ring = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t bars = btt::smem_addr(ring + stages * T::kStage);
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int g = lane / 4;  // fragment row group
-  const int t = lane % 4;  // thread in group
-  const int wm = (warp % 4) * 32;
-  const int wn = (warp / 4) * 32;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const uint8_t* wb = reinterpret_cast<const uint8_t*>(w);
+  const int wg = tid / 128;
+  // N tiles are the fastest grid axis: the blocks that share an x tile
+  // run together and read it from L2
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * kBM;
+  const int nk = (K + 127) / 128;
 
-  int acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      btt::mbar_init(bars + 8 * i, 1);
+      btt::mbar_init(bars + 8 * (stages + i), 2 * 128);
+    }
+    btt::mbar_init_fence();
+  }
+  __syncthreads();
 
-  const int lrow = tid / 2;         // 0..127
-  const int lcol = (tid % 2) * 16;  // 0 or 16
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    load16(x, M, K, m0 + lrow, k0 + lcol, 0x80808080u, vec,
-           &xs[lrow][lcol]);
-    if (lrow < kBN)
-      load16(wb, N, K, n0 + lrow, k0 + lcol, 0u, vec, &ws[lrow][lcol]);
-    __syncthreads();
-    uint32_t a[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = wm + i * 16 + g;
-      a[i][0] = *reinterpret_cast<const uint32_t*>(&xs[r][t * 4]);
-      a[i][1] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][t * 4]);
-      a[i][2] = *reinterpret_cast<const uint32_t*>(&xs[r][16 + t * 4]);
-      a[i][3] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][16 + t * 4]);
+  if (wg == 2) {  // the producer warp: one thread issues every copy
+    if (tid != 256) return;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int st = kt % stages;
+      const uint32_t full = bars + 8 * st;
+      const uint32_t stage = btt::smem_addr(ring + st * T::kStage);
+      btt::mbar_wait(bars + 8 * (stages + st), ((kt / stages) & 1) ^ 1);
+      btt::mbar_expect_tx(full, T::kStage);
+      btt::tma_load_2d(stage, &xmap, full, kt * 128, m0);
+      btt::tma_load_2d(stage + kAtile, &wmap, full, kt * 128, n0);
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = wn + j * 8 + g;
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(&ws[c][t * 4]);
-      const uint32_t b1 =
-          *reinterpret_cast<const uint32_t*>(&ws[c][16 + t * 4]);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) mma_s8(acc[i][j], a[i], b0, b1);
-    }
-    __syncthreads();
+    return;
   }
 
+  int acc[kBN / 2];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % stages;
+    const uint32_t stage = btt::smem_addr(ring + st * T::kStage);
+    btt::mbar_wait(bars + 8 * st, (kt / stages) & 1);
+    btt::wgmma_fence();
+    btt::fence_regs(acc);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + wn + j * 8 + t * 2 + h;
-      if (n >= N) continue;
-      const int cn = corr != nullptr ? corr[n] : 0;
-      const float bn = bias != nullptr ? bias[n] : 0.f;
+    for (int ks = 0; ks < 4; ++ks) {  // 32 bytes of K each
+      const uint64_t da =
+          btt::desc_sw128(stage + wg * 64 * 128 + ks * 32, 16, 1024);
+      const uint64_t db = btt::desc_sw128(stage + kAtile + ks * 32, 16, 1024);
+      mma_step<kBN>(acc, da, db);
+    }
+    btt::wgmma_commit();
+    btt::fence_regs(acc);
+    btt::wgmma_wait<1>();
+    btt::fence_regs(acc);
+    if (kt > 0) btt::mbar_arrive(bars + 8 * (stages + (kt - 1) % stages));
+  }
+  btt::wgmma_wait<0>();
+  btt::fence_regs(acc);
+
+  // epilogue: requantize into shared memory (the ring, now free), then
+  // store each warpgroup's 64 rows
+  btt::named_sync(1, 256);
+  uint8_t* stg = ring + wg * 64 * T::kOutLd;
+  const int lt = tid % 128;
+  const int warp = lt / 32;
+  const int lane = lt % 32;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+  for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int m = m0 + wm + i * 16 + g + half * 8;
-          if (m >= M) continue;
-          float v = __fmul_rn(__int2float_rn(acc[i][j][half * 2 + h] + cn),
-                              mult);
-          if (bias != nullptr) v = __fadd_rn(v, bn);
-          v = __fadd_rn(rintf(v), out_zp);
-          v = fminf(fmaxf(v, 0.f), 255.f);
-          out[(int64_t)m * N + n] = (uint8_t)v;
-        }
+    for (int c = 0; c < 2; ++c) {
+      const int col = 8 * j + (lane % 4) * 2 + c;
+      const int n = n0 + col;
+      const int cn = corr != nullptr && n < N ? corr[n] : 0;
+      const bool has_bias = bias != nullptr && n < N;
+      const float bn = has_bias ? bias[n] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + lane / 4 + 8 * h;
+        stg[r * T::kOutLd + col] =
+            requant(acc[4 * j + 2 * h + c], cn, mult, bn, has_bias, out_zp);
       }
     }
   }
+  btt::named_sync(2 + wg, 128);
+  constexpr int kChunks = kBN / 16;
+  for (int q = lt; q < 64 * kChunks; q += 128) {
+    const int r = q / kChunks;
+    const int cc = q % kChunks;
+    const int m = m0 + wg * 64 + r;
+    const int n = n0 + cc * 16;
+    if (m >= M || n >= N) continue;
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(stg + r * T::kOutLd + cc * 16);
+    uint8_t* dst = out + (int64_t)m * N + n;
+    if (n + 16 <= N && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+      *reinterpret_cast<uint4*>(dst) = v;
+      continue;
+    }
+    const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      if (n + e < N) dst[e] = (uint8_t)(w4[e / 4] >> (8 * (e % 4)));
+  }
+}
+
+template <int kBN>
+int launch(const uint8_t* x, const int8_t* w, const int32_t* corr,
+           const float* bias, uint8_t* out, int M, int N, int K, float mult,
+           float out_zp, cudaStream_t stream) {
+  using T = Tile<kBN>;
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t wdims[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  const cuuint64_t stride[1] = {(cuuint64_t)K};
+  const cuuint32_t xbox[2] = {128, kBM};
+  const cuuint32_t wbox[2] = {128, kBN};
+  int err = btt::make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, x, xdims,
+                          stride, xbox);
+  if (err == 0)
+    err = btt::make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, wdims,
+                        stride, wbox);
+  if (err != 0) return err;
+  const int64_t mtiles = ((int64_t)M + kBM - 1) / kBM;
+  if (mtiles > 65535) return (int)cudaErrorInvalidValue;
+  const int nk = (K + 127) / 128;
+  const int stages = nk < kMaxStages ? nk : kMaxStages;
+  static int allowed = -1;
+  if (allowed != 0)
+    allowed = btt::allow_smem(qmatmul_wgmma_kernel<kBN>, T::smem(kMaxStages));
+  if (allowed != 0) return allowed;
+  const dim3 grid((N + kBN - 1) / kBN, (unsigned)mtiles);
+  qmatmul_wgmma_kernel<kBN><<<grid, kThreads, T::smem(stages), stream>>>(
+      xmap, wmap, corr, bias, out, M, N, K, mult, out_zp, stages);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// x uint8 (M, K) and w int8 (N, K) row-major; corr int32 (N,) or NULL;
-// bias float32 (N,) or NULL; out uint8 (M, N). `vec` asks for 16-byte
-// loads: K % 16 == 0 and x, w 16-byte aligned. Returns the launch's
-// cudaGetLastError().
+// x uint8 (M, K) and w int8 (N, K) row-major, K a multiple of 16 and both
+// 16-byte aligned (the tensor maps need it); corr int32 (N,) or NULL; bias
+// float32 (N,) or NULL; out uint8 (M, N). Returns the launch's
+// cudaGetLastError() (or the error of a refused tensor map).
 int btt_qmatmul_requant(const uint8_t* x, const int8_t* w,
                         const int32_t* corr, const float* bias, uint8_t* out,
                         int M, int N, int K, float mult, float out_zp,
-                        int vec, cudaStream_t stream) {
+                        cudaStream_t stream) {
   if (M <= 0 || N <= 0) return (int)cudaSuccess;
-  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  qmatmul_requant_kernel<<<grid, kThreads, 0, stream>>>(
-      x, w, corr, bias, out, M, N, K, mult, out_zp, vec != 0);
-  return (int)cudaGetLastError();
+  if (K <= 0 || K % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return N <= 64 ? launch<64>(x, w, corr, bias, out, M, N, K, mult, out_zp,
+                              stream)
+                 : launch<128>(x, w, corr, bias, out, M, N, K, mult, out_zp,
+                               stream);
 }
 
 }  // extern "C"

@@ -5,8 +5,9 @@
 // and _fwd_kernel_s (_forward_s, the S-batched kernel that the vmap
 // emission dispatches) of bayesian_torch_tpu/ops/pallas/sampled_matmul.py,
 // which draw the weight tile inside the K loop so the sampled weight never
-// reaches device memory. Lane s draws eps under the salt of draw s of the
-// seed; lane 0 is the single-draw kernel, bit for bit. x may be shared by
+// reaches device memory. Lane s draws eps under the salt of lane s of the
+// seed (btt_draw_salt: the window [s*N*K, (s+1)*N*K) of one counter
+// stream); lane 0 is the single-draw kernel, bit for bit. x may be shared by
 // all lanes (a lane stride of 0), as the JAX vmap rule broadcasts it.
 //
 // What bounds it on an H100: at the ResNet-50 head (M=128, K=2048,
@@ -53,7 +54,8 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = tid / (kBN / 4);
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
-  const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, blockIdx.z);
+  const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, blockIdx.z,
+                                      (uint32_t)N * (uint32_t)K);
   x += (int64_t)blockIdx.z * x_lane;
   out += (int64_t)blockIdx.z * M * N;
 
@@ -114,8 +116,8 @@ extern "C" {
 
 // x (S, M, K) with lane stride x_lane (M*K, or 0 for one x shared by the
 // lanes), mu and sigma (N, K), out (S, M, N); all float32, row-major.
-// eps of lane s, weight (n, k) is the hash at counter n*K + k under the
-// salt of draw s of seed. Returns the launch's cudaGetLastError().
+// eps of lane s, weight (n, k) is the hash at counter n*K + k under
+// btt_draw_salt(seed, s, N*K). Returns the launch's cudaGetLastError().
 int btt_sampled_matmul(const float* x, int64_t x_lane, const float* mu,
                        const float* sigma, float* out, int S, int M, int N,
                        int K, uint64_t seed, cudaStream_t stream) {

@@ -12,8 +12,8 @@
 // sampled_matmul.py. JAX's _dw_s writes per-lane (S, N, K) outputs, which
 // vmap's transpose then sums over the lanes, because mu and sigma are
 // shared by them; K-E returns those sums directly. eps of lane s, weight
-// (n, k) is the hash at counter n*K + k under the salt of draw s, as K-B
-// drew it: it depends on (seed, s, n, k) only, never on the tiling. Lane 0
+// (n, k) is the hash at counter n*K + k under btt_draw_salt(seed, s,
+// N*K), as K-B drew it: it depends on (seed, s, n, k) only, never on the tiling. Lane 0
 // of each is the single-draw kernel, bit for bit.
 //
 // What bounds them on an H100: at the ResNet-50 head (M=128, K=2048,
@@ -72,7 +72,8 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = tid / (kDxBK / 4);
   const int m0 = blockIdx.y * kDxBM;
   const int k0 = blockIdx.x * kDxBK;
-  const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, blockIdx.z);
+  const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, blockIdx.z,
+                                      (uint32_t)N * (uint32_t)K);
   g += (int64_t)blockIdx.z * M * N;
   dx += (int64_t)blockIdx.z * M * K;
 
@@ -182,7 +183,8 @@ __global__ void __launch_bounds__(kThreads)
 
     // this lane's dmu and dmu * eps join the sums in lane order; lane 0
     // is stored as it is, so S = 1 is the single-draw kernel bit for bit
-    const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, (uint32_t)s);
+    const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, (uint32_t)s,
+                                            (uint32_t)N * (uint32_t)K);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll

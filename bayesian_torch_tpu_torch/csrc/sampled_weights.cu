@@ -78,7 +78,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     for (int s = 0; s < num_samples; ++s) {
-      const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, (uint32_t)s);
+      const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, (uint32_t)s,
+                                          (uint32_t)n);
       T* row = out + (int64_t)s * n;
       float v[kVec];
 #pragma unroll

@@ -70,7 +70,8 @@ __global__ void __launch_bounds__(kThreads)
     const bool full = vector_ok && base + kVec <= n;
     float acc[kVec] = {0.f, 0.f, 0.f, 0.f};
     for (int s = 0; s < num_samples; ++s) {
-      const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, (uint32_t)s);
+      const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, (uint32_t)s,
+                                          (uint32_t)n);
       const T* row = g + (int64_t)s * n;
       float gv[kVec];
       if (full) {
@@ -115,7 +116,7 @@ extern "C" {
 // g: (num_samples, n), float32 when g_bf16 == 0, bfloat16 otherwise.
 // rho: (n,) float32 for rho mode, or NULL for dsigma mode. out: (n,)
 // float32. eps of draw s at element i is the hash at counter i under
-// btt_draw_salt(seed, s), as K-A drew it. Returns cudaGetLastError().
+// btt_draw_salt(seed, s, n), as K-A drew it. Returns cudaGetLastError().
 int btt_sampled_weights_bwd(const void* g, int g_bf16, const float* rho,
                             float* out, int64_t n, int num_samples,
                             uint64_t seed, cudaStream_t stream) {

@@ -1,8 +1,9 @@
 """Shared train/eval engine of the example trainers (counterpart of
 ``bayesian_torch_tpu/examples/_engine.py``).
 
-One ELBO train step over ``mc_forward`` (the draw loop, or the vmap
-emission with ``emission="vmap"``), one MC-predictive eval step,
+One ELBO train step over ``mc_forward`` (by default the vmap emission,
+as ``emission="auto"`` resolves in training mode; the draw loop with
+``emission="scan"``), one MC-predictive eval step,
 AverageMeter-style reporting, and ``torch.save`` training
 checkpoints. Batches come from the numpy iterator ``_data.batches`` and
 go to the model's device; ``optax.sgd(lr, m)`` becomes
@@ -64,7 +65,8 @@ def make_train_step(num_mc: int, batch_size: int, mesh=None,
     BatchNorm running statistics update inside ``mc_forward`` (one EMA
     update per step for ``num_mc > 1``). ``presample`` and ``emission``
     are passed to ``mc_forward`` ("auto" draws inside the layers in
-    training mode; ``emission="vmap"`` runs all draws in one forward).
+    training mode and, for ``num_mc > 1``, runs all draws in one forward
+    through the vmap emission; ``emission="scan"`` runs the draw loop).
     """
 
     def train_step(model, optimizer, x, y):

@@ -54,16 +54,18 @@ _SIGNATURES = {
                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
                               ctypes.c_uint64, _P),
     # x, w, corr (or NULL), bias (or NULL), out, M, N, K, mult, out_zp,
-    # vec, stream
+    # stream
     "btt_qmatmul_requant": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                            ctypes.c_int, _P),
-    # x, w, bias (or NULL), y, dtype code, B, S, O, C, P, x batch stride,
-    # x lane stride, w lane stride, bias lane stride, xvec, wvec, stream
+                            _P),
+    # x, w, bias (or NULL), y, dtype code, B, S, O, C, P, w row length,
+    # x batch stride, x lane stride, w lane stride, bias lane stride, xvec,
+    # wvec, stream
     "btt_mc_gemm": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                    ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P),
+                    ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                    ctypes.c_int, _P),
 }
 
 

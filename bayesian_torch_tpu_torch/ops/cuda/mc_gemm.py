@@ -22,9 +22,12 @@ launch count:
   ``matmul(a, b)`` is its B = 1 case, ``(M, K) @ (K, N)``.
 
 A CPU tensor takes the plain version (an f32 einsum; f64 for int8, where
-it is exact). A CUDA tensor launches the kernel or raises. The kernel has
-no backward: with grad enabled and an operand that requires grad both
-wrappers raise on either device, and training keeps the library route.
+it is exact). A CUDA tensor launches the kernel or raises.
+
+Both float wrappers are differentiable (``_Gemm``): the input gradient is
+K-G again, on the transposed weight, and counts on the same wrapper; the
+weight and bias gradients are torch reductions over the batch and the
+positions, as XLA takes the transpose of the JAX route's dot.
 """
 
 from __future__ import annotations
@@ -64,16 +67,6 @@ def _operands(x, w, bias):
     return x4, w3, b2, S
 
 
-def _refuse_grad(*tensors):
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the per-draw GEMM kernel (K-G) has no backward yet (ROADMAP.md "
-            "Queue 1 #10): run inference under torch.no_grad() (mc_forward "
-            "does so on a model in eval mode), and train through the "
-            "library route (ops.conv.CONV_1X1_DOT = False, the default)")
-
-
 def _plain(x4, w3, b2, S):
     acc = torch.float64 if x4.dtype == torch.int8 else torch.float32
     out = torch.int32 if x4.dtype == torch.int8 else x4.dtype
@@ -95,6 +88,12 @@ def _vec(t, row_elems):
     return 1
 
 
+def _aligned(t):
+    """``t``, or a copy of it when its base is not 16-byte aligned (the
+    tensor maps and the widest loads need it)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(x4, w3, b2, S):
     from bayesian_torch_tpu_torch.ops.cuda import _build
 
@@ -108,6 +107,13 @@ def _launch(x4, w3, b2, S):
     out = torch.int32 if x4.dtype == torch.int8 else x4.dtype
     if b2 is not None:
         b2 = b2.detach().to(out).contiguous()
+    w_row = C
+    if x4.dtype == torch.bfloat16:
+        # the weight's tensor map needs rows of a multiple of 16 bytes:
+        # zero columns past C add nothing (x's rows past C load as 0)
+        w_row = -(-C // 8) * 8
+        w3 = _aligned(torch.nn.functional.pad(w3, (0, w_row - C))
+                      if w_row != C else w3)
     y = torch.empty((B, S, O, P), dtype=out, device=x4.device)
     lib = _build.load_library()
     with torch.cuda.device(x4.device):
@@ -115,23 +121,78 @@ def _launch(x4, w3, b2, S):
         code = lib.btt_mc_gemm(
             x4.data_ptr(), w3.data_ptr(),
             None if b2 is None else b2.data_ptr(), y.data_ptr(),
-            _DTYPE_CODES[x4.dtype], B, S, O, C, P, Sx * C * P,
+            _DTYPE_CODES[x4.dtype], B, S, O, C, P, w_row, Sx * C * P,
             C * P if Sx == S and S > 1 else 0,
-            O * C if Sw == S and S > 1 else 0,
+            O * w_row if Sw == S and S > 1 else 0,
             O if b2 is not None and b2.shape[0] == S and S > 1 else 0,
-            _vec(x4, P), _vec(w3, C), stream)
+            _vec(x4, P), _vec(w3, w_row), stream)
     _build.check(lib, code, "mc_gemm")
     return y
 
 
-def _run(x, w, bias, counter):
-    x4, w3, b2, S = _operands(x, w, bias)
-    _refuse_grad(x, w, bias)
-    if _on_cpu(*(t for t in (x, w, bias) if t is not None)):
+def _apply(x4, w3, b2, S, counter):
+    """One K-G product on CUDA tensors (counted on ``counter``), the plain
+    version on CPU ones."""
+    if _on_cpu(*(t for t in (x4, w3, b2) if t is not None)):
         return _plain(x4, w3, b2, S)
-    y = _launch(x4.detach(), w3.detach(), b2, S)
+    y = _launch(x4, w3, b2, S)
     counter.launches += 1
     return y
+
+
+class _Gemm(torch.autograd.Function):
+    """K-G forward; backward ``dx[b, s] = w[s]^T g[b, s]`` through K-G on
+    the transposed weight (one launch, counted on the same wrapper), and
+    ``dw[s] = sum_{b,p} g[b, s] x[b, s]^T``, ``dbias = sum_{b,p} g`` as
+    torch reductions (the JAX route leaves its transpose to XLA's dot,
+    outside any Pallas kernel). A shared operand (a lane stride of 0) gets
+    the sum over the draws."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, counter):
+        x4, w3, b2, S = _operands(x, w, bias)
+        ctx.counter = counter
+        ctx.bias = None if bias is None else (bias.shape, bias.dtype)
+        ctx.save_for_backward(x, w)
+        return _apply(x4, w3, b2, S, counter)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        x4, w3, _, S = _operands(x, w, None)
+        B, Sx, C, P = x4.shape
+        Sw, O, _ = w3.shape
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            if Sx == S:
+                wt = w3.transpose(1, 2).contiguous()  # (Sw, C, O)
+                dx = _apply(g, wt, None, S, ctx.counter)
+            else:
+                # one input for all draws: sum over (s, o) as one product,
+                # w (S, O, C) -> (C, S*O) on g viewed (B, 1, S*O, P)
+                wt = w3.expand(S, O, C).permute(2, 0, 1).reshape(1, C, S * O)
+                dx = _apply(g.reshape(B, 1, S * O, P), wt.contiguous(), None,
+                            1, ctx.counter)
+            dx = dx.reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = torch.einsum("bsop,bscp->soc", g, x4.expand(B, S, C, P))
+            if Sw == 1:
+                dw = dw.sum(0, keepdim=True)
+            dw = dw.reshape(w.shape).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            shape, dtype = ctx.bias
+            db = g.float().sum((0, 3))
+            if len(shape) == 1 or (shape[0] == 1 and S > 1):
+                db = db.sum(0)
+            db = db.reshape(shape).to(dtype)
+        return dx, dw, db, None
+
+
+def _run(x, w, bias, counter):
+    if x.dtype == torch.int8:  # integer tensors carry no gradient
+        return _apply(*_operands(x, w, bias), counter)
+    return _Gemm.apply(x, w, bias, counter)
 
 
 def mc_gemm_plain(x, w, bias=None):
@@ -142,7 +203,8 @@ def mc_gemm_plain(x, w, bias=None):
 
 def mc_gemm(x, w, bias=None):
     """Per-draw GEMM: ``w (S, O, C)``, ``bias (S, O)`` or None, ``x (B, S,
-    C, P)`` or shared ``(B, C, P)`` -> ``(B, S, O, P)``."""
+    C, P)`` or shared ``(B, C, P)`` -> ``(B, S, O, P)``. Differentiable in
+    x, w and bias."""
     if w.dim() != 3:
         raise ValueError(f"mc_gemm: need w (S, O, C); got {tuple(w.shape)} "
                          "(one weight for all draws is pointwise_gemm)")
@@ -151,7 +213,7 @@ def mc_gemm(x, w, bias=None):
 
 def pointwise_gemm(x, w, bias=None):
     """One weight for the whole batch: ``w (O, C)``, ``bias (O,)`` or None,
-    ``x (B, C, P)`` -> ``(B, O, P)``."""
+    ``x (B, C, P)`` -> ``(B, O, P)``. Differentiable in x, w and bias."""
     if w.dim() != 2 or x.dim() != 3:
         raise ValueError(f"pointwise_gemm: need w (O, C) and x (B, C, P); "
                          f"got w {tuple(w.shape)}, x {tuple(x.shape)}")
@@ -167,5 +229,5 @@ def matmul(a, b):
     return pointwise_gemm(b[None], a)[0]
 
 
-mc_gemm.launches = 0
+mc_gemm.launches = 0  # K-G launches of either direction, from any caller
 pointwise_gemm.launches = 0

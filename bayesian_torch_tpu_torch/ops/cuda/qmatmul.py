@@ -4,26 +4,31 @@
 ``qmatmul_requant(x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale,
 out_zp)`` takes uint8 x (M, K) and int8 w (N, K) and returns uint8 (M, N):
 
-    acc[m, n] = sum_k (x[m, k] - 128) * w[n, k]                 (exact)
+    acc[m, n] = sum_k x[m, k] * w[n, k]                         (exact)
     out[m, n] = clamp(round(f32(acc + corr[n]) * mult + b[n]) + out_zp,
                       0, 255)
 
-with ``corr = (128 - x_zp) * colsum(w)`` (none when x_zp == 128),
-``mult = x_scale * w_scale * (1/out_scale)`` and ``b = bias * (1/out_scale)``,
-computed here in the order of the JAX ``qlinear`` (``requant_args``). That
-is the epilogue of the JAX default (XLA) route, not the folded ``beta`` of
-the Pallas kernel, so the CUDA kernel (``csrc/qmatmul.cu``), its plain
-version below and the JAX default route agree bit for bit.
+with ``corr = -x_zp * colsum(w)`` (none when x_zp == 0), so ``acc + corr``
+is the exact ``sum_k (x - x_zp) * w``, ``mult = x_scale * w_scale *
+(1/out_scale)`` and ``b = bias * (1/out_scale)``, computed here in the
+order of the JAX ``qlinear`` (``requant_args``). That is the epilogue of
+the JAX default (XLA) route, not the folded ``beta`` of the Pallas kernel,
+so the CUDA kernel (``csrc/qmatmul.cu``), its plain version below and the
+JAX default route agree bit for bit.
 
 A CPU tensor takes the plain version: the integer product as a float64
-matmul of the centred operands (exact: |acc| <= 128*127*K < 2**53), then
-the same f32 epilogue. A CUDA tensor launches the kernel or raises.
+matmul (exact: |acc| <= 255*128*K < 2**53), then the same f32 epilogue. A
+CUDA tensor launches the kernel or raises. The kernel's tensor maps need K
+a multiple of 16 and 16-byte aligned operands: a K off that grid is padded
+with zero columns (a zero weight adds nothing; ``ops.int8.qconv`` builds
+its patches that wide), an operand off that alignment is copied.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import _on_cpu
 
@@ -45,8 +50,8 @@ def requant_args(w_q, x_zp, x_scale, w_scale, bias_f32, out_scale):
     """(corr int32 (N,) or None, mult float, b f32 (N,) or None): the
     epilogue's integer correction, multiplier and scaled bias."""
     corr = None
-    if x_zp != 128:
-        corr = (128 - int(x_zp)) * w_q.sum(dim=1, dtype=torch.int32)
+    if x_zp != 0:
+        corr = -int(x_zp) * w_q.sum(dim=1, dtype=torch.int32)
     b = None
     if bias_f32 is not None:
         b = bias_f32.float() * (1.0 / out_scale)
@@ -55,7 +60,7 @@ def requant_args(w_q, x_zp, x_scale, w_scale, bias_f32, out_scale):
 
 def qmatmul_requant_plain(x_q, w_q, corr, mult, b, out_zp):
     """Plain torch version of K-F on the epilogue's arguments."""
-    acc = (x_q.double() - 128.0) @ w_q.double().T
+    acc = x_q.double() @ w_q.double().T
     if corr is not None:
         acc = acc + corr.double()
     out = acc.float() * mult
@@ -87,19 +92,23 @@ def _launch(x_q, w_q, corr, mult, b, out_zp):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("qmatmul_requant: x, w, corr and bias must be "
                          "contiguous")
+    K = x_q.shape[1]
+    if K % 16:
+        pad = (0, 16 - K % 16)
+        x_q, w_q = F.pad(x_q, pad), F.pad(w_q, pad)
+    x_q, w_q = (t if t.data_ptr() % 16 == 0 else t.clone()
+                for t in (x_q, w_q))
     lib = _build.load_library()
     M, K = x_q.shape
     N = w_q.shape[0]
     out = torch.empty((M, N), dtype=torch.uint8, device=x_q.device)
-    vec = K % 16 == 0 and x_q.data_ptr() % 16 == 0 \
-        and w_q.data_ptr() % 16 == 0
     with torch.cuda.device(x_q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.btt_qmatmul_requant(
             x_q.data_ptr(), w_q.data_ptr(),
             None if corr is None else corr.data_ptr(),
             None if b is None else b.data_ptr(), out.data_ptr(), M, N, K,
-            mult, out_zp, int(vec), stream)
+            mult, out_zp, stream)
     _build.check(lib, code, "qmatmul_requant")
     qmatmul_requant.launches += 1
     return out

@@ -11,7 +11,7 @@ tiling, so the plain version is ``x @ (mu + sigma * eps_full)^T``.
 
 ``sampled_matmul_batched(seed, x, mu, rho, S)`` is the S-batched form that
 the JAX vmap emission dispatches (``sampled_matmul_pallas_batched``): lane
-s draws eps under the salt of draw s, so its weight is draw s of
+s draws eps under ``draw_salt(seed, s, N*K)``, so its weight is draw s of
 ``sample_scaled_normals_batch(seed, mu, sigma, S)``, and all lanes run in
 ONE launch of K-B with its lane axis. x is per lane (S, M, K) or shared by
 the lanes (M, K). Lane 0 is ``sampled_matmul``, bit for bit: the single
@@ -31,10 +31,13 @@ tensor launches the kernels or raises.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import _on_cpu
-from bayesian_torch_tpu_torch.ops.sampling import (draw_salt, normal_fused,
+from bayesian_torch_tpu_torch.ops.sampling import (check_counters,
+                                                   draw_salt, normal_fused,
                                                    sigma_from_rho)
 
 
@@ -80,9 +83,11 @@ def matmul_dw(g, x, eps):
 
 def _eps(seed, shape, device, num_samples=None):
     """eps of draw 0, or the (S, *shape) stack of draws 0..S-1."""
+    n = math.prod(shape)
     if num_samples is None:
-        return normal_fused(draw_salt(seed, 0), shape, device=device)
-    return torch.stack([normal_fused(draw_salt(seed, s), shape, device=device)
+        return normal_fused(draw_salt(seed, 0, n), shape, device=device)
+    return torch.stack([normal_fused(draw_salt(seed, s, n), shape,
+                                     device=device)
                         for s in range(num_samples)])
 
 
@@ -277,6 +282,7 @@ def sampled_matmul(seed, x, mu, rho, *, out_dtype=None):
         raise ValueError(f"need x (M, K) and mu, rho (N, K); got x "
                          f"{tuple(x.shape)}, mu {tuple(mu.shape)}, rho "
                          f"{tuple(rho.shape)}")
+    check_counters(1, mu.numel())
     sigma = sigma_from_rho(rho.float())
     return _SampledMatmul.apply(seed, None, x, mu, sigma).to(out_dtype)
 
@@ -304,6 +310,7 @@ def sampled_matmul_batched(seed, x, mu, rho, num_samples=None, *,
                          f"and mu, rho (N, K); got x {tuple(x.shape)}, "
                          f"num_samples {num_samples}, mu {tuple(mu.shape)}, "
                          f"rho {tuple(rho.shape)}")
+    check_counters(num_samples, mu.numel())
     sigma = sigma_from_rho(rho.float())
     return _SampledMatmul.apply(seed, int(num_samples), x, mu,
                                 sigma).to(out_dtype)

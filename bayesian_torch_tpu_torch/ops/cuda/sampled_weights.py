@@ -21,9 +21,12 @@ tensor launches the kernels or raises.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from bayesian_torch_tpu_torch.ops.sampling import (draw_salt, normal_fused,
+from bayesian_torch_tpu_torch.ops.sampling import (check_counters,
+                                                   draw_salt, normal_fused,
                                                    sigma_from_rho)
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
@@ -46,7 +49,8 @@ def noise_grad(g, eps_of):
 
 
 def _eps(seed, s, shape, device):
-    return normal_fused(draw_salt(seed, s), shape, device=device)
+    return normal_fused(draw_salt(seed, s, math.prod(shape)), shape,
+                        device=device)
 
 
 def sample_scaled_normals_batch_plain(seed, mu, sigma, num_samples,
@@ -226,6 +230,7 @@ def sample_scaled_normals_batch(seed, mu, sigma, num_samples,
     num_samples = int(num_samples)
     if num_samples < 1:
         raise ValueError(f"num_samples must be >= 1, got {num_samples}")
+    check_counters(num_samples, mu.numel())
     return _BatchSampler.apply(seed, mu, sigma, num_samples, out_dtype)
 
 
@@ -237,6 +242,7 @@ def sample_gaussian(seed, mu, rho, out_dtype=torch.bfloat16):
     counterpart of ``sample_gaussian_pallas``. Differentiable in mu and
     rho (backward: dmu = g, drho from K-C's rho mode)."""
     _check_sampler_args(mu, rho, "rho", out_dtype)
+    check_counters(1, mu.numel())
     return _GaussianSampler.apply(seed, mu, rho, out_dtype)
 
 

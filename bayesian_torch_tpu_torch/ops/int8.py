@@ -18,7 +18,8 @@ of ``ops/cuda/qmatmul.py`` (K-F on CUDA tensors, its plain version on CPU
 tensors). A 1x1 conv is a strided slice and the GEMM; a spatial conv is a
 uint8 im2col into the same GEMM, padded with the activation zero point so
 padded taps add nothing (the JAX package's opt-in im2col route, whose value
-equals its default XLA conv route). Activations keep their NCHW shape; a
+equals its default XLA conv route), its rows widened to a multiple of 16
+bytes with zero weight columns (the stem's 147 to 160). Activations keep their NCHW shape; a
 conv's output is the GEMM's (B*Ho*Wo, O) result viewed as NCHW, so its
 memory is channels-last and the next conv's im2col reads it without a
 transpose.
@@ -124,11 +125,18 @@ def qconv(x_q, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale, out_zp, *,
     nd = x_q.dim() - 2
     k = tuple(w_q.shape[2:])
     st, pd, dl = (_ntuple(v, nd) for v in (stride, padding, dilation))
+    cin = x_q.shape[1]
+    kdim = math.prod(k) * cin
+    # the GEMM's rows are a multiple of 16 bytes (K-F's tensor maps): the
+    # patches carry zero columns past kdim, the weight zero columns there
+    kpad = -kdim % 16
     # (B, *sp, C): a view without copy when x_q is channels-last in memory
     xl = x_q.permute(0, *range(2, nd + 2), 1)
     if all(ki == 1 for ki in k) and all(p == 0 for p in pd):
         patches = xl[(slice(None),) + tuple(slice(None, None, s) for s in st)]
         out_sp = tuple(patches.shape[1:-1])
+        if kpad:
+            patches = F.pad(patches, (0, kpad))
     else:
         pad = []
         for p in reversed(pd):
@@ -142,12 +150,16 @@ def qconv(x_q, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale, out_zp, *,
                 slice(offs[i] * dl[i],
                       offs[i] * dl[i] + st[i] * (out_sp[i] - 1) + 1, st[i])
                 for i in range(nd))])
-        patches = torch.stack(taps, dim=-2)  # (B, *out_sp, prod(k), C)
-    cin = x_q.shape[1]
+        if kpad:
+            taps.append(xp.new_zeros(()).expand(
+                tuple(taps[0].shape[:-1]) + (kpad,)))
+        patches = torch.cat(taps, dim=-1)  # (B, *out_sp, prod(k)*C + kpad)
     m = x_q.shape[0] * math.prod(out_sp)
     # w (O, C, *k) -> (O, (*k, C)) to match the patch order
     w2 = w_q.permute(0, *range(2, nd + 2), 1).reshape(w_q.shape[0], -1)
-    out = qlinear(patches.reshape(m, math.prod(k) * cin), x_scale, x_zp, w2,
+    if kpad:
+        w2 = F.pad(w2, (0, kpad))
+    out = qlinear(patches.reshape(m, kdim + kpad), x_scale, x_zp, w2,
                   w_scale, bias_f32, out_scale, out_zp)
     out = out.reshape((x_q.shape[0],) + out_sp + (w_q.shape[0],))
     return out.permute(0, nd + 1, *range(1, nd + 1))

@@ -11,8 +11,11 @@ its plain version give the same eps, and a CPU test can hold the
 generator against JAX's own ``normal_fused`` given the same salt (they
 differ only in the last ulp of log and cos).
 
-Counters are 32-bit, as in the JAX generator: a tensor of more than 2**32
-elements would reuse its counters.
+Counters are 32-bit, as in the JAX generator. The S draws of one launch
+take consecutive windows of one salt's counter stream (``draw_salt``), so
+their eps never repeat one another; draws of different launches come from
+independent seeds, and two windows of n1 and n2 counters under two of them
+overlap with probability (n1 + n2 - 1) / 2**32.
 """
 
 from __future__ import annotations
@@ -78,12 +81,29 @@ def device_generator(generator: torch.Generator, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(draw_seed(generator))
 
 
-def draw_salt(seed: int, s: int) -> int:
-    """32-bit salt of draw ``s`` under a 64-bit ``seed``; the kernels mix
-    it the same way (csrc/noise.cuh ``btt_draw_salt``)."""
+def _seed_salt(seed: int, k: int) -> int:
+    """32-bit digest of a 64-bit ``seed`` and a stream index ``k``."""
     lo = seed & _M32
     hi = (seed >> 32) & _M32
-    return _splitmix32(lo ^ _splitmix32((hi + (s + 1) * _SM32_GOLDEN) & _M32))
+    return _splitmix32(lo ^ _splitmix32((hi + (k + 1) * _SM32_GOLDEN) & _M32))
+
+
+def draw_salt(seed: int, s: int, n: int) -> int:
+    """Salt of lane ``s`` of a launch that draws ``n`` counters per lane
+    under a 64-bit ``seed``: lane 0's salt advanced by ``s * n`` counters,
+    so that ``hash(salt_s, i) == hash(salt_0, s*n + i)`` and the S lanes
+    read consecutive, disjoint windows of one counter stream. The kernels
+    compute the same (csrc/noise.cuh ``btt_draw_salt``); a launch needs
+    ``S * n < 2**32`` (``check_counters``)."""
+    return (_seed_salt(seed, 0) + s * n * _SM32_GOLDEN) & _M32
+
+
+def check_counters(num_samples: int, n: int) -> None:
+    """Raise unless the ``num_samples`` lanes of ``n`` counters each fit
+    in the 32-bit counter stream of one salt."""
+    if num_samples * n >= 2**32:
+        raise ValueError(f"{num_samples} draws of {n} elements exceed the "
+                         "2**32 counters of one salt")
 
 
 # On the CPU the hash runs in chunks that stay in cache (about 15x faster
@@ -140,7 +160,7 @@ def sign_salts(seed: int, s: int = 0):
     """(input-sign salt, output-sign salt) of draw ``s`` under one 64-bit
     ``seed``: the Flipout layers' two sign streams (the JAX ops split
     their key instead)."""
-    return draw_salt(seed, 2 * s), draw_salt(seed, 2 * s + 1)
+    return _seed_salt(seed, 2 * s), _seed_salt(seed, 2 * s + 1)
 
 
 def rademacher_lanes(salts, shape, dtype=torch.float32, device=None,

@@ -3,13 +3,14 @@
 
 ``mc_forward`` has two emissions:
 
-- the draw loop (``emission="auto"`` or ``"scan"``), the Python-loop twin
-  of the JAX scan emission: S forwards of the model. In eval mode every
-  layer's S weight sets are drawn first, by the batch-sampler kernel in
-  one launch (``_presample_layers``); in training mode the draws are
-  sampled inside the layers;
-- the vmap emission (``emission="vmap"``, JAX ``_mc_forward_inner``): ONE
-  forward in which the draw axis is written out in the tensors. The draw
+- the draw loop (``emission="scan"``, and ``"auto"`` in eval mode), the
+  Python-loop twin of the JAX scan emission: S forwards of the model. In
+  eval mode every layer's S weight sets are drawn first, by the
+  batch-sampler kernel in one launch (``_presample_layers``); in training
+  mode the draws are sampled inside the layers;
+- the vmap emission (``emission="vmap"``, and ``"auto"`` in training mode,
+  JAX ``_mc_forward_inner``): ONE forward in which the draw axis is
+  written out in the tensors. The draw
   count is set on every module for the call (``_mc_draws``, as the JAX
   structured path sets ``_mc_structured``); activations are (B, S*C, ...)
   with draw s in channel block s, so every Bayesian layer draws its S
@@ -147,23 +148,45 @@ def _apply_bn_ema(mod):
     mod.running_var.mul_(1 - factor).add_(factor * unbiased_var)
 
 
-def _check_draw_axis(model: nn.Module):
-    """Raise, naming the module, if a module of the model mixes channels
-    and has no draw-axis forward: a module with parameters or buffers of
-    its own that does not declare ``takes_draw_axis`` (a plain
-    ``torch.nn.Conv2d``, ``Linear`` or ``BatchNorm2d``, a quantized
-    layer), or a layer being calibrated. Parameter-free modules (ReLU,
-    pools, containers) are channel-agnostic."""
+def _draw_axis_refusal(model: nn.Module):
+    """The first module of the model that cannot take the draw axis, as
+    ``(name, module)``, or None: a module that mixes channels and has no
+    draw-axis forward (parameters or buffers of its own and no
+    ``takes_draw_axis``: a plain ``torch.nn.Conv2d``, ``Linear`` or
+    ``BatchNorm2d``, a quantized layer), or a layer being calibrated.
+    Parameter-free modules (ReLU, pools, containers) are
+    channel-agnostic."""
     for name, mod in model.named_modules():
         own = next(mod.parameters(recurse=False), None) is not None \
             or next(mod.buffers(recurse=False), None) is not None
         if getattr(mod, "quant_prepare", False) or (
                 own and not getattr(mod, "takes_draw_axis", False)):
-            raise NotImplementedError(
-                f"mc_forward(emission='vmap'): module {name or '<model>'!r} "
-                f"({type(mod).__name__}) cannot take the draw axis (it "
-                "mixes channels and has no draw-axis forward); use the draw "
-                "loop (emission='auto')")
+            return name, mod
+    return None
+
+
+def _check_draw_axis(model: nn.Module):
+    """Raise, naming the module, if a module of the model cannot take the
+    draw axis (``_draw_axis_refusal``)."""
+    refused = _draw_axis_refusal(model)
+    if refused is not None:
+        name, mod = refused
+        raise NotImplementedError(
+            f"mc_forward(emission='vmap'): module {name or '<model>'!r} "
+            f"({type(mod).__name__}) cannot take the draw axis (it "
+            "mixes channels and has no draw-axis forward); use the draw "
+            "loop (emission='scan')")
+
+
+def _resolve_emission(model: nn.Module, num_mc: int, training: bool):
+    """``emission="auto"`` by the JAX rule (``_resolve_emission``) less its
+    TPU work threshold: the vmap emission for a model in training mode
+    with more than one draw, the draw loop otherwise (inference, where the
+    card agrees with the loop) and for a model that cannot take the draw
+    axis (a quantized or a plain ``torch.nn`` layer)."""
+    if training and num_mc > 1 and _draw_axis_refusal(model) is None:
+        return "vmap"
+    return "scan"
 
 
 @contextlib.contextmanager
@@ -229,12 +252,13 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
     returned once (it enters a loss once). ``return_kl=False`` also skips
     evaluating it (``compute_kl`` overrides that link).
 
-    ``emission``: "auto" and "scan" run the draw loop, one forward per
-    draw (the mean accumulates inside the loop); "vmap" runs all draws in
-    one forward with the draw axis written out in the tensors (module
+    ``emission``: "scan" runs the draw loop, one forward per draw (the
+    mean accumulates inside the loop); "vmap" runs all draws in one
+    forward with the draw axis written out in the tensors (module
     docstring), and raises ``NotImplementedError`` naming the first module
-    that cannot take it. Which emission "auto" should pick on the card is
-    not measured yet; it keeps the loop.
+    that cannot take it. "auto" follows the JAX rule less its TPU work
+    threshold (``_resolve_emission``): vmap for a model in training mode
+    with ``num_mc > 1`` that can take the draw axis, the loop otherwise.
 
     ``presample``: "on" draws every layer's weights with the batch-sampler
     kernel before the forwards (differentiable: its backward is one
@@ -271,16 +295,18 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
         raise NotImplementedError(
             "mc_forward: structured=True and mesh= are not ported yet "
             "(ROADMAP Queue 1); the port runs the draw loop (emission="
-            "'auto' or 'scan') or the vmap emission (emission='vmap')")
+            "'scan') or the vmap emission (emission='vmap')")
     if presample in ("xla", "hash"):
         raise NotImplementedError(
             f"mc_forward: presample={presample!r} is a TPU code-generation "
             "variant and is not ported (ROADMAP 'Not ported'); use 'on' "
             "or 'off'")
+    training = any(mod.training for mod in model.modules())
+    if emission == "auto":
+        emission = _resolve_emission(model, num_mc, training)
     vmap = emission == "vmap" and num_mc > 1
     if vmap:
         _check_draw_axis(model)
-    training = any(mod.training for mod in model.modules())
     if presample == "auto":
         presample = "off" if training or vmap else "on"
     if compute_kl is None:

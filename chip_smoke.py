@@ -31,6 +31,9 @@ Phases, each printing its own line(s):
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
 2. build: the CUDA kernels compiled from ``bayesian_torch_tpu_torch/csrc``;
+   each kernel's wgmma (HGMMA, IGMMA) and TMA (UTMALDG, UBLKCP)
+   instructions counted in ``cuobjdump -sass`` of the library: K-G's bf16
+   kernels and K-F must hold wgmma and TMA loads;
 3. K-A (batch weight sampler) against its plain torch version at the
    ResNet-50 flat size (all Bayesian weights, 10 draws), f32 and bf16 out,
    eps moments, median times;
@@ -47,7 +50,9 @@ Phases, each printing its own line(s):
    f32 g), K-D and K-E at the head shape, f32 with TF32 off, median times;
    and ``torch.autograd.grad`` through the public ops against autograd
    through their plain versions;
-8. training path: one warm-up and three timed ELBO steps at MC-4 bs128:
+8. training path (the draw loop, ``emission="scan"``; ``"auto"`` trains
+   through the vmap emission): one warm-up and three timed ELBO steps at
+   MC-4 bs128:
    ms, images/s, loss, CE, KL and every kernel's launches per step (equal
    to the counts the model implies), finite and non-zero gradients, one
    BN EMA update per step; peak memory;
@@ -63,9 +68,11 @@ Phases, each printing its own line(s):
 13. INT8 build: the float ResNet-50 takes BN statistics from one
     training-mode forward and gives its MC-10 predictive mean, then is
     calibrated and converted (54 quantized layers, all calibrated);
-14. K-F against its plain version at every GEMM shape of one INT8 forward,
-    x_zp = 128 and x_zp = 117 with a bias, bit for bit; median times of
-    the kernel, the plain version and ``torch._int_mm``, with the bound;
+14. K-F against its plain version at every GEMM shape of one INT8 forward
+    and at ragged shapes (M off the tile, N = 64 and 1000, the stem's
+    K = 147), x_zp = 128 and x_zp = 117 with a bias, bit for bit; device
+    times (torch.profiler) of the kernel, the plain version and
+    ``torch._int_mm``, with the bound;
 15. the INT8 main path: three MC-10 bs128 batches after a warm-up, 540 K-F
     launches each, ms per batch and images/s; top-1 agreement with the
     float model (printed, not gated); the weight build of one draw alone;
@@ -85,20 +92,26 @@ Phases, each printing its own line(s):
     implies; lane for lane against the draw loop fed the same presampled
     draws; the rho = -30 check (run after phase 10);
 22. the vmap training path: at rho = -60, in f32, a vmap MC-4 step and a
-    loop MC-4 step from the untrained state agree (run before phase 8);
+    loop MC-4 step from the untrained state agree, and so do a vmap step
+    with ``CONV_1X1_DOT = True`` (K-G forward and K-G for dx, 66
+    launches) and one on the default route (run before phase 8);
     after phase 10, one warm-up and three timed MC-4 bs128 ELBO steps,
     with the checks of phase 8 (launches per step: K-A and K-C dsigma
-    once per layer, K-B, K-D and K-E with lanes once);
+    once per layer, K-B, K-D and K-E with lanes once); then the same
+    three steps with ``CONV_1X1_DOT = True`` (33 K-G launches forward and
+    33 for the input gradients per step);
 23. with ``--profile`` only: one vmap inference batch and one vmap
     training step under the profiler;
 24. K-G (the per-draw GEMM) against its plain version at the 12 pointwise
-    sites of ResNet-50 (S = 10, B = 128, bf16), with the times of the
-    S-way grouped cuDNN conv that ``conv_draws`` runs by default and of
-    ``torch.matmul`` with the broadcast weight; the shared-input and
-    shared-weight cases and a ragged case with a bias, bf16 and f32; the
-    matmul probe's two shapes (4096^3 and 8192 x 4096 x 4096) in bf16 and
-    int8 (bit for bit) beside ``torch.matmul`` and ``torch._int_mm`` (run
-    after phase 20);
+    sites of ResNet-50 (S = 10, B = 128, bf16), its S = 1 wrapper at the
+    same sites over the B*S batch, and its backward there (dx = w^T g,
+    K-G on the transposed weight, and one autograd pass: two launches),
+    with the device times of the S-way grouped cuDNN conv that
+    ``conv_draws`` runs by default and of ``torch.matmul``; the
+    shared-input and shared-weight cases with a bias (56x56, 14x14, 7x7)
+    and a ragged case, bf16 and f32; the matmul probe's two shapes
+    (4096^3 and 8192 x 4096 x 4096) in bf16 and int8 (bit for bit) beside
+    ``torch.matmul`` and ``torch._int_mm`` (run after phase 20);
 25. the pointwise emission: vmap MC-10 bs128 inference with
     ``CONV_1X1_DOT = True``, 33 K-G launches per forward, lane for lane
     against the default route on the same presampled draws, ms per batch
@@ -108,7 +121,8 @@ Phases, each printing its own line(s):
     lane for lane against the loop under the same seeds, the rho = -30
     check, one vmap batch with ``CONV_1X1_DOT = True`` (33 K-G and 33
     K-G S = 1 launches) against the default route; MC-4 bs128 ELBO steps
-    through the loop and the vmap emission (finite, non-zero gradients on
+    through the loop (``emission="scan"``) and the vmap emission (finite,
+    non-zero gradients on
     every mu and rho, launches gated); with ``--profile`` one Flipout
     inference batch and one step under the profiler.
 
@@ -129,6 +143,12 @@ import subprocess
 import sys
 import time
 
+# K-F and K-G are timed by their device time (device_ms): their wrappers'
+# host time and small torch ops (K-F's column sums) would swamp a single
+# call timed by CUDA events
+from kernel_times import BF16_OPS, HBM_BPS, INT8_OPS, device_ms
+from kernel_times import SITES as POINTWISE_SITES
+
 BATCH = 128
 NUM_MC = 10
 TRAIN_MC = 4
@@ -139,20 +159,9 @@ REPS = 5
 CALIB_BATCH = 32
 INT8_LAYERS = 54  # ResNet-50: 53 convs and the head, one K-F launch each
 
-# NVIDIA H100 SXM peaks (data sheet, dense): HBM bytes/s, f32 outside the
-# tensor cores, int8 tensor-core operations/s
-HBM_BPS = 3.35e12
+# f32 peak outside the tensor cores (data sheet; HBM_BPS, BF16_OPS and
+# INT8_OPS come from kernel_times.py with ResNet-50's 1x1 stride-1 convs)
 F32_OPS = 67e12
-BF16_OPS = 989e12
-INT8_OPS = 1979e12
-
-# ResNet-50's 1x1 stride-1 convs: (in_ch, out_ch, spatial side, count)
-POINTWISE_SITES = [
-    (64, 64, 56, 1), (64, 256, 56, 4), (256, 64, 56, 2), (256, 128, 56, 1),
-    (128, 512, 28, 4), (512, 128, 28, 3), (512, 256, 28, 1),
-    (256, 1024, 14, 6), (1024, 256, 14, 5), (1024, 512, 14, 1),
-    (512, 2048, 7, 3), (2048, 512, 7, 2),
-]
 N_POINTWISE = sum(count for *_, count in POINTWISE_SITES)  # 33
 
 
@@ -243,6 +252,51 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s in all")
     for ln in regs:
         log(f"[build] ptxas: {ln}")
+    sass_census(path)
+
+
+def sass_census(path):
+    """Which Hopper instructions each kernel of the built library holds,
+    from ``cuobjdump -sass``: HGMMA and IGMMA (wgmma, bf16 and int8),
+    UTMALDG (TMA tensor loads), UBLKCP (bulk copies). K-G's bf16 lane and
+    K-F must hold wgmma and TMA loads."""
+    import re
+    from pathlib import Path
+
+    from bayesian_torch_tpu_torch.ops.cuda import _build
+
+    names = set()
+    for src in _build._sources():
+        names.update(re.findall(r"(\w+_kernel)\(", src.read_text()))
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    ops = ("HGMMA", "IGMMA", "UTMALDG", "UBLKCP")
+    census, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            mangled = ln.split("Function :")[1].strip()
+            fn = max((n for n in names if n in mangled), key=len,
+                     default=mangled)
+            args = re.match(r"I((?:L\w\d+E)+)E",
+                            mangled.split(fn, 1)[-1])
+            if args:
+                fn += "<" + ",".join(re.findall(r"L\w(\d+)E",
+                                                args.group(1))) + ">"
+            census[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            for op in ops:
+                census[fn][op] += op in ln
+    for fn, c in sorted(census.items()):
+        log(f"[build] SASS {fn}: " + ", ".join(f"{op} {n}"
+                                                for op, n in c.items()))
+    for kernel, mma in (("mc_gemm_wgmma_kernel", "HGMMA"),
+                        ("mc_gemm_xres_kernel", "HGMMA"),
+                        ("qmatmul_wgmma_kernel", "IGMMA")):
+        found = [c for fn, c in census.items() if fn.startswith(kernel)]
+        check(found and all(c[mma] > 0 and c["UTMALDG"] > 0 for c in found),
+              f"{kernel}: no {mma} (wgmma) or UTMALDG (TMA) in its SASS")
 
 
 def flat_posterior(model):
@@ -785,7 +839,7 @@ def phase_train(model):
     model.train()
     model.fc.impl = "pallas"
     opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
-    step = make_train_step(TRAIN_MC, BATCH)
+    step = make_train_step(TRAIN_MC, BATCH, emission="scan")
     step(model, opt, images(SEED + 400), labels(SEED + 400))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -833,7 +887,7 @@ def phase_train_presample(model):
     from bayesian_torch_tpu_torch.examples._engine import make_train_step
 
     opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
-    step = make_train_step(TRAIN_MC, BATCH, presample="on")
+    step = make_train_step(TRAIN_MC, BATCH, presample="on", emission="scan")
     x, y = images(SEED + 410), labels(SEED + 410)
     reset_counts()
     t0 = time.perf_counter()
@@ -869,7 +923,7 @@ def phase_train_sanity(model):
                 if "rho" in name:
                     p.fill_(-30.0)
         opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
-        make_train_step(num_mc, BATCH)(model, opt, x, y)
+        make_train_step(num_mc, BATCH, emission="scan")(model, opt, x, y)
         grads = {n: p.grad.clone() for n, p in model.named_parameters()
                  if "mu_" in n}
         stats = {k: v.clone() for k, v in model.state_dict().items()
@@ -922,6 +976,7 @@ def phase_trainer():
         metrics, _ = run(tmp, "--mode=train", "--epochs=2")
         trained = counts()
         log(f"[trainer] launches in --epochs=2: {trained}")
+        # one draw a step (--num_mc 1): emission="auto" keeps the draw loop
         check(trained["K-A"] > 1 and trained["K-C drho"] > 0,
               "the trainer's steps did not go through K-A and K-C (drho)")
         path = os.path.join(tmp, "imagenet_bayesian_metrics.json")
@@ -998,7 +1053,7 @@ def phase_profile(model, x, kb):
         f"ms of device time per launch, {ev.count} launches")
 
 
-def phase_profile_train(model, emission="auto"):
+def phase_profile_train(model, emission="scan"):
     """One training main-path step under torch.profiler."""
     import torch
 
@@ -1106,7 +1161,7 @@ def lanes_agree(what, model, x, dot=False):
                 emission=emission))
 
     a = run("vmap", pointwise_dot() if dot else contextlib.nullcontext())
-    b = run("vmap" if dot else "auto", contextlib.nullcontext())
+    b = run("vmap" if dot else "scan", contextlib.nullcontext())
     check(tuple(a.shape) == tuple(b.shape) == (NUM_MC, BATCH, 1000),
           f"{what}: shapes {tuple(a.shape)} and {tuple(b.shape)}")
     diff, scale = max_err(a, b), b.float().abs().max().item()
@@ -1152,21 +1207,29 @@ def mc_sanity(what, model, emission):
 # --- the vmap emission --------------------------------------------------------
 
 
-def phase_vmap_train(model):
+def phase_vmap_train(model, dot=False):
     """The vmap training path: one warm-up and three timed MC-4 bs128 ELBO
-    steps; returns the kernels' launches in the three timed steps."""
+    steps; returns the kernels' launches in the three timed steps. With
+    ``dot`` the same under the pointwise emission (``CONV_1X1_DOT = True``):
+    every 1x1 stride-1 conv through K-G forward and, for its input
+    gradient, K-G on the transposed weight."""
     import torch
 
     from bayesian_torch_tpu_torch.examples._engine import make_train_step
 
+    what = "pointwise vmap train" if dot else "vmap train"
     model.train()
     model.fc.impl = "pallas"
     opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
     step = make_train_step(TRAIN_MC, BATCH, emission="vmap")
-    step(model, opt, images(SEED + 440), labels(SEED + 440))  # warm-up
+    ctx = pointwise_dot if dot else contextlib.nullcontext
+    with ctx():
+        step(model, opt, images(SEED + 440), labels(SEED + 440))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     want = expected_vmap_launches(model, training=True)
+    if dot:
+        want["K-G"] = 2 * pointwise_sites(model)
     bns = bn_layers(model)
     reset_counts()
     times = []
@@ -1176,27 +1239,30 @@ def phase_vmap_train(model):
         running = [m.running_mean.clone() for m in bns]
         before = counts()
         t0 = time.perf_counter()
-        loss, ce, kl = step(model, opt, x, y)
+        with ctx():
+            loss, ce, kl = step(model, opt, x, y)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         got = {k: v - before[k] for k, v in counts().items()}
-        log(f"[vmap train] step {i}: {times[-1]:.1f} ms, "
+        log(f"[{what}] step {i}: {times[-1]:.1f} ms, "
             f"{BATCH / times[-1] * 1e3:.1f} images/s, loss {float(loss):.4f},"
             f" CE {float(ce):.4f}, KL {float(kl):.1f}")
-        check(math.isfinite(float(loss)), f"vmap step {i}: loss {float(loss)}")
-        check_grads(model, f"vmap step {i}")
+        check(math.isfinite(float(loss)),
+              f"{what} step {i}: loss {float(loss)}")
+        check_grads(model, f"{what} step {i}")
         check(all(int(m.num_batches_tracked) == t + 1
                   for m, t in zip(bns, tracked)),
-              f"vmap step {i}: num_batches_tracked did not go up by exactly 1")
+              f"{what} step {i}: num_batches_tracked did not go up by 1")
         check(all(not torch.equal(m.running_mean, r)
                   for m, r in zip(bns, running)),
-              f"vmap step {i}: a running mean did not move")
-        check(got == want, f"vmap step {i}: launches {got}, the model implies "
-              f"{want}")
+              f"{what} step {i}: a running mean did not move")
+        check(got == want, f"{what} step {i}: launches {got}, the model "
+              f"implies {want}")
     ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[vmap train] ResNet-50 MC-{TRAIN_MC} bs{BATCH} {IMAGE}^2 bf16, "
-        f"emission='vmap', fc.impl='pallas', presample 'auto' (off): median "
+    log(f"[{what}] ResNet-50 MC-{TRAIN_MC} bs{BATCH} {IMAGE}^2 bf16, "
+        f"emission='vmap', CONV_1X1_DOT={dot}, fc.impl='pallas', presample "
+        f"'auto' (off): median "
         f"{ms:.1f} ms/step, {BATCH / ms * 1e3:.1f} images/s, peak "
         f"{peak:.2f} GiB; launches per step {want}")
     return counts()
@@ -1206,7 +1272,11 @@ def phase_vmap_train_sanity(model):
     """sigma ~ 0: a vmap MC-4 step and a loop MC-4 step from the same
     untrained state give the same mu gradients and running statistics,
     within 2^-6 of each tensor's largest value; a second loop step shows
-    the spread of the loop against itself. In f32 with TF32 off and at
+    the spread of the loop against itself. A vmap step with the pointwise
+    emission (``CONV_1X1_DOT = True``: every 1x1 stride-1 conv through K-G
+    forward and K-G on the transposed weight backward, 2 x 33 launches)
+    agrees with the vmap step on the default route within the same limit.
+    In f32 with TF32 off and at
     rho = -60 (sigma ~ 1e-26): at rho = -30 (sigma ~ 1e-13) the draws
     still change this random network's f32 layer4 gradients by more than
     2^-6 from one loop step to the next, and in bf16 the roundings of the
@@ -1222,14 +1292,16 @@ def phase_vmap_train_sanity(model):
               if hasattr(m, "compute_dtype")}
     x, y = images(SEED + 450), labels(SEED + 450)
 
-    def step_from_saved(emission):
+    def step_from_saved(emission, ctx=contextlib.nullcontext()):
         model.load_state_dict(saved)
         with torch.no_grad():
             for name, p in model.named_parameters():
                 if "rho" in name:
                     p.fill_(-60.0)
         opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
-        make_train_step(TRAIN_MC, BATCH, emission=emission)(model, opt, x, y)
+        with ctx:
+            make_train_step(TRAIN_MC, BATCH, emission=emission)(model, opt,
+                                                                 x, y)
         grads = {n: p.grad.clone() for n, p in model.named_parameters()
                  if "mu_" in n}
         stats = {k: v.clone() for k, v in model.state_dict().items()
@@ -1241,8 +1313,11 @@ def phase_vmap_train_sanity(model):
             m.compute_dtype = None
         with tf32_off():
             vmap, _, _ = step_from_saved("vmap")
-            loop, n_grads, n_stats = step_from_saved("auto")
-            loop2, _, _ = step_from_saved("auto")
+            loop, n_grads, n_stats = step_from_saved("scan")
+            loop2, _, _ = step_from_saved("scan")
+            reset_counts()
+            dot, _, _ = step_from_saved("vmap", pointwise_dot())
+            dot_launches = counts()["K-G"]
     finally:
         model.load_state_dict(saved)
         for m, dtype in dtypes.items():
@@ -1260,6 +1335,16 @@ def phase_vmap_train_sanity(model):
         f"{2**-6:.3e}; two loop steps: {spread:.3e}")
     check(err <= 2**-6, f"rho=-60: {name} differs between the vmap and loop "
           f"MC-{TRAIN_MC} steps ({err:.3e} > 2^-6 of its largest value)")
+    err, name = worst(dot, vmap)
+    sites = pointwise_sites(model)
+    log(f"[pointwise train sanity] rho=-60, f32: vmap MC-{TRAIN_MC} step with "
+        f"CONV_1X1_DOT=True against the default route: worst max|diff| / "
+        f"max|default| = {err:.3e} ({name}), limit 2^-6; {dot_launches} K-G "
+        f"launches (forward and dx at {sites} sites)")
+    check(err <= 2**-6, f"rho=-60: {name} differs between the pointwise and "
+          f"the default vmap MC-{TRAIN_MC} steps ({err:.3e} > 2^-6)")
+    check(dot_launches == 2 * sites, f"pointwise step: {dot_launches} K-G "
+          f"launches, want {2 * sites} (forward and dx)")
 
 
 # --- the INT8 post-training-quantization path --------------------------------
@@ -1267,8 +1352,9 @@ def phase_vmap_train_sanity(model):
 
 def int8_shapes(model, x):
     """{(M, K, N): launches} of K-F in one forward of a converted model:
-    a conv is an (B*Ho*Wo, C*kh*kw) x (O, C*kh*kw) GEMM, the head a
-    (B, in) x (out, in) one."""
+    a conv is an (B*Ho*Wo, K) x (O, K) GEMM with K = C*kh*kw widened to a
+    multiple of 16 as ``ops.int8.qconv`` builds its patches (the stem's 147
+    to 160), the head a (B, in) x (out, in) one."""
     import collections
 
     from bayesian_torch_tpu_torch.layers.quantized_base import (
@@ -1281,8 +1367,9 @@ def int8_shapes(model, x):
         out = out[0] if isinstance(out, tuple) else out
         if mod.is_conv:
             o = out.shape
-            shapes[(o[0] * math.prod(o[2:]), mod.in_channels
-                    * math.prod(mod.kernel_size), mod.out_channels)] += 1
+            k = mod.in_channels * math.prod(mod.kernel_size)
+            shapes[(o[0] * math.prod(o[2:]), -(-k // 16) * 16,
+                    mod.out_channels)] += 1
         else:
             shapes[(out.shape[0], mod.in_features, mod.out_features)] += 1
 
@@ -1300,10 +1387,12 @@ def int8_shapes(model, x):
 
 def phase_qmatmul(shapes):
     """K-F against its plain version at every GEMM shape of the INT8 main
-    path, with x_zp = 128 and no bias and with x_zp = 117 and a bias: bit
-    for bit. Median times of the kernel, the plain version and
-    ``torch._int_mm`` on the centred s8 operands (K, N padded to
-    multiples of 8); summed over one forward's launches."""
+    path and at ragged ones (M off the 128-row tile, N = 64, 65, 70 and
+    1000, the stem's unwidened K = 147 and other K off 16), with x_zp = 128
+    and no bias and with x_zp = 117 and a bias: bit for bit. Device times
+    of the kernel, the plain version and ``torch._int_mm`` on the centred
+    s8 operands (K, N padded to multiples of 8) at the path's shapes;
+    summed over one forward's launches."""
     import torch
     import torch.nn.functional as F
 
@@ -1313,7 +1402,8 @@ def phase_qmatmul(shapes):
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                bytes=0.0, ops=0.0)
     worst = 0
-    for (M, K, N), count in sorted(shapes.items()):
+
+    def operands(M, K, N):
         x = torch.randint(0, 256, (M, K), dtype=torch.uint8, device="cuda",
                           generator=gen)
         w = torch.randint(-128, 128, (N, K), dtype=torch.int8,
@@ -1328,16 +1418,27 @@ def phase_qmatmul(shapes):
             err = (got.int() - want.int()).abs().max().item()
             check(err == 0, f"K-F differs from its plain version at M={M} "
                   f"K={K} N={N} x_zp={x_zp}: {err} quanta")
-            worst = max(worst, err)
             del got, want
-        ms, plain_ms = median_ms_pair(
-            lambda: kf.qmatmul_requant(x, 0.02, 117, w, 0.01, b, out_scale,
-                                       128),
-            lambda: kf.qmatmul_requant_plain(x, w, *args, 128))
+        return x, w, b, out_scale, args, err
+
+    ragged = [(37, 147, 64), (1, 16, 1), (300, 100, 1000), (129, 576, 65),
+              (250, 2048, 1000), (1000, 4608, 70),
+              (BATCH * 112 * 112, 147, 64)]
+    for M, K, N in ragged:
+        worst = max(worst, operands(M, K, N)[-1])
+    log(f"[K-F] ragged (M, K, N) {ragged}: bit-exact at x_zp 128 and "
+        "117+bias")
+    for (M, K, N), count in sorted(shapes.items()):
+        x, w, b, out_scale, args, err = operands(M, K, N)
+        worst = max(worst, err)
+        ms = device_ms(lambda: kf.qmatmul_requant(
+            x, 0.02, 117, w, 0.01, b, out_scale, 128), "qmatmul")
+        plain_ms = device_ms(lambda: kf.qmatmul_requant_plain(x, w, *args,
+                                                              128))
         kp, np_ = -(-K // 8) * 8, -(-N // 8) * 8
         xc = F.pad((x.int() - 128).to(torch.int8), (0, kp - K))
         wc = F.pad(w, (0, kp - K, 0, np_ - N))
-        lib_ms = median_ms(lambda: torch._int_mm(xc, wc.t()))
+        lib_ms = device_ms(lambda: torch._int_mm(xc, wc.t()))
         nbytes, ops = M * K + N * K + M * N + 8 * N, 2 * M * N * K
         bound_ms, by = bound(nbytes, ops, INT8_OPS)
         log(f"[K-F] M={M} K={K} N={N} x{count}: kernel {ms:.4f} ms "
@@ -1602,8 +1703,12 @@ def phase_mc_gemm():
     then the shared-input and shared-weight cases and a ragged case.
     At each site the S = 1 wrapper is held the same way at the shape the
     Flipout vmap run gives it (the mean conv: one weight over the B*S
-    batch). Returns two kernels-line entries, K-G's and the S = 1
-    wrapper's: sums over one forward's 33 sites."""
+    batch). K-G's backward at each site: the input gradient dx = w^T g is
+    K-G on the transposed weight (S, C, O), held against its plain version
+    and timed beside ``torch.matmul``, and one autograd pass through
+    ``mc_gemm`` launches K-G twice and gives that dx. Returns three
+    kernels-line entries, K-G's, the S = 1 wrapper's and the backward's:
+    sums over one forward's (or backward's) 33 sites."""
     import torch
 
     from bayesian_torch_tpu_torch.ops import conv as conv_ops
@@ -1618,7 +1723,8 @@ def phase_mc_gemm():
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, cudnn_ms=0.0,
                bound_ms=0.0, bytes=0.0, ops=0.0)
     one = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    worst = worst_one = 0.0
+    bwd = dict(one)
+    worst = worst_one = worst_dx = 0.0
     for ci, co, sp, count in POINTWISE_SITES:
         x = rand(BATCH, S * ci, sp, sp)
         w = rand(S, co, ci, 1, 1)
@@ -1630,10 +1736,10 @@ def phase_mc_gemm():
         check(torch.equal(via_conv.reshape(got.shape), got),
               "conv_draws(pointwise_dot=True) is not K-G's output")
         del got, want, via_conv
-        ms, plain_ms = median_ms_pair(lambda: kg.mc_gemm(x4, w3),
-                                      lambda: kg.mc_gemm_plain(x4, w3))
-        cudnn_ms = median_ms(lambda: conv_ops.conv_draws(x, w))
-        lib_ms = median_ms(lambda: torch.matmul(w3, x4))
+        ms = device_ms(lambda: kg.mc_gemm(x4, w3), "mc_gemm")
+        plain_ms = device_ms(lambda: kg.mc_gemm_plain(x4, w3))
+        cudnn_ms = device_ms(lambda: conv_ops.conv_draws(x, w))
+        lib_ms = device_ms(lambda: torch.matmul(w3, x4))
         nbytes = 2 * (x.numel() + w.numel() + BATCH * S * co * sp * sp)
         ops = 2 * BATCH * S * co * sp * sp * ci
         bound_ms, by = bound(nbytes, ops, BF16_OPS)
@@ -1658,10 +1764,9 @@ def phase_mc_gemm():
         check(torch.equal(via_conv.reshape(got.shape), got),
               "conv_nd(pointwise_dot=True) is not K-G's output")
         del got, want, via_conv
-        ms, plain_ms = median_ms_pair(
-            lambda: kg.pointwise_gemm(xs, w0),
-            lambda: kg.mc_gemm_plain(xs, w0))
-        lib_ms = median_ms(lambda: torch.matmul(w0, xs))
+        ms = device_ms(lambda: kg.pointwise_gemm(xs, w0), "mc_gemm")
+        plain_ms = device_ms(lambda: kg.mc_gemm_plain(xs, w0))
+        lib_ms = device_ms(lambda: torch.matmul(w0, xs))
         nbytes -= 2 * (S - 1) * w0.numel()  # the weight is read once
         bound_ms, by = bound(nbytes, ops, BF16_OPS)
         log(f"[K-G S=1] {ci}->{co}@{sp} x{count}, batch {BATCH * S}: "
@@ -1672,7 +1777,35 @@ def phase_mc_gemm():
         for key, v in (("ms", ms), ("plain_ms", plain_ms),
                        ("library_ms", lib_ms), ("bound_ms", bound_ms)):
             one[key] += count * v
-        del x, w, x4, w3, xs, w0
+        del xs, w0
+        # the backward: dx through K-G on the transposed weight
+        g = rand(BATCH, S, co, sp * sp)
+        wt = w3.transpose(1, 2).contiguous()
+        want = kg.mc_gemm_plain(g, wt)
+        err, limit = kg_gate(f"K-G dx at {ci}->{co}@{sp}", kg.mc_gemm(g, wt),
+                             want)
+        worst_dx = max(worst_dx, err)
+        xg = x4.clone().requires_grad_(True)
+        wg = w3.clone().requires_grad_(True)
+        before = kg.mc_gemm.launches
+        kg.mc_gemm(xg, wg).backward(g)
+        check(kg.mc_gemm.launches == before + 2, "autograd through mc_gemm: "
+              f"{kg.mc_gemm.launches - before} K-G launches, want 2")
+        kg_gate(f"K-G autograd dx at {ci}->{co}@{sp}", xg.grad, want)
+        del want, xg, wg
+        ms = device_ms(lambda: kg.mc_gemm(g, wt), "mc_gemm")
+        plain_ms = device_ms(lambda: kg.mc_gemm_plain(g, wt))
+        lib_ms = device_ms(lambda: torch.matmul(wt, g))
+        nbytes = 2 * (g.numel() + wt.numel() + x4.numel())
+        bound_ms, by = bound(nbytes, ops, BF16_OPS)
+        log(f"[K-G dx] {co}->{ci}@{sp} x{count}: max|kernel-plain| {err:.3e} "
+            f"(limit {limit:.3e}); kernel {ms:.3f} ms ({nbytes / ms / 1e6:.0f}"
+            f" GB/s, {ops / ms / 1e9:.1f} TFLOP/s), torch.matmul {lib_ms:.3f}"
+            f" ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({by})")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("bound_ms", bound_ms)):
+            bwd[key] += count * v
+        del x, w, x4, w3, g, wt
     log(f"[K-G] one MC-{S} bs{BATCH} forward ({N_POINTWISE} sites, "
         f"{len(POINTWISE_SITES)} shapes, bf16): kernel {tot['ms']:.2f} ms, "
         f"grouped cuDNN conv {tot['cudnn_ms']:.2f} ms, torch.matmul "
@@ -1683,32 +1816,53 @@ def phase_mc_gemm():
         f"{BATCH * S}): kernel {one['ms']:.2f} ms, torch.matmul "
         f"{one['library_ms']:.2f} ms, plain {one['plain_ms']:.2f} ms, bound "
         f"{one['bound_ms']:.2f} ms")
+    log(f"[K-G dx] one MC-{S} bs{BATCH} backward's {N_POINTWISE} input "
+        f"gradients: kernel {bwd['ms']:.2f} ms, torch.matmul "
+        f"{bwd['library_ms']:.2f} ms, plain {bwd['plain_ms']:.2f} ms, bound "
+        f"{bwd['bound_ms']:.2f} ms")
 
-    # shared input (the stem-side case), shared weight, and ragged shapes
-    # with a bias: 7x7 rows of 98 bytes, C and O off the tiles
-    ci, co, sp = 256, 64, 56
-    x = rand(BATCH, ci, sp * sp)
-    w, b = rand(S, co, ci), rand(S, co)
-    e_in, _ = kg_gate("K-G, shared input", kg.mc_gemm(x, w, b),
-                      kg.mc_gemm_plain(x, w, b))
-    e_w, _ = kg_gate("K-G, shared weight", kg.pointwise_gemm(x, w[0], b[0]),
-                     kg.mc_gemm_plain(x, w[0], b[0])[:, 0])
-    del x, w, b
+    def with_bias(what, fn, x, w, b):
+        """The product within kg_gate's limit of its plain version, and
+        with the bias bit for bit that product plus the bias in the output
+        type (the epilogue: one cast, one add, one rounding)."""
+        got = fn(x, w)
+        err, _ = kg_gate(what, got, kg.mc_gemm_plain(x, w).reshape(got.shape))
+        bias = b.reshape((1, *b.shape, 1)).float()
+        want = (got.float() + bias).to(got.dtype)
+        check(torch.equal(fn(x, w, b), want), f"{what}: with the bias, not "
+              f"the kernel's product plus the bias in {got.dtype}")
+        return err
+
+    # shared input (the stem-side case), shared weight, both with a bias,
+    # where x comes by TMA (56x56) and where it comes in slabs (14x14,
+    # 7x7); and ragged shapes with a bias: 7x7 rows of 98 bytes, C and O
+    # off the tiles (C = 33: the register gather)
+    e_in = e_w = 0.0
+    for ci, co, sp in ((256, 64, 56), (1024, 256, 14), (2048, 512, 7)):
+        x = rand(BATCH, ci, sp * sp)
+        w, b = rand(S, co, ci), rand(S, co)
+        e_in = max(e_in, with_bias(f"K-G, shared input {ci}->{co}@{sp}",
+                                   kg.mc_gemm, x, w, b))
+        e_w = max(e_w, with_bias(f"K-G, shared weight {ci}->{co}@{sp}",
+                                 kg.pointwise_gemm, x, w[0], b[0]))
+        del x, w, b
     errs = []
     for dtype in (torch.bfloat16, torch.float32):
         x = rand(3, S, 33, 49, dtype=dtype)
         w, b = rand(S, 70, 33, dtype=dtype), rand(S, 70, dtype=dtype)
         with tf32_off():
-            errs.append(kg_gate(f"K-G, ragged {dtype}", kg.mc_gemm(x, w, b),
-                                kg.mc_gemm_plain(x, w, b))[0])
+            errs.append(with_bias(f"K-G, ragged {dtype}", kg.mc_gemm, x, w,
+                                  b))
     log(f"[K-G] shared input {e_in:.3e}, shared weight {e_w:.3e} (256->64@56"
-        f", bias); ragged B=3 S={S} O=70 C=33 P=49 with bias: bf16 "
-        f"{errs[0]:.3e}, f32 {errs[1]:.3e}: all within their limits")
+        f", 1024->256@14, 2048->512@7); ragged B=3 S={S} O=70 C=33 P=49: "
+        f"bf16 {errs[0]:.3e}, f32 {errs[1]:.3e}: all within their limits, "
+        "and with a bias each equal to its product plus the bias")
     _, by = bound(tot["bytes"], tot["ops"], BF16_OPS)
     return (dict(max_abs_err=worst, ms=tot["ms"], plain_ms=tot["plain_ms"],
                  bound_ms=tot["bound_ms"], bound_by=by,
                  library_ms=tot["library_ms"]),
-            dict(max_abs_err=max(worst_one, e_w), bound_by=by, **one))
+            dict(max_abs_err=max(worst_one, e_w), bound_by=by, **one),
+            dict(max_abs_err=worst_dx, bound_by=by, **bwd))
 
 
 def phase_matmul_probe():
@@ -1739,8 +1893,9 @@ def phase_matmul_probe():
             err, limit = kg_gate(f"K-G matmul {M}x{K}x{N} {dtype}",
                                  kg.matmul(a, b), plain())
             worst = max(worst, err)
-            ms, plain_ms = median_ms_pair(lambda: kg.matmul(a, b), plain)
-            lib_ms = median_ms(lambda: library(a, b))
+            ms = device_ms(lambda: kg.matmul(a, b), "mc_gemm")
+            plain_ms = device_ms(plain)
+            lib_ms = device_ms(lambda: library(a, b))
             ops = 2 * M * N * K
             nbytes = a.element_size() * (M * K + K * N) + out_size * M * N
             bound_ms, by = bound(nbytes, ops, peak)
@@ -1900,7 +2055,7 @@ def phase_flipout(profile):
     dot = phase_flipout_inference(model, batches, profile)
     del batches
     torch.cuda.empty_cache()
-    loop = phase_flipout_train(model, "auto", profile)
+    loop = phase_flipout_train(model, "scan", profile)
     vmap = phase_flipout_train(model, "vmap", profile)
     return dot, loop, vmap
 
@@ -1941,7 +2096,7 @@ def main(argv=None):
     kde_res = phase_gemm_backward(model)
     phase_autograd(model)
     lane_res = phase_lane_kernels(model)
-    kg_res, kg_one_res = phase_mc_gemm()
+    kg_res, kg_one_res, kg_dx_res = phase_mc_gemm()
     mm_res = phase_matmul_probe()
 
     for mod in model.modules():
@@ -1985,6 +2140,7 @@ def main(argv=None):
     if profile:
         phase_profile_train(model)
     vmap_train = phase_vmap_train(model)
+    pointwise_train = phase_vmap_train(model, dot=True)
     if profile:
         phase_profile_train(model, emission="vmap")
     del model
@@ -2012,8 +2168,8 @@ def main(argv=None):
     csrc = "bayesian_torch_tpu_torch/csrc/"
     pallas = "bayesian_torch_tpu/ops/pallas/"
     train_run = (f"training main path: make_train_step(num_mc={TRAIN_MC}, "
-                 f"batch_size={BATCH}), fc.impl='pallas', presample='auto', "
-                 "3 steps")
+                 f"batch_size={BATCH}, emission='scan'), fc.impl='pallas', "
+                 "presample='auto', 3 steps")
     vmap_train_run = (f"vmap training: make_train_step(num_mc={TRAIN_MC}, "
                       f"batch_size={BATCH}, emission='vmap'), "
                       "fc.impl='pallas', 3 steps")
@@ -2053,7 +2209,8 @@ def main(argv=None):
              replaces=pallas + "qmatmul.py:61",
              run=f"INT8 main path: qresnet50 calibrated, fuse_conv_bn=True, "
                  f"mc_forward(num_mc={NUM_MC}, reduce='mean'), 3 batches; "
-                 f"ms, plain_ms, bound_ms and library_ms are sums over one "
+                 f"ms, plain_ms, bound_ms and library_ms are device-time "
+                 f"sums over one "
                  f"forward's {INT8_LAYERS} GEMMs",
              launches=kf_launches, **kf_res),
         dict(name="sampled_matmul_batched", route="cuda",
@@ -2077,7 +2234,8 @@ def main(argv=None):
              run=f"pointwise vmap inference: ops.conv.CONV_1X1_DOT=True, "
                  f"mc_forward(num_mc={NUM_MC}, reduce='mean', emission="
                  f"'vmap'), 3 batches; ms, plain_ms, bound_ms and library_ms "
-                 f"(torch.matmul, broadcast weight) are sums over one "
+                 f"(torch.matmul, broadcast weight) are device-time sums "
+                 f"over one "
                  f"forward's {N_POINTWISE} pointwise sites, bf16",
              launches=pointwise["K-G"], **kg_res),
         dict(name="mc_gemm (S=1: bf16, int8)", route="cuda",
@@ -2087,12 +2245,25 @@ def main(argv=None):
                  f"mc_forward(num_mc={NUM_MC}, presample='on', emission="
                  f"'vmap'), 1 batch (the mean convs, one weight over the "
                  f"B*S batch); ms, plain_ms, bound_ms and library_ms "
-                 f"(torch.matmul, broadcast weight) are sums over one "
+                 f"(torch.matmul, broadcast weight) are device-time sums "
+                 f"over one "
                  f"forward's {N_POINTWISE} pointwise sites at batch "
                  f"{BATCH * NUM_MC}, bf16; the probe_* keys are the same "
                  f"sums (library: torch.matmul, torch._int_mm) over the "
                  f"matmul probe's 4096^3 and 8192x4096x4096 in bf16 and int8",
              launches=flipout_dot["K-G S=1"], **kg_one_res, **mm_res),
+        dict(name="mc_gemm (backward: dx = w^T g)", route="cuda",
+             source=csrc + "mc_gemm.cu",
+             replaces="benchmarks/bench_1x1_mc.py:52",
+             run=f"pointwise vmap training: ops.conv.CONV_1X1_DOT=True, "
+                 f"make_train_step(num_mc={TRAIN_MC}, batch_size={BATCH}, "
+                 f"emission='vmap'), 3 steps; launches count K-G's forward "
+                 f"and its dx ({N_POINTWISE} each per step); ms, plain_ms, "
+                 f"bound_ms and library_ms (torch.matmul) are device-time "
+                 f"sums over one "
+                 f"MC-{NUM_MC} bs{BATCH} backward's {N_POINTWISE} input "
+                 f"gradients, bf16",
+             launches=pointwise_train["K-G"], **kg_dx_res),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never ran in {k['run']}")

@@ -320,7 +320,8 @@ def test_qmatmul_matches_plain(cuda, m, n, k, x_zp, with_bias):
 
 
 def test_qmatmul_unaligned_view(cuda):
-    """A contiguous view at an odd offset takes the byte-wise loads."""
+    """A contiguous view at an odd offset (copied to an aligned buffer for
+    the tensor map) gives the same bytes."""
     x, w, bias, out_scale = _int8_operands(65, 48, 64, cuda)
     xv = x.reshape(-1)[1:1 + 64 * 64].reshape(64, 64)
     got = kf.qmatmul_requant(xv, 0.02, 120, w, 0.01, bias, out_scale, 128)
@@ -394,7 +395,12 @@ def _kg_check(got, want, dtype):
 # (B, S, O, C, P): P = 49 and 196 are ResNet-50's 7x7 and 14x14 maps (rows
 # of 98 and 392 bytes in bf16), C and O off the 16- and 64-wide tiles
 _KG_SHAPES = [(2, 3, 5, 7, 49), (3, 2, 70, 33, 50), (1, 1, 64, 64, 64),
-              (2, 3, 129, 65, 196), (2, 2, 17, 130, 7), (1, 4, 256, 96, 784)]
+              (2, 3, 129, 65, 196), (2, 2, 17, 130, 7), (1, 4, 256, 96, 784),
+              # x in slabs (C a multiple of 8, rows of 98 bytes), with one
+              # and two consumer warpgroups and a ring that wraps; x
+              # resident (C <= 512, O > 128) with a weight ring that wraps
+              (2, 3, 70, 64, 49), (3, 2, 40, 72, 49), (2, 2, 96, 640, 49),
+              (2, 3, 200, 320, 49)]
 
 
 @pytest.mark.parametrize("dtype", _KG_DTYPES)
@@ -444,7 +450,7 @@ def test_matmul_is_the_probe_at_a_small_size(cuda, dtype):
         assert _max_err(got, want) <= 2.0 ** -7 * _scale(want)
 
 
-def test_mc_gemm_raises_on_bad_input_and_under_grad(cuda):
+def test_mc_gemm_raises_on_bad_input(cuda):
     x = torch.randn(2, 3, 8, 16, device=cuda)
     w = torch.randn(3, 4, 8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -453,8 +459,34 @@ def test_mc_gemm_raises_on_bad_input_and_under_grad(cuda):
         kg.mc_gemm(x, w.cpu())
     with pytest.raises(ValueError):
         kg.mc_gemm(x.half(), w.half())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kg.mc_gemm(x, w.requires_grad_(True))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", _KG_SHAPES[:4])
+@pytest.mark.parametrize("shared", ["none", "x", "w"])
+def test_mc_gemm_backward_matches_the_cpu(cuda, dtype, shape, shared):
+    """K-G's gradients on the card (dx through K-G, one launch counted on
+    the wrapper) against the same autograd on a CPU copy (the plain
+    version), in f32 (1e-4 x max, order of summation) and bf16 (two ulps
+    of the largest value: the product and dx each round once)."""
+    B, S, O, C, P = shape
+    x = _kg_rand((B, C, P) if shared == "x" else (B, S, C, P), dtype, cuda, 13)
+    w = _kg_rand((1 if shared == "w" else S, O, C), dtype, cuda, 14)
+    bias = _kg_rand((w.shape[0], O), dtype, cuda, 15)
+    g = _kg_rand((B, S, O, P), dtype, cuda, 16)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        t = [a.detach().to(dev).requires_grad_(True) for a in (x, w, bias)]
+        before = kg.mc_gemm.launches
+        (kg.mc_gemm(*t) * g.to(dev)).sum().backward()
+        if dev == cuda:
+            assert kg.mc_gemm.launches == before + 2
+        grads.append([a.grad for a in t])
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for got, want in zip(*grads):
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert _max_err(got.cpu(), want) <= tol * _scale(want)
 
 
 @pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])

@@ -255,7 +255,7 @@ def test_uninjected_noise_is_the_counter_hash_under_the_layers_seeds():
                              *args[1:], **kw)
     gen = torch.Generator().manual_seed(5)
     seeds = [ts.draw_seed(gen) for _ in range(3)]
-    eps = [ts.normal_fused(ts.draw_salt(seed, 0), p.shape)
+    eps = [ts.normal_fused(ts.draw_salt(seed, 0, p.numel()), p.shape)
            for seed, p in zip(seeds, (args[1], args[3]))]
     salts = ts.sign_salts(seeds[2])
     want = tconv.flipout_conv(
@@ -551,7 +551,7 @@ def _jax_step(jm, x, y, num_mc, batch, lr):
                          for path, v in nnx.to_flat_state(grads)}
 
 
-@pytest.mark.parametrize("emission", ["auto", "vmap"])
+@pytest.mark.parametrize("emission", ["auto", "vmap", "scan"])
 def test_flipout_elbo_step_matches_jax(emission):
     """One MC-2 ELBO step at rho = -30: the perturbation vanishes (sigma ~
     1e-13), so the two packages' noise streams do not matter; loss,
@@ -597,13 +597,13 @@ def test_flipout_training_draws_reach_every_rho(monkeypatch):
     rs = np.random.RandomState(17)
     x = torch.from_numpy(rs.randn(4, 3, 16, 16).astype(np.float32))
     y = torch.from_numpy(rs.randint(0, 10, 4))
-    for emission in ("auto", "vmap"):
+    for emission in ("scan", "vmap", "auto"):  # "auto" trains through vmap
         opt = torch.optim.SGD(tm.parameters(), lr=0.01)
         launches.clear()
         loss, _, _ = engine.make_train_step(2, 4, emission=emission)(
             tm, opt, x, y)
         assert np.isfinite(float(loss))
-        assert launches == ([0.0] * n_layers if emission == "vmap" else [])
+        assert launches == ([] if emission == "scan" else [0.0] * n_layers)
         for name, p in tm.named_parameters():
             assert p.grad is not None and bool(
                 torch.isfinite(p.grad).all()), name

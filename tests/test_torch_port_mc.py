@@ -194,6 +194,56 @@ def test_eval_only_guard_and_unported_modes():
     assert out.shape == (2, 2, 10) and not out.requires_grad
 
 
+def _spy_emissions(monkeypatch):
+    calls = []
+    for name in ("_forward_loop", "_forward_draws"):
+        real = getattr(tmc, name)
+        monkeypatch.setattr(tmc, name, lambda *a, _n=name, _r=real:
+                            calls.append(_n) or _r(*a))
+    return calls
+
+
+@pytest.mark.parametrize("training,num_mc,emission,want", [
+    (True, 3, "auto", "_forward_draws"), (True, 1, "auto", "_forward_loop"),
+    (False, 3, "auto", "_forward_loop"), (True, 3, "scan", "_forward_loop"),
+    (False, 3, "vmap", "_forward_draws")])
+def test_auto_emission_follows_the_jax_rule(monkeypatch, training, num_mc,
+                                            emission, want):
+    """``emission="auto"`` takes the vmap emission for a model in training
+    mode with more than one draw, as the JAX ``_resolve_emission`` does,
+    and the draw loop in eval mode (the JAX rule's TPU work threshold is
+    not ported); "scan" and "vmap" are taken as asked."""
+    jm, tm, _ = tiny_twins(seed=10)
+    tm.train(training)
+    calls = _spy_emissions(monkeypatch)
+    out, _ = tmc.mc_forward(tm, torch.randn(2, 3, 16, 16), num_mc,
+                            emission=emission)
+    assert calls == [want] and out.shape == (num_mc, 2, 10)
+    if training and num_mc > 1:
+        from tests._torch_port import set_jax_eval
+
+        set_jax_eval(jm, training=True)
+        assert jmc._resolve_emission(jm, jnp.zeros((2, 3, 16, 16)), num_mc,
+                                     None, False) == "vmap"
+
+
+def test_auto_emission_keeps_the_loop_for_a_module_without_draw_axis(
+        monkeypatch):
+    """A model holding a module that cannot take the draw axis (here a
+    plain ``torch.nn.Linear``; a quantized layer in
+    test_torch_port_quant.py) trains through the loop under "auto" and
+    raises, naming the module, under "vmap"."""
+    _, tm, _ = tiny_twins(seed=11)
+    tm.extra = torch.nn.Linear(2, 2)
+    tm.train()
+    assert tmc._resolve_emission(tm, 3, True) == "scan"
+    calls = _spy_emissions(monkeypatch)
+    tmc.mc_forward(tm, torch.randn(2, 3, 16, 16), 3)
+    assert calls == ["_forward_loop"]
+    with pytest.raises(NotImplementedError, match="'extra'"):
+        tmc.mc_forward(tm, torch.randn(2, 3, 16, 16), 3, emission="vmap")
+
+
 def test_cleanup_after_a_failing_forward():
     _, tm, _ = tiny_twins(seed=8)
     with pytest.raises(RuntimeError):

@@ -55,7 +55,7 @@ def test_rademacher_fused_bit_identical():
 
 
 def test_normal_fused_moments():
-    z = ts.normal_fused(ts.draw_salt(2024, 0), (10**6,)).double()
+    z = ts.normal_fused(ts.draw_salt(2024, 0, 10**6), (10**6,)).double()
     assert abs(z.mean().item()) < 5e-3
     assert abs(z.std().item() - 1.0) < 5e-3
 
@@ -69,9 +69,77 @@ def test_draws_differ_across_s_and_seeds():
             assert abs(np.corrcoef(w[a].numpy(), w[b].numpy())[0, 1]) < 0.1
     other = ka.sample_scaled_normals_batch(6, mu, sigma, 1, torch.float32)
     assert not torch.equal(other[0], w[0])
-    salts = {ts.draw_salt(seed, s) for seed in (0, 1, 2**63 - 1)
+    salts = {ts.draw_salt(seed, s, n) for seed in (0, 1, 2**63 - 1)
              for s in range(10)}
     assert len(salts) == 30 and all(0 <= v < 2**32 for v in salts)
+
+
+_GOLDEN_INV = pow(ts._SM32_GOLDEN, -1, 2**32)
+
+
+def test_salts_golden_steps_apart_share_a_shifted_stream():
+    """The overlap that independent per-draw salts risk: two salts k
+    GOLDEN steps apart hash the same counters shifted by k, so two draws
+    of n counters each share a stretch of eps whenever their salts lie
+    fewer than n steps apart."""
+    a = ts._seed_salt(7, 0)  # draw 0's salt, as before and after
+    for k in (1, 1000, 2**31 + 5):
+        b = (a + k * ts._SM32_GOLDEN) & ts._M32
+        assert (b - a) * _GOLDEN_INV % 2**32 == k
+        torch.testing.assert_close(ts._hashes(b, 0, 4096, "cpu"),
+                                   ts._hashes(a, k, 4096, "cpu"),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 2**40 + 17, 2**63 - 1])
+def test_lanes_of_one_launch_read_disjoint_windows_of_one_stream(seed):
+    """Lane s of a launch over n counters takes the salt of lane 0
+    advanced by s*n counters: its hashes are the window [s*n, (s+1)*n) of
+    lane 0's stream, lane 0 keeps the single draw's salt, and the batch
+    sampler's lanes are those windows. normal_fused under a lane's salt
+    is still the JAX normal_fused under a key with that salt."""
+    n, S = 1000, 4
+    stream = ts._hashes(ts.draw_salt(seed, 0, n), 0, S * n, "cpu")
+    for s in range(S):
+        torch.testing.assert_close(
+            ts._hashes(ts.draw_salt(seed, s, n), 0, n, "cpu"),
+            stream[s * n:(s + 1) * n], rtol=0, atol=0)
+    assert ts.draw_salt(seed, 0, n) == ts.draw_salt(seed, 0, 7) \
+        == ts._seed_salt(seed, 0)
+    w = ka.sample_scaled_normals_batch_plain(
+        seed, torch.zeros(n), torch.ones(n), S, torch.float32)
+    for s in range(S):
+        torch.testing.assert_close(
+            w[s], ts.normal_fused(ts.draw_salt(seed, s, n), (n,)),
+            rtol=0, atol=0)
+    salt = ts.draw_salt(seed, 3, n)
+    key = jax.random.wrap_key_data(jnp.asarray([salt, 0], jnp.uint32))
+    assert int(js._key_salt(key)) == salt
+    np.testing.assert_allclose(ts.normal_fused(salt, (n,)).numpy(),
+                               np.asarray(js.normal_fused(key, (n,))),
+                               rtol=0, atol=1e-6)
+    ts.check_counters(S, 2**32 // S - 1)
+    with pytest.raises(ValueError, match="2\\*\\*32"):
+        ts.check_counters(S, 2**32 // S)
+
+
+def test_windows_of_two_launches_overlap_at_the_rate_of_their_lengths():
+    """Two launches under independent seeds (two layers' draws) share a
+    stretch of eps when lane 0's salts lie fewer than n1 (or n2) GOLDEN
+    steps apart: measured over 100,000 seed pairs at n1 = n2 = 2**24,
+    the rate is (n1 + n2 - 1) / 2**32 within five standard errors."""
+    rs = np.random.RandomState(0)
+    n, pairs = 2**24, 100_000
+    seeds = rs.randint(0, 2**62, size=(pairs, 2), dtype=np.int64)
+    hits = 0
+    for a, b in seeds.tolist():
+        k = (ts.draw_salt(b, 0, n) - ts.draw_salt(a, 0, n)) \
+            * _GOLDEN_INV % 2**32
+        hits += k < n or k > 2**32 - n
+    rate, want = hits / pairs, (2 * n - 1) / 2**32
+    print(f"overlap rate of two windows of 2**24 counters: {rate:.5f} "
+          f"over {pairs} seed pairs; (n1 + n2 - 1) / 2**32 = {want:.5f}")
+    assert abs(rate - want) <= 5 * (want * (1 - want) / pairs) ** 0.5
 
 
 def test_draw_seed_follows_generator():
@@ -149,7 +217,7 @@ def test_batch_sampler_plain_is_normal_fused_per_draw():
     assert w.shape == (4, 7, 5, 3)
     assert ka.sample_scaled_normals_batch.launches == launches  # CPU: plain
     for s in range(4):
-        eps = ts.normal_fused(ts.draw_salt(seed, s), mu.shape)
+        eps = ts.normal_fused(ts.draw_salt(seed, s, mu.numel()), mu.shape)
         torch.testing.assert_close(w[s], mu + sigma * eps, rtol=0, atol=0)
     wb = ka.sample_scaled_normals_batch(seed, mu, sigma, 4)
     assert wb.dtype == torch.bfloat16
@@ -252,7 +320,8 @@ def test_kernel_build_is_lazy_and_content_named():
 
 
 def test_port_never_imports_jax():
-    """No module of the port, ``examples/`` included, imports jax or the
+    """No module of the port, ``examples/`` included, nor the card's
+    scripts ``chip_smoke.py`` and ``kernel_times.py``, imports jax or the
     JAX package: none names jax, and importing them all with jax made
     unimportable works (an indirect import, e.g. through
     ``bayesian_torch_tpu.data``, would fail) and leaves
@@ -272,6 +341,7 @@ def test_port_never_imports_jax():
                 "layers/flipout_layers/linear_flipout.py",
                 "models/bayesian/resnet_flipout_large.py"):
         assert root / new in paths, new
+    paths += [root.parent / "chip_smoke.py", root.parent / "kernel_times.py"]
     modules = []
     for path in paths:
         for line in path.read_text().splitlines():

@@ -4,9 +4,10 @@ On the CPU the port's wrappers run K-G's plain version, so these tests
 hold that plain version against the two Pallas kernels it replaces, run
 in TPU interpret mode (``benchmarks/bench_1x1_mc.py::pallas_mc_gemm`` and
 ``benchmarks/bench_mosaic_matmul.py::pallas_matmul``), after the layout
-change (B, S, C, P) <-> (M, S, C); and the pointwise emission of
+change (B, S, C, P) <-> (M, S, C); the pointwise emission of
 ``ops/conv.py`` against the default route and against the JAX emission
-(``conv_nd(..., data_format="NHWC", pointwise_dot=True)``). Inputs come
+(``conv_nd(..., data_format="NHWC", pointwise_dot=True)``); and the
+gradients of both against ``jax.grad`` through that emission. Inputs come
 from numpy seeds. Tolerances: f32 1e-5 (order of summation), bf16 one ulp
 of the largest value (both accumulate in f32 and round once), int8 bit for
 bit.
@@ -141,20 +142,129 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
         kg.matmul(torch.zeros(2, 3), torch.zeros(4, 5))
 
 
-def test_kernel_route_raises_under_grad():
-    """K-G has no backward: an operand that requires grad raises, on
-    either device, and never falls back to the library route."""
-    x = torch.randn(2, 4, 3, 3)
-    w = torch.randn(5, 4, 1, 1, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconv.conv_nd(x, w, pointwise_dot=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconv.conv_draws(x, w[None], pointwise_dot=True)
-    with torch.no_grad():
-        out = tconv.conv_nd(x, w, pointwise_dot=True)
-    assert out.shape == (2, 5, 3, 3) and not out.requires_grad
-    tconv.conv_nd(x, w).sum().backward()  # the default route trains
-    assert w.grad is not None
+def _jax_lanes(x, w, b, hw):
+    """The JAX pointwise emission over draws: lane s is
+    ``conv_nd(x_s, w_s, b_s, pointwise_dot=True)`` in NHWC (the layout in
+    which JAX takes the dot route), with x (B, Sx, C, H*W), w (Sw, O, C)
+    and b (Sb, O) or None; a lane count of 1 is shared by the draws.
+    Returns (B, S, O, H*W)."""
+    B, Sx, C, P = x.shape
+    S = max(Sx, w.shape[0])
+    lanes = []
+    for s in range(S):
+        xs = x[:, s % Sx].reshape(B, C, *hw).transpose(0, 2, 3, 1)
+        ws = w[s % w.shape[0]].reshape(w.shape[1], C, 1, 1)
+        bs = None if b is None else b[s % b.shape[0]]
+        y = jconv.conv_nd(xs, ws, bs, data_format="NHWC",
+                          pointwise_dot=True)
+        lanes.append(y.transpose(0, 3, 1, 2).reshape(B, -1, P))
+    return jnp.stack(lanes, axis=1)
+
+
+# (wrapper, x lanes, w lanes, bias lanes or None): per draw, a shared input,
+# a shared weight, and the one-weight wrapper with and without a bias
+_GRAD_CASES = [("mc_gemm", 3, 3, 3), ("mc_gemm", 1, 3, 3),
+               ("mc_gemm", 3, 1, 1), ("mc_gemm", 3, 3, None),
+               ("pointwise_gemm", 1, 1, 1), ("pointwise_gemm", 1, 1, None)]
+
+
+@pytest.mark.parametrize("wrapper,sx,sw,sb", _GRAD_CASES)
+def test_gradients_match_jax(wrapper, sx, sw, sb):
+    """K-G trains: the gradients of both wrappers in x, w and the bias
+    equal ``jax.grad`` through the JAX ``conv_nd(pointwise_dot=True)`` on
+    the same inputs and cotangent; f32, 1e-5 (order of summation)."""
+    import jax
+
+    rs = np.random.RandomState(6)
+    B, C, O, hw = 2, 6, 5, (4, 3)
+    P, S = hw[0] * hw[1], max(sx, sw)
+    x = _rand(rs, (B, sx, C, P), "f32")
+    w = _rand(rs, (sw, O, C), "f32")
+    b = None if sb is None else _rand(rs, (sb, O), "f32")
+    cot = _rand(rs, (B, S, O, P), "f32")
+
+    def loss(x, w, b):
+        return (_jax_lanes(x, w, b, hw) * cot).sum()
+
+    want = jax.grad(loss, argnums=(0, 1) if b is None else (0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(w), None if b is None else jnp.asarray(b))
+    tx = torch.from_numpy(x[:, 0] if sx == 1 else x).requires_grad_(True)
+    tw = torch.from_numpy(w[0] if wrapper == "pointwise_gemm" else w)
+    tw.requires_grad_(True)
+    tb = None
+    if b is not None:
+        tb = torch.from_numpy(b[0] if wrapper == "pointwise_gemm" else b)
+        tb.requires_grad_(True)
+    y = getattr(kg, wrapper)(tx, tw, tb)
+    (y.reshape(cot.shape) * torch.from_numpy(cot)).sum().backward()
+    got = [tx.grad, tw.grad] + ([] if tb is None else [tb.grad])
+    for name, g, v in zip("xwb", got, want):
+        np.testing.assert_allclose(to_np(g).reshape(v.shape), np.asarray(v),
+                                   **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_pointwise_conv_ops_train_as_jax(shared):
+    """``conv_draws`` and ``conv_nd`` with ``pointwise_dot=True`` are
+    differentiable: their gradients equal JAX's through the same emission
+    (f32, 1e-5), and the default route's."""
+    import jax
+
+    rs = np.random.RandomState(7)
+    S, B, C, O, hw = 3, 2, 6, 4, (5, 3)
+    x = _rand(rs, (B, (1 if shared else S) * C) + hw, "f32")
+    w = _rand(rs, (S, O, C, 1, 1), "f32")
+    b = _rand(rs, (S, O), "f32")
+    cot = _rand(rs, (B, S * O) + hw, "f32")
+
+    def jloss(x, w, b):
+        y = _jax_lanes(x.reshape(B, -1, C, hw[0] * hw[1]),
+                       w.reshape(S, O, C), b, hw)
+        return (y.reshape(cot.shape) * cot).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    grads = {}
+    for dot in (True, False):
+        t = [torch.from_numpy(a).requires_grad_(True) for a in (x, w, b)]
+        y = tconv.conv_draws(*t, pointwise_dot=dot)
+        (y * torch.from_numpy(cot)).sum().backward()
+        grads[dot] = [a.grad for a in t]
+    for got, default, v in zip(grads[True], grads[False], want):
+        np.testing.assert_allclose(to_np(got), np.asarray(v), **TOL)
+        torch.testing.assert_close(got, default, **TOL)
+    # the single-weight op: one draw of the same weights
+    t = [torch.from_numpy(a).requires_grad_(True)
+         for a in (x[:, :C], w[0], b[0])]
+    (tconv.conv_nd(*t, pointwise_dot=True)
+     * torch.from_numpy(cot[:, :O])).sum().backward()
+    want = jax.grad(lambda *a: (_jax_lanes(
+        a[0].reshape(B, 1, C, -1), a[1].reshape(1, O, C), a[2][None], hw)
+        .reshape(B, O, *hw) * cot[:, :O]).sum(), argnums=(0, 1, 2))(
+        jnp.asarray(x[:, :C]), jnp.asarray(w[0]), jnp.asarray(b[0]))
+    for g, v in zip(t, want):
+        np.testing.assert_allclose(to_np(g.grad), np.asarray(v), **TOL)
+
+
+def test_bf16_gradients_flow_in_the_compute_dtype():
+    """Under a bf16 compute dtype the gradients come back in each
+    operand's own dtype, within four bf16 ulps of the largest value of
+    the f32 route's (roundings of the operands, of the product, of its
+    gradient and of the input gradient; 1.6 ulps at most over five
+    seeds)."""
+    rs = np.random.RandomState(8)
+    x = torch.from_numpy(_rand(rs, (2, 3 * 8, 4, 4), "f32"))
+    w = torch.from_numpy(_rand(rs, (3, 5, 8, 1, 1), "f32"))
+    grads = {}
+    for dtype in (None, torch.bfloat16):
+        t = [a.clone().requires_grad_(True) for a in (x, w)]
+        tconv.conv_draws(*t, compute_dtype=dtype,
+                         pointwise_dot=True).float().square().sum().backward()
+        assert all(a.grad.dtype == torch.float32 for a in t)
+        grads[dtype] = [a.grad for a in t]
+    for got, want in zip(grads[torch.bfloat16], grads[None]):
+        ulp = _bf16_ulp_of_max(to_np(want))
+        assert (got - want).abs().max().item() <= 4 * ulp
 
 
 @pytest.mark.parametrize("nd,sp", [(1, (11,)), (2, (5, 6)), (3, (3, 4, 2))])

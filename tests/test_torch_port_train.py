@@ -73,11 +73,39 @@ def _twins_in_training(seed, momentum=0.1, rho=None):
     return jm, tm
 
 
-@pytest.mark.parametrize("emission", ["auto", "vmap"])
+@pytest.mark.parametrize("emission", ["auto", "vmap", "scan"])
 @pytest.mark.parametrize("bn_stats,momentum", [("ema", 0.1), ("ema", None),
                                                ("freeze", 0.1)])
 def test_elbo_step_matches_jax_vmap_path(monkeypatch, bn_stats, momentum,
                                          emission):
+    _check_step(monkeypatch, bn_stats, momentum, emission)
+
+
+def test_elbo_step_through_the_pointwise_emission_matches_jax(monkeypatch):
+    """With ``CONV_1X1_DOT = True`` (set in both packages) every 1x1
+    stride-1 conv of the narrow ResNet trains through the per-draw GEMM's
+    wrapper, forward and input gradient (its plain version on the CPU);
+    one vmap ELBO step equals the JAX step."""
+    from bayesian_torch_tpu.ops import conv as jconv
+    from bayesian_torch_tpu_torch.ops import conv as tconv
+    from bayesian_torch_tpu_torch.ops.cuda import mc_gemm as kg
+
+    monkeypatch.setattr(jconv, "CONV_1X1_DOT", True)
+    monkeypatch.setattr(tconv, "CONV_1X1_DOT", True)
+    calls = []
+    real = kg._apply
+    monkeypatch.setattr(kg, "_apply",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    tm = _check_step(monkeypatch, "ema", 0.1, "vmap")
+    sites = sum(tconv._is_pointwise(m.mu_kernel, m.stride, m.padding,
+                                    m.dilation, m.groups, None)
+                for m in tm.modules() if hasattr(m, "mu_kernel"))
+    assert sites == 4 and len(calls) == 2 * sites  # forward and dx
+
+
+def _check_step(monkeypatch, bn_stats, momentum, emission):
+    """One ELBO step of the port through ``emission`` against the JAX
+    vmap step on the same injected draws; returns the torch model."""
     jm, tm = _twins_in_training(seed=11, momentum=momentum)
     before = {k: v.clone() for k, v in tm.state_dict().items()}
     inject_draws(monkeypatch, draw_noise(tm, S))
@@ -117,6 +145,7 @@ def test_elbo_step_matches_jax_vmap_path(monkeypatch, bn_stats, momentum,
         assert getattr(mod, "stats_frozen", False) is False
         assert getattr(mod, "_mc_stats", None) is None
         assert not hasattr(mod, "_mc_draws")
+    return tm
 
 
 def test_one_draw_updates_bn_as_the_plain_forward_does():
