@@ -29,16 +29,34 @@ __host__ __device__ __forceinline__ uint32_t btt_draw_salt(uint32_t lo,
          s * n * BTT_GOLDEN;
 }
 
-// N(0,1) at flat counter i; sampling.py normal_fused.
-__device__ __forceinline__ float btt_hash_normal(uint32_t salt, uint32_t i) {
+// The two 24-bit uniforms of counter i: u1 in (0, 1], u2 in [0, 1).
+__device__ __forceinline__ void btt_hash_uniforms(uint32_t salt, uint32_t i,
+                                                  float& u1, float& u2) {
   const uint32_t c = (i + 1u) * BTT_GOLDEN;
   const uint32_t h1 = btt_splitmix32(salt + c);
   const uint32_t h2 = btt_splitmix32((salt ^ 0xDEADBEEFu) + c);
-  // 24-bit uniforms: u1 in (0, 1], u2 in [0, 1). The products are exact
-  // (power-of-two scale), so a contracted FMA rounds as the plain version.
-  const float u1 = (float)(h1 >> 8) * 5.9604644775390625e-08f +
-                   2.98023223876953125e-08f;
-  const float u2 = (float)(h2 >> 8) * 5.9604644775390625e-08f;
-  const float r = sqrtf(-2.0f * logf(u1));
-  return r * cosf(6.283185307179586f * u2);
+  // The products are exact (power-of-two scale), so a contracted FMA
+  // rounds as the plain version.
+  u1 = (float)(h1 >> 8) * 5.9604644775390625e-08f + 2.98023223876953125e-08f;
+  u2 = (float)(h2 >> 8) * 5.9604644775390625e-08f;
+}
+
+// Box-Muller on those uniforms in steps: -2 log u1 (straight-line code),
+// then its square root and the cosine (each with a branch to a slow path
+// that these arguments never take). A caller drawing several normals takes
+// each step over all of them, so the compiler can interleave their chains.
+__device__ __forceinline__ float btt_box_muller_log(float u1) {
+  return -2.0f * logf(u1);
+}
+
+__device__ __forceinline__ float btt_box_muller_cos(float u2) {
+  return cosf(6.283185307179586f * u2);
+}
+
+// N(0,1) at flat counter i; sampling.py normal_fused.
+__device__ __forceinline__ float btt_hash_normal(uint32_t salt, uint32_t i) {
+  float u1, u2;
+  btt_hash_uniforms(salt, i, u1, u2);
+  const float r = sqrtf(btt_box_muller_log(u1));
+  return r * btt_box_muller_cos(u2);
 }

@@ -13,115 +13,49 @@
 // vmap's transpose then sums over the lanes, because mu and sigma are
 // shared by them; K-E returns those sums directly. eps of lane s, weight
 // (n, k) is the hash at counter n*K + k under btt_draw_salt(seed, s,
-// N*K), as K-B drew it: it depends on (seed, s, n, k) only, never on the tiling. Lane 0
-// of each is the single-draw kernel, bit for bit.
+// N*K), as K-B drew it: it depends on (seed, s, n, k) only, never on the
+// tiling. Lane 0 of each is the single-draw kernel, bit for bit.
 //
 // What bounds them on an H100: at the ResNet-50 head (M=128, K=2048,
-// N=1000) each lane is 0.5 GFLOP in f32 on CUDA cores (the TPU kernels ran
-// at Precision.HIGHEST), plus one hash normal per weight element; mu,
-// sigma, dmu and dsigma are 8 MB each. At S = 4 (MC-4 training) each
-// kernel is 2.1 GFLOP, 0.031 ms at 67 TFLOP/s. K-D at one lane has 64
-// blocks and is latency-bound; its lanes multiply the blocks (256 at
-// S = 4). K-E has 512 blocks whatever S is, and each walks the lanes.
+// N=1000) each lane draws one hash normal per weight element (2.05 M, the
+// bound) and multiplies 0.5 GFLOP (the TPU kernels ran at
+// Precision.HIGHEST); mu, sigma, dmu and dsigma are 8 MB each.
 //
-// Design: K-B's shared-memory tiled GEMM, f32 FMA with f32 accumulation,
-// 256 threads each owning a 4x4 patch of the output tile, ragged edges
-// masked. K-D builds each (16, 32) weight tile of its lane (blockIdx.z) in
-// shared memory from mu, sigma and the hash, K-B's indexing read
-// transposed, so W never reaches device memory; with BM = 128 the head
-// has one M tile and each weight element is generated once per lane. K-E
-// walks the lanes in order inside the block: it accumulates g[s]^T x[s]
-// over M in registers, then draws that lane's eps once per output element
-// and adds the lane's dmu and dmu * eps to register sums. The lane sum is
+// Design. K-D is the body of sampled_gemm.cuh (K-B's): split-TF32 products
+// on the tensor cores, producer warps that draw W's tiles while consumer
+// warps multiply, and the reduction over N split over a thread-block
+// cluster and summed in rank order; W never reaches device memory and each
+// weight element is drawn once per lane when M <= 128. K-E is a
+// shared-memory tiled GEMM, f32 FMA with f32 accumulation, 256 threads each
+// owning a 4x4 patch of the output tile, ragged edges masked. It walks the
+// lanes in order inside the block: it accumulates g[s]^T x[s] over M in
+// registers, then draws that lane's eps once per output element and adds
+// the lane's dmu and dmu * eps to register sums. The lane sum is
 // deterministic, needs no atomics, and no (S, N, K) array reaches device
-// memory. x may be shared by the lanes (a lane stride of 0). No wgmma or
-// TMA yet.
+// memory. x may be shared by the lanes (a lane stride of 0). K-E has 512
+// blocks at the head whatever S is, and each walks the lanes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "noise.cuh"
+#include "sampled_gemm.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float sampled_weight(const float* mu,
-                                                const float* sigma,
-                                                uint32_t salt, int64_t idx) {
-  // no contraction: rounds as K-B and the plain mu + sigma * eps
-  return __fadd_rn(mu[idx],
-                   __fmul_rn(sigma[idx], btt_hash_normal(salt, (uint32_t)idx)));
-}
-
-// K-D. Output tile 128 (m) x 32 (k); reduction over n in steps of 16.
-constexpr int kDxBM = 128;
-constexpr int kDxBK = 32;
-constexpr int kDxBN = 16;
-
-__global__ void __launch_bounds__(kThreads)
-    sampled_matmul_dx_kernel(const float* __restrict__ g,
+// K-D: the body of sampled_gemm.cuh with W's (n, k) tile read as the
+// reduction's (n) by the output's (k); the reduction over N is split over a
+// cluster of up to eight blocks (four at the head: 256 blocks a lane).
+__global__ void __launch_bounds__(btt_sg::kThreads, 2)
+    sampled_matmul_dx_kernel(const float* __restrict__ g, int64_t g_lane,
                              const float* __restrict__ mu,
                              const float* __restrict__ sigma,
                              float* __restrict__ dx, int M, int N, int K,
-                             uint32_t seed_lo, uint32_t seed_hi) {
-  __shared__ float gs[kDxBN][kDxBM + 4];  // g tile, n-major
-  __shared__ float ws[kDxBN][kDxBK + 4];  // sampled weight tile (n, k)
-  const int tid = threadIdx.x;
-  const int tx = tid % (kDxBK / 4);
-  const int ty = tid / (kDxBK / 4);
-  const int m0 = blockIdx.y * kDxBM;
-  const int k0 = blockIdx.x * kDxBK;
-  const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, blockIdx.z,
-                                      (uint32_t)N * (uint32_t)K);
-  g += (int64_t)blockIdx.z * M * N;
-  dx += (int64_t)blockIdx.z * M * K;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int n0 = 0; n0 < N; n0 += kDxBN) {
-    for (int e = tid; e < kDxBM * kDxBN; e += kThreads) {
-      const int r = e / kDxBN, c = e % kDxBN;
-      const int gm = m0 + r, gn = n0 + c;
-      gs[c][r] = (gm < M && gn < N) ? g[(int64_t)gm * N + gn] : 0.f;
-    }
-    for (int e = tid; e < kDxBN * kDxBK; e += kThreads) {
-      const int r = e / kDxBK, c = e % kDxBK;
-      const int gn = n0 + r, gk = k0 + c;
-      ws[r][c] = (gn < N && gk < K)
-                     ? sampled_weight(mu, sigma, salt, (int64_t)gn * K + gk)
-                     : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int nn = 0; nn < kDxBN; ++nn) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = gs[nn][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[nn][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gk = k0 + tx * 4 + j;
-      if (gk < K) dx[(int64_t)gm * K + gk] = acc[i][j];
-    }
-  }
+                             int chunk, int m_tiles, uint32_t seed_lo,
+                             uint32_t seed_hi, int vec_a) {
+  btt_sg::sampled_gemm<true>(g, g_lane, mu, sigma, dx, M, N, K, chunk,
+                             m_tiles, seed_lo, seed_hi, vec_a);
 }
 
 // K-E. Output tile 64 (n) x 64 (k); reduction over m in steps of 16,
@@ -218,16 +152,12 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // g (S, M, N), mu and sigma (N, K), dx (S, M, K); all float32, row-major.
-// Returns the launch's cudaGetLastError().
+// Returns the launch's cudaError_t.
 int btt_sampled_matmul_dx(const float* g, const float* mu,
                           const float* sigma, float* dx, int S, int M, int N,
                           int K, uint64_t seed, cudaStream_t stream) {
-  if (S <= 0 || M <= 0 || K <= 0) return (int)cudaSuccess;
-  const dim3 grid((K + kDxBK - 1) / kDxBK, (M + kDxBM - 1) / kDxBM, S);
-  sampled_matmul_dx_kernel<<<grid, kThreads, 0, stream>>>(
-      g, mu, sigma, dx, M, N, K, (uint32_t)(seed & 0xFFFFFFFFull),
-      (uint32_t)(seed >> 32));
-  return (int)cudaGetLastError();
+  return btt_sg::launch(sampled_matmul_dx_kernel, true, g, (int64_t)M * N,
+                        mu, sigma, dx, S, M, N, K, seed, stream);
 }
 
 // g (S, M, N), x (S, M, K) with lane stride x_lane (M*K, or 0 for one x

@@ -3,12 +3,14 @@
 // Replaces the Pallas kernel _batch_sample_kernel of
 // bayesian_torch_tpu/ops/pallas/sampled_weights.py
 // (sample_scaled_normals_batch), which draws all S weight sets of every
-// Bayesian layer in one launch.
+// Bayesian layer in one launch, and, in its rho mode with S = 1, the
+// single-draw _sample_kernel (sample_gaussian_pallas), which reads rho and
+// takes sigma = softplus(rho) inside the kernel.
 //
-// What bounds it on an H100: memory and the transcendental pipe. At
-// ResNet-50 with 10 draws it reads 25.5 M f32 mu and sigma once (204 MB)
-// and writes 10 draws in bf16 (510 MB); every element also costs two
-// hashes, a log, a sqrt and a cos.
+// What bounds it on an H100: issuing the hash's instructions, then memory.
+// At ResNet-50 with 10 draws it reads 25.5 M f32 mu and sigma once (204
+// MB) and writes 10 draws in bf16 (510 MB); every element also costs two
+// hashes, a log, a sqrt and a cos, about 90 issued instructions.
 //
 // Design: the TPU kernel kept a (1024, 128) tile resident in VMEM while a
 // sequential grid axis streamed the S draws out. Blocks here run in no
@@ -34,6 +36,11 @@ __device__ __forceinline__ float sample(float mu, float sigma, uint32_t salt,
   return __fadd_rn(mu, __fmul_rn(sigma, btt_hash_normal(salt, (uint32_t)i)));
 }
 
+// torch's F.softplus (beta 1, threshold 20) in f32
+__device__ __forceinline__ float softplus(float rho) {
+  return rho > 20.f ? rho : log1pf(expf(rho));
+}
+
 __device__ __forceinline__ void store4(float* out, const float v[kVec]) {
   *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -53,7 +60,8 @@ __device__ __forceinline__ void store1(__nv_bfloat16* out, float v) {
   *out = __float2bfloat16_rn(v);
 }
 
-template <typename T>
+// kRho: `sigma` holds rho, and sigma = softplus(rho) is taken here
+template <typename T, bool kRho>
 __global__ void __launch_bounds__(kThreads)
     batch_sample_kernel(const float* __restrict__ mu,
                         const float* __restrict__ sigma, T* __restrict__ out,
@@ -76,6 +84,10 @@ __global__ void __launch_bounds__(kThreads)
         m[j] = in ? mu[base + j] : 0.f;
         sg[j] = in ? sigma[base + j] : 0.f;
       }
+    }
+    if (kRho) {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) sg[j] = softplus(sg[j]);
     }
     for (int s = 0; s < num_samples; ++s) {
       const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, (uint32_t)s,
@@ -100,10 +112,11 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // out: (num_samples, n), float32 when out_bf16 == 0, bfloat16 otherwise.
-// Returns the launch's cudaGetLastError().
+// With rho_mode != 0, `sigma` holds rho and sigma = softplus(rho) is taken
+// in the kernel. Returns the launch's cudaGetLastError().
 int btt_sample_scaled_normals_batch(const float* mu, const float* sigma,
                                     void* out, int64_t n, int num_samples,
-                                    uint64_t seed, int out_bf16,
+                                    uint64_t seed, int out_bf16, int rho_mode,
                                     cudaStream_t stream) {
   if (n <= 0 || num_samples <= 0) return (int)cudaSuccess;
   const bool vector_ok = n % kVec == 0 &&
@@ -115,15 +128,23 @@ int btt_sample_scaled_normals_batch(const float* mu, const float* sigma,
   if (blocks > (1 << 20)) blocks = 1 << 20;  // the rest by grid stride
   const uint32_t lo = (uint32_t)(seed & 0xFFFFFFFFull);
   const uint32_t hi = (uint32_t)(seed >> 32);
+  const dim3 grid((unsigned)blocks);
   if (out_bf16) {
-    batch_sample_kernel<__nv_bfloat16><<<(unsigned)blocks, kThreads, 0,
-                                         stream>>>(
-        mu, sigma, static_cast<__nv_bfloat16*>(out), n, num_samples, lo, hi,
-        vector_ok);
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+    if (rho_mode)
+      batch_sample_kernel<__nv_bfloat16, true><<<grid, kThreads, 0, stream>>>(
+          mu, sigma, o, n, num_samples, lo, hi, vector_ok);
+    else
+      batch_sample_kernel<__nv_bfloat16, false><<<grid, kThreads, 0, stream>>>(
+          mu, sigma, o, n, num_samples, lo, hi, vector_ok);
   } else {
-    batch_sample_kernel<float><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        mu, sigma, static_cast<float*>(out), n, num_samples, lo, hi,
-        vector_ok);
+    float* o = static_cast<float*>(out);
+    if (rho_mode)
+      batch_sample_kernel<float, true><<<grid, kThreads, 0, stream>>>(
+          mu, sigma, o, n, num_samples, lo, hi, vector_ok);
+    else
+      batch_sample_kernel<float, false><<<grid, kThreads, 0, stream>>>(
+          mu, sigma, o, n, num_samples, lo, hi, vector_ok);
   }
   return (int)cudaGetLastError();
 }

@@ -5,9 +5,10 @@
 ``mu + sigma * eps(seed, s, i)`` in one launch of the CUDA kernel in
 ``csrc/sampled_weights.cu`` (K-A), reading mu and sigma once.
 ``sample_gaussian(seed, mu, rho)`` is the single draw ``mu + softplus(rho)
-* eps``: K-A with S = 1 on ``sigma = softplus(rho)``. eps is the
-counter-hash normal of ``ops/sampling.py``, so the plain versions beside
-the kernels give the same values.
+* eps``: K-A with S = 1 in its rho mode, which reads rho and takes
+``sigma = softplus(rho)`` in the kernel, as the TPU's ``_sample_kernel``
+does. eps is the counter-hash normal of ``ops/sampling.py``, so the plain
+versions beside the kernels give the same values.
 
 Both are ``torch.autograd.Function``s that save the seed, never eps: the
 backward draws eps again in ``csrc/sampled_weights_bwd.cu`` (K-C), as the
@@ -99,8 +100,9 @@ def _library():
     return _build, _build.load_library()
 
 
-def _launch_sample(seed, mu, sigma, num_samples, out_dtype):
-    """K-A on CUDA tensors: (S, *mu.shape) in ``out_dtype``."""
+def _launch_sample(seed, mu, sigma, num_samples, out_dtype, rho_mode=False):
+    """K-A on CUDA tensors: (S, *mu.shape) in ``out_dtype``. With
+    ``rho_mode``, ``sigma`` holds rho and the kernel takes its softplus."""
     build, lib = _library()
     mu32 = mu.detach().float().contiguous()
     sigma32 = sigma.detach().float().contiguous()
@@ -111,7 +113,7 @@ def _launch_sample(seed, mu, sigma, num_samples, out_dtype):
         code = lib.btt_sample_scaled_normals_batch(
             mu32.data_ptr(), sigma32.data_ptr(), out.data_ptr(),
             mu32.numel(), num_samples, seed & 0xFFFFFFFFFFFFFFFF,
-            int(out_dtype == torch.bfloat16), stream)
+            int(out_dtype == torch.bfloat16), int(rho_mode), stream)
     build.check(lib, code, "sample_scaled_normals_batch")
     sample_scaled_normals_batch.launches += 1
     return out
@@ -186,20 +188,20 @@ class _BatchSampler(torch.autograd.Function):
 
 
 class _GaussianSampler(torch.autograd.Function):
-    """sigma = softplus(rho) and K-A with S = 1 forward; dmu = g and
-    K-C's rho mode backward. Saves the seed and rho, never eps."""
+    """K-A with S = 1 in its rho mode forward (the plain version takes
+    sigma = softplus(rho) in torch); dmu = g and K-C's rho mode backward.
+    Saves the seed and rho, never eps."""
 
     @staticmethod
     def forward(ctx, seed, mu, rho, out_dtype):
         ctx.seed = seed
         ctx.mu_dtype = mu.dtype
         ctx.save_for_backward(rho)
-        sigma = sigma_from_rho(rho.float())
         if _on_cpu(mu, rho):
-            w = sample_scaled_normals_batch_plain(seed, mu, sigma, 1,
-                                                  out_dtype)
+            w = sample_scaled_normals_batch_plain(
+                seed, mu, sigma_from_rho(rho.float()), 1, out_dtype)
         else:
-            w = _launch_sample(seed, mu, sigma, 1, out_dtype)
+            w = _launch_sample(seed, mu, rho, 1, out_dtype, rho_mode=True)
         return w[0]
 
     @staticmethod

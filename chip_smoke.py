@@ -31,14 +31,19 @@ Phases, each printing its own line(s):
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
 2. build: the CUDA kernels compiled from ``bayesian_torch_tpu_torch/csrc``;
-   each kernel's wgmma (HGMMA, IGMMA) and TMA (UTMALDG, UBLKCP)
-   instructions counted in ``cuobjdump -sass`` of the library: K-G's bf16
-   kernels and K-F must hold wgmma and TMA loads;
+   each kernel's wgmma (HGMMA, IGMMA), mma.sync (HMMA) and TMA (UTMALDG,
+   UBLKCP) instructions counted in ``cuobjdump -sass`` of the library:
+   K-G's bf16 kernels and K-F must hold wgmma and TMA loads, K-B and K-D a
+   tensor-core product;
 3. K-A (batch weight sampler) against its plain torch version at the
    ResNet-50 flat size (all Bayesian weights, 10 draws), f32 and bf16 out,
-   eps moments, median times;
+   eps moments, median times; its rho mode (the single draw
+   ``sample_gaussian``, softplus in the kernel) at the same size, one
+   launch, f32 and bf16 out;
 4. K-B (fused sampled GEMM) against its plain version at the head shape
-   (M=128, K=2048, N=1000), f32 with TF32 off, median times;
+   (M=128, K=2048, N=1000), f32 with TF32 off; two calls equal bit for bit;
+   device times (torch.profiler) beside the plain version and the unfused
+   route (K-A drawing the weight in f32, then ``torch.matmul``);
 5. inference path: three batches through ``mc_forward(..., num_mc=10,
    reduce="mean")`` (presample "auto", i.e. K-A), one K-A launch per
    batch, predictive entropy, ms per batch and images/s;
@@ -47,9 +52,10 @@ Phases, each printing its own line(s):
    draws must agree with a single draw;
 7. the backward kernels against their plain versions at full shapes: K-C
    (dsigma mode, n = all Bayesian weights, S = 4, bf16 g; rho mode, S = 1,
-   f32 g), K-D and K-E at the head shape, f32 with TF32 off, median times;
-   and ``torch.autograd.grad`` through the public ops against autograd
-   through their plain versions;
+   f32 g; median times), K-D and K-E at the head shape, f32 with TF32 off,
+   device times as in phase 4 (K-D beside its unfused route), two calls
+   equal; and ``torch.autograd.grad`` through the public ops against
+   autograd through their plain versions;
 8. training path (the draw loop, ``emission="scan"``; ``"auto"`` trains
    through the vmap emission): one warm-up and three timed ELBO steps at
    MC-4 bs128:
@@ -84,8 +90,8 @@ Phases, each printing its own line(s):
 19. the uncalibrated model (every tensor at scale 0.2, zp 128): MC-1;
 20. K-B with lanes (S = 10) and K-D, K-E with lanes (S = 4) against their
     plain versions at the head shape, x per lane and x shared, f32 with
-    TF32 off, median times; lane 0 equal to the single-draw kernels bit
-    for bit (run after phase 7);
+    TF32 off, device times beside the unfused route, two calls equal; lane
+    0 equal to the single-draw kernels bit for bit (run after phase 7);
 21. the vmap inference path: three MC-10 bs128 batches after a warm-up,
     fc.impl="pallas", presample "auto" (off): ms per batch, images/s, peak
     memory, every kernel's launches per batch equal to what the model
@@ -143,10 +149,13 @@ import subprocess
 import sys
 import time
 
-# K-F and K-G are timed by their device time (device_ms): their wrappers'
-# host time and small torch ops (K-F's column sums) would swamp a single
-# call timed by CUDA events
-from kernel_times import BF16_OPS, HBM_BPS, INT8_OPS, device_ms
+# K-B, K-D, K-E, K-F and K-G are timed by their device time
+# (device_times): their wrappers' host time and small torch ops (K-B's
+# softplus, K-F's column sums) would swamp a single call timed by CUDA
+# events
+from kernel_times import (BF16_OPS, F32_OPS, HBM_BPS, INT8_OPS, KB_TAG,
+                          KD_TAG, KE_TAG, PER_NORMAL, SESSIONS, TF32_OPS,
+                          device_times, generation_ms)
 from kernel_times import SITES as POINTWISE_SITES
 
 BATCH = 128
@@ -159,9 +168,6 @@ REPS = 5
 CALIB_BATCH = 32
 INT8_LAYERS = 54  # ResNet-50: 53 convs and the head, one K-F launch each
 
-# f32 peak outside the tensor cores (data sheet; HBM_BPS, BF16_OPS and
-# INT8_OPS come from kernel_times.py with ResNet-50's 1x1 stride-1 convs)
-F32_OPS = 67e12
 N_POINTWISE = sum(count for *_, count in POINTWISE_SITES)  # 33
 
 
@@ -211,10 +217,22 @@ def bound(nbytes, ops, peak_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def with_bound(res, nbytes, ops, peak_ops=F32_OPS, library_ms=None):
-    """``res`` with the bound and library entries of the kernels line."""
-    bound_ms, bound_by = bound(nbytes, ops, peak_ops)
-    return dict(res, bound_ms=bound_ms, bound_by=bound_by,
+def with_bound(what, res, nbytes, ops, peak_ops=F32_OPS, library_ms=None,
+               normals=0):
+    """``res`` with the bound and library entries of the kernels line. A
+    sampling kernel's operations also bound it by the instructions of the
+    ``normals`` counter-hash normals it draws, at the card's issue rate;
+    the log names the term that decides."""
+    terms = dict(bytes=nbytes / HBM_BPS * 1e3, product=ops / peak_ops * 1e3)
+    if normals:
+        terms["generation"] = generation_ms(normals)
+    term = max(terms, key=terms.get)
+    log(f"[bound] {what}: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in terms.items()) + f"; bound by {term}"
+        + (f" ({normals} normals x {PER_NORMAL} instructions)"
+           if term == "generation" else ""))
+    return dict(res, bound_ms=terms[term],
+                bound_by="bytes" if term == "bytes" else "operations",
                 library_ms=library_ms)
 
 
@@ -257,9 +275,10 @@ def phase_build():
 
 def sass_census(path):
     """Which Hopper instructions each kernel of the built library holds,
-    from ``cuobjdump -sass``: HGMMA and IGMMA (wgmma, bf16 and int8),
-    UTMALDG (TMA tensor loads), UBLKCP (bulk copies). K-G's bf16 lane and
-    K-F must hold wgmma and TMA loads."""
+    from ``cuobjdump -sass``: HGMMA and IGMMA (wgmma, bf16 and int8), HMMA
+    (mma.sync), UTMALDG (TMA tensor loads), UBLKCP (bulk copies). K-G's
+    bf16 lane and K-F must hold wgmma and TMA loads; K-B and K-D a
+    tensor-core product (HGMMA or HMMA)."""
     import re
     from pathlib import Path
 
@@ -272,7 +291,7 @@ def sass_census(path):
     sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    ops = ("HGMMA", "IGMMA", "UTMALDG", "UBLKCP")
+    ops = ("HGMMA", "IGMMA", "HMMA", "UTMALDG", "UBLKCP")
     census, fn = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
@@ -297,6 +316,10 @@ def sass_census(path):
         found = [c for fn, c in census.items() if fn.startswith(kernel)]
         check(found and all(c[mma] > 0 and c["UTMALDG"] > 0 for c in found),
               f"{kernel}: no {mma} (wgmma) or UTMALDG (TMA) in its SASS")
+    for kernel in ("sampled_matmul_kernel", "sampled_matmul_dx_kernel"):
+        found = [c for fn, c in census.items() if fn == kernel]
+        check(found and all(c["HGMMA"] + c["HMMA"] > 0 for c in found),
+              f"{kernel}: no tensor-core product (HGMMA, HMMA) in its SASS")
 
 
 def flat_posterior(model):
@@ -348,6 +371,29 @@ def phase_batch_sampler(model):
     check(ulps <= 1.0, "K-A bf16 output differs by more than one ulp")
     check(abs(e_mean) < 1e-3 and abs(e_std - 1) < 1e-3,
           "K-A eps moments are off")
+    # the single draw: K-A in its rho mode takes softplus(rho) in the kernel
+    from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
+        sample_gaussian,
+    )
+    from bayesian_torch_tpu_torch.ops.sampling import sigma_from_rho
+
+    rho = torch.log(torch.expm1(sigma))
+    rho[:2] = torch.tensor([25.0, -40.0], device=rho.device)
+    before = ka.launches
+    got = sample_gaussian(seed, mu, rho, torch.float32)
+    check(ka.launches == before + 1, "sample_gaussian: not one K-A launch")
+    want = ka_plain(seed, mu, sigma_from_rho(rho), 1, torch.float32)[0]
+    rho_err = max_err(got, want)
+    got = sample_gaussian(seed, mu, rho, torch.bfloat16)
+    want = ka_plain(seed, mu, sigma_from_rho(rho), 1, torch.bfloat16)[0]
+    rho_ulps = ((got.float() - want.float()).abs()
+                / bf16_ulp(want)).max().item()
+    del got, want, rho
+    log(f"[K-A rho] the single draw (sample_gaussian, softplus in the "
+        f"kernel), n={n}: f32 max|kernel-plain|={rho_err:.3e} (limit 1e-5); "
+        f"bf16 max diff={rho_ulps:.2f} ulp (limit 1)")
+    check(rho_err <= 1e-5, "K-A rho mode f32 differs from its plain version")
+    check(rho_ulps <= 1.0, "K-A rho mode bf16 differs by more than one ulp")
     ms, plain_ms = median_ms_pair(
         lambda: ka(seed, mu, sigma, NUM_MC, torch.bfloat16),
         lambda: ka_plain(seed, mu, sigma, NUM_MC, torch.bfloat16))
@@ -356,8 +402,57 @@ def phase_batch_sampler(model):
         f"({gbytes / ms * 1e3:.0f} GB/s of {gbytes * 1e3:.0f} MB moved), "
         f"plain {plain_ms:.3f} ms")
     # no PyTorch call draws the counter-hash normals: no library time
-    return with_bound(dict(max_abs_err=err32, ms=ms, plain_ms=plain_ms),
-                      gbytes * 1e9, 2 * NUM_MC * n)
+    return with_bound("K-A", dict(max_abs_err=max(err32, rho_err), ms=ms,
+                                  plain_ms=plain_ms),
+                      gbytes * 1e9, 2 * NUM_MC * n, normals=NUM_MC * n)
+
+
+def sampled_times(what, kernel, plain, unfused, tag):
+    """Two calls of ``kernel`` give the same bits; device ms of the
+    kernel (its rows named ``tag``), of its plain version and of the
+    unfused route (K-A drawing the weights in f32, then torch.matmul; all
+    their device rows), logged. The plain version is no yardstick: it
+    draws eps in torch passes."""
+    import torch
+
+    first = kernel()
+    again = kernel()
+    check(all(torch.equal(a, b) for a, b in zip(
+        first if isinstance(first, tuple) else (first,),
+        again if isinstance(again, tuple) else (again,))),
+          f"{what}: two calls differ")
+    keys = ("ms", "plain_ms", "unfused_ms")
+    calls = [(kernel, tag), (plain, None)] + (
+        [(unfused, None)] if unfused is not None else [])
+    times = dict(zip(keys, device_times(*calls)))
+    log(f"[{what}] device ms per call (torch.profiler, {len(times)} "
+        f"routes): " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+        + "; two calls equal bit for bit")
+    return times
+
+
+def unfused_fwd(seed, x, mu, sigma, num_samples):
+    """The route without the fused kernel: K-A draws the S weights in f32,
+    torch.matmul multiplies (x (M, K) shared or (S, M, K))."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
+        sample_scaled_normals_batch as ka,
+    )
+
+    return torch.matmul(x, ka(seed, mu, sigma, num_samples,
+                              torch.float32).transpose(1, 2))
+
+
+def unfused_dx(seed, g, mu, sigma):
+    """K-D's function without the fused kernel: K-A, then torch.matmul."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
+        sample_scaled_normals_batch as ka,
+    )
+
+    return torch.matmul(g, ka(seed, mu, sigma, g.shape[0], torch.float32))
 
 
 def phase_sampled_gemm(model):
@@ -369,35 +464,30 @@ def phase_sampled_gemm(model):
     )
     from bayesian_torch_tpu_torch.ops.sampling import sigma_from_rho
 
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     mu = model.fc.mu_weight.detach()
     rho = model.fc.rho_weight.detach()
     sigma = sigma_from_rho(rho)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     x = torch.randn(BATCH, mu.shape[1], generator=gen, device="cuda")
     seed = 4242
-    got = kb(seed, x, mu, rho, out_dtype=torch.float32)
-    want = kb_plain(seed, x, mu, sigma, torch.float32)
-    err = (got - want).abs().max().item()
-    scale = want.abs().max().item()
-    log(f"[K-B] M={BATCH} K={mu.shape[1]} N={mu.shape[0]} f32: "
-        f"max|kernel-plain|={err:.3e}, limit 1e-4 x max|out| = "
-        f"{1e-4 * scale:.3e} (order of summation)")
-    check(err <= 1e-4 * scale, "K-B differs from its plain version")
-    ms, plain_ms = median_ms_pair(
-        lambda: kb(seed, x, mu, rho, out_dtype=torch.float32),
-        lambda: kb_plain(seed, x, mu, sigma, torch.float32))
-    flops = 2 * BATCH * mu.shape[0] * mu.shape[1]
-    log(f"[K-B] median of {REPS}: kernel {ms:.4f} ms "
-        f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms")
-    (torch.backends.cuda.matmul.allow_tf32,
-     torch.backends.cudnn.allow_tf32) = tf32
+    with tf32_off():
+        got = kb(seed, x, mu, rho, out_dtype=torch.float32)
+        want = kb_plain(seed, x, mu, sigma, torch.float32)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        log(f"[K-B] M={BATCH} K={mu.shape[1]} N={mu.shape[0]} f32: "
+            f"max|kernel-plain|={err:.3e}, limit 1e-4 x max|out| = "
+            f"{1e-4 * scale:.3e} (split-TF32 products, order of summation)")
+        check(err <= 1e-4 * scale, "K-B differs from its plain version")
+        times = sampled_times(
+            "K-B", lambda: kb(seed, x, mu, rho, out_dtype=torch.float32),
+            lambda: kb_plain(seed, x, mu, sigma, torch.float32),
+            lambda: unfused_fwd(seed, x, mu, sigma, 1)[0], KB_TAG)
     N, K = mu.shape
-    return with_bound(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms),
-                      4 * (BATCH * K + 2 * N * K + BATCH * N), flops)
+    # three TF32 products on the tensor cores (split TF32)
+    return with_bound("K-B", dict(max_abs_err=err, **times),
+                      4 * (BATCH * K + 2 * N * K + BATCH * N),
+                      3 * 2 * BATCH * N * K, TF32_OPS, normals=N * K)
 
 
 def set_bn_statistics(model, x):
@@ -511,8 +601,8 @@ def phase_noise_grad(model):
         f"({gbytes / ms * 1e3:.0f} GB/s of {gbytes * 1e3:.0f} MB moved), "
         f"plain {plain_ms:.3f} ms")
     results["dsigma"] = with_bound(
-        dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), gbytes * 1e9,
-        2 * TRAIN_MC * n)
+        "K-C dsigma", dict(max_abs_err=err, ms=ms, plain_ms=plain_ms),
+        gbytes * 1e9, 2 * TRAIN_MC * n, normals=TRAIN_MC * n)
     del g
     g = torch.randn(n, generator=gen, device="cuda")
     got, want = ka.drho(seed, g, rho), ka.drho_plain(seed, g, rho)
@@ -528,7 +618,8 @@ def phase_noise_grad(model):
         f"({gbytes / ms * 1e3:.0f} GB/s of {gbytes * 1e3:.0f} MB moved), "
         f"plain {plain_ms:.3f} ms")
     results["drho"] = with_bound(
-        dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), gbytes * 1e9, 4 * n)
+        "K-C drho", dict(max_abs_err=err, ms=ms, plain_ms=plain_ms),
+        gbytes * 1e9, 4 * n, normals=n)
     return results
 
 
@@ -556,14 +647,14 @@ def phase_gemm_backward(model):
         log(f"[K-D] dx: M={BATCH} N={N} K={K} f32: max|kernel-plain|="
             f"{err:.3e}, limit 1e-4 x max|plain| = {1e-4 * scale:.3e}")
         check(err <= 1e-4 * scale, "K-D differs from its plain version")
-        ms, plain_ms = median_ms_pair(
-            lambda: kb.sampled_matmul_dx(seed, g, mu, sigma),
-            lambda: kb.sampled_matmul_dx_plain(seed, g, mu, sigma))
-        log(f"[K-D] median of {REPS}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f}"
-            f" TFLOP/s), plain {plain_ms:.4f} ms")
+        times = sampled_times(
+            "K-D", lambda: kb.sampled_matmul_dx(seed, g, mu, sigma),
+            lambda: kb.sampled_matmul_dx_plain(seed, g, mu, sigma),
+            lambda: unfused_dx(seed, g[None], mu, sigma)[0], KD_TAG)
         results["dx"] = with_bound(
-            dict(max_abs_err=err, ms=ms, plain_ms=plain_ms),
-            4 * (BATCH * N + 2 * N * K + BATCH * K), flops)
+            "K-D", dict(max_abs_err=err, **times),
+            4 * (BATCH * N + 2 * N * K + BATCH * K), 3 * flops, TF32_OPS,
+            normals=N * K)
 
         dmu, dsig = kb.sampled_matmul_dw(seed, g, x)
         dmu_w, dsig_w = kb.sampled_matmul_dw_plain(seed, g, x)
@@ -573,14 +664,14 @@ def phase_gemm_backward(model):
             f"max|kernel-plain|={err:.3e}, limit 1e-4 x max|plain| = "
             f"{1e-4 * scale:.3e}")
         check(err <= 1e-4 * scale, "K-E differs from its plain version")
-        ms, plain_ms = median_ms_pair(
-            lambda: kb.sampled_matmul_dw(seed, g, x),
-            lambda: kb.sampled_matmul_dw_plain(seed, g, x))
-        log(f"[K-E] median of {REPS}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f}"
-            f" TFLOP/s), plain {plain_ms:.4f} ms")
+        # no unfused yardstick: K-E's dsigma needs eps itself
+        times = sampled_times(
+            "K-E", lambda: kb.sampled_matmul_dw(seed, g, x),
+            lambda: kb.sampled_matmul_dw_plain(seed, g, x), None, KE_TAG)
         results["dw"] = with_bound(
-            dict(max_abs_err=err, ms=ms, plain_ms=plain_ms),
-            4 * (BATCH * N + BATCH * K + 2 * N * K), flops + N * K)
+            "K-E", dict(max_abs_err=err, **times),
+            4 * (BATCH * N + BATCH * K + 2 * N * K), flops + N * K,
+            normals=N * K)
     return results
 
 
@@ -642,7 +733,8 @@ def phase_lane_kernels(model):
     """K-B with lanes at S = 10 (MC-10 inference) and K-D, K-E with lanes
     at S = 4 (MC-4 training) against their plain versions at the head
     shape, x per lane and x shared, f32 with TF32 off; lane 0 (K-E: one
-    lane) equals the single-draw kernel bit for bit; median times."""
+    lane) equals the single-draw kernel bit for bit; device times beside
+    the unfused route."""
     import torch
 
     from bayesian_torch_tpu_torch.ops.cuda import sampled_matmul as kb
@@ -672,19 +764,21 @@ def phase_lane_kernels(model):
             errs.append(gate(f"K-B lanes ({what})", got, want))
         check(torch.equal(got[0], kb.sampled_matmul(seed, x[0], mu, rho)),
               "K-B lanes: lane 0 differs from K-B")
-        ms, plain_ms = median_ms_pair(
-            lambda: kb.sampled_matmul_batched(seed, x, mu, rho, S),
-            lambda: kb.sampled_matmul_batched_plain(seed, x, mu, sigma, S))
         flops = 2 * S * BATCH * N * K
         log(f"[K-B lanes] S={S} M={BATCH} K={K} N={N} f32: max|kernel-plain|"
             f" = {errs[0][0]:.3e} (x per lane), {errs[1][0]:.3e} (x shared), "
             f"limit 1e-4 x max|plain| = {1e-4 * errs[0][1]:.3e}; lane 0 equal "
-            f"to K-B; median of {REPS}: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms")
+            f"to K-B")
+        times = sampled_times(
+            f"K-B lanes S={S}",
+            lambda: kb.sampled_matmul_batched(seed, x, mu, rho, S),
+            lambda: kb.sampled_matmul_batched_plain(seed, x, mu, sigma, S),
+            lambda: unfused_fwd(seed, x, mu, sigma, S), KB_TAG)
         results["fwd"] = with_bound(
-            dict(max_abs_err=max(e for e, _ in errs), ms=ms,
-                 plain_ms=plain_ms),
-            4 * (S * BATCH * K + 2 * N * K + S * BATCH * N), flops)
+            f"K-B lanes S={S}",
+            dict(max_abs_err=max(e for e, _ in errs), **times),
+            4 * (S * BATCH * K + 2 * N * K + S * BATCH * N), 3 * flops,
+            TF32_OPS, normals=S * N * K)
 
         S = TRAIN_MC
         g = torch.randn(S, BATCH, N, generator=gen, device="cuda")
@@ -696,17 +790,18 @@ def phase_lane_kernels(model):
         check(torch.equal(got[0], kb.sampled_matmul_dx(seed, g[0], mu,
                                                        sigma)),
               "K-D lanes: lane 0 differs from K-D")
-        ms, plain_ms = median_ms_pair(
-            lambda: kb.sampled_matmul_dx_batched(seed, g, mu, sigma),
-            lambda: kb.sampled_matmul_dx_batched_plain(seed, g, mu, sigma))
         flops = 2 * S * BATCH * N * K
         log(f"[K-D lanes] S={S} M={BATCH} N={N} K={K} f32: max|kernel-plain|"
-            f" = {err:.3e}, limit {1e-4 * scale:.3e}; lane 0 equal to K-D; "
-            f"median of {REPS}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
-            f"TFLOP/s), plain {plain_ms:.4f} ms")
+            f" = {err:.3e}, limit {1e-4 * scale:.3e}; lane 0 equal to K-D")
+        times = sampled_times(
+            f"K-D lanes S={S}",
+            lambda: kb.sampled_matmul_dx_batched(seed, g, mu, sigma),
+            lambda: kb.sampled_matmul_dx_batched_plain(seed, g, mu, sigma),
+            lambda: unfused_dx(seed, g, mu, sigma), KD_TAG)
         results["dx"] = with_bound(
-            dict(max_abs_err=err, ms=ms, plain_ms=plain_ms),
-            4 * (S * BATCH * N + 2 * N * K + S * BATCH * K), flops)
+            f"K-D lanes S={S}", dict(max_abs_err=err, **times),
+            4 * (S * BATCH * N + 2 * N * K + S * BATCH * K), 3 * flops,
+            TF32_OPS, normals=S * N * K)
 
         errs = []
         for what, xl in (("x per lane", x), ("x shared", x[0])):
@@ -718,19 +813,19 @@ def phase_lane_kernels(model):
         check(all(torch.equal(a, b) for a, b in zip(
             one, kb.sampled_matmul_dw(seed, g[0], x[0]))),
             "K-E lanes: one lane differs from K-E")
-        ms, plain_ms = median_ms_pair(
-            lambda: kb.sampled_matmul_dw_batched(seed, g, x),
-            lambda: kb.sampled_matmul_dw_batched_plain(seed, g, x))
         log(f"[K-E lanes] S={S} M={BATCH} N={N} K={K} f32: dmu, dsigma "
             f"summed over lanes: max|kernel-plain| = {errs[0][0]:.3e} (x per "
-            f"lane), {errs[1][0]:.3e} (x shared); one lane equal to K-E; "
-            f"median of {REPS}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
-            f"TFLOP/s), plain {plain_ms:.4f} ms")
+            f"lane), {errs[1][0]:.3e} (x shared); one lane equal to K-E")
+        times = sampled_times(
+            f"K-E lanes S={S}",
+            lambda: kb.sampled_matmul_dw_batched(seed, g, x),
+            lambda: kb.sampled_matmul_dw_batched_plain(seed, g, x), None,
+            KE_TAG)
         results["dw"] = with_bound(
-            dict(max_abs_err=max(e for e, _ in errs), ms=ms,
-                 plain_ms=plain_ms),
+            f"K-E lanes S={S}",
+            dict(max_abs_err=max(e for e, _ in errs), **times),
             4 * (S * BATCH * N + S * BATCH * K + 2 * N * K),
-            flops + 3 * S * N * K)
+            flops + 3 * S * N * K, normals=S * N * K)
     return results
 
 
@@ -1047,7 +1142,7 @@ def phase_profile(model, x, kb):
             kb(4242, xk, mu, rho, out_dtype=torch.float32)
         torch.cuda.synchronize()
     (ev,) = [e for e in prof.key_averages()
-             if "sampled_matmul_kernel" in e.key]
+             if KB_TAG in e.key]
     log(f"[profile] K-B kernel alone at M={BATCH} K={mu.shape[1]} "
         f"N={mu.shape[0]}: {ev.self_device_time_total / ev.count / 1e3:.4f} "
         f"ms of device time per launch, {ev.count} launches")
@@ -1431,14 +1526,14 @@ def phase_qmatmul(shapes):
     for (M, K, N), count in sorted(shapes.items()):
         x, w, b, out_scale, args, err = operands(M, K, N)
         worst = max(worst, err)
-        ms = device_ms(lambda: kf.qmatmul_requant(
-            x, 0.02, 117, w, 0.01, b, out_scale, 128), "qmatmul")
-        plain_ms = device_ms(lambda: kf.qmatmul_requant_plain(x, w, *args,
-                                                              128))
         kp, np_ = -(-K // 8) * 8, -(-N // 8) * 8
         xc = F.pad((x.int() - 128).to(torch.int8), (0, kp - K))
         wc = F.pad(w, (0, kp - K, 0, np_ - N))
-        lib_ms = device_ms(lambda: torch._int_mm(xc, wc.t()))
+        ms, plain_ms, lib_ms = device_times(
+            (lambda: kf.qmatmul_requant(x, 0.02, 117, w, 0.01, b, out_scale,
+                                        128), "qmatmul"),
+            (lambda: kf.qmatmul_requant_plain(x, w, *args, 128), None),
+            (lambda: torch._int_mm(xc, wc.t()), None))
         nbytes, ops = M * K + N * K + M * N + 8 * N, 2 * M * N * K
         bound_ms, by = bound(nbytes, ops, INT8_OPS)
         log(f"[K-F] M={M} K={K} N={N} x{count}: kernel {ms:.4f} ms "
@@ -1736,10 +1831,11 @@ def phase_mc_gemm():
         check(torch.equal(via_conv.reshape(got.shape), got),
               "conv_draws(pointwise_dot=True) is not K-G's output")
         del got, want, via_conv
-        ms = device_ms(lambda: kg.mc_gemm(x4, w3), "mc_gemm")
-        plain_ms = device_ms(lambda: kg.mc_gemm_plain(x4, w3))
-        cudnn_ms = device_ms(lambda: conv_ops.conv_draws(x, w))
-        lib_ms = device_ms(lambda: torch.matmul(w3, x4))
+        ms, plain_ms, cudnn_ms, lib_ms = device_times(
+            (lambda: kg.mc_gemm(x4, w3), "mc_gemm"),
+            (lambda: kg.mc_gemm_plain(x4, w3), None),
+            (lambda: conv_ops.conv_draws(x, w), None),
+            (lambda: torch.matmul(w3, x4), None))
         nbytes = 2 * (x.numel() + w.numel() + BATCH * S * co * sp * sp)
         ops = 2 * BATCH * S * co * sp * sp * ci
         bound_ms, by = bound(nbytes, ops, BF16_OPS)
@@ -1764,9 +1860,10 @@ def phase_mc_gemm():
         check(torch.equal(via_conv.reshape(got.shape), got),
               "conv_nd(pointwise_dot=True) is not K-G's output")
         del got, want, via_conv
-        ms = device_ms(lambda: kg.pointwise_gemm(xs, w0), "mc_gemm")
-        plain_ms = device_ms(lambda: kg.mc_gemm_plain(xs, w0))
-        lib_ms = device_ms(lambda: torch.matmul(w0, xs))
+        ms, plain_ms, lib_ms = device_times(
+            (lambda: kg.pointwise_gemm(xs, w0), "mc_gemm"),
+            (lambda: kg.mc_gemm_plain(xs, w0), None),
+            (lambda: torch.matmul(w0, xs), None))
         nbytes -= 2 * (S - 1) * w0.numel()  # the weight is read once
         bound_ms, by = bound(nbytes, ops, BF16_OPS)
         log(f"[K-G S=1] {ci}->{co}@{sp} x{count}, batch {BATCH * S}: "
@@ -1793,9 +1890,10 @@ def phase_mc_gemm():
               f"{kg.mc_gemm.launches - before} K-G launches, want 2")
         kg_gate(f"K-G autograd dx at {ci}->{co}@{sp}", xg.grad, want)
         del want, xg, wg
-        ms = device_ms(lambda: kg.mc_gemm(g, wt), "mc_gemm")
-        plain_ms = device_ms(lambda: kg.mc_gemm_plain(g, wt))
-        lib_ms = device_ms(lambda: torch.matmul(wt, g))
+        ms, plain_ms, lib_ms = device_times(
+            (lambda: kg.mc_gemm(g, wt), "mc_gemm"),
+            (lambda: kg.mc_gemm_plain(g, wt), None),
+            (lambda: torch.matmul(wt, g), None))
         nbytes = 2 * (g.numel() + wt.numel() + x4.numel())
         bound_ms, by = bound(nbytes, ops, BF16_OPS)
         log(f"[K-G dx] {co}->{ci}@{sp} x{count}: max|kernel-plain| {err:.3e} "
@@ -1893,9 +1991,9 @@ def phase_matmul_probe():
             err, limit = kg_gate(f"K-G matmul {M}x{K}x{N} {dtype}",
                                  kg.matmul(a, b), plain())
             worst = max(worst, err)
-            ms = device_ms(lambda: kg.matmul(a, b), "mc_gemm")
-            plain_ms = device_ms(plain)
-            lib_ms = device_ms(lambda: library(a, b))
+            ms, plain_ms, lib_ms = device_times(
+                (lambda: kg.matmul(a, b), "mc_gemm"), (plain, None),
+                (lambda: library(a, b), None))
             ops = 2 * M * N * K
             nbytes = a.element_size() * (M * K + K * N) + out_size * M * N
             bound_ms, by = bound(nbytes, ops, peak)
@@ -2267,6 +2365,8 @@ def main(argv=None):
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never ran in {k['run']}")
+    log(f"[time] profiler sessions of the kernel timings: "
+        f"{SESSIONS['sessions']}, taken again {SESSIONS['retried']}")
     log(f"[time] every phase passed in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

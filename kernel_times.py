@@ -1,23 +1,43 @@
-"""Device times of the hand-written GEMM kernels K-G and K-F at Bayesian
-ResNet-50's shapes, beside one PyTorch call for the same product.
+"""Device times of the hand-written GEMM kernels K-B, K-D, K-E, K-G and K-F
+at Bayesian ResNet-50's shapes, beside one PyTorch call for the same
+product where there is one; and the device busy time of the loop paths
+that run K-B and K-D.
 
     python3 kernel_times.py [--label NAME]
 
-Imports ``bayesian_torch_tpu_torch`` from the current directory, so the
-same script times two checkouts (a change and its parent, each unpacked
-with ``git archive``) in turns on one card. Times are the kernel's own
-device time per launch from ``torch.profiler`` over ``REPS`` back-to-back
-launches after a warm-up (the wrapper's small torch ops, such as K-F's
-column sums, are not counted); a library call counts all its device rows.
-Needs a CUDA card; prints one line per shape and a JSON summary last.
+Runs the sections below in turn. Imports ``bayesian_torch_tpu_torch``
+from the current directory, so the same script times two checkouts (a
+change and its parent, each unpacked with ``git archive``) in turns on one
+card. Kernel times are the kernel's own device time per launch from
+``torch.profiler`` over ``REPS`` back-to-back launches after a warm-up
+(the wrapper's small torch ops, such as K-F's column sums, are not
+counted); a library call counts all its device rows. Needs a CUDA card;
+prints one line per shape and a JSON summary last.
 
-- K-G (``ops/cuda/mc_gemm.py``), bf16, at the 12 pointwise sites of
-  ResNet-50 (MC-10, batch 128): ``mc_gemm`` per draw, ``pointwise_gemm``
-  with one weight over the B*S batch (the Flipout mean convs), and the
-  input gradient ``mc_gemm(g, w^T)``; beside ``torch.matmul`` with the
-  broadcast weight and the S-way grouped cuDNN conv. The matmul probe:
-  ``matmul`` at 4096^3 and 8192 x 4096 x 4096, bf16 and int8.
-- K-F (``ops/cuda/qmatmul.py``) at the 21 GEMM shapes of one INT8
+- ``sampled``: the fused sampled GEMM and its backward
+  (``ops/cuda/sampled_matmul.py``) at the head (M = 128, K = 2048,
+  N = 1000, f32, TF32 off): K-B at S = 1 and with lanes at S = 4 and 10 (x
+  per lane and shared), K-D at S = 1 and 4, K-E at S = 1 and 4; beside the
+  unfused route, K-A drawing the S weights in f32 and then
+  ``torch.matmul`` (all its device rows). No PyTorch call samples the
+  weight inside a GEMM. Each row's bound is the largest of bytes,
+  operations (K-B and K-D: three TF32 products on the tensor cores; K-E:
+  f32) and the generation of its normals (``generation_ms``).
+- ``paths``: ResNet-50 (bf16) through the draw loop with the head on K-B
+  and K-D (``fc.impl = "pallas"``): MC-10 bs128 inference with
+  ``presample="off"`` (``chip_smoke.py``'s phase 6) and the MC-4 bs128
+  ELBO step with ``emission="scan"`` (phase 8). Host wall ms of each batch
+  or step without the profiler, then three of each under the profiler:
+  device busy ms (the union of the device rows' spans), idle share, and
+  the K-B, K-D, K-E rows' device ms.
+- ``kg``: K-G (``ops/cuda/mc_gemm.py``), bf16, at the 12 pointwise sites
+  of ResNet-50 (MC-10, batch 128): ``mc_gemm`` per draw,
+  ``pointwise_gemm`` with one weight over the B*S batch (the Flipout mean
+  convs), and the input gradient ``mc_gemm(g, w^T)``; beside
+  ``torch.matmul`` with the broadcast weight and the S-way grouped cuDNN
+  conv. ``probe``: ``matmul`` at 4096^3 and 8192 x 4096 x 4096, bf16 and
+  int8.
+- ``kf``: K-F (``ops/cuda/qmatmul.py``) at the 21 GEMM shapes of one INT8
   ``qresnet50`` forward at batch 128 (54 launches; the stem's K of 147
   widened to 160 as ``ops.int8.qconv`` does), beside ``torch._int_mm``.
 """
@@ -25,14 +45,32 @@ Needs a CUDA card; prints one line per shape and a JSON summary last.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
+import time
 
 REPS = 10
-BATCH, S = 128, 10
+BATCH, S, TRAIN_MC, IMAGE = 128, 10, 4, 224
+# NVIDIA's data sheet, H100 SXM, dense: HBM bytes/s; bf16, int8, TF32 (on
+# the tensor cores) and f32 (outside them) operations/s
 HBM_BPS, BF16_OPS, INT8_OPS = 3.35e12, 989e12, 1979e12
+TF32_OPS, F32_OPS = 495e12, 67e12
+# issued instructions of one counter-hash normal (``btt_hash_normal``,
+# csrc/noise.cuh, on the fast paths of cosf and sqrtf), counted once in
+# ``cuobjdump -sass`` of the library built for sm_90a (PERF.md, section 6)
+PER_NORMAL = 90
+# thread instructions the card issues per second: 132 SMs x 4 schedulers
+# x 32 lanes at its top SM clock, 1,980 MHz
+ISSUE_RATE = 132 * 4 * 32 * 1.98e9
+# the head of Bayesian ResNet-50: x (M, K) @ W^T with W (N, K)
+HEAD_M, HEAD_K, HEAD_N = 128, 2048, 1000
+KB_TAG, KD_TAG, KE_TAG = ("sampled_matmul_kernel", "sampled_matmul_dx_kernel",
+                          "sampled_matmul_dw_kernel")
 # (in, out, side, count) of ResNet-50's 1x1 stride-1 convs
 SITES = [(64, 64, 56, 1), (64, 256, 56, 4), (256, 64, 56, 2),
          (256, 128, 56, 1), (128, 512, 28, 4), (512, 128, 28, 3),
@@ -53,30 +91,113 @@ def bound_ms(nbytes, ops, peak):
     return max(nbytes / HBM_BPS, ops / peak) * 1e3
 
 
-def device_ms(fn, tag=None):
-    """Device ms per call of ``fn``: the rows whose name holds ``tag``, or
-    all rows."""
-    import torch
+def generation_ms(normals):
+    """Least ms to issue the instructions of ``normals`` counter-hash
+    normals."""
+    return normals * PER_NORMAL / ISSUE_RATE * 1e3
+
+
+def device_rows(prof):
+    """The device rows of a profiler session (no user annotations), in the
+    order they started."""
     from torch.autograd import DeviceType
+
+    return sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation),
+                  key=lambda e: e.time_range.start)
+
+
+def busy_ms(rows):
+    """The union of the rows' spans, ms (rows may overlap)."""
+    busy, end = 0.0, -math.inf
+    for e in rows:
+        start, stop = e.time_range.start, e.time_range.end
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e3
+
+
+# idle host seconds at each end of a profiler session and before each
+# call of device_times, whose rows are then apart by more than half of it;
+# the count of device_times' sessions and of those it took again
+EDGE_S, GAP_S = 0.05, 0.03
+SESSIONS = dict(sessions=0, retried=0)
+
+
+@contextlib.contextmanager
+def device_trace():
+    """A profiler session of the card's activity with ``EDGE_S`` of idle
+    host time at each end."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(EDGE_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(EDGE_S)
+
+
+def bursts(rows, gap_us):
+    """``rows`` (in start order) cut wherever the card was idle for more
+    than ``gap_us``."""
+    out, end = [], -math.inf
+    for e in rows:
+        if e.time_range.start - end > gap_us:
+            out.append([])
+        out[-1].append(e)
+        end = max(end, e.time_range.end)
+    return out
+
+
+def device_times(*calls):
+    """Device ms per call of each ``(fn, tag)`` of ``calls``: the rows whose
+    name holds ``tag``, or all rows (``tag`` None). All calls run in one
+    profiler session, ``REPS`` times each after a warm-up, each burst of
+    launches after ``GAP_S`` of idle host time: the card's idle gaps split
+    the rows. Not marks: on the H100 machine the spin kernels
+    (``torch.cuda._sleep``) launched first in a session went missing from
+    it now and then (in the INT8 phase of ``chip_smoke.py``, in every
+    retry), while the calls' rows stayed."""
+    import torch
+
+    for fn, _ in calls:
+        fn()
     torch.cuda.synchronize()
-    # a profiler session now and then records no device activity at all
-    # (seen once in a hundred on the H100 machine): take the next one
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        rows = [e for e in events if tag is None or tag in e.key]
-        if rows:
-            return sum(e.self_device_time_total for e in rows) / REPS / 1e3
-        if events:
+    # a session cut into the wrong number of bursts is taken again, and
+    # logged; after three such sessions each call is timed in a session of
+    # its own
+    for attempt in range(3 if len(calls) > 1 else 6):
+        SESSIONS["sessions"] += 1
+        with device_trace() as prof:
+            for fn, _ in calls:
+                torch.cuda.synchronize()
+                time.sleep(GAP_S)
+                for _ in range(REPS):
+                    fn()
+        rows = device_rows(prof)
+        cut = bursts(rows, GAP_S / 2 * 1e6)
+        if len(cut) == len(calls):
             break
-    raise RuntimeError(f"no device rows{'' if tag is None else ' ' + tag}")
+        SESSIONS["retried"] += 1
+        print(f"[device_times] session {attempt}: {len(rows)} device rows "
+              f"in {len(cut)} bursts, want {len(calls)}; first rows "
+              f"{[e.name[:40] for e in rows[:3]]}; taking another",
+              flush=True)
+    else:
+        if len(calls) > 1:
+            return [device_times(call)[0] for call in calls]
+        raise RuntimeError("no profiler session recorded every call")
+    times = []
+    for (_, tag), burst in zip(calls, cut):
+        got = [e for e in burst if tag is None or tag in e.name]
+        if not got:
+            raise RuntimeError(f"no device rows named {tag}: "
+                               f"{sorted({e.name[:60] for e in burst})}")
+        times.append(sum(e.self_device_time_total for e in got) / REPS / 1e3)
+    return times
 
 
 def kg_sites(out):
@@ -97,15 +218,18 @@ def kg_sites(out):
         wt = w3.transpose(1, 2).contiguous()
         x, w = x4.reshape(BATCH, S * ci, sp, sp), w3.reshape(S * co, ci, 1, 1)
         xs = x4.reshape(BATCH * S, ci, P)
+        times = device_times(
+            (lambda: kg.mc_gemm(x4, w3), "mc_gemm"),
+            (lambda: kg.pointwise_gemm(xs, w3[0]), "mc_gemm"),
+            (lambda: kg.mc_gemm(g, wt), "mc_gemm"),
+            (lambda: torch.matmul(w3, x4), None),
+            (lambda: torch.matmul(w3[0], xs), None),
+            (lambda: torch.matmul(wt, g), None),
+            (lambda: F.conv2d(x, w, groups=S), None))
         row = dict(
             site=f"{ci}->{co}@{sp}", count=count,
-            kg=device_ms(lambda: kg.mc_gemm(x4, w3), "mc_gemm"),
-            kg_s1=device_ms(lambda: kg.pointwise_gemm(xs, w3[0]), "mc_gemm"),
-            kg_dx=device_ms(lambda: kg.mc_gemm(g, wt), "mc_gemm"),
-            matmul=device_ms(lambda: torch.matmul(w3, x4)),
-            matmul_s1=device_ms(lambda: torch.matmul(w3[0], xs)),
-            matmul_dx=device_ms(lambda: torch.matmul(wt, g)),
-            cudnn=device_ms(lambda: F.conv2d(x, w, groups=S)),
+            **dict(zip(("kg", "kg_s1", "kg_dx", "matmul", "matmul_s1",
+                        "matmul_dx", "cudnn"), times)),
             bound=bound_ms(2 * (x4.numel() + w3.numel() + g.numel()),
                            2 * BATCH * S * co * P * ci, BF16_OPS))
         print("[K-G] " + ", ".join(
@@ -139,9 +263,9 @@ def probe(out):
                 a = torch.randn(M, K, device="cuda", generator=gen).to(dtype)
                 b = torch.randn(K, N, device="cuda", generator=gen).to(dtype)
                 lib = torch.matmul
-            row = dict(shape=f"{M}x{K}x{N} {dtype}",
-                       kg=device_ms(lambda: kg.matmul(a, b), "mc_gemm"),
-                       lib=device_ms(lambda: lib(a, b)))
+            kg_ms, lib_ms = device_times((lambda: kg.matmul(a, b), "mc_gemm"),
+                                         (lambda: lib(a, b), None))
+            row = dict(shape=f"{M}x{K}x{N} {dtype}", kg=kg_ms, lib=lib_ms)
             print(f"[probe] {row}", flush=True)
             out.append(row)
 
@@ -160,11 +284,12 @@ def kf(out):
                           device="cuda", generator=gen)
         b = torch.randn(N, device="cuda", generator=gen)
         xc = (x.int() - 128).to(torch.int8)
+        kf_ms, lib_ms = device_times(
+            (lambda: kfm.qmatmul_requant(x, 0.02, 117, w, 0.01, b, 3.0, 128),
+             "qmatmul"),
+            (lambda: torch._int_mm(xc, w.t()), None))
         row = dict(
-            shape=f"{M}x{K}x{N}", count=count,
-            kf=device_ms(lambda: kfm.qmatmul_requant(
-                x, 0.02, 117, w, 0.01, b, 3.0, 128), "qmatmul"),
-            int_mm=device_ms(lambda: torch._int_mm(xc, w.t())),
+            shape=f"{M}x{K}x{N}", count=count, kf=kf_ms, int_mm=lib_ms,
             bound=bound_ms(M * K + N * K + M * N + 8 * N, 2 * M * N * K,
                            INT8_OPS))
         print(f"[K-F] {row}", flush=True)
@@ -174,6 +299,163 @@ def kf(out):
         del x, w, b, xc
     print(f"[K-F] sums over one forward's 54 GEMMs: {tot}", flush=True)
     return tot
+
+
+def sampled(out):
+    """K-B, K-D and K-E at the head, beside the unfused route."""
+    import torch
+    import torch.nn.functional as F
+
+    from bayesian_torch_tpu_torch.ops.cuda import sampled_matmul as kb
+    from bayesian_torch_tpu_torch.ops.cuda import sampled_weights as ka
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    M, K, N = HEAD_M, HEAD_K, HEAD_N
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    mu = 0.1 * torch.randn(N, K, generator=gen, device="cuda")
+    rho = torch.randn(N, K, generator=gen, device="cuda") * 0.1 - 3.0
+    sigma = F.softplus(rho)
+    x = torch.randn(S, M, K, generator=gen, device="cuda")
+    g = torch.randn(4, M, N, generator=gen, device="cuda")
+    seed, f32 = 4242, torch.float32
+
+    def draws(s):
+        return ka.sample_scaled_normals_batch(seed, mu, sigma, s, f32)
+
+    def row(what, s, fn, tag, nbytes, unfused=None):
+        # K-B and K-D: three TF32 products on the tensor cores; K-E: one
+        # f32 product outside them and the dsigma epilogue
+        tensor_cores = what.startswith(("K-B", "K-D"))
+        ops = 2 * s * M * N * K * (3 if tensor_cores else 1) + (
+            0 if tensor_cores else 3 * s * N * K)
+        terms = dict(
+            bytes=nbytes / HBM_BPS * 1e3,
+            operations=ops / (TF32_OPS if tensor_cores else F32_OPS) * 1e3,
+            generation=generation_ms(s * N * K))
+        calls = [(fn, tag)] + ([(unfused, None)] if unfused else [])
+        times = device_times(*calls)
+        r = dict(kernel=what, S=s, ms=times[0],
+                 bound_ms=max(terms.values()),
+                 bound_by=max(terms, key=terms.get),
+                 **{f"{k}_ms": v for k, v in terms.items()})
+        if unfused is not None:
+            r["unfused_ms"] = times[1]
+        print(f"[sampled] {r}", flush=True)
+        out.append(r)
+
+    w_bytes = 2 * 4 * N * K
+    row("K-B", 1, lambda: kb.sampled_matmul(seed, x[0], mu, rho,
+                                            out_dtype=f32), KB_TAG,
+        4 * (M * K + M * N) + w_bytes,
+        lambda: torch.matmul(x[0], draws(1)[0].T))
+    for s in (4, S):
+        xs = x[:s]
+        row("K-B lanes, x per lane", s,
+            lambda: kb.sampled_matmul_batched(seed, xs, mu, rho, s), KB_TAG,
+            4 * s * (M * K + M * N) + w_bytes,
+            lambda: torch.matmul(xs, draws(s).transpose(1, 2)))
+        row("K-B lanes, x shared", s,
+            lambda: kb.sampled_matmul_batched(seed, x[0], mu, rho, s),
+            KB_TAG, 4 * (M * K + s * M * N) + w_bytes,
+            lambda: torch.matmul(x[0], draws(s).transpose(1, 2)))
+    row("K-D", 1, lambda: kb.sampled_matmul_dx(seed, g[0], mu, sigma),
+        KD_TAG, 4 * (M * N + M * K) + w_bytes,
+        lambda: torch.matmul(g[0], draws(1)[0]))
+    row("K-D lanes", 4,
+        lambda: kb.sampled_matmul_dx_batched(seed, g, mu, sigma), KD_TAG,
+        4 * 4 * (M * N + M * K) + w_bytes, lambda: torch.matmul(g, draws(4)))
+    row("K-E", 1, lambda: kb.sampled_matmul_dw(seed, g[0], x[0]), KE_TAG,
+        4 * (M * N + M * K) + w_bytes)
+    row("K-E lanes", 4, lambda: kb.sampled_matmul_dw_batched(seed, g, x[:4]),
+        KE_TAG, 4 * 4 * (M * N + M * K) + w_bytes)
+
+
+def paths(out):
+    """The loop paths that run K-B and K-D, wall and device busy time."""
+    import torch
+    from torch import nn
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+    from bayesian_torch_tpu_torch.models.bayesian.resnet_variational_large \
+        import resnet50
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def images():
+        return torch.randn(BATCH, 3, IMAGE, IMAGE, generator=gen,
+                           device="cuda")
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def window(fn):
+        torch.cuda.synchronize()
+        with device_trace() as prof:
+            wall = wall_ms(fn)
+        rows = device_rows(prof)
+        busy = busy_ms(rows)
+        return dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall, **{
+            f"{k}_ms": sum(e.self_device_time_total for e in rows
+                           if tag in e.name) / 1e3
+            for k, tag in (("kb", KB_TAG), ("kd", KD_TAG), ("ke", KE_TAG))})
+
+    def report(what, walls, windows):
+        r = dict(path=what, wall_ms=walls,
+                 wall_median=statistics.median(walls), profiled=windows)
+        print(f"[paths] {what}: wall median {r['wall_median']:.1f} ms of "
+              f"{len(walls)}; profiled: " + "; ".join(
+                  ", ".join(f"{k} {v:.4g}" for k, v in w.items())
+                  for w in windows), flush=True)
+        out.append(r)
+
+    model = resnet50(num_classes=1000,
+                     generator=torch.Generator().manual_seed(5), device="cuda")
+    for mod in model.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.bfloat16
+    # running statistics from one training-mode batch, so that 50 layers of
+    # eval-mode BN keep random weights' activations finite
+    bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None
+    model.train()
+    with torch.no_grad():
+        model(images())
+    for m in bns:
+        m.momentum = 0.1
+    model.eval()
+    model.fc.impl = "pallas"
+    x = images()
+
+    def infer():
+        mc_forward(model, x, S, presample="off", reduce="mean",
+                   return_kl=False)
+
+    walls = [wall_ms(infer) for _ in range(6)][1:]
+    report(f"loop MC-{S} bs{BATCH}, head on K-B, presample off", walls,
+           [window(infer) for _ in range(3)])
+
+    model.train()
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    step = make_train_step(TRAIN_MC, BATCH, emission="scan")
+    y = torch.randint(0, 1000, (BATCH,), generator=gen, device="cuda")
+
+    def train():
+        step(model, opt, x, y)
+
+    walls = [wall_ms(train) for _ in range(8)][2:]
+    report(f"loop MC-{TRAIN_MC} bs{BATCH} ELBO step, head on K-B and K-D",
+           walls, [window(train) for _ in range(3)])
+
+
+SECTIONS = dict(sampled=sampled, paths=paths, kg=kg_sites, probe=probe,
+                kf=kf)
 
 
 def main(argv=None):
@@ -190,10 +472,12 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"[{label}] {card}", flush=True)
-    rows = dict(kg=[], probe=[], kf=[])
-    sums = dict(kg=kg_sites(rows["kg"]))
-    probe(rows["probe"])
-    sums["kf"] = kf(rows["kf"])
+    rows, sums = {}, {}
+    for name, section in SECTIONS.items():
+        rows[name] = []
+        total = section(rows[name])
+        if total is not None:
+            sums[name] = total
     print(json.dumps(dict(label=label, card=card, sums=sums, rows=rows)),
           flush=True)
 

@@ -229,3 +229,32 @@ def inject_draws(monkeypatch, noise):
 
     monkeypatch.setattr(jmc, "_presample_layers", jax_presample)
     monkeypatch.setattr(tmc, "_presample_layers", torch_presample)
+
+
+# --- the split-TF32 product of the fused sampled GEMM kernels (K-B, K-D) ---
+
+TF32_MASK = -0x2000  # 0xFFFFE000 as int32: keeps sign, exponent, 10 bits
+
+
+def tf32(a):
+    """f32 tensor rounded to TF32 by clearing its 13 low mantissa bits, as
+    the kernels do before a tensor-core product."""
+    return (a.float().view(torch.int32) & TF32_MASK).view(torch.float32)
+
+
+def split_tf32(a):
+    """(hi, lo): hi = tf32(a), lo = tf32(a - hi); a - hi is exact in f32."""
+    hi = tf32(a)
+    return hi, tf32(a.float() - hi)
+
+
+def tf32_matmul(a, b, terms=3):
+    """a (M, K) @ b (N, K)^T as the kernels take it on the tensor cores,
+    the sum in f64: ``terms=3`` is the split form hi*hi + hi*lo + lo*hi,
+    ``terms=1`` one TF32 product hi*hi."""
+    a_hi, a_lo = (t.double() for t in split_tf32(a))
+    b_hi, b_lo = (t.double() for t in split_tf32(b))
+    out = a_hi @ b_hi.T
+    if terms == 3:
+        out = out + a_hi @ b_lo.T + a_lo @ b_hi.T
+    return out

@@ -1,8 +1,9 @@
 """Card-only checks of the port's CUDA kernels against their plain torch
 versions, at small and ragged shapes (the full shapes are in
 chip_smoke.py): K-A and K-B forward, K-C (both modes), K-D and K-E
-backward, K-B, K-D and K-E with their lane axis, autograd through the
-public ops, K-F (the fused int8 GEMM + requantize) with the quantized
+backward, K-B, K-D and K-E with their lane axis, K-B and K-D across the
+edges of their split reduction, K-A's rho mode (the single draw's softplus
+in the kernel), autograd through the public ops, K-F (the fused int8 GEMM + requantize) with the quantized
 convs built on it, and K-G (the per-draw GEMM behind the pointwise
 emission) in bf16, f32 and int8. They skip without a
 CUDA device. On a machine with one, and without JAX, run them with
@@ -287,6 +288,96 @@ def test_sampled_matmul_batched_grad_matches_plain(cuda, shared):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert _max_err(a, b) <= 1e-4 * _scale(b)
+
+
+# --- K-B and K-D: split-TF32 products, reduction split over a cluster -----
+
+# the head at S = 1, 4, 10; then the split's edges: K (forward) and N (dx)
+# below one slice, one stage, and just under and over the eight slices of
+# 2048; N (forward) and K (dx) at one column, 1000 (ragged on the 48-wide
+# tile) and 1001; M at one row, one past the 128-row tile, and three tiles
+_SPLIT_HEAD = [(s, 128, 1000, 2048) for s in (1, 4, 10)]
+_SPLIT_EDGES = [(2, m, n, k) for k in (3, 8, 2047, 2049)
+                for n in (1, 1000, 1001) for m in (1, 129, 300)]
+
+
+@pytest.mark.parametrize("s,m,n,k", _SPLIT_HEAD + _SPLIT_EDGES)
+def test_split_tf32_kernels_match_plain(cuda, s, m, n, k):
+    """K-B and K-D (both with the reduction split over a cluster) against
+    their plain versions within 1e-4 x max|plain| (three TF32 products in
+    another order than cuBLAS's f32 sums), x per lane and shared; one
+    launch each; lane 0 is the single draw and a second call gives the same
+    bits."""
+    mu, sigma, rho = _posterior((n, k), cuda, seed=21)
+    gen = torch.Generator().manual_seed(22)
+    x = torch.randn((s, m, k), generator=gen).to(cuda)
+    g = torch.randn((s, m, n), generator=gen).to(cuda)
+    seed = 0x5EED_0000_0000_0007 + k
+    before = (kb.sampled_matmul_batched.launches,
+              kb.sampled_matmul_dx_batched.launches)
+    out = kb.sampled_matmul_batched(seed, x, mu, rho, s,
+                                    out_dtype=torch.float32)
+    dx = kb.sampled_matmul_dx_batched(seed, g, mu, sigma)
+    assert (kb.sampled_matmul_batched.launches,
+            kb.sampled_matmul_dx_batched.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    shared = kb.sampled_matmul_batched(seed, x[0], mu, rho, s,
+                                       out_dtype=torch.float32)
+    wants = (kb.sampled_matmul_batched_plain(seed, x, mu, sigma, s),
+             kb.sampled_matmul_batched_plain(seed, x[0], mu, sigma, s),
+             kb.sampled_matmul_dx_batched_plain(seed, g, mu, sigma))
+    for got, want in zip((out, shared, dx), wants):
+        torch.cuda.synchronize()
+        assert got.shape == want.shape
+        assert _max_err(got, want) <= 1e-4 * _scale(want)
+    assert torch.equal(out[0], sampled_matmul(seed, x[0], mu, rho,
+                                              out_dtype=torch.float32))
+    assert torch.equal(dx[0], kb.sampled_matmul_dx(seed, g[0], mu, sigma))
+    assert torch.equal(out, kb.sampled_matmul_batched(
+        seed, x, mu, rho, s, out_dtype=torch.float32))
+    assert torch.equal(dx, kb.sampled_matmul_dx_batched(seed, g, mu, sigma))
+
+
+def _device_kernel_names(fn):
+    """Names of the device kernels that one call of ``fn`` launches (a
+    profiler session that records nothing is taken again)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    raise AssertionError("the profiler recorded no device kernel")
+
+
+@pytest.mark.parametrize("n", [1, 5, 4099, 300_001])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_single_draw_takes_softplus_in_the_kernel(cuda, n, out_dtype):
+    """sample_gaussian is one K-A launch in its rho mode: no torch softplus
+    runs, and the draw equals the plain version's (softplus in torch) within
+    1e-5 in f32, one ulp in bf16; rho above softplus's threshold of 20 and
+    far below zero included."""
+    mu, _, rho = _posterior((n,), cuda, seed=23)
+    rho[: min(n, 2)] = torch.tensor([25.0, -40.0][: min(n, 2)], device=cuda)
+    before = ka.sample_scaled_normals_batch.launches
+    got = []
+    names = _device_kernel_names(
+        lambda: got.append(ka.sample_gaussian(31, mu, rho, out_dtype)))
+    assert ka.sample_scaled_normals_batch.launches == before + 1
+    assert any("batch_sample_kernel" in name for name in names)
+    assert not any("softplus" in name.lower() for name in names), names
+    want = sample_scaled_normals_batch_plain(31, mu, sigma_from_rho(rho), 1,
+                                             out_dtype)[0]
+    if out_dtype == torch.float32:
+        assert _max_err(got[0], want) <= 1e-5
+    else:
+        ulp = torch.finfo(torch.bfloat16).eps * want.float().abs()
+        assert bool(((got[0].float() - want.float()).abs() <= ulp).all())
 
 
 def _int8_operands(m, n, k, device, seed=0):

@@ -238,6 +238,40 @@ def test_batch_sampler_plain_differentiable_on_cpu():
     torch.testing.assert_close(sigma.grad, (2 * w.detach() * eps).sum(0))
 
 
+def test_single_draw_algebra_and_grads_match_jax():
+    """The single draw on injected eps: the port's algebra (sigma =
+    softplus(rho), mu + sigma * eps as K-A rounds it) and its gradients
+    (autograd, and K-C rho mode's g * eps * sigmoid(rho)) against the JAX
+    package's mu + softplus(rho) * eps and its VJP. The TPU kernel's bits
+    come from the chip's PRNG, so only the algebra is compared; rho above
+    softplus's threshold of 20 and far below zero included."""
+    rs = np.random.RandomState(4)
+    n = 5000
+    mu = rs.normal(0.0, 0.3, n).astype(np.float32)
+    rho = rs.normal(-4.0, 2.0, n).astype(np.float32)
+    rho[:3] = [25.0, -40.0, 20.0]
+    eps = rs.standard_normal(n).astype(np.float32)
+    g = rs.standard_normal(n).astype(np.float32)
+    w_jax, vjp = jax.vjp(lambda m, r: m + jax.nn.softplus(r) * eps,
+                         jnp.asarray(mu), jnp.asarray(rho))
+    dmu_jax, drho_jax = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    tmu = torch.from_numpy(mu).requires_grad_(True)
+    trho = torch.from_numpy(rho).requires_grad_(True)
+    w = ka.scale_shift(tmu, ts.sigma_from_rho(trho),
+                       torch.from_numpy(eps)[None], torch.float32)[0]
+    dmu, drho = torch.autograd.grad(w, (tmu, trho), torch.from_numpy(g))
+    drho_kc = ka.drho_from_noise(torch.from_numpy(g), torch.from_numpy(eps),
+                                 torch.from_numpy(rho))
+    # softplus and sigmoid of two libraries: the last ulp of sigma and of
+    # the gradient
+    np.testing.assert_allclose(w.detach().numpy(), np.asarray(w_jax),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(dmu.numpy(), dmu_jax)
+    for got in (drho, drho_kc):
+        np.testing.assert_allclose(got.numpy(), drho_jax, rtol=1e-5,
+                                   atol=1e-6)
+
+
 def test_batch_sampler_rejects_bad_input():
     mu = torch.zeros(4)
     with pytest.raises(ValueError):
