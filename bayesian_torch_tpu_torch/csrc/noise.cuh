@@ -60,3 +60,20 @@ __device__ __forceinline__ float btt_hash_normal(uint32_t salt, uint32_t i) {
   const float r = sqrtf(btt_box_muller_log(u1));
   return r * btt_box_muller_cos(u2);
 }
+
+// kN normals at once: eps[j] = btt_hash_normal(salt[j], ctr[j]) bit for
+// bit, each Box-Muller step taken over all of them before the next.
+template <int kN>
+__device__ __forceinline__ void btt_hash_normals(const uint32_t (&salt)[kN],
+                                                 const uint32_t (&ctr)[kN],
+                                                 float (&eps)[kN]) {
+  float u1[kN], u2[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) btt_hash_uniforms(salt[j], ctr[j], u1[j], u2[j]);
+#pragma unroll
+  for (int j = 0; j < kN; ++j) u1[j] = btt_box_muller_log(u1[j]);
+#pragma unroll
+  for (int j = 0; j < kN; ++j) u1[j] = sqrtf(u1[j]);
+#pragma unroll
+  for (int j = 0; j < kN; ++j) eps[j] = u1[j] * btt_box_muller_cos(u2[j]);
+}

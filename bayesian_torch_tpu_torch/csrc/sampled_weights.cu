@@ -12,28 +12,33 @@
 // MB) and writes 10 draws in bf16 (510 MB); every element also costs two
 // hashes, a log, a sqrt and a cos, about 90 issued instructions.
 //
-// Design: the TPU kernel kept a (1024, 128) tile resident in VMEM while a
-// sequential grid axis streamed the S draws out. Blocks here run in no
-// order, so the S loop moves inside the thread: each thread loads four
-// consecutive mu and sigma into registers once (16-byte loads) and writes
-// its four outputs of every draw with one vector store each, so the
-// reads happen once and the writes are coalesced. No shared memory.
+// Design (the launch shape and the loads: elementwise.cuh). The TPU kernel
+// kept a (1024, 128) tile resident in VMEM while a sequential grid axis
+// streamed the S draws out. Blocks here run in no order, so the S loop
+// moves inside the thread: it holds its elements' mu and sigma (or rho) in
+// registers, reads them once, before the first normal, and writes every
+// draw's values with one vector store each.
+// - The draw count is a template argument for S in {1, 4} (the training
+//   paths' single draw and vmap MC-4 step; unrolled), a runtime loop
+//   otherwise (the S = 10 presample).
+// - The normals of a group (a draw's four elements, or a narrow thread's
+//   draws) run each Box-Muller step over all of them (btt_hash_normals),
+//   so their chains interleave; the bits of eps are btt_hash_normal's.
+// No shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "noise.cuh"
+#include "elementwise.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kVec = 4;
+using btt_ew::Pack;
 
-__device__ __forceinline__ float sample(float mu, float sigma, uint32_t salt,
-                                        int64_t i) {
+__device__ __forceinline__ float sample(float mu, float sigma, float eps) {
   // no contraction: rounds like the plain torch mu + sigma * eps
-  return __fadd_rn(mu, __fmul_rn(sigma, btt_hash_normal(salt, (uint32_t)i)));
+  return __fadd_rn(mu, __fmul_rn(sigma, eps));
 }
 
 // torch's F.softplus (beta 1, threshold 20) in f32
@@ -41,69 +46,74 @@ __device__ __forceinline__ float softplus(float rho) {
   return rho > 20.f ? rho : log1pf(expf(rho));
 }
 
-__device__ __forceinline__ void store4(float* out, const float v[kVec]) {
-  *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
+// T: the draws' type; U: mu's and sigma's (f32 or bf16, read as f32).
+// kRho: `sigma` holds rho, and sigma = softplus(rho) is taken here. kS > 0:
+// S = kS draws, unrolled; kS == 0: num_samples draws in a loop.
+template <typename T, typename U, int kS, int kVec, bool kRho>
+__global__ void __launch_bounds__(btt_ew::threads<kVec>(),
+                                  kVec == 1 ? 1 : btt_ew::kWideBlocks)
+    batch_sample_kernel(const U* __restrict__ mu, const U* __restrict__ sigma,
+                        T* __restrict__ out, int64_t n, int num_samples,
+                        uint32_t salt0, uint32_t step, bool vector_ok) {
+  const int64_t i =
+      ((int64_t)blockIdx.x * btt_ew::threads<kVec>() + threadIdx.x) * kVec;
+  if (i >= n) return;
+  const bool full = vector_ok && i + kVec <= n;
+  Pack<U, kVec> mp, sp;
+  mp.load(mu, i, n, full);
+  sp.load(sigma, i, n, full);
+  float m[kVec], sg[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    m[j] = mp.at(j);
+    sg[j] = kRho ? softplus(sp.at(j)) : sp.at(j);
+  }
+  auto put = [&](int s, const float(&eps)[kVec]) {
+    float v[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) v[j] = sample(m[j], sg[j], eps[j]);
+    btt_ew::store(out + s * n, i, n, full, v);
+  };
+  if constexpr (kS > 0) {
+    btt_ew::for_draws<kS, kVec>(salt0, step, (uint32_t)i, put);
+  } else {
+    for (int s = 0; s < num_samples; ++s)
+      btt_ew::for_draws<1, kVec>(
+          salt0 + (uint32_t)s * step, step, (uint32_t)i,
+          [&](int, const float(&eps)[kVec]) { put(s, eps); });
+  }
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* out,
-                                       const float v[kVec]) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 packed;
-  packed.x = *reinterpret_cast<uint32_t*>(&a);
-  packed.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(out) = packed;
+template <typename T, typename U, int kVec, bool kRho>
+void launch(const U* mu, const U* sigma, T* out, int64_t n, int S,
+            btt_ew::Salts salts, bool vector_ok, unsigned blocks,
+            cudaStream_t stream) {
+  const dim3 grid(blocks), block(btt_ew::threads<kVec>());
+  if (S == 1)
+    batch_sample_kernel<T, U, 1, kVec, kRho><<<grid, block, 0, stream>>>(
+        mu, sigma, out, n, S, salts.salt0, salts.step, vector_ok);
+  else if (S == 4)
+    batch_sample_kernel<T, U, 4, kVec, kRho><<<grid, block, 0, stream>>>(
+        mu, sigma, out, n, S, salts.salt0, salts.step, vector_ok);
+  else
+    batch_sample_kernel<T, U, 0, kVec, kRho><<<grid, block, 0, stream>>>(
+        mu, sigma, out, n, S, salts.salt0, salts.step, vector_ok);
 }
 
-__device__ __forceinline__ void store1(float* out, float v) { *out = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* out, float v) {
-  *out = __float2bfloat16_rn(v);
-}
-
-// kRho: `sigma` holds rho, and sigma = softplus(rho) is taken here
-template <typename T, bool kRho>
-__global__ void __launch_bounds__(kThreads)
-    batch_sample_kernel(const float* __restrict__ mu,
-                        const float* __restrict__ sigma, T* __restrict__ out,
-                        int64_t n, int num_samples, uint32_t seed_lo,
-                        uint32_t seed_hi, bool vector_ok) {
-  const int64_t stride = (int64_t)gridDim.x * kThreads * kVec;
-  for (int64_t base = ((int64_t)blockIdx.x * kThreads + threadIdx.x) * kVec;
-       base < n; base += stride) {
-    float m[kVec], sg[kVec];
-    const bool full = vector_ok && base + kVec <= n;
-    if (full) {
-      const float4 a = *reinterpret_cast<const float4*>(mu + base);
-      const float4 b = *reinterpret_cast<const float4*>(sigma + base);
-      m[0] = a.x; m[1] = a.y; m[2] = a.z; m[3] = a.w;
-      sg[0] = b.x; sg[1] = b.y; sg[2] = b.z; sg[3] = b.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        const bool in = base + j < n;
-        m[j] = in ? mu[base + j] : 0.f;
-        sg[j] = in ? sigma[base + j] : 0.f;
-      }
-    }
-    if (kRho) {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) sg[j] = softplus(sg[j]);
-    }
-    for (int s = 0; s < num_samples; ++s) {
-      const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, (uint32_t)s,
-                                          (uint32_t)n);
-      T* row = out + (int64_t)s * n;
-      float v[kVec];
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) v[j] = sample(m[j], sg[j], salt, base + j);
-      if (full) {
-        store4(row + base, v);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kVec; ++j)
-          if (base + j < n) store1(row + base + j, v[j]);
-      }
-    }
+template <typename T, typename U>
+void launch(const void* mu_v, const void* sigma_v, void* out_v, int64_t n,
+            int S, btt_ew::Salts salts, bool vector_ok, bool rho_mode,
+            btt_ew::Shape shape, cudaStream_t stream) {
+  const U* mu = static_cast<const U*>(mu_v);
+  const U* sigma = static_cast<const U*>(sigma_v);
+  T* out = static_cast<T*>(out_v);
+  const unsigned blocks = shape.blocks;
+  if (shape.vec == 1) {
+    if (rho_mode) launch<T, U, 1, true>(mu, sigma, out, n, S, salts, false, blocks, stream);
+    else launch<T, U, 1, false>(mu, sigma, out, n, S, salts, false, blocks, stream);
+  } else {
+    if (rho_mode) launch<T, U, 4, true>(mu, sigma, out, n, S, salts, vector_ok, blocks, stream);
+    else launch<T, U, 4, false>(mu, sigma, out, n, S, salts, vector_ok, blocks, stream);
   }
 }
 
@@ -111,41 +121,39 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// out: (num_samples, n), float32 when out_bf16 == 0, bfloat16 otherwise.
-// With rho_mode != 0, `sigma` holds rho and sigma = softplus(rho) is taken
-// in the kernel. Returns the launch's cudaGetLastError().
-int btt_sample_scaled_normals_batch(const float* mu, const float* sigma,
-                                    void* out, int64_t n, int num_samples,
-                                    uint64_t seed, int out_bf16, int rho_mode,
+// mu and sigma: (n,), float32 when in_bf16 == 0, bfloat16 otherwise (read
+// as float32). out: (num_samples, n), float32 when out_bf16 == 0, bfloat16
+// otherwise. With rho_mode != 0, `sigma` holds rho and sigma =
+// softplus(rho) is taken in the kernel. The launch shape comes from n and
+// the current device (btt_ew::launch_shape). Returns the launch's
+// cudaGetLastError(), or the error that kept it from launching.
+int btt_sample_scaled_normals_batch(const void* mu, const void* sigma,
+                                    int in_bf16, void* out, int64_t n,
+                                    int num_samples, uint64_t seed,
+                                    int out_bf16, int rho_mode,
                                     cudaStream_t stream) {
   if (n <= 0 || num_samples <= 0) return (int)cudaSuccess;
-  const bool vector_ok = n % kVec == 0 &&
-                         reinterpret_cast<uintptr_t>(mu) % 16 == 0 &&
-                         reinterpret_cast<uintptr_t>(sigma) % 16 == 0 &&
-                         reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int64_t per_block = (int64_t)kThreads * kVec;
-  int64_t blocks = (n + per_block - 1) / per_block;
-  if (blocks > (1 << 20)) blocks = 1 << 20;  // the rest by grid stride
-  const uint32_t lo = (uint32_t)(seed & 0xFFFFFFFFull);
-  const uint32_t hi = (uint32_t)(seed >> 32);
-  const dim3 grid((unsigned)blocks);
-  if (out_bf16) {
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-    if (rho_mode)
-      batch_sample_kernel<__nv_bfloat16, true><<<grid, kThreads, 0, stream>>>(
-          mu, sigma, o, n, num_samples, lo, hi, vector_ok);
-    else
-      batch_sample_kernel<__nv_bfloat16, false><<<grid, kThreads, 0, stream>>>(
-          mu, sigma, o, n, num_samples, lo, hi, vector_ok);
-  } else {
-    float* o = static_cast<float*>(out);
-    if (rho_mode)
-      batch_sample_kernel<float, true><<<grid, kThreads, 0, stream>>>(
-          mu, sigma, o, n, num_samples, lo, hi, vector_ok);
-    else
-      batch_sample_kernel<float, false><<<grid, kThreads, 0, stream>>>(
-          mu, sigma, o, n, num_samples, lo, hi, vector_ok);
-  }
+  btt_ew::Shape shape;
+  const cudaError_t e = btt_ew::launch_shape(n, &shape);
+  if (e != cudaSuccess) return (int)e;
+  const uintptr_t in_align = in_bf16 ? 8 : 16;
+  const bool vector_ok = btt_ew::aligned4(n, mu, in_align) &&
+                         btt_ew::aligned4(n, sigma, in_align) &&
+                         btt_ew::aligned4(n, out, out_bf16 ? 8 : 16);
+  const btt_ew::Salts salts = btt_ew::salts(seed, n);
+  const bool rho = rho_mode != 0;
+  if (out_bf16 && in_bf16)
+    launch<__nv_bfloat16, __nv_bfloat16>(mu, sigma, out, n, num_samples,
+                                         salts, vector_ok, rho, shape, stream);
+  else if (out_bf16)
+    launch<__nv_bfloat16, float>(mu, sigma, out, n, num_samples, salts,
+                                 vector_ok, rho, shape, stream);
+  else if (in_bf16)
+    launch<float, __nv_bfloat16>(mu, sigma, out, n, num_samples, salts,
+                                 vector_ok, rho, shape, stream);
+  else
+    launch<float, float>(mu, sigma, out, n, num_samples, salts, vector_ok,
+                         rho, shape, stream);
   return (int)cudaGetLastError();
 }
 

@@ -17,7 +17,8 @@ outside the kernel); ``dsigma`` (K-C) or ``drho`` (K-C in its rho mode,
 ``g * eps * sigmoid(rho)``) come from the kernel.
 
 A CPU tensor takes the plain versions, forward and backward. A CUDA
-tensor launches the kernels or raises.
+tensor launches the kernels or raises. Both kernels' C entries choose
+their launch shape from n and the card (``csrc/elementwise.cuh``).
 """
 
 from __future__ import annotations
@@ -100,19 +101,29 @@ def _library():
     return _build, _build.load_library()
 
 
+def _operands(*tensors):
+    """The tensors as the kernels read them: contiguous, detached, and
+    all bf16 or all f32 (anything else is cast to f32)."""
+    kind = (torch.bfloat16 if all(t.dtype == torch.bfloat16 for t in tensors)
+            else torch.float32)
+    return [t.detach().to(kind).contiguous() for t in tensors]
+
+
 def _launch_sample(seed, mu, sigma, num_samples, out_dtype, rho_mode=False):
     """K-A on CUDA tensors: (S, *mu.shape) in ``out_dtype``. With
-    ``rho_mode``, ``sigma`` holds rho and the kernel takes its softplus."""
+    ``rho_mode``, ``sigma`` holds rho and the kernel takes its softplus.
+    mu and sigma in bf16 are read as they are, else in f32."""
     build, lib = _library()
-    mu32 = mu.detach().float().contiguous()
-    sigma32 = sigma.detach().float().contiguous()
+    mu_k, sigma_k = _operands(mu, sigma)
+    n = mu_k.numel()
     out = torch.empty((num_samples,) + tuple(mu.shape), dtype=out_dtype,
                       device=mu.device)
     with torch.cuda.device(mu.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.btt_sample_scaled_normals_batch(
-            mu32.data_ptr(), sigma32.data_ptr(), out.data_ptr(),
-            mu32.numel(), num_samples, seed & 0xFFFFFFFFFFFFFFFF,
+            mu_k.data_ptr(), sigma_k.data_ptr(),
+            int(mu_k.dtype == torch.bfloat16), out.data_ptr(), n,
+            num_samples, seed & 0xFFFFFFFFFFFFFFFF,
             int(out_dtype == torch.bfloat16), int(rho_mode), stream)
     build.check(lib, code, "sample_scaled_normals_batch")
     sample_scaled_normals_batch.launches += 1
@@ -120,20 +131,23 @@ def _launch_sample(seed, mu, sigma, num_samples, out_dtype, rho_mode=False):
 
 
 def _launch_noise_grad(seed, g, rho, what):
-    """K-C on CUDA tensors: g (S, *shape) in f32 or bf16, rho (shape) or
-    None; returns the f32 gradient of shape ``shape``."""
+    """K-C on CUDA tensors: g (S, *shape) in f32 or bf16, rho (shape; bf16
+    read as it is, else in f32) or None; returns the f32 gradient of shape
+    ``shape``."""
     build, lib = _library()
     if g.dtype not in _G_DTYPES:
         g = g.float()
     g = g.contiguous()
-    rho32 = None if rho is None else rho.detach().float().contiguous()
+    rho_k = None if rho is None else _operands(rho)[0]
     out = torch.empty(g.shape[1:], dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.btt_sampled_weights_bwd(
             g.data_ptr(), int(g.dtype == torch.bfloat16),
-            None if rho32 is None else rho32.data_ptr(), out.data_ptr(),
-            out.numel(), g.shape[0], seed & 0xFFFFFFFFFFFFFFFF, stream)
+            None if rho_k is None else rho_k.data_ptr(),
+            int(rho_k is not None and rho_k.dtype == torch.bfloat16),
+            out.data_ptr(), out.numel(), g.shape[0],
+            seed & 0xFFFFFFFFFFFFFFFF, stream)
     build.check(lib, code, what)
     return out
 

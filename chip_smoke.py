@@ -37,9 +37,10 @@ Phases, each printing its own line(s):
    tensor-core product;
 3. K-A (batch weight sampler) against its plain torch version at the
    ResNet-50 flat size (all Bayesian weights, 10 draws), f32 and bf16 out,
-   eps moments, median times; its rho mode (the single draw
-   ``sample_gaussian``, softplus in the kernel) at the same size, one
-   launch, f32 and bf16 out;
+   eps moments; its rho mode (the single draw ``sample_gaussian``,
+   softplus in the kernel) at the same size, one launch, f32 and bf16 out;
+   device times (torch.profiler) of both in bf16 beside their plain
+   versions, with the bound and its deciding term; two calls equal;
 4. K-B (fused sampled GEMM) against its plain version at the head shape
    (M=128, K=2048, N=1000), f32 with TF32 off; two calls equal bit for bit;
    device times (torch.profiler) beside the plain version and the unfused
@@ -52,10 +53,12 @@ Phases, each printing its own line(s):
    draws must agree with a single draw;
 7. the backward kernels against their plain versions at full shapes: K-C
    (dsigma mode, n = all Bayesian weights, S = 4, bf16 g; rho mode, S = 1,
-   f32 g; median times), K-D and K-E at the head shape, f32 with TF32 off,
-   device times as in phase 4 (K-D beside its unfused route), two calls
-   equal; and ``torch.autograd.grad`` through the public ops against
-   autograd through their plain versions;
+   f32 g; device times as in phase 4), then K-A and K-C at each of the 54
+   per-layer buffers of the training steps, and dsigma of ones against the
+   sum of K-A's draws (bit for bit); K-D and K-E at the head shape, f32
+   with TF32 off, device times as in phase 4 (K-D beside its unfused
+   route), two calls equal; and ``torch.autograd.grad`` through the public
+   ops against autograd through their plain versions;
 8. training path (the draw loop, ``emission="scan"``; ``"auto"`` trains
    through the vmap emission): one warm-up and three timed ELBO steps at
    MC-4 bs128:
@@ -153,9 +156,10 @@ import time
 # (device_times): their wrappers' host time and small torch ops (K-B's
 # softplus, K-F's column sums) would swamp a single call timed by CUDA
 # events
-from kernel_times import (BF16_OPS, F32_OPS, HBM_BPS, INT8_OPS, KB_TAG,
-                          KD_TAG, KE_TAG, PER_NORMAL, SESSIONS, TF32_OPS,
-                          device_times, generation_ms)
+from kernel_times import (BF16_OPS, F32_OPS, HBM_BPS, INT8_OPS, KA_TAG,
+                          KB_TAG, KC_TAG, KD_TAG, KE_TAG, PER_NORMAL,
+                          SESSIONS, TF32_OPS, device_times, generation_ms,
+                          layer_sizes)
 from kernel_times import SITES as POINTWISE_SITES
 
 BATCH = 128
@@ -197,16 +201,6 @@ def median_ms(fn, reps=REPS):
     """Median time of ``fn`` on the card after one warm-up call."""
     fn()
     return statistics.median(cuda_ms(fn) for _ in range(reps))
-
-
-def median_ms_pair(kernel, plain, reps=REPS):
-    """Median times of kernel and plain, warmed up, taken in turns."""
-    kernel(), plain()
-    tk, tp = [], []
-    for _ in range(reps):
-        tp.append(cuda_ms(plain))
-        tk.append(cuda_ms(kernel))
-    return statistics.median(tk), statistics.median(tp)
 
 
 def bound(nbytes, ops, peak_ops):
@@ -388,23 +382,30 @@ def phase_batch_sampler(model):
     want = ka_plain(seed, mu, sigma_from_rho(rho), 1, torch.bfloat16)[0]
     rho_ulps = ((got.float() - want.float()).abs()
                 / bf16_ulp(want)).max().item()
-    del got, want, rho
+    del got, want
     log(f"[K-A rho] the single draw (sample_gaussian, softplus in the "
         f"kernel), n={n}: f32 max|kernel-plain|={rho_err:.3e} (limit 1e-5); "
         f"bf16 max diff={rho_ulps:.2f} ulp (limit 1)")
     check(rho_err <= 1e-5, "K-A rho mode f32 differs from its plain version")
     check(rho_ulps <= 1.0, "K-A rho mode bf16 differs by more than one ulp")
-    ms, plain_ms = median_ms_pair(
+    times = sampled_times(
+        f"K-A S={NUM_MC} bf16",
         lambda: ka(seed, mu, sigma, NUM_MC, torch.bfloat16),
-        lambda: ka_plain(seed, mu, sigma, NUM_MC, torch.bfloat16))
-    gbytes = (2 * 4 * n + 2 * NUM_MC * n) / 1e9
-    log(f"[K-A] bf16 out, median of {REPS}: kernel {ms:.3f} ms "
-        f"({gbytes / ms * 1e3:.0f} GB/s of {gbytes * 1e3:.0f} MB moved), "
-        f"plain {plain_ms:.3f} ms")
+        lambda: ka_plain(seed, mu, sigma, NUM_MC, torch.bfloat16), None,
+        KA_TAG)
+    rho = torch.log(torch.expm1(sigma))
+    rho_times = sampled_times(
+        "K-A rho S=1 bf16",
+        lambda: sample_gaussian(seed, mu, rho, torch.bfloat16),
+        lambda: ka_plain(seed, mu, sigma_from_rho(rho), 1, torch.bfloat16),
+        None, KA_TAG)
+    with_bound("K-A rho S=1 bf16", {}, 10 * n, n, normals=n)  # its log line
     # no PyTorch call draws the counter-hash normals: no library time
-    return with_bound("K-A", dict(max_abs_err=max(err32, rho_err), ms=ms,
-                                  plain_ms=plain_ms),
-                      gbytes * 1e9, 2 * NUM_MC * n, normals=NUM_MC * n)
+    return with_bound(
+        f"K-A S={NUM_MC} bf16", dict(
+            max_abs_err=max(err32, rho_err), **times,
+            **{f"rho_{k}": v for k, v in rho_times.items()}),
+        (2 * 4 + 2 * NUM_MC) * n, 2 * NUM_MC * n, normals=NUM_MC * n)
 
 
 def sampled_times(what, kernel, plain, unfused, tag):
@@ -594,15 +595,12 @@ def phase_noise_grad(model):
     log(f"[K-C dsigma] n={n} S={TRAIN_MC} bf16 g: max|kernel-plain|="
         f"{err:.3e}, limit 1e-5 x max|plain| = {1e-5 * scale:.3e}")
     check(err <= 1e-5 * scale, "K-C (dsigma) differs from its plain version")
-    ms, plain_ms = median_ms_pair(lambda: ka.dsigma(seed, g),
-                                  lambda: ka.dsigma_plain(seed, g))
-    gbytes = (2 * TRAIN_MC * n + 4 * n) / 1e9
-    log(f"[K-C dsigma] median of {REPS}: kernel {ms:.3f} ms "
-        f"({gbytes / ms * 1e3:.0f} GB/s of {gbytes * 1e3:.0f} MB moved), "
-        f"plain {plain_ms:.3f} ms")
+    times = sampled_times(f"K-C dsigma S={TRAIN_MC} bf16 g",
+                          lambda: ka.dsigma(seed, g),
+                          lambda: ka.dsigma_plain(seed, g), None, KC_TAG)
     results["dsigma"] = with_bound(
-        "K-C dsigma", dict(max_abs_err=err, ms=ms, plain_ms=plain_ms),
-        gbytes * 1e9, 2 * TRAIN_MC * n, normals=TRAIN_MC * n)
+        "K-C dsigma", dict(max_abs_err=err, **times),
+        (2 * TRAIN_MC + 4) * n, 2 * TRAIN_MC * n, normals=TRAIN_MC * n)
     del g
     g = torch.randn(n, generator=gen, device="cuda")
     got, want = ka.drho(seed, g, rho), ka.drho_plain(seed, g, rho)
@@ -611,16 +609,98 @@ def phase_noise_grad(model):
     log(f"[K-C drho] n={n} S=1 f32 g: max|kernel-plain|={err:.3e}, limit "
         f"1e-5 x max|plain| = {1e-5 * scale:.3e}")
     check(err <= 1e-5 * scale, "K-C (drho) differs from its plain version")
-    ms, plain_ms = median_ms_pair(lambda: ka.drho(seed, g, rho),
-                                  lambda: ka.drho_plain(seed, g, rho))
-    gbytes = 12 * n / 1e9
-    log(f"[K-C drho] median of {REPS}: kernel {ms:.3f} ms "
-        f"({gbytes / ms * 1e3:.0f} GB/s of {gbytes * 1e3:.0f} MB moved), "
-        f"plain {plain_ms:.3f} ms")
+    times = sampled_times("K-C drho S=1 f32 g",
+                          lambda: ka.drho(seed, g, rho),
+                          lambda: ka.drho_plain(seed, g, rho), None, KC_TAG)
     results["drho"] = with_bound(
-        "K-C drho", dict(max_abs_err=err, ms=ms, plain_ms=plain_ms),
-        gbytes * 1e9, 4 * n, normals=n)
+        "K-C drho", dict(max_abs_err=err, **times), 12 * n, 4 * n,
+        normals=n)
+    del g, rho
+    layer_sweep()
     return results
+
+
+def layer_sweep():
+    """K-A and K-C against their plain versions at each of the 54
+    per-layer draw buffers of the training steps (``kernel_times.
+    layer_sizes``): K-A in rho mode (S = 1; f32 in and out, and bf16 in and
+    out as the draw loop runs it) and at S = 4 (bf16 out), K-C drho (S = 1;
+    f32 g and rho, and bf16 as the draw loop runs it) and dsigma (S = 4,
+    bf16 g); and,
+    at the smallest buffer, the identity that ties backward to forward:
+    dsigma of ones equals the sum of K-A's draws at mu = 0, sigma = 1 in
+    f32, bit for bit."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops.cuda import sampled_weights as ka
+    from bayesian_torch_tpu_torch.ops.sampling import sigma_from_rho
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    worst = dict.fromkeys(("K-A rho f32", "K-A rho bf16 (ulp)",
+                           "K-A S=4 bf16 (ulp)", "K-C drho", "K-C drho bf16",
+                           "K-C dsigma"), 0.0)
+
+    def ulps(got, want):
+        return ((got.float() - want.float()).abs()
+                / bf16_ulp(want)).max().item()
+
+    def rel(got, want):
+        return max_err(got, want) / max(want.abs().max().item(), 1e-30)
+
+    sizes, _ = layer_sizes()
+    for i, n in enumerate(sizes):
+        seed = 0x5EED_0000_0000_0100 + i
+        mu = 0.1 * torch.randn(n, generator=gen, device="cuda")
+        rho = torch.randn(n, generator=gen, device="cuda") - 3.0
+        sigma = sigma_from_rho(rho)
+        worst["K-A rho f32"] = max(worst["K-A rho f32"], max_err(
+            ka.sample_gaussian(seed, mu, rho, torch.float32),
+            ka.sample_scaled_normals_batch_plain(seed, mu, sigma, 1,
+                                                 torch.float32)[0]))
+        # the draw loop's operands: mu and rho in bf16, read as they are
+        mu16, rho16 = mu.bfloat16(), rho.bfloat16()
+        worst["K-A rho bf16 (ulp)"] = max(worst["K-A rho bf16 (ulp)"], ulps(
+            ka.sample_gaussian(seed, mu16, rho16, torch.bfloat16),
+            ka.sample_scaled_normals_batch_plain(
+                seed, mu16, sigma_from_rho(rho16.float()), 1)[0]))
+        worst["K-A S=4 bf16 (ulp)"] = max(worst["K-A S=4 bf16 (ulp)"], ulps(
+            ka.sample_scaled_normals_batch(seed, mu, sigma, TRAIN_MC),
+            ka.sample_scaled_normals_batch_plain(seed, mu, sigma,
+                                                 TRAIN_MC)))
+        g = torch.randn(n, generator=gen, device="cuda")
+        worst["K-C drho"] = max(worst["K-C drho"], rel(
+            ka.drho(seed, g, rho), ka.drho_plain(seed, g, rho)))
+        g16 = g.bfloat16()
+        worst["K-C drho bf16"] = max(worst["K-C drho bf16"], rel(
+            ka.drho(seed, g16, rho16), ka.drho_plain(seed, g16, rho16)))
+        g = torch.randn((TRAIN_MC, n), generator=gen,
+                        device="cuda").bfloat16()
+        worst["K-C dsigma"] = max(worst["K-C dsigma"], rel(
+            ka.dsigma(seed, g), ka.dsigma_plain(seed, g)))
+    n = min(sizes)
+    ones = torch.ones((TRAIN_MC, n), device="cuda")
+    draws = ka.sample_scaled_normals_batch(
+        7, torch.zeros(n, device="cuda"), torch.ones(n, device="cuda"),
+        TRAIN_MC, torch.float32)
+    total = draws[0]
+    for s in range(1, TRAIN_MC):
+        total = total + draws[s]
+    torch.cuda.synchronize()
+    same = torch.equal(ka.dsigma(7, ones), total)
+    log(f"[layers] K-A and K-C at the {len(sizes)} per-layer buffers "
+        f"({min(sizes)} to {max(sizes)} elements) against their plain "
+        f"versions, worst: " + ", ".join(f"{k} {v:.3e}"
+                                        for k, v in worst.items())
+        + f" (limits 1e-5, 1 ulp, 1 ulp, then 1e-5 x max|plain|); "
+        f"dsigma of ones equals the sum of K-A's draws bit for bit: {same}")
+    check(worst["K-A rho f32"] <= 1e-5, "K-A rho mode f32 off at a layer")
+    check(worst["K-A rho bf16 (ulp)"] <= 1.0
+          and worst["K-A S=4 bf16 (ulp)"] <= 1.0,
+          "K-A bf16 more than one ulp off at a layer")
+    check(max(worst["K-C drho"], worst["K-C drho bf16"],
+              worst["K-C dsigma"]) <= 1e-5,
+          "K-C off its plain version at a layer")
+    check(same, "dsigma(ones) differs from the sum of K-A's draws")
 
 
 def phase_gemm_backward(model):
@@ -1966,8 +2046,9 @@ def phase_mc_gemm():
 def phase_matmul_probe():
     """K-G at S = 1, B = 1 at the matmul probe's shapes, bf16 -> bf16 and
     s8 -> s32, beside ``torch.matmul`` and ``torch._int_mm``. Returns
-    the sums over the four cases, for the S = 1 kernels-line entry to carry
-    beside its sums at the main path's shapes."""
+    the measured sums over the four cases, for the S = 1 kernels-line entry
+    to carry beside its sums at the main path's shapes (their bound's sum
+    goes to the log)."""
     import torch
 
     from bayesian_torch_tpu_torch.ops.cuda import mc_gemm as kg
@@ -2006,7 +2087,9 @@ def phase_matmul_probe():
                            ("library_ms", lib_ms), ("bound_ms", bound_ms)):
                 tot[key] += v
             del a, b
-    return dict(probe_max_abs_err=worst, probe_bound_by="operations",
+    log(f"[K-G S=1] the probe's four cases: bound {tot.pop('bound_ms'):.3f} "
+        "ms in all (operations)")
+    return dict(probe_max_abs_err=worst,
                 **{"probe_" + key: v for key, v in tot.items()})
 
 
@@ -2233,7 +2316,7 @@ def main(argv=None):
 
     phase_vmap_train_sanity(model)
     train = phase_train(model)
-    presample = phase_train_presample(model)
+    phase_train_presample(model)
     phase_train_sanity(model)
     if profile:
         phase_profile_train(model)
@@ -2287,9 +2370,8 @@ def main(argv=None):
         dict(name="sampled_weights_bwd (dsigma)", route="cuda",
              source=csrc + "sampled_weights_bwd.cu",
              replaces=pallas + "sampled_weights.py:138",
-             run=f"presample training step: make_train_step(num_mc="
-                 f"{TRAIN_MC}, batch_size={BATCH}, presample='on'), 1 step",
-             launches=presample["K-C dsigma"], **kc_res["dsigma"]),
+             run=vmap_train_run + "; one launch per layer and step",
+             launches=vmap_train["K-C dsigma"], **kc_res["dsigma"]),
         dict(name="sampled_weights_bwd (drho)", route="cuda",
              source=csrc + "sampled_weights_bwd.cu",
              replaces=pallas + "sampled_weights.py:68",
@@ -2346,7 +2428,7 @@ def main(argv=None):
                  f"(torch.matmul, broadcast weight) are device-time sums "
                  f"over one "
                  f"forward's {N_POINTWISE} pointwise sites at batch "
-                 f"{BATCH * NUM_MC}, bf16; the probe_* keys are the same "
+                 f"{BATCH * NUM_MC}, bf16; the probe_* keys are the measured "
                  f"sums (library: torch.matmul, torch._int_mm) over the "
                  f"matmul probe's 4096^3 and 8192x4096x4096 in bf16 and int8",
              launches=flipout_dot["K-G S=1"], **kg_one_res, **mm_res),

@@ -1,11 +1,12 @@
-"""Device times of the hand-written GEMM kernels K-B, K-D, K-E, K-G and K-F
-at Bayesian ResNet-50's shapes, beside one PyTorch call for the same
-product where there is one; and the device busy time of the loop paths
-that run K-B and K-D.
+"""Device times of the hand-written kernels at Bayesian ResNet-50's shapes:
+the weight sampler K-A and its backward K-C, the GEMMs K-B, K-D, K-E, K-G
+and K-F beside one PyTorch call for the same product where there is one;
+and the device busy time of the training and inference paths that run
+them.
 
-    python3 kernel_times.py [--label NAME]
+    python3 kernel_times.py [--label NAME] [--sections NAME ...]
 
-Runs the sections below in turn. Imports ``bayesian_torch_tpu_torch``
+Runs the sections below in turn (all, or those named). Imports ``bayesian_torch_tpu_torch``
 from the current directory, so the same script times two checkouts (a
 change and its parent, each unpacked with ``git archive``) in turns on one
 card. Kernel times are the kernel's own device time per launch from
@@ -14,6 +15,20 @@ card. Kernel times are the kernel's own device time per launch from
 counted); a library call counts all its device rows. Needs a CUDA card;
 prints one line per shape and a JSON summary last.
 
+- ``sampler``: K-A and K-C (``ops/cuda/sampled_weights.py``), each
+  mode as one launch over the flat 25.5 M weights and as a training
+  step's own launches over the 54 per-layer buffers of
+  ``iter_bayesian_layers(resnet50())`` in model order (53 conv weights and
+  the head's bias), back to back, summed: K-A at S = 10 (the inference
+  presample, flat only), K-A in rho mode at S = 1 and K-C drho, four times
+  over for the loop MC-4 step (216 launches; bf16 mu, rho and g, as the
+  draw loop gives them), K-A at S = 4 (f32 mu and sigma) and K-C dsigma
+  (bf16 g) once for the vmap MC-4 step (54); K-A rho and K-C drho also
+  flat with f32 operands. Each row's bound is the larger of bytes and the
+  generation of its normals. With
+  ``sampled`` also run, the summary ranks K-A's per-layer modes, K-C and
+  K-E by launches x (device time - bound) over three loop and three vmap
+  MC-4 steps.
 - ``sampled``: the fused sampled GEMM and its backward
   (``ops/cuda/sampled_matmul.py``) at the head (M = 128, K = 2048,
   N = 1000, f32, TF32 off): K-B at S = 1 and with lanes at S = 4 and 10 (x
@@ -23,13 +38,14 @@ prints one line per shape and a JSON summary last.
   weight inside a GEMM. Each row's bound is the largest of bytes,
   operations (K-B and K-D: three TF32 products on the tensor cores; K-E:
   f32) and the generation of its normals (``generation_ms``).
-- ``paths``: ResNet-50 (bf16) through the draw loop with the head on K-B
-  and K-D (``fc.impl = "pallas"``): MC-10 bs128 inference with
-  ``presample="off"`` (``chip_smoke.py``'s phase 6) and the MC-4 bs128
-  ELBO step with ``emission="scan"`` (phase 8). Host wall ms of each batch
-  or step without the profiler, then three of each under the profiler:
-  device busy ms (the union of the device rows' spans), idle share, and
-  the K-B, K-D, K-E rows' device ms.
+- ``paths``: ResNet-50 (bf16) with the head on K-B and K-D
+  (``fc.impl = "pallas"``): through the draw loop, MC-10 bs128 inference
+  with ``presample="off"`` (``chip_smoke.py``'s phase 6) and the MC-4
+  bs128 ELBO step with ``emission="scan"`` (phase 8); the MC-4 bs128 ELBO
+  step with ``emission="vmap"``. Host wall ms of each batch or step
+  without the profiler, then three of each under the profiler: device busy
+  ms (the union of the device rows' spans), idle share, and the K-A, K-B,
+  K-C, K-D, K-E rows' device ms.
 - ``kg``: K-G (``ops/cuda/mc_gemm.py``), bf16, at the 12 pointwise sites
   of ResNet-50 (MC-10, batch 128): ``mc_gemm`` per draw,
   ``pointwise_gemm`` with one weight over the B*S batch (the Flipout mean
@@ -71,6 +87,9 @@ ISSUE_RATE = 132 * 4 * 32 * 1.98e9
 HEAD_M, HEAD_K, HEAD_N = 128, 2048, 1000
 KB_TAG, KD_TAG, KE_TAG = ("sampled_matmul_kernel", "sampled_matmul_dx_kernel",
                           "sampled_matmul_dw_kernel")
+KA_TAG, KC_TAG = "batch_sample_kernel", "noise_grad_kernel"
+# the MC-4 steps the ranking of the sampler section counts, each emission
+RANK_STEPS = 3
 # (in, out, side, count) of ResNet-50's 1x1 stride-1 convs
 SITES = [(64, 64, 56, 1), (64, 256, 56, 4), (256, 64, 56, 2),
          (256, 128, 56, 1), (128, 512, 28, 4), (512, 128, 28, 3),
@@ -85,6 +104,32 @@ INT8_GEMMS = [
     (100352, 512, 128, 3), (100352, 512, 256, 1), (100352, 1152, 128, 4),
     (401408, 64, 64, 1), (401408, 64, 256, 4), (401408, 256, 64, 2),
     (401408, 256, 128, 1), (401408, 576, 64, 3), (1605632, 160, 64, 1)]
+
+
+def layer_sizes():
+    """(sizes, flat): the elements of the per-layer draw buffers of
+    Bayesian ResNet-50 in model order, as the training steps draw them with
+    the head on K-B (each conv weight, the convs having no bias, then the
+    head's bias), and of all its Bayesian weights and biases."""
+    import torch
+
+    from bayesian_torch_tpu_torch.models.bayesian.resnet_variational_large \
+        import resnet50
+    from bayesian_torch_tpu_torch.models.dnn_to_bnn import (
+        iter_bayesian_layers,
+    )
+
+    model = resnet50(num_classes=1000, device="meta",
+                     generator=torch.Generator().manual_seed(0))
+    sizes, flat = [], 0
+    for layer in iter_bayesian_layers(model):
+        if hasattr(layer, "mu_kernel"):
+            sizes.append(layer.mu_kernel.numel())
+        if layer.mu_bias is not None:
+            sizes.append(layer.mu_bias.numel())
+        flat += sum(p.numel() for name, p in layer.named_parameters()
+                    if name.startswith("mu_"))
+    return sizes, flat
 
 
 def bound_ms(nbytes, ops, peak):
@@ -370,6 +415,102 @@ def sampled(out):
         KE_TAG, 4 * 4 * (M * N + M * K) + w_bytes)
 
 
+def sampler(out):
+    """K-A and K-C, flat and per layer, with bounds (see the docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    from bayesian_torch_tpu_torch.ops.cuda import sampled_weights as ka
+
+    sizes, flat = layer_sizes()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def posterior(n, dtype):
+        mu = 0.1 * torch.randn(n, generator=gen, device="cuda")
+        rho = torch.randn(n, generator=gen, device="cuda") * 0.1 - 3.0
+        return mu.to(dtype), rho.to(dtype), F.softplus(rho).to(dtype)
+
+    def grads(s, n, dtype):
+        return torch.randn((s, n), generator=gen, device="cuda").to(dtype)
+
+    # (what, S, repeats of the 54 per layer (0: flat only), operands' dtype
+    # (mu, rho and sigma; g too for K-C), bytes an element (operands read,
+    # out written), tag, the call on one buffer). The steps' modes take
+    # the operands their paths give them: the draw loop samples in the
+    # compute dtype (bf16 mu and rho, so bf16 g); the vmap step samples
+    # from f32 mu and sigma into bf16 draws, so bf16 g.
+    modes = [
+        ("K-A presample", 10, 0, f32, 8 + 2 * 10, KA_TAG,
+         lambda p, s: ka.sample_scaled_normals_batch(s, p[0], p[2], 10, bf16)),
+        ("K-A rho, f32 in", 1, 0, f32, 8 + 2, KA_TAG,
+         lambda p, s: ka.sample_gaussian(s, p[0], p[1], bf16)),
+        ("K-A rho (loop step)", 1, 4, bf16, 4 + 2, KA_TAG,
+         lambda p, s: ka.sample_gaussian(s, p[0], p[1], bf16)),
+        ("K-A S=4 (vmap step)", 4, 1, f32, 8 + 2 * 4, KA_TAG,
+         lambda p, s: ka.sample_scaled_normals_batch(s, p[0], p[2], 4, bf16)),
+        ("K-C drho, f32 g and rho", 1, 0, f32, 4 + 4 + 4, KC_TAG,
+         lambda p, s: ka.drho(s, p[3][0], p[1])),
+        ("K-C drho (loop step)", 1, 4, bf16, 2 + 2 + 4, KC_TAG,
+         lambda p, s: ka.drho(s, p[3][0], p[1])),
+        ("K-C dsigma (vmap step)", 4, 1, bf16, 2 * 4 + 4, KC_TAG,
+         lambda p, s: ka.dsigma(s, p[3])),
+    ]
+
+    def bound(n, s, per_elem):
+        terms = dict(bytes=per_elem * n / HBM_BPS * 1e3,
+                     generation=generation_ms(s * n))
+        return max(terms.values()), max(terms, key=terms.get)
+
+    for what, s, repeats, dtype, per_elem, tag, fn in modes:
+        # K-C dsigma's mu and sigma are f32 on its path; only g is read
+        p_dtype = f32 if "dsigma" in what else dtype
+        one = [(*posterior(flat, p_dtype), grads(s, flat, dtype)
+                if what.startswith("K-C") else None)]
+        seed = 1234
+        flat_ms, = device_times((lambda: fn(one[0], seed), tag))
+        del one
+        b, by = bound(flat, s, per_elem)
+        row = dict(kernel=what, S=s, operands=str(dtype).split(".")[-1],
+                   flat_n=flat, flat_ms=flat_ms,
+                   flat_bound_ms=b, bound_by=by)
+        if repeats:
+            bufs = [(*posterior(n, p_dtype), grads(s, n, dtype)
+                     if what.startswith("K-C") else None) for n in sizes]
+
+            def step():
+                for r in range(repeats):
+                    for i, p in enumerate(bufs):
+                        fn(p, seed + 97 * r + i)
+
+            step_ms, = device_times((step, tag))
+            del bufs
+            row.update(launches=repeats * len(sizes), step_ms=step_ms,
+                       step_bound_ms=repeats * sum(
+                           bound(n, s, per_elem)[0] for n in sizes))
+        print(f"[sampler] {row}", flush=True)
+        out.append(row)
+        torch.cuda.empty_cache()
+
+
+def rank(rows):
+    """K-A's per-layer modes, K-C and K-E by launches x (device time -
+    bound) over ``RANK_STEPS`` loop and vmap MC-4 steps each."""
+    gaps = {r["kernel"]: RANK_STEPS * (r["step_ms"] - r["step_bound_ms"])
+            for r in rows.get("sampler", []) if "step_ms" in r}
+    ke = {r["S"]: r["ms"] - r["bound_ms"] for r in rows.get("sampled", [])
+          if r["kernel"].startswith("K-E")}
+    if 1 in ke and 4 in ke:
+        # four S = 1 launches a loop step, one with lanes a vmap step
+        gaps["K-E (loop and vmap steps)"] = RANK_STEPS * (4 * ke[1] + ke[4])
+    ranked = dict(sorted(gaps.items(), key=lambda kv: -kv[1]))
+    print("[rank] launches x (device ms - bound ms) over "
+          f"{RANK_STEPS} loop + {RANK_STEPS} vmap MC-4 steps: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in ranked.items()), flush=True)
+    return ranked
+
+
 def paths(out):
     """The loop paths that run K-B and K-D, wall and device busy time."""
     import torch
@@ -402,7 +543,8 @@ def paths(out):
         return dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall, **{
             f"{k}_ms": sum(e.self_device_time_total for e in rows
                            if tag in e.name) / 1e3
-            for k, tag in (("kb", KB_TAG), ("kd", KD_TAG), ("ke", KE_TAG))})
+            for k, tag in (("ka", KA_TAG), ("kb", KB_TAG), ("kc", KC_TAG),
+                           ("kd", KD_TAG), ("ke", KE_TAG))})
 
     def report(what, walls, windows):
         r = dict(path=what, wall_ms=walls,
@@ -453,9 +595,18 @@ def paths(out):
     report(f"loop MC-{TRAIN_MC} bs{BATCH} ELBO step, head on K-B and K-D",
            walls, [window(train) for _ in range(3)])
 
+    vstep = make_train_step(TRAIN_MC, BATCH, emission="vmap")
 
-SECTIONS = dict(sampled=sampled, paths=paths, kg=kg_sites, probe=probe,
-                kf=kf)
+    def train_vmap():
+        vstep(model, opt, x, y)
+
+    walls = [wall_ms(train_vmap) for _ in range(8)][2:]
+    report(f"vmap MC-{TRAIN_MC} bs{BATCH} ELBO step, head on K-B, K-D and "
+           "K-E with lanes", walls, [window(train_vmap) for _ in range(3)])
+
+
+SECTIONS = dict(sampler=sampler, sampled=sampled, paths=paths, kg=kg_sites,
+                probe=probe, kf=kf)
 
 
 def main(argv=None):
@@ -463,7 +614,13 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--label", default=os.path.basename(os.getcwd()))
-    label = parser.parse_args(argv).label
+    parser.add_argument("--sections", nargs="+", choices=sorted(SECTIONS),
+                        default=list(SECTIONS),
+                        help="sections to run (default: all); a subset "
+                        "keeps a run of two checkouts in turns within one "
+                        "chip call's time limit")
+    args = parser.parse_args(argv)
+    label = args.label
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device")
     sys.path.insert(0, os.getcwd())
@@ -474,10 +631,14 @@ def main(argv=None):
     print(f"[{label}] {card}", flush=True)
     rows, sums = {}, {}
     for name, section in SECTIONS.items():
+        if name not in args.sections:
+            continue
         rows[name] = []
         total = section(rows[name])
         if total is not None:
             sums[name] = total
+    if "sampler" in rows:
+        sums["rank"] = rank(rows)
     print(json.dumps(dict(label=label, card=card, sums=sums, rows=rows)),
           flush=True)
 

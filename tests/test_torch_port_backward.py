@@ -6,6 +6,9 @@
   test_torch_port_ops.py does for the forwards): #2 ``_batch_dsigma_kernel``,
   #3/#4 ``_sample_kernel``/``_drho_kernel``, #6/#7 ``_dx_kernel``/``_dw_kernel``.
 - Each plain backward against torch autograd of its plain forward.
+- The same at ragged sizes (ResNet-50's stem of 9,408 weights, the edges
+  of the Pallas tiles, a few elements), S = 4, beside the plain backward
+  of the port's own forward.
 - The public ops on CPU tensors: autograd Functions that save the seed,
   never eps, and launch nothing.
 
@@ -113,6 +116,52 @@ def test_sampled_matmul_vjp_matches_jax_kernel():
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(drho_t.numpy(), np.asarray(drho_j),
                                rtol=1e-5, atol=2e-5)
+
+
+# ragged sizes: the stem's 9,408 weights, the head's bias of 1,000, the
+# edges of the Pallas tiles (32,768 elements single-draw, 131,072 batch)
+# and of the CUDA kernels' vector width, and a few elements
+@pytest.mark.parametrize("n", [1, 3, 1000, 1001, 1023, 4097, 9408, 32_767,
+                               32_769, 65_537, 131_071, 131_073, 147_457])
+def test_noise_grad_at_layer_sizes_matches_jax_kernels(n):
+    """#2 (S = 4) and #4 at ragged per-layer sizes: the Pallas VJPs
+    (interpret mode) against the algebra of ``dsigma_plain`` and
+    ``drho_plain`` on the eps the Pallas forwards drew; and those plain
+    versions against the same algebra on the eps of the port's own plain
+    forward (K-A's), at the same sizes."""
+    rs = np.random.RandomState(n)
+    S = 4
+    mu = rs.normal(0, 0.3, n).astype(np.float32)
+    rho = rs.uniform(-3.0, -1.0, n).astype(np.float32)
+    sigma = np.asarray(ts.sigma_from_rho(_t(rho)))
+    g = rs.randn(S, n).astype(np.float32)
+    w, vjp = jax.vjp(lambda m, s: jax_batch_sampler(
+        jax.random.key(n), m, s, S, jnp.float32), mu, sigma)
+    _, dsig_j = vjp(jnp.asarray(g))
+    eps = _t((np.asarray(w) - mu) / sigma)
+    # eps recovered by a division: one rounding of w, times 1/sigma <= 21,
+    # summed over 4 draws of |g| ~ 1
+    np.testing.assert_allclose(ka.noise_grad(_t(g), eps.__getitem__).numpy(),
+                               np.asarray(dsig_j), rtol=1e-5, atol=2e-5)
+    w1, vjp1 = jax.vjp(lambda m, r: sample_gaussian_pallas(
+        jax.random.key(n + 1), m, r, jnp.float32), mu, rho)
+    _, drho_j = vjp1(jnp.asarray(g[0]))
+    eps1 = (_t(w1) - _t(mu)) / _t(sigma)
+    np.testing.assert_allclose(
+        ka.drho_from_noise(_t(g[0]), eps1, _t(rho)).numpy(),
+        np.asarray(drho_j), rtol=1e-5, atol=1e-5)
+
+    seed = 2**40 + n
+    w_t = ka.sample_scaled_normals_batch_plain(seed, _t(mu), _t(sigma), S,
+                                               torch.float32)
+    eps_t = (w_t - _t(mu)) / _t(sigma)
+    torch.testing.assert_close(ka.dsigma_plain(seed, _t(g)),
+                               ka.noise_grad(_t(g), eps_t.__getitem__),
+                               rtol=1e-5, atol=2e-5)
+    torch.testing.assert_close(ka.drho_plain(seed, _t(g[0]), _t(rho)),
+                               ka.drho_from_noise(_t(g[0]), eps_t[0],
+                                                  _t(rho)),
+                               rtol=1e-5, atol=1e-5)
 
 
 # ------------------------------- plain backward == autograd of plain forward

@@ -1,6 +1,9 @@
 """Card-only checks of the port's CUDA kernels against their plain torch
 versions, at small and ragged shapes (the full shapes are in
-chip_smoke.py): K-A and K-B forward, K-C (both modes), K-D and K-E
+chip_smoke.py): K-A and K-B forward, K-C (both modes; K-A and K-C also
+at ragged sizes, at odd offsets and S in {1, 2, 4, 10}, on either side of
+their launch shapes' edge, and dsigma of ones against the sum of K-A's
+draws), K-D and K-E
 backward, K-B, K-D and K-E with their lane axis, K-B and K-D across the
 edges of their split reduction, K-A's rho mode (the single draw's softplus
 in the kernel), autograd through the public ops, K-F (the fused int8 GEMM + requantize) with the quantized
@@ -138,6 +141,148 @@ def test_dsigma_kernel_unaligned_view(cuda):
     want = ka.dsigma_plain(9, g)
     torch.cuda.synchronize()
     assert _max_err(got, want) <= 1e-5 * _scale(want)
+
+
+# the samplers' edges: sizes around the narrow and wide launch shapes (the
+# stem's 9,408 weights, the head's 2,049,000) and past 2^20
+_EDGE_N = [1, 3, 1000, 1023, 9408, 2_049_000, 2**20 + 5]
+
+
+def _vector(n, offset, seed, dtype=torch.float32, scale=1.0, shift=0.0):
+    """n values from a seed, as a contiguous view at ``offset`` elements
+    (an odd offset misaligns the kernel's vector loads)."""
+    gen = torch.Generator().manual_seed(seed)
+    v = torch.randn(n + offset, generator=gen) * scale + shift
+    return v.to("cuda", dtype)[offset:]
+
+
+def _rel(got, want):
+    return _max_err(got, want) / max(want.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("n", _EDGE_N)
+@pytest.mark.parametrize("num_samples", [1, 2, 4, 10])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_dsigma_kernel_edges(cuda, n, num_samples, g_dtype, offset):
+    g = _vector(num_samples * n, offset, n, g_dtype).view(num_samples, n)
+    seed = 0xFEED_0000_0000_0001 + n
+    got = ka.dsigma(seed, g)
+    assert torch.equal(got, ka.dsigma(seed, g))
+    # same eps up to the last ulp of log/cos, same f32 order of the sum
+    assert _rel(got, ka.dsigma_plain(seed, g)) <= 1e-5
+
+
+@pytest.mark.parametrize("n", _EDGE_N)
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rho_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_drho_kernel_edges(cuda, n, g_dtype, rho_dtype, offset):
+    """rho in bf16 (the draw loop's compute dtype) is read as it is."""
+    g = _vector(n, offset, n, g_dtype)
+    rho = _vector(n, offset, n + 1, rho_dtype, shift=-3.0)
+    got = ka.drho(n, g, rho)
+    assert torch.equal(got, ka.drho(n, g, rho))
+    assert _rel(got, ka.drho_plain(n, g, rho)) <= 1e-5
+
+
+@pytest.mark.parametrize("n", _EDGE_N)
+@pytest.mark.parametrize("num_samples", [1, 2, 4, 10])
+def test_dsigma_of_ones_is_the_sum_of_the_draws(cuda, n, num_samples):
+    """Forward and backward draw one stream: K-C's dsigma of ones equals
+    the f32 sum, in draw order, of K-A's draws at mu = 0, sigma = 1 (its
+    eps), bit for bit."""
+    seed = 2**45 + n
+    draws = sample_scaled_normals_batch(
+        seed, torch.zeros(n, device=cuda), torch.ones(n, device=cuda),
+        num_samples, torch.float32)
+    total = draws[0]
+    for s in range(1, num_samples):
+        total = total + draws[s]
+    ones = torch.ones((num_samples, n), device=cuda)
+    assert torch.equal(ka.dsigma(seed, ones), total)
+
+
+def _sampler_gate(got, want):
+    """f32 within 1e-5 of the plain version; bf16 within one bf16 ulp
+    (rounding of f32 values that may differ in their last ulp)."""
+    assert got.dtype == want.dtype
+    if got.dtype == torch.float32:
+        assert _max_err(got, want) <= 1e-5 * max(want.abs().max().item(), 1)
+    else:
+        ulp = torch.finfo(torch.bfloat16).eps * want.float().abs()
+        assert bool(((got.float() - want.float()).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("n", _EDGE_N)
+@pytest.mark.parametrize("num_samples", [1, 2, 4, 10])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_batch_sampler_edges(cuda, n, num_samples, out_dtype, in_dtype,
+                             offset):
+    mu = _vector(n, offset, n, in_dtype, scale=0.3)
+    sigma = sigma_from_rho(_vector(n, offset, n + 1, shift=-3.0)).to(
+        in_dtype)
+    seed = 0x1234_0000_0000_0000 + n
+    got = sample_scaled_normals_batch(seed, mu, sigma, num_samples,
+                                      out_dtype)
+    assert got.shape == (num_samples, n)
+    assert torch.equal(got, sample_scaled_normals_batch(
+        seed, mu, sigma, num_samples, out_dtype))
+    _sampler_gate(got, sample_scaled_normals_batch_plain(
+        seed, mu, sigma, num_samples, out_dtype))
+
+
+@pytest.mark.parametrize("n", _EDGE_N)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_single_draw_edges(cuda, n, out_dtype, in_dtype, offset):
+    """K-A's rho mode (softplus in the kernel) at the edges, rho across
+    torch's softplus threshold of 20; bf16 mu and rho (the draw loop's
+    compute dtype) are read as they are."""
+    mu = _vector(n, offset, n, in_dtype, scale=0.3)
+    rho = _vector(n, offset, n + 1, in_dtype, scale=8.0, shift=-3.0)
+    got = ka.sample_gaussian(n, mu, rho, out_dtype)
+    assert torch.equal(got, ka.sample_gaussian(n, mu, rho, out_dtype))
+    _sampler_gate(got, sample_scaled_normals_batch_plain(
+        n, mu, sigma_from_rho(rho.float()), 1, out_dtype)[0])
+
+
+def _after_nan(numel, fn):
+    """fn() right after a block of ``numel`` f32 NaN is freed, so that the
+    caching allocator hands that memory to fn's output: an element the
+    kernel leaves unwritten reads NaN."""
+    torch.full((numel,), float("nan"), device="cuda")
+    return fn()
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 5])
+def test_sampler_kernels_write_every_element(cuda, delta):
+    """K-A and K-C choose their launch shape in C from n and the card's
+    SM count: one element a thread below four waves of 1,024 elements,
+    four from there. On either side of that edge every output element is
+    written and equals the plain version."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = 4 * sms * 1024 + delta
+    mu, sigma, rho = _posterior((n,), cuda, seed=delta + 1)
+    gen = torch.Generator().manual_seed(delta + 2)
+    g = torch.randn((4, n), generator=gen).to(cuda)
+    seed = 0xACE0_0000_0000_0000 + n
+    f32 = torch.float32
+    for s in (1, 4):
+        got = _after_nan(s * n, lambda: sample_scaled_normals_batch(
+            seed, mu, sigma, s, f32))
+        _sampler_gate(got, sample_scaled_normals_batch_plain(
+            seed, mu, sigma, s, f32))
+    got = _after_nan(n, lambda: ka.sample_gaussian(seed, mu, rho, f32))
+    _sampler_gate(got, sample_scaled_normals_batch_plain(
+        seed, mu, sigma_from_rho(rho), 1, f32)[0])
+    got = _after_nan(n, lambda: ka.dsigma(seed, g))
+    assert _rel(got, ka.dsigma_plain(seed, g)) <= 1e-5
+    got = _after_nan(n, lambda: ka.drho(seed, g[0], rho))
+    assert _rel(got, ka.drho_plain(seed, g[0], rho)) <= 1e-5
 
 
 def test_gaussian_sampler_grad_matches_plain(cuda):
