@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the TMA + wgmma kernels (K-F in
-// qmatmul.cu, K-G's bf16 lane in mc_gemm.cu): tensor maps built on the
-// host, mbarrier rings, TMA loads and wgmma shared-memory descriptors.
+// qmatmul.cu, K-G's bf16 lane in mc_gemm.cu) and K-E's wgmma
+// (sampled_matmul_bwd.cu): tensor maps built on the host, mbarrier rings,
+// TMA loads and wgmma shared-memory descriptors.
 //
 // Every tile here is a 128-byte-swizzled one: rows of 128 bytes, eight of
 // them (1024 bytes) forming one swizzle atom, the 16-byte chunk c of row r
@@ -290,6 +291,33 @@ __device__ __forceinline__ void wgmma_u8s8_n64(int (&d)[32], uint64_t a,
         "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
         "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
         "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// tf32 x tf32 -> f32, both operands K-major (the only layout wgmma takes
+// for 32-bit types), accumulating into d (scale-d = 1: the caller zeroes d
+// first); each operand's 32-bit values are read as TF32.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t a,
+                                               uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(1));
 }
 

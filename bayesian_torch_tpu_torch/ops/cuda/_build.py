@@ -53,10 +53,10 @@ _SIGNATURES = {
     "btt_sampled_matmul_dx": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int, ctypes.c_uint64,
                               _P),
-    # g, x, x lane stride, dmu, dsigma, S, M, N, K, seed, stream
-    "btt_sampled_matmul_dw": (_P, _P, ctypes.c_int64, _P, _P, ctypes.c_int,
+    # g, x, x lane stride, x_bf16, dmu, dsigma, S, M, N, K, seed, stream
+    "btt_sampled_matmul_dw": (_P, _P, ctypes.c_int64, ctypes.c_int, _P, _P,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_uint64, _P),
+                              ctypes.c_int, ctypes.c_uint64, _P),
     # x, w, corr (or NULL), bias (or NULL), out, M, N, K, mult, out_zp,
     # stream
     "btt_qmatmul_requant": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,

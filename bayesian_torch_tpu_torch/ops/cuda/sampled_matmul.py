@@ -187,19 +187,23 @@ def _dx(seed, g, mu, sigma, counter):
 
 def _dw(seed, g, x, counter):
     """K-E on the lanes of g (S, M, N), x (S, M, K) or shared (M, K): f32
-    (dmu, dsigma), each (N, K), summed over the lanes."""
+    (dmu, dsigma), each (N, K), summed over the lanes. A bf16 x (the draw
+    loop's head input) is read as it is: the same values as its f32 copy,
+    and the same bits out."""
     if _on_cpu(g, x):
         return sampled_matmul_dw_batched_plain(seed, g, x)
     build, lib = _library()
-    g32, x32 = _f32(g), _f32(x)
+    g32 = _f32(g)
+    xk = (x.detach().contiguous() if x.dtype == torch.bfloat16
+          else _f32(x))
     S, M, N = g32.shape
-    K = x32.shape[-1]
+    K = xk.shape[-1]
     dmu = torch.empty((N, K), dtype=torch.float32, device=g.device)
     dsig = torch.empty_like(dmu)
     code = lib.btt_sampled_matmul_dw(
-        g32.data_ptr(), x32.data_ptr(), _lane_stride(x32), dmu.data_ptr(),
-        dsig.data_ptr(), S, M, N, K, seed & 0xFFFFFFFFFFFFFFFF,
-        _stream(g.device))
+        g32.data_ptr(), xk.data_ptr(), _lane_stride(xk),
+        int(xk.dtype == torch.bfloat16), dmu.data_ptr(), dsig.data_ptr(), S,
+        M, N, K, seed & 0xFFFFFFFFFFFFFFFF, _stream(g.device))
     build.check(lib, code, counter.__name__)
     counter.launches += 1
     return dmu, dsig

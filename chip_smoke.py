@@ -33,8 +33,8 @@ Phases, each printing its own line(s):
 2. build: the CUDA kernels compiled from ``bayesian_torch_tpu_torch/csrc``;
    each kernel's wgmma (HGMMA, IGMMA), mma.sync (HMMA) and TMA (UTMALDG,
    UBLKCP) instructions counted in ``cuobjdump -sass`` of the library:
-   K-G's bf16 kernels and K-F must hold wgmma and TMA loads, K-B and K-D a
-   tensor-core product;
+   K-G's bf16 kernels and K-F must hold wgmma and TMA loads, K-B, K-D and
+   K-E a tensor-core product;
 3. K-A (batch weight sampler) against its plain torch version at the
    ResNet-50 flat size (all Bayesian weights, 10 draws), f32 and bf16 out,
    eps moments; its rho mode (the single draw ``sample_gaussian``,
@@ -56,8 +56,10 @@ Phases, each printing its own line(s):
    f32 g; device times as in phase 4), then K-A and K-C at each of the 54
    per-layer buffers of the training steps, and dsigma of ones against the
    sum of K-A's draws (bit for bit); K-D and K-E at the head shape, f32
-   with TF32 off, device times as in phase 4 (K-D beside its unfused
-   route), two calls equal; and ``torch.autograd.grad`` through the public
+   with TF32 off, device times as in phase 4 (each beside its unfused
+   route: K-E's is ``torch.matmul`` over the S*M rows for dmu, K-A's eps
+   and ``torch.bmm`` per lane for dsigma, held to the same gate), two
+   calls equal; and ``torch.autograd.grad`` through the public
    ops against autograd through their plain versions;
 8. training path (the draw loop, ``emission="scan"``; ``"auto"`` trains
    through the vmap emission): one warm-up and three timed ELBO steps at
@@ -93,8 +95,9 @@ Phases, each printing its own line(s):
 19. the uncalibrated model (every tensor at scale 0.2, zp 128): MC-1;
 20. K-B with lanes (S = 10) and K-D, K-E with lanes (S = 4) against their
     plain versions at the head shape, x per lane and x shared, f32 with
-    TF32 off, device times beside the unfused route, two calls equal; lane
-    0 equal to the single-draw kernels bit for bit (run after phase 7);
+    TF32 off, device times beside the unfused route (K-E's held to the
+    same gate), two calls equal; lane 0 (K-E: one lane) equal to the
+    single-draw kernels bit for bit (run after phase 7);
 21. the vmap inference path: three MC-10 bs128 batches after a warm-up,
     fc.impl="pallas", presample "auto" (off): ms per batch, images/s, peak
     memory, every kernel's launches per batch equal to what the model
@@ -159,7 +162,7 @@ import time
 from kernel_times import (BF16_OPS, F32_OPS, HBM_BPS, INT8_OPS, KA_TAG,
                           KB_TAG, KC_TAG, KD_TAG, KE_TAG, PER_NORMAL,
                           SESSIONS, TF32_OPS, device_times, generation_ms,
-                          layer_sizes)
+                          layer_sizes, unfused_dw)
 from kernel_times import SITES as POINTWISE_SITES
 
 BATCH = 128
@@ -252,6 +255,35 @@ def phase_device():
     return name
 
 
+def template_args(tail):
+    """The template arguments at the start of the tail of a mangled name
+    (after the function's own name): integer literals (Li8E, Lb1E), class
+    names (13__nv_bfloat16) and builtin types (f); None if there are none
+    or one of another kind."""
+    import re
+
+    if not tail.startswith("I"):
+        return None
+    builtin = dict(f="float", d="double", i="int", b="bool")
+    out, i = [], 1
+    while i < len(tail) and tail[i] != "E":
+        if tail[i] == "L":
+            j = tail.index("E", i)
+            out.append(tail[i + 2:j])
+            i = j + 1
+        elif tail[i].isdigit():
+            n = re.match(r"\d+", tail[i:]).group()
+            i += len(n)
+            out.append(tail[i:i + int(n)])
+            i += int(n)
+        elif tail[i] in builtin:
+            out.append(builtin[tail[i]])
+            i += 1
+        else:
+            return None
+    return out
+
+
 def phase_build():
     from bayesian_torch_tpu_torch.ops.cuda import _build
 
@@ -271,8 +303,8 @@ def sass_census(path):
     """Which Hopper instructions each kernel of the built library holds,
     from ``cuobjdump -sass``: HGMMA and IGMMA (wgmma, bf16 and int8), HMMA
     (mma.sync), UTMALDG (TMA tensor loads), UBLKCP (bulk copies). K-G's
-    bf16 lane and K-F must hold wgmma and TMA loads; K-B and K-D a
-    tensor-core product (HGMMA or HMMA)."""
+    bf16 lane and K-F must hold wgmma and TMA loads; K-B, K-D and every
+    instantiation of K-E a tensor-core product (HGMMA or HMMA)."""
     import re
     from pathlib import Path
 
@@ -292,11 +324,9 @@ def sass_census(path):
             mangled = ln.split("Function :")[1].strip()
             fn = max((n for n in names if n in mangled), key=len,
                      default=mangled)
-            args = re.match(r"I((?:L\w\d+E)+)E",
-                            mangled.split(fn, 1)[-1])
+            args = template_args(mangled.split(fn, 1)[-1])
             if args:
-                fn += "<" + ",".join(re.findall(r"L\w(\d+)E",
-                                                args.group(1))) + ">"
+                fn += "<" + ",".join(args) + ">"
             census[fn] = dict.fromkeys(ops, 0)
         elif fn is not None:
             for op in ops:
@@ -310,8 +340,11 @@ def sass_census(path):
         found = [c for fn, c in census.items() if fn.startswith(kernel)]
         check(found and all(c[mma] > 0 and c["UTMALDG"] > 0 for c in found),
               f"{kernel}: no {mma} (wgmma) or UTMALDG (TMA) in its SASS")
-    for kernel in ("sampled_matmul_kernel", "sampled_matmul_dx_kernel"):
-        found = [c for fn, c in census.items() if fn == kernel]
+    # K-E's kernel is a template (<lanes, x's type>): every instantiation
+    for kernel in ("sampled_matmul_kernel", "sampled_matmul_dx_kernel",
+                   "sampled_matmul_dw_kernel"):
+        found = [c for fn, c in census.items()
+                 if fn == kernel or fn.startswith(kernel + "<")]
         check(found and all(c["HGMMA"] + c["HMMA"] > 0 for c in found),
               f"{kernel}: no tensor-core product (HGMMA, HMMA) in its SASS")
 
@@ -411,9 +444,9 @@ def phase_batch_sampler(model):
 def sampled_times(what, kernel, plain, unfused, tag):
     """Two calls of ``kernel`` give the same bits; device ms of the
     kernel (its rows named ``tag``), of its plain version and of the
-    unfused route (K-A drawing the weights in f32, then torch.matmul; all
-    their device rows), logged. The plain version is no yardstick: it
-    draws eps in torch passes."""
+    unfused route (K-A drawing the weights or, for K-E, eps in f32, then
+    torch.matmul; all their device rows), logged. The plain version is no
+    yardstick: it draws eps in torch passes."""
     import torch
 
     first = kernel()
@@ -744,13 +777,29 @@ def phase_gemm_backward(model):
             f"max|kernel-plain|={err:.3e}, limit 1e-4 x max|plain| = "
             f"{1e-4 * scale:.3e}")
         check(err <= 1e-4 * scale, "K-E differs from its plain version")
-        # no unfused yardstick: K-E's dsigma needs eps itself
+        # the draw loop's head input is bf16: read as it is, the same bits
+        # as on its f32 copy
+        xb = x.bfloat16()
+        same = all(torch.equal(a, b) for a, b in zip(
+            kb.sampled_matmul_dw(seed, g, xb),
+            kb.sampled_matmul_dw(seed, g, xb.float())))
+        log(f"[K-E] bf16 x equals its f32 copy bit for bit: {same}")
+        check(same, "K-E on a bf16 x differs from K-E on its f32 copy")
+        zeros, ones = torch.zeros_like(mu), torch.ones_like(mu)
+        unf = unfused_dw(seed, g[None], x, zeros, ones)
+        uerr = max(max_err(unf[0], dmu_w), max_err(unf[1], dsig_w))
+        log(f"[K-E] unfused route: max|unfused-plain|={uerr:.3e}, limit "
+            f"{1e-4 * scale:.3e}")
+        check(uerr <= 1e-4 * scale,
+              "K-E's unfused route differs from its plain version")
         times = sampled_times(
             "K-E", lambda: kb.sampled_matmul_dw(seed, g, x),
-            lambda: kb.sampled_matmul_dw_plain(seed, g, x), None, KE_TAG)
+            lambda: kb.sampled_matmul_dw_plain(seed, g, x),
+            lambda: unfused_dw(seed, g[None], x, zeros, ones), KE_TAG)
+        # three TF32 products on the tensor cores (split TF32)
         results["dw"] = with_bound(
             "K-E", dict(max_abs_err=err, **times),
-            4 * (BATCH * N + BATCH * K + 2 * N * K), flops + N * K,
+            4 * (BATCH * N + BATCH * K + 2 * N * K), 3 * flops, TF32_OPS,
             normals=N * K)
     return results
 
@@ -883,29 +932,34 @@ def phase_lane_kernels(model):
             4 * (S * BATCH * N + 2 * N * K + S * BATCH * K), 3 * flops,
             TF32_OPS, normals=S * N * K)
 
-        errs = []
+        errs, uerrs = [], []
+        zeros, ones = torch.zeros_like(mu), torch.ones_like(mu)
         for what, xl in (("x per lane", x), ("x shared", x[0])):
             got = kb.sampled_matmul_dw_batched(seed, g, xl)
             want = kb.sampled_matmul_dw_batched_plain(seed, g, xl)
             e = [gate(f"K-E lanes ({what})", a, b) for a, b in zip(got, want)]
             errs.append(max(e))
+            unf = unfused_dw(seed, g, xl, zeros, ones)
+            uerrs.append(max(gate(f"K-E lanes' unfused route ({what})", a, b)
+                             for a, b in zip(unf, want)))
         one = kb.sampled_matmul_dw_batched(seed, g[:1], x[0])
         check(all(torch.equal(a, b) for a, b in zip(
             one, kb.sampled_matmul_dw(seed, g[0], x[0]))),
             "K-E lanes: one lane differs from K-E")
         log(f"[K-E lanes] S={S} M={BATCH} N={N} K={K} f32: dmu, dsigma "
             f"summed over lanes: max|kernel-plain| = {errs[0][0]:.3e} (x per "
-            f"lane), {errs[1][0]:.3e} (x shared); one lane equal to K-E")
+            f"lane), {errs[1][0]:.3e} (x shared); unfused route "
+            f"{uerrs[0][0]:.3e}, {uerrs[1][0]:.3e}; one lane equal to K-E")
         times = sampled_times(
             f"K-E lanes S={S}",
             lambda: kb.sampled_matmul_dw_batched(seed, g, x),
-            lambda: kb.sampled_matmul_dw_batched_plain(seed, g, x), None,
-            KE_TAG)
+            lambda: kb.sampled_matmul_dw_batched_plain(seed, g, x),
+            lambda: unfused_dw(seed, g, x, zeros, ones), KE_TAG)
         results["dw"] = with_bound(
             f"K-E lanes S={S}",
             dict(max_abs_err=max(e for e, _ in errs), **times),
-            4 * (S * BATCH * N + S * BATCH * K + 2 * N * K),
-            flops + 3 * S * N * K, normals=S * N * K)
+            4 * (S * BATCH * N + S * BATCH * K + 2 * N * K), 3 * flops,
+            TF32_OPS, normals=S * N * K)
     return results
 
 

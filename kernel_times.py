@@ -33,11 +33,13 @@ prints one line per shape and a JSON summary last.
   (``ops/cuda/sampled_matmul.py``) at the head (M = 128, K = 2048,
   N = 1000, f32, TF32 off): K-B at S = 1 and with lanes at S = 4 and 10 (x
   per lane and shared), K-D at S = 1 and 4, K-E at S = 1 and 4; beside the
-  unfused route, K-A drawing the S weights in f32 and then
-  ``torch.matmul`` (all its device rows). No PyTorch call samples the
-  weight inside a GEMM. Each row's bound is the largest of bytes,
-  operations (K-B and K-D: three TF32 products on the tensor cores; K-E:
-  f32) and the generation of its normals (``generation_ms``).
+  unfused route (all its device rows): K-A drawing the S weights in f32
+  and then ``torch.matmul``; for K-E, ``torch.matmul`` over the S*M rows
+  for dmu, K-A drawing the S eps windows (mu 0, sigma 1), ``torch.bmm``
+  per lane and a sum over the lanes for dsigma. No PyTorch call samples
+  the weight inside a GEMM. Each row's bound is the largest of bytes,
+  operations (three TF32 products on the tensor cores) and the generation
+  of its normals (``generation_ms``).
 - ``paths``: ResNet-50 (bf16) with the head on K-B and K-D
   (``fc.impl = "pallas"``): through the draw loop, MC-10 bs128 inference
   with ``presample="off"`` (``chip_smoke.py``'s phase 6) and the MC-4
@@ -346,6 +348,25 @@ def kf(out):
     return tot
 
 
+def unfused_dw(seed, g, x, zeros, ones):
+    """K-E's function without the fused kernel, g (S, M, N), x (S, M, K)
+    or shared (M, K): dmu as one torch.matmul over the S*M rows; the S eps
+    windows drawn by K-A (mu = ``zeros``, sigma = ``ones``: the same salts
+    as K-E's), then torch.bmm per lane and (d * eps).sum(0) for dsigma."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
+        sample_scaled_normals_batch as ka,
+    )
+
+    S, M, N = g.shape
+    xs = x.expand(S, *x.shape[-2:]) if x.dim() == 2 else x
+    dmu = torch.matmul(g.reshape(S * M, N).T, xs.reshape(S * M, -1))
+    eps = ka(seed, zeros, ones, S, torch.float32)
+    d = torch.bmm(g.transpose(1, 2), xs)
+    return dmu, (d * eps).sum(0)
+
+
 def sampled(out):
     """K-B, K-D and K-E at the head, beside the unfused route."""
     import torch
@@ -367,15 +388,15 @@ def sampled(out):
     def draws(s):
         return ka.sample_scaled_normals_batch(seed, mu, sigma, s, f32)
 
+    zeros, ones = torch.zeros_like(mu), torch.ones_like(mu)
+
     def row(what, s, fn, tag, nbytes, unfused=None):
-        # K-B and K-D: three TF32 products on the tensor cores; K-E: one
-        # f32 product outside them and the dsigma epilogue
-        tensor_cores = what.startswith(("K-B", "K-D"))
-        ops = 2 * s * M * N * K * (3 if tensor_cores else 1) + (
-            0 if tensor_cores else 3 * s * N * K)
+        # three TF32 products on the tensor cores (split TF32); K-E's
+        # epilogue (one multiply and two adds an element and lane on the
+        # f32 pipe) is not counted
         terms = dict(
             bytes=nbytes / HBM_BPS * 1e3,
-            operations=ops / (TF32_OPS if tensor_cores else F32_OPS) * 1e3,
+            operations=3 * 2 * s * M * N * K / TF32_OPS * 1e3,
             generation=generation_ms(s * N * K))
         calls = [(fn, tag)] + ([(unfused, None)] if unfused else [])
         times = device_times(*calls)
@@ -410,9 +431,11 @@ def sampled(out):
         lambda: kb.sampled_matmul_dx_batched(seed, g, mu, sigma), KD_TAG,
         4 * 4 * (M * N + M * K) + w_bytes, lambda: torch.matmul(g, draws(4)))
     row("K-E", 1, lambda: kb.sampled_matmul_dw(seed, g[0], x[0]), KE_TAG,
-        4 * (M * N + M * K) + w_bytes)
+        4 * (M * N + M * K) + w_bytes,
+        lambda: unfused_dw(seed, g[:1], x[0], zeros, ones))
     row("K-E lanes", 4, lambda: kb.sampled_matmul_dw_batched(seed, g, x[:4]),
-        KE_TAG, 4 * 4 * (M * N + M * K) + w_bytes)
+        KE_TAG, 4 * 4 * (M * N + M * K) + w_bytes,
+        lambda: unfused_dw(seed, g, x[:4], zeros, ones))
 
 
 def sampler(out):

@@ -3,12 +3,12 @@ versions, at small and ragged shapes (the full shapes are in
 chip_smoke.py): K-A and K-B forward, K-C (both modes; K-A and K-C also
 at ragged sizes, at odd offsets and S in {1, 2, 4, 10}, on either side of
 their launch shapes' edge, and dsigma of ones against the sum of K-A's
-draws), K-D and K-E
-backward, K-B, K-D and K-E with their lane axis, K-B and K-D across the
-edges of their split reduction, K-A's rho mode (the single draw's softplus
-in the kernel), autograd through the public ops, K-F (the fused int8 GEMM + requantize) with the quantized
-convs built on it, and K-G (the per-draw GEMM behind the pointwise
-emission) in bf16, f32 and int8. They skip without a
+draws), K-D and K-E backward, K-B, K-D and K-E with their lane axis, K-B,
+K-D and K-E (its split-TF32 products and lane sums) across the edges of
+their tiles, K-A's rho mode (the single draw's softplus in the kernel),
+autograd through the public ops, K-F (the fused int8 GEMM + requantize)
+with the quantized convs built on it, and K-G (the per-draw GEMM behind
+the pointwise emission) in bf16, f32 and int8. They skip without a
 CUDA device. On a machine with one, and without JAX, run them with
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
@@ -317,8 +317,13 @@ def test_sampled_matmul_matches_plain(cuda, m, n, k):
     assert (got - want).abs().max().item() <= tol
 
 
+# K-E's tile is 128 (n) x 128 (k) over chunks of 32 rows of m: M at one
+# row, under and over a chunk and 128, N and K one either side of the tile
 @pytest.mark.parametrize("m,n,k", [(1, 1, 1), (5, 33, 17), (128, 1000, 2048),
-                                   (130, 64, 40), (17, 65, 129)])
+                                   (130, 64, 40), (17, 65, 129),
+                                   (7, 127, 127), (1, 128, 128),
+                                   (257, 129, 129), (130, 1, 255),
+                                   (33, 129, 257)])
 def test_sampled_matmul_backward_kernels_match_plain(cuda, m, n, k):
     mu, sigma, _ = _posterior((n, k), cuda, seed=6)
     gen = torch.Generator().manual_seed(7)
@@ -334,6 +339,9 @@ def test_sampled_matmul_backward_kernels_match_plain(cuda, m, n, k):
     for got, want in ((dx, dx_want), (dmu, dmu_want), (dsig, dsig_want)):
         assert got.shape == want.shape
         assert _max_err(got, want) <= 1e-4 * _scale(want)
+    # no atomics, no order that depends on scheduling
+    for a, b in zip((dmu, dsig), kb.sampled_matmul_dw(seed, g, x)):
+        assert torch.equal(a, b)
 
 
 def test_sampled_matmul_grad_matches_plain(cuda):
@@ -355,8 +363,9 @@ def test_sampled_matmul_grad_matches_plain(cuda):
         assert _max_err(a, b) <= 1e-4 * _scale(b)
 
 
-@pytest.mark.parametrize("s", [1, 3])
-@pytest.mark.parametrize("m,n,k", [(37, 50, 70), (130, 33, 129)])
+@pytest.mark.parametrize("s", [1, 2, 3, 4, 10])
+@pytest.mark.parametrize("m,n,k", [(37, 50, 70), (130, 33, 129),
+                                   (7, 127, 127), (257, 129, 128)])
 @pytest.mark.parametrize("shared", [False, True])
 def test_lane_kernels_match_plain(cuda, s, m, n, k, shared):
     """K-B, K-D and K-E with lanes against their plain versions; lane 0
@@ -395,16 +404,19 @@ def test_lane_kernels_match_plain(cuda, s, m, n, k, shared):
 
 
 def test_lane_kernels_unaligned_view(cuda):
-    """Contiguous views at an odd offset: the kernels load element-wise."""
+    """Contiguous views at an odd offset: the kernels load element-wise
+    (K-E also with one lane, its kernel without lane sums)."""
     mu, sigma, rho = _posterior((33, 65), cuda, seed=11)
     x = torch.randn(3 * 17 * 65 + 1, device=cuda)[1:].view(3, 17, 65)
     g = torch.randn(3 * 17 * 33 + 1, device=cuda)[1:].view(3, 17, 33)
     got = (kb.sampled_matmul_batched(7, x, mu, rho),
            kb.sampled_matmul_dx_batched(7, g, mu, sigma),
-           *kb.sampled_matmul_dw_batched(7, g, x))
+           *kb.sampled_matmul_dw_batched(7, g, x),
+           *kb.sampled_matmul_dw(7, g[0], x[0]))
     wants = (kb.sampled_matmul_batched_plain(7, x, mu, sigma, 3),
              kb.sampled_matmul_dx_batched_plain(7, g, mu, sigma),
-             *kb.sampled_matmul_dw_batched_plain(7, g, x))
+             *kb.sampled_matmul_dw_batched_plain(7, g, x),
+             *kb.sampled_matmul_dw_plain(7, g[0], x[0]))
     torch.cuda.synchronize()
     for a, b in zip(got, wants):
         assert _max_err(a, b) <= 1e-4 * _scale(b)
@@ -435,12 +447,14 @@ def test_sampled_matmul_batched_grad_matches_plain(cuda, shared):
         assert _max_err(a, b) <= 1e-4 * _scale(b)
 
 
-# --- K-B and K-D: split-TF32 products, reduction split over a cluster -----
+# --- K-B, K-D and K-E: split-TF32 products --------------------------------
 
 # the head at S = 1, 4, 10; then the split's edges: K (forward) and N (dx)
 # below one slice, one stage, and just under and over the eight slices of
 # 2048; N (forward) and K (dx) at one column, 1000 (ragged on the 48-wide
 # tile) and 1001; M at one row, one past the 128-row tile, and three tiles
+# (for K-E: N and K ragged on its 128 x 128 tile, M past its 32-row
+# chunks)
 _SPLIT_HEAD = [(s, 128, 1000, 2048) for s in (1, 4, 10)]
 _SPLIT_EDGES = [(2, m, n, k) for k in (3, 8, 2047, 2049)
                 for n in (1, 1000, 1001) for m in (1, 129, 300)]
@@ -448,11 +462,11 @@ _SPLIT_EDGES = [(2, m, n, k) for k in (3, 8, 2047, 2049)
 
 @pytest.mark.parametrize("s,m,n,k", _SPLIT_HEAD + _SPLIT_EDGES)
 def test_split_tf32_kernels_match_plain(cuda, s, m, n, k):
-    """K-B and K-D (both with the reduction split over a cluster) against
-    their plain versions within 1e-4 x max|plain| (three TF32 products in
-    another order than cuBLAS's f32 sums), x per lane and shared; one
-    launch each; lane 0 is the single draw and a second call gives the same
-    bits."""
+    """K-B and K-D (both with the reduction split over a cluster) and K-E
+    (lane sums) against their plain versions within 1e-4 x max|plain|
+    (three TF32 products in another order than cuBLAS's f32 sums), x per
+    lane and shared; one launch each; lane 0 (K-E: one lane) is the single
+    draw and a second call gives the same bits."""
     mu, sigma, rho = _posterior((n, k), cuda, seed=21)
     gen = torch.Generator().manual_seed(22)
     x = torch.randn((s, m, k), generator=gen).to(cuda)
@@ -481,6 +495,47 @@ def test_split_tf32_kernels_match_plain(cuda, s, m, n, k):
     assert torch.equal(out, kb.sampled_matmul_batched(
         seed, x, mu, rho, s, out_dtype=torch.float32))
     assert torch.equal(dx, kb.sampled_matmul_dx_batched(seed, g, mu, sigma))
+    for xl in (x, x[0]):
+        before = kb.sampled_matmul_dw_batched.launches
+        dw = kb.sampled_matmul_dw_batched(seed, g, xl)
+        assert kb.sampled_matmul_dw_batched.launches == before + 1
+        for got, want in zip(dw, kb.sampled_matmul_dw_batched_plain(seed, g,
+                                                                    xl)):
+            torch.cuda.synchronize()
+            assert got.shape == want.shape
+            assert _max_err(got, want) <= 1e-4 * _scale(want)
+        for a, b in zip(dw, kb.sampled_matmul_dw_batched(seed, g, xl)):
+            assert torch.equal(a, b)
+    for a, b in zip(kb.sampled_matmul_dw_batched(seed, g[:1], x[0]),
+                    kb.sampled_matmul_dw(seed, g[0], x[0])):
+        assert torch.equal(a, b)
+
+
+# the draw loop's head input is bf16: K-E reads it as it is
+@pytest.mark.parametrize("s,m,n,k", [(1, 128, 1000, 2048), (4, 128, 1000, 2048),
+                                     (1, 7, 63, 127), (3, 257, 65, 129)])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_dw_reads_bf16_x_as_its_f32_copy(cuda, s, m, n, k, shared, offset):
+    """K-E on a bf16 x gives the bits it gives on x's f32 copy (the TF32
+    split of a bf16 value is exact, so the product with its lo part adds
+    zeros), within 1e-4 x max|plain| of the plain version; contiguous
+    views at an odd offset load as well."""
+    gen = torch.Generator().manual_seed(23)
+    rows = 1 if shared else s
+    flat = torch.randn(rows * m * k + offset, generator=gen).to(cuda)
+    x = flat.bfloat16()[offset:].view((m, k) if shared else (s, m, k))
+    g = torch.randn((s, m, n), generator=gen).to(cuda)
+    seed = 0x5EED_0000_0000_0009 + k
+    before = kb.sampled_matmul_dw_batched.launches
+    got = kb.sampled_matmul_dw_batched(seed, g, x)
+    assert kb.sampled_matmul_dw_batched.launches == before + 1
+    copy = kb.sampled_matmul_dw_batched(seed, g, x.float())
+    for a, b in zip(got, copy):
+        assert torch.equal(a, b)
+    for a, b in zip(got, kb.sampled_matmul_dw_batched_plain(seed, g, x)):
+        torch.cuda.synchronize()
+        assert _max_err(a, b) <= 1e-4 * _scale(b)
 
 
 def _device_kernel_names(fn):
