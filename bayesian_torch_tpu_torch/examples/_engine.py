@@ -12,6 +12,7 @@ go to the model's device; ``optax.sgd(lr, m)`` becomes
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import time
@@ -52,7 +53,9 @@ class AverageMeter:
 
 
 def _device(model):
-    return next(model.parameters()).device
+    """The device of the model's first parameter or buffer (a converted
+    INT8 model keeps its weights in buffers)."""
+    return next(itertools.chain(model.parameters(), model.buffers())).device
 
 
 def make_train_step(num_mc: int, batch_size: int, mesh=None,

@@ -14,12 +14,16 @@ training the model is evaluated on a fifth of the data, saved to
 ``<save_dir>/imagenet_bayesian_<arch>.pt``, and the metrics written to
 ``<save_dir>/imagenet_bayesian_metrics.json``. ``--mode=test`` loads the
 saved model and evaluates it. ``--device`` (default ``cuda``) names where
-the model runs. Evaluation drops the last partial batch, as the JAX
-trainer's does, so ``--batch-size`` must not exceed the test split (51 of
-the 256 synthetic images).
+the model runs. ``--moped`` initialises the model from a deterministic
+ResNet of the same depth (``utils.MOPED`` with ``--delta``): one built
+from seed ``--seed + 7``, or loaded from ``--moped-ckpt`` (a
+``main_deterministic_imagenet`` checkpoint); it comes before a
+``--resume`` load, since checkpoints keep no prior. Evaluation drops the
+last partial batch, as the JAX trainer's does, so ``--batch-size`` must
+not exceed the test split (51 of the 256 synthetic images).
 
-Not ported yet, and refused: ``--moped``, ``--mesh-mc`` > 1,
-``--structured-mc`` and ``--remat`` (see ``_UNPORTED``).
+Not ported yet, and refused: ``--mesh-mc`` > 1, ``--structured-mc`` and
+``--remat`` (see ``_UNPORTED``).
 """
 
 from __future__ import annotations
@@ -40,9 +44,9 @@ from bayesian_torch_tpu_torch.utils.checkpoint import (
     save_checkpoint,
     save_training_checkpoint,
 )
+from bayesian_torch_tpu_torch.utils.util import MOPED
 
 _UNPORTED = {
-    "moped": "MOPED initialisation comes with ROADMAP Queue 1 #6",
     "mesh_mc": "MC draws sharded over devices come with ROADMAP Queue 1 "
                "#15 (multi-device)",
     "structured_mc": "the structured MC path (mc_forward(structured=True)) "
@@ -73,8 +77,8 @@ def build_parser(desc="Bayesian ImageNet"):
     p.add_argument("--resume", action="store_true",
                    help="resume from <save_dir>/last.pt (epoch, optimizer, "
                         "generator states)")
-    p.add_argument("--moped", action="store_true", help="not ported "
-                   "(refused)")
+    p.add_argument("--moped", action="store_true",
+                   help="initialise from a deterministic ResNet (MOPED)")
     p.add_argument("--moped-ckpt", type=str, default=None)
     p.add_argument("--delta", type=float, default=0.5)
     p.add_argument("--mesh-mc", type=int, default=1,
@@ -120,6 +124,15 @@ def run(args, estimator="Reparameterization"):
     model = get_model(args.arch, args.seed, args.num_classes, device,
                       estimator)
     tag = "flipout" if estimator == "Flipout" else "bayesian"
+    if args.moped:
+        from bayesian_torch_tpu_torch.models.deterministic import (
+            resnet_large as det_zoo)
+        det = getattr(det_zoo, args.arch)(
+            num_classes=args.num_classes,
+            generator=torch.Generator().manual_seed(args.seed + 7),
+            device=device)
+        MOPED(model, det, args.moped_ckpt, args.delta)
+        print(f"applied MOPED init (delta={args.delta})")
     ckpt_path = os.path.join(args.save_dir, f"imagenet_{tag}_{args.arch}.pt")
     num_mc, batch_size = args.num_mc, args.batch_size
 

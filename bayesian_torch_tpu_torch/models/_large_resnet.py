@@ -1,20 +1,30 @@
-"""ImageNet ResNet-18..152, Bayesian (reparameterization and Flipout)
+"""ImageNet ResNet-18..152: deterministic, reparameterization and Flipout
 variants (counterpart of ``bayesian_torch_tpu/models/_large_resnet.py``).
 
 torchvision-style ResNet: 7x7 s2 stem - BN - ReLU - maxpool 3x3 s2 -
-4 stages - avgpool - fc. Downsample paths are
-``Sequential(Conv-Bayes, BatchNorm2dLayer)`` threading (x, kl) tuples.
-Activations are NCHW at the public surface. Every BatchNorm is the port's
-MC-aware ``BatchNorm2d`` (``layers/batchnorm.py``), as the JAX model uses
-its own, so ``mc_forward`` can train with one EMA update per step. ReLU,
-the residual add and the pools take the uint8 ``QTensor`` activations of a
-converted model (``nn/functional.py``, ``ops/qtensor.py``). The
-deterministic variant and the ``remat_blocks`` option come in later
-slices.
+4 stages - avgpool - fc. Activations are NCHW at the public surface.
+
+- ``estimator=None``: ``torch.nn.Conv2d(bias=False)`` and
+  ``torch.nn.Linear`` layers, He-initialised from the model's CPU
+  generator (conv N(0, sqrt(2 / (k*k*out))), linear U(+-1/sqrt(in)));
+  the forward returns bare logits. Its ``state_dict`` has torchvision's
+  keys. It is also the forward of a model converted by ``dnn_to_bnn``,
+  whose Bayesian twins return bare outputs (``dnn_to_bnn_flag``).
+- ``"Reparameterization"`` / ``"Flipout"``: Bayesian layers; downsample
+  paths are ``Sequential(Conv-Bayes, BatchNorm2dLayer)`` threading
+  (x, kl) tuples, and the forward returns ``(logits, kl)``.
+
+Every BatchNorm is the port's MC-aware ``BatchNorm2d``
+(``layers/batchnorm.py``), as the JAX model uses its own, so
+``mc_forward`` can train with one EMA update per step. ReLU, the residual
+add and the pools take the uint8 ``QTensor`` activations of a converted
+INT8 model (``nn/functional.py``, ``ops/qtensor.py``), in both forwards.
+The ``remat_blocks`` option comes in a later slice.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -35,14 +45,46 @@ posterior_mu_init = 0.0
 posterior_rho_init = -3.0
 
 
+def _deterministic_factories(generator, device):
+    """He-initialised ``torch.nn`` conv and linear layers, every weight
+    drawn from ``generator`` (a fresh ``default_generator()`` if None) on
+    the CPU and moved to ``device`` (the JAX model's ``_he_init``; its
+    linear keeps torch's default U(+-1/sqrt(in)))."""
+    if generator is None:
+        generator = default_generator()
+    # skip_init: no default init drawn from torch's global generator
+    device = device if device is not None else "cpu"
+
+    def draw(module, init):
+        with torch.no_grad():
+            for p in module.parameters():
+                p.copy_(init(p.shape))
+        return module
+
+    def conv(cin, cout, k, **kw):
+        std = math.sqrt(2.0 / (k * k * cout))
+        return draw(nn.utils.skip_init(nn.Conv2d, cin, cout, k, bias=False,
+                                       device=device, **kw),
+                    lambda shape: std * torch.randn(shape,
+                                                    generator=generator))
+
+    def linear(cin, cout):
+        bound = 1.0 / math.sqrt(cin)
+        return draw(nn.utils.skip_init(nn.Linear, cin, cout, device=device),
+                    lambda shape: bound * (2 * torch.rand(
+                        shape, generator=generator) - 1))
+    return conv, linear
+
+
 def _layer_factories(estimator, generator, device):
     from bayesian_torch_tpu_torch import layers
 
+    if estimator is None:
+        return _deterministic_factories(generator, device)
     if estimator not in ("Reparameterization", "Flipout"):
         raise NotImplementedError(
-            f"estimator={estimator!r}: 'Reparameterization' and 'Flipout' "
-            "are ported (the deterministic ResNet is a ROADMAP Queue 1 "
-            "item)")
+            f"estimator={estimator!r}: None, 'Reparameterization' and "
+            "'Flipout' are ported")
     conv_cls = getattr(layers, f"Conv2d{estimator}")
     linear_cls = getattr(layers, f"Linear{estimator}")
     bkw = dict(prior_mean=prior_mu, prior_variance=prior_sigma,
@@ -76,6 +118,7 @@ class BasicBlock(_Block):
                  estimator, generator, device=None):
         super().__init__()
         conv, _ = _layer_factories(estimator, generator, device)
+        self.estimator = estimator
         self.conv1 = conv(inplanes, planes, 3, stride=stride, padding=1)
         self.bn1 = BatchNorm2d(planes, device=device)
         self.conv2 = conv(planes, planes, 3, stride=1, padding=1)
@@ -83,6 +126,11 @@ class BasicBlock(_Block):
         self.downsample = downsample
 
     def forward(self, x):
+        if self.estimator is None:
+            out = F.relu(self.bn1(self.conv1(x)))
+            out = self.bn2(self.conv2(out))
+            residual, _ = self._res(x)
+            return F.relu(out + residual)
         kl_sum = 0.0
         out, kl = self.conv1(x)
         kl_sum += kl
@@ -102,6 +150,7 @@ class Bottleneck(_Block):
                  estimator, generator, device=None):
         super().__init__()
         conv, _ = _layer_factories(estimator, generator, device)
+        self.estimator = estimator
         self.conv1 = conv(inplanes, planes, 1)
         self.bn1 = BatchNorm2d(planes, device=device)
         self.conv2 = conv(planes, planes, 3, stride=stride, padding=1)
@@ -111,6 +160,12 @@ class Bottleneck(_Block):
         self.downsample = downsample
 
     def forward(self, x):
+        if self.estimator is None:
+            out = F.relu(self.bn1(self.conv1(x)))
+            out = F.relu(self.bn2(self.conv2(out)))
+            out = self.bn3(self.conv3(out))
+            residual, _ = self._res(x)
+            return F.relu(out + residual)
         kl_sum = 0.0
         out, kl = self.conv1(x)
         kl_sum += kl
@@ -157,11 +212,11 @@ class LargeResNet(nn.Module):
                   device=device)
         downsample = None
         if stride != 1 or self.inplanes != planes * block_cls.expansion:
+            bn = BatchNorm2d if self.estimator is None else BatchNorm2dLayer
             downsample = Sequential(
                 conv(self.inplanes, planes * block_cls.expansion, 1,
                      stride=stride),
-                BatchNorm2dLayer(planes * block_cls.expansion,
-                                 device=device),
+                bn(planes * block_cls.expansion, device=device),
             )
         mods = [block_cls(self.inplanes, planes, stride, downsample, **kw)]
         self.inplanes = planes * block_cls.expansion
@@ -170,6 +225,14 @@ class LargeResNet(nn.Module):
         return nn.Sequential(*mods)
 
     def forward(self, x):
+        if self.estimator is None:
+            out = self.maxpool(F.relu(self.bn1(self.conv1(x))))
+            for layer in (self.layer1, self.layer2, self.layer3,
+                          self.layer4):
+                for block in layer:
+                    out = block(out)
+            out = self.avgpool(out)
+            return self.fc(out.reshape(out.shape[0], -1))
         kl_sum = 0.0
         out, kl = self.conv1(x)
         kl_sum += kl

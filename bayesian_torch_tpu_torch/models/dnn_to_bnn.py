@@ -1,15 +1,138 @@
-"""KL collection over a model's Bayesian layers (counterpart of
-``iter_bayesian_layers`` and ``get_kl_loss`` in
-``bayesian_torch_tpu/models/dnn_to_bnn.py``; the ``dnn_to_bnn`` surgery
-comes in a later slice)."""
+"""DNN -> BNN model surgery and KL collection (counterpart of
+``bayesian_torch_tpu/models/dnn_to_bnn.py``).
+
+``dnn_to_bnn`` walks a ``torch.nn`` module tree and replaces, in place,
+every deterministic conv and linear layer with its Bayesian twin, driven
+by the reference's ``bnn_prior_parameters`` dict:
+
+    {
+      "prior_mu": 0.0,
+      "prior_sigma": 1.0,
+      "posterior_mu_init": 0.0,
+      "posterior_rho_init": -3.0,
+      "type": "Reparameterization",  # or "Flipout"
+      "moped_enable": False,
+      "moped_delta": 0.5,
+    }
+
+As in the JAX package: recurse into a module with children first, skip a
+module that is already Bayesian, then match by class name ("LSTM",
+"Conv", "Linear"). Each twin returns bare outputs (``dnn_to_bnn_flag``),
+so the model's own forward runs unchanged, and ``get_kl_loss`` collects
+the KL. With ``moped_enable`` the posterior starts at mu = w, rho =
+``get_rho(w, moped_delta)``; the priors stay scalar (``utils.MOPED`` sets
+array priors).
+
+Not ported, and refused by name: ``ConvTranspose*`` twins (ROADMAP Queue 1
+#11) and LSTMs (Queue 1 #12). The Bayesian convs pad with zeros only, so
+a conv with another ``padding_mode`` is refused.
+"""
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
+import bayesian_torch_tpu_torch.layers as bayesian_layers
 from bayesian_torch_tpu_torch.layers.base_variational_layer import (
     BaseVariationalLayer,
 )
+from bayesian_torch_tpu_torch.utils.util import get_rho
+
+
+def _moped_init(bnn_layer, weight, bias, delta, kernel_attr):
+    """MOPED empirical-Bayes init of the posterior: mu <- w, rho <-
+    get_rho(w, delta)."""
+    weight = weight.detach()
+    bias = None if bias is None else bias.detach()
+    getattr(bnn_layer, "mu_" + kernel_attr).copy_(weight)
+    getattr(bnn_layer, "rho_" + kernel_attr).copy_(get_rho(weight, delta))
+    if bnn_layer.mu_bias is not None and bias is not None:
+        bnn_layer.mu_bias.copy_(bias)
+        bnn_layer.rho_bias.copy_(get_rho(bias, delta))
+
+
+def _twin_class(cls_name, params):
+    name = cls_name + params["type"]
+    twin = getattr(bayesian_layers, name, None)
+    if twin is None:
+        raise NotImplementedError(
+            f"dnn_to_bnn: {cls_name} has no Bayesian twin {name} in the "
+            "port")
+    return twin
+
+
+def _finish(bnn_layer, params, weight, bias, kernel_attr):
+    if params.get("moped_enable", False):
+        with torch.no_grad():
+            _moped_init(bnn_layer, weight, bias, params["moped_delta"],
+                        kernel_attr)
+    bnn_layer.dnn_to_bnn_flag = True
+    return bnn_layer
+
+
+def _prior_kwargs(params):
+    return dict(prior_mean=params["prior_mu"],
+                prior_variance=params["prior_sigma"],
+                posterior_mu_init=params["posterior_mu_init"],
+                posterior_rho_init=params["posterior_rho_init"])
+
+
+def bnn_linear_layer(params, d):
+    """The Bayesian twin of a deterministic linear layer ``d``, on its
+    device."""
+    has_bias = d.bias is not None
+    bnn_layer = _twin_class(type(d).__name__, params)(
+        in_features=d.in_features, out_features=d.out_features,
+        bias=has_bias, device=d.weight.device, **_prior_kwargs(params))
+    return _finish(bnn_layer, params, d.weight, d.bias, "weight")
+
+
+def bnn_conv_layer(params, d):
+    """The Bayesian twin of a deterministic ``torch.nn.Conv{1,2,3}d``
+    ``d``, with its geometry (string padding passed on as it is), on its
+    device."""
+    cls_name = type(d).__name__
+    if "ConvTranspose" in cls_name:
+        raise NotImplementedError(
+            f"dnn_to_bnn: {cls_name}: the Bayesian ConvTranspose layers are "
+            "not ported yet (ROADMAP Queue 1 #11)")
+    if getattr(d, "padding_mode", "zeros") != "zeros":
+        raise ValueError(
+            f"dnn_to_bnn: {cls_name} with padding_mode={d.padding_mode!r}: "
+            "the Bayesian convs pad with zeros only")
+    bnn_layer = _twin_class(cls_name, params)(
+        in_channels=d.in_channels, out_channels=d.out_channels,
+        kernel_size=d.kernel_size, stride=d.stride, padding=d.padding,
+        dilation=d.dilation, groups=d.groups, bias=d.bias is not None,
+        device=d.weight.device, **_prior_kwargs(params))
+    return _finish(bnn_layer, params, d.weight, d.bias, "kernel")
+
+
+def bnn_lstm_layer(params, d):
+    """LSTM twins come with the RNN slice."""
+    raise NotImplementedError(
+        f"dnn_to_bnn: {type(d).__name__}: the Bayesian LSTM is not ported "
+        "yet (ROADMAP Queue 1 #12)")
+
+
+def dnn_to_bnn(m: nn.Module, bnn_prior_parameters: dict) -> None:
+    """In-place surgery: recurse the module tree and swap any submodule
+    whose class name contains Conv or Linear for its Bayesian twin (LSTM:
+    refused). Returns None."""
+    for name, value in list(m.named_children()):
+        if isinstance(value, BaseVariationalLayer):
+            continue  # already Bayesian
+        cls_name = type(value).__name__
+        if "LSTM" in cls_name:
+            setattr(m, name, bnn_lstm_layer(bnn_prior_parameters, value))
+        elif next(value.children(), None) is not None:
+            dnn_to_bnn(value, bnn_prior_parameters)
+        elif "Conv" in cls_name:
+            setattr(m, name, bnn_conv_layer(bnn_prior_parameters, value))
+        elif "Linear" in cls_name:
+            setattr(m, name, bnn_linear_layer(bnn_prior_parameters, value))
+    return None
 
 
 def iter_bayesian_layers(m: nn.Module):

@@ -1,5 +1,5 @@
-"""Checkpoints, weight transfer from the JAX package, and the uncertainty
-metrics."""
+"""Checkpoints, weight transfer from the JAX package, the uncertainty
+metrics, MOPED and ``freeze_batchnorm``."""
 
 from bayesian_torch_tpu_torch.utils.checkpoint import (  # noqa: F401
     load_checkpoint,
@@ -10,7 +10,10 @@ from bayesian_torch_tpu_torch.utils.checkpoint import (  # noqa: F401
     save_training_checkpoint,
 )
 from bayesian_torch_tpu_torch.utils.util import (  # noqa: F401
+    MOPED,
     entropy,
+    freeze_batchnorm,
+    get_rho,
     mutual_information,
     predictive_entropy,
 )

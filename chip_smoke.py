@@ -25,7 +25,14 @@ weights and images, 224x224, 1000 classes, bf16 compute:
 - Flipout ResNet-50 (``resnet_flipout_large.resnet50``): MC-10 bs128
   inference and MC-4 bs128 ELBO steps, through the draw loop and through
   the vmap emission, and one vmap batch with the pointwise emission (the
-  mean convs through K-G at S = 1, the perturbation convs through K-G).
+  mean convs through K-G at S = 1, the perturbation convs through K-G);
+- model surgery: the deterministic ResNet-50
+  (``models/deterministic/resnet_large.py``), ``utils.MOPED`` into the
+  Bayesian ResNet-50 and ``models.dnn_to_bnn`` of the deterministic one
+  (MC-10 bs128 through K-A), the converted model's MC-4 bs128 ELBO steps
+  (K-A and K-C through the vmap emission), the four surgery trainers
+  (deterministic, ``--moped``, ``dnn2bnn``, ``bnn2qbnn`` through K-F) and
+  ``graft_entry.entry()``.
 
 Phases, each printing its own line(s):
 
@@ -136,7 +143,33 @@ Phases, each printing its own line(s):
     through the loop (``emission="scan"``) and the vmap emission (finite,
     non-zero gradients on
     every mu and rho, launches gated); with ``--profile`` one Flipout
-    inference batch and one step under the profiler.
+    inference batch and one step under the profiler;
+27. the deterministic ResNet-50 (seeded He init, BN statistics from one
+    batch): f32 logits (TF32 off) against a CPU copy on 4 images, within
+    2^-10 x max|logit|; bf16 forwards (conv and linear weights bf16, BN in
+    f32) timed at bs128 and bs1280 (host clock to synchronize, median of
+    5 after a warm-up, as phase 5 times its batches), and the
+    10x-deterministic denominator min(t(bs1280), 10 x t(bs128)) beside the
+    MC-10 loop batch of phase 5 and their ratio, with the card's name and
+    power limit;
+28. ``MOPED(resnet50, det, None, delta=1e-4)`` in f32: the MC-10 loop
+    mean (presample on) within 2^-6 x max|logit| of the deterministic
+    logits, one K-A launch, a finite ``get_kl_loss``; then ``dnn_to_bnn``
+    of the deterministic model (MOPED, delta 1e-4) through the same gates,
+    its ``state_dict`` keys those of ``resnet_variational_large.resnet50``;
+29. a model converted at delta 0.5 (bf16 compute): three MC-4 bs128 ELBO
+    steps through ``make_train_step`` (emission "auto", which takes vmap),
+    finite losses, K-A and K-C (dsigma) launches as
+    ``expected_vmap_launches`` reckons them;
+30. the surgery trainers at batch 32, one epoch each:
+    ``main_deterministic_imagenet`` (train, then test),
+    ``main_bayesian_imagenet --moped`` from its checkpoint (K-A and K-C
+    drho launched), ``main_bayesian_imagenet_dnn2bnn`` (train, then test)
+    and ``main_bayesian_imagenet_bnn2qbnn --fuse-conv-bn
+    --quantize-activations`` on its checkpoint (K-F launched, INT8
+    accuracy in [0, 1]) (run after phase 11);
+31. ``graft_entry.entry()``: its MC-2 forward at 64x64 on the card, the
+    output's shape and finiteness.
 
 The line before the last is a JSON object with every kernel's launches,
 counted from zero in the run named by its ``run`` key, its error against
@@ -206,6 +239,22 @@ def median_ms(fn, reps=REPS):
     return statistics.median(cuda_ms(fn) for _ in range(reps))
 
 
+def wall_ms(fn, reps=REPS):
+    """Median host-clock time of ``fn`` to ``torch.cuda.synchronize()``
+    after one warm-up call, as ``timed_mc`` times a batch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def bound(nbytes, ops, peak_ops):
     """(bound_ms, bound_by): the least time for moving ``nbytes`` (each
     input read once, each output written once) and doing ``ops`` at the
@@ -241,14 +290,18 @@ def bf16_ulp(x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
-def phase_device():
-    import torch
-
-    smi = subprocess.run(
+def card():
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    log(smi)
+
+
+def phase_device():
+    import torch
+
+    log(card())
     name = torch.cuda.get_device_name(0)
     log(f"[device] torch: {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
@@ -2295,6 +2348,253 @@ def phase_flipout(profile):
     return dot, loop, vmap
 
 
+# --- model surgery: the deterministic ResNet-50, MOPED, dnn_to_bnn -----------
+
+SURGERY_DELTA = 1e-4  # sigma = 1e-4 |w|: every draw close to the mean
+PRIORS = {"prior_mu": 0.0, "prior_sigma": 1.0, "posterior_mu_init": 0.0,
+          "posterior_rho_init": -3.0, "type": "Reparameterization",
+          "moped_enable": True, "moped_delta": SURGERY_DELTA}
+
+
+def phase_det(main_ms):
+    """The deterministic ResNet-50: BN statistics from one batch; f32
+    logits (TF32 off) against a CPU copy of the same weights on 4 images;
+    bf16 forwards (conv and linear weights in bf16, BN parameters and
+    statistics in f32) timed at bs128 and bs1280 as the main phase times
+    its batches (``wall_ms``), and the
+    10x-deterministic denominator ``min(t(bs1280), 10 x t(bs128))`` beside
+    the main phase's MC-10 loop batch. Returns (model, x, f32 logits)."""
+    import copy
+
+    import torch
+    from torch import nn
+
+    from bayesian_torch_tpu_torch.models.deterministic.resnet_large import (
+        resnet50,
+    )
+
+    det = resnet50(generator=torch.Generator().manual_seed(SEED + 3),
+                   device="cuda")
+    set_bn_statistics(det, images(SEED + 300))
+    x = images(SEED + 1)
+    with torch.no_grad(), tf32_off():
+        logits = det(x)
+    t0 = time.perf_counter()
+    cpu = copy.deepcopy(det).cpu()
+    with torch.no_grad():
+        want = cpu(x[:4].cpu())
+    del cpu
+    diff, scale = max_err(logits[:4].cpu(), want), want.abs().max().item()
+    log(f"[det] ResNet-50 f32 (TF32 off), card vs CPU copy on 4 images "
+        f"({time.perf_counter() - t0:.1f} s): max|diff| {diff:.3e}, limit "
+        f"2^-10 x max|logit| = {2**-10 * scale:.3e}")
+    check(tuple(logits.shape) == (BATCH, 1000)
+          and bool(torch.isfinite(logits).all()), "det logits")
+    check(diff <= 2**-10 * scale, "card and CPU deterministic logits differ")
+
+    bf16 = copy.deepcopy(det)
+    for mod in bf16.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            mod.to(torch.bfloat16)
+    big = torch.randn(BATCH * NUM_MC, 3, IMAGE, IMAGE,
+                      generator=torch.Generator(device="cuda").manual_seed(
+                          SEED + 301), device="cuda", dtype=torch.bfloat16)
+    small = x.bfloat16()
+    with torch.no_grad():
+        t_small = wall_ms(lambda: bf16(small))
+        t_big = wall_ms(lambda: bf16(big))
+    del bf16, big
+    torch.cuda.empty_cache()
+    denom = min(t_big, NUM_MC * t_small)
+    log(f"[det] {card()}: deterministic ResNet-50 bf16 {IMAGE}^2: "
+        f"bs{BATCH} {t_small:.2f} ms, bs{BATCH * NUM_MC} {t_big:.2f} ms; "
+        f"10x-deterministic denominator min(t(bs{BATCH * NUM_MC}), "
+        f"{NUM_MC} x t(bs{BATCH})) = {denom:.2f} ms; the main phase's "
+        f"MC-{NUM_MC} bs{BATCH} loop batch {main_ms:.2f} ms; ratio "
+        f"{main_ms / denom:.3f}")
+    return det, x, logits
+
+
+def surgery_gates(what, model, x, det_logits):
+    """A model initialised from the deterministic one at delta = 1e-4:
+    its MC-10 loop mean (eval, presample on: one K-A launch) within 2^-6 x
+    max|logit| of the deterministic f32 logits (TF32 off), and a finite
+    ``get_kl_loss``."""
+    import torch
+
+    from bayesian_torch_tpu_torch.models.dnn_to_bnn import get_kl_loss
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    model.eval()
+    reset_counts()
+    with tf32_off():
+        mean = mc_forward(model, x, NUM_MC, reduce="mean", return_kl=False)
+    got = counts()
+    diff, scale = max_err(mean, det_logits), det_logits.abs().max().item()
+    kl = get_kl_loss(model).item()
+    log(f"[{what}] MC-{NUM_MC} bs{BATCH} loop mean vs the deterministic "
+        f"logits: max|diff| {diff:.3e}, limit 2^-6 x max|logit| = "
+        f"{2**-6 * scale:.3e}; KL {kl:.1f}; launches "
+        f"{ {k: v for k, v in got.items() if v} }")
+    check(bool(torch.isfinite(mean).all()), f"{what}: non-finite mean")
+    check(diff <= 2**-6 * scale, f"{what}: MC mean differs from the "
+          "deterministic logits")
+    check(got == dict(dict.fromkeys(got, 0), **{"K-A": 1}),
+          f"{what}: launches {got}, want one K-A launch")
+    check(math.isfinite(kl), f"{what}: KL {kl}")
+
+
+def phase_surgery(det, x, det_logits):
+    """MOPED into the Bayesian ResNet-50 and ``dnn_to_bnn`` of the
+    deterministic one (moped_delta = 1e-4), each through
+    ``surgery_gates``; then three MC-4 bs128 bf16 ELBO steps of a model
+    converted at the default delta 0.5, through ``make_train_step``
+    (emission "auto": vmap), launches as ``expected_vmap_launches`` reckons
+    them. Returns the launches of the three steps."""
+    import copy
+
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+    from bayesian_torch_tpu_torch.models import dnn_to_bnn
+    from bayesian_torch_tpu_torch.models.bayesian.resnet_variational_large \
+        import resnet50
+    from bayesian_torch_tpu_torch.parallel.mc import _resolve_emission
+    from bayesian_torch_tpu_torch.utils import MOPED
+
+    bayes = resnet50(generator=torch.Generator().manual_seed(SEED + 4),
+                     device="cuda")
+    t0 = time.perf_counter()
+    MOPED(bayes, det, None, SURGERY_DELTA)
+    log(f"[moped] MOPED(resnet50, det, None, delta={SURGERY_DELTA}): "
+        f"{time.perf_counter() - t0:.2f} s")
+    surgery_gates("moped", bayes, x, det_logits)
+    keys = set(bayes.state_dict())
+    del bayes
+
+    converted = copy.deepcopy(det)
+    dnn_to_bnn(converted, PRIORS)
+    check(set(converted.state_dict()) == keys, "dnn_to_bnn: state_dict "
+          "keys differ from resnet_variational_large.resnet50's")
+    surgery_gates("dnn_to_bnn", converted, x, det_logits)
+    del converted
+    torch.cuda.empty_cache()
+
+    model = copy.deepcopy(det)
+    dnn_to_bnn(model, dict(PRIORS, moped_delta=0.5))
+    for mod in model.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.bfloat16
+    model.train()
+    emission = _resolve_emission(model, TRAIN_MC, True)
+    check(emission == "vmap", f"emission 'auto' takes {emission!r}")
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    step = make_train_step(TRAIN_MC, BATCH)
+    want = expected_vmap_launches(model, training=True)
+    reset_counts()
+    for i in range(3):
+        before = counts()
+        t0 = time.perf_counter()
+        loss, nll, _ = step(model, opt, images(SEED + 430 + i),
+                            labels(SEED + 430 + i))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: v - before[k] for k, v in counts().items()}
+        log(f"[dnn_to_bnn train] step {i}: {ms:.1f} ms, loss "
+            f"{float(loss):.4f} (the converted layers return bare outputs: "
+            f"the step's KL term is 0, as in JAX), launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        check(math.isfinite(float(loss)), f"dnn_to_bnn step {i}: loss")
+        check(got == want, f"dnn_to_bnn step {i}: launches {got}, the "
+              f"model implies {want}")
+    launches = counts()
+    del model, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_surgery_trainers():
+    """The four model-surgery trainers at full ResNet-50 width, batch 32,
+    one epoch each: the deterministic trainer (train, then test), the
+    Bayesian trainer with ``--moped`` from its checkpoint, the
+    ``dnn_to_bnn`` trainer (train, then test) and the INT8 pipeline on
+    its checkpoint with conv+BN folding and uint8 activations."""
+    import io
+    import os
+    import tempfile
+
+    from bayesian_torch_tpu_torch.examples import (
+        main_bayesian_imagenet,
+        main_bayesian_imagenet_bnn2qbnn,
+        main_bayesian_imagenet_dnn2bnn,
+        main_deterministic_imagenet,
+    )
+
+    def run(mod, *args):
+        out = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = mod.main(["--synthetic", f"--batch-size={TRAINER_BATCH}",
+                               *args])
+        got = counts()
+        lines = out.getvalue().strip().splitlines()
+        log(f"[{mod.__name__.rsplit('.', 1)[-1]}] {' '.join(args[:2])}: "
+            f"{time.perf_counter() - t0:.1f} s, launches "
+            f"{ {k: v for k, v in got.items() if v} }; last lines: "
+            f"{' | '.join(lines[-2:])}")
+        return result, got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        det_dir, d2b = os.path.join(tmp, "det"), os.path.join(tmp, "d2b")
+        acc, _ = run(main_deterministic_imagenet, "--mode=train",
+                     "--epochs=1", f"--save_dir={det_dir}")
+        check(0.0 <= acc <= 1.0, f"deterministic accuracy {acc}")
+        tested, _ = run(main_deterministic_imagenet, "--mode=test",
+                        f"--save_dir={det_dir}")
+        check(0.0 <= tested <= 1.0, f"deterministic test accuracy {tested}")
+        metrics, got = run(
+            main_bayesian_imagenet, "--mode=train", "--moped",
+            f"--moped-ckpt={det_dir}/imagenet_det_resnet50.pt",
+            "--epochs=1", "--num_monte_carlo=2",
+            f"--save_dir={os.path.join(tmp, 'moped')}")
+        check(0.0 <= metrics["accuracy"] <= 1.0, f"--moped {metrics}")
+        check(got["K-A"] > 0 and got["K-C drho"] > 0,
+              "the --moped steps did not go through K-A and K-C (drho)")
+        metrics, _ = run(main_bayesian_imagenet_dnn2bnn, "--mode=train",
+                         "--epochs=1", "--num_monte_carlo=2",
+                         f"--save_dir={d2b}")
+        check(0.0 <= metrics["accuracy"] <= 1.0, f"dnn2bnn {metrics}")
+        tested, _ = run(main_bayesian_imagenet_dnn2bnn, "--mode=test",
+                        "--num_monte_carlo=2", f"--save_dir={d2b}")
+        check(0.0 <= tested["accuracy"] <= 1.0, f"dnn2bnn test {tested}")
+        out, got = run(main_bayesian_imagenet_bnn2qbnn,
+                       "--fuse-conv-bn", "--quantize-activations",
+                       f"--bnn-ckpt={d2b}/imagenet_dnn2bnn_resnet50.pt")
+        check(got["K-F"] > 0, "bnn2qbnn: K-F never launched")
+        check(0.0 <= out["int8"]["accuracy"] <= 1.0, f"bnn2qbnn {out}")
+    return got["K-F"]
+
+
+def phase_entry():
+    """``graft_entry.entry()`` in its default form, on the card."""
+    import torch
+
+    from bayesian_torch_tpu_torch.graft_entry import entry
+
+    fn, args = entry()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, kl = fn(*args)
+    torch.cuda.synchronize()
+    log(f"[entry] graft_entry.entry(): logits {tuple(logits.shape)} on "
+        f"{logits.device}, KL {float(kl):.1f}, "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, launches "
+        f"{ {k: v for k, v in counts().items() if v} }")
+    check(logits.is_cuda and tuple(logits.shape) == (2, 1000)
+          and bool(torch.isfinite(logits).all()), "entry() output")
+
+
 def main(argv=None):
     import argparse
 
@@ -2341,7 +2641,8 @@ def main(argv=None):
     batches = [images(SEED + 1 + i) for i in range(3)]
     none = dict.fromkeys(kernel_counters(), 0)
     # the loop, presample "auto" (on): one K-A launch per batch
-    _, main_path = timed_mc("main", model, batches, dict(none, **{"K-A": 1}))
+    main_ms, main_path = timed_mc("main", model, batches,
+                                  dict(none, **{"K-A": 1}))
     kb_launches = phase_head(model, sample_scaled_normals_batch,
                              sampled_matmul, batches[0])
     mc_sanity("sanity", model, "auto")
@@ -2382,7 +2683,13 @@ def main(argv=None):
     torch.cuda.empty_cache()
     flipout_dot, _, _ = phase_flipout(profile)
     torch.cuda.empty_cache()
+    det, x, det_logits = phase_det(main_ms)
+    surgery_train = phase_surgery(det, x, det_logits)
+    del det, x, det_logits
+    torch.cuda.empty_cache()
     phase_trainer()
+    surgery_kf = phase_surgery_trainers()
+    phase_entry()
 
     batches = [images(SEED + 1 + i) for i in range(3)]
     qmodel, float_means = phase_int8_build(batches[0])
@@ -2501,6 +2808,9 @@ def main(argv=None):
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never ran in {k['run']}")
+    log(f"[surgery] launches in the converted ResNet-50's three MC-4 "
+        f"bs{BATCH} steps: { {k: v for k, v in surgery_train.items() if v} }"
+        f"; K-F launches in the bnn2qbnn pipeline: {surgery_kf}")
     log(f"[time] profiler sessions of the kernel timings: "
         f"{SESSIONS['sessions']}, taken again {SESSIONS['retried']}")
     log(f"[time] every phase passed in {time.perf_counter() - t_start:.0f} s")

@@ -805,3 +805,105 @@ def test_pointwise_emission_on_the_card_matches_cudnn(cuda, monkeypatch,
     assert _max_err(got, want) <= tol * _scale(want)
     assert (kg.mc_gemm.launches, kg.pointwise_gemm.launches) == (
         before[0] + 2, before[1] + 1)
+
+
+# --- model surgery on the card -----------------------------------------------
+
+
+def _narrow_resnets(device, seed=0):
+    """A narrow deterministic ResNet (Bottleneck, one block a stage, 10
+    classes; BN statistics from one training-mode batch) and a fresh
+    Bayesian twin of it, on ``device``."""
+    from bayesian_torch_tpu_torch.models import _large_resnet as res
+
+    det = res.LargeResNet(res.Bottleneck, [1, 1, 1, 1], 10, estimator=None,
+                          generator=torch.Generator().manual_seed(seed),
+                          device=device)
+    det.train()
+    with torch.no_grad():
+        det(torch.randn(8, 3, 32, 32,
+                        generator=torch.Generator().manual_seed(seed + 1)
+                        ).to(device))
+    bayes = res.LargeResNet(res.Bottleneck, [1, 1, 1, 1], 10,
+                            estimator="Reparameterization",
+                            generator=torch.Generator().manual_seed(seed + 2),
+                            device=device)
+    return det.eval(), bayes.eval()
+
+
+def test_moped_at_small_delta_on_the_card_matches_its_cpu_copy(cuda,
+                                                               monkeypatch):
+    """MOPED at delta = 1e-4 on the card and on a CPU copy: the same
+    posteriors (rho to 1e-6 relative: expm1 and log of two libraries),
+    priors and BN state, the same KL (1e-5 relative), and the card's MC-4
+    mean (one K-A launch) within 2^-6 x max|logit| of the deterministic
+    logits (f32, TF32 off)."""
+    from bayesian_torch_tpu_torch.models.dnn_to_bnn import get_kl_loss
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+    from bayesian_torch_tpu_torch.utils import MOPED
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    det, bayes = _narrow_resnets(cuda)
+    det_cpu, bayes_cpu = _narrow_resnets("cpu")
+    det_cpu.load_state_dict(det.state_dict())
+    for model, d in ((bayes, det), (bayes_cpu, det_cpu)):
+        MOPED(model, d, None, delta=1e-4)
+    cpu = dict(bayes_cpu.named_buffers(), **dict(
+        bayes_cpu.named_parameters()))
+    for name, t in list(bayes.named_parameters()) + list(
+            bayes.named_buffers()):
+        want = cpu[name]
+        assert t.device.type == "cuda" and t.shape == want.shape, name
+        rtol = 1e-6 if "rho" in name else 0
+        assert torch.allclose(t.cpu().double(), want.double(), rtol=rtol,
+                              atol=0), name
+    assert bayes.conv1.prior_weight_mu.shape == bayes.conv1.mu_kernel.shape
+    kl, kl_cpu = get_kl_loss(bayes).item(), get_kl_loss(bayes_cpu).item()
+    assert abs(kl - kl_cpu) <= 1e-5 * abs(kl_cpu)
+    x = torch.randn(4, 3, 32, 32, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        want = det_cpu(x)
+    before = ka.sample_scaled_normals_batch.launches
+    got = mc_forward(bayes, x.to(cuda), 4, reduce="mean", return_kl=False)
+    assert ka.sample_scaled_normals_batch.launches == before + 1
+    scale = want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= 2 ** -6 * scale
+
+
+def test_converted_model_presample_is_the_plain_sampler(cuda):
+    """The noise contract on a converted model: the one K-A launch of
+    ``_presample_layers`` gives, element by element, what
+    ``sample_scaled_normals_batch``'s plain version gives for the same
+    seed and flat posterior (within 1e-5: the last ulp of two CUDA
+    libraries' log and cos)."""
+    from bayesian_torch_tpu_torch.models import dnn_to_bnn
+    from bayesian_torch_tpu_torch.models.dnn_to_bnn import (
+        iter_bayesian_layers,
+    )
+    from bayesian_torch_tpu_torch.ops.sampling import draw_seed
+    from bayesian_torch_tpu_torch.parallel import mc as tmc
+
+    model, _ = _narrow_resnets(cuda)
+    dnn_to_bnn(model, {"prior_mu": 0.0, "prior_sigma": 1.0,
+                       "posterior_mu_init": 0.0, "posterior_rho_init": -3.0,
+                       "type": "Reparameterization", "moped_enable": True,
+                       "moped_delta": 0.5})
+    layers = list(iter_bayesian_layers(model))
+    gen = layers[0].generator
+    state = gen.get_state()
+    before = ka.sample_scaled_normals_batch.launches
+    with torch.no_grad():
+        touched = tmc._presample_layers(model, 4)
+    assert ka.sample_scaled_normals_batch.launches == before + 1
+    gen.set_state(state)
+    posts = [tmc._posterior(layer) for layer in layers]
+    with torch.no_grad():
+        want = sample_scaled_normals_batch_plain(
+            draw_seed(gen), torch.cat([mu.reshape(-1) for mu, _ in posts]),
+            torch.cat([sigma_from_rho(rho).reshape(-1) for _, rho in posts]),
+            4, torch.float32)
+    got = torch.cat([attrs["_presampled_w"].reshape(4, -1)
+                     for _, attrs in touched], dim=1)
+    assert [layer for layer, _ in touched] == layers
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-5

@@ -1,4 +1,4 @@
-"""The port's example trainer, engine, data helpers and uncertainty
+"""The port's example trainers, engine, data helpers and uncertainty
 metrics (``bayesian_torch_tpu_torch/examples``, ``utils/util.py``,
 ``utils/checkpoint.py``) against the JAX package and against themselves:
 
@@ -9,7 +9,10 @@ metrics (``bayesian_torch_tpu_torch/examples``, ``utils/util.py``,
   trains, resumes and tests, and 2 epochs run through equal 1 epoch plus
   a resumed one, bit for bit on the CPU (as tests/test_resume.py);
 - the engine's ``train`` resumes the same way, ``evaluate`` refuses a
-  test split smaller than one batch, and the unported flags raise.
+  test split smaller than one batch, and the unported flags raise;
+- the deterministic trainer, the Bayesian trainer with ``--moped`` from
+  its checkpoint, the ``dnn_to_bnn`` trainer and the INT8 pipeline run on
+  resnet18 at 32x32: train, then test (INT8: float eval, then INT8 eval).
 """
 
 import json
@@ -24,6 +27,7 @@ from bayesian_torch_tpu.utils import util as jutil
 from bayesian_torch_tpu_torch.examples import _data as tdata
 from bayesian_torch_tpu_torch.examples import _engine as engine
 from bayesian_torch_tpu_torch.examples import main_bayesian_imagenet as trainer
+from bayesian_torch_tpu_torch.ops.cuda import qmatmul as kf
 from bayesian_torch_tpu_torch.ops.cuda import sampled_weights as ka
 from bayesian_torch_tpu_torch.utils import util as tutil
 from bayesian_torch_tpu_torch.utils.checkpoint import (
@@ -111,10 +115,70 @@ def test_trainer_resume_equals_an_uninterrupted_run(tmp_path, monkeypatch):
 
 
 def test_trainer_refuses_unported_flags():
-    for flag, item in (("--moped", "#6"), ("--mesh-mc=2", "#15"),
-                       ("--structured-mc", "#16"), ("--remat", "#9")):
+    for flag, item in (("--mesh-mc=2", "#15"), ("--structured-mc", "#16"),
+                       ("--remat", "#9")):
         with pytest.raises(NotImplementedError, match=item):
             trainer.main(["--synthetic", "--device=cpu", flag])
+
+
+COMMON = ["--arch=resnet18", "--num-classes=10", "--batch-size=16",
+          "--synthetic", "--device=cpu"]
+
+
+@pytest.fixture
+def trainers(monkeypatch):
+    from bayesian_torch_tpu_torch.examples import (
+        main_bayesian_imagenet_bnn2qbnn,
+        main_bayesian_imagenet_dnn2bnn,
+        main_deterministic_imagenet,
+    )
+    mods = dict(det=main_deterministic_imagenet, moped=trainer,
+                dnn2bnn=main_bayesian_imagenet_dnn2bnn,
+                qbnn=main_bayesian_imagenet_bnn2qbnn)
+    for mod in mods.values():
+        monkeypatch.setattr(mod, "load_imagenet_val", _small_imagenet)
+    return mods
+
+
+def test_deterministic_then_moped_trainers(trainers, tmp_path):
+    """The deterministic trainer trains and tests; ``--moped`` starts the
+    Bayesian trainer from its checkpoint (before a ``--resume``, which
+    then continues against the same priors)."""
+    det_dir, bayes_dir = tmp_path / "det", tmp_path / "moped"
+    acc = trainers["det"].main(COMMON + ["--epochs=1",
+                                         f"--save_dir={det_dir}"])
+    ckpt = det_dir / "imagenet_det_resnet18.pt"
+    assert ckpt.is_file() and 0.0 <= acc <= 1.0
+    assert trainers["det"].main(COMMON + ["--mode=test",
+                                          f"--save_dir={det_dir}"]) == acc
+    moped = ["--moped", f"--moped-ckpt={ckpt}", "--delta=0.1",
+             "--num_monte_carlo=2", f"--save_dir={bayes_dir}"]
+    metrics = trainers["moped"].main(COMMON + ["--epochs=1", *moped])
+    assert 0.0 <= metrics["accuracy"] <= 1.0
+    resumed = trainers["moped"].main(COMMON + ["--epochs=2", "--resume",
+                                               *moped])
+    tested = trainers["moped"].main(COMMON + ["--mode=test", *moped])
+    assert set(tested) == set(resumed) == set(metrics)
+
+
+def test_dnn2bnn_and_bnn2qbnn_trainers(trainers, tmp_path):
+    d2b = tmp_path / "d2b"
+    metrics = trainers["dnn2bnn"].main(COMMON + [
+        "--epochs=1", "--num_mc=2", "--num_monte_carlo=2",
+        f"--save_dir={d2b}"])
+    assert 0.0 <= metrics["accuracy"] <= 1.0
+    assert (d2b / "metrics.json").is_file()
+    tested = trainers["dnn2bnn"].main(COMMON + [
+        "--mode=test", "--num_monte_carlo=2", f"--save_dir={d2b}"])
+    assert set(tested) == set(metrics)
+    launches = kf.qmatmul_requant.launches
+    out = trainers["qbnn"].main(COMMON + [
+        "--calib-batch-size=16", "--fuse-conv-bn", "--quantize-activations",
+        f"--bnn-ckpt={d2b / 'imagenet_dnn2bnn_resnet18.pt'}"])
+    assert set(out) == {"float", "int8"}
+    for m in out.values():
+        assert 0.0 <= m["accuracy"] <= 1.0
+    assert kf.qmatmul_requant.launches == launches  # CPU: plain version
 
 
 def test_engine_train_resumes_and_evaluate_needs_a_full_batch(tmp_path):

@@ -373,7 +373,14 @@ def test_port_never_imports_jax():
                 "ops/cuda/mc_gemm.py",
                 "layers/flipout_layers/conv_flipout.py",
                 "layers/flipout_layers/linear_flipout.py",
-                "models/bayesian/resnet_flipout_large.py"):
+                "models/bayesian/resnet_flipout_large.py",
+                "models/deterministic/resnet_large.py",
+                "models/dnn_to_bnn.py", "utils/util.py",
+                "utils/avuc_loss.py", "utils/uncertainty_calibration_loss.py",
+                "examples/main_deterministic_imagenet.py",
+                "examples/main_bayesian_imagenet_dnn2bnn.py",
+                "examples/main_bayesian_imagenet_bnn2qbnn.py",
+                "graft_entry.py"):
         assert root / new in paths, new
     paths += [root.parent / "chip_smoke.py", root.parent / "kernel_times.py"]
     modules = []

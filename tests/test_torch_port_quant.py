@@ -260,7 +260,7 @@ def test_batchnorm_dequantizes_a_qtensor():
 
 def test_scale_and_quantized_tensor_helpers_match_jax():
     jb = importlib.import_module("bayesian_torch_tpu.models.bnn_to_qbnn")
-    from bayesian_torch_tpu_torch.models import bnn_to_qbnn as tb
+    tb = importlib.import_module("bayesian_torch_tpu_torch.models.bnn_to_qbnn")
     x = (np.random.RandomState(6).randn(7, 5) * 4).astype(np.float32)
     assert tb.get_scale_and_zero_point(_t(x)) == \
         jb.get_scale_and_zero_point(jnp.asarray(x))
@@ -377,7 +377,7 @@ def test_quantize_matches_jax(monkeypatch, kind, bias, fold, sigma):
     import bayesian_torch_tpu.layers.quantized_base as jqb
     import bayesian_torch_tpu_torch.layers.quantized_base as tqb
     jb = importlib.import_module("bayesian_torch_tpu.models.bnn_to_qbnn")
-    from bayesian_torch_tpu_torch.models import bnn_to_qbnn as tb
+    tb = importlib.import_module("bayesian_torch_tpu_torch.models.bnn_to_qbnn")
     if sigma == "exact":
         monkeypatch.setattr(jqb, "sigma_from_rho", jnp.abs)
         monkeypatch.setattr(tqb, "sigma_from_rho", torch.abs)
@@ -469,7 +469,7 @@ def test_quantized_layer_forward_with_injected_eps(kind, calibrated):
 
 
 def test_quantized_layer_draws_differ_and_stay_on_device():
-    from bayesian_torch_tpu_torch.models import bnn_to_qbnn as tb
+    tb = importlib.import_module("bayesian_torch_tpu_torch.models.bnn_to_qbnn")
     _, tl = _layer_pair("conv", True, seed=12)
     ql = tb.qbnn_conv_layer(tl)
     x = torch.randn(2, 4, 6, 6)
