@@ -1,3 +1,3 @@
 """Example trainers of the port (counterparts of
-``bayesian_torch_tpu/examples``): so far the Bayesian ImageNet trainer,
-``main_bayesian_imagenet.py``, with its engine and data helpers."""
+``bayesian_torch_tpu/examples``): the ImageNet, MNIST and CIFAR-10
+trainers and ``quantization_test``, with their engine and data helpers."""

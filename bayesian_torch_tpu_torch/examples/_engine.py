@@ -7,13 +7,19 @@ as ``emission="auto"`` resolves in training mode; the draw loop with
 AverageMeter-style reporting, and ``torch.save`` training
 checkpoints. Batches come from the numpy iterator ``_data.batches`` and
 go to the model's device; ``optax.sgd(lr, m)`` becomes
-``torch.optim.SGD(lr, momentum=m)`` and ``optax.adam`` ``torch.optim.Adam``.
+``torch.optim.SGD(lr, momentum=m)``, ``optax.adam`` ``torch.optim.Adam``
+and ``optax.adadelta`` ``torch.optim.Adadelta``. An optax learning-rate
+schedule is a function of the optimizer's step count: its twins here
+(``piecewise_constant_schedule``, ``cosine_decay_schedule``) are functions
+of the same count, and ``step_scheduler`` turns one into a ``LambdaLR``
+that ``train`` steps once per optimizer step.
 """
 
 from __future__ import annotations
 
 import itertools
 import json
+import math
 import os
 import time
 
@@ -50,6 +56,30 @@ class AverageMeter:
 
     def __str__(self):
         return f"{self.name} {self.val:.4f} ({self.avg:.4f})"
+
+
+UNPORTED = {
+    "mesh_mc": "MC draws sharded over devices come with ROADMAP Queue 1 "
+               "#15 (multi-device)",
+    "structured_mc": "the structured MC path (mc_forward(structured=True)) "
+                     "is ROADMAP Queue 1 #16",
+    "remat": "remat_blocks needs its own design (ROADMAP Queue 1 #9): "
+             "torch.utils.checkpoint would redraw the weights' seeds when "
+             "it recomputes a block",
+}
+
+
+def refuse_unported(args):
+    """Raise ``NotImplementedError``, naming its ROADMAP item, for a
+    trainer flag of ``UNPORTED`` that is set (``--mesh-mc`` above 1);
+    flags a trainer does not have are skipped."""
+    for flag, why in UNPORTED.items():
+        value = getattr(args, flag, None)
+        if flag == "mesh_mc":
+            value = value is not None and value > 1
+        if value:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported: {why}")
 
 
 def _device(model):
@@ -101,16 +131,71 @@ def make_eval_step(num_mc: int, mesh=None, structured: bool = False,
     return eval_step
 
 
+def piecewise_constant_schedule(init_value, boundaries_and_scales):
+    """``optax.piecewise_constant_schedule``: the learning rate at
+    optimizer step ``count`` is ``init_value`` times the scale of every
+    boundary ``<= count``."""
+    def schedule(count):
+        value = init_value
+        for boundary, scale in sorted(boundaries_and_scales.items()):
+            if count >= boundary:
+                value *= scale
+        return value
+    return schedule
+
+
+def cosine_decay_schedule(init_value, decay_steps):
+    """``optax.cosine_decay_schedule`` (alpha 0): ``init_value`` times
+    ``0.5 * (1 + cos(pi * t / T))`` at optimizer step t, with t held at
+    T = ``decay_steps`` from there on."""
+    if decay_steps <= 0:
+        raise ValueError(f"cosine_decay_schedule: decay_steps {decay_steps}"
+                         " must be positive")
+
+    def schedule(count):
+        t = min(count, decay_steps)
+        return init_value * 0.5 * (1 + math.cos(math.pi * t / decay_steps))
+    return schedule
+
+
+def step_scheduler(optimizer, schedule):
+    """A ``LambdaLR`` that sets every parameter group's learning rate to
+    ``schedule(k)`` for optimizer step k (counted from 0), when it is
+    stepped once after each optimizer step, as optax counts its steps.
+    The optimizer's learning rate must be ``schedule(0)``."""
+    base = schedule(0)
+    for group in optimizer.param_groups:
+        if group["lr"] != base:
+            raise ValueError(f"step_scheduler: the optimizer's lr "
+                             f"{group['lr']} is not schedule(0) = {base}")
+    return torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lambda k: schedule(k) / base)
+
+
+def make_writer(log_dir):
+    """A TensorBoard ``SummaryWriter`` on ``log_dir`` (the reference's
+    ``--tensorboard``), or None, with a message, when tensorboard cannot
+    be imported, as in the JAX engine."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        print("tensorboard unavailable; skipping scalar logging")
+        return None
+    return SummaryWriter(log_dir)
+
+
 def train(model, optimizer, data, *, epochs, batch_size, num_mc=1,
           log_every=50, writer=None, mesh=None, checkpoint_dir=None,
-          resume=False, eval_fn=None):
+          resume=False, eval_fn=None, scheduler=None):
     """Training loop over (x, y) host arrays.
 
     With ``checkpoint_dir``, a full training checkpoint (model, optimizer,
-    epoch, best_acc, generator states) is written to
-    ``<checkpoint_dir>/last.pt`` after every epoch; ``resume=True``
-    restores it and continues from the next epoch.
+    epoch, best_acc, generator states and the scheduler's state) is
+    written to ``<checkpoint_dir>/last.pt`` after every epoch;
+    ``resume=True`` restores it and continues from the next epoch.
     ``eval_fn(model, epoch) -> acc`` optionally tracks best_acc.
+    ``scheduler`` (``step_scheduler``) is stepped after every optimizer
+    step.
     """
     from bayesian_torch_tpu_torch.utils.checkpoint import (
         load_training_checkpoint,
@@ -124,7 +209,8 @@ def train(model, optimizer, data, *, epochs, batch_size, num_mc=1,
     last_path = (os.path.join(checkpoint_dir, "last.pt")
                  if checkpoint_dir else None)
     if resume and last_path and os.path.isfile(last_path):
-        meta = load_training_checkpoint(last_path, model, optimizer)
+        meta = load_training_checkpoint(last_path, model, optimizer,
+                                        scheduler=scheduler)
         start_epoch, best_acc = meta["epoch"], meta["best_acc"]
         print(f"resumed from '{last_path}': epoch {start_epoch}, "
               f"best_acc {best_acc:.4f}")
@@ -138,6 +224,8 @@ def train(model, optimizer, data, *, epochs, batch_size, num_mc=1,
             xb = torch.from_numpy(xb).to(device)
             yb = torch.from_numpy(yb).to(device)
             loss, nll, kl = step_fn(model, optimizer, xb, yb)
+            if scheduler is not None:
+                scheduler.step()
             seen += xb.shape[0]
             if i % log_every == 0:
                 loss_f = float(loss)
@@ -155,8 +243,59 @@ def train(model, optimizer, data, *, epochs, batch_size, num_mc=1,
             best_acc = max(best_acc, float(eval_fn(model, epoch)))
         if last_path:
             save_training_checkpoint(last_path, model, optimizer,
-                                     epoch=epoch + 1, best_acc=best_acc)
+                                     epoch=epoch + 1, best_acc=best_acc,
+                                     scheduler=scheduler)
     return history
+
+
+def make_dnn2bnn_loss(num_mc, batch_size):
+    """The dnn2bnn trainers' loss ``loss_fn(model, x, y)``: the
+    cross-entropy of the mean over ``num_mc`` draws of the logits (the
+    converted layers return bare outputs) + ``get_kl_loss / batch_size``."""
+    from bayesian_torch_tpu_torch.models import get_kl_loss
+
+    def loss_fn(model, xb, yb):
+        outs = mc_forward(model, xb, num_mc, return_kl=False)
+        ce = torch.nn.functional.cross_entropy(outs.float().mean(dim=0),
+                                               yb.long())
+        return ce + get_kl_loss(model) / batch_size
+
+    return loss_fn
+
+
+def train_dnn2bnn(model, optimizer, data, *, epochs, batch_size, num_mc,
+                  log_every):
+    """The dnn2bnn trainers' loop: one optimizer step on
+    ``make_dnn2bnn_loss`` per batch of the (x, y) host arrays."""
+    loss_fn = make_dnn2bnn_loss(num_mc, batch_size)
+    device = _device(model)
+    model.train()
+    for epoch in range(epochs):
+        for i, (xb, yb) in enumerate(batches(*data, batch_size, seed=epoch)):
+            optimizer.zero_grad(set_to_none=True)
+            loss = loss_fn(model, torch.from_numpy(xb).to(device),
+                           torch.from_numpy(yb).to(device))
+            loss.backward()
+            optimizer.step()
+            if i % log_every == 0:
+                print(f"epoch {epoch} step {i}: loss {loss.item():.4f}")
+
+
+def calibrate(model, data, batch_size, num_images):
+    """Post-training quantization's first half: ``prepare`` the model,
+    then forward whole batches of the (x, y) host arrays, in order,
+    until ``num_images`` have passed; the caller ``convert``s."""
+    from bayesian_torch_tpu_torch.quantization import prepare
+
+    prepare(model)
+    device = _device(model)
+    seen = 0
+    with torch.no_grad():
+        for xb, _ in batches(*data, batch_size, shuffle=False):
+            model(torch.from_numpy(xb).to(device))
+            seen += xb.shape[0]
+            if seen >= num_images:
+                break
 
 
 def evaluate(model, data, *, batch_size, num_monte_carlo=20,
@@ -217,9 +356,13 @@ def save_metrics(metrics, path):
 
 
 def make_optimizer(model, lr, kind="adam", momentum=0.9):
-    """``torch.optim.Adam(lr)``, or ``torch.optim.SGD(lr, momentum)``
-    for any other ``kind`` (the JAX engine's optax choice), over every
-    parameter (the JAX ``wrt=nnx.Param``)."""
+    """``torch.optim.Adam(lr)``, ``torch.optim.Adadelta(lr)`` (rho 0.9 and
+    eps 1e-6, the ``optax.adadelta`` defaults) or, for any other ``kind``,
+    ``torch.optim.SGD(lr, momentum)``, over every parameter (the JAX
+    ``wrt=nnx.Param``)."""
     if kind == "adam":
         return torch.optim.Adam(model.parameters(), lr=lr)
+    if kind == "adadelta":
+        return torch.optim.Adadelta(model.parameters(), lr=lr, rho=0.9,
+                                    eps=1e-6)
     return torch.optim.SGD(model.parameters(), lr=lr, momentum=momentum)

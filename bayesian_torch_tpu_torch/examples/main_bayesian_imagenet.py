@@ -23,7 +23,7 @@ last partial batch, as the JAX trainer's does, so ``--batch-size`` must
 not exceed the test split (51 of the 256 synthetic images).
 
 Not ported yet, and refused: ``--mesh-mc`` > 1, ``--structured-mc`` and
-``--remat`` (see ``_UNPORTED``).
+``--remat`` (see ``_engine.UNPORTED``).
 """
 
 from __future__ import annotations
@@ -45,17 +45,6 @@ from bayesian_torch_tpu_torch.utils.checkpoint import (
     save_training_checkpoint,
 )
 from bayesian_torch_tpu_torch.utils.util import MOPED
-
-_UNPORTED = {
-    "mesh_mc": "MC draws sharded over devices come with ROADMAP Queue 1 "
-               "#15 (multi-device)",
-    "structured_mc": "the structured MC path (mc_forward(structured=True)) "
-                     "is ROADMAP Queue 1 #16",
-    "remat": "remat_blocks needs its own design (ROADMAP Queue 1 #9): "
-             "torch.utils.checkpoint would redraw the weights' seeds when "
-             "it recomputes a block",
-}
-
 
 def build_parser(desc="Bayesian ImageNet"):
     p = argparse.ArgumentParser(description=desc)
@@ -104,16 +93,8 @@ def get_model(arch, seed, num_classes, device,
                               device=device)
 
 
-def _refuse_unported(args):
-    for flag, why in _UNPORTED.items():
-        value = getattr(args, flag)
-        if (value > 1) if flag == "mesh_mc" else value:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported: {why}")
-
-
 def run(args, estimator="Reparameterization"):
-    _refuse_unported(args)
+    engine.refuse_unported(args)
     x, y = load_imagenet_val(args.data_dir, args.synthetic,
                              num_classes=args.num_classes)
     n_val = max(1, len(x) // 5)

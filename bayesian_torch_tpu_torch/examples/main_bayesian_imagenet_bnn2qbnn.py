@@ -23,9 +23,9 @@ import argparse
 import torch
 
 from bayesian_torch_tpu_torch.examples import _engine as engine
-from bayesian_torch_tpu_torch.examples._data import batches, load_imagenet_val
+from bayesian_torch_tpu_torch.examples._data import load_imagenet_val
 from bayesian_torch_tpu_torch.models import dnn_to_bnn
-from bayesian_torch_tpu_torch.quantization import convert, prepare
+from bayesian_torch_tpu_torch.quantization import convert
 from bayesian_torch_tpu_torch.utils.checkpoint import load_checkpoint
 
 
@@ -78,13 +78,8 @@ def main(argv=None):
                                     batch_size=args.calib_batch_size,
                                     num_monte_carlo=args.num_monte_carlo)
 
-    prepare(model)
-    with torch.no_grad():
-        for i, (xb, _) in enumerate(batches(x, y, args.calib_batch_size,
-                                            shuffle=False)):
-            model(torch.from_numpy(xb).to(device))
-            if i >= 2:
-                break
+    engine.calibrate(model, (x, y), args.calib_batch_size,
+                     3 * args.calib_batch_size)
     convert(model, fuse_conv_bn=args.fuse_conv_bn,
             quantize_activations=args.quantize_activations)
 

@@ -25,12 +25,10 @@ import argparse
 import os
 
 import torch
-import torch.nn.functional as F
 
 from bayesian_torch_tpu_torch.examples import _engine as engine
-from bayesian_torch_tpu_torch.examples._data import batches, load_imagenet_val
-from bayesian_torch_tpu_torch.models import dnn_to_bnn, get_kl_loss
-from bayesian_torch_tpu_torch.parallel import mc_forward
+from bayesian_torch_tpu_torch.examples._data import load_imagenet_val
+from bayesian_torch_tpu_torch.models import dnn_to_bnn
 from bayesian_torch_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                        save_checkpoint)
 
@@ -61,17 +59,6 @@ def build_parser():
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device the model runs on")
     return p
-
-
-def make_loss_fn(num_mc, batch_size):
-    """The step's loss: CE of the MC-mean logits + KL / batch_size."""
-
-    def loss_fn(model, xb, yb):
-        outs = mc_forward(model, xb, num_mc, return_kl=False)
-        ce = F.cross_entropy(outs.float().mean(dim=0), yb.long())
-        return ce + get_kl_loss(model) / batch_size
-
-    return loss_fn
 
 
 def main(argv=None):
@@ -108,19 +95,10 @@ def main(argv=None):
         model.eval()
         return engine.evaluate(model, test_data, batch_size=args.batch_size,
                                num_monte_carlo=args.num_monte_carlo)
-    loss_fn = make_loss_fn(args.num_mc, args.batch_size)
-    model.train()
     optimizer = torch.optim.SGD(model.parameters(), lr=args.lr, momentum=0.9)
-    for epoch in range(args.epochs):
-        for i, (xb, yb) in enumerate(batches(*train_data, args.batch_size,
-                                             seed=epoch)):
-            optimizer.zero_grad(set_to_none=True)
-            loss = loss_fn(model, torch.from_numpy(xb).to(device),
-                           torch.from_numpy(yb).to(device))
-            loss.backward()
-            optimizer.step()
-            if i % 10 == 0:
-                print(f"epoch {epoch} step {i}: loss {loss.item():.4f}")
+    engine.train_dnn2bnn(model, optimizer, train_data, epochs=args.epochs,
+                         batch_size=args.batch_size, num_mc=args.num_mc,
+                         log_every=10)
     model.eval()
     metrics = engine.evaluate(model, test_data, batch_size=args.batch_size,
                               num_monte_carlo=args.num_monte_carlo)

@@ -17,13 +17,15 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from bayesian_torch_tpu_torch.examples._data import batches, load_imagenet_val
+from bayesian_torch_tpu_torch.examples.main_deterministic_mnist import (
+    evaluate_det,
+)
 from bayesian_torch_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                        save_checkpoint)
 
@@ -47,31 +49,6 @@ def build_parser():
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device the model runs on")
     return p
-
-
-def evaluate_det(model, data, batch_size):
-    """Top-1 accuracy of a deterministic model in eval mode over
-    ``data`` (the last partial batch dropped). Its JAX home is
-    ``bayesian_torch_tpu/examples/main_deterministic_mnist.py``; it moves
-    there when that trainer is ported."""
-    x_all, y_all = data
-    if len(x_all) < batch_size:
-        raise ValueError(
-            f"evaluate_det: {len(x_all)} examples make no full batch of "
-            f"{batch_size} (the last partial batch is dropped)")
-    model.eval()
-    device = next(model.parameters()).device
-    correct = total = 0
-    t0 = time.time()
-    with torch.no_grad():
-        for xb, yb in batches(x_all, y_all, batch_size, shuffle=False):
-            logits = model(torch.from_numpy(xb).to(device))
-            preds = logits.argmax(dim=1).cpu().numpy()
-            correct += int((preds == yb).sum())
-            total += xb.shape[0]
-    print(f"test: accuracy {correct / total * 100:.2f}% | "
-          f"{total / (time.time() - t0):.1f} imgs/s")
-    return correct / total
 
 
 def main(argv=None):

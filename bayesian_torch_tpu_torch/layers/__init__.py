@@ -7,7 +7,11 @@ from bayesian_torch_tpu_torch.layers.base_variational_layer import (  # noqa: F4
     get_kernel_size,
     seed_default_generator,
 )
-from bayesian_torch_tpu_torch.layers.batchnorm import BatchNorm2dLayer  # noqa: F401,E501
+from bayesian_torch_tpu_torch.layers.batchnorm import (  # noqa: F401
+    BatchNorm1dLayer,
+    BatchNorm2dLayer,
+    BatchNorm3dLayer,
+)
 from bayesian_torch_tpu_torch.layers.dropout import Dropout  # noqa: F401
 from bayesian_torch_tpu_torch.layers.relu import ReLU  # noqa: F401
 from bayesian_torch_tpu_torch.layers.variational_layers import *  # noqa: F401,F403,E501

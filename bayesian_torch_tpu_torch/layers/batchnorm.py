@@ -1,10 +1,11 @@
 """BatchNorm layers with the MC batch-statistics path (counterpart of
 ``bayesian_torch_tpu/layers/batchnorm.py``).
 
-``BatchNorm2d`` is ``torch.nn.BatchNorm2d`` with the JAX layer's
-``stats_frozen`` switch: while it is set, a training-mode forward still
-normalizes by the batch's own statistics but writes no running statistic
-(and does not count the batch). ``parallel.mc.mc_forward`` sets it for its
+``BatchNorm1d``, ``BatchNorm2d`` and ``BatchNorm3d`` are their
+``torch.nn`` classes with the JAX layer's ``stats_frozen`` switch: while
+it is set, a training-mode forward still normalizes by the batch's own
+statistics but writes no running statistic (and does not count the
+batch). ``parallel.mc.mc_forward`` sets it for its
 draw loop; with a ``MCBatchStats`` record attached, each draw's batch
 (mean, unbiased variance) is recorded, and the caller applies ONE EMA
 update from their average after the loop. Otherwise the eval path and the
@@ -17,9 +18,9 @@ the plain forward normalises one draw: by its own batch statistics in
 training mode (per-channel statistics of the S*C channels, recorded for
 all S draws at once) and by the running statistics tiled S times in eval.
 
-``BatchNorm2dLayer`` adds the reference's calling convention: a
-``(x, kl)`` tuple in gives ``(out, 0)`` out, a bare tensor gives the bare
-output.
+``BatchNorm1dLayer``, ``BatchNorm2dLayer`` and ``BatchNorm3dLayer`` add
+the reference's calling convention: a ``(x, kl)`` tuple in gives
+``(out, 0)`` out, a bare tensor gives the bare output.
 """
 
 from __future__ import annotations
@@ -56,10 +57,10 @@ class MCBatchStats:
         return torch.cat(self.draws)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """``torch.nn.BatchNorm2d`` with ``stats_frozen``, an optional
-    per-draw ``MCBatchStats`` record (``_mc_stats``) and the draw-axis
-    forward."""
+class _MCBatchNorm:
+    """``stats_frozen``, an optional per-draw ``MCBatchStats`` record
+    (``_mc_stats``) and the draw-axis forward, over a ``torch.nn``
+    BatchNorm class."""
 
     takes_draw_axis = True
 
@@ -102,7 +103,20 @@ class BatchNorm2d(nn.BatchNorm2d):
                             tile(self.bias), False, 0.0, self.eps)
 
 
-class BatchNorm2dLayer(BatchNorm2d):
+class BatchNorm1d(_MCBatchNorm, nn.BatchNorm1d):
+    """``torch.nn.BatchNorm1d`` with the MC batch-statistics path."""
+
+
+class BatchNorm2d(_MCBatchNorm, nn.BatchNorm2d):
+    """``torch.nn.BatchNorm2d`` with the MC batch-statistics path."""
+
+
+class BatchNorm3d(_MCBatchNorm, nn.BatchNorm3d):
+    """``torch.nn.BatchNorm3d`` with the MC batch-statistics path."""
+
+
+class _BatchNormLayer:
+    """The reference's constructor and ``(x, kl)`` calling convention."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: Optional[float] = 0.1, affine: bool = True,
@@ -125,3 +139,15 @@ class BatchNorm2dLayer(BatchNorm2d):
 
     def __repr__(self):
         return f"{type(self).__name__}()"
+
+
+class BatchNorm1dLayer(_BatchNormLayer, BatchNorm1d):
+    pass
+
+
+class BatchNorm2dLayer(_BatchNormLayer, BatchNorm2d):
+    pass
+
+
+class BatchNorm3dLayer(_BatchNormLayer, BatchNorm3d):
+    pass

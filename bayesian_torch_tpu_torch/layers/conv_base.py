@@ -1,11 +1,15 @@
 """Shared implementation of the Bayesian conv layers (counterpart of
-``bayesian_torch_tpu/layers/conv_base.py``, both estimators,
-non-transposed).
+``bayesian_torch_tpu/layers/conv_base.py``, both estimators, plain and
+transposed).
 
-The public subclasses pin ``nd`` and ``estimator`` ("reparameterization"
-or "flipout") and keep the reference's class names,
+The public subclasses pin ``nd``, ``transposed`` and ``estimator``
+("reparameterization" or "flipout") and keep the reference's class names,
 constructor signatures, parameter names (``mu_kernel`` / ``rho_kernel``)
-and shapes: (out_channels, in_channels // groups, *kernel_size).
+and shapes:
+
+- Conv:          (out_channels, in_channels // groups, *kernel_size);
+- ConvTranspose: (in_channels, out_channels // groups, *kernel_size),
+  with ``output_padding`` (after ``bias``, as in the JAX layer).
 
 Under the draw axis (``_mc_draws``, set by ``mc_forward``'s vmap emission)
 the layer takes its S kernels from one batch-sampler launch, or the whole
@@ -14,6 +18,8 @@ presampled (S, ...) stack, and runs them as one conv
 Flipout layer draws its S perturbations ``sigma * eps`` the same way (the
 sampler on a zero mean) and runs ``ops.conv.flipout_conv_draws``; its
 presampled weight is that perturbation, and the mean conv uses ``mu``.
+The JAX package refuses transposed convs only in its structured mode,
+which the port does not have, so the draw axis takes them.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ class _BaseConvLayer(BaseVariationalLayer):
     """Common constructor, KL and forward of the Bayesian convs."""
 
     nd: int = 2
+    transposed: bool = False
     estimator: str = "reparameterization"  # or "flipout"
     takes_draw_axis = True
 
@@ -51,6 +58,7 @@ class _BaseConvLayer(BaseVariationalLayer):
                  posterior_mu_init: float = 0,
                  posterior_rho_init: float = -3.0,
                  bias: bool = True,
+                 output_padding=0,
                  *,
                  generator: Optional[torch.Generator] = None,
                  device=None,
@@ -71,6 +79,7 @@ class _BaseConvLayer(BaseVariationalLayer):
         self.padding = padding
         self.dilation = dilation
         self.groups = groups
+        self.output_padding = output_padding
         self.prior_mean = prior_mean
         self.prior_variance = prior_variance
         self.posterior_mu_init = posterior_mu_init
@@ -78,7 +87,10 @@ class _BaseConvLayer(BaseVariationalLayer):
         self.bias = bias
         self.compute_dtype = compute_dtype
 
-        kshape = (out_channels, in_channels // groups) + kernel_size
+        if self.transposed:
+            kshape = (in_channels, out_channels // groups) + kernel_size
+        else:
+            kshape = (out_channels, in_channels // groups) + kernel_size
         self.mu_kernel, self.rho_kernel = self._init_posterior(
             kshape, posterior_mu_init, posterior_rho_init, device)
         self._init_prior("prior_weight_mu", "prior_weight_sigma",
@@ -105,16 +117,18 @@ class _BaseConvLayer(BaseVariationalLayer):
 
     def _conv_args(self):
         return dict(stride=self.stride, padding=self.padding,
+                    output_padding=self.output_padding,
                     dilation=self.dilation, groups=self.groups,
+                    transposed=self.transposed,
                     compute_dtype=self.compute_dtype)
 
     def prepare(self, qconfig=None):
         """Insert the calibration observers (5 qint8 + 2 quint8)."""
-        if self.estimator == "flipout":
+        if self.estimator == "flipout" or self.transposed:
             raise NotImplementedError(
                 f"{type(self).__name__}.prepare(): post-training "
-                "quantization of Flipout layers is not ported yet (ROADMAP "
-                "Queue 1 #14)")
+                "quantization of Flipout and transposed layers is not "
+                "ported yet (ROADMAP Queue 1 #14)")
         self._make_observers(5, 2, qconfig)
 
     def _forward_flipout(self, input, eps_k, eps_b, sign_in, sign_out):
@@ -157,7 +171,7 @@ class _BaseConvLayer(BaseVariationalLayer):
             args = dict(self._conv_args(), compute_dtype=None)
             out = self._observed_forward(
                 input, self.mu_kernel, self.rho_kernel,
-                lambda x, w, b: conv_ops.conv_nd(x, w, b, **args))
+                lambda x, w, b: conv_ops._apply_conv(x, w, b, **args))
         elif num_draws:
             # all S draws: the presampled (S, ...) stack, or one launch
             if presampled_w is not None:
@@ -168,9 +182,9 @@ class _BaseConvLayer(BaseVariationalLayer):
             out = conv_ops.conv_draws(input, w, b, **self._conv_args())
         elif presampled_w is not None:
             # this draw's kernel from the batch sampler (parallel.mc)
-            out = conv_ops.conv_nd(input, presampled_w,
-                                   getattr(self, "_presampled_b", None),
-                                   **self._conv_args())
+            out = conv_ops._apply_conv(input, presampled_w,
+                                       getattr(self, "_presampled_b", None),
+                                       **self._conv_args())
         else:
             out = conv_ops.sampled_conv(
                 input, self.generator, self.mu_kernel, self.rho_kernel,

@@ -1,6 +1,7 @@
 """Dropout wrapper with the (x, kl) tuple convention (counterpart of
-``bayesian_torch_tpu/layers/dropout.py``). The mask comes from the
-layer's CPU generator, so a seeded layer drops the same units anywhere."""
+``bayesian_torch_tpu/layers/dropout.py``), and the channel dropout
+``Dropout2d`` of the JAX ``nn`` module. The mask comes from the layer's
+CPU generator, so a seeded layer drops the same units anywhere."""
 
 from __future__ import annotations
 
@@ -34,12 +35,26 @@ class Dropout(nn.Module):
         if self.p == 1.0:
             return x * 0.0
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=self.generator) < keep
+        mask = torch.rand(self._mask_shape(x),
+                          generator=self.generator) < keep
         return torch.where(mask.to(x.device), x / keep,
                            torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def _mask_shape(self, x):
+        return x.shape
 
     def forward(self, input):
         if isinstance(input, tuple):
             x, _ = input
             return self._drop(x), 0
         return self._drop(input)
+
+
+class Dropout2d(Dropout):
+    """Channel dropout (the JAX ``nn.Dropout2d``): one draw per (sample,
+    channel) of an NC* input, so whole channels drop; an (N, C) input
+    drops element by element. ``torch.nn.Dropout2d`` would read a 2-d
+    input as one unbatched sample and drop whole rows."""
+
+    def _mask_shape(self, x):
+        return tuple(x.shape[:2]) + (1,) * (x.dim() - 2)

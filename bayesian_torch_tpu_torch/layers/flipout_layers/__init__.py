@@ -7,6 +7,9 @@ from bayesian_torch_tpu_torch.layers.flipout_layers.conv_flipout import (  # noq
     Conv1dFlipout,
     Conv2dFlipout,
     Conv3dFlipout,
+    ConvTranspose1dFlipout,
+    ConvTranspose2dFlipout,
+    ConvTranspose3dFlipout,
 )
 from bayesian_torch_tpu_torch.layers.flipout_layers.linear_flipout import (  # noqa: F401,E501
     LinearFlipout,
@@ -16,5 +19,8 @@ __all__ = [
     "Conv1dFlipout",
     "Conv2dFlipout",
     "Conv3dFlipout",
+    "ConvTranspose1dFlipout",
+    "ConvTranspose2dFlipout",
+    "ConvTranspose3dFlipout",
     "LinearFlipout",
 ]

@@ -1,7 +1,7 @@
-"""Conv layers with the Flipout estimator (counterpart of
-``bayesian_torch_tpu/layers/flipout_layers/conv_flipout.py``). All three
-share ``_BaseConvLayer``; the ConvTranspose classes come in a later slice
-(ROADMAP Queue 1 #11)."""
+"""Conv and ConvTranspose layers with the Flipout estimator
+(counterpart of
+``bayesian_torch_tpu/layers/flipout_layers/conv_flipout.py``).
+All six share ``_BaseConvLayer``."""
 
 from bayesian_torch_tpu_torch.layers.conv_base import _BaseConvLayer
 
@@ -9,6 +9,9 @@ __all__ = [
     "Conv1dFlipout",
     "Conv2dFlipout",
     "Conv3dFlipout",
+    "ConvTranspose1dFlipout",
+    "ConvTranspose2dFlipout",
+    "ConvTranspose3dFlipout",
 ]
 
 
@@ -24,4 +27,22 @@ class Conv2dFlipout(_BaseConvLayer):
 
 class Conv3dFlipout(_BaseConvLayer):
     nd = 3
+    estimator = "flipout"
+
+
+class ConvTranspose1dFlipout(_BaseConvLayer):
+    nd = 1
+    transposed = True
+    estimator = "flipout"
+
+
+class ConvTranspose2dFlipout(_BaseConvLayer):
+    nd = 2
+    transposed = True
+    estimator = "flipout"
+
+
+class ConvTranspose3dFlipout(_BaseConvLayer):
+    nd = 3
+    transposed = True
     estimator = "flipout"

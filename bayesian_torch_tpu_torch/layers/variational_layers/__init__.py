@@ -4,6 +4,9 @@ from bayesian_torch_tpu_torch.layers.variational_layers.conv_variational import 
     Conv1dReparameterization,
     Conv2dReparameterization,
     Conv3dReparameterization,
+    ConvTranspose1dReparameterization,
+    ConvTranspose2dReparameterization,
+    ConvTranspose3dReparameterization,
 )
 from bayesian_torch_tpu_torch.layers.variational_layers.linear_variational import (  # noqa: F401,E501
     LinearReparameterization,
@@ -13,5 +16,8 @@ __all__ = [
     "Conv1dReparameterization",
     "Conv2dReparameterization",
     "Conv3dReparameterization",
+    "ConvTranspose1dReparameterization",
+    "ConvTranspose2dReparameterization",
+    "ConvTranspose3dReparameterization",
     "LinearReparameterization",
 ]

@@ -2,7 +2,7 @@
 ``quantize_conv_variational.py`` in
 ``bayesian_torch_tpu/layers/variational_layers/``; see
 ``layers/quantized_base.py``). The ConvTranspose classes come with the
-grouped and transposed int8 convs (ROADMAP Queue 1 #11)."""
+grouped and transposed int8 convs (ROADMAP Queue 1 #14)."""
 
 from bayesian_torch_tpu_torch.layers.quantized_base import _QuantizedConvBase
 

@@ -23,9 +23,11 @@ the KL. With ``moped_enable`` the posterior starts at mu = w, rho =
 ``get_rho(w, moped_delta)``; the priors stay scalar (``utils.MOPED`` sets
 array priors).
 
-Not ported, and refused by name: ``ConvTranspose*`` twins (ROADMAP Queue 1
-#11) and LSTMs (Queue 1 #12). The Bayesian convs pad with zeros only, so
-a conv with another ``padding_mode`` is refused.
+A ``torch.nn.ConvTranspose{1,2,3}d`` becomes its ``ConvTranspose*`` twin
+with its ``output_padding``; its weight keeps the (in, out // groups, *k)
+layout, so MOPED copies it as it is. Not ported, and refused by name:
+LSTMs (ROADMAP Queue 1 #12). The Bayesian convs pad with zeros only, so a
+conv with another ``padding_mode`` is refused.
 """
 
 from __future__ import annotations
@@ -89,14 +91,11 @@ def bnn_linear_layer(params, d):
 
 
 def bnn_conv_layer(params, d):
-    """The Bayesian twin of a deterministic ``torch.nn.Conv{1,2,3}d``
-    ``d``, with its geometry (string padding passed on as it is), on its
+    """The Bayesian twin of a deterministic ``torch.nn.Conv{1,2,3}d`` or
+    ``ConvTranspose{1,2,3}d`` ``d``, with its geometry (string padding
+    passed on as it is; a transposed conv's ``output_padding``), on its
     device."""
     cls_name = type(d).__name__
-    if "ConvTranspose" in cls_name:
-        raise NotImplementedError(
-            f"dnn_to_bnn: {cls_name}: the Bayesian ConvTranspose layers are "
-            "not ported yet (ROADMAP Queue 1 #11)")
     if getattr(d, "padding_mode", "zeros") != "zeros":
         raise ValueError(
             f"dnn_to_bnn: {cls_name} with padding_mode={d.padding_mode!r}: "
@@ -105,6 +104,7 @@ def bnn_conv_layer(params, d):
         in_channels=d.in_channels, out_channels=d.out_channels,
         kernel_size=d.kernel_size, stride=d.stride, padding=d.padding,
         dilation=d.dilation, groups=d.groups, bias=d.bias is not None,
+        output_padding=getattr(d, "output_padding", 0),
         device=d.weight.device, **_prior_kwargs(params))
     return _finish(bnn_layer, params, d.weight, d.bias, "kernel")
 

@@ -1,11 +1,17 @@
-"""``Sequential`` that threads (x, kl) tuples, the MC-aware ``BatchNorm2d``
-and pooling modules that take ``QTensor``s (counterparts of those of
-``bayesian_torch_tpu/nn/modules.py``; the other modules there are twins of
-``torch.nn``, which the port uses directly)."""
+"""``Sequential`` that threads (x, kl) tuples, the MC-aware BatchNorms,
+the seeded channel dropout ``Dropout2d`` and pooling modules that take
+``QTensor``s (counterparts of those of ``bayesian_torch_tpu/nn/modules.py``;
+the other modules there are twins of ``torch.nn``, which the port uses
+directly)."""
 
 from torch import nn
 
-from bayesian_torch_tpu_torch.layers.batchnorm import BatchNorm2d  # noqa: F401,E501
+from bayesian_torch_tpu_torch.layers.batchnorm import (  # noqa: F401
+    BatchNorm1d,
+    BatchNorm2d,
+    BatchNorm3d,
+)
+from bayesian_torch_tpu_torch.layers.dropout import Dropout2d  # noqa: F401
 from bayesian_torch_tpu_torch.nn import functional as F
 
 

@@ -120,7 +120,7 @@ def qconv(x_q, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale, out_zp, *,
     if groups != 1 or transposed or data_format != "NCHW":
         raise NotImplementedError(
             "qconv: grouped, transposed and channels-last quantized convs "
-            "are not ported yet (ROADMAP Queue 1 #11); the port covers "
+            "are not ported yet (ROADMAP Queue 1 #14); the port covers "
             "groups=1, NCHW, not transposed")
     nd = x_q.dim() - 2
     k = tuple(w_q.shape[2:])

@@ -218,9 +218,9 @@ def _mc_batch_stats(model: nn.Module, bn_stats: str):
             raise NotImplementedError(
                 f"mc_forward: {type(mod).__name__} in training mode would "
                 "update its running statistics once per draw; use the "
-                "port's MC-aware bayesian_torch_tpu_torch.nn.BatchNorm2d "
-                "(or BatchNorm2dLayer), which records each draw's "
-                "statistics for one EMA update")
+                "port's MC-aware bayesian_torch_tpu_torch.nn.BatchNorm"
+                "{1,2,3}d (or BatchNorm{1,2,3}dLayer), which records each "
+                "draw's statistics for one EMA update")
         frozen.append(mod)
         if bn_stats == "ema":
             collecting.append(mod)

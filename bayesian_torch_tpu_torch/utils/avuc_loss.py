@@ -114,7 +114,9 @@ class AUAvULoss(_UncertaintyMixin, nn.Module):
 
     def forward(self, logits, labels, type=0):
         confidences, accurate, unc = self._classify(logits, labels, type)
-        th_list = torch.linspace(0.0, 1.0, 21, dtype=unc.dtype,
+        # thresholds in f32 whatever the logits' dtype, as JAX builds them:
+        # the curve and its area then come out in f32
+        th_list = torch.linspace(0.0, 1.0, 21, dtype=torch.float32,
                                  device=unc.device)
         umin, umax = torch.min(unc), torch.max(unc)
         unc_ths = umin + th_list * (umax - umin)

@@ -7,10 +7,11 @@ buffers and are rebuilt from the config), as the reference's
 ``torch.save(state_dict)``. ``save_training_checkpoint`` /
 ``load_training_checkpoint`` keep the ``--resume`` payload under the JAX
 payload's keys: ``model``, ``opt`` (the optimizer's ``state_dict``),
-``meta`` (``epoch``, ``best_acc``) and ``rng_count``. Where the JAX
-payload keeps each noise stream's counter, the port keeps each layer's
-CPU generator state, so a resumed run draws the same noise as one that
-never stopped. Files are written with ``torch.save`` and read back with
+``meta`` (``epoch``, ``best_acc``) and ``rng_count``, and ``sched``, the
+learning-rate scheduler's state (the JAX payload's optimizer state holds
+its schedule's step count). Where the JAX payload keeps each noise
+stream's counter, the port keeps each layer's CPU generator state, so a
+resumed run draws the same noise as one that never stopped. Files are written with ``torch.save`` and read back with
 ``weights_only=True``.
 
 ``load_jax_state`` is the reverse of ``import_torch_state_dict``: the port
@@ -60,9 +61,11 @@ def load_checkpoint(model: nn.Module, path) -> None:
 
 
 def save_training_checkpoint(path, model: nn.Module, optimizer=None, *,
-                             epoch: int = 0, best_acc: float = 0.0) -> None:
+                             epoch: int = 0, best_acc: float = 0.0,
+                             scheduler=None) -> None:
     """Full training checkpoint: model state, optimizer state, every
-    layer's generator state, epoch and best accuracy."""
+    layer's generator state, epoch and best accuracy, and the
+    learning-rate scheduler's state (``sched``) when one is given."""
     payload = {
         "model": model.state_dict(),
         "rng_count": {name: gen.get_state()
@@ -71,10 +74,13 @@ def save_training_checkpoint(path, model: nn.Module, optimizer=None, *,
     }
     if optimizer is not None:
         payload["opt"] = optimizer.state_dict()
+    if scheduler is not None:
+        payload["sched"] = scheduler.state_dict()
     _save(payload, path)
 
 
-def load_training_checkpoint(path, model: nn.Module, optimizer=None) -> dict:
+def load_training_checkpoint(path, model: nn.Module, optimizer=None, *,
+                             scheduler=None) -> dict:
     """Restore a ``save_training_checkpoint`` payload in place; returns
     ``{"epoch": int, "best_acc": float}`` so a trainer continues from
     the next epoch."""
@@ -89,6 +95,8 @@ def load_training_checkpoint(path, model: nn.Module, optimizer=None) -> dict:
         gen.set_state(payload["rng_count"][name])
     if optimizer is not None:
         optimizer.load_state_dict(payload["opt"])
+    if scheduler is not None:
+        scheduler.load_state_dict(payload["sched"])
     return {"epoch": int(payload["meta"]["epoch"]),
             "best_acc": float(payload["meta"]["best_acc"])}
 

@@ -26,6 +26,10 @@ weights and images, 224x224, 1000 classes, bf16 compute:
   inference and MC-4 bs128 ELBO steps, through the draw loop and through
   the vmap emission, and one vmap batch with the pointwise emission (the
   mean convs through K-G at S = 1, the perturbation convs through K-G);
+- the small-model zoo: the ConvTranspose layers, the Bayesian CIFAR
+  ResNet-110 trainer (f32, bs128, MC-50 evaluation), the Flipout CIFAR
+  trainer, the deterministic CIFAR and MNIST trainers, the Bayesian MNIST
+  trainer and the INT8 CIFAR and SCNN paths (phases 32-36);
 - model surgery: the deterministic ResNet-50
   (``models/deterministic/resnet_large.py``), ``utils.MOPED`` into the
   Bayesian ResNet-50 and ``models.dnn_to_bnn`` of the deterministic one
@@ -169,13 +173,42 @@ Phases, each printing its own line(s):
     --quantize-activations`` on its checkpoint (K-F launched, INT8
     accuracy in [0, 1]) (run after phase 11);
 31. ``graft_entry.entry()``: its MC-2 forward at 64x64 on the card, the
-    output's shape and finiteness.
+    output's shape and finiteness;
+32. (a) the small-model zoo, after the INT8 phases: the six
+    ``ConvTranspose*`` layers on the geometry cases of
+    ``tests/test_conv_ops.py`` with injected noise against a CPU copy
+    (f32, TF32 off, 1e-4 x max|CPU|); a Conv -> ConvTranspose model's vmap
+    MC-10 lane for lane against its loop on the same presampled draws;
+33. (b) the Bayesian CIFAR ResNet-110 (16/32/64 wide) at bs128, 32^2, f32:
+    ``main_bayesian_cifar --arch resnet110 --epochs 1`` (32 steps on the
+    4096 synthetic images, then its MC-50 evaluation at bs1000; K-A and
+    K-C drho launches exact: 111 each a step); ms per ELBO step at MC-1
+    (loop) and MC-4 (emission "auto": vmap; 110 K-A and K-C dsigma a
+    step), peak memory, device busy time and idle share of one step of
+    each; ms per MC-50 batch at bs1000; rho = -30: the MC-50 mean within
+    2^-6 x max|logit| of one draw; rho = -60, f32 TF32 off: a vmap MC-4
+    step within 2^-6 of a loop step;
+34. (c) ``main_bayesian_flipout_cifar --arch resnet20 --epochs 1
+    --num_monte_carlo 4`` (launches exact) and its MC-1 step timed;
+35. (d) ``main_deterministic_cifar --arch resnet20``,
+    ``main_deterministic_mnist`` and ``main_bayesian_mnist`` (bs64, one
+    epoch, MC-20 evaluation) with every step timed; the SCNN's vmap MC-4
+    log-probabilities sum to 1 in every draw;
+36. (e) ``main_bayesian_cifar_dnn2bnn --mode=ptq --arch resnet20`` (K-F
+    launches exact) and ``quantization_test``; a calibrated INT8 CIFAR
+    ResNet-20 (conv+BN folding, uint8 activations): K-F bit for bit at its
+    bs128 GEMM shapes and at the SCNN's (device times as in phase 14),
+    INT8 MC-20 bs1000 timed, and its logits with frozen draws against a CPU
+    copy (the activations out of layer3 bit for bit, the logits within 3
+    head quanta). Each zoo phase logs its seconds.
 
 The line before the last is a JSON object with every kernel's launches,
 counted from zero in the run named by its ``run`` key, its error against
-its plain version and both times; the last line is ``{"ok": true,
-"device": {...}}``, printed only after every phase passed. Any failure
-raises and exits non-zero, as does a machine without CUDA.
+its plain version and both times; K-A, K-C and K-F also carry ``paths``,
+their launches on each path of the zoo, each counted from zero; the last
+line is ``{"ok": true, "device": {...}}``, printed only after every phase
+passed. Any failure raises and exits non-zero, as does a machine without
+CUDA.
 """
 
 from __future__ import annotations
@@ -702,18 +735,18 @@ def phase_noise_grad(model):
         "K-C drho", dict(max_abs_err=err, **times), 12 * n, 4 * n,
         normals=n)
     del g, rho
-    layer_sweep()
+    layer_sweep(layer_sizes()[0], "ResNet-50's per-layer buffers")
     return results
 
 
-def layer_sweep():
-    """K-A and K-C against their plain versions at each of the 54
-    per-layer draw buffers of the training steps (``kernel_times.
-    layer_sizes``): K-A in rho mode (S = 1; f32 in and out, and bf16 in and
-    out as the draw loop runs it) and at S = 4 (bf16 out), K-C drho (S = 1;
-    f32 g and rho, and bf16 as the draw loop runs it) and dsigma (S = 4,
-    bf16 g); and,
-    at the smallest buffer, the identity that ties backward to forward:
+def layer_sweep(sizes, what):
+    """K-A and K-C against their plain versions at the draw buffers of
+    ``sizes`` (elements: ResNet-50's 54 per-layer buffers of the training
+    steps, ``kernel_times.layer_sizes``, or the zoo's): K-A in rho mode
+    (S = 1; f32 in and out, and bf16 in and out as the draw loop runs it)
+    and at S = 4 (bf16 out), K-C drho (S = 1; f32 g and rho, and bf16 as
+    the draw loop runs it) and dsigma (S = 4, bf16 g); and, at the
+    smallest buffer, the identity that ties backward to forward:
     dsigma of ones equals the sum of K-A's draws at mu = 0, sigma = 1 in
     f32, bit for bit."""
     import torch
@@ -733,7 +766,6 @@ def layer_sweep():
     def rel(got, want):
         return max_err(got, want) / max(want.abs().max().item(), 1e-30)
 
-    sizes, _ = layer_sizes()
     for i, n in enumerate(sizes):
         seed = 0x5EED_0000_0000_0100 + i
         mu = 0.1 * torch.randn(n, generator=gen, device="cuda")
@@ -773,19 +805,19 @@ def layer_sweep():
         total = total + draws[s]
     torch.cuda.synchronize()
     same = torch.equal(ka.dsigma(7, ones), total)
-    log(f"[layers] K-A and K-C at the {len(sizes)} per-layer buffers "
+    log(f"[layers] K-A and K-C at {what}, {len(sizes)} sizes "
         f"({min(sizes)} to {max(sizes)} elements) against their plain "
         f"versions, worst: " + ", ".join(f"{k} {v:.3e}"
                                         for k, v in worst.items())
         + f" (limits 1e-5, 1 ulp, 1 ulp, then 1e-5 x max|plain|); "
         f"dsigma of ones equals the sum of K-A's draws bit for bit: {same}")
-    check(worst["K-A rho f32"] <= 1e-5, "K-A rho mode f32 off at a layer")
+    check(worst["K-A rho f32"] <= 1e-5, f"K-A rho mode f32 off at {what}")
     check(worst["K-A rho bf16 (ulp)"] <= 1.0
           and worst["K-A S=4 bf16 (ulp)"] <= 1.0,
-          "K-A bf16 more than one ulp off at a layer")
+          f"K-A bf16 more than one ulp off at {what}")
     check(max(worst["K-C drho"], worst["K-C drho bf16"],
               worst["K-C dsigma"]) <= 1e-5,
-          "K-C off its plain version at a layer")
+          f"K-C off its plain version at {what}")
     check(same, "dsigma(ones) differs from the sum of K-A's draws")
 
 
@@ -1274,9 +1306,9 @@ def phase_trainer():
     return trained
 
 
-def profile_window(what, fn):
+def profile_window(what, fn, rows=25):
     """Run ``fn`` once under torch.profiler; log wall time, device time,
-    idle share and the top kernels."""
+    idle share and the top ``rows`` kernels; return (wall ms, busy ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1305,8 +1337,9 @@ def profile_window(what, fn):
     log(f"[profile] {what}: wall {wall:.1f} ms under the profiler, device "
         f"rows {dev:.1f} ms, device busy {busy:.1f} ms (union of their "
         f"spans), idle share {1 - busy / wall:.3f}")
-    log(events.table(sort_by="self_cuda_time_total", row_limit=25,
+    log(events.table(sort_by="self_cuda_time_total", row_limit=rows,
                      max_name_column_width=70))
+    return wall, busy
 
 
 def phase_profile(model, x, kb):
@@ -1674,7 +1707,9 @@ def phase_qmatmul(shapes):
     and no bias and with x_zp = 117 and a bias: bit for bit. Device times
     of the kernel, the plain version and ``torch._int_mm`` on the centred
     s8 operands (K, N padded to multiples of 8) at the path's shapes;
-    summed over one forward's launches."""
+    summed over one forward's launches. ``torch._int_mm`` takes only more
+    than 16 rows: at M <= 16 (the SCNN's linears at batch 1) no library
+    call computes the same function, and its time is left out."""
     import torch
     import torch.nn.functional as F
 
@@ -1683,6 +1718,7 @@ def phase_qmatmul(shapes):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                bytes=0.0, ops=0.0)
+    no_library = []  # the shapes no library call computes
     worst = 0
 
     def operands(M, K, N):
@@ -1716,26 +1752,35 @@ def phase_qmatmul(shapes):
         kp, np_ = -(-K // 8) * 8, -(-N // 8) * 8
         xc = F.pad((x.int() - 128).to(torch.int8), (0, kp - K))
         wc = F.pad(w, (0, kp - K, 0, np_ - N))
-        ms, plain_ms, lib_ms = device_times(
-            (lambda: kf.qmatmul_requant(x, 0.02, 117, w, 0.01, b, out_scale,
-                                        128), "qmatmul"),
-            (lambda: kf.qmatmul_requant_plain(x, w, *args, 128), None),
-            (lambda: torch._int_mm(xc, wc.t()), None))
+        calls = [(lambda: kf.qmatmul_requant(x, 0.02, 117, w, 0.01, b,
+                                             out_scale, 128), "qmatmul"),
+                 (lambda: kf.qmatmul_requant_plain(x, w, *args, 128), None)]
+        if M > 16:
+            calls.append((lambda: torch._int_mm(xc, wc.t()), None))
+        ms, plain_ms, *lib_ms = device_times(*calls)
+        lib_ms = lib_ms[0] if lib_ms else None
         nbytes, ops = M * K + N * K + M * N + 8 * N, 2 * M * N * K
         bound_ms, by = bound(nbytes, ops, INT8_OPS)
+        if lib_ms is None:
+            no_library.append((M, K, N))
+        lib = "n/a (M <= 16)" if lib_ms is None else f"{lib_ms:.4f} ms"
         log(f"[K-F] M={M} K={K} N={N} x{count}: kernel {ms:.4f} ms "
             f"({ops / ms / 1e9:.1f} TOP/s, {nbytes / ms / 1e6:.0f} GB/s), "
-            f"plain {plain_ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, bound "
+            f"plain {plain_ms:.4f} ms, torch._int_mm {lib}, bound "
             f"{bound_ms:.4f} ms ({by}); bit-exact at x_zp 128 and 117+bias")
         for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                       ("library_ms", lib_ms), ("bound_ms", bound_ms),
+                       ("library_ms", lib_ms or 0.0), ("bound_ms", bound_ms),
                        ("bytes", nbytes), ("ops", ops)):
             tot[key] += count * v
         del x, w, xc, wc
+    if no_library:  # a sum over part of the forward is no library time
+        tot["library_ms"] = None
+    lib = (f"n/a ({len(no_library)} of {len(shapes)} shapes have M <= 16)"
+           if no_library else f"{tot['library_ms']:.3f} ms")
     log(f"[K-F] one forward ({sum(shapes.values())} launches, "
         f"{len(shapes)} shapes): kernel {tot['ms']:.3f} ms, plain "
-        f"{tot['plain_ms']:.3f} ms, torch._int_mm {tot['library_ms']:.3f} "
-        f"ms, bound {tot['bound_ms']:.3f} ms ({tot['ops'] / 1e12:.3f} T int8 "
+        f"{tot['plain_ms']:.3f} ms, torch._int_mm {lib}, bound "
+        f"{tot['bound_ms']:.3f} ms ({tot['ops'] / 1e12:.3f} T int8 "
         f"ops, {tot['bytes'] / 1e9:.3f} GB)")
     _, by = bound(tot["bytes"], tot["ops"], INT8_OPS)
     return dict(max_abs_err=float(worst), ms=tot["ms"],
@@ -2595,6 +2640,713 @@ def phase_entry():
           and bool(torch.isfinite(logits).all()), "entry() output")
 
 
+# --- the small-model zoo: ConvTranspose, the SCNN, the CIFAR ResNets ---------
+
+# (nd, in_ch, out_ch, k, stride, padding, output_padding, dilation, groups):
+# the geometry cases of tests/test_conv_ops.py::CONVT_CASES
+CONVT_CASES = [
+    (1, 4, 6, 3, 1, 0, 0, 1, 1),
+    (1, 6, 4, 4, 2, 1, 1, 1, 2),
+    (2, 3, 5, 3, 2, 1, 1, 1, 1),
+    (2, 4, 8, (3, 5), (2, 3), (1, 2), (1, 2), 1, 1),
+    (2, 6, 6, 3, 2, 0, 1, 2, 3),
+    (3, 2, 4, 3, 2, 1, 1, 1, 1),
+]
+CIFAR_ARCH = "resnet110"
+CIFAR_BATCH = 128
+CIFAR_TEST_BATCH = 1000
+CIFAR_MC = 50  # the CIFAR trainers' --num_monte_carlo
+MNIST_BATCH = 64
+MNIST_MC = 20
+INT8_MC = 20  # the dnn2bnn trainer's --num_monte_carlo
+ESTIMATORS = ("Reparameterization", "Flipout")
+
+
+def zoo_images(n, shape, seed):
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((n,) + shape, generator=gen).to("cuda")
+
+
+def zoo_labels(n, seed):
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 10, (n,), generator=gen).to("cuda")
+
+
+def rewound(layers, fn):
+    """``fn()`` with every layer's generator rewound after it."""
+    gens = {id(m.generator): m.generator for m in layers}.values()
+    states = [g.get_state() for g in gens]
+    try:
+        return fn()
+    finally:
+        for g, st in zip(gens, states):
+            g.set_state(st)
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its prints captured; returns (result, seconds,
+    the last two lines printed)."""
+    import io
+
+    import torch
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args)
+    torch.cuda.synchronize()
+    lines = out.getvalue().strip().splitlines()
+    return result, time.perf_counter() - t0, " | ".join(lines[-2:])
+
+
+def nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def phase_transposed():
+    """(a) The six ConvTranspose layers on the geometry cases, with
+    injected eps (and Flipout signs), against a CPU copy (f32, TF32 off),
+    within 1e-4 x max|CPU|; then a Conv -> ConvTranspose model through
+    the vmap emission lane for lane against its draw loop on the same
+    presampled draws (eval, presample on: one K-A launch each), within
+    2^-6 x max|out|. Returns the K-A launches of the two runs."""
+    import copy
+
+    import torch
+    from torch import nn
+
+    import bayesian_torch_tpu_torch.layers as tl
+    from bayesian_torch_tpu_torch.nn import BatchNorm2d
+    from bayesian_torch_tpu_torch.ops.conv import conv_transpose_nd
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 700)
+    worst = 0.0
+    for nd, ci, co, k, s, p, op, d, g in CONVT_CASES:
+        geometry = dict(stride=s, padding=p, output_padding=op, dilation=d,
+                        groups=g)
+        x = torch.randn((8, ci) + (16,) * nd, generator=gen)
+        for est in ESTIMATORS:
+            layer = getattr(tl, f"ConvTranspose{nd}d{est}")(
+                ci, co, k, generator=torch.Generator().manual_seed(SEED),
+                device="cuda", **geometry)
+            out_shape = conv_transpose_nd(
+                x[:1], layer.mu_kernel.detach().cpu(), **geometry).shape
+            noise = dict(eps_k=torch.randn(layer.mu_kernel.shape,
+                                           generator=gen),
+                         eps_b=torch.randn(co, generator=gen))
+            if est == "Flipout":
+                noise["sign_in"] = torch.randint(
+                    0, 2, x.shape, generator=gen).float() * 2 - 1
+                noise["sign_out"] = torch.randint(
+                    0, 2, (8,) + tuple(out_shape[1:]), generator=gen
+                ).float() * 2 - 1
+            with torch.no_grad(), tf32_off():
+                got, _ = layer(x.to("cuda"), **{n: v.to("cuda")
+                                                for n, v in noise.items()})
+                want, _ = copy.deepcopy(layer).cpu()(x, **noise)
+            err = max_err(got.cpu(), want) / want.abs().max().item()
+            check(tuple(got.shape) == tuple(want.shape)
+                  and bool(torch.isfinite(got).all()),
+                  f"ConvTranspose{nd}d{est}: output")
+            check(err <= 1e-4, f"ConvTranspose{nd}d{est} {geometry}: card "
+                  f"and CPU differ by {err:.3e} of max|CPU|")
+            worst = max(worst, err)
+    log(f"[transposed] ConvTranspose{{1,2,3}}d in both estimators on "
+        f"{len(CONVT_CASES)} geometry cases (batch 8, 16 per side), "
+        f"injected noise, f32 TF32 off: worst max|card - CPU| / max|CPU| = "
+        f"{worst:.3e}, limit 1e-4 ({time.perf_counter() - t0:.1f} s)")
+
+    class UpNet(nn.Module):
+        def __init__(self, gen):
+            super().__init__()
+            kw = dict(generator=gen, device="cuda")
+            self.down = tl.Conv2dReparameterization(3, 32, 3, stride=2,
+                                                    padding=1, **kw)
+            self.bn = BatchNorm2d(32, device="cuda")
+            self.up = tl.ConvTranspose2dReparameterization(
+                32, 16, 3, stride=2, padding=1, output_padding=1, **kw)
+            self.head = tl.LinearReparameterization(16, 10, **kw)
+
+        def forward(self, x):
+            out, kl = self.down(x)
+            out = torch.relu(self.bn(out))
+            out, kl_up = self.up(out)
+            out, kl_head = self.head(torch.relu(out).mean(dim=(2, 3)))
+            return out, kl + kl_up + kl_head
+
+    model = UpNet(torch.Generator().manual_seed(SEED + 701)).eval()
+    layers = [model.down, model.up, model.head]
+    x = zoo_images(CIFAR_BATCH, (3, 32, 32), SEED + 702)
+    runs, paths = {}, {}
+    for emission in ("vmap", "scan"):
+        reset_counts()
+        runs[emission] = rewound(layers, lambda: mc_forward(
+            model, x, 10, presample="on", return_kl=False,
+            emission=emission))
+        torch.cuda.synchronize()
+        paths[f"ConvTranspose model MC-10 {emission}"] = counts()
+        check(counts()["K-A"] == 1, f"UpNet {emission}: K-A launched "
+              f"{counts()['K-A']} times, want 1")
+    vmap, loop = runs["vmap"], runs["scan"]
+    diff, scale = max_err(vmap, loop), loop.abs().max().item()
+    log(f"[transposed] Conv -> ConvTranspose model, MC-10 bs{CIFAR_BATCH} "
+        f"32^2 f32: vmap emission vs the loop on the same presampled draws: "
+        f"max|diff| {diff:.3e}, limit 2^-6 x max|out| = {2**-6 * scale:.3e}")
+    check(tuple(vmap.shape) == (10, CIFAR_BATCH, 10)
+          and diff <= 2**-6 * scale, "UpNet: vmap and loop lanes differ")
+    return paths
+
+
+def zoo_draw_sizes(*models):
+    """The distinct sizes of the models' draw buffers: each weight and
+    each bias (the draw loop's K-A rho mode and K-C drho) and each layer's
+    weight and bias as one flat buffer (the vmap emission's K-A at S draws
+    and K-C dsigma)."""
+    from bayesian_torch_tpu_torch.models.dnn_to_bnn import (
+        iter_bayesian_layers,
+    )
+
+    sizes = set()
+    for model in models:
+        for layer in iter_bayesian_layers(model):
+            numels = [p.numel() for name, p in layer.named_parameters()
+                      if name.startswith("mu_")]
+            sizes.update(numels)
+            sizes.add(sum(numels))
+    return sorted(sizes)
+
+
+def presample_check(what, model, num_mc):
+    """K-A at ``num_mc`` draws over the model's whole flat posterior, f32,
+    as the MC evaluation's presample draws it, against its plain version
+    within 1e-5."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops.cuda import sampled_weights as ka
+
+    mu, sigma = flat_posterior(model)
+    seed = 0x5EED_0000_0000_0200
+    err = max_err(
+        ka.sample_scaled_normals_batch(seed, mu, sigma, num_mc,
+                                       torch.float32),
+        ka.sample_scaled_normals_batch_plain(seed, mu, sigma, num_mc,
+                                             torch.float32))
+    log(f"[K-A presample] {what}: n={mu.numel()} S={num_mc} f32 "
+        f"max|kernel-plain|={err:.3e} (limit 1e-5)")
+    check(err <= 1e-5, f"K-A off its plain version at {what}'s presample")
+
+
+def cifar_model(arch, estimator="Reparameterization"):
+    import torch
+
+    from bayesian_torch_tpu_torch.examples.main_bayesian_cifar import (
+        get_model,
+    )
+    return get_model(arch, SEED + 720, estimator, torch.device("cuda"))
+
+
+def trainer_launches(what, mod, argv, want=None):
+    """Run a trainer's ``main(argv)`` with every count set to 0 before it;
+    log its seconds, launches and last lines; check the launches against
+    ``want`` (the kernels named there) if given. Returns (result,
+    launches, seconds)."""
+    reset_counts()
+    result, secs, tail = quiet(mod.main, argv)
+    got = counts()
+    log(f"[{what}] {mod.__name__.rsplit('.', 1)[-1]} {' '.join(argv)}: "
+        f"{secs:.1f} s, launches {nonzero(got)}; last lines: {tail}")
+    if want is not None:
+        check(all(got[k] == v for k, v in want.items()),
+              f"{what}: launches {nonzero(got)}, want {want}")
+    return result, got, secs
+
+
+def timed_steps(what, model, step, inputs, want, reps=3):
+    """One warm-up and ``reps`` timed steps ``step(x, y)`` (host clock to
+    synchronize), the launches of each step checked against ``want``;
+    returns (median ms, peak GiB)."""
+    import torch
+
+    step(*inputs(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(reps):
+        x, y = inputs(i + 1)
+        before = counts()
+        t0 = time.perf_counter()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        got = {k: v - before[k] for k, v in counts().items()}
+        check(math.isfinite(float(loss)), f"{what}: loss {float(loss)}")
+        if want is not None:
+            check(got == want, f"{what} step {i}: launches {nonzero(got)}, "
+                  f"want {nonzero(want)}")
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    batch = x.shape[0]
+    log(f"[{what}] steps {', '.join(f'{t:.1f}' for t in times)} ms: median "
+        f"{ms:.2f} ms/step, {batch / ms * 1e3:.1f} images/s, peak "
+        f"{peak:.2f} GiB; launches per step "
+        f"{nonzero(want) if want is not None else 'not gated'}")
+    return ms, peak
+
+
+def elbo_step(model, num_mc, batch, emission="auto"):
+    """The CIFAR trainer's step: ``make_train_step`` with Adam."""
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    fn = make_train_step(num_mc, batch, emission=emission)
+    return lambda x, y: fn(model, opt, x, y)[0]
+
+
+def phase_cifar(cap_train, cap_test):
+    """(b) The Bayesian CIFAR ResNet-110 (reparameterization) at its full
+    widths (16/32/64), batch 128, 32^2, f32 (cuDNN's default TF32
+    convolutions): the trainer for one epoch with its MC-50 evaluation,
+    K-A and K-C (drho) launches counted exactly; ms per ELBO step at MC-1
+    (the draw loop) and MC-4 (emission "auto": vmap), peak memory, device
+    busy time and idle share of one step of each; ms per MC-50 batch at
+    bs1000; the rho = -30 and rho = -60 sanity gates. First K-A and K-C
+    against their plain versions at every draw buffer of the ResNet and
+    the SCNN (``layer_sweep``) and K-A over their whole posteriors at the
+    evaluations' MC-50 and MC-20. Returns {path: launches}."""
+    import tempfile
+
+    import torch
+
+    from bayesian_torch_tpu_torch.examples import main_bayesian_cifar
+    from bayesian_torch_tpu_torch.models.bayesian.simple_cnn_variational \
+        import SCNN
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+    from bayesian_torch_tpu_torch.parallel.mc import _resolve_emission
+
+    paths = {}
+    model = cifar_model(CIFAR_ARCH)
+    per_step = expected_step_launches(model, 1)
+    n_weights = per_step["K-A"]
+    depth = int(CIFAR_ARCH[len("resnet"):])
+    check(n_weights == depth + 1, f"{CIFAR_ARCH}: {n_weights} weight draws "
+          f"a step, want {depth + 1} ({depth - 1} convs, the head's weight "
+          "and bias)")
+    scnn = SCNN(generator=torch.Generator().manual_seed(SEED + 740),
+                device="cuda")
+    layer_sweep(zoo_draw_sizes(model, scnn),
+                f"the {CIFAR_ARCH}'s and the SCNN's draw buffers")
+    presample_check(CIFAR_ARCH, model, CIFAR_MC)
+    presample_check("the SCNN", scnn, MNIST_MC)
+    del scnn
+    steps, evals = cap_train // CIFAR_BATCH, cap_test // CIFAR_TEST_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics, got, secs = trainer_launches(
+            "cifar trainer", main_bayesian_cifar,
+            ["--arch", CIFAR_ARCH, "--synthetic", "--epochs", "1",
+             f"--batch-size={CIFAR_BATCH}",
+             f"--test-batch-size={CIFAR_TEST_BATCH}",
+             f"--num_monte_carlo={CIFAR_MC}", "--device=cuda",
+             f"--save_dir={tmp}"],
+            {"K-A": steps * n_weights + evals,
+             "K-C drho": steps * n_weights, "K-C dsigma": 0, "K-F": 0})
+    check(0.0 <= metrics["accuracy"] <= 1.0, f"cifar trainer {metrics}")
+    paths["cifar trainer"] = got
+
+    x = zoo_images(CIFAR_BATCH, (3, 32, 32), SEED + 721)
+    y = zoo_labels(CIFAR_BATCH, SEED + 721)
+    model.train()
+    check(_resolve_emission(model, 4, True) == "vmap",
+          "emission 'auto' does not take vmap at MC-4")
+    for num_mc, want in ((1, per_step),
+                         (4, expected_vmap_launches(model, training=True))):
+        what = (f"cifar {CIFAR_ARCH} MC-{num_mc} "
+                f"{'loop' if num_mc == 1 else 'vmap'} step")
+        step = elbo_step(model, num_mc, CIFAR_BATCH)
+        reset_counts()
+        ms, peak = timed_steps(what, model, step, lambda i: (x, y), want)
+        paths[what] = counts()
+        wall, busy = profile_window(f"one {what} (bs{CIFAR_BATCH})",
+                                    lambda: step(x, y), rows=12)
+        log(f"[{what}] device busy {busy:.1f} ms of {wall:.1f} ms under "
+            f"the profiler, idle share {1 - busy / wall:.3f}")
+        check_grads(model, what)
+
+    model.eval()
+    xt = zoo_images(CIFAR_TEST_BATCH, (3, 32, 32), SEED + 722)
+    reset_counts()
+    mean = None
+
+    def mc50():
+        nonlocal mean
+        mean = mc_forward(model, xt, CIFAR_MC, reduce="mean",
+                          return_kl=False)
+
+    ms = wall_ms(mc50, reps=3)
+    paths[f"cifar MC-{CIFAR_MC} bs{CIFAR_TEST_BATCH} batches"] = counts()
+    check(counts()["K-A"] == 4, f"MC-{CIFAR_MC}: {counts()['K-A']} K-A "
+          "launches in 4 batches, want 4")
+    check(tuple(mean.shape) == (CIFAR_TEST_BATCH, 10)
+          and bool(torch.isfinite(mean).all()), "MC-50 mean")
+    log(f"[cifar eval] {card()}: {CIFAR_ARCH} MC-{CIFAR_MC} "
+        f"bs{CIFAR_TEST_BATCH} 32^2 f32 (the loop, presample on): median "
+        f"{ms:.1f} ms/batch, {CIFAR_TEST_BATCH / ms * 1e3:.1f} images/s, "
+        f"{CIFAR_TEST_BATCH * CIFAR_MC / ms * 1e3:.0f} image-draws/s")
+    zoo_mc_sanity(model, xt[:CIFAR_BATCH])
+    zoo_vmap_step_sanity(model, x, y)
+    return paths
+
+
+def zoo_mc_sanity(model, x):
+    """rho = -30: the MC-50 mean within 2^-6 x max|logit| of one draw."""
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    try:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if "rho" in name:
+                    p.fill_(-30.0)
+        many = mc_forward(model, x, CIFAR_MC, reduce="mean", return_kl=False)
+        one = mc_forward(model, x, 1, reduce="mean", return_kl=False)
+    finally:
+        model.load_state_dict(saved)
+    diff, scale = max_err(many, one), one.abs().max().item()
+    log(f"[cifar sanity] rho=-30: max|MC-{CIFAR_MC} mean - one draw| = "
+        f"{diff:.3e}, limit 2^-6 x max|logit| = {2**-6 * scale:.3e}")
+    check(diff <= 2**-6 * scale, "rho=-30: the MC-50 mean differs from a "
+          "draw")
+
+
+def zoo_vmap_step_sanity(model, x, y):
+    """rho = -60, f32 with TF32 off: a vmap MC-4 step and a loop MC-4 step
+    from the same state give the same loss, mu gradients and running
+    statistics, within 2^-6 of each tensor's largest value."""
+    import torch
+
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def step_from_saved(emission):
+        model.load_state_dict(saved)
+        model.train()
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if "rho" in name:
+                    p.fill_(-60.0)
+        for p in model.parameters():
+            p.grad = None
+        loss = elbo_step(model, 4, x.shape[0], emission)(x, y)
+        out = {n: p.grad.clone() for n, p in model.named_parameters()
+               if "mu_" in n}
+        out.update({k: v.clone() for k, v in model.state_dict().items()
+                    if k.endswith(("running_mean", "running_var"))})
+        return float(loss), out
+
+    try:
+        with tf32_off():
+            loss_v, vmap = step_from_saved("vmap")
+            loss_l, loop = step_from_saved("scan")
+    finally:
+        model.load_state_dict(saved)
+    err, name = max((max_err(vmap[k], loop[k])
+                     / max(loop[k].abs().max().item(), 1e-30), k)
+                    for k in loop)
+    log(f"[cifar sanity] rho=-60, f32 TF32 off: vmap and loop MC-4 steps: "
+        f"loss {loss_v:.6f} and {loss_l:.6f}; worst max|diff| / max|loop| "
+        f"over {len(loop)} mu gradients and running statistics = {err:.3e} "
+        f"({name}), limit 2^-6")
+    check(abs(loss_v - loss_l) <= 2**-6 * abs(loss_l)
+          and err <= 2**-6, f"rho=-60: the vmap and loop steps differ at "
+          f"{name}")
+
+
+def phase_flipout_cifar(cap_train, cap_test):
+    """(c) The Flipout CIFAR trainer at resnet20 for one epoch with its
+    MC-4 evaluation (launches exact), and its MC-1 step timed."""
+    import tempfile
+
+    from bayesian_torch_tpu_torch.examples import main_bayesian_flipout_cifar
+
+    model = cifar_model("resnet20", "Flipout")
+    per_step = expected_step_launches(model, 1)
+    steps, evals = cap_train // CIFAR_BATCH, cap_test // CIFAR_TEST_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics, got, _ = trainer_launches(
+            "flipout cifar trainer", main_bayesian_flipout_cifar,
+            ["--arch", "resnet20", "--synthetic", "--epochs", "1",
+             f"--batch-size={CIFAR_BATCH}",
+             f"--test-batch-size={CIFAR_TEST_BATCH}",
+             "--num_monte_carlo=4", "--device=cuda",
+             f"--save_dir={tmp}"],
+            {"K-A": steps * per_step["K-A"] + evals,
+             "K-C drho": steps * per_step["K-A"]})
+    check(0.0 <= metrics["accuracy"] <= 1.0, f"flipout trainer {metrics}")
+    x = zoo_images(CIFAR_BATCH, (3, 32, 32), SEED + 730)
+    y = zoo_labels(CIFAR_BATCH, SEED + 730)
+    model.train()
+    timed_steps("flipout cifar resnet20 MC-1 step", model,
+                elbo_step(model, 1, CIFAR_BATCH), lambda i: (x, y), per_step)
+    return {"flipout cifar trainer": got}
+
+
+def det_step(model, loss_fn, opt):
+    def step(x, y):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(model(x), y)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+    return step
+
+
+def phase_small_trainers(cap_train, cap_test):
+    """(d) The deterministic CIFAR ResNet-20 and MNIST SCNN trainers and the
+    Bayesian MNIST trainer (bs64, one epoch, MC-20 evaluation), each
+    step timed; the SCNN's vmap MC-4 log-probabilities sum to 1 in every
+    draw."""
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from bayesian_torch_tpu_torch.examples import (main_bayesian_mnist,
+                                                   main_deterministic_cifar,
+                                                   main_deterministic_mnist)
+    from bayesian_torch_tpu_torch.examples._engine import (make_optimizer,
+                                                           make_train_step)
+    from bayesian_torch_tpu_torch.models.bayesian.simple_cnn_variational \
+        import SCNN
+    from bayesian_torch_tpu_torch.models.deterministic import resnet
+    from bayesian_torch_tpu_torch.models.deterministic.simple_cnn import (
+        SCNN as DetSCNN,
+    )
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mod, extra in ((main_deterministic_cifar,
+                            ["--arch", "resnet20",
+                             f"--batch-size={CIFAR_BATCH}",
+                             f"--test-batch-size={CIFAR_TEST_BATCH}"]),
+                           (main_deterministic_mnist,
+                            [f"--batch-size={MNIST_BATCH}",
+                             f"--test-batch-size={CIFAR_TEST_BATCH}"])):
+            acc, got, _ = trainer_launches(
+                "det trainer", mod, ["--synthetic", "--epochs", "1",
+                                     "--device=cuda",
+                                     f"--save_dir={tmp}", *extra],
+                dict.fromkeys(kernel_counters(), 0))
+            check(0.0 <= acc <= 1.0, f"{mod.__name__}: accuracy {acc}")
+        scnn = SCNN(generator=torch.Generator().manual_seed(SEED + 740),
+                    device="cuda")
+        per_step = expected_step_launches(scnn, 1)
+        steps = cap_train // MNIST_BATCH
+        metrics, got, _ = trainer_launches(
+            "mnist trainer", main_bayesian_mnist,
+            ["--synthetic", "--epochs", "1", f"--batch-size={MNIST_BATCH}",
+             f"--test-batch-size={CIFAR_TEST_BATCH}",
+             f"--num_monte_carlo={MNIST_MC}", "--device=cuda",
+             f"--save_dir={tmp}/bayes"],
+            {"K-A": steps * per_step["K-A"] + cap_test // CIFAR_TEST_BATCH,
+             "K-C drho": steps * per_step["K-A"]})
+        check(0.0 <= metrics["accuracy"] <= 1.0, f"mnist {metrics}")
+        paths["mnist trainer"] = got
+
+    gen = torch.Generator().manual_seed(SEED + 741)
+    det20 = resnet.resnet20(generator=gen, device="cuda").train()
+    xc = zoo_images(CIFAR_BATCH, (3, 32, 32), SEED + 742)
+    yc = zoo_labels(CIFAR_BATCH, SEED + 742)
+    timed_steps("det cifar resnet20 step", det20, det_step(
+        det20, F.cross_entropy, torch.optim.SGD(det20.parameters(), lr=0.1,
+                                                momentum=0.9)),
+        lambda i: (xc, yc), dict.fromkeys(kernel_counters(), 0))
+    xm = zoo_images(MNIST_BATCH, (1, 28, 28), SEED + 743)
+    ym = zoo_labels(MNIST_BATCH, SEED + 743)
+    det_scnn = DetSCNN(generator=gen, device="cuda").train()
+    timed_steps("det mnist scnn step", det_scnn, det_step(
+        det_scnn, F.nll_loss, make_optimizer(det_scnn, 1.0, "adadelta")),
+        lambda i: (xm, ym), dict.fromkeys(kernel_counters(), 0))
+    scnn.train()
+    opt = make_optimizer(scnn, 1.0, "adadelta")
+    fn = make_train_step(1, MNIST_BATCH)
+    reset_counts()
+    timed_steps("bayesian mnist scnn MC-1 step", scnn,
+                lambda x, y: fn(scnn, opt, x, y)[0], lambda i: (xm, ym),
+                per_step)
+    paths["bayesian mnist scnn MC-1 steps"] = counts()
+
+    scnn.eval()
+    reset_counts()
+    log_probs = mc_forward(scnn, xm, 4, emission="vmap", return_kl=False)
+    torch.cuda.synchronize()
+    sums = log_probs.float().exp().sum(-1)
+    err = (sums - 1).abs().max().item()
+    log(f"[scnn vmap] MC-4 bs{MNIST_BATCH} through the vmap emission: every "
+        f"draw's probabilities sum to 1 within {err:.2e} (limit 1e-4); "
+        f"launches {nonzero(counts())}")
+    check(tuple(log_probs.shape) == (4, MNIST_BATCH, 10) and err <= 1e-4,
+          "SCNN vmap: the log_softmax is not taken per draw")
+    return paths
+
+
+def phase_zoo_int8(cap_test):
+    """(e) The CIFAR dnn2bnn trainer's PTQ mode at resnet20 (float MC-20
+    evaluation, calibration, convert, INT8 MC-20 evaluation: K-F launches
+    exact) and ``quantization_test``; a calibrated INT8 CIFAR ResNet-20
+    (conv+BN folding, uint8 activations through the option-A shortcut):
+    K-F bit for bit at its GEMM shapes at bs128 and at the SCNN's,
+    INT8 MC-20 bs1000 timed, and the card's logits with frozen draws
+    against a CPU copy. Returns ({path: launches}, K-F's results at the
+    CIFAR shapes)."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from bayesian_torch_tpu_torch.examples import (
+        main_bayesian_cifar_dnn2bnn, quantization_test)
+    from bayesian_torch_tpu_torch.models.bayesian.simple_cnn_variational \
+        import SCNN
+    from bayesian_torch_tpu_torch.ops.qtensor import dequantize_if_qtensor
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+    from bayesian_torch_tpu_torch.quantization import (convert,
+                                                       freeze_quantized_draws,
+                                                       prepare)
+    from bayesian_torch_tpu_torch.utils.checkpoint import load_jax_quant_state
+
+    paths = {}
+    layers20 = 20  # resnet20: 19 convs and the head, one K-F launch each
+    with tempfile.TemporaryDirectory() as tmp:
+        out, got, _ = trainer_launches(
+            "cifar ptq", main_bayesian_cifar_dnn2bnn,
+            ["--mode=ptq", "--arch", "resnet20", "--synthetic",
+             f"--batch-size={CIFAR_BATCH}",
+             f"--test-batch-size={CIFAR_TEST_BATCH}",
+             f"--num_monte_carlo={INT8_MC}", "--device=cuda",
+             f"--save_dir={tmp}"],
+            {"K-F": layers20 * INT8_MC * (cap_test // CIFAR_TEST_BATCH)})
+    check(set(out) == {"float", "int8"}
+          and all(0.0 <= m["accuracy"] <= 1.0 for m in out.values()),
+          f"cifar ptq {out}")
+    log(f"[cifar ptq] {card()}: float MC-{INT8_MC} bs{CIFAR_TEST_BATCH} "
+        f"{out['float']['imgs_per_sec']:.1f} images/s, INT8 MC-{INT8_MC} "
+        f"{out['int8']['imgs_per_sec']:.1f} images/s; accuracy "
+        f"{out['float']['accuracy']:.4f} and {out['int8']['accuracy']:.4f}")
+    paths["cifar ptq trainer"] = got
+    (log_probs, kl), got, _ = trainer_launches(
+        "quantization_test", quantization_test, ["--device=cuda"],
+        {"K-F": 4})
+    check(tuple(log_probs.shape) == (1, 10)
+          and abs(log_probs.exp().sum().item() - 1) < 1e-4,
+          "quantization_test output")
+    paths["quantization_test"] = got
+
+    model = cifar_model("resnet20")
+    xc = zoo_images(CIFAR_BATCH, (3, 32, 32), SEED + 750)
+    set_bn_statistics(model, xc)
+    prepare(model)
+    with torch.no_grad():
+        model(xc)
+    convert(model, fuse_conv_bn=True, quantize_activations=True)
+    scnn = SCNN(generator=torch.Generator().manual_seed(SEED + 751),
+                device="cuda").eval()
+    prepare(scnn)
+    xm = zoo_images(1, (1, 28, 28), SEED + 752)
+    with torch.no_grad():
+        scnn(xm)
+    convert(scnn)
+    with torch.no_grad():
+        cifar_shapes = int8_shapes(model, xc)
+        scnn_shapes = int8_shapes(scnn, xm)
+    log(f"[zoo K-F] CIFAR resnet20 bs{CIFAR_BATCH} GEMMs (M, K, N): "
+        f"{dict(cifar_shapes)}; SCNN bs1: {dict(scnn_shapes)}")
+    kf_res = phase_qmatmul(cifar_shapes)
+    phase_qmatmul(scnn_shapes)
+
+    xt = zoo_images(CIFAR_TEST_BATCH, (3, 32, 32), SEED + 753)
+    reset_counts()
+    ms = wall_ms(lambda: mc_forward(model, xt, INT8_MC, reduce="mean",
+                                    return_kl=False), reps=3)
+    paths[f"cifar int8 MC-{INT8_MC} bs{CIFAR_TEST_BATCH} batches"] = counts()
+    check(counts()["K-F"] == 4 * INT8_MC * layers20, f"INT8 MC-{INT8_MC}: "
+          f"K-F {counts()['K-F']} in 4 batches, want "
+          f"{4 * INT8_MC * layers20}")
+    log(f"[cifar int8] {card()}: resnet20 INT8 (calibrated, conv+BN folded, "
+        f"uint8 activations) MC-{INT8_MC} bs{CIFAR_TEST_BATCH}: median "
+        f"{ms:.1f} ms/batch, {CIFAR_TEST_BATCH / ms * 1e3:.1f} images/s")
+
+    check(freeze_quantized_draws(model) == layers20, "froze the layers")
+    cpu = copy.deepcopy(cifar_model("resnet20")).cpu()
+    prepare(cpu)
+    convert(cpu, fuse_conv_bn=True, quantize_activations=True)
+    load_jax_quant_state(
+        cpu, {k: v.cpu().numpy() for k, v in model.state_dict().items()},
+        {name: m.quant_dict for name, m in model.named_modules()
+         if hasattr(m, "quant_dict")})
+    feats = {}
+
+    def run(m, x):
+        h = m.layer3[-1].register_forward_hook(
+            lambda mod, inp, out: feats.__setitem__(
+                x.device.type, dequantize_if_qtensor(out[0]).cpu()))
+        try:
+            with torch.no_grad():
+                return m(x)[0].cpu()
+        finally:
+            h.remove()
+
+    got, want = run(model, xc[:2]), run(cpu, xc[:2].cpu())
+    head_q = model.linear.quant_dict[4]["scale"]
+    diff = (got - want).abs()
+    exact = torch.equal(feats["cuda"], feats["cpu"])
+    log(f"[cifar int8 sanity] card vs CPU copy, frozen draws, 2 images: the "
+        f"activations out of layer3 equal: {exact}; logits max|diff| "
+        f"{diff.max().item() / head_q:.2f} head quanta (limit 3)")
+    check(exact and diff.max().item() <= 3 * head_q * (1 + 1e-6),
+          "INT8 CIFAR: card and CPU copy differ")
+    return paths, kf_res
+
+
+def phase_zoo():
+    """Phases (a) to (e) of the small-model zoo, each one's seconds
+    logged; returns ({kernel: {path: launches}} for K-A, K-C (both modes)
+    and K-F, K-F's results at the CIFAR ResNet-20's shapes)."""
+    import torch
+
+    from bayesian_torch_tpu_torch.examples import _data
+
+    caps = (_data._SYNTH_TRAIN_CAP, _data._SYNTH_TEST_CAP)
+    paths, seconds = {}, {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+        return out
+
+    paths.update(timed("transposed", phase_transposed))
+    paths.update(timed("cifar", phase_cifar, *caps))
+    paths.update(timed("flipout cifar", phase_flipout_cifar, *caps))
+    paths.update(timed("small trainers", phase_small_trainers, *caps))
+    int8_paths, kf_res = timed("int8", phase_zoo_int8, caps[1])
+    paths.update(int8_paths)
+    log(f"[zoo] seconds per phase: {seconds}")
+    by_kernel = {k: {path: got[k] for path, got in paths.items() if got[k]}
+                 for k in ("K-A", "K-C drho", "K-C dsigma", "K-F")}
+    for k, v in by_kernel.items():
+        check(v, f"{k} never ran on the zoo's paths")
+    return by_kernel, kf_res
+
 def main(argv=None):
     import argparse
 
@@ -2706,6 +3458,9 @@ def main(argv=None):
     phase_int8_sanity(qmodel, batches[0])
     del qmodel
     phase_int8_uncalibrated(batches)
+    del batches
+    torch.cuda.empty_cache()
+    zoo, zoo_kf = phase_zoo()
 
     csrc = "bayesian_torch_tpu_torch/csrc/"
     pallas = "bayesian_torch_tpu/ops/pallas/"
@@ -2721,7 +3476,7 @@ def main(argv=None):
              replaces=pallas + "sampled_weights.py:126",
              run="main path: mc_forward(num_mc=10, reduce='mean'), "
                  "presample='auto', 3 batches",
-             launches=main_path["K-A"], **ka_res),
+             launches=main_path["K-A"], paths=zoo["K-A"], **ka_res),
         dict(name="sampled_matmul", route="cuda",
              source=csrc + "sampled_matmul.cu",
              replaces=pallas + "sampled_matmul.py:62",
@@ -2732,11 +3487,13 @@ def main(argv=None):
              source=csrc + "sampled_weights_bwd.cu",
              replaces=pallas + "sampled_weights.py:138",
              run=vmap_train_run + "; one launch per layer and step",
-             launches=vmap_train["K-C dsigma"], **kc_res["dsigma"]),
+             launches=vmap_train["K-C dsigma"], paths=zoo["K-C dsigma"],
+             **kc_res["dsigma"]),
         dict(name="sampled_weights_bwd (drho)", route="cuda",
              source=csrc + "sampled_weights_bwd.cu",
              replaces=pallas + "sampled_weights.py:68",
-             run=train_run, launches=train["K-C drho"], **kc_res["drho"]),
+             run=train_run, launches=train["K-C drho"],
+             paths=zoo["K-C drho"], **kc_res["drho"]),
         dict(name="sampled_matmul_dx", route="cuda",
              source=csrc + "sampled_matmul_bwd.cu",
              replaces=pallas + "sampled_matmul.py:84",
@@ -2752,8 +3509,10 @@ def main(argv=None):
                  f"mc_forward(num_mc={NUM_MC}, reduce='mean'), 3 batches; "
                  f"ms, plain_ms, bound_ms and library_ms are device-time "
                  f"sums over one "
-                 f"forward's {INT8_LAYERS} GEMMs",
-             launches=kf_launches, **kf_res),
+                 f"forward's {INT8_LAYERS} GEMMs; cifar_resnet20_bs128: "
+                 f"the same sums over the INT8 CIFAR ResNet-20's GEMMs",
+             launches=kf_launches, paths=zoo["K-F"],
+             cifar_resnet20_bs128=zoo_kf, **kf_res),
         dict(name="sampled_matmul_batched", route="cuda",
              source=csrc + "sampled_matmul.cu",
              replaces=pallas + "sampled_matmul.py:383",

@@ -7,7 +7,8 @@ draws), K-D and K-E backward, K-B, K-D and K-E with their lane axis, K-B,
 K-D and K-E (its split-TF32 products and lane sums) across the edges of
 their tiles, K-A's rho mode (the single draw's softplus in the kernel),
 autograd through the public ops, K-F (the fused int8 GEMM + requantize)
-with the quantized convs built on it, and K-G (the per-draw GEMM behind
+with the quantized convs built on it (and at the CIFAR ResNet's and the
+SCNN's GEMM shapes), K-A and K-C at the CIFAR ResNet's layer sizes, and K-G (the per-draw GEMM behind
 the pointwise emission) in bf16, f32 and int8. They skip without a
 CUDA device. On a machine with one, and without JAX, run them with
 
@@ -655,6 +656,50 @@ def test_qconv_on_the_card_matches_the_cpu(cuda, k, stride, pad, x_zp):
                   0.05 * k, 128, stride=stride, padding=pad)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+# (M, N, K) of the CIFAR ResNet's INT8 forward at batch 128, 32x32 (the
+# stem's K = 27 and the head's N = 10 off the tiles; the wrapper widens K to
+# 32) and of the SCNN's at batch 1 (K = 9 widened to 16; the 9216 -> 128
+# head at M = 1)
+_ZOO_KF_SHAPES = [(131072, 16, 27), (131072, 16, 144), (32768, 32, 144),
+                  (32768, 32, 288), (8192, 64, 288), (8192, 64, 576),
+                  (128, 10, 64), (676, 32, 9), (576, 64, 288),
+                  (1, 128, 9216), (1, 10, 128)]
+
+
+@pytest.mark.parametrize("m,n,k", _ZOO_KF_SHAPES)
+def test_qmatmul_at_the_small_zoo_shapes(cuda, m, n, k):
+    x, w, bias, out_scale = _int8_operands(m, n, k, cuda, seed=m + n + k)
+    before = kf.qmatmul_requant.launches
+    got = kf.qmatmul_requant(x, 0.02, 128, w, 0.01, bias, out_scale, 128)
+    want = kf.qmatmul_requant_plain(
+        x, w, *kf.requant_args(w, 128, 0.02, 0.01, bias, out_scale), 128)
+    torch.cuda.synchronize()
+    assert kf.qmatmul_requant.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [432, 36_864])
+def test_sampler_kernels_at_the_cifar_layer_sizes(cuda, n):
+    """K-A (rho mode, and S = 4) and K-C (both modes) at the CIFAR ResNet's
+    smallest (the stem, 16x3x3x3) and largest (64x64x3x3) conv."""
+    mu, sigma, rho = _posterior((n,), cuda, seed=n)
+    got = ka.sample_gaussian(41, mu, rho, torch.float32)
+    want = sample_scaled_normals_batch_plain(41, mu, sigma, 1,
+                                             torch.float32)[0]
+    assert _max_err(got, want) <= 1e-5
+    got = sample_scaled_normals_batch(43, mu, sigma, 4, torch.float32)
+    want = sample_scaled_normals_batch_plain(43, mu, sigma, 4,
+                                             torch.float32)
+    assert _max_err(got, want) <= 1e-5
+    g = torch.randn((4, n), generator=torch.Generator().manual_seed(n)).to(
+        cuda)
+    want = ka.dsigma_plain(47, g)
+    assert _max_err(ka.dsigma(47, g), want) <= 1e-5 * _scale(want)
+    want = ka.drho_plain(53, g[0], rho)
+    assert _max_err(ka.drho(53, g[0], rho), want) <= 1e-5 * _scale(want)
+    torch.cuda.synchronize()
 
 
 # --- K-G: the per-draw GEMM ---------------------------------------------------

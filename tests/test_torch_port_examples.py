@@ -12,7 +12,14 @@ metrics (``bayesian_torch_tpu_torch/examples``, ``utils/util.py``,
   test split smaller than one batch, and the unported flags raise;
 - the deterministic trainer, the Bayesian trainer with ``--moped`` from
   its checkpoint, the ``dnn_to_bnn`` trainer and the INT8 pipeline run on
-  resnet18 at 32x32: train, then test (INT8: float eval, then INT8 eval).
+  resnet18 at 32x32: train, then test (INT8: float eval, then INT8 eval);
+- the MNIST / CIFAR slice: ``load_mnist`` / ``load_cifar10`` give the JAX
+  arrays (synthetic and from npz archives); the schedules equal optax's
+  by optimizer step, and ``Adadelta`` equals ``optax.adadelta``;
+  ``make_writer``; the six MNIST and CIFAR trainers and
+  ``quantization_test`` end to end at ``--device=cpu`` on small synthetic
+  sets (train, resume, test, ``--moped``, ``--mode=ptq``), each
+  defaulting to ``cuda``.
 """
 
 import json
@@ -235,3 +242,270 @@ def test_training_checkpoint_restores_generators_and_refuses_others(
     other = torch.nn.Sequential(TorchTiny(torch.Generator()))
     with pytest.raises((RuntimeError, ValueError)):
         load_training_checkpoint(tmp_path / "c.pt", other)
+
+
+# --- the MNIST and CIFAR slice: data, schedules, optimizer, trainers ------
+
+
+def test_mnist_and_cifar_loaders_give_the_jax_arrays(tmp_path):
+    """The synthetic sets under the same caps (tests/conftest.py shrinks
+    them through BTT_SYNTH_TRAIN_N / BTT_SYNTH_TEST_N, read by both
+    modules), and npz archives of bytes, scaled and normalised alike."""
+    assert (tdata._SYNTH_TRAIN_CAP, tdata._SYNTH_TEST_CAP) == (
+        jdata._SYNTH_TRAIN_CAP, jdata._SYNTH_TEST_CAP)
+    rs = np.random.RandomState(2)
+    for name, shape in (("mnist.npz", (28, 28)),
+                        ("cifar10.npz", (32, 32, 3))):
+        np.savez(tmp_path / name,
+                 x_train=rs.randint(0, 256, (6,) + shape).astype(np.uint8),
+                 y_train=rs.randint(0, 10, 6),
+                 x_test=rs.randint(0, 256, (4,) + shape).astype(np.uint8),
+                 y_test=rs.randint(0, 10, 4))
+    for loader in ("load_mnist", "load_cifar10"):
+        for kw in (dict(synthetic=True), dict(data_dir=str(tmp_path)),
+                   dict(data_dir=str(tmp_path), synthetic=True),
+                   dict(synthetic=True, n_train=40, n_test=9)):
+            got = getattr(tdata, loader)(**kw)
+            want = getattr(jdata, loader)(**kw)
+            for (xa, ya), (xb, yb) in zip(got, want):
+                assert xa.dtype == xb.dtype and ya.dtype == yb.dtype
+                np.testing.assert_array_equal(xa, xb)
+                np.testing.assert_array_equal(ya, yb)
+    (x_tr, _), (x_te, _) = tdata.load_cifar10(synthetic=True)
+    assert x_tr.shape == (tdata._SYNTH_TRAIN_CAP, 3, 32, 32)
+    assert x_te.shape == (tdata._SYNTH_TEST_CAP, 3, 32, 32)
+    np.testing.assert_array_equal(
+        tdata.load_imagenet_val(synthetic=True, n=5000, img=4)[0],
+        jdata.load_imagenet_val(synthetic=True, n=5000, img=4)[0])
+
+
+def test_schedules_count_optimizer_steps_as_optax():
+    """The CIFAR trainers' schedules by optimizer step against optax, and
+    a ``step_scheduler`` stepped once per optimizer step sets the
+    learning rate of step k to schedule(k). At 200 epochs the piecewise
+    schedule falls after step 100 and step 150 (not epochs: ROADMAP F6)."""
+    import optax
+
+    from bayesian_torch_tpu.examples import main_bayesian_cifar as jcifar
+    from bayesian_torch_tpu_torch.examples import main_bayesian_cifar as tc
+
+    for epochs in (200, 7, 1):
+        got, want = tc.lr_schedule(1e-3, epochs), jcifar.lr_schedule(1e-3,
+                                                                      epochs)
+        for k in range(0, 2 * epochs + 3):
+            assert got(k) == pytest.approx(float(want(k)), rel=1e-6), k
+    assert tc.lr_schedule(1e-3, 200)(99) == pytest.approx(1e-3)
+    assert tc.lr_schedule(1e-3, 200)(100) == pytest.approx(1e-4)
+    assert tc.lr_schedule(1e-3, 200)(150) == pytest.approx(1e-5)
+    got = engine.cosine_decay_schedule(0.1, 400)
+    want = optax.cosine_decay_schedule(0.1, 400)
+    for k in range(0, 450, 7):
+        # optax evaluates in f32: near the end 0.5 * (1 + cos) cancels to a
+        # few f32 ulps of 1, each 0.1 * 2^-24 = 6e-9 of the rate
+        assert got(k) == pytest.approx(float(want(k)), rel=1e-5, abs=2e-8)
+    param = torch.nn.Parameter(torch.zeros(3))
+    opt = torch.optim.SGD([param], lr=got(0), momentum=0.9)
+    sched = engine.step_scheduler(opt, got)
+    for k in range(12):
+        assert opt.param_groups[0]["lr"] == pytest.approx(got(k), rel=1e-12)
+        opt.step()
+        sched.step()
+    with pytest.raises(ValueError, match="schedule"):
+        engine.step_scheduler(torch.optim.SGD([param], lr=1.0), got)
+
+
+def test_adadelta_steps_match_optax():
+    """``make_optimizer(kind="adadelta")`` (the MNIST trainers') against
+    ``optax.adadelta(1.0)`` on the same gradients, three steps."""
+    import optax
+
+    rs = np.random.RandomState(3)
+    p0 = rs.randn(5, 4).astype(np.float32)
+    grads = [rs.randn(5, 4).astype(np.float32) for _ in range(3)]
+    layer = torch.nn.Linear(4, 5, bias=False)
+    with torch.no_grad():
+        layer.weight.copy_(torch.from_numpy(p0))
+    opt = engine.make_optimizer(layer, 1.0, kind="adadelta")
+    assert isinstance(opt, torch.optim.Adadelta)
+    tx = optax.adadelta(1.0)
+    p, state = p0, tx.init(p0)
+    for g in grads:
+        layer.weight.grad = torch.from_numpy(g.copy())
+        opt.step()
+        updates, state = tx.update(g, state, p)
+        p = optax.apply_updates(p, updates)
+        np.testing.assert_allclose(layer.weight.detach().numpy(),
+                                   np.asarray(p), rtol=1e-5, atol=1e-6)
+
+
+class _FakeWriter:
+    """A stand-in for ``SummaryWriter`` (importing tensorboard takes
+    seconds) that keeps the scalars."""
+
+    def __init__(self, log_dir):
+        self.log_dir, self.scalars = log_dir, []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, step))
+
+
+def _fake_tensorboard(monkeypatch):
+    import sys
+    import types
+    writers = []
+
+    def make(log_dir):
+        writers.append(_FakeWriter(log_dir))
+        return writers[-1]
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard",
+                        types.SimpleNamespace(SummaryWriter=make))
+    return writers
+
+
+def test_make_writer_logs_or_returns_none(tmp_path, monkeypatch, capsys):
+    import sys
+    writers = _fake_tensorboard(monkeypatch)
+    assert engine.make_writer(str(tmp_path / "tb")) is writers[0]
+    assert writers[0].log_dir == str(tmp_path / "tb")
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    assert engine.make_writer(str(tmp_path / "tb2")) is None
+    assert "tensorboard unavailable" in capsys.readouterr().out
+
+
+def _small_mnist(data_dir=None, synthetic=False):
+    return (tdata._synthetic(32, (1, 28, 28), 10, 0, proto_seed=100),
+            tdata._synthetic(16, (1, 28, 28), 10, 1, proto_seed=100))
+
+
+def _small_cifar(data_dir=None, synthetic=False):
+    return (tdata._synthetic(32, (3, 32, 32), 10, 2, proto_seed=200),
+            tdata._synthetic(16, (3, 32, 32), 10, 3, proto_seed=200))
+
+
+SMALL = ["--synthetic", "--device=cpu", "--batch-size=16",
+         "--test-batch-size=16"]
+
+
+@pytest.fixture
+def small_trainers(monkeypatch):
+    from bayesian_torch_tpu_torch.examples import (
+        main_bayesian_cifar,
+        main_bayesian_cifar_dnn2bnn,
+        main_bayesian_flipout_cifar,
+        main_bayesian_mnist,
+        main_deterministic_cifar,
+        main_deterministic_mnist,
+        quantization_test,
+    )
+    mods = dict(det_mnist=main_deterministic_mnist,
+                mnist=main_bayesian_mnist, det_cifar=main_deterministic_cifar,
+                cifar=main_bayesian_cifar,
+                flipout_cifar=main_bayesian_flipout_cifar,
+                dnn2bnn=main_bayesian_cifar_dnn2bnn,
+                quantization_test=quantization_test)
+    for mod in mods.values():
+        for name, small in (("load_mnist", _small_mnist),
+                            ("load_cifar10", _small_cifar)):
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, small)
+    return mods
+
+
+def test_small_model_trainers_default_to_cuda(small_trainers):
+    from bayesian_torch_tpu_torch.examples import main_deterministic_imagenet
+
+    for name, mod in small_trainers.items():
+        if name == "quantization_test":
+            continue
+        if hasattr(mod, "build_parser"):
+            assert mod.build_parser().parse_args([]).device == "cuda", name
+    assert main_deterministic_imagenet.evaluate_det is \
+        small_trainers["det_mnist"].evaluate_det
+    for flag, item in (("--mesh-mc=2", "#15"), ("--structured-mc", "#16")):
+        with pytest.raises(NotImplementedError, match=item):
+            small_trainers["cifar"].main(SMALL + [flag])
+    with pytest.raises(NotImplementedError, match="#15"):
+        small_trainers["mnist"].main(SMALL + ["--mesh-mc=2"])
+
+
+def test_mnist_trainers_end_to_end(small_trainers, tmp_path, monkeypatch):
+    """The deterministic SCNN trains and tests; the Bayesian SCNN trains
+    through the vmap emission (--num_mc 2), logs its scalars with
+    --tensorboard, resumes, and tests with its MC probabilities dumped."""
+    writers = _fake_tensorboard(monkeypatch)
+    det, bayes = small_trainers["det_mnist"], small_trainers["mnist"]
+    det_dir, bayes_dir = tmp_path / "det", tmp_path / "bayes"
+    acc = det.main(SMALL + ["--epochs=1", f"--save_dir={det_dir}"])
+    assert (det_dir / "mnist_det_scnn.pt").is_file() and 0.0 <= acc <= 1.0
+    assert det.main(SMALL + ["--mode=test", f"--save_dir={det_dir}"]) == acc
+    args = SMALL + ["--num_monte_carlo=3", "--num_mc=2",
+                    f"--save_dir={bayes_dir}"]
+    metrics = bayes.main(args + ["--epochs=1", "--tensorboard"])
+    assert 0.0 <= metrics["accuracy"] <= 1.0
+    assert writers[0].log_dir == str(bayes_dir / "tb")
+    assert ("train/elbo_loss", 0) in writers[0].scalars
+    assert ("val/accuracy", 1) in writers[0].scalars
+    assert (bayes_dir / "mnist_metrics.json").is_file()
+    assert torch.load(bayes_dir / "last.pt", weights_only=True)["meta"][
+        "epoch"] == 1
+    resumed = bayes.main(args + ["--epochs=2", "--resume"])
+    assert set(resumed) == set(metrics)
+    bayes.main(args + ["--mode=test"])
+    assert np.load(bayes_dir / "probs_mnist_mc.npy").shape == (3, 16, 10)
+
+
+def test_cifar_trainers_end_to_end(small_trainers, tmp_path):
+    """The deterministic ResNet-20 trains and tests; the Bayesian one
+    starts from its checkpoint with --moped, keeps the scheduler's step
+    count in last.pt and resumes from it; the Flipout trainer trains
+    through the vmap emission and tests."""
+    det_dir, bayes_dir = tmp_path / "det", tmp_path / "bayes"
+    flip_dir = tmp_path / "flipout"
+    acc = small_trainers["det_cifar"].main(SMALL + [
+        "--epochs=1", f"--save_dir={det_dir}"])
+    ckpt = det_dir / "cifar_det_resnet20.pt"
+    assert ckpt.is_file() and 0.0 <= acc <= 1.0
+    assert small_trainers["det_cifar"].main(SMALL + [
+        "--mode=test", f"--save_dir={det_dir}"]) == acc
+    args = SMALL + ["--moped", f"--moped-ckpt={ckpt}", "--delta=0.1",
+                    "--num_monte_carlo=2", f"--save_dir={bayes_dir}"]
+    metrics = small_trainers["cifar"].main(args + ["--epochs=1"])
+    assert 0.0 <= metrics["accuracy"] <= 1.0
+    last = torch.load(bayes_dir / "last.pt", weights_only=True)
+    assert last["sched"]["last_epoch"] == 2  # 32 images, 2 steps
+    resumed = small_trainers["cifar"].main(args + ["--epochs=2",
+                                                   "--resume"])
+    assert torch.load(bayes_dir / "last.pt", weights_only=True)["sched"][
+        "last_epoch"] == 4
+    tested = small_trainers["cifar"].main(args + ["--mode=test"])
+    assert set(tested) == set(resumed) == set(metrics)
+    assert (bayes_dir / "probs_cifar_bayesian_mc.npy").is_file()
+    flip = small_trainers["flipout_cifar"].main(SMALL + [
+        "--epochs=1", "--num_mc=2", "--num_monte_carlo=2",
+        f"--save_dir={flip_dir}"])
+    assert 0.0 <= flip["accuracy"] <= 1.0
+    assert (flip_dir / "cifar_flipout_resnet20.pt").is_file()
+
+
+def test_cifar_dnn2bnn_ptq_and_quantization_test(small_trainers, tmp_path):
+    """dnn_to_bnn of the deterministic ResNet-20: train, test, then PTQ
+    (prepare, calibrate on about 100 images, convert, INT8 evaluation)
+    through K-F's plain version on the CPU; then the SCNN round trip."""
+    d2b = tmp_path / "d2b"
+    mod = small_trainers["dnn2bnn"]
+    args = SMALL + ["--num_monte_carlo=2", f"--save_dir={d2b}"]
+    metrics = mod.main(args + ["--epochs=1", "--num_mc=2"])
+    assert 0.0 <= metrics["accuracy"] <= 1.0
+    assert (d2b / "metrics.json").is_file()
+    assert set(mod.main(args + ["--mode=test"])) == set(metrics)
+    launches = kf.qmatmul_requant.launches
+    out = mod.main(args + ["--mode=ptq"])
+    assert set(out) == {"float", "int8"}
+    for m in out.values():
+        assert 0.0 <= m["accuracy"] <= 1.0
+    log_probs, kl = small_trainers["quantization_test"].main(
+        ["--device=cpu"])
+    assert log_probs.shape == (1, 10) and float(kl) == 0.0
+    torch.testing.assert_close(log_probs.exp().sum(), torch.tensor(1.0))
+    assert kf.qmatmul_requant.launches == launches  # CPU: plain version

@@ -82,6 +82,25 @@ def test_auavu_loss_and_gradient_match_jax(kind):
     assert 0.0 < got.item() <= 1.0
 
 
+def test_auavu_on_bf16_logits_is_f32_and_matches_jax():
+    """bf16 logits: ``auc_avu`` comes back in f32, as JAX's does (its 21
+    thresholds are f32), and within 2e-2 relative of JAX's. The two sum
+    the soft counts in bf16 in other orders; 128 terms of about 1 each
+    carry a bf16 rounding of 2^-8 per partial sum, and the trapezoid's
+    ratio of those sums moves by up to about 1 %."""
+    rng = np.random.default_rng(0)
+    tl, jl = tavuc.AUAvULoss(), javuc.AUAvULoss()
+    for _ in range(20):
+        logits = (3.0 * rng.normal(size=(128, 10))).astype(np.float32)
+        labels = rng.integers(0, 10, 128).astype(np.int32)
+        t_logits = torch.from_numpy(logits).bfloat16()
+        loss, got = tl(t_logits, torch.from_numpy(labels))
+        _, want = jl(jnp.asarray(logits, jnp.bfloat16), jnp.asarray(labels))
+        assert want.dtype == jnp.float32
+        assert got.dtype == torch.float32 and loss.dtype == torch.float32
+        np.testing.assert_allclose(got.item(), float(want), rtol=2e-2)
+
+
 def test_avu_uncertainty_helpers_match_jax():
     rs = np.random.RandomState(3)
     mc = rs.dirichlet(np.ones(C), size=(4, N)).astype(np.float32)

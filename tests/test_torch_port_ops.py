@@ -380,7 +380,22 @@ def test_port_never_imports_jax():
                 "examples/main_deterministic_imagenet.py",
                 "examples/main_bayesian_imagenet_dnn2bnn.py",
                 "examples/main_bayesian_imagenet_bnn2qbnn.py",
-                "graft_entry.py"):
+                "graft_entry.py",
+                "models/_scnn.py", "models/_cifar_resnet.py",
+                "models/bayesian/simple_cnn_variational.py",
+                "models/bayesian/resnet_variational.py",
+                "models/bayesian/resnet_flipout.py",
+                "models/flipout/__init__.py", "models/flipout/simple_cnn.py",
+                "models/flipout/resnet.py",
+                "models/deterministic/simple_cnn.py",
+                "models/deterministic/resnet.py",
+                "examples/main_deterministic_mnist.py",
+                "examples/main_bayesian_mnist.py",
+                "examples/main_deterministic_cifar.py",
+                "examples/main_bayesian_cifar.py",
+                "examples/main_bayesian_flipout_cifar.py",
+                "examples/main_bayesian_cifar_dnn2bnn.py",
+                "examples/quantization_test.py"):
         assert root / new in paths, new
     paths += [root.parent / "chip_smoke.py", root.parent / "kernel_times.py"]
     modules = []

@@ -135,9 +135,9 @@ def test_qconv_im2col_matches_jax_xla_route(k, stride, pad, dil, cin, cout,
 def test_qconv_unported_cases_raise():
     x = torch.zeros((1, 4, 5, 5), dtype=torch.uint8)
     w = torch.zeros((4, 2, 3, 3), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
         tq.qconv(x, 0.1, 128, w, 0.1, None, 0.1, 128, groups=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
         tq.qconv(x, 0.1, 128, w[:, :4].contiguous(), 0.1, None, 0.1, 128,
                  transposed=True)
 

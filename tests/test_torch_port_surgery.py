@@ -368,7 +368,6 @@ def test_dnn_to_bnn_walks_containers_follows_devices_and_flipout():
 
 def test_dnn_to_bnn_refusals():
     for mod, err, item in (
-            (nn.ConvTranspose2d(3, 4, 3), NotImplementedError, "#11"),
             (nn.LSTM(3, 4), NotImplementedError, "#12"),
             (nn.Conv2d(3, 4, 3, padding=1, padding_mode="reflect"),
              ValueError, "padding_mode")):
@@ -501,9 +500,7 @@ def test_dnn2bnn_elbo_loss_matches_jax_trainer(monkeypatch):
     draws in both packages."""
     import optax
 
-    from bayesian_torch_tpu_torch.examples import (
-        main_bayesian_imagenet_dnn2bnn as trainer,
-    )
+    from bayesian_torch_tpu_torch.examples import _engine as engine
 
     jm, tm, _ = converted_tiny_twins(seed=10)
     set_jax_eval(jm, training=True)
@@ -521,10 +518,10 @@ def test_dnn2bnn_elbo_loss_matches_jax_trainer(monkeypatch):
     want = float(ce + jax_get_kl_loss(jm) / B)
 
     real = tmc.mc_forward
-    monkeypatch.setattr(trainer, "mc_forward",
+    monkeypatch.setattr(engine, "mc_forward",
                         lambda *a, **k: real(*a, presample="on", **k))
-    loss = trainer.make_loss_fn(S, B)(tm, torch.from_numpy(x),
-                                      torch.from_numpy(y))
+    loss = engine.make_dnn2bnn_loss(S, B)(tm, torch.from_numpy(x),
+                                          torch.from_numpy(y))
     assert loss.item() == pytest.approx(want, rel=1e-4, abs=1e-4)
     loss.backward()
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
