@@ -1,0 +1,1 @@
+"""The reference's ``bayesian_torch.ao.nn`` namespace."""

@@ -25,7 +25,9 @@ from torch import nn
 
 from bayesian_torch_tpu_torch.ops.kl import gaussian_kl
 from bayesian_torch_tpu_torch.ops.sampling import (device_generator,
-                                                   draw_seed, sigma_from_rho,
+                                                   draw_seed,
+                                                   rademacher_fused,
+                                                   sigma_from_rho,
                                                    sign_salts)
 
 
@@ -128,6 +130,39 @@ class BaseVariationalLayer(nn.Module):
         self.quint_quant[1](out)
         for ob, v in zip(self.qint_quant, (sigma, mu, eps, tmp_result,
                                            weight)):
+            ob(v)
+        return out
+
+    def _observed_forward_flipout(self, input, mu, rho, apply):
+        """The Flipout calibration forward in f32, every intermediate
+        observed: qint (sigma, mu, eps, delta), quint (input, outputs,
+        sign_in, sign_out, x_tmp, pert_tmp, perturbed, out), the order the
+        quantized layer's ``quant_dict`` reads (qint [2:] + quint). eps
+        as in ``_observed_forward``, the signs from the counter hash."""
+        gen = device_generator(self.generator, mu.device)
+        sigma = sigma_from_rho(rho)
+        eps = torch.randn(mu.shape, generator=gen, device=mu.device)
+        delta = sigma * eps
+        pert_bias = None
+        if self.mu_bias is not None:
+            eps_b = torch.randn(self.mu_bias.shape, generator=gen,
+                                device=mu.device)
+            pert_bias = sigma_from_rho(self.rho_bias) * eps_b
+        outputs = apply(input, mu, self.mu_bias)
+        salt_in, salt_out = self._sign_salts()
+        sign_in = rademacher_fused(salt_in, input.shape, input.dtype,
+                                   input.device)
+        sign_out = rademacher_fused(salt_out, outputs.shape, outputs.dtype,
+                                    outputs.device)
+        x_tmp = input * sign_in
+        pert_tmp = apply(x_tmp, delta, pert_bias)
+        perturbed = pert_tmp * sign_out
+        out = outputs + perturbed
+        for ob, v in zip(self.quint_quant, (input, outputs, sign_in,
+                                            sign_out, x_tmp, pert_tmp,
+                                            perturbed, out)):
+            ob(v)
+        for ob, v in zip(self.qint_quant, (sigma, mu, eps, delta)):
             ob(v)
         return out
 

@@ -21,6 +21,8 @@ all S draws at once) and by the running statistics tiled S times in eval.
 ``BatchNorm1dLayer``, ``BatchNorm2dLayer`` and ``BatchNorm3dLayer`` add
 the reference's calling convention: a ``(x, kl)`` tuple in gives
 ``(out, 0)`` out, a bare tensor gives the bare output.
+``QuantizedBatchNorm2d`` (``bnn_to_qbnn(..., quantize_batchnorm=True)``)
+also requantizes its output when its input was a ``QTensor``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bayesian_torch_tpu_torch.ops.qtensor import dequantize_if_qtensor
+from bayesian_torch_tpu_torch.ops.qtensor import (QTensor,
+                                                  dequantize_if_qtensor)
 
 
 class MCBatchStats:
@@ -151,3 +154,35 @@ class BatchNorm2dLayer(_BatchNormLayer, BatchNorm2d):
 
 class BatchNorm3dLayer(_BatchNormLayer, BatchNorm3d):
     pass
+
+
+class QuantizedBatchNorm2d(BatchNorm2dLayer):
+    """BatchNorm that keeps the uint8 activation flow quantized (the
+    reference's ``qbnn_batchnorm2d_layer`` target): a ``QTensor`` input is
+    normalized in f32 and its output requantized to (``scale``,
+    ``zero_point``), by default (0.1, 128), which holds +-12.8 (BN outputs
+    are O(1)); a float input gives the float output."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: Optional[float] = 0.1, affine: bool = True,
+                 track_running_stats: bool = True, *, scale: float = 0.1,
+                 zero_point: int = 128,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__(num_features, eps, momentum, affine,
+                         track_running_stats, generator=generator,
+                         device=device)
+        self.scale = scale
+        self.zero_point = zero_point
+
+    def forward(self, input):
+        x, was_tuple = (input[0], True) if isinstance(input, tuple) \
+            else (input, False)
+        if isinstance(x, QTensor):
+            out = BatchNorm2d.forward(self, x.dequantize())
+            q = torch.round(out.float() * (1.0 / self.scale)) \
+                + self.zero_point
+            out = QTensor(torch.clamp(q, 0, 255).to(torch.uint8),
+                          self.scale, self.zero_point)
+        else:
+            out = BatchNorm2d.forward(self, x)
+        return (out, 0) if was_tuple else out

@@ -123,13 +123,12 @@ class _BaseConvLayer(BaseVariationalLayer):
                     compute_dtype=self.compute_dtype)
 
     def prepare(self, qconfig=None):
-        """Insert the calibration observers (5 qint8 + 2 quint8)."""
-        if self.estimator == "flipout" or self.transposed:
-            raise NotImplementedError(
-                f"{type(self).__name__}.prepare(): post-training "
-                "quantization of Flipout and transposed layers is not "
-                "ported yet (ROADMAP Queue 1 #14)")
-        self._make_observers(5, 2, qconfig)
+        """Insert the calibration observers: 5 qint8 + 2 quint8, Flipout
+        4 qint8 + 8 quint8."""
+        if self.estimator == "flipout":
+            self._make_observers(4, 8, qconfig)
+        else:
+            self._make_observers(5, 2, qconfig)
 
     def _forward_flipout(self, input, eps_k, eps_b, sign_in, sign_out):
         presampled_w = getattr(self, "_presampled_w", None)
@@ -164,14 +163,16 @@ class _BaseConvLayer(BaseVariationalLayer):
 
         presampled_w = getattr(self, "_presampled_w", None)
         num_draws = getattr(self, "_mc_draws", None)
-        if self.estimator == "flipout":
-            out = self._forward_flipout(input, eps_k, eps_b, sign_in,
-                                        sign_out)
-        elif self.quant_prepare:
+        if self.quant_prepare:
             args = dict(self._conv_args(), compute_dtype=None)
-            out = self._observed_forward(
+            observed = self._observed_forward_flipout \
+                if self.estimator == "flipout" else self._observed_forward
+            out = observed(
                 input, self.mu_kernel, self.rho_kernel,
                 lambda x, w, b: conv_ops._apply_conv(x, w, b, **args))
+        elif self.estimator == "flipout":
+            out = self._forward_flipout(input, eps_k, eps_b, sign_in,
+                                        sign_out)
         elif num_draws:
             # all S draws: the presampled (S, ...) stack, or one launch
             if presampled_w is not None:

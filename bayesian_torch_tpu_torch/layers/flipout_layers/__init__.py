@@ -14,6 +14,18 @@ from bayesian_torch_tpu_torch.layers.flipout_layers.conv_flipout import (  # noq
 from bayesian_torch_tpu_torch.layers.flipout_layers.linear_flipout import (  # noqa: F401,E501
     LinearFlipout,
 )
+# the reference's subpackage also exports its quantized twins
+from bayesian_torch_tpu_torch.layers.flipout_layers.quantized_linear_flipout import (  # noqa: F401,E501
+    QuantizedLinearFlipout,
+)
+from bayesian_torch_tpu_torch.layers.flipout_layers.quantized_conv_flipout import (  # noqa: F401,E501
+    QuantizedConv1dFlipout,
+    QuantizedConv2dFlipout,
+    QuantizedConv3dFlipout,
+    QuantizedConvTranspose1dFlipout,
+    QuantizedConvTranspose2dFlipout,
+    QuantizedConvTranspose3dFlipout,
+)
 
 __all__ = [
     "Conv1dFlipout",

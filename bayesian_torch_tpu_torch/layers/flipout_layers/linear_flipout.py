@@ -93,9 +93,8 @@ class LinearFlipout(BaseVariationalLayer):
         return kl
 
     def prepare(self, qconfig=None):
-        raise NotImplementedError(
-            "LinearFlipout.prepare(): post-training quantization of Flipout "
-            "layers is not ported yet (ROADMAP Queue 1 #14)")
+        """Insert the calibration observers (4 qint8 + 8 quint8)."""
+        self._make_observers(4, 8, qconfig)
 
     def forward(self, x, return_kl: bool = True, *, eps_w=None, eps_b=None,
                 sign_in=None, sign_out=None):
@@ -105,7 +104,10 @@ class LinearFlipout(BaseVariationalLayer):
         presampled_w = getattr(self, "_presampled_w", None)
         presampled_b = getattr(self, "_presampled_b", None)
         num_draws = getattr(self, "_mc_draws", None)
-        if num_draws:
+        if self.quant_prepare:
+            out = self._observed_forward_flipout(
+                x, self.mu_weight, self.rho_weight, linear_ops._linear)
+        elif num_draws:
             # all S draws: the presampled (S, ...) perturbations, or one
             # sampler launch on a zero mean
             if presampled_w is not None:

@@ -1,31 +1,50 @@
-"""Shared implementation of the INT8 quantized Bayesian layers (counterpart
-of ``bayesian_torch_tpu/layers/quantized_base.py``, reparameterization
-estimator).
+"""Shared implementation of the INT8 quantized Bayesian layers, both
+estimators (counterpart of ``bayesian_torch_tpu/layers/quantized_base.py``).
 
 - ``quantize()`` converts the float posterior: symmetric per-tensor int8
   mu and sigma = softplus(rho), scale 2*clamp(max|x|, 0, 100)/255; the bias
   stays f32. With ``bn_*`` attributes attached (``bnn_to_qbnn``'s conv+BN
-  folding) gamma/sqrt(var + eps) is folded into mu and sigma first and
-  the bias rebuilt. The float parameters are then deleted, so the
-  ``state_dict`` holds only the quantized persistent buffers, under the
-  JAX names: ``quantized_mu_weight``, ``quantized_sigma_weight``,
-  ``mu_weight_scale``, ``sigma_weight_scale``, ``quantized_mu_bias``,
-  ``quantized_sigma_bias``. The scales are also kept as Python floats
-  (``_mu_scale_f``, ``_sigma_scale_f``), so every requantization
-  multiplier is a host constant; loading a state dict rebuilds them.
-- Each forward draws one quantized weight: eps (``torch.randn`` on the
-  weights' device, seeded from the layer's generator), quantized, then a
-  quantized mul and add build the int8 weight. The calibrated path uses
-  the ``quant_dict`` scales; without one, the reference's defaults
-  (eps at 6/255, activations at scale 0.2, zero point 128).
+  folding) gamma/sqrt(var + eps) is folded into mu and sigma first (on
+  the output-channel axis: dim 0, or dim 1 per group of a transposed
+  kernel (I, O/g, *k)) and the bias rebuilt. The float parameters are
+  then deleted, so the ``state_dict`` holds only the quantized persistent
+  buffers, under the JAX names: ``quantized_mu_weight``,
+  ``quantized_sigma_weight``, ``mu_weight_scale``, ``sigma_weight_scale``,
+  ``quantized_mu_bias``, ``quantized_sigma_bias``. The scales are also
+  kept as Python floats (``_mu_scale_f``, ``_sigma_scale_f``), so every
+  requantization multiplier is a host constant; loading a state dict
+  rebuilds them.
+- Reparameterization: each forward draws one quantized weight: eps
+  (``torch.randn`` on the weights' device, seeded from the layer's
+  generator), quantized, then a quantized mul and add build the int8
+  weight. The calibrated path uses the ``quant_dict`` scales; without
+  one, the reference's defaults (eps at 6/255, activations at scale 0.2,
+  zero point 128).
+- Flipout: each forward draws one quantized perturbation ``delta = sigma
+  * eps`` (a quantized mul) and runs two int8 products, the mean (mu, the
+  mean bias) and the perturbation (delta, ``sigma_b * eps_b``) on the
+  input times its Rademacher signs, whose output is multiplied by the
+  output signs and added to the mean in uint8. The signs come from the
+  counter hash (``ops.sampling.rademacher_fused``) under salts from the
+  layer's generator, as the float Flipout layers draw theirs; the
+  calibrated path reads the 10-slot ``quant_dict`` (eps, delta, x,
+  outputs, sign_in, sign_out, x_tmp, pert_tmp, perturbed, out).
+  ``sign_in`` / ``sign_out`` may be injected.
 - The int8 GEMM or conv runs through ``ops/int8.py`` (K-F on the card),
   and the output is requantized; ``q_output`` emits a ``QTensor``,
   otherwise the dequantized f32 tensor.
+- ``legacy_ao`` (the ``ao.nn.quantized.modules`` classes): ``quantize()``
+  also takes the bias through an int8 round trip, the default scale is
+  0.1, and there is no ``quant_dict`` path.
 - ``forward`` returns ``(out, 0)``: quantized layers carry no KL.
 
 Frozen draws (``quantization.serving``) are buffers ``_frozen_w``,
-``_frozen_wscale`` and ``_frozen_bias``. The flipout branch and the legacy
-``ao`` semantics come with the flipout slice.
+``_frozen_wscale`` and ``_frozen_bias``: the weight of a
+reparameterization layer, the perturbation of a Flipout layer (whose signs
+stay per call). ``mc_forward``'s presample attaches the record that
+``presample(S)`` returns: a reparameterization layer's S weights
+(``_presampled_qw``) with their scale and the ``normal_scale`` they were
+built for, which a call at another ``normal_scale`` refuses.
 """
 
 from __future__ import annotations
@@ -43,19 +62,33 @@ from bayesian_torch_tpu_torch.layers.base_variational_layer import (
 from bayesian_torch_tpu_torch.ops import int8 as q
 from bayesian_torch_tpu_torch.ops.qtensor import QTensor
 from bayesian_torch_tpu_torch.ops.sampling import (device_generator,
+                                                   rademacher_fused,
                                                    sigma_from_rho)
 
 FROZEN = ("_frozen_w", "_frozen_wscale", "_frozen_bias")
+# eps's scale on the uncalibrated path: the forward's default, and the
+# scale the presample builds for
+NORMAL_SCALE = 6 / 255
 
 
 def _refresh_after_load(module, incompatible_keys):
     module._refresh_scales()
 
 
-class _QuantizedLayerBase(BaseVariationalLayer):
-    """``quantize()`` and the int8 forward; subclasses set ``is_conv``."""
+def _int8_round_trip(x):
+    """x through symmetric int8 and back (scale 0.1 where x is all zero)."""
+    scale = q.symmetric_scale(x)
+    return q.quantize_int8(x, scale).float() * scale
 
+
+class _QuantizedLayerBase(BaseVariationalLayer):
+    """``quantize()`` and the int8 forwards; subclasses set ``estimator``,
+    ``is_conv``, ``nd``, ``transposed`` and ``legacy_ao``."""
+
+    estimator = "reparameterization"
     is_conv = False
+    transposed = False
+    legacy_ao = False
 
     def _init_common(self, generator):
         super().__init__()
@@ -84,6 +117,15 @@ class _QuantizedLayerBase(BaseVariationalLayer):
         root = torch.sqrt((self.bn_running_var + self.bn_eps).double())
         return self.bn_weight / root.float()
 
+    def _fold(self, w, coef):
+        """w * coef over the kernel's output channels."""
+        if not self.transposed:
+            return w * coef.reshape((-1,) + (1,) * (w.dim() - 1))
+        groups = self.groups
+        wg = w.reshape((groups, w.shape[0] // groups) + tuple(w.shape[1:]))
+        cg = coef.reshape((groups, 1, -1) + (1,) * (w.dim() - 2))
+        return (wg * cg).reshape(w.shape)
+
     def _refresh_scales(self):
         """Rebuild the host copies of the scales from the buffers."""
         if getattr(self, "mu_weight_scale", None) is None:
@@ -101,9 +143,9 @@ class _QuantizedLayerBase(BaseVariationalLayer):
         sigma = sigma_from_rho(getattr(self, self._rho_attr()).detach())
         folding = getattr(self, "bn_weight", None) is not None
         if folding:
-            coef = self._bn_coef().reshape((-1,) + (1,) * (mu.dim() - 1))
-            mu = mu * coef
-            sigma = sigma * coef
+            coef = self._bn_coef()
+            mu = self._fold(mu, coef)
+            sigma = self._fold(sigma, coef)
 
         mu_scale = q.symmetric_scale(mu)
         sigma_scale = q.symmetric_scale(sigma)
@@ -122,6 +164,9 @@ class _QuantizedLayerBase(BaseVariationalLayer):
                 coef = self._bn_coef()
                 mu_b = (mu_b - self.bn_running_mean) * coef + self.bn_bias
                 sigma_b = sigma_b * coef
+            if self.legacy_ao:
+                mu_b = _int8_round_trip(mu_b)
+                sigma_b = _int8_round_trip(sigma_b)
         elif folding:
             # the conv had no bias; folding makes a mean-only one
             mu_b = -self.bn_running_mean * self._bn_coef() + self.bn_bias
@@ -141,6 +186,10 @@ class _QuantizedLayerBase(BaseVariationalLayer):
 
     # ---- the int8 forward ------------------------------------------------
 
+    def _calibrated(self):
+        """The ``quant_dict`` path (the legacy classes have none)."""
+        return self.quant_dict is not None and not self.legacy_ao
+
     def _qd(self, i):
         d = self.quant_dict[i]
         return float(d["scale"]), float(d["zero_point"])
@@ -150,7 +199,9 @@ class _QuantizedLayerBase(BaseVariationalLayer):
         if self.is_conv:
             return q.qconv(x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale,
                            out_zp, stride=self.stride, padding=self.padding,
-                           dilation=self.dilation, groups=self.groups)
+                           dilation=self.dilation, groups=self.groups,
+                           transposed=self.transposed,
+                           output_padding=self.output_padding)
         return q.qlinear(x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale,
                          out_zp)
 
@@ -185,14 +236,16 @@ class _QuantizedLayerBase(BaseVariationalLayer):
     @torch.no_grad()
     def _sampled_qweight_reparam(self, normal_scale, eps=None, eps_b=None):
         """One quantized weight draw: (w_q int8, w_scale, bias f32 or
-        None). ``eps`` / ``eps_b`` may be injected."""
+        None). ``eps`` / ``eps_b`` may be injected, with a leading (S, ...)
+        draw axis too: the arithmetic is elementwise with scalar scales,
+        so the presample builds all S draws in one pass."""
         gen = None
         if eps is None:
             gen = self._noise()
             eps = torch.randn(self.quantized_mu_weight.shape, generator=gen,
                               device=self.quantized_mu_weight.device)
         s_sigma, s_mu = self._sigma_scale_f, self._mu_scale_f
-        if self.quant_dict is not None:
+        if self._calibrated():
             s0, _ = self._qd(0)    # eps
             s1, z1 = self._qd(1)   # sigma * eps
             s2, z2 = self._qd(2)   # weight
@@ -212,14 +265,64 @@ class _QuantizedLayerBase(BaseVariationalLayer):
                      add_scale, 0)
         return w_q, add_scale, self._sample_bias(eps_b, gen)
 
+    def _frozen(self):
+        """The frozen draw (w_q, w_scale, bias), or None."""
+        if getattr(self, "_frozen_w", None) is None:
+            return None
+        return (self._frozen_w, self._frozen_wscale_f,
+                getattr(self, "_frozen_bias", None))
+
+    @torch.no_grad()
+    def presample(self, num_mc):
+        """This layer's record for ``mc_forward``'s presample: {attr: a
+        sequence over the ``num_mc`` draws}. A reparameterization layer
+        without a frozen draw builds its int8 weights for all draws in one
+        pass ((S, ...) eps and bias eps on the weights' device, then
+        quantize, qmul and qadd over the draw axis), beside their scale
+        and the ``normal_scale`` they were built for. A Flipout or frozen
+        layer draws in its forward: {}."""
+        if self.estimator != "reparameterization" \
+                or self._frozen() is not None:
+            return {}
+        gen = self._noise()
+        shape = (num_mc,) + tuple(self.quantized_mu_weight.shape)
+        eps = torch.randn(shape, generator=gen,
+                          device=self.quantized_mu_weight.device)
+        eps_b = None
+        if self.quantized_sigma_bias is not None:
+            eps_b = torch.randn((num_mc,) + tuple(self.quantized_mu_bias.shape),
+                                generator=gen,
+                                device=self.quantized_mu_bias.device)
+        w_q, w_scale, bias = self._sampled_qweight_reparam(
+            NORMAL_SCALE, eps=eps, eps_b=eps_b)
+        record = {"_presampled_qw": w_q,
+                  "_presampled_qscale": [w_scale] * num_mc,
+                  "_presampled_qnscale": [NORMAL_SCALE] * num_mc}
+        if eps_b is not None:  # else the bias is the same in every draw
+            record["_presampled_qbias"] = bias
+        return record
+
     def _forward_reparam(self, input, normal_scale, default_scale,
                          default_zero_point):
-        if getattr(self, "_frozen_w", None) is not None:
-            w_q, w_scale = self._frozen_w, self._frozen_wscale_f
-            bias = getattr(self, "_frozen_bias", None)
-        else:
-            w_q, w_scale, bias = self._sampled_qweight_reparam(normal_scale)
-        if self.quant_dict is not None:
+        draw = self._frozen()
+        pres = getattr(self, "_presampled_qw", None)
+        if draw is None and pres is not None:
+            # this draw's weight from the presample; the calibrated path
+            # reads no normal_scale, the default path only the recorded one
+            if not self._calibrated() \
+                    and normal_scale != self._presampled_qnscale:
+                raise ValueError(
+                    f"normal_scale {normal_scale} differs from the "
+                    f"{self._presampled_qnscale} the presampled weights "
+                    "were built for")
+            # a folded mean-only bias is the same in every draw
+            bias = getattr(self, "_presampled_qbias", None)
+            draw = (pres, self._presampled_qscale,
+                    self._sample_bias() if bias is None else bias)
+        if draw is None:
+            draw = self._sampled_qweight_reparam(normal_scale)
+        w_q, w_scale, bias = draw
+        if self._calibrated():
             s3, z3 = self._qd(3)   # input
             s4, z4 = self._qd(4)   # output
         else:
@@ -230,14 +333,99 @@ class _QuantizedLayerBase(BaseVariationalLayer):
         return self._emit(out_q, s4, z4)
 
     @torch.no_grad()
+    def _sampled_qdelta_flipout(self, normal_scale, eps=None, eps_b=None):
+        """One quantized perturbation draw: (delta_q int8, delta_scale,
+        pert_bias f32 or None). ``eps`` / ``eps_b`` may be injected."""
+        gen = None
+        if eps is None:
+            gen = self._noise()
+            eps = torch.randn(self.quantized_mu_weight.shape, generator=gen,
+                              device=self.quantized_mu_weight.device)
+        s_sigma = self._sigma_scale_f
+        pert_bias = None
+        if self.quantized_sigma_bias is not None:
+            if eps_b is None:
+                eps_b = torch.randn(self.quantized_sigma_bias.shape,
+                                    generator=gen if gen is not None
+                                    else self._noise(),
+                                    device=self.quantized_sigma_bias.device)
+            pert_bias = self.quantized_sigma_bias * eps_b
+        if self._calibrated():
+            s0, _ = self._qd(0)    # eps
+            s1, z1 = self._qd(1)   # delta
+            eps_q = q.quantize_int8(eps, s0)
+            return (q.qmul(self.quantized_sigma_weight, s_sigma, eps_q, s0,
+                           s1, z1), s1, pert_bias)
+        # uncalibrated default path (reference quantized_linear_flipout
+        # .py:229-256)
+        eps_q = q.quantize_int8(eps, normal_scale)
+        new_scale = s_sigma * normal_scale
+        return (q.qmul(self.quantized_sigma_weight, s_sigma, eps_q,
+                       normal_scale, new_scale, 0), new_scale, pert_bias)
+
+    def _signs(self, x_shape, out_shape, device, sign_in, sign_out):
+        """The f32 Rademacher signs of the input and of the output: the
+        injected ones, else the counter hash under this call's salts."""
+        if sign_in is None or sign_out is None:
+            salts = self._sign_salts()
+        if sign_in is None:
+            sign_in = rademacher_fused(salts[0], x_shape, torch.float32,
+                                       device)
+        if sign_out is None:
+            sign_out = rademacher_fused(salts[1], out_shape, torch.float32,
+                                        device)
+        return sign_in, sign_out
+
+    def _forward_flipout(self, x, normal_scale, default_scale,
+                         default_zero_point, sign_in, sign_out):
+        s_mu = self._mu_scale_f
+        if self._calibrated():
+            # quant_dict: [eps, delta, x, outputs, sign_in, sign_out,
+            #              x_tmp, pert_tmp, perturbed, out]
+            (s2, z2), (s3, z3), (s4, z4), (s5, z5), (s6, z6), (s7, z7), \
+                (s8, z8), (s9, z9) = (self._qd(i) for i in range(2, 10))
+        else:
+            s2 = s3 = s4 = s5 = s6 = s7 = s8 = s9 = default_scale
+            z2 = z3 = z4 = z5 = z6 = z7 = z8 = z9 = default_zero_point
+        draw = self._frozen()
+        delta_q, s1, pert_bias = draw if draw is not None \
+            else self._sampled_qdelta_flipout(normal_scale)
+        x_q = self._quantize_input(x, s2, z2)
+        outputs_q = self._apply_int8(x_q, s2, z2, self.quantized_mu_weight,
+                                     s_mu, self.quantized_mu_bias, s3, z3)
+        sign_in, sign_out = self._signs(x_q.shape, outputs_q.shape,
+                                        x_q.device, sign_in, sign_out)
+        sign_in_q = q.quantize_uint8(sign_in, s4, z4)
+        sign_out_q = q.quantize_uint8(sign_out, s5, z5)
+        x_tmp_q = q.qmul(x_q, s2, sign_in_q, s4, s6, z6, a_zp=z2, b_zp=z4,
+                         out_dtype=torch.uint8)
+        pert_q = self._apply_int8(x_tmp_q, s6, z6, delta_q, s1, pert_bias,
+                                  s7, z7)
+        pert_q = q.qmul(pert_q, s7, sign_out_q, s5, s8, z8, a_zp=z7,
+                        b_zp=z5, out_dtype=torch.uint8)
+        out_q = q.qadd(outputs_q, s3, pert_q, s8, s9, z9, a_zp=z3, b_zp=z8,
+                       out_dtype=torch.uint8)
+        return self._emit(out_q, s9, z9)
+
+    @torch.no_grad()
     def forward(self, input, return_kl: bool = True, *,
-                normal_scale: float = 6 / 255,
-                default_scale: Optional[float] = 0.2,
-                default_zero_point: int = 128):
+                normal_scale: float = NORMAL_SCALE,
+                default_scale: Optional[float] = None,
+                default_zero_point: int = 128, sign_in=None, sign_out=None):
+        """``default_scale`` None: 0.1 for the legacy classes, 0.2 for the
+        others (the reference's two forward signatures). ``sign_in`` /
+        ``sign_out`` (Flipout) replace the call's signs."""
         if self.dnn_to_bnn_flag:
             return_kl = False
-        out = self._forward_reparam(input, normal_scale, default_scale,
-                                    default_zero_point)
+        if default_scale is None:
+            default_scale = 0.1 if self.legacy_ao else 0.2
+        if self.estimator == "flipout":
+            out = self._forward_flipout(input, normal_scale, default_scale,
+                                        default_zero_point, sign_in,
+                                        sign_out)
+        else:
+            out = self._forward_reparam(input, normal_scale, default_scale,
+                                        default_zero_point)
         if return_kl:
             return out, 0  # quantized layers carry no KL
         return out
@@ -262,7 +450,8 @@ class _QuantizedConvBase(_QuantizedLayerBase):
     nd = 2
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
-                 stride=1, padding=0, dilation=1, groups: int = 1, *,
+                 stride=1, padding=0, dilation=1, groups: int = 1,
+                 output_padding=0, *,
                  generator: Optional[torch.Generator] = None):
         self._init_common(generator)
         self.in_channels = in_channels
@@ -272,4 +461,5 @@ class _QuantizedConvBase(_QuantizedLayerBase):
         self.padding = padding
         self.dilation = dilation
         self.groups = groups
+        self.output_padding = output_padding
         self.bias = True

@@ -1,14 +1,16 @@
 """BNN -> INT8 QBNN model surgery (counterpart of
 ``bayesian_torch_tpu/models/bnn_to_qbnn.py``).
 
-Walks the module tree and replaces each Bayesian layer with its
-``Quantized<Name>`` twin, harvesting the calibration scales and zero points
-from the observers ``prepare()`` inserted into the layer's ``quant_dict``
-(qint observers [2:] + quint observers, as the reference orders them),
-then calls ``quantize()``. Optional conv+BN folding follows the reference's
-naming rules: ``conv{i}`` with ``bn{i}`` for i in 1..3, and
-``downsample = Sequential(conv, bn)``; each folded BN becomes an
-``nn.Identity``.
+Walks the module tree and replaces each Bayesian layer (both estimators,
+plain and transposed convs) with its ``Quantized<Name>`` twin, harvesting
+the calibration scales and zero points from the observers ``prepare()``
+inserted into the layer's ``quant_dict`` (qint observers [2:] + quint
+observers, as the reference orders them), then calls ``quantize()``.
+Optional conv+BN folding follows the reference's naming rules:
+``conv{i}`` with ``bn{i}`` for i in 1..3, and ``downsample =
+Sequential(conv, bn)``; each folded BN becomes an ``nn.Identity``. With
+``quantize_batchnorm`` (and no folding) every BatchNorm2d becomes a
+``QuantizedBatchNorm2d`` (alias ``QBatchNorm2d``, the reference's name).
 """
 
 from __future__ import annotations
@@ -20,11 +22,16 @@ import bayesian_torch_tpu_torch.layers as bayesian_layers
 from bayesian_torch_tpu_torch.layers.base_variational_layer import (
     BaseVariationalLayer,
 )
+from bayesian_torch_tpu_torch.layers.batchnorm import QuantizedBatchNorm2d
 from bayesian_torch_tpu_torch.layers.quantized_base import (
     _QuantizedLayerBase,
 )
 from bayesian_torch_tpu_torch.ops.int8 import symmetric_scale
 from bayesian_torch_tpu_torch.ops.qtensor import QTensor
+
+
+# the reference's name for the quantized BatchNorm2d
+QBatchNorm2d = QuantizedBatchNorm2d
 
 
 def get_scale_and_zero_point(x, upper_bound: float = 100,
@@ -47,19 +54,30 @@ def get_quantized_tensor(x, default_scale: float = 0.1):
 def _harvest_quant_dict(d):
     """quant_dict = qint observers [2:] + quint observers, as
     ``{"scale", "zero_point"}`` dicts; None when the layer was not
-    prepared or saw no calibration data (the uncalibrated path)."""
+    prepared or saw no calibration data (the uncalibrated path). The
+    quant_dict is per tensor: per-channel qparams raise."""
     if not getattr(d, "quant_prepare", False):
         return None
     obs = list(d.qint_quant)[2:] + list(d.quint_quant)
     if not all(ob.observed for ob in obs):
         return None
-    return [dict(zip(("scale", "zero_point"), ob.calculate_qparams()))
-            for ob in obs]
+    qd = []
+    for ob in obs:
+        scale, zp = ob.calculate_qparams()
+        if getattr(scale, "ndim", 0) > 0:
+            raise ValueError(
+                "the quant_dict of a quantized layer is per tensor, but "
+                f"{type(ob).__name__} gave per-channel qparams; calibrate "
+                "with MinMaxObserver or HistogramObserver in the QConfig "
+                "passed to prepare()")
+        qd.append({"scale": scale, "zero_point": zp})
+    return qd
 
 
 def _copy_layer_state(qbnn_layer, d):
-    """Move the float posterior, the bias flag, the calibration result and
-    the generator from the float layer to its quantized twin."""
+    """Move the float posterior, the bias flag, the calibration result,
+    the generator and the mode from the float layer to its quantized
+    twin."""
     for attr in ("mu_weight", "rho_weight", "mu_kernel", "rho_kernel",
                  "mu_bias", "rho_bias"):
         if getattr(d, attr, None) is not None:
@@ -68,6 +86,7 @@ def _copy_layer_state(qbnn_layer, d):
     qbnn_layer.quant_dict = _harvest_quant_dict(d)
     qbnn_layer.generator = d.generator
     qbnn_layer.dnn_to_bnn_flag = d.dnn_to_bnn_flag
+    qbnn_layer.train(d.training)
 
 
 def _twin(d):
@@ -77,7 +96,8 @@ def _twin(d):
 def _conv_twin(d):
     return _twin(d)(in_channels=d.in_channels, out_channels=d.out_channels,
                     kernel_size=d.kernel_size, stride=d.stride,
-                    padding=d.padding, dilation=d.dilation, groups=d.groups)
+                    padding=d.padding, dilation=d.dilation, groups=d.groups,
+                    output_padding=getattr(d, "output_padding", 0))
 
 
 def qbnn_linear_layer(d):
@@ -93,6 +113,19 @@ def qbnn_conv_layer(d):
     _copy_layer_state(qbnn_layer, d)
     qbnn_layer.quantize()
     return qbnn_layer
+
+
+def qbnn_batchnorm2d_layer(d):
+    """The ``QuantizedBatchNorm2d`` twin of a BatchNorm2d: the same
+    statistics, affine parameters, mode and ``stats_frozen``."""
+    state = d.state_dict()
+    device = next(iter(state.values())).device if state else None
+    q = QuantizedBatchNorm2d(d.num_features, d.eps, d.momentum, d.affine,
+                             d.track_running_stats, device=device)
+    q.load_state_dict(state)
+    q.train(d.training)
+    q.stats_frozen = getattr(d, "stats_frozen", False)
+    return q
 
 
 def batch_norm_folding(conv, bn):
@@ -123,12 +156,10 @@ def bnn_to_qbnn(m: nn.Module, fuse_conv_bn: bool = False,
     ``quantize_activations=True`` sets ``q_output`` on every quantized
     conv, so activations stay uint8 ``QTensor``s between layers; linear
     layers emit f32, so a model's head returns a tensor.
+    ``quantize_batchnorm=True`` (without ``fuse_conv_bn``) swaps every
+    BatchNorm2d for a ``QuantizedBatchNorm2d``, whose output is
+    requantized uint8 when its input is a ``QTensor``.
     """
-    if quantize_batchnorm:
-        raise NotImplementedError(
-            "bnn_to_qbnn: quantize_batchnorm=True (QuantizedBatchNorm2d) "
-            "is not ported yet (ROADMAP Queue 1 #14); fold BN into the "
-            "convs with fuse_conv_bn=True or keep the float BN")
     for name, value in list(m.named_children()):
         if isinstance(value, _QuantizedLayerBase):
             continue
@@ -136,7 +167,7 @@ def bnn_to_qbnn(m: nn.Module, fuse_conv_bn: bool = False,
                 and "LSTM" in type(value).__name__:
             raise NotImplementedError(
                 "bnn_to_qbnn: Bayesian LSTMs come with the RNN slice "
-                "(ROADMAP Queue 1)")
+                "(ROADMAP Queue 1 #12)")
         if _is_float_bayes(value, "Conv"):
             if not fuse_conv_bn:  # fused convs are folded below by name
                 ql = qbnn_conv_layer(value)
@@ -144,9 +175,14 @@ def bnn_to_qbnn(m: nn.Module, fuse_conv_bn: bool = False,
                 setattr(m, name, ql)
         elif _is_float_bayes(value, "Linear"):
             setattr(m, name, qbnn_linear_layer(value))
+        elif quantize_batchnorm and not fuse_conv_bn \
+                and isinstance(value, nn.BatchNorm2d) \
+                and not isinstance(value, QuantizedBatchNorm2d):
+            setattr(m, name, qbnn_batchnorm2d_layer(value))
         elif not isinstance(value, BaseVariationalLayer):
             bnn_to_qbnn(value, fuse_conv_bn=fuse_conv_bn,
-                        quantize_activations=quantize_activations)
+                        quantize_activations=quantize_activations,
+                        quantize_batchnorm=quantize_batchnorm)
 
     if not fuse_conv_bn:
         return
@@ -163,4 +199,4 @@ def bnn_to_qbnn(m: nn.Module, fuse_conv_bn: bool = False,
         ql = batch_norm_folding(conv, bn)
         ql.q_output = quantize_activations
         setattr(parent, cname, ql)
-        setattr(parent, bname, nn.Identity())
+        setattr(parent, bname, nn.Identity().train(bn.training))

@@ -23,12 +23,20 @@ bytes with zero weight columns (the stem's 147 to 160). Activations keep their N
 conv's output is the GEMM's (B*Ho*Wo, O) result viewed as NCHW, so its
 memory is channels-last and the next conv's im2col reads it without a
 transpose.
+
+A grouped conv is one GEMM per group over that group's channels (K =
+C/g * prod(k), widened to 16). A transposed conv is the stride-1 conv of
+its flipped, regrouped kernel over the input with stride - 1 positions
+inserted between neighbours and d*(k-1)-p added at each edge
+(``output_padding`` more at the far edge), as the JAX package lowers it.
+Every inserted and added position holds the zero point, so it adds
+``w * (x_zp - x_zp) = 0`` and the sum runs over the real taps alone: the
+JAX route's border-exact correction, and its value.
 """
 
 from __future__ import annotations
 
 import itertools
-import math
 
 import torch
 import torch.nn.functional as F
@@ -108,58 +116,113 @@ def _ntuple(v, n):
     return (int(v),) * n if isinstance(v, int) else tuple(int(u) for u in v)
 
 
-def qconv(x_q, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale, out_zp, *,
-          stride=1, padding=0, dilation=1, groups=1, transposed=False,
-          data_format="NCHW"):
-    """uint8 activation (B, C, *sp) x int8 kernel (O, C, *k) conv -> uint8
-    (B, O, *out_sp), through the fused GEMM.
+def _zp_padded(xl, x_zp, lo, hi):
+    """(B, *sp, C) with ``lo[i]`` / ``hi[i]`` positions of ``x_zp`` added
+    before / after spatial dim i (a negative count crops)."""
+    pad = []
+    for a, b in zip(reversed(lo), reversed(hi)):
+        pad += [a, b]
+    if any(pad):
+        return F.pad(xl, [0, 0] + pad, value=int(x_zp))
+    return xl
 
-    Exact at padded borders: the padding holds x_zp, so padded taps add
-    w * (x_zp - x_zp) = 0 and the result is the sum over valid taps of
-    w * (x - x_zp), the JAX XLA route's value."""
-    if groups != 1 or transposed or data_format != "NCHW":
-        raise NotImplementedError(
-            "qconv: grouped, transposed and channels-last quantized convs "
-            "are not ported yet (ROADMAP Queue 1 #14); the port covers "
-            "groups=1, NCHW, not transposed")
-    nd = x_q.dim() - 2
-    k = tuple(w_q.shape[2:])
-    st, pd, dl = (_ntuple(v, nd) for v in (stride, padding, dilation))
-    cin = x_q.shape[1]
-    kdim = math.prod(k) * cin
-    # the GEMM's rows are a multiple of 16 bytes (K-F's tensor maps): the
-    # patches carry zero columns past kdim, the weight zero columns there
-    kpad = -kdim % 16
-    # (B, *sp, C): a view without copy when x_q is channels-last in memory
-    xl = x_q.permute(0, *range(2, nd + 2), 1)
+
+def _taps(xl, x_zp, k, st, pd, dl):
+    """The conv's input patches of (B, *sp, C) as a list of strided views,
+    one (B, *out_sp, C) per kernel tap in (*k) order, and ``out_sp``."""
+    nd = len(k)
     if all(ki == 1 for ki in k) and all(p == 0 for p in pd):
-        patches = xl[(slice(None),) + tuple(slice(None, None, s) for s in st)]
-        out_sp = tuple(patches.shape[1:-1])
-        if kpad:
-            patches = F.pad(patches, (0, kpad))
-    else:
-        pad = []
-        for p in reversed(pd):
-            pad += [p, p]
-        xp = F.pad(xl, [0, 0] + pad, value=int(x_zp))
-        out_sp = tuple((xp.shape[1 + i] - dl[i] * (k[i] - 1) - 1) // st[i] + 1
-                       for i in range(nd))
-        taps = []
-        for offs in itertools.product(*(range(ki) for ki in k)):
-            taps.append(xp[(slice(None),) + tuple(
-                slice(offs[i] * dl[i],
-                      offs[i] * dl[i] + st[i] * (out_sp[i] - 1) + 1, st[i])
-                for i in range(nd))])
-        if kpad:
-            taps.append(xp.new_zeros(()).expand(
-                tuple(taps[0].shape[:-1]) + (kpad,)))
-        patches = torch.cat(taps, dim=-1)  # (B, *out_sp, prod(k)*C + kpad)
-    m = x_q.shape[0] * math.prod(out_sp)
-    # w (O, C, *k) -> (O, (*k, C)) to match the patch order
+        tap = xl[(slice(None),) + tuple(slice(None, None, s) for s in st)]
+        return [tap], tuple(tap.shape[1:-1])
+    xp = _zp_padded(xl, x_zp, pd, pd)
+    out_sp = tuple((xp.shape[1 + i] - dl[i] * (k[i] - 1) - 1) // st[i] + 1
+                   for i in range(nd))
+    taps = []
+    for offs in itertools.product(*(range(ki) for ki in k)):
+        taps.append(xp[(slice(None),) + tuple(
+            slice(offs[i] * dl[i],
+                  offs[i] * dl[i] + st[i] * (out_sp[i] - 1) + 1, st[i])
+            for i in range(nd))])
+    return taps, out_sp
+
+
+def _group_gemm(taps, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale,
+                out_zp):
+    """One group's conv as the GEMM: the taps' channels side by side
+    ((*k, C) order) widened with zero columns to a multiple of 16 bytes
+    (K-F's tensor maps), against the kernel (O, C, *k) in the same order
+    -> (M, O) uint8."""
+    nd = w_q.dim() - 2
+    kdim = len(taps) * taps[0].shape[-1]
+    kpad = -kdim % 16
+    parts = list(taps)
+    if kpad:
+        parts.append(taps[0].new_zeros(()).expand(
+            tuple(taps[0].shape[:-1]) + (kpad,)))
+    patches = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
     w2 = w_q.permute(0, *range(2, nd + 2), 1).reshape(w_q.shape[0], -1)
     if kpad:
         w2 = F.pad(w2, (0, kpad))
-    out = qlinear(patches.reshape(m, kdim + kpad), x_scale, x_zp, w2,
-                  w_scale, bias_f32, out_scale, out_zp)
+    return qlinear(patches.reshape(-1, kdim + kpad), x_scale, x_zp, w2,
+                   w_scale, bias_f32, out_scale, out_zp)
+
+
+def _transposed_as_conv(xl, w_q, x_zp, st, pd, op, dl, groups):
+    """A transposed conv's equivalent stride-1 conv: (B, *sp, C) with
+    st - 1 positions of ``x_zp`` between neighbours and d*(k-1)-p added at
+    each edge (+ op at the far one), and the kernel (I, O/g, *k) regrouped
+    to (O, I/g, *k) and flipped."""
+    nd = len(st)
+    k = tuple(w_q.shape[2:])
+    if any(s > 1 for s in st):
+        sp = xl.shape[1:-1]
+        dil = xl.new_full((xl.shape[0],) + tuple(
+            (sp[i] - 1) * st[i] + 1 for i in range(nd)) + (xl.shape[-1],),
+            int(x_zp))
+        dil[(slice(None),) + tuple(slice(None, None, s) for s in st)] = xl
+        xl = dil
+    lo = [dl[i] * (k[i] - 1) - pd[i] for i in range(nd)]
+    xl = _zp_padded(xl, x_zp, lo, [lo[i] + op[i] for i in range(nd)])
+    cin, og = w_q.shape[:2]
+    w = w_q.reshape((groups, cin // groups, og) + k).transpose(1, 2)
+    w = w.reshape((groups * og, cin // groups) + k)
+    return xl, w.flip(tuple(range(2, nd + 2)))
+
+
+def qconv(x_q, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale, out_zp, *,
+          stride=1, padding=0, dilation=1, groups=1, transposed=False,
+          output_padding=0, data_format="NCHW"):
+    """uint8 activation (B, C, *sp) x int8 kernel -> uint8 (B, O, *out_sp),
+    through the fused GEMM; the kernel is (O, C/g, *k), or (C, O/g, *k)
+    when ``transposed``.
+
+    Exact at padded borders and at a transposed conv's inserted positions:
+    they hold x_zp, so they add w * (x_zp - x_zp) = 0 and the result is
+    the sum over the real taps of w * (x - x_zp), the JAX XLA route's
+    value."""
+    if data_format != "NCHW":
+        raise NotImplementedError(
+            f"qconv: data_format={data_format!r}: every layer of the port "
+            "is NCHW, and so is its int8 conv")
+    nd = x_q.dim() - 2
+    st, pd, dl = (_ntuple(v, nd) for v in (stride, padding, dilation))
+    # (B, *sp, C): a view without copy when x_q is channels-last in memory
+    xl = x_q.permute(0, *range(2, nd + 2), 1)
+    if transposed:
+        xl, w_q = _transposed_as_conv(xl, w_q, x_zp, st, pd,
+                                      _ntuple(output_padding, nd), dl,
+                                      groups)
+        st, pd = (1,) * nd, (0,) * nd
+    taps, out_sp = _taps(xl, x_zp, tuple(w_q.shape[2:]), st, pd, dl)
+    if groups == 1:
+        out = _group_gemm(taps, x_scale, x_zp, w_q, w_scale, bias_f32,
+                          out_scale, out_zp)
+    else:
+        cg, og = xl.shape[-1] // groups, w_q.shape[0] // groups
+        out = torch.cat([_group_gemm(
+            [t[..., g * cg:(g + 1) * cg] for t in taps], x_scale, x_zp,
+            w_q[g * og:(g + 1) * og], w_scale,
+            None if bias_f32 is None else bias_f32[g * og:(g + 1) * og],
+            out_scale, out_zp) for g in range(groups)], dim=1)
     out = out.reshape((x_q.shape[0],) + out_sp + (w_q.shape[0],))
     return out.permute(0, nd + 1, *range(1, nd + 1))

@@ -22,10 +22,11 @@
 
 In training mode the BatchNorm statistics of each draw are recorded and
 applied as one EMA update (``_apply_bn_ema``) under either emission. A
-converted INT8 model (``quantization.convert``) runs the draw loop: its
-quantized layers draw and build their int8 weights inside each draw, as
-under the JAX vmap emission, or reuse their frozen draws
-(``quantization.serving``). Flipout layers run under both emissions; their
+converted INT8 model (``quantization.convert``) runs the draw loop: with
+presample "on" its reparameterization layers build the int8 weights of
+all S draws in one pass before the loop (as the JAX scan emission's
+presample does), its Flipout layers draw their perturbations and signs
+inside each draw; frozen draws (``quantization.serving``) are reused. Flipout layers run under both emissions; their
 presampled draw is the perturbation ``sigma * eps``. ``structured=True``
 and meshes are not ported.
 """
@@ -39,11 +40,15 @@ import torch
 from torch import nn
 
 from bayesian_torch_tpu_torch.layers.batchnorm import MCBatchStats
+from bayesian_torch_tpu_torch.layers.quantized_base import (
+    _QuantizedLayerBase,
+)
 from bayesian_torch_tpu_torch.models.dnn_to_bnn import iter_bayesian_layers
 from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
     sample_scaled_normals_batch,
 )
-from bayesian_torch_tpu_torch.ops.sampling import (draw_seed, sigma_from_rho,
+from bayesian_torch_tpu_torch.ops.sampling import (draw_seed,
+                                                   sigma_from_rho,
                                                    sign_salts)
 
 _PRESAMPLE = ("auto", "on", "off", "xla", "hash")
@@ -67,7 +72,8 @@ def _is_flipout(layer):
 def _presample_layers(model: nn.Module, num_mc: int):
     """Draw every Bayesian layer's ``num_mc`` weight sets in ONE batch
     sampler launch per compute dtype (one launch for a model in one
-    dtype). Returns ``[(layer, {attr: (S, ...) tensor})]``.
+    dtype). Returns ``[(layer, {attr: a sequence over the S draws})]``:
+    (S, ...) tensors, and the INT8 layers' per-draw scales.
 
     All layers' mu and sigma are concatenated into one flat buffer, as the
     JAX function does. Each layer's draws come in its own compute dtype, as
@@ -87,6 +93,10 @@ def _presample_layers(model: nn.Module, num_mc: int):
     Differentiable when grad is enabled: the sampler's backward is one
     regenerate-eps launch over the whole flat buffer, and the split back
     into layers has a single concatenation as its backward.
+
+    An INT8 layer gives its own record (``presample``): a
+    reparameterization layer without a frozen draw builds its S int8
+    weights in one pass; an INT8 Flipout layer draws in its forward.
     """
     groups = {}
     for layer in iter_bayesian_layers(model):
@@ -113,6 +123,10 @@ def _presample_layers(model: nn.Module, num_mc: int):
 
     touched = []
     for layer in iter_bayesian_layers(model):
+        if isinstance(layer, _QuantizedLayerBase):
+            record = layer.presample(num_mc)
+            if record:
+                touched.append((layer, record))
         if layer not in draws:
             continue
         attrs = {"_presampled_w": draws[layer]}
@@ -347,14 +361,11 @@ def _split(out):
 def _forward_loop(model, x, num_mc, presampled, kl_layers, compute_kl,
                   reduce):
     """One forward per draw; the KL in the last draw alone."""
-    per_draw = [(layer, {name: stacked.unbind(0)
-                         for name, stacked in attrs.items()})
-                for layer, attrs in presampled]
     acc, outs, kl = None, [], 0.0
     for s in range(num_mc):
         for mod in kl_layers:
             mod.compute_kl = compute_kl and s == num_mc - 1
-        for layer, attrs in per_draw:
+        for layer, attrs in presampled:
             for name, draws in attrs.items():
                 setattr(layer, name, draws[s])
         out, kl = _split(model(x))

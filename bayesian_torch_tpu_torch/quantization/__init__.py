@@ -8,7 +8,9 @@ from bayesian_torch_tpu_torch.quantization.quantize import (  # noqa: F401
     prepare,
 )
 from bayesian_torch_tpu_torch.quantization.observers import (  # noqa: F401
+    HistogramObserver,
     MinMaxObserver,
+    PerChannelMinMaxObserver,
     QConfig,
 )
 from bayesian_torch_tpu_torch.quantization.serving import (  # noqa: F401

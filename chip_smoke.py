@@ -30,6 +30,12 @@ weights and images, 224x224, 1000 classes, bf16 compute:
   ResNet-110 trainer (f32, bs128, MC-50 evaluation), the Flipout CIFAR
   trainer, the deterministic CIFAR and MNIST trainers, the Bayesian MNIST
   trainer and the INT8 CIFAR and SCNN paths (phases 32-36);
+- INT8 Flipout: ``quantized_resnet_flipout_large.qresnet50`` (the float
+  Flipout ResNet-50 calibrated on 3 batches of 32 images, converted with
+  conv+BN folding and uint8 activations), MC-10 at batch 128 (two K-F
+  GEMMs a layer a draw: the mean and the perturbation), then frozen
+  perturbations at MC-1 and the uncalibrated model's MC-10; grouped and
+  transposed int8 convs through K-F (phases 37-40);
 - model surgery: the deterministic ResNet-50
   (``models/deterministic/resnet_large.py``), ``utils.MOPED`` into the
   Bayesian ResNet-50 and ``models.dnn_to_bnn`` of the deterministic one
@@ -201,11 +207,32 @@ Phases, each printing its own line(s):
     INT8 MC-20 bs1000 timed, and its logits with frozen draws against a CPU
     copy (the activations out of layer3 bit for bit, the logits within 3
     head quanta). Each zoo phase logs its seconds.
+37. INT8 Flipout build: the float Flipout ResNet-50 (f32) takes BN
+    statistics from one batch, calibrates on 3 x 32 images (the Flipout
+    calibration forward) and is converted (conv+BN folding, uint8
+    activations): 54 quantized Flipout layers with 10-slot quant_dicts;
+38. the INT8 Flipout main path: three MC-10 bs128 batches after a
+    warm-up, 1,080 K-F launches each, ms per batch, images/s, peak
+    memory; one batch under the profiler (busy, idle share, K-F's device
+    time and share) and the sign hash of one forward alone (its share);
+    frozen perturbations at MC-1 (108 launches a batch); the uncalibrated
+    model's MC-10 (1,080 a batch);
+39. INT8 Flipout sanity: frozen perturbations, generators reseeded: the
+    activations into the pool and the uint8 logits of 2 images equal a
+    CPU copy's bit for bit; two frozen-perturbation forwards differ;
+40. grouped and transposed int8 convs: a ResNeXt-like 3x3 conv (256 ->
+    256, 32 groups, 56^2, bs32; 32 K-F GEMMs) and DCGAN-like
+    ``QuantizedConvTranspose2d{Reparameterization,Flipout}`` layers (512
+    -> 256, k4 s2 p1, 16^2, bs64) on the card, bit for bit with the plain
+    route (K-F's plain version in the same lowering) and with a float64
+    conv's integer sum; device times of the route, K-F's rows and the
+    plain route, with the bound. Phases 37-40 log their seconds.
 
 The line before the last is a JSON object with every kernel's launches,
 counted from zero in the run named by its ``run`` key, its error against
 its plain version and both times; K-A, K-C and K-F also carry ``paths``,
-their launches on each path of the zoo, each counted from zero; the last
+their launches on each path of the zoo (K-F: and of the INT8 main paths
+and phases 38-40), each counted from zero; the last
 line is ``{"ok": true, "device": {...}}``, printed only after every phase
 passed. Any failure raises and exits non-zero, as does a machine without
 CUDA.
@@ -1308,7 +1335,8 @@ def phase_trainer():
 
 def profile_window(what, fn, rows=25):
     """Run ``fn`` once under torch.profiler; log wall time, device time,
-    idle share and the top ``rows`` kernels; return (wall ms, busy ms)."""
+    idle share and the top ``rows`` kernels; return {"wall": ms, "busy":
+    ms, "events": the profiler's key averages}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1339,7 +1367,7 @@ def profile_window(what, fn, rows=25):
         f"spans), idle share {1 - busy / wall:.3f}")
     log(events.table(sort_by="self_cuda_time_total", row_limit=rows,
                      max_name_column_width=70))
-    return wall, busy
+    return dict(wall=wall, busy=busy, events=events)
 
 
 def phase_profile(model, x, kb):
@@ -2973,8 +3001,9 @@ def phase_cifar(cap_train, cap_test):
         reset_counts()
         ms, peak = timed_steps(what, model, step, lambda i: (x, y), want)
         paths[what] = counts()
-        wall, busy = profile_window(f"one {what} (bs{CIFAR_BATCH})",
-                                    lambda: step(x, y), rows=12)
+        prof = profile_window(f"one {what} (bs{CIFAR_BATCH})",
+                              lambda: step(x, y), rows=12)
+        wall, busy = prof["wall"], prof["busy"]
         log(f"[{what}] device busy {busy:.1f} ms of {wall:.1f} ms under "
             f"the profiler, idle share {1 - busy / wall:.3f}")
         check_grads(model, what)
@@ -3347,6 +3376,415 @@ def phase_zoo():
         check(v, f"{k} never ran on the zoo's paths")
     return by_kernel, kf_res
 
+# --- the INT8 remainder: Flipout qresnet50, grouped and transposed convs ----
+
+
+def build_flipout_qresnet50(calibrate=None, device="cuda", seed=SEED + 40):
+    import torch
+
+    from bayesian_torch_tpu_torch.models.bayesian.\
+        quantized_resnet_flipout_large import qresnet50
+
+    return qresnet50(generator=torch.Generator().manual_seed(seed),
+                     device=device, calibrate=calibrate, fuse_conv_bn=True,
+                     quantize_activations=True)
+
+
+def phase_int8_flipout_build():
+    """(37) The calibrated INT8 Flipout model: the float Flipout ResNet-50
+    (f32) takes its BN statistics from one training-mode forward
+    (observers off), calibrates on 3 batches of 32 images (the Flipout
+    calibration forward: mean and perturbation convs, the signs) and is
+    converted with conv+BN folding and uint8 activations: 54 quantized
+    Flipout layers, each with a 10-slot quant_dict."""
+    import torch
+
+    def calibrate(model):
+        prepared = [m for m in model.modules()
+                    if getattr(m, "quant_prepare", False)]
+        for m in prepared:
+            m.quant_prepare = False
+        set_bn_statistics(model, images(SEED + 520))
+        for m in prepared:
+            m.quant_prepare = True
+        with torch.no_grad():
+            for i in range(3):
+                model(images(SEED + 530 + i)[:CALIB_BATCH])
+
+    t0 = time.perf_counter()
+    model = build_flipout_qresnet50(calibrate)
+    torch.cuda.synchronize()
+    layers = [m for m in model.modules() if hasattr(m, "quant_dict")]
+    check(len(layers) == INT8_LAYERS
+          and all(m.estimator == "flipout" and m.quant_dict is not None
+                  and len(m.quant_dict) == 10 for m in layers),
+          "not every layer of the INT8 Flipout model is a calibrated "
+          "Flipout layer")
+    log(f"[int8 flipout build] qresnet50 (Flipout) f32 -> BN statistics, "
+        f"3 x {CALIB_BATCH} calibration images, convert(fuse_conv_bn=True, "
+        f"quantize_activations=True): {time.perf_counter() - t0:.1f} s; "
+        f"{len(layers)} quantized Flipout layers")
+    return model
+
+
+def sign_shapes(model, x):
+    """The (input, output) shapes of every quantized Flipout layer in one
+    forward: the shapes of the two sign tensors each draws."""
+    import torch
+
+    layers = [m for m in model.modules() if hasattr(m, "quant_dict")]
+    shapes = []
+    handles = [m.register_forward_hook(
+        lambda mod, inp, out: shapes.append(
+            (tuple(inp[0].shape), tuple(
+                (out[0] if isinstance(out, tuple) else out).shape))))
+        for m in layers]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return shapes
+
+
+def phase_int8_flipout_main(model, batches):
+    """(38) The INT8 Flipout main path: MC-10 at batch 128 (1,080 K-F
+    launches a batch: 54 layers, the mean and the perturbation, 10 draws),
+    three batches after a warm-up, peak memory; one batch under the
+    profiler (busy time, idle share, K-F's device time and share); the
+    sign hash of the batch replayed alone (its 1,080 sign tensors at the
+    batch's shapes) and its share of the batch's busy time; frozen
+    perturbations, MC-1; the uncalibrated model's
+    MC-10. Returns a dict of the results."""
+    import torch
+
+    from torch.autograd import DeviceType
+
+    from bayesian_torch_tpu_torch.ops.sampling import rademacher_fused
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+    from bayesian_torch_tpu_torch.quantization import freeze_quantized_draws
+
+    def mc10(m):
+        return lambda x: mc_forward(m, x, NUM_MC, reduce="mean",
+                                    return_kl=False)
+
+    per_batch = 2 * INT8_LAYERS * NUM_MC
+    torch.cuda.reset_peak_memory_stats()
+    ms, outs, launches = timed_batches(
+        f"int8 flipout MC-{NUM_MC} bs{BATCH}", mc10(model), batches,
+        per_batch)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = profile_window(
+        f"one INT8 Flipout MC-{NUM_MC} batch (bs{BATCH})",
+        lambda: mc10(model)(batches[0]), rows=15)
+    kf_ms = sum(e.self_device_time_total for e in prof["events"]
+                if e.device_type == DeviceType.CUDA
+                and "qmatmul" in e.key) / 1e3
+    shapes = sign_shapes(model, batches[0])
+    check(len(shapes) == INT8_LAYERS, f"{len(shapes)} Flipout layers ran")
+
+    def signs():
+        # the batch's NUM_MC draws: each layer's two sign tensors a draw,
+        # under salts of their own (the hash's work is the same for any)
+        for d in range(NUM_MC):
+            for i, (xs, os_) in enumerate(shapes):
+                salt = 2 * (d * len(shapes) + i)
+                rademacher_fused(salt + 1, xs, torch.float32, "cuda")
+                rademacher_fused(salt + 2, os_, torch.float32, "cuda")
+
+    # the sign hash of the whole batch alone: its kernels' busy time
+    n_signs = 2 * len(shapes) * NUM_MC
+    sign_ms = profile_window(f"the sign hash of one MC-{NUM_MC} batch "
+                             f"({n_signs} tensors)", signs, rows=8)["busy"]
+    busy = prof["busy"]
+    res = dict(ms=ms, peak_gib=peak, launches=launches, busy_ms=busy,
+               wall_ms=prof["wall"], idle=1 - busy / prof["wall"],
+               kf_ms=kf_ms, kf_share=kf_ms / busy,
+               sign_ms=sign_ms, sign_share=sign_ms / busy)
+    log(f"[int8 flipout main] {card()}: median {ms:.1f} ms/batch, "
+        f"{BATCH / ms * 1e3:.1f} images/s, peak {peak:.2f} GiB; profiled "
+        f"batch: busy {busy:.1f} of {prof['wall']:.1f} ms (idle "
+        f"{res['idle']:.3f}); K-F {kf_ms:.2f} ms ({res['kf_share']:.3f} of "
+        f"busy, {per_batch} launches); the sign hash of the batch "
+        f"({n_signs} tensors) replayed alone: busy {sign_ms:.2f} ms, "
+        f"{res['sign_share']:.3f} of the batch's busy; entropy "
+        f"{entropy(outs[0]):.4f}")
+
+    check(freeze_quantized_draws(model) == INT8_LAYERS, "froze the layers")
+    with torch.no_grad():
+        res["frozen_ms"], _, _ = timed_batches(
+            "int8 flipout frozen MC-1", lambda x: model(x)[0], batches,
+            2 * INT8_LAYERS)
+    uncal = build_flipout_qresnet50()
+    check(all(m.quant_dict is None for m in uncal.modules()
+              if hasattr(m, "quant_dict")), "uncalibrated model has scales")
+    res["uncalibrated_ms"], _, uncal_launches = timed_batches(
+        f"int8 flipout uncalibrated MC-{NUM_MC}", mc10(uncal), batches,
+        per_batch)
+    res["launches_uncalibrated"] = uncal_launches
+    del uncal
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_int8_flipout_sanity(model, x):
+    """(39) With frozen perturbations and every layer's generator
+    reseeded (so the signs' salts agree), the card's uint8 activations
+    into the average pool and its uint8 logits (the head's QTensor) on 2
+    images equal a CPU copy's on the plain versions: the signs come from
+    the integer hash and K-F equals its plain version bit for bit. Then
+    two forwards with the same frozen perturbations differ (their signs
+    are drawn per call)."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops.qtensor import dequantize_if_qtensor
+    from bayesian_torch_tpu_torch.utils.checkpoint import load_jax_quant_state
+
+    t0 = time.perf_counter()
+    cpu = build_flipout_qresnet50(device="cpu", seed=SEED + 41)
+    load_jax_quant_state(
+        cpu, {k: v.cpu().numpy() for k, v in model.state_dict().items()},
+        {name: m.quant_dict for name, m in model.named_modules()
+         if hasattr(m, "quant_dict")})
+    pooled = {}
+
+    def run(m, xs):
+        for mod in m.modules():
+            if hasattr(mod, "quant_dict"):
+                mod.generator.manual_seed(SEED + 42)
+        m.fc.q_output = True
+        h = m.avgpool.register_forward_hook(
+            lambda mod, inp, out: pooled.__setitem__(
+                xs.device.type, dequantize_if_qtensor(inp[0]).cpu()))
+        try:
+            with torch.no_grad():
+                return m(xs)[0].q.cpu()
+        finally:
+            h.remove()
+            m.fc.q_output = False
+
+    xs = x[:2]
+    got, want = run(model, xs), run(cpu, xs.cpu())
+    pool_equal = torch.equal(pooled["cuda"], pooled["cpu"])
+    equal = torch.equal(got, want)
+    log(f"[int8 flipout sanity] card vs CPU copy, frozen perturbations, "
+        f"generators reseeded, 2 images ({time.perf_counter() - t0:.1f} s):"
+        f" activations into the pool equal: {pool_equal}; uint8 "
+        f"logits equal: {equal} (max |diff| "
+        f"{(got.int() - want.int()).abs().max().item()} quanta)")
+    check(pool_equal and equal, "INT8 Flipout: card and CPU copy differ")
+    with torch.no_grad():
+        a, b = model(x)[0], model(x)[0]
+    check(not torch.equal(a, b), "two frozen-perturbation forwards are "
+          "equal: the signs did not change")
+    log("[int8 flipout sanity] two forwards with frozen perturbations "
+        "differ (signs per call)")
+
+
+@contextlib.contextmanager
+def kf_plain_route():
+    """``ops.int8``'s GEMM on K-F's plain version (the same lowering, the
+    same epilogue), on the card."""
+    from bayesian_torch_tpu_torch.ops import int8
+    from bayesian_torch_tpu_torch.ops.cuda import qmatmul as kf
+
+    def plain(x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale, out_zp):
+        args = kf.requant_args(w_q, x_zp, x_scale, w_scale, bias, out_scale)
+        return kf.qmatmul_requant_plain(x_q, w_q, *args, out_zp)
+
+    saved = int8.qmatmul_requant
+    int8.qmatmul_requant = plain
+    try:
+        yield
+    finally:
+        int8.qmatmul_requant = saved
+
+
+def qconv_f64(x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale, out_zp, *,
+              transposed=False, **kw):
+    """The JAX XLA route's value: the integer sum of w * (x - x_zp) over
+    the real taps from a float64 torch conv (exact: |acc| < 2**53; cuDNN
+    off, so no transform algorithm rounds it), then the f32 epilogue."""
+    import torch
+    import torch.nn.functional as F
+
+    from bayesian_torch_tpu_torch.ops.cuda import qmatmul as kf
+
+    conv = F.conv_transpose2d if transposed else F.conv2d
+    with torch.backends.cudnn.flags(enabled=False):
+        acc = conv(x_q.double() - x_zp, w_q.double(), **kw)
+    out = acc.float() * kf.requant_multiplier(x_scale, w_scale, out_scale)
+    if bias is not None:
+        out = out + (bias.float() * (1.0 / out_scale)).reshape(1, -1, 1, 1)
+    return torch.clamp(torch.round(out) + out_zp, 0, 255).to(torch.uint8)
+
+
+def probe_times(what, route, nbytes, ops, launches_each):
+    """Device times of ``route()`` on K-F and on its plain version, K-F's
+    own rows, the bound; the launches of one call checked."""
+    before = counts()["K-F"]
+    route()
+    got = counts()["K-F"] - before
+    check(got == launches_each, f"{what}: K-F launched {got} times, want "
+          f"{launches_each}")
+
+    def plain():
+        with kf_plain_route():
+            route()
+
+    ms, kf_ms, plain_ms = device_times((route, None), (route, "qmatmul"),
+                                       (plain, None))
+    bound_ms, by = bound(nbytes, ops, INT8_OPS)
+    log(f"[{what}] {card()}: route {ms:.3f} ms device time, of it K-F "
+        f"{kf_ms:.3f} ms ({launches_each} launches); plain route "
+        f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({by}); library: none "
+        f"(no PyTorch int8 grouped or transposed conv)")
+    return dict(ms=ms, kf_ms=kf_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=by, library_ms=None, launches=got)
+
+
+def phase_int8_probes():
+    """(40) Grouped and transposed int8 convs on the card, bit for bit
+    with the plain route (K-F's plain version in the same lowering) and
+    with the float64 conv's integer sum: a ResNeXt-like 3x3 conv, 256 ->
+    256 channels in 32 groups, at 56x56, batch 32 (``qconv``: 32 K-F
+    GEMMs); a DCGAN-like ``QuantizedConvTranspose2dReparameterization``
+    and ``QuantizedConvTranspose2dFlipout``, 512 -> 256, k4 s2 p1, at
+    16x16, batch 64 (calibrated, frozen draws, the Flipout layer's signs
+    from reseeded generators). Returns ({path: K-F launches}, results)."""
+    import torch
+    from torch import nn
+
+    from bayesian_torch_tpu_torch import layers as L
+    from bayesian_torch_tpu_torch.models.bnn_to_qbnn import bnn_to_qbnn
+    from bayesian_torch_tpu_torch.ops import int8
+    from bayesian_torch_tpu_torch.quantization import (freeze_quantized_draws,
+                                                       prepare)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 800)
+    results, paths = {}, {}
+
+    # ResNeXt-like grouped conv
+    B, C, H, G = 32, 256, 56, 32
+    x = torch.randint(0, 256, (B, C, H, H), dtype=torch.uint8, device="cuda",
+                      generator=gen)
+    w = torch.randint(-128, 128, (C, C // G, 3, 3), dtype=torch.int8,
+                      device="cuda", generator=gen)
+    b = torch.randn(C, device="cuda", generator=gen)
+    args = (0.02, 117, w, 0.01, b, 0.02 * 0.01 * 74 * 74 * 72 ** 0.5 / 40,
+            128)
+    kw = dict(stride=1, padding=1, groups=G)
+    got = int8.qconv(x, *args, **kw)
+    with kf_plain_route():
+        plain = int8.qconv(x, *args, **kw)
+    ref = qconv_f64(x, *args, **kw)
+    check(torch.equal(got, plain) and torch.equal(got, ref),
+          "grouped qconv: K-F route, plain route and f64 conv differ")
+    reset_counts()
+    results["resnext"] = probe_times(
+        f"int8 grouped probe {C}->{C} g{G} 3x3 {H}^2 bs{B}",
+        lambda: int8.qconv(x, *args, **kw),
+        x.numel() + w.numel() + got.numel() + 4 * C,
+        2 * B * H * H * C * (C // G) * 9, G)
+    paths["grouped probe"] = results["resnext"]["launches"]
+    log(f"[int8 grouped probe] bit for bit with the plain route and the "
+        f"f64 conv; clamped share "
+        f"{((got == 0) | (got == 255)).float().mean().item():.4f}")
+    del x, w, got, plain, ref
+
+    # DCGAN-like transposed layers
+    B, I, O, H = 64, 512, 256, 16
+    for est in ("Reparameterization", "Flipout"):
+        float_layer = getattr(L, f"ConvTranspose2d{est}")(
+            I, O, 4, 2, 1, generator=torch.Generator().manual_seed(SEED + 801),
+            device="cuda")
+        holder = nn.ModuleDict(dict(l=float_layer)).eval()
+        prepare(holder)
+        xf = torch.randn(B, I, H, H, device="cuda", generator=gen)
+        with torch.no_grad():
+            holder["l"](xf)
+        bnn_to_qbnn(holder)
+        layer = holder["l"]
+        check(type(layer).__name__ == f"QuantizedConvTranspose2d{est}"
+              and len(layer.quant_dict) == (10 if est == "Flipout" else 5),
+              f"{est}: the calibrated quantized twin")
+        freeze_quantized_draws(holder)
+        x = torch.randn(B, I, H, H, device="cuda", generator=gen)
+
+        def fwd():
+            layer.generator.manual_seed(SEED + 802)
+            with torch.no_grad():
+                out = layer(x, return_kl=False)
+            return out
+
+        layer.q_output = True
+        got = fwd().q
+        with kf_plain_route():
+            plain = fwd().q
+        check(torch.equal(got, plain), f"transposed {est}: the K-F route "
+              "and the plain route differ")
+        # the mean conv's integer sum against the f64 conv transpose
+        s2, z2 = layer._qd(2 if est == "Flipout" else 3)
+        s3, z3 = layer._qd(3 if est == "Flipout" else 4)
+        x_q = layer._quantize_input(x, s2, z2)
+        w_q = layer.quantized_mu_weight if est == "Flipout" \
+            else layer._frozen_w
+        w_s = layer._mu_scale_f if est == "Flipout" \
+            else layer._frozen_wscale_f
+        bias = layer.quantized_mu_bias if est == "Flipout" \
+            else layer._frozen_bias
+        tkw = dict(stride=2, padding=1)
+        mean = int8.qconv(x_q, s2, z2, w_q, w_s, bias, s3, z3,
+                          transposed=True, **tkw)
+        check(torch.equal(mean, qconv_f64(x_q, s2, z2, w_q, w_s, bias, s3,
+                                          z3, transposed=True, **tkw)),
+              f"transposed {est}: qconv and the f64 conv differ")
+        n = 2 if est == "Flipout" else 1
+        reset_counts()
+        res = probe_times(
+            f"int8 transposed probe {est} {I}->{O} k4s2p1 {H}^2 bs{B}",
+            fwd, x.numel() * 4 + n * w_q.numel() + got.numel() + 4 * O,
+            n * 2 * B * H * H * I * O * 16, n)
+        results[f"convtranspose {est}"] = res
+        paths[f"transposed probe {est}"] = res["launches"]
+        log(f"[int8 transposed probe {est}] bit for bit with the plain route"
+            f" (frozen draws, reseeded signs) and, for the mean product, the "
+            f"f64 conv transpose")
+        del layer, holder, float_layer, x, got, plain
+        torch.cuda.empty_cache()
+    return paths, results
+
+
+def phase_int8_remainder():
+    """Phases 37-40, each one's seconds logged. Returns ({path: K-F
+    launches}, the Flipout main path's results, the probes' results)."""
+    import torch
+
+    seconds = {}
+    t0 = time.perf_counter()
+    model = phase_int8_flipout_build()
+    batches = [images(SEED + 1 + i) for i in range(3)]
+    seconds["build"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    main_res = phase_int8_flipout_main(model, batches)
+    seconds["main"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    phase_int8_flipout_sanity(model, batches[0])
+    seconds["sanity"] = round(time.perf_counter() - t0, 1)
+    del model, batches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths, probes = phase_int8_probes()
+    seconds["probes"] = round(time.perf_counter() - t0, 1)
+    paths = {f"int8 flipout MC-{NUM_MC} bs{BATCH} batches":
+             main_res["launches"],
+             f"int8 flipout uncalibrated MC-{NUM_MC} batches":
+             main_res["launches_uncalibrated"], **paths}
+    log(f"[int8 remainder] seconds per phase: {seconds}")
+    return paths, main_res, probes
+
+
 def main(argv=None):
     import argparse
 
@@ -3461,6 +3899,7 @@ def main(argv=None):
     del batches
     torch.cuda.empty_cache()
     zoo, zoo_kf = phase_zoo()
+    int8_paths, flipout_int8, int8_probes = phase_int8_remainder()
 
     csrc = "bayesian_torch_tpu_torch/csrc/"
     pallas = "bayesian_torch_tpu/ops/pallas/"
@@ -3505,14 +3944,27 @@ def main(argv=None):
         dict(name="qmatmul_requant", route="cuda",
              source=csrc + "qmatmul.cu",
              replaces=pallas + "qmatmul.py:61",
-             run=f"INT8 main path: qresnet50 calibrated, fuse_conv_bn=True, "
-                 f"mc_forward(num_mc={NUM_MC}, reduce='mean'), 3 batches; "
-                 f"ms, plain_ms, bound_ms and library_ms are device-time "
-                 f"sums over one "
-                 f"forward's {INT8_LAYERS} GEMMs; cifar_resnet20_bs128: "
-                 f"the same sums over the INT8 CIFAR ResNet-20's GEMMs",
-             launches=kf_launches, paths=zoo["K-F"],
-             cifar_resnet20_bs128=zoo_kf, **kf_res),
+             run=f"INT8 main paths: qresnet50 calibrated, fuse_conv_bn=True, "
+                 f"mc_forward(num_mc={NUM_MC}, reduce='mean'), 3 batches, "
+                 f"reparameterization ({INT8_LAYERS * NUM_MC} launches a "
+                 f"batch) and Flipout ({2 * INT8_LAYERS * NUM_MC}); ms, "
+                 f"plain_ms, bound_ms and library_ms are device-time sums "
+                 f"over one reparameterization forward's {INT8_LAYERS} "
+                 f"GEMMs (a Flipout forward runs each shape twice); "
+                 f"cifar_resnet20_bs128: the same sums over the INT8 CIFAR "
+                 f"ResNet-20's GEMMs; int8_flipout: the Flipout MC-10 "
+                 f"batch (host ms, profiled busy ms, idle share, K-F's and "
+                 f"the sign hash's device ms and shares); grouped_probe, "
+                 f"transposed_probes: device ms of the route, of K-F's rows "
+                 f"and of the plain route, per call",
+             launches=kf_launches + flipout_int8["launches"],
+             paths=dict(zoo["K-F"], **{
+                 f"int8 reparameterization MC-{NUM_MC} bs{BATCH} batches":
+                 kf_launches}, **int8_paths),
+             cifar_resnet20_bs128=zoo_kf, int8_flipout=flipout_int8,
+             grouped_probe=int8_probes["resnext"],
+             transposed_probes={k: v for k, v in int8_probes.items()
+                                if k != "resnext"}, **kf_res),
         dict(name="sampled_matmul_batched", route="cuda",
              source=csrc + "sampled_matmul.cu",
              replaces=pallas + "sampled_matmul.py:383",

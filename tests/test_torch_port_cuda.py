@@ -18,6 +18,8 @@ CUDA device. On a machine with one, and without JAX, run them with
 torch and the port only.
 """
 
+import copy
+
 import pytest
 import torch
 
@@ -952,3 +954,102 @@ def test_converted_model_presample_is_the_plain_sampler(cuda):
     assert [layer for layer, _ in touched] == layers
     assert got.shape == want.shape
     assert (got - want).abs().max().item() <= 1e-5
+
+
+# K-F at the GEMM shapes of the INT8 Flipout ResNet-50 path (bs128, 224^2:
+# each layer's perturbation GEMM has the mean's shape) and of the two
+# probe convs of chip_smoke.py: the ResNeXt-like grouped conv (one GEMM a
+# group, K = 8 * 9 widened to 80) and the DCGAN-like transposed conv (K =
+# 512 * 16 over the zero-point-inserted input)
+_INT8_FLIPOUT_SHAPES = [
+    (128 * 112 * 112, 64, 160), (128 * 56 * 56, 64, 576),
+    (128 * 56 * 56, 256, 64), (128 * 28 * 28, 128, 1152),
+    (128 * 14 * 14, 1024, 256), (128 * 7 * 7, 512, 4608),
+    (128, 1000, 2048), (32 * 56 * 56, 8, 80), (64 * 32 * 32, 256, 8192)]
+
+
+@pytest.mark.parametrize("m,n,k", _INT8_FLIPOUT_SHAPES)
+def test_qmatmul_matches_plain_at_int8_flipout_shapes(cuda, m, n, k):
+    x, w, bias, out_scale = _int8_operands(m, n, k, cuda, seed=m % 97)
+    got = kf.qmatmul_requant(x, 0.02, 117, w, 0.01, bias, out_scale, 128)
+    want = kf.qmatmul_requant_plain(
+        x, w, *kf.requant_args(w, 117, 0.02, 0.01, bias, out_scale), 128)
+    assert torch.equal(got, want)
+
+
+def _qconv_plain(monkeypatch):
+    """``ops.int8``'s GEMM on K-F's plain version, on the card."""
+    def plain(x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale, out_zp):
+        args = kf.requant_args(w_q, x_zp, x_scale, w_scale, bias, out_scale)
+        return kf.qmatmul_requant_plain(x_q, w_q, *args, out_zp)
+
+    monkeypatch.setattr(q, "qmatmul_requant", plain)
+
+
+@pytest.mark.parametrize("case", [
+    dict(x=(4, 64, 14, 14), w=(64, 2, 3, 3), groups=32, padding=1),
+    dict(x=(2, 32, 9, 9), w=(32, 1, 3, 3), groups=32, stride=2, padding=1),
+    dict(x=(4, 64, 8, 8), w=(64, 32, 4, 4), stride=2, padding=1,
+         transposed=True),
+    dict(x=(2, 16, 5, 5), w=(16, 4, 3, 3), groups=2, stride=2, dilation=2,
+         output_padding=1, transposed=True)])
+def test_grouped_and_transposed_qconv_match_plain_route(cuda, monkeypatch,
+                                                       case):
+    """Grouped and transposed int8 convs through K-F equal the same
+    lowering on K-F's plain version bit for bit, one launch a group."""
+    case = dict(case)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randint(0, 256, case.pop("x"), dtype=torch.uint8, device=cuda,
+                      generator=g)
+    w = torch.randint(-128, 128, case.pop("w"), dtype=torch.int8,
+                      device=cuda, generator=g)
+    o = w.shape[1] * case.get("groups", 1) if case.get("transposed") \
+        else w.shape[0]
+    bias = torch.randn(o, device=cuda, generator=g)
+    args = (0.02, 117, w, 0.01, bias, 0.3, 128)
+    before = kf.qmatmul_requant.launches
+    got = q.qconv(x, *args, **case)
+    torch.cuda.synchronize()
+    assert kf.qmatmul_requant.launches == before + case.get("groups", 1)
+    _qconv_plain(monkeypatch)
+    assert torch.equal(got, q.qconv(x, *args, **case))
+
+
+@pytest.mark.parametrize("name", ["QuantizedConv2dFlipout",
+                                  "QuantizedConvTranspose2dFlipout",
+                                  "QuantizedLinearFlipout"])
+def test_quantized_flipout_layer_matches_cpu(cuda, name):
+    """A quantized Flipout layer on the card with a frozen perturbation
+    and reseeded generators (the same sign salts) equals its CPU copy bit
+    for bit: integer signs from the hash, K-F equal to its plain
+    version."""
+    from torch import nn
+
+    from bayesian_torch_tpu_torch import layers as L
+    from bayesian_torch_tpu_torch.models.bnn_to_qbnn import bnn_to_qbnn
+    from bayesian_torch_tpu_torch.quantization import (
+        freeze_quantized_draws, prepare)
+
+    float_name = name[len("Quantized"):]
+    args = (12, 7) if "Linear" in float_name else (8, 6, 3, 2, 1)
+    shape = (5, 12) if "Linear" in float_name else (2, 8, 9, 9)
+    layer = getattr(L, float_name)(
+        *args, generator=torch.Generator().manual_seed(0))
+    holder = nn.ModuleDict(dict(l=layer)).eval()
+    prepare(holder)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        holder["l"](x)
+    bnn_to_qbnn(holder)
+    freeze_quantized_draws(holder)
+    cpu = holder["l"]
+    card = copy.deepcopy(cpu).to(cuda)
+    card._refresh_scales()
+    outs = []
+    for mod, xs in ((cpu, x), (card, x.to(cuda))):
+        mod.generator.manual_seed(2)
+        mod.q_output = True
+        with torch.no_grad():
+            outs.append(mod(xs, return_kl=False).q.cpu())
+    assert type(cpu).__name__ == name
+    assert torch.equal(outs[0], outs[1])

@@ -458,9 +458,10 @@ def test_flipout_factories_and_the_weight_carry():
     with pytest.raises(NotImplementedError, match="estimator"):
         _large_resnet.LargeResNet(_large_resnet.BasicBlock, [1, 1, 1, 1],
                                   estimator="Other")
-    for layer in (tm.conv1, tm.fc):
-        with pytest.raises(NotImplementedError, match="#14"):
-            layer.prepare()
+    for layer in (tm.conv1, tm.fc):  # Flipout calibration observers
+        layer.prepare()
+        assert layer.quant_prepare and len(layer.qint_quant) == 4 \
+            and len(layer.quint_quant) == 8
     assert tl.Conv2dFlipout is tl.flipout_layers.Conv2dFlipout
     assert tl.flipout_layers.BaseVariationalLayer_ is tl.BaseVariationalLayer
 

@@ -395,7 +395,16 @@ def test_port_never_imports_jax():
                 "examples/main_bayesian_cifar.py",
                 "examples/main_bayesian_flipout_cifar.py",
                 "examples/main_bayesian_cifar_dnn2bnn.py",
-                "examples/quantization_test.py"):
+                "examples/quantization_test.py",
+                "layers/flipout_layers/quantized_conv_flipout.py",
+                "layers/flipout_layers/quantized_linear_flipout.py",
+                "models/bayesian/quantized_resnet_flipout_large.py",
+                "ao/nn/__init__.py", "ao/nn/quantized/__init__.py",
+                "ao/nn/quantized/modules/__init__.py",
+                "ao/nn/quantized/modules/quantize_conv_variational.py",
+                "ao/nn/quantized/modules/quantize_linear_variational.py",
+                "ao/nn/quantized/modules/quantized_conv_flipout.py",
+                "ao/nn/quantized/modules/quantized_linear_flipout.py"):
         assert root / new in paths, new
     paths += [root.parent / "chip_smoke.py", root.parent / "kernel_times.py"]
     modules = []

@@ -133,13 +133,23 @@ def test_qconv_im2col_matches_jax_xla_route(k, stride, pad, dil, cin, cout,
 
 
 def test_qconv_unported_cases_raise():
-    x = torch.zeros((1, 4, 5, 5), dtype=torch.uint8)
-    w = torch.zeros((4, 2, 3, 3), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
-        tq.qconv(x, 0.1, 128, w, 0.1, None, 0.1, 128, groups=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
-        tq.qconv(x, 0.1, 128, w[:, :4].contiguous(), 0.1, None, 0.1, 128,
-                 transposed=True)
+    """Grouped and transposed int8 convs run (and equal the JAX route:
+    ``tests/test_torch_port_int8_flipout.py`` holds them at every
+    geometry); channels-last activations stay refused, since every layer
+    of the port is NCHW."""
+    rs = np.random.RandomState(5)
+    x = rs.randint(0, 256, (1, 4, 5, 5)).astype(np.uint8)
+    w = rs.randint(-128, 128, (4, 2, 3, 3)).astype(np.int8)
+    for kw, w_ in ((dict(groups=2), w), (dict(transposed=True), w),
+                   (dict(transposed=True, groups=2, stride=2,
+                         output_padding=1), w)):
+        _equal(jq.qconv(jnp.asarray(x), 0.1, 120, jnp.asarray(w_), 0.1, None,
+                        0.2, 128, **kw),
+               tq.qconv(_t(x), 0.1, 120, _t(w_), 0.1, None, 0.2, 128,
+                        **kw).contiguous())
+    with pytest.raises(NotImplementedError, match="NCHW"):
+        tq.qconv(_t(x), 0.1, 128, _t(w), 0.1, None, 0.1, 128,
+                 data_format="NHWC")
 
 
 # --- K-F's plain version --------------------------------------------------
@@ -484,27 +494,26 @@ def test_quantized_layer_draws_differ_and_stay_on_device():
 
 class JaxQTiny(nnx.Module):
     """Stem conv/bn/relu/maxpool, two Bottlenecks (one downsampling),
-    global average pool, head: the ResNet's QTensor flow at small size."""
+    global average pool, head: the ResNet's QTensor flow at small size,
+    with either estimator's layers."""
 
-    def __init__(self, rngs):
-        from bayesian_torch_tpu.layers import (BatchNorm2dLayer,
-                                               Conv2dReparameterization,
-                                               LinearReparameterization)
+    def __init__(self, rngs, estimator=tp.REPARAM):
+        import bayesian_torch_tpu.layers as layers
+        from bayesian_torch_tpu.layers import BatchNorm2dLayer
         from bayesian_torch_tpu.models._large_resnet import Bottleneck
 
-        self.conv1 = Conv2dReparameterization(3, 16, 3, padding=1,
-                                              bias=False, rngs=rngs)
+        conv = getattr(layers, f"Conv2d{estimator}")
+        self.conv1 = conv(3, 16, 3, padding=1, bias=False, rngs=rngs)
         self.bn1 = jdnn.BatchNorm2d(16)
         self.maxpool = jdnn.MaxPool2d(3, stride=2, padding=1)
         down = jdnn.Sequential(
-            Conv2dReparameterization(16, 32, 1, stride=2, bias=False,
-                                     rngs=rngs),
+            conv(16, 32, 1, stride=2, bias=False, rngs=rngs),
             BatchNorm2dLayer(32))
         self.layer1 = jdnn.Sequential(
-            Bottleneck(16, 8, 2, down, estimator=tp.REPARAM, rngs=rngs),
-            Bottleneck(32, 8, estimator=tp.REPARAM, rngs=rngs))
+            Bottleneck(16, 8, 2, down, estimator=estimator, rngs=rngs),
+            Bottleneck(32, 8, estimator=estimator, rngs=rngs))
         self.avgpool = jdnn.AdaptiveAvgPool2d(1)
-        self.fc = LinearReparameterization(32, 10, rngs=rngs)
+        self.fc = getattr(layers, f"Linear{estimator}")(32, 10, rngs=rngs)
 
     def __call__(self, x):
         from bayesian_torch_tpu.nn import functional as F
@@ -519,30 +528,28 @@ class JaxQTiny(nnx.Module):
 
 
 class TorchQTiny(nn.Module):
-    def __init__(self, generator=None):
+    def __init__(self, generator=None, estimator=tp.REPARAM):
         super().__init__()
-        from bayesian_torch_tpu_torch.layers import (
-            BatchNorm2dLayer, Conv2dReparameterization,
-            LinearReparameterization)
+        import bayesian_torch_tpu_torch.layers as layers
+        from bayesian_torch_tpu_torch.layers import BatchNorm2dLayer
         from bayesian_torch_tpu_torch.models._large_resnet import Bottleneck
         from bayesian_torch_tpu_torch.nn import (AdaptiveAvgPool2d,
                                                  BatchNorm2d, MaxPool2d,
                                                  Sequential)
 
         g = generator
-        self.conv1 = Conv2dReparameterization(3, 16, 3, padding=1,
-                                              bias=False, generator=g)
+        conv = getattr(layers, f"Conv2d{estimator}")
+        self.conv1 = conv(3, 16, 3, padding=1, bias=False, generator=g)
         self.bn1 = BatchNorm2d(16)
         self.maxpool = MaxPool2d(3, stride=2, padding=1)
         down = Sequential(
-            Conv2dReparameterization(16, 32, 1, stride=2, bias=False,
-                                     generator=g),
+            conv(16, 32, 1, stride=2, bias=False, generator=g),
             BatchNorm2dLayer(32))
         self.layer1 = nn.Sequential(
-            Bottleneck(16, 8, 2, down, estimator=tp.REPARAM, generator=g),
-            Bottleneck(32, 8, estimator=tp.REPARAM, generator=g))
+            Bottleneck(16, 8, 2, down, estimator=estimator, generator=g),
+            Bottleneck(32, 8, estimator=estimator, generator=g))
         self.avgpool = AdaptiveAvgPool2d(1)
-        self.fc = LinearReparameterization(32, 10, generator=g)
+        self.fc = getattr(layers, f"Linear{estimator}")(32, 10, generator=g)
 
     def forward(self, x):
         from bayesian_torch_tpu_torch.nn import functional as F
@@ -560,16 +567,16 @@ def _images(seed, n=2):
     return np.random.RandomState(seed).randn(n, 3, 32, 32).astype(np.float32)
 
 
-def _qtiny_twins(seed=0, mu_scale=1.0):
+def _qtiny_twins(seed=0, mu_scale=1.0, estimator=tp.REPARAM):
     from bayesian_torch_tpu_torch.utils.checkpoint import load_jax_state
-    jm = JaxQTiny(nnx.Rngs(params=seed, noise=seed + 1))
+    jm = JaxQTiny(nnx.Rngs(params=seed, noise=seed + 1), estimator)
     arrays = tp.random_state(tp.jax_arrays(jm), seed=seed)
     for key in arrays:
         if key.endswith(("mu_kernel", "mu_weight")):
             arrays[key] = arrays[key] * np.float32(mu_scale)
     import_torch_state_dict(jm, arrays)
     tp.set_jax_eval(jm)
-    tm = TorchQTiny(torch.Generator().manual_seed(seed))
+    tm = TorchQTiny(torch.Generator().manual_seed(seed), estimator)
     load_jax_state(tm, arrays)
     tm.eval()
     return jm, tm
@@ -675,10 +682,35 @@ def test_qtensor_flow_matches_f32_flow():
 
 
 def test_unported_conversions_raise():
+    """What ``bnn_to_qbnn`` still refuses: a Bayesian LSTM (the RNN slice)
+    and a per-channel observer in a per-tensor ``quant_dict`` slot.
+    ``quantize_batchnorm=True`` converts (``QuantizedBatchNorm2d``)."""
+    from bayesian_torch_tpu_torch.layers import (BatchNorm2dLayer,
+                                                 QuantizedBatchNorm2d)
+    from bayesian_torch_tpu_torch.layers.base_variational_layer import (
+        BaseVariationalLayer)
     from bayesian_torch_tpu_torch.models.bnn_to_qbnn import bnn_to_qbnn
+    from bayesian_torch_tpu_torch.quantization import (
+        MinMaxObserver, PerChannelMinMaxObserver, QConfig, prepare)
+
+    class LSTMReparameterization(BaseVariationalLayer):
+        pass
+
+    with pytest.raises(NotImplementedError, match="#12"):
+        bnn_to_qbnn(nn.ModuleDict(dict(rnn=LSTMReparameterization())))
     _, tm = _qtiny_twins(seed=15)
-    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
-        bnn_to_qbnn(tm, quantize_batchnorm=True)
+    bnn_to_qbnn(tm, quantize_batchnorm=True)
+    assert type(tm.bn1) is QuantizedBatchNorm2d
+    assert isinstance(tm.layer1[0].downsample[1], BatchNorm2dLayer)
+    _, tm = _qtiny_twins(seed=15)
+    per_channel = QConfig(
+        activation=MinMaxObserver.with_args(dtype="quint8"),
+        weight=PerChannelMinMaxObserver.with_args(dtype="qint8"))
+    prepare(tm, per_channel)
+    with torch.no_grad():
+        tm(_t(_images(19)))
+    with pytest.raises(ValueError, match="per tensor"):
+        bnn_to_qbnn(tm)
 
 
 # --- mc_forward, serving and the weight carry -----------------------------
@@ -707,7 +739,13 @@ def test_mc_forward_on_a_converted_model():
     # nothing left to train, and no KL: the optimizer and the ELBO's KL
     # term see no quantized layer
     assert list(tm.parameters()) == [] and get_kl_loss(tm) == 0.0
-    assert _presample_layers(tm, 3) == []
+    # the presample builds each layer's int8 weights for all 3 draws
+    records = _presample_layers(tm, 3)
+    assert len(records) == 9
+    for layer, attrs in records:
+        assert attrs["_presampled_qw"].shape == \
+            (3,) + tuple(layer.quantized_mu_weight.shape)
+        assert attrs["_presampled_qnscale"] == [6 / 255] * 3
     x = _t(_images(50))
     outs, kl = mc_forward(tm, x, 3)
     assert outs.shape == (3, 2, 10) and float(kl) == 0.0

@@ -148,8 +148,9 @@ def test_conv_transpose_layers_match_jax(estimator, nd, sp, geometry):
     assert tk.item() == pytest.approx(float(jk), rel=1e-5)
     tm.dnn_to_bnn_flag = True
     assert isinstance(tm(_t(x)), torch.Tensor)
-    with pytest.raises(NotImplementedError, match="#14"):
-        tm.prepare()
+    tm.prepare()  # the calibration observers of either estimator
+    assert tm.quant_prepare and (len(tm.qint_quant), len(
+        tm.quint_quant)) == ((4, 8) if estimator == FLIPOUT else (5, 2))
 
 
 @pytest.mark.parametrize("estimator", [REPARAM, FLIPOUT])
