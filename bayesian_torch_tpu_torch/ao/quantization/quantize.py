@@ -12,15 +12,17 @@ from __future__ import annotations
 
 from torch import nn
 
-from bayesian_torch_tpu_torch.layers.base_variational_layer import (
-    BaseVariationalLayer,
-)
-from bayesian_torch_tpu_torch.models.bnn_to_qbnn import bnn_to_qbnn
+# the layers and models are imported inside the functions: the layers'
+# package imports the observers, whose package imports this module
 
 
 def enable_prepare(m: nn.Module, qconfig=None) -> None:
     """Call ``prepare(qconfig)`` on every Bayesian layer not yet prepared
     (``qconfig``: an optional ``quantization.QConfig``)."""
+    from bayesian_torch_tpu_torch.layers.base_variational_layer import (
+        BaseVariationalLayer,
+    )
+
     for mod in list(m.modules()):
         if isinstance(mod, BaseVariationalLayer) and hasattr(mod, "prepare") \
                 and not mod.quant_prepare:
@@ -40,6 +42,8 @@ def convert(model: nn.Module, *, fuse_conv_bn: bool = False,
     """Swap the Bayesian layers for their INT8 twins using the ranges
     recorded since ``prepare``. ``quantize_activations=True`` keeps
     activations uint8 between convs (the ``QTensor`` flow)."""
+    from bayesian_torch_tpu_torch.models.bnn_to_qbnn import bnn_to_qbnn
+
     bnn_to_qbnn(model, fuse_conv_bn=fuse_conv_bn,
                 quantize_activations=quantize_activations)
     return model

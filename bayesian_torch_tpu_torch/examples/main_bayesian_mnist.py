@@ -28,6 +28,9 @@ import torch
 
 from bayesian_torch_tpu_torch.examples import _engine as engine
 from bayesian_torch_tpu_torch.examples._data import load_mnist
+from bayesian_torch_tpu_torch.models.bayesian.simple_cnn_variational import (
+    SCNN,
+)
 from bayesian_torch_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                        save_checkpoint)
 
@@ -66,8 +69,6 @@ def main(argv=None):
     engine.refuse_unported(args)
     train_data, test_data = load_mnist(args.data_dir, args.synthetic)
 
-    from bayesian_torch_tpu_torch.models.bayesian.simple_cnn_variational \
-        import SCNN
     model = SCNN(generator=torch.Generator().manual_seed(args.seed),
                  device=torch.device(args.device))
     ckpt_path = os.path.join(args.save_dir, "mnist_bayesian_scnn.pt")

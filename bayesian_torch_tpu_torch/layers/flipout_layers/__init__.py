@@ -14,6 +14,9 @@ from bayesian_torch_tpu_torch.layers.flipout_layers.conv_flipout import (  # noq
 from bayesian_torch_tpu_torch.layers.flipout_layers.linear_flipout import (  # noqa: F401,E501
     LinearFlipout,
 )
+from bayesian_torch_tpu_torch.layers.flipout_layers.rnn_flipout import (  # noqa: F401,E501
+    LSTMFlipout,
+)
 # the reference's subpackage also exports its quantized twins
 from bayesian_torch_tpu_torch.layers.flipout_layers.quantized_linear_flipout import (  # noqa: F401,E501
     QuantizedLinearFlipout,
@@ -35,4 +38,5 @@ __all__ = [
     "ConvTranspose2dFlipout",
     "ConvTranspose3dFlipout",
     "LinearFlipout",
+    "LSTMFlipout",
 ]

@@ -5,7 +5,9 @@ Walks the module tree and replaces each Bayesian layer (both estimators,
 plain and transposed convs) with its ``Quantized<Name>`` twin, harvesting
 the calibration scales and zero points from the observers ``prepare()``
 inserted into the layer's ``quant_dict`` (qint observers [2:] + quint
-observers, as the reference orders them), then calls ``quantize()``.
+observers, as the reference orders them), then calls ``quantize()``. A
+Bayesian LSTM keeps its class and has its ``ih`` and ``hh`` blocks
+quantized in place, as in the JAX package.
 Optional conv+BN folding follows the reference's naming rules:
 ``conv{i}`` with ``bn{i}`` for i in 1..3, and ``downsample =
 Sequential(conv, bn)``; each folded BN becomes an ``nn.Identity``. With
@@ -108,6 +110,17 @@ def qbnn_linear_layer(d):
     return qbnn_layer
 
 
+def qbnn_lstm_layer(d):
+    """Quantize a Bayesian LSTM's ``ih`` and ``hh`` blocks in place (the
+    reference looks up a ``QuantizedLSTM*`` class it does not have); the
+    LSTM then runs its quantized cell. Blocks already quantized stay."""
+    for name in ("ih", "hh"):
+        block = getattr(d, name)
+        if not isinstance(block, _QuantizedLayerBase):
+            setattr(d, name, qbnn_linear_layer(block))
+    return d
+
+
 def qbnn_conv_layer(d):
     qbnn_layer = _conv_twin(d)
     _copy_layer_state(qbnn_layer, d)
@@ -163,12 +176,9 @@ def bnn_to_qbnn(m: nn.Module, fuse_conv_bn: bool = False,
     for name, value in list(m.named_children()):
         if isinstance(value, _QuantizedLayerBase):
             continue
-        if isinstance(value, BaseVariationalLayer) \
-                and "LSTM" in type(value).__name__:
-            raise NotImplementedError(
-                "bnn_to_qbnn: Bayesian LSTMs come with the RNN slice "
-                "(ROADMAP Queue 1 #12)")
-        if _is_float_bayes(value, "Conv"):
+        if _is_float_bayes(value, "LSTM"):
+            qbnn_lstm_layer(value)
+        elif _is_float_bayes(value, "Conv"):
             if not fuse_conv_bn:  # fused convs are folded below by name
                 ql = qbnn_conv_layer(value)
                 ql.q_output = quantize_activations

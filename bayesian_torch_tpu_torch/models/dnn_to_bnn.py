@@ -25,9 +25,11 @@ array priors).
 
 A ``torch.nn.ConvTranspose{1,2,3}d`` becomes its ``ConvTranspose*`` twin
 with its ``output_padding``; its weight keeps the (in, out // groups, *k)
-layout, so MOPED copies it as it is. Not ported, and refused by name:
-LSTMs (ROADMAP Queue 1 #12). The Bayesian convs pad with zeros only, so a
-conv with another ``padding_mode`` is refused.
+layout, so MOPED copies it as it is. A ``torch.nn.LSTM`` or ``LSTMCell``
+becomes the full-sequence ``LSTM*`` twin (single layer, one direction, no
+projection, batch-first input; anything else is refused); MOPED does not apply to it, as in
+the reference. The Bayesian convs pad with zeros only, so a conv with
+another ``padding_mode`` is refused.
 """
 
 from __future__ import annotations
@@ -110,16 +112,36 @@ def bnn_conv_layer(params, d):
 
 
 def bnn_lstm_layer(params, d):
-    """LSTM twins come with the RNN slice."""
-    raise NotImplementedError(
-        f"dnn_to_bnn: {type(d).__name__}: the Bayesian LSTM is not ported "
-        "yet (ROADMAP Queue 1 #12)")
+    """The Bayesian full-sequence LSTM twin of a ``torch.nn.LSTM`` or
+    ``LSTMCell`` ``d`` (geometry from ``input_size``, ``hidden_size`` and
+    ``bias``), on its device. A twin is one layer in one direction that
+    reads (B, T, in): more layers, ``bidirectional``, a projection or an
+    ``nn.LSTM`` with ``batch_first=False`` (torch's default, (T, B, in))
+    raise ``ValueError``. MOPED
+    is not supported for LSTMs: with it enabled the twin keeps its random
+    initialisation, with the reference's warning."""
+    cls_name = type(d).__name__
+    for attr, plain in (("num_layers", 1), ("bidirectional", False),
+                        ("proj_size", 0), ("batch_first", True)):
+        value = getattr(d, attr, plain)
+        if value != plain:
+            raise ValueError(
+                f"dnn_to_bnn: {cls_name} with {attr}={value!r}: the Bayesian "
+                f"LSTM twin has {attr}={plain!r}")
+    bnn_layer = _twin_class("LSTM", params)(
+        in_features=d.input_size, out_features=d.hidden_size,
+        bias=bool(d.bias), device=next(d.parameters()).device,
+        **_prior_kwargs(params))
+    if params.get("moped_enable", False):
+        print("WARNING: MOPED method is not supported for LSTM layers!!!")
+    bnn_layer.dnn_to_bnn_flag = True
+    return bnn_layer
 
 
 def dnn_to_bnn(m: nn.Module, bnn_prior_parameters: dict) -> None:
     """In-place surgery: recurse the module tree and swap any submodule
-    whose class name contains Conv or Linear for its Bayesian twin (LSTM:
-    refused). Returns None."""
+    whose class name contains LSTM, Conv or Linear for its Bayesian twin.
+    Returns None."""
     for name, value in list(m.named_children()):
         if isinstance(value, BaseVariationalLayer):
             continue  # already Bayesian

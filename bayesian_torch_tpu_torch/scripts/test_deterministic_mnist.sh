@@ -1,0 +1,4 @@
+#!/bin/bash
+ROOT="$(cd "$(dirname "$0")/../.." && pwd)"
+export PYTHONPATH="$ROOT${PYTHONPATH:+:$PYTHONPATH}"
+exec python3 -m bayesian_torch_tpu_torch.examples.main_deterministic_mnist --mode=test --test-batch-size=10000 "$@"

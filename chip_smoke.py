@@ -36,6 +36,11 @@ weights and images, 224x224, 1000 classes, bf16 compute:
   GEMMs a layer a draw: the mean and the perturbation), then frozen
   perturbations at MC-1 and the uncalibrated model's MC-10; grouped and
   transposed int8 convs through K-F (phases 37-40);
+- the Bayesian LSTM (config #4: batch 128, sequence 64, hidden 64, f32;
+  the time-series trainer's regressor, LSTM(1 -> 64) + Linear(64 -> 2),
+  both estimators): MC-20 inference through the draw loop and the vmap
+  emission, the quantized LSTM, the trainer and one launch script (phase
+  41);
 - model surgery: the deterministic ResNet-50
   (``models/deterministic/resnet_large.py``), ``utils.MOPED`` into the
   Bayesian ResNet-50 and ``models.dnn_to_bnn`` of the deterministic one
@@ -227,13 +232,30 @@ Phases, each printing its own line(s):
     route (K-F's plain version in the same lowering) and with a float64
     conv's integer sum; device times of the route, K-F's rows and the
     plain route, with the bound. Phases 37-40 log their seconds.
+41. the Bayesian LSTM at config #4's full width (bs128, seq 64, hidden
+    64, f32), its parts' seconds logged: (a) K-A and K-C (dsigma) against
+    their plain versions at its draw buffers (256 x 1, 256 x 64, 256)
+    with T = 64 lanes and S*T = 1280; (b) one forward of each estimator's
+    regressor on the card against a CPU copy (the same seeds), within
+    1e-4 x max(1, max|CPU|); (c) at rho = -30 the LSTM against
+    ``torch.nn.LSTM`` (batch-first, cuDNN) holding its means, within
+    1e-5; (d) MC-20 bs128 inference through the loop (K-A 81 a batch: the
+    head's presample and 4 a draw) and the vmap emission (K-A 5 a batch),
+    each estimator: ms per batch (median of 5, min, max), busy ms, idle
+    share of the median; (e) the quantized
+    LSTM (``bnn_to_qbnn``) at MC-20 through the loop (K-F 20 a batch, the
+    head); (f) ``main_bayesian_lstm_timeseries`` at batch 128 for 40
+    steps, then ``--mode=test``, each estimator: the loss falls, RMSE and
+    2-sigma coverage printed, launches exact; (g)
+    ``scripts/train_flipout_mnist.sh`` end to end at its smallest
+    synthetic overrides.
 
 The line before the last is a JSON object with every kernel's launches,
 counted from zero in the run named by its ``run`` key, its error against
 its plain version and both times; K-A, K-C and K-F also carry ``paths``,
-their launches on each path of the zoo (K-F: and of the INT8 main paths
-and phases 38-40), each counted from zero; the last
-line is ``{"ok": true, "device": {...}}``, printed only after every phase
+their launches on each path of the zoo and (K-A, K-C) of phase 41 (K-F:
+and of the INT8 main paths and phases 38-40), each counted from zero; the
+last line is ``{"ok": true, "device": {...}}``, printed only after every phase
 passed. Any failure raises and exits non-zero, as does a machine without
 CUDA.
 """
@@ -3785,6 +3807,344 @@ def phase_int8_remainder():
     return paths, main_res, probes
 
 
+# --- the Bayesian LSTM: config #4 at full width (phase 41) -----------------
+
+LSTM_BATCH = 128
+LSTM_SEQ = 64
+LSTM_HIDDEN = 64
+LSTM_MC = 20
+LSTM_STEPS = 40  # the trainer's steps at batch 128
+LSTM_TIMED = 5  # timed MC-20 batches a path: the loop's host time varies
+# the launches of one forward's LSTM draws (ih W, ih b, hh W, hh b)
+LSTM_TENSORS = 4
+
+
+def lstm_model(estimator, seed, device="cuda"):
+    """The trainer's regressor (LSTM(1 -> 64) + Linear(64 -> 2)), f32."""
+    import torch
+
+    from bayesian_torch_tpu_torch.examples.main_bayesian_lstm_timeseries \
+        import BayesianLSTMRegressor
+    return BayesianLSTMRegressor(
+        LSTM_HIDDEN, estimator, generator=torch.Generator().manual_seed(seed),
+        device=device)
+
+
+def lstm_windows(seed):
+    """A (128, 64, 1) batch of the trainer's series windows and targets."""
+    import numpy as np
+    import torch
+
+    from bayesian_torch_tpu_torch.examples.main_bayesian_lstm_timeseries \
+        import make_series, windows
+    x, y = windows(make_series(), LSTM_SEQ, LSTM_BATCH,
+                   np.random.RandomState(seed))
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+def lstm_kernel_checks():
+    """(a) K-A and K-C (dsigma) at the LSTM's draw buffers: the ih weight
+    (256 x 1), the hh weight (256 x 64) and a bias (256), with T = 64
+    lanes (one forward) and S*T = 1280 (MC-20 under the draw axis), f32,
+    against their plain versions. Returns the largest errors."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops.cuda import sampled_weights as ka
+    from bayesian_torch_tpu_torch.ops.sampling import sigma_from_rho
+
+    h4 = 4 * LSTM_HIDDEN
+    shapes = {"ih W": (h4, 1), "hh W": (h4, LSTM_HIDDEN), "bias": (h4,)}
+    worst = dict(sample=0.0, dsigma=0.0)
+    for lanes in (LSTM_SEQ, LSTM_MC * LSTM_SEQ):
+        for i, (name, shape) in enumerate(shapes.items()):
+            gen = torch.Generator().manual_seed(lanes + i)
+            mu = (0.3 * torch.randn(shape, generator=gen)).cuda()
+            sigma = sigma_from_rho(torch.randn(shape, generator=gen)
+                                   - 3.0).cuda()
+            g = torch.randn((lanes,) + shape, generator=gen).cuda()
+            seed = 0x5EED_0000_0000_0400 + lanes + i
+            e_a = max_err(
+                ka.sample_scaled_normals_batch(seed, mu, sigma, lanes,
+                                               torch.float32),
+                ka.sample_scaled_normals_batch_plain(seed, mu, sigma, lanes,
+                                                     torch.float32))
+            want = ka.dsigma_plain(seed, g)
+            e_c = max_err(ka.dsigma(seed, g), want) / max(
+                1.0, want.abs().max().item())
+            log(f"[lstm kernels] {name} {tuple(shape)}, {lanes} lanes: K-A "
+                f"max|kernel-plain| {e_a:.3e} (limit 1e-5), K-C dsigma "
+                f"{e_c:.3e} x max(1, max|plain|) (limit 1e-5)")
+            check(e_a <= 1e-5 and e_c <= 1e-5,
+                  f"K-A or K-C off its plain version at the LSTM's {name}, "
+                  f"{lanes} lanes")
+            worst["sample"] = max(worst["sample"], e_a)
+            worst["dsigma"] = max(worst["dsigma"], e_c)
+    return worst
+
+
+def lstm_card_vs_cpu(estimator):
+    """(b) One forward of the regressor on the card and of a CPU copy on
+    the plain versions, the generators reseeded alike (the same seeds, the
+    counter hash the same noise), f32 with TF32 off: outputs and KL within
+    1e-4 x max(1, max|CPU|)."""
+    import copy
+
+    import torch
+
+    card = lstm_model(estimator, SEED + 900)
+    cpu = copy.deepcopy(card).cpu()
+    x, _ = lstm_windows(SEED + 901)
+    outs = []
+    with tf32_off(), torch.no_grad():
+        for model, xs in ((card, x), (cpu, x.cpu())):
+            model.lstm.generator.manual_seed(SEED + 902)
+            outs.append(model(xs))
+    (got, got_kl), (want, want_kl) = outs
+    scale = max(1.0, want.abs().max().item())
+    err = max_err(got.cpu(), want) / scale
+    kl_err = abs(got_kl.item() - want_kl.item()) / max(1.0, want_kl.item())
+    log(f"[lstm card vs cpu] {estimator}: bs{LSTM_BATCH} seq{LSTM_SEQ} "
+        f"hidden{LSTM_HIDDEN}: max|card-cpu| {err:.3e} x max(1, max|cpu|) "
+        f"(limit 1e-4), KL {kl_err:.2e} relative")
+    check(err <= 1e-4 and kl_err <= 1e-5,
+          f"LSTM {estimator}: the card disagrees with its CPU copy")
+    return err
+
+
+def lstm_sigma_zero(estimator):
+    """(c) At rho = -30 the Bayesian LSTM equals ``torch.nn.LSTM``
+    (batch-first) holding ``weight_ih = ih.mu_weight`` and the matching
+    ``hh`` and biases, within 1e-5, f32 with TF32 off (an independent
+    implementation: cuDNN's)."""
+    import torch
+
+    import bayesian_torch_tpu_torch.layers as L
+
+    lstm = getattr(L, "LSTM" + estimator)(
+        1, LSTM_HIDDEN, generator=torch.Generator().manual_seed(SEED + 910),
+        device="cuda")
+    ref = torch.nn.LSTM(1, LSTM_HIDDEN, batch_first=True).cuda()
+    with torch.no_grad():
+        for block in ("ih", "hh"):
+            lin = getattr(lstm, block)
+            lin.rho_weight.fill_(-30.0)
+            lin.rho_bias.fill_(-30.0)
+            getattr(ref, f"weight_{block}_l0").copy_(lin.mu_weight)
+            getattr(ref, f"bias_{block}_l0").copy_(lin.mu_bias)
+    x, _ = lstm_windows(SEED + 911)
+    with tf32_off(), torch.no_grad():
+        got, (_, got_c), _ = lstm(x)
+        want, _ = ref(x)
+    err = max_err(got, want)
+    log(f"[lstm sigma zero] {estimator} at rho = -30 against torch.nn.LSTM: "
+        f"max|diff| {err:.3e} (limit 1e-5)")
+    check(err <= 1e-5, f"LSTM {estimator} at rho = -30 is not torch's LSTM")
+    return err
+
+
+def lstm_inference(what, model, x, emission, want):
+    """(d) MC-20 bs128 through ``mc_forward(emission=...)``: a warm-up,
+    LSTM_TIMED timed batches (host clock to synchronize; median and
+    spread), each batch's launches equal to ``want``; one batch under the
+    profiler for the busy time. The idle share is 1 - busy / the
+    unprofiled median; the profiled batch's own share, whose wall time
+    also holds the profiler's host overhead, is logged beside it.
+    Returns (results, one batch's launches)."""
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    def run():
+        return mc_forward(model, x, LSTM_MC, emission=emission,
+                          return_kl=False)
+
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(LSTM_TIMED):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        got = counts()
+        check(tuple(out.shape) == (LSTM_MC, LSTM_BATCH, LSTM_SEQ, 2)
+              and bool(torch.isfinite(out).all()),
+              f"{what}: output {tuple(out.shape)} or not finite")
+        check(got == want, f"{what} batch {i}: launches {nonzero(got)}, "
+              f"want {nonzero(want)}")
+    ms = statistics.median(times)
+    prof = profile_window(f"{what}: one MC-{LSTM_MC} bs{LSTM_BATCH} batch",
+                          run, rows=8)
+    res = dict(ms=ms, ms_min=min(times), ms_max=max(times),
+               busy_ms=prof["busy"], wall_ms=prof["wall"],
+               idle=max(0.0, 1 - prof["busy"] / ms),
+               idle_profiled=1 - prof["busy"] / prof["wall"],
+               ka_per_batch=want["K-A"])
+    log(f"[{what}] {card()}: batches {', '.join(f'{t:.1f}' for t in times)}"
+        f" ms, median {ms:.2f} ms/batch (min {res['ms_min']:.2f}, max "
+        f"{res['ms_max']:.2f}); busy {res['busy_ms']:.2f} ms, idle "
+        f"{res['idle']:.3f} of the median (the profiled batch: "
+        f"{res['wall_ms']:.2f} ms, idle {res['idle_profiled']:.3f}); "
+        f"launches per batch {nonzero(want)}")
+    return res, got
+
+
+def lstm_trainer(estimator, tmp):
+    """(f) ``main_bayesian_lstm_timeseries`` at batch 128 for LSTM_STEPS
+    steps, then ``--mode=test`` from its checkpoint; the loss falls, the
+    launches are exact (a step: K-A 4 for the LSTM's lanes and 2 for the
+    head's single draws, K-C dsigma 4, K-C drho 2; the MC-20 evaluation:
+    K-A 1 for the head's presample and 4 a draw). Returns
+    ({path: launches}, results)."""
+    import io
+    import re
+
+    from bayesian_torch_tpu_torch.examples import (
+        main_bayesian_lstm_timeseries as trainer,
+    )
+
+    argv = [f"--estimator={estimator}", f"--batch-size={LSTM_BATCH}",
+            f"--seq-len={LSTM_SEQ}", f"--hidden={LSTM_HIDDEN}",
+            f"--num_monte_carlo={LSTM_MC}", "--device=cuda",
+            f"--save_dir={tmp}"]
+    evaluation = 1 + LSTM_TENSORS * LSTM_MC
+    none = dict.fromkeys(kernel_counters(), 0)
+    paths, res = {}, {}
+    for mode, want in (
+            ("train", dict(none, **{
+                "K-A": (LSTM_TENSORS + 2) * LSTM_STEPS + evaluation,
+                "K-C dsigma": LSTM_TENSORS * LSTM_STEPS,
+                "K-C drho": 2 * LSTM_STEPS})),
+            ("test", dict(none, **{"K-A": evaluation}))):
+        out = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rmse = trainer.main(argv + [f"--mode={mode}",
+                                        f"--steps={LSTM_STEPS}"])
+        secs = time.perf_counter() - t0
+        got = counts()
+        text = out.getvalue()
+        cover = re.search(r"2-sigma coverage ([\d.]+)%", text)
+        check(cover is not None and math.isfinite(rmse),
+              f"lstm trainer {mode}: no RMSE or coverage in {text!r}")
+        check(got == want, f"lstm trainer {mode}: launches {nonzero(got)}, "
+              f"want {nonzero(want)}")
+        res[f"{mode}_rmse"] = rmse
+        res[f"{mode}_coverage"] = float(cover.group(1)) / 100
+        res[f"{mode}_s"] = secs
+        if mode == "train":
+            losses = [float(v) for v in
+                      re.findall(r"step \d+: nll\+kl ([-\d.]+)", text)]
+            check(len(losses) >= 2 and losses[-1] < losses[0],
+                  f"lstm trainer: the loss did not fall: {losses}")
+            res["losses"] = losses
+        log(f"[lstm trainer] {estimator} --mode={mode}: {secs:.1f} s, "
+            f"launches {nonzero(got)}; "
+            + (f"loss {res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}; "
+               if mode == "train" else "")
+            + f"test RMSE {rmse:.4f}, 2-sigma coverage "
+              f"{res[f'{mode}_coverage']:.3f}")
+        paths[f"lstm {estimator} trainer --mode={mode}"] = got
+    return paths, res
+
+
+def lstm_script(tmp):
+    """(g) One launch script end to end: ``train_flipout_mnist.sh`` (the
+    heredoc that swaps in the Flipout SCNN) at its smallest synthetic
+    overrides, in a process of its own."""
+    import os
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    script = root / "bayesian_torch_tpu_torch" / "scripts" / \
+        "train_flipout_mnist.sh"
+    # the script runs ``python3``: the one on PATH first is this one's
+    path = os.pathsep.join(
+        [os.path.dirname(sys.executable), os.environ.get("PATH", "")])
+    env = dict(os.environ, PATH=path, BTT_SYNTH_TRAIN_N="256",
+               BTT_SYNTH_TEST_N="128")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        ["bash", str(script), "--synthetic", "--epochs=1", "--device=cuda",
+         "--test-batch-size=128", "--num_monte_carlo=2",
+         f"--save_dir={tmp}/script"], cwd=tmp, env=env, capture_output=True,
+        text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    tail = " | ".join(proc.stdout.strip().splitlines()[-2:])
+    log(f"[lstm script] {script.name} --synthetic --epochs=1 (256 train, "
+        f"128 test images): rc {proc.returncode}, {secs:.1f} s; last lines: "
+        f"{tail}")
+    check(proc.returncode == 0 and "test: accuracy" in proc.stdout,
+          f"{script.name} failed: {proc.stderr[-2000:]}")
+    return secs
+
+
+def phase_lstm():
+    """Phase 41: the Bayesian LSTM at config #4's full width (bs128, seq
+    64, hidden 64, f32; the trainer's regressor LSTM(1 -> 64) + Linear(64
+    -> 2)), its seconds logged per part. Returns ({kernel: {path:
+    launches}} for K-A, K-C dsigma and K-C drho, results)."""
+    import tempfile
+
+    import torch
+
+    from bayesian_torch_tpu_torch.models.bnn_to_qbnn import bnn_to_qbnn
+
+    seconds, paths, res = {}, {}, {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    res["kernels"] = timed("kernels", lstm_kernel_checks)
+    for est in ESTIMATORS:
+        res[f"{est} card_vs_cpu"] = timed(f"{est} card vs cpu",
+                                          lstm_card_vs_cpu, est)
+        res[f"{est} sigma_zero"] = timed(f"{est} sigma zero",
+                                         lstm_sigma_zero, est)
+    x, _ = lstm_windows(SEED + 920)
+    none = dict.fromkeys(kernel_counters(), 0)
+    for est in ESTIMATORS:
+        model = lstm_model(est, SEED + 921).eval()
+        # the loop: the head's presample (1) and the LSTM's 4 a draw; the
+        # draw axis: the head's S draws (1) and the LSTM's S*T lanes (4)
+        for emission, ka_launches in (
+                ("scan", 1 + LSTM_TENSORS * LSTM_MC),
+                ("vmap", 1 + LSTM_TENSORS)):
+            what = f"lstm {est} MC-{LSTM_MC} {emission}"
+            res[what], paths[what] = timed(
+                what, lstm_inference, what, model, x, emission,
+                dict(none, **{"K-A": ka_launches}))
+        ratio = res[f"lstm {est} MC-{LSTM_MC} scan"]["ms"] / \
+            res[f"lstm {est} MC-{LSTM_MC} vmap"]["ms"]
+        log(f"[lstm] {est}: the loop takes {ratio:.2f}x the vmap "
+            f"emission's wall time per MC-{LSTM_MC} batch")
+    qmodel = lstm_model("Reparameterization", SEED + 922).eval()
+    bnn_to_qbnn(qmodel)
+    what = f"lstm quantized MC-{LSTM_MC} scan"
+    # the quantized cell runs in torch; the head's int8 GEMM is K-F
+    res[what], _ = timed(what, lstm_inference, what, qmodel, x, "auto",
+                         dict(none, **{"K-F": LSTM_MC}))
+    del qmodel
+    with tempfile.TemporaryDirectory() as tmp:
+        for est in ESTIMATORS:
+            got, res[f"{est} trainer"] = timed(f"{est} trainer",
+                                               lstm_trainer, est, tmp)
+            paths.update(got)
+        res["script_s"] = timed("script", lstm_script, tmp)
+    torch.cuda.empty_cache()
+    log(f"[lstm] seconds per part: {seconds}")
+    by_kernel = {k: {path: got[k] for path, got in paths.items() if got[k]}
+                 for k in ("K-A", "K-C drho", "K-C dsigma")}
+    for k, v in by_kernel.items():
+        check(v, f"{k} never ran on the LSTM's paths")
+    return by_kernel, res
+
+
 def main(argv=None):
     import argparse
 
@@ -3900,6 +4260,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     zoo, zoo_kf = phase_zoo()
     int8_paths, flipout_int8, int8_probes = phase_int8_remainder()
+    lstm_paths, lstm_res = phase_lstm()
 
     csrc = "bayesian_torch_tpu_torch/csrc/"
     pallas = "bayesian_torch_tpu/ops/pallas/"
@@ -3915,7 +4276,8 @@ def main(argv=None):
              replaces=pallas + "sampled_weights.py:126",
              run="main path: mc_forward(num_mc=10, reduce='mean'), "
                  "presample='auto', 3 batches",
-             launches=main_path["K-A"], paths=zoo["K-A"], **ka_res),
+             launches=main_path["K-A"],
+             paths=dict(zoo["K-A"], **lstm_paths["K-A"]), **ka_res),
         dict(name="sampled_matmul", route="cuda",
              source=csrc + "sampled_matmul.cu",
              replaces=pallas + "sampled_matmul.py:62",
@@ -3926,13 +4288,15 @@ def main(argv=None):
              source=csrc + "sampled_weights_bwd.cu",
              replaces=pallas + "sampled_weights.py:138",
              run=vmap_train_run + "; one launch per layer and step",
-             launches=vmap_train["K-C dsigma"], paths=zoo["K-C dsigma"],
+             launches=vmap_train["K-C dsigma"],
+             paths=dict(zoo["K-C dsigma"], **lstm_paths["K-C dsigma"]),
              **kc_res["dsigma"]),
         dict(name="sampled_weights_bwd (drho)", route="cuda",
              source=csrc + "sampled_weights_bwd.cu",
              replaces=pallas + "sampled_weights.py:68",
              run=train_run, launches=train["K-C drho"],
-             paths=zoo["K-C drho"], **kc_res["drho"]),
+             paths=dict(zoo["K-C drho"], **lstm_paths["K-C drho"]),
+             **kc_res["drho"]),
         dict(name="sampled_matmul_dx", route="cuda",
              source=csrc + "sampled_matmul_bwd.cu",
              replaces=pallas + "sampled_matmul.py:84",
@@ -4022,6 +4386,7 @@ def main(argv=None):
     log(f"[surgery] launches in the converted ResNet-50's three MC-4 "
         f"bs{BATCH} steps: { {k: v for k, v in surgery_train.items() if v} }"
         f"; K-F launches in the bnn2qbnn pipeline: {surgery_kf}")
+    log(f"[lstm] {card()}: " + json.dumps(lstm_res))
     log(f"[time] profiler sessions of the kernel timings: "
         f"{SESSIONS['sessions']}, taken again {SESSIONS['retried']}")
     log(f"[time] every phase passed in {time.perf_counter() - t_start:.0f} s")

@@ -13,8 +13,10 @@ setup(
                                     "bayesian_torch_tpu.*",
                                     "bayesian_torch_tpu_torch",
                                     "bayesian_torch_tpu_torch.*"]),
-    # the PyTorch/CUDA port builds its kernels from these at first use
-    package_data={"bayesian_torch_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    # the PyTorch/CUDA port builds its kernels from these at first use;
+    # scripts/ holds its launch scripts
+    package_data={"bayesian_torch_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                               "scripts/*.sh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.5",

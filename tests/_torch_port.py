@@ -5,6 +5,7 @@ packages. torch runs on one thread per xdist worker.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 from flax import nnx
@@ -229,6 +230,58 @@ def inject_draws(monkeypatch, noise):
 
     monkeypatch.setattr(jmc, "_presample_layers", jax_presample)
     monkeypatch.setattr(tmc, "_presample_layers", torch_presample)
+
+
+# --- the Bayesian LSTM's per-step noise -------------------------------------
+
+
+def _normal(key, shape):
+    """JAX's normal at ``shape``, drawn at the squeezed shape as
+    ``sample_gaussian_weight`` draws it (the same values by flat index)."""
+    squeezed = tuple(d for d in shape if d != 1) or (1,)
+    return jax.random.normal(key, squeezed).reshape(shape)
+
+
+def lstm_jax_noise(jm, T, B):
+    """The noise the next forward of the JAX LSTM ``jm`` draws, as the
+    port's hooks take it: ``{"eps_w", "eps_b"[, "sign_in", "sign_out"]}``,
+    each a pair (ih, hh) with a leading T axis (per-step draws) or none.
+    Read without touching the package: the base key from a clone of the
+    layer's rngs, ``fold_in(t)`` and ``split`` per step, then each op's own
+    split (``sampled_linear``: weight and bias; ``flipout_linear``: eps,
+    bias eps and the sign keys, the signs from JAX's ``rademacher_fused``).
+    """
+    from bayesian_torch_tpu.ops.sampling import rademacher_fused
+
+    base = nnx.clone(jm.rngs).noise()
+    blocks = (jm.ih, jm.hh)
+    feats = (jm.in_features, jm.out_features)
+    H4 = 4 * jm.out_features
+    if not jm.resample_per_step:
+        k_i, k_ib, k_h, k_hb = jax.random.split(base, 4)
+        return dict(
+            eps_w=(_normal(k_i, jm.ih.mu_weight.shape),
+                   _normal(k_h, jm.hh.mu_weight.shape)),
+            eps_b=(_normal(k_ib, (H4,)), _normal(k_hb, (H4,))))
+    flip = jm.estimator == "flipout"
+    out = {k: ([], []) for k in ("eps_w", "eps_b")
+           + (("sign_in", "sign_out") if flip else ())}
+    for t in range(T):
+        keys = jax.random.split(jax.random.fold_in(base, t))
+        for j, (key, lin) in enumerate(zip(keys, blocks)):
+            shape = lin.mu_weight.shape
+            if flip:
+                k_eps, k_epsb, k_sin, k_sout = jax.random.split(key, 4)
+                out["eps_w"][j].append(jax.random.normal(k_eps, shape))
+                out["eps_b"][j].append(jax.random.normal(k_epsb, (H4,)))
+                out["sign_in"][j].append(
+                    rademacher_fused(k_sin, (B, feats[j])))
+                out["sign_out"][j].append(rademacher_fused(k_sout, (B, H4)))
+            else:
+                kw, kb = jax.random.split(key)
+                out["eps_w"][j].append(_normal(kw, shape))
+                out["eps_b"][j].append(_normal(kb, (H4,)))
+    return {k: tuple(jnp.stack(v) for v in pair) for k, pair in out.items()}
 
 
 # --- the split-TF32 product of the fused sampled GEMM kernels (K-B, K-D) ---

@@ -1053,3 +1053,54 @@ def test_quantized_flipout_layer_matches_cpu(cuda, name):
             outs.append(mod(xs, return_kl=False).q.cpu())
     assert type(cpu).__name__ == name
     assert torch.equal(outs[0], outs[1])
+
+
+# --- the Bayesian LSTM: K-A lanes and K-C dsigma at its shapes -------------
+
+# config #4 (hidden 64, input 1): ih W 256x1, hh W 256x64, the 256 biases;
+# T = 64 lanes a forward, S*T = 1280 under the draw axis at MC-20
+LSTM_SHAPES = [(256, 1), (256, 64), (256,)]
+
+
+@pytest.mark.parametrize("lanes", [64, 1280])
+@pytest.mark.parametrize("shape", LSTM_SHAPES)
+def test_lstm_lane_kernels_match_plain(cuda, shape, lanes):
+    """K-A with one lane per step (and per draw and step) and K-C dsigma
+    over those lanes against their plain versions, f32."""
+    mu, sigma, _ = _posterior(shape, cuda, seed=lanes)
+    seed = 0x5EED_0000_0000_0013
+    got = sample_scaled_normals_batch(seed, mu, sigma, lanes, torch.float32)
+    want = sample_scaled_normals_batch_plain(seed, mu, sigma, lanes,
+                                             torch.float32)
+    g = torch.randn((lanes,) + shape, generator=torch.Generator()
+                    .manual_seed(3)).to(cuda)
+    dsig = ka.dsigma(seed, g)
+    dsig_plain = ka.dsigma_plain(seed, g)
+    torch.cuda.synchronize()
+    assert got.shape == (lanes,) + shape
+    assert (got - want).abs().max().item() <= 1e-5
+    limit = 1e-5 * max(1.0, dsig_plain.abs().max().item())
+    assert (dsig - dsig_plain).abs().max().item() <= limit
+
+
+@pytest.mark.parametrize("per_step", [True, False])
+@pytest.mark.parametrize("estimator", ["Reparameterization", "Flipout"])
+def test_lstm_on_the_card_matches_a_cpu_copy(cuda, estimator, per_step):
+    """One forward and backward of the LSTM on the card (K-A lanes, K-C)
+    against a CPU copy on the plain versions: the same generator state
+    gives the same seeds, and the counter hash the same noise."""
+    from bayesian_torch_tpu_torch import layers as L
+
+    cpu = getattr(L, "LSTM" + estimator)(
+        3, 16, generator=torch.Generator().manual_seed(0),
+        resample_per_step=per_step)
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn((5, 9, 3), generator=torch.Generator().manual_seed(1))
+    outs = []
+    for mod, xs in ((cpu, x), (card, x.to(cuda))):
+        mod.generator.manual_seed(2)
+        out, (_, c), kl = mod(xs)
+        (out.sum() + (c * c).sum() + kl).backward()
+        outs.append([out, c] + [p.grad for p in mod.parameters()])
+    for want, got in zip(*outs):
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-4)

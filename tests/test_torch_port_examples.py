@@ -509,3 +509,164 @@ def test_cifar_dnn2bnn_ptq_and_quantization_test(small_trainers, tmp_path):
     assert log_probs.shape == (1, 10) and float(kl) == 0.0
     torch.testing.assert_close(log_probs.exp().sum(), torch.tensor(1.0))
     assert kf.qmatmul_requant.launches == launches  # CPU: plain version
+
+
+# --- the LSTM time-series trainer ------------------------------------------
+
+LSTM_SMALL = ["--device=cpu", "--seq-len=8", "--hidden=8", "--batch-size=4",
+              "--steps=3", "--num_monte_carlo=3"]
+ESTIMATORS = ("Reparameterization", "Flipout")
+
+
+@pytest.mark.parametrize("estimator", ESTIMATORS)
+def test_lstm_trainer_trains_then_tests_from_its_checkpoint(
+        estimator, tmp_path, monkeypatch, capsys):
+    from bayesian_torch_tpu_torch.examples import (
+        main_bayesian_lstm_timeseries as lstm_trainer,
+    )
+
+    assert lstm_trainer.build_parser().parse_args([]).device == "cuda"
+    args = LSTM_SMALL + [f"--estimator={estimator}",
+                         f"--save_dir={tmp_path}"]
+    rmse = lstm_trainer.main(args)
+    out = capsys.readouterr().out
+    assert "step 0: nll+kl" in out and "step 2: nll+kl" in out
+    assert "2-sigma coverage" in out and np.isfinite(rmse)
+    saved = torch.load(tmp_path / f"lstm_{estimator.lower()}.pt",
+                       weights_only=True)
+    assert {"lstm.ih.mu_weight", "lstm.hh.rho_bias",
+            "head.mu_weight"} <= set(saved)
+    loaded = {}
+    real_load = lstm_trainer.load_checkpoint
+
+    def load(model, path):
+        real_load(model, path)
+        loaded.update(model.state_dict())
+    monkeypatch.setattr(lstm_trainer, "load_checkpoint", load)
+    assert np.isfinite(lstm_trainer.main(args + ["--mode=test"]))
+    assert "test RMSE" in capsys.readouterr().out
+    assert set(loaded) == set(saved)
+    for key, value in saved.items():
+        torch.testing.assert_close(loaded[key], value, rtol=0, atol=0)
+
+
+def test_lstm_series_and_windows_equal_jax():
+    from bayesian_torch_tpu.examples import (
+        main_bayesian_lstm_timeseries as jt,
+    )
+    from bayesian_torch_tpu_torch.examples import (
+        main_bayesian_lstm_timeseries as tt,
+    )
+
+    for n, seed in ((20000, 0), (777, 3)):
+        got, want = tt.make_series(n, seed), jt.make_series(n, seed)
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+    series = tt.make_series()
+    for seq_len, batch in ((64, 128), (8, 4)):
+        got = tt.windows(series, seq_len, batch, np.random.RandomState(5))
+        want = jt.windows(series, seq_len, batch, np.random.RandomState(5))
+        for a, b in zip(got, want):
+            assert a.shape == (batch, seq_len, 1)
+            np.testing.assert_array_equal(a, b)
+
+
+def _lstm_regressor_twins(estimator, rho=None, hidden=8):
+    from bayesian_torch_tpu.examples import (
+        main_bayesian_lstm_timeseries as jt,
+    )
+    from bayesian_torch_tpu.layers.base_variational_layer import make_rngs
+    from bayesian_torch_tpu.utils.checkpoint import import_torch_state_dict
+    from bayesian_torch_tpu_torch.examples import (
+        main_bayesian_lstm_timeseries as tt,
+    )
+    from bayesian_torch_tpu_torch.utils.checkpoint import load_jax_state
+    from tests._torch_port import jax_arrays, random_state
+
+    jm = jt.BayesianLSTMRegressor(hidden, estimator,
+                                  make_rngs(1, noise_seed=2))
+    arrays = random_state(jax_arrays(jm), seed=2, rho=rho)
+    import_torch_state_dict(jm, arrays)
+    tm = tt.BayesianLSTMRegressor(hidden, estimator,
+                                  generator=torch.Generator().manual_seed(1),
+                                  device="cpu")
+    load_jax_state(tm, arrays)
+    return jt, tt, jm, tm
+
+
+@pytest.mark.parametrize("estimator", ESTIMATORS)
+def test_lstm_regressor_and_nll_equal_jax(estimator, monkeypatch):
+    """The port's regressor and ``gaussian_nll`` equal JAX's at the same
+    weights and noise: the LSTM's from ``lstm_jax_noise``, the head's from
+    the next key of the shared rngs (the LSTM draws its base key first)."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    from flax import nnx
+
+    from bayesian_torch_tpu.ops.sampling import rademacher_fused
+    from tests._torch_port import lstm_jax_noise
+
+    jt, tt, jm, tm = _lstm_regressor_twins(estimator)
+    x, y = tt.windows(tt.make_series(2000), 8, 4, np.random.RandomState(0))
+    rngs = nnx.clone(jm.lstm.rngs)
+    rngs.noise()
+    head_key = rngs.noise()
+    if estimator == "Flipout":
+        k_eps, k_epsb, k_sin, k_sout = jax.random.split(head_key, 4)
+        head_noise = dict(eps_w=jax.random.normal(k_eps, (2, 8)),
+                          eps_b=jax.random.normal(k_epsb, (2,)),
+                          sign_in=rademacher_fused(k_sin, (4, 8, 8)),
+                          sign_out=rademacher_fused(k_sout, (4, 8, 2)))
+    else:
+        kw, kb = jax.random.split(head_key)
+        head_noise = dict(eps_w=jax.random.normal(kw, (2, 8)),
+                          eps_b=jax.random.normal(kb, (2,)))
+
+    def torch_of(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    lstm_noise = {k: tuple(map(torch_of, pair))
+                  for k, pair in lstm_jax_noise(jm.lstm, 8, 4).items()}
+    monkeypatch.setattr(tm.lstm, "forward",
+                        functools.partial(tm.lstm.forward, **lstm_noise))
+    monkeypatch.setattr(tm.head, "forward", functools.partial(
+        tm.head.forward, **{k: torch_of(v) for k, v in head_noise.items()}))
+    want, want_kl = jm(jnp.asarray(x))
+    got, got_kl = tm(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-5, rtol=1e-4)
+    assert got_kl.item() == pytest.approx(float(want_kl), rel=1e-5)
+    nll = tt.gaussian_nll(got, torch.from_numpy(y)).item()
+    assert nll == pytest.approx(float(jt.gaussian_nll(want, jnp.asarray(y))),
+                                rel=1e-5)
+
+
+def test_lstm_adam_step_matches_optax():
+    """At rho = -30 (the noise vanishes) one trainer step of the port
+    (``train_step``: NLL + KL / batch, ``torch.optim.Adam``) gives the loss
+    and the updated parameters of JAX's step with ``optax.adam``."""
+    import jax.numpy as jnp
+    import optax
+    from flax import nnx
+
+    from tests._torch_port import jax_arrays
+
+    jt, tt, jm, tm = _lstm_regressor_twins("Reparameterization", rho=-30.0)
+    x, y = tt.windows(tt.make_series(2000), 8, 4, np.random.RandomState(1))
+
+    def loss_fn(model):
+        pred, kl = model(jnp.asarray(x))
+        return jt.gaussian_nll(pred, jnp.asarray(y)) + kl / x.shape[0]
+
+    optimizer = nnx.Optimizer(jm, optax.adam(3e-3), wrt=nnx.Param)
+    want_loss, grads = nnx.value_and_grad(loss_fn)(jm)
+    optimizer.update(jm, grads)
+    loss = tt.train_step(tm, torch.optim.Adam(tm.parameters(), lr=3e-3),
+                         torch.from_numpy(x), torch.from_numpy(y))
+    assert loss.item() == pytest.approx(float(want_loss), rel=1e-5)
+    want = jax_arrays(jm)
+    for key, p in tm.state_dict().items():
+        np.testing.assert_allclose(p.numpy(), want[key], atol=2e-6,
+                                   rtol=0, err_msg=key)

@@ -404,7 +404,11 @@ def test_port_never_imports_jax():
                 "ao/nn/quantized/modules/quantize_conv_variational.py",
                 "ao/nn/quantized/modules/quantize_linear_variational.py",
                 "ao/nn/quantized/modules/quantized_conv_flipout.py",
-                "ao/nn/quantized/modules/quantized_linear_flipout.py"):
+                "ao/nn/quantized/modules/quantized_linear_flipout.py",
+                "layers/rnn_base.py",
+                "layers/variational_layers/rnn_variational.py",
+                "layers/flipout_layers/rnn_flipout.py",
+                "examples/main_bayesian_lstm_timeseries.py"):
         assert root / new in paths, new
     paths += [root.parent / "chip_smoke.py", root.parent / "kernel_times.py"]
     modules = []

@@ -682,22 +682,22 @@ def test_qtensor_flow_matches_f32_flow():
 
 
 def test_unported_conversions_raise():
-    """What ``bnn_to_qbnn`` still refuses: a Bayesian LSTM (the RNN slice)
-    and a per-channel observer in a per-tensor ``quant_dict`` slot.
-    ``quantize_batchnorm=True`` converts (``QuantizedBatchNorm2d``)."""
-    from bayesian_torch_tpu_torch.layers import (BatchNorm2dLayer,
-                                                 QuantizedBatchNorm2d)
-    from bayesian_torch_tpu_torch.layers.base_variational_layer import (
-        BaseVariationalLayer)
+    """What ``bnn_to_qbnn`` still refuses: a per-channel observer in a
+    per-tensor ``quant_dict`` slot. A Bayesian LSTM converts (its ``ih``
+    and ``hh`` quantized in place; ``test_torch_port_lstm.py`` holds it
+    against JAX), and ``quantize_batchnorm=True`` converts
+    (``QuantizedBatchNorm2d``)."""
+    from bayesian_torch_tpu_torch.layers import (
+        BatchNorm2dLayer, LSTMReparameterization, QuantizedBatchNorm2d,
+        QuantizedLinearReparameterization)
     from bayesian_torch_tpu_torch.models.bnn_to_qbnn import bnn_to_qbnn
     from bayesian_torch_tpu_torch.quantization import (
         MinMaxObserver, PerChannelMinMaxObserver, QConfig, prepare)
 
-    class LSTMReparameterization(BaseVariationalLayer):
-        pass
-
-    with pytest.raises(NotImplementedError, match="#12"):
-        bnn_to_qbnn(nn.ModuleDict(dict(rnn=LSTMReparameterization())))
+    rnn = nn.ModuleDict(dict(rnn=LSTMReparameterization(3, 4)))
+    bnn_to_qbnn(rnn)
+    assert type(rnn["rnn"]) is LSTMReparameterization
+    assert type(rnn["rnn"].hh) is QuantizedLinearReparameterization
     _, tm = _qtiny_twins(seed=15)
     bnn_to_qbnn(tm, quantize_batchnorm=True)
     assert type(tm.bn1) is QuantizedBatchNorm2d

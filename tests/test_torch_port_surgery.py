@@ -368,7 +368,7 @@ def test_dnn_to_bnn_walks_containers_follows_devices_and_flipout():
 
 def test_dnn_to_bnn_refusals():
     for mod, err, item in (
-            (nn.LSTM(3, 4), NotImplementedError, "#12"),
+            (nn.LSTM(3, 4, num_layers=2), ValueError, "num_layers"),
             (nn.Conv2d(3, 4, 3, padding=1, padding_mode="reflect"),
              ValueError, "padding_mode")):
         with pytest.raises(err, match=item):
