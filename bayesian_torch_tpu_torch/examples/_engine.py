@@ -61,11 +61,6 @@ class AverageMeter:
 UNPORTED = {
     "mesh_mc": "MC draws sharded over devices come with ROADMAP Queue 1 "
                "#15 (multi-device)",
-    "structured_mc": "the structured MC path (mc_forward(structured=True)) "
-                     "is ROADMAP Queue 1 #16",
-    "remat": "remat_blocks needs its own design (ROADMAP Queue 1 #9): "
-             "torch.utils.checkpoint would redraw the weights' seeds when "
-             "it recomputes a block",
 }
 
 

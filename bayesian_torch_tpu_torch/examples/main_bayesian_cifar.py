@@ -23,8 +23,9 @@ training the model takes an MC-``--num_monte_carlo`` evaluation (default
 from a deterministic ResNet of the same depth (``utils.MOPED`` with
 ``--delta``): one built from seed ``--seed + 7``, or loaded from
 ``--moped-ckpt`` (a ``main_deterministic_cifar`` checkpoint). ``--device``
-(default ``cuda``) names where the model runs. ``--mesh-mc`` above 1 and
-``--structured-mc`` are refused (``_engine.UNPORTED``).
+(default ``cuda``) names where the model runs. ``--structured-mc``
+evaluates through ``mc_forward(structured=True)``; ``--mesh-mc`` above 1
+is refused (``_engine.UNPORTED``).
 """
 
 from __future__ import annotations
@@ -55,7 +56,8 @@ def build_parser(desc="Bayesian CIFAR10"):
                    choices=["train", "test"])
     p.add_argument("--num_monte_carlo", type=int, default=50)
     p.add_argument("--structured-mc", action="store_true",
-                   help="not ported (refused)")
+                   help="evaluate through mc_forward(structured=True): the "
+                        "draws as channel blocks of one forward")
     p.add_argument("--num_mc", type=int, default=1)
     p.add_argument("--save_dir", type=str, default="./checkpoint/bayesian")
     p.add_argument("--resume", action="store_true",
@@ -114,6 +116,7 @@ def run(args, estimator="Reparameterization"):
         return engine.evaluate(
             model, test_data, batch_size=args.test_batch_size,
             num_monte_carlo=args.num_monte_carlo,
+            structured=args.structured_mc,
             save_probs_to=os.path.join(args.save_dir,
                                        f"probs_cifar_{tag}_mc.npy"))
     model.train()
@@ -126,7 +129,8 @@ def run(args, estimator="Reparameterization"):
     model.eval()
     metrics = engine.evaluate(model, test_data,
                               batch_size=args.test_batch_size,
-                              num_monte_carlo=args.num_monte_carlo)
+                              num_monte_carlo=args.num_monte_carlo,
+                              structured=args.structured_mc)
     save_checkpoint(model, ckpt_path)
     engine.save_metrics(metrics, os.path.join(
         args.save_dir, f"cifar_{tag}_metrics.json"))

@@ -21,9 +21,11 @@ from seed ``--seed + 7``, or loaded from ``--moped-ckpt`` (a
 ``--resume`` load, since checkpoints keep no prior. Evaluation drops the
 last partial batch, as the JAX trainer's does, so ``--batch-size`` must
 not exceed the test split (51 of the 256 synthetic images).
-
-Not ported yet, and refused: ``--mesh-mc`` > 1, ``--structured-mc`` and
-``--remat`` (see ``_engine.UNPORTED``).
+``--remat`` builds the model with ``remat_blocks=True`` (each residual
+block recomputed in the backward, its draws replayed), and
+``--structured-mc`` evaluates through ``mc_forward(structured=True)``.
+``--mesh-mc`` above 1 is not ported yet, and refused (see
+``_engine.UNPORTED``).
 """
 
 from __future__ import annotations
@@ -59,7 +61,10 @@ def build_parser(desc="Bayesian ImageNet"):
                    choices=["train", "test"])
     p.add_argument("--num_monte_carlo", type=int, default=10)
     p.add_argument("--structured-mc", action="store_true",
-                   help="not ported (refused)")
+                   help="evaluate through mc_forward(structured=True): the "
+                        "draws as channel blocks of one forward (falls "
+                        "back to the draw loop, with a warning, for a "
+                        "model that cannot take them)")
     p.add_argument("--num_mc", type=int, default=1)
     p.add_argument("--num-classes", type=int, default=1000)
     p.add_argument("--save_dir", type=str, default="./checkpoint/imagenet")
@@ -72,8 +77,10 @@ def build_parser(desc="Bayesian ImageNet"):
     p.add_argument("--delta", type=float, default=0.5)
     p.add_argument("--mesh-mc", type=int, default=1,
                    help="values above 1 are not ported (refused)")
-    p.add_argument("--remat", action="store_true", help="not ported "
-                   "(refused)")
+    p.add_argument("--remat", action="store_true",
+                   help="checkpoint each residual block (remat_blocks=True):"
+                        " only block inputs are kept for the backward, "
+                        "which runs each block again on the same draws")
     p.add_argument("--data-dir", type=str, default=None)
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
@@ -82,7 +89,7 @@ def build_parser(desc="Bayesian ImageNet"):
 
 
 def get_model(arch, seed, num_classes, device,
-              estimator="Reparameterization"):
+              estimator="Reparameterization", remat=False):
     from bayesian_torch_tpu_torch.models.bayesian import (
         resnet_flipout_large, resnet_variational_large)
 
@@ -90,7 +97,7 @@ def get_model(arch, seed, num_classes, device,
            "Reparameterization": resnet_variational_large}[estimator]
     return getattr(zoo, arch)(num_classes=num_classes,
                               generator=torch.Generator().manual_seed(seed),
-                              device=device)
+                              device=device, remat_blocks=remat)
 
 
 def run(args, estimator="Reparameterization"):
@@ -103,7 +110,7 @@ def run(args, estimator="Reparameterization"):
 
     device = torch.device(args.device)
     model = get_model(args.arch, args.seed, args.num_classes, device,
-                      estimator)
+                      estimator, remat=args.remat)
     tag = "flipout" if estimator == "Flipout" else "bayesian"
     if args.moped:
         from bayesian_torch_tpu_torch.models.deterministic import (
@@ -154,7 +161,8 @@ def run(args, estimator="Reparameterization"):
                                      epoch=epoch + 1)
         model.eval()
         metrics = engine.evaluate(model, test_data, batch_size=batch_size,
-                                  num_monte_carlo=args.num_monte_carlo)
+                                  num_monte_carlo=args.num_monte_carlo,
+                                  structured=args.structured_mc)
         save_checkpoint(model, ckpt_path)
         engine.save_metrics(metrics, os.path.join(
             args.save_dir, f"imagenet_{tag}_metrics.json"))
@@ -162,7 +170,8 @@ def run(args, estimator="Reparameterization"):
     load_checkpoint(model, ckpt_path)
     model.eval()
     return engine.evaluate(model, test_data, batch_size=batch_size,
-                           num_monte_carlo=args.num_monte_carlo)
+                           num_monte_carlo=args.num_monte_carlo,
+                           structured=args.structured_mc)
 
 
 def main(argv=None):

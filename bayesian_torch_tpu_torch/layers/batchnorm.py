@@ -18,6 +18,11 @@ the plain forward normalises one draw: by its own batch statistics in
 training mode (per-channel statistics of the S*C channels, recorded for
 all S draws at once) and by the running statistics tiled S times in eval.
 
+A checkpoint's recompute (``ops/remat.py``) runs under ``recomputing``:
+each layer then takes the path its forward took, so the recompute saves
+the same tensors, but neither counts the batch, nor records it, nor moves
+a running statistic (torch's update runs at momentum 0).
+
 ``BatchNorm1dLayer``, ``BatchNorm2dLayer`` and ``BatchNorm3dLayer`` add
 the reference's calling convention: a ``(x, kl)`` tuple in gives
 ``(out, 0)`` out, a bare tensor gives the bare output.
@@ -27,6 +32,7 @@ also requantizes its output when its input was a ``QTensor``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -71,17 +77,24 @@ class _MCBatchNorm:
         super().__init__(*args, **kwargs)
         self.stats_frozen = False
         self._mc_stats: Optional[MCBatchStats] = None
+        self._recomputing = False
 
     def forward(self, input):
         input = dequantize_if_qtensor(input)
         num_draws = getattr(self, "_mc_draws", None)
         if num_draws and input.shape[1] == num_draws * self.num_features:
             return self._forward_draws(input, num_draws)
-        if not (self.stats_frozen and self.training
-                and self.track_running_stats):
+        updating = self.training and self.track_running_stats
+        if updating and self._recomputing and not self.stats_frozen:
+            # torch's update, as the forward ran it, at momentum 0: the
+            # running statistics keep their values
+            self._check_input_dim(input)
+            return F.batch_norm(input, self.running_mean, self.running_var,
+                                self.weight, self.bias, True, 0.0, self.eps)
+        if not (self.stats_frozen and updating):
             return super().forward(input)
         self._check_input_dim(input)
-        if self._mc_stats is not None:
+        if self._mc_stats is not None and not self._recomputing:
             self._mc_stats.record(input)
         # batch statistics, no running statistic read or written
         return F.batch_norm(input, None, None, self.weight, self.bias,
@@ -97,13 +110,27 @@ class _MCBatchNorm:
             return None if t is None else t.repeat(num_draws)
 
         if self.training or self.running_mean is None:
-            if self._mc_stats is not None:
+            if self._mc_stats is not None and not self._recomputing:
                 self._mc_stats.record(x, num_draws)
             return F.batch_norm(x, None, None, tile(self.weight),
                                 tile(self.bias), True, 0.0, self.eps)
         return F.batch_norm(x, tile(self.running_mean),
                             tile(self.running_var), tile(self.weight),
                             tile(self.bias), False, 0.0, self.eps)
+
+
+@contextlib.contextmanager
+def recomputing(module):
+    """Set the recompute state on every MC-aware BatchNorm of the module
+    for the duration (module docstring)."""
+    mods = [m for m in module.modules() if isinstance(m, _MCBatchNorm)]
+    for mod in mods:
+        mod._recomputing = True
+    try:
+        yield
+    finally:
+        for mod in mods:
+            mod._recomputing = False
 
 
 class BatchNorm1d(_MCBatchNorm, nn.BatchNorm1d):

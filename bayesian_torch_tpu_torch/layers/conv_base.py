@@ -18,8 +18,8 @@ presampled (S, ...) stack, and runs them as one conv
 Flipout layer draws its S perturbations ``sigma * eps`` the same way (the
 sampler on a zero mean) and runs ``ops.conv.flipout_conv_draws``; its
 presampled weight is that perturbation, and the mean conv uses ``mu``.
-The JAX package refuses transposed convs only in its structured mode,
-which the port does not have, so the draw axis takes them.
+The JAX package refuses transposed convs only in its structured mode; the
+port's draw axis (and so its ``structured=True``) takes them.
 """
 
 from __future__ import annotations

@@ -42,9 +42,22 @@ Frozen draws (``quantization.serving``) are buffers ``_frozen_w``,
 ``_frozen_wscale`` and ``_frozen_bias``: the weight of a
 reparameterization layer, the perturbation of a Flipout layer (whose signs
 stay per call). ``mc_forward``'s presample attaches the record that
-``presample(S)`` returns: a reparameterization layer's S weights
-(``_presampled_qw``) with their scale and the ``normal_scale`` they were
-built for, which a call at another ``normal_scale`` refuses.
+``presample(S)`` returns: the layer's S weights (Flipout: perturbations,
+``_presampled_qw``) with their scale and the ``normal_scale`` they were
+built for, which a call at another ``normal_scale`` refuses, and a Flipout
+layer's S sign salts (``_presampled_signs``).
+
+Under the draw axis (``_mc_draws`` = S, ``mc_forward``'s vmap emission)
+the input is (B, S*C, ...) (a linear layer's (..., S*K)) with draw s in
+block s, or shared and then tiled to S blocks, a float tensor or a
+``QTensor``. The S int8 weights are the presample record, or one build
+over the draw axis as ``presample`` makes it; a frozen draw serves every
+block; each draw has its own bias and the scales stay per layer. A conv
+runs as ``ops.int8.qconv`` grouped S*groups ways (one K-F GEMM a group,
+the loop's GEMMs), a linear layer as one K-F GEMM a block; Flipout's mean
+product takes ``mu`` in every block and its signs come per block from
+``rademacher_lanes``. So each block equals the loop's draw bit for bit on
+the same record and signs.
 """
 
 from __future__ import annotations
@@ -62,8 +75,11 @@ from bayesian_torch_tpu_torch.layers.base_variational_layer import (
 from bayesian_torch_tpu_torch.ops import int8 as q
 from bayesian_torch_tpu_torch.ops.qtensor import QTensor
 from bayesian_torch_tpu_torch.ops.sampling import (device_generator,
+                                                   draw_seed,
                                                    rademacher_fused,
-                                                   sigma_from_rho)
+                                                   rademacher_lanes,
+                                                   sigma_from_rho,
+                                                   sign_salts)
 
 FROZEN = ("_frozen_w", "_frozen_wscale", "_frozen_bias")
 # eps's scale on the uncalibrated path: the forward's default, and the
@@ -73,6 +89,17 @@ NORMAL_SCALE = 6 / 255
 
 def _refresh_after_load(module, incompatible_keys):
     module._refresh_scales()
+
+
+def _per_draw(t, num_draws):
+    """``t`` repeated on a new leading draw axis (a view); None stays."""
+    return None if t is None else t.expand((num_draws,) + tuple(t.shape))
+
+
+def _first(v):
+    """One draw's value of a record entry: the whole record under the
+    draw axis holds every draw's (equal) scale."""
+    return v[0] if isinstance(v, (list, tuple)) else v
 
 
 def _int8_round_trip(x):
@@ -89,6 +116,7 @@ class _QuantizedLayerBase(BaseVariationalLayer):
     is_conv = False
     transposed = False
     legacy_ao = False
+    takes_draw_axis = True
 
     def _init_common(self, generator):
         super().__init__()
@@ -195,15 +223,49 @@ class _QuantizedLayerBase(BaseVariationalLayer):
         return float(d["scale"]), float(d["zero_point"])
 
     def _apply_int8(self, x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale,
-                    out_zp):
+                    out_zp, num_draws=None):
+        """The int8 product; with ``num_draws`` S, of S draws: ``w_q`` (S,
+        ...) and ``bias`` (S, O) over the S blocks of ``x_q``."""
         if self.is_conv:
+            groups = self.groups
+            if num_draws:
+                # the draws' kernels side by side on the leading axis, one
+                # group (of each of the layer's groups) per draw
+                w_q = w_q.reshape((-1,) + tuple(w_q.shape[2:]))
+                bias = None if bias is None else bias.reshape(-1)
+                groups *= num_draws
             return q.qconv(x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale,
                            out_zp, stride=self.stride, padding=self.padding,
-                           dilation=self.dilation, groups=self.groups,
+                           dilation=self.dilation, groups=groups,
                            transposed=self.transposed,
                            output_padding=self.output_padding)
-        return q.qlinear(x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale,
-                         out_zp)
+        if not num_draws:
+            return q.qlinear(x_q, x_scale, x_zp, w_q, w_scale, bias,
+                             out_scale, out_zp)
+        k = w_q.shape[-1]
+        return torch.cat([q.qlinear(
+            x_q[..., s * k:(s + 1) * k], x_scale, x_zp, w_q[s], w_scale,
+            None if bias is None else bias[s], out_scale, out_zp)
+            for s in range(num_draws)], dim=-1)
+
+    def _draw_dim(self, ndim):
+        """The axis that holds the draw blocks: channels, or a linear
+        layer's features."""
+        return 1 if self.is_conv else ndim - 1
+
+    def _tile_draws(self, x_q, num_draws):
+        """A shared uint8 input (B, C, ...) tiled to S draw blocks; a
+        blocked one as it is."""
+        dim = self._draw_dim(x_q.dim())
+        width = self.in_channels if self.is_conv else self.in_features
+        if x_q.shape[dim] == width:
+            return torch.cat([x_q] * num_draws, dim=dim)
+        if x_q.shape[dim] != num_draws * width:
+            raise ValueError(
+                f"{type(self).__name__} over {num_draws} draws: input has "
+                f"{x_q.shape[dim]} features on axis {dim}, want {width} "
+                f"(shared) or {num_draws * width} (one block per draw)")
+        return x_q
 
     def _quantize_input(self, x, scale, zp):
         """f32 -> uint8, or a uint8 -> uint8 requantize of a QTensor."""
@@ -272,56 +334,87 @@ class _QuantizedLayerBase(BaseVariationalLayer):
         return (self._frozen_w, self._frozen_wscale_f,
                 getattr(self, "_frozen_bias", None))
 
-    @torch.no_grad()
-    def presample(self, num_mc):
-        """This layer's record for ``mc_forward``'s presample: {attr: a
-        sequence over the ``num_mc`` draws}. A reparameterization layer
-        without a frozen draw builds its int8 weights for all draws in one
-        pass ((S, ...) eps and bias eps on the weights' device, then
-        quantize, qmul and qadd over the draw axis), beside their scale
-        and the ``normal_scale`` they were built for. A Flipout or frozen
-        layer draws in its forward: {}."""
-        if self.estimator != "reparameterization" \
-                or self._frozen() is not None:
-            return {}
+    def _build(self, normal_scale, num_draws=None):
+        """A new weight draw (Flipout: perturbation) as (w_q, scale, bias);
+        with ``num_draws`` S, S of them in one pass over the draw axis: (S,
+        ...) eps and bias eps on the weights' device, then the
+        elementwise build, the bias (S, O) or None."""
+        build = self._sampled_qdelta_flipout if self.estimator == "flipout" \
+            else self._sampled_qweight_reparam
+        if not num_draws:
+            return build(normal_scale)
         gen = self._noise()
-        shape = (num_mc,) + tuple(self.quantized_mu_weight.shape)
-        eps = torch.randn(shape, generator=gen,
+        eps = torch.randn((num_draws,) + tuple(self.quantized_mu_weight.shape),
+                          generator=gen,
                           device=self.quantized_mu_weight.device)
         eps_b = None
         if self.quantized_sigma_bias is not None:
-            eps_b = torch.randn((num_mc,) + tuple(self.quantized_mu_bias.shape),
-                                generator=gen,
-                                device=self.quantized_mu_bias.device)
-        w_q, w_scale, bias = self._sampled_qweight_reparam(
-            NORMAL_SCALE, eps=eps, eps_b=eps_b)
-        record = {"_presampled_qw": w_q,
-                  "_presampled_qscale": [w_scale] * num_mc,
-                  "_presampled_qnscale": [NORMAL_SCALE] * num_mc}
-        if eps_b is not None:  # else the bias is the same in every draw
-            record["_presampled_qbias"] = bias
+            eps_b = torch.randn(
+                (num_draws,) + tuple(self.quantized_sigma_bias.shape),
+                generator=gen, device=self.quantized_sigma_bias.device)
+        w_q, w_scale, bias = build(normal_scale, eps=eps, eps_b=eps_b)
+        if bias is not None and eps_b is None:
+            bias = _per_draw(bias, num_draws)  # a folded mean-only bias
+        return w_q, w_scale, bias
+
+    def _this_draw(self, normal_scale, num_draws=None):
+        """This call's (w_q, scale, bias), from the frozen draw, the
+        presample record or a new build (``_build``); with ``num_draws``
+        every tensor has the leading draw axis."""
+        draw = self._frozen()
+        if draw is not None:
+            if num_draws:
+                w_q, w_scale, bias = draw
+                return (_per_draw(w_q, num_draws), w_scale,
+                        _per_draw(bias, num_draws))
+            return draw
+        pres = getattr(self, "_presampled_qw", None)
+        if pres is None:
+            return self._build(normal_scale, num_draws)
+        # the calibrated path reads no normal_scale, the default path
+        # only the recorded one
+        recorded = _first(self._presampled_qnscale)
+        if not self._calibrated() and normal_scale != recorded:
+            raise ValueError(
+                f"normal_scale {normal_scale} differs from the {recorded} "
+                "the presampled weights were built for")
+        bias = getattr(self, "_presampled_qbias", None)
+        if bias is None and self.estimator != "flipout":
+            # a folded mean-only bias is the same in every draw
+            bias = self._sample_bias()
+            if num_draws:
+                bias = _per_draw(bias, num_draws)
+        return pres, _first(self._presampled_qscale), bias
+
+    @torch.no_grad()
+    def presample(self, num_mc):
+        """This layer's record for ``mc_forward``'s presample: {attr: a
+        sequence over the ``num_mc`` draws}. Without a frozen draw the
+        layer builds its int8 weights (Flipout: perturbations) for all
+        draws in one pass (``_build``), beside their scale and the
+        ``normal_scale`` they were built for; a Flipout layer also takes
+        its draws' sign salts under one seed of its generator, so the loop
+        and the draw axis flip the same signs in draw s."""
+        record = {}
+        if self._frozen() is None:
+            w_q, w_scale, bias = self._build(NORMAL_SCALE, num_mc)
+            record = {"_presampled_qw": w_q,
+                      "_presampled_qscale": [w_scale] * num_mc,
+                      "_presampled_qnscale": [NORMAL_SCALE] * num_mc}
+            if self.quantized_sigma_bias is not None:
+                # else the bias is the same in every draw
+                record["_presampled_qbias"] = bias
+        if self.estimator == "flipout":
+            seed = draw_seed(self.generator)
+            record["_presampled_signs"] = torch.tensor(
+                [sign_salts(seed, s) for s in range(num_mc)],
+                dtype=torch.int64)
         return record
 
     def _forward_reparam(self, input, normal_scale, default_scale,
                          default_zero_point):
-        draw = self._frozen()
-        pres = getattr(self, "_presampled_qw", None)
-        if draw is None and pres is not None:
-            # this draw's weight from the presample; the calibrated path
-            # reads no normal_scale, the default path only the recorded one
-            if not self._calibrated() \
-                    and normal_scale != self._presampled_qnscale:
-                raise ValueError(
-                    f"normal_scale {normal_scale} differs from the "
-                    f"{self._presampled_qnscale} the presampled weights "
-                    "were built for")
-            # a folded mean-only bias is the same in every draw
-            bias = getattr(self, "_presampled_qbias", None)
-            draw = (pres, self._presampled_qscale,
-                    self._sample_bias() if bias is None else bias)
-        if draw is None:
-            draw = self._sampled_qweight_reparam(normal_scale)
-        w_q, w_scale, bias = draw
+        num_draws = getattr(self, "_mc_draws", None)
+        w_q, w_scale, bias = self._this_draw(normal_scale, num_draws)
         if self._calibrated():
             s3, z3 = self._qd(3)   # input
             s4, z4 = self._qd(4)   # output
@@ -329,7 +422,10 @@ class _QuantizedLayerBase(BaseVariationalLayer):
             s3 = s4 = default_scale
             z3 = z4 = default_zero_point
         x_q = self._quantize_input(input, s3, z3)
-        out_q = self._apply_int8(x_q, s3, z3, w_q, w_scale, bias, s4, z4)
+        if num_draws:
+            x_q = self._tile_draws(x_q, num_draws)
+        out_q = self._apply_int8(x_q, s3, z3, w_q, w_scale, bias, s4, z4,
+                                 num_draws)
         return self._emit(out_q, s4, z4)
 
     @torch.no_grad()
@@ -363,21 +459,35 @@ class _QuantizedLayerBase(BaseVariationalLayer):
         return (q.qmul(self.quantized_sigma_weight, s_sigma, eps_q,
                        normal_scale, new_scale, 0), new_scale, pert_bias)
 
-    def _signs(self, x_shape, out_shape, device, sign_in, sign_out):
+    def _signs(self, x_shape, out_shape, device, sign_in, sign_out,
+               num_draws=None):
         """The f32 Rademacher signs of the input and of the output: the
-        injected ones, else the counter hash under this call's salts."""
+        injected ones, else the counter hash under this call's salts; with
+        ``num_draws``, block s under draw s's salts (the signs the loop's
+        draw s takes)."""
         if sign_in is None or sign_out is None:
-            salts = self._sign_salts()
-        if sign_in is None:
-            sign_in = rademacher_fused(salts[0], x_shape, torch.float32,
-                                       device)
-        if sign_out is None:
-            sign_out = rademacher_fused(salts[1], out_shape, torch.float32,
+            salts = self._sign_salts(num_draws)
+
+        def hashed(side, shape):
+            if not num_draws:
+                return rademacher_fused(salts[side], shape, torch.float32,
                                         device)
+            dim = self._draw_dim(len(shape))
+            one = list(shape)
+            one[dim] //= num_draws
+            return rademacher_lanes([pair[side] for pair in salts], one,
+                                    torch.float32, device,
+                                    axis=dim).reshape(shape)
+
+        if sign_in is None:
+            sign_in = hashed(0, x_shape)
+        if sign_out is None:
+            sign_out = hashed(1, out_shape)
         return sign_in, sign_out
 
     def _forward_flipout(self, x, normal_scale, default_scale,
                          default_zero_point, sign_in, sign_out):
+        num_draws = getattr(self, "_mc_draws", None)
         s_mu = self._mu_scale_f
         if self._calibrated():
             # quant_dict: [eps, delta, x, outputs, sign_in, sign_out,
@@ -387,20 +497,24 @@ class _QuantizedLayerBase(BaseVariationalLayer):
         else:
             s2 = s3 = s4 = s5 = s6 = s7 = s8 = s9 = default_scale
             z2 = z3 = z4 = z5 = z6 = z7 = z8 = z9 = default_zero_point
-        draw = self._frozen()
-        delta_q, s1, pert_bias = draw if draw is not None \
-            else self._sampled_qdelta_flipout(normal_scale)
+        delta_q, s1, pert_bias = self._this_draw(normal_scale, num_draws)
+        mu_q, mu_b = self.quantized_mu_weight, self.quantized_mu_bias
         x_q = self._quantize_input(x, s2, z2)
-        outputs_q = self._apply_int8(x_q, s2, z2, self.quantized_mu_weight,
-                                     s_mu, self.quantized_mu_bias, s3, z3)
+        if num_draws:
+            x_q = self._tile_draws(x_q, num_draws)
+            mu_q, mu_b = _per_draw(mu_q, num_draws), _per_draw(mu_b,
+                                                               num_draws)
+        outputs_q = self._apply_int8(x_q, s2, z2, mu_q, s_mu, mu_b, s3, z3,
+                                     num_draws)
         sign_in, sign_out = self._signs(x_q.shape, outputs_q.shape,
-                                        x_q.device, sign_in, sign_out)
+                                        x_q.device, sign_in, sign_out,
+                                        num_draws)
         sign_in_q = q.quantize_uint8(sign_in, s4, z4)
         sign_out_q = q.quantize_uint8(sign_out, s5, z5)
         x_tmp_q = q.qmul(x_q, s2, sign_in_q, s4, s6, z6, a_zp=z2, b_zp=z4,
                          out_dtype=torch.uint8)
         pert_q = self._apply_int8(x_tmp_q, s6, z6, delta_q, s1, pert_bias,
-                                  s7, z7)
+                                  s7, z7, num_draws)
         pert_q = q.qmul(pert_q, s7, sign_out_q, s5, s8, z8, a_zp=z7,
                         b_zp=z5, out_dtype=torch.uint8)
         out_q = q.qadd(outputs_q, s3, pert_q, s8, s9, z9, a_zp=z3, b_zp=z8,

@@ -22,16 +22,16 @@ Three branches, as in the JAX layer:
   tensor (K-A's rho mode), then the loop with fixed weights. As in the JAX
   layer this branch samples whole weights for both estimators;
 - the quantized cell, taken once ``bnn_to_qbnn`` has quantized ``ih`` and
-  ``hh``: one f32 weight per sequence, ``dequantize(q_mu) +
+  ``hh``: one f32 weight per sequence and draw, ``dequantize(q_mu) +
   dequantize(q_sigma) * eps`` (eps from a device generator seeded by the
-  layer's), the biases from each block's ``_sample_bias``, no KL.
+  layer's, one (S, ...) ``torch.randn`` for the S draws), the biases from
+  each block's ``_sample_bias``, no KL.
 
 The draw axis (``_mc_draws`` = S, set by ``mc_forward``'s vmap emission):
 the input is (B, T, in), shared by the draws, or (B, T, S*in) with draw s
 in block s; the state is (B, S*H) and the outputs (B, T, S*H). The S*T
 weight sets of each tensor come from one K-A launch (lane s*T + t is draw
-s, step t). A quantized LSTM has quantized children, which cannot take the
-axis, so ``mc_forward`` runs it in its draw loop.
+s, step t); the quantized cell draws its S weights of each block at once.
 
 Injected noise (keyword-only, each a pair ``(ih, hh)``): ``eps_w`` /
 ``eps_b`` with a leading T axis per step (none in the other two branches),
@@ -119,7 +119,8 @@ class _BaseLSTMLayer(BaseVariationalLayer):
         draws = getattr(self, "_mc_draws", None) or 1
         x, h0, c0 = self._lanes_in(X, hidden_states, draws)
         if hasattr(self.ih, "quantized_mu_weight"):
-            h_seq, c_seq = self._forward_quantized(x, h0, c0, eps_w, eps_b)
+            h_seq, c_seq = self._forward_quantized(x, h0, c0, draws, eps_w,
+                                                   eps_b)
             kl = 0.0
         else:
             h_seq, c_seq = self._forward_float(x, h0, c0, draws, eps_w,
@@ -281,9 +282,10 @@ class _BaseLSTMLayer(BaseVariationalLayer):
     # ---- the quantized cell ---------------------------------------------
 
     @torch.no_grad()
-    def _forward_quantized(self, x, h, c, eps_w, eps_b):
-        """One f32 weight per sequence from the int8 posteriors, then the
-        loop (JAX :117-161); ``eps_w`` / ``eps_b`` pairs may be injected."""
+    def _forward_quantized(self, x, h, c, draws, eps_w, eps_b):
+        """One f32 weight per sequence and draw from the int8 posteriors
+        ((S, 4H, K) for S draws), then the loop (JAX :117-161); ``eps_w`` /
+        ``eps_b`` pairs may be injected."""
         (ew_ih, ew_hh), (eb_ih, eb_hh) = _pair(eps_w), _pair(eps_b)
         gen = None
         if ew_ih is None or ew_hh is None:
@@ -291,21 +293,32 @@ class _BaseLSTMLayer(BaseVariationalLayer):
                                    self.ih.quantized_mu_weight.device)
 
         def weight(lin, eps):
+            shape = (draws,) + tuple(lin.quantized_mu_weight.shape)
             if eps is None:
-                eps = torch.randn(lin.quantized_mu_weight.shape,
-                                  generator=gen,
+                eps = torch.randn(shape, generator=gen,
                                   device=lin.quantized_mu_weight.device)
             return (dequantize(lin.quantized_mu_weight, lin.mu_weight_scale)
                     + dequantize(lin.quantized_sigma_weight,
-                                 lin.sigma_weight_scale) * eps)
+                                 lin.sigma_weight_scale) * eps.reshape(shape))
+
+        def bias(lin, eps):
+            if lin.quantized_mu_bias is None:
+                return None
+            shape = (draws,) + tuple(lin.quantized_mu_bias.shape)
+            if eps is None and lin.quantized_sigma_bias is not None:
+                eps = torch.randn(shape, generator=lin._noise(),
+                                  device=lin.quantized_mu_bias.device)
+            b = lin._sample_bias(None if eps is None else eps.reshape(shape))
+            return b.reshape(-1, 1, 1, b.shape[-1])  # (S or 1, 1, 1, 4H)
 
         w_ih, w_hh = weight(self.ih, ew_ih), weight(self.hh, ew_hh)
-        b_ih, b_hh = self.ih._sample_bias(eb_ih), self.hh._sample_bias(eb_hh)
-        gx = torch.matmul(x.float(), w_ih.t())
+        b_ih, b_hh = bias(self.ih, eb_ih), bias(self.hh, eb_hh)
+        gx = torch.matmul(x.float(), w_ih.transpose(-1, -2)[:, None])
         if b_ih is not None:
             gx = gx + (b_ih + (b_hh if b_hh is not None else 0.0))
+        w_hh = w_hh.transpose(-1, -2)
         return self._recur(gx, h.float(), c.float(),
-                           lambda h, t: torch.matmul(h, w_hh.t()))
+                           lambda h, t: torch.matmul(h, w_hh))
 
     def __repr__(self):
         return f"{type(self).__name__}()"

@@ -19,7 +19,16 @@ Every BatchNorm is the port's MC-aware ``BatchNorm2d``
 ``mc_forward`` can train with one EMA update per step. ReLU, the residual
 add and the pools take the uint8 ``QTensor`` activations of a converted
 INT8 model (``nn/functional.py``, ``ops/qtensor.py``), in both forwards.
-The ``remat_blocks`` option comes in a later slice.
+
+``remat_blocks`` (JAX ``_block_call``): ``True`` puts each residual block
+behind a checkpoint that saves only the block's input, and the backward
+runs the block again; ``"conv_out"`` also keeps every convolution's output
+and recomputes only what lies between them (BatchNorm, ReLU, the add, the
+weight draws). The recompute draws the weights its forward drew and moves
+no BatchNorm statistic (``ops/remat.py``, which also says what the
+``"conv_out"`` policy can see: a draw through K-A, or a conv through K-G,
+is a call into our own library and is always recomputed). Without
+gradients (eval, ``torch.no_grad``) the blocks run as they are.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from bayesian_torch_tpu_torch.layers.batchnorm import (BatchNorm2d,
 from bayesian_torch_tpu_torch.nn import (AdaptiveAvgPool2d, MaxPool2d,
                                         Sequential)
 from bayesian_torch_tpu_torch.nn import functional as F
+from bayesian_torch_tpu_torch.ops import remat
 
 prior_mu = 0.0
 prior_sigma = 1.0
@@ -181,11 +191,18 @@ class Bottleneck(_Block):
         return F.relu(out + residual), kl_sum
 
 
+REMAT_BLOCKS = (False, True, "conv_out")
+
+
 class LargeResNet(nn.Module):
     def __init__(self, block_cls, layers, num_classes=1000, *,
                  estimator=None, generator: Optional[torch.Generator] = None,
-                 device=None):
+                 device=None, remat_blocks=False):
         super().__init__()
+        if remat_blocks not in REMAT_BLOCKS:
+            raise ValueError(f"remat_blocks={remat_blocks!r}: expected one "
+                             f"of {REMAT_BLOCKS}")
+        self.remat_blocks = remat_blocks
         if generator is None:
             generator = default_generator()
         conv, linear = _layer_factories(estimator, generator, device)
@@ -224,13 +241,22 @@ class LargeResNet(nn.Module):
             mods.append(block_cls(self.inplanes, planes, **kw))
         return nn.Sequential(*mods)
 
+    def _block_call(self, block, x):
+        """One residual block, behind a checkpoint when ``remat_blocks`` is
+        set and gradients are being recorded."""
+        if not self.remat_blocks or not torch.is_grad_enabled():
+            return block(x)
+        return remat.checkpoint(
+            block, block, x,
+            policy="conv_out" if self.remat_blocks == "conv_out" else None)
+
     def forward(self, x):
         if self.estimator is None:
             out = self.maxpool(F.relu(self.bn1(self.conv1(x))))
             for layer in (self.layer1, self.layer2, self.layer3,
                           self.layer4):
                 for block in layer:
-                    out = block(out)
+                    out = self._block_call(block, out)
             out = self.avgpool(out)
             return self.fc(out.reshape(out.shape[0], -1))
         kl_sum = 0.0
@@ -240,7 +266,7 @@ class LargeResNet(nn.Module):
         out = self.maxpool(out)
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
             for block in layer:
-                out, kl = block(out)
+                out, kl = self._block_call(block, out)
                 kl_sum += kl
         out = self.avgpool(out)
         out = out.reshape(out.shape[0], -1)

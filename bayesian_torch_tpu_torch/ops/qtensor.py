@@ -44,6 +44,11 @@ class QTensor:
     def ndim(self):
         return self.q.dim()
 
+    def reshape(self, *shape):
+        """The payload reshaped (a view where torch gives one); the scale
+        and zero point are per tensor."""
+        return QTensor(self.q.reshape(*shape), self.scale, self.zp)
+
     def dequantize(self):
         return (self.q.float() - self.zp) * self.scale
 

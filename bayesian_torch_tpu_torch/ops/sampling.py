@@ -16,10 +16,16 @@ take consecutive windows of one salt's counter stream (``draw_salt``), so
 their eps never repeat one another; draws of different launches come from
 independent seeds, and two windows of n1 and n2 counters under two of them
 overlap with probability (n1 + n2 - 1) / 2**32.
+
+Because every draw comes from a layer's CPU generator, replaying those
+generators replays the draws: ``replay_generators`` lets a checkpoint's
+recompute (``ops/remat.py``) draw the weights, salts and Dropout masks
+that its forward drew.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -69,6 +75,50 @@ def draw_seed(generator: torch.Generator) -> int:
     counter-hash draws (the JAX layers split ``rngs.noise()`` instead).
     Drawn on the host, so no device synchronises for it."""
     return int(torch.randint(0, 2**63 - 1, (), generator=generator))
+
+
+def module_generators(module) -> list:
+    """The distinct CPU generators that the module and its children hold
+    in their ``generator`` attributes, in order of first appearance (one is
+    usually shared by a whole model)."""
+    found = {}
+    for mod in module.modules():
+        gen = getattr(mod, "generator", None)
+        if isinstance(gen, torch.Generator):
+            found.setdefault(id(gen), gen)
+    return list(found.values())
+
+
+def replay_generators(module):
+    """A (forward, recompute) pair of contexts, as
+    ``torch.utils.checkpoint``'s ``context_fn`` returns them: the forward
+    records the state of every generator of the module
+    (``module_generators``); the recompute sets the recorded states, runs,
+    and then restores the states it found. So the recompute draws what the
+    forward drew (the ``draw_seed`` seeds, the device generators seeded
+    from them, the Flipout salts, Dropout's masks), and whatever comes
+    after it sees the stream it would have seen without the recompute.
+    ``preserve_rng_state`` covers only torch's global generators."""
+    gens = module_generators(module)
+    recorded = []
+
+    @contextlib.contextmanager
+    def forward():
+        recorded[:] = [gen.get_state() for gen in gens]
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        found = [gen.get_state() for gen in gens]
+        for gen, state in zip(gens, recorded):
+            gen.set_state(state)
+        try:
+            yield
+        finally:
+            for gen, state in zip(gens, found):
+                gen.set_state(state)
+
+    return forward(), recompute()
 
 
 def device_generator(generator: torch.Generator, device) -> torch.Generator:

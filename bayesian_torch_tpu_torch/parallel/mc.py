@@ -20,20 +20,30 @@
   ``torch.func.vmap`` is not used: the layers draw their seeds on the
   host, which would give every lane the same seed.
 
+That layout is the JAX structured path's, so ``structured=True`` is the
+vmap emission; where a module cannot take the draw axis it falls back, as
+JAX's does, with a ``RuntimeWarning`` naming the module (to the draw loop
+here, to vmap there). ``mc_vmap`` is JAX's decorator over independent
+draws, as S calls of the function.
+
 In training mode the BatchNorm statistics of each draw are recorded and
-applied as one EMA update (``_apply_bn_ema``) under either emission. A
-converted INT8 model (``quantization.convert``) runs the draw loop: with
-presample "on" its reparameterization layers build the int8 weights of
-all S draws in one pass before the loop (as the JAX scan emission's
-presample does), its Flipout layers draw their perturbations and signs
-inside each draw; frozen draws (``quantization.serving``) are reused. Flipout layers run under both emissions; their
-presampled draw is the perturbation ``sigma * eps``. ``structured=True``
-and meshes are not ported.
+applied as one EMA update (``_apply_bn_ema``) under either emission;
+``remat_policy`` checkpoints each forward the emission makes
+(``ops/remat.py``). A converted INT8 model (``quantization.convert``) runs
+either emission: with presample "on" its layers build the int8 weights
+(Flipout: perturbations) of all S draws in one pass and take their sign
+salts before the forwards (``presample``), and the loop takes draw s of
+that record where the draw axis takes all of it; frozen draws
+(``quantization.serving``) are reused in every draw. Flipout layers run
+under both emissions; their presampled draw is the perturbation ``sigma *
+eps``. Meshes are not ported (ROADMAP Queue 1 #15).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import warnings
 from typing import Optional
 
 import torch
@@ -44,6 +54,7 @@ from bayesian_torch_tpu_torch.layers.quantized_base import (
     _QuantizedLayerBase,
 )
 from bayesian_torch_tpu_torch.models.dnn_to_bnn import iter_bayesian_layers
+from bayesian_torch_tpu_torch.ops import remat
 from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
     sample_scaled_normals_batch,
 )
@@ -94,9 +105,9 @@ def _presample_layers(model: nn.Module, num_mc: int):
     regenerate-eps launch over the whole flat buffer, and the split back
     into layers has a single concatenation as its backward.
 
-    An INT8 layer gives its own record (``presample``): a
-    reparameterization layer without a frozen draw builds its S int8
-    weights in one pass; an INT8 Flipout layer draws in its forward.
+    An INT8 layer gives its own record (``presample``): without a frozen
+    draw it builds its S int8 weights (Flipout: perturbations) in one
+    pass; a Flipout layer adds its S sign salts.
     """
     groups = {}
     for layer in iter_bayesian_layers(model):
@@ -167,9 +178,8 @@ def _draw_axis_refusal(model: nn.Module):
     ``(name, module)``, or None: a module that mixes channels and has no
     draw-axis forward (parameters or buffers of its own and no
     ``takes_draw_axis``: a plain ``torch.nn.Conv2d``, ``Linear`` or
-    ``BatchNorm2d``, a quantized layer), or a layer being calibrated.
-    Parameter-free modules (ReLU, pools, containers) are
-    channel-agnostic."""
+    ``BatchNorm2d``), or a layer being calibrated. Parameter-free modules
+    (ReLU, pools, containers) are channel-agnostic."""
     for name, mod in model.named_modules():
         own = next(mod.parameters(recurse=False), None) is not None \
             or next(mod.buffers(recurse=False), None) is not None
@@ -196,9 +206,12 @@ def _resolve_emission(model: nn.Module, num_mc: int, training: bool):
     """``emission="auto"`` by the JAX rule (``_resolve_emission``) less its
     TPU work threshold: the vmap emission for a model in training mode
     with more than one draw, the draw loop otherwise (inference, where the
-    card agrees with the loop) and for a model that cannot take the draw
-    axis (a quantized or a plain ``torch.nn`` layer)."""
-    if training and num_mc > 1 and _draw_axis_refusal(model) is None:
+    card agrees with the loop), for a model that cannot take the draw axis
+    (a plain ``torch.nn`` layer) and for a converted INT8 model, which
+    has nothing to train (it takes the draw axis when asked)."""
+    if training and num_mc > 1 and _draw_axis_refusal(model) is None \
+            and not any(isinstance(mod, _QuantizedLayerBase)
+                        for mod in model.modules()):
         return "vmap"
     return "scan"
 
@@ -256,7 +269,7 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
                return_kl: bool = True, compute_kl: Optional[bool] = None,
                presample: str = "auto", bn_stats: str = "ema",
                structured: bool = False, emission: str = "auto",
-               reduce: Optional[str] = None):
+               reduce: Optional[str] = None, remat_policy=None):
     """Run ``num_mc`` stochastic forwards of the model.
 
     Returns ``(outputs, kl)``, or ``outputs`` when ``return_kl`` is False.
@@ -273,6 +286,22 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
     that cannot take it. "auto" follows the JAX rule less its TPU work
     threshold (``_resolve_emission``): vmap for a model in training mode
     with ``num_mc > 1`` that can take the draw axis, the loop otherwise.
+
+    ``structured=True`` (JAX ``_mc_forward_structured``) is the vmap
+    emission, whatever ``emission`` says; if a module cannot take the draw
+    axis it falls back to the draw loop with a ``RuntimeWarning`` naming
+    the module, as JAX falls back to its vmap. ``reduce``, ``bn_stats`` and
+    ``return_kl`` behave as under ``emission="vmap"``. ``mesh=`` is not
+    ported (ROADMAP Queue 1 #15) and raises.
+
+    ``remat_policy`` (with gradients only): ``"full"``, ``"conv_out"`` or a
+    ``torch.utils.checkpoint`` selective policy puts each forward the
+    emission makes (each draw's under the loop, the one forward under
+    vmap) behind a checkpoint that replays its draws (``ops/remat.py``).
+    None keeps every draw's activations for the backward. The JAX scan
+    always rematerialises its body (its ``remat_policy`` picks only what
+    it saves); the results are the same either way, only the memory
+    schedule differs.
 
     ``presample``: "on" draws every layer's weights with the batch-sampler
     kernel before the forwards (differentiable: its backward is one
@@ -305,17 +334,28 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
     if bn_stats not in _BN_STATS:
         raise ValueError(f"mc_forward: unknown bn_stats {bn_stats!r} "
                          f"(expected one of {_BN_STATS})")
-    if structured or mesh is not None:
+    if mesh is not None:
         raise NotImplementedError(
-            "mc_forward: structured=True and mesh= are not ported yet "
-            "(ROADMAP Queue 1); the port runs the draw loop (emission="
-            "'scan') or the vmap emission (emission='vmap')")
+            "mc_forward: mesh= (MC draws sharded over devices) is not "
+            "ported yet (ROADMAP Queue 1 #15, multi-device); the port runs "
+            "on one device")
+    remat.resolve_policy(remat_policy)
     if presample in ("xla", "hash"):
         raise NotImplementedError(
             f"mc_forward: presample={presample!r} is a TPU code-generation "
             "variant and is not ported (ROADMAP 'Not ported'); use 'on' "
             "or 'off'")
     training = any(mod.training for mod in model.modules())
+    if structured and num_mc > 1:
+        emission = "vmap"
+        refused = _draw_axis_refusal(model)
+        if refused is not None:
+            name, mod = refused
+            warnings.warn(
+                "mc_forward(structured=True) fell back to the draw loop: "
+                f"module {name or '<model>'!r} ({type(mod).__name__}) "
+                "cannot take the draw axis", RuntimeWarning, stacklevel=2)
+            emission = "scan"
     if emission == "auto":
         emission = _resolve_emission(model, num_mc, training)
     vmap = emission == "vmap" and num_mc > 1
@@ -335,13 +375,14 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
         with grad:
             if presample == "on" and num_mc > 1:
                 presampled = _presample_layers(model, num_mc)
+            run = model
+            if remat_policy is not None and torch.is_grad_enabled():
+                run = functools.partial(remat.checkpoint, model, model,
+                                        policy=remat_policy)
             with bn:
-                if vmap:
-                    result, kl = _forward_draws(model, x, num_mc, presampled,
-                                                kl_layers, compute_kl, reduce)
-                else:
-                    result, kl = _forward_loop(model, x, num_mc, presampled,
-                                               kl_layers, compute_kl, reduce)
+                forward = _forward_draws if vmap else _forward_loop
+                result, kl = forward(run, model, x, num_mc, presampled,
+                                     kl_layers, compute_kl, reduce)
     finally:
         for layer, attrs in presampled:
             for name in attrs:
@@ -358,9 +399,10 @@ def _split(out):
     return out if isinstance(out, tuple) else (out, 0.0)
 
 
-def _forward_loop(model, x, num_mc, presampled, kl_layers, compute_kl,
+def _forward_loop(run, model, x, num_mc, presampled, kl_layers, compute_kl,
                   reduce):
-    """One forward per draw; the KL in the last draw alone."""
+    """One forward per draw (``run(x)``: the model, or the model behind a
+    checkpoint); the KL in the last draw alone."""
     acc, outs, kl = None, [], 0.0
     for s in range(num_mc):
         for mod in kl_layers:
@@ -368,7 +410,7 @@ def _forward_loop(model, x, num_mc, presampled, kl_layers, compute_kl,
         for layer, attrs in presampled:
             for name, draws in attrs.items():
                 setattr(layer, name, draws[s])
-        out, kl = _split(model(x))
+        out, kl = _split(run(x))
         if reduce == "mean":
             term = out.float() / num_mc
             acc = term if acc is None else acc + term
@@ -377,7 +419,7 @@ def _forward_loop(model, x, num_mc, presampled, kl_layers, compute_kl,
     return (acc if reduce == "mean" else torch.stack(outs)), kl
 
 
-def _forward_draws(model, x, num_mc, presampled, kl_layers, compute_kl,
+def _forward_draws(run, model, x, num_mc, presampled, kl_layers, compute_kl,
                    reduce):
     """One forward with the draw axis: the presampled (S, ...) stacks are
     attached whole, and the (..., S*N) output becomes (S, ..., N)."""
@@ -387,6 +429,41 @@ def _forward_draws(model, x, num_mc, presampled, kl_layers, compute_kl,
     for mod in kl_layers:
         mod.compute_kl = compute_kl
     with _draw_axis(model, num_mc):
-        out, kl = _split(model(x))
+        out, kl = _split(run(x))
     outs = out.reshape(out.shape[:-1] + (num_mc, -1)).movedim(-2, 0)
     return (outs.float().mean(0) if reduce == "mean" else outs), kl
+
+
+def mc_vmap(num_mc: int):
+    """Decorator (JAX ``mc_vmap``): lift ``f(model, *args)`` over a leading
+    axis of ``num_mc`` independent weight draws; the parameters and the
+    inputs are broadcast.
+
+        @mc_vmap(10)
+        def forward(model, x):
+            out, kl = model(x)
+            return out, kl
+
+        outs, kls = forward(model, x)   # outs: (10, B, ...), kls: (10,)
+
+    JAX splits the model's noise stream ``num_mc`` ways under one vmapped
+    call. Here the draws are ``num_mc`` calls of ``f``, each taking fresh
+    draws from the layers' generators, stacked on a new leading axis (each
+    element of a tuple result stacked on its own). ``torch.func.vmap``
+    would give every lane the same host-drawn seed."""
+
+    def decorator(f):
+        @functools.wraps(f)
+        def wrapper(model, *args):
+            results = [f(model, *args) for _ in range(num_mc)]
+            if isinstance(results[0], tuple):
+                return tuple(_stack(parts) for parts in zip(*results))
+            return _stack(results)
+
+        return wrapper
+
+    return decorator
+
+
+def _stack(parts):
+    return torch.stack([torch.as_tensor(p) for p in parts])

@@ -56,7 +56,10 @@ def unfreeze_quantized_draws(model: nn.Module) -> int:
         if isinstance(mod, _QuantizedLayerBase) \
                 and getattr(mod, "_frozen_w", None) is not None:
             for name in FROZEN:
-                delattr(mod, name)
+                # a state carried from JAX holds no bias draw where the
+                # layer has none
+                if hasattr(mod, name):
+                    delattr(mod, name)
             mod._refresh_scales()
             n += 1
     return n

@@ -41,6 +41,11 @@ weights and images, 224x224, 1000 classes, bf16 compute:
   both estimators): MC-20 inference through the draw loop and the vmap
   emission, the quantized LSTM, the trainer and one launch script (phase
   41);
+- the modes of phase 42: ResNet-50 MC-4 bs128 training steps with block
+  remat (``remat_blocks`` True and "conv_out", the draws replayed in the
+  recompute), ``structured=True``, both INT8 ``qresnet50`` models and the
+  quantized LSTM under the draw axis, the trainer with ``--remat
+  --structured-mc`` and a ``utils.profiling`` table;
 - model surgery: the deterministic ResNet-50
   (``models/deterministic/resnet_large.py``), ``utils.MOPED`` into the
   Bayesian ResNet-50 and ``models.dnn_to_bnn`` of the deterministic one
@@ -249,12 +254,34 @@ Phases, each printing its own line(s):
     2-sigma coverage printed, launches exact; (g)
     ``scripts/train_flipout_mnist.sh`` end to end at its smallest
     synthetic overrides.
+42. the modes (``phase_modes``, after phase 41, its parts' seconds
+    logged): (a) K-A and K-C against their plain versions at the
+    residual blocks' draw buffers; ResNet-50 MC-4 bs128 224² bf16
+    (``fc.impl="pallas"``) through vmap and the loop: from one state and
+    generator state, the loss, every gradient and the running statistics
+    of a ``remat_blocks=True`` and a ``"conv_out"`` step within 2^-6 of
+    each tensor's largest value of the step without remat,
+    ``num_batches_tracked`` exact, the peak memory (``max_memory_allocated``)
+    of each, lower with remat; three timed steps of each mode with the
+    launches gated (``expected_remat_launches``: vmap K-A 106 and K-C
+    dsigma 54, the loop K-A 424 and K-C drho 216); (f) one remat step
+    under ``utils.profiling.trace`` and ``summarize_trace``'s table;
+    (b) MC-10 bs128 ``structured=True`` equal to ``emission="vmap"``
+    exactly on the same seeds; (c) ``qresnet50`` and its Flipout twin at
+    MC-10 bs128 through the loop and under the draw axis on the same
+    presample record, lane for lane bit for bit, K-F 540 and 1,080 a
+    batch each way; (d) the quantized LSTM at config #4, five MC-20
+    batches through the loop and under the draw axis, interleaved, K-F 20
+    a batch, medians, min and max, busy ms and idle share; (e)
+    ``main_bayesian_imagenet --remat --structured-mc --synthetic
+    --batch-size=32 --epochs=1`` with its launches exact.
 
 The line before the last is a JSON object with every kernel's launches,
 counted from zero in the run named by its ``run`` key, its error against
 its plain version and both times; K-A, K-C and K-F also carry ``paths``,
-their launches on each path of the zoo and (K-A, K-C) of phase 41 (K-F:
-and of the INT8 main paths and phases 38-40), each counted from zero; the
+their launches on each path of the zoo, of phase 41 (K-A, K-C) and of
+phase 42 (K-F: and of the INT8 main paths and phases 38-40), each
+counted from zero; the
 last line is ``{"ok": true, "device": {...}}``, printed only after every phase
 passed. Any failure raises and exits non-zero, as does a machine without
 CUDA.
@@ -1163,6 +1190,33 @@ def expected_vmap_launches(model, training):
     if training:
         want.update({"K-C dsigma": draws, "K-D lanes": fused,
                      "K-E lanes": fused})
+    return want
+
+
+def expected_remat_launches(model, num_mc, vmap):
+    """Kernel launches of one training step of a ``remat_blocks`` model:
+    the step's own (``expected_vmap_launches`` or
+    ``expected_step_launches``), and K-A once more for each draw of a
+    layer inside a residual block, which the recompute draws again (once
+    under the draw axis, once per draw through the loop); the backward
+    runs once."""
+    from bayesian_torch_tpu_torch.models.dnn_to_bnn import (
+        iter_bayesian_layers,
+    )
+
+    want = (expected_vmap_launches(model, training=True) if vmap
+            else expected_step_launches(model, num_mc))
+    inner = [layer for stage in (model.layer1, model.layer2, model.layer3,
+                                 model.layer4)
+             for layer in iter_bayesian_layers(stage)]
+    if vmap:
+        redraws = sum(getattr(layer, "impl", "xla") != "pallas"
+                      or layer.mu_bias is not None for layer in inner)
+    else:
+        redraws = num_mc * sum((getattr(layer, "impl", "xla") != "pallas")
+                               + (layer.mu_bias is not None)
+                               for layer in inner)
+    want["K-A"] += redraws
     return want
 
 
@@ -4145,6 +4199,417 @@ def phase_lstm():
     return by_kernel, res
 
 
+# --- phase 42: the modes of the last slice ------------------------------------
+
+MODES_LSTM_TIMED = 5  # interleaved loop and draw-axis batches of each
+REMAT_MODES = (False, True, "conv_out")
+
+
+def remat_step(model, remat_blocks, emission, state, gen_state, x, y):
+    """One MC-4 ELBO loss and backward (``make_train_step``'s loss, no
+    update) of ``model`` from ``state`` and the generator at ``gen_state``,
+    with ``remat_blocks`` set: (loss, {name: grad}, running statistics,
+    peak GiB of the step)."""
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    model.load_state_dict(state)
+    model.conv1.generator.set_state(gen_state)
+    model.remat_blocks = remat_blocks
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs, kl = mc_forward(model, x, TRAIN_MC, emission=emission)
+    log_probs = torch.log_softmax(outs.float(), dim=-1)
+    nll = -log_probs.mean(dim=0).gather(1, y.long()[:, None]).mean()
+    loss = nll + kl / BATCH
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var",
+                            "num_batches_tracked"))}
+    return loss.detach(), grads, stats, peak
+
+
+def remat_gates(model, emission, x, y):
+    """(a) The remat steps against the step without remat, from one state
+    and one generator state: loss, every gradient and the running
+    statistics within 2^-6 of each tensor's largest value (bf16; cuDNN's
+    backward may add in another order), ``num_batches_tracked`` exact, and
+    the peak memory of each mode. Returns {mode: peak GiB}."""
+    import torch
+
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    gen_state = model.conv1.generator.get_state()
+    runs = {mode: remat_step(model, mode, emission, state, gen_state, x, y)
+            for mode in REMAT_MODES}
+    model.load_state_dict(state)
+    model.remat_blocks = False
+    want = runs[False]
+    worst = {}
+    for mode in REMAT_MODES[1:]:
+        got = runs[mode]
+        loss_diff = abs(float(got[0]) - float(want[0]))
+        check(loss_diff <= 2**-6 * abs(float(want[0])),
+              f"remat {mode!r} {emission}: loss {float(got[0])} against "
+              f"{float(want[0])}")
+        ratio = 0.0
+        for part, name in ((1, "gradient"), (2, "running statistic")):
+            for k, w in want[part].items():
+                if k.endswith("num_batches_tracked"):
+                    check(torch.equal(got[part][k], w), f"remat {mode!r} "
+                          f"{emission}: {k} {got[part][k]} against {w}")
+                    continue
+                diff, scale = max_err(got[part][k], w), \
+                    w.float().abs().max().item()
+                check(diff <= 2**-6 * scale, f"remat {mode!r} {emission}: "
+                      f"{name} {k} off by {diff:.3e} (max {scale:.3e})")
+                ratio = max(ratio, diff / max(scale, 1e-30))
+        worst[mode] = (loss_diff, ratio)
+    peaks = {mode: runs[mode][3] for mode in REMAT_MODES}
+    log(f"[remat] {emission}: MC-{TRAIN_MC} bs{BATCH} {IMAGE}^2 bf16 from "
+        f"one state and generator: loss {float(want[0]):.5f}; against no "
+        f"remat, |loss diff| and worst max|diff| / max|tensor| over the "
+        f"{len(want[1])} gradients and the running statistics: "
+        + ", ".join(f"{m!r} {d:.3e}, {r:.3e}" for m, (d, r) in worst.items())
+        + f" (limit 2^-6 = {2**-6:.3e}); peak memory of the step: "
+        + ", ".join(f"{m!r} {p:.2f} GiB" for m, p in peaks.items())
+        + f"; {card()}")
+    for mode in REMAT_MODES[1:]:
+        check(peaks[mode] < peaks[False], f"remat {mode!r} {emission}: peak "
+              f"{peaks[mode]:.2f} GiB, not below {peaks[False]:.2f} GiB")
+    return peaks
+
+
+def remat_timed(model, emission):
+    """Three timed MC-4 bs128 steps (``make_train_step``, SGD) after a
+    warm-up for each remat mode, launches gated per step
+    (``expected_remat_launches``). Returns ({mode: median ms},
+    {mode: launches of its three steps})."""
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+
+    vmap = emission == "vmap"
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    step = make_train_step(TRAIN_MC, BATCH, emission=emission)
+    ms, launches = {}, {}
+    for mode in REMAT_MODES:
+        model.remat_blocks = mode
+        step(model, opt, images(SEED + 700), labels(SEED + 700))
+        torch.cuda.synchronize()
+        want = (expected_remat_launches(model, TRAIN_MC, vmap) if mode
+                else expected_vmap_launches(model, training=True) if vmap
+                else expected_step_launches(model, TRAIN_MC))
+        reset_counts()
+        times = []
+        for i in range(3):
+            before = counts()
+            t0 = time.perf_counter()
+            loss, _, _ = step(model, opt, images(SEED + 701 + i),
+                              labels(SEED + 701 + i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            got = {k: v - before[k] for k, v in counts().items()}
+            check(math.isfinite(float(loss)), f"remat {mode!r} {emission} "
+                  f"step {i}: loss {float(loss)}")
+            check(got == want, f"remat {mode!r} {emission} step {i}: "
+                  f"launches {nonzero(got)}, want {nonzero(want)}")
+        check_grads(model, f"remat {mode!r} {emission}")
+        ms[mode] = statistics.median(times)
+        launches[mode] = counts()
+        log(f"[remat] {emission}, remat_blocks={mode!r}: steps "
+            f"{', '.join(f'{t:.1f}' for t in times)} ms, median "
+            f"{ms[mode]:.1f} ms/step, {BATCH / ms[mode] * 1e3:.1f} images/s;"
+            f" launches per step {nonzero(want)}")
+    model.remat_blocks = False
+    return ms, launches
+
+
+def remat_profile(model):
+    """(f) One vmap remat step under ``utils.profiling.trace``, and
+    ``summarize_trace``'s table of its device rows."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+    from bayesian_torch_tpu_torch.utils.profiling import (summarize_trace,
+                                                          trace)
+
+    model.remat_blocks = True
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    step = make_train_step(TRAIN_MC, BATCH, emission="vmap")
+    logdir = tempfile.mkdtemp(prefix="remat_trace_")
+    try:
+        with trace(logdir):
+            step(model, opt, images(SEED + 710), labels(SEED + 710))
+            torch.cuda.synchronize()
+        rows = summarize_trace(logdir, top=12)
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+        model.remat_blocks = False
+    check(rows, "summarize_trace found no device rows in the remat step")
+    total = sum(ms for _, ms in rows)
+    log(f"[remat profile] one vmap MC-{TRAIN_MC} bs{BATCH} remat_blocks=True"
+        f" step under utils.profiling.trace, summarize_trace's top "
+        f"{len(rows)} device rows ({total:.1f} ms together), {card()}:\n"
+        + "\n".join(f"  {ms:10.3f} ms  {name[:90]}" for name, ms in rows))
+    return rows
+
+
+def structured_check(model):
+    """(b) ``structured=True`` at MC-10 bs128 (eval, bf16) equals the vmap
+    emission exactly with the generator rewound; both timed once."""
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    x = images(SEED + 720)
+    out, ms = {}, {}
+    for name, kw in (("vmap", dict(emission="vmap")),
+                     ("structured", dict(structured=True))):
+        same_seeds(model, lambda: mc_forward(model, x, NUM_MC,
+                                             return_kl=False, **kw))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = same_seeds(model, lambda: mc_forward(
+            model, x, NUM_MC, return_kl=False, **kw))
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    check(tuple(out["structured"].shape) == (NUM_MC, BATCH, 1000)
+          and bool(torch.isfinite(out["structured"]).all()),
+          "structured: output")
+    check(torch.equal(out["structured"], out["vmap"]),
+          "structured=True differs from emission='vmap' on the same seeds")
+    log(f"[structured] MC-{NUM_MC} bs{BATCH} bf16 eval: structured=True "
+        f"equals emission='vmap' exactly on the same seeds; one batch each "
+        f"{ms['structured']:.1f} / {ms['vmap']:.1f} ms; {card()}")
+    return ms
+
+
+def int8_draw_axis(what, model, per_draw):
+    """(c) An INT8 qresnet50's MC-10 bs128 batch through the loop and under
+    the draw axis on the same presample record (the generator rewound):
+    lane for lane equal, ``per_draw`` x 10 K-F launches each way; one
+    warm-up and one timed batch each. Returns the times and launches."""
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    x = images(SEED + 730)
+    res, outs = {}, {}
+    for emission in ("scan", "vmap"):
+        def run():
+            return same_seeds(model, lambda: mc_forward(
+                model, x, NUM_MC, presample="on", return_kl=False,
+                emission=emission))
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        outs[emission] = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        kf_launches = counts()["K-F"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        res[emission] = dict(ms=ms, launches=kf_launches, peak_gib=peak)
+        check(kf_launches == per_draw * NUM_MC, f"{what} {emission}: K-F "
+              f"launched {kf_launches} times, want {per_draw * NUM_MC}")
+        log(f"[{what}] {emission}: {ms:.1f} ms for one MC-{NUM_MC} "
+            f"bs{BATCH} batch, K-F {kf_launches}, peak {peak:.2f} GiB")
+    a, b = outs["vmap"], outs["scan"]
+    check(tuple(a.shape) == (NUM_MC, BATCH, 1000)
+          and bool(torch.isfinite(a).all()), f"{what}: draw-axis output")
+    check(torch.equal(a, b), f"{what}: the draw axis differs from the loop "
+          f"(max |diff| {max_err(a, b):.3e})")
+    log(f"[{what}] draw axis lane for lane equal to the loop on the same "
+        f"record ({NUM_MC} lanes, bit for bit); {card()}")
+    return res
+
+
+def quantized_lstm_interleaved():
+    """(d) The quantized LSTM regressor (``bnn_to_qbnn``) at config #4:
+    MODES_LSTM_TIMED MC-20 bs128 batches through the loop and under the
+    draw axis, interleaved, K-F (the head) 20 a batch each way; one
+    profiled batch of each for busy time and idle share."""
+    import torch
+
+    from bayesian_torch_tpu_torch.models.bnn_to_qbnn import bnn_to_qbnn
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    model = lstm_model("Reparameterization", SEED + 740).eval()
+    bnn_to_qbnn(model)
+    x, _ = lstm_windows(SEED + 741)
+
+    def run(emission):
+        return mc_forward(model, x, LSTM_MC, emission=emission,
+                          return_kl=False)
+
+    times = {"scan": [], "vmap": []}
+    for emission in times:
+        run(emission)
+    torch.cuda.synchronize()
+    for i in range(MODES_LSTM_TIMED):
+        for emission in times:
+            reset_counts()
+            t0 = time.perf_counter()
+            out = run(emission)
+            torch.cuda.synchronize()
+            times[emission].append((time.perf_counter() - t0) * 1e3)
+            check(tuple(out.shape) == (LSTM_MC, LSTM_BATCH, LSTM_SEQ, 2)
+                  and bool(torch.isfinite(out).all()),
+                  f"quantized lstm {emission}: output")
+            check(counts()["K-F"] == LSTM_MC, f"quantized lstm {emission} "
+                  f"batch {i}: K-F {counts()['K-F']}, want {LSTM_MC}")
+    res = {}
+    for emission, t in times.items():
+        ms = statistics.median(t)
+        prof = profile_window(f"quantized lstm {emission}: one MC-{LSTM_MC} "
+                              f"bs{LSTM_BATCH} batch",
+                              lambda: run(emission), rows=6)
+        res[emission] = dict(ms=ms, ms_min=min(t), ms_max=max(t),
+                             busy_ms=prof["busy"],
+                             idle=max(0.0, 1 - prof["busy"] / ms))
+        log(f"[quantized lstm] {emission}, {card()}: batches "
+            f"{', '.join(f'{v:.1f}' for v in t)} ms, median {ms:.2f} "
+            f"(min {min(t):.2f}, max {max(t):.2f}); busy "
+            f"{prof['busy']:.2f} ms, idle {res[emission]['idle']:.3f} of "
+            f"the median; K-F {LSTM_MC} a batch")
+    log(f"[quantized lstm] the loop takes "
+        f"{res['scan']['ms'] / res['vmap']['ms']:.2f}x the draw axis's wall "
+        f"time (medians of {MODES_LSTM_TIMED} interleaved batches)")
+    return res
+
+
+def modes_trainer():
+    """(e) ``main_bayesian_imagenet --remat --structured-mc --synthetic
+    --batch-size=32 --epochs=1``: every step K-A 107 (55 draws and the
+    blocks' 52 again) and K-C drho 55, its MC-10 evaluation through the
+    draw axis (54 K-A a batch); the accuracy in [0, 1]."""
+    import io
+    import tempfile
+
+    from bayesian_torch_tpu_torch.examples import main_bayesian_imagenet
+    from bayesian_torch_tpu_torch.models.bayesian.resnet_variational_large \
+        import resnet50
+
+    probe = resnet50(device="meta")
+    per_step = expected_remat_launches(probe, 1, vmap=False)
+    per_eval = expected_vmap_launches(probe, training=False)["K-A"]
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            metrics = main_bayesian_imagenet.main([
+                "--remat", "--structured-mc", "--synthetic",
+                f"--batch-size={TRAINER_BATCH}", "--epochs=1",
+                f"--save_dir={tmp}"])
+        seconds = time.perf_counter() - t0
+        got = counts()
+    steps = got["K-C drho"] // per_step["K-C drho"]
+    evals = (got["K-A"] - steps * per_step["K-A"]) // max(per_eval, 1)
+    check(steps > 0 and got["K-C drho"] == steps * per_step["K-C drho"],
+          f"trainer --remat: K-C drho {got['K-C drho']}")
+    check(evals > 0 and got["K-A"] == steps * per_step["K-A"]
+          + evals * per_eval, f"trainer --remat: K-A {got['K-A']} for "
+          f"{steps} steps and {evals} evaluation batches")
+    check(0.0 <= metrics["accuracy"] <= 1.0, f"trainer: {metrics}")
+    log(f"[modes trainer] --remat --structured-mc --epochs=1 "
+        f"--batch-size={TRAINER_BATCH}: {seconds:.1f} s, {steps} steps "
+        f"(K-A {per_step['K-A']} and K-C drho {per_step['K-C drho']} each), "
+        f"{evals} structured MC-10 evaluation batch(es) ({per_eval} K-A "
+        f"each), accuracy {metrics['accuracy']:.4f}; last lines: "
+        + " | ".join(out.getvalue().strip().splitlines()[-2:]))
+    return nonzero(got)
+
+
+def phase_modes():
+    """Phase 42: block remat with replayed draws, structured=True, INT8
+    models under the draw axis, the trainer's --remat and --structured-mc
+    and utils.profiling, each part's seconds logged. Returns ({kernel:
+    {path: launches}} for K-A, K-C dsigma, K-C drho and K-F, results)."""
+    import torch
+
+    from bayesian_torch_tpu_torch.models.bayesian.resnet_variational_large \
+        import resnet50
+
+    seconds, paths, res = {}, {}, {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    model = timed("build", lambda: resnet50(
+        num_classes=1000, generator=torch.Generator().manual_seed(SEED + 750),
+        device="cuda"))
+    for mod in model.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.bfloat16
+    model.fc.impl = "pallas"
+    inner = sorted({layer.mu_kernel.numel() for stage in (
+        model.layer1, model.layer2, model.layer3, model.layer4)
+        for layer in stage.modules() if hasattr(layer, "mu_kernel")})
+    timed("K-A, K-C sweep", layer_sweep, inner,
+          "the blocks' draw buffers, which the remat steps draw again")
+    model.train()
+    x, y = images(SEED + 760), labels(SEED + 760)
+    for emission in ("vmap", "scan"):
+        res[f"remat {emission} peak GiB"] = timed(
+            f"remat gates {emission}", remat_gates, model, emission, x, y)
+        ms, launches = timed(f"remat steps {emission}", remat_timed, model,
+                             emission)
+        res[f"remat {emission} ms"] = ms
+        for mode, got in launches.items():
+            paths[f"remat_blocks={mode!r} {emission} MC-{TRAIN_MC} bs{BATCH}"
+                  f", 3 steps"] = got
+    timed("profile", remat_profile, model)
+    set_bn_statistics(model, images(SEED + 770))
+    model.fc.impl = "xla"
+    res["structured ms"] = timed("structured", structured_check, model)
+    del model
+    torch.cuda.empty_cache()
+
+    qmodel, _ = timed("int8 build", phase_int8_build, images(SEED + 780))
+    res["int8 reparameterization"] = timed(
+        "int8 reparameterization", int8_draw_axis, "int8 draw axis", qmodel,
+        INT8_LAYERS)
+    del qmodel
+    torch.cuda.empty_cache()
+    qmodel = timed("int8 flipout build", phase_int8_flipout_build)
+    res["int8 flipout"] = timed("int8 flipout", int8_draw_axis,
+                                "int8 flipout draw axis", qmodel,
+                                2 * INT8_LAYERS)
+    del qmodel
+    torch.cuda.empty_cache()
+    for name, r in (("int8 reparameterization", res["int8 "
+                                                    "reparameterization"]),
+                    ("int8 flipout", res["int8 flipout"])):
+        for emission, v in r.items():
+            paths[f"{name} MC-{NUM_MC} bs{BATCH} {emission}, 1 batch"] = \
+                {"K-F": v["launches"]}
+    res["quantized lstm"] = timed("quantized lstm",
+                                  quantized_lstm_interleaved)
+    paths["modes trainer --remat --structured-mc"] = timed(
+        "trainer", modes_trainer)
+    torch.cuda.empty_cache()
+    log(f"[modes] seconds per part: {seconds}")
+    by_kernel = {k: {path: got.get(k, 0) for path, got in paths.items()
+                     if got.get(k, 0)}
+                 for k in ("K-A", "K-C dsigma", "K-C drho", "K-F")}
+    for k, v in by_kernel.items():
+        check(v, f"{k} never ran on phase 42's paths")
+    return by_kernel, res
+
+
 def main(argv=None):
     import argparse
 
@@ -4261,6 +4726,7 @@ def main(argv=None):
     zoo, zoo_kf = phase_zoo()
     int8_paths, flipout_int8, int8_probes = phase_int8_remainder()
     lstm_paths, lstm_res = phase_lstm()
+    modes_paths, modes_res = phase_modes()
 
     csrc = "bayesian_torch_tpu_torch/csrc/"
     pallas = "bayesian_torch_tpu/ops/pallas/"
@@ -4277,7 +4743,8 @@ def main(argv=None):
              run="main path: mc_forward(num_mc=10, reduce='mean'), "
                  "presample='auto', 3 batches",
              launches=main_path["K-A"],
-             paths=dict(zoo["K-A"], **lstm_paths["K-A"]), **ka_res),
+             paths=dict(zoo["K-A"], **lstm_paths["K-A"],
+                        **modes_paths["K-A"]), **ka_res),
         dict(name="sampled_matmul", route="cuda",
              source=csrc + "sampled_matmul.cu",
              replaces=pallas + "sampled_matmul.py:62",
@@ -4289,13 +4756,15 @@ def main(argv=None):
              replaces=pallas + "sampled_weights.py:138",
              run=vmap_train_run + "; one launch per layer and step",
              launches=vmap_train["K-C dsigma"],
-             paths=dict(zoo["K-C dsigma"], **lstm_paths["K-C dsigma"]),
+             paths=dict(zoo["K-C dsigma"], **lstm_paths["K-C dsigma"],
+                        **modes_paths["K-C dsigma"]),
              **kc_res["dsigma"]),
         dict(name="sampled_weights_bwd (drho)", route="cuda",
              source=csrc + "sampled_weights_bwd.cu",
              replaces=pallas + "sampled_weights.py:68",
              run=train_run, launches=train["K-C drho"],
-             paths=dict(zoo["K-C drho"], **lstm_paths["K-C drho"]),
+             paths=dict(zoo["K-C drho"], **lstm_paths["K-C drho"],
+                        **modes_paths["K-C drho"]),
              **kc_res["drho"]),
         dict(name="sampled_matmul_dx", route="cuda",
              source=csrc + "sampled_matmul_bwd.cu",
@@ -4324,7 +4793,7 @@ def main(argv=None):
              launches=kf_launches + flipout_int8["launches"],
              paths=dict(zoo["K-F"], **{
                  f"int8 reparameterization MC-{NUM_MC} bs{BATCH} batches":
-                 kf_launches}, **int8_paths),
+                 kf_launches}, **int8_paths, **modes_paths["K-F"]),
              cifar_resnet20_bs128=zoo_kf, int8_flipout=flipout_int8,
              grouped_probe=int8_probes["resnext"],
              transposed_probes={k: v for k, v in int8_probes.items()
@@ -4387,6 +4856,7 @@ def main(argv=None):
         f"bs{BATCH} steps: { {k: v for k, v in surgery_train.items() if v} }"
         f"; K-F launches in the bnn2qbnn pipeline: {surgery_kf}")
     log(f"[lstm] {card()}: " + json.dumps(lstm_res))
+    log(f"[modes] {card()}: " + json.dumps(modes_res, default=str))
     log(f"[time] profiler sessions of the kernel timings: "
         f"{SESSIONS['sessions']}, taken again {SESSIONS['retried']}")
     log(f"[time] every phase passed in {time.perf_counter() - t_start:.0f} s")

@@ -388,20 +388,22 @@ def test_quantized_cell_matches_jax(estimator):
 
 
 def test_quantized_lstm_runs_the_draw_loop():
-    """A converted regressor cannot take the draw axis (its LSTM's blocks
-    are quantized): ``auto`` runs the loop, ``vmap`` is refused."""
+    """A converted regressor takes the draw axis (its quantized blocks and
+    head do; test_torch_port_int8_draws.py holds it against the loop), but
+    ``auto`` runs the loop, in training mode too: a converted model has
+    nothing to train."""
     from bayesian_torch_tpu_torch.models.bnn_to_qbnn import bnn_to_qbnn
 
     model = _regressor(REPARAM)
     bnn_to_qbnn(model)
-    assert tmc._draw_axis_refusal(model)[0] == "lstm.ih"
+    assert tmc._draw_axis_refusal(model) is None
     assert tmc._resolve_emission(model, 4, training=True) == "scan"
     X = torch.from_numpy(_x(1))
     out, kl = tmc.mc_forward(model.eval(), X, 3)
     assert out.shape == (3, B, T, 2) and float(kl) == 0.0
     assert (out[0] - out[1]).abs().max() > 0
-    with pytest.raises(NotImplementedError, match="lstm.ih"):
-        tmc.mc_forward(model, X, 3, emission="vmap")
+    out, kl = tmc.mc_forward(model, X, 3, emission="vmap")
+    assert out.shape == (3, B, T, 2) and float(kl) == 0.0
 
 
 def test_prepare_and_convert_walk_into_the_lstm():

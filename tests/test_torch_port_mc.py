@@ -166,15 +166,18 @@ def test_presample_off_is_layer_sampling_and_auto_is_on(monkeypatch):
 def test_eval_only_guard_and_unported_modes():
     """Training mode is ported (a module in training mode now trains, with
     gradients and one BN update), and so is the vmap emission
-    (test_torch_port_vmap.py); the structured and mesh emissions and the
-    TPU presample variants still raise, and so does a plain torch BN that
-    would update once per draw."""
+    (test_torch_port_vmap.py), and so is the structured emission
+    (test_torch_port_modes.py); the mesh emission and the TPU presample
+    variants still raise, and so does a plain torch BN that would update
+    once per draw."""
     _, tm, _ = tiny_twins(seed=7)
     x = torch.randn(2, 3, 16, 16)
-    for kw in (dict(structured=True), dict(mesh=object()),
-               dict(presample="xla"), dict(presample="hash")):
+    for kw in (dict(mesh=object()), dict(presample="xla"),
+               dict(presample="hash")):
         with pytest.raises(NotImplementedError):
             tmc.mc_forward(tm, x, 2, **kw)
+    out = tmc.mc_forward(tm, x, 2, return_kl=False, structured=True)
+    assert out.shape == (2, 2, 10)
     for kw in (dict(emission="bogus"), dict(reduce="sum"),
                dict(presample="bogus"), dict(bn_stats="bogus")):
         with pytest.raises(ValueError):

@@ -408,7 +408,8 @@ def test_port_never_imports_jax():
                 "layers/rnn_base.py",
                 "layers/variational_layers/rnn_variational.py",
                 "layers/flipout_layers/rnn_flipout.py",
-                "examples/main_bayesian_lstm_timeseries.py"):
+                "examples/main_bayesian_lstm_timeseries.py",
+                "ops/remat.py", "utils/profiling.py"):
         assert root / new in paths, new
     paths += [root.parent / "chip_smoke.py", root.parent / "kernel_times.py"]
     modules = []

@@ -761,11 +761,12 @@ def test_mc_forward_on_a_converted_model():
     assert not any(k.endswith("_frozen_w") for k in tm.state_dict())
     again = mc_forward(tm, x, 2, return_kl=False)
     assert not torch.equal(again[0], again[1])
-    # its quantized layers cannot take the draw axis: "auto" keeps the
+    # its quantized layers take the draw axis (test_torch_port_int8_draws
+    # .py), but a converted model has nothing to train: "auto" keeps the
     # draw loop for it in training mode too
     from bayesian_torch_tpu_torch.parallel import mc as tmc
     tm.train()
-    assert tmc._draw_axis_refusal(tm) is not None
+    assert tmc._draw_axis_refusal(tm) is None
     assert tmc._resolve_emission(tm, 3, True) == "scan"
     outs, _ = mc_forward(tm, x, 3)
     assert outs.shape == (3, 2, 10) and not torch.equal(outs[0], outs[1])

@@ -328,9 +328,14 @@ def test_modules_without_a_draw_axis_raise_and_name_themselves():
                         (calibrating, "'fc' (LinearReparameterization)")):
         with pytest.raises(NotImplementedError, match=re.escape(name)):
             tmc.mc_forward(model, x, S, emission="vmap")
-    for kw in (dict(structured=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            tmc.mc_forward(tm, x, S, emission="vmap", **kw)
+    with pytest.raises(NotImplementedError, match="#15"):
+        tmc.mc_forward(tm, x, S, emission="vmap", mesh=object())
+    # structured=True names the module and falls back to the draw loop
+    with pytest.warns(RuntimeWarning, match=re.escape(
+            "module 'layer1.1.extra' (Conv2d) cannot take the draw axis")):
+        out = tmc.mc_forward(extra, x, S, return_kl=False,
+                             structured=True)
+    assert out.shape == (S, B, 10)
     # one draw is the plain forward: nothing to check
     out, _ = tmc.mc_forward(plain_bn, x, 1, emission="vmap")
     assert out.shape == (1, B, 10)
