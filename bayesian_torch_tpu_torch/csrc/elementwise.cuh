@@ -204,17 +204,29 @@ __device__ __forceinline__ void for_draws(uint32_t salt0, uint32_t step,
   }
 }
 
-// A sampler's seed as the salt of draw 0 and the step between draws:
-// btt_draw_salt(seed, s, n) == salt0 + s * step (mod 2^32).
+// A sampler's seed as the salt of draw 0, the step between draws
+// (btt_draw_salt(seed, s, n) == salt0 + s * step, mod 2^32) and the
+// counter of element 0 (ctr0).
 struct Salts {
-  uint32_t salt0, step;
+  uint32_t salt0, step, ctr0;
 };
 
 inline Salts salts(uint64_t seed, int64_t n) {
   const uint32_t lo = (uint32_t)(seed & 0xFFFFFFFFull);
   const uint32_t hi = (uint32_t)(seed >> 32);
   return Salts{btt_draw_salt(lo, hi, 0u, (uint32_t)n),
-               (uint32_t)n * BTT_GOLDEN};
+               (uint32_t)n * BTT_GOLDEN, 0u};
+}
+
+// A window of a larger launch: lane s of this launch is lane lane0 + s of
+// a launch over lane_stride elements a lane, and its element i is that
+// lane's element offset + i. A rank's block of draws [s0, s1) takes
+// lane0 = s0; a dim-0 shard r of n_r elements takes offset = r * n_r.
+inline Salts salts(uint64_t seed, int64_t lane0, int64_t lane_stride,
+                   int64_t offset) {
+  const Salts full = salts(seed, lane_stride);
+  return Salts{full.salt0 + (uint32_t)lane0 * full.step, full.step,
+               (uint32_t)offset};
 }
 
 // The vector path's alignment: n a multiple of 4 and every pointer

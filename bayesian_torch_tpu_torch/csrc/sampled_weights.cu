@@ -54,7 +54,8 @@ __global__ void __launch_bounds__(btt_ew::threads<kVec>(),
                                   kVec == 1 ? 1 : btt_ew::kWideBlocks)
     batch_sample_kernel(const U* __restrict__ mu, const U* __restrict__ sigma,
                         T* __restrict__ out, int64_t n, int num_samples,
-                        uint32_t salt0, uint32_t step, bool vector_ok) {
+                        uint32_t salt0, uint32_t step, uint32_t ctr0,
+                        bool vector_ok) {
   const int64_t i =
       ((int64_t)blockIdx.x * btt_ew::threads<kVec>() + threadIdx.x) * kVec;
   if (i >= n) return;
@@ -75,11 +76,11 @@ __global__ void __launch_bounds__(btt_ew::threads<kVec>(),
     btt_ew::store(out + s * n, i, n, full, v);
   };
   if constexpr (kS > 0) {
-    btt_ew::for_draws<kS, kVec>(salt0, step, (uint32_t)i, put);
+    btt_ew::for_draws<kS, kVec>(salt0, step, (uint32_t)i + ctr0, put);
   } else {
     for (int s = 0; s < num_samples; ++s)
       btt_ew::for_draws<1, kVec>(
-          salt0 + (uint32_t)s * step, step, (uint32_t)i,
+          salt0 + (uint32_t)s * step, step, (uint32_t)i + ctr0,
           [&](int, const float(&eps)[kVec]) { put(s, eps); });
   }
 }
@@ -91,13 +92,16 @@ void launch(const U* mu, const U* sigma, T* out, int64_t n, int S,
   const dim3 grid(blocks), block(btt_ew::threads<kVec>());
   if (S == 1)
     batch_sample_kernel<T, U, 1, kVec, kRho><<<grid, block, 0, stream>>>(
-        mu, sigma, out, n, S, salts.salt0, salts.step, vector_ok);
+        mu, sigma, out, n, S, salts.salt0, salts.step, salts.ctr0,
+        vector_ok);
   else if (S == 4)
     batch_sample_kernel<T, U, 4, kVec, kRho><<<grid, block, 0, stream>>>(
-        mu, sigma, out, n, S, salts.salt0, salts.step, vector_ok);
+        mu, sigma, out, n, S, salts.salt0, salts.step, salts.ctr0,
+        vector_ok);
   else
     batch_sample_kernel<T, U, 0, kVec, kRho><<<grid, block, 0, stream>>>(
-        mu, sigma, out, n, S, salts.salt0, salts.step, vector_ok);
+        mu, sigma, out, n, S, salts.salt0, salts.step, salts.ctr0,
+        vector_ok);
 }
 
 template <typename T, typename U>
@@ -124,14 +128,18 @@ extern "C" {
 // mu and sigma: (n,), float32 when in_bf16 == 0, bfloat16 otherwise (read
 // as float32). out: (num_samples, n), float32 when out_bf16 == 0, bfloat16
 // otherwise. With rho_mode != 0, `sigma` holds rho and sigma =
-// softplus(rho) is taken in the kernel. The launch shape comes from n and
-// the current device (btt_ew::launch_shape). Returns the launch's
-// cudaGetLastError(), or the error that kept it from launching.
+// softplus(rho) is taken in the kernel. Lane s, element i is lane lane0 +
+// s, element offset + i of a launch over lane_stride elements a lane
+// (btt_ew::salts): lane0 = offset = 0 and lane_stride = n is the whole
+// launch, others a window of a larger one. The launch shape comes from n and the current device
+// (btt_ew::launch_shape). Returns the launch's cudaGetLastError(), or the
+// error that kept it from launching.
 int btt_sample_scaled_normals_batch(const void* mu, const void* sigma,
                                     int in_bf16, void* out, int64_t n,
                                     int num_samples, uint64_t seed,
                                     int out_bf16, int rho_mode,
-                                    cudaStream_t stream) {
+                                    int64_t lane0, int64_t lane_stride,
+                                    int64_t offset, cudaStream_t stream) {
   if (n <= 0 || num_samples <= 0) return (int)cudaSuccess;
   btt_ew::Shape shape;
   const cudaError_t e = btt_ew::launch_shape(n, &shape);
@@ -140,7 +148,8 @@ int btt_sample_scaled_normals_batch(const void* mu, const void* sigma,
   const bool vector_ok = btt_ew::aligned4(n, mu, in_align) &&
                          btt_ew::aligned4(n, sigma, in_align) &&
                          btt_ew::aligned4(n, out, out_bf16 ? 8 : 16);
-  const btt_ew::Salts salts = btt_ew::salts(seed, n);
+  const btt_ew::Salts salts =
+      btt_ew::salts(seed, lane0, lane_stride, offset);
   const bool rho = rho_mode != 0;
   if (out_bf16 && in_bf16)
     launch<__nv_bfloat16, __nv_bfloat16>(mu, sigma, out, n, num_samples,

@@ -54,7 +54,8 @@ __global__ void __launch_bounds__(btt_ew::threads<kVec>(),
                                   kVec == 1 ? 1 : btt_ew::kWideBlocks)
     noise_grad_kernel(const T* __restrict__ g, const U* __restrict__ rho,
                       float* __restrict__ out, int64_t n, int num_samples,
-                      uint32_t salt0, uint32_t step, bool vector_ok) {
+                      uint32_t salt0, uint32_t step, uint32_t ctr0,
+                      bool vector_ok) {
   constexpr int kRows = kS > 0 ? kS : 1;  // rows of g loaded at a time
   const int64_t i =
       ((int64_t)blockIdx.x * btt_ew::threads<kVec>() + threadIdx.x) * kVec;
@@ -69,7 +70,7 @@ __global__ void __launch_bounds__(btt_ew::threads<kVec>(),
   float acc[kVec];
   if constexpr (kS > 0) {
     btt_ew::for_draws<kS, kVec>(
-        salt0, step, (uint32_t)i, [&](int s, const float(&eps)[kVec]) {
+        salt0, step, (uint32_t)i + ctr0, [&](int s, const float(&eps)[kVec]) {
 #pragma unroll
           for (int j = 0; j < kVec; ++j) {
             const float d = __fmul_rn(gv[s].at(j), eps[j]);
@@ -80,7 +81,7 @@ __global__ void __launch_bounds__(btt_ew::threads<kVec>(),
     for (int s = 0; s < num_samples; ++s) {
       if (s > 0) gv[0].load(g + s * n, i, n, full);
       btt_ew::for_draws<1, kVec>(
-          salt0 + (uint32_t)s * step, step, (uint32_t)i,
+          salt0 + (uint32_t)s * step, step, (uint32_t)i + ctr0,
           [&](int, const float(&eps)[kVec]) {
 #pragma unroll
             for (int j = 0; j < kVec; ++j) {
@@ -104,13 +105,16 @@ void launch(const T* g, const U* rho, float* out, int64_t n, int S,
   const dim3 grid(blocks), block(btt_ew::threads<kVec>());
   if (S == 1)
     noise_grad_kernel<T, U, 1, kVec, kRho><<<grid, block, 0, stream>>>(
-        g, rho, out, n, S, salts.salt0, salts.step, vector_ok);
+        g, rho, out, n, S, salts.salt0, salts.step, salts.ctr0,
+        vector_ok);
   else if (S == 4)
     noise_grad_kernel<T, U, 4, kVec, kRho><<<grid, block, 0, stream>>>(
-        g, rho, out, n, S, salts.salt0, salts.step, vector_ok);
+        g, rho, out, n, S, salts.salt0, salts.step, salts.ctr0,
+        vector_ok);
   else
     noise_grad_kernel<T, U, 0, kVec, kRho><<<grid, block, 0, stream>>>(
-        g, rho, out, n, S, salts.salt0, salts.step, vector_ok);
+        g, rho, out, n, S, salts.salt0, salts.step, salts.ctr0,
+        vector_ok);
 }
 
 template <typename T, typename U, bool kRho>
@@ -149,14 +153,15 @@ extern "C" {
 // g: (num_samples, n), float32 when g_bf16 == 0, bfloat16 otherwise.
 // rho: (n,) for rho mode, float32 when rho_bf16 == 0, bfloat16 otherwise
 // (read as float32), or NULL for dsigma mode. out: (n,) float32. eps of
-// draw s at element i is the hash at counter i under btt_draw_salt(seed,
-// s, n), as K-A drew it. The launch shape comes from n and the current
-// device (btt_ew::launch_shape). Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for num_samples < 1, or the error that kept the
-// kernel from launching.
+// draw s at element i is what K-A drew there under the same window
+// (lane0, lane_stride, offset; 0, n, 0 for a whole launch). The launch
+// shape comes from n and the current device (btt_ew::launch_shape).
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for num_samples <
+// 1, or the error that kept the kernel from launching.
 int btt_sampled_weights_bwd(const void* g, int g_bf16, const void* rho,
                             int rho_bf16, float* out, int64_t n,
-                            int num_samples, uint64_t seed,
+                            int num_samples, uint64_t seed, int64_t lane0,
+                            int64_t lane_stride, int64_t offset,
                             cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (num_samples < 1) return (int)cudaErrorInvalidValue;
@@ -167,7 +172,8 @@ int btt_sampled_weights_bwd(const void* g, int g_bf16, const void* rho,
       btt_ew::aligned4(n, g, g_bf16 ? 8 : 16) &&
       btt_ew::aligned4(n, out, 16) &&
       (rho == nullptr || btt_ew::aligned4(n, rho, rho_bf16 ? 8 : 16));
-  const btt_ew::Salts salts = btt_ew::salts(seed, n);
+  const btt_ew::Salts salts =
+      btt_ew::salts(seed, lane0, lane_stride, offset);
   if (g_bf16)
     launch<__nv_bfloat16>(g, rho, rho_bf16, out, n, num_samples, salts,
                           vector_ok, shape, stream);

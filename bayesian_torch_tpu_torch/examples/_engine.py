@@ -5,14 +5,26 @@ One ELBO train step over ``mc_forward`` (by default the vmap emission,
 as ``emission="auto"`` resolves in training mode; the draw loop with
 ``emission="scan"``), one MC-predictive eval step,
 AverageMeter-style reporting, and ``torch.save`` training
-checkpoints. Batches come from the numpy iterator ``_data.batches`` and
-go to the model's device; ``optax.sgd(lr, m)`` becomes
+checkpoints. ``train`` and ``evaluate`` take their batches from the
+native loader ``data.DataLoader`` (seed 0, epoch seed = the epoch), as
+the JAX engine does, so a trainer of the port sees the JAX trainer's
+batches in the JAX trainer's order (ROADMAP F7); ``train_dnn2bnn`` and
+``calibrate`` take ``_data.batches``, as the JAX dnn2bnn trainers do.
+Batches go to the model's device; ``optax.sgd(lr, m)`` becomes
 ``torch.optim.SGD(lr, momentum=m)``, ``optax.adam`` ``torch.optim.Adam``
 and ``optax.adadelta`` ``torch.optim.Adadelta``. An optax learning-rate
 schedule is a function of the optimizer's step count: its twins here
 (``piecewise_constant_schedule``, ``cosine_decay_schedule``) are functions
 of the same count, and ``step_scheduler`` turns one into a ``LambdaLR``
 that ``train`` steps once per optimizer step.
+
+With ``mesh`` (``parallel.make_mesh``; the trainers' ``--mesh-mc``, run
+under ``torchrun``: ``mesh_for``) every rank takes its block of each batch
+(``parallel.shard_batch``), ``mc_forward(mesh=)`` returns the whole
+outputs on every rank, ``make_train_step`` sums the ranks' gradients
+(``parallel.reduce_gradients``) before the optimizer step, so every rank
+takes the single-process step, and only the mesh's first rank prints,
+logs and writes files (``is_writer``).
 """
 
 from __future__ import annotations
@@ -26,8 +38,11 @@ import time
 import numpy as np
 import torch
 
+from bayesian_torch_tpu_torch.data import DataLoader
 from bayesian_torch_tpu_torch.examples._data import batches
-from bayesian_torch_tpu_torch.parallel import mc_forward
+from bayesian_torch_tpu_torch.parallel import (make_mesh, mc_forward,
+                                               reduce_gradients, replicate,
+                                               shard_batch)
 from bayesian_torch_tpu_torch.utils.util import (mutual_information,
                                                  predictive_entropy)
 
@@ -58,23 +73,49 @@ class AverageMeter:
         return f"{self.name} {self.val:.4f} ({self.avg:.4f})"
 
 
-UNPORTED = {
-    "mesh_mc": "MC draws sharded over devices come with ROADMAP Queue 1 "
-               "#15 (multi-device)",
-}
+def mesh_for(args):
+    """The trainers' ``--mesh-mc``: join the ``torchrun`` world
+    (``parallel.initialize``; one process without it) and lay
+    ``make_mesh(mc=args.mesh_mc)`` over its ranks, the rest of them on
+    'data', as the JAX trainers do. None for one process at ``--mesh-mc``
+    1. Under a mesh ``--device cuda`` means this rank's card
+    (``rank_device``), and the trainer makes its model the first rank's
+    (``place``)."""
+    import torch.distributed as dist
+
+    from bayesian_torch_tpu_torch.parallel import initialize
+
+    initialize()
+    if args.mesh_mc <= 1 and not (dist.is_initialized()
+                                  and dist.get_world_size() > 1):
+        return None
+    mesh = make_mesh(mc=args.mesh_mc)
+    if mesh.is_first:
+        print(f"mesh: {mesh.shape}")
+    return mesh
 
 
-def refuse_unported(args):
-    """Raise ``NotImplementedError``, naming its ROADMAP item, for a
-    trainer flag of ``UNPORTED`` that is set (``--mesh-mc`` above 1);
-    flags a trainer does not have are skipped."""
-    for flag, why in UNPORTED.items():
-        value = getattr(args, flag, None)
-        if flag == "mesh_mc":
-            value = value is not None and value > 1
-        if value:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported: {why}")
+def place(model, mesh):
+    """Make every rank's model the mesh's first rank's: parameters,
+    buffers and the layers' generators (``parallel.replicate``)."""
+    if mesh is not None:
+        replicate(model, mesh)
+    return model
+
+
+def rank_device(device, mesh):
+    """The device a trainer's model takes: ``device``, or under a mesh
+    this rank's card when ``device`` names a card."""
+    device = torch.device(device)
+    if mesh is not None and device.type == "cuda":
+        return mesh.device
+    return device
+
+
+def is_writer(mesh):
+    """Whether this process prints, logs and writes files: the one
+    process, or the mesh's first rank."""
+    return mesh is None or mesh.is_first
 
 
 def _device(model):
@@ -90,6 +131,10 @@ def make_train_step(num_mc: int, batch_size: int, mesh=None,
 
     ``train_step(model, optimizer, x, y)`` returns (loss, nll, kl) as
     detached tensors; the gradients stay in the parameters' ``.grad``.
+    With ``mesh``, ``x`` is this rank's block of the batch
+    (``shard_batch``) and ``y`` the whole batch's labels; the ranks'
+    gradients are summed (``reduce_gradients``) before the step, which is
+    then the single-process step on every rank.
     BatchNorm running statistics update inside ``mc_forward`` (one EMA
     update per step for ``num_mc > 1``). ``presample`` and ``emission``
     are passed to ``mc_forward`` ("auto" draws inside the layers in
@@ -106,6 +151,8 @@ def make_train_step(num_mc: int, batch_size: int, mesh=None,
         nll = -mean_out.gather(1, y.long()[:, None]).mean()
         loss = nll + kl / batch_size
         loss.backward()
+        if mesh is not None:
+            reduce_gradients(model, mesh)
         optimizer.step()
         return loss.detach(), nll.detach(), kl.detach()
 
@@ -190,7 +237,10 @@ def train(model, optimizer, data, *, epochs, batch_size, num_mc=1,
     ``resume=True`` restores it and continues from the next epoch.
     ``eval_fn(model, epoch) -> acc`` optionally tracks best_acc.
     ``scheduler`` (``step_scheduler``) is stepped after every optimizer
-    step.
+    step. Batches come from ``DataLoader(x, y, batch_size=batch_size)``,
+    epoch e from ``loader.epoch(e)``, the JAX engine's order. With
+    ``mesh`` only its first rank prints and writes the checkpoint; every
+    rank resumes from it.
     """
     from bayesian_torch_tpu_torch.utils.checkpoint import (
         load_training_checkpoint,
@@ -200,6 +250,7 @@ def train(model, optimizer, data, *, epochs, batch_size, num_mc=1,
     x_all, y_all = data
     device = _device(model)
     step_fn = make_train_step(num_mc, batch_size, mesh)
+    say = print if is_writer(mesh) else (lambda *a, **k: None)
     start_epoch, best_acc = 0, 0.0
     last_path = (os.path.join(checkpoint_dir, "last.pt")
                  if checkpoint_dir else None)
@@ -207,28 +258,29 @@ def train(model, optimizer, data, *, epochs, batch_size, num_mc=1,
         meta = load_training_checkpoint(last_path, model, optimizer,
                                         scheduler=scheduler)
         start_epoch, best_acc = meta["epoch"], meta["best_acc"]
-        print(f"resumed from '{last_path}': epoch {start_epoch}, "
-              f"best_acc {best_acc:.4f}")
+        say(f"resumed from '{last_path}': epoch {start_epoch}, "
+            f"best_acc {best_acc:.4f}")
+    loader = DataLoader(x_all, y_all, batch_size=batch_size)
     history = []
     for epoch in range(start_epoch, epochs):
         losses = AverageMeter("loss")
         t0 = time.time()
         seen = 0
-        for i, (xb, yb) in enumerate(batches(x_all, y_all, batch_size,
-                                             seed=epoch)):
-            xb = torch.from_numpy(xb).to(device)
+        for i, (xb, yb) in enumerate(loader.epoch(epoch)):
+            xb = (torch.from_numpy(xb).to(device) if mesh is None
+                  else shard_batch(xb, mesh))
             yb = torch.from_numpy(yb).to(device)
             loss, nll, kl = step_fn(model, optimizer, xb, yb)
             if scheduler is not None:
                 scheduler.step()
-            seen += xb.shape[0]
+            seen += yb.shape[0]
             if i % log_every == 0:
                 loss_f = float(loss)
-                losses.update(loss_f, xb.shape[0])
-                print(f"epoch {epoch} step {i}: loss {loss_f:.4f} "
-                      f"nll {float(nll):.4f} kl {float(kl):.4f}")
+                losses.update(loss_f, yb.shape[0])
+                say(f"epoch {epoch} step {i}: loss {loss_f:.4f} "
+                    f"nll {float(nll):.4f} kl {float(kl):.4f}")
         dt = time.time() - t0
-        print(f"epoch {epoch}: {losses} | {seen / dt:.1f} imgs/s")
+        say(f"epoch {epoch}: {losses} | {seen / dt:.1f} imgs/s")
         if writer is not None:
             writer.add_scalar("train/elbo_loss", losses.avg, epoch)
             writer.add_scalar("train/imgs_per_sec", seen / dt, epoch)
@@ -236,7 +288,7 @@ def train(model, optimizer, data, *, epochs, batch_size, num_mc=1,
                         "imgs_per_sec": seen / dt})
         if eval_fn is not None:
             best_acc = max(best_acc, float(eval_fn(model, epoch)))
-        if last_path:
+        if last_path and is_writer(mesh):
             save_training_checkpoint(last_path, model, optimizer,
                                      epoch=epoch + 1, best_acc=best_acc,
                                      scheduler=scheduler)
@@ -299,9 +351,14 @@ def evaluate(model, data, *, batch_size, num_monte_carlo=20,
     """MC-predictive evaluation: accuracy and the uncertainty metrics,
     optionally a .npy dump of the MC probability stack.
 
-    Batches drop the last partial one, as the JAX engine's loader does,
+    Batches come from ``DataLoader(x, y, batch_size=batch_size,
+    shuffle=False)``, as in the JAX engine, and drop the last partial one,
     so fewer examples than ``batch_size`` leave nothing to evaluate: that
-    raises ``ValueError``, as it does in the JAX engine.
+    raises ``ValueError``, as it does in the JAX engine. With ``mesh``
+    every rank feeds its block of each batch and gets the whole MC stack
+    back; each counts the correct predictions of its block's rows, the
+    counts are summed over the mesh's 'data' axis, and only the first rank
+    prints and writes.
     """
     x_all, y_all = data
     if len(x_all) < batch_size:
@@ -316,18 +373,33 @@ def evaluate(model, data, *, batch_size, num_monte_carlo=20,
     all_probs = []
     all_labels = []
     t0 = time.time()
-    for xb, yb in batches(x_all, y_all, batch_size, shuffle=False):
-        probs = eval_fn(model, torch.from_numpy(xb).to(device))
+    loader = DataLoader(x_all, y_all, batch_size=batch_size, shuffle=False)
+    for xb, yb in loader.epoch(0):
+        probs = eval_fn(model, torch.from_numpy(xb).to(device)
+                        if mesh is None else shard_batch(xb, mesh))
         probs = probs.cpu().numpy()  # (MC, B, C)
-        correct += int((probs.mean(axis=0).argmax(1) == yb).sum())
+        hits = probs.mean(axis=0).argmax(1) == yb
+        if mesh is not None:  # this rank's block of the rows
+            rows = len(yb) // mesh.shape["data"]
+            hits = hits[mesh.coord("data") * rows:][:rows]
+        correct += int(hits.sum())
         total += xb.shape[0]
         all_probs.append(probs)
         all_labels.append(yb)
+    if mesh is not None:
+        from bayesian_torch_tpu_torch.parallel._comm import all_reduce_
+        correct = int(all_reduce_(torch.tensor([correct]),
+                                  mesh.group("data")))
     dt = time.time() - t0
     probs = np.concatenate(all_probs, axis=1)
     acc = correct / max(total, 1)
     pe = predictive_entropy(probs)
     mi = mutual_information(probs)
+    metrics = {"accuracy": acc, "predictive_entropy": float(pe.mean()),
+               "mutual_information": float(mi.mean()),
+               "imgs_per_sec": total / dt}
+    if not is_writer(mesh):
+        return metrics
     print(f"test: accuracy {acc * 100:.2f}% | {total / dt:.1f} imgs/s | "
           f"predictive entropy {pe.mean():.4f} | "
           f"mutual information {mi.mean():.4f}")
@@ -339,9 +411,7 @@ def evaluate(model, data, *, batch_size, num_monte_carlo=20,
         os.makedirs(os.path.dirname(save_probs_to) or ".", exist_ok=True)
         np.save(save_probs_to, probs)
         print(f"saved MC probabilities to {save_probs_to}")
-    return {"accuracy": acc, "predictive_entropy": float(pe.mean()),
-            "mutual_information": float(mi.mean()),
-            "imgs_per_sec": total / dt}
+    return metrics
 
 
 def save_metrics(metrics, path):

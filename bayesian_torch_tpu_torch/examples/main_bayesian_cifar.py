@@ -24,8 +24,10 @@ from a deterministic ResNet of the same depth (``utils.MOPED`` with
 ``--delta``): one built from seed ``--seed + 7``, or loaded from
 ``--moped-ckpt`` (a ``main_deterministic_cifar`` checkpoint). ``--device``
 (default ``cuda``) names where the model runs. ``--structured-mc``
-evaluates through ``mc_forward(structured=True)``; ``--mesh-mc`` above 1
-is refused (``_engine.UNPORTED``).
+evaluates through ``mc_forward(structured=True)``. Under ``torchrun
+--nproc-per-node N`` the trainer spans the N ranks: ``--mesh-mc`` of them
+carry the draws, the rest the batch (``_engine.mesh_for``), and only the
+first rank writes.
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ def build_parser(desc="Bayesian CIFAR10"):
     p.add_argument("--data-dir", type=str, default=None)
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--mesh-mc", type=int, default=1,
-                   help="values above 1 are not ported (refused)")
+                   help="mesh slots for the MC axis (rest go to data)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device the model runs on")
     return p
@@ -95,9 +97,9 @@ def get_model(arch, seed, estimator="Reparameterization", device=None):
 
 
 def run(args, estimator="Reparameterization"):
-    engine.refuse_unported(args)
+    mesh = engine.mesh_for(args)
     train_data, test_data = load_cifar10(args.data_dir, args.synthetic)
-    device = torch.device(args.device)
+    device = engine.rank_device(args.device, mesh)
     model = get_model(args.arch, args.seed, estimator, device)
     tag = "flipout" if estimator == "Flipout" else "bayesian"
     ckpt_path = os.path.join(args.save_dir, f"cifar_{tag}_{args.arch}.pt")
@@ -109,6 +111,7 @@ def run(args, estimator="Reparameterization"):
             device=device)
         MOPED(model, det, args.moped_ckpt, args.delta)
         print(f"applied MOPED init (delta={args.delta})")
+    engine.place(model, mesh)
 
     if args.mode == "test":
         load_checkpoint(model, ckpt_path)
@@ -116,7 +119,7 @@ def run(args, estimator="Reparameterization"):
         return engine.evaluate(
             model, test_data, batch_size=args.test_batch_size,
             num_monte_carlo=args.num_monte_carlo,
-            structured=args.structured_mc,
+            structured=args.structured_mc, mesh=mesh,
             save_probs_to=os.path.join(args.save_dir,
                                        f"probs_cifar_{tag}_mc.npy"))
     model.train()
@@ -125,15 +128,17 @@ def run(args, estimator="Reparameterization"):
     engine.train(model, optimizer, train_data, epochs=args.epochs,
                  batch_size=args.batch_size, num_mc=args.num_mc,
                  checkpoint_dir=args.save_dir, resume=args.resume,
-                 scheduler=engine.step_scheduler(optimizer, schedule))
+                 scheduler=engine.step_scheduler(optimizer, schedule),
+                 mesh=mesh)
     model.eval()
     metrics = engine.evaluate(model, test_data,
                               batch_size=args.test_batch_size,
                               num_monte_carlo=args.num_monte_carlo,
-                              structured=args.structured_mc)
-    save_checkpoint(model, ckpt_path)
-    engine.save_metrics(metrics, os.path.join(
-        args.save_dir, f"cifar_{tag}_metrics.json"))
+                              structured=args.structured_mc, mesh=mesh)
+    if engine.is_writer(mesh):
+        save_checkpoint(model, ckpt_path)
+        engine.save_metrics(metrics, os.path.join(
+            args.save_dir, f"cifar_{tag}_metrics.json"))
     return metrics
 
 

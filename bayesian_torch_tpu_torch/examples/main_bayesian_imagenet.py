@@ -24,8 +24,12 @@ not exceed the test split (51 of the 256 synthetic images).
 ``--remat`` builds the model with ``remat_blocks=True`` (each residual
 block recomputed in the backward, its draws replayed), and
 ``--structured-mc`` evaluates through ``mc_forward(structured=True)``.
-``--mesh-mc`` above 1 is not ported yet, and refused (see
-``_engine.UNPORTED``).
+Under ``torchrun --nproc-per-node N`` the trainer spans the N ranks:
+``--mesh-mc`` of them carry the draws, the rest the batch
+(``_engine.mesh_for``); each step's gradients are summed over the ranks
+(``parallel.reduce_gradients``), so every rank takes the one-process
+step, and only the first rank prints and writes. ``--resume`` loads on
+every rank.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ import torch.nn.functional as F
 
 from bayesian_torch_tpu_torch.examples import _engine as engine
 from bayesian_torch_tpu_torch.examples._data import batches, load_imagenet_val
-from bayesian_torch_tpu_torch.parallel import mc_forward
+from bayesian_torch_tpu_torch.parallel import (mc_forward, reduce_gradients,
+                                               shard_batch)
 from bayesian_torch_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     load_training_checkpoint,
@@ -47,6 +52,7 @@ from bayesian_torch_tpu_torch.utils.checkpoint import (
     save_training_checkpoint,
 )
 from bayesian_torch_tpu_torch.utils.util import MOPED
+
 
 def build_parser(desc="Bayesian ImageNet"):
     p = argparse.ArgumentParser(description=desc)
@@ -76,7 +82,7 @@ def build_parser(desc="Bayesian ImageNet"):
     p.add_argument("--moped-ckpt", type=str, default=None)
     p.add_argument("--delta", type=float, default=0.5)
     p.add_argument("--mesh-mc", type=int, default=1,
-                   help="values above 1 are not ported (refused)")
+                   help="mesh slots for the MC axis (rest go to data)")
     p.add_argument("--remat", action="store_true",
                    help="checkpoint each residual block (remat_blocks=True):"
                         " only block inputs are kept for the backward, "
@@ -101,14 +107,15 @@ def get_model(arch, seed, num_classes, device,
 
 
 def run(args, estimator="Reparameterization"):
-    engine.refuse_unported(args)
+    mesh = engine.mesh_for(args)
+    say = print if engine.is_writer(mesh) else (lambda *a, **k: None)
     x, y = load_imagenet_val(args.data_dir, args.synthetic,
                              num_classes=args.num_classes)
     n_val = max(1, len(x) // 5)
     train_data = (x[n_val:], y[n_val:])
     test_data = (x[:n_val], y[:n_val])
 
-    device = torch.device(args.device)
+    device = engine.rank_device(args.device, mesh)
     model = get_model(args.arch, args.seed, args.num_classes, device,
                       estimator, remat=args.remat)
     tag = "flipout" if estimator == "Flipout" else "bayesian"
@@ -120,17 +127,20 @@ def run(args, estimator="Reparameterization"):
             generator=torch.Generator().manual_seed(args.seed + 7),
             device=device)
         MOPED(model, det, args.moped_ckpt, args.delta)
-        print(f"applied MOPED init (delta={args.delta})")
+        say(f"applied MOPED init (delta={args.delta})")
+    engine.place(model, mesh)
     ckpt_path = os.path.join(args.save_dir, f"imagenet_{tag}_{args.arch}.pt")
     num_mc, batch_size = args.num_mc, args.batch_size
 
     def train_step(model, optimizer, xb, yb):
         optimizer.zero_grad(set_to_none=True)
-        outs, kl = mc_forward(model, xb, num_mc)
+        outs, kl = mc_forward(model, xb, num_mc, mesh=mesh)
         logits = outs.float().mean(dim=0)
         ce = F.cross_entropy(logits, yb.long())
         loss = ce + kl / batch_size
         loss.backward()
+        if mesh is not None:
+            reduce_gradients(model, mesh)
         optimizer.step()
         return loss.detach(), ce.detach(), kl.detach()
 
@@ -143,35 +153,38 @@ def run(args, estimator="Reparameterization"):
         if args.resume and os.path.isfile(last_path):
             meta = load_training_checkpoint(last_path, model, optimizer)
             start_epoch = meta["epoch"]
-            print(f"resumed from epoch {start_epoch} "
-                  f"(best_acc {meta['best_acc']:.4f})")
+            say(f"resumed from epoch {start_epoch} "
+                f"(best_acc {meta['best_acc']:.4f})")
         for epoch in range(start_epoch, args.epochs):
             t0, seen = time.time(), 0
             for i, (xb, yb) in enumerate(batches(*train_data, batch_size,
                                                  seed=epoch)):
-                xb = torch.from_numpy(xb).to(device)
+                xb = (torch.from_numpy(xb).to(device) if mesh is None
+                      else shard_batch(xb, mesh))
                 yb = torch.from_numpy(yb).to(device)
                 loss, ce, kl = train_step(model, optimizer, xb, yb)
-                seen += xb.shape[0]
+                seen += yb.shape[0]
                 if i % 10 == 0:
-                    print(f"epoch {epoch} step {i}: loss {float(loss):.4f}"
-                          f" ce {float(ce):.4f} kl {float(kl):.4f}")
-            print(f"epoch {epoch}: {seen / (time.time() - t0):.1f} imgs/s")
-            save_training_checkpoint(last_path, model, optimizer,
-                                     epoch=epoch + 1)
+                    say(f"epoch {epoch} step {i}: loss {float(loss):.4f}"
+                        f" ce {float(ce):.4f} kl {float(kl):.4f}")
+            say(f"epoch {epoch}: {seen / (time.time() - t0):.1f} imgs/s")
+            if engine.is_writer(mesh):
+                save_training_checkpoint(last_path, model, optimizer,
+                                         epoch=epoch + 1)
         model.eval()
         metrics = engine.evaluate(model, test_data, batch_size=batch_size,
                                   num_monte_carlo=args.num_monte_carlo,
-                                  structured=args.structured_mc)
-        save_checkpoint(model, ckpt_path)
-        engine.save_metrics(metrics, os.path.join(
-            args.save_dir, f"imagenet_{tag}_metrics.json"))
+                                  structured=args.structured_mc, mesh=mesh)
+        if engine.is_writer(mesh):
+            save_checkpoint(model, ckpt_path)
+            engine.save_metrics(metrics, os.path.join(
+                args.save_dir, f"imagenet_{tag}_metrics.json"))
         return metrics
     load_checkpoint(model, ckpt_path)
     model.eval()
     return engine.evaluate(model, test_data, batch_size=batch_size,
                            num_monte_carlo=args.num_monte_carlo,
-                           structured=args.structured_mc)
+                           structured=args.structured_mc, mesh=mesh)
 
 
 def main(argv=None):

@@ -16,7 +16,9 @@ evaluation of the test split and is saved to
 evaluates it and dumps the MC probabilities to
 ``<save_dir>/probs_mnist_mc.npy``. ``--tensorboard`` logs scalars to
 ``<save_dir>/tb``. ``--device`` (default ``cuda``) names where the model
-runs. ``--mesh-mc`` above 1 is refused (ROADMAP Queue 1 #15).
+runs. Under ``torchrun --nproc-per-node N`` the trainer spans the N ranks:
+``--mesh-mc`` of them carry the draws, the rest the batch
+(``_engine.mesh_for``), and only the first rank writes.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ def build_parser():
     p.add_argument("--tensorboard", action="store_true",
                    help="log scalars to <save_dir>/tb")
     p.add_argument("--mesh-mc", type=int, default=1,
-                   help="values above 1 are not ported (refused)")
+                   help="mesh slots for the MC axis (rest go to data)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device the model runs on")
     return p
@@ -66,11 +68,12 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    engine.refuse_unported(args)
+    mesh = engine.mesh_for(args)
     train_data, test_data = load_mnist(args.data_dir, args.synthetic)
 
-    model = SCNN(generator=torch.Generator().manual_seed(args.seed),
-                 device=torch.device(args.device))
+    model = engine.place(
+        SCNN(generator=torch.Generator().manual_seed(args.seed),
+             device=engine.rank_device(args.device, mesh)), mesh)
     ckpt_path = os.path.join(args.save_dir, "mnist_bayesian_scnn.pt")
 
     if args.mode == "test":
@@ -78,25 +81,26 @@ def main(argv=None):
         model.eval()
         return engine.evaluate(
             model, test_data, batch_size=args.test_batch_size,
-            num_monte_carlo=args.num_monte_carlo,
+            num_monte_carlo=args.num_monte_carlo, mesh=mesh,
             save_probs_to=os.path.join(args.save_dir, "probs_mnist_mc.npy"))
     model.train()
     writer = (engine.make_writer(os.path.join(args.save_dir, "tb"))
-              if args.tensorboard else None)
+              if args.tensorboard and engine.is_writer(mesh) else None)
     # the reference trains with Adadelta(lr=1.0)
     optimizer = engine.make_optimizer(model, args.lr, kind="adadelta")
     engine.train(model, optimizer, train_data, epochs=args.epochs,
                  batch_size=args.batch_size, num_mc=args.num_mc,
-                 writer=writer, checkpoint_dir=args.save_dir,
+                 writer=writer, mesh=mesh, checkpoint_dir=args.save_dir,
                  resume=args.resume)
     model.eval()
     metrics = engine.evaluate(model, test_data,
                               batch_size=args.test_batch_size,
                               num_monte_carlo=args.num_monte_carlo,
-                              writer=writer, epoch=args.epochs)
-    save_checkpoint(model, ckpt_path)
-    engine.save_metrics(metrics, os.path.join(args.save_dir,
-                                              "mnist_metrics.json"))
+                              writer=writer, epoch=args.epochs, mesh=mesh)
+    if engine.is_writer(mesh):
+        save_checkpoint(model, ckpt_path)
+        engine.save_metrics(metrics, os.path.join(args.save_dir,
+                                                  "mnist_metrics.json"))
     return metrics
 
 

@@ -28,7 +28,9 @@ from bayesian_torch_tpu_torch.ops.sampling import (device_generator,
                                                    draw_seed,
                                                    rademacher_fused,
                                                    sigma_from_rho,
-                                                   sign_salts)
+                                                   sign_salts,
+                                                   window_kwargs,
+                                                   window_lanes)
 
 
 def get_kernel_size(x, n):
@@ -173,20 +175,30 @@ class BaseVariationalLayer(nn.Module):
         *mu.shape), b (S, O) or None)``. With ``zero_mean`` the draws are
         the Flipout perturbations ``sigma * eps`` (the sampler runs on a
         zero mean). Differentiable (backward: one regenerate-eps
-        launch)."""
+        launch). Under a mesh that splits the draws (``DrawWindow``) the S
+        draws are this rank's lanes of the whole launch; a tensor-parallel
+        shard (``parallel/tp.py``) draws its rows' windows of it."""
         from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
             sample_gaussian_batch,
         )
         dtype = self.compute_dtype or mu.dtype
         seed = draw_seed(self.generator)
-        mu_flat, rho_flat = mu.reshape(-1), rho.reshape(-1)
-        if self.mu_bias is not None:
-            mu_flat = torch.cat([mu_flat, self.mu_bias])
-            rho_flat = torch.cat([rho_flat, self.rho_bias])
-        if zero_mean:
-            mu_flat = torch.zeros_like(mu_flat)
-        flat = sample_gaussian_batch(seed, mu_flat, rho_flat, num_samples,
-                                     dtype)
+        lane0, _ = window_lanes(num_samples)
+        tp = getattr(self, "_tp", None)
+        if tp is not None and tp.column:
+            flat = tp.sample_draws(self, seed, mu, rho, num_samples, lane0,
+                                   dtype, zero_mean)
+        else:
+            mu_flat, rho_flat = mu.reshape(-1), rho.reshape(-1)
+            if self.mu_bias is not None:
+                mu_flat = torch.cat([mu_flat, self.mu_bias])
+                rho_flat = torch.cat([rho_flat, self.rho_bias])
+            if zero_mean:
+                mu_flat = torch.zeros_like(mu_flat)
+            n = mu_flat.numel()
+            flat = sample_gaussian_batch(seed, mu_flat, rho_flat,
+                                         num_samples, dtype,
+                                         **window_kwargs(lane0, n, 0, n))
         if self.mu_bias is None:
             return flat.reshape((num_samples,) + tuple(mu.shape)), None
         w, b = flat.split([mu.numel(), self.mu_bias.numel()], dim=1)
@@ -196,14 +208,17 @@ class BaseVariationalLayer(nn.Module):
         """The Flipout sign salts of this call: the pair(s) the presample
         attached (``_presampled_signs``: (2,) for one draw, (S, 2) under
         the draw axis), else fresh ones under one seed of the layer's
-        generator. One (input, output) pair, or ``num_draws`` pairs."""
+        generator. One (input, output) pair, or ``num_draws`` pairs (this
+        rank's draws under a mesh that splits them)."""
         signs = getattr(self, "_presampled_signs", None)
         if signs is not None:
             salts = signs.tolist()
             return [tuple(p) for p in salts] if num_draws else tuple(salts)
         seed = draw_seed(self.generator)
         if num_draws:
-            return [sign_salts(seed, s) for s in range(num_draws)]
+            lane0, _ = window_lanes(num_draws)
+            return [sign_salts(seed, s)
+                    for s in range(lane0, lane0 + num_draws)]
         return sign_salts(seed)
 
     def kl_div(self, mu_q, sigma_q, mu_p, sigma_p):

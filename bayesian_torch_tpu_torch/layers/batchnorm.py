@@ -18,6 +18,13 @@ the plain forward normalises one draw: by its own batch statistics in
 training mode (per-channel statistics of the S*C channels, recorded for
 all S draws at once) and by the running statistics tiled S times in eval.
 
+Under ``mc_forward(mesh=)`` with the batch split over ranks (a
+``DrawWindow`` that splits the rows), batch statistics are those of the
+whole batch, as GSPMD takes them: each rank's per-channel sums are summed
+over the mesh's 'data' axis (two passes: the mean, then the squared
+deviations), with a backward that sums the ranks' parts
+(``parallel/_comm.all_reduce_partial``).
+
 A checkpoint's recompute (``ops/remat.py``) runs under ``recomputing``:
 each layer then takes the path its forward took, so the recompute saves
 the same tensors, but neither counts the batch, nor records it, nor moves
@@ -41,6 +48,7 @@ from torch import nn
 
 from bayesian_torch_tpu_torch.ops.qtensor import (QTensor,
                                                   dequantize_if_qtensor)
+from bayesian_torch_tpu_torch.ops.sampling import current_window
 
 
 class MCBatchStats:
@@ -58,8 +66,13 @@ class MCBatchStats:
         with torch.no_grad():
             var, mean = torch.var_mean(x.detach().float(), dim=dims,
                                        unbiased=True)
-        self.draws.append(torch.stack([mean.reshape(num_draws, -1),
-                                       var.reshape(num_draws, -1)], dim=1))
+        self.record_stats(mean, var, num_draws)
+
+    def record_stats(self, mean, unbiased_var, num_draws=1):
+        """Record given per-channel statistics of ``num_draws`` draws."""
+        self.draws.append(torch.stack(
+            [mean.detach().float().reshape(num_draws, -1),
+             unbiased_var.detach().float().reshape(num_draws, -1)], dim=1))
 
     def stacked(self):
         """(num_draws, 2, C): each draw's (mean, unbiased variance)."""
@@ -84,6 +97,10 @@ class _MCBatchNorm:
         num_draws = getattr(self, "_mc_draws", None)
         if num_draws and input.shape[1] == num_draws * self.num_features:
             return self._forward_draws(input, num_draws)
+        window = current_window()
+        if window is not None and window.splits_rows and (
+                self.training or self.running_mean is None):
+            return self._forward_synced(input, window)
         updating = self.training and self.track_running_stats
         if updating and self._recomputing and not self.stats_frozen:
             # torch's update, as the forward ran it, at momentum 0: the
@@ -110,6 +127,13 @@ class _MCBatchNorm:
             return None if t is None else t.repeat(num_draws)
 
         if self.training or self.running_mean is None:
+            window = current_window()
+            if window is not None and window.splits_rows:
+                out, mean, var = self._synced(x, window, tile(self.weight),
+                                              tile(self.bias))
+                if self._mc_stats is not None and not self._recomputing:
+                    self._mc_stats.record_stats(mean, var, num_draws)
+                return out
             if self._mc_stats is not None and not self._recomputing:
                 self._mc_stats.record(x, num_draws)
             return F.batch_norm(x, None, None, tile(self.weight),
@@ -117,6 +141,49 @@ class _MCBatchNorm:
         return F.batch_norm(x, tile(self.running_mean),
                             tile(self.running_var), tile(self.weight),
                             tile(self.bias), False, 0.0, self.eps)
+
+
+    def _synced(self, x, window, weight, bias):
+        """Normalise x by the whole batch's statistics (the mesh's 'data'
+        ranks hold the other rows): (output, mean, unbiased variance)."""
+        from bayesian_torch_tpu_torch.parallel._comm import (
+            all_reduce_partial,
+        )
+        self._check_input_dim(x)
+        group = window.data_group
+        dims = (0,) + tuple(range(2, x.dim()))
+        view = (1, -1) + (1,) * (x.dim() - 2)
+        n = x.numel() // x.shape[1] * (window.rows // window.local_rows)
+        xf = x.float()
+        mean = all_reduce_partial(xf.sum(dims), group) / n
+        centred = xf - mean.reshape(view)
+        var = all_reduce_partial((centred * centred).sum(dims), group) / n
+        out = centred * torch.rsqrt(var + self.eps).reshape(view)
+        if weight is not None:
+            out = out * weight.float().reshape(view) \
+                + bias.float().reshape(view)
+        return out.to(x.dtype), mean, var * (n / max(n - 1, 1))
+
+    def _forward_synced(self, x, window):
+        """One forward over a batch split over ranks: the whole batch's
+        statistics; a running-statistics update (torch's rule) unless the
+        statistics are frozen or recorded, or this is a recompute."""
+        out, mean, var = self._synced(x, window, self.weight, self.bias)
+        if not (self.training and self.track_running_stats):
+            return out
+        if self.stats_frozen:
+            if self._mc_stats is not None and not self._recomputing:
+                self._mc_stats.record_stats(mean, var)
+        elif not self._recomputing:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                factor = (1.0 / float(self.num_batches_tracked)
+                          if self.momentum is None else self.momentum)
+                self.running_mean.mul_(1 - factor).add_(
+                    factor * mean.to(self.running_mean.dtype))
+                self.running_var.mul_(1 - factor).add_(
+                    factor * var.to(self.running_var.dtype))
+        return out
 
 
 @contextlib.contextmanager

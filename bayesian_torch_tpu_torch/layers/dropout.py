@@ -13,6 +13,7 @@ from torch import nn
 from bayesian_torch_tpu_torch.layers.base_variational_layer import (
     default_generator,
 )
+from bayesian_torch_tpu_torch.ops.sampling import current_window
 
 
 class Dropout(nn.Module):
@@ -35,13 +36,34 @@ class Dropout(nn.Module):
         if self.p == 1.0:
             return x * 0.0
         keep = 1.0 - self.p
-        mask = torch.rand(self._mask_shape(x),
-                          generator=self.generator) < keep
+        shape = self._mask_shape(x)
+        window = current_window()
+        if window is not None and (window.splits_rows
+                                   or window.splits_draws):
+            mask = self._window_mask(window, shape, keep)
+        else:
+            mask = torch.rand(shape, generator=self.generator) < keep
         return torch.where(mask.to(x.device), x / keep,
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
     def _mask_shape(self, x):
         return x.shape
+
+    def _window_mask(self, window, shape, keep):
+        """This rank's block of the mask of the whole MC forward under a
+        mesh: the whole batch's mask drawn, as one process draws it, and
+        this rank's rows (and, under the draw axis, its draws' channel
+        blocks) taken."""
+        whole = [window.rows] + list(shape[1:])
+        draws = getattr(self, "_mc_draws", None)
+        if draws and len(shape) > 1:
+            whole[1] = shape[1] // draws * window.lanes
+        mask = torch.rand(whole, generator=self.generator) < keep
+        mask = mask.narrow(0, window.row0, shape[0])
+        if draws and len(shape) > 1:
+            per = shape[1] // draws
+            mask = mask.narrow(1, window.lane0 * per, shape[1])
+        return mask
 
     def forward(self, input):
         if isinstance(input, tuple):

@@ -79,7 +79,8 @@ from bayesian_torch_tpu_torch.ops.sampling import (device_generator,
                                                    rademacher_fused,
                                                    rademacher_lanes,
                                                    sigma_from_rho,
-                                                   sign_salts)
+                                                   sign_salts,
+                                                   window_lanes)
 
 FROZEN = ("_frozen_w", "_frozen_wscale", "_frozen_bias")
 # eps's scale on the uncalibrated path: the forward's default, and the
@@ -344,14 +345,18 @@ class _QuantizedLayerBase(BaseVariationalLayer):
         if not num_draws:
             return build(normal_scale)
         gen = self._noise()
-        eps = torch.randn((num_draws,) + tuple(self.quantized_mu_weight.shape),
+        # under a mesh that splits the draws: this rank's lanes of them all
+        lane0, lanes = window_lanes(num_draws)
+        eps = torch.randn((lanes,) + tuple(self.quantized_mu_weight.shape),
                           generator=gen,
                           device=self.quantized_mu_weight.device)
+        eps = eps[lane0:lane0 + num_draws]
         eps_b = None
         if self.quantized_sigma_bias is not None:
             eps_b = torch.randn(
-                (num_draws,) + tuple(self.quantized_sigma_bias.shape),
+                (lanes,) + tuple(self.quantized_sigma_bias.shape),
                 generator=gen, device=self.quantized_sigma_bias.device)
+            eps_b = eps_b[lane0:lane0 + num_draws]
         w_q, w_scale, bias = build(normal_scale, eps=eps, eps_b=eps_b)
         if bias is not None and eps_b is None:
             bias = _per_draw(bias, num_draws)  # a folded mean-only bias

@@ -55,6 +55,7 @@ from bayesian_torch_tpu_torch.ops.sampling import (cast_to,
                                                    device_generator,
                                                    draw_seed,
                                                    rademacher_fused,
+                                                   refuse_window,
                                                    sigma_from_rho,
                                                    sign_salts)
 
@@ -116,6 +117,7 @@ class _BaseLSTMLayer(BaseVariationalLayer):
                 eps_w=None, eps_b=None, sign_in=None, sign_out=None):
         if self.dnn_to_bnn_flag:
             return_kl = False
+        refuse_window(type(self).__name__)
         draws = getattr(self, "_mc_draws", None) or 1
         x, h0, c0 = self._lanes_in(X, hidden_states, draws)
         if hasattr(self.ih, "quantized_mu_weight"):

@@ -29,7 +29,8 @@ from bayesian_torch_tpu_torch.layers.base_variational_layer import (
 )
 from bayesian_torch_tpu_torch.ops import linear as linear_ops
 from bayesian_torch_tpu_torch.ops.kl import gaussian_kl_from_rho
-from bayesian_torch_tpu_torch.ops.sampling import (draw_seed,
+from bayesian_torch_tpu_torch.ops.sampling import (current_window,
+                                                   draw_seed,
                                                    sample_gaussian_weight)
 
 IMPLS = ("xla", "pallas")
@@ -157,6 +158,13 @@ class LinearReparameterization(BaseVariationalLayer):
         from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
             sample_gaussian_batch,
         )
+        window = current_window()
+        if getattr(self, "_tp", None) is not None or (
+                window is not None and window.splits_draws):
+            raise NotImplementedError(
+                "LinearReparameterization(impl='pallas') draws its lanes "
+                "inside the fused sampled GEMM, which takes no window: under "
+                "a mesh that splits the draws or the layer, use impl='xla'")
         out = sampled_matmul_batched(
             draw_seed(self.generator),
             linear_ops.split_draws(input, num_draws, self.in_features),

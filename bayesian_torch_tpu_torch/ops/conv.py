@@ -358,6 +358,6 @@ def flipout_conv_draws(x, mu_k, mu_b, delta, pert_bias, salts, *, stride=1,
                       transposed=transposed, **args)
     sp_out = tuple(pert.shape[2:])
     sign_out = rademacher_lanes([b for _, b in salts], (B, O) + sp_out,
-                                pert.dtype, pert.device)
+                                pert.dtype, pert.device, output=True)
     out = mean + pert.reshape((B, S, O) + sp_out) * sign_out
     return out.reshape((B, S * O) + sp_out)

@@ -35,20 +35,22 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # mu, sigma (or rho), in_bf16, out, n, num_samples, seed, out_bf16,
-    # rho_mode, stream
+    # rho_mode, lane0, lane stride, offset, stream
     "btt_sample_scaled_normals_batch": (_P, _P, ctypes.c_int, _P,
                                         ctypes.c_int64, ctypes.c_int,
                                         ctypes.c_uint64, ctypes.c_int,
-                                        ctypes.c_int, _P),
+                                        ctypes.c_int, ctypes.c_int64,
+                                        ctypes.c_int64, ctypes.c_int64, _P),
     # x, x lane stride, mu, sigma, out, S, M, N, K, seed, stream
     "btt_sampled_matmul": (_P, ctypes.c_int64, _P, _P, _P, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_uint64, _P),
     # g, g_bf16, rho (or NULL), rho_bf16, out, n, num_samples, seed,
-    # stream
+    # lane0, lane stride, offset, stream
     "btt_sampled_weights_bwd": (_P, ctypes.c_int, _P, ctypes.c_int, _P,
                                 ctypes.c_int64, ctypes.c_int,
-                                ctypes.c_uint64, _P),
+                                ctypes.c_uint64, ctypes.c_int64,
+                                ctypes.c_int64, ctypes.c_int64, _P),
     # g, mu, sigma, dx, S, M, N, K, seed, stream
     "btt_sampled_matmul_dx": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int, ctypes.c_uint64,

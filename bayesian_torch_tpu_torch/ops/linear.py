@@ -158,6 +158,6 @@ def flipout_linear_draws(x, mu_w, mu_b, delta, pert_bias, salts,
     pert = linear_draws((xs * sign_in).reshape(R, S * K), delta, pert_bias,
                         compute_dtype).reshape(R, S, N)
     sign_out = rademacher_lanes([b for _, b in salts], lead + (N,),
-                                pert.dtype, pert.device,
-                                axis=len(lead)).reshape(R, S, N)
+                                pert.dtype, pert.device, axis=len(lead),
+                                output=True).reshape(R, S, N)
     return (mean + pert * sign_out).reshape(lead + (S * N,))

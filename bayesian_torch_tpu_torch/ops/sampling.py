@@ -98,13 +98,17 @@ def replay_generators(module):
     forward drew (the ``draw_seed`` seeds, the device generators seeded
     from them, the Flipout salts, Dropout's masks), and whatever comes
     after it sees the stream it would have seen without the recompute.
-    ``preserve_rng_state`` covers only torch's global generators."""
+    The recompute also runs under the forward's ``DrawWindow``, so a rank
+    of a mesh recomputes its own block. ``preserve_rng_state`` covers only
+    torch's global generators."""
     gens = module_generators(module)
     recorded = []
+    window = []
 
     @contextlib.contextmanager
     def forward():
         recorded[:] = [gen.get_state() for gen in gens]
+        window[:] = [_WINDOW[0]]
         yield
 
     @contextlib.contextmanager
@@ -113,7 +117,8 @@ def replay_generators(module):
         for gen, state in zip(gens, recorded):
             gen.set_state(state)
         try:
-            yield
+            with draw_window(window[0]):
+                yield
         finally:
             for gen, state in zip(gens, found):
                 gen.set_state(state)
@@ -181,27 +186,158 @@ def _normals(salt: int, start: int, n: int, device):
     return r.mul_(u2.mul_(_TWO_PI).cos_())
 
 
-def normal_fused(salt: int, shape, dtype=torch.float32, device=None):
+def normal_fused(salt: int, shape, dtype=torch.float32, device=None,
+                 start: int = 0):
     """iid N(0,1) from the counter hash: the value at flat position i is
-    Box-Muller on two splitmix32 hashes of ``salt + (i+1)*GOLDEN``.
+    Box-Muller on two splitmix32 hashes of ``salt + (start+i+1)*GOLDEN``.
     Equals the JAX ``normal_fused`` for the JAX key whose ``_key_salt``
-    is ``salt``."""
+    is ``salt`` (at ``start = 0``)."""
     shape = tuple(shape)
     n = math.prod(shape)
     device = torch.device("cpu") if device is None else torch.device(device)
     chunk = _CPU_CHUNK if device.type == "cpu" else max(n, 1)
     out = torch.empty(n, dtype=torch.float32, device=device)
-    for start in range(0, n, chunk):
-        m = min(chunk, n - start)
-        out[start:start + m] = _normals(salt, start, m, device)
+    for at in range(0, n, chunk):
+        m = min(chunk, n - at)
+        out[at:at + m] = _normals(salt, start + at, m, device)
     return out.reshape(shape).to(dtype)
 
 
-def rademacher_fused(salt: int, shape, dtype=torch.float32, device=None):
+class DrawWindow:
+    """The block of an MC forward that this rank computes under a mesh
+    (``parallel.mc_forward(mesh=)``): draws [lane0, lane0 + local lanes)
+    of ``lanes`` and batch rows [row0, row0 + local rows) of ``rows``.
+    The sampling sites read it (``current_window``) so that the block's
+    noise is the block of the single-process noise: the samplers take
+    their lanes' counters, the sign salts their lanes' salts, the signs of
+    a batch-leading tensor its rows' counters (``rademacher_fused``),
+    Dropout its slice of the whole mask. ``data_group`` is the process
+    group over the batch (BatchNorm's statistics)."""
+
+    def __init__(self, lane0, local_lanes, lanes, row0, local_rows, rows,
+                 data_group=None):
+        self.lane0, self.local_lanes, self.lanes = lane0, local_lanes, lanes
+        self.row0, self.local_rows, self.rows = row0, local_rows, rows
+        self.data_group = data_group
+
+    @property
+    def splits_draws(self):
+        return self.local_lanes != self.lanes
+
+    @property
+    def splits_rows(self):
+        return self.local_rows != self.rows
+
+
+_WINDOW = [None]
+
+
+@contextlib.contextmanager
+def draw_window(window):
+    """Set the current ``DrawWindow`` for the duration (None: none)."""
+    saved = _WINDOW[0]
+    _WINDOW[0] = window
+    try:
+        yield window
+    finally:
+        _WINDOW[0] = saved
+
+
+def current_window():
+    """The ``DrawWindow`` of the forward in progress, or None."""
+    return _WINDOW[0]
+
+
+def window_lanes(num_draws):
+    """(first lane, lanes of the whole launch) for a site that draws
+    ``num_draws`` lanes: this rank's block under a window that splits the
+    draws, else (0, num_draws)."""
+    w = _WINDOW[0]
+    if w is not None and w.splits_draws and num_draws == w.local_lanes:
+        return w.lane0, w.lanes
+    return 0, num_draws
+
+
+def refuse_window(what):
+    """Raise if the current window splits draws or rows: ``what`` cannot
+    draw a block of the single-process noise."""
+    w = _WINDOW[0]
+    if w is not None and (w.splits_draws or w.splits_rows):
+        raise NotImplementedError(
+            f"{what} under mc_forward(mesh=) with the draws or the batch "
+            "split over ranks is not supported; use a mesh whose 'mc' and "
+            "'data' axes are 1, or mesh=None")
+
+
+def _row_start(shape):
+    """Counter of element 0 of a batch-leading tensor of ``shape`` under a
+    window that splits the batch: its rows' place in the whole batch."""
+    w = _WINDOW[0]
+    if w is None or not w.splits_rows:
+        return 0
+    if not shape or shape[0] != w.local_rows:
+        raise RuntimeError(
+            f"signs of shape {tuple(shape)} under a batch split over ranks "
+            f"({w.local_rows} of {w.rows} rows): only batch-leading "
+            "tensors can take their rows' signs")
+    return w.row0 * (math.prod(shape) // shape[0])
+
+
+_SHARD = [None]
+
+
+@contextlib.contextmanager
+def tp_shard(rank, size, channel_dim):
+    """For the forward of a tensor-parallel layer (``parallel/tp.py``):
+    its weights and biases are dim-0 shard ``rank`` of ``size`` equal
+    shards and its outputs channel shard ``rank`` along ``channel_dim``.
+    The samplers then draw the shard's window of each whole tensor's
+    counters, and the output signs are the shard's channels of the whole
+    output's signs."""
+    saved = _SHARD[0]
+    _SHARD[0] = (rank, size, channel_dim)
+    try:
+        yield
+    finally:
+        _SHARD[0] = saved
+
+
+def window_kwargs(lane0, stride, offset, n):
+    """The sampler's ``window`` keyword (``ops/cuda/sampled_weights.py``)
+    for a launch over n elements a lane: ``{}`` for the whole launch, so
+    a call without a mesh or a shard is the call it always was."""
+    if (lane0, stride, offset) == (0, n, 0):
+        return {}
+    return {"window": (lane0, stride, offset)}
+
+
+def shard_window(n):
+    """``window_kwargs`` of a one-draw sampler call over n elements: the
+    shard's place in the whole tensor inside a ``tp_shard``."""
+    shard = _SHARD[0]
+    if shard is None:
+        return {}
+    rank, size, _ = shard
+    return window_kwargs(0, size * n, rank * n, n)
+
+
+def rademacher_fused(salt: int, shape, dtype=torch.float32, device=None,
+                     output=False):
     """iid signs in {-1, +1}: bit 31 of splitmix32(salt + (i+1)*GOLDEN),
-    bit-identical to the JAX ``rademacher_fused`` for the same salt."""
+    bit-identical to the JAX ``rademacher_fused`` for the same salt. Under
+    a ``DrawWindow`` that splits the batch, ``shape`` leads with this
+    rank's rows, which take the counters they have in the whole batch.
+    ``output``: the signs of a layer's output, which inside a
+    ``tp_shard`` are the shard's channels of the whole output's signs."""
     shape = tuple(shape)
-    h = _hashes(salt, 0, math.prod(shape), device)
+    shard = _SHARD[0]
+    if output and shard is not None:
+        rank, size, dim = shard
+        whole = list(shape)
+        whole[dim] *= size
+        return rademacher_fused(salt, whole, dtype, device).narrow(
+            dim, rank * shape[dim], shape[dim])
+    h = _hashes(salt, _row_start(shape), math.prod(shape), device)
     one = torch.ones((), dtype=dtype, device=device)
     return torch.where((h >> 31).bool(), -one, one).reshape(shape)
 
@@ -214,7 +350,7 @@ def sign_salts(seed: int, s: int = 0):
 
 
 def rademacher_lanes(salts, shape, dtype=torch.float32, device=None,
-                     axis=1):
+                     axis=1, output=False):
     """Signs over the draw axis: ``shape`` with a lane axis of S =
     ``len(salts)`` inserted at ``axis``; lane s is
     ``rademacher_fused(salts[s], shape)``, the signs a single forward of
@@ -224,7 +360,7 @@ def rademacher_lanes(salts, shape, dtype=torch.float32, device=None,
                       dtype=dtype, device=device)
     for s, salt in enumerate(salts):
         out.select(axis, s).copy_(rademacher_fused(salt, shape, dtype,
-                                                   device))
+                                                   device, output))
     return out
 
 
@@ -246,7 +382,7 @@ def flipout_combine(x, products, salts, sign_in=None, sign_out=None):
     mean_out, pert = products(x, x * sign_in)
     if sign_out is None:
         sign_out = rademacher_fused(salts[1], mean_out.shape, mean_out.dtype,
-                                    mean_out.device)
+                                    mean_out.device, output=True)
     return mean_out + pert * sign_out
 
 
@@ -260,7 +396,8 @@ def sample_gaussian_delta(generator, mu, rho, eps=None):
         sample_gaussian,
     )
     return sample_gaussian(draw_seed(generator), torch.zeros_like(mu), rho,
-                           out_dtype=mu.dtype)
+                           out_dtype=mu.dtype,
+                           **shard_window(mu.numel()))
 
 
 def sample_gaussian_weight(generator, mu, rho, eps=None):
@@ -278,4 +415,5 @@ def sample_gaussian_weight(generator, mu, rho, eps=None):
         sample_gaussian,
     )
     return sample_gaussian(draw_seed(generator), mu, rho,
-                           out_dtype=mu.dtype), sigma
+                           out_dtype=mu.dtype,
+                           **shard_window(mu.numel())), sigma

@@ -36,7 +36,27 @@ salts before the forwards (``presample``), and the loop takes draw s of
 that record where the draw axis takes all of it; frozen draws
 (``quantization.serving``) are reused in every draw. Flipout layers run
 under both emissions; their presampled draw is the perturbation ``sigma *
-eps``. Meshes are not ported (ROADMAP Queue 1 #15).
+eps``.
+
+``mesh=`` (a ``parallel.make_mesh`` mesh over the ranks of a
+``torch.distributed`` world) splits the draws over its 'mc' axis and the
+batch over its 'data' axis: ``x`` is this rank's block of the batch
+(``shard_batch``), and each rank computes its block of draws on it under a
+``DrawWindow`` (``ops/sampling.py``), so that every noise tensor it draws
+is its block of what one process draws at the same seed: the samplers
+take its lanes' counters (K-A with a window, K-C on the same window), the
+sign salts its draws' salts, the signs and Dropout masks its rows', and
+BatchNorm normalises by the whole batch's statistics. Every rank consumes
+the same numbers from every generator as one process does. The blocks are
+gathered (``_comm.gather_blocks``: its backward takes this rank's block),
+so every rank returns the whole (S, B, ...) outputs, or their mean, and
+the KL once: it carries its gradient on the first rank of the (mc, data)
+plane alone, so the sum of the ranks' gradients (``reduce_gradients``,
+which ``examples/_engine.make_train_step(mesh=)`` calls) is the
+single-process gradient. The draw loop cannot skip the draws of other
+ranks when they are sampled inside the layers (the generators would part
+ways), so there every rank runs every draw and keeps the graph of its own;
+with presampled draws (eval, ``presample="on"``) it runs its own alone.
 """
 
 from __future__ import annotations
@@ -58,9 +78,15 @@ from bayesian_torch_tpu_torch.ops import remat
 from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
     sample_scaled_normals_batch,
 )
-from bayesian_torch_tpu_torch.ops.sampling import (draw_seed,
+from bayesian_torch_tpu_torch.ops.sampling import (DrawWindow,
+                                                   current_window,
+                                                   draw_seed, draw_window,
+                                                   module_generators,
                                                    sigma_from_rho,
-                                                   sign_salts)
+                                                   sign_salts,
+                                                   window_kwargs)
+from bayesian_torch_tpu_torch.parallel import _comm
+from bayesian_torch_tpu_torch.parallel.mesh import Mesh
 
 _PRESAMPLE = ("auto", "on", "off", "xla", "hash")
 _BN_STATS = ("ema", "freeze")
@@ -108,7 +134,30 @@ def _presample_layers(model: nn.Module, num_mc: int):
     An INT8 layer gives its own record (``presample``): without a frozen
     draw it builds its S int8 weights (Flipout: perturbations) in one
     pass; a Flipout layer adds its S sign salts.
+
+    Under a mesh that splits the draws the sampler draws this rank's lanes
+    of the launch (a window of its counters) and the other records are
+    sliced to them: every generator gives what it gives one process. A
+    column-parallel shard (``parallel/tp.py``) draws its own window of its
+    layer's place in the buffer, one launch a layer; a transposed shard is
+    presampled whole, its tensors gathered.
     """
+    with contextlib.ExitStack() as stack:
+        for layer in iter_bayesian_layers(model):
+            tp = getattr(layer, "_tp", None)
+            if tp is not None and not tp.column:
+                stack.enter_context(tp.whole(layer))
+        return _presample_draws(model, num_mc)
+
+
+def _column_shard(layer):
+    """The layer's column-parallel shard (``parallel/tp.py``), or None."""
+    tp = getattr(layer, "_tp", None)
+    return tp if tp is not None and tp.column else None
+
+
+def _presample_draws(model, num_mc):
+    lane0, lanes = _local_lanes(num_mc)
     groups = {}
     for layer in iter_bayesian_layers(model):
         post = _posterior(layer)
@@ -120,30 +169,54 @@ def _presample_layers(model: nn.Module, num_mc: int):
             groups.setdefault(dtype, []).append(layer)
     draws = {}
     for dtype, group in groups.items():
-        mus = [_posterior(layer)[0] for layer in group]
-        w_all = sample_scaled_normals_batch(
-            draw_seed(group[0].generator),
-            torch.cat([(torch.zeros_like(m) if _is_flipout(layer)
-                        else m).reshape(-1)
-                       for layer, m in zip(group, mus)]),
-            torch.cat([sigma_from_rho(_posterior(layer)[1]).reshape(-1)
-                       for layer in group]), num_mc, dtype)
-        parts = w_all.split([m.numel() for m in mus], dim=1)
+        seed = draw_seed(group[0].generator)
+        mus = [(torch.zeros_like(_posterior(layer)[0]) if _is_flipout(layer)
+                else _posterior(layer)[0]) for layer in group]
+        sigmas = [sigma_from_rho(_posterior(layer)[1]) for layer in group]
+        tps = [_column_shard(layer) for layer in group]
+        whole = [m.numel() if tp is None else tp.whole_numel(m)
+                 for m, tp in zip(mus, tps)]
+        total = sum(whole)
+        if all(tp is None for tp in tps):
+            w_all = sample_scaled_normals_batch(
+                seed, torch.cat([m.reshape(-1) for m in mus]),
+                torch.cat([sg.reshape(-1) for sg in sigmas]), lanes, dtype,
+                **window_kwargs(lane0, total, 0, total))
+            parts = w_all.split([m.numel() for m in mus], dim=1)
+        else:
+            # a shard's weights are a window of its layer's place
+            offsets = [sum(whole[:k]) for k in range(len(group))]
+            parts = [
+                (sample_scaled_normals_batch(
+                    seed, m.reshape(-1), sg.reshape(-1), lanes, dtype,
+                    **window_kwargs(lane0, total, off, m.numel()))
+                 if tp is None else
+                 tp.presample(seed, m, sg, lanes, dtype, lane0, total, off))
+                for m, sg, tp, off in zip(mus, sigmas, tps, offsets)]
         for layer, mu, w in zip(group, mus, parts):
-            draws[layer] = w.reshape((num_mc,) + tuple(mu.shape))
+            draws[layer] = w.reshape((lanes,) + tuple(mu.shape))
+
+    def mine(seq):
+        return seq[lane0:lane0 + lanes]
 
     touched = []
     for layer in iter_bayesian_layers(model):
         if isinstance(layer, _QuantizedLayerBase):
             record = layer.presample(num_mc)
             if record:
-                touched.append((layer, record))
+                touched.append((layer, {k: mine(v)
+                                        for k, v in record.items()}))
         if layer not in draws:
             continue
         attrs = {"_presampled_w": draws[layer]}
         if layer.mu_bias is not None:
-            eps_b = torch.randn((num_mc,) + tuple(layer.mu_bias.shape),
-                                generator=layer.generator)
+            tp = _column_shard(layer)
+            shape = tuple(layer.mu_bias.shape) if tp is None \
+                else tp.whole_shape(layer.mu_bias)
+            eps_b = mine(torch.randn((num_mc,) + shape,
+                                     generator=layer.generator))
+            if tp is not None:
+                eps_b = tp.take(eps_b, 1)
             b = sigma_from_rho(layer.rho_bias) * eps_b.to(
                 layer.mu_bias.device)
             # Flipout: the mean bias rides the mean path
@@ -151,18 +224,31 @@ def _presample_layers(model: nn.Module, num_mc: int):
                 else layer.mu_bias + b
         if _is_flipout(layer):
             seed = draw_seed(layer.generator)
-            attrs["_presampled_signs"] = torch.tensor(
+            attrs["_presampled_signs"] = mine(torch.tensor(
                 [sign_salts(seed, s) for s in range(num_mc)],
-                dtype=torch.int64)
+                dtype=torch.int64))
         touched.append((layer, attrs))
     return touched
 
 
-def _apply_bn_ema(mod):
+def _local_lanes(num_mc):
+    """(first draw, draws) this rank computes of ``num_mc``: its block
+    under a ``DrawWindow`` that splits the draws, else all of them."""
+    w = current_window()
+    if w is not None and w.splits_draws:
+        return w.lane0, w.local_lanes
+    return 0, num_mc
+
+
+def _apply_bn_ema(mod, mc_group=None):
     """Average the recorded per-draw batch statistics and apply one EMA
     update, with the factor semantics of torch's own update (momentum, or
-    a cumulative average when momentum is None)."""
+    a cumulative average when momentum is None). With ``mc_group`` (a mesh
+    that splits the draws) the ranks' draws are gathered first, in draw
+    order, so every rank averages all of them."""
     stats = mod._mc_stats.stacked()  # (num_mc, 2, C)
+    if mc_group is not None:
+        stats = torch.cat(_comm.all_gather(stats, mc_group))
     mean, unbiased_var = stats.mean(dim=0)
     mod.num_batches_tracked.add_(1)
     if mod.momentum is None:
@@ -231,7 +317,7 @@ def _draw_axis(model: nn.Module, num_mc: int):
 
 
 @contextlib.contextmanager
-def _mc_batch_stats(model: nn.Module, bn_stats: str):
+def _mc_batch_stats(model: nn.Module, bn_stats: str, mc_group=None):
     """For the draws of a training-mode model: freeze every
     BatchNorm's running-stat writes and, with ``bn_stats="ema"``, record
     each draw's batch statistics; on success apply one EMA update per
@@ -258,7 +344,7 @@ def _mc_batch_stats(model: nn.Module, bn_stats: str):
             mod._mc_stats = MCBatchStats()
         yield
         for mod in collecting:
-            _apply_bn_ema(mod)
+            _apply_bn_ema(mod, mc_group)
     finally:
         for mod in frozen:
             mod.stats_frozen = False
@@ -291,8 +377,14 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
     emission, whatever ``emission`` says; if a module cannot take the draw
     axis it falls back to the draw loop with a ``RuntimeWarning`` naming
     the module, as JAX falls back to its vmap. ``reduce``, ``bn_stats`` and
-    ``return_kl`` behave as under ``emission="vmap"``. ``mesh=`` is not
-    ported (ROADMAP Queue 1 #15) and raises.
+    ``return_kl`` behave as under ``emission="vmap"``.
+
+    ``mesh`` (``parallel.make_mesh``): ``x`` is this rank's block of the
+    batch (``shard_batch``); the draws split over the mesh's 'mc' axis
+    (``num_mc`` must divide evenly over it) and the batch over 'data', and
+    every rank returns what one process returns for the whole batch
+    (module docstring). "auto" means the vmap emission under a mesh, as in
+    JAX, for a model that can take the draw axis; the loop otherwise.
 
     ``remat_policy`` (with gradients only): ``"full"``, ``"conv_out"`` or a
     ``torch.utils.checkpoint`` selective policy puts each forward the
@@ -334,11 +426,9 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
     if bn_stats not in _BN_STATS:
         raise ValueError(f"mc_forward: unknown bn_stats {bn_stats!r} "
                          f"(expected one of {_BN_STATS})")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mc_forward: mesh= (MC draws sharded over devices) is not "
-            "ported yet (ROADMAP Queue 1 #15, multi-device); the port runs "
-            "on one device")
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError("mc_forward: mesh must come from parallel.make_mesh,"
+                        f" got {type(mesh).__name__}")
     remat.resolve_policy(remat_policy)
     if presample in ("xla", "hash"):
         raise NotImplementedError(
@@ -357,7 +447,9 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
                 "cannot take the draw axis", RuntimeWarning, stacklevel=2)
             emission = "scan"
     if emission == "auto":
-        emission = _resolve_emission(model, num_mc, training)
+        emission = ("vmap" if mesh is not None and num_mc > 1
+                    and _draw_axis_refusal(model) is None
+                    else _resolve_emission(model, num_mc, training))
     vmap = emission == "vmap" and num_mc > 1
     if vmap:
         _check_draw_axis(model)
@@ -365,14 +457,20 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
         presample = "off" if training or vmap else "on"
     if compute_kl is None:
         compute_kl = return_kl
+    block = None
+    if mesh is not None:
+        # the loop splits the draws only when they are drawn beforehand
+        block = _MeshBlock(mesh, num_mc, x,
+                           vmap or (presample == "on" and num_mc > 1))
     kl_layers = [mod for mod in model.modules()
                  if getattr(mod, "compute_kl", None) is True]
     presampled = []
     grad = contextlib.nullcontext() if training else torch.no_grad()
-    bn = (_mc_batch_stats(model, bn_stats) if training and num_mc > 1
-          else contextlib.nullcontext())
+    bn = (_mc_batch_stats(model, bn_stats,
+                          block.mc_group if block is not None else None)
+          if training and num_mc > 1 else contextlib.nullcontext())
     try:
-        with grad:
+        with grad, draw_window(None if block is None else block.window):
             if presample == "on" and num_mc > 1:
                 presampled = _presample_layers(model, num_mc)
             run = model
@@ -380,9 +478,16 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
                 run = functools.partial(remat.checkpoint, model, model,
                                         policy=remat_policy)
             with bn:
-                forward = _forward_draws if vmap else _forward_loop
-                result, kl = forward(run, model, x, num_mc, presampled,
-                                     kl_layers, compute_kl, reduce)
+                if block is None:
+                    forward = _forward_draws if vmap else _forward_loop
+                    result, kl = forward(run, model, x, num_mc, presampled,
+                                         kl_layers, compute_kl, reduce)
+                else:
+                    result, kl = block.forward(
+                        run, model, x, presampled, kl_layers, compute_kl,
+                        vmap)
+        if block is not None:
+            result, kl = block.gather(result, kl, reduce, vmap, training)
     finally:
         for layer, attrs in presampled:
             for name in attrs:
@@ -400,17 +505,26 @@ def _split(out):
 
 
 def _forward_loop(run, model, x, num_mc, presampled, kl_layers, compute_kl,
-                  reduce):
+                  reduce, own=None):
     """One forward per draw (``run(x)``: the model, or the model behind a
-    checkpoint); the KL in the last draw alone."""
+    checkpoint); the KL in the last draw alone. With ``own`` (a range of
+    draws) the other draws run without a graph and are dropped, and the KL
+    comes with the last draw of ``own``."""
     acc, outs, kl = None, [], 0.0
+    last = num_mc - 1 if own is None else own[-1]
     for s in range(num_mc):
         for mod in kl_layers:
-            mod.compute_kl = compute_kl and s == num_mc - 1
+            mod.compute_kl = compute_kl and s == last
         for layer, attrs in presampled:
             for name, draws in attrs.items():
                 setattr(layer, name, draws[s])
-        out, kl = _split(run(x))
+        if own is not None and s not in own:
+            with torch.no_grad():
+                model(x)
+            continue
+        out, kl_s = _split(run(x))
+        if s == last:
+            kl = kl_s
         if reduce == "mean":
             term = out.float() / num_mc
             acc = term if acc is None else acc + term
@@ -432,6 +546,75 @@ def _forward_draws(run, model, x, num_mc, presampled, kl_layers, compute_kl,
         out, kl = _split(run(x))
     outs = out.reshape(out.shape[:-1] + (num_mc, -1)).movedim(-2, 0)
     return (outs.float().mean(0) if reduce == "mean" else outs), kl
+
+
+class _MeshBlock:
+    """This rank's block of an MC forward under a mesh: its draws (its
+    'mc' coordinate's, when the emission can split them) on its rows (its
+    'data' coordinate's), the ``DrawWindow`` the sampling sites read, and
+    the gather of the blocks into the whole result."""
+
+    def __init__(self, mesh, num_mc, x, splits_draws):
+        self.mc, self.data = mesh.shape["mc"], mesh.shape["data"]
+        if num_mc % self.mc:
+            raise ValueError(f"mc_forward: {num_mc} draws do not divide "
+                             f"over the mesh's 'mc' axis of {self.mc}")
+        self.m, self.d = mesh.coord("mc"), mesh.coord("data")
+        self.num_mc = num_mc
+        per = num_mc // self.mc
+        self.own = range(self.m * per, (self.m + 1) * per)
+        self.splits = splits_draws and self.mc > 1
+        rows = x.shape[0]
+        self.group = mesh.group("mc", "data")
+        self.mc_group = mesh.group("mc") if self.splits else None
+        self.window = DrawWindow(
+            self.own[0] if self.splits else 0,
+            per if self.splits else num_mc, num_mc, self.d * rows, rows,
+            rows * self.data, mesh.group("data"))
+
+    def forward(self, run, model, x, presampled, kl_layers, compute_kl,
+                vmap):
+        """(this block's (draws, rows, ...) outputs, KL)."""
+        lanes = self.window.local_lanes
+        if vmap:
+            return _forward_draws(run, model, x, lanes, presampled,
+                                  kl_layers, compute_kl, None)
+        if not self.splits:
+            # the layers draw inside each draw: run every draw, keep ours
+            return _forward_loop(run, model, x, self.num_mc, presampled,
+                                 kl_layers, compute_kl, None, own=self.own)
+        # presampled draws: ours alone, if no layer draws inside a draw
+        gens = module_generators(model)
+        before = [gen.get_state() for gen in gens]
+        result = _forward_loop(run, model, x, lanes, presampled, kl_layers,
+                               compute_kl, None)
+        if any(not torch.equal(gen.get_state(), state)
+               for gen, state in zip(gens, before)):
+            raise RuntimeError(
+                "mc_forward(mesh=): a module drew from its generator inside "
+                "a presampled draw (Dropout in training mode?), so this "
+                "rank's draws cannot skip the others'; use presample='off' "
+                "or the vmap emission")
+        return result
+
+    def gather(self, outs, kl, reduce, vmap, training):
+        """The whole (S, B, ...) outputs (or their mean, reduced as the
+        emission reduces without a mesh) on every rank; the KL with its
+        gradient on the plane's first rank alone."""
+        outs = _comm.gather_blocks(outs, self.group, (self.mc, self.data),
+                                   (0, 1), (self.m, self.d))
+        if reduce == "mean":
+            if vmap:
+                outs = outs.float().mean(0)
+            else:
+                acc = outs[0].float() / self.num_mc
+                for s in range(1, self.num_mc):
+                    acc = acc + outs[s].float() / self.num_mc
+                outs = acc
+        if training and torch.is_tensor(kl) and \
+                _comm.group_rank(self.group) != 0:
+            kl = kl.detach()
+        return outs, kl
 
 
 def mc_vmap(num_mc: int):

@@ -275,6 +275,26 @@ Phases, each printing its own line(s):
     a batch, medians, min and max, busy ms and idle share; (e)
     ``main_bayesian_imagenet --remat --structured-mc --synthetic
     --batch-size=32 --epochs=1`` with its launches exact.
+43. the mesh paths (``phase_multirank``, after phase 42, its parts'
+    seconds logged), ResNet-50 MC-10 bs128 224² bf16 eval from one saved
+    state and generator state: (a) ``parallel.initialize`` in this
+    process, an NCCL world of one (one all-reduce), ``mc_forward(mesh=
+    make_mesh(mc=1))`` against the same forward without a mesh; (b) two
+    ranks on the one card (gloo; NCCL refuses two ranks on one device),
+    each checked against the one-process run: ``mc=2`` through the loop
+    (5 lanes a rank, one windowed K-A launch a rank), ``data=2`` (64 rows
+    a rank), ``mc=2`` through the vmap emission with
+    ``CONV_1X1_DOT = True`` (K-G), an MC-4 bs128 vmap SGD step at
+    ``mc=2`` (the parameters against the one-process step's, K-C dsigma
+    on both ranks) and an MC-2 bs32 loop step (K-C drho); (c)
+    ``shard_params_tp`` over ``model=2`` at full widths, MC-2 bs8, against
+    the replicated model; the twin of ``dryrun_multichip(2)`` on the card
+    (resnet20 step, INT8 QBNN through K-F, structured Flipout, the loop);
+    (d) ``main_bayesian_imagenet --mesh-mc=2 --synthetic --batch-size=32
+    --num_mc=2`` for two epochs, then ``--epochs=3 --resume``: both ranks
+    end with the same weights; (e) the native ``DataLoader``
+    (``native_available()`` asserted) feeding one epoch of 224² bs128
+    images to the card, beside the numpy path, in batches per second.
 
 The line before the last is a JSON object with every kernel's launches,
 counted from zero in the run named by its ``run`` key, its error against
@@ -4610,6 +4630,510 @@ def phase_modes():
     return by_kernel, res
 
 
+MULTIRANK_SEED = SEED + 800
+MULTIRANK_WORLD = 2  # two ranks sharing the one card
+MULTIRANK_TIMEOUT = 600  # the ranks' wall-clock limit, seconds
+TP_BATCH, TP_MC = 8, 2  # TP gathers every layer's output: a cut batch
+LOOP_BATCH, LOOP_MC = 32, 2
+MULTIRANK_LR = 0.01
+LOADER_IMAGES = 1024  # 8 batches of 128 at 224x224
+
+
+def bf16_bound(want, ulps=8):
+    """``ulps`` bf16 ulps of the largest |value| of ``want``: the gate of
+    a mesh run against one process where the per-rank shapes differ (a
+    smaller batch or fewer lanes may take another cuDNN algorithm)."""
+    return float(ulps * bf16_ulp(want.float().abs().max()))
+
+
+def multirank_model():
+    """ResNet-50 as phase 43 builds it in every process, bf16 compute."""
+    import torch
+
+    from bayesian_torch_tpu_torch.models.bayesian.resnet_variational_large \
+        import resnet50
+
+    model = resnet50(num_classes=1000,
+                     generator=torch.Generator().manual_seed(MULTIRANK_SEED),
+                     device="cuda")
+    for mod in model.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.bfloat16
+    return model
+
+
+@contextlib.contextmanager
+def f32_compute(model):
+    """The model's layers in f32 with TF32 off inside: the arithmetic in
+    which a mesh step and the one-process step differ by summation order
+    alone."""
+    saved = {m: m.compute_dtype for m in model.modules()
+             if hasattr(m, "compute_dtype")}
+    for m in saved:
+        m.compute_dtype = None
+    try:
+        with tf32_off():
+            yield
+    finally:
+        for m, dtype in saved.items():
+            m.compute_dtype = dtype
+
+
+def gen_states(model):
+    from bayesian_torch_tpu_torch.ops.sampling import module_generators
+
+    return [g.get_state() for g in module_generators(model)]
+
+
+def set_gens(model, states):
+    from bayesian_torch_tpu_torch.ops.sampling import module_generators
+
+    for g, state in zip(module_generators(model), states):
+        g.set_state(state)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multirank_one_process(model, x, gens0, want):
+    """(a) An NCCL world of one in this process: one all-reduce, then
+    ``mc_forward(mesh=make_mesh(mc=1))`` (the vmap emission, as "auto"
+    resolves under a mesh) against the same forward without a mesh.
+    Returns (max |difference|, launches)."""
+    import torch
+    import torch.distributed as dist
+
+    from bayesian_torch_tpu_torch.parallel import (initialize, make_mesh,
+                                                   mc_forward)
+
+    n = initialize(f"127.0.0.1:{free_port()}", num_processes=1,
+                   process_id=0, initialization_timeout=120)
+    try:
+        check(n == 1 and dist.get_backend() == "nccl",
+              f"initialize: world {n}, backend {dist.get_backend()}")
+        t = torch.full((1,), 3.0, device="cuda")
+        dist.all_reduce(t)
+        check(float(t) == 3.0, "NCCL all-reduce over a world of one")
+        mesh = make_mesh(mc=1)
+        set_gens(model, gens0)
+        reset_counts()
+        with torch.no_grad():
+            got = mc_forward(model, x, NUM_MC, mesh=mesh, return_kl=False)
+        torch.cuda.synchronize()
+        launches = nonzero(counts())
+    finally:
+        dist.destroy_process_group()
+    err = max_err(got, want)
+    check(err == 0.0, f"(a) mc_forward(mesh=make_mesh(mc=1)) differs from "
+          f"no mesh by {err:.3e}")
+    return err, launches
+
+
+def multirank_parts(tmp, rank):
+    """Phase 43's parts (b) to (d) on one rank of two sharing the card;
+    every rank runs every part in the same order (each builds process
+    groups and calls collectives). Returns {part: result} with each
+    part's seconds, launches and error against the one-process run."""
+    import contextlib as ctx
+    import hashlib
+    import io
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+    from bayesian_torch_tpu_torch.graft_entry import _dryrun_body
+    from bayesian_torch_tpu_torch.parallel import (make_mesh, mc_forward,
+                                                   replicate, shard_batch,
+                                                   shard_params_tp)
+
+    ref = torch.load(os.path.join(tmp, "ref.pt"), weights_only=False)
+    x, y = ref["x"].cuda(), ref["y"].cuda()
+    gens0 = ref["gens0"]
+    model = multirank_model()
+    model.load_state_dict(ref["state"])
+    model.eval()
+    out = {}
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        res = dict(res, seconds=round(time.perf_counter() - t0, 1),
+                   launches=nonzero(counts()))
+        out[name] = res
+        log(f"[multirank] rank {rank} {name}: "
+            + json.dumps(res, default=str)[:600])
+
+    mc2 = make_mesh(mc=2)
+    data2 = make_mesh(mc=1, data=2)
+    tp2 = make_mesh(mc=1, data=1, model=2)
+
+    def forward(mesh, want, **kw):
+        set_gens(model, gens0)
+        with torch.no_grad():
+            got = mc_forward(model, shard_batch(x, mesh), NUM_MC, mesh=mesh,
+                             return_kl=False, **kw)
+        return {"err": max_err(got, want.cuda()),
+                "bound": bf16_bound(want),
+                "finite": bool(torch.isfinite(got).all()),
+                "shape": tuple(got.shape)}
+
+    part("mc=2 scan", lambda: forward(mc2, ref["scan"], emission="scan"))
+    part("data=2 scan", lambda: forward(data2, ref["scan"],
+                                        emission="scan"))
+    with pointwise_dot():
+        part("mc=2 vmap CONV_1X1_DOT", lambda: forward(
+            mc2, ref["dot"], emission="vmap"))
+
+    def vmap_step(dtype):
+        model.load_state_dict(ref["state"])
+        model.train()
+        set_gens(model, gens0)
+        opt = torch.optim.SGD(model.parameters(), lr=MULTIRANK_LR)
+        with (f32_compute(model) if dtype == "f32"
+              else contextlib.nullcontext()):
+            loss, _, _ = make_train_step(TRAIN_MC, BATCH, mc2,
+                                         emission="vmap")(
+                model, opt, shard_batch(x, mc2), y)
+        want = ref["steps"][dtype]
+        errs = sorted(((max_err(p, want["after"][n].cuda()), n)
+                       for n, p in model.named_parameters()), reverse=True)
+        return {"loss": float(loss), "loss_one_process": want["loss"],
+                "param_err": errs[0][0], "update": want["update"],
+                "worst": errs[:3]}
+
+    for dtype in ("bf16", "f32"):
+        part(f"mc=2 vmap MC-{TRAIN_MC} bs{BATCH} {dtype} SGD step",
+             lambda: vmap_step(dtype))
+
+    def loop_step():
+        set_gens(model, gens0)
+        opt = torch.optim.SGD(model.parameters(), lr=MULTIRANK_LR)
+        xs = x[:LOOP_BATCH]
+        loss, _, _ = make_train_step(LOOP_MC, LOOP_BATCH, mc2,
+                                     emission="scan")(
+            model, opt, shard_batch(xs, mc2), y[:LOOP_BATCH])
+        return {"loss": float(loss), "finite": bool(all(
+            torch.isfinite(p).all() for p in model.parameters()))}
+
+    part(f"mc=2 scan MC-{LOOP_MC} bs{LOOP_BATCH} SGD step", loop_step)
+    del model
+    torch.cuda.empty_cache()
+
+    def tensor_parallel():
+        tp_model = multirank_model()
+        tp_model.load_state_dict(ref["state"])
+        replicate(tp_model, tp2)
+        count = shard_params_tp(tp_model, tp2)
+        tp_model.eval()
+        set_gens(tp_model, gens0)
+        with torch.no_grad():
+            got = mc_forward(tp_model, x[:TP_BATCH], TP_MC, return_kl=False,
+                             emission="vmap")
+        return {"sharded": count, "err": max_err(got, ref["tp"].cuda()),
+                "bound": bf16_bound(ref["tp"])}
+
+    part(f"model=2 TP MC-{TP_MC} bs{TP_BATCH}", tensor_parallel)
+    torch.cuda.empty_cache()
+    part("dryrun_multichip(2)", lambda: _dryrun_body(MULTIRANK_WORLD,
+                                                     "cuda"))
+    torch.cuda.empty_cache()
+
+    def trainer():
+        from bayesian_torch_tpu_torch.examples import main_bayesian_imagenet
+
+        built = []
+        real = main_bayesian_imagenet.get_model
+        main_bayesian_imagenet.get_model = \
+            lambda *a, **k: built.append(real(*a, **k)) or built[-1]
+        argv = ["--synthetic", f"--batch-size={TRAINER_BATCH}",
+                "--num_mc=2", "--mesh-mc=2",
+                f"--save_dir={os.path.join(tmp, 'trainer')}"]
+        text = io.StringIO()
+        try:
+            with ctx.redirect_stdout(text):
+                main_bayesian_imagenet.main(argv + ["--epochs=2"])
+                dist.barrier()
+                metrics = main_bayesian_imagenet.main(
+                    argv + ["--epochs=3", "--resume"])
+        finally:
+            main_bayesian_imagenet.get_model = real
+        digest = hashlib.sha256()
+        for t in built[-1].state_dict().values():
+            digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+        lines = text.getvalue().strip().splitlines()
+        # only the mesh's first rank prints
+        return {"digest": digest.hexdigest(), "metrics": metrics,
+                "resumed": any("resumed from epoch 2" in ln
+                               for ln in lines), "last_lines": lines[-2:]}
+
+    part("imagenet trainer --mesh-mc=2", trainer)
+    return out
+
+
+def multirank_rank(tmp, rank, world, port):
+    """A spawned rank of phase 43: join the world (gloo: two ranks on one
+    card), run ``multirank_parts``, pickle the result or the error."""
+    import os
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    from bayesian_torch_tpu_torch.parallel import initialize
+
+    try:
+        initialize(f"127.0.0.1:{port}", num_processes=world,
+                   process_id=rank, initialization_timeout=300)
+        result = ("ok", dict(multirank_parts(tmp, rank),
+                             backend=dist.get_backend()))
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        result = ("err", traceback.format_exc())
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def spawn_multirank(tmp):
+    """Run ``multirank_rank`` in MULTIRANK_WORLD processes of this
+    script's directory; kill them after MULTIRANK_TIMEOUT seconds.
+    Returns each rank's result; raises with a failing rank's traceback
+    and the tail of its output."""
+    import os
+    import pickle
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    procs, logs = [], []
+    for r in range(MULTIRANK_WORLD):
+        logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke as c; "
+             f"c.multirank_rank({tmp!r}, {r}, {MULTIRANK_WORLD}, {port})"],
+            cwd=root, stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + MULTIRANK_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"chip_smoke: phase 43's ranks did not finish "
+                           f"within {MULTIRANK_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    results = []
+    for r in range(MULTIRANK_WORLD):
+        path = os.path.join(tmp, f"rank{r}.pkl")
+        with open(os.path.join(tmp, f"rank{r}.log")) as f:
+            tail = f.read()[-6000:]
+        check(os.path.exists(path), f"rank {r} wrote no result:\n{tail}")
+        with open(path, "rb") as f:
+            kind, value = pickle.load(f)
+        check(kind == "ok", f"rank {r} failed:\n{value}\n{tail}")
+        results.append(value)
+    return results
+
+
+def loader_rates():
+    """(e) One epoch of LOADER_IMAGES 224x224 images at batch 128 to the
+    card through the native ``DataLoader`` and through its numpy path:
+    batches per second each, the native order checked to be a
+    permutation."""
+    import numpy as np
+    import torch
+
+    from bayesian_torch_tpu_torch.data import DataLoader, native_available
+
+    check(native_available(), "the native DataLoader did not build")
+    rng = np.random.default_rng(SEED + 820)
+    x = rng.standard_normal((LOADER_IMAGES, 3, IMAGE, IMAGE),
+                            dtype=np.float32)
+    x[:, 0, 0, 0] = np.arange(LOADER_IMAGES)
+    y = rng.integers(0, 1000, LOADER_IMAGES, dtype=np.int32)
+    loader = DataLoader(x, y, batch_size=BATCH, num_workers=4)
+    rates, seen = {}, []
+    for name, epoch in (("native", loader.epoch),
+                        ("numpy", loader._numpy_epoch)):
+        for warm in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = 0
+            for xb, yb in epoch(1):
+                xd = torch.from_numpy(xb).to("cuda")
+                torch.from_numpy(yb).to("cuda")
+                if name == "native" and not warm:
+                    seen.append(xd[:, 0, 0, 0].long().cpu())
+                n += 1
+            torch.cuda.synchronize()
+            if not warm:
+                rates[name] = n / (time.perf_counter() - t0)
+    order = torch.cat(seen).tolist()
+    check(sorted(order) == list(range(LOADER_IMAGES)),
+          "the native loader's epoch is not a permutation")
+    return rates
+
+
+def phase_multirank():
+    """Phase 43: the mesh paths (see the module docstring). Returns
+    ({kernel: {path: launches}}, results)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    seconds, res = {}, {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    model = timed("build", multirank_model)
+    set_bn_statistics(model, images(MULTIRANK_SEED + 1))
+    x, y = images(MULTIRANK_SEED + 2), labels(MULTIRANK_SEED + 2)
+    gens0 = gen_states(model)
+    refs = {}
+
+    def one_process():
+        with torch.no_grad():
+            for name, kw, ctx in (
+                    ("scan", dict(emission="scan"), contextlib.nullcontext),
+                    ("vmap", dict(emission="vmap"), contextlib.nullcontext),
+                    ("dot", dict(emission="vmap"), pointwise_dot)):
+                set_gens(model, gens0)
+                with ctx():
+                    refs[name] = mc_forward(model, x, NUM_MC,
+                                            return_kl=False, **kw)
+            set_gens(model, gens0)
+            refs["tp"] = mc_forward(model, x[:TP_BATCH], TP_MC,
+                                    return_kl=False, emission="vmap")
+
+    timed("one-process references", one_process)
+    res["(a) one-rank NCCL world"] = timed(
+        "(a) NCCL world of one", multirank_one_process, model, x, gens0,
+        refs["vmap"])
+    log(f"[multirank] (a) an NCCL world of one: mc_forward(mesh=make_mesh("
+        f"mc=1)) against no mesh, max |diff| and launches: "
+        f"{res['(a) one-rank NCCL world']}")
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def step(dtype):
+        model.load_state_dict(state)
+        model.train()
+        set_gens(model, gens0)
+        opt = torch.optim.SGD(model.parameters(), lr=MULTIRANK_LR)
+        with (f32_compute(model) if dtype == "f32"
+              else contextlib.nullcontext()):
+            loss, _, _ = make_train_step(TRAIN_MC, BATCH, emission="vmap")(
+                model, opt, x, y)
+        return {"loss": float(loss),
+                "after": {n: p.detach().cpu().clone()
+                          for n, p in model.named_parameters()},
+                "update": max(max_err(p, before[n])
+                              for n, p in model.named_parameters())}
+
+    steps = {dtype: timed(f"one-process {dtype} step", step, dtype)
+             for dtype in ("bf16", "f32")}
+    again = timed("one-process bf16 step again", step, "bf16")
+    spread = max(max_err(again["after"][n], p)
+                 for n, p in steps["bf16"]["after"].items())
+    log(f"[multirank] the one-process vmap MC-{TRAIN_MC} bs{BATCH} bf16 SGD "
+        f"step twice from one state: parameters differ by {spread:.3e}, "
+        f"loss {steps['bf16']['loss']} and {again['loss']}")
+    del model, before, again
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"state": state, "gens0": gens0, "x": x.cpu(),
+                    "y": y.cpu(), "steps": steps,
+                    **{k: v.cpu() for k, v in refs.items()}},
+                   os.path.join(tmp, "ref.pt"))
+        del state, steps
+        ranks = timed("(b)-(d) two ranks", spawn_multirank, tmp)
+    for rank, r in enumerate(ranks):
+        for name, got in r.items():
+            if isinstance(got, dict):
+                log(f"[multirank] rank {rank} {name}: " + json.dumps(
+                    got, default=str))
+    paths = {k: {} for k in ("K-A", "K-C dsigma", "K-C drho", "K-F", "K-G")}
+    # gloo for two ranks sharing the one card; NCCL, one card a rank, on
+    # a machine with more cards
+    backend = "nccl" if torch.cuda.device_count() >= MULTIRANK_WORLD \
+        else "gloo"
+    for rank, r in enumerate(ranks):
+        check(r["backend"] == backend, f"rank {rank}: {r['backend']}, want "
+              f"{backend}")
+        for name, got in r.items():
+            if not isinstance(got, dict):
+                continue
+            for k in paths:
+                if got["launches"].get(k):
+                    paths[k][f"mesh {name} (rank {rank})"] = \
+                        got["launches"][k]
+            if "bound" in got:
+                check(got["finite"] if "finite" in got else True,
+                      f"rank {rank} {name}: output not finite")
+                check(got["err"] <= got["bound"], f"rank {rank} {name}: "
+                      f"{got['err']:.3e} from one process, bound "
+                      f"{got['bound']:.3e}")
+        mc2 = r["mc=2 scan"]
+        check(mc2["launches"].get("K-A") == 1, f"rank {rank}: the mc=2 "
+              f"loop's K-A launches {mc2['launches']}, want 1 (its lanes)")
+        dot = r["mc=2 vmap CONV_1X1_DOT"]
+        check(dot["launches"].get("K-G") == N_POINTWISE,
+              f"rank {rank}: K-G {dot['launches']}")
+        for dtype in ("bf16", "f32"):
+            vstep = r[f"mc=2 vmap MC-{TRAIN_MC} bs{BATCH} {dtype} SGD step"]
+            check(vstep["launches"].get("K-C dsigma", 0) > 0,
+                  f"rank {rank}: no K-C dsigma in the {dtype} vmap step")
+        # gated in f32 without TF32, where the ranks' sums differ from one
+        # process's by their order alone; the bf16 step is printed
+        check(vstep["param_err"] <= vstep["update"] / 256,
+              f"rank {rank}: f32 parameters {vstep['param_err']:.3e} from "
+              f"the one-process step (its update {vstep['update']:.3e}); "
+              f"{vstep}")
+        lstep = r[f"mc=2 scan MC-{LOOP_MC} bs{LOOP_BATCH} SGD step"]
+        check(lstep["finite"] and lstep["launches"].get("K-C drho", 0) > 0,
+              f"rank {rank}: loop step {lstep}")
+        check(r["dryrun_multichip(2)"]["launches"].get("K-F", 0) > 0,
+              f"rank {rank}: no K-F under the mesh")
+        tr = r["imagenet trainer --mesh-mc=2"]
+        check(0.0 <= tr["metrics"]["accuracy"] <= 1.0,
+              f"rank {rank}: trainer {tr}")
+    check(ranks[0]["imagenet trainer --mesh-mc=2"]["resumed"],
+          "the trainer's rank 0 did not resume from epoch 2")
+    check(ranks[0]["imagenet trainer --mesh-mc=2"]["digest"]
+          == ranks[1]["imagenet trainer --mesh-mc=2"]["digest"],
+          "the trainer's ranks ended with different weights")
+    res["ranks"] = ranks
+    res["(e) loader batches/s"] = timed("(e) loader", loader_rates)
+    log(f"[multirank] (e) the native loader against the numpy path, "
+        f"batches/s of {BATCH} {IMAGE}² images to the card: "
+        f"{res['(e) loader batches/s']}; {card()}")
+    log(f"[multirank] seconds per part: {seconds}")
+    for k, v in paths.items():
+        check(v, f"{k} never ran on phase 43's paths")
+    return paths, res
+
+
 def main(argv=None):
     import argparse
 
@@ -4727,6 +5251,7 @@ def main(argv=None):
     int8_paths, flipout_int8, int8_probes = phase_int8_remainder()
     lstm_paths, lstm_res = phase_lstm()
     modes_paths, modes_res = phase_modes()
+    mesh_paths, mesh_res = phase_multirank()
 
     csrc = "bayesian_torch_tpu_torch/csrc/"
     pallas = "bayesian_torch_tpu/ops/pallas/"
@@ -4744,7 +5269,8 @@ def main(argv=None):
                  "presample='auto', 3 batches",
              launches=main_path["K-A"],
              paths=dict(zoo["K-A"], **lstm_paths["K-A"],
-                        **modes_paths["K-A"]), **ka_res),
+                        **modes_paths["K-A"], **mesh_paths["K-A"]),
+             **ka_res),
         dict(name="sampled_matmul", route="cuda",
              source=csrc + "sampled_matmul.cu",
              replaces=pallas + "sampled_matmul.py:62",
@@ -4757,14 +5283,16 @@ def main(argv=None):
              run=vmap_train_run + "; one launch per layer and step",
              launches=vmap_train["K-C dsigma"],
              paths=dict(zoo["K-C dsigma"], **lstm_paths["K-C dsigma"],
-                        **modes_paths["K-C dsigma"]),
+                        **modes_paths["K-C dsigma"],
+                        **mesh_paths["K-C dsigma"]),
              **kc_res["dsigma"]),
         dict(name="sampled_weights_bwd (drho)", route="cuda",
              source=csrc + "sampled_weights_bwd.cu",
              replaces=pallas + "sampled_weights.py:68",
              run=train_run, launches=train["K-C drho"],
              paths=dict(zoo["K-C drho"], **lstm_paths["K-C drho"],
-                        **modes_paths["K-C drho"]),
+                        **modes_paths["K-C drho"],
+                        **mesh_paths["K-C drho"]),
              **kc_res["drho"]),
         dict(name="sampled_matmul_dx", route="cuda",
              source=csrc + "sampled_matmul_bwd.cu",
@@ -4793,7 +5321,8 @@ def main(argv=None):
              launches=kf_launches + flipout_int8["launches"],
              paths=dict(zoo["K-F"], **{
                  f"int8 reparameterization MC-{NUM_MC} bs{BATCH} batches":
-                 kf_launches}, **int8_paths, **modes_paths["K-F"]),
+                 kf_launches}, **int8_paths, **modes_paths["K-F"],
+                 **mesh_paths["K-F"]),
              cifar_resnet20_bs128=zoo_kf, int8_flipout=flipout_int8,
              grouped_probe=int8_probes["resnext"],
              transposed_probes={k: v for k, v in int8_probes.items()
@@ -4822,7 +5351,7 @@ def main(argv=None):
                  f"(torch.matmul, broadcast weight) are device-time sums "
                  f"over one "
                  f"forward's {N_POINTWISE} pointwise sites, bf16",
-             launches=pointwise["K-G"], **kg_res),
+             launches=pointwise["K-G"], paths=mesh_paths["K-G"], **kg_res),
         dict(name="mc_gemm (S=1: bf16, int8)", route="cuda",
              source=csrc + "mc_gemm.cu",
              replaces="benchmarks/bench_mosaic_matmul.py:34",
@@ -4857,6 +5386,8 @@ def main(argv=None):
         f"; K-F launches in the bnn2qbnn pipeline: {surgery_kf}")
     log(f"[lstm] {card()}: " + json.dumps(lstm_res))
     log(f"[modes] {card()}: " + json.dumps(modes_res, default=str))
+    log(f"[multirank] {card()}: (a) {mesh_res['(a) one-rank NCCL world']},"
+        f" (e) loader batches/s {mesh_res['(e) loader batches/s']}")
     log(f"[time] profiler sessions of the kernel timings: "
         f"{SESSIONS['sessions']}, taken again {SESSIONS['retried']}")
     log(f"[time] every phase passed in {time.perf_counter() - t_start:.0f} s")

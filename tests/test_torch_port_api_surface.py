@@ -93,11 +93,47 @@ def test_same_name_same_class_across_paths():
         assert getattr(L, name) is getattr(FL, name)
 
 
+def test_parallel_and_data_namespaces():
+    """The JAX package's ``parallel`` and ``data`` imports, the prefix
+    swapped (``from bayesian_torch_tpu.parallel import make_mesh, ...``,
+    ``from bayesian_torch_tpu.data import DataLoader``)."""
+    import bayesian_torch_tpu.parallel as jpar
+    from bayesian_torch_tpu_torch.data import DataLoader  # noqa: F401
+    from bayesian_torch_tpu_torch.data.loader import (  # noqa: F401
+        native_available,
+    )
+    import bayesian_torch_tpu_torch.parallel as tpar
+    from bayesian_torch_tpu_torch.parallel import (  # noqa: F401
+        initialize,
+        make_mesh,
+        mc_forward,
+        mc_vmap,
+        replicate,
+        shard_batch,
+        shard_params_tp,
+    )
+    from bayesian_torch_tpu_torch.parallel.distributed import (  # noqa: F401
+        initialize as initialize_,
+    )
+    from bayesian_torch_tpu_torch.parallel.mesh import (  # noqa: F401
+        make_mesh as make_mesh_,
+    )
+    from bayesian_torch_tpu_torch.parallel.tp import (  # noqa: F401
+        shard_params_tp as shard_params_tp_,
+    )
+
+    public = {n for n in dir(jpar) if not n.startswith("_")
+              and callable(getattr(jpar, n))}
+    assert public <= set(dir(tpar)), public - set(dir(tpar))
+
+
 @pytest.mark.parametrize("first", [
     "bayesian_torch_tpu_torch.utils",
     "bayesian_torch_tpu_torch.ao.quantization",
     "bayesian_torch_tpu_torch.layers.variational_layers",
-    "bayesian_torch_tpu_torch.quantization"])
+    "bayesian_torch_tpu_torch.quantization",
+    "bayesian_torch_tpu_torch.parallel",
+    "bayesian_torch_tpu_torch.data"])
 def test_package_imports_on_its_own(first):
     """``utils`` and ``ao.quantization`` raised a circular ImportError when
     imported first; ``ao/quantization/quantize.py`` now imports the layers

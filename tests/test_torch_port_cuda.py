@@ -8,8 +8,10 @@ K-D and K-E (its split-TF32 products and lane sums) across the edges of
 their tiles, K-A's rho mode (the single draw's softplus in the kernel),
 autograd through the public ops, K-F (the fused int8 GEMM + requantize)
 with the quantized convs built on it (and at the CIFAR ResNet's and the
-SCNN's GEMM shapes), K-A and K-C at the CIFAR ResNet's layer sizes, and K-G (the per-draw GEMM behind
-the pointwise emission) in bf16, f32 and int8. They skip without a
+SCNN's GEMM shapes), K-A and K-C at the CIFAR ResNet's layer sizes, K-G
+(the per-draw GEMM behind the pointwise emission) in bf16, f32 and int8,
+and K-A and K-C under a counter window (a rank's lanes, a tensor-parallel
+shard's rows) against the whole launch. They skip without a
 CUDA device. On a machine with one, and without JAX, run them with
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
@@ -1104,3 +1106,68 @@ def test_lstm_on_the_card_matches_a_cpu_copy(cuda, estimator, per_step):
         outs.append([out, c] + [p.grad for p in mod.parameters()])
     for want, got in zip(*outs):
         torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-4)
+
+
+# --- the counter window of K-A and K-C (mc_forward(mesh=), shard_params_tp)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rho_mode", [False, True])
+@pytest.mark.parametrize("n,shards", [(4096, 4), (3 * 1001, 3)])
+def test_windowed_sampler_equals_the_whole_launch(cuda, out_dtype, rho_mode,
+                                                   n, shards):
+    """K-A with a window (lane0, lane stride, offset): lanes [2, 5) of a
+    5-lane launch over n elements, and each dim-0 shard's rows of them,
+    equal those elements of the whole launch bit for bit, in both of K-A's
+    modes (sigma given, or rho with the softplus in the kernel)."""
+    mu, sigma, rho = _posterior((n,), cuda, seed=3)
+    seed, S = 0x0DDB_A11_5EED, 5
+    if rho_mode:
+        whole = torch.stack([ka.sample_gaussian(
+            seed, mu, rho, out_dtype, window=(s, n, 0)) for s in range(S)])
+        assert torch.equal(whole[0], ka.sample_gaussian(seed, mu, rho,
+                                                        out_dtype))
+    else:
+        whole = sample_scaled_normals_batch(seed, mu, sigma, S, out_dtype)
+        assert torch.equal(
+            sample_scaled_normals_batch(seed, mu, sigma, 3, out_dtype,
+                                        window=(2, n, 0)), whole[2:])
+    rows = n // shards
+    for r in range(shards):
+        part = slice(r * rows, (r + 1) * rows)
+        if rho_mode:
+            got = torch.stack([ka.sample_gaussian(
+                seed, mu[part], rho[part], out_dtype,
+                window=(s, n, r * rows)) for s in range(2, S)])
+        else:
+            got = sample_scaled_normals_batch(
+                seed, mu[part], sigma[part], 3, out_dtype,
+                window=(2, n, r * rows))
+        torch.cuda.synchronize()
+        assert torch.equal(got, whole[2:, part]), r
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,shards", [(4096, 4), (3 * 1001, 3)])
+def test_windowed_noise_grad_equals_the_whole_launch(cuda, g_dtype, n,
+                                                      shards):
+    """K-C with a window: dsigma over lanes [2, 5) of a shard's rows, and
+    drho of one draw's shard, equal those elements of the whole launch's
+    gradient (the cotangent zero elsewhere) bit for bit."""
+    g = torch.Generator().manual_seed(9)
+    _, _, rho = _posterior((n,), cuda, seed=4)
+    seed, S = 0x5EED_0F_C0DE, 5
+    rows = n // shards
+    for r in range(shards):
+        part = slice(r * rows, (r + 1) * rows)
+        cot = torch.randn((3, rows), generator=g).to(cuda, g_dtype)
+        placed = torch.zeros((S, n), device=cuda, dtype=g_dtype)
+        placed[2:, part] = cot
+        got = ka.dsigma(seed, cot, window=(2, n, r * rows))
+        assert torch.equal(got, ka.dsigma(seed, placed)[part]), r
+        one = cot[0].float()
+        placed1 = torch.zeros(n, device=cuda)
+        placed1[part] = one
+        got = ka.drho(seed, one, rho[part], window=(0, n, r * rows))
+        assert torch.equal(got, ka.drho(seed, placed1, rho)[part]), r
+    torch.cuda.synchronize()

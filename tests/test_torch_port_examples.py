@@ -9,7 +9,8 @@ metrics (``bayesian_torch_tpu_torch/examples``, ``utils/util.py``,
   trains, resumes and tests, and 2 epochs run through equal 1 epoch plus
   a resumed one, bit for bit on the CPU (as tests/test_resume.py);
 - the engine's ``train`` resumes the same way, ``evaluate`` refuses a
-  test split smaller than one batch, and the unported flags raise;
+  test split smaller than one batch, and ``--mesh-mc=2`` in one process
+  raises ``make_mesh``'s error;
 - the deterministic trainer, the Bayesian trainer with ``--moped`` from
   its checkpoint, the ``dnn_to_bnn`` trainer and the INT8 pipeline run on
   resnet18 at 32x32: train, then test (INT8: float eval, then INT8 eval);
@@ -122,13 +123,17 @@ def test_trainer_resume_equals_an_uninterrupted_run(tmp_path, monkeypatch):
 
 
 def test_trainer_refuses_unported_flags():
-    """Only ``--mesh-mc`` above 1 is left to refuse; ``--remat`` and
-    ``--structured-mc`` run (test_torch_port_modes.py)."""
-    assert set(engine.UNPORTED) == {"mesh_mc"}
-    with pytest.raises(NotImplementedError, match="#15"):
+    """No flag is left unported: ``--remat`` and ``--structured-mc`` run
+    (test_torch_port_modes.py), and so does ``--mesh-mc`` under torchrun
+    (test_torch_port_parallel.py); in one process ``--mesh-mc=2`` finds
+    one rank for two 'mc' slots and raises ``make_mesh``'s error, as the
+    JAX trainer does on one device."""
+    assert not hasattr(engine, "UNPORTED")
+    assert not hasattr(engine, "refuse_unported")
+    with pytest.raises(ValueError, match="not divisible by mc"):
         trainer.main(["--synthetic", "--device=cpu", "--mesh-mc=2"])
-    engine.refuse_unported(trainer.build_parser().parse_args(
-        ["--remat", "--structured-mc"]))
+    args = trainer.build_parser().parse_args(["--remat", "--structured-mc"])
+    assert args.remat and args.structured_mc and args.mesh_mc == 1
 
 
 COMMON = ["--arch=resnet18", "--num-classes=10", "--batch-size=16",
@@ -425,9 +430,10 @@ def test_small_model_trainers_default_to_cuda(small_trainers):
             assert mod.build_parser().parse_args([]).device == "cuda", name
     assert main_deterministic_imagenet.evaluate_det is \
         small_trainers["det_mnist"].evaluate_det
-    with pytest.raises(NotImplementedError, match="#15"):
+    # one process holds one rank: two 'mc' slots do not fit
+    with pytest.raises(ValueError, match="not divisible by mc"):
         small_trainers["cifar"].main(SMALL + ["--mesh-mc=2"])
-    with pytest.raises(NotImplementedError, match="#15"):
+    with pytest.raises(ValueError, match="not divisible by mc"):
         small_trainers["mnist"].main(SMALL + ["--mesh-mc=2"])
 
 

@@ -167,15 +167,25 @@ def test_eval_only_guard_and_unported_modes():
     """Training mode is ported (a module in training mode now trains, with
     gradients and one BN update), and so is the vmap emission
     (test_torch_port_vmap.py), and so is the structured emission
-    (test_torch_port_modes.py); the mesh emission and the TPU presample
-    variants still raise, and so does a plain torch BN that would update
-    once per draw."""
+    (test_torch_port_modes.py), and so is ``mesh=`` (a mesh of one
+    process gives the forward without a mesh; many ranks:
+    test_torch_port_parallel.py), which refuses what is not a mesh; the
+    TPU presample variants still raise, and so does a plain torch BN that
+    would update once per draw."""
+    from bayesian_torch_tpu_torch.parallel import make_mesh
+
     _, tm, _ = tiny_twins(seed=7)
     x = torch.randn(2, 3, 16, 16)
-    for kw in (dict(mesh=object()), dict(presample="xla"),
-               dict(presample="hash")):
+    for kw in (dict(presample="xla"), dict(presample="hash")):
         with pytest.raises(NotImplementedError):
             tmc.mc_forward(tm, x, 2, **kw)
+    with pytest.raises(TypeError, match="make_mesh"):
+        tmc.mc_forward(tm, x, 2, mesh=object())
+    gen = tm.conv1.generator.get_state()
+    want = tmc.mc_forward(tm, x, 2, return_kl=False, emission="vmap")
+    tm.conv1.generator.set_state(gen)
+    got = tmc.mc_forward(tm, x, 2, return_kl=False, mesh=make_mesh())
+    assert torch.equal(got, want)  # "auto" is vmap under a mesh
     out = tmc.mc_forward(tm, x, 2, return_kl=False, structured=True)
     assert out.shape == (2, 2, 10)
     for kw in (dict(emission="bogus"), dict(reduce="sum"),

@@ -162,7 +162,13 @@ def test_structured_falls_back_and_mesh_raises():
     with pytest.warns(RuntimeWarning, match="module 'head' \\(Linear\\)"):
         out = tmc.mc_forward(tm, x, S, return_kl=False, structured=True)
     assert out.shape == (S, B, 10)
-    with pytest.raises(NotImplementedError, match="#15"):
+    # under a mesh of one process it falls back alike; a non-mesh raises
+    from bayesian_torch_tpu_torch.parallel import make_mesh
+    with pytest.warns(RuntimeWarning, match="module 'head' \\(Linear\\)"):
+        meshed = tmc.mc_forward(tm, x, S, return_kl=False, structured=True,
+                                mesh=make_mesh())
+    assert meshed.shape == (S, B, 10)
+    with pytest.raises(TypeError, match="make_mesh"):
         tmc.mc_forward(tm, x, S, structured=True, mesh=object())
 
 

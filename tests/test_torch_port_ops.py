@@ -409,7 +409,10 @@ def test_port_never_imports_jax():
                 "layers/variational_layers/rnn_variational.py",
                 "layers/flipout_layers/rnn_flipout.py",
                 "examples/main_bayesian_lstm_timeseries.py",
-                "ops/remat.py", "utils/profiling.py"):
+                "ops/remat.py", "utils/profiling.py",
+                "parallel/mesh.py", "parallel/distributed.py",
+                "parallel/tp.py", "parallel/_comm.py", "data/__init__.py",
+                "data/loader.py"):
         assert root / new in paths, new
     paths += [root.parent / "chip_smoke.py", root.parent / "kernel_times.py"]
     modules = []

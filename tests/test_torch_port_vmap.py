@@ -328,7 +328,8 @@ def test_modules_without_a_draw_axis_raise_and_name_themselves():
                         (calibrating, "'fc' (LinearReparameterization)")):
         with pytest.raises(NotImplementedError, match=re.escape(name)):
             tmc.mc_forward(model, x, S, emission="vmap")
-    with pytest.raises(NotImplementedError, match="#15"):
+    # a mesh is no module: only a non-mesh object is refused, by its type
+    with pytest.raises(TypeError, match="make_mesh"):
         tmc.mc_forward(tm, x, S, emission="vmap", mesh=object())
     # structured=True names the module and falls back to the draw loop
     with pytest.warns(RuntimeWarning, match=re.escape(
