@@ -7,3 +7,7 @@ never jax. The kernels in ``csrc/`` are built with nvcc at their first
 CUDA call (``ops/cuda/_build.py``); on CPU tensors every kernel wrapper
 takes its plain torch version.
 """
+
+from bayesian_torch_tpu_torch.quantization import convert, prepare  # noqa: F401,E402
+
+__version__ = "0.1.0"

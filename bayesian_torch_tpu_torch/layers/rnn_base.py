@@ -17,10 +17,11 @@ Three branches, as in the JAX layer:
   is known for every step before the recurrence and is one batched product;
   the recurrent half is a loop over t. Flipout draws the perturbations
   ``sigma * eps`` on a zero mean the same way and takes its signs from one
-  ``rademacher_fused`` call per block and side over the whole sequence;
+  counter-hash call per block and side over the whole sequence;
 - one draw per sequence (``resample_per_step=False``): one draw of each
   tensor (K-A's rho mode), then the loop with fixed weights. As in the JAX
-  layer this branch samples whole weights for both estimators;
+  layer this branch samples whole weights for both estimators, in the
+  parameters' dtype (the compute dtype applies to the per-step branch);
 - the quantized cell, taken once ``bnn_to_qbnn`` has quantized ``ih`` and
   ``hh``: one f32 weight per sequence and draw, ``dequantize(q_mu) +
   dequantize(q_sigma) * eps`` (eps from a device generator seeded by the
@@ -32,6 +33,14 @@ the input is (B, T, in), shared by the draws, or (B, T, S*in) with draw s
 in block s; the state is (B, S*H) and the outputs (B, T, S*H). The S*T
 weight sets of each tensor come from one K-A launch (lane s*T + t is draw
 s, step t); the quantized cell draws its S weights of each block at once.
+
+Under ``mc_forward(mesh=)`` a rank computes its block of the single
+process's draws and rows: its draws' T lanes of each K-A launch (a counter
+window, ``ops.sampling.step_lanes``; K-C differentiates the same window),
+its block of each sign tensor (``rademacher_block``), its draws of the
+quantized cell's normals, and its rows of a whole-batch initial state.
+Under ``shard_params_tp`` the LSTM gathers its blocks' shards at each
+forward and runs the replicated cell (``parallel/tp.py``).
 
 Injected noise (keyword-only, each a pair ``(ih, hh)``): ``eps_w`` /
 ``eps_b`` with a leading T axis per step (none in the other two branches),
@@ -52,12 +61,14 @@ from bayesian_torch_tpu_torch.layers.base_variational_layer import (
 )
 from bayesian_torch_tpu_torch.ops.int8 import dequantize
 from bayesian_torch_tpu_torch.ops.sampling import (cast_to,
+                                                   current_window,
                                                    device_generator,
                                                    draw_seed,
-                                                   rademacher_fused,
-                                                   refuse_window,
+                                                   rademacher_block,
                                                    sigma_from_rho,
-                                                   sign_salts)
+                                                   sign_salts, step_lanes,
+                                                   window_block,
+                                                   window_lanes)
 
 
 def _pair(hook):
@@ -67,6 +78,12 @@ def _pair(hook):
 class _BaseLSTMLayer(BaseVariationalLayer):
     estimator = "reparameterization"  # or "flipout"
     takes_draw_axis = True
+    # the per-step weights are drawn for the sequence the forward is given,
+    # so mc_forward's presample leaves them to the forward
+    draws_in_forward = True
+    # shard_params_tp keeps these blocks' row shards and gathers them at
+    # each forward (parallel/tp.py)
+    tp_blocks = ("ih", "hh")
 
     def __init__(self,
                  in_features: int,
@@ -117,7 +134,6 @@ class _BaseLSTMLayer(BaseVariationalLayer):
                 eps_w=None, eps_b=None, sign_in=None, sign_out=None):
         if self.dnn_to_bnn_flag:
             return_kl = False
-        refuse_window(type(self).__name__)
         draws = getattr(self, "_mc_draws", None) or 1
         x, h0, c0 = self._lanes_in(X, hidden_states, draws)
         if hasattr(self.ih, "quantized_mu_weight"):
@@ -148,13 +164,25 @@ class _BaseLSTMLayer(BaseVariationalLayer):
                 f"{type(self).__name__} over {draws} draws: input has {feat} "
                 f"features, want {self.in_features} (shared) or "
                 f"{draws * self.in_features} (one block per draw)")
-        dtype = self.compute_dtype or X.dtype
         if hidden_states is None:
-            zeros = torch.zeros((draws, B, H), dtype=dtype, device=X.device)
+            # the state is carried in the input's dtype, as in JAX; the
+            # products run in the compute dtype
+            zeros = torch.zeros((draws, B, H), dtype=X.dtype,
+                                device=X.device)
             return x, zeros, zeros
-        h0, c0 = (s.reshape(B, -1, H).transpose(0, 1).expand(draws, B, H)
-                  .to(dtype) for s in hidden_states)
+        h0, c0 = (self._state_block(s, B, draws) for s in hidden_states)
         return x, h0, c0
+
+    def _state_block(self, state, B, draws):
+        """A caller's (rows, [S*]H) state as (S, B, H); under a mesh that
+        splits the batch a whole-batch state gives this rank's rows, as
+        the input is split."""
+        w = current_window()
+        if w is not None and w.splits_rows and state.shape[0] == w.rows \
+                and B != w.rows:
+            state = state[w.row0:w.row0 + B]
+        H = self.out_features
+        return state.reshape(B, -1, H).transpose(0, 1).expand(draws, B, H)
 
     def _lanes_out(self, seq):
         """(S, T, B, H) -> (B, T, H), or (B, T, S*H) under the draw axis."""
@@ -178,12 +206,14 @@ class _BaseLSTMLayer(BaseVariationalLayer):
             cs.append(c)
         return torch.stack(hs, 1), torch.stack(cs, 1)
 
-    def _draw(self, lin, lanes, dtype, eps_w, eps_b, zero_mean):
+    def _draw(self, lin, lanes, dtype, eps_w, eps_b, zero_mean, draws=1):
         """``lanes`` draws of block ``lin``'s weight (lanes, 4H, K) and bias
         (lanes, 4H) or None, in ``dtype``: ``mu + sigma * eps``, or with
-        ``zero_mean`` the Flipout perturbation ``sigma * eps``. Without
-        injected noise each tensor is one K-A launch under a seed of its
-        own (a single lane: K-A's rho mode)."""
+        ``zero_mean`` the Flipout perturbation ``sigma * eps``; ``lanes`` is
+        ``draws`` draws of ``lanes // draws`` steps each. Without injected
+        noise each tensor is one K-A launch under a seed of its own (a
+        single lane: K-A's rho mode); under a mesh that splits the draws,
+        this rank's lanes of the single-process launch (``step_lanes``)."""
         from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
             sample_gaussian,
             sample_gaussian_batch,
@@ -201,27 +231,31 @@ class _BaseLSTMLayer(BaseVariationalLayer):
                 continue
             mean = torch.zeros_like(mu) if zero_mean else mu
             seed = draw_seed(self.generator)
-            if lanes == 1:
+            window = step_lanes(draws, lanes // draws, mu.numel())
+            if lanes == 1 and not window:
                 out.append(sample_gaussian(seed, mean, rho,
                                            out_dtype=dtype)[None])
             else:
                 out.append(sample_gaussian_batch(seed, mean, rho, lanes,
-                                                 dtype))
+                                                 dtype, **window))
         return out
 
     def _forward_float(self, x, h, c, draws, eps_w, eps_b, sign_in,
                        sign_out):
         T, B = x.shape[1], x.shape[2]
-        dtype = self.compute_dtype or self.ih.mu_weight.dtype
-        x = x.to(dtype)
         per_step = self.resample_per_step
+        # as in JAX, one draw per sequence samples and multiplies in the
+        # parameters' dtype whatever the compute dtype
+        dtype = (self.compute_dtype if per_step else None) \
+            or self.ih.mu_weight.dtype
+        x = x.to(dtype)
         flip = per_step and self.estimator == "flipout"
         steps = T if per_step else 1
         (ew_ih, ew_hh), (eb_ih, eb_hh) = _pair(eps_w), _pair(eps_b)
         w_ih, b_ih = self._draw(self.ih, draws * steps, dtype, ew_ih, eb_ih,
-                                flip)
+                                flip, draws)
         w_hh, b_hh = self._draw(self.hh, draws * steps, dtype, ew_hh, eb_hh,
-                                flip)
+                                flip, draws)
 
         def lanes(w, rows=False):
             """(S*steps, ...) -> (S, steps, ...); ``rows``: a bias with a
@@ -240,7 +274,7 @@ class _BaseLSTMLayer(BaseVariationalLayer):
                 if b is not None:
                     gx = gx + b
             return self._recur(gx, h, c, lambda h, t: torch.matmul(
-                h, w_hh[:, t if per_step else 0].transpose(-1, -2)))
+                h.to(dtype), w_hh[:, t if per_step else 0].transpose(-1, -2)))
 
         si_ih, si_hh, so_ih, so_hh = self._signs(
             draws, T, B, dtype, x.device, sign_in, sign_out)
@@ -253,6 +287,7 @@ class _BaseLSTMLayer(BaseVariationalLayer):
         gx = F.linear(x, mu_ih, mu_b_ih) + pert * so_ih
 
         def recurrent(h, t):
+            h = h.to(dtype)
             pert = torch.matmul(h * si_hh[:, t], w_hh[:, t].transpose(-1, -2))
             if b_hh is not None:
                 pert = pert + b_hh[:, t]
@@ -263,7 +298,8 @@ class _BaseLSTMLayer(BaseVariationalLayer):
     def _signs(self, draws, T, B, dtype, device, sign_in, sign_out):
         """The Flipout signs (S, T, B, features) of the ih and hh inputs and
         outputs: injected, or one counter-hash call each under salts of one
-        seed."""
+        seed; under a mesh that splits the draws or the batch, this rank's
+        block of the single-process signs (``window_block``)."""
         H, n_in = self.out_features, self.in_features
         (si_ih, si_hh), (so_ih, so_hh) = _pair(sign_in), _pair(sign_out)
         salts = None
@@ -276,9 +312,12 @@ class _BaseLSTMLayer(BaseVariationalLayer):
                                          (so_ih, 0, 1, 4 * H),
                                          (so_hh, 1, 1, 4 * H)):
             shape = (draws, T, B, feat)
-            out.append(given.reshape(shape).to(dtype) if given is not None
-                       else rademacher_fused(salts[block][side], shape,
-                                             dtype, device))
+            if given is not None:
+                out.append(given.reshape(shape).to(dtype))
+                continue
+            whole, start = window_block(shape, lane_dim=0, row_dim=2)
+            out.append(rademacher_block(salts[block][side], whole, start,
+                                        shape, dtype, device))
         return out
 
     # ---- the quantized cell ---------------------------------------------
@@ -294,11 +333,17 @@ class _BaseLSTMLayer(BaseVariationalLayer):
             gen = device_generator(self.generator,
                                    self.ih.quantized_mu_weight.device)
 
+        # under a mesh that splits the draws: this rank's of them all
+        lane0, lanes = window_lanes(draws)
+
+        def normals(shape, generator, device):
+            return torch.randn((lanes,) + shape, generator=generator,
+                               device=device)[lane0:lane0 + draws]
+
         def weight(lin, eps):
             shape = (draws,) + tuple(lin.quantized_mu_weight.shape)
             if eps is None:
-                eps = torch.randn(shape, generator=gen,
-                                  device=lin.quantized_mu_weight.device)
+                eps = normals(shape[1:], gen, lin.quantized_mu_weight.device)
             return (dequantize(lin.quantized_mu_weight, lin.mu_weight_scale)
                     + dequantize(lin.quantized_sigma_weight,
                                  lin.sigma_weight_scale) * eps.reshape(shape))
@@ -308,8 +353,8 @@ class _BaseLSTMLayer(BaseVariationalLayer):
                 return None
             shape = (draws,) + tuple(lin.quantized_mu_bias.shape)
             if eps is None and lin.quantized_sigma_bias is not None:
-                eps = torch.randn(shape, generator=lin._noise(),
-                                  device=lin.quantized_mu_bias.device)
+                eps = normals(shape[1:], lin._noise(),
+                              lin.quantized_mu_bias.device)
             b = lin._sample_bias(None if eps is None else eps.reshape(shape))
             return b.reshape(-1, 1, 1, b.shape[-1])  # (S or 1, 1, 1, 4H)
 

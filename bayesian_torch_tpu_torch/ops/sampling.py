@@ -258,15 +258,37 @@ def window_lanes(num_draws):
     return 0, num_draws
 
 
-def refuse_window(what):
-    """Raise if the current window splits draws or rows: ``what`` cannot
-    draw a block of the single-process noise."""
+def step_lanes(num_draws, steps, n, whole=None, offset=0):
+    """The sampler's ``window`` keyword for a site that draws ``num_draws``
+    draws of ``steps`` lanes each over n elements a lane (the LSTM's
+    per-step weights: draw s, step t is lane ``s * steps + t``). Under a
+    ``DrawWindow`` that splits the draws, this rank's draws [s0, s0 + L)
+    are lanes [s0 * steps, (s0 + L) * steps) of the single-process launch
+    over S * steps lanes. A shard of rows [r0, r0 + n / K) of a posterior
+    of ``whole`` elements with rows of K takes ``offset = r0 * K`` of each
+    lane of ``whole``. ``{}`` for the whole launch."""
+    lane0, _ = window_lanes(num_draws)
+    return window_kwargs(lane0 * steps, n if whole is None else whole,
+                         offset, n)
+
+
+def window_block(shape, lane_dim=None, row_dim=None):
+    """(whole shape, start of the block) of a tensor of ``shape`` whose dim
+    ``lane_dim`` holds this call's draws and dim ``row_dim`` its batch rows:
+    under a ``DrawWindow`` that splits them, the single-process tensor and
+    this rank's place in it; else ``shape`` itself at the origin."""
+    whole, start = list(shape), [0] * len(shape)
     w = _WINDOW[0]
-    if w is not None and (w.splits_draws or w.splits_rows):
-        raise NotImplementedError(
-            f"{what} under mc_forward(mesh=) with the draws or the batch "
-            "split over ranks is not supported; use a mesh whose 'mc' and "
-            "'data' axes are 1, or mesh=None")
+    if lane_dim is not None:
+        start[lane_dim], whole[lane_dim] = window_lanes(shape[lane_dim])
+    if row_dim is not None and w is not None and w.splits_rows:
+        if shape[row_dim] != w.local_rows:
+            raise RuntimeError(
+                f"a tensor of shape {tuple(shape)} under a batch split over "
+                f"ranks ({w.local_rows} of {w.rows} rows): dim {row_dim} "
+                "is not this rank's rows")
+        start[row_dim], whole[row_dim] = w.row0, w.rows
+    return tuple(whole), tuple(start)
 
 
 def _row_start(shape):
@@ -340,6 +362,36 @@ def rademacher_fused(salt: int, shape, dtype=torch.float32, device=None,
     h = _hashes(salt, _row_start(shape), math.prod(shape), device)
     one = torch.ones((), dtype=dtype, device=device)
     return torch.where((h >> 31).bool(), -one, one).reshape(shape)
+
+
+def rademacher_block(salt: int, whole, start, shape, dtype=torch.float32,
+                     device=None):
+    """The block of ``shape`` at ``start`` (an offset a dim) of
+    ``rademacher_fused(salt, whole)``: every element takes the counter it
+    has in the whole tensor, so the block equals that slice of the whole
+    signs element for element (``window_block`` gives a rank's)."""
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(whole))):
+        at = torch.arange(start[d], start[d] + shape[d], dtype=torch.int64,
+                          device=device)
+        idx = idx + (at * stride).reshape((-1,) + (1,) * (len(whole) - 1 - d))
+        stride *= whole[d]
+    h = idx + 1
+    h *= _SM32_GOLDEN
+    h += salt
+    h &= _M32
+    h = _splitmix32(h)
+    one = torch.ones((), dtype=dtype, device=device)
+    return torch.where((h >> 31).bool(), -one, one)
+
+
+def rademacher(generator: torch.Generator, shape, dtype=torch.float32):
+    """iid signs in {-1, +1} (the JAX ``rademacher``), drawn from
+    ``generator`` in place of a key, on the generator's device."""
+    bits = torch.randint(0, 2, tuple(shape), generator=generator,
+                         device=generator.device)
+    return (bits * 2 - 1).to(dtype)
 
 
 def sign_salts(seed: int, s: int = 0):

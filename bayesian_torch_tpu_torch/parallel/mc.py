@@ -56,7 +56,10 @@ which ``examples/_engine.make_train_step(mesh=)`` calls) is the
 single-process gradient. The draw loop cannot skip the draws of other
 ranks when they are sampled inside the layers (the generators would part
 ways), so there every rank runs every draw and keeps the graph of its own;
-with presampled draws (eval, ``presample="on"``) it runs its own alone.
+with presampled draws (eval, ``presample="on"``) it runs its own alone,
+unless a layer draws inside each forward all the same (the LSTM's per-step
+weights). The LSTM under the vmap emission draws its block like any layer:
+its draws' T lanes of each launch.
 """
 
 from __future__ import annotations
@@ -240,6 +243,15 @@ def _local_lanes(num_mc):
     return 0, num_mc
 
 
+def _draws_in_forward(model):
+    """Whether a layer of the model draws inside each forward whatever the
+    presample (``draws_in_forward``: the LSTM, whose per-step weights are
+    drawn for the sequence it is given), so that the draw loop under a mesh
+    runs every draw on every rank and the generators stay together."""
+    return any(getattr(mod, "draws_in_forward", False)
+               for mod in model.modules())
+
+
 def _apply_bn_ema(mod, mc_group=None):
     """Average the recorded per-draw batch statistics and apply one EMA
     update, with the factor semantics of torch's own update (momentum, or
@@ -399,10 +411,16 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
     kernel before the forwards (differentiable: its backward is one
     regenerate-eps launch); "off" samples inside each layer; "auto" means
     "on" in eval mode under the loop and "off" otherwise, as the JAX
-    emissions resolve it ("xla" under the scan, "off" under the vmap;
-    "xla" steers XLA's fusion and has no meaning on the card). Under the
-    vmap emission each layer draws its S weight sets in one launch either
-    way. "xla" and "hash" are not ported.
+    emissions resolve it ("xla" under the scan, "off" under the vmap).
+    Under the vmap emission each layer draws its S weight sets in one
+    launch either way. "xla" and "hash" draw ahead of the forwards what the
+    JAX ``_presample_layers_xla`` draws (the reparameterization weights,
+    the Flipout noise, the quantized weight builds), which is what "on"
+    draws here: JAX draws them with rbg ("xla") or with the counter hash
+    ("hash"), and the port's noise is always the counter hash through K-A.
+    "xla" steers XLA's fusion on the TPU; on the card it means the same
+    draws as "hash", and both the same as "on". The LSTM draws its per-step
+    weights inside its forward under every setting, as in JAX.
 
     Training mode (any module's ``training`` set) runs with gradients;
     eval runs under ``torch.no_grad()``. ``num_mc == 1`` is the plain
@@ -431,10 +449,7 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
                         f" got {type(mesh).__name__}")
     remat.resolve_policy(remat_policy)
     if presample in ("xla", "hash"):
-        raise NotImplementedError(
-            f"mc_forward: presample={presample!r} is a TPU code-generation "
-            "variant and is not ported (ROADMAP 'Not ported'); use 'on' "
-            "or 'off'")
+        presample = "on"  # the same counter-hash draws (docstring)
     training = any(mod.training for mod in model.modules())
     if structured and num_mc > 1:
         emission = "vmap"
@@ -459,9 +474,11 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
         compute_kl = return_kl
     block = None
     if mesh is not None:
-        # the loop splits the draws only when they are drawn beforehand
-        block = _MeshBlock(mesh, num_mc, x,
-                           vmap or (presample == "on" and num_mc > 1))
+        # the loop splits the draws only when they are all drawn
+        # beforehand
+        block = _MeshBlock(mesh, num_mc, x, vmap or (
+            presample == "on" and num_mc > 1
+            and not _draws_in_forward(model)))
     kl_layers = [mod for mod in model.modules()
                  if getattr(mod, "compute_kl", None) is True]
     presampled = []

@@ -22,10 +22,17 @@ the replicated layer's:
   BatchNorm gather their parameter shards at each forward and at
   ``mc_forward``'s presample (``_Shard.whole``) and compute the whole layer
   on every rank: each rank draws the whole kernel.
+- the Bayesian LSTM is gathered too: its cell needs all four gates of a
+  unit at every step, so a column split of its 4H rows would gather once a
+  time step. Its blocks (``tp_blocks``: ih and hh) keep their row shards;
+  the LSTM's forward gathers both once, draws the whole weights from the
+  whole launch's counters, runs the replicated cell, and the backward
+  hands each rank its rows (the gather's backward).
 
-The KL of a column-parallel Bayesian layer is the mean of its shards' KL
-terms (equal shards of every tensor), summed over 'model' with an
-identity backward. An indivisible dim stays replicated, as in JAX
+The KL of a column-parallel Bayesian layer, and of an LSTM's block outside
+the LSTM's forward, is the mean of its shards' KL terms (equal shards of
+every tensor), summed over 'model' with an identity backward; inside the
+forward the block's tensors are whole and so is its KL. An indivisible dim stays replicated, as in JAX
 (``_dim_spec``); the count returned is JAX's: the tensors sharded.
 """
 
@@ -184,9 +191,21 @@ def _gathered_forward(mod, forward, *args, **kwargs):
 
 def _column_kl(mod, kl_loss):
     """The whole layer's KL: the mean of the shards' (each a mean over
-    equal shards), summed over 'model' with an identity backward."""
+    equal shards), summed over 'model' with an identity backward. Inside
+    a gather of the whole tensors (an LSTM's forward) the KL of the whole
+    tensors, whose backward hands each rank its block."""
     tp = mod._tp
+    if tp.gathered:
+        return kl_loss()
     return _comm.sum_replicated(kl_loss(), tp.group) / tp.size
+
+
+def _blocks_forward(blocks, forward, *args, **kwargs):
+    """``forward`` (an LSTM's) with its sharded blocks' tensors whole."""
+    with contextlib.ExitStack() as stack:
+        for block in blocks:
+            stack.enter_context(block._tp.whole(block))
+        return forward(*args, **kwargs)
 
 
 def shard_params_tp(model: nn.Module, mesh, axis: str = "model") -> int:
@@ -199,6 +218,10 @@ def shard_params_tp(model: nn.Module, mesh, axis: str = "model") -> int:
     """
     size = mesh.shape[axis]
     rank, group = mesh.coord(axis), mesh.group(axis)
+    composites = [mod for mod in model.modules()
+                  if getattr(mod, "tp_blocks", None)]
+    in_composite = {id(getattr(mod, name)) for mod in composites
+                    for name in mod.tp_blocks}
     sharded = 0
     for mod in model.modules():
         own = list(mod.named_parameters(recurse=False)) + \
@@ -212,9 +235,10 @@ def shard_params_tp(model: nn.Module, mesh, axis: str = "model") -> int:
                 dims[name] = dim
         if not dims:
             continue
-        column = not getattr(mod, "transposed", False) and (
+        block = id(mod) in in_composite
+        column = not block and not getattr(mod, "transposed", False) and (
             isinstance(mod, _COLUMN) or _posterior_names(mod))
-        if not column and not _gathered_kind(mod):
+        if not column and not block and not _gathered_kind(mod):
             raise NotImplementedError(
                 f"shard_params_tp: {type(mod).__name__} has tensors to "
                 "shard but no tensor-parallel forward")
@@ -242,8 +266,14 @@ def shard_params_tp(model: nn.Module, mesh, axis: str = "model") -> int:
         mod.forward = functools.partial(wrap, mod, forward)
         if hasattr(mod, "kl_loss"):
             mod.kl_loss = functools.partial(
-                _column_kl if column else _gathered_forward, mod,
+                _column_kl if column or block else _gathered_forward, mod,
                 mod.kl_loss)
+    for mod in composites:
+        blocks = [getattr(mod, name) for name in mod.tp_blocks
+                  if hasattr(getattr(mod, name), "_tp")]
+        if blocks:
+            mod.forward = functools.partial(_blocks_forward, blocks,
+                                            mod.forward)
     return sharded
 
 

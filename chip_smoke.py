@@ -286,7 +286,10 @@ Phases, each printing its own line(s):
     a rank), ``mc=2`` through the vmap emission with
     ``CONV_1X1_DOT = True`` (K-G), an MC-4 bs128 vmap SGD step at
     ``mc=2`` (the parameters against the one-process step's, K-C dsigma
-    on both ranks) and an MC-2 bs32 loop step (K-C drho); (c)
+    on both ranks; in f32 with TF32 off against the one-process step, in
+    bf16 against its twin whose draw-axis convs run in two groups of S =
+    2, a rank's shapes, and against the S = 4 step at that twin's distance
+    from it) and an MC-2 bs32 loop step (K-C drho); (c)
     ``shard_params_tp`` over ``model=2`` at full widths, MC-2 bs8, against
     the replicated model; the twin of ``dryrun_multichip(2)`` on the card
     (resnet20 step, INT8 QBNN through K-F, structured Flipout, the loop);
@@ -294,7 +297,19 @@ Phases, each printing its own line(s):
     --num_mc=2`` for two epochs, then ``--epochs=3 --resume``: both ranks
     end with the same weights; (e) the native ``DataLoader``
     (``native_available()`` asserted) feeding one epoch of 224² bs128
-    images to the card, beside the numpy path, in batches per second.
+    images to the card, beside the numpy path, in batches per second;
+    (f) the LSTM regressor at config #4 (MC-20 bs128, seq 64, hidden 64,
+    f32), from one state and generator state per model: K-A over a rank's
+    lanes and a 'model' shard's rows and K-C dsigma on the same windows
+    at the LSTM's buffers against their plain versions and the whole
+    launch; then on the two ranks, each estimator against one process:
+    ``mc=2`` through the loop (every draw on every rank, K-A 81) and the
+    vmap emission (K-A 5 over 10 x 64 lanes), ``data=2`` (64 rows a rank,
+    within 64 f32 ulps of max|out|), an MC-4 vmap SGD step and an MC-2
+    loop step at ``mc=2`` (parameters within 1/256 of the update; K-C
+    dsigma, and drho for the head in the loop), ``shard_params_tp`` over
+    ``model=2`` (12 tensors, the LSTM gathered, the head column-parallel);
+    the quantized LSTM at ``mc=2`` through the loop (K-F 20 a rank).
 
 The line before the last is a JSON object with every kernel's launches,
 counted from zero in the run named by its ``run`` key, its error against
@@ -4639,6 +4654,300 @@ MULTIRANK_LR = 0.01
 LOADER_IMAGES = 1024  # 8 batches of 128 at 224x224
 
 
+MESH_LSTM_SEED = MULTIRANK_SEED + 30
+MESH_LSTM_TRAIN_MC = 4  # the LSTM's vmap SGD step: MC-4 bs128
+F32_ULPS = 64  # the LSTM's gate where a rank's shapes differ (data, TP)
+
+
+def f32_bound(want, ulps=F32_ULPS):
+    """``ulps`` f32 ulps of the largest |value| of ``want``: the gate of an
+    f32 mesh run against one process where a rank's products have other
+    shapes (64 rows, a gathered head) and may sum in another order."""
+    import torch
+
+    _, e = torch.frexp(want.float().abs().max())
+    return float(ulps * torch.ldexp(torch.ones(()), e - 24))
+
+
+@contextlib.contextmanager
+def grouped_draw_convs(groups=2):
+    """Inside: every draw-axis conv (``ops.conv.conv_draws``, not
+    transposed) of S draws runs as ``groups`` convs of S / groups draws in
+    turn, their outputs concatenated on the channels: in one process, the
+    conv shapes a rank of an ``mc=groups`` mesh gives cuDNN, and nothing
+    else changed (ROADMAP F10). The package has no such switch."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops import conv as conv_ops
+
+    real = conv_ops.conv_draws
+
+    def split(x, w, b=None, **kw):
+        S = w.shape[0]
+        if kw.get("transposed") or S % groups or S == groups:
+            return real(x, w, b, **kw)
+        per = S // groups
+        cin, _ = conv_ops._channels(w[0], kw.get("groups", 1), False)
+        shared = conv_ops._shared_input(x, S, cin)
+        outs = []
+        for k in range(groups):
+            xk = x if shared else x.narrow(1, k * per * cin, per * cin)
+            outs.append(real(xk, w[k * per:(k + 1) * per],
+                             None if b is None else b[k * per:(k + 1) * per],
+                             **kw))
+        return torch.cat(outs, dim=1)
+
+    conv_ops.conv_draws = split
+    try:
+        yield
+    finally:
+        conv_ops.conv_draws = real
+
+
+def lstm_mesh_step(model, x, y, mesh=None, emission="vmap",
+                   num_mc=MESH_LSTM_TRAIN_MC):
+    """One MC ELBO step of the LSTM regressor with SGD (MC-4 through the
+    vmap emission unless asked): the trainer's Gaussian NLL of the draws'
+    predictions + KL / batch; under a mesh on this rank's rows, the
+    gradients summed (``reduce_gradients``), as ``make_train_step(mesh=)``
+    does. Returns the loss."""
+    import torch
+
+    from bayesian_torch_tpu_torch.examples.main_bayesian_lstm_timeseries \
+        import gaussian_nll
+    from bayesian_torch_tpu_torch.parallel import (mc_forward,
+                                                   reduce_gradients,
+                                                   shard_batch)
+
+    opt = torch.optim.SGD(model.parameters(), lr=MULTIRANK_LR)
+    opt.zero_grad(set_to_none=True)
+    xs = x if mesh is None else shard_batch(x, mesh)
+    outs, kl = mc_forward(model, xs, num_mc, mesh=mesh, emission=emission)
+    loss = gaussian_nll(outs, y) + kl / LSTM_BATCH
+    loss.backward()
+    if mesh is not None:
+        reduce_gradients(model, mesh)
+    opt.step()
+    return float(loss.detach())
+
+
+def lstm_quantized_model():
+    """Phase 43's quantized LSTM regressor: ``bnn_to_qbnn`` of the
+    reparameterization one."""
+    from bayesian_torch_tpu_torch.models.bnn_to_qbnn import bnn_to_qbnn
+
+    model = lstm_model("Reparameterization", MESH_LSTM_SEED).eval()
+    bnn_to_qbnn(model)
+    return model
+
+
+def lstm_mesh_references():
+    """(f) The one-process side of phase 43's LSTM parts, config #4 (MC-20
+    bs128, seq 64, hidden 64, f32), from one state and generator state per
+    model: each estimator's MC-20 outputs through the loop and the vmap
+    emission and the parameters after an MC-4 vmap SGD step (and its
+    largest update); the quantized LSTM's MC-20 loop outputs. Returns
+    them on the CPU with the batch, the states and the generator
+    states."""
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    x, y = lstm_windows(MESH_LSTM_SEED + 1)
+    refs = {"x": x.cpu(), "y": y.cpu()}
+    for est in ESTIMATORS:
+        model = lstm_model(est, MESH_LSTM_SEED).eval()
+        gens = gen_states(model)
+        state = {k: v.detach().cpu().clone()
+                 for k, v in model.state_dict().items()}
+        r = {"state": state, "gens": gens}
+        with torch.no_grad():
+            for emission in ("scan", "vmap"):
+                set_gens(model, gens)
+                r[emission] = mc_forward(model, x, LSTM_MC, emission=emission,
+                                         return_kl=False).cpu()
+        model.train()
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        for emission, num_mc in (("vmap", MESH_LSTM_TRAIN_MC),
+                                 ("scan", LOOP_MC)):
+            model.load_state_dict(state)
+            set_gens(model, gens)
+            loss = lstm_mesh_step(model, x, y, emission=emission,
+                                  num_mc=num_mc)
+            r[f"{emission} step"] = {
+                "loss": loss, "update": max(
+                    max_err(p, before[n])
+                    for n, p in model.named_parameters()),
+                "after": {n: p.detach().cpu().clone()
+                          for n, p in model.named_parameters()}}
+        refs[est] = r
+    qmodel = lstm_quantized_model()
+    gens = gen_states(qmodel)
+    with torch.no_grad():
+        out = mc_forward(qmodel, x, LSTM_MC, emission="scan",
+                         return_kl=False)
+    refs["quantized"] = {"state": {k: v.detach().cpu().clone() for k, v
+                                   in qmodel.state_dict().items()},
+                         "gens": gens, "scan": out.cpu()}
+    return refs
+
+
+def lstm_window_checks():
+    """(f) The windows a rank's LSTM draws on the card: at the LSTM's
+    draw buffers (ih W 256 x 1, hh W 256 x 64, a bias 256), K-A over rank
+    1's 10 of 20 draws (lanes [640, 1280) of the MC-20 launch over 20 x 64
+    lanes) and over a 'model' shard's rows [128, 256) of those lanes
+    equal the whole launch's lanes and rows bit for bit and their plain
+    versions within 1e-5; K-C dsigma on the same windows within 1e-5 x
+    max(1, max|plain|) of its plain version and of the whole launch with
+    the cotangent on those lanes. Comparison launches: counted on no
+    path. Returns the largest errors."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops.cuda import sampled_weights as ka
+    from bayesian_torch_tpu_torch.ops.sampling import sigma_from_rho
+
+    h4, lanes = 4 * LSTM_HIDDEN, LSTM_MC * LSTM_SEQ
+    half = lanes // 2
+    shapes = {"ih W": (h4, 1), "hh W": (h4, LSTM_HIDDEN), "bias": (h4,)}
+    worst = dict(sample=0.0, dsigma=0.0)
+    for i, (name, shape) in enumerate(shapes.items()):
+        gen = torch.Generator().manual_seed(MESH_LSTM_SEED + 10 + i)
+        mu = (0.3 * torch.randn(shape, generator=gen)).cuda()
+        sigma = sigma_from_rho(torch.randn(shape, generator=gen)
+                               - 3.0).cuda()
+        n = mu.numel()
+        k = n // h4  # a row's elements
+        seed = 0x5EED_0000_0000_4300 + i
+        whole = ka.sample_scaled_normals_batch(seed, mu, sigma, lanes,
+                                               torch.float32)
+        window = (half, n, 0)
+        part = ka.sample_scaled_normals_batch(seed, mu, sigma, half,
+                                              torch.float32, window=window)
+        rows = ka.sample_scaled_normals_batch(
+            seed, mu[h4 // 2:], sigma[h4 // 2:], half, torch.float32,
+            window=(half, n, (h4 // 2) * k))
+        check(torch.equal(part, whole[half:])
+              and torch.equal(rows, whole[half:, h4 // 2:]),
+              f"K-A's window at the LSTM's {name} is not the whole launch's "
+              "lanes and rows")
+        e_a = max(max_err(part, ka.sample_scaled_normals_batch_plain(
+            seed, mu, sigma, half, torch.float32, window=window)),
+            max_err(rows, ka.sample_scaled_normals_batch_plain(
+                seed, mu[h4 // 2:], sigma[h4 // 2:], half, torch.float32,
+                window=(half, n, (h4 // 2) * k))))
+        g = torch.randn((half,) + shape, generator=gen).cuda()
+        placed = torch.zeros((lanes,) + shape, device="cuda")
+        placed[half:] = g
+        got = ka.dsigma(seed, g, window=window)
+        plain = ka.dsigma_plain(seed, g, window=window)
+        scale = max(1.0, plain.abs().max().item())
+        e_c = max(max_err(got, plain), max_err(got, ka.dsigma(seed, placed))
+                  ) / scale
+        log(f"[multirank lstm windows] {name} {tuple(shape)}: K-A over "
+            f"lanes [{half}, {lanes}) and rows [{h4 // 2}, {h4}) equal to "
+            f"the whole launch's bit for bit, {e_a:.3e} from plain (limit "
+            f"1e-5); K-C dsigma {e_c:.3e} x max(1, max|plain|) from plain "
+            "and from the whole launch (limit 1e-5)")
+        check(e_a <= 1e-5 and e_c <= 1e-5,
+              f"K-A or K-C windowed off at the LSTM's {name}")
+        worst["sample"] = max(worst["sample"], e_a)
+        worst["dsigma"] = max(worst["dsigma"], e_c)
+    return worst
+
+
+def lstm_parts(ref, part, meshes):
+    """(f) Phase 43's LSTM parts on one rank (every rank runs them in the
+    same order): each estimator's regressor at ``mc=2`` through the loop
+    and the vmap emission and at ``data=2`` through vmap, an MC-4 vmap SGD
+    step at ``mc=2``, ``shard_params_tp`` over ``model=2``; the quantized
+    LSTM at ``mc=2`` through the loop; each against the one-process
+    reference."""
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import (mc_forward, shard_batch,
+                                                   shard_params_tp)
+
+    x, y = ref["x"].cuda(), ref["y"].cuda()
+    mc2, data2, tp2 = meshes
+
+    def forward(model, gens, mesh, want, emission, tp=False):
+        set_gens(model, gens)
+        with torch.no_grad():
+            if tp:
+                got = mc_forward(model, x, LSTM_MC, return_kl=False,
+                                 emission=emission)
+            else:
+                got = mc_forward(model, shard_batch(x, mesh), LSTM_MC,
+                                 mesh=mesh, return_kl=False,
+                                 emission=emission)
+        return {"err": max_err(got, want.cuda()), "bound": f32_bound(want),
+                "finite": bool(torch.isfinite(got).all()),
+                "shape": tuple(got.shape)}
+
+    for est in ESTIMATORS:
+        r = ref[est]
+        model = lstm_model(est, MESH_LSTM_SEED).eval()
+        model.load_state_dict(r["state"])
+        for emission in ("scan", "vmap"):
+            part(f"lstm {est} mc=2 {emission}", lambda: forward(
+                model, r["gens"], mc2, r[emission], emission))
+        part(f"lstm {est} data=2 vmap", lambda: forward(
+            model, r["gens"], data2, r["vmap"], "vmap"))
+
+        def step(emission, num_mc):
+            model.load_state_dict(r["state"])
+            model.train()
+            set_gens(model, r["gens"])
+            loss = lstm_mesh_step(model, x, y, mc2, emission, num_mc)
+            want = r[f"{emission} step"]
+            err = max(max_err(p, want["after"][n].cuda())
+                      for n, p in model.named_parameters())
+            model.eval()
+            return {"loss": loss, "loss_one_process": want["loss"],
+                    "param_err": err, "update": want["update"]}
+
+        part(f"lstm {est} mc=2 vmap MC-{MESH_LSTM_TRAIN_MC} step",
+             lambda: step("vmap", MESH_LSTM_TRAIN_MC))
+        part(f"lstm {est} mc=2 scan MC-{LOOP_MC} step",
+             lambda: step("scan", LOOP_MC))
+
+        def tensor_parallel():
+            tp_model = lstm_model(est, MESH_LSTM_SEED).eval()
+            tp_model.load_state_dict(r["state"])
+            count = shard_params_tp(tp_model, tp2)
+            return dict(forward(tp_model, r["gens"], None, r["vmap"],
+                                "vmap", tp=True), sharded=count)
+
+        part(f"lstm {est} model=2 TP", tensor_parallel)
+        del model
+    q = ref["quantized"]
+    qmodel = lstm_quantized_model()
+    qmodel.load_state_dict(q["state"])
+    part("lstm quantized mc=2 scan", lambda: forward(
+        qmodel, q["gens"], mc2, q["scan"], "scan"))
+
+
+# the LSTM parts' launches a rank: the loop runs every draw on every rank
+# (the head's presample and 4 a draw, as one process); vmap draws the
+# rank's lanes (its 10 of 20 draws: 10 x 64 lanes a tensor, 5 launches);
+# data=2 all 20 draws on 64 rows; the step K-A and K-C dsigma 5 each; TP
+# the gathered LSTM's 4 whole launches and the column head's 2 windows
+LSTM_MESH_LAUNCHES = {
+    "mc=2 scan": {"K-A": 1 + LSTM_TENSORS * LSTM_MC},
+    "mc=2 vmap": {"K-A": 1 + LSTM_TENSORS},
+    "data=2 vmap": {"K-A": 1 + LSTM_TENSORS},
+    f"mc=2 vmap MC-{MESH_LSTM_TRAIN_MC} step": {
+        "K-A": 1 + LSTM_TENSORS, "K-C dsigma": 1 + LSTM_TENSORS},
+    # every draw on every rank (the LSTM's lanes and the head's two single
+    # draws each), the backward of the rank's own draw alone
+    f"mc=2 scan MC-{LOOP_MC} step": {
+        "K-A": LOOP_MC * (2 + LSTM_TENSORS), "K-C dsigma": LSTM_TENSORS,
+        "K-C drho": 2},
+    "model=2 TP": {"K-A": 2 + LSTM_TENSORS},
+}
+
+
 def bf16_bound(want, ulps=8):
     """``ulps`` bf16 ulps of the largest |value| of ``want``: the gate of
     a mesh run against one process where the per-rank shapes differ (a
@@ -4807,9 +5116,18 @@ def multirank_parts(tmp, rank):
         want = ref["steps"][dtype]
         errs = sorted(((max_err(p, want["after"][n].cuda()), n)
                        for n, p in model.named_parameters()), reverse=True)
-        return {"loss": float(loss), "loss_one_process": want["loss"],
-                "param_err": errs[0][0], "update": want["update"],
-                "worst": errs[:3]}
+        res = {"loss": float(loss), "loss_one_process": want["loss"],
+               "param_err": errs[0][0], "update": want["update"],
+               "worst": errs[:3]}
+        if dtype == "bf16":
+            # against the one-process step whose draw-axis convs ran in
+            # two groups of S = 2, as this rank's do (F10)
+            grouped = ref["steps"]["bf16 grouped"]
+            res["param_err_grouped"] = max(
+                max_err(p, grouped["after"][n].cuda())
+                for n, p in model.named_parameters())
+            res["loss_grouped"] = grouped["loss"]
+        return res
 
     for dtype in ("bf16", "f32"):
         part(f"mc=2 vmap MC-{TRAIN_MC} bs{BATCH} {dtype} SGD step",
@@ -4843,6 +5161,8 @@ def multirank_parts(tmp, rank):
                 "bound": bf16_bound(ref["tp"])}
 
     part(f"model=2 TP MC-{TP_MC} bs{TP_BATCH}", tensor_parallel)
+    torch.cuda.empty_cache()
+    lstm_parts(ref["lstm"], part, (mc2, data2, tp2))
     torch.cuda.empty_cache()
     part("dryrun_multichip(2)", lambda: _dryrun_body(MULTIRANK_WORLD,
                                                      "cuda"))
@@ -5036,13 +5356,15 @@ def phase_multirank():
              for k, v in model.state_dict().items()}
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
-    def step(dtype):
+    def step(dtype, grouped=False):
         model.load_state_dict(state)
         model.train()
         set_gens(model, gens0)
         opt = torch.optim.SGD(model.parameters(), lr=MULTIRANK_LR)
         with (f32_compute(model) if dtype == "f32"
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), \
+                (grouped_draw_convs(MULTIRANK_WORLD) if grouped
+                 else contextlib.nullcontext()):
             loss, _, _ = make_train_step(TRAIN_MC, BATCH, emission="vmap")(
                 model, opt, x, y)
         return {"loss": float(loss),
@@ -5059,11 +5381,30 @@ def phase_multirank():
     log(f"[multirank] the one-process vmap MC-{TRAIN_MC} bs{BATCH} bf16 SGD "
         f"step twice from one state: parameters differ by {spread:.3e}, "
         f"loss {steps['bf16']['loss']} and {again['loss']}")
+    # F10: the same bf16 step with every draw-axis conv in two groups of
+    # S = 2 (a rank's conv shapes), in this one process
+    steps["bf16 grouped"] = timed("one-process bf16 step, grouped convs",
+                                  step, "bf16", True)
+    grouped_dist = sorted(((max_err(p, steps["bf16"]["after"][n]), n)
+                           for n, p in steps["bf16 grouped"]["after"]
+                           .items()), reverse=True)
+    res["F10 grouped distance"] = grouped_dist[0][0]
+    log(f"[multirank] F10: the one-process bf16 vmap MC-{TRAIN_MC} "
+        f"bs{BATCH} step with its draw-axis convs in {MULTIRANK_WORLD} "
+        f"groups of S = {TRAIN_MC // MULTIRANK_WORLD}: parameters "
+        f"{grouped_dist[0][0]:.3e} from the S = {TRAIN_MC} step (update "
+        f"{steps['bf16']['update']:.3e}; worst {grouped_dist[:3]}), loss "
+        f"{steps['bf16 grouped']['loss']} against "
+        f"{steps['bf16']['loss']}; {card()}")
     del model, before, again
+    torch.cuda.empty_cache()
+    res["(f) LSTM windows"] = timed("(f) LSTM windows", lstm_window_checks)
+    lstm_refs = timed("(f) LSTM one-process references",
+                      lstm_mesh_references)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         torch.save({"state": state, "gens0": gens0, "x": x.cpu(),
-                    "y": y.cpu(), "steps": steps,
+                    "y": y.cpu(), "steps": steps, "lstm": lstm_refs,
                     **{k: v.cpu() for k, v in refs.items()}},
                    os.path.join(tmp, "ref.pt"))
         del state, steps
@@ -5104,15 +5445,53 @@ def phase_multirank():
             vstep = r[f"mc=2 vmap MC-{TRAIN_MC} bs{BATCH} {dtype} SGD step"]
             check(vstep["launches"].get("K-C dsigma", 0) > 0,
                   f"rank {rank}: no K-C dsigma in the {dtype} vmap step")
-        # gated in f32 without TF32, where the ranks' sums differ from one
-        # process's by their order alone; the bf16 step is printed
+        # in f32 without TF32 the ranks' sums differ from one process's by
+        # their order alone
         check(vstep["param_err"] <= vstep["update"] / 256,
               f"rank {rank}: f32 parameters {vstep['param_err']:.3e} from "
               f"the one-process step (its update {vstep['update']:.3e}); "
               f"{vstep}")
-        lstep = r[f"mc=2 scan MC-{LOOP_MC} bs{LOOP_BATCH} SGD step"]
-        check(lstep["finite"] and lstep["launches"].get("K-C drho", 0) > 0,
-              f"rank {rank}: loop step {lstep}")
+        for est in ESTIMATORS:
+            for name, want in LSTM_MESH_LAUNCHES.items():
+                got = r[f"lstm {est} {name}"]["launches"]
+                check(all(got.get(k, 0) == v for k, v in want.items()),
+                      f"rank {rank}: lstm {est} {name} launches {got}, "
+                      f"want {want}")
+            for what in (f"vmap MC-{MESH_LSTM_TRAIN_MC}",
+                         f"scan MC-{LOOP_MC}"):
+                lstep = r[f"lstm {est} mc=2 {what} step"]
+                check(lstep["param_err"] <= lstep["update"] / 256,
+                      f"rank {rank}: lstm {est} {what} step parameters "
+                      f"{lstep['param_err']:.3e} from one process (update "
+                      f"{lstep['update']:.3e})")
+            check(r[f"lstm {est} model=2 TP"]["sharded"] == 12,
+                  f"rank {rank}: lstm {est} TP sharded "
+                  f"{r[f'lstm {est} model=2 TP']['sharded']}, want 12")
+        qlaunch = r["lstm quantized mc=2 scan"]["launches"]
+        check(qlaunch.get("K-F") == LSTM_MC and not qlaunch.get("K-A"),
+              f"rank {rank}: the quantized LSTM's launches {qlaunch}, want "
+              f"K-F {LSTM_MC} (the head, every draw on every rank)")
+        bstep = r[f"mc=2 vmap MC-{TRAIN_MC} bs{BATCH} bf16 SGD step"]
+        log(f"[multirank] F10, rank {rank}: the bf16 mesh step's parameters "
+            f"{bstep['param_err']:.3e} from the one-process S = {TRAIN_MC} "
+            f"step and {bstep['param_err_grouped']:.3e} from its grouped-conv "
+            f"twin, which lies {res['F10 grouped distance']:.3e} from it "
+            f"(update {bstep['update']:.3e})")
+        # F10: a rank's 2-draw grouped convs take other cuDNN algorithms
+        # than the 4-draw ones; in one process the same grouping lands
+        # where the mesh does. So the bf16 step is held to its grouped
+        # twin as the f32 step to one process (the sums' order alone), and
+        # to the S = 4 step at the twin's distance from it in this run
+        margin = bstep["update"] / 256
+        check(bstep["param_err_grouped"] <= margin
+              and bstep["param_err"] <= res["F10 grouped distance"] + margin,
+              f"rank {rank}: bf16 parameters {bstep['param_err_grouped']:.3e}"
+              f" from the grouped-conv twin and {bstep['param_err']:.3e} "
+              f"from the S = {TRAIN_MC} step, whose distance from the twin "
+              f"is {res['F10 grouped distance']:.3e} (margin {margin:.3e})")
+        loop = r[f"mc=2 scan MC-{LOOP_MC} bs{LOOP_BATCH} SGD step"]
+        check(loop["finite"] and loop["launches"].get("K-C drho", 0) > 0,
+              f"rank {rank}: loop step {loop}")
         check(r["dryrun_multichip(2)"]["launches"].get("K-F", 0) > 0,
               f"rank {rank}: no K-F under the mesh")
         tr = r["imagenet trainer --mesh-mc=2"]
@@ -5128,6 +5507,8 @@ def phase_multirank():
     log(f"[multirank] (e) the native loader against the numpy path, "
         f"batches/s of {BATCH} {IMAGE}² images to the card: "
         f"{res['(e) loader batches/s']}; {card()}")
+    log(f"[multirank] (f) the LSTM's windowed K-A and K-C at its buffers: "
+        f"{res['(f) LSTM windows']}")
     log(f"[multirank] seconds per part: {seconds}")
     for k, v in paths.items():
         check(v, f"{k} never ran on phase 43's paths")

@@ -235,11 +235,11 @@ def inject_draws(monkeypatch, noise):
 # --- the Bayesian LSTM's per-step noise -------------------------------------
 
 
-def _normal(key, shape):
+def _normal(key, shape, dtype=jnp.float32):
     """JAX's normal at ``shape``, drawn at the squeezed shape as
     ``sample_gaussian_weight`` draws it (the same values by flat index)."""
     squeezed = tuple(d for d in shape if d != 1) or (1,)
-    return jax.random.normal(key, squeezed).reshape(shape)
+    return jax.random.normal(key, squeezed, dtype).reshape(shape)
 
 
 def lstm_jax_noise(jm, T, B):
@@ -250,6 +250,8 @@ def lstm_jax_noise(jm, T, B):
     layer's rngs, ``fold_in(t)`` and ``split`` per step, then each op's own
     split (``sampled_linear``: weight and bias; ``flipout_linear``: eps,
     bias eps and the sign keys, the signs from JAX's ``rademacher_fused``).
+    Per-step normals come in the layer's compute dtype, as the ops draw
+    them; the one draw per sequence in f32, as the layer samples it.
     """
     from bayesian_torch_tpu.ops.sampling import rademacher_fused
 
@@ -264,6 +266,7 @@ def lstm_jax_noise(jm, T, B):
                    _normal(k_h, jm.hh.mu_weight.shape)),
             eps_b=(_normal(k_ib, (H4,)), _normal(k_hb, (H4,))))
     flip = jm.estimator == "flipout"
+    dtype = jm.compute_dtype or jnp.float32
     out = {k: ([], []) for k in ("eps_w", "eps_b")
            + (("sign_in", "sign_out") if flip else ())}
     for t in range(T):
@@ -272,15 +275,17 @@ def lstm_jax_noise(jm, T, B):
             shape = lin.mu_weight.shape
             if flip:
                 k_eps, k_epsb, k_sin, k_sout = jax.random.split(key, 4)
-                out["eps_w"][j].append(jax.random.normal(k_eps, shape))
-                out["eps_b"][j].append(jax.random.normal(k_epsb, (H4,)))
+                out["eps_w"][j].append(jax.random.normal(k_eps, shape,
+                                                         dtype))
+                out["eps_b"][j].append(jax.random.normal(k_epsb, (H4,),
+                                                         dtype))
                 out["sign_in"][j].append(
                     rademacher_fused(k_sin, (B, feats[j])))
                 out["sign_out"][j].append(rademacher_fused(k_sout, (B, H4)))
             else:
                 kw, kb = jax.random.split(key)
-                out["eps_w"][j].append(_normal(kw, shape))
-                out["eps_b"][j].append(_normal(kb, (H4,)))
+                out["eps_w"][j].append(_normal(kw, shape, dtype))
+                out["eps_b"][j].append(_normal(kb, (H4,), dtype))
     return {k: tuple(jnp.stack(v) for v in pair) for k, pair in out.items()}
 
 

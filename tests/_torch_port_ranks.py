@@ -108,6 +108,13 @@ def _main(tmp, rank, world, port):
 # ---- the workers -----------------------------------------------------------
 
 
+def in_turn(rank, world, name, cases):
+    """``[fn(rank, world, *case) for case in cases]`` of the worker
+    ``name``: several settings in one world, which pays the processes'
+    start once."""
+    return [globals()[name](rank, world, *case) for case in cases]
+
+
 def psum(rank, world):
     """The world's sum of rank + 1, and the backend."""
     import torch
@@ -168,13 +175,13 @@ def _loss(outs, kl, y):
 
 
 def mc_parity(rank, world, mc, data, num_mc, kw, training, estimator,
-              dropout=0.0, steps=1):
+              dropout=0.0, steps=1, bf16=False):
     """``mc_forward(mesh=make_mesh(mc, data))`` on this rank's rows
     against ``mc_forward`` of the whole batch in this process, ``steps``
     times: max |difference| of the outputs and the KL, and in training of
     the gradients (after ``reduce_gradients``, relative to the largest
     gradient) and the BatchNorm running statistics; whether the
-    generators agree after."""
+    generators agree after. ``bf16``: the layers compute in bf16."""
     import torch
 
     from bayesian_torch_tpu_torch.parallel import (make_mesh, mc_forward,
@@ -185,6 +192,9 @@ def mc_parity(rank, world, mc, data, num_mc, kw, training, estimator,
     ref, net = (small_net(estimator, dropout=dropout) for _ in range(2))
     for m in (ref, net):
         m.train(training)
+        for mod in m.modules():
+            if bf16 and hasattr(mod, "compute_dtype"):
+                mod.compute_dtype = torch.bfloat16
     x, y = _batch()
     diffs = {"outs": 0.0, "kl": 0.0, "grad": 0.0, "stats": 0.0}
     for _ in range(steps):
@@ -213,6 +223,89 @@ def mc_parity(rank, world, mc, data, num_mc, kw, training, estimator,
                     (a.double() - b.double()).abs().max()))
     diffs["generators"] = torch.equal(ref.conv.generator.get_state(),
                                       net.conv.generator.get_state())
+    return diffs
+
+
+def lstm_net(estimator="Reparameterization", quantized=False, state=False,
+             seed=0, rows=8, hidden=6):
+    """The time-series trainer's regressor (LSTM(1 -> hidden) + Linear(
+    hidden -> 2)) on one generator seeded ``seed``, rho -2.5 so that the
+    noise moves the outputs; ``quantized``: through ``bnn_to_qbnn``;
+    ``state``: the LSTM given a fixed initial state of the whole batch."""
+    import torch
+
+    from bayesian_torch_tpu_torch.examples.main_bayesian_lstm_timeseries \
+        import BayesianLSTMRegressor
+    from bayesian_torch_tpu_torch.models.bnn_to_qbnn import bnn_to_qbnn
+
+    gen = torch.Generator().manual_seed(seed)
+    net = BayesianLSTMRegressor(hidden, estimator, generator=gen)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.rsplit(".", 1)[-1].startswith("rho"):
+                p.add_(0.5)
+    if quantized:
+        bnn_to_qbnn(net)
+    if state:
+        h0 = torch.randn((rows, hidden), generator=gen)
+        c0 = torch.randn((rows, hidden), generator=gen)
+        lstm = net.lstm
+
+        def forward(x):
+            h_seq, _, kl1 = lstm(x, (h0, c0))
+            out, kl2 = net.head(h_seq)
+            return out, kl1 + kl2
+        net.forward = forward
+    return net
+
+
+def _series(rows=8, steps=5, seed=5):
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy(rs.randn(rows, steps, 1).astype(np.float32))
+    y = torch.from_numpy(rs.randn(rows, steps, 1).astype(np.float32))
+    return x, y
+
+
+def lstm_parity(rank, world, mc, data, num_mc, kw, training, estimator,
+                quantized=False, state=False):
+    """``mc_parity`` on the LSTM regressor (``lstm_net``): max |difference|
+    of the outputs, the KL and in training the gradients (after
+    ``reduce_gradients``, relative to the largest) from one process over
+    two steps; whether the generators agree after."""
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import (make_mesh, mc_forward,
+                                                   reduce_gradients,
+                                                   shard_batch)
+
+    mesh = make_mesh(mc=mc, data=data)
+    ref, net = (lstm_net(estimator, quantized, state) for _ in range(2))
+    for m in (ref, net):
+        m.train(training)
+    x, y = _series()
+    diffs = {"outs": 0.0, "kl": 0.0, "grad": 0.0}
+    for _ in range(2):
+        want, kl_want = mc_forward(ref, x, num_mc, **kw)
+        got, kl_got = mc_forward(net, shard_batch(x, mesh), num_mc,
+                                 mesh=mesh, **kw)
+        diffs["shape"] = tuple(got.shape)
+        diffs["outs"] = max(diffs["outs"], float((got - want).abs().max()))
+        diffs["kl"] = max(diffs["kl"], float((kl_got - kl_want).abs()))
+        if training:
+            for m, outs, kl in ((ref, want, kl_want), (net, got, kl_got)):
+                m.zero_grad()
+                loss = (outs[..., :1] - y).square().mean() + kl / 8
+                loss.backward()
+            reduce_gradients(net, mesh)
+            scale = max(float(p.grad.abs().max()) for p in ref.parameters())
+            for p, q in zip(ref.parameters(), net.parameters()):
+                diffs["grad"] = max(diffs["grad"], float(
+                    (p.grad - q.grad).abs().max()) / scale)
+    diffs["generators"] = torch.equal(ref.lstm.generator.get_state(),
+                                      net.lstm.generator.get_state())
     return diffs
 
 
@@ -246,7 +339,28 @@ def tp_layer(kind, seed=0):
         "conv_flipout": lambda: L.Conv2dFlipout(8, 16, 3, padding=1,
                                                 generator=gen),
         "linear_flipout": lambda: L.LinearFlipout(16, 8, generator=gen),
+        "lstm": lambda: LastStep(L.LSTMReparameterization(3, 8,
+                                                          generator=gen)),
+        "lstm_flipout": lambda: LastStep(L.LSTMFlipout(3, 8,
+                                                       generator=gen)),
     }[kind]()
+
+
+def LastStep(lstm):
+    """An LSTM as a layer of ``(out, kl)``: its last step's hidden state
+    (B, [S*]H), the draw blocks on the last dim as the emissions want."""
+    from torch import nn
+
+    class _Last(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.lstm = lstm
+
+        def forward(self, x, **kw):
+            h_seq, _, kl = self.lstm(x, **kw)
+            return h_seq[:, -1], kl
+
+    return _Last()
 
 
 def tp_parity(rank, world, kind, arrays, x, eps):
@@ -260,6 +374,7 @@ def tp_parity(rank, world, kind, arrays, x, eps):
     import numpy as np
     import torch
 
+    from bayesian_torch_tpu_torch.models.dnn_to_bnn import get_kl_loss
     from bayesian_torch_tpu_torch.parallel import (make_mesh, mc_forward,
                                                    shard_params_tp)
 
@@ -283,6 +398,8 @@ def tp_parity(rank, world, kind, arrays, x, eps):
     got, _ = layer(x)
     want, _ = ref(x)
     diffs["drawn"] = float((got - want).abs().max())
+    diffs["kl_call"] = abs(float(get_kl_loss(layer)) - float(get_kl_loss(
+        ref)))
     class Flat(torch.nn.Module):
         def __init__(self, layer):
             super().__init__()
@@ -305,13 +422,16 @@ def tp_parity(rank, world, kind, arrays, x, eps):
                 for m in (ref, layer)]
         diffs["loop"] = float((loop[0] - loop[1]).abs().max())
     grad = 0.0
-    tp = layer._tp
-    for name, p in layer.named_parameters():
-        g = getattr(ref, name).grad
-        if name in tp.dims:
-            g = tp.take(g, tp.dims[name])
-        grad = max(grad, float((p.grad - g).abs().max())
-                   / (float(g.abs().max()) or 1.0))
+    for path, mod in layer.named_modules():
+        tp = getattr(mod, "_tp", None)
+        if tp is None:
+            continue
+        for name, p in mod.named_parameters(recurse=False):
+            g = getattr(ref.get_submodule(path), name).grad
+            if name in tp.dims:
+                g = tp.take(g, tp.dims[name])
+            grad = max(grad, float((p.grad - g).abs().max())
+                       / (float(g.abs().max()) or 1.0))
     diffs["grad"] = grad
     diffs["shapes"] = {n: tuple(p.shape) for n, p in layer.named_parameters()}
     return {k: (v if not isinstance(v, np.ndarray) or rank == 0 else None)

@@ -127,6 +127,49 @@ def test_parallel_and_data_namespaces():
     assert public <= set(dir(tpar)), public - set(dir(tpar))
 
 
+def test_package_inits_reexport_as_jax():
+    """``bayesian_torch_tpu/__init__.py`` re-exports ``prepare`` and
+    ``convert``, ``bayesian_torch_tpu/ops/__init__.py`` ``gaussian_kl``,
+    ``sample_gaussian_weight`` and ``sigma_from_rho``: so do the port's,
+    the same objects as their modules'."""
+    import bayesian_torch_tpu as jpkg
+    import bayesian_torch_tpu.ops as jops
+    import bayesian_torch_tpu_torch.ops.kl as kl
+    import bayesian_torch_tpu_torch.ops.sampling as sampling
+    import bayesian_torch_tpu_torch.quantization as quantization
+    from bayesian_torch_tpu_torch import convert, prepare
+    from bayesian_torch_tpu_torch.ops import (gaussian_kl,
+                                              sample_gaussian_weight,
+                                              sigma_from_rho)
+
+    assert (prepare, convert) == (quantization.prepare, quantization.convert)
+    assert gaussian_kl is kl.gaussian_kl
+    assert sample_gaussian_weight is sampling.sample_gaussian_weight
+    assert sigma_from_rho is sampling.sigma_from_rho
+    for pkg, port in ((jpkg, "bayesian_torch_tpu_torch"),
+                      (jops, "bayesian_torch_tpu_torch.ops")):
+        names = {n for n in dir(pkg) if not n.startswith("_")
+                 and callable(getattr(pkg, n))}
+        assert names <= set(dir(sys.modules[port])), names
+
+
+def test_rademacher_takes_a_generator():
+    """``ops.sampling.rademacher`` (JAX: a key, here a generator): iid
+    signs in {-1, +1} of the asked shape and dtype, the same for the same
+    generator state, balanced within 4 standard errors."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops.sampling import rademacher
+
+    signs = rademacher(torch.Generator().manual_seed(3), (64, 128),
+                       torch.bfloat16)
+    assert signs.shape == (64, 128) and signs.dtype == torch.bfloat16
+    assert set(signs.unique().tolist()) == {-1.0, 1.0}
+    assert torch.equal(signs, rademacher(torch.Generator().manual_seed(3),
+                                         (64, 128), torch.bfloat16))
+    assert abs(float(signs.float().mean())) < 4 / signs.numel() ** 0.5
+
+
 @pytest.mark.parametrize("first", [
     "bayesian_torch_tpu_torch.utils",
     "bayesian_torch_tpu_torch.ao.quantization",

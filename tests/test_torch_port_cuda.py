@@ -11,7 +11,8 @@ with the quantized convs built on it (and at the CIFAR ResNet's and the
 SCNN's GEMM shapes), K-A and K-C at the CIFAR ResNet's layer sizes, K-G
 (the per-draw GEMM behind the pointwise emission) in bf16, f32 and int8,
 and K-A and K-C under a counter window (a rank's lanes, a tensor-parallel
-shard's rows) against the whole launch. They skip without a
+shard's rows; the LSTM's draws and signs under a mesh's window) against
+the whole launch. They skip without a
 CUDA device. On a machine with one, and without JAX, run them with
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
@@ -1106,6 +1107,49 @@ def test_lstm_on_the_card_matches_a_cpu_copy(cuda, estimator, per_step):
         outs.append([out, c] + [p.grad for p in mod.parameters()])
     for want, got in zip(*outs):
         torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("estimator", ["Reparameterization", "Flipout"])
+def test_lstm_window_on_the_card_equals_the_whole_launch(cuda, estimator):
+    """The LSTM's draws under a ``DrawWindow`` on the card: draws [2, 4) of
+    4 are lanes [2T, 4T) of each tensor's K-A launch bit for bit, their
+    K-C dsigma within 1e-5 of the whole launch's with the cotangent on
+    those lanes, and the Flipout signs of draws [2, 4) and rows [1, 3) the
+    block of the whole signs."""
+    from bayesian_torch_tpu_torch import layers as L
+    from bayesian_torch_tpu_torch.ops.sampling import (DrawWindow,
+                                                       draw_window)
+
+    S, T, B = 4, 9, 4
+    lstm = getattr(L, "LSTM" + estimator)(
+        3, 16, generator=torch.Generator().manual_seed(0), device=cuda)
+    flip = estimator == "Flipout"
+    window = DrawWindow(2, 2, S, 1, 2, B)
+    for lin in (lstm.ih, lstm.hh):
+        state = lstm.generator.get_state()
+        whole = lstm._draw(lin, S * T, torch.float32, None, None, flip, S)
+        lstm.generator.set_state(state)
+        with draw_window(window):
+            part = lstm._draw(lin, 2 * T, torch.float32, None, None, flip,
+                              2)
+        for w, p in zip(whole, part):
+            assert torch.equal(p, w[2 * T:])
+        g = torch.randn(part[0].shape, generator=torch.Generator()
+                        .manual_seed(1)).to(cuda)
+        got = torch.autograd.grad((part[0] * g).sum(), lin.rho_weight)[0]
+        placed = torch.zeros(whole[0].shape, device=cuda)
+        placed[2 * T:] = g
+        want = torch.autograd.grad((whole[0] * placed).sum(),
+                                   lin.rho_weight)[0]
+        limit = 1e-5 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= limit
+    state = lstm.generator.get_state()
+    signs = lstm._signs(S, T, B, torch.float32, cuda, None, None)
+    lstm.generator.set_state(state)
+    with draw_window(window):
+        block = lstm._signs(2, T, 2, torch.float32, cuda, None, None)
+    for w, p in zip(signs, block):
+        assert torch.equal(p, w[2:, :, 1:3])
 
 
 # --- the counter window of K-A and K-C (mc_forward(mesh=), shard_params_tp)

@@ -221,12 +221,12 @@ def test_one_sampler_call_per_tensor(monkeypatch, per_step):
             return _real(*args, **kw)
         monkeypatch.setattr(ka, name, spy)
     signs = []
-    real_signs = rnn_base.rademacher_fused
+    real_signs = rnn_base.rademacher_block
 
-    def sign_spy(salt, shape, *args, **kw):
+    def sign_spy(salt, whole, start, shape, *args, **kw):
         signs.append(tuple(shape))
-        return real_signs(salt, shape, *args, **kw)
-    monkeypatch.setattr(rnn_base, "rademacher_fused", sign_spy)
+        return real_signs(salt, whole, start, shape, *args, **kw)
+    monkeypatch.setattr(rnn_base, "rademacher_block", sign_spy)
 
     X = torch.from_numpy(_x(4))
     for estimator in ESTIMATORS:
@@ -512,3 +512,109 @@ def test_get_kl_loss_counts_the_lstm_once():
     assert got.item() == pytest.approx(want, rel=1e-6)
     assert got.item() == pytest.approx(tm.ih.kl_loss().item()
                                        + tm.hh.kl_loss().item(), rel=1e-6)
+
+
+# --- the LSTM under mc_forward(mesh=): a rank's windows --------------------
+
+
+def test_windowed_draws_and_signs_equal_the_whole_launch():
+    """Under a ``DrawWindow`` a rank's LSTM draws are its lanes of the
+    single-process launch element for element: draws [2, 4) of 4 are
+    lanes [2T, 4T) of each tensor's S*T-lane K-A launch (weights and
+    Flipout perturbations), their K-C dsigma the whole launch's with the
+    cotangent on those lanes, and the Flipout signs the block [2, 4) x
+    rows [1, 3) of the whole (S, T, B, F) signs; a shard of rows [r0, r0 +
+    n) of a (4H, K) posterior takes offset r0*K of the whole lane."""
+    from bayesian_torch_tpu_torch.ops.sampling import (DrawWindow,
+                                                       draw_window,
+                                                       sigma_from_rho,
+                                                       step_lanes)
+
+    S, rows = 4, 4
+    for estimator in ESTIMATORS:
+        _, tm, _ = _twins(estimator, 4, seed=51)
+        flip = estimator == FLIPOUT
+        for lin in (tm.ih, tm.hh):
+            state = tm.generator.get_state()
+            whole = tm._draw(lin, S * T, torch.float32, None, None, flip, S)
+            tm.generator.set_state(state)
+            with draw_window(DrawWindow(2, 2, S, 0, rows, rows)):
+                part = tm._draw(lin, 2 * T, torch.float32, None, None, flip,
+                                2)
+            for w, p in zip(whole, part):
+                assert torch.equal(p, w[2 * T:])
+            g = torch.randn(part[0].shape, generator=torch.Generator()
+                            .manual_seed(52))
+            lin.zero_grad()
+            (part[0] * g).sum().backward()
+            got = lin.rho_weight.grad.clone()
+            lin.zero_grad()
+            placed = torch.zeros(whole[0].shape)
+            placed[2 * T:] = g
+            (whole[0] * placed).sum().backward()
+            assert torch.equal(got, lin.rho_weight.grad)
+        state = tm.generator.get_state()
+        signs = tm._signs(S, T, rows, torch.float32, None, None, None)
+        tm.generator.set_state(state)
+        with draw_window(DrawWindow(2, 2, S, 1, 2, rows)):
+            block = tm._signs(2, T, 2, torch.float32, None, None, None)
+        for w, p in zip(signs, block):
+            assert torch.equal(p, w[2:, :, 1:3])
+    # sigma from the whole rho once: torch's CPU softplus of a slice can
+    # differ from the whole tensor's in the last ulp (its vector loop and
+    # scalar tail), which is no part of K-A's window
+    mu = tm.hh.mu_weight.detach()
+    sigma = sigma_from_rho(tm.hh.rho_weight.detach())
+    K = mu.shape[1]
+    whole = ka.sample_scaled_normals_batch(99, mu, sigma, S * T,
+                                           torch.float32)
+    for r0 in (0, 2 * H):  # the two row shards of (4H, K)
+        n = 2 * H * K
+        with draw_window(DrawWindow(2, 2, S, 0, rows, rows)):
+            kw = step_lanes(2, T, n, whole=mu.numel(), offset=r0 * K)
+        assert kw == {"window": (2 * T, mu.numel(), r0 * K)}
+        got = ka.sample_scaled_normals_batch(99, mu[r0:r0 + 2 * H],
+                                             sigma[r0:r0 + 2 * H], 2 * T,
+                                             torch.float32, **kw)
+        assert torch.equal(got, whole[2 * T:, r0:r0 + 2 * H])
+    assert step_lanes(S, T, 10) == {}  # no window: the whole launch
+
+
+@pytest.mark.parametrize("per_step", [True, False])
+@pytest.mark.parametrize("estimator", ESTIMATORS)
+def test_bf16_lstm_matches_jax(estimator, per_step):
+    """``compute_dtype=bfloat16`` against JAX's ``jnp.bfloat16`` under
+    JAX's own noise (drawn in bf16 as its ops draw it): per-step draws
+    within 4 bf16 ulps of max|out| at every step (the weights are rounded
+    once here, per op in JAX: 1.3 ulps measured); the state is carried in
+    the input's dtype (f32) in both. One draw per sequence samples and
+    multiplies in f32 in both, whatever the compute dtype: within the f32
+    tolerance."""
+    jm = getattr(jl, "LSTM" + estimator)(
+        4, H, rngs=nnx.Rngs(params=0, noise=1), resample_per_step=per_step,
+        compute_dtype=jnp.bfloat16)
+    arrays = random_state(jax_arrays(jm), seed=0)
+    for key in arrays:
+        if key.rsplit(".", 1)[-1].startswith("rho"):
+            arrays[key] = arrays[key] + np.float32(2.0)
+    import_torch_state_dict(jm, arrays)
+    tm = getattr(tl, "LSTM" + estimator)(
+        4, H, generator=torch.Generator().manual_seed(0),
+        resample_per_step=per_step, compute_dtype=torch.bfloat16)
+    load_jax_state(tm, arrays)
+    X = _x(4, seed=61)
+    noise = {k: tuple(torch.tensor(np.asarray(v, dtype=np.float32))
+                      for v in pair)
+             for k, pair in lstm_jax_noise(jm, T, B).items()}
+    want, (_, want_c), _ = jm(jnp.asarray(X))
+    got, (_, got_c), _ = tm(torch.from_numpy(X), **noise)
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    want, want_c = _np(np.asarray(want)), _np(np.asarray(want_c))
+    if not per_step:
+        np.testing.assert_allclose(_np(got), want, **TOL)
+        np.testing.assert_allclose(_np(got_c), want_c, **TOL)
+        return
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    steps = np.abs(_np(got) - want).max(axis=(0, 2)) / ulp
+    assert steps.max() <= 4, steps
+    assert np.abs(_np(got) - want).max() > 0  # bf16, not f32 arithmetic

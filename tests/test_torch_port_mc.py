@@ -170,15 +170,24 @@ def test_eval_only_guard_and_unported_modes():
     (test_torch_port_modes.py), and so is ``mesh=`` (a mesh of one
     process gives the forward without a mesh; many ranks:
     test_torch_port_parallel.py), which refuses what is not a mesh; the
-    TPU presample variants still raise, and so does a plain torch BN that
-    would update once per draw."""
+    presample variants "xla" and "hash" run, and under one seed equal the
+    presample "on" (their moments against JAX's: below), through the loop
+    and the vmap emission; a plain torch BN that would update once per
+    draw raises."""
     from bayesian_torch_tpu_torch.parallel import make_mesh
 
     _, tm, _ = tiny_twins(seed=7)
     x = torch.randn(2, 3, 16, 16)
-    for kw in (dict(presample="xla"), dict(presample="hash")):
-        with pytest.raises(NotImplementedError):
-            tmc.mc_forward(tm, x, 2, **kw)
+    gen = tm.conv1.generator.get_state()
+    for emission in ("scan", "vmap"):
+        tm.conv1.generator.set_state(gen)
+        want = tmc.mc_forward(tm, x, 2, return_kl=False, presample="on",
+                              emission=emission)
+        for variant in ("xla", "hash"):
+            tm.conv1.generator.set_state(gen)
+            got = tmc.mc_forward(tm, x, 2, return_kl=False,
+                                 presample=variant, emission=emission)
+            assert torch.equal(got, want), (variant, emission)
     with pytest.raises(TypeError, match="make_mesh"):
         tmc.mc_forward(tm, x, 2, mesh=object())
     gen = tm.conv1.generator.get_state()
@@ -264,3 +273,61 @@ def test_cleanup_after_a_failing_forward():
     for layer in iter_bayesian_layers(tm):
         assert not hasattr(layer, "_presampled_w")
         assert layer.compute_kl is True
+
+
+@pytest.mark.parametrize("estimator", ["Reparameterization", "Flipout"])
+def test_presample_xla_and_hash_moments_match_jax(estimator):
+    """The draws of ``presample="hash"`` (and "xla": the same here) on a
+    64 x 64 linear layer, S = 8, standardised by the layer's mu and sigma
+    (Flipout: the perturbation over sigma), against JAX's
+    ``_presample_layers_xla(generator="hash")`` on the same posterior:
+    mean, standard deviation and kurtosis of the 32,768 normals within 4
+    standard errors of N(0, 1) and of each other's; the biases' the same
+    at their 512."""
+    import bayesian_torch_tpu.layers as jl
+    import bayesian_torch_tpu_torch.layers as tl
+    from flax import nnx
+
+    rs = np.random.RandomState(71)
+    mu = rs.normal(0, 0.3, (64, 64)).astype(np.float32)
+    rho = rs.normal(-3, 0.3, (64, 64)).astype(np.float32)
+    mu_b = rs.normal(0, 0.3, 64).astype(np.float32)
+    rho_b = rs.normal(-3, 0.3, 64).astype(np.float32)
+    jm = getattr(jl, "Linear" + estimator)(64, 64,
+                                           rngs=nnx.Rngs(params=0, noise=1))
+    for name, v in (("mu_weight", mu), ("rho_weight", rho),
+                    ("mu_bias", mu_b), ("rho_bias", rho_b)):
+        getattr(jm, name)[...] = jnp.asarray(v)
+    tm = getattr(tl, "Linear" + estimator)(
+        64, 64, generator=torch.Generator().manual_seed(72))
+    tm.load_state_dict({k: torch.from_numpy(v) for k, v in (
+        ("mu_weight", mu), ("rho_weight", rho), ("mu_bias", mu_b),
+        ("rho_bias", rho_b))}, strict=False)
+    flip = estimator == "Flipout"
+    touched = jmc._presample_layers_xla(jm, 8, generator="hash")
+    jw = np.asarray(jm._presampled_w[...])
+    jb = np.asarray(jm._presampled_b[...])
+    for layer, attrs in touched:
+        for a in attrs:
+            delattr(layer, a)
+    gen = tm.generator.get_state()
+    (_, port), = tmc._presample_layers(tm.eval(), 8)
+    outs = []
+    for variant in ("hash", "xla", "on"):
+        tm.generator.set_state(gen)
+        outs.append(tmc.mc_forward(tm, torch.ones(2, 64), 8,
+                                   return_kl=False, presample=variant))
+    assert torch.equal(outs[0], outs[2]) and torch.equal(outs[1], outs[2])
+    sigma = np.log1p(np.exp(rho))
+    sigma_b = np.log1p(np.exp(rho_b))
+    for w, b in ((jw, jb), (port["_presampled_w"].detach().numpy(),
+                            port["_presampled_b"].detach().numpy())):
+        zs = ((w - (0 if flip else mu)) / sigma,
+              (b - (0 if flip else mu_b)) / sigma_b)
+        for z in zs:
+            z = z.astype(np.float64).ravel()
+            n = z.size
+            assert abs(z.mean()) < 4 / n ** 0.5
+            assert abs(z.std() - 1) < 4 / (2 * n) ** 0.5
+            kurt = ((z - z.mean()) ** 4).mean() / z.var() ** 2
+            assert abs(kurt - 3) < 4 * (24 / n) ** 0.5

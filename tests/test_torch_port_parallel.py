@@ -22,6 +22,12 @@ rank holds its result against the same work in one process.
   count ``shard_params_tp`` returns on the same models, resnet20 included.
 - The counter window of the samplers' plain versions (K-A, K-C): a
   window's lanes are those lanes of the whole launch, element for element.
+- The Bayesian LSTM (the time-series trainer's regressor, both estimators
+  and the ``bnn_to_qbnn`` form) under ``mc=2`` and ``data=2``, through the
+  loop and the vmap emission, eval and training, to the thresholds of the
+  small net; under ``shard_params_tp`` against the replicated model, with
+  JAX's count; the JAX LSTM under the virtual mesh against no mesh.
+- The bf16 vmap step over two ranks of draws (ROADMAP F10 on the CPU).
 """
 
 import subprocess
@@ -214,6 +220,131 @@ def test_mc_forward_mesh_refuses_an_uneven_split():
     res = spawn("mc_parity_error", 2, 3)
     assert all("do not divide over the mesh's 'mc' axis of 2" in e
                for e in res)
+
+
+def test_bf16_vmap_step_over_two_draw_ranks():
+    """Both estimators' MC-4 vmap step of ``test_mc_forward_mesh_equals_one_process``
+    with every layer computing in bf16, at ``mc=2``: outputs and KL equal
+    one process bit for bit; the gradients within two bf16 ulps (2**-7) of
+    the model's largest. A weight gradient that a bf16 product sums over
+    the batch is rounded to bf16 once a rank before ``reduce_gradients``
+    adds them: Flipout's shared mean weight, summed over each rank's two
+    lanes of rows, differs by one ulp (2**-8 measured); reparameterization,
+    a weight a lane, agrees to 6e-8."""
+    cases = [(2, 1, 4, {"emission": "vmap"}, True, estimator, 0.0, 2,
+              True) for estimator in (REP, FLIP)]
+    for rank in spawn("in_turn", 2, "mc_parity", cases):
+        for r in rank:
+            assert r["outs"] == 0.0 and r["kl"] == 0.0, r
+            assert r["grad"] <= 2 ** -7 and r["stats"] <= 1e-5, r
+            assert r["generators"], r
+
+
+# --- the Bayesian LSTM under a mesh ----------------------------------------------
+
+LREP, LFLIP = "Reparameterization", "Flipout"
+LSTM_PARITY = [
+    # (mc, data, mc_forward keywords, training, estimator, quantized,
+    #  a whole-batch initial state)
+    (2, 1, {"emission": "vmap"}, False, LREP, False, False),
+    (2, 1, {"emission": "scan"}, True, LFLIP, False, False),
+    (1, 2, {"emission": "vmap"}, True, LREP, False, True),
+    (2, 1, {"emission": "scan", "presample": "hash"}, False, LREP, True,
+     False),
+    (2, 1, {"emission": "vmap"}, False, LFLIP, True, False),
+    (2, 2, {"emission": "vmap"}, True, LFLIP, False, True),
+    (1, 2, {"emission": "scan"}, False, LREP, True, True),
+]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_lstm_mc_forward_mesh_equals_one_process(world):
+    """The regressor (LSTM(1 -> 6) + Linear(6 -> 2)), MC-4 on 8 rows of 5
+    steps, two steps, at each setting of ``LSTM_PARITY`` over ``world``
+    ranks (in turn, in one world): every rank returns the one-process
+    outputs and KL (bit for bit in eval with only 'mc' sharded, else
+    within 1e-6) and, after ``reduce_gradients``, its gradients within
+    1e-5 of the largest; the generators end where one process leaves
+    them. Under the vmap emission a rank draws its draws' T lanes of each
+    K-A launch and its block of the signs; the loop runs every draw on
+    every rank (the LSTM draws inside each forward); the quantized cell
+    draws its block of the normals; a whole-batch initial state gives each
+    rank its rows."""
+    cases = [(mc, data, 4) + tuple(rest) for mc, data, *rest in LSTM_PARITY
+             if mc * data == world]
+    for rank in spawn("in_turn", world, "lstm_parity", cases):
+        for case, r in zip(cases, rank):
+            mc, data, _, kw, training = case[:5]
+            assert r["shape"] == (4, 8, 5, 2) and r["generators"], case
+            if data == 1 and not training:
+                assert r["outs"] == 0.0 and r["kl"] == 0.0, (case, r)
+            assert r["outs"] <= 1e-6 and r["kl"] <= 1e-6, (case, r)
+            assert r["grad"] <= 1e-5, (case, r)
+
+
+class _JaxLast(nnx.Module):
+    """The JAX twin of ``tests/_torch_port_ranks.py::LastStep``."""
+
+    def __init__(self, lstm):
+        self.lstm = lstm
+
+    def __call__(self, x):
+        h_seq, _, kl = self.lstm(x)
+        return h_seq[:, -1], kl
+
+
+def _jax_lstm(estimator, seed=0):
+    import bayesian_torch_tpu.layers as jl
+
+    return _JaxLast(getattr(jl, "LSTM" + estimator)(
+        3, 8, rngs=nnx.Rngs(params=seed, noise=seed + 1)))
+
+
+def test_jax_lstm_under_the_virtual_mesh_equals_no_mesh():
+    """The reference side: the JAX LSTM (last step of LSTM(3 -> 8)) under
+    ``make_mesh(mc=4, data=2)`` of the 8 virtual devices gives what it
+    gives without a mesh, outputs and KL, in both estimators; so the port's
+    rule (every rank gets the one-process result) is JAX's."""
+    from bayesian_torch_tpu.parallel import make_mesh as jmake_mesh
+    from bayesian_torch_tpu.parallel import mc_forward as jmc_forward
+
+    x = jnp.asarray(np.random.RandomState(81).randn(4, 5, 3)
+                    .astype(np.float32))
+    mesh = jmake_mesh(mc=4, data=2)
+    for estimator in ("Reparameterization", "Flipout"):
+        want, kl_want = jmc_forward(_jax_lstm(estimator), x, 4)
+        with mesh:
+            got, kl_got = jmc_forward(_jax_lstm(estimator), x, 4, mesh=mesh)
+        assert got.shape == (4, 4, 8)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   rtol=0, atol=1e-6)
+        assert float(kl_got) == pytest.approx(float(kl_want), rel=1e-6)
+
+
+def test_tp_lstm_equals_replicated_with_jax_count():
+    """``shard_params_tp`` over 'model' = 2 on LSTM(3 -> 8) (its last
+    step), both estimators: the count equals JAX's on the same model (8:
+    both blocks' posteriors), each block keeps half of its 4H rows, and
+    the sharded LSTM (its blocks gathered at each forward, the replicated
+    cell) equals the replicated one: outputs drawn from the generator, the
+    vmap emission's outputs and gradients (each rank its rows), the draw
+    loop, and the KL inside and outside the forward."""
+    from bayesian_torch_tpu.parallel import make_mesh as jmake_mesh
+    from bayesian_torch_tpu.parallel import shard_params_tp as jshard
+
+    mesh = jmake_mesh(mc=1, data=4, model=2)
+    want = {jshard(_jax_lstm(est), mesh)
+            for est in ("Reparameterization", "Flipout")}
+    x = np.random.RandomState(82).randn(2, 5, 3).astype(np.float32)
+    results = spawn("in_turn", 2, "tp_parity", [
+        (kind, {}, x, {}) for kind in ("lstm", "lstm_flipout")])
+    for r in (r for rank in results for r in rank):
+        assert want == {r["count"]} == {8}
+        assert r["shapes"]["lstm.hh.mu_weight"] == (16, 8)
+        assert r["injected"] == 0.0 and r["injected_kl"] <= 1e-5, r
+        assert r["drawn"] <= 1e-6 and r["vmap"] <= 1e-6, r
+        assert r["grad"] <= 1e-5 and r["loop"] <= 1e-6, r
+        assert r["kl_call"] <= 1e-5, r
 
 
 # --- tensor parallelism ---------------------------------------------------------
