@@ -201,7 +201,9 @@ __device__ __forceinline__ void fence_regs(int (&r)[N]) {
 
 // wgmma with both operands in shared memory, accumulating into d (scale-d
 // = 1: the caller zeroes d first). bf16: A K-major, B MN-major (the
-// transpose bit of B set), f32 sums; u8 x s8: both K-major, s32 sums.
+// transpose bit of B set; kTransB = 0: B K-major too), f32 sums; u8 x s8:
+// both K-major, s32 sums.
+template <int kTransB = 1>
 __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t a,
                                                 uint64_t b) {
   asm volatile(
@@ -218,7 +220,7 @@ __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t a,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -233,7 +235,7 @@ __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(kTransB));
 }
 
 __device__ __forceinline__ void wgmma_u8s8_n128(int (&d)[64], uint64_t a,

@@ -66,6 +66,10 @@
 // so the MN-major x would need the transpose that lane does in registers
 // (a 64 x 64 tile, mma.sync m16n8k32, register-staged loads); the f32 lane
 // runs on the CUDA cores (full f32 products, which TF32 would not give).
+//
+// K-G channels-last (namespace cl, entry btt_mc_gemm_cl) is the same
+// product on channels-last activations x (M, S, C), the layout the TPU
+// kernels read: see its own notes below.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -1051,6 +1055,314 @@ __global__ void __launch_bounds__(kFThreads)
   }
 }
 
+// --- K-G channels-last ------------------------------------------------------
+//
+// The per-draw GEMM behind a pointwise (1x1, stride 1) convolution on
+// channels-last activations,
+//   y[m, s, o] = sum_c x[m, s, c] * w[s, o, c]   (+ bias[s, o])
+// with x (M, S, C), M = B*H*W, draw s in the last axis's block s (the
+// draw-axis layout of an NHWC model), w (S, O, C) and y (M, S, O): C and O
+// contiguous, rows of x S*C apart (any row and lane strides, multiples of
+// 8 elements). S = 1 is the plain GEMM (M, C) . (O, C)^T. Element types:
+// bf16 -> bf16 and f32 -> f32 with f32 accumulation. The bias is added in
+// the output type after the cast, as the convolution op adds it.
+//
+// Replaces _gemm_kernel of benchmarks/bench_1x1_mc.py (pallas_mc_gemm: x
+// (M, S, C) . w (S, C, O) -> (M, S, O), the activations of the vmapped
+// path in the layout the TPU feeds them) and, at S = 1, _mm_kernel of
+// benchmarks/bench_mosaic_matmul.py ((M, K) @ (K, N)). The backward's
+// input gradient (dx[m, s] = g[m, s] . w[s]) is this kernel on the
+// transposed weight (S, C, O).
+//
+// The bf16 lane: both operands are K-major (C contiguous), the layout
+// wgmma takes from shared memory with no transpose, so nothing is relaid.
+// A block owns a 128 (rows of M) x 128 (O) output tile of one draw and
+// walks C in stages of 64 through a ring of up to three shared-memory
+// stages under mbarriers. One producer thread brings both tiles of a stage
+// by TMA (cp.async.bulk.tensor, 128-byte swizzle): x through a 3-D tensor
+// map over (C, S, M) whose box (64, 1, 128) picks lane s, w through one
+// over (C, O, S). Two consumer warpgroups each run wgmma.m64n128k16 on
+// their 64 rows with f32 accumulators in registers, releasing a stage once
+// the wgmma that read it has retired. Rows past M, O and C load as 0
+// (TMA's zero fill). Output goes through shared memory (the ring, once the
+// consumers are done with it) and leaves in coalesced, masked rows. The O
+// tiles of one row tile are neighbours in the grid, so x is read from
+// memory about once and w, small, stays in L2.
+//
+// The f32 lane runs on the CUDA cores (full f32 products, which TF32 would
+// not give), 64 x 64 tiles.
+
+namespace cl {
+
+struct GeomCL {
+  int M, S, O, C;
+  // strides in elements: x rows and lanes, w lanes, y rows and lanes,
+  // bias lanes (0: shared by the draws)
+  int64_t x_row, x_lane, w_lane, y_row, y_lane, b_lane;
+};
+
+constexpr int kTM = 128;        // rows of M a block
+constexpr int kTN = 128;        // output channels a block
+constexpr int kStages = 3;      // ring depth; a stage holds 64 of C
+constexpr int kTile = 16384;    // 128 rows of 128 bytes
+constexpr int kStage = 2 * kTile;
+constexpr int kOutLd = kTN * 2 + 16;  // output staging row, padded
+constexpr int kThreads = 288;   // two consumer warpgroups, a producer warp
+
+__host__ __device__ constexpr int ring_bytes(int stages) {
+  return stages * kStage > kTM * kOutLd ? stages * kStage : kTM * kOutLd;
+}
+
+__host__ __device__ constexpr int smem_bytes(int stages) {
+  // the ring, 1024 bytes to align it, two barriers a stage
+  return ring_bytes(stages) + 1024 + 16 * stages;
+}
+
+__device__ __forceinline__ __nv_bfloat16 finish_bf16(float acc, float bias,
+                                                     bool has_bias) {
+  __nv_bfloat16 r = __float2bfloat16(acc);
+  if (has_bias) r = __float2bfloat16(__fadd_rn(__bfloat162float(r), bias));
+  return r;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    mc_gemm_cl_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                            const __grid_constant__ CUtensorMap wmap,
+                            const __nv_bfloat16* __restrict__ bias,
+                            __nv_bfloat16* __restrict__ y, GeomCL g,
+                            int stages, int yvec) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = btt::smem_addr(smem_raw);
+  uint8_t* ring = smem_raw + ((1024 - (base & 1023)) & 1023);
+  const uint32_t bars = btt::smem_addr(ring + ring_bytes(stages));
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int o0 = blockIdx.x * kTN;
+  const int m0 = blockIdx.y * kTM;
+  const int s = blockIdx.z;
+  const int sx = g.x_lane ? s : 0;
+  const int sw = g.w_lane ? s : 0;
+  const int nk = (g.C + 63) / 64;
+
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      btt::mbar_init(bars + 8 * i, 1);
+      btt::mbar_init(bars + 8 * (stages + i), 256);
+    }
+    btt::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer: one thread brings both tiles of a stage
+    if (tid != 256) return;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int st = kt % stages;
+      const uint32_t full = bars + 8 * st;
+      const uint32_t stage = btt::smem_addr(ring + st * kStage);
+      btt::mbar_wait(bars + 8 * (stages + st), ((kt / stages) & 1) ^ 1);
+      btt::mbar_expect_tx(full, kStage);
+      btt::tma_load_3d(stage, &xmap, full, kt * 64, sx, m0);
+      btt::tma_load_3d(stage + kTile, &wmap, full, kt * 64, o0, sw);
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows wg*64 .. wg*64 + 63 of the tile
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % stages;
+    const uint32_t stage = btt::smem_addr(ring + st * kStage);
+    btt::mbar_wait(bars + 8 * st, (kt / stages) & 1);
+    btt::wgmma_fence();
+    btt::fence_regs(acc);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      // 16 of C: 32 bytes along the rows of both tiles
+      const uint64_t da =
+          btt::desc_sw128(stage + wg * (kTile / 2) + ks * 32, 16, 1024);
+      const uint64_t db = btt::desc_sw128(stage + kTile + ks * 32, 16, 1024);
+      btt::wgmma_bf16_n128<0>(acc, da, db);
+    }
+    btt::wgmma_commit();
+    btt::fence_regs(acc);
+    btt::wgmma_wait<1>();
+    btt::fence_regs(acc);
+    if (kt > 0) btt::mbar_arrive(bars + 8 * (stages + (kt - 1) % stages));
+  }
+  btt::wgmma_wait<0>();
+  btt::fence_regs(acc);
+
+  // epilogue: both consumers are done with the ring, which now stages the
+  // output; each warpgroup writes its 64 rows (the m64n128 fragment: row
+  // warp*16 + lane/4 + 8h, columns 8j + 2(lane%4) + {0, 1}), then stores
+  btt::named_sync(1, 256);
+  const int lt = tid % 128;
+  const int warp = lt / 32;
+  const int lane = lt % 32;
+  uint8_t* out = ring + wg * 64 * kOutLd;
+  const __nv_bfloat16* brow =
+      bias != nullptr ? bias + (int64_t)s * g.b_lane : nullptr;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + (lane % 4) * 2;
+    float b0 = 0.f, b1 = 0.f;
+    if (brow != nullptr) {
+      if (o0 + col < g.O) b0 = __bfloat162float(brow[o0 + col]);
+      if (o0 + col + 1 < g.O) b1 = __bfloat162float(brow[o0 + col + 1]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + lane / 4 + 8 * h;
+      *reinterpret_cast<__nv_bfloat162*>(out + r * kOutLd + col * 2) =
+          __halves2bfloat162(
+              finish_bf16(acc[4 * j + 2 * h], b0, brow != nullptr),
+              finish_bf16(acc[4 * j + 2 * h + 1], b1, brow != nullptr));
+    }
+  }
+  btt::named_sync(2 + wg, 128);
+  const int64_t mrow = m0 + wg * 64;
+  if (yvec) {
+    // O, the strides and y's base are multiples of 8 elements: 16-byte
+    // stores, 16 threads a row
+    for (int q = lt; q < 64 * 16; q += 128) {
+      const int r = q / 16;
+      const int cc = q % 16;
+      if (mrow + r >= g.M || o0 + cc * 8 >= g.O) continue;
+      *reinterpret_cast<uint4*>(y + (mrow + r) * g.y_row +
+                                (int64_t)s * g.y_lane + o0 + cc * 8) =
+          *reinterpret_cast<const uint4*>(out + r * kOutLd + cc * 16);
+    }
+    return;
+  }
+  for (int q = lt; q < 64 * kTN; q += 128) {
+    const int r = q / kTN;
+    const int col = q % kTN;
+    if (mrow + r >= g.M || o0 + col >= g.O) continue;
+    reinterpret_cast<uint16_t*>(y)[(mrow + r) * g.y_row +
+                                   (int64_t)s * g.y_lane + o0 + col] =
+        *reinterpret_cast<const uint16_t*>(out + r * kOutLd + col * 2);
+  }
+}
+
+int launch_bf16(const void* x, const void* w, const void* bias, void* y,
+                const GeomCL& g, int w_row, int yvec, cudaStream_t stream) {
+  const int Sx = g.x_lane ? g.S : 1;
+  const int Sw = g.w_lane ? g.S : 1;
+  CUtensorMap xmap, wmap;
+  {
+    const cuuint64_t dims[3] = {(cuuint64_t)g.C, (cuuint64_t)Sx,
+                                (cuuint64_t)g.M};
+    // one lane (x_lane 0): its stride is never stepped, but must be legal
+    const cuuint64_t strides[2] = {
+        (cuuint64_t)(g.x_lane ? g.x_lane : g.x_row) * 2,
+        (cuuint64_t)g.x_row * 2};
+    const cuuint32_t box[3] = {64, 1, (cuuint32_t)kTM};
+    const int err = btt::make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                                  x, dims, strides, box);
+    if (err != 0) return err;
+  }
+  {
+    const cuuint64_t dims[3] = {(cuuint64_t)w_row, (cuuint64_t)g.O,
+                                (cuuint64_t)Sw};
+    const cuuint64_t strides[2] = {(cuuint64_t)w_row * 2,
+                                   (cuuint64_t)w_row * 2 * g.O};
+    const cuuint32_t box[3] = {64, (cuuint32_t)kTN, 1};
+    const int err = btt::make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                                  w, dims, strides, box);
+    if (err != 0) return err;
+  }
+  const int64_t mtiles = ((int64_t)g.M + kTM - 1) / kTM;
+  if (mtiles > 65535 || g.S > 65535) return (int)cudaErrorInvalidValue;
+  const int nk = (g.C + 63) / 64;
+  const int stages = nk < kStages ? nk : kStages;
+  static int allowed = -1;
+  if (allowed != 0)
+    allowed = btt::allow_smem(mc_gemm_cl_wgmma_kernel, smem_bytes(kStages));
+  if (allowed != 0) return allowed;
+  const dim3 grid((g.O + kTN - 1) / kTN, (unsigned)mtiles, (unsigned)g.S);
+  mc_gemm_cl_wgmma_kernel<<<grid, kThreads, smem_bytes(stages), stream>>>(
+      xmap, wmap, static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(y), g, stages, yvec);
+  return (int)cudaGetLastError();
+}
+
+// --- the f32 lane, on the CUDA cores: full f32 products and sums -------------
+
+constexpr int kFM = 64, kFN = 64, kFK = 16;
+constexpr int kFThreads = 256;
+
+__global__ void __launch_bounds__(kFThreads)
+    mc_gemm_cl_f32_kernel(const float* __restrict__ x,
+                          const float* __restrict__ w,
+                          const float* __restrict__ bias,
+                          float* __restrict__ y, GeomCL g) {
+  __shared__ float As[kFK][kFM + 4];  // (c, m)
+  __shared__ float Bs[kFK][kFN + 4];  // (c, o)
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;
+  const int tx = tid % 16;
+  const int o0 = blockIdx.x * kFN;
+  const int64_t m0 = (int64_t)blockIdx.y * kFM;
+  const int s = blockIdx.z;
+  const float* xp = x + (int64_t)s * g.x_lane;
+  const float* wp = w + (int64_t)s * g.w_lane;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < g.C; k0 += kFK) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // 16 consecutive threads read 16 consecutive elements of a row
+      const int e = tid + i * kFThreads;
+      const int r = e / kFK, k = e % kFK;
+      As[k][r] = (m0 + r < g.M && k0 + k < g.C)
+                     ? xp[(m0 + r) * g.x_row + k0 + k]
+                     : 0.f;
+      Bs[k][r] = (o0 + r < g.O && k0 + k < g.C)
+                     ? wp[(int64_t)(o0 + r) * g.C + k0 + k]
+                     : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kFK; ++k) {
+      float a[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[k][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  const float* brow = bias != nullptr ? bias + (int64_t)s * g.b_lane : nullptr;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t m = m0 + ty * 4 + i;
+    if (m >= g.M) continue;
+    float* yrow = y + m * g.y_row + (int64_t)s * g.y_lane;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int o = o0 + tx * 4 + j;
+      if (o >= g.O) continue;
+      float v = acc[i][j];
+      if (brow != nullptr) v = __fadd_rn(v, brow[o]);
+      yrow[o] = v;
+    }
+  }
+}
+
+}  // namespace cl
+
 }  // namespace
 
 extern "C" {
@@ -1089,6 +1401,37 @@ int btt_mc_gemm(const void* x, const void* w, const void* bias, void* y,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// x: element (m, s, c) at m * x_row + s * x_lane + c; w (S or 1, O, w_row)
+// with C <= w_row (bf16: w_row a multiple of 8, the columns past C zero,
+// 16-byte aligned; f32: w_row = C); bias (S or 1, O) or NULL; y: element
+// (m, s, o) at m * y_row + s * y_lane + o. dtype 0: bf16 -> bf16 (x_row and
+// x_lane multiples of 8, x 16-byte aligned: the tensor map's terms), 1: f32
+// -> f32. A lane stride of 0 shares the operand between the draws. yvec:
+// O, y_row, y_lane and y's base all multiples of 8 elements (16-byte
+// stores). Returns the launch's cudaGetLastError() (or the error of a
+// refused tensor map).
+int btt_mc_gemm_cl(const void* x, const void* w, const void* bias, void* y,
+                   int dtype, int M, int S, int O, int C, int w_row,
+                   int64_t x_row, int64_t x_lane, int64_t w_lane,
+                   int64_t y_row, int64_t y_lane, int64_t b_lane, int yvec,
+                   cudaStream_t stream) {
+  if (M <= 0 || S <= 0 || O <= 0) return (int)cudaSuccess;
+  if (C <= 0) return (int)cudaErrorInvalidValue;
+  const cl::GeomCL g = {M,      S,      O,      C,      x_row,
+                        x_lane, w_lane, y_row,  y_lane, b_lane};
+  if (dtype == 0)
+    return cl::launch_bf16(x, w, bias, y, g, w_row, yvec, stream);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const int64_t mtiles = ((int64_t)M + cl::kFM - 1) / cl::kFM;
+  if (mtiles > 65535 || S > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((O + cl::kFN - 1) / cl::kFN, (unsigned)mtiles,
+                  (unsigned)S);
+  cl::mc_gemm_cl_f32_kernel<<<grid, cl::kFThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(y), g);
   return (int)cudaGetLastError();
 }
 

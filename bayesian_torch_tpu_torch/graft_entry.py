@@ -5,8 +5,10 @@ of ``entry`` in the JAX repository's ``__graft_entry__.py``).
     mean_logits, kl = fn(*args)
 
 By default a reduced smoke: Bayesian ResNet-50 (reparameterization) at
-64x64, batch 2, 2 weight draws. With ``BTT_ENTRY_FLAGSHIP=1`` the flagship
-configuration: batch 128, 224x224, 10 draws, bf16 compute. The model is
+64x64, batch 2, 2 weight draws, NCHW (2, 3, 64, 64). With
+``BTT_ENTRY_FLAGSHIP=1`` the flagship configuration, as the JAX entry
+builds it: channels-last (``data_format="NHWC"``, input (128, 224, 224,
+3)), batch 128, 224x224, 10 draws, bf16 compute. The model is
 in eval mode, so ``mc_forward`` runs the draw loop with every layer's
 draws from one batch-sampler launch. Runs on ``cuda`` unless ``device``
 names another device (the tests pass ``"cpu"``).
@@ -47,10 +49,11 @@ def entry(device=None):
     (batch, 1000) and the KL."""
     device = torch.device(device if device is not None else "cuda")
     flagship = os.environ.get("BTT_ENTRY_FLAGSHIP", "") == "1"
+    data_format = "NHWC" if flagship else "NCHW"
     num_mc = 10 if flagship else 2
     model = resnet50(num_classes=1000,
                      generator=torch.Generator().manual_seed(0),
-                     device=device)
+                     device=device, data_format=data_format)
     model.eval()
     if flagship:
         for mod in model.modules():
@@ -61,7 +64,7 @@ def entry(device=None):
         outs, kl = mc_forward(model, x, num_mc)
         return outs.float().mean(dim=0), kl
 
-    shape = (128, 3, 224, 224) if flagship else (2, 3, 64, 64)
+    shape = (128, 224, 224, 3) if flagship else (2, 3, 64, 64)
     x = torch.randn(shape, generator=torch.Generator().manual_seed(1))
     return forward, (model, x.to(device))
 

@@ -30,6 +30,13 @@ each layer then takes the path its forward took, so the recompute saves
 the same tensors, but neither counts the batch, nor records it, nor moves
 a running statistic (torch's update runs at momentum 0).
 
+``data_format`` (JAX ``batchnorm.py``: "NCHW", or channels-last "NHWC"):
+a channels-last layer takes and returns (B, *sp, C) and normalises the
+(B, C, *sp) view of it, channels-last in memory, so torch's BatchNorm runs
+on it without a copy; under the draw axis the input is (B, *sp, S*C) and
+each draw's block of the last axis is normalised by its own statistics
+(JAX's structured branch), recorded for one EMA update as under NCHW.
+
 ``BatchNorm1dLayer``, ``BatchNorm2dLayer`` and ``BatchNorm3dLayer`` add
 the reference's calling convention: a ``(x, kl)`` tuple in gives
 ``(out, 0)`` out, a bare tensor gives the bare output.
@@ -46,6 +53,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bayesian_torch_tpu_torch.ops.conv import (channels_last, from_nc,
+                                               to_nc)
 from bayesian_torch_tpu_torch.ops.qtensor import (QTensor,
                                                   dequantize_if_qtensor)
 from bayesian_torch_tpu_torch.ops.sampling import current_window
@@ -86,14 +95,22 @@ class _MCBatchNorm:
 
     takes_draw_axis = True
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, data_format: str = "NCHW", **kwargs):
         super().__init__(*args, **kwargs)
+        self.data_format = data_format  # NCHW (torch) or NHWC/channels-last
         self.stats_frozen = False
         self._mc_stats: Optional[MCBatchStats] = None
         self._recomputing = False
 
     def forward(self, input):
         input = dequantize_if_qtensor(input)
+        if channels_last(self.data_format):
+            return from_nc(self._forward_nc(to_nc(input, self.data_format)),
+                           self.data_format)
+        return self._forward_nc(input)
+
+    def _forward_nc(self, input):
+        """The forward on NC* activations (a channels-last input's view)."""
         num_draws = getattr(self, "_mc_draws", None)
         if num_draws and input.shape[1] == num_draws * self.num_features:
             return self._forward_draws(input, num_draws)
@@ -218,9 +235,11 @@ class _BatchNormLayer:
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: Optional[float] = 0.1, affine: bool = True,
                  track_running_stats: bool = True, *,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 data_format: str = "NCHW"):
         super().__init__(num_features, eps, momentum, affine,
-                         track_running_stats, device=device)
+                         track_running_stats, device=device,
+                         data_format=data_format)
         if affine and generator is not None:
             # reference init: weight ~ U(0, 1), bias = 0 (as the JAX layer
             # does when given rngs; without them the weight stays 1)
@@ -261,10 +280,11 @@ class QuantizedBatchNorm2d(BatchNorm2dLayer):
                  momentum: Optional[float] = 0.1, affine: bool = True,
                  track_running_stats: bool = True, *, scale: float = 0.1,
                  zero_point: int = 128,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 data_format: str = "NCHW"):
         super().__init__(num_features, eps, momentum, affine,
                          track_running_stats, generator=generator,
-                         device=device)
+                         device=device, data_format=data_format)
         self.scale = scale
         self.zero_point = zero_point
 

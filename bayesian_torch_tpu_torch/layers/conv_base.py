@@ -20,6 +20,14 @@ sampler on a zero mean) and runs ``ops.conv.flipout_conv_draws``; its
 presampled weight is that perturbation, and the mean conv uses ``mu``.
 The JAX package refuses transposed convs only in its structured mode; the
 port's draw axis (and so its ``structured=True``) takes them.
+
+``data_format`` ("NCHW", the default, or channels-last "NHWC", stored as
+the JAX layer stores it) is the activations' layout on all three routes:
+the single draw, the presampled weight and the draw axis, whose channels-
+last layout (B, *sp, S*C) is JAX's structured one. Kernels keep their
+layouts, so parameters, ``state_dict`` keys and the samplers' launches
+are the same in either layout. A Flipout layer's signs are hashed over
+the tensors as they are, (B, H, W, C) under NHWC, as in JAX.
 """
 
 from __future__ import annotations
@@ -62,7 +70,8 @@ class _BaseConvLayer(BaseVariationalLayer):
                  *,
                  generator: Optional[torch.Generator] = None,
                  device=None,
-                 compute_dtype=None):
+                 compute_dtype=None,
+                 data_format: str = "NCHW"):
         super().__init__()
         if in_channels % groups != 0:
             raise ValueError("invalid in_channels size")
@@ -86,6 +95,7 @@ class _BaseConvLayer(BaseVariationalLayer):
         self.posterior_rho_init = posterior_rho_init
         self.bias = bias
         self.compute_dtype = compute_dtype
+        self.data_format = data_format  # NCHW (torch) or NHWC/channels-last
 
         if self.transposed:
             kshape = (in_channels, out_channels // groups) + kernel_size
@@ -120,7 +130,8 @@ class _BaseConvLayer(BaseVariationalLayer):
                     output_padding=self.output_padding,
                     dilation=self.dilation, groups=self.groups,
                     transposed=self.transposed,
-                    compute_dtype=self.compute_dtype)
+                    compute_dtype=self.compute_dtype,
+                    data_format=self.data_format)
 
     def prepare(self, qconfig=None):
         """Insert the calibration observers: 5 qint8 + 2 quint8, Flipout

@@ -58,6 +58,11 @@ the loop's GEMMs), a linear layer as one K-F GEMM a block; Flipout's mean
 product takes ``mu`` in every block and its signs come per block from
 ``rademacher_lanes``. So each block equals the loop's draw bit for bit on
 the same record and signs.
+
+A quantized conv stores ``data_format`` (JAX ``_QuantizedConvBase``) and
+hands it to ``ops.int8.qconv``: under "NHWC" it takes and gives (B, *sp,
+C), its draw blocks lie on the last axis and its signs are hashed in that
+flat order.
 """
 
 from __future__ import annotations
@@ -73,6 +78,7 @@ from bayesian_torch_tpu_torch.layers.base_variational_layer import (
     get_kernel_size,
 )
 from bayesian_torch_tpu_torch.ops import int8 as q
+from bayesian_torch_tpu_torch.ops.conv import channels_last
 from bayesian_torch_tpu_torch.ops.qtensor import QTensor
 from bayesian_torch_tpu_torch.ops.sampling import (device_generator,
                                                    draw_seed,
@@ -239,7 +245,8 @@ class _QuantizedLayerBase(BaseVariationalLayer):
                            out_zp, stride=self.stride, padding=self.padding,
                            dilation=self.dilation, groups=groups,
                            transposed=self.transposed,
-                           output_padding=self.output_padding)
+                           output_padding=self.output_padding,
+                           data_format=self.data_format)
         if not num_draws:
             return q.qlinear(x_q, x_scale, x_zp, w_q, w_scale, bias,
                              out_scale, out_zp)
@@ -250,9 +257,12 @@ class _QuantizedLayerBase(BaseVariationalLayer):
             for s in range(num_draws)], dim=-1)
 
     def _draw_dim(self, ndim):
-        """The axis that holds the draw blocks: channels, or a linear
-        layer's features."""
-        return 1 if self.is_conv else ndim - 1
+        """The axis that holds the draw blocks: channels (the last axis
+        under a channels-last ``data_format``), or a linear layer's
+        features."""
+        if self.is_conv and not channels_last(self.data_format):
+            return 1
+        return ndim - 1
 
     def _tile_draws(self, x_q, num_draws):
         """A shared uint8 input (B, C, ...) tiled to S draw blocks; a
@@ -571,7 +581,8 @@ class _QuantizedConvBase(_QuantizedLayerBase):
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
                  stride=1, padding=0, dilation=1, groups: int = 1,
                  output_padding=0, *,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 data_format: str = "NCHW"):
         self._init_common(generator)
         self.in_channels = in_channels
         self.out_channels = out_channels
@@ -581,4 +592,5 @@ class _QuantizedConvBase(_QuantizedLayerBase):
         self.dilation = dilation
         self.groups = groups
         self.output_padding = output_padding
+        self.data_format = data_format  # NCHW or NHWC/channels-last
         self.bias = True

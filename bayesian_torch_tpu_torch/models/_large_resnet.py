@@ -2,9 +2,15 @@
 variants (counterpart of ``bayesian_torch_tpu/models/_large_resnet.py``).
 
 torchvision-style ResNet: 7x7 s2 stem - BN - ReLU - maxpool 3x3 s2 -
-4 stages - avgpool - fc. Activations are NCHW at the public surface.
+4 stages - avgpool - fc. Activations are NCHW at the public surface, or,
+with ``data_format="NHWC"`` (the JAX flagship's layout), channels-last:
+the model takes (B, H, W, 3) and every conv, BatchNorm and pool takes
+and returns (B, H, W, C) (``ops/conv.py``); the flatten before ``fc``
+gives the same (B, 2048) either way. Parameters and ``state_dict`` keys do
+not depend on the layout.
 
-- ``estimator=None``: ``torch.nn.Conv2d(bias=False)`` and
+- ``estimator=None``: ``torch.nn.Conv2d(bias=False)`` (under NHWC the
+  port's ``nn.Conv2d``, torch's class with ``data_format``) and
   ``torch.nn.Linear`` layers, He-initialised from the model's CPU
   generator (conv N(0, sqrt(2 / (k*k*out))), linear U(+-1/sqrt(in)));
   the forward returns bare logits. Its ``state_dict`` has torchvision's
@@ -44,10 +50,11 @@ from bayesian_torch_tpu_torch.layers.base_variational_layer import (
 )
 from bayesian_torch_tpu_torch.layers.batchnorm import (BatchNorm2d,
                                                        BatchNorm2dLayer)
-from bayesian_torch_tpu_torch.nn import (AdaptiveAvgPool2d, MaxPool2d,
-                                        Sequential)
+from bayesian_torch_tpu_torch.nn import (AdaptiveAvgPool2d, Conv2d,
+                                        MaxPool2d, Sequential)
 from bayesian_torch_tpu_torch.nn import functional as F
 from bayesian_torch_tpu_torch.ops import remat
+from bayesian_torch_tpu_torch.ops.conv import channels_last
 
 prior_mu = 0.0
 prior_sigma = 1.0
@@ -55,8 +62,8 @@ posterior_mu_init = 0.0
 posterior_rho_init = -3.0
 
 
-def _deterministic_factories(generator, device):
-    """He-initialised ``torch.nn`` conv and linear layers, every weight
+def _deterministic_factories(generator, device, data_format="NCHW"):
+    """He-initialised conv and linear layers, every weight
     drawn from ``generator`` (a fresh ``default_generator()`` if None) on
     the CPU and moved to ``device`` (the JAX model's ``_he_init``; its
     linear keeps torch's default U(+-1/sqrt(in)))."""
@@ -71,10 +78,18 @@ def _deterministic_factories(generator, device):
                 p.copy_(init(p.shape))
         return module
 
+    # a channels-last model takes the port's nn.Conv2d (torch's, with
+    # ``data_format``); an NCHW one keeps torch's own class
+    if channels_last(data_format):
+        kw_format = dict(data_format=data_format)
+        conv_cls = Conv2d
+    else:
+        kw_format, conv_cls = {}, nn.Conv2d
+
     def conv(cin, cout, k, **kw):
         std = math.sqrt(2.0 / (k * k * cout))
-        return draw(nn.utils.skip_init(nn.Conv2d, cin, cout, k, bias=False,
-                                       device=device, **kw),
+        return draw(nn.utils.skip_init(conv_cls, cin, cout, k, bias=False,
+                                       device=device, **kw_format, **kw),
                     lambda shape: std * torch.randn(shape,
                                                     generator=generator))
 
@@ -86,11 +101,11 @@ def _deterministic_factories(generator, device):
     return conv, linear
 
 
-def _layer_factories(estimator, generator, device):
+def _layer_factories(estimator, generator, device, data_format="NCHW"):
     from bayesian_torch_tpu_torch import layers
 
     if estimator is None:
-        return _deterministic_factories(generator, device)
+        return _deterministic_factories(generator, device, data_format)
     if estimator not in ("Reparameterization", "Flipout"):
         raise NotImplementedError(
             f"estimator={estimator!r}: None, 'Reparameterization' and "
@@ -103,7 +118,8 @@ def _layer_factories(estimator, generator, device):
                device=device)
 
     def conv(cin, cout, k, **kw):
-        return conv_cls(cin, cout, k, bias=False, **bkw, **kw)
+        return conv_cls(cin, cout, k, bias=False, data_format=data_format,
+                        **bkw, **kw)
 
     def linear(cin, cout):
         return linear_cls(cin, cout, **bkw)
@@ -125,14 +141,15 @@ class BasicBlock(_Block):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, *,
-                 estimator, generator, device=None):
+                 estimator, generator, device=None, data_format="NCHW"):
         super().__init__()
-        conv, _ = _layer_factories(estimator, generator, device)
+        conv, _ = _layer_factories(estimator, generator, device, data_format)
+        bn = dict(device=device, data_format=data_format)
         self.estimator = estimator
         self.conv1 = conv(inplanes, planes, 3, stride=stride, padding=1)
-        self.bn1 = BatchNorm2d(planes, device=device)
+        self.bn1 = BatchNorm2d(planes, **bn)
         self.conv2 = conv(planes, planes, 3, stride=1, padding=1)
-        self.bn2 = BatchNorm2d(planes, device=device)
+        self.bn2 = BatchNorm2d(planes, **bn)
         self.downsample = downsample
 
     def forward(self, x):
@@ -157,16 +174,17 @@ class Bottleneck(_Block):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, *,
-                 estimator, generator, device=None):
+                 estimator, generator, device=None, data_format="NCHW"):
         super().__init__()
-        conv, _ = _layer_factories(estimator, generator, device)
+        conv, _ = _layer_factories(estimator, generator, device, data_format)
+        bn = dict(device=device, data_format=data_format)
         self.estimator = estimator
         self.conv1 = conv(inplanes, planes, 1)
-        self.bn1 = BatchNorm2d(planes, device=device)
+        self.bn1 = BatchNorm2d(planes, **bn)
         self.conv2 = conv(planes, planes, 3, stride=stride, padding=1)
-        self.bn2 = BatchNorm2d(planes, device=device)
+        self.bn2 = BatchNorm2d(planes, **bn)
         self.conv3 = conv(planes, planes * 4, 1)
-        self.bn3 = BatchNorm2d(planes * 4, device=device)
+        self.bn3 = BatchNorm2d(planes * 4, **bn)
         self.downsample = downsample
 
     def forward(self, x):
@@ -197,20 +215,23 @@ REMAT_BLOCKS = (False, True, "conv_out")
 class LargeResNet(nn.Module):
     def __init__(self, block_cls, layers, num_classes=1000, *,
                  estimator=None, generator: Optional[torch.Generator] = None,
-                 device=None, remat_blocks=False):
+                 device=None, remat_blocks=False, data_format="NCHW"):
         super().__init__()
         if remat_blocks not in REMAT_BLOCKS:
             raise ValueError(f"remat_blocks={remat_blocks!r}: expected one "
                              f"of {REMAT_BLOCKS}")
         self.remat_blocks = remat_blocks
+        self.data_format = data_format
         if generator is None:
             generator = default_generator()
-        conv, linear = _layer_factories(estimator, generator, device)
+        conv, linear = _layer_factories(estimator, generator, device,
+                                        data_format)
         self.estimator = estimator
         self.inplanes = 64
         self.conv1 = conv(3, 64, 7, stride=2, padding=3)
-        self.bn1 = BatchNorm2d(64, device=device)
-        self.maxpool = MaxPool2d(3, stride=2, padding=1)
+        self.bn1 = BatchNorm2d(64, device=device, data_format=data_format)
+        self.maxpool = MaxPool2d(3, stride=2, padding=1,
+                                 data_format=data_format)
         self.layer1 = self._make_layer(block_cls, 64, layers[0], 1,
                                        generator, device)
         self.layer2 = self._make_layer(block_cls, 128, layers[1], 2,
@@ -219,21 +240,23 @@ class LargeResNet(nn.Module):
                                        generator, device)
         self.layer4 = self._make_layer(block_cls, 512, layers[3], 2,
                                        generator, device)
-        self.avgpool = AdaptiveAvgPool2d(1)
+        self.avgpool = AdaptiveAvgPool2d(1, data_format=data_format)
         self.fc = linear(512 * block_cls.expansion, num_classes)
 
     def _make_layer(self, block_cls, planes, blocks, stride, generator,
                     device):
-        conv, _ = _layer_factories(self.estimator, generator, device)
+        df = self.data_format
+        conv, _ = _layer_factories(self.estimator, generator, device, df)
         kw = dict(estimator=self.estimator, generator=generator,
-                  device=device)
+                  device=device, data_format=df)
         downsample = None
         if stride != 1 or self.inplanes != planes * block_cls.expansion:
             bn = BatchNorm2d if self.estimator is None else BatchNorm2dLayer
             downsample = Sequential(
                 conv(self.inplanes, planes * block_cls.expansion, 1,
                      stride=stride),
-                bn(planes * block_cls.expansion, device=device),
+                bn(planes * block_cls.expansion, device=device,
+                   data_format=df),
             )
         mods = [block_cls(self.inplanes, planes, stride, downsample, **kw)]
         self.inplanes = planes * block_cls.expansion

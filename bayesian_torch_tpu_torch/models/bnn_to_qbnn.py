@@ -8,6 +8,8 @@ inserted into the layer's ``quant_dict`` (qint observers [2:] + quint
 observers, as the reference orders them), then calls ``quantize()``. A
 Bayesian LSTM keeps its class and has its ``ih`` and ``hh`` blocks
 quantized in place, as in the JAX package.
+A twin keeps its float layer's ``data_format``, so an NHWC model converts
+to an NHWC INT8 model.
 Optional conv+BN folding follows the reference's naming rules:
 ``conv{i}`` with ``bn{i}`` for i in 1..3, and ``downsample =
 Sequential(conv, bn)``; each folded BN becomes an ``nn.Identity``. With
@@ -99,7 +101,8 @@ def _conv_twin(d):
     return _twin(d)(in_channels=d.in_channels, out_channels=d.out_channels,
                     kernel_size=d.kernel_size, stride=d.stride,
                     padding=d.padding, dilation=d.dilation, groups=d.groups,
-                    output_padding=getattr(d, "output_padding", 0))
+                    output_padding=getattr(d, "output_padding", 0),
+                    data_format=getattr(d, "data_format", "NCHW"))
 
 
 def qbnn_linear_layer(d):
@@ -134,7 +137,8 @@ def qbnn_batchnorm2d_layer(d):
     state = d.state_dict()
     device = next(iter(state.values())).device if state else None
     q = QuantizedBatchNorm2d(d.num_features, d.eps, d.momentum, d.affine,
-                             d.track_running_stats, device=device)
+                             d.track_running_stats, device=device,
+                             data_format=getattr(d, "data_format", "NCHW"))
     q.load_state_dict(state)
     q.train(d.training)
     q.stats_frozen = getattr(d, "stats_frozen", False)

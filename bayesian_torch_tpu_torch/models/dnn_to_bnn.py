@@ -29,7 +29,9 @@ layout, so MOPED copies it as it is. A ``torch.nn.LSTM`` or ``LSTMCell``
 becomes the full-sequence ``LSTM*`` twin (single layer, one direction, no
 projection, batch-first input; anything else is refused); MOPED does not apply to it, as in
 the reference. The Bayesian convs pad with zeros only, so a conv with
-another ``padding_mode`` is refused.
+another ``padding_mode`` is refused. A conv twin takes its deterministic
+conv's ``data_format`` (the port's ``nn.Conv*`` carry one; a plain
+``torch.nn`` conv is NCHW), as the JAX function does.
 """
 
 from __future__ import annotations
@@ -107,6 +109,7 @@ def bnn_conv_layer(params, d):
         kernel_size=d.kernel_size, stride=d.stride, padding=d.padding,
         dilation=d.dilation, groups=d.groups, bias=d.bias is not None,
         output_padding=getattr(d, "output_padding", 0),
+        data_format=getattr(d, "data_format", "NCHW"),
         device=d.weight.device, **_prior_kwargs(params))
     return _finish(bnn_layer, params, d.weight, d.bias, "kernel")
 

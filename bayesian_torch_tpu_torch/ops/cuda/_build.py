@@ -72,6 +72,14 @@ _SIGNATURES = {
                     ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
                     ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                     ctypes.c_int, _P),
+    # x, w, bias (or NULL), y, dtype code, M, S, O, C, w row length, x row
+    # stride, x lane stride, w lane stride, y row stride, y lane stride,
+    # bias lane stride, 16-byte stores of y, stream
+    "btt_mc_gemm_cl": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_int, _P),
 }
 
 

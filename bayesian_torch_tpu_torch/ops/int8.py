@@ -41,6 +41,7 @@ import itertools
 import torch
 import torch.nn.functional as F
 
+from bayesian_torch_tpu_torch.ops.conv import channels_last
 from bayesian_torch_tpu_torch.ops.cuda.qmatmul import qmatmul_requant
 
 
@@ -194,20 +195,19 @@ def qconv(x_q, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale, out_zp, *,
           output_padding=0, data_format="NCHW"):
     """uint8 activation (B, C, *sp) x int8 kernel -> uint8 (B, O, *out_sp),
     through the fused GEMM; the kernel is (O, C/g, *k), or (C, O/g, *k)
-    when ``transposed``.
+    when ``transposed``. ``data_format`` "NHWC" (any format ending in "C"):
+    the activation is (B, *sp, C) and so is the output; the im2col reads it
+    as it is.
 
     Exact at padded borders and at a transposed conv's inserted positions:
     they hold x_zp, so they add w * (x_zp - x_zp) = 0 and the result is
     the sum over the real taps of w * (x - x_zp), the JAX XLA route's
     value."""
-    if data_format != "NCHW":
-        raise NotImplementedError(
-            f"qconv: data_format={data_format!r}: every layer of the port "
-            "is NCHW, and so is its int8 conv")
+    last = channels_last(data_format)
     nd = x_q.dim() - 2
     st, pd, dl = (_ntuple(v, nd) for v in (stride, padding, dilation))
     # (B, *sp, C): a view without copy when x_q is channels-last in memory
-    xl = x_q.permute(0, *range(2, nd + 2), 1)
+    xl = x_q if last else x_q.permute(0, *range(2, nd + 2), 1)
     if transposed:
         xl, w_q = _transposed_as_conv(xl, w_q, x_zp, st, pd,
                                       _ntuple(output_padding, nd), dl,
@@ -225,4 +225,4 @@ def qconv(x_q, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale, out_zp, *,
             None if bias_f32 is None else bias_f32[g * og:(g + 1) * og],
             out_scale, out_zp) for g in range(groups)], dim=1)
     out = out.reshape((x_q.shape[0],) + out_sp + (w_q.shape[0],))
-    return out.permute(0, nd + 1, *range(1, nd + 1))
+    return out if last else out.permute(0, nd + 1, *range(1, nd + 1))

@@ -89,7 +89,7 @@ from bayesian_torch_tpu_torch.ops.sampling import (DrawWindow,
                                                    sign_salts,
                                                    window_kwargs)
 from bayesian_torch_tpu_torch.parallel import _comm
-from bayesian_torch_tpu_torch.parallel.mesh import Mesh
+from bayesian_torch_tpu_torch.parallel.mesh import Mesh, refuse_channels_last
 
 _PRESAMPLE = ("auto", "on", "off", "xla", "hash")
 _BN_STATS = ("ema", "freeze")
@@ -396,7 +396,9 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
     (``num_mc`` must divide evenly over it) and the batch over 'data', and
     every rank returns what one process returns for the whole batch
     (module docstring). "auto" means the vmap emission under a mesh, as in
-    JAX, for a model that can take the draw axis; the loop otherwise.
+    JAX, for a model that can take the draw axis; the loop otherwise. A
+    channels-last model (``data_format="NHWC"``) is refused under a mesh
+    with a ``NotImplementedError`` naming the layout.
 
     ``remat_policy`` (with gradients only): ``"full"``, ``"conv_out"`` or a
     ``torch.utils.checkpoint`` selective policy puts each forward the
@@ -447,6 +449,8 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError("mc_forward: mesh must come from parallel.make_mesh,"
                         f" got {type(mesh).__name__}")
+    if mesh is not None:
+        refuse_channels_last(model, "mc_forward(mesh=)")
     remat.resolve_policy(remat_policy)
     if presample in ("xla", "hash"):
         presample = "on"  # the same counter-hash draws (docstring)

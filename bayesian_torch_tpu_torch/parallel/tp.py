@@ -215,7 +215,12 @@ def shard_params_tp(model: nn.Module, mesh, axis: str = "model") -> int:
     layer's output (module docstring). Returns the number of tensors
     sharded; the others stay replicated. Call it after ``replicate``
     (which would overwrite the shards) and before building the optimizer.
+    A channels-last model (``data_format="NHWC"``) raises
+    ``NotImplementedError`` naming the layout.
     """
+    from bayesian_torch_tpu_torch.parallel.mesh import refuse_channels_last
+
+    refuse_channels_last(model, "shard_params_tp")
     size = mesh.shape[axis]
     rank, group = mesh.coord(axis), mesh.group(axis)
     composites = [mod for mod in model.modules()

@@ -52,7 +52,12 @@ weights and images, 224x224, 1000 classes, bf16 compute:
   (MC-10 bs128 through K-A), the converted model's MC-4 bs128 ELBO steps
   (K-A and K-C through the vmap emission), the four surgery trainers
   (deterministic, ``--moped``, ``dnn2bnn``, ``bnn2qbnn`` through K-F) and
-  ``graft_entry.entry()``.
+  ``graft_entry.entry()``;
+- channels-last (phase 44): the same ResNet-50 built with
+  ``data_format="NHWC"`` (inputs (B, 224, 224, 3)) through the loop, vmap,
+  vmap with ``CONV_1X1_DOT`` (K-G channels-last) and ``structured=True``
+  beside the NCHW model on the same weights, its MC-4 ELBO steps, Flipout
+  and INT8 twins, and ``graft_entry.entry()`` at the flagship shape.
 
 Phases, each printing its own line(s):
 
@@ -310,6 +315,27 @@ Phases, each printing its own line(s):
     dsigma, and drho for the head in the loop), ``shard_params_tp`` over
     ``model=2`` (12 tensors, the LSTM gathered, the head column-parallel);
     the quantized LSTM at ``mc=2`` through the loop (K-F 20 a rank).
+44. channels-last (``phase_nhwc``, last, its parts' seconds logged): (a)
+    K-G channels-last (``mc_gemm_cl``: x (M, S, C), w (S, O, C)) against
+    its plain version at the 12 pointwise sites of phase 24 (S = 10, B =
+    128, bf16), within one bf16 ulp of the largest value; its dx (the
+    kernel on the transposed weight, and one autograd pass: two launches)
+    and the S = 1 wrapper at S = 1 and over the B*S rows; device times
+    beside ``torch.einsum``, with the bound; (b) ResNet-50 MC-10 bs128
+    224² bf16 NHWC against the NCHW model on the same weights and draws:
+    the loop, vmap, vmap with ``CONV_1X1_DOT`` (33 K-G cl launches a
+    batch) and ``structured=True`` (equal to vmap bit for bit), within
+    2^-6 x max|logit| of NCHW; ms per batch of each layout and the cuDNN
+    NCHW<->NHWC transpose kernels of one profiled batch of each; (c) MC-4
+    bs128 ELBO steps through the loop, vmap and vmap with
+    ``CONV_1X1_DOT`` (K-G cl forward and dx) in both layouts from one
+    state: finite gradients, ms per step, the first losses; (d) Flipout
+    MC-10 vmap in both layouts, and one NHWC batch with ``CONV_1X1_DOT``
+    (33 K-G cl and 33 K-G cl S=1 launches); (e) ``qresnet50`` calibrated
+    NCHW and its NHWC twin holding the same int8 state: MC-10 bs128 on the
+    same draws, the activations into the pool and the mean logits bit for
+    bit, 540 K-F launches a batch each; (f) ``graft_entry.entry()`` with
+    ``BTT_ENTRY_FLAGSHIP=1``: NHWC (128, 224, 224, 3), MC-10 bf16.
 
 The line before the last is a JSON object with every kernel's launches,
 counted from zero in the run named by its ``run`` key, its error against
@@ -1174,7 +1200,8 @@ def kernel_counters():
             "K-B lanes": kb.sampled_matmul_batched,
             "K-D lanes": kb.sampled_matmul_dx_batched,
             "K-E lanes": kb.sampled_matmul_dw_batched,
-            "K-G": kg.mc_gemm, "K-G S=1": kg.pointwise_gemm}
+            "K-G": kg.mc_gemm, "K-G S=1": kg.pointwise_gemm,
+            "K-G cl": kg.mc_gemm_cl, "K-G cl S=1": kg.pointwise_gemm_cl}
 
 
 def reset_counts():
@@ -5515,6 +5542,506 @@ def phase_multirank():
     return paths, res
 
 
+# --- phase 44: channels-last (data_format="NHWC") ---------------------------
+
+TRANSPOSE_KERNELS = ("nchwToNhwc", "nhwcToNchw", "genericTranspose")
+
+
+def kgcl_sites():
+    """(44a) K-G channels-last against its plain version at the 12
+    pointwise sites of ResNet-50 (S = 10, B = 128, bf16, x (M, S, C) with
+    M = B*H*W as an NHWC draw-axis activation gives it): forward, dx (the
+    kernel on the transposed weight, and one autograd pass: two launches)
+    and the S = 1 wrapper at S = 1 (B = 128) and over the B*S batch, each
+    beside ``torch.einsum`` on the same operands, with the bound (bytes at
+    3.35 TB/s against bf16 at 989 TFLOP/s). Returns the kernels-line
+    entries of the forward, the S = 1 wrapper and dx: device-time sums over
+    one forward's (backward's) 33 sites."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops import conv as conv_ops
+    from bayesian_torch_tpu_torch.ops.cuda import mc_gemm as kg
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 940)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    S = NUM_MC
+    sums = {part: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                       bytes=0.0, ops=0.0, err=0.0)
+            for part in ("fwd", "one", "dx")}
+
+    def add(part, count, err, ms, plain_ms, lib_ms, nbytes, ops):
+        tot = sums[part]
+        tot["err"] = max(tot["err"], err)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("bytes", nbytes),
+                       ("ops", ops), ("bound_ms", bound(nbytes, ops,
+                                                        BF16_OPS)[0])):
+            tot[key] += count * v
+        return bound(nbytes, ops, BF16_OPS)
+
+    for ci, co, sp, count in POINTWISE_SITES:
+        M = BATCH * sp * sp
+        x = rand(BATCH, sp, sp, S * ci)
+        w = rand(S, co, ci, 1, 1)
+        x3, w3 = x.reshape(M, S, ci), w.reshape(S, co, ci)
+        got, want = kg.mc_gemm_cl(x3, w3), kg.mc_gemm_cl_plain(x3, w3)
+        err, limit = kg_gate(f"K-G cl at {ci}->{co}@{sp}", got, want)
+        via_conv = conv_ops.conv_draws(x, w, pointwise_dot=True,
+                                       data_format="NHWC")
+        check(torch.equal(via_conv.reshape(got.shape), got),
+              "conv_draws(pointwise_dot=True, NHWC) is not K-G cl's output")
+        del got, want, via_conv
+        ms, plain_ms, lib_ms = device_times(
+            (lambda: kg.mc_gemm_cl(x3, w3), "mc_gemm_cl"),
+            (lambda: kg.mc_gemm_cl_plain(x3, w3), None),
+            (lambda: torch.einsum("msc,soc->mso", x3, w3), None))
+        nbytes = 2 * (x.numel() + w.numel() + M * S * co)
+        ops = 2 * M * S * co * ci
+        b_ms, by = add("fwd", count, err, ms, plain_ms, lib_ms, nbytes, ops)
+        log(f"[K-G cl] {ci}->{co}@{sp} x{count}: max|kernel-plain| "
+            f"{err:.3e} (limit {limit:.3e}); kernel {ms:.3f} ms "
+            f"({nbytes / ms / 1e6:.0f} GB/s, {ops / ms / 1e9:.1f} TFLOP/s), "
+            f"torch.einsum {lib_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({by})")
+        # the S = 1 wrapper over the M*S rows (one weight), and at S = 1
+        for what, rows in (("B*S", x.reshape(M * S, ci)),
+                           ("S=1", x3[:, 0].contiguous())):
+            w0 = w3[0]
+            got = kg.pointwise_gemm_cl(rows, w0)
+            err, _ = kg_gate(f"K-G cl S=1 ({what}) at {ci}->{co}@{sp}", got,
+                             kg.mc_gemm_cl_plain(rows, w0)[:, 0])
+            del got
+            ms, plain_ms, lib_ms = device_times(
+                (lambda: kg.pointwise_gemm_cl(rows, w0), "mc_gemm_cl"),
+                (lambda: kg.mc_gemm_cl_plain(rows, w0), None),
+                (lambda: torch.einsum("mc,oc->mo", rows, w0), None))
+            nb = 2 * (rows.numel() + w0.numel() + rows.shape[0] * co)
+            op = 2 * rows.shape[0] * co * ci
+            if what == "B*S":
+                b_ms, by = add("one", count, err, ms, plain_ms, lib_ms, nb,
+                               op)
+            else:
+                b_ms, by = bound(nb, op, BF16_OPS)
+            log(f"[K-G cl S=1] {what} {ci}->{co}@{sp} x{count}: rows "
+                f"{rows.shape[0]}: kernel {ms:.3f} ms, torch.einsum "
+                f"{lib_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{b_ms:.3f} ms ({by})")
+            del rows
+        # dx = g . w_s: the kernel on the transposed weight
+        g = rand(M, S, co)
+        wt = w3.transpose(1, 2).contiguous()
+        want = kg.mc_gemm_cl_plain(g, wt)
+        err, limit = kg_gate(f"K-G cl dx at {ci}->{co}@{sp}",
+                             kg.mc_gemm_cl(g, wt), want)
+        xg = x3.clone().requires_grad_(True)
+        before = kg.mc_gemm_cl.launches
+        kg.mc_gemm_cl(xg, w3).backward(g)
+        check(kg.mc_gemm_cl.launches == before + 2, "autograd through "
+              f"mc_gemm_cl: {kg.mc_gemm_cl.launches - before} launches, "
+              "want 2")
+        kg_gate(f"K-G cl autograd dx at {ci}->{co}@{sp}", xg.grad, want)
+        del want, xg
+        ms, plain_ms, lib_ms = device_times(
+            (lambda: kg.mc_gemm_cl(g, wt), "mc_gemm_cl"),
+            (lambda: kg.mc_gemm_cl_plain(g, wt), None),
+            (lambda: torch.einsum("mso,sco->msc", g, wt), None))
+        nbytes = 2 * (g.numel() + wt.numel() + x3.numel())
+        b_ms, by = add("dx", count, err, ms, plain_ms, lib_ms, nbytes, ops)
+        log(f"[K-G cl dx] {co}->{ci}@{sp} x{count}: max|kernel-plain| "
+            f"{err:.3e} (limit {limit:.3e}); kernel {ms:.3f} ms, "
+            f"torch.einsum {lib_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({by})")
+        del x, w, x3, w3, g, wt
+    out = []
+    for part, what in (("fwd", "forward"), ("one", "S=1 over B*S"),
+                       ("dx", "dx")):
+        tot = sums[part]
+        by = bound(tot["bytes"], tot["ops"], BF16_OPS)[1]
+        log(f"[K-G cl] {card()}: one MC-{S} bs{BATCH} {what}, "
+            f"{N_POINTWISE} sites: kernel {tot['ms']:.2f} ms, torch.einsum "
+            f"{tot['library_ms']:.2f} ms, plain {tot['plain_ms']:.2f} ms, "
+            f"bound {tot['bound_ms']:.2f} ms ({by})")
+        out.append(dict(max_abs_err=tot["err"], ms=tot["ms"],
+                        plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+                        bound_by=by, library_ms=tot["library_ms"]))
+    return out
+
+
+def nhwc_pair(module, seed):
+    """(NCHW model, NHWC model) of ``module``'s ``resnet50`` on the card:
+    one seed, so the same weights and the same generator state, bf16
+    compute, BN statistics from one batch (each in its layout)."""
+    import torch
+
+    pair = []
+    for df in ("NCHW", "NHWC"):
+        model = module.resnet50(num_classes=1000, device="cuda",
+                                generator=torch.Generator().manual_seed(seed),
+                                data_format=df)
+        for mod in model.modules():
+            if hasattr(mod, "compute_dtype"):
+                mod.compute_dtype = torch.bfloat16
+        pair.append(model)
+    first, last = pair
+    set_bn_statistics(first, images(SEED + 200))
+    last.load_state_dict(first.state_dict())
+    last.eval()
+    return first, last
+
+
+def channels_last_input(x):
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def transposes(fn):
+    """The cuDNN NCHW<->NHWC transpose kernels that one call of ``fn``
+    launches, counted under the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and any(t in e.key for t in TRANSPOSE_KERNELS))
+
+
+def nhwc_paths(first, last, x):
+    """(44b) The flagship ResNet-50 MC-10 bs128 224² bf16 in both layouts
+    on the same weights and draws: the loop, vmap, vmap with
+    ``CONV_1X1_DOT`` and ``structured=True``. NHWC against NCHW within
+    2^-6 x max|logit| (other conv algorithms round bf16 at other places);
+    structured equal to vmap bit for bit; ms per batch of each layout
+    (host clock, median of 3 after a warm-up) and the transpose kernels of
+    one profiled batch of each. Returns {path: {...}} and the counts of
+    the NHWC vmap batches with ``CONV_1X1_DOT``."""
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    xl = channels_last_input(x)
+    paths = (("loop", {}, False), ("vmap", dict(emission="vmap"), False),
+             ("vmap, CONV_1X1_DOT", dict(emission="vmap"), True),
+             ("structured=True", dict(structured=True), False))
+    res, dot_counts, outs = {}, None, {}
+    for what, kw, dot in paths:
+        row = {}
+        # the same draws in both layouts: the NHWC model's generator takes
+        # the NCHW model's state, and each run rewinds its own
+        last.conv1.generator.set_state(first.conv1.generator.get_state())
+        for df, model, inp in (("NCHW", first, x), ("NHWC", last, xl)):
+            def run():
+                with pointwise_dot() if dot else contextlib.nullcontext():
+                    return mc_forward(model, inp, NUM_MC, return_kl=False,
+                                      **kw)
+
+            reset_counts()
+            out = same_seeds(model, run)
+            check(tuple(out.shape) == (NUM_MC, BATCH, 1000)
+                  and bool(torch.isfinite(out).all()),
+                  f"[nhwc] {what} {df}: output")
+            outs[(what, df)] = out.float()
+            if df == "NHWC" and dot:
+                dot_counts = counts()
+                check(dot_counts["K-G cl"] == N_POINTWISE
+                      and dot_counts["K-G"] == 0,
+                      f"NHWC vmap with CONV_1X1_DOT: launches "
+                      f"{nonzero(dot_counts)}, want {N_POINTWISE} K-G cl")
+            row[df] = wall_ms(run, reps=3)
+            row[df + "_transposes"] = transposes(run)
+        a, b = outs[(what, "NHWC")], outs[(what, "NCHW")]
+        diff, scale = (a - b).abs().max().item(), b.abs().max().item()
+        check(diff <= scale * 2**-6, f"[nhwc] {what}: NHWC {diff:.3e} from "
+              f"NCHW, limit 2^-6 x max|logit| = {scale * 2**-6:.3e}")
+        row["max_abs_err"] = diff
+        res[what] = row
+        log(f"[nhwc] {what}, MC-{NUM_MC} bs{BATCH} {IMAGE}^2 bf16: NHWC "
+            f"{row['NHWC']:.1f} ms/batch, NCHW {row['NCHW']:.1f}; cuDNN "
+            f"transposes in one batch NHWC {row['NHWC_transposes']}, NCHW "
+            f"{row['NCHW_transposes']}; NHWC against NCHW max|diff| "
+            f"{diff:.3e} (limit 2^-6 x max|logit| = {scale * 2**-6:.3e})")
+    same = [same_seeds(last, lambda: mc_forward(
+        last, xl, NUM_MC, return_kl=False, **kw))
+        for kw in (dict(emission="vmap"), dict(structured=True))]
+    check(torch.equal(*same), "NHWC structured=True is not the vmap "
+          "emission on the same draws")
+    return res, dot_counts
+
+
+def nhwc_train(first, last):
+    """(44c) MC-4 bs128 ELBO steps through the loop and vmap (and vmap with
+    ``CONV_1X1_DOT``: K-G cl forward and dx, 33 each a step) in both
+    layouts from one state: one warm-up and two timed steps each, finite
+    gradients, the first step's loss of each layout side by side."""
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+
+    state = {k: v.clone() for k, v in first.state_dict().items()}
+    x, y = images(SEED + 950), labels(SEED + 950)
+    res, dot_counts = {}, None
+    for what, emission, dot in (("loop", "scan", False),
+                                ("vmap", "vmap", False),
+                                ("vmap, CONV_1X1_DOT", "vmap", True)):
+        row = {}
+        # both layouts' first steps from one state and generator state
+        g0 = first.conv1.generator.get_state()
+        for df, model, inp in (("NCHW", first, x),
+                               ("NHWC", last, channels_last_input(x))):
+            model.load_state_dict(state)
+            model.train()
+            model.conv1.generator.set_state(g0)
+            opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+            step = make_train_step(TRAIN_MC, BATCH, emission=emission)
+            ctx = pointwise_dot() if dot else contextlib.nullcontext()
+            with ctx:
+                loss = float(step(model, opt, inp, y)[0])
+                check(math.isfinite(loss), f"[nhwc train] {what} {df}: "
+                      f"loss {loss}")
+                check_grads(model, f"[nhwc train] {what} {df}")
+                reset_counts()
+                times = []
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(model, opt, inp, y)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                if df == "NHWC" and dot:
+                    dot_counts = counts()
+                    check(dot_counts["K-G cl"] == 2 * 2 * N_POINTWISE,
+                          f"NHWC vmap steps with CONV_1X1_DOT: launches "
+                          f"{nonzero(dot_counts)}, want "
+                          f"{4 * N_POINTWISE} K-G cl")
+            row[df] = statistics.median(times)
+            row[df + "_loss"] = loss
+        res[what] = row
+        log(f"[nhwc train] {what}, MC-{TRAIN_MC} bs{BATCH} ELBO step: NHWC "
+            f"{row['NHWC']:.1f} ms, NCHW {row['NCHW']:.1f} ms; first loss "
+            f"NHWC {row['NHWC_loss']:.4f}, NCHW {row['NCHW_loss']:.4f}")
+    for model in (first, last):
+        model.load_state_dict(state)
+        model.eval()
+    return res, dot_counts
+
+
+def nhwc_flipout(x):
+    """(44d) Flipout ResNet-50 MC-10 bs128 through vmap in both layouts
+    (one warm-up, one timed batch each: the sign hash is most of it), and
+    one NHWC batch with ``CONV_1X1_DOT``: the mean convs through the S = 1
+    wrapper over the B*S rows, the perturbation convs through K-G cl, 33
+    each."""
+    import torch
+
+    from bayesian_torch_tpu_torch.models.bayesian import (
+        resnet_flipout_large,
+    )
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    first, last = nhwc_pair(resnet_flipout_large, SEED + 960)
+    row = {}
+    for df, model, inp in (("NCHW", first, x),
+                           ("NHWC", last, channels_last_input(x))):
+        def run():
+            return mc_forward(model, inp, NUM_MC, reduce="mean",
+                              return_kl=False, emission="vmap")
+
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        row[df] = (time.perf_counter() - t0) * 1e3
+        check(bool(torch.isfinite(out).all()), f"Flipout vmap {df}")
+    reset_counts()
+    with pointwise_dot():
+        out = mc_forward(last, channels_last_input(x), NUM_MC, reduce="mean",
+                         return_kl=False, emission="vmap")
+    torch.cuda.synchronize()
+    dot_counts = counts()
+    check(bool(torch.isfinite(out).all())
+          and dot_counts["K-G cl"] == N_POINTWISE
+          and dot_counts["K-G cl S=1"] == N_POINTWISE,
+          f"NHWC Flipout vmap with CONV_1X1_DOT: {nonzero(dot_counts)}")
+    log(f"[nhwc flipout] vmap MC-{NUM_MC} bs{BATCH}: NHWC {row['NHWC']:.1f} "
+        f"ms, NCHW {row['NCHW']:.1f} ms; with CONV_1X1_DOT (NHWC) "
+        f"{nonzero(dot_counts)}")
+    del first, last
+    torch.cuda.empty_cache()
+    return row, dot_counts
+
+
+def nhwc_int8(x):
+    """(44e) ``qresnet50`` calibrated (NCHW), converted with conv+BN
+    folding and uint8 activations, and its NHWC twin holding the same int8
+    state and quant_dicts: MC-10 bs128 on the same generator state in both
+    layouts, the uint8
+    activations into the pool and the logits bit for bit (the same integer
+    and f32 operations on the same (B, *sp, C) memory), 540 K-F launches a
+    batch each; ms per batch of each."""
+    import torch
+
+    from bayesian_torch_tpu_torch.models.bayesian import (
+        quantized_resnet_variational_large as qrvl,
+    )
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    def calibrate(model):
+        prepared = [m for m in model.modules()
+                    if getattr(m, "quant_prepare", False)]
+        for m in prepared:
+            m.quant_prepare = False
+        set_bn_statistics(model, images(SEED + 500))
+        for m in prepared:
+            m.quant_prepare = True
+        with torch.no_grad():
+            for i in range(3):
+                model(images(SEED + 510 + i)[:CALIB_BATCH])
+
+    models = {df: qrvl.qresnet50(
+        generator=torch.Generator().manual_seed(SEED), device="cuda",
+        calibrate=calibrate if df == "NCHW" else None, fuse_conv_bn=True,
+        quantize_activations=True, data_format=df)
+        for df in ("NCHW", "NHWC")}
+    first, last = models["NCHW"], models["NHWC"]
+    # the NCHW model's int8 state and calibration into its NHWC twin
+    last.load_state_dict(first.state_dict())
+    for a, b in zip(first.modules(), last.modules()):
+        if hasattr(a, "quant_dict"):
+            b.quant_dict = a.quant_dict
+    check(all(m.data_format == "NHWC" for m in last.modules()
+              if hasattr(m, "data_format")), "qresnet50(data_format='NHWC')"
+          " has a layer that is not NHWC")
+    last.conv1.generator.set_state(first.conv1.generator.get_state())
+    pooled = {}
+
+    def hook(df):
+        def keep(mod, inp, out):
+            out = out[0] if isinstance(out, tuple) else out  # (x, kl)
+            pooled[df] = out.q if hasattr(out, "q") else out
+        return keep
+
+    # the last residual block's output: the activations into the pool
+    handles = [first.layer4[-1].register_forward_hook(hook("NCHW")),
+               last.layer4[-1].register_forward_hook(hook("NHWC"))]
+    row, outs = {}, {}
+    reset_counts()
+    for df, model, inp in (("NCHW", first, x),
+                           ("NHWC", last, channels_last_input(x))):
+        def run():
+            return mc_forward(model, inp, NUM_MC, reduce="mean",
+                              return_kl=False)
+
+        before = counts()["K-F"]
+        outs[df] = same_seeds(model, run)
+        check(counts()["K-F"] - before == INT8_LAYERS * NUM_MC,
+              f"INT8 {df}: {counts()['K-F'] - before} K-F launches")
+        row[df] = wall_ms(run, reps=2)
+    for h in handles:
+        h.remove()
+    check(torch.equal(pooled["NHWC"], pooled["NCHW"].permute(0, 2, 3, 1)),
+          "INT8: the NHWC activations into the pool differ from NCHW's")
+    row["logits_equal"] = bool(torch.equal(outs["NHWC"], outs["NCHW"]))
+    check(row["logits_equal"], "INT8: NHWC logits differ from NCHW's")
+    log(f"[nhwc int8] qresnet50 MC-{NUM_MC} bs{BATCH}: NHWC {row['NHWC']:.1f}"
+        f" ms/batch, NCHW {row['NCHW']:.1f}; activations into the pool and "
+        f"the MC-{NUM_MC} mean logits bit for bit")
+    del first, last, models
+    torch.cuda.empty_cache()
+    return row
+
+
+def nhwc_entry():
+    """(44f) ``graft_entry.entry()`` at the flagship shape
+    (``BTT_ENTRY_FLAGSHIP=1``): ResNet-50 NHWC, (128, 224, 224, 3), bf16,
+    MC-10."""
+    import os
+
+    import torch
+
+    from bayesian_torch_tpu_torch.graft_entry import entry
+
+    saved = os.environ.get("BTT_ENTRY_FLAGSHIP")
+    os.environ["BTT_ENTRY_FLAGSHIP"] = "1"
+    try:
+        fn, args = entry()
+    finally:
+        if saved is None:
+            del os.environ["BTT_ENTRY_FLAGSHIP"]
+        else:
+            os.environ["BTT_ENTRY_FLAGSHIP"] = saved
+    model, x = args
+    check(model.data_format == "NHWC" and tuple(x.shape) == (128, 224, 224, 3),
+          f"flagship entry: {model.data_format}, {tuple(x.shape)}")
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, kl = fn(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check(tuple(logits.shape) == (128, 1000)
+          and bool(torch.isfinite(logits).all()), "flagship entry() output")
+    log(f"[nhwc entry] graft_entry.entry() with BTT_ENTRY_FLAGSHIP=1: NHWC "
+        f"{tuple(x.shape)}, MC-10 bf16: logits {tuple(logits.shape)}, "
+        f"{ms:.1f} ms")
+    return ms
+
+
+def phase_nhwc():
+    """(44) Channels-last: K-G cl at the pointwise sites, the flagship
+    ResNet-50 in both layouts through every inference path, the MC-4
+    training steps, Flipout vmap, INT8 and the flagship entry. Returns
+    ({"K-G cl": {path: launches}, "K-G cl S=1": ...}, the three K-G cl
+    kernels-line entries, the summary)."""
+    import torch
+
+    from bayesian_torch_tpu_torch.models.bayesian import (
+        resnet_variational_large,
+    )
+
+    t0 = time.perf_counter()
+    seconds = {}
+    kg_fwd, kg_one, kg_dx = kgcl_sites()
+    seconds["kernel"] = time.perf_counter() - t0
+    first, last = nhwc_pair(resnet_variational_large, SEED + 900)
+    x = images(SEED + 901)
+    infer, dot_infer = nhwc_paths(first, last, x)
+    seconds["inference"] = time.perf_counter() - t0 - sum(seconds.values())
+    train, dot_train = nhwc_train(first, last)
+    seconds["training"] = time.perf_counter() - t0 - sum(seconds.values())
+    del first, last
+    torch.cuda.empty_cache()
+    flipout, dot_flip = nhwc_flipout(x)
+    seconds["flipout"] = time.perf_counter() - t0 - sum(seconds.values())
+    int8 = nhwc_int8(x)
+    seconds["int8"] = time.perf_counter() - t0 - sum(seconds.values())
+    entry_ms = nhwc_entry()
+    seconds["entry"] = time.perf_counter() - t0 - sum(seconds.values())
+    summary = {"inference": infer, "training": train, "flipout vmap": flipout,
+               "int8": int8, "entry flagship ms": entry_ms}
+    log(f"[nhwc] {card()}: " + json.dumps(summary))
+    log(f"[nhwc] seconds per part: "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    paths = {"K-G cl": {
+        f"NHWC vmap MC-{NUM_MC} bs{BATCH} CONV_1X1_DOT, 1 batch":
+        dot_infer["K-G cl"],
+        f"NHWC vmap MC-{TRAIN_MC} bs{BATCH} CONV_1X1_DOT, 2 steps":
+        dot_train["K-G cl"],
+        f"NHWC Flipout vmap MC-{NUM_MC} CONV_1X1_DOT, 1 batch":
+        dot_flip["K-G cl"]},
+        "K-G cl S=1": {
+        f"NHWC Flipout vmap MC-{NUM_MC} CONV_1X1_DOT, 1 batch":
+        dot_flip["K-G cl S=1"]}}
+    return paths, (kg_fwd, kg_one, kg_dx), summary
+
+
 def main(argv=None):
     import argparse
 
@@ -5633,6 +6160,8 @@ def main(argv=None):
     lstm_paths, lstm_res = phase_lstm()
     modes_paths, modes_res = phase_modes()
     mesh_paths, mesh_res = phase_multirank()
+    nhwc_paths, (kgcl_res, kgcl_one_res, kgcl_dx_res), nhwc_res = \
+        phase_nhwc()
 
     csrc = "bayesian_torch_tpu_torch/csrc/"
     pallas = "bayesian_torch_tpu/ops/pallas/"
@@ -5759,6 +6288,42 @@ def main(argv=None):
                  f"MC-{NUM_MC} bs{BATCH} backward's {N_POINTWISE} input "
                  f"gradients, bf16",
              launches=pointwise_train["K-G"], **kg_dx_res),
+        dict(name="mc_gemm_cl", route="cuda", source=csrc + "mc_gemm.cu",
+             replaces="benchmarks/bench_1x1_mc.py:52",
+             run=f"NHWC pointwise vmap inference: ResNet-50 "
+                 f"data_format='NHWC', ops.conv.CONV_1X1_DOT=True, "
+                 f"mc_forward(num_mc={NUM_MC}, emission='vmap'), 1 batch; "
+                 f"ms, plain_ms, bound_ms and library_ms (torch.einsum "
+                 f"'msc,soc->mso') are device-time sums over one forward's "
+                 f"{N_POINTWISE} pointwise sites, x (M, S, C), bf16",
+             launches=nhwc_paths["K-G cl"][
+                 f"NHWC vmap MC-{NUM_MC} bs{BATCH} CONV_1X1_DOT, 1 batch"],
+             paths=nhwc_paths["K-G cl"], **kgcl_res),
+        dict(name="mc_gemm_cl (S=1)", route="cuda",
+             source=csrc + "mc_gemm.cu",
+             replaces="benchmarks/bench_mosaic_matmul.py:34",
+             run=f"NHWC Flipout vmap inference with ops.conv.CONV_1X1_DOT="
+                 f"True: mc_forward(num_mc={NUM_MC}, emission='vmap'), 1 "
+                 f"batch (the mean convs, one weight over the M*S rows); ms, "
+                 f"plain_ms, bound_ms and library_ms (torch.einsum "
+                 f"'mc,oc->mo') are device-time sums over the "
+                 f"{N_POINTWISE} sites at {BATCH * NUM_MC} images, bf16",
+             launches=nhwc_paths["K-G cl S=1"][
+                 f"NHWC Flipout vmap MC-{NUM_MC} CONV_1X1_DOT, 1 batch"],
+             paths=nhwc_paths["K-G cl S=1"], **kgcl_one_res),
+        dict(name="mc_gemm_cl (backward: dx = g w)", route="cuda",
+             source=csrc + "mc_gemm.cu",
+             replaces="benchmarks/bench_1x1_mc.py:52",
+             run=f"NHWC pointwise vmap training: ops.conv.CONV_1X1_DOT="
+                 f"True, make_train_step(num_mc={TRAIN_MC}, batch_size="
+                 f"{BATCH}, emission='vmap'), 2 steps; launches count the "
+                 f"forward and dx ({N_POINTWISE} each a step); ms, plain_ms, "
+                 f"bound_ms and library_ms (torch.einsum) are device-time "
+                 f"sums over one MC-{NUM_MC} bs{BATCH} backward's "
+                 f"{N_POINTWISE} input gradients, bf16",
+             launches=nhwc_paths["K-G cl"][
+                 f"NHWC vmap MC-{TRAIN_MC} bs{BATCH} CONV_1X1_DOT, 2 steps"],
+             **kgcl_dx_res),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never ran in {k['run']}")
@@ -5769,6 +6334,7 @@ def main(argv=None):
     log(f"[modes] {card()}: " + json.dumps(modes_res, default=str))
     log(f"[multirank] {card()}: (a) {mesh_res['(a) one-rank NCCL world']},"
         f" (e) loader batches/s {mesh_res['(e) loader batches/s']}")
+    log(f"[nhwc] {card()}: " + json.dumps(nhwc_res))
     log(f"[time] profiler sessions of the kernel timings: "
         f"{SESSIONS['sessions']}, taken again {SESSIONS['retried']}")
     log(f"[time] every phase passed in {time.perf_counter() - t_start:.0f} s")

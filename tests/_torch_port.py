@@ -74,21 +74,28 @@ def to_np(x):
 # --- a narrow ResNet: stem, two Bottlenecks (one downsampling), head ---
 
 
+def _spatial(data_format):
+    """The spatial axes of a 2-d activation in ``data_format``."""
+    return (1, 2) if data_format.endswith("C") else (2, 3)
+
+
 class JaxTiny(nnx.Module):
-    def __init__(self, rngs, estimator=REPARAM):
+    def __init__(self, rngs, estimator=REPARAM, data_format="NCHW"):
         import bayesian_torch_tpu.layers as layers
         import bayesian_torch_tpu.nn as dnn
         from bayesian_torch_tpu.models._large_resnet import Bottleneck
 
         conv = getattr(layers, f"Conv2d{estimator}")
-        self.conv1 = conv(3, 16, 3, padding=1, bias=False, rngs=rngs)
-        self.bn1 = dnn.BatchNorm2d(16)
+        df = dict(data_format=data_format)
+        self.data_format = data_format
+        self.conv1 = conv(3, 16, 3, padding=1, bias=False, rngs=rngs, **df)
+        self.bn1 = dnn.BatchNorm2d(16, **df)
         down = dnn.Sequential(
-            conv(16, 32, 1, stride=2, bias=False, rngs=rngs),
-            layers.BatchNorm2dLayer(32))
+            conv(16, 32, 1, stride=2, bias=False, rngs=rngs, **df),
+            layers.BatchNorm2dLayer(32, **df))
         self.layer1 = dnn.Sequential(
-            Bottleneck(16, 8, 2, down, estimator=estimator, rngs=rngs),
-            Bottleneck(32, 8, estimator=estimator, rngs=rngs))
+            Bottleneck(16, 8, 2, down, estimator=estimator, rngs=rngs, **df),
+            Bottleneck(32, 8, estimator=estimator, rngs=rngs, **df))
         self.fc = getattr(layers, f"Linear{estimator}")(32, 10, rngs=rngs)
 
     def __call__(self, x):
@@ -97,13 +104,14 @@ class JaxTiny(nnx.Module):
         for block in self.layer1:
             out, kl = block(out)
             kl_sum = kl_sum + kl
-        out = out.mean(axis=(2, 3))
+        out = out.mean(axis=_spatial(self.data_format))
         out, kl = self.fc(out)
         return out, kl_sum + kl
 
 
 class TorchTiny(nn.Module):
-    def __init__(self, generator=None, estimator=REPARAM):
+    def __init__(self, generator=None, estimator=REPARAM,
+                 data_format="NCHW"):
         super().__init__()
         import bayesian_torch_tpu_torch.layers as layers
         from bayesian_torch_tpu_torch.models._large_resnet import Bottleneck
@@ -111,14 +119,17 @@ class TorchTiny(nn.Module):
 
         g = generator
         conv = getattr(layers, f"Conv2d{estimator}")
-        self.conv1 = conv(3, 16, 3, padding=1, bias=False, generator=g)
-        self.bn1 = BatchNorm2d(16)
+        df = dict(data_format=data_format)
+        self.data_format = data_format
+        self.conv1 = conv(3, 16, 3, padding=1, bias=False, generator=g, **df)
+        self.bn1 = BatchNorm2d(16, **df)
         down = Sequential(
-            conv(16, 32, 1, stride=2, bias=False, generator=g),
-            layers.BatchNorm2dLayer(32))
+            conv(16, 32, 1, stride=2, bias=False, generator=g, **df),
+            layers.BatchNorm2dLayer(32, **df))
         self.layer1 = nn.Sequential(
-            Bottleneck(16, 8, 2, down, estimator=estimator, generator=g),
-            Bottleneck(32, 8, estimator=estimator, generator=g))
+            Bottleneck(16, 8, 2, down, estimator=estimator, generator=g,
+                       **df),
+            Bottleneck(32, 8, estimator=estimator, generator=g, **df))
         self.fc = getattr(layers, f"Linear{estimator}")(32, 10, generator=g)
 
     def forward(self, x):
@@ -127,22 +138,25 @@ class TorchTiny(nn.Module):
         for block in self.layer1:
             out, kl = block(out)
             kl_sum = kl_sum + kl
-        out = out.mean(dim=(2, 3))
+        out = out.mean(dim=_spatial(self.data_format))
         out, kl = self.fc(out)
         return out, kl_sum + kl
 
 
-def tiny_twins(seed=0, rho=None, estimator=REPARAM):
+def tiny_twins(seed=0, rho=None, estimator=REPARAM, data_format="NCHW"):
     """(jax model, torch model, arrays): the narrow ResNet in both
-    packages, eval mode, holding the same random weights."""
+    packages, eval mode, holding the same random weights; activations in
+    ``data_format`` (NCHW, or channels-last NHWC)."""
     from bayesian_torch_tpu.utils.checkpoint import import_torch_state_dict
     from bayesian_torch_tpu_torch.utils.checkpoint import load_jax_state
 
-    jm = JaxTiny(nnx.Rngs(params=seed, noise=seed + 1), estimator)
+    jm = JaxTiny(nnx.Rngs(params=seed, noise=seed + 1), estimator,
+                 data_format)
     arrays = random_state(jax_arrays(jm), seed=seed, rho=rho)
     import_torch_state_dict(jm, arrays)
     set_jax_eval(jm)
-    tm = TorchTiny(torch.Generator().manual_seed(seed), estimator)
+    tm = TorchTiny(torch.Generator().manual_seed(seed), estimator,
+                   data_format)
     load_jax_state(tm, arrays)
     tm.eval()
     return jm, tm, arrays

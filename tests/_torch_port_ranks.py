@@ -125,9 +125,11 @@ def psum(rank, world):
     return float(t), dist.get_backend()
 
 
-def small_net(estimator="reparameterization", seed=0, dropout=0.0):
+def small_net(estimator="reparameterization", seed=0, dropout=0.0,
+              data_format="NCHW"):
     """Conv -> BatchNorm -> ReLU [-> Dropout] -> Linear on (B, 3, 6, 6),
-    all layers on one generator seeded ``seed``."""
+    all layers on one generator seeded ``seed``; the conv and BatchNorm in
+    ``data_format`` ((B, 6, 6, 3) under "NHWC")."""
     import torch
     from torch import nn
 
@@ -142,8 +144,9 @@ def small_net(estimator="reparameterization", seed=0, dropout=0.0):
             conv = L.Conv2dFlipout if flip else L.Conv2dReparameterization
             lin = L.LinearFlipout if flip else L.LinearReparameterization
             self.conv = conv(3, 4, 3, padding=1, posterior_rho_init=-2.0,
-                             generator=gen)
-            self.bn = L.BatchNorm2dLayer(4, generator=gen)
+                             generator=gen, data_format=data_format)
+            self.bn = L.BatchNorm2dLayer(4, generator=gen,
+                                         data_format=data_format)
             self.drop = L.Dropout(dropout, generator=gen)
             self.fc = lin(4 * 6 * 6, 5, posterior_rho_init=-2.0,
                           generator=gen)
@@ -307,6 +310,26 @@ def lstm_parity(rank, world, mc, data, num_mc, kw, training, estimator,
     diffs["generators"] = torch.equal(ref.lstm.generator.get_state(),
                                       net.lstm.generator.get_state())
     return diffs
+
+
+def nhwc_refusals(rank, world):
+    """The messages of ``mc_forward(mesh=)`` and ``shard_params_tp`` on a
+    channels-last model: each must raise ``NotImplementedError``."""
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import (make_mesh, mc_forward,
+                                                   shard_params_tp)
+
+    net = small_net(data_format="NHWC")
+    out = []
+    for fn in (lambda: mc_forward(net, torch.zeros(1, 6, 6, 3), 2,
+                                  mesh=make_mesh(mc=world)),
+               lambda: shard_params_tp(net, make_mesh(mc=1, model=world))):
+        try:
+            fn()
+        except NotImplementedError as e:
+            out.append(str(e))
+    return out
 
 
 def mc_parity_error(rank, world, num_mc):

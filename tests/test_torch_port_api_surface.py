@@ -185,3 +185,52 @@ def test_package_imports_on_its_own(first):
                           cwd=pathlib.Path(__file__).resolve().parents[1],
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# every class and function whose JAX twin takes ``data_format``, by module
+_DATA_FORMAT = {
+    "ops.conv": ["conv_nd", "conv_transpose_nd", "_apply_conv",
+                 "sampled_conv", "flipout_conv"],
+    "ops.int8": ["qconv"],
+    "nn.functional": ["max_pool_nd", "avg_pool_nd", "adaptive_avg_pool_nd"],
+    "nn.modules": ["MaxPool2d", "AdaptiveAvgPool2d", "Conv1d", "Conv2d",
+                   "Conv3d", "ConvTranspose1d", "ConvTranspose2d",
+                   "ConvTranspose3d", "BatchNorm1d", "BatchNorm2d",
+                   "BatchNorm3d"],
+    "layers": [f"{kind}{nd}d{est}" for kind in ("Conv", "ConvTranspose",
+                                                "QuantizedConv",
+                                                "QuantizedConvTranspose")
+               for nd in (1, 2, 3) for est in ("Reparameterization",
+                                               "Flipout")]
+    + ["BatchNorm1dLayer", "BatchNorm2dLayer", "BatchNorm3dLayer",
+       "QuantizedBatchNorm2d"],
+    "models._large_resnet": ["LargeResNet", "BasicBlock", "Bottleneck"],
+}
+
+
+@pytest.mark.parametrize("module", list(_DATA_FORMAT))
+def test_data_format_keyword_as_jax(module):
+    """Each of these takes ``data_format`` in the JAX package (asserted, so
+    the list follows JAX) and in the port, defaulting to "NCHW"; the
+    ImageNet factories pass it on."""
+    import importlib
+    import inspect
+
+    jmod = importlib.import_module(f"bayesian_torch_tpu.{module}")
+    tmod = importlib.import_module(f"bayesian_torch_tpu_torch.{module}")
+    for name in _DATA_FORMAT[module]:
+        for mod in (jmod, tmod):
+            obj = getattr(mod, name)
+            # a class's constructor (nnx's metaclass hides it from the
+            # class's own signature)
+            params = inspect.signature(obj.__init__ if inspect.isclass(obj)
+                                       else obj).parameters
+            assert "data_format" in params, (mod.__name__, name)
+            assert params["data_format"].default == "NCHW", (mod.__name__,
+                                                             name)
+    if module == "models._large_resnet":
+        from bayesian_torch_tpu_torch.models.bayesian import (
+            resnet_variational_large as rvl,
+        )
+        model = rvl.resnet18(num_classes=4, data_format="NHWC")
+        assert model.data_format == "NHWC" == model.layer4[1].bn2.data_format

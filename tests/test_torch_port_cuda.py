@@ -10,6 +10,7 @@ autograd through the public ops, K-F (the fused int8 GEMM + requantize)
 with the quantized convs built on it (and at the CIFAR ResNet's and the
 SCNN's GEMM shapes), K-A and K-C at the CIFAR ResNet's layer sizes, K-G
 (the per-draw GEMM behind the pointwise emission) in bf16, f32 and int8,
+K-G channels-last (the NHWC pointwise emission) in bf16 and f32,
 and K-A and K-C under a counter window (a rank's lanes, a tensor-parallel
 shard's rows; the LSTM's draws and signs under a mesh's window) against
 the whole launch. They skip without a
@@ -855,6 +856,86 @@ def test_pointwise_emission_on_the_card_matches_cudnn(cuda, monkeypatch,
     assert _max_err(got, want) <= tol * _scale(want)
     assert (kg.mc_gemm.launches, kg.pointwise_gemm.launches) == (
         before[0] + 2, before[1] + 1)
+
+
+# (M, S, O, C): K-G channels-last; M off the 128-row tile, O off the 128
+# and 8 widths, C off the 64-wide stage and the 8 a tensor map needs
+_KGCL_SHAPES = [(6272, 3, 64, 64), (333, 2, 70, 40), (129, 4, 17, 33),
+                (1000, 1, 256, 96), (200, 3, 130, 200)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", _KGCL_SHAPES)
+@pytest.mark.parametrize("shared", ["none", "x", "w"])
+def test_mc_gemm_cl_matches_plain(cuda, dtype, shape, shared):
+    """K-G channels-last (x (M, S, C), w (S, O, C)) against its plain
+    version, with and without a bias, x per lane, shared or under one
+    weight; and from an NHWC draw-axis activation with a row stride of
+    S*C (a view of the lanes, no copy)."""
+    M, S, O, C = shape
+    x = _kg_rand((M, C) if shared == "x" else (M, S, C), dtype, cuda, 20)
+    w = _kg_rand((1 if shared == "w" else S, O, C), dtype, cuda, 21)
+    bias = _kg_rand((w.shape[0], O), dtype, cuda, 22)
+    before = kg.mc_gemm_cl.launches
+    for b in (None, bias):
+        _kg_check(kg.mc_gemm_cl(x, w, b), kg.mc_gemm_cl_plain(x, w, b),
+                  dtype)
+    assert kg.mc_gemm_cl.launches == before + 2
+    if shared == "none" and S > 1:
+        lane = x[:, 1]  # rows S*C apart
+        _kg_check(kg.pointwise_gemm_cl(lane, w[1], bias[1]),
+                  kg.mc_gemm_cl_plain(lane, w[1], bias[1])[:, 0], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shared", ["none", "x", "w"])
+def test_mc_gemm_cl_backward_matches_the_cpu(cuda, dtype, shared):
+    """K-G channels-last's gradients on the card (dx through the kernel,
+    one more launch on the wrapper) against autograd on a CPU copy."""
+    M, S, O, C = _KGCL_SHAPES[1]
+    x = _kg_rand((M, C) if shared == "x" else (M, S, C), dtype, cuda, 23)
+    w = _kg_rand((1 if shared == "w" else S, O, C), dtype, cuda, 24)
+    bias = _kg_rand((w.shape[0], O), dtype, cuda, 25)
+    g = _kg_rand((M, S, O), dtype, cuda, 26)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        t = [a.detach().to(dev).requires_grad_(True) for a in (x, w, bias)]
+        before = kg.mc_gemm_cl.launches
+        (kg.mc_gemm_cl(*t) * g.to(dev)).sum().backward()
+        if dev == cuda:
+            assert kg.mc_gemm_cl.launches == before + 2
+        grads.append([a.grad for a in t])
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for got, want in zip(*grads):
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert _max_err(got.cpu(), want) <= tol * _scale(want)
+
+
+def test_nhwc_pointwise_emission_on_the_card_matches_cudnn(cuda,
+                                                           monkeypatch):
+    """Under NHWC a 1x1 conv with ``CONV_1X1_DOT`` reaches K-G
+    channels-last (the draw axis and one weight), within one bf16 ulp of
+    the largest value of cuDNN's conv on the same channels-last tensors;
+    int8 is refused."""
+    monkeypatch.setattr(conv_ops, "CONV_1X1_DOT", True)
+    S, B, H, C, O = 3, 2, 14, 64, 96
+    x = _kg_rand((B, H, H, S * C), torch.bfloat16, cuda, 27)
+    w = _kg_rand((S, O, C, 1, 1), torch.bfloat16, cuda, 28)
+    before = (kg.mc_gemm_cl.launches, kg.pointwise_gemm_cl.launches)
+    got = conv_ops.conv_draws(x, w, data_format="NHWC")
+    want = conv_ops.conv_draws(x, w, data_format="NHWC", pointwise_dot=False)
+    assert got.shape == (B, H, H, S * O)
+    assert _max_err(got, want) <= 2.0 ** -7 * _scale(want)
+    got = conv_ops.conv_nd(x[..., :C], w[0], data_format="NHWC")
+    want = conv_ops.conv_nd(x[..., :C], w[0], data_format="NHWC",
+                            pointwise_dot=False)
+    assert _max_err(got, want) <= 2.0 ** -7 * _scale(want)
+    assert (kg.mc_gemm_cl.launches, kg.pointwise_gemm_cl.launches) == (
+        before[0] + 1, before[1] + 1)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        kg.mc_gemm_cl(x.reshape(-1, S, C).to(torch.int8),
+                      w.reshape(S, O, C).to(torch.int8))
 
 
 # --- model surgery on the card -----------------------------------------------

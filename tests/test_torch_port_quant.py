@@ -135,8 +135,9 @@ def test_qconv_im2col_matches_jax_xla_route(k, stride, pad, dil, cin, cout,
 def test_qconv_unported_cases_raise():
     """Grouped and transposed int8 convs run (and equal the JAX route:
     ``tests/test_torch_port_int8_flipout.py`` holds them at every
-    geometry); channels-last activations stay refused, since every layer
-    of the port is NCHW."""
+    geometry); channels-last activations, refused until the port took
+    ``data_format``, run too and equal the JAX route's NHWC conv bit for
+    bit (``tests/test_torch_port_nhwc.py`` holds every geometry)."""
     rs = np.random.RandomState(5)
     x = rs.randint(0, 256, (1, 4, 5, 5)).astype(np.uint8)
     w = rs.randint(-128, 128, (4, 2, 3, 3)).astype(np.int8)
@@ -147,9 +148,11 @@ def test_qconv_unported_cases_raise():
                         0.2, 128, **kw),
                tq.qconv(_t(x), 0.1, 120, _t(w_), 0.1, None, 0.2, 128,
                         **kw).contiguous())
-    with pytest.raises(NotImplementedError, match="NCHW"):
-        tq.qconv(_t(x), 0.1, 128, _t(w), 0.1, None, 0.1, 128,
-                 data_format="NHWC")
+    xl = x.transpose(0, 2, 3, 1).copy()
+    _equal(jq.qconv(jnp.asarray(xl), 0.1, 128, jnp.asarray(w), 0.1, None,
+                    0.1, 128, groups=2, data_format="NHWC"),
+           tq.qconv(_t(xl), 0.1, 128, _t(w), 0.1, None, 0.1, 128, groups=2,
+                    data_format="NHWC"))
 
 
 # --- K-F's plain version --------------------------------------------------
