@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the TMA + wgmma kernels (K-F in
 // qmatmul.cu, K-G's bf16 lane in mc_gemm.cu) and K-E's wgmma
 // (sampled_matmul_bwd.cu): tensor maps built on the host, mbarrier rings,
-// TMA loads and wgmma shared-memory descriptors.
+// TMA loads and stores and wgmma shared-memory descriptors.
 //
 // Every tile here is a 128-byte-swizzled one: rows of 128 bytes, eight of
 // them (1024 bytes) forming one swizzle atom, the 16-byte chunk c of row r
@@ -151,7 +151,37 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
-// Stores by threads into a tile that wgmma (the async proxy) reads next.
+// One TMA tensor store of the box at shared `src` (laid out as a load of
+// the same map would write it) to coordinates (c0, c1, c2) of `map`; the
+// hardware clips what lies outside the tensor. Committed as one bulk group
+// by bulk_commit; bulk_wait_read<N> returns once all but the N newest
+// groups have read their shared memory, bulk_wait<N> once they are done.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stores by threads into a tile that wgmma or a TMA store (the async
+// proxy) reads next.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -159,6 +189,12 @@ __device__ __forceinline__ void fence_async_smem() {
 // Barrier `id` (1..15) over `threads` threads of the block.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrive at barrier `id` without waiting: the other side's named_sync over
+// the same `threads` completes once these have arrived.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // wgmma descriptor of a 128-byte-swizzled tile at shared address `addr`:
@@ -235,6 +271,31 @@ __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1), "n"(kTransB));
+}
+
+template <int kTransB = 1>
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t a,
+                                               uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(1), "n"(kTransB));
 }
 

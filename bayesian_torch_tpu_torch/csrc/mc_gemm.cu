@@ -1076,18 +1076,47 @@ __global__ void __launch_bounds__(kFThreads)
 //
 // The bf16 lane: both operands are K-major (C contiguous), the layout
 // wgmma takes from shared memory with no transpose, so nothing is relaid.
-// A block owns a 128 (rows of M) x 128 (O) output tile of one draw and
-// walks C in stages of 64 through a ring of up to three shared-memory
-// stages under mbarriers. One producer thread brings both tiles of a stage
-// by TMA (cp.async.bulk.tensor, 128-byte swizzle): x through a 3-D tensor
-// map over (C, S, M) whose box (64, 1, 128) picks lane s, w through one
-// over (C, O, S). Two consumer warpgroups each run wgmma.m64n128k16 on
-// their 64 rows with f32 accumulators in registers, releasing a stage once
-// the wgmma that read it has retired. Rows past M, O and C load as 0
-// (TMA's zero fill). Output goes through shared memory (the ring, once the
-// consumers are done with it) and leaves in coalesced, masked rows. The O
-// tiles of one row tile are neighbours in the grid, so x is read from
-// memory about once and w, small, stays in L2.
+// Every 56x56 and 28x28 site moves more bytes than its products need time
+// for, and a site's C is 64 to 2048, so a tile walks 1 to 32 stages of 64
+// channels: the load, the product and the store of one tile must overlap
+// those of others, which a block that owns one tile and exits cannot do.
+// So the kernel is persistent, one block an SM, each block walking the
+// (row tile, s, O tile) tiles t = blockIdx.x + j * gridDim.x, O tiles
+// fastest: the O tiles of one x tile are in flight together on
+// neighbouring blocks, so x is read from memory about once, and the tiles
+// in flight cover whole rows of x and y. A tile is 128 rows of M by
+// kTN = 128 output channels (64 where O <= 64, wgmma.m64n64k16, so no
+// half-empty tile at 64 -> 64 and 256 -> 64). Warp roles:
+// - one producer thread walks the block's tiles and their C stages in
+//   order, bringing x through a 3-D tensor map over (C, S, M) (box 64, 1,
+//   128: lane s) and w through one over (C, O, S), 128-byte swizzled, into
+//   a ring of kStages stages (5 of 32 KiB at kTN = 128, 6 of 24 KiB at
+//   64) under full / empty mbarriers; it never waits for an epilogue, only
+//   for a free stage;
+// - two consumer warpgroups in ping-pong: warpgroup j % 2 owns the block's
+//   tile j whole (two wgmma rows of 64, f32 sums in registers). Their main
+//   loops take turns (a named-barrier handshake: a warpgroup starts tile j's
+//   loop once tile j - 1's has ended), which keeps each waiter within one
+//   phase of the ring's barriers, and one warpgroup's epilogue runs under
+//   the other's products;
+// - the epilogue casts to bf16, adds the bias in bf16 (as the convolution
+//   op adds it) and, 64 output channels at a time, writes them into the
+//   warpgroup's own 128-byte-swizzled 16 KiB staging buffer (apart from the
+//   ring, and half a tile wide, so the ring keeps five stages under 200 KB
+//   of shared memory), which one thread stores by TMA (cp.async.bulk.tensor
+//   over a 3-D map of y as (O, S, M); the hardware clips rows past M and
+//   O); the buffer is written again once that store has read it. Where y's
+//   rows are not 16-byte aligned (O not a multiple of 8) no tensor map
+//   takes them, and the warpgroup stores each staged half with masked
+//   2-byte stores instead.
+// Rows past M, O and C load as 0 (TMA's zero fill).
+// What holds it back (measured on the H100): at the 14x14 and 7x7 sites a
+// 128 x 128 tile brings 32 KiB from L2 for every 64 channels, which at the
+// tensor cores' rate would be about 15 TB/s across the card, so those
+// sites run below the tensor rate; a deeper ring helps (3, 4, 5 stages)
+// while shared memory stays under about 200 KB, and a ring that took more,
+// a 256-row tile shared by both warpgroups and a pair of blocks
+// multicasting x (a cluster of two) were each slower (PERF.md, §6).
 //
 // The f32 lane runs on the CUDA cores (full f32 products, which TF32 would
 // not give), 64 x 64 tiles.
@@ -1101,22 +1130,22 @@ struct GeomCL {
   int64_t x_row, x_lane, w_lane, y_row, y_lane, b_lane;
 };
 
-constexpr int kTM = 128;        // rows of M a block
-constexpr int kTN = 128;        // output channels a block
-constexpr int kStages = 3;      // ring depth; a stage holds 64 of C
-constexpr int kTile = 16384;    // 128 rows of 128 bytes
-constexpr int kStage = 2 * kTile;
-constexpr int kOutLd = kTN * 2 + 16;  // output staging row, padded
+constexpr int kTM = 128;        // rows of M a tile
+constexpr int kXTile = 16384;   // 128 rows of 64 C (128 bytes)
+constexpr int kHalf = 16384;    // 128 rows of 64 output channels, staged
 constexpr int kThreads = 288;   // two consumer warpgroups, a producer warp
 
-__host__ __device__ constexpr int ring_bytes(int stages) {
-  return stages * kStage > kTM * kOutLd ? stages * kStage : kTM * kOutLd;
-}
-
-__host__ __device__ constexpr int smem_bytes(int stages) {
-  // the ring, 1024 bytes to align it, two barriers a stage
-  return ring_bytes(stages) + 1024 + 16 * stages;
-}
+template <int kTN>
+struct Ring {
+  static constexpr int kWTile = kTN * 128;  // kTN rows of 64 C
+  static constexpr int kStage = kXTile + kWTile;
+  static constexpr int kStages = kTN == 128 ? 5 : 6;
+  static constexpr int kOut = kHalf;  // one warpgroup's staging: 64 columns
+  // the ring, two staging buffers, 1024 bytes to align them, two
+  // barriers a stage
+  static constexpr int kSmem = kStages * kStage + 2 * kOut + 1024 +
+                               16 * kStages;
+};
 
 __device__ __forceinline__ __nv_bfloat16 finish_bf16(float acc, float bias,
                                                      bool has_bias) {
@@ -1125,29 +1154,57 @@ __device__ __forceinline__ __nv_bfloat16 finish_bf16(float acc, float bias,
   return r;
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+template <int kTN>
+__device__ __forceinline__ void mma_k16(float (&d)[kTN / 2], uint64_t a,
+                                        uint64_t b);
+template <>
+__device__ __forceinline__ void mma_k16<128>(float (&d)[64], uint64_t a,
+                                             uint64_t b) {
+  btt::wgmma_bf16_n128<0>(d, a, b);
+}
+template <>
+__device__ __forceinline__ void mma_k16<64>(float (&d)[32], uint64_t a,
+                                            uint64_t b) {
+  btt::wgmma_bf16_n64<0>(d, a, b);
+}
+
+// Tile t of the walk: O tiles fastest, then draws, then row tiles, so the
+// tiles in flight together cover whole rows of x and y (all S*C and S*O
+// of each row, contiguous in memory) and every lane's w stays in L2.
+__device__ __forceinline__ void tile_at(int64_t t, int otiles, int S,
+                                        int kTN, int& o0, int& m0, int& s) {
+  o0 = (int)(t % otiles) * kTN;
+  const int64_t rest = t / otiles;
+  s = (int)(rest % S);
+  m0 = (int)(rest / S) * kTM;
+}
+
+template <int kTN>
+__global__ void __launch_bounds__(kThreads, 1)
     mc_gemm_cl_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                             const __grid_constant__ CUtensorMap wmap,
+                            const __grid_constant__ CUtensorMap ymap,
                             const __nv_bfloat16* __restrict__ bias,
                             __nv_bfloat16* __restrict__ y, GeomCL g,
-                            int stages, int yvec) {
+                            int tma_store) {
+  using R = Ring<kTN>;
+  constexpr int kS = R::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = btt::smem_addr(smem_raw);
   uint8_t* ring = smem_raw + ((1024 - (base & 1023)) & 1023);
-  const uint32_t bars = btt::smem_addr(ring + ring_bytes(stages));
+  uint8_t* outs = ring + kS * R::kStage;
+  const uint32_t bars = btt::smem_addr(outs + 2 * R::kOut);
   const int tid = threadIdx.x;
   const int wg = tid / 128;
-  const int o0 = blockIdx.x * kTN;
-  const int m0 = blockIdx.y * kTM;
-  const int s = blockIdx.z;
-  const int sx = g.x_lane ? s : 0;
-  const int sw = g.w_lane ? s : 0;
   const int nk = (g.C + 63) / 64;
+  const int otiles = (g.O + kTN - 1) / kTN;
+  const int mtiles = (g.M + kTM - 1) / kTM;
+  const int64_t tiles = (int64_t)otiles * mtiles * g.S;
 
   if (tid == 0) {
-    for (int i = 0; i < stages; ++i) {
-      btt::mbar_init(bars + 8 * i, 1);
-      btt::mbar_init(bars + 8 * (stages + i), 256);
+    for (int i = 0; i < kS; ++i) {
+      btt::mbar_init(bars + 8 * i, 1);           // full: the producer
+      btt::mbar_init(bars + 8 * (kS + i), 128);  // empty: one warpgroup
     }
     btt::mbar_init_fence();
   }
@@ -1155,102 +1212,188 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   if (wg == 2) {  // the producer: one thread brings both tiles of a stage
     if (tid != 256) return;
-    for (int kt = 0; kt < nk; ++kt) {
-      const int st = kt % stages;
-      const uint32_t full = bars + 8 * st;
-      const uint32_t stage = btt::smem_addr(ring + st * kStage);
-      btt::mbar_wait(bars + 8 * (stages + st), ((kt / stages) & 1) ^ 1);
-      btt::mbar_expect_tx(full, kStage);
-      btt::tma_load_3d(stage, &xmap, full, kt * 64, sx, m0);
-      btt::tma_load_3d(stage + kTile, &wmap, full, kt * 64, o0, sw);
+    uint32_t p = 0;
+    for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int o0, m0, s;
+      tile_at(t, otiles, g.S, kTN, o0, m0, s);
+      const int sx = g.x_lane ? s : 0;
+      const int sw = g.w_lane ? s : 0;
+      for (int kt = 0; kt < nk; ++kt, ++p) {
+        const int st = p % kS;
+        const uint32_t full = bars + 8 * st;
+        const uint32_t stage = btt::smem_addr(ring + st * R::kStage);
+        btt::mbar_wait(bars + 8 * (kS + st), ((p / kS) & 1) ^ 1);
+        btt::mbar_expect_tx(full, R::kStage);
+        btt::tma_load_3d(stage, &xmap, full, kt * 64, sx, m0);
+        btt::tma_load_3d(stage + kXTile, &wmap, full, kt * 64, o0, sw);
+      }
     }
     return;
   }
 
-  // a consumer warpgroup: rows wg*64 .. wg*64 + 63 of the tile
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt % stages;
-    const uint32_t stage = btt::smem_addr(ring + st * kStage);
-    btt::mbar_wait(bars + 8 * st, (kt / stages) & 1);
-    btt::wgmma_fence();
-    btt::fence_regs(acc);
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      // 16 of C: 32 bytes along the rows of both tiles
-      const uint64_t da =
-          btt::desc_sw128(stage + wg * (kTile / 2) + ks * 32, 16, 1024);
-      const uint64_t db = btt::desc_sw128(stage + kTile + ks * 32, 16, 1024);
-      btt::wgmma_bf16_n128<0>(acc, da, db);
-    }
-    btt::wgmma_commit();
-    btt::fence_regs(acc);
-    btt::wgmma_wait<1>();
-    btt::fence_regs(acc);
-    if (kt > 0) btt::mbar_arrive(bars + 8 * (stages + (kt - 1) % stages));
-  }
-  btt::wgmma_wait<0>();
-  btt::fence_regs(acc);
-
-  // epilogue: both consumers are done with the ring, which now stages the
-  // output; each warpgroup writes its 64 rows (the m64n128 fragment: row
-  // warp*16 + lane/4 + 8h, columns 8j + 2(lane%4) + {0, 1}), then stores
-  btt::named_sync(1, 256);
+  // a consumer warpgroup: the block's tiles j = wg, wg + 2, ...
   const int lt = tid % 128;
   const int warp = lt / 32;
   const int lane = lt % 32;
-  uint8_t* out = ring + wg * 64 * kOutLd;
-  const __nv_bfloat16* brow =
-      bias != nullptr ? bias + (int64_t)s * g.b_lane : nullptr;
+  uint8_t* out = outs + wg * R::kOut;
+  const uint32_t out_addr = btt::smem_addr(out);
+  for (int64_t j = wg;; j += 2) {
+    const int64_t t = blockIdx.x + j * (int64_t)gridDim.x;
+    if (t >= tiles) break;
+    int o0, m0, s;
+    tile_at(t, otiles, g.S, kTN, o0, m0, s);
+    float acc[2][kTN / 2];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col = 8 * j + (lane % 4) * 2;
-    float b0 = 0.f, b1 = 0.f;
-    if (brow != nullptr) {
-      if (o0 + col < g.O) b0 = __bfloat162float(brow[o0 + col]);
-      if (o0 + col + 1 < g.O) b1 = __bfloat162float(brow[o0 + col + 1]);
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < kTN / 2; ++i) acc[h][i] = 0.f;
+    // tile j's loop starts once tile j - 1's has ended
+    if (j > 0) btt::named_sync(3 + wg, 256);
+    const uint32_t p0 = (uint32_t)(j * nk);
+    for (int kt = 0; kt < nk; ++kt) {
+      const uint32_t p = p0 + kt;
+      const int st = p % kS;
+      const uint32_t stage = btt::smem_addr(ring + st * R::kStage);
+      btt::mbar_wait(bars + 8 * st, (p / kS) & 1);
+      btt::wgmma_fence();
+      btt::fence_regs(acc[0]);
+      btt::fence_regs(acc[1]);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        // 16 of C: 32 bytes along the rows of both tiles
+        const uint64_t db =
+            btt::desc_sw128(stage + kXTile + ks * 32, 16, 1024);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          mma_k16<kTN>(acc[h],
+                       btt::desc_sw128(stage + h * 8192 + ks * 32, 16, 1024),
+                       db);
+      }
+      btt::wgmma_commit();
+      btt::fence_regs(acc[0]);
+      btt::fence_regs(acc[1]);
+      btt::wgmma_wait<1>();
+      btt::fence_regs(acc[0]);
+      btt::fence_regs(acc[1]);
+      if (kt > 0) btt::mbar_arrive(bars + 8 * (kS + (p - 1) % kS));
     }
+    btt::wgmma_wait<0>();
+    btt::fence_regs(acc[0]);
+    btt::fence_regs(acc[1]);
+    btt::mbar_arrive(bars + 8 * (kS + (p0 + nk - 1) % kS));
+    if (t + gridDim.x < tiles) btt::named_arrive(3 + (wg ^ 1), 256);
+
+    // epilogue, 64 columns at a time: the staging buffer is free once
+    // this warpgroup's last store has read it
+    const __nv_bfloat16* brow =
+        bias != nullptr ? bias + (int64_t)s * g.b_lane : nullptr;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = warp * 16 + lane / 4 + 8 * h;
-      *reinterpret_cast<__nv_bfloat162*>(out + r * kOutLd + col * 2) =
-          __halves2bfloat162(
-              finish_bf16(acc[4 * j + 2 * h], b0, brow != nullptr),
-              finish_bf16(acc[4 * j + 2 * h + 1], b1, brow != nullptr));
+    for (int hf = 0; hf < kTN / 64; ++hf) {
+      if (lt == 0) btt::bulk_wait_read<0>();
+      btt::named_sync(1 + wg, 128);
+      // the m64nN fragment: row warp*16 + lane/4 + 8q, columns 8c +
+      // 2(lane%4) + {0, 1}; staged as 128 swizzled rows of 64 columns
+#pragma unroll
+      for (int c = hf * 8; c < hf * 8 + 8; ++c) {
+        const int col = 8 * c + (lane % 4) * 2;
+        float b0 = 0.f, b1 = 0.f;
+        if (brow != nullptr) {
+          if (o0 + col < g.O) b0 = __bfloat162float(brow[o0 + col]);
+          if (o0 + col + 1 < g.O) b1 = __bfloat162float(brow[o0 + col + 1]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int r = h * 64 + warp * 16 + lane / 4 + 8 * q;
+            *reinterpret_cast<__nv_bfloat162*>(
+                out + r * 128 + (((c % 8) ^ (r % 8)) * 16) +
+                (lane % 4) * 4) =
+                __halves2bfloat162(
+                    finish_bf16(acc[h][4 * c + 2 * q], b0, brow != nullptr),
+                    finish_bf16(acc[h][4 * c + 2 * q + 1], b1,
+                                brow != nullptr));
+          }
+      }
+      btt::fence_async_smem();
+      btt::named_sync(1 + wg, 128);
+      if (tma_store) {
+        if (lt == 0) {
+          btt::tma_store_3d(&ymap, out_addr, o0 + 64 * hf, s, m0);
+          btt::bulk_commit();
+        }
+        continue;
+      }
+      for (int e = lt; e < kTM * 64; e += 128) {
+        const int r = e / 64;
+        const int cc = e % 64;
+        if (m0 + r >= g.M || o0 + 64 * hf + cc >= g.O) continue;
+        reinterpret_cast<uint16_t*>(y)[(int64_t)(m0 + r) * g.y_row +
+                                       (int64_t)s * g.y_lane + o0 +
+                                       64 * hf + cc] =
+            *reinterpret_cast<const uint16_t*>(
+                out + r * 128 + ((((cc / 8) ^ (r % 8)) * 16) + (cc % 8) * 2));
+      }
     }
   }
-  btt::named_sync(2 + wg, 128);
-  const int64_t mrow = m0 + wg * 64;
+  if (lt == 0) btt::bulk_wait<0>();
+}
+
+template <int kTN>
+int launch_tiles(const CUtensorMap& xmap, const void* w, const void* bias,
+                 void* y, const GeomCL& g, int w_row, int yvec,
+                 cudaStream_t stream) {
+  const int Sw = g.w_lane ? g.S : 1;
+  CUtensorMap wmap, ymap;
+  {
+    const cuuint64_t dims[3] = {(cuuint64_t)w_row, (cuuint64_t)g.O,
+                                (cuuint64_t)Sw};
+    const cuuint64_t strides[2] = {(cuuint64_t)w_row * 2,
+                                   (cuuint64_t)w_row * 2 * g.O};
+    const cuuint32_t box[3] = {64, (cuuint32_t)kTN, 1};
+    const int err = btt::make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                                  w, dims, strides, box);
+    if (err != 0) return err;
+  }
   if (yvec) {
-    // O, the strides and y's base are multiples of 8 elements: 16-byte
-    // stores, 16 threads a row
-    for (int q = lt; q < 64 * 16; q += 128) {
-      const int r = q / 16;
-      const int cc = q % 16;
-      if (mrow + r >= g.M || o0 + cc * 8 >= g.O) continue;
-      *reinterpret_cast<uint4*>(y + (mrow + r) * g.y_row +
-                                (int64_t)s * g.y_lane + o0 + cc * 8) =
-          *reinterpret_cast<const uint4*>(out + r * kOutLd + cc * 16);
-    }
-    return;
+    const cuuint64_t dims[3] = {(cuuint64_t)g.O, (cuuint64_t)g.S,
+                                (cuuint64_t)g.M};
+    // one lane (y_lane 0): its stride is never stepped, but must be legal
+    const cuuint64_t strides[2] = {
+        (cuuint64_t)(g.y_lane ? g.y_lane : g.y_row) * 2,
+        (cuuint64_t)g.y_row * 2};
+    const cuuint32_t box[3] = {64, 1, (cuuint32_t)kTM};
+    const int err = btt::make_map(&ymap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                                  y, dims, strides, box);
+    if (err != 0) return err;
+  } else {
+    ymap = xmap;  // not read
   }
-  for (int q = lt; q < 64 * kTN; q += 128) {
-    const int r = q / kTN;
-    const int col = q % kTN;
-    if (mrow + r >= g.M || o0 + col >= g.O) continue;
-    reinterpret_cast<uint16_t*>(y)[(mrow + r) * g.y_row +
-                                   (int64_t)s * g.y_lane + o0 + col] =
-        *reinterpret_cast<const uint16_t*>(out + r * kOutLd + col * 2);
+  static int allowed = -1;
+  if (allowed != 0)
+    allowed = btt::allow_smem(mc_gemm_cl_wgmma_kernel<kTN>, Ring<kTN>::kSmem);
+  if (allowed != 0) return allowed;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
   }
+  const int64_t tiles = (int64_t)((g.O + kTN - 1) / kTN) *
+                        ((g.M + kTM - 1) / kTM) * g.S;
+  const int grid = tiles < sms ? (int)tiles : sms;
+  mc_gemm_cl_wgmma_kernel<kTN>
+      <<<grid, kThreads, Ring<kTN>::kSmem, stream>>>(
+          xmap, wmap, ymap, static_cast<const __nv_bfloat16*>(bias),
+          static_cast<__nv_bfloat16*>(y), g, yvec);
+  return (int)cudaGetLastError();
 }
 
 int launch_bf16(const void* x, const void* w, const void* bias, void* y,
                 const GeomCL& g, int w_row, int yvec, cudaStream_t stream) {
   const int Sx = g.x_lane ? g.S : 1;
-  const int Sw = g.w_lane ? g.S : 1;
-  CUtensorMap xmap, wmap;
+  CUtensorMap xmap;
   {
     const cuuint64_t dims[3] = {(cuuint64_t)g.C, (cuuint64_t)Sx,
                                 (cuuint64_t)g.M};
@@ -1263,29 +1406,9 @@ int launch_bf16(const void* x, const void* w, const void* bias, void* y,
                                   x, dims, strides, box);
     if (err != 0) return err;
   }
-  {
-    const cuuint64_t dims[3] = {(cuuint64_t)w_row, (cuuint64_t)g.O,
-                                (cuuint64_t)Sw};
-    const cuuint64_t strides[2] = {(cuuint64_t)w_row * 2,
-                                   (cuuint64_t)w_row * 2 * g.O};
-    const cuuint32_t box[3] = {64, (cuuint32_t)kTN, 1};
-    const int err = btt::make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                                  w, dims, strides, box);
-    if (err != 0) return err;
-  }
-  const int64_t mtiles = ((int64_t)g.M + kTM - 1) / kTM;
-  if (mtiles > 65535 || g.S > 65535) return (int)cudaErrorInvalidValue;
-  const int nk = (g.C + 63) / 64;
-  const int stages = nk < kStages ? nk : kStages;
-  static int allowed = -1;
-  if (allowed != 0)
-    allowed = btt::allow_smem(mc_gemm_cl_wgmma_kernel, smem_bytes(kStages));
-  if (allowed != 0) return allowed;
-  const dim3 grid((g.O + kTN - 1) / kTN, (unsigned)mtiles, (unsigned)g.S);
-  mc_gemm_cl_wgmma_kernel<<<grid, kThreads, smem_bytes(stages), stream>>>(
-      xmap, wmap, static_cast<const __nv_bfloat16*>(bias),
-      static_cast<__nv_bfloat16*>(y), g, stages, yvec);
-  return (int)cudaGetLastError();
+  if (g.O <= 64)
+    return launch_tiles<64>(xmap, w, bias, y, g, w_row, yvec, stream);
+  return launch_tiles<128>(xmap, w, bias, y, g, w_row, yvec, stream);
 }
 
 // --- the f32 lane, on the CUDA cores: full f32 products and sums -------------

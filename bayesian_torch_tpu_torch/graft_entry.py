@@ -16,8 +16,8 @@ names another device (the tests pass ``"cpu"``).
 ``dryrun_multichip(n)`` (the JAX ``dryrun_multichip``) runs one sharded
 training step of the CIFAR ResNet-20 over n ranks on the JAX choice of
 (mc, data, model) for n, then the INT8 QBNN, the structured Flipout
-forward and the draw loop under the same mesh, each held against the
-same work in one process:
+forward of the JAX dryrun's channels-last Net and the draw loop under the
+same mesh, each held against the same work in one process:
 
     dryrun_multichip(4, device="cpu")   # 4 gloo ranks on the CPU
     dryrun_multichip(2)                 # one rank a card (NCCL), or two
@@ -174,13 +174,15 @@ def _int8_qbnn(mesh, device, num_mc):
     return _mesh_vs_one(net, mesh, device, num_mc, return_kl=False)
 
 
-def _mesh_vs_one(model, mesh, device, num_mc, **kw):
-    """max |mc_forward(mesh=) - mc_forward| on one batch, from the same
-    generator states."""
+def _mesh_vs_one(model, mesh, device, num_mc, data_format="NCHW", **kw):
+    """max |mc_forward(mesh=) - mc_forward| on one batch (in
+    ``data_format``), from the same generator states."""
     from bayesian_torch_tpu_torch.ops.sampling import module_generators
     from bayesian_torch_tpu_torch.parallel import mc_forward, shard_batch
 
     x, _ = _inputs(max(2 * mesh.devices.size, 4), device, seed=4)
+    if data_format != "NCHW":
+        x = x.permute(0, 2, 3, 1).contiguous()
     gens = module_generators(model)
     states = [g.get_state() for g in gens]
     with torch.no_grad():
@@ -204,11 +206,13 @@ def _structured_flipout(mesh, device):
     gen = torch.Generator().manual_seed(5)
 
     class Net(nn.Module):
+        # the JAX dryrun's Net: channels-last, (batch, 8, 8, 3) in
         def __init__(self):
             super().__init__()
             self.conv = Conv2dFlipout(3, 8, 3, padding=1, generator=gen,
-                                      device=device)
-            self.bn = BatchNorm2dLayer(8, generator=gen, device=device)
+                                      device=device, data_format="NHWC")
+            self.bn = BatchNorm2dLayer(8, generator=gen, device=device,
+                                       data_format="NHWC")
             self.fc = LinearFlipout(8 * 8 * 8, 10, generator=gen,
                                     device=device)
 
@@ -219,7 +223,7 @@ def _structured_flipout(mesh, device):
             return o, k1 + k2
 
     return _mesh_vs_one(Net().eval(), mesh, device, 4, structured=True,
-                        return_kl=False)
+                        return_kl=False, data_format="NHWC")
 
 
 def _dryrun_body(n, device):
@@ -295,7 +299,7 @@ def _free_port():
 
 def dryrun_multichip(n_devices: int, device=None, timeout=600):
     """One sharded resnet20 training step on an n-rank mesh (8x8 inputs),
-    then the INT8 QBNN, the structured Flipout forward and the draw loop
+    then the INT8 QBNN, the NHWC structured Flipout forward and the loop
     under the mesh, each against one process; returns rank 0's
     measurements and prints them. Spawns the n ranks (killed after
     ``timeout`` seconds) unless this process already is one of an n-rank

@@ -13,7 +13,7 @@ from torch import nn
 from bayesian_torch_tpu_torch.layers.base_variational_layer import (
     default_generator,
 )
-from bayesian_torch_tpu_torch.ops.sampling import current_window
+from bayesian_torch_tpu_torch.ops.sampling import current_window, draw_dim
 
 
 class Dropout(nn.Module):
@@ -40,7 +40,7 @@ class Dropout(nn.Module):
         window = current_window()
         if window is not None and (window.splits_rows
                                    or window.splits_draws):
-            mask = self._window_mask(window, shape, keep)
+            mask = self._window_mask(window, shape, keep, draw_dim(x))
         else:
             mask = torch.rand(shape, generator=self.generator) < keep
         return torch.where(mask.to(x.device), x / keep,
@@ -49,20 +49,21 @@ class Dropout(nn.Module):
     def _mask_shape(self, x):
         return x.shape
 
-    def _window_mask(self, window, shape, keep):
+    def _window_mask(self, window, shape, keep, dim=1):
         """This rank's block of the mask of the whole MC forward under a
         mesh: the whole batch's mask drawn, as one process draws it, and
         this rank's rows (and, under the draw axis, its draws' channel
-        blocks) taken."""
+        blocks on ``dim``: 1, or the last of a channels-last activation)
+        taken."""
         whole = [window.rows] + list(shape[1:])
         draws = getattr(self, "_mc_draws", None)
         if draws and len(shape) > 1:
-            whole[1] = shape[1] // draws * window.lanes
+            whole[dim] = shape[dim] // draws * window.lanes
         mask = torch.rand(whole, generator=self.generator) < keep
         mask = mask.narrow(0, window.row0, shape[0])
         if draws and len(shape) > 1:
-            per = shape[1] // draws
-            mask = mask.narrow(1, window.lane0 * per, shape[1])
+            per = shape[dim] // draws
+            mask = mask.narrow(dim, window.lane0 * per, shape[dim])
         return mask
 
     def forward(self, input):

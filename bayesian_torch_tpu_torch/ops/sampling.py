@@ -305,6 +305,17 @@ def _row_start(shape):
     return w.row0 * (math.prod(shape) // shape[0])
 
 
+# The attribute ``mc_forward`` sets on a channels-last activation under its
+# vmap emission (the draw count, ``parallel/mc.py::_DrawsLast``): its draws
+# lie on its last axis, (B, *sp, S*C), where others hold them on dim 1.
+DRAWS_LAST = "_btt_draws_last"
+
+
+def draw_dim(x):
+    """The dim of ``x`` that holds the draws under the vmap emission."""
+    return -1 if getattr(x, DRAWS_LAST, None) else 1
+
+
 _SHARD = [None]
 
 

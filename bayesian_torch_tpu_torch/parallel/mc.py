@@ -13,7 +13,10 @@
   written out in the tensors. The draw
   count is set on every module for the call (``_mc_draws``, as the JAX
   structured path sets ``_mc_structured``); activations are (B, S*C, ...)
-  with draw s in channel block s, so every Bayesian layer draws its S
+  with draw s in channel block s (channels-last: (B, *sp, S*C), where a
+  flatten or reshape between the layers that merges that last axis with
+  the positions runs draw by draw, as JAX's vmap runs it:
+  ``_DrawsLast``), so every Bayesian layer draws its S
   weight sets in one launch, each conv runs all S draws as one grouped
   conv, the fused head runs all S lanes of its sampled GEMM in one launch,
   and BatchNorm normalises each draw's block by that draw's statistics.
@@ -21,10 +24,11 @@
   host, which would give every lane the same seed.
 
 That layout is the JAX structured path's, so ``structured=True`` is the
-vmap emission; where a module cannot take the draw axis it falls back, as
-JAX's does, with a ``RuntimeWarning`` naming the module (to the draw loop
-here, to vmap there). ``mc_vmap`` is JAX's decorator over independent
-draws, as S calls of the function.
+vmap emission (less the draw-by-draw merge: JAX's structured mode reads a
+channels-last flatten as the draws lie); where a module cannot take the
+draw axis it falls back, as JAX's does, with a ``RuntimeWarning`` naming
+the module (to the draw loop here, to vmap there). ``mc_vmap`` is JAX's
+decorator over independent draws, as S calls of the function.
 
 In training mode the BatchNorm statistics of each draw are recorded and
 applied as one EMA update (``_apply_bn_ema``) under either emission;
@@ -59,7 +63,9 @@ ways), so there every rank runs every draw and keeps the graph of its own;
 with presampled draws (eval, ``presample="on"``) it runs its own alone,
 unless a layer draws inside each forward all the same (the LSTM's per-step
 weights). The LSTM under the vmap emission draws its block like any layer:
-its draws' T lanes of each launch.
+its draws' T lanes of each launch. ``structured=True`` on a channels-last
+model runs every draw on every rank, each keeping its own: its reading of
+a merge mixes the draws.
 """
 
 from __future__ import annotations
@@ -78,10 +84,11 @@ from bayesian_torch_tpu_torch.layers.quantized_base import (
 )
 from bayesian_torch_tpu_torch.models.dnn_to_bnn import iter_bayesian_layers
 from bayesian_torch_tpu_torch.ops import remat
+from bayesian_torch_tpu_torch.ops.conv import channels_last
 from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
     sample_scaled_normals_batch,
 )
-from bayesian_torch_tpu_torch.ops.sampling import (DrawWindow,
+from bayesian_torch_tpu_torch.ops.sampling import (DRAWS_LAST, DrawWindow,
                                                    current_window,
                                                    draw_seed, draw_window,
                                                    module_generators,
@@ -89,7 +96,7 @@ from bayesian_torch_tpu_torch.ops.sampling import (DrawWindow,
                                                    sign_salts,
                                                    window_kwargs)
 from bayesian_torch_tpu_torch.parallel import _comm
-from bayesian_torch_tpu_torch.parallel.mesh import Mesh, refuse_channels_last
+from bayesian_torch_tpu_torch.parallel.mesh import Mesh
 
 _PRESAMPLE = ("auto", "on", "off", "xla", "hash")
 _BN_STATS = ("ema", "freeze")
@@ -396,9 +403,7 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
     (``num_mc`` must divide evenly over it) and the batch over 'data', and
     every rank returns what one process returns for the whole batch
     (module docstring). "auto" means the vmap emission under a mesh, as in
-    JAX, for a model that can take the draw axis; the loop otherwise. A
-    channels-last model (``data_format="NHWC"``) is refused under a mesh
-    with a ``NotImplementedError`` naming the layout.
+    JAX, for a model that can take the draw axis; the loop otherwise.
 
     ``remat_policy`` (with gradients only): ``"full"``, ``"conv_out"`` or a
     ``torch.utils.checkpoint`` selective policy puts each forward the
@@ -449,8 +454,6 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError("mc_forward: mesh must come from parallel.make_mesh,"
                         f" got {type(mesh).__name__}")
-    if mesh is not None:
-        refuse_channels_last(model, "mc_forward(mesh=)")
     remat.resolve_policy(remat_policy)
     if presample in ("xla", "hash"):
         presample = "on"  # the same counter-hash draws (docstring)
@@ -477,10 +480,14 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
     if compute_kl is None:
         compute_kl = return_kl
     block = None
+    channels_last_model = vmap and _has_channels_last(model)
     if mesh is not None:
         # the loop splits the draws only when they are all drawn
-        # beforehand
-        block = _MeshBlock(mesh, num_mc, x, vmap or (
+        # beforehand; structured=True keeps every draw on every rank for a
+        # channels-last model (JAX's structured reading of a merge of the
+        # draws-last axis mixes the draws)
+        block = _MeshBlock(mesh, num_mc, x, (
+            vmap and not (structured and channels_last_model)) or (
             presample == "on" and num_mc > 1
             and not _draws_in_forward(model)))
     kl_layers = [mod for mod in model.modules()
@@ -495,8 +502,12 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
             if presample == "on" and num_mc > 1:
                 presampled = _presample_layers(model, num_mc)
             run = model
+            if channels_last_model and not structured:
+                # F12: a merge of the draws-last axis runs draw by draw;
+                # JAX's structured mode reads it as it lies
+                run = functools.partial(_draws_last_call, model)
             if remat_policy is not None and torch.is_grad_enabled():
-                run = functools.partial(remat.checkpoint, model, model,
+                run = functools.partial(remat.checkpoint, model, run,
                                         policy=remat_policy)
             with bn:
                 if block is None:
@@ -554,6 +565,152 @@ def _forward_loop(run, model, x, num_mc, presampled, kl_layers, compute_kl,
     return (acc if reduce == "mean" else torch.stack(outs)), kl
 
 
+_MERGES = (torch.flatten, torch.Tensor.flatten, torch.reshape,
+           torch.Tensor.reshape, torch.Tensor.view, torch.Tensor.view_as,
+           torch.Tensor.reshape_as)
+_RELAYOUTS = (torch.permute, torch.Tensor.permute, torch.transpose,
+              torch.Tensor.transpose, torch.swapaxes, torch.Tensor.swapaxes,
+              torch.swapdims, torch.Tensor.swapdims, torch.movedim,
+              torch.Tensor.movedim, torch.moveaxis, torch.Tensor.moveaxis,
+              torch.t, torch.Tensor.t, torch.Tensor.mT.__get__,
+              torch.Tensor.T.__get__)
+
+
+def _draws_of(t):
+    return getattr(t, DRAWS_LAST, None) if torch.is_tensor(t) else None
+
+
+def _tagged(args):
+    """The first draws-last tensor among ``args`` (one level of lists)."""
+    for a in args:
+        for t in (a if isinstance(a, (list, tuple)) else (a,)):
+            if _draws_of(t):
+                return t
+    return None
+
+
+def _keeps_draws_last(out, src):
+    return torch.is_tensor(out) and out.dim() == src.dim() \
+        and out.dim() >= 3 and out.shape[-1] == src.shape[-1]
+
+
+class _DrawsLast(torch.overrides.TorchFunctionMode):
+    """The vmap emission of a model with channels-last modules (F12): the
+    draw axis of a channels-last activation is its last, (B, *sp, S*C),
+    where a flatten or reshape that merges that axis with the position
+    axes would interleave the draws inside each position, while a layer
+    after it (a Linear under the draw axis) reads draw s as block s. Such
+    tensors are marked (``DRAWS_LAST``: the draw count): the outputs of
+    channels-last modules, and what the code between the layers makes of
+    them without moving their last axis. A merge of a marked tensor's last
+    axis runs as JAX's vmap runs it, draw by draw on (S, B, *sp, C), its
+    results set side by side on the last axis. Inside a layer (a module
+    with tensors of its own, a draw-axis forward, a ``data_format`` or a
+    generator) the mode steps aside: the layer knows its layout."""
+
+    def __init__(self, num_mc):
+        super().__init__()
+        self.num_mc = num_mc
+        self.depth = 0
+        self.kinds = {}  # id(module) -> _is_layer(module), this call's
+        self.handles = ()
+
+    def __enter__(self):
+        # hooks on every module call while the mode is on: two handles a
+        # forward, where a pair on each layer would cost more than the
+        # layers' own Python
+        self.handles = (
+            nn.modules.module.register_module_forward_pre_hook(
+                self._enter_layer),
+            nn.modules.module.register_module_forward_hook(
+                self._leave_layer))
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        for handle in self.handles:
+            handle.remove()
+        if self.depth:  # a layer raised: the mode is off the stack
+            self.depth = 0
+            super().__enter__()
+        return super().__exit__(*exc)
+
+    def _is_layer(self, mod):
+        kind = self.kinds.get(id(mod))
+        if kind is None:
+            kind = self.kinds[id(mod)] = _is_layer(mod)
+        return kind
+
+    def _enter_layer(self, mod, args):
+        if not self._is_layer(mod):
+            return
+        if self.depth == 0:
+            super().__exit__(None, None, None)
+        self.depth += 1
+
+    def _leave_layer(self, mod, args, out):
+        if not self._is_layer(mod):
+            return
+        self.depth -= 1
+        if self.depth:
+            return
+        first = out[0] if isinstance(out, tuple) else out
+        src = _tagged(args)
+        if torch.is_tensor(first) and first.dim() >= 3 and (
+                channels_last(getattr(mod, "data_format", "NCHW"))
+                or (src is not None and first.dim() == src.dim())):
+            setattr(first, DRAWS_LAST, self.num_mc)
+        super().__enter__()
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        src = _tagged(args)
+        if src is None:
+            return out
+        if func in _MERGES and src is args[0] and torch.is_tensor(out) \
+                and out.shape[-1] != src.shape[-1] \
+                and out.shape[-1] % src.shape[-1] == 0:
+            return self._per_draw(src, out.shape)
+        if func in _RELAYOUTS:
+            return out  # the mode does not follow a change of layout
+        if _keeps_draws_last(out, src):
+            setattr(out, DRAWS_LAST, self.num_mc)
+        return out
+
+    def _per_draw(self, x, shape):
+        """``x.reshape(shape)`` run draw by draw, as JAX's vmap runs it:
+        each draw's (*sp, C) block to ``shape`` with its last axis over S,
+        the S results side by side on the last axis."""
+        S = self.num_mc
+        per = tuple(shape[:-1]) + (shape[-1] // S,)
+        y = x.unflatten(-1, (S, -1)).movedim(-2, 0).reshape((S,) + per)
+        y = y.movedim(0, -2).flatten(-2)
+        if y.dim() >= 3:
+            setattr(y, DRAWS_LAST, S)
+        return y
+
+
+def _is_layer(mod):
+    """A module whose forward the draws-last mode leaves alone."""
+    return any(t is not None for t in mod._parameters.values()) \
+        or any(t is not None for t in mod._buffers.values()) \
+        or getattr(mod, "takes_draw_axis", False) \
+        or hasattr(mod, "data_format") or hasattr(mod, "generator")
+
+
+def _has_channels_last(model):
+    return any(channels_last(getattr(mod, "data_format", "NCHW"))
+               for mod in model.modules())
+
+
+def _draws_last_call(model, x):
+    """``model(x)`` under the draw axis with ``_DrawsLast`` on: the model's
+    call under the vmap emission when it has channels-last modules, also
+    in a checkpoint's recompute (which replays ``_mc_draws``)."""
+    with _DrawsLast(model._mc_draws):
+        return model(x)
+
+
 def _forward_draws(run, model, x, num_mc, presampled, kl_layers, compute_kl,
                    reduce):
     """One forward with the draw axis: the presampled (S, ...) stacks are
@@ -598,8 +755,11 @@ class _MeshBlock:
         """(this block's (draws, rows, ...) outputs, KL)."""
         lanes = self.window.local_lanes
         if vmap:
-            return _forward_draws(run, model, x, lanes, presampled,
-                                  kl_layers, compute_kl, None)
+            outs, kl = _forward_draws(run, model, x, lanes, presampled,
+                                      kl_layers, compute_kl, None)
+            # every draw on every rank (structured, channels-last): ours
+            return (outs if self.splits or self.mc == 1
+                    else outs[self.own[0]:self.own[-1] + 1]), kl
         if not self.splits:
             # the layers draw inside each draw: run every draw, keep ours
             return _forward_loop(run, model, x, self.num_mc, presampled,

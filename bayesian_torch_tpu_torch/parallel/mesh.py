@@ -196,20 +196,3 @@ def reduce_gradients(model: torch.nn.Module, mesh: Mesh) -> None:
         for g, part in zip(same, flat.split([g.numel() for g in same])):
             g.copy_(part.view_as(g))
 
-
-def refuse_channels_last(model: torch.nn.Module, what: str) -> None:
-    """Raise ``NotImplementedError`` naming the layout if a module of the
-    model runs channels-last (a ``data_format`` ending in "C"): the mesh
-    paths gather and shard channel blocks on dim 1, the NCHW layout, and
-    take no NHWC model yet."""
-    from bayesian_torch_tpu_torch.ops.conv import channels_last
-
-    for name, mod in model.named_modules():
-        fmt = getattr(mod, "data_format", "NCHW")
-        if channels_last(fmt):
-            raise NotImplementedError(
-                f"{what}: module {name or '<model>'!r} "
-                f"({type(mod).__name__}) runs data_format={fmt!r}; the mesh "
-                "paths gather and shard NCHW channel blocks (dim 1) and take "
-                "no channels-last model yet; build the model with "
-                "data_format='NCHW'")

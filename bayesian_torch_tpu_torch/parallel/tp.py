@@ -15,9 +15,11 @@ the replicated layer's:
   computes its out-channels, drawing its noise as the shard's window of
   the whole tensor's counters (K-A with an offset; ``ops.sampling.
   tp_shard``) and its output signs as its channels of the whole output's,
-  and the outputs are gathered on the channel dim (one all-gather a
-  layer; its backward takes the shard's channels). GSPMD would keep the
-  activations channel-sharded through BatchNorm and ReLU instead.
+  and the outputs are gathered on the channel dim (dim 1 under NCHW, the
+  last dim for a Linear and under a channels-last ``data_format``; one
+  all-gather a layer; its backward takes the shard's channels). GSPMD
+  would keep the activations channel-sharded through BatchNorm and ReLU
+  instead.
 - a ConvTranspose (out dim 1, which is no window of the flat kernel) and a
   BatchNorm gather their parameter shards at each forward and at
   ``mc_forward``'s presample (``_Shard.whole``) and compute the whole layer
@@ -44,6 +46,7 @@ import functools
 import torch
 from torch import nn
 
+from bayesian_torch_tpu_torch.ops.conv import channels_last
 from bayesian_torch_tpu_torch.ops.sampling import tp_shard
 from bayesian_torch_tpu_torch.parallel import _comm
 
@@ -215,12 +218,7 @@ def shard_params_tp(model: nn.Module, mesh, axis: str = "model") -> int:
     layer's output (module docstring). Returns the number of tensors
     sharded; the others stay replicated. Call it after ``replicate``
     (which would overwrite the shards) and before building the optimizer.
-    A channels-last model (``data_format="NHWC"``) raises
-    ``NotImplementedError`` naming the layout.
     """
-    from bayesian_torch_tpu_torch.parallel.mesh import refuse_channels_last
-
-    refuse_channels_last(model, "shard_params_tp")
     size = mesh.shape[axis]
     rank, group = mesh.coord(axis), mesh.group(axis)
     composites = [mod for mod in model.modules()
@@ -264,7 +262,8 @@ def shard_params_tp(model: nn.Module, mesh, axis: str = "model") -> int:
                                                 requires_grad=t.requires_grad))
             else:
                 mod._buffers[name] = part
-        channel_dim = -1 if _is_linear(mod) else 1
+        channel_dim = -1 if _is_linear(mod) or channels_last(
+            getattr(mod, "data_format", "NCHW")) else 1
         mod._tp = _Shard(rank, size, group, dims, column, channel_dim)
         forward = mod.forward
         wrap = _column_forward if column else _gathered_forward

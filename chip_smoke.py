@@ -336,6 +336,16 @@ Phases, each printing its own line(s):
     same draws, the activations into the pool and the mean logits bit for
     bit, 540 K-F launches a batch each; (f) ``graft_entry.entry()`` with
     ``BTT_ENTRY_FLAGSHIP=1``: NHWC (128, 224, 224, 3), MC-10 bf16.
+45. channels-last on the mesh paths (``phase_nhwc_mesh``, last):
+    ResNet-50 NHWC MC-10 bs128 224² bf16 from one saved state and
+    generator state, two ranks on the one card (gloo), each against one
+    process: ``mc=2`` through the presampled loop (one windowed K-A
+    launch a rank), ``data=2``, ``mc=2`` through the vmap emission with
+    ``CONV_1X1_DOT`` (33 K-G cl launches a rank, on its 5 lanes), an
+    MC-4 bs128 vmap SGD step at ``mc=2`` in f32 without TF32 (parameters
+    within 1/256 of the update), ``shard_params_tp`` over ``model=2`` at
+    MC-2 bs8 (channels gathered on the last dim), and the NHWC
+    structured-Flipout Net of ``dryrun_multichip`` under ``mc=2`` (1e-5).
 
 The line before the last is a JSON object with every kernel's launches,
 counted from zero in the run named by its ``run`` key, its error against
@@ -525,8 +535,9 @@ def phase_build():
 def sass_census(path):
     """Which Hopper instructions each kernel of the built library holds,
     from ``cuobjdump -sass``: HGMMA and IGMMA (wgmma, bf16 and int8), HMMA
-    (mma.sync), UTMALDG (TMA tensor loads), UBLKCP (bulk copies). K-G's
-    bf16 lane and K-F must hold wgmma and TMA loads; K-B, K-D and every
+    (mma.sync), UTMALDG and UTMASTG (TMA tensor loads and stores), UBLKCP
+    (bulk copies). K-G's bf16 lane and K-F must hold wgmma and TMA loads,
+    K-G channels-last's two tile widths TMA stores too; K-B, K-D and every
     instantiation of K-E a tensor-core product (HGMMA or HMMA)."""
     import re
     from pathlib import Path
@@ -540,7 +551,7 @@ def sass_census(path):
     sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    ops = ("HGMMA", "IGMMA", "HMMA", "UTMALDG", "UBLKCP")
+    ops = ("HGMMA", "IGMMA", "HMMA", "UTMALDG", "UTMASTG", "UBLKCP")
     census, fn = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
@@ -563,6 +574,13 @@ def sass_census(path):
         found = [c for fn, c in census.items() if fn.startswith(kernel)]
         check(found and all(c[mma] > 0 and c["UTMALDG"] > 0 for c in found),
               f"{kernel}: no {mma} (wgmma) or UTMALDG (TMA) in its SASS")
+    # K-G channels-last: both tile widths load and store by TMA
+    found = [c for fn, c in census.items()
+             if fn.startswith("mc_gemm_cl_wgmma_kernel")]
+    check(len(found) == 2 and all(
+        c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["UTMASTG"] > 0
+        for c in found), "mc_gemm_cl_wgmma_kernel: want two instantiations "
+          "with HGMMA (wgmma), UTMALDG and UTMASTG (TMA loads and stores)")
     # K-E's kernel is a template (<lanes, x's type>): every instantiation
     for kernel in ("sampled_matmul_kernel", "sampled_matmul_dx_kernel",
                    "sampled_matmul_dw_kernel"):
@@ -5227,9 +5245,10 @@ def multirank_parts(tmp, rank):
     return out
 
 
-def multirank_rank(tmp, rank, world, port):
-    """A spawned rank of phase 43: join the world (gloo: two ranks on one
-    card), run ``multirank_parts``, pickle the result or the error."""
+def multirank_rank(tmp, rank, world, port, parts="multirank_parts"):
+    """A spawned rank of phase 43 (or 45): join the world (gloo: two ranks
+    on one card), run the function ``parts`` of this script (phase 43's,
+    or ``nhwc_mesh_parts``), pickle the result or the error."""
     import os
     import pickle
     import traceback
@@ -5241,7 +5260,7 @@ def multirank_rank(tmp, rank, world, port):
     try:
         initialize(f"127.0.0.1:{port}", num_processes=world,
                    process_id=rank, initialization_timeout=300)
-        result = ("ok", dict(multirank_parts(tmp, rank),
+        result = ("ok", dict(globals()[parts](tmp, rank),
                              backend=dist.get_backend()))
         dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 - reported to the parent
@@ -5250,11 +5269,11 @@ def multirank_rank(tmp, rank, world, port):
         pickle.dump(result, f)
 
 
-def spawn_multirank(tmp):
-    """Run ``multirank_rank`` in MULTIRANK_WORLD processes of this
-    script's directory; kill them after MULTIRANK_TIMEOUT seconds.
-    Returns each rank's result; raises with a failing rank's traceback
-    and the tail of its output."""
+def spawn_multirank(tmp, parts="multirank_parts"):
+    """Run ``multirank_rank`` (with ``parts``) in MULTIRANK_WORLD
+    processes of this script's directory; kill them after
+    MULTIRANK_TIMEOUT seconds. Returns each rank's result; raises with a
+    failing rank's traceback and the tail of its output."""
     import os
     import pickle
 
@@ -5265,14 +5284,15 @@ def spawn_multirank(tmp):
         logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w"))
         procs.append(subprocess.Popen(
             [sys.executable, "-c", "import chip_smoke as c; "
-             f"c.multirank_rank({tmp!r}, {r}, {MULTIRANK_WORLD}, {port})"],
+             f"c.multirank_rank({tmp!r}, {r}, {MULTIRANK_WORLD}, {port}, "
+             f"{parts!r})"],
             cwd=root, stdout=logs[-1], stderr=subprocess.STDOUT))
     deadline = time.monotonic() + MULTIRANK_TIMEOUT
     try:
         for p in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 1))
     except subprocess.TimeoutExpired:
-        raise RuntimeError(f"chip_smoke: phase 43's ranks did not finish "
+        raise RuntimeError(f"chip_smoke: {parts}'s ranks did not finish "
                            f"within {MULTIRANK_TIMEOUT} s")
     finally:
         for p in procs:
@@ -6042,6 +6062,219 @@ def phase_nhwc():
     return paths, (kg_fwd, kg_one, kg_dx), summary
 
 
+# --- phase 45: channels-last on the mesh paths ------------------------------
+
+NHWC_MESH_SEED = SEED + 1000
+
+
+def nhwc_mesh_model():
+    """ResNet-50 NHWC as phase 45 builds it in every process, bf16
+    compute."""
+    import torch
+
+    from bayesian_torch_tpu_torch.models.bayesian.resnet_variational_large \
+        import resnet50
+
+    model = resnet50(num_classes=1000,
+                     generator=torch.Generator().manual_seed(NHWC_MESH_SEED),
+                     device="cuda", data_format="NHWC")
+    for mod in model.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.bfloat16
+    return model
+
+
+def nhwc_mesh_parts(tmp, rank):
+    """Phase 45's parts on one rank of two sharing the card, each against
+    the one-process result the parent saved; every rank runs every part in
+    the same order. Returns {part: result} with each part's seconds and
+    launches."""
+    import os
+
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+    from bayesian_torch_tpu_torch.graft_entry import _structured_flipout
+    from bayesian_torch_tpu_torch.parallel import (make_mesh, mc_forward,
+                                                   replicate, shard_batch,
+                                                   shard_params_tp)
+
+    ref = torch.load(os.path.join(tmp, "ref.pt"), weights_only=False)
+    x, y, gens0 = ref["x"].cuda(), ref["y"].cuda(), ref["gens0"]
+    model = nhwc_mesh_model()
+    model.load_state_dict(ref["state"])
+    model.eval()
+    out = {}
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = dict(res, seconds=round(time.perf_counter() - t0, 1),
+                         launches=nonzero(counts()))
+        log(f"[nhwc mesh] rank {rank} {name}: "
+            + json.dumps(out[name], default=str)[:600])
+
+    mc2 = make_mesh(mc=2)
+    data2 = make_mesh(mc=1, data=2)
+    tp2 = make_mesh(mc=1, data=1, model=2)
+
+    def forward(mesh, want, **kw):
+        set_gens(model, gens0)
+        with torch.no_grad():
+            got = mc_forward(model, shard_batch(x, mesh), NUM_MC, mesh=mesh,
+                             return_kl=False, **kw)
+        return {"err": max_err(got, want.cuda()), "bound": bf16_bound(want),
+                "finite": bool(torch.isfinite(got).all()),
+                "shape": tuple(got.shape)}
+
+    part("mc=2 scan", lambda: forward(mc2, ref["scan"], emission="scan"))
+    part("data=2 scan", lambda: forward(data2, ref["scan"],
+                                        emission="scan"))
+    with pointwise_dot():
+        part("mc=2 vmap CONV_1X1_DOT", lambda: forward(
+            mc2, ref["dot"], emission="vmap"))
+
+    def vmap_step():
+        model.load_state_dict(ref["state"])
+        model.train()
+        set_gens(model, gens0)
+        opt = torch.optim.SGD(model.parameters(), lr=MULTIRANK_LR)
+        with f32_compute(model):
+            loss, _, _ = make_train_step(TRAIN_MC, BATCH, mc2,
+                                         emission="vmap")(
+                model, opt, shard_batch(x, mc2), y)
+        want = ref["step"]
+        return {"loss": float(loss), "loss_one_process": want["loss"],
+                "param_err": max(max_err(p, want["after"][n].cuda())
+                                 for n, p in model.named_parameters()),
+                "update": want["update"]}
+
+    part(f"mc=2 vmap MC-{TRAIN_MC} bs{BATCH} f32 SGD step", vmap_step)
+    del model
+    torch.cuda.empty_cache()
+
+    def tensor_parallel():
+        tp_model = nhwc_mesh_model()
+        tp_model.load_state_dict(ref["state"])
+        replicate(tp_model, tp2)
+        count = shard_params_tp(tp_model, tp2)
+        tp_model.eval()
+        set_gens(tp_model, gens0)
+        with torch.no_grad():
+            got = mc_forward(tp_model, x[:TP_BATCH], TP_MC, return_kl=False,
+                             emission="vmap")
+        return {"sharded": count, "err": max_err(got, ref["tp"].cuda()),
+                "bound": bf16_bound(ref["tp"]),
+                "finite": bool(torch.isfinite(got).all())}
+
+    part(f"model=2 TP MC-{TP_MC} bs{TP_BATCH}", tensor_parallel)
+    torch.cuda.empty_cache()
+
+    def structured_flipout():
+        # the NHWC Net of the JAX dryrun under mc=2, f32 without TF32
+        with tf32_off():
+            err = _structured_flipout(mc2, "cuda")
+        return {"err": err, "bound": 1e-5, "finite": math.isfinite(err)}
+
+    part("dryrun_multichip(2) NHWC structured Flipout", structured_flipout)
+    return out
+
+
+def phase_nhwc_mesh():
+    """Phase 45: channels-last on the mesh paths (see the module
+    docstring). Returns ({kernel: {path: launches}}, summary)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    t0 = time.perf_counter()
+    model = nhwc_mesh_model()
+    set_bn_statistics(model, channels_last_input(images(NHWC_MESH_SEED + 1)))
+    x = channels_last_input(images(NHWC_MESH_SEED + 2))
+    y = labels(NHWC_MESH_SEED + 2)
+    gens0 = gen_states(model)
+    refs = {}
+    with torch.no_grad():
+        for name, kw, ctx in (
+                ("scan", dict(emission="scan"), contextlib.nullcontext),
+                ("dot", dict(emission="vmap"), pointwise_dot)):
+            set_gens(model, gens0)
+            with ctx():
+                refs[name] = mc_forward(model, x, NUM_MC, return_kl=False,
+                                        **kw)
+        set_gens(model, gens0)
+        refs["tp"] = mc_forward(model, x[:TP_BATCH], TP_MC, return_kl=False,
+                                emission="vmap")
+    state = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    model.train()
+    set_gens(model, gens0)
+    opt = torch.optim.SGD(model.parameters(), lr=MULTIRANK_LR)
+    with f32_compute(model):
+        loss, _, _ = make_train_step(TRAIN_MC, BATCH, emission="vmap")(
+            model, opt, x, y)
+    step = {"loss": float(loss),
+            "after": {n: p.detach().cpu().clone()
+                      for n, p in model.named_parameters()},
+            "update": max(max_err(p, before[n])
+                          for n, p in model.named_parameters())}
+    del model, before, opt
+    torch.cuda.empty_cache()
+    one_process_s = round(time.perf_counter() - t0, 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"state": state, "gens0": gens0, "x": x.cpu(),
+                    "y": y.cpu(), "step": step,
+                    **{k: v.cpu() for k, v in refs.items()}},
+                   os.path.join(tmp, "ref.pt"))
+        ranks = spawn_multirank(tmp, "nhwc_mesh_parts")
+    paths = {"K-A": {}, "K-G cl": {}}
+    for rank, r in enumerate(ranks):
+        for name, got in r.items():
+            if not isinstance(got, dict):
+                continue
+            for k in paths:
+                if got["launches"].get(k):
+                    paths[k][f"NHWC mesh {name} (rank {rank})"] = \
+                        got["launches"][k]
+            if "bound" in got:
+                check(got["finite"], f"[nhwc mesh] rank {rank} {name}: "
+                      "output not finite")
+                check(got["err"] <= got["bound"], f"[nhwc mesh] rank {rank} "
+                      f"{name}: {got['err']:.3e} from one process, bound "
+                      f"{got['bound']:.3e}")
+        check(r["mc=2 scan"]["launches"].get("K-A") == 1,
+              f"[nhwc mesh] rank {rank}: the mc=2 loop's launches "
+              f"{r['mc=2 scan']['launches']}, want K-A 1 (its lanes)")
+        dot = r["mc=2 vmap CONV_1X1_DOT"]["launches"]
+        check(dot.get("K-G cl") == N_POINTWISE and not dot.get("K-G"),
+              f"[nhwc mesh] rank {rank}: the mc=2 vmap batch with "
+              f"CONV_1X1_DOT launched {dot}, want {N_POINTWISE} K-G cl")
+        vstep = r[f"mc=2 vmap MC-{TRAIN_MC} bs{BATCH} f32 SGD step"]
+        check(vstep["launches"].get("K-C dsigma", 0) > 0
+              and vstep["param_err"] <= vstep["update"] / 256,
+              f"[nhwc mesh] rank {rank}: f32 parameters "
+              f"{vstep['param_err']:.3e} from the one-process step (its "
+              f"update {vstep['update']:.3e}); {vstep}")
+        tp = r[f"model=2 TP MC-{TP_MC} bs{TP_BATCH}"]
+        check(tp["sharded"] > 0, f"[nhwc mesh] rank {rank}: TP sharded "
+              f"{tp['sharded']}")
+    summary = {name: {k: v for k, v in got.items() if k != "launches"}
+               for name, got in ranks[0].items() if isinstance(got, dict)}
+    summary["one-process references s"] = one_process_s
+    log(f"[nhwc mesh] {card()}: rank 0 " + json.dumps(summary, default=str))
+    for k, v in paths.items():
+        check(v, f"{k} never ran on phase 45's paths")
+    return paths, summary
+
+
 def main(argv=None):
     import argparse
 
@@ -6162,6 +6395,7 @@ def main(argv=None):
     mesh_paths, mesh_res = phase_multirank()
     nhwc_paths, (kgcl_res, kgcl_one_res, kgcl_dx_res), nhwc_res = \
         phase_nhwc()
+    nhwc_mesh_paths, nhwc_mesh_res = phase_nhwc_mesh()
 
     csrc = "bayesian_torch_tpu_torch/csrc/"
     pallas = "bayesian_torch_tpu/ops/pallas/"
@@ -6179,7 +6413,8 @@ def main(argv=None):
                  "presample='auto', 3 batches",
              launches=main_path["K-A"],
              paths=dict(zoo["K-A"], **lstm_paths["K-A"],
-                        **modes_paths["K-A"], **mesh_paths["K-A"]),
+                        **modes_paths["K-A"], **mesh_paths["K-A"],
+                        **nhwc_mesh_paths["K-A"]),
              **ka_res),
         dict(name="sampled_matmul", route="cuda",
              source=csrc + "sampled_matmul.cu",
@@ -6298,7 +6533,8 @@ def main(argv=None):
                  f"{N_POINTWISE} pointwise sites, x (M, S, C), bf16",
              launches=nhwc_paths["K-G cl"][
                  f"NHWC vmap MC-{NUM_MC} bs{BATCH} CONV_1X1_DOT, 1 batch"],
-             paths=nhwc_paths["K-G cl"], **kgcl_res),
+             paths=dict(nhwc_paths["K-G cl"], **nhwc_mesh_paths["K-G cl"]),
+             **kgcl_res),
         dict(name="mc_gemm_cl (S=1)", route="cuda",
              source=csrc + "mc_gemm.cu",
              replaces="benchmarks/bench_mosaic_matmul.py:34",
@@ -6335,6 +6571,7 @@ def main(argv=None):
     log(f"[multirank] {card()}: (a) {mesh_res['(a) one-rank NCCL world']},"
         f" (e) loader batches/s {mesh_res['(e) loader batches/s']}")
     log(f"[nhwc] {card()}: " + json.dumps(nhwc_res))
+    log(f"[nhwc mesh] {card()}: " + json.dumps(nhwc_mesh_res, default=str))
     log(f"[time] profiler sessions of the kernel timings: "
         f"{SESSIONS['sessions']}, taken again {SESSIONS['retried']}")
     log(f"[time] every phase passed in {time.perf_counter() - t_start:.0f} s")

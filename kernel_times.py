@@ -55,6 +55,15 @@ prints one line per shape and a JSON summary last.
   ``torch.matmul`` with the broadcast weight and the S-way grouped cuDNN
   conv. ``probe``: ``matmul`` at 4096^3 and 8192 x 4096 x 4096, bf16 and
   int8.
+- ``kg_cl``: K-G channels-last (``mc_gemm_cl``), bf16, at the same 12
+  sites in the (M, S, C) layout of an NHWC draw-axis activation (M =
+  B*H*W): the forward, ``pointwise_gemm_cl`` with one weight over the M*S
+  rows and dx (the kernel on the transposed weight), each beside
+  ``torch.einsum`` on the same operands; the bound counts x, w and y once.
+- ``nhwc``: ResNet-50 NHWC (bf16) with ``CONV_1X1_DOT``: the vmap MC-10
+  bs128 batch and the vmap MC-4 bs128 ELBO step, host wall ms (median of
+  5) and two profiled runs each (device busy ms, idle share, K-G
+  channels-last's device ms).
 - ``kf``: K-F (``ops/cuda/qmatmul.py``) at the 21 GEMM shapes of one INT8
   ``qresnet50`` forward at batch 128 (54 launches; the stem's K of 147
   widened to 160 as ``ops.int8.qconv`` does), beside ``torch._int_mm``.
@@ -288,6 +297,48 @@ def kg_sites(out):
                 tot[k] = tot.get(k, 0.0) + count * v
         del x4, w3, g, wt, x, w, xs
     print("[K-G] sums over the 33 sites: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in tot.items()), flush=True)
+    return tot
+
+
+def kg_cl_sites(out):
+    import torch
+
+    from bayesian_torch_tpu_torch.ops.cuda import mc_gemm as kg
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tot = {}
+    for ci, co, sp, count in SITES:
+        M = BATCH * sp * sp
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+        x3, w3, g = rnd(M, S, ci), rnd(S, co, ci), rnd(M, S, co)
+        wt = w3.transpose(1, 2).contiguous()
+        rows, w0 = x3.reshape(M * S, ci), w3[0]
+        times = device_times(
+            (lambda: kg.mc_gemm_cl(x3, w3), "mc_gemm_cl"),
+            (lambda: kg.pointwise_gemm_cl(rows, w0), "mc_gemm_cl"),
+            (lambda: kg.mc_gemm_cl(g, wt), "mc_gemm_cl"),
+            (lambda: torch.einsum("msc,soc->mso", x3, w3), None),
+            (lambda: torch.einsum("mc,oc->mo", rows, w0), None),
+            (lambda: torch.einsum("mso,sco->msc", g, wt), None))
+        row = dict(
+            site=f"{ci}->{co}@{sp}", count=count,
+            **dict(zip(("kgcl", "kgcl_s1", "kgcl_dx", "einsum", "einsum_s1",
+                        "einsum_dx"), times)),
+            bound=bound_ms(2 * (x3.numel() + w3.numel() + g.numel()),
+                           2 * M * S * co * ci, BF16_OPS))
+        print("[K-G cl] " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items()), flush=True)
+        out.append(row)
+        for k, v in row.items():
+            if isinstance(v, float):
+                tot[k] = tot.get(k, 0.0) + count * v
+        del x3, w3, g, wt, rows, w0
+    print("[K-G cl] sums over the 33 sites: " + ", ".join(
         f"{k} {v:.3f}" for k, v in tot.items()), flush=True)
     return tot
 
@@ -534,57 +585,57 @@ def rank(rows):
     return ranked
 
 
-def paths(out):
-    """The loop paths that run K-B and K-D, wall and device busy time."""
+def wall_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def window(fn, tags):
+    """One profiled run of ``fn``: wall ms, device busy ms, idle share and
+    the device ms of the rows holding each of ``tags`` ({key: tag})."""
+    import torch
+
+    torch.cuda.synchronize()
+    with device_trace() as prof:
+        wall = wall_ms(fn)
+    rows = device_rows(prof)
+    busy = busy_ms(rows)
+    return dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall, **{
+        f"{k}_ms": sum(e.self_device_time_total for e in rows
+                       if tag in e.name) / 1e3 for k, tag in tags.items()})
+
+
+def report(out, section, what, walls, windows):
+    r = dict(path=what, wall_ms=walls, wall_median=statistics.median(walls),
+             profiled=windows)
+    print(f"[{section}] {what}: wall median {r['wall_median']:.1f} ms of "
+          f"{len(walls)}; profiled: " + "; ".join(
+              ", ".join(f"{k} {v:.4g}" for k, v in w.items())
+              for w in windows), flush=True)
+    out.append(r)
+
+
+def bf16_resnet50(images, **kw):
+    """ResNet-50 in bf16 with BN running statistics from one training-mode
+    batch (so that 50 layers of eval-mode BN keep random weights'
+    activations finite), in eval mode."""
     import torch
     from torch import nn
 
-    from bayesian_torch_tpu_torch.examples._engine import make_train_step
     from bayesian_torch_tpu_torch.models.bayesian.resnet_variational_large \
         import resnet50
-    from bayesian_torch_tpu_torch.parallel import mc_forward
-
-    gen = torch.Generator(device="cuda").manual_seed(5)
-
-    def images():
-        return torch.randn(BATCH, 3, IMAGE, IMAGE, generator=gen,
-                           device="cuda")
-
-    def wall_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    def window(fn):
-        torch.cuda.synchronize()
-        with device_trace() as prof:
-            wall = wall_ms(fn)
-        rows = device_rows(prof)
-        busy = busy_ms(rows)
-        return dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall, **{
-            f"{k}_ms": sum(e.self_device_time_total for e in rows
-                           if tag in e.name) / 1e3
-            for k, tag in (("ka", KA_TAG), ("kb", KB_TAG), ("kc", KC_TAG),
-                           ("kd", KD_TAG), ("ke", KE_TAG))})
-
-    def report(what, walls, windows):
-        r = dict(path=what, wall_ms=walls,
-                 wall_median=statistics.median(walls), profiled=windows)
-        print(f"[paths] {what}: wall median {r['wall_median']:.1f} ms of "
-              f"{len(walls)}; profiled: " + "; ".join(
-                  ", ".join(f"{k} {v:.4g}" for k, v in w.items())
-                  for w in windows), flush=True)
-        out.append(r)
 
     model = resnet50(num_classes=1000,
-                     generator=torch.Generator().manual_seed(5), device="cuda")
+                     generator=torch.Generator().manual_seed(5),
+                     device="cuda", **kw)
     for mod in model.modules():
         if hasattr(mod, "compute_dtype"):
             mod.compute_dtype = torch.bfloat16
-    # running statistics from one training-mode batch, so that 50 layers of
-    # eval-mode BN keep random weights' activations finite
     bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
     for m in bns:
         m.reset_running_stats()
@@ -594,7 +645,24 @@ def paths(out):
         model(images())
     for m in bns:
         m.momentum = 0.1
-    model.eval()
+    return model.eval()
+
+
+def paths(out):
+    """The loop paths that run K-B and K-D, wall and device busy time."""
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def images():
+        return torch.randn(BATCH, 3, IMAGE, IMAGE, generator=gen,
+                           device="cuda")
+
+    tags = dict(ka=KA_TAG, kb=KB_TAG, kc=KC_TAG, kd=KD_TAG, ke=KE_TAG)
+    model = bf16_resnet50(images)
     model.fc.impl = "pallas"
     x = images()
 
@@ -603,8 +671,8 @@ def paths(out):
                    return_kl=False)
 
     walls = [wall_ms(infer) for _ in range(6)][1:]
-    report(f"loop MC-{S} bs{BATCH}, head on K-B, presample off", walls,
-           [window(infer) for _ in range(3)])
+    report(out, "paths", f"loop MC-{S} bs{BATCH}, head on K-B, presample "
+           "off", walls, [window(infer, tags) for _ in range(3)])
 
     model.train()
     opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
@@ -615,8 +683,8 @@ def paths(out):
         step(model, opt, x, y)
 
     walls = [wall_ms(train) for _ in range(8)][2:]
-    report(f"loop MC-{TRAIN_MC} bs{BATCH} ELBO step, head on K-B and K-D",
-           walls, [window(train) for _ in range(3)])
+    report(out, "paths", f"loop MC-{TRAIN_MC} bs{BATCH} ELBO step, head on "
+           "K-B and K-D", walls, [window(train, tags) for _ in range(3)])
 
     vstep = make_train_step(TRAIN_MC, BATCH, emission="vmap")
 
@@ -624,12 +692,57 @@ def paths(out):
         vstep(model, opt, x, y)
 
     walls = [wall_ms(train_vmap) for _ in range(8)][2:]
-    report(f"vmap MC-{TRAIN_MC} bs{BATCH} ELBO step, head on K-B, K-D and "
-           "K-E with lanes", walls, [window(train_vmap) for _ in range(3)])
+    report(out, "paths", f"vmap MC-{TRAIN_MC} bs{BATCH} ELBO step, head on "
+           "K-B, K-D and K-E with lanes", walls,
+           [window(train_vmap, tags) for _ in range(3)])
+
+
+def nhwc_dot(out):
+    """The NHWC paths that run K-G channels-last: wall and device busy
+    time of the vmap MC-10 bs128 batch and the vmap MC-4 bs128 ELBO step
+    with ``CONV_1X1_DOT``, and K-G cl's device ms in them."""
+    import torch
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+    from bayesian_torch_tpu_torch.ops import conv as conv_ops
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def images():
+        return torch.randn(BATCH, IMAGE, IMAGE, 3, generator=gen,
+                           device="cuda")
+
+    tags = dict(kgcl="mc_gemm_cl")
+    model = bf16_resnet50(images, data_format="NHWC")
+    x = images()
+    conv_ops.CONV_1X1_DOT = True
+    try:
+        def infer():
+            with torch.no_grad():
+                mc_forward(model, x, S, reduce="mean", return_kl=False,
+                           emission="vmap")
+
+        walls = [wall_ms(infer) for _ in range(6)][1:]
+        report(out, "nhwc", f"NHWC vmap MC-{S} bs{BATCH} CONV_1X1_DOT",
+               walls, [window(infer, tags) for _ in range(2)])
+        model.train()
+        opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+        step = make_train_step(TRAIN_MC, BATCH, emission="vmap")
+        y = torch.randint(0, 1000, (BATCH,), generator=gen, device="cuda")
+
+        def train():
+            step(model, opt, x, y)
+
+        walls = [wall_ms(train) for _ in range(7)][2:]
+        report(out, "nhwc", f"NHWC vmap MC-{TRAIN_MC} bs{BATCH} ELBO step "
+               "CONV_1X1_DOT", walls, [window(train, tags) for _ in range(2)])
+    finally:
+        conv_ops.CONV_1X1_DOT = False
 
 
 SECTIONS = dict(sampler=sampler, sampled=sampled, paths=paths, kg=kg_sites,
-                probe=probe, kf=kf)
+                kg_cl=kg_cl_sites, probe=probe, kf=kf, nhwc=nhwc_dot)
 
 
 def main(argv=None):

@@ -126,10 +126,11 @@ def psum(rank, world):
 
 
 def small_net(estimator="reparameterization", seed=0, dropout=0.0,
-              data_format="NCHW"):
-    """Conv -> BatchNorm -> ReLU [-> Dropout] -> Linear on (B, 3, 6, 6),
-    all layers on one generator seeded ``seed``; the conv and BatchNorm in
-    ``data_format`` ((B, 6, 6, 3) under "NHWC")."""
+              data_format="NCHW", pointwise=False):
+    """Conv -> BatchNorm -> ReLU [-> 1x1 Conv -> ReLU] [-> Dropout] ->
+    flatten -> Linear on (B, 3, 6, 6), all layers on one generator seeded
+    ``seed``; the convs and BatchNorm in ``data_format`` ((B, 6, 6, 3)
+    under "NHWC", flattened per draw under the vmap emission: F12)."""
     import torch
     from torch import nn
 
@@ -147,26 +148,34 @@ def small_net(estimator="reparameterization", seed=0, dropout=0.0,
                              generator=gen, data_format=data_format)
             self.bn = L.BatchNorm2dLayer(4, generator=gen,
                                          data_format=data_format)
+            self.point = conv(4, 4, 1, posterior_rho_init=-2.0,
+                              generator=gen, data_format=data_format) \
+                if pointwise else None
             self.drop = L.Dropout(dropout, generator=gen)
             self.fc = lin(4 * 6 * 6, 5, posterior_rho_init=-2.0,
                           generator=gen)
 
         def forward(self, x):
             h, k1 = self.conv(x)
-            h = self.drop(torch.relu(self.bn(h)))
-            o, k2 = self.fc(h.flatten(1))
+            h = torch.relu(self.bn(h))
+            if self.point is not None:
+                h, k = self.point(h)
+                h, k1 = torch.relu(h), k1 + k
+            o, k2 = self.fc(self.drop(h).flatten(1))
             return o, k1 + k2
 
     return Net()
 
 
-def _batch(rows=8, seed=3):
+def _batch(rows=8, seed=3, data_format="NCHW"):
     import numpy as np
     import torch
 
     rs = np.random.RandomState(seed)
     x = torch.from_numpy(rs.randn(rows, 3, 6, 6).astype(np.float32))
     y = torch.from_numpy(rs.randint(0, 5, rows).astype(np.int64))
+    if data_format != "NCHW":
+        x = x.permute(0, 2, 3, 1).contiguous()
     return x, y
 
 
@@ -178,32 +187,48 @@ def _loss(outs, kl, y):
 
 
 def mc_parity(rank, world, mc, data, num_mc, kw, training, estimator,
-              dropout=0.0, steps=1, bf16=False):
+              dropout=0.0, steps=1, bf16=False, data_format="NCHW",
+              dot=False, model=1):
     """``mc_forward(mesh=make_mesh(mc, data))`` on this rank's rows
     against ``mc_forward`` of the whole batch in this process, ``steps``
     times: max |difference| of the outputs and the KL, and in training of
     the gradients (after ``reduce_gradients``, relative to the largest
     gradient) and the BatchNorm running statistics; whether the
-    generators agree after. ``bf16``: the layers compute in bf16."""
+    generators agree after. ``bf16``: the layers compute in bf16.
+    ``data_format``: the small net's layout; ``dot``: with its 1x1 conv on
+    ``CONV_1X1_DOT`` (the pointwise emission). ``model`` > 1: the net
+    sharded by ``shard_params_tp`` over a 'model' axis (with ``mc`` and
+    ``data`` 1) against the replicated net on the whole batch, the
+    shards' gradients against their blocks of the replicated ones."""
     import torch
 
+    from bayesian_torch_tpu_torch.ops import conv as conv_ops
     from bayesian_torch_tpu_torch.parallel import (make_mesh, mc_forward,
                                                    reduce_gradients,
-                                                   shard_batch)
+                                                   shard_batch,
+                                                   shard_params_tp)
 
-    mesh = make_mesh(mc=mc, data=data)
-    ref, net = (small_net(estimator, dropout=dropout) for _ in range(2))
+    conv_ops.CONV_1X1_DOT = dot
+    mesh = make_mesh(mc=mc, data=data, model=model)
+    ref, net = (small_net(estimator, dropout=dropout,
+                          data_format=data_format, pointwise=dot)
+                for _ in range(2))
+    if model > 1:
+        diffs_count = shard_params_tp(net, mesh)
     for m in (ref, net):
         m.train(training)
         for mod in m.modules():
             if bf16 and hasattr(mod, "compute_dtype"):
                 mod.compute_dtype = torch.bfloat16
-    x, y = _batch()
+    x, y = _batch(data_format=data_format)
     diffs = {"outs": 0.0, "kl": 0.0, "grad": 0.0, "stats": 0.0}
     for _ in range(steps):
         want, kl_want = mc_forward(ref, x, num_mc, **kw)
-        got, kl_got = mc_forward(net, shard_batch(x, mesh), num_mc,
-                                 mesh=mesh, **kw)
+        if model > 1:
+            got, kl_got = mc_forward(net, x, num_mc, **kw)
+        else:
+            got, kl_got = mc_forward(net, shard_batch(x, mesh), num_mc,
+                                     mesh=mesh, **kw)
         diffs["shape"] = tuple(got.shape)
         diffs["outs"] = max(diffs["outs"],
                             float((got - want).abs().max()))
@@ -214,18 +239,26 @@ def mc_parity(rank, world, mc, data, num_mc, kw, training, estimator,
                 loss = _loss(outs if outs.dim() == 3 else outs[None], kl,
                              y)
                 loss.backward()
-            reduce_gradients(net, mesh)
+            if model == 1:
+                reduce_gradients(net, mesh)
             # relative to the model's largest gradient: a conv bias before
             # BatchNorm has a data gradient of rounding noise alone
             scale = max(float(p.grad.abs().max()) for p in ref.parameters())
-            for p, q in zip(ref.parameters(), net.parameters()):
-                diffs["grad"] = max(diffs["grad"], float(
-                    (p.grad - q.grad).abs().max()) / scale)
+            for path, mod in net.named_modules():
+                tp = getattr(mod, "_tp", None)
+                for name, q in mod.named_parameters(recurse=False):
+                    g = getattr(ref.get_submodule(path), name).grad
+                    if tp is not None and name in tp.dims:
+                        g = tp.take(g, tp.dims[name])
+                    diffs["grad"] = max(diffs["grad"], float(
+                        (g - q.grad).abs().max()) / scale)
             for a, b in zip(ref.buffers(), net.buffers()):
                 diffs["stats"] = max(diffs["stats"], float(
                     (a.double() - b.double()).abs().max()))
     diffs["generators"] = torch.equal(ref.conv.generator.get_state(),
                                       net.conv.generator.get_state())
+    if model > 1:
+        diffs["count"] = diffs_count
     return diffs
 
 
@@ -312,24 +345,67 @@ def lstm_parity(rank, world, mc, data, num_mc, kw, training, estimator,
     return diffs
 
 
-def nhwc_refusals(rank, world):
-    """The messages of ``mc_forward(mesh=)`` and ``shard_params_tp`` on a
-    channels-last model: each must raise ``NotImplementedError``."""
+def nhwc_tp_layer(rank, world, kind, training):
+    """A channels-last layer of ``kind`` sharded over a 'model' axis of
+    ``world`` ranks against the replicated layer on (4, 6, 6, 8): max
+    |difference| of the outputs (noise drawn from the generator), of the
+    KL, of the input gradients and of the shards' gradients against their
+    blocks of the replicated ones (relative to the largest), and of the
+    BatchNorm statistics after the forward; the count."""
     import torch
 
-    from bayesian_torch_tpu_torch.parallel import (make_mesh, mc_forward,
-                                                   shard_params_tp)
+    import bayesian_torch_tpu_torch.nn as tnn
+    from bayesian_torch_tpu_torch import layers as L
+    from bayesian_torch_tpu_torch.parallel import make_mesh, shard_params_tp
 
-    net = small_net(data_format="NHWC")
-    out = []
-    for fn in (lambda: mc_forward(net, torch.zeros(1, 6, 6, 3), 2,
-                                  mesh=make_mesh(mc=world)),
-               lambda: shard_params_tp(net, make_mesh(mc=1, model=world))):
-        try:
-            fn()
-        except NotImplementedError as e:
-            out.append(str(e))
-    return out
+    def build():
+        gen = torch.Generator().manual_seed(0)
+        torch.manual_seed(0)
+        df = dict(data_format="NHWC")
+        return {
+            "conv": lambda: L.Conv2dReparameterization(
+                8, 16, 3, padding=1, generator=gen, **df),
+            "conv_flipout": lambda: L.Conv2dFlipout(
+                8, 16, 1, generator=gen, **df),
+            "nn_conv": lambda: tnn.Conv2d(8, 16, 3, padding=1, **df),
+            "bn": lambda: L.BatchNorm2dLayer(8, generator=gen, **df),
+        }[kind]().train(training)
+
+    ref, layer = build(), build()
+    count = shard_params_tp(layer, make_mesh(mc=1, data=1, model=world))
+    x = torch.randn((4, 6, 6, 8), generator=torch.Generator().manual_seed(1))
+    g = None
+    diffs = {"count": count}
+    for name, m in (("ref", ref), ("got", layer)):
+        xi = x.clone().requires_grad_(True)
+        out = m(xi)
+        out, kl = out if isinstance(out, tuple) else (out, 0.0)
+        if g is None:
+            g = torch.randn(out.shape,
+                            generator=torch.Generator().manual_seed(2))
+        (out * g).sum().backward()
+        diffs[name] = (out.detach(), torch.as_tensor(kl).detach(),
+                       xi.grad)
+    (o1, k1, d1), (o2, k2, d2) = diffs.pop("ref"), diffs.pop("got")
+    # the input gradient relative to its largest: the column shards'
+    # input gradients are summed over the ranks (``copy_to_group``)
+    diffs.update(out=float((o1 - o2).abs().max()),
+                 kl=float((k1 - k2).abs()),
+                 dx=float((d1 - d2).abs().max() / d1.abs().max()),
+                 shape=tuple(o2.shape))
+    tp = getattr(layer, "_tp", None)
+    grad = 0.0
+    for name, q in layer.named_parameters():
+        want = getattr(ref, name).grad
+        if tp is not None and name in tp.dims:
+            want = tp.take(want, tp.dims[name])
+        grad = max(grad, float((want - q.grad).abs().max())
+                   / (float(want.abs().max()) or 1.0))
+    diffs["grad"] = grad
+    diffs["stats"] = max([float((a.double() - b.double()).abs().max())
+                          for a, b in zip(ref.buffers(), layer.buffers())
+                          if a.shape == b.shape] or [0.0])
+    return diffs
 
 
 def mc_parity_error(rank, world, num_mc):

@@ -912,6 +912,36 @@ def test_mc_gemm_cl_backward_matches_the_cpu(cuda, dtype, shared):
         assert _max_err(got.cpu(), want) <= tol * _scale(want)
 
 
+# (M, S, O, C) of the persistent bf16 lane's tile paths: the 64-wide O tile
+# (O <= 64) and the 128-wide one up to O = 2048, C = 64 (one stage a tile)
+# to C = 2048 (32 stages), M off the 128-row tile, S = 1 and S = 10
+_KGCL_TILES = [(1000, 10, 64, 64), (777, 1, 2048, 2048),
+               (6272, 10, 2048, 512), (3200, 10, 64, 256),
+               (2000, 1, 64, 2048), (300, 10, 256, 64)]
+
+
+@pytest.mark.parametrize("shape", _KGCL_TILES)
+def test_mc_gemm_cl_tiles_match_plain(cuda, shape):
+    """The bf16 lane's tile paths against the plain version within one
+    bf16 ulp of the largest value: the forward with and without a bias, a
+    lane taken from the draw axis (rows S*C apart) through the S = 1
+    wrapper, and dx (the kernel on the transposed weight)."""
+    M, S, O, C = shape
+    dtype = torch.bfloat16
+    x = _kg_rand((M, S, C), dtype, cuda, 30)
+    w = _kg_rand((S, O, C), dtype, cuda, 31)
+    bias = _kg_rand((S, O), dtype, cuda, 32)
+    for b in (None, bias):
+        _kg_check(kg.mc_gemm_cl(x, w, b), kg.mc_gemm_cl_plain(x, w, b),
+                  dtype)
+    lane = x[:, S - 1]
+    _kg_check(kg.pointwise_gemm_cl(lane, w[S - 1], bias[S - 1]),
+              kg.mc_gemm_cl_plain(lane, w[S - 1], bias[S - 1])[:, 0], dtype)
+    g = _kg_rand((M, S, O), dtype, cuda, 33)
+    wt = w.transpose(1, 2).contiguous()
+    _kg_check(kg.mc_gemm_cl(g, wt), kg.mc_gemm_cl_plain(g, wt), dtype)
+
+
 def test_nhwc_pointwise_emission_on_the_card_matches_cudnn(cuda,
                                                            monkeypatch):
     """Under NHWC a 1x1 conv with ``CONV_1X1_DOT`` reaches K-G

@@ -21,12 +21,10 @@ the Flipout signs bit for bit.
   NHWC flat order); the draw-axis ops against JAX's structured ops;
 - BatchNorm in training and eval, and under the draw axis (per-block
   statistics, one EMA update); the pools;
-- ``qconv`` (bit for bit);
-- ``mc_forward(mesh=)`` and ``shard_params_tp`` refuse an NHWC model, on
-  two gloo ranks.
-"""
+- ``qconv`` (bit for bit).
 
-import functools
+The mesh paths under NHWC: ``test_torch_port_nhwc_mesh.py``.
+"""
 
 import jax
 import jax.numpy as jnp
@@ -430,18 +428,3 @@ def test_qconv_nhwc_matches_jax(k, stride, pad, groups):
                      120, torch.from_numpy(w), 0.01, torch.from_numpy(b),
                      0.3, 128, **kw)
     assert torch.equal(first.permute(0, 2, 3, 1), got)
-
-
-@functools.lru_cache(maxsize=None)
-def _refusal_messages():
-    from tests._torch_port_ranks import spawn
-
-    return spawn("nhwc_refusals", 2)
-
-
-@pytest.mark.parametrize("entry", ["mc_forward(mesh=)", "shard_params_tp"])
-def test_mesh_paths_refuse_nhwc(entry):
-    i = ("mc_forward(mesh=)", "shard_params_tp").index(entry)
-    for msgs in _refusal_messages():
-        assert len(msgs) == 2
-        assert entry in msgs[i] and "data_format='NHWC'" in msgs[i]
