@@ -10,6 +10,13 @@
 // n*K + k under btt_draw_salt(seed, s, N*K): it depends on (seed, s, n, k)
 // only, never on the tiling.
 //
+// A launch may be a window of a larger one (btt_ew::salts): lane s is lane
+// lane0 + s of a launch over lane_stride counters a lane, and weight (n, k)
+// is that lane's counter offset + n*K + k. A rank's lanes [s0, s1) of an
+// S-lane launch take lane0 = s0; a shard of rows [n0, n0 + N) of a weight
+// of N_whole rows takes lane_stride = N_whole*K and offset = n0*K. The
+// whole launch is the window (0, N*K, 0).
+//
 // What bounds it on an H100: issuing instructions. At the ResNet-50 head
 // (M = 128, K = 2048, N = 1000) one lane draws 2.05 M normals, each two
 // hashes, a log, a sqrt and a cos (90 issued instructions), against 0.5
@@ -61,6 +68,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "elementwise.cuh"
 #include "hopper.cuh"
 #include "noise.cuh"
 
@@ -178,8 +186,8 @@ __device__ __forceinline__ void load_posterior(const float* __restrict__ mu,
 // Each Box-Muller step runs over all elements before the next, with no
 // branch on the elements, so their dependent chains interleave.
 template <bool kDx>
-__device__ __forceinline__ void draw_tile(uint32_t salt, int K, int pt,
-                                          int j0, int r0,
+__device__ __forceinline__ void draw_tile(uint32_t salt, uint32_t ctr0,
+                                          int K, int pt, int j0, int r0,
                                           const float (&m)[kPerProd],
                                           const float (&s)[kPerProd],
                                           float* w_hi, float* w_lo) {
@@ -188,8 +196,8 @@ __device__ __forceinline__ void draw_tile(uint32_t salt, int K, int pt,
   for (int i = 0; i < kPerProd; ++i) {
     int n, k;
     w_coord<kDx>(pt, i, j0, r0, n, k);
-    btt_hash_uniforms(salt, (uint32_t)n * (uint32_t)K + (uint32_t)k, u1[i],
-                      u2[i]);
+    btt_hash_uniforms(salt, ctr0 + (uint32_t)n * (uint32_t)K + (uint32_t)k,
+                      u1[i], u2[i]);
   }
 #pragma unroll
   for (int i = 0; i < kPerProd; ++i) r[i] = btt_box_muller_log(u1[i]);
@@ -213,8 +221,8 @@ template <bool kDx>
 __device__ __forceinline__ void sampled_gemm(
     const float* __restrict__ a, int64_t a_lane, const float* __restrict__ mu,
     const float* __restrict__ sigma, float* __restrict__ out, int M, int N,
-    int K, int chunk, int m_tiles, uint32_t seed_lo, uint32_t seed_hi,
-    int vec_a) {
+    int K, int chunk, int m_tiles, uint32_t salt0, uint32_t salt_step,
+    uint32_t ctr0, int vec_a) {
   extern __shared__ __align__(128) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int R = kDx ? N : K;
@@ -246,8 +254,7 @@ __device__ __forceinline__ void sampled_gemm(
   if (warp < kProdWarps) {
     // --- producers: A by cp.async, W drawn into hi and lo parts ---------
     const int pt = threadIdx.x;
-    const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, (uint32_t)lane_s,
-                                        (uint32_t)N * (uint32_t)K);
+    const uint32_t salt = salt0 + (uint32_t)lane_s * salt_step;
     const int a_row4 = pt / 8, a_col4 = 4 * (pt % 8);
     const int a_row = pt / 32, a_col = pt % 32;
     const float* a_src4 = a + (int64_t)(m0 + a_row4) * R + a_col4;
@@ -286,7 +293,7 @@ __device__ __forceinline__ void sampled_gemm(
       cp_async_arrive(full0 + 8 * slot);
       if (st + 1 < n_stages)
         load_posterior<kDx>(mu, sigma, N, K, pt, j0, r0 + kBR, mn, sn);
-      draw_tile<kDx>(salt, K, pt, j0, r0, mc, sc, w_hi, w_lo);
+      draw_tile<kDx>(salt, ctr0, K, pt, j0, r0, mc, sc, w_hi, w_lo);
       btt::mbar_arrive(full0 + 8 * slot);
 #pragma unroll
       for (int i = 0; i < kPerProd; ++i) {
@@ -377,11 +384,12 @@ __device__ __forceinline__ void sampled_gemm(
 }
 
 // One launch of the kernel `kernel` (a __global__ wrapper of sampled_gemm)
-// over S lanes; returns a cudaError_t code.
+// over S lanes, in the counter window `salts`; returns a cudaError_t code.
 template <typename Kernel>
 inline int launch(Kernel kernel, bool dx, const float* a, int64_t a_lane,
                   const float* mu, const float* sigma, float* out, int S,
-                  int M, int N, int K, uint64_t seed, cudaStream_t stream) {
+                  int M, int N, int K, btt_ew::Salts salts,
+                  cudaStream_t stream) {
   const int R = dx ? N : K;
   const int J = dx ? K : N;
   if (S <= 0 || M <= 0 || J <= 0) return (int)cudaSuccess;
@@ -411,7 +419,7 @@ inline int launch(Kernel kernel, bool dx, const float* a, int64_t a_lane,
   cfg.numAttrs = 1;
   const int err = (int)cudaLaunchKernelEx(
       &cfg, kernel, a, a_lane, mu, sigma, out, M, N, K, chunk, m_tiles,
-      (uint32_t)(seed & 0xFFFFFFFFull), (uint32_t)(seed >> 32), vec_a);
+      salts.salt0, salts.step, salts.ctr0, vec_a);
   if (err != (int)cudaSuccess) return err;
   return (int)cudaGetLastError();
 }

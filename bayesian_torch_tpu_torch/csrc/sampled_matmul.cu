@@ -8,7 +8,9 @@
 // reaches device memory. Lane s draws eps under the salt of lane s of the
 // seed (btt_draw_salt: the window [s*N*K, (s+1)*N*K) of one counter
 // stream); lane 0 is the single-draw kernel, bit for bit. x may be shared by
-// all lanes (a lane stride of 0), as the JAX vmap rule broadcasts it.
+// all lanes (a lane stride of 0), as the JAX vmap rule broadcasts it. A
+// launch may be a counter window of a larger one (sampled_gemm.cuh): a
+// rank's lanes or a shard's rows of the one-process launch.
 //
 // What bounds it on an H100, and the design: sampled_gemm.cuh. At the
 // ResNet-50 head (M=128, K=2048, N=1000) each lane draws 2.05 M normals
@@ -25,10 +27,10 @@ __global__ void __launch_bounds__(btt_sg::kThreads, 2)
                           const float* __restrict__ mu,
                           const float* __restrict__ sigma,
                           float* __restrict__ out, int M, int N, int K,
-                          int chunk, int m_tiles, uint32_t seed_lo,
-                          uint32_t seed_hi, int vec_a) {
+                          int chunk, int m_tiles, uint32_t salt0,
+                          uint32_t salt_step, uint32_t ctr0, int vec_a) {
   btt_sg::sampled_gemm<false>(x, x_lane, mu, sigma, out, M, N, K, chunk,
-                              m_tiles, seed_lo, seed_hi, vec_a);
+                              m_tiles, salt0, salt_step, ctr0, vec_a);
 }
 
 }  // namespace
@@ -37,13 +39,19 @@ extern "C" {
 
 // x (S, M, K) with lane stride x_lane (M*K, or 0 for one x shared by the
 // lanes), mu and sigma (N, K), out (S, M, N); all float32, row-major.
-// eps of lane s, weight (n, k) is the hash at counter n*K + k under
-// btt_draw_salt(seed, s, N*K). Returns the launch's cudaError_t.
+// eps of lane s, weight (n, k) is the hash at counter offset + n*K + k
+// under btt_draw_salt(seed, lane0 + s, lane_stride); (lane0, lane_stride,
+// offset) = (0, N*K, 0) is the whole launch. Returns the launch's
+// cudaError_t.
 int btt_sampled_matmul(const float* x, int64_t x_lane, const float* mu,
                        const float* sigma, float* out, int S, int M, int N,
-                       int K, uint64_t seed, cudaStream_t stream) {
+                       int K, uint64_t seed, int64_t lane0,
+                       int64_t lane_stride, int64_t offset,
+                       cudaStream_t stream) {
   return btt_sg::launch(sampled_matmul_kernel, false, x, x_lane, mu, sigma,
-                        out, S, M, N, K, seed, stream);
+                        out, S, M, N, K,
+                        btt_ew::salts(seed, lane0, lane_stride, offset),
+                        stream);
 }
 
 }  // extern "C"

@@ -14,7 +14,9 @@
 // shared by them; K-E returns those sums directly. eps of lane s, weight
 // (n, k) is the hash at counter n*K + k under btt_draw_salt(seed, s,
 // N*K), as K-B drew it: it depends on (seed, s, n, k) only, never on the
-// tiling. Lane 0 of each is the single-draw kernel, bit for bit.
+// tiling. Lane 0 of each is the single-draw kernel, bit for bit. Both take
+// K-B's counter window (sampled_gemm.cuh): a rank's lanes or a shard's rows
+// of the one-process launch draw that launch's eps.
 //
 // What bounds them on an H100: at the ResNet-50 head (M=128, K=2048,
 // N=1000) each lane draws one hash normal per weight element (2.05 M,
@@ -79,10 +81,10 @@ __global__ void __launch_bounds__(btt_sg::kThreads, 2)
                              const float* __restrict__ mu,
                              const float* __restrict__ sigma,
                              float* __restrict__ dx, int M, int N, int K,
-                             int chunk, int m_tiles, uint32_t seed_lo,
-                             uint32_t seed_hi, int vec_a) {
+                             int chunk, int m_tiles, uint32_t salt0,
+                             uint32_t salt_step, uint32_t ctr0, int vec_a) {
   btt_sg::sampled_gemm<true>(g, g_lane, mu, sigma, dx, M, N, K, chunk,
-                             m_tiles, seed_lo, seed_hi, vec_a);
+                             m_tiles, salt0, salt_step, ctr0, vec_a);
 }
 
 // K-E. A block of four warpgroups owns a 128 (n) x 128 (k) output tile;
@@ -243,8 +245,8 @@ __global__ void __launch_bounds__(dw::kThreads, 1)
                              const XT* __restrict__ x, int64_t x_lane,
                              float* __restrict__ dmu,
                              float* __restrict__ dsigma, int S, int M, int N,
-                             int K, uint32_t seed_lo, uint32_t seed_hi,
-                             int vec_out) {
+                             int K, uint32_t salt0, uint32_t salt_step,
+                             uint32_t ctr0, int vec_out) {
   using namespace dw;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = btt::smem_addr(smem_raw);
@@ -263,16 +265,15 @@ __global__ void __launch_bounds__(dw::kThreads, 1)
   constexpr int G = kGroup;
   constexpr bool kXLo = std::is_same<XT, float>::value;
 
-  // G normals of lane s at once: accumulator elements i0 .. i0 + G - 1
-  auto draw = [&](int s, int i0, float (&e)[G]) {
-    const uint32_t salt = btt_draw_salt(seed_lo, seed_hi, (uint32_t)s,
-                                        (uint32_t)N * (uint32_t)K);
-    uint32_t salts[G], ctr[G];
+  // G normals of a lane at once under its salt, counters from the window's
+  // base c0: accumulator elements i0 .. i0 + G - 1
+  auto draw = [&](uint32_t salt, uint32_t c0, int i0, float (&e)[G]) {
+    uint32_t ctr[G], salts[G];
 #pragma unroll
     for (int j = 0; j < G; ++j) {
       const int i = i0 + j;
       salts[j] = salt;
-      ctr[j] = (uint32_t)(n0 + wn + 16 * w + gq + 8 * (i % 4 / 2)) *
+      ctr[j] = c0 + (uint32_t)(n0 + wn + 16 * w + gq + 8 * (i % 4 / 2)) *
                    (uint32_t)K +
                (uint32_t)(k0 + wk + 8 * (i / 4) + 2 * t + i % 2);
     }
@@ -313,6 +314,13 @@ __global__ void __launch_bounds__(dw::kThreads, 1)
     }
     btt::wgmma_wait<0>();
     btt::fence_regs(acc);
+    // the lane's salt and the window's counter base, taken here: the empty
+    // asm keeps the compiler from holding them, or values it derives from
+    // them, in registers across the product, where the kernel's 128 run
+    // out (without it every instantiation spills, the lane one 80 bytes;
+    // with it none does)
+    uint32_t lane_salt = salt0 + (uint32_t)s * salt_step, lane_ctr0 = ctr0;
+    asm volatile("" : "+r"(lane_salt), "+r"(lane_ctr0));
 
     // this lane's eps, G normals at a time, each group's stores draining
     // while the next is drawn; dmu_s and dmu_s * eps_s join the sums in
@@ -321,7 +329,7 @@ __global__ void __launch_bounds__(dw::kThreads, 1)
     float e[G];
 #pragma unroll
     for (int i = 0; i < kElems; i += 2) {
-      if (i % G == 0) draw(s, i, e);
+      if (i % G == 0) draw(lane_salt, lane_ctr0, i, e);
       float m0 = acc[i], m1 = acc[i + 1];
       // no contraction: rounds as the plain d * eps
       float s0 = __fmul_rn(m0, e[i % G]), s1 = __fmul_rn(m1, e[i % G + 1]);
@@ -351,7 +359,7 @@ __global__ void __launch_bounds__(dw::kThreads, 1)
 template <bool kLanes, typename XT>
 int launch_dw_kernel(const float* g, const XT* x, int64_t x_lane,
                      float* dmu, float* dsigma, int S, int M, int N, int K,
-                     uint64_t seed, cudaStream_t stream) {
+                     btt_ew::Salts salts, cudaStream_t stream) {
   constexpr int bytes = dw::smem_bytes<kLanes>();
   auto kernel = sampled_matmul_dw_kernel<kLanes, XT>;
   // once per instantiation: above 48 KB of dynamic shared memory must be
@@ -364,19 +372,19 @@ int launch_dw_kernel(const float* g, const XT* x, int64_t x_lane,
                       reinterpret_cast<uintptr_t>(dsigma) % 8 == 0;
   const dim3 grid((K + dw::kBK - 1) / dw::kBK, (N + dw::kBN - 1) / dw::kBN);
   kernel<<<grid, dw::kThreads, bytes, stream>>>(
-      g, x, x_lane, dmu, dsigma, S, M, N, K, (uint32_t)(seed & 0xFFFFFFFFull),
-      (uint32_t)(seed >> 32), vec_out);
+      g, x, x_lane, dmu, dsigma, S, M, N, K, salts.salt0, salts.step,
+      salts.ctr0, vec_out);
   return (int)cudaGetLastError();
 }
 
 template <typename XT>
 int launch_dw(const float* g, const XT* x, int64_t x_lane, float* dmu,
-              float* dsigma, int S, int M, int N, int K, uint64_t seed,
+              float* dsigma, int S, int M, int N, int K, btt_ew::Salts salts,
               cudaStream_t stream) {
   return S == 1 ? launch_dw_kernel<false>(g, x, x_lane, dmu, dsigma, S, M, N,
-                                          K, seed, stream)
+                                          K, salts, stream)
                 : launch_dw_kernel<true>(g, x, x_lane, dmu, dsigma, S, M, N,
-                                         K, seed, stream);
+                                         K, salts, stream);
 }
 
 }  // namespace
@@ -384,27 +392,36 @@ int launch_dw(const float* g, const XT* x, int64_t x_lane, float* dmu,
 extern "C" {
 
 // g (S, M, N), mu and sigma (N, K), dx (S, M, K); all float32, row-major.
-// Returns the launch's cudaError_t.
+// (lane0, lane_stride, offset): K-B's counter window, (0, N*K, 0) for the
+// whole launch. Returns the launch's cudaError_t.
 int btt_sampled_matmul_dx(const float* g, const float* mu,
                           const float* sigma, float* dx, int S, int M, int N,
-                          int K, uint64_t seed, cudaStream_t stream) {
+                          int K, uint64_t seed, int64_t lane0,
+                          int64_t lane_stride, int64_t offset,
+                          cudaStream_t stream) {
   return btt_sg::launch(sampled_matmul_dx_kernel, true, g, (int64_t)M * N,
-                        mu, sigma, dx, S, M, N, K, seed, stream);
+                        mu, sigma, dx, S, M, N, K,
+                        btt_ew::salts(seed, lane0, lane_stride, offset),
+                        stream);
 }
 
 // g (S, M, N), x (S, M, K) with lane stride x_lane (M*K, or 0 for one x
 // shared by the lanes), dmu and dsigma (N, K): sums over the lanes; x f32,
-// or bf16 (x_bf16 1), all else float32, row-major. Returns the launch's
-// cudaGetLastError().
+// or bf16 (x_bf16 1), all else float32, row-major. (lane0, lane_stride,
+// offset): K-B's counter window, (0, N*K, 0) for the whole launch. Returns
+// the launch's cudaGetLastError().
 int btt_sampled_matmul_dw(const float* g, const void* x, int64_t x_lane,
                           int x_bf16, float* dmu, float* dsigma, int S, int M,
-                          int N, int K, uint64_t seed, cudaStream_t stream) {
+                          int N, int K, uint64_t seed, int64_t lane0,
+                          int64_t lane_stride, int64_t offset,
+                          cudaStream_t stream) {
   if (S <= 0 || N <= 0 || K <= 0) return (int)cudaSuccess;
+  const btt_ew::Salts salts = btt_ew::salts(seed, lane0, lane_stride, offset);
   if (x_bf16)
     return launch_dw(g, static_cast<const __nv_bfloat16*>(x), x_lane, dmu,
-                     dsigma, S, M, N, K, seed, stream);
+                     dsigma, S, M, N, K, salts, stream);
   return launch_dw(g, static_cast<const float*>(x), x_lane, dmu, dsigma, S,
-                   M, N, K, seed, stream);
+                   M, N, K, salts, stream);
 }
 
 }  // extern "C"

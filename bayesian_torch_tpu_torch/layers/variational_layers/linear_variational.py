@@ -15,6 +15,13 @@ the fused GEMM in one launch (``sampled_matmul_batched``) and the bias's
 S draws in one batch-sampler launch; ``impl="xla"`` draws weight and bias
 in one batch-sampler launch (or takes the presampled stack) and leaves
 the product to ``torch.matmul`` (``ops.linear.linear_draws``).
+
+Under a mesh each rank computes its block of the one-process result: the
+fused GEMM and the bias sampler take a counter window (``ops/cuda/
+sampled_matmul.py``), this rank's lanes when ``mc_forward(mesh=)`` splits
+the draws (``ops.sampling.window_lanes``) and, under ``shard_params_tp``,
+the shard's rows of the whole weight's and bias's counters, so that the
+shard's output columns are those of the replicated layer.
 """
 
 from __future__ import annotations
@@ -29,9 +36,11 @@ from bayesian_torch_tpu_torch.layers.base_variational_layer import (
 )
 from bayesian_torch_tpu_torch.ops import linear as linear_ops
 from bayesian_torch_tpu_torch.ops.kl import gaussian_kl_from_rho
-from bayesian_torch_tpu_torch.ops.sampling import (current_window,
-                                                   draw_seed,
-                                                   sample_gaussian_weight)
+from bayesian_torch_tpu_torch.ops.sampling import (draw_seed,
+                                                   sample_gaussian_weight,
+                                                   shard_window,
+                                                   window_kwargs,
+                                                   window_lanes)
 
 IMPLS = ("xla", "pallas")
 
@@ -117,7 +126,8 @@ class LinearReparameterization(BaseVariationalLayer):
                                      self.compute_dtype)
         elif self.impl == "pallas" and eps_w is None and eps_b is None:
             # fused sample-then-GEMM: the sampled W never exists in
-            # device memory
+            # device memory. A tensor-parallel shard draws its rows' window
+            # of the whole weight and returns its columns of the output.
             from bayesian_torch_tpu_torch.ops.cuda.sampled_matmul import (
                 sampled_matmul,
             )
@@ -126,12 +136,13 @@ class LinearReparameterization(BaseVariationalLayer):
                 draw_seed(self.generator),
                 input.reshape(-1, self.in_features), self.mu_weight,
                 self.rho_weight,
-                out_dtype=self.compute_dtype or input.dtype)
+                out_dtype=self.compute_dtype or input.dtype,
+                **shard_window(self.mu_weight.numel()))
             if self.mu_bias is not None:
                 b, _ = sample_gaussian_weight(self.generator, self.mu_bias,
                                               self.rho_bias)
                 out = out + b.to(out.dtype)
-            out = out.reshape(lead + (self.out_features,))
+            out = out.reshape(lead + (self.mu_weight.shape[0],))
         else:
             out = linear_ops.sampled_linear(
                 input, self.generator, self.mu_weight, self.rho_weight,
@@ -158,23 +169,28 @@ class LinearReparameterization(BaseVariationalLayer):
         from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (
             sample_gaussian_batch,
         )
-        window = current_window()
-        if getattr(self, "_tp", None) is not None or (
-                window is not None and window.splits_draws):
-            raise NotImplementedError(
-                "LinearReparameterization(impl='pallas') draws its lanes "
-                "inside the fused sampled GEMM, which takes no window: under "
-                "a mesh that splits the draws or the layer, use impl='xla'")
+        # this rank's lanes of the one-process launches, and a shard's rows
+        lane0, _ = window_lanes(num_draws)
+        tp = getattr(self, "_tp", None)
+        column = tp is not None and tp.column
+
+        def window(t):
+            n = t.numel()
+            return window_kwargs(*(tp.window(t, lane0) if column
+                                   else (lane0, n, 0)), n)
+
         out = sampled_matmul_batched(
             draw_seed(self.generator),
             linear_ops.split_draws(input, num_draws, self.in_features),
             self.mu_weight, self.rho_weight, num_draws,
-            out_dtype=self.compute_dtype or input.dtype)
+            out_dtype=self.compute_dtype or input.dtype,
+            **window(self.mu_weight))
         if self.mu_bias is not None:
             # a seed of its own, as the JAX layer splits its key in two
             b = sample_gaussian_batch(draw_seed(self.generator),
                                       self.mu_bias, self.rho_bias,
-                                      num_draws, self.mu_bias.dtype)
+                                      num_draws, self.mu_bias.dtype,
+                                      **window(self.mu_bias))
             out = out + b.to(out.dtype)[:, None]
         return linear_ops.join_draws(out, input.shape[:-1])
 

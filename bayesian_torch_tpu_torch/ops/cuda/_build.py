@@ -41,24 +41,30 @@ _SIGNATURES = {
                                         ctypes.c_uint64, ctypes.c_int,
                                         ctypes.c_int, ctypes.c_int64,
                                         ctypes.c_int64, ctypes.c_int64, _P),
-    # x, x lane stride, mu, sigma, out, S, M, N, K, seed, stream
+    # x, x lane stride, mu, sigma, out, S, M, N, K, seed, lane0, lane
+    # stride, offset, stream
     "btt_sampled_matmul": (_P, ctypes.c_int64, _P, _P, _P, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_uint64, _P),
+                           ctypes.c_uint64, ctypes.c_int64, ctypes.c_int64,
+                           ctypes.c_int64, _P),
     # g, g_bf16, rho (or NULL), rho_bf16, out, n, num_samples, seed,
     # lane0, lane stride, offset, stream
     "btt_sampled_weights_bwd": (_P, ctypes.c_int, _P, ctypes.c_int, _P,
                                 ctypes.c_int64, ctypes.c_int,
                                 ctypes.c_uint64, ctypes.c_int64,
                                 ctypes.c_int64, ctypes.c_int64, _P),
-    # g, mu, sigma, dx, S, M, N, K, seed, stream
+    # g, mu, sigma, dx, S, M, N, K, seed, lane0, lane stride, offset,
+    # stream
     "btt_sampled_matmul_dx": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int, ctypes.c_uint64,
-                              _P),
-    # g, x, x lane stride, x_bf16, dmu, dsigma, S, M, N, K, seed, stream
+                              ctypes.c_int64, ctypes.c_int64,
+                              ctypes.c_int64, _P),
+    # g, x, x lane stride, x_bf16, dmu, dsigma, S, M, N, K, seed, lane0,
+    # lane stride, offset, stream
     "btt_sampled_matmul_dw": (_P, _P, ctypes.c_int64, ctypes.c_int, _P, _P,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_uint64, _P),
+                              ctypes.c_int, ctypes.c_uint64, ctypes.c_int64,
+                              ctypes.c_int64, ctypes.c_int64, _P),
     # x, w, corr (or NULL), bias (or NULL), out, M, N, K, mult, out_zp,
     # stream
     "btt_qmatmul_requant": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,

@@ -85,6 +85,13 @@ class _Shard:
     def whole_shape(self, t):
         return (t.shape[0] * self.size,) + tuple(t.shape[1:])
 
+    def window(self, t, lane0=0):
+        """The counter window (lane0, lane stride, offset) of this dim-0
+        shard of a tensor: its rows of each lane of the whole tensor's
+        launch (the fused GEMM's and the bias sampler's under the draw
+        axis; ``ops/cuda/sampled_matmul.py``)."""
+        return lane0, self.whole_numel(t), self.rank * t.numel()
+
     def take(self, t, dim):
         """This shard's block of ``t`` along ``dim``."""
         n = t.shape[dim] // self.size

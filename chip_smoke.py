@@ -314,7 +314,16 @@ Phases, each printing its own line(s):
     loop step at ``mc=2`` (parameters within 1/256 of the update; K-C
     dsigma, and drho for the head in the loop), ``shard_params_tp`` over
     ``model=2`` (12 tensors, the LSTM gathered, the head column-parallel);
-    the quantized LSTM at ``mc=2`` through the loop (K-F 20 a rank).
+    the quantized LSTM at ``mc=2`` through the loop (K-F 20 a rank);
+    (g) the head on the fused sampled GEMM (``fc.impl="pallas"``): K-B,
+    K-D and K-E under the counter windows a rank draws (its lanes of the
+    MC-10 and MC-4 launches, a 'model' shard's rows [500, 1000) at one
+    draw and at MC-2) against their windowed plain versions at the head
+    (1e-4 x max(1, max|plain|)), a rank's lanes equal to the whole
+    launch's bit for bit; then on the two ranks ``mc=2`` and ``data=2``
+    through the vmap emission at MC-10 bs128 (one K-B with lanes a rank)
+    and the f32 MC-4 bs128 vmap SGD step at ``mc=2`` (K-B, K-D and K-E
+    with lanes once each a rank; parameters within 1/256 of the update).
 44. channels-last (``phase_nhwc``, last, its parts' seconds logged): (a)
     K-G channels-last (``mc_gemm_cl``: x (M, S, C), w (S, O, C)) against
     its plain version at the 12 pointwise sites of phase 24 (S = 10, B =
@@ -344,15 +353,21 @@ Phases, each printing its own line(s):
     ``CONV_1X1_DOT`` (33 K-G cl launches a rank, on its 5 lanes), an
     MC-4 bs128 vmap SGD step at ``mc=2`` in f32 without TF32 (parameters
     within 1/256 of the update), ``shard_params_tp`` over ``model=2`` at
-    MC-2 bs8 (channels gathered on the last dim), and the NHWC
-    structured-Flipout Net of ``dryrun_multichip`` under ``mc=2`` (1e-5).
+    MC-2 bs8 (channels gathered on the last dim), the same with the head
+    on the fused sampled GEMM (the shard's rows of the whole weight's
+    counters) through the vmap emission (one K-B with lanes a rank) and
+    the loop with ``presample="off"`` (a single-draw K-B a draw), and the
+    NHWC structured-Flipout Net of ``dryrun_multichip`` under ``mc=2``
+    (1e-5).
 
 The line before the last is a JSON object with every kernel's launches,
 counted from zero in the run named by its ``run`` key, its error against
 its plain version and both times; K-A, K-C and K-F also carry ``paths``,
 their launches on each path of the zoo, of phase 41 (K-A, K-C) and of
 phase 42 (K-F: and of the INT8 main paths and phases 38-40), each
-counted from zero; the
+counted from zero; K-B, K-D and K-E (and their lane forms) their
+launches a rank on the mesh paths of phases 43 and 45, and the single
+draws their largest windowed error of phase 43 (g) (``window_err``); the
 last line is ``{"ok": true, "device": {...}}``, printed only after every phase
 passed. Any failure raises and exits non-zero, as does a machine without
 CUDA.
@@ -4694,6 +4709,15 @@ MULTIRANK_SEED = SEED + 800
 MULTIRANK_WORLD = 2  # two ranks sharing the one card
 MULTIRANK_TIMEOUT = 600  # the ranks' wall-clock limit, seconds
 TP_BATCH, TP_MC = 8, 2  # TP gathers every layer's output: a cut batch
+HEAD_K, HEAD_N = 2048, 1000  # the ResNet-50 head: x (M, 2048) @ W^T (1000)
+PALLAS_STEP = f"pallas head mc=2 vmap MC-{TRAIN_MC} bs{BATCH} f32 SGD step"
+# the fused-GEMM head's launches a rank: one K-B with lanes a forward; a
+# step's backward one K-D and one K-E with lanes
+PALLAS_MESH_LAUNCHES = {
+    f"pallas head mc=2 vmap MC-{NUM_MC} bs{BATCH}": {"K-B lanes": 1},
+    f"pallas head data=2 vmap MC-{NUM_MC} bs{BATCH}": {"K-B lanes": 1},
+    PALLAS_STEP: {"K-B lanes": 1, "K-D lanes": 1, "K-E lanes": 1},
+}
 LOOP_BATCH, LOOP_MC = 32, 2
 MULTIRANK_LR = 0.01
 LOADER_IMAGES = 1024  # 8 batches of 128 at 224x224
@@ -4898,6 +4922,92 @@ def lstm_window_checks():
               f"K-A or K-C windowed off at the LSTM's {name}")
         worst["sample"] = max(worst["sample"], e_a)
         worst["dsigma"] = max(worst["dsigma"], e_c)
+    return worst
+
+
+# (g) the windows a rank's fused-GEMM head draws: (label, lanes of the
+# one-process launch, first lane, first row) at the ResNet-50 head; the
+# window's lanes are the rest of the launch's, its rows the rest of N
+HEAD_WINDOWS = [
+    (f"mc=2 MC-{NUM_MC}, rank 1's lanes", NUM_MC, NUM_MC // 2, 0),
+    (f"mc=2 MC-{TRAIN_MC} step, rank 1's lanes", TRAIN_MC, TRAIN_MC // 2, 0),
+    ("model=2, shard 1's rows, one draw", 1, 0, HEAD_N // 2),
+    (f"model=2, shard 1's rows, MC-{TP_MC}", TP_MC, 0, HEAD_N // 2),
+]
+
+
+def head_window_checks():
+    """(g) K-B, K-D and K-E under the counter windows a rank's head draws
+    on the mesh paths (``HEAD_WINDOWS``), at the ResNet-50 head (M = 128,
+    K = 2048), f32 with TF32 off: each against its windowed plain version
+    within 1e-4 x max(1, max|plain|); a rank's lanes of K-B and K-D equal
+    those lanes of the whole launch bit for bit. One draw runs the
+    single-draw entry points (K-E's kernel without lane sums).
+    Comparison launches: counted on no path. Returns the largest errors
+    over max(1, max|plain|)."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops.cuda import sampled_matmul as kb
+    from bayesian_torch_tpu_torch.ops.sampling import sigma_from_rho
+
+    M, K, N = BATCH, HEAD_K, HEAD_N
+    gen = torch.Generator().manual_seed(MULTIRANK_SEED + 30)
+    mu_all = (0.1 * torch.randn((N, K), generator=gen)).cuda()
+    rho_all = (0.1 * torch.randn((N, K), generator=gen) - 3.0).cuda()
+    worst = {"K-B": 0.0, "K-D": 0.0, "K-E": 0.0}
+    with tf32_off():
+        for i, (label, lanes, lane0, n0) in enumerate(HEAD_WINDOWS):
+            seed = 0x5EED_0000_0000_4320 + i
+            S, window = lanes - lane0, (lane0, N * K, n0 * K)
+            mu, rho = mu_all[n0:], rho_all[n0:]
+            sigma = sigma_from_rho(rho)
+            x_all = torch.randn((lanes, M, K), generator=gen).cuda()
+            x = x_all[lane0:]
+            g = torch.randn((S, M, N - n0), generator=gen).cuda()
+            if lanes == 1:
+                got = {"K-B": kb.sampled_matmul(
+                           seed, x[0], mu, rho, window=window)[None],
+                       "K-D": kb.sampled_matmul_dx(
+                           seed, g[0], mu, sigma, window=window)[None],
+                       "K-E": kb.sampled_matmul_dw(seed, g[0], x[0],
+                                                   window=window)}
+            else:
+                got = {"K-B": kb.sampled_matmul_batched(
+                           seed, x, mu, rho, S, window=window),
+                       "K-D": kb.sampled_matmul_dx_batched(
+                           seed, g, mu, sigma, window=window),
+                       "K-E": kb.sampled_matmul_dw_batched(
+                           seed, g, x, window=window)}
+            want = {"K-B": kb.sampled_matmul_batched_plain(
+                        seed, x, mu, sigma, S, window=window),
+                    "K-D": kb.sampled_matmul_dx_batched_plain(
+                        seed, g, mu, sigma, window),
+                    "K-E": kb.sampled_matmul_dw_batched_plain(
+                        seed, g, x, window)}
+            errs = {}
+            for k in worst:
+                pairs = zip(got[k], want[k]) if k == "K-E" \
+                    else [(got[k], want[k])]
+                errs[k] = max(max_err(a, b) / max(1.0, b.abs().max().item())
+                              for a, b in pairs)
+                worst[k] = max(worst[k], errs[k])
+            exact = "n/a"
+            if n0 == 0:
+                whole = kb.sampled_matmul_batched(seed, x_all, mu, rho, lanes)
+                g_all = torch.cat([g.new_zeros((lane0,) + g.shape[1:]), g])
+                exact = torch.equal(got["K-B"], whole[lane0:]) and \
+                    torch.equal(got["K-D"], kb.sampled_matmul_dx_batched(
+                        seed, g_all, mu, sigma)[lane0:])
+                check(exact, f"(g) {label}: K-B or K-D's lanes differ from "
+                      "the whole launch's")
+            log(f"[multirank head windows] {label}: lanes [{lane0}, {lanes}) "
+                f"of {lanes}, rows [{n0}, {N}) of {N}, window {window}: "
+                f"x max(1, max|plain|) from plain "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f" (limit 1e-4); lanes equal to the whole launch's: {exact}")
+            check(max(errs.values()) <= 1e-4,
+                  f"(g) {label}: a windowed kernel is off its plain version "
+                  f"{errs}")
     return worst
 
 
@@ -5153,7 +5263,7 @@ def multirank_parts(tmp, rank):
         model.train()
         set_gens(model, gens0)
         opt = torch.optim.SGD(model.parameters(), lr=MULTIRANK_LR)
-        with (f32_compute(model) if dtype == "f32"
+        with (f32_compute(model) if dtype.startswith("f32")
               else contextlib.nullcontext()):
             loss, _, _ = make_train_step(TRAIN_MC, BATCH, mc2,
                                          emission="vmap")(
@@ -5163,7 +5273,7 @@ def multirank_parts(tmp, rank):
                        for n, p in model.named_parameters()), reverse=True)
         res = {"loss": float(loss), "loss_one_process": want["loss"],
                "param_err": errs[0][0], "update": want["update"],
-               "worst": errs[:3]}
+               "limit": want["update"] / 256, "worst": errs[:3]}
         if dtype == "bf16":
             # against the one-process step whose draw-axis convs ran in
             # two groups of S = 2, as this rank's do (F10)
@@ -5189,6 +5299,17 @@ def multirank_parts(tmp, rank):
             torch.isfinite(p).all() for p in model.parameters()))}
 
     part(f"mc=2 scan MC-{LOOP_MC} bs{LOOP_BATCH} SGD step", loop_step)
+
+    # the head on the fused sampled GEMM: a rank's lanes of K-B (and K-D,
+    # K-E in the step) under mc=2, all lanes on its rows under data=2
+    model.load_state_dict(ref["state"])
+    model.eval()
+    model.fc.impl = "pallas"
+    part(f"pallas head mc=2 vmap MC-{NUM_MC} bs{BATCH}", lambda: forward(
+        mc2, ref["pallas vmap"], emission="vmap"))
+    part(f"pallas head data=2 vmap MC-{NUM_MC} bs{BATCH}", lambda: forward(
+        data2, ref["pallas vmap"], emission="vmap"))
+    part(PALLAS_STEP, lambda: vmap_step("f32 pallas"))
     del model
     torch.cuda.empty_cache()
 
@@ -5391,6 +5512,12 @@ def phase_multirank():
             set_gens(model, gens0)
             refs["tp"] = mc_forward(model, x[:TP_BATCH], TP_MC,
                                     return_kl=False, emission="vmap")
+            model.fc.impl = "pallas"
+            set_gens(model, gens0)
+            refs["pallas vmap"] = mc_forward(model, x, NUM_MC,
+                                             return_kl=False,
+                                             emission="vmap")
+            model.fc.impl = "xla"
 
     timed("one-process references", one_process)
     res["(a) one-rank NCCL world"] = timed(
@@ -5403,10 +5530,11 @@ def phase_multirank():
              for k, v in model.state_dict().items()}
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
-    def step(dtype, grouped=False):
+    def step(dtype, grouped=False, impl="xla"):
         model.load_state_dict(state)
         model.train()
         set_gens(model, gens0)
+        model.fc.impl = impl
         opt = torch.optim.SGD(model.parameters(), lr=MULTIRANK_LR)
         with (f32_compute(model) if dtype == "f32"
               else contextlib.nullcontext()), \
@@ -5414,6 +5542,7 @@ def phase_multirank():
                  else contextlib.nullcontext()):
             loss, _, _ = make_train_step(TRAIN_MC, BATCH, emission="vmap")(
                 model, opt, x, y)
+        model.fc.impl = "xla"
         return {"loss": float(loss),
                 "after": {n: p.detach().cpu().clone()
                           for n, p in model.named_parameters()},
@@ -5422,6 +5551,8 @@ def phase_multirank():
 
     steps = {dtype: timed(f"one-process {dtype} step", step, dtype)
              for dtype in ("bf16", "f32")}
+    steps["f32 pallas"] = timed("one-process f32 step, fused-GEMM head",
+                                lambda: step("f32", impl="pallas"))
     again = timed("one-process bf16 step again", step, "bf16")
     spread = max(max_err(again["after"][n], p)
                  for n, p in steps["bf16"]["after"].items())
@@ -5446,6 +5577,7 @@ def phase_multirank():
     del model, before, again
     torch.cuda.empty_cache()
     res["(f) LSTM windows"] = timed("(f) LSTM windows", lstm_window_checks)
+    res["(g) head windows"] = timed("(g) head windows", head_window_checks)
     lstm_refs = timed("(f) LSTM one-process references",
                       lstm_mesh_references)
     torch.cuda.empty_cache()
@@ -5461,7 +5593,8 @@ def phase_multirank():
             if isinstance(got, dict):
                 log(f"[multirank] rank {rank} {name}: " + json.dumps(
                     got, default=str))
-    paths = {k: {} for k in ("K-A", "K-C dsigma", "K-C drho", "K-F", "K-G")}
+    paths = {k: {} for k in ("K-A", "K-C dsigma", "K-C drho", "K-F", "K-G",
+                             "K-B lanes", "K-D lanes", "K-E lanes")}
     # gloo for two ranks sharing the one card; NCCL, one card a rank, on
     # a machine with more cards
     backend = "nccl" if torch.cuda.device_count() >= MULTIRANK_WORLD \
@@ -5536,6 +5669,24 @@ def phase_multirank():
               f" from the grouped-conv twin and {bstep['param_err']:.3e} "
               f"from the S = {TRAIN_MC} step, whose distance from the twin "
               f"is {res['F10 grouped distance']:.3e} (margin {margin:.3e})")
+        for name, want in PALLAS_MESH_LAUNCHES.items():
+            got = r[name]["launches"]
+            check(all(got.get(k, 0) == v for k, v in want.items())
+                  and not any(got.get(k) for k in ("K-B", "K-D", "K-E")),
+                  f"rank {rank}: {name} launches {got}, want {want}")
+        pstep = r[PALLAS_STEP]
+        check(pstep["param_err"] <= pstep["limit"],
+              f"rank {rank}: {PALLAS_STEP} parameters "
+              f"{pstep['param_err']:.3e} from the one-process step, limit "
+              f"{pstep['limit']:.3e}; {pstep}")
+        log(f"[multirank] rank {rank}, the fused-GEMM head: " + "; ".join(
+            f"{name} {r[name]['err']:.3e} from one process (limit "
+            f"{r[name]['bound']:.3e})" for name in PALLAS_MESH_LAUNCHES
+            if name != PALLAS_STEP)
+            + f"; {PALLAS_STEP} parameters {pstep['param_err']:.3e} (limit "
+            f"{pstep['limit']:.3e}); launches "
+            + json.dumps({name: r[name]["launches"]
+                          for name in PALLAS_MESH_LAUNCHES}))
         loop = r[f"mc=2 scan MC-{LOOP_MC} bs{LOOP_BATCH} SGD step"]
         check(loop["finite"] and loop["launches"].get("K-C drho", 0) > 0,
               f"rank {rank}: loop step {loop}")
@@ -5556,6 +5707,8 @@ def phase_multirank():
         f"{res['(e) loader batches/s']}; {card()}")
     log(f"[multirank] (f) the LSTM's windowed K-A and K-C at its buffers: "
         f"{res['(f) LSTM windows']}")
+    log(f"[multirank] (g) the head's windowed K-B, K-D and K-E, x max(1, "
+        f"max|plain|) from plain (limit 1e-4): {res['(g) head windows']}")
     log(f"[multirank] seconds per part: {seconds}")
     for k, v in paths.items():
         check(v, f"{k} never ran on phase 43's paths")
@@ -6065,6 +6218,10 @@ def phase_nhwc():
 # --- phase 45: channels-last on the mesh paths ------------------------------
 
 NHWC_MESH_SEED = SEED + 1000
+# (emission, presample) of the fused-GEMM head's TP parts, and their
+# launches a rank: one K-B with lanes; a K-B a draw
+TP_PALLAS = (("vmap", "auto"), ("scan", "off"))
+TP_PALLAS_LAUNCHES = {"vmap": {"K-B lanes": 1}, "scan": {"K-B": TP_MC}}
 
 
 def nhwc_mesh_model():
@@ -6156,22 +6313,32 @@ def nhwc_mesh_parts(tmp, rank):
     del model
     torch.cuda.empty_cache()
 
-    def tensor_parallel():
+    def tensor_parallel(want, impl="xla", **kw):
         tp_model = nhwc_mesh_model()
         tp_model.load_state_dict(ref["state"])
+        tp_model.fc.impl = impl
         replicate(tp_model, tp2)
         count = shard_params_tp(tp_model, tp2)
         tp_model.eval()
         set_gens(tp_model, gens0)
         with torch.no_grad():
             got = mc_forward(tp_model, x[:TP_BATCH], TP_MC, return_kl=False,
-                             emission="vmap")
-        return {"sharded": count, "err": max_err(got, ref["tp"].cuda()),
-                "bound": bf16_bound(ref["tp"]),
+                             **kw)
+        return {"sharded": count, "err": max_err(got, want.cuda()),
+                "bound": bf16_bound(want),
                 "finite": bool(torch.isfinite(got).all())}
 
-    part(f"model=2 TP MC-{TP_MC} bs{TP_BATCH}", tensor_parallel)
+    part(f"model=2 TP MC-{TP_MC} bs{TP_BATCH}", lambda: tensor_parallel(
+        ref["tp"], emission="vmap"))
     torch.cuda.empty_cache()
+    # the head on the fused sampled GEMM: the shard's rows of the whole
+    # weight's counters, under the vmap emission (K-B with lanes) and
+    # through the loop with presample="off" (the single draw, ROADMAP F13)
+    for emission, presample in TP_PALLAS:
+        part(f"pallas head model=2 TP {emission} MC-{TP_MC} bs{TP_BATCH}",
+             lambda: tensor_parallel(ref[f"tp pallas {emission}"], "pallas",
+                                     emission=emission, presample=presample))
+        torch.cuda.empty_cache()
 
     def structured_flipout():
         # the NHWC Net of the JAX dryrun under mc=2, f32 without TF32
@@ -6212,6 +6379,13 @@ def phase_nhwc_mesh():
         set_gens(model, gens0)
         refs["tp"] = mc_forward(model, x[:TP_BATCH], TP_MC, return_kl=False,
                                 emission="vmap")
+        model.fc.impl = "pallas"
+        for emission, presample in TP_PALLAS:
+            set_gens(model, gens0)
+            refs[f"tp pallas {emission}"] = mc_forward(
+                model, x[:TP_BATCH], TP_MC, return_kl=False,
+                emission=emission, presample=presample)
+        model.fc.impl = "xla"
     state = {k: v.detach().cpu().clone()
              for k, v in model.state_dict().items()}
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -6235,7 +6409,7 @@ def phase_nhwc_mesh():
                     **{k: v.cpu() for k, v in refs.items()}},
                    os.path.join(tmp, "ref.pt"))
         ranks = spawn_multirank(tmp, "nhwc_mesh_parts")
-    paths = {"K-A": {}, "K-G cl": {}}
+    paths = {"K-A": {}, "K-G cl": {}, "K-B": {}, "K-B lanes": {}}
     for rank, r in enumerate(ranks):
         for name, got in r.items():
             if not isinstance(got, dict):
@@ -6266,6 +6440,20 @@ def phase_nhwc_mesh():
         tp = r[f"model=2 TP MC-{TP_MC} bs{TP_BATCH}"]
         check(tp["sharded"] > 0, f"[nhwc mesh] rank {rank}: TP sharded "
               f"{tp['sharded']}")
+        for emission, want in TP_PALLAS_LAUNCHES.items():
+            name = f"pallas head model=2 TP {emission} MC-{TP_MC} bs{TP_BATCH}"
+            got = r[name]
+            check(got["sharded"] == tp["sharded"]
+                  and all(got["launches"].get(k, 0) == v
+                          for k, v in want.items())
+                  and not any(got["launches"].get(k) for k in (
+                      "K-B", "K-B lanes") if k not in want),
+                  f"[nhwc mesh] rank {rank}: {name} sharded "
+                  f"{got['sharded']}, launches {got['launches']}, want "
+                  f"{want}")
+            log(f"[nhwc mesh] rank {rank}, {name}: {got['err']:.3e} from one "
+                f"process (limit {got['bound']:.3e}), launches "
+                f"{got['launches']}")
     summary = {name: {k: v for k, v in got.items() if k != "launches"}
                for name, got in ranks[0].items() if isinstance(got, dict)}
     summary["one-process references s"] = one_process_s
@@ -6421,7 +6609,8 @@ def main(argv=None):
              replaces=pallas + "sampled_matmul.py:62",
              run="head: fc.impl='pallas', mc_forward(num_mc=10, "
                  "presample='off'), 1 batch",
-             launches=kb_launches, **kb_res),
+             launches=kb_launches, paths=nhwc_mesh_paths["K-B"],
+             window_err=mesh_res["(g) head windows"]["K-B"], **kb_res),
         dict(name="sampled_weights_bwd (dsigma)", route="cuda",
              source=csrc + "sampled_weights_bwd.cu",
              replaces=pallas + "sampled_weights.py:138",
@@ -6442,11 +6631,13 @@ def main(argv=None):
         dict(name="sampled_matmul_dx", route="cuda",
              source=csrc + "sampled_matmul_bwd.cu",
              replaces=pallas + "sampled_matmul.py:84",
-             run=train_run, launches=train["K-D"], **kde_res["dx"]),
+             run=train_run, launches=train["K-D"],
+             window_err=mesh_res["(g) head windows"]["K-D"], **kde_res["dx"]),
         dict(name="sampled_matmul_dw", route="cuda",
              source=csrc + "sampled_matmul_bwd.cu",
              replaces=pallas + "sampled_matmul.py:110",
-             run=train_run, launches=train["K-E"], **kde_res["dw"]),
+             run=train_run, launches=train["K-E"],
+             window_err=mesh_res["(g) head windows"]["K-E"], **kde_res["dw"]),
         dict(name="qmatmul_requant", route="cuda",
              source=csrc + "qmatmul.cu",
              replaces=pallas + "qmatmul.py:61",
@@ -6477,17 +6668,20 @@ def main(argv=None):
              replaces=pallas + "sampled_matmul.py:383",
              run=f"vmap inference: mc_forward(num_mc={NUM_MC}, reduce='mean',"
                  f" emission='vmap'), fc.impl='pallas', 3 batches",
-             launches=vmap_main["K-B lanes"], **lane_res["fwd"]),
+             launches=vmap_main["K-B lanes"],
+             paths=dict(mesh_paths["K-B lanes"],
+                        **nhwc_mesh_paths["K-B lanes"]),
+             **lane_res["fwd"]),
         dict(name="sampled_matmul_dx_batched", route="cuda",
              source=csrc + "sampled_matmul_bwd.cu",
              replaces=pallas + "sampled_matmul.py:405",
              run=vmap_train_run, launches=vmap_train["K-D lanes"],
-             **lane_res["dx"]),
+             paths=mesh_paths["K-D lanes"], **lane_res["dx"]),
         dict(name="sampled_matmul_dw_batched", route="cuda",
              source=csrc + "sampled_matmul_bwd.cu",
              replaces=pallas + "sampled_matmul.py:428",
              run=vmap_train_run, launches=vmap_train["K-E lanes"],
-             **lane_res["dw"]),
+             paths=mesh_paths["K-E lanes"], **lane_res["dw"]),
         dict(name="mc_gemm", route="cuda", source=csrc + "mc_gemm.cu",
              replaces="benchmarks/bench_1x1_mc.py:52",
              run=f"pointwise vmap inference: ops.conv.CONV_1X1_DOT=True, "

@@ -40,6 +40,13 @@ prints one line per shape and a JSON summary last.
   the weight inside a GEMM. Each row's bound is the largest of bytes,
   operations (three TF32 products on the tensor cores) and the generation
   of its normals (``generation_ms``).
+- ``windowed``: K-B, K-D and K-E at the head under the counter windows
+  of the mesh paths, each beside the whole launch of the same size (the
+  same lanes, rows and operands, no window), in turns in one profiler
+  session: a rank's lanes (K-B lanes 5-9 of an MC-10 launch, K-D and K-E
+  lanes 2-3 of an MC-4 launch) and a 'model' shard's rows 500-999 (K-B at
+  S = 1 and 2, K-D and K-E at S = 1). The window changes the salt and the
+  counter base alone, so the two should take the same time.
 - ``paths``: ResNet-50 (bf16) with the head on K-B and K-D
   (``fc.impl = "pallas"``): through the draw loop, MC-10 bs128 inference
   with ``presample="off"`` (``chip_smoke.py``'s phase 6) and the MC-4
@@ -489,6 +496,71 @@ def sampled(out):
         lambda: unfused_dw(seed, g, x[:4], zeros, ones))
 
 
+def windowed(out):
+    """K-B, K-D and K-E under a counter window beside the whole launch of
+    the same size at the head (see the docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    from bayesian_torch_tpu_torch.ops.cuda import sampled_matmul as kb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    M, K, N = HEAD_M, HEAD_K, HEAD_N
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    mu = 0.1 * torch.randn(N, K, generator=gen, device="cuda")
+    rho = torch.randn(N, K, generator=gen, device="cuda") * 0.1 - 3.0
+    sigma = F.softplus(rho)
+    x = torch.randn(S, M, K, generator=gen, device="cuda")
+    g = torch.randn(S, M, N, generator=gen, device="cuda")
+    seed, half = 4343, N // 2
+    # a shard's rows: its own tensors, as shard_params_tp keeps them
+    mu_r, rho_r = mu[half:].clone(), rho[half:].clone()
+    sigma_r, g_r = sigma[half:].clone(), g[:, :, half:].contiguous()
+    rows = (0, N * K, half * K)
+
+    def lanes(s):
+        # a rank's lanes [s, 2 s) of a 2 s-lane launch
+        return (s, N * K, 0)
+
+    cases = [
+        ("K-B lanes, lanes 5-9 of 10", KB_TAG,
+         lambda: kb.sampled_matmul_batched(seed, x[5:], mu, rho, 5),
+         lambda: kb.sampled_matmul_batched(seed, x[5:], mu, rho, 5,
+                                           window=lanes(5))),
+        ("K-B lanes, rows 500-999, S = 2", KB_TAG,
+         lambda: kb.sampled_matmul_batched(seed, x[:2], mu_r, rho_r, 2),
+         lambda: kb.sampled_matmul_batched(seed, x[:2], mu_r, rho_r, 2,
+                                           window=rows)),
+        ("K-B, rows 500-999", KB_TAG,
+         lambda: kb.sampled_matmul(seed, x[0], mu_r, rho_r),
+         lambda: kb.sampled_matmul(seed, x[0], mu_r, rho_r, window=rows)),
+        ("K-D lanes, lanes 2-3 of 4", KD_TAG,
+         lambda: kb.sampled_matmul_dx_batched(seed, g[:2], mu, sigma),
+         lambda: kb.sampled_matmul_dx_batched(seed, g[:2], mu, sigma,
+                                              window=lanes(2))),
+        ("K-D, rows 500-999", KD_TAG,
+         lambda: kb.sampled_matmul_dx(seed, g_r[0], mu_r, sigma_r),
+         lambda: kb.sampled_matmul_dx(seed, g_r[0], mu_r, sigma_r,
+                                      window=rows)),
+        ("K-E lanes, lanes 2-3 of 4", KE_TAG,
+         lambda: kb.sampled_matmul_dw_batched(seed, g[:2], x[:2]),
+         lambda: kb.sampled_matmul_dw_batched(seed, g[:2], x[:2],
+                                              window=lanes(2))),
+        ("K-E, rows 500-999", KE_TAG,
+         lambda: kb.sampled_matmul_dw(seed, g_r[0], x[0]),
+         lambda: kb.sampled_matmul_dw(seed, g_r[0], x[0], window=rows)),
+    ]
+    for what, tag, whole, window in cases:
+        # in turns, whole and windowed twice, in one session
+        t = device_times((whole, tag), (window, tag), (whole, tag),
+                         (window, tag))
+        r = dict(kernel=what, whole_ms=(t[0] + t[2]) / 2,
+                 window_ms=(t[1] + t[3]) / 2, times=t)
+        r["ratio"] = r["window_ms"] / r["whole_ms"]
+        print(f"[windowed] {r}", flush=True)
+        out.append(r)
+
+
 def sampler(out):
     """K-A and K-C, flat and per layer, with bounds (see the docstring)."""
     import torch
@@ -741,8 +813,9 @@ def nhwc_dot(out):
         conv_ops.CONV_1X1_DOT = False
 
 
-SECTIONS = dict(sampler=sampler, sampled=sampled, paths=paths, kg=kg_sites,
-                kg_cl=kg_cl_sites, probe=probe, kf=kf, nhwc=nhwc_dot)
+SECTIONS = dict(sampler=sampler, sampled=sampled, windowed=windowed,
+                paths=paths, kg=kg_sites, kg_cl=kg_cl_sites, probe=probe,
+                kf=kf, nhwc=nhwc_dot)
 
 
 def main(argv=None):

@@ -126,11 +126,15 @@ def psum(rank, world):
 
 
 def small_net(estimator="reparameterization", seed=0, dropout=0.0,
-              data_format="NCHW", pointwise=False):
+              data_format="NCHW", pointwise=False, impl="xla"):
     """Conv -> BatchNorm -> ReLU [-> 1x1 Conv -> ReLU] [-> Dropout] ->
     flatten -> Linear on (B, 3, 6, 6), all layers on one generator seeded
     ``seed``; the convs and BatchNorm in ``data_format`` ((B, 6, 6, 3)
-    under "NHWC", flattened per draw under the vmap emission: F12)."""
+    under "NHWC", flattened per draw under the vmap emission: F12); the
+    reparameterization head at ``impl`` ("pallas": the fused sampled
+    GEMM)."""
+    import functools
+
     import torch
     from torch import nn
 
@@ -143,7 +147,8 @@ def small_net(estimator="reparameterization", seed=0, dropout=0.0,
         def __init__(self):
             super().__init__()
             conv = L.Conv2dFlipout if flip else L.Conv2dReparameterization
-            lin = L.LinearFlipout if flip else L.LinearReparameterization
+            lin = L.LinearFlipout if flip else functools.partial(
+                L.LinearReparameterization, impl=impl)
             self.conv = conv(3, 4, 3, padding=1, posterior_rho_init=-2.0,
                              generator=gen, data_format=data_format)
             self.bn = L.BatchNorm2dLayer(4, generator=gen,
@@ -188,7 +193,7 @@ def _loss(outs, kl, y):
 
 def mc_parity(rank, world, mc, data, num_mc, kw, training, estimator,
               dropout=0.0, steps=1, bf16=False, data_format="NCHW",
-              dot=False, model=1):
+              dot=False, model=1, impl="xla"):
     """``mc_forward(mesh=make_mesh(mc, data))`` on this rank's rows
     against ``mc_forward`` of the whole batch in this process, ``steps``
     times: max |difference| of the outputs and the KL, and in training of
@@ -199,7 +204,8 @@ def mc_parity(rank, world, mc, data, num_mc, kw, training, estimator,
     ``CONV_1X1_DOT`` (the pointwise emission). ``model`` > 1: the net
     sharded by ``shard_params_tp`` over a 'model' axis (with ``mc`` and
     ``data`` 1) against the replicated net on the whole batch, the
-    shards' gradients against their blocks of the replicated ones."""
+    shards' gradients against their blocks of the replicated ones.
+    ``impl``: the head's (``small_net``)."""
     import torch
 
     from bayesian_torch_tpu_torch.ops import conv as conv_ops
@@ -211,7 +217,7 @@ def mc_parity(rank, world, mc, data, num_mc, kw, training, estimator,
     conv_ops.CONV_1X1_DOT = dot
     mesh = make_mesh(mc=mc, data=data, model=model)
     ref, net = (small_net(estimator, dropout=dropout,
-                          data_format=data_format, pointwise=dot)
+                          data_format=data_format, pointwise=dot, impl=impl)
                 for _ in range(2))
     if model > 1:
         diffs_count = shard_params_tp(net, mesh)
@@ -431,6 +437,8 @@ def tp_layer(kind, seed=0):
     gen = torch.Generator().manual_seed(seed)
     return {
         "linear": lambda: L.LinearReparameterization(16, 8, generator=gen),
+        "linear_pallas": lambda: L.LinearReparameterization(
+            16, 8, generator=gen, impl="pallas"),
         "conv": lambda: L.Conv2dReparameterization(8, 16, 3, padding=1,
                                                    generator=gen),
         "convT": lambda: L.ConvTranspose2dReparameterization(4, 8, 3,

@@ -289,3 +289,82 @@ def test_sampled_matmul_function_backward_matches_plain_autograd():
                                  g.bfloat16())
     assert dxb.dtype == torch.bfloat16
     assert _launch_counts() == before
+
+
+# --------------------------------------- K-B, K-D and K-E under a window
+
+# (lane0, lanes of the window, first row, rows of the window) of a launch
+# of 5 lanes over a (12, 7) weight: a rank's lanes of the draws, a
+# tensor-parallel shard's rows, and both
+_WINDOWS = {"lanes": (2, 3, 0, 12), "rows": (0, 5, 4, 4),
+            "both": (2, 3, 4, 4)}
+
+
+@pytest.mark.parametrize("part", sorted(_WINDOWS))
+def test_windowed_sampled_matmul_is_the_block_of_the_whole_launch(part):
+    """The counter window (lane0, N*K, n0*K) of K-B, K-D and K-E: the
+    plain eps is the whole launch's block bit for bit; the forward, dx and
+    dw through the public op's autograd are the whole launch's block (1e-6
+    relative: a block's product may sum in another order); the whole
+    window is the call without one, bit for bit."""
+    lane0, S, n0, Nr = _WINDOWS[part]
+    rs = np.random.RandomState(9)
+    S_all, M, N, K, seed = 5, 3, 12, 7, 0xFEED_0000_0000_0019
+    window = (lane0, N * K, n0 * K)
+    lanes, rows = slice(lane0, lane0 + S), slice(n0, n0 + Nr)
+    whole_eps = kb._eps(seed, (N, K), None, S_all)
+    assert torch.equal(kb._eps(seed, (Nr, K), None, S, window),
+                       whole_eps[lanes, rows])
+    assert torch.equal(kb._eps(seed, (N, K), None, S_all, (0, N * K, 0)),
+                       whole_eps)
+
+    x_all = _t(rs.randn(S_all, M, K))
+    mu_all = _t(0.3 * rs.randn(N, K))
+    rho_all = _t(rs.uniform(-4.0, -1.0, (N, K)))
+    g_all = _t(rs.randn(S_all, M, N))
+    g_all[:, :, :n0] = 0.0  # the cotangent of the window alone
+    g_all[:, :, n0 + Nr:] = 0.0
+    g_all[:lane0] = 0.0
+    g_all[lane0 + S:] = 0.0
+
+    def run(x, mu, rho, g, S, **kw):
+        x, mu, rho = (t.clone().requires_grad_(True) for t in (x, mu, rho))
+        out = kb.sampled_matmul_batched(seed, x, mu, rho, S,
+                                        out_dtype=torch.float32, **kw)
+        return (out.detach(),) + torch.autograd.grad(out, (x, mu, rho), g)
+
+    before = _launch_counts()
+    want = run(x_all, mu_all, rho_all, g_all, S_all)
+    got = run(x_all[lanes], mu_all[rows], rho_all[rows],
+              g_all[lanes][:, :, rows], S, window=window)
+    assert _launch_counts() == before  # CPU tensors: plain versions
+    out_w, dx_w, dmu_w, drho_w = want
+    for a, b in zip(got, (out_w[lanes][:, :, rows], dx_w[lanes],
+                          dmu_w[rows], drho_w[rows])):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    for a, b in zip(run(x_all, mu_all, rho_all, g_all, S_all,
+                        window=(0, N * K, 0)), want):
+        assert torch.equal(a, b)
+
+    # the single draw (a shard's rows at lane 0) and the kernels' plain
+    # versions with the window
+    one = kb.sampled_matmul(seed, x_all[0], mu_all[rows], rho_all[rows],
+                            window=(0, N * K, n0 * K))
+    torch.testing.assert_close(
+        one, kb.sampled_matmul(seed, x_all[0], mu_all, rho_all)[:, rows],
+        rtol=1e-6, atol=1e-6)
+    sigma = ts.sigma_from_rho(rho_all[rows])
+    eps = whole_eps[lanes, rows]
+    torch.testing.assert_close(
+        kb.sampled_matmul_dx_batched_plain(seed, g_all[lanes][:, :, rows],
+                                           mu_all[rows], sigma, window),
+        kb.matmul_dx(g_all[lanes][:, :, rows], mu_all[rows], sigma, eps),
+        rtol=0, atol=0)
+    for a, b in zip(kb.sampled_matmul_dw_batched_plain(
+            seed, g_all[lanes][:, :, rows], x_all[lanes], window),
+            kb.matmul_dw(g_all[lanes][:, :, rows], x_all[lanes], eps)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="does not hold"):
+        kb.sampled_matmul_batched(seed, x_all[lanes], mu_all[rows],
+                                  rho_all[rows], S,
+                                  window=(lane0, N * K, N * K))

@@ -11,9 +11,10 @@ with the quantized convs built on it (and at the CIFAR ResNet's and the
 SCNN's GEMM shapes), K-A and K-C at the CIFAR ResNet's layer sizes, K-G
 (the per-draw GEMM behind the pointwise emission) in bf16, f32 and int8,
 K-G channels-last (the NHWC pointwise emission) in bf16 and f32,
-and K-A and K-C under a counter window (a rank's lanes, a tensor-parallel
+K-A and K-C under a counter window (a rank's lanes, a tensor-parallel
 shard's rows; the LSTM's draws and signs under a mesh's window) against
-the whole launch. They skip without a
+the whole launch, and K-B, K-D and K-E under a window against their
+windowed plain versions. They skip without a
 CUDA device. On a machine with one, and without JAX, run them with
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
@@ -516,6 +517,59 @@ def test_split_tf32_kernels_match_plain(cuda, s, m, n, k):
     for a, b in zip(kb.sampled_matmul_dw_batched(seed, g[:1], x[0]),
                     kb.sampled_matmul_dw(seed, g[0], x[0])):
         assert torch.equal(a, b)
+
+
+# K-B, K-D and K-E under a counter window: lanes 5-9 of a 10-lane launch (a
+# rank's draws under mc_forward(mesh=)), the second half of the rows (a
+# tensor-parallel shard, at one lane: the single-draw kernels), and both;
+# at the head and at one ragged shape
+@pytest.mark.parametrize("m,n,k", [(128, 1000, 2048), (17, 65, 129)])
+@pytest.mark.parametrize("part", ["lanes", "rows", "both"])
+def test_windowed_sampled_matmul_kernels_match_plain(cuda, m, n, k, part):
+    """The windowed kernels against their windowed plain versions (whose
+    eps is the whole launch's block, tests/test_torch_port_backward.py)
+    within 1e-4 x max|plain|, one launch each; a rank's lanes of K-B and
+    K-D are those lanes of the whole launch bit for bit."""
+    lane0, s = (0, 1) if part == "rows" else (5, 5)
+    n0 = 0 if part == "lanes" else n // 2
+    window = (lane0, n * k, n0 * k)
+    mu, sigma, rho = (t[n0:] for t in _posterior((n, k), cuda, seed=23))
+    gen = torch.Generator().manual_seed(24)
+    x_all = torch.randn((lane0 + s, m, k), generator=gen).to(cuda)
+    x = x_all[lane0:]
+    g = torch.randn((s, m, n - n0), generator=gen).to(cuda)
+    seed = 0x5EED_0000_0000_0013
+    counters = (kb.sampled_matmul_batched, kb.sampled_matmul_dx_batched,
+                kb.sampled_matmul_dw_batched)
+    before = [c.launches for c in counters]
+    out = kb.sampled_matmul_batched(seed, x, mu, rho, s,
+                                    out_dtype=torch.float32, window=window)
+    dx = kb.sampled_matmul_dx_batched(seed, g, mu, sigma, window=window)
+    dw = kb.sampled_matmul_dw_batched(seed, g, x, window=window)
+    assert [c.launches for c in counters] == [b + 1 for b in before]
+    wants = (kb.sampled_matmul_batched_plain(seed, x, mu, sigma, s,
+                                             window=window),
+             kb.sampled_matmul_dx_batched_plain(seed, g, mu, sigma, window),
+             *kb.sampled_matmul_dw_batched_plain(seed, g, x, window))
+    for got, want in zip((out, dx, *dw), wants):
+        torch.cuda.synchronize()
+        assert got.shape == want.shape
+        assert _max_err(got, want) <= 1e-4 * _scale(want)
+    if part == "rows":  # the single-draw entry points take the window too
+        assert torch.equal(out[0], sampled_matmul(
+            seed, x[0], mu, rho, out_dtype=torch.float32, window=window))
+        assert torch.equal(dx[0], kb.sampled_matmul_dx(seed, g[0], mu, sigma,
+                                                       window=window))
+        for a, b in zip(dw, kb.sampled_matmul_dw(seed, g[0], x[0],
+                                                 window=window)):
+            assert torch.equal(a, b)
+    if part == "lanes":
+        whole = kb.sampled_matmul_batched(seed, x_all, mu, rho, lane0 + s,
+                                          out_dtype=torch.float32)
+        assert torch.equal(out, whole[lane0:])
+        g_all = torch.cat([g.new_zeros((lane0,) + g.shape[1:]), g])
+        assert torch.equal(dx, kb.sampled_matmul_dx_batched(
+            seed, g_all, mu, sigma)[lane0:])
 
 
 # the draw loop's head input is bf16: K-E reads it as it is

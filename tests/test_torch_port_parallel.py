@@ -19,7 +19,11 @@ rank holds its result against the same work in one process.
   running statistics within 1e-5.
 - Tensor parallelism against the JAX package's, on its 8-device virtual
   mesh, with the same seeded non-zero noise injected (1e-5), and the
-  count ``shard_params_tp`` returns on the same models, resnet20 included.
+  count ``shard_params_tp`` returns on the same models, resnet20 included;
+  ``LinearReparameterization(impl="pallas")`` among them (ROADMAP F13).
+- The head on the fused sampled GEMM (``impl="pallas"``) under ``mc=2``,
+  ``data=2`` and both, through the loop and the vmap emission, eval and
+  training: a rank's lanes of K-B, K-D and K-E are those of one process.
 - The counter window of the samplers' plain versions (K-A, K-C): a
   window's lanes are those lanes of the whole launch, element for element.
 - The Bayesian LSTM (the time-series trainer's regressor, both estimators
@@ -206,6 +210,33 @@ def test_mc_forward_mesh_equals_one_process(mc, data, kw, training,
         assert r["grad"] <= 1e-5 and r["stats"] <= 1e-5, r
 
 
+# (mc, data, emission): the small net's head at impl="pallas" (the fused
+# sampled GEMM), eval and the f32 training step, each over its world
+PALLAS_PARITY = [(mc, data, emission) for mc, data in ((2, 1), (1, 2), (2, 2))
+                 for emission in ("scan", "vmap")]
+
+
+@pytest.mark.parametrize("mc,data,emission", PALLAS_PARITY)
+def test_mc_forward_mesh_pallas_head_equals_one_process(mc, data, emission):
+    """``test_mc_forward_mesh_equals_one_process`` with the head on the
+    fused sampled GEMM, MC-4, two steps, in eval and in training: a rank
+    that computes draws [s0, s1) of the vmap emission runs K-B (and K-D,
+    K-E in the backward) on lanes [s0, s1) of the one-process launch and
+    the bias sampler on the same lanes, so outputs and KL equal one
+    process bit for bit with only 'mc' sharded, else within 1e-6; the
+    gradients within 1e-5 of the largest after ``reduce_gradients``."""
+    cases = [(mc, data, 4, {"emission": emission}, training, REP, 0.0, 2,
+              False, "NCHW", False, 1, "pallas")
+             for training in (False, True)]
+    for rank in spawn("in_turn", mc * data, "mc_parity", cases):
+        for case, r in zip(cases, rank):
+            assert r["shape"] == (4, 8, 5) and r["generators"], (case, r)
+            if data == 1:
+                assert r["outs"] == 0.0 and r["kl"] == 0.0, (case, r)
+            assert r["outs"] <= 1e-6 and r["kl"] <= 1e-6, (case, r)
+            assert r["grad"] <= 1e-5 and r["stats"] <= 1e-5, (case, r)
+
+
 def test_sharded_mc_forward_runs():
     """tests/test_parallel.py::test_sharded_mc_forward_runs: an
     (mc=4, data=2) mesh over 8 ranks, MC-4; each rank returns the whole
@@ -351,6 +382,9 @@ def test_tp_lstm_equals_replicated_with_jax_count():
 
 TP_KINDS = {
     "linear": ((16, 8), "eps_w", (2, 16)),
+    # the fused sampled GEMM: the JAX layer takes its XLA path on injected
+    # noise; the port's shard draws its rows' window (ROADMAP F13)
+    "linear_pallas": ((16, 8), "eps_w", (2, 16)),
     "conv": ((8, 16, 3), "eps_k", (2, 8, 5, 5)),
     "convT": ((4, 8, 3), "eps_k", (2, 4, 5, 5)),
 }
@@ -363,9 +397,12 @@ def _jax_layer(kind):
 
     args, _, _ = TP_KINDS[kind]
     cls = {"linear": LinearReparameterization,
+           "linear_pallas": LinearReparameterization,
            "conv": Conv2dReparameterization,
            "convT": ConvTranspose2dReparameterization}[kind]
     kw = {"padding": 1} if kind == "conv" else {}
+    if kind == "linear_pallas":
+        kw = {"impl": "pallas"}
     return cls(*args, **kw, rngs=nnx.Rngs(params=0, noise=1))
 
 
@@ -393,7 +430,7 @@ def test_tp_layer_equals_jax_tp(kind):
                  else rs.normal(0.0, 0.3, shape)).astype(np.float32)
             getattr(jm, name)[...] = jnp.asarray(v)
             arrays[name] = v
-    weight = "mu_weight" if kind == "linear" else "mu_kernel"
+    weight = "mu_weight" if kind.startswith("linear") else "mu_kernel"
     eps = {eps_name: rs.randn(*arrays[weight].shape).astype(np.float32),
            "eps_b": rs.randn(*arrays["mu_bias"].shape).astype(np.float32)}
     x = rs.randn(*x_shape).astype(np.float32)
