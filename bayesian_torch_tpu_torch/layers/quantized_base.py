@@ -26,7 +26,9 @@ estimators (counterpart of ``bayesian_torch_tpu/layers/quantized_base.py``).
   input times its Rademacher signs, whose output is multiplied by the
   output signs and added to the mean in uint8. The signs come from the
   counter hash (``ops.sampling.rademacher_fused``) under salts from the
-  layer's generator, as the float Flipout layers draw theirs; the
+  layer's generator, as the float Flipout layers draw theirs, hashed
+  inside the two sign products (K-H3, ``ops/cuda/flipout_signs.py``;
+  its plain version on the CPU) and never stored; the
   calibrated path reads the 10-slot ``quant_dict`` (eps, delta, x,
   outputs, sign_in, sign_out, x_tmp, pert_tmp, perturbed, out).
   ``sign_in`` / ``sign_out`` may be injected.
@@ -56,8 +58,9 @@ block; each draw has its own bias and the scales stay per layer. A conv
 runs as ``ops.int8.qconv`` grouped S*groups ways (one K-F GEMM a group,
 the loop's GEMMs), a linear layer as one K-F GEMM a block; Flipout's mean
 product takes ``mu`` in every block and its signs come per block from
-``rademacher_lanes``. So each block equals the loop's draw bit for bit on
-the same record and signs.
+K-H3 with the lanes on that axis (``rademacher_lanes``' signs).
+So each block equals the loop's draw bit for bit on the same record and
+signs.
 
 A quantized conv stores ``data_format`` (JAX ``_QuantizedConvBase``) and
 hands it to ``ops.int8.qconv``: under "NHWC" it takes and gives (B, *sp,
@@ -79,13 +82,13 @@ from bayesian_torch_tpu_torch.layers.base_variational_layer import (
 )
 from bayesian_torch_tpu_torch.ops import int8 as q
 from bayesian_torch_tpu_torch.ops.conv import channels_last
+from bayesian_torch_tpu_torch.ops.cuda.flipout_signs import qsign_mul
 from bayesian_torch_tpu_torch.ops.qtensor import QTensor
 from bayesian_torch_tpu_torch.ops.sampling import (device_generator,
                                                    draw_seed,
-                                                   rademacher_fused,
-                                                   rademacher_lanes,
+                                                   SignBlock,
                                                    sigma_from_rho,
-                                                   sign_salts,
+                                                   sign_block, sign_salts,
                                                    window_lanes)
 
 FROZEN = ("_frozen_w", "_frozen_wscale", "_frozen_bias")
@@ -474,31 +477,43 @@ class _QuantizedLayerBase(BaseVariationalLayer):
         return (q.qmul(self.quantized_sigma_weight, s_sigma, eps_q,
                        normal_scale, new_scale, 0), new_scale, pert_bias)
 
-    def _signs(self, x_shape, out_shape, device, sign_in, sign_out,
+    def _signs(self, x_shape, out_shape, sign_in, sign_out,
                num_draws=None):
-        """The f32 Rademacher signs of the input and of the output: the
-        injected ones, else the counter hash under this call's salts; with
-        ``num_draws``, block s under draw s's salts (the signs the loop's
-        draw s takes)."""
+        """The Rademacher signs of the input and of the output: the
+        injected tensors, else the ``SignBlock`` of the counter hash under
+        this call's salts, which K-H3 hashes inside the product
+        (``_sign_mul``; its plain version on the CPU); with ``num_draws``,
+        lane s under draw s's salts (the signs the loop's draw s takes)."""
         if sign_in is None or sign_out is None:
             salts = self._sign_salts(num_draws)
 
         def hashed(side, shape):
             if not num_draws:
-                return rademacher_fused(salts[side], shape, torch.float32,
-                                        device)
+                return sign_block([salts[side]], shape)
             dim = self._draw_dim(len(shape))
             one = list(shape)
             one[dim] //= num_draws
-            return rademacher_lanes([pair[side] for pair in salts], one,
-                                    torch.float32, device,
-                                    axis=dim).reshape(shape)
+            return sign_block([pair[side] for pair in salts], one, axis=dim)
 
         if sign_in is None:
             sign_in = hashed(0, x_shape)
         if sign_out is None:
             sign_out = hashed(1, out_shape)
         return sign_in, sign_out
+
+    @staticmethod
+    def _sign_mul(a_q, a_scale, a_zp, sign, sign_scale, sign_zp, out_scale,
+                  out_zp):
+        """``qmul(a_q, quantize_uint8(sign))`` to uint8: K-H3 on a
+        ``SignBlock`` (a_q viewed with its lane dim), else on the injected
+        sign tensor in torch."""
+        if isinstance(sign, SignBlock):
+            return qsign_mul(a_q.reshape(sign.lanes_shape), a_scale, a_zp,
+                             sign, sign_scale, sign_zp, out_scale,
+                             out_zp).reshape(a_q.shape)
+        sign_q = q.quantize_uint8(sign, sign_scale, sign_zp)
+        return q.qmul(a_q, a_scale, sign_q, sign_scale, out_scale, out_zp,
+                      a_zp=a_zp, b_zp=sign_zp, out_dtype=torch.uint8)
 
     def _forward_flipout(self, x, normal_scale, default_scale,
                          default_zero_point, sign_in, sign_out):
@@ -522,16 +537,11 @@ class _QuantizedLayerBase(BaseVariationalLayer):
         outputs_q = self._apply_int8(x_q, s2, z2, mu_q, s_mu, mu_b, s3, z3,
                                      num_draws)
         sign_in, sign_out = self._signs(x_q.shape, outputs_q.shape,
-                                        x_q.device, sign_in, sign_out,
-                                        num_draws)
-        sign_in_q = q.quantize_uint8(sign_in, s4, z4)
-        sign_out_q = q.quantize_uint8(sign_out, s5, z5)
-        x_tmp_q = q.qmul(x_q, s2, sign_in_q, s4, s6, z6, a_zp=z2, b_zp=z4,
-                         out_dtype=torch.uint8)
+                                        sign_in, sign_out, num_draws)
+        x_tmp_q = self._sign_mul(x_q, s2, z2, sign_in, s4, z4, s6, z6)
         pert_q = self._apply_int8(x_tmp_q, s6, z6, delta_q, s1, pert_bias,
                                   s7, z7, num_draws)
-        pert_q = q.qmul(pert_q, s7, sign_out_q, s5, s8, z8, a_zp=z7,
-                        b_zp=z5, out_dtype=torch.uint8)
+        pert_q = self._sign_mul(pert_q, s7, z7, sign_out, s5, z5, s8, z8)
         out_q = q.qadd(outputs_q, s3, pert_q, s8, s9, z9, a_zp=z3, b_zp=z8,
                        out_dtype=torch.uint8)
         return self._emit(out_q, s9, z9)

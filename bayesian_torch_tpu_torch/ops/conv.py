@@ -48,12 +48,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from bayesian_torch_tpu_torch.ops.cuda.flipout_signs import (sign_combine,
+                                                         sign_flip)
 from bayesian_torch_tpu_torch.ops.sampling import (cast_to, draw_seed,
                                                    flipout_combine,
-                                                   rademacher_lanes,
                                                    sample_gaussian_delta,
                                                    sample_gaussian_weight,
-                                                   sign_salts)
+                                                   sign_block, sign_salts)
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 _CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
@@ -344,8 +345,9 @@ def flipout_conv(x, generator, mu_k, rho_k, mu_b=None, rho_b=None, *,
     carries ``mu_b``; the perturbation conv carries only ``sigma_b *
     eps_b``. Noise that is not injected is seeded from ``generator``: eps
     through the batch sampler's kernel on a zero mean, the signs from the
-    counter hash (``rademacher_fused``), one salt each, hashed over the
-    input's and the output's shapes in ``data_format`` (under NHWC their
+    counter hash (``rademacher_fused``), one salt each, drawn inside the
+    sign flip and the combine (K-H1 and K-H2 on a CUDA device), hashed over
+    the input's and the output's shapes in ``data_format`` (under NHWC their
     (B, H, W, C) flat order, as in JAX, so an NHWC output is not the
     permuted NCHW one).
     """
@@ -429,22 +431,21 @@ def flipout_conv_draws(x, mu_k, mu_b, delta, pert_bias, salts, *, stride=1,
     args = dict(stride=stride, padding=padding,
                 output_padding=output_padding, dilation=dilation,
                 groups=groups, compute_dtype=compute_dtype)
-    sign_in = rademacher_lanes([a for a, _ in salts], (B, cin) + sp,
-                               x.dtype, x.device)
     if _shared_input(x, S, cin):
         mean = _apply_conv(x, mu_k, mu_b, transposed, **args)[:, None]
-        x_pert = x[:, None] * sign_in
+        xs = x[:, None]
     else:
         mean = _apply_conv(x.reshape((B * S, cin) + sp), mu_k, mu_b,
                            transposed, **args)
         mean = mean.reshape((B, S) + tuple(mean.shape[1:]))
-        x_pert = x.reshape(sign_in.shape) * sign_in
+        xs = x.reshape((B, S, cin) + sp)
+    x_pert = sign_flip(xs, sign_block([a for a, _ in salts], (B, cin) + sp,
+                                      axis=1))
     pert = conv_draws(x_pert.reshape((B, S * cin) + sp), delta, pert_bias,
                       transposed=transposed, **args)
     sp_out = tuple(pert.shape[2:])
-    sign_out = rademacher_lanes([b for _, b in salts], (B, O) + sp_out,
-                                pert.dtype, pert.device, output=True)
-    out = mean + pert.reshape((B, S, O) + sp_out) * sign_out
+    out = sign_combine(mean, pert.reshape((B, S, O) + sp_out), sign_block(
+        [b for _, b in salts], (B, O) + sp_out, axis=1, output=True))
     return out.reshape((B, S * O) + sp_out)
 
 
@@ -463,11 +464,9 @@ def _flipout_draws_last(x, mu_k, mu_b, delta, pert_bias, salts, transposed,
     nd = x.dim() - 2
     B, sp = x.shape[0], tuple(x.shape[1:-1])
     cin, O = _channels(mu_k, args["groups"], transposed)
-    sign_in = rademacher_lanes([a for a, _ in salts], (B,) + sp + (cin,),
-                               x.dtype, x.device, axis=nd + 1)
     if _shared_input(x, S, cin, args["data_format"]):
         mean = _apply_conv(x, mu_k, mu_b, transposed, **args)[..., None, :]
-        x_pert = x[..., None, :] * sign_in
+        xs = x[..., None, :]
     else:
         if not transposed and _pointwise_geometry(
                 mu_k, args["stride"], args["padding"], args["dilation"],
@@ -479,13 +478,14 @@ def _flipout_draws_last(x, mu_k, mu_b, delta, pert_bias, salts, transposed,
                 x, mu_k.expand((S,) + tuple(mu_k.shape)),
                 None if mu_b is None else mu_b.expand(S, O),
                 transposed=transposed, **args)
-        x_pert = x.reshape(sign_in.shape) * sign_in
+        xs = x.reshape((B,) + sp + (S, cin))
+    x_pert = sign_flip(xs, sign_block([a for a, _ in salts],
+                                      (B,) + sp + (cin,), axis=nd + 1))
     pert = conv_draws(x_pert.reshape((B,) + sp + (S * cin,)), delta,
                       pert_bias, transposed=transposed, **args)
     sp_out = tuple(pert.shape[1:-1])
     mean = mean.reshape((B,) + sp_out + (-1, O))
-    sign_out = rademacher_lanes([b for _, b in salts], (B,) + sp_out + (O,),
-                                pert.dtype, pert.device, axis=nd + 1,
-                                output=True)
-    out = mean + pert.reshape((B,) + sp_out + (S, O)) * sign_out
+    out = sign_combine(mean, pert.reshape((B,) + sp_out + (S, O)),
+                       sign_block([b for _, b in salts], (B,) + sp_out + (O,),
+                                  axis=nd + 1, output=True))
     return out.reshape((B,) + sp_out + (S * O,))

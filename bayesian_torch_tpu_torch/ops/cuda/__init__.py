@@ -6,7 +6,10 @@ Pallas kernels (``bayesian_torch_tpu/ops/pallas/``).
 - ``sampled_matmul.py``: K-B, the fused sampled GEMM (the sampled weight
   never reaches device memory), and its backward K-D and K-E;
 - ``qmatmul.py``: K-F, the fused int8 GEMM + requantize (the s32
-  accumulator never reaches device memory).
+  accumulator never reaches device memory);
+- ``flipout_signs.py``: K-H, the Flipout signs hashed inside the products
+  that use them (no Pallas counterpart: XLA fuses the JAX package's
+  ``rademacher_fused`` into its consumer).
 
 Each wrapper keeps its plain torch version beside it (taken for CPU
 tensors only) and a ``launches`` count of kernel launches. The CUDA

@@ -86,6 +86,15 @@ _SIGNATURES = {
                        ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                        ctypes.c_int64, ctypes.c_int, _P),
+    # x (or NULL: write the signs), y, float bits, the bits of 1.0,
+    # geometry, stream
+    "btt_sign_flip": (_P, _P, ctypes.c_int, ctypes.c_uint64, _P, _P),
+    # mean, pert, y, dtype code, geometry, stream
+    "btt_sign_combine": (_P, _P, _P, ctypes.c_int, _P, _P),
+    # a, y, a zero point, centred uint8 of +1 and of -1, multiplier, out
+    # zero point, geometry, stream
+    "btt_qsign_mul": (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_float, _P, _P),
 }
 
 

@@ -12,12 +12,13 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
+from bayesian_torch_tpu_torch.ops.cuda.flipout_signs import (sign_combine,
+                                                         sign_flip)
 from bayesian_torch_tpu_torch.ops.sampling import (cast_to, draw_seed,
                                                    flipout_combine,
-                                                   rademacher_lanes,
                                                    sample_gaussian_delta,
                                                    sample_gaussian_weight,
-                                                   sign_salts)
+                                                   sign_block, sign_salts)
 
 
 def _linear(x, w, b=None, compute_dtype=None):
@@ -97,7 +98,8 @@ def flipout_linear(x, generator, mu_w, rho_w, mu_b=None, rho_b=None, *,
     the output. Sampling and sign flips run in ``compute_dtype``. Noise
     that is not injected is seeded from ``generator``: eps through the
     batch sampler's kernel on a zero mean, the signs from the counter hash
-    (``rademacher_fused``), one salt each."""
+    (``rademacher_fused``), one salt each, drawn inside the sign flip and
+    the combine (K-H1 and K-H2 on a CUDA device)."""
     x, mu_w, rho_w, mu_b, rho_b, eps_w, eps_b = cast_to(
         compute_dtype, x, mu_w, rho_w, mu_b, rho_b, eps_w, eps_b)
     delta_w = sample_gaussian_delta(generator, mu_w, rho_w, eps_w)
@@ -149,15 +151,14 @@ def flipout_linear_draws(x, mu_w, mu_b, delta, pert_bias, salts,
         raise ValueError(f"linear over {S} draws: input has {x.shape[-1]} "
                          f"features, want {K} (shared) or {S * K} (one "
                          "block per draw)")
-    rows = x.reshape(-1, x.shape[-1])  # (R, K) or (R, S*K)
-    R = rows.shape[0]
-    sign_in = rademacher_lanes([a for a, _ in salts], lead + (K,), x.dtype,
-                               x.device, axis=len(lead)).reshape(R, S, K)
-    xs = rows[:, None] if x.shape[-1] == K else rows.reshape(R, S, K)
-    mean = _linear(xs, mu_w, mu_b, compute_dtype)  # (R, 1 or S, N)
-    pert = linear_draws((xs * sign_in).reshape(R, S * K), delta, pert_bias,
-                        compute_dtype).reshape(R, S, N)
-    sign_out = rademacher_lanes([b for _, b in salts], lead + (N,),
-                                pert.dtype, pert.device, axis=len(lead),
-                                output=True).reshape(R, S, N)
-    return (mean + pert * sign_out).reshape(lead + (S * N,))
+    n = len(lead)
+    # (*lead, 1 or S, K): shared across the lanes or one block a lane
+    xs = x.unsqueeze(-2) if x.shape[-1] == K else x.reshape(lead + (S, K))
+    x_pert = sign_flip(xs, sign_block([a for a, _ in salts], lead + (K,),
+                                      axis=n))
+    mean = _linear(xs, mu_w, mu_b, compute_dtype)  # (*lead, 1 or S, N)
+    pert = linear_draws(x_pert.reshape(lead + (S * K,)), delta, pert_bias,
+                        compute_dtype).reshape(lead + (S, N))
+    out = sign_combine(mean, pert, sign_block(
+        [b for _, b in salts], lead + (N,), axis=n, output=True))
+    return out.reshape(lead + (S * N,))

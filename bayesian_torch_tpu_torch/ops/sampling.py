@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -166,14 +167,26 @@ def check_counters(num_samples: int, n: int) -> None:
 _CPU_CHUNK = 1 << 16
 
 
-def _hashes(salt: int, start: int, n: int, device):
-    """splitmix32(salt + (i+1)*GOLDEN) for i in [start, start + n)."""
-    h = torch.arange(start + 1, start + n + 1, dtype=torch.int64,
-                     device=device)
+def _mix(salt: int, h):
+    """splitmix32(salt + h*GOLDEN) of int64 tensor ``h`` (in place): the
+    hash of the counters ``h - 1``. Counts each call on a CUDA tensor in
+    ``_hashes.cuda_calls``: the Flipout paths hash their signs in K-H
+    (``ops/cuda/flipout_signs.py``) there, never in torch."""
+    if h.is_cuda:
+        _hashes.cuda_calls += 1
     h *= _SM32_GOLDEN
     h += salt
     h &= _M32
     return _splitmix32(h)
+
+
+def _hashes(salt: int, start: int, n: int, device):
+    """splitmix32(salt + (i+1)*GOLDEN) for i in [start, start + n)."""
+    return _mix(salt, torch.arange(start + 1, start + n + 1,
+                                   dtype=torch.int64, device=device))
+
+
+_hashes.cuda_calls = 0
 
 
 def _normals(salt: int, start: int, n: int, device):
@@ -291,20 +304,6 @@ def window_block(shape, lane_dim=None, row_dim=None):
     return tuple(whole), tuple(start)
 
 
-def _row_start(shape):
-    """Counter of element 0 of a batch-leading tensor of ``shape`` under a
-    window that splits the batch: its rows' place in the whole batch."""
-    w = _WINDOW[0]
-    if w is None or not w.splits_rows:
-        return 0
-    if not shape or shape[0] != w.local_rows:
-        raise RuntimeError(
-            f"signs of shape {tuple(shape)} under a batch split over ranks "
-            f"({w.local_rows} of {w.rows} rows): only batch-leading "
-            "tensors can take their rows' signs")
-    return w.row0 * (math.prod(shape) // shape[0])
-
-
 # The attribute ``mc_forward`` sets on a channels-last activation under its
 # vmap emission (the draw count, ``parallel/mc.py::_DrawsLast``): its draws
 # lie on its last axis, (B, *sp, S*C), where others hold them on dim 1.
@@ -354,25 +353,71 @@ def shard_window(n):
     return window_kwargs(0, size * n, rank * n, n)
 
 
-def rademacher_fused(salt: int, shape, dtype=torch.float32, device=None,
-                     output=False):
-    """iid signs in {-1, +1}: bit 31 of splitmix32(salt + (i+1)*GOLDEN),
-    bit-identical to the JAX ``rademacher_fused`` for the same salt. Under
-    a ``DrawWindow`` that splits the batch, ``shape`` leads with this
-    rank's rows, which take the counters they have in the whole batch.
-    ``output``: the signs of a layer's output, which inside a
-    ``tp_shard`` are the shard's channels of the whole output's signs."""
-    shape = tuple(shape)
+class SignBlock(NamedTuple):
+    """The Flipout signs of ``len(salts)`` lanes laid out in one tensor:
+    lane s is the block of ``shape`` at ``start`` (an offset a dim) of
+    ``rademacher_fused(salts[s], whole)``, every element keeping the
+    counter it has in ``whole``; the lanes lie on a dim inserted at
+    ``axis`` (None: one salt and no lane dim). K-H computes such signs
+    inside the product that uses them (``ops/cuda/flipout_signs.py``)."""
+
+    salts: tuple
+    shape: tuple
+    whole: tuple
+    start: tuple
+    axis: int | None = None
+
+    @property
+    def lanes_shape(self):
+        """The shape of the laid-out signs: ``shape`` with the lane dim."""
+        if self.axis is None:
+            return self.shape
+        return (self.shape[:self.axis] + (len(self.salts),)
+                + self.shape[self.axis:])
+
+
+def sign_block(salts, shape, axis=None, output=False):
+    """The ``SignBlock`` of lanes ``salts`` over a tensor of ``shape``
+    (lanes at ``axis``; None: one salt) as this call draws it: under a
+    ``DrawWindow`` that splits the batch, ``shape`` leads with this rank's
+    rows, which take the counters they have in the whole batch;
+    ``output``: the signs of a layer's output, which inside a ``tp_shard``
+    are the shard's channels of the whole output's signs."""
+    shape = tuple(int(d) for d in shape)
+    salts = tuple(int(v) for v in salts)
+    if axis is None and len(salts) != 1:
+        raise ValueError(f"{len(salts)} salts need a lane axis")
+    whole, start = list(shape), [0] * len(shape)
     shard = _SHARD[0]
     if output and shard is not None:
         rank, size, dim = shard
-        whole = list(shape)
+        start[dim] = rank * shape[dim]
         whole[dim] *= size
-        return rademacher_fused(salt, whole, dtype, device).narrow(
-            dim, rank * shape[dim], shape[dim])
-    h = _hashes(salt, _row_start(shape), math.prod(shape), device)
-    one = torch.ones((), dtype=dtype, device=device)
-    return torch.where((h >> 31).bool(), -one, one).reshape(shape)
+    w = _WINDOW[0]
+    if w is not None and w.splits_rows:
+        if not whole or whole[0] != w.local_rows:
+            raise RuntimeError(
+                f"signs of shape {shape} under a batch split over ranks "
+                f"({w.local_rows} of {w.rows} rows): only batch-leading "
+                "tensors can take their rows' signs")
+        start[0], whole[0] = w.row0, w.rows
+    return SignBlock(salts, shape, tuple(whole), tuple(start), axis)
+
+
+def _sign_flip(x, block, dtype=None, device=None):
+    from bayesian_torch_tpu_torch.ops.cuda.flipout_signs import sign_flip
+
+    return sign_flip(x, block, dtype, device)
+
+
+def rademacher_fused(salt: int, shape, dtype=torch.float32, device=None,
+                     output=False):
+    """iid signs in {-1, +1}: bit 31 of splitmix32(salt + (i+1)*GOLDEN),
+    bit-identical to the JAX ``rademacher_fused`` for the same salt; the
+    window and shard forms of ``sign_block``. K-H1 writes them on a CUDA
+    device, the plain torch hash elsewhere."""
+    return _sign_flip(None, sign_block([salt], shape, output=output),
+                      dtype, device)
 
 
 def rademacher_block(salt: int, whole, start, shape, dtype=torch.float32,
@@ -381,20 +426,9 @@ def rademacher_block(salt: int, whole, start, shape, dtype=torch.float32,
     ``rademacher_fused(salt, whole)``: every element takes the counter it
     has in the whole tensor, so the block equals that slice of the whole
     signs element for element (``window_block`` gives a rank's)."""
-    idx = torch.zeros((), dtype=torch.int64, device=device)
-    stride = 1
-    for d in reversed(range(len(whole))):
-        at = torch.arange(start[d], start[d] + shape[d], dtype=torch.int64,
-                          device=device)
-        idx = idx + (at * stride).reshape((-1,) + (1,) * (len(whole) - 1 - d))
-        stride *= whole[d]
-    h = idx + 1
-    h *= _SM32_GOLDEN
-    h += salt
-    h &= _M32
-    h = _splitmix32(h)
-    one = torch.ones((), dtype=dtype, device=device)
-    return torch.where((h >> 31).bool(), -one, one)
+    block = SignBlock((int(salt),), tuple(shape), tuple(whole),
+                      tuple(start))
+    return _sign_flip(None, block, dtype, device)
 
 
 def rademacher(generator: torch.Generator, shape, dtype=torch.float32):
@@ -418,13 +452,8 @@ def rademacher_lanes(salts, shape, dtype=torch.float32, device=None,
     ``len(salts)`` inserted at ``axis``; lane s is
     ``rademacher_fused(salts[s], shape)``, the signs a single forward of
     draw s would take for a tensor of ``shape``."""
-    shape = tuple(shape)
-    out = torch.empty(shape[:axis] + (len(salts),) + shape[axis:],
-                      dtype=dtype, device=device)
-    for s, salt in enumerate(salts):
-        out.select(axis, s).copy_(rademacher_fused(salt, shape, dtype,
-                                                   device, output))
-    return out
+    return _sign_flip(None, sign_block(salts, shape, axis, output), dtype,
+                      device)
 
 
 def cast_to(compute_dtype, *tensors):
@@ -439,13 +468,19 @@ def cast_to(compute_dtype, *tensors):
 def flipout_combine(x, products, salts, sign_in=None, sign_out=None):
     """The Flipout algebra ``mean + sign_out * pert`` where ``products(x,
     x * sign_in)`` gives ``(mean, pert)``; signs not given come from
-    ``salts`` (input-sign salt, output-sign salt)."""
+    ``salts`` (input-sign salt, output-sign salt), hashed inside the two
+    products that use them (K-H1 and K-H2 on a CUDA device)."""
+    from bayesian_torch_tpu_torch.ops.cuda.flipout_signs import (
+        sign_combine, sign_flip)
+
     if sign_in is None:
-        sign_in = rademacher_fused(salts[0], x.shape, x.dtype, x.device)
-    mean_out, pert = products(x, x * sign_in)
+        x_pert = sign_flip(x, sign_block([salts[0]], x.shape))
+    else:
+        x_pert = x * sign_in
+    mean_out, pert = products(x, x_pert)
     if sign_out is None:
-        sign_out = rademacher_fused(salts[1], mean_out.shape, mean_out.dtype,
-                                    mean_out.device, output=True)
+        return sign_combine(mean_out, pert, sign_block(
+            [salts[1]], mean_out.shape, output=True))
     return mean_out + pert * sign_out
 
 

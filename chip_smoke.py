@@ -26,6 +26,9 @@ weights and images, 224x224, 1000 classes, bf16 compute:
   inference and MC-4 bs128 ELBO steps, through the draw loop and through
   the vmap emission, and one vmap batch with the pointwise emission (the
   mean convs through K-G at S = 1, the perturbation convs through K-G);
+  the signs hashed inside the sign flip and the combine (K-H1, K-H2; the
+  INT8 sign products K-H3, phases 38-39), checked at full width in phase
+  46;
 - the small-model zoo: the ConvTranspose layers, the Bayesian CIFAR
   ResNet-110 trainer (f32, bs128, MC-50 evaluation), the Flipout CIFAR
   trainer, the deterministic CIFAR and MNIST trainers, the Bayesian MNIST
@@ -167,8 +170,10 @@ Phases, each printing its own line(s):
     K-G S = 1 launches) against the default route; MC-4 bs128 ELBO steps
     through the loop (``emission="scan"``) and the vmap emission (finite,
     non-zero gradients on
-    every mu and rho, launches gated); with ``--profile`` one Flipout
-    inference batch and one step under the profiler;
+    every mu and rho, launches gated); K-H1 and K-H2 launches gated in
+    every run (a flip and a combine a layer and forward, the backward's
+    flips) and no sign hashed in torch on the card; with ``--profile`` one
+    Flipout inference batch and one step under the profiler;
 27. the deterministic ResNet-50 (seeded He init, BN statistics from one
     batch): f32 logits (TF32 off) against a CPU copy on 4 images, within
     2^-10 x max|logit|; bf16 forwards (conv and linear weights bf16, BN in
@@ -228,13 +233,14 @@ Phases, each printing its own line(s):
     activations): 54 quantized Flipout layers with 10-slot quant_dicts;
 38. the INT8 Flipout main path: three MC-10 bs128 batches after a
     warm-up, 1,080 K-F launches each, ms per batch, images/s, peak
-    memory; one batch under the profiler (busy, idle share, K-F's device
-    time and share) and the sign hash of one forward alone (its share);
-    frozen perturbations at MC-1 (108 launches a batch); the uncalibrated
-    model's MC-10 (1,080 a batch);
+    memory; one batch under the profiler (busy, idle share, K-F's and
+    K-H3's device time and share); frozen perturbations at MC-1 (108
+    launches a batch); the uncalibrated model's MC-10 (1,080 a batch); as
+    many K-H3 launches as K-F's in each, no sign hashed in torch;
 39. INT8 Flipout sanity: frozen perturbations, generators reseeded: the
     activations into the pool and the uint8 logits of 2 images equal a
-    CPU copy's bit for bit; two frozen-perturbation forwards differ;
+    CPU copy's bit for bit (K-H3 on the card, 108 launches, against the
+    plain sign route); two frozen-perturbation forwards differ;
 40. grouped and transposed int8 convs: a ResNeXt-like 3x3 conv (256 ->
     256, 32 groups, 56^2, bs32; 32 K-F GEMMs) and DCGAN-like
     ``QuantizedConvTranspose2d{Reparameterization,Flipout}`` layers (512
@@ -252,7 +258,8 @@ Phases, each printing its own line(s):
     1e-5; (d) MC-20 bs128 inference through the loop (K-A 81 a batch: the
     head's presample and 4 a draw) and the vmap emission (K-A 5 a batch),
     each estimator: ms per batch (median of 5, min, max), busy ms, idle
-    share of the median; (e) the quantized
+    share of the median, the Flipout LSTM's K-H1 (its four sign blocks a
+    forward) and its head's K-H1, K-H2 gated; (e) the quantized
     LSTM (``bnn_to_qbnn``) at MC-20 through the loop (K-F 20 a batch, the
     head); (f) ``main_bayesian_lstm_timeseries`` at batch 128 for 40
     steps, then ``--mode=test``, each estimator: the loss falls, RMSE and
@@ -359,6 +366,17 @@ Phases, each printing its own line(s):
     the loop with ``presample="off"`` (a single-draw K-B a draw), and the
     NHWC structured-Flipout Net of ``dryrun_multichip`` under ``mc=2``
     (1e-5).
+46. K-H, the Flipout signs inside their products (``phase_signs``, right
+    after phase 26): K-H1 (x * signs) and K-H2 (mean + pert * signs) bit
+    for bit with their plain versions at the 54 layers' activations of
+    ResNet-50 MC-10 bs128 under the draw axis (bf16; one layer in f32), at
+    a rank's rows under ``data=2`` and a shard's output channels under
+    ``model=2`` (NCHW and NHWC), K-H1 writing the LSTM's sign blocks of a
+    rank, and K-H3 at the 108 uint8 sign products of one INT8 Flipout
+    forward (calibrated and default scales); then the device time of one
+    MC-10 batch's sign work through the loop (540 flips, 540 combines,
+    1,080 INT8 products; ``kernel_times.sign_work``) beside the plain
+    versions' (CUDA events) and the bytes bound.
 
 The line before the last is a JSON object with every kernel's launches,
 counted from zero in the run named by its ``run`` key, its error against
@@ -367,7 +385,8 @@ their launches on each path of the zoo, of phase 41 (K-A, K-C) and of
 phase 42 (K-F: and of the INT8 main paths and phases 38-40), each
 counted from zero; K-B, K-D and K-E (and their lane forms) their
 launches a rank on the mesh paths of phases 43 and 45, and the single
-draws their largest windowed error of phase 43 (g) (``window_err``); the
+draws their largest windowed error of phase 43 (g) (``window_err``); K-H1
+and K-H2 their launches in phase 26's vmap batches (``paths``); the
 last line is ``{"ok": true, "device": {...}}``, printed only after every phase
 passed. Any failure raises and exits non-zero, as does a machine without
 CUDA.
@@ -389,8 +408,10 @@ import time
 # events
 from kernel_times import (BF16_OPS, F32_OPS, HBM_BPS, INT8_OPS, KA_TAG,
                           KB_TAG, KC_TAG, KD_TAG, KE_TAG, PER_NORMAL,
-                          SESSIONS, TF32_OPS, device_times, generation_ms,
-                          layer_sizes, unfused_dw)
+                          QSIGN_SCALES, QSIGN_TAG, SESSIONS, SIGN_TAG,
+                          TF32_OPS, device_times, generation_ms,
+                          layer_sizes, resnet50_sites, sign_bound,
+                          sign_work, unfused_dw)
 from kernel_times import SITES as POINTWISE_SITES
 
 BATCH = 128
@@ -1237,13 +1258,75 @@ def kernel_counters():
             "K-G cl": kg.mc_gemm_cl, "K-G cl S=1": kg.pointwise_gemm_cl}
 
 
+def sign_counters():
+    """{name: wrapper} of the K-H kernels' launch counters, kept apart from
+    ``kernel_counters``, whose counts the paths gate as a whole."""
+    from bayesian_torch_tpu_torch.ops.cuda import flipout_signs as kh
+
+    return {"K-H1": kh.sign_flip, "K-H2": kh.sign_combine,
+            "K-H3": kh.qsign_mul}
+
+
+# the count of sign hashes run in torch on the card (``ops/sampling.py``
+# ``_hashes.cuda_calls``), which every Flipout path holds at 0
+TORCH_HASHES = "torch hashes on CUDA"
+
+
 def reset_counts():
-    for fn in kernel_counters().values():
+    from bayesian_torch_tpu_torch.ops.sampling import _hashes
+
+    for fn in (*kernel_counters().values(), *sign_counters().values()):
         fn.launches = 0
+    _hashes.cuda_calls = 0
 
 
 def counts():
     return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def sign_counts():
+    """The K-H launches and the torch hashes on the card since the last
+    ``reset_counts``."""
+    from bayesian_torch_tpu_torch.ops.sampling import _hashes
+
+    got = {name: fn.launches for name, fn in sign_counters().items()}
+    got[TORCH_HASHES] = _hashes.cuda_calls
+    return got
+
+
+def expected_sign_launches(model, num_mc, vmap=False, training=False,
+                           batches=1):
+    """K-H launches of ``batches`` MC-``num_mc`` calls of a float Flipout
+    model: per forward (one a draw through the loop, one for all lanes
+    under the draw axis) K-H1 flips each Flipout layer's input and K-H2
+    combines its output; a Flipout LSTM writes its four sign blocks with
+    K-H1. A training step's backward adds a K-H1 for each combine and for
+    each flip whose input carries a gradient: every layer's but the
+    first's, whose input is the images. No sign is hashed in torch."""
+    from bayesian_torch_tpu_torch.layers.rnn_base import _BaseLSTMLayer
+    from bayesian_torch_tpu_torch.models.dnn_to_bnn import (
+        iter_bayesian_layers,
+    )
+
+    flipout = [m for m in iter_bayesian_layers(model)
+               if "Flipout" in type(m).__name__]
+    lstms = sum(isinstance(m, _BaseLSTMLayer) for m in flipout)
+    layers = len(flipout) - lstms
+    forwards = batches * (1 if vmap else num_mc)
+    flips = layers + 4 * lstms
+    if training:
+        flips += 2 * layers - 1
+    return {"K-H1": forwards * flips, "K-H2": forwards * layers, "K-H3": 0,
+            TORCH_HASHES: 0}
+
+
+def check_signs(what, want):
+    """The K-H launches and torch hashes since the last ``reset_counts``
+    equal ``want``; returns them."""
+    got = sign_counts()
+    log(f"[{what}] sign launches {got}")
+    check(got == want, f"{what}: sign launches {got}, want {want}")
+    return got
 
 
 def expected_step_launches(model, num_mc):
@@ -2474,10 +2557,17 @@ def phase_flipout_inference(model, batches, profile):
     from bayesian_torch_tpu_torch.parallel import mc_forward
 
     none = dict.fromkeys(kernel_counters(), 0)
-    timed_mc("flipout loop", model, batches, dict(none, **{"K-A": 1}))
-    timed_mc("flipout vmap", model, batches,
-             expected_vmap_launches(model, training=False), return_kl=False,
-             emission="vmap")
+    res = {}
+    res["loop_ms"], _ = timed_mc("flipout loop", model, batches,
+                                 dict(none, **{"K-A": 1}))
+    res["loop_signs"] = check_signs("flipout loop", expected_sign_launches(
+        model, NUM_MC, batches=len(batches)))
+    res["vmap_ms"], _ = timed_mc(
+        "flipout vmap", model, batches,
+        expected_vmap_launches(model, training=False), return_kl=False,
+        emission="vmap")
+    res["vmap_signs"] = check_signs("flipout vmap", expected_sign_launches(
+        model, NUM_MC, vmap=True, batches=len(batches)))
     lanes_agree("flipout vmap vs loop", model, batches[0])
     mc_sanity("flipout sanity", model, "auto")
     mc_sanity("flipout sanity", model, "vmap")
@@ -2508,7 +2598,7 @@ def phase_flipout_inference(model, batches, profile):
                            model, batches[0], NUM_MC, reduce="mean",
                            return_kl=False, emission="vmap"))
     torch.cuda.empty_cache()
-    return got
+    return got, res
 
 
 def phase_flipout_train(model, emission, profile):
@@ -2551,6 +2641,8 @@ def phase_flipout_train(model, emission, profile):
               f"flipout step {i}: num_batches_tracked did not go up by 1")
         check(got == want, f"flipout {emission} step {i}: launches {got}, "
               f"the model implies {want}")
+    check_signs(f"flipout train {emission}", expected_sign_launches(
+        model, TRAIN_MC, vmap=emission == "vmap", training=True, batches=3))
     ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[flipout train {emission}] Flipout ResNet-50 MC-{TRAIN_MC} "
@@ -2584,12 +2676,164 @@ def phase_flipout(profile):
             mod.compute_dtype = torch.bfloat16
     set_bn_statistics(model, images(SEED + 200))
     batches = [images(SEED + 1 + i) for i in range(3)]
-    dot = phase_flipout_inference(model, batches, profile)
+    dot, res = phase_flipout_inference(model, batches, profile)
     del batches
     torch.cuda.empty_cache()
     loop = phase_flipout_train(model, "scan", profile)
     vmap = phase_flipout_train(model, "vmap", profile)
-    return dot, loop, vmap
+    return dot, loop, vmap, res
+
+
+# --- phase 46: K-H, the Flipout signs inside their products -----------------
+
+
+def phase_signs():
+    """(46) K-H at full width against its plain versions, bit for bit: (a)
+    K-H1 (x * signs) and K-H2 (mean + pert * signs) at the 54 layers'
+    activations of ResNet-50 MC-10 bs128, bf16, under the draw axis (lanes
+    on dim 1; the stem's input shared across them) and in the draw loop's
+    form (one salt, no lane dim, each layer's (128, C, H, W) input and
+    output); (b) one layer in f32, both forms;
+    (c) the mesh forms: a rank's rows under ``data=2`` (64 of 128, phase
+    43), a tensor-parallel shard's output channels under ``model=2`` at
+    MC-2 bs8 (phase 45), NCHW and NHWC, and the LSTM's sign blocks of a
+    rank under ``mc=2`` and ``data=2`` at config #4 (K-H1 writing the
+    signs); (d) K-H3 at the 108 uint8 sign products of one INT8 Flipout
+    forward at bs128, calibrated and default scales; (e) the device time
+    of one MC-10 batch's sign work through the draw loop
+    (``kernel_times.sign_work``: 540 flips, 540 combines, 1,080 INT8
+    products) beside the plain versions' (CUDA events) and the bound.
+    Returns {kernel: its kernels-line numbers}."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops import sampling as ts
+    from bayesian_torch_tpu_torch.ops.cuda import flipout_signs as kh
+
+    t0 = time.perf_counter()
+    errs = {"K-H1": 0.0, "K-H2": 0.0, "K-H3": 0.0}
+    checked = {"K-H1": 0, "K-H2": 0, "K-H3": 0}
+
+    def same(name, what, got, want):
+        err = max_err(got, want)
+        errs[name] = max(errs[name], err)
+        checked[name] += 1
+        check(got.dtype == want.dtype and got.shape == want.shape
+              and torch.equal(got, want),
+              f"{name} {what}: differs from its plain version (max |diff| "
+              f"{err})")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1100)
+
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    def flip_and_combine(what, si, so, lanes, shared=False,
+                         dtype=torch.bfloat16, **block_kw):
+        salts = [ts.sign_salts(SEED + 1101, s) for s in range(lanes)]
+        axis = block_kw.pop("axis", 1)
+        bi = ts.sign_block([a for a, _ in salts], si, axis=axis)
+        full = bi.lanes_shape
+        x = randn(full[:axis] + (1,) + full[axis + 1:] if shared else full,
+                  dtype)
+        same("K-H1", f"{what} input {full}", kh.sign_flip(x, bi),
+             kh.sign_flip_plain(x, bi))
+        del x
+        bo = ts.sign_block([b for _, b in salts], so, axis=axis,
+                           output=True)
+        mean, pert = randn(bo.lanes_shape, dtype), randn(bo.lanes_shape,
+                                                          dtype)
+        same("K-H2", f"{what} output {bo.lanes_shape}",
+             kh.sign_combine(mean, pert, bo),
+             kh.sign_combine_plain(mean, pert, bo))
+
+    sites = resnet50_sites(BATCH)
+    check(len(sites) == INT8_LAYERS, f"{len(sites)} ResNet-50 sites")
+    for i, (si, so) in enumerate(sites):  # (a)
+        flip_and_combine(f"layer {i}", si, so, NUM_MC, shared=i == 0)
+        # the draw loop's form (phase 26's launches): one salt, no lanes
+        flip_and_combine(f"layer {i} one salt", si, so, 1, axis=None)
+    torch.cuda.empty_cache()
+    flip_and_combine("f32 layer 1", *sites[1], NUM_MC,  # (b)
+                     dtype=torch.float32)
+    flip_and_combine("f32 layer 1 one salt", *sites[1], 1, axis=None,
+                     dtype=torch.float32)
+    # (c) a rank's rows, a shard's channels, the LSTM's blocks
+    half = resnet50_sites(BATCH // 2)
+    with ts.draw_window(ts.DrawWindow(0, NUM_MC, NUM_MC, BATCH // 2,
+                                      BATCH // 2, BATCH)):
+        for i in (0, 10, 53):
+            flip_and_combine(f"data=2 rank 1 layer {i}", *half[i], NUM_MC,
+                             shared=i == 0)
+    small = resnet50_sites(8)
+    for i in (0, 10, 52):
+        si, so = small[i]
+        shard = so[:1] + (so[1] // 2,) + so[2:]
+        with ts.tp_shard(1, 2, 1):
+            flip_and_combine(f"model=2 shard 1 layer {i} NCHW", si, shard, 2)
+        last = (si[0],) + si[2:] + (si[1],)
+        shard_last = (so[0],) + so[2:] + (so[1] // 2,)
+        with ts.tp_shard(1, 2, -1):
+            flip_and_combine(f"model=2 shard 1 layer {i} NHWC", last,
+                             shard_last, 2, axis=len(last) - 1)
+    for feat in (1, LSTM_HIDDEN, 4 * LSTM_HIDDEN):
+        whole = (LSTM_MC, LSTM_SEQ, LSTM_BATCH, feat)
+        for start, shape in (((LSTM_MC // 2, 0, 0, 0),
+                              (LSTM_MC // 2,) + whole[1:]),
+                             ((0, 0, LSTM_BATCH // 2, 0),
+                              whole[:2] + (LSTM_BATCH // 2, feat))):
+            block = ts.SignBlock((ts.sign_salts(SEED + 1102)[0],), shape,
+                                 whole, start)
+            same("K-H1", f"LSTM block {shape} at {start} of {whole}",
+                 kh.sign_flip(None, block, torch.float32, "cuda"),
+                 kh.signs_plain(block, torch.float32, "cuda"))
+    # (d) the INT8 sign products of one forward
+    for scales in (QSIGN_SCALES, (0.2, 128.0, 0.2, 128.0, 0.2, 128.0)):
+        sa, za, ss, zs, so_, zo = scales
+        for i, (si, so) in enumerate(sites):
+            for side, shape in ((0, si), (1, so)):
+                a = torch.randint(0, 256, shape, generator=gen,
+                                  device="cuda", dtype=torch.uint8)
+                if side and a.dim() == 4:
+                    a = a.contiguous(memory_format=torch.channels_last)
+                block = ts.sign_block([ts.sign_salts(SEED + 1103, i)[side]],
+                                      shape)
+                same("K-H3", f"layer {i} side {side} {shape} scales "
+                     f"{scales}", kh.qsign_mul(a, sa, za, block, ss, zs, so_,
+                                               zo),
+                     kh.qsign_mul_plain(a, sa, za, block, ss, zs, so_, zo))
+    torch.cuda.empty_cache()
+    log(f"[signs] {card()}: K-H bit for bit with its plain versions in "
+        f"{checked} checks (max |diff| {errs}): the 54 layers' MC-{NUM_MC} "
+        f"bs{BATCH} activations in bf16, draw axis and one salt, one layer "
+        f"in f32, the "
+        f"data=2 rows, the model=2 shards (NCHW, NHWC), the LSTM's blocks, "
+        f"the INT8 forward's 108 sign products")
+    # (e) one MC-10 batch's sign work through the loop, kernel and plain
+    res = {}
+    for route in ("kernel", "plain"):
+        work = sign_work(NUM_MC, BATCH, route=route)
+        for name, (fn, nbytes, elements) in work.items():
+            if route == "kernel":
+                tag = QSIGN_TAG if name == "K-H3" else SIGN_TAG
+                bound_ms, bound_by = sign_bound(nbytes, elements)
+                res[name] = dict(ms=device_times((fn, tag))[0],
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 library_ms=None, max_abs_err=errs[name],
+                                 gbytes=nbytes / 1e9)
+            else:
+                fn()
+                res[name]["plain_ms"] = cuda_ms(fn)
+        del work
+        torch.cuda.empty_cache()
+    for name, r in res.items():
+        log(f"[signs] {name} over one MC-{NUM_MC} bs{BATCH} batch's sign "
+            f"work through the loop ({r['gbytes']:.1f} GB): {r['ms']:.2f} "
+            f"ms device time, plain {r['plain_ms']:.1f} ms, bound "
+            f"{r['bound_ms']:.2f} ms ({r['bound_by']}), "
+            f"{r['bound_ms'] / r['ms']:.2f} of the bound's rate")
+    log(f"[signs] phase 46 took {time.perf_counter() - t0:.1f} s")
+    return {k: {key: v for key, v in r.items() if key != "gbytes"}
+            for k, r in res.items()}
 
 
 # --- model surgery: the deterministic ResNet-50, MOPED, dnn_to_bnn -----------
@@ -3619,20 +3863,24 @@ def sign_shapes(model, x):
     return shapes
 
 
+def int8_sign_launches(batches, forwards):
+    """K-H3's launches in ``batches`` of ``forwards`` INT8 Flipout
+    forwards: the input's and the output's sign product, each layer."""
+    return {"K-H1": 0, "K-H2": 0, "K-H3": 2 * INT8_LAYERS * forwards * batches,
+            TORCH_HASHES: 0}
+
+
 def phase_int8_flipout_main(model, batches):
     """(38) The INT8 Flipout main path: MC-10 at batch 128 (1,080 K-F
-    launches a batch: 54 layers, the mean and the perturbation, 10 draws),
-    three batches after a warm-up, peak memory; one batch under the
-    profiler (busy time, idle share, K-F's device time and share); the
-    sign hash of the batch replayed alone (its 1,080 sign tensors at the
-    batch's shapes) and its share of the batch's busy time; frozen
-    perturbations, MC-1; the uncalibrated model's
-    MC-10. Returns a dict of the results."""
+    launches a batch: 54 layers, the mean and the perturbation, 10 draws;
+    as many K-H3 sign products), three batches after a warm-up, peak
+    memory; one batch under the profiler (busy time, idle share, K-F's and
+    K-H3's device time and share); frozen perturbations, MC-1; the
+    uncalibrated model's MC-10. Returns a dict of the results."""
     import torch
 
     from torch.autograd import DeviceType
 
-    from bayesian_torch_tpu_torch.ops.sampling import rademacher_fused
     from bayesian_torch_tpu_torch.parallel import mc_forward
     from bayesian_torch_tpu_torch.quantization import freeze_quantized_draws
 
@@ -3645,54 +3893,47 @@ def phase_int8_flipout_main(model, batches):
     ms, outs, launches = timed_batches(
         f"int8 flipout MC-{NUM_MC} bs{BATCH}", mc10(model), batches,
         per_batch)
+    kh3 = check_signs(f"int8 flipout MC-{NUM_MC}", int8_sign_launches(
+        len(batches), NUM_MC))["K-H3"]
     peak = torch.cuda.max_memory_allocated() / 2**30
     prof = profile_window(
         f"one INT8 Flipout MC-{NUM_MC} batch (bs{BATCH})",
         lambda: mc10(model)(batches[0]), rows=15)
-    kf_ms = sum(e.self_device_time_total for e in prof["events"]
-                if e.device_type == DeviceType.CUDA
-                and "qmatmul" in e.key) / 1e3
-    shapes = sign_shapes(model, batches[0])
-    check(len(shapes) == INT8_LAYERS, f"{len(shapes)} Flipout layers ran")
 
-    def signs():
-        # the batch's NUM_MC draws: each layer's two sign tensors a draw,
-        # under salts of their own (the hash's work is the same for any)
-        for d in range(NUM_MC):
-            for i, (xs, os_) in enumerate(shapes):
-                salt = 2 * (d * len(shapes) + i)
-                rademacher_fused(salt + 1, xs, torch.float32, "cuda")
-                rademacher_fused(salt + 2, os_, torch.float32, "cuda")
+    def rows_ms(tag):
+        return sum(e.self_device_time_total for e in prof["events"]
+                   if e.device_type == DeviceType.CUDA
+                   and tag in e.key) / 1e3
 
-    # the sign hash of the whole batch alone: its kernels' busy time
-    n_signs = 2 * len(shapes) * NUM_MC
-    sign_ms = profile_window(f"the sign hash of one MC-{NUM_MC} batch "
-                             f"({n_signs} tensors)", signs, rows=8)["busy"]
+    kf_ms, sign_ms = rows_ms("qmatmul"), rows_ms("QSignOp")
     busy = prof["busy"]
     res = dict(ms=ms, peak_gib=peak, launches=launches, busy_ms=busy,
                wall_ms=prof["wall"], idle=1 - busy / prof["wall"],
-               kf_ms=kf_ms, kf_share=kf_ms / busy,
+               kf_ms=kf_ms, kf_share=kf_ms / busy, kh3_launches=kh3,
                sign_ms=sign_ms, sign_share=sign_ms / busy)
     log(f"[int8 flipout main] {card()}: median {ms:.1f} ms/batch, "
         f"{BATCH / ms * 1e3:.1f} images/s, peak {peak:.2f} GiB; profiled "
         f"batch: busy {busy:.1f} of {prof['wall']:.1f} ms (idle "
         f"{res['idle']:.3f}); K-F {kf_ms:.2f} ms ({res['kf_share']:.3f} of "
-        f"busy, {per_batch} launches); the sign hash of the batch "
-        f"({n_signs} tensors) replayed alone: busy {sign_ms:.2f} ms, "
-        f"{res['sign_share']:.3f} of the batch's busy; entropy "
-        f"{entropy(outs[0]):.4f}")
+        f"busy, {per_batch} launches); the signs (K-H3, {per_batch} "
+        f"launches) {sign_ms:.2f} ms, {res['sign_share']:.3f} of busy; "
+        f"entropy {entropy(outs[0]):.4f}")
 
     check(freeze_quantized_draws(model) == INT8_LAYERS, "froze the layers")
     with torch.no_grad():
         res["frozen_ms"], _, _ = timed_batches(
             "int8 flipout frozen MC-1", lambda x: model(x)[0], batches,
             2 * INT8_LAYERS)
+    check_signs("int8 flipout frozen MC-1",
+                int8_sign_launches(len(batches), 1))
     uncal = build_flipout_qresnet50()
     check(all(m.quant_dict is None for m in uncal.modules()
               if hasattr(m, "quant_dict")), "uncalibrated model has scales")
     res["uncalibrated_ms"], _, uncal_launches = timed_batches(
         f"int8 flipout uncalibrated MC-{NUM_MC}", mc10(uncal), batches,
         per_batch)
+    check_signs(f"int8 flipout uncalibrated MC-{NUM_MC}",
+                int8_sign_launches(len(batches), NUM_MC))
     res["launches_uncalibrated"] = uncal_launches
     del uncal
     torch.cuda.empty_cache()
@@ -3736,7 +3977,11 @@ def phase_int8_flipout_sanity(model, x):
             m.fc.q_output = False
 
     xs = x[:2]
-    got, want = run(model, xs), run(cpu, xs.cpu())
+    reset_counts()
+    got = run(model, xs)
+    check_signs("int8 flipout sanity, the card's forward",
+                int8_sign_launches(1, 1))
+    want = run(cpu, xs.cpu())
     pool_equal = torch.equal(pooled["cuda"], pooled["cpu"])
     equal = torch.equal(got, want)
     log(f"[int8 flipout sanity] card vs CPU copy, frozen perturbations, "
@@ -4091,10 +4336,11 @@ def lstm_sigma_zero(estimator):
     return err
 
 
-def lstm_inference(what, model, x, emission, want):
+def lstm_inference(what, model, x, emission, want, signs=None):
     """(d) MC-20 bs128 through ``mc_forward(emission=...)``: a warm-up,
     LSTM_TIMED timed batches (host clock to synchronize; median and
-    spread), each batch's launches equal to ``want``; one batch under the
+    spread), each batch's launches equal to ``want`` (and the K-H
+    launches to ``signs``, where given); one batch under the
     profiler for the busy time. The idle share is 1 - busy / the
     unprofiled median; the profiled batch's own share, whose wall time
     also holds the profiler's host overhead, is logged beside it.
@@ -4122,6 +4368,8 @@ def lstm_inference(what, model, x, emission, want):
               f"{what}: output {tuple(out.shape)} or not finite")
         check(got == want, f"{what} batch {i}: launches {nonzero(got)}, "
               f"want {nonzero(want)}")
+        if signs is not None:
+            got_signs = check_signs(f"{what} batch {i}", signs)
     ms = statistics.median(times)
     prof = profile_window(f"{what}: one MC-{LSTM_MC} bs{LSTM_BATCH} batch",
                           run, rows=8)
@@ -4136,6 +4384,8 @@ def lstm_inference(what, model, x, emission, want):
         f"{res['idle']:.3f} of the median (the profiled batch: "
         f"{res['wall_ms']:.2f} ms, idle {res['idle_profiled']:.3f}); "
         f"launches per batch {nonzero(want)}")
+    if signs is not None:
+        res["signs_per_batch"] = got_signs
     return res, got
 
 
@@ -4267,7 +4517,8 @@ def phase_lstm():
             what = f"lstm {est} MC-{LSTM_MC} {emission}"
             res[what], paths[what] = timed(
                 what, lstm_inference, what, model, x, emission,
-                dict(none, **{"K-A": ka_launches}))
+                dict(none, **{"K-A": ka_launches}), expected_sign_launches(
+                    model, LSTM_MC, vmap=emission == "vmap"))
         ratio = res[f"lstm {est} MC-{LSTM_MC} scan"]["ms"] / \
             res[f"lstm {est} MC-{LSTM_MC} vmap"]["ms"]
         log(f"[lstm] {est}: the loop takes {ratio:.2f}x the vmap "
@@ -6007,10 +6258,11 @@ def nhwc_train(first, last):
 
 def nhwc_flipout(x):
     """(44d) Flipout ResNet-50 MC-10 bs128 through vmap in both layouts
-    (one warm-up, one timed batch each: the sign hash is most of it), and
-    one NHWC batch with ``CONV_1X1_DOT``: the mean convs through the S = 1
-    wrapper over the B*S rows, the perturbation convs through K-G cl, 33
-    each."""
+    (one warm-up, one timed batch each), and one NHWC batch with
+    ``CONV_1X1_DOT``: the mean convs through the S = 1 wrapper over the
+    B*S rows, the perturbation convs through K-G cl, 33 each; its signs
+    through K-H1 and K-H2 with the lanes before the channels, one each a
+    layer."""
     import torch
 
     from bayesian_torch_tpu_torch.models.bayesian import (
@@ -6039,6 +6291,8 @@ def nhwc_flipout(x):
                          return_kl=False, emission="vmap")
     torch.cuda.synchronize()
     dot_counts = counts()
+    check_signs("nhwc flipout vmap CONV_1X1_DOT",
+                expected_sign_launches(last, NUM_MC, vmap=True))
     check(bool(torch.isfinite(out).all())
           and dot_counts["K-G cl"] == N_POINTWISE
           and dot_counts["K-G cl S=1"] == N_POINTWISE,
@@ -6549,8 +6803,9 @@ def main(argv=None):
         phase_profile_train(model, emission="vmap")
     del model
     torch.cuda.empty_cache()
-    flipout_dot, _, _ = phase_flipout(profile)
+    flipout_dot, _, _, flipout_res = phase_flipout(profile)
     torch.cuda.empty_cache()
+    kh_res = phase_signs()
     det, x, det_logits = phase_det(main_ms)
     surgery_train = phase_surgery(det, x, det_logits)
     del det, x, det_logits
@@ -6754,6 +7009,37 @@ def main(argv=None):
              launches=nhwc_paths["K-G cl"][
                  f"NHWC vmap MC-{TRAIN_MC} bs{BATCH} CONV_1X1_DOT, 2 steps"],
              **kgcl_dx_res),
+    ]
+    flipout_run = (f"Flipout main path: resnet_flipout_large.resnet50, "
+                   f"mc_forward(num_mc={NUM_MC}, reduce='mean'), the loop, "
+                   f"3 batches (phase 26); ms, plain_ms and bound_ms over "
+                   f"one batch's sign work through the loop (phase 46: "
+                   f"{INT8_LAYERS * NUM_MC} launches, bf16)")
+    vmap_run = f"Flipout vmap MC-{NUM_MC} bs{BATCH}, 3 batches"
+    kernels += [
+        dict(name="sign_flip (K-H1)", route="cuda",
+             source=csrc + "flipout_signs.cu",
+             replaces="bayesian_torch_tpu/ops/sampling.py:104",
+             run=flipout_run + "; x * signs of each layer's input",
+             launches=flipout_res["loop_signs"]["K-H1"],
+             paths={vmap_run: flipout_res["vmap_signs"]["K-H1"]},
+             **kh_res["K-H1"]),
+        dict(name="sign_combine (K-H2)", route="cuda",
+             source=csrc + "flipout_signs.cu",
+             replaces="bayesian_torch_tpu/ops/sampling.py:104",
+             run=flipout_run + "; mean + pert * signs of each layer's "
+                 "output",
+             launches=flipout_res["loop_signs"]["K-H2"],
+             paths={vmap_run: flipout_res["vmap_signs"]["K-H2"]},
+             **kh_res["K-H2"]),
+        dict(name="qsign_mul (K-H3)", route="cuda",
+             source=csrc + "flipout_signs.cu",
+             replaces="bayesian_torch_tpu/ops/sampling.py:104",
+             run=f"INT8 Flipout main path: qresnet50 (Flipout) calibrated, "
+                 f"mc_forward(num_mc={NUM_MC}, reduce='mean'), 3 batches "
+                 f"(phase 38); ms, plain_ms and bound_ms over one batch's "
+                 f"{2 * INT8_LAYERS * NUM_MC} sign products (phase 46)",
+             launches=flipout_int8["kh3_launches"], **kh_res["K-H3"]),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never ran in {k['run']}")

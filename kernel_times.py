@@ -1,8 +1,8 @@
 """Device times of the hand-written kernels at Bayesian ResNet-50's shapes:
 the weight sampler K-A and its backward K-C, the GEMMs K-B, K-D, K-E, K-G
-and K-F beside one PyTorch call for the same product where there is one;
-and the device busy time of the training and inference paths that run
-them.
+and K-F beside one PyTorch call for the same product where there is one,
+the Flipout sign kernels K-H; and the device busy time of the training
+and inference paths that run them.
 
     python3 kernel_times.py [--label NAME] [--sections NAME ...]
 
@@ -74,6 +74,19 @@ prints one line per shape and a JSON summary last.
 - ``kf``: K-F (``ops/cuda/qmatmul.py``) at the 21 GEMM shapes of one INT8
   ``qresnet50`` forward at batch 128 (54 launches; the stem's K of 147
   widened to 160 as ``ops.int8.qconv`` does), beside ``torch._int_mm``.
+- ``signs``: K-H (``ops/cuda/flipout_signs.py``) over the sign work of one
+  Flipout MC-10 bs128 batch through the draw loop at ResNet-50's 54
+  layers (``sign_work``: 540 flips of the layers' inputs, 540 combines of
+  their outputs in bf16, 1,080 INT8 sign products on uint8), each
+  kernel's device time beside its plain version's and its bound (bytes,
+  or the hash's instructions at the issue rate); in a checkout without
+  K-H, the route it replaced (the hash in torch, then the product).
+- ``flipout``: the paths K-H serves, in any checkout: Flipout ResNet-50
+  bf16 MC-10 bs128 through the loop and the vmap emission and its MC-4
+  bs128 loop ELBO step (with its peak memory), and the INT8 Flipout
+  ``qresnet50`` MC-10 bs128 batch: host wall ms, device busy ms, idle
+  share and K-H's device ms. Run from a parent's and a change's checkout
+  in turns for the before and after.
 """
 
 from __future__ import annotations
@@ -813,9 +826,293 @@ def nhwc_dot(out):
         conv_ops.CONV_1X1_DOT = False
 
 
+# --- K-H: the Flipout signs -------------------------------------------------
+
+SIGN_TAG, QSIGN_TAG = "sign_kernel", "QSignOp"
+# (a scale, a zero point, sign scale, sign zero point, out scale, out zero
+# point): a calibrated INT8 Flipout layer's sign product
+QSIGN_SCALES = (0.031, 117.0, 0.0079, 127.0, 0.045, 121.0)
+# the integer instructions of one sign (the counter, splitmix32's three
+# xor-shifts and two multiplies, the salt and the bit), a bound by
+# instruction issue beside the bytes
+PER_SIGN = 12
+
+
+def resnet50_sites(batch=BATCH):
+    """(input shape, output shape) of ResNet-50's 54 Bayesian layers (53
+    convs and the head) at ``batch`` images of 224^2, NCHW, in model order:
+    the shapes of the sign tensors of one Flipout forward (a deterministic
+    ResNet-50 on the meta device)."""
+    import torch
+
+    from bayesian_torch_tpu_torch.models.deterministic.resnet_large import (
+        resnet50,
+    )
+
+    model = resnet50(num_classes=1000, device="meta")
+    sites = []
+    hooks = [m.register_forward_hook(lambda mod, inp, out: sites.append(
+        (tuple(inp[0].shape), tuple(out.shape))))
+        for m in model.modules()
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    with torch.no_grad():
+        model(torch.empty(batch, 3, IMAGE, IMAGE, device="meta"))
+    for h in hooks:
+        h.remove()
+    return sites
+
+
+def _sign_salt(draw, side):
+    return (0x5A17 + 7919 * (2 * draw + side)) & 0xFFFFFFFF
+
+
+def sign_work(draws=S, batch=BATCH, dtype=None, route="kernel"):
+    """The sign work of one Flipout MC-``draws`` batch at ``batch`` images
+    through the draw loop (what ``chip_smoke.py``'s phase 26 runs a
+    batch): per draw and layer its input's flip (K-H1) and its output's
+    combine (K-H2) in ``dtype`` (bf16 by default), and the INT8 layer's two
+    sign products on uint8 tensors (K-H3, the output channels-last as
+    ``ops.int8.qconv`` gives it), each under salts of its own. One input of
+    each shape serves every draw. ``route``: "kernel" (the K-H wrappers),
+    "plain" (their plain versions) or "hash" (``rademacher_fused`` and the
+    product, the route before K-H). Returns {kernel: (fn, bytes a call,
+    elements a call)}."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops import int8 as q
+    from bayesian_torch_tpu_torch.ops import sampling as ts
+
+    dtype = torch.bfloat16 if dtype is None else dtype
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    sites = resnet50_sites(batch)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    def uint8(shape, last=False):
+        a = torch.randint(0, 256, shape, generator=gen, device="cuda",
+                          dtype=torch.uint8)
+        return a.contiguous(memory_format=torch.channels_last) \
+            if last and a.dim() == 4 else a
+
+    xs = [randn(i) for i, _ in sites]
+    means = [randn(o) for _, o in sites]
+    perts = [randn(o) for _, o in sites]
+    a_in = [uint8(i) for i, _ in sites]
+    a_out = [uint8(o, last=True) for _, o in sites]
+    sa, za, ss, zs, so, zo = QSIGN_SCALES
+    if route == "hash":
+        def flip(x, d, side):
+            return x * ts.rademacher_fused(_sign_salt(d, side), x.shape,
+                                           x.dtype, x.device)
+
+        def combine(m, p, d):
+            return m + p * ts.rademacher_fused(_sign_salt(d, 1), p.shape,
+                                               p.dtype, p.device)
+
+        def qsign(a, d, side):
+            sign = ts.rademacher_fused(_sign_salt(d, side), a.shape,
+                                       torch.float32, a.device)
+            return q.qmul(a, sa, q.quantize_uint8(sign, ss, zs), ss, so, zo,
+                          a_zp=za, b_zp=zs, out_dtype=torch.uint8)
+    else:
+        from bayesian_torch_tpu_torch.ops.cuda import flipout_signs as kh
+
+        plain = route == "plain"
+        fl = kh.sign_flip_plain if plain else kh.sign_flip
+        co = kh.sign_combine_plain if plain else kh.sign_combine
+        qs = kh.qsign_mul_plain if plain else kh.qsign_mul
+
+        def flip(x, d, side):
+            return fl(x, ts.sign_block([_sign_salt(d, side)], x.shape))
+
+        def combine(m, p, d):
+            return co(m, p, ts.sign_block([_sign_salt(d, 1)], p.shape))
+
+        def qsign(a, d, side):
+            return qs(a, sa, za, ts.sign_block([_sign_salt(d, side)],
+                                               a.shape), ss, zs, so, zo)
+
+    def run_flip():
+        for d in range(draws):
+            for x in xs:
+                flip(x, d, 0)
+
+    def run_combine():
+        for d in range(draws):
+            for m, p in zip(means, perts):
+                combine(m, p, d)
+
+    def run_qsign():
+        for d in range(draws):
+            for a, b in zip(a_in, a_out):
+                qsign(a, d, 0)
+                qsign(b, d, 1)
+
+    n_in = draws * sum(x.numel() for x in xs)
+    n_out = draws * sum(m.numel() for m in means)
+    size = torch.finfo(dtype).bits // 8
+    return {"K-H1": (run_flip, 2 * size * n_in, n_in),
+            "K-H2": (run_combine, 3 * size * n_out, n_out),
+            "K-H3": (run_qsign, 2 * (n_in + n_out), n_in + n_out)}
+
+
+def sign_bound(nbytes, elements):
+    """(bound ms, its term): the bytes at the card's rate, or the hash's
+    integer instructions at its issue rate, whichever is longer."""
+    terms = dict(bytes=nbytes / HBM_BPS * 1e3,
+                 operations=elements * PER_SIGN / ISSUE_RATE * 1e3)
+    term = max(terms, key=terms.get)
+    return terms[term], term
+
+
+def signs(out):
+    """K-H1, K-H2 and K-H3 over one Flipout MC-10 bs128 batch's sign work
+    through the draw loop (``sign_work``): each kernel's device time beside
+    its plain version's and its bound; in a checkout without K-H, the
+    route before it (the hash in torch, then the product), timed the same
+    way as the plain versions."""
+    import importlib.util
+
+    import torch
+
+    has_kh = importlib.util.find_spec(
+        "bayesian_torch_tpu_torch.ops.cuda.flipout_signs") is not None
+    routes = ("kernel", "plain") if has_kh else ("hash",)
+    for route in routes:
+        work = sign_work(route=route)
+        for name, (fn, nbytes, elements) in work.items():
+            if route == "kernel":
+                tag = QSIGN_TAG if name == "K-H3" else SIGN_TAG
+                ms = device_times((fn, tag))[0]
+            else:
+                # the plain routes run ~15 torch passes a tensor: one warm
+                # call, then one timed by CUDA events
+                fn()
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                ms = start.elapsed_time(end)
+            bound, term = sign_bound(nbytes, elements)
+            r = dict(kernel=name, route=route, ms=ms, bound_ms=bound,
+                     bound_by=term, gbytes=nbytes / 1e9)
+            print(f"[signs] {r}", flush=True)
+            out.append(r)
+        del work
+        torch.cuda.empty_cache()
+
+
+def flipout(out):
+    """The Flipout paths that K-H serves, in any checkout: Flipout
+    ResNet-50 (bf16) MC-10 bs128 inference through the loop and the vmap
+    emission and the MC-4 bs128 ELBO step through the loop, host wall ms
+    (median of 3 after a warm-up), two profiled runs each (device busy ms,
+    idle share, K-H's device ms) and the step's peak memory; then the INT8
+    ``qresnet50`` (Flipout, calibrated on 3 x 32 images, conv+BN folded,
+    uint8 activations) MC-10 bs128 batch the same way."""
+    import torch
+    from torch import nn
+
+    from bayesian_torch_tpu_torch.examples._engine import make_train_step
+    from bayesian_torch_tpu_torch.models.bayesian import (
+        resnet_flipout_large,
+    )
+    from bayesian_torch_tpu_torch.models.bayesian.\
+        quantized_resnet_flipout_large import qresnet50
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def images(n=BATCH):
+        return torch.randn(n, 3, IMAGE, IMAGE, generator=gen, device="cuda")
+
+    tags = dict(kh=SIGN_TAG, kh3=QSIGN_TAG, kf="qmatmul")
+
+    def measure(what, fn, reps=3):
+        walls = [wall_ms(fn) for _ in range(reps + 1)][1:]
+        report(out, "flipout", what, walls,
+               [window(fn, tags) for _ in range(2)])
+
+    model = resnet_flipout_large.resnet50(
+        num_classes=1000, generator=torch.Generator().manual_seed(8),
+        device="cuda")
+    for mod in model.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.bfloat16
+    bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+    for m in bns:
+        m.momentum = None
+    model.train()
+    with torch.no_grad():
+        model(images())
+    for m in bns:
+        m.momentum = 0.1
+    model.eval()
+    x = images()
+    for emission in ("scan", "vmap"):
+        def infer():
+            with torch.no_grad():
+                mc_forward(model, x, S, reduce="mean", return_kl=False,
+                           emission=emission)
+        measure(f"Flipout loop MC-{S} bs{BATCH}" if emission == "scan"
+                else f"Flipout vmap MC-{S} bs{BATCH}", infer)
+    model.train()
+    opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    step = make_train_step(TRAIN_MC, BATCH, emission="scan")
+    y = torch.randint(0, 1000, (BATCH,), generator=gen, device="cuda")
+
+    def train():
+        step(model, opt, x, y)
+
+    train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    measure(f"Flipout loop MC-{TRAIN_MC} bs{BATCH} ELBO step", train)
+    out[-1]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[flipout] peak {out[-1]['peak_gib']:.2f} GiB", flush=True)
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    def calibrate(m):
+        prepared = [v for v in m.modules()
+                    if getattr(v, "quant_prepare", False)]
+        for v in prepared:
+            v.quant_prepare = False
+        bn = [v for v in m.modules() if isinstance(v, nn.BatchNorm2d)]
+        for v in bn:
+            v.momentum = None
+        m.train()
+        with torch.no_grad():
+            m(images(32))
+        for v in bn:
+            v.momentum = 0.1
+        m.eval()
+        for v in prepared:
+            v.quant_prepare = True
+        with torch.no_grad():
+            for _ in range(3):
+                m(images(32))
+
+    qmodel = qresnet50(generator=torch.Generator().manual_seed(9),
+                       device="cuda", calibrate=calibrate,
+                       fuse_conv_bn=True, quantize_activations=True)
+
+    def qinfer():
+        with torch.no_grad():
+            mc_forward(qmodel, x, S, reduce="mean", return_kl=False)
+
+    measure(f"INT8 Flipout qresnet50 MC-{S} bs{BATCH}", qinfer)
+    del qmodel
+    torch.cuda.empty_cache()
+
+
 SECTIONS = dict(sampler=sampler, sampled=sampled, windowed=windowed,
                 paths=paths, kg=kg_sites, kg_cl=kg_cl_sites, probe=probe,
-                kf=kf, nhwc=nhwc_dot)
+                kf=kf, nhwc=nhwc_dot, signs=signs, flipout=flipout)
 
 
 def main(argv=None):

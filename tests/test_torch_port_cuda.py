@@ -13,8 +13,10 @@ SCNN's GEMM shapes), K-A and K-C at the CIFAR ResNet's layer sizes, K-G
 K-G channels-last (the NHWC pointwise emission) in bf16 and f32,
 K-A and K-C under a counter window (a rank's lanes, a tensor-parallel
 shard's rows; the LSTM's draws and signs under a mesh's window) against
-the whole launch, and K-B, K-D and K-E under a window against their
-windowed plain versions. They skip without a
+the whole launch, K-B, K-D and K-E under a window against their
+windowed plain versions, and K-H (the Flipout signs inside their
+products: the sign flip, the combine, the INT8 sign product) in every
+layout the Flipout paths give it, with its gradients. They skip without a
 CUDA device. On a machine with one, and without JAX, run them with
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
@@ -1380,3 +1382,144 @@ def test_windowed_noise_grad_equals_the_whole_launch(cuda, g_dtype, n,
         got = ka.drho(seed, one, rho[part], window=(0, n, r * rows))
         assert torch.equal(got, ka.drho(seed, placed1, rho)[part]), r
     torch.cuda.synchronize()
+
+
+# --- K-H: the Flipout signs inside their products ----------------------------
+
+
+def _sign_forms():
+    """(name, SignBlock) of every form the Flipout paths lay signs out in:
+    one tensor, lanes at an NCHW, NHWC and linear axis, a window's rows, a
+    shard's output channels, the LSTM's block, 300 lanes (two launches)."""
+    from bayesian_torch_tpu_torch.ops import sampling as ts
+
+    salts = [ts.sign_salts(77, s)[s % 2] for s in range(300)]
+    forms = [("single", ts.sign_block(salts[:1], (3, 5, 7, 9))),
+             ("NCHW lanes", ts.sign_block(salts[:10], (4, 6, 7, 7), 1)),
+             ("NHWC lanes", ts.sign_block(salts[:10], (4, 7, 7, 6), 3)),
+             ("linear lanes", ts.sign_block(salts[:4], (5, 33), 1)),
+             ("ragged", ts.sign_block(salts[:3], (3, 3, 1, 5), 1)),
+             ("300 lanes", ts.sign_block(salts, (2, 3, 8), 1)),
+             ("LSTM block", ts.SignBlock((salts[5],), (2, 4, 3, 8),
+                                         (5, 4, 6, 8), (2, 0, 3, 0)))]
+    with ts.draw_window(ts.DrawWindow(0, 10, 10, 2, 4, 8)):
+        forms.append(("window rows",
+                      ts.sign_block(salts[:10], (4, 6, 5, 5), 1)))
+    with ts.tp_shard(1, 2, 1):
+        forms.append(("shard channels", ts.sign_block(
+            salts[:10], (4, 6, 5, 5), 1, output=True)))
+    with ts.tp_shard(1, 2, -1):
+        forms.append(("NHWC shard", ts.sign_block(
+            salts[:10], (4, 5, 5, 6), 3, output=True)))
+    return forms
+
+
+def _shared(shape, block):
+    if block.axis is None:
+        return shape
+    return shape[:block.axis] + (1,) + shape[block.axis + 1:]
+
+
+@pytest.mark.parametrize("form", range(10))
+def test_sign_kernels_equal_plain_in_every_form(cuda, form):
+    """K-H1 (the signs, x one a lane and shared, f32 / bf16 / f16 / f64,
+    a channels-last x), K-H2 (mean one a lane and shared) and K-H3 (uint8)
+    against their plain versions on the card, bit for bit."""
+    from bayesian_torch_tpu_torch.ops.cuda import flipout_signs as kh
+
+    name, block = _sign_forms()[form]
+    full = block.lanes_shape
+    g = torch.Generator().manual_seed(form)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16,
+                  torch.float64):
+        signs = kh.sign_flip(None, block, dtype, cuda)
+        assert torch.equal(signs, kh.signs_plain(block, dtype, cuda)), name
+        for shape in (full, _shared(full, block)):
+            x = torch.randn(shape, generator=g).to(cuda, dtype)
+            assert torch.equal(kh.sign_flip(x, block),
+                               kh.sign_flip_plain(x, block)), (name, dtype)
+    if len(full) == 5:
+        x = torch.randn(full, generator=g).to(cuda).to(
+            memory_format=torch.channels_last_3d)
+        assert torch.equal(kh.sign_flip(x, block),
+                           kh.sign_flip_plain(x, block)), name
+    for dtype in (torch.float32, torch.bfloat16):
+        pert = torch.randn(full, generator=g).to(cuda, dtype)
+        for shape in (full, _shared(full, block)):
+            mean = torch.randn(shape, generator=g).to(cuda, dtype)
+            assert torch.equal(kh.sign_combine(mean, pert, block),
+                               kh.sign_combine_plain(mean, pert, block)), \
+                (name, dtype)
+    a = torch.randint(0, 256, full, generator=g, dtype=torch.uint8).to(cuda)
+    for scales in ((0.031, 117.0, 0.0079, 127.0, 0.045, 121.0),
+                   (0.2, 128.0, 0.2, 128.0, 0.2, 128.0)):
+        sa, za, ss, zs, so, zo = scales
+        assert torch.equal(
+            kh.qsign_mul(a, sa, za, block, ss, zs, so, zo),
+            kh.qsign_mul_plain(a, sa, za, block, ss, zs, so, zo)), name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [False, True])
+def test_sign_kernel_gradients_equal_plain_autograd(cuda, dtype, shared):
+    """d(x * s)/dx through K-H1 and d(mean + pert * s) through K-H2 on the
+    card equal autograd through the plain expressions, and each launch is
+    counted."""
+    from bayesian_torch_tpu_torch.ops import sampling as ts
+    from bayesian_torch_tpu_torch.ops.cuda import flipout_signs as kh
+
+    block = ts.sign_block([ts.sign_salts(5, s)[0] for s in range(4)],
+                          (8, 16, 6, 6), 1)
+    full = block.lanes_shape
+    part = _shared(full, block) if shared else full
+    g = torch.Generator().manual_seed(3)
+    x, mean = (torch.randn(part, generator=g).to(cuda, dtype)
+               for _ in range(2))
+    pert = torch.randn(full, generator=g).to(cuda, dtype)
+    cot = torch.randn(full, generator=g).to(cuda, dtype)
+    sign = kh.signs_plain(block, dtype, cuda)
+
+    def grads(fn, *ts_):
+        ins = [t.clone().requires_grad_(True) for t in ts_]
+        out = fn(*ins)
+        return [out] + list(torch.autograd.grad(out, ins, cot))
+
+    before = kh.sign_flip.launches, kh.sign_combine.launches
+    for got, want in ((grads(lambda v: kh.sign_flip(v, block), x),
+                       grads(lambda v: v * sign, x)),
+                      (grads(lambda m, p: kh.sign_combine(m, p, block),
+                             mean, pert),
+                       grads(lambda m, p: m + p * sign, mean, pert))):
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and torch.equal(a, b)
+    # the flip forward and backward, the combine's backward flip
+    assert kh.sign_flip.launches - before[0] == 3
+    assert kh.sign_combine.launches - before[1] == 1
+
+
+def test_sign_kernel_second_derivatives_equal_plain_autograd(cuda):
+    """The K-H backwards are K-H1 as a Function again: a derivative of a
+    gradient (create_graph) through K-H1 and K-H2 on the card equals
+    autograd through the plain expressions."""
+    from bayesian_torch_tpu_torch.ops import sampling as ts
+    from bayesian_torch_tpu_torch.ops.cuda import flipout_signs as kh
+
+    block = ts.sign_block([ts.sign_salts(6, s)[0] for s in range(4)],
+                          (8, 16, 6, 6), 1)
+    g = torch.Generator().manual_seed(4)
+    x0, w = (torch.randn(block.lanes_shape, generator=g).to(cuda)
+             for _ in range(2))
+    sign = kh.signs_plain(block, torch.float32, cuda)
+
+    def second(flip, combine):
+        v = x0.clone().requires_grad_(True)
+        loss = (flip(v) * v).sum() + (combine(v, v * 2) * w * v).sum()
+        d, = torch.autograd.grad(loss, v, create_graph=True)
+        return [d] + list(torch.autograd.grad((d * d).sum(), v))
+
+    got = second(lambda v: kh.sign_flip(v, block),
+                 lambda m, p: kh.sign_combine(m, p, block))
+    want = second(lambda v: v * sign, lambda m, p: m + p * sign)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)

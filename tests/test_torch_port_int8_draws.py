@@ -23,9 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-import bayesian_torch_tpu_torch.layers.quantized_base as tqb
 from bayesian_torch_tpu_torch.layers.quantized_base import (NORMAL_SCALE,
                                                              _QuantizedLayerBase)
+from bayesian_torch_tpu_torch.ops.cuda import flipout_signs as kh
 from bayesian_torch_tpu_torch.ops.cuda import qmatmul as kf
 from bayesian_torch_tpu_torch.ops.sampling import module_generators
 from bayesian_torch_tpu_torch.parallel import mc as tmc
@@ -240,7 +240,10 @@ def test_each_lane_equals_jax_with_its_draw_carried(monkeypatch, estimator):
             signs.append(src(shape))
         return torch.from_numpy(np.stack(signs, axis=axis)).to(dtype)
 
-    monkeypatch.setattr(tqb, "rademacher_lanes", lanes_of_jax_signs)
+    monkeypatch.setattr(
+        kh, "signs_plain", lambda block, dtype=torch.float32, device=None:
+        lanes_of_jax_signs(block.salts, block.shape, dtype, device,
+                           axis=block.axis))
     got = tmc.mc_forward(tm, _t(x), LANES, return_kl=False, presample="on",
                          emission="vmap").numpy()
     assert len(calls) == (PER_FORWARD if flip else 0)

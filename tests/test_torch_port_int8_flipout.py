@@ -259,12 +259,14 @@ def test_flipout_signs_and_eps_moments():
         unfreeze_quantized_draws)
     _, tl, shape, _ = _converted_pair("Conv2dFlipout", True, seed=7)
     n = 200_000
-    a, b = tl._signs((n,), (n,), "cpu", None, None)
+    from bayesian_torch_tpu_torch.ops.cuda.flipout_signs import signs_plain
+    a, b = map(signs_plain, tl._signs((n,), (n,), None, None))
     assert set(torch.unique(a).tolist()) == {-1.0, 1.0}
     for signs in (a, b):
         assert abs(float(signs.mean())) < 5 / n ** 0.5
     assert not torch.equal(a, b)
-    assert not torch.equal(a, tl._signs((n,), (n,), "cpu", None, None)[0])
+    assert not torch.equal(a, signs_plain(tl._signs((n,), (n,), None,
+                                                    None)[0]))
     eps = torch.randn((n,), generator=device_generator(tl.generator, "cpu"))
     assert abs(float(eps.mean())) < 5 / n ** 0.5
     assert abs(float(eps.var()) - 1) < 0.02
@@ -566,7 +568,7 @@ def test_flipout_prepare_calibrate_convert_matches_jax(monkeypatch, case):
     ``test_prepare_calibrate_convert_matches_jax``: within 3 head quanta,
     at least 90 % equal (the pool's f32 sums and, with float BN, the BN
     formulas may differ in the last ulp)."""
-    import bayesian_torch_tpu_torch.layers.quantized_base as tqb
+    from bayesian_torch_tpu_torch.ops.cuda import flipout_signs as kh
     from bayesian_torch_tpu.quantization import (
         convert as jconvert, freeze_quantized_draws as jfreeze,
         prepare as jprepare)
@@ -598,7 +600,9 @@ def test_flipout_prepare_calibrate_convert_matches_jax(monkeypatch, case):
     x = _images(30)
     want = np.asarray(jm(jnp.asarray(x))[0])
     jax_calls, src.calls = src.calls, 0
-    monkeypatch.setattr(tqb, "rademacher_fused", src.torch)
+    monkeypatch.setattr(
+        kh, "signs_plain", lambda block, dtype=torch.float32, device=None:
+        src.torch(None, block.lanes_shape, dtype, device))
     got, kl = tm(_t(x))
     assert src.calls == jax_calls == 18  # two signs a layer
     got = got.numpy()

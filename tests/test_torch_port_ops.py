@@ -346,7 +346,7 @@ def test_kernel_build_is_lazy_and_content_named():
     assert a == _build.library_path()
     assert a.parent == _build.BUILD_DIR and a.suffix == ".so"
     assert {p.name for p in _build._sources()} == {
-        "mc_gemm.cu", "qmatmul.cu", "sampled_matmul.cu",
+        "flipout_signs.cu", "mc_gemm.cu", "qmatmul.cu", "sampled_matmul.cu",
         "sampled_matmul_bwd.cu", "sampled_weights.cu",
         "sampled_weights_bwd.cu"}
     assert _build.load_library.cache_info().currsize == 0
