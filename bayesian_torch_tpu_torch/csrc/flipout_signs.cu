@@ -11,15 +11,25 @@
 //   width, bit for bit torch's multiply by +-1), or, without x, the signs;
 // - K-H2 btt_sign_combine: y = mean + pert * sign, the sum in f32 (f64 for
 //   f64) rounded once to the output type, as torch adds;
-// - K-H3 btt_qsign_mul: the INT8 Flipout product qmul(a, quantize_uint8(
-//   sign)) of ops/int8.py: the sign picks one of the two centred uint8
-//   values of +-1, then qmul's f32 multiply, round half to even, zero point
-//   and clamp to [0, 255].
+// - K-H3 btt_qsign_mul: the INT8 Flipout layer's input pass. The product
+//   qmul(a, quantize_uint8(sign)) of ops/int8.py: the sign picks one of the
+//   two centred uint8 values of +-1, then qmul's f32 multiply, round half
+//   to even, zero point and clamp to [0, 255]. Given a second output, a is
+//   a QTensor's payload, first requantized as QTensor.requantize does
+//   (ops/qtensor.py); the pass writes that x_q beside the product, from
+//   the same registers, so the payload is read once. (The output side's
+//   sign product runs in K-F's Flipout epilogue, qmatmul.cu.)
 //
-// What bounds it on an H100: memory. Each operand element is read once and
-// each output element written once; the hash is about ten integer
-// instructions an element. K-H3 moves two bytes a sign, half of K-H1's, and
-// runs at half its bound's rate (PERF.md, section 6).
+// What bounds it on an H100: memory for K-H1 and K-H2. Each operand
+// element is read once and each output element written once; the hash is
+// about ten integer instructions an element. K-H3 moves two bytes a sign
+// (three with the requantize), a third or less of K-H2's, and its
+// arithmetic weighs more: run with three conversions an element (I2F,
+// FRND, F2I: 16 a clock on an SM, so 0.19 clocks an element against the
+// 0.16 that its two bytes take at 3.35 TB/s) it reached half its bytes
+// bound. Its f32 steps avoid the conversion unit (uint8_ops.cuh); what is
+// left is the hash's and the clamps' integer instructions, which issue at
+// half the FMA rate and bind it (PERF.md, section 6).
 //
 // Design. One index mapping covers every form the callers take (a whole
 // tensor, a DrawWindow's rows, a tensor-parallel shard's channels, the
@@ -29,9 +39,11 @@
 // merged. Each dim has a counter stride (the element's step in the flat
 // index of the whole tensor whose block this is), a lane stride (1 on the
 // dim that holds the lanes, each lane with its own salt) and an element
-// stride for the output and each operand (0 where an operand is shared).
-// A thread takes a chunk of consecutive elements of that walk (16; K-H3's
-// 32 bytes, since its reads in flight bound it): it splits the first one's
+// stride for the output and each operand (0 where an operand is shared;
+// K-H3's input pass writes its second output, x_q, at the second operand's
+// strides). A thread takes a chunk of consecutive elements of that walk
+// (16; K-H3's 32 bytes, two 16-byte accesses an operand): it splits the
+// first one's
 // index into coordinates once (in 32 bits below 2^31 elements); where the
 // chunk stays on one row of the innermost dim it steps the counter (in 32
 // bits) and the offsets by that dim's strides, with 16-byte accesses where
@@ -44,6 +56,7 @@
 #include <stdint.h>
 
 #include "noise.cuh"
+#include "uint8_ops.cuh"
 
 #define BTT_SIGN_DIMS 8
 #define BTT_SIGN_LANES 256
@@ -238,35 +251,97 @@ struct CombineOp {
   }
 };
 
-// K-H3: clamp(round(f32((a - a_zp) * b) * mult) + out_zp, 0, 255) with b
-// the centred uint8 value of +1 or -1.
+// 32 bytes as eight words: 16-byte loads where contiguous and aligned,
+// else byte by byte at the element stride.
+__device__ __forceinline__ void load_words(const uint8_t* base, int64_t off,
+                                           int64_t stride, uint32_t (&w)[8]) {
+  const uint8_t* p = base + off;
+  if (stride == 1 && reinterpret_cast<uintptr_t>(p) % 16 == 0) {
+    const uint4* src = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const uint4 t = src[i];
+      w[4 * i] = t.x, w[4 * i + 1] = t.y, w[4 * i + 2] = t.z,
+      w[4 * i + 3] = t.w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) w[i] = 0u;
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+    w[j / 4] |= (uint32_t)p[j * stride] << (8 * (j % 4));
+}
+
+__device__ __forceinline__ void store_words(uint8_t* base, int64_t off,
+                                            int64_t stride,
+                                            const uint32_t (&w)[8]) {
+  uint8_t* p = base + off;
+  if (stride == 1 && reinterpret_cast<uintptr_t>(p) % 16 == 0) {
+    uint4* dst = reinterpret_cast<uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      dst[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+    p[j * stride] = (uint8_t)(w[j / 4] >> (8 * (j % 4)));
+}
+
+// K-H3: y = clamp(round(f32((a - a_zp) * b) * mult) + out_zp, 0, 255),
+// b the centred uint8 value of +1 or -1; with kRequant, a is first
+// clamp(round((q - in_zp) * rq) + rq_zp, 0, 255) of the payload q, written
+// to xq (at the geometry's second operand strides). Conversion-free
+// (uint8_ops.cuh).
+template <bool kRequant>
 struct QSignOp {
   static constexpr int kN = kQChunk;
   const uint8_t* a;
   uint8_t* y;
-  int a_zp, pos, neg;
-  float mult, out_zp;
+  uint8_t* xq;
+  float a_zp, pos, neg, mult, out_zp;
+  float in_zp, rq, rq_zp;
 
-  __device__ __forceinline__ uint8_t one(uint8_t av, uint32_t n) const {
-    const int prod = ((int)av - a_zp) * (n ? neg : pos);
-    float q = __fadd_rn(rintf(__fmul_rn((float)prod, mult)), out_zp);
-    q = fminf(fmaxf(q, 0.f), 255.f);
-    return (uint8_t)q;
+  // one element: the byte's f32 value in, the product's biased word out
+  // (and, with kRequant, x_q's biased word in xb)
+  __device__ __forceinline__ uint32_t one(float av, uint32_t n,
+                                          uint32_t& xb) const {
+    using namespace btt_u8;
+    if constexpr (kRequant) {
+      xb = to_u8(clamp255(__fadd_rn(
+          round_even(__fmul_rn(__fsub_rn(av, in_zp), rq)), rq_zp)));
+      av = u8_value(xb);
+    }
+    return to_u8(qmul_sign(av, a_zp, n ? neg : pos, mult, out_zp));
   }
 
   __device__ __forceinline__ void run_chunk(int64_t yo, int64_t ys,
-                                            int64_t ao, int64_t as, int64_t,
-                                            int64_t, uint32_t negs) const {
-    uint8_t v[kN];
-    load_chunk(a, ao, as, v);
+                                            int64_t ao, int64_t as,
+                                            int64_t bo, int64_t bs,
+                                            uint32_t negs) const {
+    uint32_t w[8], yw[8], xw[8];
+    load_words(a, ao, as, w);
 #pragma unroll
-    for (int j = 0; j < kN; ++j) v[j] = one(v[j], (negs >> j) & 1u);
-    store_chunk(y, yo, ys, v);
+    for (int q = 0; q < 8; ++q) {
+      uint32_t o[4], x[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        o[i] = one(btt_u8::byte_f32(w[q], i), (negs >> (4 * q + i)) & 1u,
+                   x[i]);
+      yw[q] = btt_u8::pack4(o[0], o[1], o[2], o[3]);
+      if constexpr (kRequant) xw[q] = btt_u8::pack4(x[0], x[1], x[2], x[3]);
+    }
+    if constexpr (kRequant) store_words(xq, bo, bs, xw);
+    store_words(y, yo, ys, yw);
   }
 
-  __device__ __forceinline__ void run1(int64_t yo, int64_t ao, int64_t,
-                                       uint32_t neg) const {
-    y[yo] = one(a[ao], neg);
+  __device__ __forceinline__ void run1(int64_t yo, int64_t ao, int64_t bo,
+                                       uint32_t neg_) const {
+    uint32_t xb = 0u;
+    const uint32_t o = one((float)a[ao], neg_, xb);
+    if constexpr (kRequant) xq[bo] = (uint8_t)xb;
+    y[yo] = (uint8_t)o;
   }
 };
 
@@ -414,11 +489,20 @@ int btt_sign_combine(const void* mean, const void* pert, void* y, int dtype,
 }
 
 // K-H3. a and y uint8; pos and neg the centred uint8 values of +1 and -1.
+// xq NULL: a is the product's operand. Else a is a payload at zero point
+// in_zp, requantized by rq onto zero point rq_zp into xq (the geometry's
+// second operand), which is the product's operand.
 int btt_qsign_mul(const void* a, void* y, int a_zp, int pos, int neg,
-                  float mult, float out_zp, const BttSignGeom* g,
-                  void* stream) {
-  return launch(g, QSignOp{(const uint8_t*)a, (uint8_t*)y, a_zp, pos, neg,
-                           mult, out_zp},
+                  float mult, float out_zp, void* xq, int in_zp, float rq,
+                  float rq_zp, const BttSignGeom* g, void* stream) {
+  if (xq == nullptr)
+    return launch(g, QSignOp<false>{(const uint8_t*)a, (uint8_t*)y, nullptr,
+                                    (float)a_zp, (float)pos, (float)neg, mult,
+                                    out_zp, 0.f, 0.f, 0.f},
+                  stream);
+  return launch(g, QSignOp<true>{(const uint8_t*)a, (uint8_t*)y, (uint8_t*)xq,
+                                 (float)a_zp, (float)pos, (float)neg, mult,
+                                 out_zp, (float)in_zp, rq, rq_zp},
                 stream);
 }
 

@@ -41,12 +41,64 @@
 // epilogue requantizes from registers into shared memory, whence rows leave
 // in 16-byte stores. The TPU kernel's sequential K grid axis is the
 // in-block K loop.
+//
+// The Flipout epilogue (the kernel's second instantiation, its epilogue
+// argument a BttFlipEpilogue in place of the plain BttNoEpilogue; no TPU
+// kernel: the JAX package's INT8 Flipout layer leaves the chain after the
+// perturbation's product, layers/quantized_base.py:381-391, to one XLA
+// fusion). The perturbation's requantized uint8 p goes on through the rest
+// of that chain before it leaves:
+//   p2  = qmul(p, sign): clamp(round(f32((p - p_zp) * sgn) * m_sign)
+//                              + prod_zp, 0, 255)
+//   out = qadd(mean, p2): clamp(round((f32(mean) - mean_zp) * a_mean
+//                               + (f32(p2) - prod_zp) * a_prod) + out_zp,
+//                               0, 255)
+// with sgn the centred uint8 value of the element's sign (+1 or -1) and
+// mean the matching element of the mean product's output (the layer's
+// other GEMM). The sign of element (m, n), m = b * R + r, is bit 31 of
+// splitmix32(salt + (c + 1) * GOLDEN), c = c0 + b*cb + r*cr + n*cn mod
+// 2^32: one affine counter map covers NCHW and NHWC outputs, a linear
+// layer (R = 1), a window's rows and a shard's or a group's channels
+// (ops/cuda/flipout_signs.py::SignMap). It runs in the store loop, where a
+// thread holds 16 consecutive bytes of one row: it reads the mean's 16
+// bytes (coalesced, as the stores), hashes 16 signs and stores out in
+// place of p, so p, the signed p and the f32 passes of torch's qadd never
+// reach device memory: the 540 perturbation GEMMs of an INT8 Flipout
+// MC-10 bs128 batch read 14.2 G bytes of the mean more and write nothing
+// more, where the torch chain moved about 83 bytes an element.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
+#include "noise.cuh"
+#include "uint8_ops.cuh"
+
+extern "C" {
+
+// The Flipout epilogue's arguments, mirrored by
+// ops/cuda/qmatmul.py::_Epilogue.
+struct BttFlipEpilogue {
+  const uint8_t* mean;  // uint8 (M, N), rows ld_mean apart
+  int64_t ld_mean;
+  uint32_t salt, c0, cb, cr, cn;  // the sign map (mod 2^32)
+  int32_t R;
+  int32_t p_zp;      // p's zero point as qmul takes it (an int)
+  int32_t pos, neg;  // the centred uint8 values of +1 and -1
+  float m_sign;      // qmul's multiplier
+  float prod_zp;     // p2's zero point
+  float mean_zp;
+  float a_mean, a_prod;  // qadd's multipliers
+  float out_zp;
+};
+
+// The plain instantiation's (empty) epilogue argument.
+struct BttNoEpilogue {};
+
+}  // extern "C"
 
 namespace {
 
@@ -68,6 +120,10 @@ struct Tile {
   static int smem(int stages) { return stages * kStage + 1024 + 16 * stages; }
 };
 
+// The instantiation with the Flipout epilogue.
+template <class Epi>
+constexpr bool kFlip = std::is_same<Epi, BttFlipEpilogue>::value;
+
 template <int kBN>
 __device__ __forceinline__ void mma_step(int (&acc)[kBN / 2], uint64_t a,
                                          uint64_t b) {
@@ -87,14 +143,59 @@ __device__ __forceinline__ uint8_t requant(int acc, int corr, float mult,
   return (uint8_t)fminf(fmaxf(v, 0.f), 255.f);
 }
 
-template <int kBN>
+// The Flipout epilogue on the 16 requantized bytes v of row m, columns
+// [n, n + 16) (those at N and past it are never stored).
+__device__ __forceinline__ uint4 flipout16(const BttFlipEpilogue& e, uint4 v,
+                                          int m, int n, int N) {
+  using namespace btt_u8;
+  const uint8_t* src = e.mean + (int64_t)m * e.ld_mean + n;
+  uint32_t mw[4] = {0u, 0u, 0u, 0u};
+  if (n + 16 <= N && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const uint4 t = *reinterpret_cast<const uint4*>(src);
+    mw[0] = t.x, mw[1] = t.y, mw[2] = t.z, mw[3] = t.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (n + j < N) mw[j / 4] |= (uint32_t)src[j] << (8 * (j % 4));
+  }
+  const uint32_t b = (uint32_t)m / (uint32_t)e.R;
+  const uint32_t r = (uint32_t)m - b * (uint32_t)e.R;
+  const uint32_t c = e.c0 + b * e.cb + r * e.cr + (uint32_t)n * e.cn;
+  const uint32_t h0 = e.salt + (c + 1u) * BTT_GOLDEN;
+  const uint32_t hs = e.cn * BTT_GOLDEN;
+  const float p_zp = (float)e.p_zp;
+  const float pos = (float)e.pos, neg = (float)e.neg;
+  const uint32_t pw[4] = {v.x, v.y, v.z, v.w};
+  uint32_t out[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 4 * q + i;
+      const float sgn =
+          (int32_t)btt_splitmix32(h0 + (uint32_t)j * hs) < 0 ? neg : pos;
+      const float p2 = u8_value(to_u8(
+          qmul_sign(byte_f32(pw[q], i), p_zp, sgn, e.m_sign, e.prod_zp)));
+      const float s = __fadd_rn(
+          __fmul_rn(__fsub_rn(byte_f32(mw[q], i), e.mean_zp), e.a_mean),
+          __fmul_rn(__fsub_rn(p2, e.prod_zp), e.a_prod));
+      o[i] = to_u8(clamp255(__fadd_rn(round_even(s), e.out_zp)));
+    }
+    out[q] = pack4(o[0], o[1], o[2], o[3]);
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+template <int kBN, class Epi>
 __global__ void __launch_bounds__(kThreads, Tile<kBN>::kMinBlocks)
     qmatmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                          const __grid_constant__ CUtensorMap wmap,
                          const int32_t* __restrict__ corr,
                          const float* __restrict__ bias,
                          uint8_t* __restrict__ out, int M, int N, int K,
-                         float mult, float out_zp, int stages) {
+                         float mult, float out_zp, int stages,
+                         const Epi flip) {
   using T = Tile<kBN>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = btt::smem_addr(smem_raw);
@@ -188,8 +289,8 @@ __global__ void __launch_bounds__(kThreads, Tile<kBN>::kMinBlocks)
     const int m = m0 + wg * 64 + r;
     const int n = n0 + cc * 16;
     if (m >= M || n >= N) continue;
-    const uint4 v =
-        *reinterpret_cast<const uint4*>(stg + r * T::kOutLd + cc * 16);
+    uint4 v = *reinterpret_cast<const uint4*>(stg + r * T::kOutLd + cc * 16);
+    if constexpr (kFlip<Epi>) v = flipout16(flip, v, m, n, N);
     uint8_t* dst = out + (int64_t)m * N + n;
     if (n + 16 <= N && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
       *reinterpret_cast<uint4*>(dst) = v;
@@ -202,10 +303,10 @@ __global__ void __launch_bounds__(kThreads, Tile<kBN>::kMinBlocks)
   }
 }
 
-template <int kBN>
+template <int kBN, class Epi>
 int launch(const uint8_t* x, const int8_t* w, const int32_t* corr,
            const float* bias, uint8_t* out, int M, int N, int K, float mult,
-           float out_zp, cudaStream_t stream) {
+           float out_zp, const Epi& flip, cudaStream_t stream) {
   using T = Tile<kBN>;
   CUtensorMap xmap, wmap;
   const cuuint64_t xdims[2] = {(cuuint64_t)K, (cuuint64_t)M};
@@ -225,12 +326,28 @@ int launch(const uint8_t* x, const int8_t* w, const int32_t* corr,
   const int stages = nk < kMaxStages ? nk : kMaxStages;
   static int allowed = -1;
   if (allowed != 0)
-    allowed = btt::allow_smem(qmatmul_wgmma_kernel<kBN>, T::smem(kMaxStages));
+    allowed = btt::allow_smem(qmatmul_wgmma_kernel<kBN, Epi>,
+                              T::smem(kMaxStages));
   if (allowed != 0) return allowed;
   const dim3 grid((N + kBN - 1) / kBN, (unsigned)mtiles);
-  qmatmul_wgmma_kernel<kBN><<<grid, kThreads, T::smem(stages), stream>>>(
-      xmap, wmap, corr, bias, out, M, N, K, mult, out_zp, stages);
+  qmatmul_wgmma_kernel<kBN, Epi>
+      <<<grid, kThreads, T::smem(stages), stream>>>(
+          xmap, wmap, corr, bias, out, M, N, K, mult, out_zp, stages, flip);
   return (int)cudaGetLastError();
+}
+
+template <class Epi>
+int dispatch(const uint8_t* x, const int8_t* w, const int32_t* corr,
+             const float* bias, uint8_t* out, int M, int N, int K, float mult,
+             float out_zp, const Epi& flip, cudaStream_t stream) {
+  if (M <= 0 || N <= 0) return (int)cudaSuccess;
+  if (K <= 0 || K % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return N <= 64 ? launch<64>(x, w, corr, bias, out, M, N, K, mult, out_zp,
+                              flip, stream)
+                 : launch<128>(x, w, corr, bias, out, M, N, K, mult, out_zp,
+                               flip, stream);
 }
 
 }  // namespace
@@ -245,14 +362,20 @@ int btt_qmatmul_requant(const uint8_t* x, const int8_t* w,
                         const int32_t* corr, const float* bias, uint8_t* out,
                         int M, int N, int K, float mult, float out_zp,
                         cudaStream_t stream) {
-  if (M <= 0 || N <= 0) return (int)cudaSuccess;
-  if (K <= 0 || K % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+  return dispatch(x, w, corr, bias, out, M, N, K, mult, out_zp,
+                  BttNoEpilogue{}, stream);
+}
+
+// The same with the Flipout epilogue: out is qadd(mean, qmul(p, sign)) of
+// the requantized product p; e->mean uint8 with rows e->ld_mean apart.
+int btt_qmatmul_requant_flipout(const uint8_t* x, const int8_t* w,
+                                const int32_t* corr, const float* bias,
+                                uint8_t* out, int M, int N, int K, float mult,
+                                float out_zp, const BttFlipEpilogue* e,
+                                cudaStream_t stream) {
+  if (e == nullptr || e->mean == nullptr || e->R < 1 || e->ld_mean < N)
     return (int)cudaErrorInvalidValue;
-  return N <= 64 ? launch<64>(x, w, corr, bias, out, M, N, K, mult, out_zp,
-                              stream)
-                 : launch<128>(x, w, corr, bias, out, M, N, K, mult, out_zp,
-                               stream);
+  return dispatch(x, w, corr, bias, out, M, N, K, mult, out_zp, *e, stream);
 }
 
 }  // extern "C"

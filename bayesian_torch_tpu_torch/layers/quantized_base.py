@@ -27,11 +27,14 @@ estimators (counterpart of ``bayesian_torch_tpu/layers/quantized_base.py``).
   output signs and added to the mean in uint8. The signs come from the
   counter hash (``ops.sampling.rademacher_fused``) under salts from the
   layer's generator, as the float Flipout layers draw theirs, hashed
-  inside the two sign products (K-H3, ``ops/cuda/flipout_signs.py``;
-  its plain version on the CPU) and never stored; the
-  calibrated path reads the 10-slot ``quant_dict`` (eps, delta, x,
-  outputs, sign_in, sign_out, x_tmp, pert_tmp, perturbed, out).
-  ``sign_in`` / ``sign_out`` may be injected.
+  inside the kernels that use them and never stored: the input's in K-H3
+  (``ops/cuda/flipout_signs.py``), which also requantizes a ``QTensor``
+  input in the same pass, the output's in K-F's Flipout epilogue
+  (``ops/cuda/qmatmul.py``), which takes the perturbation's product on
+  through its sign product and the add to the mean (their plain versions
+  on the CPU); the calibrated path reads the 10-slot ``quant_dict`` (eps,
+  delta, x, outputs, sign_in, sign_out, x_tmp, pert_tmp, perturbed, out).
+  ``sign_in`` / ``sign_out`` may be injected (tensors: the torch route).
 - The int8 GEMM or conv runs through ``ops/int8.py`` (K-F on the card),
   and the output is requantized; ``q_output`` emits a ``QTensor``,
   otherwise the dequantized f32 tensor.
@@ -51,14 +54,15 @@ layer's S sign salts (``_presampled_signs``).
 
 Under the draw axis (``_mc_draws`` = S, ``mc_forward``'s vmap emission)
 the input is (B, S*C, ...) (a linear layer's (..., S*K)) with draw s in
-block s, or shared and then tiled to S blocks, a float tensor or a
-``QTensor``. The S int8 weights are the presample record, or one build
+block s, or shared and then tiled to S blocks (by K-H3's input pass,
+for a ``QTensor``), a float tensor or a ``QTensor``. The S int8 weights are the presample record, or one build
 over the draw axis as ``presample`` makes it; a frozen draw serves every
 block; each draw has its own bias and the scales stay per layer. A conv
 runs as ``ops.int8.qconv`` grouped S*groups ways (one K-F GEMM a group,
 the loop's GEMMs), a linear layer as one K-F GEMM a block; Flipout's mean
-product takes ``mu`` in every block and its signs come per block from
-K-H3 with the lanes on that axis (``rademacher_lanes``' signs).
+product takes ``mu`` in every block and its signs come per block with the
+lanes on that axis (``rademacher_lanes``' signs): K-H3's with the lanes,
+K-F's Flipout epilogue a lane a GEMM.
 So each block equals the loop's draw bit for bit on the same record and
 signs.
 
@@ -82,7 +86,8 @@ from bayesian_torch_tpu_torch.layers.base_variational_layer import (
 )
 from bayesian_torch_tpu_torch.ops import int8 as q
 from bayesian_torch_tpu_torch.ops.conv import channels_last
-from bayesian_torch_tpu_torch.ops.cuda.flipout_signs import qsign_mul
+from bayesian_torch_tpu_torch.ops.cuda.flipout_signs import (OutputSigns,
+                                                          qsign_mul)
 from bayesian_torch_tpu_torch.ops.qtensor import QTensor
 from bayesian_torch_tpu_torch.ops.sampling import (device_generator,
                                                    draw_seed,
@@ -233,9 +238,11 @@ class _QuantizedLayerBase(BaseVariationalLayer):
         return float(d["scale"]), float(d["zero_point"])
 
     def _apply_int8(self, x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale,
-                    out_zp, num_draws=None):
+                    out_zp, num_draws=None, flipout=None):
         """The int8 product; with ``num_draws`` S, of S draws: ``w_q`` (S,
-        ...) and ``bias`` (S, O) over the S blocks of ``x_q``."""
+        ...) and ``bias`` (S, O) over the S blocks of ``x_q``. ``flipout``
+        (``ops.int8``'s epilogue, the mean laid out as the output): the
+        Flipout layer's output of this perturbation product."""
         if self.is_conv:
             groups = self.groups
             if num_draws:
@@ -249,14 +256,16 @@ class _QuantizedLayerBase(BaseVariationalLayer):
                            dilation=self.dilation, groups=groups,
                            transposed=self.transposed,
                            output_padding=self.output_padding,
-                           data_format=self.data_format)
+                           data_format=self.data_format, flipout=flipout)
         if not num_draws:
             return q.qlinear(x_q, x_scale, x_zp, w_q, w_scale, bias,
-                             out_scale, out_zp)
-        k = w_q.shape[-1]
+                             out_scale, out_zp, flipout)
+        k, n = w_q.shape[-1], w_q.shape[-2]
         return torch.cat([q.qlinear(
             x_q[..., s * k:(s + 1) * k], x_scale, x_zp, w_q[s], w_scale,
-            None if bias is None else bias[s], out_scale, out_zp)
+            None if bias is None else bias[s], out_scale, out_zp,
+            None if flipout is None else flipout._replace(
+                mean=flipout.mean[..., s * n:(s + 1) * n], lane=s))
             for s in range(num_draws)], dim=-1)
 
     def _draw_dim(self, ndim):
@@ -267,18 +276,26 @@ class _QuantizedLayerBase(BaseVariationalLayer):
             return 1
         return ndim - 1
 
+    def _shared_input(self, shape, num_draws):
+        """Whether an input of ``shape`` under ``num_draws`` draws is
+        shared by them (True) or holds one block a draw (False)."""
+        dim = self._draw_dim(len(shape))
+        width = self.in_channels if self.is_conv else self.in_features
+        if shape[dim] == width:
+            return True
+        if shape[dim] != num_draws * width:
+            raise ValueError(
+                f"{type(self).__name__} over {num_draws} draws: input has "
+                f"{shape[dim]} features on axis {dim}, want {width} "
+                f"(shared) or {num_draws * width} (one block per draw)")
+        return False
+
     def _tile_draws(self, x_q, num_draws):
         """A shared uint8 input (B, C, ...) tiled to S draw blocks; a
         blocked one as it is."""
-        dim = self._draw_dim(x_q.dim())
-        width = self.in_channels if self.is_conv else self.in_features
-        if x_q.shape[dim] == width:
+        if self._shared_input(x_q.shape, num_draws):
+            dim = self._draw_dim(x_q.dim())
             return torch.cat([x_q] * num_draws, dim=dim)
-        if x_q.shape[dim] != num_draws * width:
-            raise ValueError(
-                f"{type(self).__name__} over {num_draws} draws: input has "
-                f"{x_q.shape[dim]} features on axis {dim}, want {width} "
-                f"(shared) or {num_draws * width} (one block per draw)")
         return x_q
 
     def _quantize_input(self, x, scale, zp):
@@ -484,22 +501,24 @@ class _QuantizedLayerBase(BaseVariationalLayer):
         this call's salts, which K-H3 hashes inside the product
         (``_sign_mul``; its plain version on the CPU); with ``num_draws``,
         lane s under draw s's salts (the signs the loop's draw s takes)."""
+        salts = None
         if sign_in is None or sign_out is None:
             salts = self._sign_salts(num_draws)
+        return (self._side_signs(salts, 0, x_shape, sign_in, num_draws),
+                self._side_signs(salts, 1, out_shape, sign_out, num_draws))
 
-        def hashed(side, shape):
-            if not num_draws:
-                return sign_block([salts[side]], shape)
-            dim = self._draw_dim(len(shape))
-            one = list(shape)
-            one[dim] //= num_draws
-            return sign_block([pair[side] for pair in salts], one, axis=dim)
-
-        if sign_in is None:
-            sign_in = hashed(0, x_shape)
-        if sign_out is None:
-            sign_out = hashed(1, out_shape)
-        return sign_in, sign_out
+    def _side_signs(self, salts, side, shape, sign, num_draws=None):
+        """``sign`` if injected, else the ``SignBlock`` of side ``side``
+        (0: the input, 1: the output) of a tensor of ``shape`` under
+        ``salts``."""
+        if sign is not None:
+            return sign
+        if not num_draws:
+            return sign_block([salts[side]], shape)
+        dim = self._draw_dim(len(shape))
+        one = list(shape)
+        one[dim] //= num_draws
+        return sign_block([pair[side] for pair in salts], one, axis=dim)
 
     @staticmethod
     def _sign_mul(a_q, a_scale, a_zp, sign, sign_scale, sign_zp, out_scale,
@@ -515,6 +534,31 @@ class _QuantizedLayerBase(BaseVariationalLayer):
         return q.qmul(a_q, a_scale, sign_q, sign_scale, out_scale, out_zp,
                       a_zp=a_zp, b_zp=sign_zp, out_dtype=torch.uint8)
 
+    def _input_products(self, x, s2, z2, sign_in, s4, z4, s6, z6,
+                        num_draws):
+        """(x_q, x_tmp_q): the input quantized to (s2, z2) (tiled over the
+        draws) and its sign product at (s6, z6). A ``QTensor`` whose scales
+        differ goes through K-H3 once: its payload requantized and the
+        product from the same registers (a shared one written tiled);
+        otherwise the quantized input, then its sign product."""
+        if isinstance(sign_in, SignBlock) and isinstance(x, QTensor) \
+                and (x.scale, x.zp) != (s2, z2):
+            a = x.q
+            if sign_in.axis is not None:
+                a = a.unsqueeze(sign_in.axis) \
+                    if self._shared_input(a.shape, num_draws) \
+                    else a.reshape(sign_in.lanes_shape)
+            x_q, x_tmp_q = qsign_mul(a, s2, z2, sign_in, s4, z4, s6, z6,
+                                     requant=(x.scale, x.zp))
+            shape = list(sign_in.shape)
+            if num_draws:
+                shape[self._draw_dim(len(shape))] *= num_draws
+            return x_q.reshape(shape), x_tmp_q.reshape(shape)
+        x_q = self._quantize_input(x, s2, z2)
+        if num_draws:
+            x_q = self._tile_draws(x_q, num_draws)
+        return x_q, self._sign_mul(x_q, s2, z2, sign_in, s4, z4, s6, z6)
+
     def _forward_flipout(self, x, normal_scale, default_scale,
                          default_zero_point, sign_in, sign_out):
         num_draws = getattr(self, "_mc_draws", None)
@@ -529,16 +573,32 @@ class _QuantizedLayerBase(BaseVariationalLayer):
             z2 = z3 = z4 = z5 = z6 = z7 = z8 = z9 = default_zero_point
         delta_q, s1, pert_bias = self._this_draw(normal_scale, num_draws)
         mu_q, mu_b = self.quantized_mu_weight, self.quantized_mu_bias
-        x_q = self._quantize_input(x, s2, z2)
         if num_draws:
-            x_q = self._tile_draws(x_q, num_draws)
             mu_q, mu_b = _per_draw(mu_q, num_draws), _per_draw(mu_b,
                                                                num_draws)
+        salts = None
+        if sign_in is None or sign_out is None:
+            salts = self._sign_salts(num_draws)
+        x_shape = list(x.shape)
+        if num_draws and self._shared_input(x_shape, num_draws):
+            x_shape[self._draw_dim(len(x_shape))] *= num_draws
+        sign_in = self._side_signs(salts, 0, x_shape, sign_in, num_draws)
+        x_q, x_tmp_q = self._input_products(x, s2, z2, sign_in, s4, z4, s6,
+                                            z6, num_draws)
         outputs_q = self._apply_int8(x_q, s2, z2, mu_q, s_mu, mu_b, s3, z3,
                                      num_draws)
-        sign_in, sign_out = self._signs(x_q.shape, outputs_q.shape,
-                                        sign_in, sign_out, num_draws)
-        x_tmp_q = self._sign_mul(x_q, s2, z2, sign_in, s4, z4, s6, z6)
+        sign_out = self._side_signs(salts, 1, outputs_q.shape, sign_out,
+                                    num_draws)
+        if isinstance(sign_out, SignBlock):
+            # K-F's Flipout epilogue: the perturbation's product, its sign
+            # product and the add to the mean in one launch a GEMM
+            flip = q.FlipoutEpilogue(
+                outputs_q, s3, z3,
+                OutputSigns(sign_out, self._draw_dim(outputs_q.dim())),
+                s5, z5, s8, z8, s9, z9)
+            out_q = self._apply_int8(x_tmp_q, s6, z6, delta_q, s1,
+                                     pert_bias, s7, z7, num_draws, flip)
+            return self._emit(out_q, s9, z9)
         pert_q = self._apply_int8(x_tmp_q, s6, z6, delta_q, s1, pert_bias,
                                   s7, z7, num_draws)
         pert_q = self._sign_mul(pert_q, s7, z7, sign_out, s5, z5, s8, z8)

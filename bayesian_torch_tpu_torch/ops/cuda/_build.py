@@ -70,6 +70,10 @@ _SIGNATURES = {
     "btt_qmatmul_requant": (_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, ctypes.c_float, ctypes.c_float,
                             _P),
+    # the same, then the Flipout epilogue's arguments, stream
+    "btt_qmatmul_requant_flipout": (_P, _P, _P, _P, _P, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_float, ctypes.c_float, _P, _P),
     # x, w, bias (or NULL), y, dtype code, B, S, O, C, P, w row length,
     # x batch stride, x lane stride, w lane stride, bias lane stride, xvec,
     # wvec, stream
@@ -92,8 +96,10 @@ _SIGNATURES = {
     # mean, pert, y, dtype code, geometry, stream
     "btt_sign_combine": (_P, _P, _P, ctypes.c_int, _P, _P),
     # a, y, a zero point, centred uint8 of +1 and of -1, multiplier, out
-    # zero point, geometry, stream
+    # zero point, x_q (or NULL: no requantize), the payload's zero point,
+    # the requantize's multiplier and zero point, geometry, stream
     "btt_qsign_mul": (_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_float, ctypes.c_float, _P, ctypes.c_int,
                       ctypes.c_float, ctypes.c_float, _P, _P),
 }
 

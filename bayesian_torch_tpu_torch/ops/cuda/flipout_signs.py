@@ -16,7 +16,18 @@ across the lanes (on no other dim).
   their result dtype, the sum rounded once, as torch adds;
 - ``qsign_mul(a_q, a_scale, a_zp, block, sign_scale, sign_zp, out_scale,
   out_zp)``: K-H3, the INT8 Flipout product ``qmul(a_q,
-  quantize_uint8(signs))`` of ``ops/int8.py``, uint8 out.
+  quantize_uint8(signs))`` of ``ops/int8.py``, uint8 out; with
+  ``requant=(scale, zp)``, ``a_q`` is a ``QTensor`` payload at that scale
+  and zero point, first requantized to (a_scale, a_zp) as
+  ``QTensor.requantize`` does, and the call returns that x_q beside the
+  product (one read of the payload: the INT8 Flipout layer's input pass).
+
+The output side's signs run in K-F's Flipout epilogue
+(``ops/cuda/qmatmul.py::qmatmul_requant_flipout``), one GEMM at a time:
+``OutputSigns`` holds a layer output's ``SignBlock`` and gives each GEMM
+its ``SignMap``, the affine counter map of its (M, N) output, and, for the
+plain versions, its slice of the block's plain signs (hashed once a
+block).
 
 Each keeps its plain torch version beside it (the counter hash of
 ``ops/sampling.py`` as a tensor, then the product), taken for CPU tensors
@@ -35,6 +46,8 @@ import math
 
 import numpy as np
 import torch
+
+from typing import NamedTuple
 
 from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import _on_cpu
 from bayesian_torch_tpu_torch.ops.sampling import _M32, _hashes, _mix
@@ -136,15 +149,87 @@ def sign_uint8(sign_scale, sign_zp):
 
 
 def qsign_mul_plain(a_q, a_scale, a_zp, block, sign_scale, sign_zp,
-                    out_scale, out_zp):
+                    out_scale, out_zp, requant=None):
     """Plain torch version of K-H3: ``qmul(a_q, quantize_uint8(signs))``
-    to uint8, the signs in f32 as the INT8 layers draw them."""
+    to uint8, the signs in f32 as the INT8 layers draw them; with
+    ``requant`` (scale, zp), ``QTensor(a_q, *requant).requantize(a_scale,
+    a_zp)`` first, laid out as the signs, returned beside the product."""
     from bayesian_torch_tpu_torch.ops import int8 as q
+    from bayesian_torch_tpu_torch.ops.qtensor import QTensor
 
+    x_q = a_q
+    if requant is not None:
+        x_q = QTensor(a_q, *requant).requantize(a_scale, a_zp).q
+        x_q = x_q.expand(block.lanes_shape).clone()
     sign_q = q.quantize_uint8(signs_plain(block, torch.float32, a_q.device),
                               sign_scale, sign_zp)
-    return q.qmul(a_q, a_scale, sign_q, sign_scale, out_scale, out_zp,
-                  a_zp=a_zp, b_zp=sign_zp, out_dtype=torch.uint8)
+    out = q.qmul(x_q, a_scale, sign_q, sign_scale, out_scale, out_zp,
+                 a_zp=a_zp, b_zp=sign_zp, out_dtype=torch.uint8)
+    return out if requant is None else (x_q, out)
+
+
+class SignMap(NamedTuple):
+    """The signs of a GEMM's (M, N) output as K-F's Flipout epilogue
+    hashes them: element (m, n), m = b * R + r, takes bit 31 of
+    splitmix32(salt + (c + 1) * GOLDEN) with c = c0 + b*cb + r*cr + n*cn
+    mod 2**32."""
+
+    salt: int
+    c0: int
+    cb: int
+    cr: int
+    cn: int
+    R: int
+
+
+class OutputSigns:
+    """A layer output's signs as its GEMMs take them: ``block`` (one salt,
+    or lanes on the output's channel dim) over an output whose per-lane
+    shape ``block.shape`` holds its channels on ``channel_dim``; a GEMM
+    writes lane ``lane``'s channels [ch0, ch0 + N) as (M, N), its rows the
+    other dims in order. The plain signs of the whole block are hashed
+    once, at the first GEMM that asks (``signs_plain``, as K-H3's plain
+    version hashes a block)."""
+
+    def __init__(self, block, channel_dim):
+        self.block = block
+        self.channel_dim = channel_dim % len(block.shape)
+        self._plain = None
+
+    def sign_map(self, lane, ch0):
+        """The ``SignMap`` of the GEMM over lane ``lane``'s channels from
+        ``ch0``. Every dim but the first and the channels' is whole (a
+        window splits the rows, a shard or a group the channels)."""
+        block, cd = self.block, self.channel_dim
+        wstr = _whole_strides(block.whole)
+        base = sum(s * w for s, w in zip(block.start, wstr))
+        rows = [d for d in range(len(block.shape)) if d != cd]
+        cb = wstr[rows[0]] if rows else 0
+        cr = wstr[rows[-1]] if len(rows) > 1 else 0
+        step = cr
+        for d in reversed(rows[1:]):  # r steps the counter by cr
+            if block.shape[d] != block.whole[d] or block.start[d] or \
+                    wstr[d] != step:
+                raise ValueError(f"signs {block}: the GEMM rows' dim {d} "
+                                 "is not whole or not row-major past the "
+                                 "first")
+            step *= block.shape[d]
+        R = math.prod(block.shape[d] for d in rows[1:])
+        return SignMap(block.salts[lane] & _M32,
+                       (base + ch0 * wstr[cd]) & _M32, cb & _M32, cr & _M32,
+                       wstr[cd] & _M32, R)
+
+    def gemm_plain(self, lane, ch0, n, device):
+        """The f32 signs (M, n) of that GEMM: its slice of the block's
+        plain signs."""
+        if self._plain is None:
+            self._plain = signs_plain(self.block, torch.float32, device)
+        t = self._plain
+        if self.block.axis is not None:
+            t = t.select(self.block.axis, lane)
+        cd = self.channel_dim
+        t = t.narrow(cd, ch0, n).movedim(cd, -1)
+        return t.reshape(-1, n).to(device)
 
 
 # --- the kernels ------------------------------------------------------------
@@ -354,27 +439,49 @@ def sign_combine(mean, pert, block):
     return _SignCombine.apply(mean, pert, block)
 
 
+def f32(v):
+    """A Python scalar rounded once to f32, as torch takes it into an f32
+    op, as a Python float."""
+    return float(np.float32(v))
+
+
 def qsign_mul(a_q, a_scale, a_zp, block, sign_scale, sign_zp, out_scale,
-              out_zp):
+              out_zp, requant=None):
     """K-H3: ``qmul(a_q, quantize_uint8(signs, sign_scale, sign_zp))`` to
     (out_scale, out_zp) as uint8, ``a_q`` uint8 at (a_scale, a_zp) laid
-    out as ``block`` (or shared across its lanes)."""
+    out as ``block`` (or shared across its lanes). With ``requant`` (scale,
+    zp): ``a_q`` is a ``QTensor`` payload at that scale and (integer) zero
+    point, requantized to (a_scale, a_zp) in the same pass; returns (x_q
+    laid out as the signs, product)."""
     if a_q.dtype != torch.uint8:
         raise ValueError(f"qsign_mul takes a uint8 a_q, got {a_q.dtype}")
     _check_operand(a_q, block, "a_q")
+    if requant is not None and requant[1] != int(requant[1]):
+        raise ValueError(f"qsign_mul: a QTensor's zero point is an int, got "
+                         f"{requant[1]}")
     if _on_cpu(a_q):
         return qsign_mul_plain(a_q, a_scale, a_zp, block, sign_scale,
-                               sign_zp, out_scale, out_zp)
+                               sign_zp, out_scale, out_zp, requant)
     pos, neg = sign_uint8(sign_scale, sign_zp)
     b_zp = int(sign_zp)
     # qmul's multiplier, a Python float rounded once to f32 as torch
     # takes a scalar into an f32 product
-    mult = float(np.float32(a_scale * sign_scale * (1.0 / out_scale)))
+    mult = f32(a_scale * sign_scale * (1.0 / out_scale))
     y = _output(block, a_q, torch.uint8, a_q.device)
-    return _launch(qsign_mul, "btt_qsign_mul", block, y, [a_q],
-                   lambda yp, ops: (ops[0].data_ptr(), yp.data_ptr(),
-                                    int(a_zp), pos - b_zp, neg - b_zp, mult,
-                                    float(np.float32(out_zp))))
+    x_q = None
+    operands = [a_q]
+    rq = (0, 0.0, 0.0)
+    if requant is not None:
+        x_q = torch.empty_like(y)
+        operands.append(x_q)
+        # QTensor.requantize: (q - zp) * (scale / a_scale), then + a_zp
+        rq = (int(requant[1]), f32(requant[0] / a_scale), f32(a_zp))
+    _launch(qsign_mul, "btt_qsign_mul", block, y, operands,
+            lambda yp, ops: (ops[0].data_ptr(), yp.data_ptr(), int(a_zp),
+                             pos - b_zp, neg - b_zp, mult, f32(out_zp),
+                             ops[1].data_ptr() if len(ops) > 1 else None,
+                             *rq))
+    return y if x_q is None else (x_q, y)
 
 
 sign_flip.launches = 0

@@ -22,14 +22,27 @@ CUDA tensor launches the kernel or raises. The kernel's tensor maps need K
 a multiple of 16 and 16-byte aligned operands: a K off that grid is padded
 with zero columns (a zero weight adds nothing; ``ops.int8.qconv`` builds
 its patches that wide), an operand off that alignment is copied.
+
+``qmatmul_requant_flipout(..., epi)``: the same product with the Flipout
+epilogue (the kernel's second instantiation): the requantized uint8 p goes
+on through the rest of the INT8 Flipout layer's chain, ``qadd(mean,
+qmul(p, quantize_uint8(signs)))`` (``FlipoutEpilogue``), the signs hashed
+from the GEMM's ``SignMap`` (``ops/cuda/flipout_signs.py``), the mean read
+in the same pass. Its plain version is that chain in torch:
+``qmatmul_requant_plain``, the sign product of K-H3's plain version on the
+GEMM's signs, ``int8.qadd``. Its own ``launches`` count.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bayesian_torch_tpu_torch.ops.cuda.flipout_signs import f32, sign_uint8
 from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import _on_cpu
 
 
@@ -85,7 +98,9 @@ def _check(x_q, w_q, corr, b):
                              f"{tuple(t.shape)}")
 
 
-def _launch(x_q, w_q, corr, mult, b, out_zp):
+def _launch(x_q, w_q, corr, mult, b, out_zp, epi=None):
+    """K-F into a new (M, N) uint8 tensor; with ``epi`` (an ``_Epilogue``)
+    its Flipout instantiation."""
     from bayesian_torch_tpu_torch.ops.cuda import _build
 
     tensors = [t for t in (x_q, w_q, corr, b) if t is not None]
@@ -102,15 +117,23 @@ def _launch(x_q, w_q, corr, mult, b, out_zp):
     M, K = x_q.shape
     N = w_q.shape[0]
     out = torch.empty((M, N), dtype=torch.uint8, device=x_q.device)
-    with torch.cuda.device(x_q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.btt_qmatmul_requant(
-            x_q.data_ptr(), w_q.data_ptr(),
+    args = (x_q.data_ptr(), w_q.data_ptr(),
             None if corr is None else corr.data_ptr(),
             None if b is None else b.data_ptr(), out.data_ptr(), M, N, K,
-            mult, out_zp, stream)
-    _build.check(lib, code, "qmatmul_requant")
-    qmatmul_requant.launches += 1
+            mult, out_zp)
+    with torch.cuda.device(x_q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if epi is None:
+            code = lib.btt_qmatmul_requant(*args, stream)
+        else:
+            code = lib.btt_qmatmul_requant_flipout(
+                *args, ctypes.addressof(epi), stream)
+    if epi is None:
+        _build.check(lib, code, "qmatmul_requant")
+        qmatmul_requant.launches += 1
+    else:
+        _build.check(lib, code, "qmatmul_requant_flipout")
+        qmatmul_requant_flipout.launches += 1
     return out
 
 
@@ -128,3 +151,105 @@ def qmatmul_requant(x_q, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale,
 
 
 qmatmul_requant.launches = 0
+
+
+class FlipoutEpilogue(NamedTuple):
+    """The INT8 Flipout layer's chain after its perturbation product p (at
+    the GEMM's out_scale and out_zp): ``out = qadd(mean, qmul(p,
+    quantize_uint8(signs, sign_scale, sign_zp)))``, the product at
+    (prod_scale, prod_zp), the sum at (out_scale, out_zp), as
+    ``ops/int8.py`` rounds them. ``mean`` is the uint8 output of the
+    layer's mean product, (M, N) at a GEMM (rows at any stride, unit
+    column stride); ``signs`` the layer's ``flipout_signs.OutputSigns``,
+    of which the GEMM writes lane ``lane``'s channels from ``ch0``."""
+
+    mean: torch.Tensor
+    mean_scale: float
+    mean_zp: float
+    signs: object
+    sign_scale: float
+    sign_zp: float
+    prod_scale: float
+    prod_zp: float
+    out_scale: float
+    out_zp: float
+    lane: int = 0
+    ch0: int = 0
+
+
+class _Epilogue(ctypes.Structure):
+    """``BttFlipEpilogue`` of ``csrc/qmatmul.cu``."""
+
+    _fields_ = [("mean", ctypes.c_void_p), ("ld_mean", ctypes.c_int64),
+                ("salt", ctypes.c_uint32), ("c0", ctypes.c_uint32),
+                ("cb", ctypes.c_uint32), ("cr", ctypes.c_uint32),
+                ("cn", ctypes.c_uint32), ("R", ctypes.c_int32),
+                ("p_zp", ctypes.c_int32), ("pos", ctypes.c_int32),
+                ("neg", ctypes.c_int32), ("m_sign", ctypes.c_float),
+                ("prod_zp", ctypes.c_float), ("mean_zp", ctypes.c_float),
+                ("a_mean", ctypes.c_float), ("a_prod", ctypes.c_float),
+                ("out_zp", ctypes.c_float)]
+
+
+def qmatmul_requant_flipout_plain(x_q, w_q, corr, mult, b, out_zp, p_scale,
+                                  epi):
+    """Plain torch version of K-F with the Flipout epilogue: K-F's plain
+    version, then the chain of ``layers/quantized_base.py``'s torch route
+    on the GEMM's signs (``quantize_uint8``, ``qmul``, ``qadd``)."""
+    from bayesian_torch_tpu_torch.ops import int8 as q
+
+    p = qmatmul_requant_plain(x_q, w_q, corr, mult, b, out_zp)
+    signs = epi.signs.gemm_plain(epi.lane, epi.ch0, p.shape[1], p.device)
+    sign_q = q.quantize_uint8(signs, epi.sign_scale, epi.sign_zp)
+    p2 = q.qmul(p, p_scale, sign_q, epi.sign_scale, epi.prod_scale,
+                epi.prod_zp, a_zp=out_zp, b_zp=epi.sign_zp,
+                out_dtype=torch.uint8)
+    return q.qadd(epi.mean, epi.mean_scale, p2, epi.prod_scale,
+                  epi.out_scale, epi.out_zp, a_zp=epi.mean_zp,
+                  b_zp=epi.prod_zp, out_dtype=torch.uint8)
+
+
+def _epilogue(epi, p_scale, p_zp, M, N):
+    """The kernel's ``_Epilogue`` for ``epi`` after a product at (p_scale,
+    p_zp): the scalars rounded to f32 as torch takes them into the chain's
+    f32 ops, the GEMM's sign map."""
+    mean = epi.mean
+    if mean.dtype != torch.uint8 or tuple(mean.shape) != (M, N) or \
+            mean.stride(1) != 1:
+        raise ValueError(f"qmatmul_requant_flipout: need the mean uint8 "
+                         f"({M}, {N}) with unit column stride; got "
+                         f"{mean.dtype} {tuple(mean.shape)} stride "
+                         f"{mean.stride()}")
+    sm = epi.signs.sign_map(epi.lane, epi.ch0)
+    pos, neg = sign_uint8(epi.sign_scale, epi.sign_zp)
+    b_zp = int(epi.sign_zp)
+    inv = 1.0 / epi.out_scale
+    e = _Epilogue()
+    e.mean, e.ld_mean = mean.data_ptr(), mean.stride(0) if M > 1 else N
+    e.salt, e.c0, e.cb, e.cr, e.cn, e.R = sm
+    e.p_zp, e.pos, e.neg = int(p_zp), pos - b_zp, neg - b_zp
+    e.m_sign = f32(p_scale * epi.sign_scale * (1.0 / epi.prod_scale))
+    e.prod_zp, e.mean_zp = f32(epi.prod_zp), f32(epi.mean_zp)
+    e.a_mean = f32(epi.mean_scale * inv)
+    e.a_prod = f32(epi.prod_scale * inv)
+    e.out_zp = f32(epi.out_zp)
+    return e
+
+
+def qmatmul_requant_flipout(x_q, x_scale, x_zp, w_q, w_scale, bias_f32,
+                            out_scale, out_zp, epi):
+    """``qmatmul_requant`` (the perturbation's product, requantized to
+    out_scale, out_zp) with the Flipout epilogue ``epi``: returns the
+    layer's uint8 (M, N) output ``qadd(epi.mean, qmul(p, signs))``; p and
+    the signed p never reach device memory."""
+    corr, mult, b = requant_args(w_q, x_zp, x_scale, w_scale, bias_f32,
+                                 out_scale)
+    _check(x_q, w_q, corr, b)
+    if _on_cpu(*(t for t in (x_q, w_q, b, epi.mean) if t is not None)):
+        return qmatmul_requant_flipout_plain(x_q, w_q, corr, mult, b,
+                                             out_zp, out_scale, epi)
+    e = _epilogue(epi, out_scale, out_zp, x_q.shape[0], w_q.shape[0])
+    return _launch(x_q, w_q, corr, mult, b, float(out_zp), e)
+
+
+qmatmul_requant_flipout.launches = 0

@@ -25,13 +25,19 @@ memory is channels-last and the next conv's im2col reads it without a
 transpose.
 
 A grouped conv is one GEMM per group over that group's channels (K =
-C/g * prod(k), widened to 16). A transposed conv is the stride-1 conv of
+C/g * prod(k), widened to 16), the groups' outputs side by side (``cat``). A transposed conv is the stride-1 conv of
 its flipped, regrouped kernel over the input with stride - 1 positions
 inserted between neighbours and d*(k-1)-p added at each edge
 (``output_padding`` more at the far edge), as the JAX package lowers it.
 Every inserted and added position holds the zero point, so it adds
 ``w * (x_zp - x_zp) = 0`` and the sum runs over the real taps alone: the
 JAX route's border-exact correction, and its value.
+
+``flipout=`` (a ``qmatmul.FlipoutEpilogue``, the mean in the output's
+layout): the INT8 Flipout layer's perturbation product with the rest of
+its chain, ``qadd(mean, qmul(pert, quantize_uint8(signs)))``, through K-F's
+Flipout epilogue, each GEMM reading its own columns of the mean and
+hashing its own block of the signs.
 """
 
 from __future__ import annotations
@@ -42,7 +48,11 @@ import torch
 import torch.nn.functional as F
 
 from bayesian_torch_tpu_torch.ops.conv import channels_last
-from bayesian_torch_tpu_torch.ops.cuda.qmatmul import qmatmul_requant
+from bayesian_torch_tpu_torch.ops.cuda.qmatmul import (
+    FlipoutEpilogue,
+    qmatmul_requant,
+    qmatmul_requant_flipout,
+)
 
 
 def symmetric_scale(x, upper_bound=100.0, target_range=255.0,
@@ -103,14 +113,21 @@ def qadd(a_q, a_scale, b_q, b_scale, out_scale, out_zp=0, *, a_zp=0,
     return torch.clamp(q, lo, hi).to(out_dtype)
 
 
-def qlinear(x_q, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale, out_zp):
+def qlinear(x_q, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale, out_zp,
+            flipout=None):
     """uint8 activation (..., K) x int8 weight (N, K) -> uint8 (..., N),
-    requantized to (out_scale, out_zp), through the fused GEMM."""
+    requantized to (out_scale, out_zp), through the fused GEMM; with
+    ``flipout`` (its mean (..., N)), the Flipout layer's output."""
     lead = x_q.shape[:-1]
-    out = qmatmul_requant(x_q.reshape(-1, x_q.shape[-1]).contiguous(),
-                          x_scale, x_zp, w_q.contiguous(), w_scale, bias_f32,
-                          out_scale, out_zp)
-    return out.reshape(tuple(lead) + (w_q.shape[0],))
+    args = (x_q.reshape(-1, x_q.shape[-1]).contiguous(), x_scale, x_zp,
+            w_q.contiguous(), w_scale, bias_f32, out_scale, out_zp)
+    n = w_q.shape[0]
+    if flipout is None:
+        out = qmatmul_requant(*args)
+    else:
+        out = qmatmul_requant_flipout(
+            *args, flipout._replace(mean=flipout.mean.reshape(-1, n)))
+    return out.reshape(tuple(lead) + (n,))
 
 
 def _ntuple(v, n):
@@ -148,11 +165,11 @@ def _taps(xl, x_zp, k, st, pd, dl):
 
 
 def _group_gemm(taps, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale,
-                out_zp):
+                out_zp, flipout=None):
     """One group's conv as the GEMM: the taps' channels side by side
     ((*k, C) order) widened with zero columns to a multiple of 16 bytes
     (K-F's tensor maps), against the kernel (O, C, *k) in the same order
-    -> (M, O) uint8."""
+    -> (M, O) uint8 (with ``flipout``, the group's Flipout output)."""
     nd = w_q.dim() - 2
     kdim = len(taps) * taps[0].shape[-1]
     kpad = -kdim % 16
@@ -165,7 +182,7 @@ def _group_gemm(taps, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale,
     if kpad:
         w2 = F.pad(w2, (0, kpad))
     return qlinear(patches.reshape(-1, kdim + kpad), x_scale, x_zp, w2,
-                   w_scale, bias_f32, out_scale, out_zp)
+                   w_scale, bias_f32, out_scale, out_zp, flipout)
 
 
 def _transposed_as_conv(xl, w_q, x_zp, st, pd, op, dl, groups):
@@ -190,14 +207,32 @@ def _transposed_as_conv(xl, w_q, x_zp, st, pd, op, dl, groups):
     return xl, w.flip(tuple(range(2, nd + 2)))
 
 
+def _group_flipout(flipout, last, groups, og):
+    """The Flipout epilogue of each of ``groups`` GEMMs of ``og`` output
+    channels: its columns of the mean, its lane and first channel of the
+    signs (a group of the draw axis' S * g is lane s's group)."""
+    if flipout is None:
+        return [None] * groups
+    mean = flipout.mean
+    if not last:
+        mean = mean.permute(0, *range(2, mean.dim()), 1)
+    mean = mean.reshape(-1, mean.shape[-1])
+    signs = flipout.signs
+    per_lane = signs.block.shape[signs.channel_dim]
+    return [flipout._replace(mean=mean[:, g * og:(g + 1) * og],
+                             lane=g * og // per_lane, ch0=g * og % per_lane)
+            for g in range(groups)]
+
+
 def qconv(x_q, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale, out_zp, *,
           stride=1, padding=0, dilation=1, groups=1, transposed=False,
-          output_padding=0, data_format="NCHW"):
+          output_padding=0, data_format="NCHW", flipout=None):
     """uint8 activation (B, C, *sp) x int8 kernel -> uint8 (B, O, *out_sp),
     through the fused GEMM; the kernel is (O, C/g, *k), or (C, O/g, *k)
     when ``transposed``. ``data_format`` "NHWC" (any format ending in "C"):
     the activation is (B, *sp, C) and so is the output; the im2col reads it
-    as it is.
+    as it is. ``flipout``: the Flipout layer's output of this perturbation
+    product (the mean laid out as the output).
 
     Exact at padded borders and at a transposed conv's inserted positions:
     they hold x_zp, so they add w * (x_zp - x_zp) = 0 and the result is
@@ -214,15 +249,16 @@ def qconv(x_q, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale, out_zp, *,
                                       groups)
         st, pd = (1,) * nd, (0,) * nd
     taps, out_sp = _taps(xl, x_zp, tuple(w_q.shape[2:]), st, pd, dl)
+    cg, og = xl.shape[-1] // groups, w_q.shape[0] // groups
+    epis = _group_flipout(flipout, last, groups, og)
     if groups == 1:
         out = _group_gemm(taps, x_scale, x_zp, w_q, w_scale, bias_f32,
-                          out_scale, out_zp)
+                          out_scale, out_zp, epis[0])
     else:
-        cg, og = xl.shape[-1] // groups, w_q.shape[0] // groups
         out = torch.cat([_group_gemm(
             [t[..., g * cg:(g + 1) * cg] for t in taps], x_scale, x_zp,
             w_q[g * og:(g + 1) * og], w_scale,
             None if bias_f32 is None else bias_f32[g * og:(g + 1) * og],
-            out_scale, out_zp) for g in range(groups)], dim=1)
+            out_scale, out_zp, epis[g]) for g in range(groups)], dim=1)
     out = out.reshape((x_q.shape[0],) + out_sp + (w_q.shape[0],))
     return out if last else out.permute(0, nd + 1, *range(1, nd + 1))

@@ -27,8 +27,8 @@ weights and images, 224x224, 1000 classes, bf16 compute:
   the vmap emission, and one vmap batch with the pointwise emission (the
   mean convs through K-G at S = 1, the perturbation convs through K-G);
   the signs hashed inside the sign flip and the combine (K-H1, K-H2; the
-  INT8 sign products K-H3, phases 38-39), checked at full width in phase
-  46;
+  INT8 layers' input sign product K-H3 and output sign product in K-F's
+  Flipout epilogue, phases 38-40), checked at full width in phase 46;
 - the small-model zoo: the ConvTranspose layers, the Bayesian CIFAR
   ResNet-110 trainer (f32, bs128, MC-50 evaluation), the Flipout CIFAR
   trainer, the deterministic CIFAR and MNIST trainers, the Bayesian MNIST
@@ -36,7 +36,8 @@ weights and images, 224x224, 1000 classes, bf16 compute:
 - INT8 Flipout: ``quantized_resnet_flipout_large.qresnet50`` (the float
   Flipout ResNet-50 calibrated on 3 batches of 32 images, converted with
   conv+BN folding and uint8 activations), MC-10 at batch 128 (two K-F
-  GEMMs a layer a draw: the mean and the perturbation), then frozen
+  GEMMs a layer a draw: the mean, and the perturbation with the Flipout
+  epilogue: its sign product and the add to the mean), then frozen
   perturbations at MC-1 and the uncalibrated model's MC-10; grouped and
   transposed int8 convs through K-F (phases 37-40);
 - the Bayesian LSTM (config #4: batch 128, sequence 64, hidden 64, f32;
@@ -68,8 +69,10 @@ Phases, each printing its own line(s):
 2. build: the CUDA kernels compiled from ``bayesian_torch_tpu_torch/csrc``;
    each kernel's wgmma (HGMMA, IGMMA), mma.sync (HMMA) and TMA (UTMALDG,
    UBLKCP) instructions counted in ``cuobjdump -sass`` of the library:
-   K-G's bf16 kernels and K-F must hold wgmma and TMA loads, K-B, K-D and
-   K-E a tensor-core product;
+   K-G's bf16 kernels and both instantiations of K-F (plain and with the
+   Flipout epilogue) must hold wgmma and TMA loads, K-B, K-D and K-E a
+   tensor-core product; the instruction mix (conversions, integer-pipe,
+   FMA-pipe) of K-H3's two forms and of both K-F instantiations;
 3. K-A (batch weight sampler) against its plain torch version at the
    ResNet-50 flat size (all Bayesian weights, 10 draws), f32 and bf16 out,
    eps moments; its rho mode (the single draw ``sample_gaussian``,
@@ -232,22 +235,29 @@ Phases, each printing its own line(s):
     calibration forward) and is converted (conv+BN folding, uint8
     activations): 54 quantized Flipout layers with 10-slot quant_dicts;
 38. the INT8 Flipout main path: three MC-10 bs128 batches after a
-    warm-up, 1,080 K-F launches each, ms per batch, images/s, peak
-    memory; one batch under the profiler (busy, idle share, K-F's and
-    K-H3's device time and share); frozen perturbations at MC-1 (108
-    launches a batch); the uncalibrated model's MC-10 (1,080 a batch); as
-    many K-H3 launches as K-F's in each, no sign hashed in torch;
+    warm-up, 540 plain K-F launches (the means) and 540 with the Flipout
+    epilogue (the perturbations, their output signs and the add) each, ms
+    per batch, images/s, peak memory; one batch under the profiler (busy,
+    idle share, K-F's, its epilogue's and K-H3's device time and share);
+    frozen perturbations at MC-1 (54 + 54 launches a batch); the
+    uncalibrated model's MC-10 (540 + 540 a batch); one K-H3 launch a
+    layer and draw (the input's requantize and signs) in each, no sign
+    hashed in torch, no torch qadd;
 39. INT8 Flipout sanity: frozen perturbations, generators reseeded: the
     activations into the pool and the uint8 logits of 2 images equal a
-    CPU copy's bit for bit (K-H3 on the card, 108 launches, against the
-    plain sign route); two frozen-perturbation forwards differ;
+    CPU copy's bit for bit (K-H3, 54 launches, and K-F's Flipout
+    epilogue, 54, on the card against their plain versions on the CPU);
+    two frozen-perturbation forwards differ;
 40. grouped and transposed int8 convs: a ResNeXt-like 3x3 conv (256 ->
     256, 32 groups, 56^2, bs32; 32 K-F GEMMs) and DCGAN-like
     ``QuantizedConvTranspose2d{Reparameterization,Flipout}`` layers (512
     -> 256, k4 s2 p1, 16^2, bs64) on the card, bit for bit with the plain
     route (K-F's plain version in the same lowering) and with a float64
-    conv's integer sum; device times of the route, K-F's rows and the
-    plain route, with the bound. Phases 37-40 log their seconds.
+    conv's integer sum; the grouped conv again with the Flipout epilogue
+    (32 GEMMs, each its group's columns of the mean and block of the
+    signs), the Flipout transposed layer through it (its perturbation
+    GEMM); device times of the route, K-F's rows and the plain route,
+    with the bound. Phases 37-40 log their seconds.
 41. the Bayesian LSTM at config #4's full width (bs128, seq 64, hidden
     64, f32), its parts' seconds logged: (a) K-A and K-C (dsigma) against
     their plain versions at its draw buffers (256 x 1, 256 x 64, 256)
@@ -373,10 +383,19 @@ Phases, each printing its own line(s):
     a rank's rows under ``data=2`` and a shard's output channels under
     ``model=2`` (NCHW and NHWC), K-H1 writing the LSTM's sign blocks of a
     rank, and K-H3 at the 108 uint8 sign products of one INT8 Flipout
-    forward (calibrated and default scales); then the device time of one
-    MC-10 batch's sign work through the loop (540 flips, 540 combines,
-    1,080 INT8 products; ``kernel_times.sign_work``) beside the plain
-    versions' (CUDA events) and the bytes bound.
+    forward (calibrated and default scales); the INT8 layers' fused forms
+    at the 54 layers of the Flipout ``qresnet50`` at bs128: K-H3's input
+    pass (a QTensor payload requantized and multiplied by its signs; x_q
+    and the product) and K-F's Flipout epilogue (the perturbation GEMM,
+    its output signs from the GEMM's counter map, the add to the mean),
+    in the loop's form and the draw axis's (lanes 0 and 9 of 10), NCHW and
+    NHWC, and under a window of rows; then the device time of one MC-10
+    batch's sign work through the loop (540 flips, 540 combines, 1,080
+    INT8 products, 540 input passes; ``kernel_times.sign_work``) and of
+    one forward's 54 perturbation GEMMs with the Flipout epilogue
+    (``kernel_times.flipout_gemm_work``) beside the plain versions' (CUDA
+    events), the route before the epilogue (K-F, K-H3, torch's qadd) and
+    the bound.
 
 The line before the last is a JSON object with every kernel's launches,
 counted from zero in the run named by its ``run`` key, its error against
@@ -386,7 +405,9 @@ phase 42 (K-F: and of the INT8 main paths and phases 38-40), each
 counted from zero; K-B, K-D and K-E (and their lane forms) their
 launches a rank on the mesh paths of phases 43 and 45, and the single
 draws their largest windowed error of phase 43 (g) (``window_err``); K-H1
-and K-H2 their launches in phase 26's vmap batches (``paths``); the
+and K-H2 their launches in phase 26's vmap batches (``paths``); K-F's
+Flipout epilogue its launches in phase 38's batches, its other INT8
+Flipout paths under ``paths``; the
 last line is ``{"ok": true, "device": {...}}``, printed only after every phase
 passed. Any failure raises and exits non-zero, as does a machine without
 CUDA.
@@ -407,10 +428,11 @@ import time
 # softplus, K-F's column sums) would swamp a single call timed by CUDA
 # events
 from kernel_times import (BF16_OPS, F32_OPS, HBM_BPS, INT8_OPS, KA_TAG,
-                          KB_TAG, KC_TAG, KD_TAG, KE_TAG, PER_NORMAL,
-                          QSIGN_SCALES, QSIGN_TAG, SESSIONS, SIGN_TAG,
-                          TF32_OPS, device_times, generation_ms,
-                          layer_sizes, resnet50_sites, sign_bound,
+                          KB_TAG, KC_TAG, KD_TAG, KE_TAG, KF_FLIP_TAG,
+                          PER_NORMAL, QSIGN_SCALES, QSIGN_TAG, SESSIONS,
+                          SIGN_TAG, TF32_OPS, device_times,
+                          flipout_gemm_work, generation_ms, layer_sizes,
+                          resnet50_gemms, resnet50_sites, sign_bound,
                           sign_work, unfused_dw)
 from kernel_times import SITES as POINTWISE_SITES
 
@@ -588,7 +610,7 @@ def sass_census(path):
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
     ops = ("HGMMA", "IGMMA", "HMMA", "UTMALDG", "UTMASTG", "UBLKCP")
-    census, fn = {}, None
+    census, mixes, fn, mix = {}, {}, None, None
     for ln in sass.splitlines():
         if "Function :" in ln:
             mangled = ln.split("Function :")[1].strip()
@@ -598,18 +620,35 @@ def sass_census(path):
             if args:
                 fn += "<" + ",".join(args) + ">"
             census[fn] = dict.fromkeys(ops, 0)
+            mix = mixes.setdefault(sass_form(mangled), {}) \
+                if sass_form(mangled) else None
         elif fn is not None:
             for op in ops:
                 census[fn][op] += op in ln
+            if mix is not None:
+                count_instruction(mix, ln)
     for fn, c in sorted(census.items()):
         log(f"[build] SASS {fn}: " + ", ".join(f"{op} {n}"
                                                 for op, n in c.items()))
+    for form, mix in sorted(mixes.items()):
+        log(f"[build] SASS mix {form}: " + ", ".join(
+            f"{k} {v}" for k, v in mix.items()))
+    SASS_MIX.update(mixes)
     for kernel, mma in (("mc_gemm_wgmma_kernel", "HGMMA"),
                         ("mc_gemm_xres_kernel", "HGMMA"),
                         ("qmatmul_wgmma_kernel", "IGMMA")):
         found = [c for fn, c in census.items() if fn.startswith(kernel)]
         check(found and all(c[mma] > 0 and c["UTMALDG"] > 0 for c in found),
               f"{kernel}: no {mma} (wgmma) or UTMALDG (TMA) in its SASS")
+    # K-F: both tile widths, plain and with the Flipout epilogue
+    found = {fn for fn in census if fn.startswith("qmatmul_wgmma_kernel<")}
+    check(found == {f"qmatmul_wgmma_kernel<{n},{e}>" for n in (64, 128)
+                    for e in ("BttNoEpilogue", "BttFlipEpilogue")},
+          f"K-F's instantiations {sorted(found)}"
+          ": want 64- and 128-wide tiles, each plain and with the Flipout "
+          "epilogue")
+    check(len(mixes) == 4, f"SASS mixes of {sorted(mixes)}: want K-H3's two "
+          "forms and K-F's two instantiations (128-wide)")
     # K-G channels-last: both tile widths load and store by TMA
     found = [c for fn, c in census.items()
              if fn.startswith("mc_gemm_cl_wgmma_kernel")]
@@ -624,6 +663,51 @@ def sass_census(path):
                  if fn == kernel or fn.startswith(kernel + "<")]
         check(found and all(c["HGMMA"] + c["HMMA"] > 0 for c in found),
               f"{kernel}: no tensor-core product (HGMMA, HMMA) in its SASS")
+
+
+# the instruction mix of K-H3's forms and K-F's 128-wide instantiations in
+# the built library ({form: {class: count}}), for the kernels line
+SASS_MIX = {}
+# SASS opcodes by the unit that issues them on Hopper: the conversion unit
+# (16 a clock on an SM), the integer ALU (64), the FMA pipes (FP32 128,
+# IMAD 64)
+CONVERSIONS = ("I2F", "F2I", "FRND", "F2F", "I2I")
+INTEGER = ("LOP3", "SHF", "PRMT", "IADD3", "ISETP", "SEL", "FSEL", "FMNMX",
+           "LEA", "IABS", "IMNMX", "FSETP", "LOP")
+FMA = ("FADD", "FMUL", "FFMA", "IMAD")
+
+
+def sass_form(mangled):
+    """The name of the K-H3 form or K-F instantiation a mangled kernel
+    name is, or None for the others."""
+    if "QSignOpILb1E" in mangled and "sign_kernelIj" in mangled:
+        return "K-H3 input pass (32-bit index)"
+    if "QSignOpILb0E" in mangled and "sign_kernelIj" in mangled:
+        return "K-H3 product (32-bit index)"
+    if "qmatmul_wgmma_kernelILi128E15BttFlipEpilogue" in mangled:
+        return "K-F 128 Flipout epilogue"
+    if "qmatmul_wgmma_kernelILi128E13BttNoEpilogue" in mangled:
+        return "K-F 128 plain"
+    return None
+
+
+def count_instruction(mix, line):
+    """Add one SASS line's instruction (if it holds one) to ``mix``: the
+    total and its unit's class."""
+    import re
+
+    m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                 line)
+    if m is None:
+        return
+    op = m.group(1).split(".")[0]
+    if op == "NOP":
+        return
+    mix["instructions"] = mix.get("instructions", 0) + 1
+    for name, group in (("conversions", CONVERSIONS), ("integer", INTEGER),
+                        ("fma", FMA)):
+        if op in group:
+            mix[name] = mix.get(name, 0) + 1
 
 
 def flat_posterior(model):
@@ -1251,6 +1335,7 @@ def kernel_counters():
             "K-C dsigma": ka.dsigma, "K-C drho": ka.drho,
             "K-D": kb.sampled_matmul_dx, "K-E": kb.sampled_matmul_dw,
             "K-F": kf.qmatmul_requant,
+            "K-F flipout": kf.qmatmul_requant_flipout,
             "K-B lanes": kb.sampled_matmul_batched,
             "K-D lanes": kb.sampled_matmul_dx_batched,
             "K-E lanes": kb.sampled_matmul_dw_batched,
@@ -2124,10 +2209,11 @@ def phase_int8_build(eval_x):
     return model, float_mean["means"]
 
 
-def timed_batches(what, fn, batches, launches_each):
+def timed_batches(what, fn, batches, launches_each, flipout_each=0):
     """Median ms of ``fn(x)`` over ``batches`` after one warm-up, every
-    count set to 0 before the first and K-F's checked per batch; returns
-    (median ms, outputs, K-F launches)."""
+    count set to 0 before the first and K-F's checked per batch (plain:
+    ``launches_each``; with the Flipout epilogue: ``flipout_each``);
+    returns (median ms, outputs, plain K-F launches)."""
     import torch
 
     fn(images(SEED + 600))
@@ -2135,22 +2221,24 @@ def timed_batches(what, fn, batches, launches_each):
     reset_counts()
     times, outs = [], []
     for i, x in enumerate(batches):
-        before = counts()["K-F"]
+        before = counts()
         t0 = time.perf_counter()
         out = fn(x)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        got = counts()["K-F"] - before
+        got = {k: counts()[k] - before[k] for k in ("K-F", "K-F flipout")}
+        want = {"K-F": launches_each, "K-F flipout": flipout_each}
         check(tuple(out.shape) == (BATCH, 1000)
               and bool(torch.isfinite(out).all()), f"{what}: output")
-        check(got == launches_each, f"{what}: K-F launched {got} times in "
-              f"batch {i}, want {launches_each}")
+        check(got == want, f"{what}: K-F launched {got} in batch {i}, want "
+              f"{want}")
         outs.append(out)
     ms = statistics.median(times)
     launches = counts()["K-F"]
     log(f"[{what}] batches {', '.join(f'{t:.1f}' for t in times)} ms; "
         f"median {ms:.1f} ms/batch, {BATCH / ms * 1e3:.1f} images/s, K-F "
-        f"launches {launches}")
+        f"launches {launches}, with the Flipout epilogue "
+        f"{counts()['K-F flipout']}")
     return ms, outs, launches
 
 
@@ -2699,19 +2787,22 @@ def phase_signs():
     MC-2 bs8 (phase 45), NCHW and NHWC, and the LSTM's sign blocks of a
     rank under ``mc=2`` and ``data=2`` at config #4 (K-H1 writing the
     signs); (d) K-H3 at the 108 uint8 sign products of one INT8 Flipout
-    forward at bs128, calibrated and default scales; (e) the device time
-    of one MC-10 batch's sign work through the draw loop
+    forward at bs128, calibrated and default scales; (d') the INT8 Flipout
+    layers' fused forms at the 54 layers (``int8_fused_checks``); (e) the
+    device time of one MC-10 batch's sign work through the draw loop
     (``kernel_times.sign_work``: 540 flips, 540 combines, 1,080 INT8
-    products) beside the plain versions' (CUDA events) and the bound.
-    Returns {kernel: its kernels-line numbers}."""
+    products, 540 input passes) and of one forward's 54 perturbation GEMMs
+    with K-F's Flipout epilogue beside the plain versions' (CUDA events),
+    the route before the epilogue and the bound. Returns {kernel: its
+    kernels-line numbers}."""
     import torch
 
     from bayesian_torch_tpu_torch.ops import sampling as ts
     from bayesian_torch_tpu_torch.ops.cuda import flipout_signs as kh
 
     t0 = time.perf_counter()
-    errs = {"K-H1": 0.0, "K-H2": 0.0, "K-H3": 0.0}
-    checked = {"K-H1": 0, "K-H2": 0, "K-H3": 0}
+    errs = {"K-H1": 0.0, "K-H2": 0.0, "K-H3": 0.0, "K-F flipout": 0.0}
+    checked = dict.fromkeys(errs, 0)
 
     def same(name, what, got, want):
         err = max_err(got, want)
@@ -2802,23 +2893,27 @@ def phase_signs():
                                                zo),
                      kh.qsign_mul_plain(a, sa, za, block, ss, zs, so_, zo))
     torch.cuda.empty_cache()
-    log(f"[signs] {card()}: K-H bit for bit with its plain versions in "
-        f"{checked} checks (max |diff| {errs}): the 54 layers' MC-{NUM_MC} "
-        f"bs{BATCH} activations in bf16, draw axis and one salt, one layer "
-        f"in f32, the "
-        f"data=2 rows, the model=2 shards (NCHW, NHWC), the LSTM's blocks, "
-        f"the INT8 forward's 108 sign products")
+    int8_fused_checks(same, gen)
+    log(f"[signs] {card()}: K-H and K-F's Flipout epilogue bit for bit with "
+        f"their plain versions in {checked} checks (max |diff| {errs}): "
+        f"the 54 layers' MC-{NUM_MC} bs{BATCH} activations in bf16, draw "
+        f"axis and one salt, one layer in f32, the data=2 rows, the model=2 "
+        f"shards (NCHW, NHWC), the LSTM's blocks, the INT8 forward's 108 "
+        f"sign products; the INT8 Flipout layers' input passes and "
+        f"perturbation GEMMs at the 54 layers (loop and draw axis, NCHW "
+        f"and NHWC, a window's rows)")
     # (e) one MC-10 batch's sign work through the loop, kernel and plain
     res = {}
     for route in ("kernel", "plain"):
         work = sign_work(NUM_MC, BATCH, route=route)
         for name, (fn, nbytes, elements) in work.items():
             if route == "kernel":
-                tag = QSIGN_TAG if name == "K-H3" else SIGN_TAG
+                tag = QSIGN_TAG if name.startswith("K-H3") else SIGN_TAG
                 bound_ms, bound_by = sign_bound(nbytes, elements)
                 res[name] = dict(ms=device_times((fn, tag))[0],
                                  bound_ms=bound_ms, bound_by=bound_by,
-                                 library_ms=None, max_abs_err=errs[name],
+                                 library_ms=None,
+                                 max_abs_err=errs[name[:4]],
                                  gbytes=nbytes / 1e9)
             else:
                 fn()
@@ -2831,9 +2926,140 @@ def phase_signs():
             f"ms device time, plain {r['plain_ms']:.1f} ms, bound "
             f"{r['bound_ms']:.2f} ms ({r['bound_by']}), "
             f"{r['bound_ms'] / r['ms']:.2f} of the bound's rate")
+    # K-H3 is the main path's input pass; its products (the float
+    # inputs' form) ride along
+    prod = res.pop("K-H3 products")
+    res["K-H3"] = dict(res.pop("K-H3 input pass"), **{
+        f"products_{k}": v for k, v in prod.items()
+        if k in ("ms", "plain_ms", "bound_ms")})
+    res["K-F flipout"] = flipout_gemm_times(errs["K-F flipout"])
     log(f"[signs] phase 46 took {time.perf_counter() - t0:.1f} s")
     return {k: {key: v for key, v in r.items() if key != "gbytes"}
             for k, r in res.items()}
+
+
+def int8_fused_checks(same, gen):
+    """(46 d') K-H3's input pass (a QTensor payload, channels-last as a
+    layer's output gives it, requantized and multiplied by its signs: x_q
+    and the product) and K-F's Flipout epilogue (the perturbation GEMM at
+    the layer's (M, K, N), then its output signs' product and the add to
+    the mean) against their plain versions with ``same``, at the 54 layers
+    of the INT8 Flipout ResNet-50 at bs128: the loop's form (one salt)
+    and the draw axis' (MC-2: both lanes, the mean two lanes wide), NCHW
+    and NHWC; calibrated scales, and clamping ones in the loop's NCHW
+    form; then at three layers under a window of rows (data=2)."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops import sampling as ts
+    from bayesian_torch_tpu_torch.ops.cuda import flipout_signs as kh
+    from bayesian_torch_tpu_torch.ops.cuda import qmatmul as kf
+
+    sa, za, ss, zs, so, zo = QSIGN_SCALES
+
+    def layout(shape, nhwc):
+        """An NCHW shape in the layout, and its channel dim."""
+        if len(shape) == 2:
+            return shape, 1
+        if nhwc:
+            return (shape[0],) + shape[2:] + (shape[1],), len(shape) - 1
+        return shape, 1
+
+    def input_pass(what, si, lanes, nhwc):
+        shape, cd = layout(si, nhwc)
+        salts = [ts.sign_salts(SEED + 1104, s)[0] for s in range(lanes)]
+        block = ts.sign_block(salts, shape, axis=cd if lanes > 1 else None)
+        full = block.lanes_shape
+        # the payload as a layer's output lies: lanes and channels inner
+        inner = [cd] if lanes == 1 else [cd, cd + 1]
+        order = [d for d in range(len(full)) if d not in inner] + inner
+        a = torch.randint(0, 256, [full[d] for d in order], generator=gen,
+                          device="cuda", dtype=torch.uint8).permute(
+            *[order.index(d) for d in range(len(full))])
+        for requant in ((0.037, 119), (sa, int(za))):
+            got = kh.qsign_mul(a, sa, za, block, ss, zs, so, zo,
+                               requant=requant)
+            want = kh.qsign_mul_plain(a, sa, za, block, ss, zs, so, zo,
+                                      requant=requant)
+            for part, u, v in zip(("x_q", "product"), got, want):
+                same("K-H3", f"{what} input pass {part} {full} {requant}",
+                     u, v)
+
+    def epilogue(what, so_shape, k, lanes, nhwc, scales):
+        out, cd = layout(so_shape, nhwc)
+        n = out[cd]
+        m = math.prod(out) // n
+        x = torch.randint(0, 256, (m, k), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+        w = torch.randint(-128, 128, (n, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        b = torch.randn(n, generator=gen, device="cuda")
+        mean = torch.randint(0, 256, (m, lanes * n), generator=gen,
+                             device="cuda", dtype=torch.uint8)
+        salts = [ts.sign_salts(SEED + 1105, s)[1] for s in range(lanes)]
+        signs = kh.OutputSigns(ts.sign_block(
+            salts, out, axis=cd if lanes > 1 else None), cd)
+        # about 40 quanta a standard deviation of the product
+        s7 = 0.031 * 0.0123 * 74 * 74 * k ** 0.5 / 40 * scales
+        for lane in range(lanes):
+            epi = kf.FlipoutEpilogue(
+                mean[:, lane * n:(lane + 1) * n], 0.9 * s7, 121.0, signs,
+                0.0079, 127.0, 1.1 * s7, 124.0, 1.6 * s7, 126.0, lane=lane)
+            got = kf.qmatmul_requant_flipout(x, 0.031, 117, w, 0.0123, b,
+                                             s7, 119, epi)
+            want = kf.qmatmul_requant_flipout_plain(
+                x, w, *kf.requant_args(w, 117, 0.031, 0.0123, b, s7), 119,
+                s7, epi)
+            same("K-F flipout", f"{what} lane {lane} of {lanes} {out} "
+                 f"(M, K, N) = {(m, k, n)}", got, want)
+
+    gemms = resnet50_gemms(BATCH)
+    sites = resnet50_sites(BATCH)
+    for i, ((si, _), (so_shape, k)) in enumerate(zip(sites, gemms)):
+        for nhwc in (False, True):
+            form = "NHWC" if nhwc else "NCHW"
+            for lanes in (1, 2):
+                input_pass(f"layer {i} {form}", si, lanes, nhwc)
+                epilogue(f"layer {i} {form}", so_shape, k, lanes, nhwc, 1.0)
+        epilogue(f"layer {i} clamping", so_shape, k, 1, False, 0.05)
+        torch.cuda.empty_cache()
+    half_sites, half_gemms = resnet50_sites(BATCH // 2), \
+        resnet50_gemms(BATCH // 2)
+    with ts.draw_window(ts.DrawWindow(0, 2, 2, BATCH // 2, BATCH // 2,
+                                      BATCH)):
+        for i in (0, 10, 53):
+            for lanes in (1, 2):
+                input_pass(f"data=2 rank 1 layer {i}", half_sites[i][0],
+                           lanes, False)
+                epilogue(f"data=2 rank 1 layer {i}", *half_gemms[i], lanes,
+                         False, 1.0)
+
+
+def flipout_gemm_times(err):
+    """K-F's Flipout epilogue over one INT8 Flipout forward's 54
+    perturbation GEMMs (``kernel_times.flipout_gemm_work``): its device
+    time, its plain version's (CUDA events), the route before it (K-F,
+    K-H3's product, torch's qadd: all its device rows) and the bound
+    (bytes, or int8 operations)."""
+    import torch
+
+    work = {route: flipout_gemm_work(1, route)
+            for route in ("kernel", "plain", "unfused")}
+    fn, nbytes, flops, gemms = work["kernel"]
+    bound_ms, bound_by = bound(nbytes, flops, INT8_OPS)
+    ms, unfused_ms = device_times((fn, KF_FLIP_TAG),
+                                  (work["unfused"][0], None))
+    work["plain"][0]()
+    res = dict(ms=ms, plain_ms=cuda_ms(work["plain"][0]),
+               unfused_ms=unfused_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=None, max_abs_err=err, gemms=gemms)
+    del work, fn
+    torch.cuda.empty_cache()
+    log(f"[signs] K-F's Flipout epilogue over one INT8 Flipout forward's "
+        f"{gemms} perturbation GEMMs: {ms:.3f} ms device time, the route "
+        f"before it (K-F, K-H3, torch's qadd) {unfused_ms:.3f} ms, plain "
+        f"{res['plain_ms']:.1f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
+        f"{card()}")
+    return res
 
 
 # --- model surgery: the deterministic ResNet-50, MOPED, dnn_to_bnn -----------
@@ -3865,22 +4091,44 @@ def sign_shapes(model, x):
 
 def int8_sign_launches(batches, forwards):
     """K-H3's launches in ``batches`` of ``forwards`` INT8 Flipout
-    forwards: the input's and the output's sign product, each layer."""
-    return {"K-H1": 0, "K-H2": 0, "K-H3": 2 * INT8_LAYERS * forwards * batches,
+    forwards: the input pass, one a layer (the output's signs are K-F's
+    Flipout epilogue's)."""
+    return {"K-H1": 0, "K-H2": 0, "K-H3": INT8_LAYERS * forwards * batches,
             TORCH_HASHES: 0}
 
 
+@contextlib.contextmanager
+def counting_calls(module, name):
+    """``module.name`` wrapped to count its calls (in ``.calls`` of the
+    object yielded) for the duration."""
+    real = getattr(module, name)
+
+    def counted(*args, **kw):
+        counted.calls += 1
+        return real(*args, **kw)
+
+    counted.calls = 0
+    setattr(module, name, counted)
+    try:
+        yield counted
+    finally:
+        setattr(module, name, real)
+
+
 def phase_int8_flipout_main(model, batches):
-    """(38) The INT8 Flipout main path: MC-10 at batch 128 (1,080 K-F
-    launches a batch: 54 layers, the mean and the perturbation, 10 draws;
-    as many K-H3 sign products), three batches after a warm-up, peak
-    memory; one batch under the profiler (busy time, idle share, K-F's and
-    K-H3's device time and share); frozen perturbations, MC-1; the
-    uncalibrated model's MC-10. Returns a dict of the results."""
+    """(38) The INT8 Flipout main path: MC-10 at batch 128 (54 layers, 10
+    draws: 540 plain K-F launches a batch, the means, and 540 with the
+    Flipout epilogue, the perturbations; 540 K-H3 input passes), three
+    batches after a warm-up, peak memory; one batch under the profiler
+    (busy time, idle share, K-F's, its epilogue's and K-H3's device time
+    and share); frozen perturbations, MC-1; the uncalibrated model's
+    MC-10; no torch ``qadd`` in the batches. Returns a dict of the
+    results."""
     import torch
 
     from torch.autograd import DeviceType
 
+    from bayesian_torch_tpu_torch.ops import int8
     from bayesian_torch_tpu_torch.parallel import mc_forward
     from bayesian_torch_tpu_torch.quantization import freeze_quantized_draws
 
@@ -3888,11 +4136,15 @@ def phase_int8_flipout_main(model, batches):
         return lambda x: mc_forward(m, x, NUM_MC, reduce="mean",
                                     return_kl=False)
 
-    per_batch = 2 * INT8_LAYERS * NUM_MC
+    per_batch = INT8_LAYERS * NUM_MC
     torch.cuda.reset_peak_memory_stats()
-    ms, outs, launches = timed_batches(
-        f"int8 flipout MC-{NUM_MC} bs{BATCH}", mc10(model), batches,
-        per_batch)
+    with counting_calls(int8, "qadd") as qadds:
+        ms, outs, launches = timed_batches(
+            f"int8 flipout MC-{NUM_MC} bs{BATCH}", mc10(model), batches,
+            per_batch, per_batch)
+    check(qadds.calls == 0, f"int8 flipout MC-{NUM_MC}: {qadds.calls} torch "
+          "qadd calls, want none (K-F's Flipout epilogue adds)")
+    kf_flip = counts()["K-F flipout"]
     kh3 = check_signs(f"int8 flipout MC-{NUM_MC}", int8_sign_launches(
         len(batches), NUM_MC))["K-H3"]
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3906,24 +4158,27 @@ def phase_int8_flipout_main(model, batches):
                    and tag in e.key) / 1e3
 
     kf_ms, sign_ms = rows_ms("qmatmul"), rows_ms("QSignOp")
+    flip_ms = rows_ms(KF_FLIP_TAG)
     busy = prof["busy"]
     res = dict(ms=ms, peak_gib=peak, launches=launches, busy_ms=busy,
                wall_ms=prof["wall"], idle=1 - busy / prof["wall"],
-               kf_ms=kf_ms, kf_share=kf_ms / busy, kh3_launches=kh3,
+               kf_ms=kf_ms, kf_share=kf_ms / busy, kf_flipout_ms=flip_ms,
+               kf_flipout_launches=kf_flip, kh3_launches=kh3,
                sign_ms=sign_ms, sign_share=sign_ms / busy)
     log(f"[int8 flipout main] {card()}: median {ms:.1f} ms/batch, "
         f"{BATCH / ms * 1e3:.1f} images/s, peak {peak:.2f} GiB; profiled "
         f"batch: busy {busy:.1f} of {prof['wall']:.1f} ms (idle "
         f"{res['idle']:.3f}); K-F {kf_ms:.2f} ms ({res['kf_share']:.3f} of "
-        f"busy, {per_batch} launches); the signs (K-H3, {per_batch} "
-        f"launches) {sign_ms:.2f} ms, {res['sign_share']:.3f} of busy; "
-        f"entropy {entropy(outs[0]):.4f}")
+        f"busy, {2 * per_batch} launches), of it the Flipout epilogue's "
+        f"{flip_ms:.2f} ms ({per_batch} launches); K-H3's input passes "
+        f"({per_batch} launches) {sign_ms:.2f} ms, {res['sign_share']:.3f} "
+        f"of busy; entropy {entropy(outs[0]):.4f}")
 
     check(freeze_quantized_draws(model) == INT8_LAYERS, "froze the layers")
     with torch.no_grad():
         res["frozen_ms"], _, _ = timed_batches(
             "int8 flipout frozen MC-1", lambda x: model(x)[0], batches,
-            2 * INT8_LAYERS)
+            INT8_LAYERS, INT8_LAYERS)
     check_signs("int8 flipout frozen MC-1",
                 int8_sign_launches(len(batches), 1))
     uncal = build_flipout_qresnet50()
@@ -3931,10 +4186,11 @@ def phase_int8_flipout_main(model, batches):
               if hasattr(m, "quant_dict")), "uncalibrated model has scales")
     res["uncalibrated_ms"], _, uncal_launches = timed_batches(
         f"int8 flipout uncalibrated MC-{NUM_MC}", mc10(uncal), batches,
-        per_batch)
+        per_batch, per_batch)
     check_signs(f"int8 flipout uncalibrated MC-{NUM_MC}",
                 int8_sign_launches(len(batches), NUM_MC))
     res["launches_uncalibrated"] = uncal_launches
+    res["launches_uncalibrated_flipout"] = counts()["K-F flipout"]
     del uncal
     torch.cuda.empty_cache()
     return res
@@ -3981,6 +4237,8 @@ def phase_int8_flipout_sanity(model, x):
     got = run(model, xs)
     check_signs("int8 flipout sanity, the card's forward",
                 int8_sign_launches(1, 1))
+    check(counts()["K-F flipout"] == INT8_LAYERS, f"int8 flipout sanity: "
+          f"{counts()['K-F flipout']} Flipout epilogues, want {INT8_LAYERS}")
     want = run(cpu, xs.cpu())
     pool_equal = torch.equal(pooled["cuda"], pooled["cpu"])
     equal = torch.equal(got, want)
@@ -4000,8 +4258,8 @@ def phase_int8_flipout_sanity(model, x):
 
 @contextlib.contextmanager
 def kf_plain_route():
-    """``ops.int8``'s GEMM on K-F's plain version (the same lowering, the
-    same epilogue), on the card."""
+    """``ops.int8``'s GEMMs on K-F's plain versions (the same lowering, the
+    same epilogues, the Flipout one too), on the card."""
     from bayesian_torch_tpu_torch.ops import int8
     from bayesian_torch_tpu_torch.ops.cuda import qmatmul as kf
 
@@ -4009,12 +4267,18 @@ def kf_plain_route():
         args = kf.requant_args(w_q, x_zp, x_scale, w_scale, bias, out_scale)
         return kf.qmatmul_requant_plain(x_q, w_q, *args, out_zp)
 
-    saved = int8.qmatmul_requant
-    int8.qmatmul_requant = plain
+    def flipout(x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale, out_zp,
+                epi):
+        args = kf.requant_args(w_q, x_zp, x_scale, w_scale, bias, out_scale)
+        return kf.qmatmul_requant_flipout_plain(x_q, w_q, *args, out_zp,
+                                                out_scale, epi)
+
+    saved = int8.qmatmul_requant, int8.qmatmul_requant_flipout
+    int8.qmatmul_requant, int8.qmatmul_requant_flipout = plain, flipout
     try:
         yield
     finally:
-        int8.qmatmul_requant = saved
+        int8.qmatmul_requant, int8.qmatmul_requant_flipout = saved
 
 
 def qconv_f64(x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale, out_zp, *,
@@ -4038,12 +4302,14 @@ def qconv_f64(x_q, x_scale, x_zp, w_q, w_scale, bias, out_scale, out_zp, *,
 
 def probe_times(what, route, nbytes, ops, launches_each):
     """Device times of ``route()`` on K-F and on its plain version, K-F's
-    own rows, the bound; the launches of one call checked."""
-    before = counts()["K-F"]
+    own rows, the bound; the launches of one call checked (``launches_each``
+    plain K-F launches, or {K-F form: launches})."""
+    before = counts()
     route()
-    got = counts()["K-F"] - before
-    check(got == launches_each, f"{what}: K-F launched {got} times, want "
-          f"{launches_each}")
+    got = {k: counts()[k] - before[k] for k in ("K-F", "K-F flipout")}
+    want = launches_each if isinstance(launches_each, dict) else \
+        {"K-F": launches_each, "K-F flipout": 0}
+    check(got == want, f"{what}: K-F launched {got}, want {want}")
 
     def plain():
         with kf_plain_route():
@@ -4053,7 +4319,7 @@ def probe_times(what, route, nbytes, ops, launches_each):
                                        (plain, None))
     bound_ms, by = bound(nbytes, ops, INT8_OPS)
     log(f"[{what}] {card()}: route {ms:.3f} ms device time, of it K-F "
-        f"{kf_ms:.3f} ms ({launches_each} launches); plain route "
+        f"{kf_ms:.3f} ms ({sum(got.values())} launches); plain route "
         f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({by}); library: none "
         f"(no PyTorch int8 grouped or transposed conv)")
     return dict(ms=ms, kf_ms=kf_ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -4068,13 +4334,16 @@ def phase_int8_probes():
     GEMMs); a DCGAN-like ``QuantizedConvTranspose2dReparameterization``
     and ``QuantizedConvTranspose2dFlipout``, 512 -> 256, k4 s2 p1, at
     16x16, batch 64 (calibrated, frozen draws, the Flipout layer's signs
-    from reseeded generators). Returns ({path: K-F launches}, results)."""
+    from reseeded generators); the grouped conv again with the Flipout
+    epilogue. Returns ({path: {K-F form: launches}}, results)."""
     import torch
     from torch import nn
 
     from bayesian_torch_tpu_torch import layers as L
     from bayesian_torch_tpu_torch.models.bnn_to_qbnn import bnn_to_qbnn
     from bayesian_torch_tpu_torch.ops import int8
+    from bayesian_torch_tpu_torch.ops import sampling as ts
+    from bayesian_torch_tpu_torch.ops.cuda.flipout_signs import OutputSigns
     from bayesian_torch_tpu_torch.quantization import (freeze_quantized_draws,
                                                        prepare)
 
@@ -4107,7 +4376,30 @@ def phase_int8_probes():
     log(f"[int8 grouped probe] bit for bit with the plain route and the "
         f"f64 conv; clamped share "
         f"{((got == 0) | (got == 255)).float().mean().item():.4f}")
-    del x, w, got, plain, ref
+    # the same conv as a Flipout layer's perturbation, the probe's output
+    # its mean: each group's GEMM takes its columns of the mean and its
+    # block of the signs through K-F's Flipout epilogue
+    sc = args[5]
+    epi = int8.FlipoutEpilogue(
+        got, sc, 128.0, OutputSigns(ts.sign_block(
+            [ts.sign_salts(SEED + 803)[1]], tuple(got.shape)), 1),
+        0.0079, 127.0, sc, 124.0, 1.4 * sc, 126.0)
+    flip = int8.qconv(x, *args, flipout=epi, **kw)
+    with kf_plain_route():
+        plain = int8.qconv(x, *args, flipout=epi, **kw)
+    check(torch.equal(flip, plain), "grouped qconv with the Flipout "
+          "epilogue: K-F route and plain route differ")
+    check(not torch.equal(flip, got), "the Flipout epilogue left the mean")
+    results["resnext flipout"] = probe_times(
+        f"int8 grouped probe {C}->{C} g{G} 3x3 {H}^2 bs{B}, Flipout "
+        f"epilogue", lambda: int8.qconv(x, *args, flipout=epi, **kw),
+        x.numel() + w.numel() + 2 * got.numel() + 4 * C,
+        2 * B * H * H * C * (C // G) * 9, {"K-F": 0, "K-F flipout": G})
+    paths["grouped probe, Flipout epilogue"] = \
+        results["resnext flipout"]["launches"]
+    log("[int8 grouped probe] with the Flipout epilogue: bit for bit with "
+        "the plain route")
+    del x, w, got, plain, ref, flip, epi
 
     # DCGAN-like transposed layers
     B, I, O, H = 64, 512, 256, 16
@@ -4161,7 +4453,8 @@ def phase_int8_probes():
         res = probe_times(
             f"int8 transposed probe {est} {I}->{O} k4s2p1 {H}^2 bs{B}",
             fwd, x.numel() * 4 + n * w_q.numel() + got.numel() + 4 * O,
-            n * 2 * B * H * H * I * O * 16, n)
+            n * 2 * B * H * H * I * O * 16,
+            {"K-F": 1, "K-F flipout": n - 1})
         results[f"convtranspose {est}"] = res
         paths[f"transposed probe {est}"] = res["launches"]
         log(f"[int8 transposed probe {est}] bit for bit with the plain route"
@@ -4173,8 +4466,8 @@ def phase_int8_probes():
 
 
 def phase_int8_remainder():
-    """Phases 37-40, each one's seconds logged. Returns ({path: K-F
-    launches}, the Flipout main path's results, the probes' results)."""
+    """Phases 37-40, each one's seconds logged. Returns ({K-F form: {path:
+    launches}}, the Flipout main path's results, the probes' results)."""
     import torch
 
     seconds = {}
@@ -4193,10 +4486,16 @@ def phase_int8_remainder():
     t0 = time.perf_counter()
     paths, probes = phase_int8_probes()
     seconds["probes"] = round(time.perf_counter() - t0, 1)
-    paths = {f"int8 flipout MC-{NUM_MC} bs{BATCH} batches":
-             main_res["launches"],
-             f"int8 flipout uncalibrated MC-{NUM_MC} batches":
-             main_res["launches_uncalibrated"], **paths}
+    batch_paths = {
+        f"int8 flipout MC-{NUM_MC} bs{BATCH} batches": {
+            "K-F": main_res["launches"],
+            "K-F flipout": main_res["kf_flipout_launches"]},
+        f"int8 flipout uncalibrated MC-{NUM_MC} batches": {
+            "K-F": main_res["launches_uncalibrated"],
+            "K-F flipout": main_res["launches_uncalibrated_flipout"]}}
+    paths = {k: {path: got[k] for path, got in {**batch_paths,
+                                                **paths}.items() if got[k]}
+             for k in ("K-F", "K-F flipout")}
     log(f"[int8 remainder] seconds per phase: {seconds}")
     return paths, main_res, probes
 
@@ -4741,8 +5040,9 @@ def structured_check(model):
 def int8_draw_axis(what, model, per_draw):
     """(c) An INT8 qresnet50's MC-10 bs128 batch through the loop and under
     the draw axis on the same presample record (the generator rewound):
-    lane for lane equal, ``per_draw`` x 10 K-F launches each way; one
-    warm-up and one timed batch each. Returns the times and launches."""
+    lane for lane equal, ``per_draw`` ({K-F form: launches a draw}) x 10
+    launches each way; one warm-up and one timed batch each. Returns the
+    times and launches."""
     import torch
 
     from bayesian_torch_tpu_torch.parallel import mc_forward
@@ -4762,11 +5062,12 @@ def int8_draw_axis(what, model, per_draw):
         outs[emission] = run()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        kf_launches = counts()["K-F"]
+        kf_launches = {k: counts()[k] for k in per_draw}
+        want = {k: n * NUM_MC for k, n in per_draw.items()}
         peak = torch.cuda.max_memory_allocated() / 2**30
         res[emission] = dict(ms=ms, launches=kf_launches, peak_gib=peak)
-        check(kf_launches == per_draw * NUM_MC, f"{what} {emission}: K-F "
-              f"launched {kf_launches} times, want {per_draw * NUM_MC}")
+        check(kf_launches == want, f"{what} {emission}: K-F launched "
+              f"{kf_launches}, want {want}")
         log(f"[{what}] {emission}: {ms:.1f} ms for one MC-{NUM_MC} "
             f"bs{BATCH} batch, K-F {kf_launches}, peak {peak:.2f} GiB")
     a, b = outs["vmap"], outs["scan"]
@@ -4880,7 +5181,8 @@ def phase_modes():
     """Phase 42: block remat with replayed draws, structured=True, INT8
     models under the draw axis, the trainer's --remat and --structured-mc
     and utils.profiling, each part's seconds logged. Returns ({kernel:
-    {path: launches}} for K-A, K-C dsigma, K-C drho and K-F, results)."""
+    {path: launches}} for K-A, K-C dsigma, K-C drho and K-F (both forms),
+    results)."""
     import torch
 
     from bayesian_torch_tpu_torch.models.bayesian.resnet_variational_large \
@@ -4927,13 +5229,14 @@ def phase_modes():
     qmodel, _ = timed("int8 build", phase_int8_build, images(SEED + 780))
     res["int8 reparameterization"] = timed(
         "int8 reparameterization", int8_draw_axis, "int8 draw axis", qmodel,
-        INT8_LAYERS)
+        {"K-F": INT8_LAYERS, "K-F flipout": 0})
     del qmodel
     torch.cuda.empty_cache()
     qmodel = timed("int8 flipout build", phase_int8_flipout_build)
     res["int8 flipout"] = timed("int8 flipout", int8_draw_axis,
                                 "int8 flipout draw axis", qmodel,
-                                2 * INT8_LAYERS)
+                                {"K-F": INT8_LAYERS,
+                                 "K-F flipout": INT8_LAYERS})
     del qmodel
     torch.cuda.empty_cache()
     for name, r in (("int8 reparameterization", res["int8 "
@@ -4941,7 +5244,7 @@ def phase_modes():
                     ("int8 flipout", res["int8 flipout"])):
         for emission, v in r.items():
             paths[f"{name} MC-{NUM_MC} bs{BATCH} {emission}, 1 batch"] = \
-                {"K-F": v["launches"]}
+                v["launches"]
     res["quantized lstm"] = timed("quantized lstm",
                                   quantized_lstm_interleaved)
     paths["modes trainer --remat --structured-mc"] = timed(
@@ -4950,7 +5253,8 @@ def phase_modes():
     log(f"[modes] seconds per part: {seconds}")
     by_kernel = {k: {path: got.get(k, 0) for path, got in paths.items()
                      if got.get(k, 0)}
-                 for k in ("K-A", "K-C dsigma", "K-C drho", "K-F")}
+                 for k in ("K-A", "K-C dsigma", "K-C drho", "K-F",
+                           "K-F flipout")}
     for k, v in by_kernel.items():
         check(v, f"{k} never ran on phase 42's paths")
     return by_kernel, res
@@ -6899,25 +7203,49 @@ def main(argv=None):
              run=f"INT8 main paths: qresnet50 calibrated, fuse_conv_bn=True, "
                  f"mc_forward(num_mc={NUM_MC}, reduce='mean'), 3 batches, "
                  f"reparameterization ({INT8_LAYERS * NUM_MC} launches a "
-                 f"batch) and Flipout ({2 * INT8_LAYERS * NUM_MC}); ms, "
+                 f"batch) and Flipout ({INT8_LAYERS * NUM_MC}: the means; "
+                 f"the perturbations are qmatmul_requant_flipout's); ms, "
                  f"plain_ms, bound_ms and library_ms are device-time sums "
                  f"over one reparameterization forward's {INT8_LAYERS} "
-                 f"GEMMs (a Flipout forward runs each shape twice); "
+                 f"GEMMs; "
                  f"cifar_resnet20_bs128: the same sums over the INT8 CIFAR "
                  f"ResNet-20's GEMMs; int8_flipout: the Flipout MC-10 "
-                 f"batch (host ms, profiled busy ms, idle share, K-F's and "
-                 f"the sign hash's device ms and shares); grouped_probe, "
+                 f"batch (host ms, profiled busy ms, idle share, K-F's "
+                 f"device ms and share with its Flipout epilogue's apart, "
+                 f"K-H3's); grouped_probe, "
                  f"transposed_probes: device ms of the route, of K-F's rows "
                  f"and of the plain route, per call",
              launches=kf_launches + flipout_int8["launches"],
              paths=dict(zoo["K-F"], **{
                  f"int8 reparameterization MC-{NUM_MC} bs{BATCH} batches":
-                 kf_launches}, **int8_paths, **modes_paths["K-F"],
+                 kf_launches}, **int8_paths["K-F"], **modes_paths["K-F"],
                  **mesh_paths["K-F"]),
              cifar_resnet20_bs128=zoo_kf, int8_flipout=flipout_int8,
              grouped_probe=int8_probes["resnext"],
              transposed_probes={k: v for k, v in int8_probes.items()
-                                if k != "resnext"}, **kf_res),
+                                if k.startswith("convtranspose")},
+             **kf_res),
+        dict(name="qmatmul_requant_flipout (K-F Flipout epilogue)",
+             route="cuda", source=csrc + "qmatmul.cu",
+             replaces=pallas + "qmatmul.py:61",
+             run=f"INT8 Flipout main path: qresnet50 (Flipout) calibrated, "
+                 f"mc_forward(num_mc={NUM_MC}, reduce='mean'), 3 batches "
+                 f"(phase 38; {INT8_LAYERS * NUM_MC} a batch): K-F's second "
+                 f"instantiation, each layer's perturbation GEMM with its "
+                 f"output signs' product and the add to the mean in the "
+                 f"epilogue (that part port-only: XLA fuses it in the JAX "
+                 f"package); ms, plain_ms and bound_ms over one forward's "
+                 f"{INT8_LAYERS} perturbation GEMMs (phase 46), unfused_ms "
+                 f"the route before it over the same GEMMs (K-F, K-H3's "
+                 f"product, torch's qadd: all device rows); grouped_probe: "
+                 f"phase 40's grouped conv with the epilogue; sass: the "
+                 f"instruction mix of K-F's 128-wide instantiations and "
+                 f"K-H3's forms",
+             launches=flipout_int8["kf_flipout_launches"],
+             paths=dict(int8_paths["K-F flipout"],
+                        **modes_paths["K-F flipout"]),
+             grouped_probe=int8_probes["resnext flipout"], sass=SASS_MIX,
+             **kh_res["K-F flipout"]),
         dict(name="sampled_matmul_batched", route="cuda",
              source=csrc + "sampled_matmul.cu",
              replaces=pallas + "sampled_matmul.py:383",
@@ -7037,8 +7365,11 @@ def main(argv=None):
              replaces="bayesian_torch_tpu/ops/sampling.py:104",
              run=f"INT8 Flipout main path: qresnet50 (Flipout) calibrated, "
                  f"mc_forward(num_mc={NUM_MC}, reduce='mean'), 3 batches "
-                 f"(phase 38); ms, plain_ms and bound_ms over one batch's "
-                 f"{2 * INT8_LAYERS * NUM_MC} sign products (phase 46)",
+                 f"(phase 38: the input pass, one a layer and draw); ms, "
+                 f"plain_ms and bound_ms over one batch's "
+                 f"{INT8_LAYERS * NUM_MC} input passes with the requantize "
+                 f"(phase 46), products_*: the same over its "
+                 f"{2 * INT8_LAYERS * NUM_MC} products without it",
              launches=flipout_int8["kh3_launches"], **kh_res["K-H3"]),
     ]
     for k in kernels:

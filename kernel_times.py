@@ -77,16 +77,24 @@ prints one line per shape and a JSON summary last.
 - ``signs``: K-H (``ops/cuda/flipout_signs.py``) over the sign work of one
   Flipout MC-10 bs128 batch through the draw loop at ResNet-50's 54
   layers (``sign_work``: 540 flips of the layers' inputs, 540 combines of
-  their outputs in bf16, 1,080 INT8 sign products on uint8), each
-  kernel's device time beside its plain version's and its bound (bytes,
-  or the hash's instructions at the issue rate); in a checkout without
-  K-H, the route it replaced (the hash in torch, then the product).
+  their outputs in bf16, 1,080 INT8 sign products on uint8 and, in a
+  checkout with it, K-H3's 540 requantizing input passes), each kernel's
+  device time beside its plain version's and its bound (bytes, or the
+  hash's instructions at the issue rate); in a checkout without K-H, the
+  route it replaced (the hash in torch, then the product).
 - ``flipout``: the paths K-H serves, in any checkout: Flipout ResNet-50
   bf16 MC-10 bs128 through the loop and the vmap emission and its MC-4
   bs128 loop ELBO step (with its peak memory), and the INT8 Flipout
   ``qresnet50`` MC-10 bs128 batch: host wall ms, device busy ms, idle
-  share and K-H's device ms. Run from a parent's and a change's checkout
-  in turns for the before and after.
+  share, K-H's and K-F's device ms (K-F's Flipout epilogue apart) and the
+  batch's launches; a SHA-256 of that batch's logits (the head's uint8
+  outputs, dequantized one to one) on fixed seeds; the torch ``qadd`` and
+  ``QTensor.requantize`` passes of the batch timed alone; and the
+  batch's 540 perturbation GEMMs (``flipout_gemm_work``) with K-F's
+  Flipout epilogue beside the route before it (K-F, K-H3's product on the
+  output, ``int8.qadd``). Run from a parent's and a change's checkout in
+  turns for the before and after (the same file in both: its parts
+  missing from a checkout are skipped).
 """
 
 from __future__ import annotations
@@ -829,6 +837,8 @@ def nhwc_dot(out):
 # --- K-H: the Flipout signs -------------------------------------------------
 
 SIGN_TAG, QSIGN_TAG = "sign_kernel", "QSignOp"
+# K-F's Flipout instantiation, by the type of its epilogue argument
+KF_FLIP_TAG = "BttFlipEpilogue"
 # (a scale, a zero point, sign scale, sign zero point, out scale, out zero
 # point): a calibrated INT8 Flipout layer's sign product
 QSIGN_SCALES = (0.031, 117.0, 0.0079, 127.0, 0.045, 121.0)
@@ -862,6 +872,34 @@ def resnet50_sites(batch=BATCH):
     return sites
 
 
+def resnet50_gemms(batch=BATCH):
+    """(output shape, GEMM depth K) of ResNet-50's 54 Bayesian layers at
+    ``batch`` images of 224^2, NCHW, in model order: the GEMM ``ops.int8``
+    gives each INT8 layer (K = C * prod(kernel), widened to a multiple of
+    16; the head's K its input features)."""
+    import torch
+
+    from bayesian_torch_tpu_torch.models.deterministic.resnet_large import (
+        resnet50,
+    )
+
+    model = resnet50(num_classes=1000, device="meta")
+    gemms = []
+
+    def hook(mod, inp, out):
+        k = mod.in_features if isinstance(mod, torch.nn.Linear) else \
+            mod.in_channels // mod.groups * math.prod(mod.kernel_size)
+        gemms.append((tuple(out.shape), k + (-k % 16)))
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    with torch.no_grad():
+        model(torch.empty(batch, 3, IMAGE, IMAGE, device="meta"))
+    for h in hooks:
+        h.remove()
+    return gemms
+
+
 def _sign_salt(draw, side):
     return (0x5A17 + 7919 * (2 * draw + side)) & 0xFFFFFFFF
 
@@ -871,12 +909,17 @@ def sign_work(draws=S, batch=BATCH, dtype=None, route="kernel"):
     through the draw loop (what ``chip_smoke.py``'s phase 26 runs a
     batch): per draw and layer its input's flip (K-H1) and its output's
     combine (K-H2) in ``dtype`` (bf16 by default), and the INT8 layer's two
-    sign products on uint8 tensors (K-H3, the output channels-last as
-    ``ops.int8.qconv`` gives it), each under salts of its own. One input of
-    each shape serves every draw. ``route``: "kernel" (the K-H wrappers),
-    "plain" (their plain versions) or "hash" (``rademacher_fused`` and the
-    product, the route before K-H). Returns {kernel: (fn, bytes a call,
-    elements a call)}."""
+    sign products on uint8 tensors (K-H3 products, the output channels-last
+    as ``ops.int8.qconv`` gives it), each under salts of its own; where K-H3
+    takes it, its input pass (``requant``: a QTensor payload requantized
+    and multiplied by the signs in one read; K-H3 input pass), the form
+    the INT8 Flipout layer runs since K-F's Flipout epilogue took the
+    output's product. One input of each shape serves every draw.
+    ``route``: "kernel" (the K-H wrappers), "plain" (their plain versions)
+    or "hash" (``rademacher_fused`` and the product, the route before
+    K-H). Returns {kernel: (fn, bytes a call, elements a call)}."""
+    import inspect
+
     import torch
 
     from bayesian_torch_tpu_torch.ops import int8 as q
@@ -898,9 +941,10 @@ def sign_work(draws=S, batch=BATCH, dtype=None, route="kernel"):
     xs = [randn(i) for i, _ in sites]
     means = [randn(o) for _, o in sites]
     perts = [randn(o) for _, o in sites]
-    a_in = [uint8(i) for i, _ in sites]
+    a_in = [uint8(i, last=True) for i, _ in sites]
     a_out = [uint8(o, last=True) for _, o in sites]
     sa, za, ss, zs, so, zo = QSIGN_SCALES
+    passes = False
     if route == "hash":
         def flip(x, d, side):
             return x * ts.rademacher_fused(_sign_salt(d, side), x.shape,
@@ -922,6 +966,7 @@ def sign_work(draws=S, batch=BATCH, dtype=None, route="kernel"):
         fl = kh.sign_flip_plain if plain else kh.sign_flip
         co = kh.sign_combine_plain if plain else kh.sign_combine
         qs = kh.qsign_mul_plain if plain else kh.qsign_mul
+        passes = "requant" in inspect.signature(kh.qsign_mul).parameters
 
         def flip(x, d, side):
             return fl(x, ts.sign_block([_sign_salt(d, side)], x.shape))
@@ -929,9 +974,10 @@ def sign_work(draws=S, batch=BATCH, dtype=None, route="kernel"):
         def combine(m, p, d):
             return co(m, p, ts.sign_block([_sign_salt(d, 1)], p.shape))
 
-        def qsign(a, d, side):
+        def qsign(a, d, side, **kw):
             return qs(a, sa, za, ts.sign_block([_sign_salt(d, side)],
-                                               a.shape), ss, zs, so, zo)
+                                               a.shape), ss, zs, so, zo,
+                      **kw)
 
     def run_flip():
         for d in range(draws):
@@ -949,12 +995,103 @@ def sign_work(draws=S, batch=BATCH, dtype=None, route="kernel"):
                 qsign(a, d, 0)
                 qsign(b, d, 1)
 
+    def run_pass():
+        # the payload at a QTensor's scale and zero point of its own
+        for d in range(draws):
+            for a in a_in:
+                qsign(a, d, 0, requant=(sa * 1.37, 119))
+
     n_in = draws * sum(x.numel() for x in xs)
     n_out = draws * sum(m.numel() for m in means)
     size = torch.finfo(dtype).bits // 8
-    return {"K-H1": (run_flip, 2 * size * n_in, n_in),
+    work = {"K-H1": (run_flip, 2 * size * n_in, n_in),
             "K-H2": (run_combine, 3 * size * n_out, n_out),
-            "K-H3": (run_qsign, 2 * (n_in + n_out), n_in + n_out)}
+            "K-H3 products": (run_qsign, 2 * (n_in + n_out), n_in + n_out)}
+    if passes:
+        work["K-H3 input pass"] = (run_pass, 3 * n_in, n_in)
+    return work
+
+
+# (x scale, x zero point, weight scale, p scale, p zero point, mean scale,
+# mean zero point, sign scale, sign zero point, signed p scale, its zero
+# point, sum scale, sum zero point): a calibrated INT8 Flipout layer's
+# perturbation product and the chain after it
+FLIP_SCALES = (0.031, 117.0, 0.0123, 0.052, 119.0, 0.043, 121.0, 0.0079,
+               127.0, 0.049, 124.0, 0.071, 126.0)
+
+
+def flipout_gemm_work(draws=S, route="kernel"):
+    """The output side of one INT8 Flipout ``qresnet50`` MC-``draws`` bs128
+    batch through the loop: per draw, the 54 perturbation GEMMs
+    (``INT8_GEMMS``; NCHW outputs, the head's (B, N)) and the rest of the
+    layer's chain after each, ``qadd(mean, qmul(p, quantize_uint8(
+    signs)))``, each draw under a salt of its own. ``route``: "kernel" (K-F's
+    Flipout epilogue), "plain" (its plain version), "unfused" (the route
+    before it: K-F, K-H3's sign product on the output, ``int8.qadd``). One
+    operand set a shape serves every draw and layer of it. Returns (fn,
+    bytes a call, int8 operations a call, GEMMs a call); None for "kernel"
+    and "plain" in a checkout without the epilogue."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops import int8 as q
+    from bayesian_torch_tpu_torch.ops import sampling as ts
+    from bayesian_torch_tpu_torch.ops.cuda import flipout_signs as kh
+    from bayesian_torch_tpu_torch.ops.cuda import qmatmul as kfm
+
+    if route != "unfused" and not hasattr(kfm, "qmatmul_requant_flipout"):
+        return None
+    s6, z6, s1, s7, z7, s3, z3, s5, z5, s8, z8, s9, z9 = FLIP_SCALES
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    ops = []
+    nbytes = flops = gemms = 0
+    for M, K, N, count in INT8_GEMMS:
+        x = torch.randint(0, 256, (M, K), dtype=torch.uint8, device="cuda",
+                          generator=gen)
+        w = torch.randint(-128, 128, (N, K), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        b = torch.randn(N, device="cuda", generator=gen)
+        mean = torch.randint(0, 256, (M, N), dtype=torch.uint8,
+                             device="cuda", generator=gen)
+        side = math.isqrt(M // BATCH)
+        out = (BATCH, N, side, side) if M > BATCH else (BATCH, N)
+        ops.append((x, w, b, mean, out, count))
+        nbytes += count * (M * K + N * K + 2 * M * N + 8 * N)
+        flops += count * 2 * M * N * K
+        gemms += count
+
+    def nchw(t, out):
+        """(M, N) in the GEMM's layout as the layer's NCHW output."""
+        if len(out) == 2:
+            return t
+        B, N, H, W = out
+        return t.view(B, H, W, N).permute(0, 3, 1, 2)
+
+    def epi(mean, out, d):
+        signs = kh.OutputSigns(ts.sign_block([_sign_salt(d, 1)], out), 1)
+        return kfm.FlipoutEpilogue(mean, s3, z3, signs, s5, z5, s8, z8, s9,
+                                   z9)
+
+    def gemm(x, w, b, mean, out, d):
+        if route == "kernel":
+            return kfm.qmatmul_requant_flipout(x, s6, z6, w, s1, b, s7, z7,
+                                               epi(mean, out, d))
+        if route == "plain":
+            args = kfm.requant_args(w, z6, s6, s1, b, s7)
+            return kfm.qmatmul_requant_flipout_plain(x, w, *args, z7, s7,
+                                                     epi(mean, out, d))
+        p = nchw(kfm.qmatmul_requant(x, s6, z6, w, s1, b, s7, z7), out)
+        p2 = kh.qsign_mul(p, s7, z7, ts.sign_block([_sign_salt(d, 1)], out),
+                          s5, z5, s8, z8)
+        return q.qadd(nchw(mean, out), s3, p2, s8, s9, z9, a_zp=z3,
+                      b_zp=z8, out_dtype=torch.uint8)
+
+    def run():
+        for d in range(draws):
+            for x, w, b, mean, out, count in ops:
+                for _ in range(count):
+                    gemm(x, w, b, mean, out, d)
+
+    return run, draws * nbytes, draws * flops, draws * gemms
 
 
 def sign_bound(nbytes, elements):
@@ -983,20 +1120,13 @@ def signs(out):
         work = sign_work(route=route)
         for name, (fn, nbytes, elements) in work.items():
             if route == "kernel":
-                tag = QSIGN_TAG if name == "K-H3" else SIGN_TAG
-                ms = device_times((fn, tag))[0]
+                ms = device_times((fn, QSIGN_TAG if name.startswith("K-H3")
+                                   else SIGN_TAG))[0]
             else:
                 # the plain routes run ~15 torch passes a tensor: one warm
                 # call, then one timed by CUDA events
                 fn()
-                torch.cuda.synchronize()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                fn()
-                end.record()
-                end.synchronize()
-                ms = start.elapsed_time(end)
+                ms = event_ms(fn)
             bound, term = sign_bound(nbytes, elements)
             r = dict(kernel=name, route=route, ms=ms, bound_ms=bound,
                      bound_by=term, gbytes=nbytes / 1e9)
@@ -1006,6 +1136,101 @@ def signs(out):
         torch.cuda.empty_cache()
 
 
+def event_ms(fn):
+    """Device ms of one call of ``fn``, by CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def flipout_gemms(out):
+    """The INT8 Flipout batch's 540 perturbation GEMMs with the chain after
+    them (``flipout_gemm_work``): K-F's Flipout epilogue (device time of
+    its rows) beside the route before it (K-F, K-H3's output product and
+    torch's qadd: all its device rows) and the bound (bytes: patches,
+    weights, the mean read, the output written; or int8 operations)."""
+    import torch
+
+    for route in ("kernel", "unfused"):
+        work = flipout_gemm_work(route=route)
+        if work is None:
+            continue
+        fn, nbytes, flops, gemms = work
+        ms = device_times((fn, KF_FLIP_TAG if route == "kernel"
+                           else None))[0]
+        r = dict(route=route, gemms=gemms, ms=ms,
+                 bound_ms=bound_ms(nbytes, flops, INT8_OPS),
+                 bound_by="bytes" if nbytes / HBM_BPS > flops / INT8_OPS
+                 else "operations", gbytes=nbytes / 1e9)
+        print(f"[flipout gemms] {r}", flush=True)
+        out.append(r)
+        del work, fn
+        torch.cuda.empty_cache()
+
+
+def int8_glue(qmodel, x):
+    """The torch passes K-F's Flipout epilogue and K-H3's input pass
+    replace, timed alone (CUDA events) at one INT8 Flipout MC-10 batch's
+    shapes: the ``qadd`` of each layer's mean and signed perturbation (540
+    calls) and the ``QTensor.requantize`` of each layer input that arrives
+    as a QTensor at another scale; and the layers that take a float input
+    (whose ``quantize_uint8`` stays). Shapes from one forward's hooks."""
+    import torch
+
+    from bayesian_torch_tpu_torch.ops import int8 as q
+    from bayesian_torch_tpu_torch.ops.qtensor import QTensor
+
+    layers = [m for m in qmodel.modules() if hasattr(m, "quant_dict")]
+    seen = []
+    hooks = [m.register_forward_hook(lambda mod, inp, o: seen.append(
+        (mod, inp[0], o[0] if isinstance(o, tuple) else o))) for m in layers]
+    with torch.no_grad():
+        qmodel(x)
+    for h in hooks:
+        h.remove()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    adds, requants, floats = [], [], 0
+    for mod, inp, o in seen:
+        s2, z2 = mod._qd(2)
+        s3, z3 = mod._qd(3)
+        s8, z8 = mod._qd(8)
+        s9, z9 = mod._qd(9)
+        shape = tuple(o.q.shape) if isinstance(o, QTensor) else tuple(o.shape)
+        a = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+                          generator=gen)
+        adds.append((a, a.clone(), (s3, s8, s9, z9, z3, z8)))
+        if isinstance(inp, QTensor) and (inp.scale, inp.zp) != (s2, z2):
+            requants.append((QTensor(inp.q.clone(), inp.scale, inp.zp),
+                             (s2, z2)))
+        floats += not isinstance(inp, QTensor)
+
+    def run_adds():
+        for _ in range(S):
+            for m, p, (s3, s8, s9, z9, z3, z8) in adds:
+                q.qadd(m, s3, p, s8, s9, z9, a_zp=z3, b_zp=z8,
+                       out_dtype=torch.uint8)
+
+    def run_requants():
+        for _ in range(S):
+            for qt, (s2, z2) in requants:
+                qt.requantize(s2, z2)
+
+    r = {}
+    for name, fn in (("qadd", run_adds), ("requantize", run_requants)):
+        fn()
+        r[f"{name}_ms"] = event_ms(fn)
+    r.update(qadd_calls=S * len(adds), requantize_calls=S * len(requants),
+             float_inputs=S * floats)
+    return r
+
+
 def flipout(out):
     """The Flipout paths that K-H serves, in any checkout: Flipout
     ResNet-50 (bf16) MC-10 bs128 inference through the loop and the vmap
@@ -1013,7 +1238,11 @@ def flipout(out):
     (median of 3 after a warm-up), two profiled runs each (device busy ms,
     idle share, K-H's device ms) and the step's peak memory; then the INT8
     ``qresnet50`` (Flipout, calibrated on 3 x 32 images, conv+BN folded,
-    uint8 activations) MC-10 bs128 batch the same way."""
+    uint8 activations) MC-10 bs128 batch the same way (K-F's rows and its
+    Flipout epilogue's apart), its launches, the hash of its logits on
+    fixed seeds (``int8_logits_digest``), the torch passes that the fused
+    kernels replace (``int8_glue``) and the batch's perturbation GEMMs
+    (``flipout_gemms``)."""
     import torch
     from torch import nn
 
@@ -1030,7 +1259,7 @@ def flipout(out):
     def images(n=BATCH):
         return torch.randn(n, 3, IMAGE, IMAGE, generator=gen, device="cuda")
 
-    tags = dict(kh=SIGN_TAG, kh3=QSIGN_TAG, kf="qmatmul")
+    tags = dict(kh=SIGN_TAG, kh3=QSIGN_TAG, kf="qmatmul", kf_flip=KF_FLIP_TAG)
 
     def measure(what, fn, reps=3):
         walls = [wall_ms(fn) for _ in range(reps + 1)][1:]
@@ -1106,8 +1335,49 @@ def flipout(out):
             mc_forward(qmodel, x, S, reduce="mean", return_kl=False)
 
     measure(f"INT8 Flipout qresnet50 MC-{S} bs{BATCH}", qinfer)
+    glue = int8_glue(qmodel, x)
+    out[-1].update(glue, launches=int8_launches(qinfer),
+                   logits_sha256=int8_logits_digest(qmodel, x))
+    print(f"[flipout] INT8 batch: launches {out[-1]['launches']}, logits "
+          f"sha256 {out[-1]['logits_sha256']}, the torch passes alone "
+          f"{glue}", flush=True)
     del qmodel
     torch.cuda.empty_cache()
+    flipout_gemms(out)
+
+
+def int8_launches(fn):
+    """K-F's (plain and with the Flipout epilogue) and K-H3's launches in
+    one call of ``fn``."""
+    from bayesian_torch_tpu_torch.ops.cuda import flipout_signs as kh
+    from bayesian_torch_tpu_torch.ops.cuda import qmatmul as kfm
+
+    wrappers = {"K-F": kfm.qmatmul_requant, "K-H3": kh.qsign_mul,
+                "K-F flipout": getattr(kfm, "qmatmul_requant_flipout", None)}
+    before = {k: getattr(f, "launches", 0) for k, f in wrappers.items()}
+    fn()
+    return {k: getattr(f, "launches", 0) - before[k]
+            for k, f in wrappers.items()}
+
+
+def int8_logits_digest(qmodel, x):
+    """SHA-256 of an MC-10 batch's stacked logits (each draw's head
+    output, the uint8 dequantized one to one) with every layer's generator
+    reseeded: equal in two checkouts exactly when their INT8 Flipout paths
+    give the same bits."""
+    import hashlib
+
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import mc_forward
+
+    gens = {id(m.generator): m.generator for m in qmodel.modules()
+            if isinstance(getattr(m, "generator", None), torch.Generator)}
+    for i, g in enumerate(gens.values()):
+        g.manual_seed(1234 + i)
+    with torch.no_grad():
+        logits = mc_forward(qmodel, x, S, return_kl=False)
+    return hashlib.sha256(logits.float().cpu().numpy().tobytes()).hexdigest()
 
 
 SECTIONS = dict(sampler=sampler, sampled=sampled, windowed=windowed,

@@ -15,9 +15,11 @@ K-A and K-C under a counter window (a rank's lanes, a tensor-parallel
 shard's rows; the LSTM's draws and signs under a mesh's window) against
 the whole launch, K-B, K-D and K-E under a window against their
 windowed plain versions, and K-H (the Flipout signs inside their
-products: the sign flip, the combine, the INT8 sign product) in every
-layout the Flipout paths give it, with its gradients. They skip without a
-CUDA device. On a machine with one, and without JAX, run them with
+products: the sign flip, the combine, the INT8 sign product and its
+requantizing input pass) in every layout the Flipout paths give it, with
+its gradients, and K-F's Flipout epilogue (the output signs' product and
+the add to the mean after the perturbation GEMM) at every sign map the
+INT8 Flipout layers hand it. They skip without a CUDA device. On a machine with one, and without JAX, run them with
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
 
@@ -1222,6 +1224,167 @@ def test_quantized_flipout_layer_matches_cpu(cuda, name):
         with torch.no_grad():
             outs.append(mod(xs, return_kl=False).q.cpu())
     assert type(cpu).__name__ == name
+    assert torch.equal(outs[0], outs[1])
+
+
+# K-F's Flipout epilogue: (M, N, K, per-lane output shape, channel dim,
+# lanes, GEMM columns): the loop's NCHW and NHWC convs (R = H*W; a layer's
+# shapes of the INT8 Flipout ResNet-50 at batch 8), the head (R = 1, N =
+# 1000), a grouped conv's 8-column GEMMs (mean rows 16-byte aligned, the
+# columns not), the draw axis' lanes
+_EPILOGUE_CASES = [
+    (8 * 56 * 56, 64, 576, (8, 64, 56, 56), 1, 1, 64),
+    (8 * 28 * 28, 128, 1152, (8, 28, 28, 128), 3, 1, 128),
+    (8 * 7 * 7, 2048, 512, (8, 2048, 7, 7), 1, 1, 2048),
+    (8, 1000, 2048, (8, 1000), 1, 1, 1000),
+    (4 * 14 * 14, 8, 80, (4, 64, 14, 14), 1, 1, 8),
+    (4 * 14 * 14, 24, 96, (4, 14, 14, 24), 3, 3, 24),
+    (6, 7, 16, (6, 7), 1, 4, 7),
+]
+
+
+def _epilogue_operands(case, device, seed):
+    from bayesian_torch_tpu_torch.ops import sampling as ts
+    from bayesian_torch_tpu_torch.ops.cuda import flipout_signs as kh
+
+    m, n, k, one, cd, lanes, cols = case
+    x, w, bias, out_scale = _int8_operands(m, n, k, device, seed=seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    width = one[cd] * lanes
+    mean = torch.randint(0, 256, (m, width), dtype=torch.uint8,
+                         device=device, generator=g)
+    salts = [ts.sign_salts(seed + 2, s)[1] for s in range(lanes)]
+    block = ts.sign_block(salts, one, axis=cd if lanes > 1 else None)
+    return x, w, bias, out_scale, mean, kh.OutputSigns(block, cd)
+
+
+@pytest.mark.parametrize("case", range(len(_EPILOGUE_CASES)))
+@pytest.mark.parametrize("scales", [
+    (0.043, 121.0, 0.0079, 127.0, 0.049, 124.0, 0.071, 126.0),
+    (0.2, 128.0, 0.2, 128.0, 0.2, 128.0, 0.2, 128.0),
+    (0.043, 121.5, 0.0079, 127.0, 0.003, 124.25, 0.006, 126.0)])
+def test_flipout_epilogue_matches_plain(cuda, case, scales):
+    """K-F with the Flipout epilogue equals its plain version (K-F's plain
+    version, then quantize, qmul and qadd of the GEMM's signs) bit for bit
+    at every GEMM of a layer: each lane and each group of columns from its
+    own channel of the signs and its own columns of the mean; calibrated,
+    default and clamping scales (non-integral zero points too)."""
+    s3, z3, s5, z5, s8, z8, s9, z9 = scales
+    x, w, bias, out_scale, mean, signs = _epilogue_operands(
+        _EPILOGUE_CASES[case], cuda, seed=case)
+    n, cols = w.shape[0], _EPILOGUE_CASES[case][-1]
+    lanes = _EPILOGUE_CASES[case][5]
+    per_lane = signs.block.shape[signs.channel_dim]
+    for c0 in range(0, min(mean.shape[1], 3 * cols), cols):
+        epi = kf.FlipoutEpilogue(mean[:, c0:c0 + n], s3, z3, signs, s5, z5,
+                                 s8, z8, s9, z9, lane=c0 // per_lane,
+                                 ch0=c0 % per_lane)
+        before = kf.qmatmul_requant_flipout.launches
+        got = kf.qmatmul_requant_flipout(x, 0.02, 117, w, 0.01, bias,
+                                         out_scale, 128, epi)
+        assert kf.qmatmul_requant_flipout.launches == before + 1
+        want = kf.qmatmul_requant_flipout_plain(
+            x, w, *kf.requant_args(w, 117, 0.02, 0.01, bias, out_scale),
+            128, out_scale, epi)
+        assert got.shape == want.shape and torch.equal(got, want), \
+            (case, c0, (got.int() - want.int()).abs().max().item())
+        if lanes == 1 and cols == n:
+            break
+    torch.cuda.synchronize()
+
+
+def test_flipout_epilogue_leaves_the_plain_instantiation(cuda):
+    """K-F's plain instantiation gives what it gave before the epilogue
+    was added (its plain version), and the epilogue's output differs from
+    the bare product."""
+    x, w, bias, out_scale, mean, signs = _epilogue_operands(
+        _EPILOGUE_CASES[0], cuda, seed=11)
+    plain = kf.qmatmul_requant(x, 0.02, 117, w, 0.01, bias, out_scale, 128)
+    assert torch.equal(plain, kf.qmatmul_requant_plain(
+        x, w, *kf.requant_args(w, 117, 0.02, 0.01, bias, out_scale), 128))
+    epi = kf.FlipoutEpilogue(mean, 0.2, 128.0, signs, 0.2, 128.0, 0.2,
+                             128.0, 0.2, 128.0)
+    flip = kf.qmatmul_requant_flipout(x, 0.02, 117, w, 0.01, bias,
+                                      out_scale, 128, epi)
+    assert not torch.equal(flip, plain)
+
+
+@pytest.mark.parametrize("form", range(10))
+def test_requantizing_input_pass_matches_plain(cuda, form):
+    """K-H3's input pass (a QTensor payload requantized and multiplied by
+    its signs in one read) equals its plain version in every sign form,
+    the payload one a lane, shared across the lanes and channels-last,
+    both outputs bit for bit."""
+    from bayesian_torch_tpu_torch.ops.cuda import flipout_signs as kh
+
+    name, block = _sign_forms()[form]
+    full = block.lanes_shape
+    g = torch.Generator().manual_seed(form)
+    shapes = [full] if block.axis is None else [full, _shared(full, block)]
+    payloads = [torch.randint(0, 256, shape, generator=g,
+                              dtype=torch.uint8).to(cuda)
+                for shape in shapes]
+    if len(full) == 4:
+        payloads.append(payloads[0].contiguous(
+            memory_format=torch.channels_last))
+    for a in payloads:
+        for requant in ((0.057, 131), (0.0213, 0)):
+            args = (0.031, 117.0, block, 0.0079, 127.0, 0.045, 121.0)
+            got = kh.qsign_mul(a, *args, requant=requant)
+            want = kh.qsign_mul_plain(a, *args, requant=requant)
+            for u, v in zip(got, want):
+                assert u.shape == v.shape and torch.equal(u, v), \
+                    (name, tuple(a.shape), requant)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["QuantizedConv2dFlipout",
+                                  "QuantizedConvTranspose2dFlipout",
+                                  "QuantizedLinearFlipout"])
+def test_quantized_flipout_layer_launches_the_fused_route(cuda, name):
+    """A quantized Flipout layer on the card with a QTensor input: one K-H3
+    (the requantize and the input's signs), one plain K-F (the mean), one
+    K-F with the Flipout epilogue, and its uint8 output equal to a CPU
+    copy's."""
+    from torch import nn
+
+    from bayesian_torch_tpu_torch import layers as L
+    from bayesian_torch_tpu_torch.models.bnn_to_qbnn import bnn_to_qbnn
+    from bayesian_torch_tpu_torch.ops.cuda import flipout_signs as kh
+    from bayesian_torch_tpu_torch.ops.qtensor import QTensor
+    from bayesian_torch_tpu_torch.quantization import (
+        freeze_quantized_draws, prepare)
+
+    float_name = name[len("Quantized"):]
+    args = (12, 7) if "Linear" in float_name else (8, 6, 3, 2, 1)
+    shape = (5, 12) if "Linear" in float_name else (2, 8, 9, 9)
+    layer = getattr(L, float_name)(
+        *args, generator=torch.Generator().manual_seed(0))
+    holder = nn.ModuleDict(dict(l=layer)).eval()
+    prepare(holder)
+    with torch.no_grad():
+        holder["l"](torch.randn(shape, generator=torch.Generator()
+                                .manual_seed(1)))
+    bnn_to_qbnn(holder)
+    freeze_quantized_draws(holder)
+    cpu = holder["l"]
+    card = copy.deepcopy(cpu).to(cuda)
+    card._refresh_scales()
+    payload = torch.randint(0, 256, shape, dtype=torch.uint8,
+                            generator=torch.Generator().manual_seed(3))
+    outs = []
+    for mod, device in ((cpu, "cpu"), (card, cuda)):
+        mod.generator.manual_seed(2)
+        mod.q_output = True
+        before = (kh.qsign_mul.launches, kf.qmatmul_requant.launches,
+                  kf.qmatmul_requant_flipout.launches)
+        with torch.no_grad():
+            outs.append(mod(QTensor(payload.to(device), 0.037, 119),
+                            return_kl=False).q.cpu())
+        after = (kh.qsign_mul.launches, kf.qmatmul_requant.launches,
+                 kf.qmatmul_requant_flipout.launches)
+        launched = tuple(b - a for a, b in zip(before, after))
+        assert launched == ((0, 0, 0) if device == "cpu" else (1, 1, 1))
     assert torch.equal(outs[0], outs[1])
 
 
