@@ -43,6 +43,7 @@ from bayesian_torch_tpu_torch.examples._data import batches
 from bayesian_torch_tpu_torch.parallel import (make_mesh, mc_forward,
                                                reduce_gradients, replicate,
                                                shard_batch)
+from bayesian_torch_tpu_torch.utils import tracing
 from bayesian_torch_tpu_torch.utils.util import (mutual_information,
                                                  predictive_entropy)
 
@@ -142,6 +143,7 @@ def make_train_step(num_mc: int, batch_size: int, mesh=None,
     through the vmap emission; ``emission="scan"`` runs the draw loop).
     """
 
+    @tracing.spanned("train_step")
     def train_step(model, optimizer, x, y):
         optimizer.zero_grad(set_to_none=True)
         outs, kl = mc_forward(model, x, num_mc, mesh=mesh,
@@ -150,10 +152,12 @@ def make_train_step(num_mc: int, batch_size: int, mesh=None,
         mean_out = log_probs.mean(dim=0)
         nll = -mean_out.gather(1, y.long()[:, None]).mean()
         loss = nll + kl / batch_size
-        loss.backward()
+        with tracing.span("backward"):
+            loss.backward()
         if mesh is not None:
             reduce_gradients(model, mesh)
-        optimizer.step()
+        with tracing.span("optimizer"):
+            optimizer.step()
         return loss.detach(), nll.detach(), kl.detach()
 
     return train_step

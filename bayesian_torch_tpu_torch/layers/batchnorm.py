@@ -58,6 +58,7 @@ from bayesian_torch_tpu_torch.ops.conv import (channels_last, from_nc,
 from bayesian_torch_tpu_torch.ops.qtensor import (QTensor,
                                                   dequantize_if_qtensor)
 from bayesian_torch_tpu_torch.ops.sampling import current_window
+from bayesian_torch_tpu_torch.utils import tracing
 
 
 class MCBatchStats:
@@ -102,6 +103,7 @@ class _MCBatchNorm:
         self._mc_stats: Optional[MCBatchStats] = None
         self._recomputing = False
 
+    @tracing.spanned("layer.bn")
     def forward(self, input):
         input = dequantize_if_qtensor(input)
         if channels_last(self.data_format):

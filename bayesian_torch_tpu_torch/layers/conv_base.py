@@ -43,6 +43,7 @@ from bayesian_torch_tpu_torch.layers.base_variational_layer import (
 )
 from bayesian_torch_tpu_torch.ops import conv as conv_ops
 from bayesian_torch_tpu_torch.ops.kl import gaussian_kl_from_rho
+from bayesian_torch_tpu_torch.utils import tracing
 
 
 class _BaseConvLayer(BaseVariationalLayer):
@@ -167,6 +168,7 @@ class _BaseConvLayer(BaseVariationalLayer):
             self.mu_bias, self.rho_bias, eps_k=eps_k, eps_b=eps_b,
             sign_in=sign_in, sign_out=sign_out, **self._conv_args())
 
+    @tracing.spanned("layer.bayes")
     def forward(self, input, return_kl: bool = True, *, eps_k=None,
                 eps_b=None, sign_in=None, sign_out=None):
         if self.dnn_to_bnn_flag:

@@ -31,6 +31,7 @@ from bayesian_torch_tpu_torch.layers.variational_layers.linear_variational \
     import IMPLS
 from bayesian_torch_tpu_torch.ops import linear as linear_ops
 from bayesian_torch_tpu_torch.ops.kl import gaussian_kl_from_rho
+from bayesian_torch_tpu_torch.utils import tracing
 
 __all__ = ["LinearFlipout"]
 
@@ -96,6 +97,7 @@ class LinearFlipout(BaseVariationalLayer):
         """Insert the calibration observers (4 qint8 + 8 quint8)."""
         self._make_observers(4, 8, qconfig)
 
+    @tracing.spanned("layer.bayes")
     def forward(self, x, return_kl: bool = True, *, eps_w=None, eps_b=None,
                 sign_in=None, sign_out=None):
         if self.dnn_to_bnn_flag:

@@ -41,6 +41,7 @@ from bayesian_torch_tpu_torch.ops.sampling import (draw_seed,
                                                    shard_window,
                                                    window_kwargs,
                                                    window_lanes)
+from bayesian_torch_tpu_torch.utils import tracing
 
 IMPLS = ("xla", "pallas")
 
@@ -107,6 +108,7 @@ class LinearReparameterization(BaseVariationalLayer):
         """Insert the calibration observers (5 qint8 + 2 quint8)."""
         self._make_observers(5, 2, qconfig)
 
+    @tracing.spanned("layer.bayes")
     def forward(self, input, return_kl: bool = True, *, eps_w=None,
                 eps_b=None):
         if self.dnn_to_bnn_flag:

@@ -55,6 +55,7 @@ from bayesian_torch_tpu_torch.nn import (AdaptiveAvgPool2d, Conv2d,
 from bayesian_torch_tpu_torch.nn import functional as F
 from bayesian_torch_tpu_torch.ops import remat
 from bayesian_torch_tpu_torch.ops.conv import channels_last
+from bayesian_torch_tpu_torch.utils import tracing
 
 prior_mu = 0.0
 prior_sigma = 1.0
@@ -152,6 +153,7 @@ class BasicBlock(_Block):
         self.bn2 = BatchNorm2d(planes, **bn)
         self.downsample = downsample
 
+    @tracing.spanned("block")
     def forward(self, x):
         if self.estimator is None:
             out = F.relu(self.bn1(self.conv1(x)))
@@ -187,6 +189,7 @@ class Bottleneck(_Block):
         self.bn3 = BatchNorm2d(planes * 4, **bn)
         self.downsample = downsample
 
+    @tracing.spanned("block")
     def forward(self, x):
         if self.estimator is None:
             out = F.relu(self.bn1(self.conv1(x)))

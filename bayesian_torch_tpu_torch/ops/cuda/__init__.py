@@ -12,7 +12,9 @@ Pallas kernels (``bayesian_torch_tpu/ops/pallas/``).
   ``rademacher_fused`` into its consumer).
 
 Each wrapper keeps its plain torch version beside it (taken for CPU
-tensors only) and a ``launches`` count of kernel launches. The CUDA
+tensors only) and a ``launches`` count of kernel launches, registered
+with ``utils.tracing.launch_counter``; under a profiler its route to the
+launch is the span ``kernel.<wrapper>`` (``utils/tracing.py``). The CUDA
 sources live in ``csrc/`` and are built by ``_build.py`` at first use.
 """
 

@@ -51,6 +51,7 @@ from typing import NamedTuple
 
 from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import _on_cpu
 from bayesian_torch_tpu_torch.ops.sampling import _M32, _hashes, _mix
+from bayesian_torch_tpu_torch.utils import tracing
 
 _DIMS, _LANES = 8, 256  # csrc/flipout_signs.cu BTT_SIGN_DIMS, _LANES
 _FLOATS = {torch.float16: (16, 0x3C00), torch.bfloat16: (16, 0x3F80),
@@ -380,8 +381,10 @@ class _SignFlip(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, block):
-        ctx.block, ctx.meta = block, (tuple(x.shape), x.dtype)
-        return _flip(x, block)
+        with tracing.kernel_span(sign_flip):
+            _check_operand(x, block, "x")
+            ctx.block, ctx.meta = block, (tuple(x.shape), x.dtype)
+            return _flip(x, block)
 
     @staticmethod
     def backward(ctx, g):
@@ -396,11 +399,14 @@ class _SignCombine(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mean, pert, block):
-        ctx.block = block
-        ctx.metas = [(tuple(t.shape), t.dtype) for t in (mean, pert)]
-        if _on_cpu(mean, pert):
-            return sign_combine_plain(mean, pert, block)
-        return _combine_kernel(mean, pert, block)
+        with tracing.kernel_span(sign_combine):
+            _check_operand(mean, block, "mean")
+            _check_operand(pert, block, "pert")
+            ctx.block = block
+            ctx.metas = [(tuple(t.shape), t.dtype) for t in (mean, pert)]
+            if _on_cpu(mean, pert):
+                return sign_combine_plain(mean, pert, block)
+            return _combine_kernel(mean, pert, block)
 
     @staticmethod
     def backward(ctx, g):
@@ -414,11 +420,14 @@ class _SignCombine(torch.autograd.Function):
         return dmean, dpert, None
 
 
+@tracing.launch_counter
 def sign_flip(x, block, dtype=None, device=None):
     """K-H1: ``x * signs`` (x laid out as ``block``, or shared across its
     lanes), differentiable in x; with ``x`` None the signs themselves in
     ``dtype`` (f32 by default) on ``device`` (the CPU by default)."""
-    if x is None:
+    if x is not None:
+        return _SignFlip.apply(x, block)
+    with tracing.kernel_span(sign_flip):
         dtype = torch.float32 if dtype is None else dtype
         device = torch.device("cpu" if device is None else device)
         if device.type == "cpu":
@@ -427,15 +436,12 @@ def sign_flip(x, block, dtype=None, device=None):
             raise ValueError(f"sign_flip: signs on {device}: the CPU or a "
                              "CUDA device")
         return _flip_kernel(None, block, dtype, device)
-    _check_operand(x, block, "x")
-    return _SignFlip.apply(x, block)
 
 
+@tracing.launch_counter
 def sign_combine(mean, pert, block):
     """K-H2: ``mean + pert * signs`` (each laid out as ``block`` or shared
     across its lanes), differentiable in both."""
-    _check_operand(mean, block, "mean")
-    _check_operand(pert, block, "pert")
     return _SignCombine.apply(mean, pert, block)
 
 
@@ -445,6 +451,8 @@ def f32(v):
     return float(np.float32(v))
 
 
+@tracing.launch_counter
+@tracing.spanned("kernel.qsign_mul")
 def qsign_mul(a_q, a_scale, a_zp, block, sign_scale, sign_zp, out_scale,
               out_zp, requant=None):
     """K-H3: ``qmul(a_q, quantize_uint8(signs, sign_scale, sign_zp))`` to
@@ -482,8 +490,3 @@ def qsign_mul(a_q, a_scale, a_zp, block, sign_scale, sign_zp, out_scale,
                              ops[1].data_ptr() if len(ops) > 1 else None,
                              *rq))
     return y if x_q is None else (x_q, y)
-
-
-sign_flip.launches = 0
-sign_combine.launches = 0
-qsign_mul.launches = 0

@@ -56,6 +56,7 @@ from __future__ import annotations
 import torch
 
 from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import _on_cpu
+from bayesian_torch_tpu_torch.utils import tracing
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
@@ -154,11 +155,12 @@ def _launch(x4, w3, b2, S):
 def _apply(x4, w3, b2, S, counter):
     """One K-G product on CUDA tensors (counted on ``counter``), the plain
     version on CPU ones."""
-    if _on_cpu(*(t for t in (x4, w3, b2) if t is not None)):
-        return _plain(x4, w3, b2, S)
-    y = _launch(x4, w3, b2, S)
-    counter.launches += 1
-    return y
+    with tracing.kernel_span(counter):
+        if _on_cpu(*(t for t in (x4, w3, b2) if t is not None)):
+            return _plain(x4, w3, b2, S)
+        y = _launch(x4, w3, b2, S)
+        counter.launches += 1
+        return y
 
 
 class _Gemm(torch.autograd.Function):
@@ -222,6 +224,7 @@ def mc_gemm_plain(x, w, bias=None):
     return _plain(*_operands(x, w, bias))
 
 
+@tracing.launch_counter  # K-G launches of either direction, from any caller
 def mc_gemm(x, w, bias=None):
     """Per-draw GEMM: ``w (S, O, C)``, ``bias (S, O)`` or None, ``x (B, S,
     C, P)`` or shared ``(B, C, P)`` -> ``(B, S, O, P)``. Differentiable in
@@ -232,6 +235,7 @@ def mc_gemm(x, w, bias=None):
     return _run(x, w, bias, mc_gemm)
 
 
+@tracing.launch_counter
 def pointwise_gemm(x, w, bias=None):
     """One weight for the whole batch: ``w (O, C)``, ``bias (O,)`` or None,
     ``x (B, C, P)`` -> ``(B, O, P)``. Differentiable in x, w and bias."""
@@ -351,11 +355,12 @@ def _launch_cl(x3, w3, b2, S):
 def _apply_cl(x3, w3, b2, S, counter):
     """One channels-last K-G product on CUDA tensors (counted on
     ``counter``), the plain version on CPU ones: (M, S, O)."""
-    if _on_cpu(*(t for t in (x3, w3, b2) if t is not None)):
-        return _plain_cl(x3, w3, b2, S)
-    y = _launch_cl(x3, w3, b2, S)
-    counter.launches += 1
-    return y
+    with tracing.kernel_span(counter):
+        if _on_cpu(*(t for t in (x3, w3, b2) if t is not None)):
+            return _plain_cl(x3, w3, b2, S)
+        y = _launch_cl(x3, w3, b2, S)
+        counter.launches += 1
+        return y
 
 
 class _GemmCL(torch.autograd.Function):
@@ -412,6 +417,7 @@ def mc_gemm_cl_plain(x, w, bias=None):
     return _plain_cl(*_cl_operands(x, w, bias))
 
 
+@tracing.launch_counter
 def mc_gemm_cl(x, w, bias=None):
     """Per-draw GEMM on channels-last activations: ``w (S, O, C)``, ``bias
     (S, O)`` or None, ``x (M, S, C)`` or shared ``(M, C)`` -> ``(M, S,
@@ -423,6 +429,7 @@ def mc_gemm_cl(x, w, bias=None):
     return _GemmCL.apply(x, w, bias, mc_gemm_cl)
 
 
+@tracing.launch_counter
 def pointwise_gemm_cl(x, w, bias=None):
     """One weight on channels-last rows: ``w (O, C)``, ``bias (O,)`` or
     None, ``x (M, C)`` -> ``(M, O)``. Differentiable in x, w and bias."""
@@ -430,9 +437,3 @@ def pointwise_gemm_cl(x, w, bias=None):
         raise ValueError(f"pointwise_gemm_cl: need w (O, C) and x (M, C); "
                          f"got w {tuple(w.shape)}, x {tuple(x.shape)}")
     return _GemmCL.apply(x, w, bias, pointwise_gemm_cl)[:, 0]
-
-
-mc_gemm.launches = 0  # K-G launches of either direction, from any caller
-pointwise_gemm.launches = 0
-mc_gemm_cl.launches = 0
-pointwise_gemm_cl.launches = 0

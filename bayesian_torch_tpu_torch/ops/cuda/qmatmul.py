@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from bayesian_torch_tpu_torch.ops.cuda.flipout_signs import f32, sign_uint8
 from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import _on_cpu
+from bayesian_torch_tpu_torch.utils import tracing
 
 
 def requant_multiplier(x_scale, w_scale, out_scale) -> float:
@@ -137,6 +138,8 @@ def _launch(x_q, w_q, corr, mult, b, out_zp, epi=None):
     return out
 
 
+@tracing.launch_counter
+@tracing.spanned("kernel.qmatmul_requant")
 def qmatmul_requant(x_q, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale,
                     out_zp):
     """uint8 x (M, K) @ int8 w (N, K)^T -> requantized uint8 (M, N), with
@@ -148,9 +151,6 @@ def qmatmul_requant(x_q, x_scale, x_zp, w_q, w_scale, bias_f32, out_scale,
     if _on_cpu(*(t for t in (x_q, w_q, b) if t is not None)):
         return qmatmul_requant_plain(x_q, w_q, corr, mult, b, out_zp)
     return _launch(x_q, w_q, corr, mult, b, float(out_zp))
-
-
-qmatmul_requant.launches = 0
 
 
 class FlipoutEpilogue(NamedTuple):
@@ -236,6 +236,8 @@ def _epilogue(epi, p_scale, p_zp, M, N):
     return e
 
 
+@tracing.launch_counter
+@tracing.spanned("kernel.qmatmul_requant_flipout")
 def qmatmul_requant_flipout(x_q, x_scale, x_zp, w_q, w_scale, bias_f32,
                             out_scale, out_zp, epi):
     """``qmatmul_requant`` (the perturbation's product, requantized to
@@ -250,6 +252,3 @@ def qmatmul_requant_flipout(x_q, x_scale, x_zp, w_q, w_scale, bias_f32,
                                              out_zp, out_scale, epi)
     e = _epilogue(epi, out_scale, out_zp, x_q.shape[0], w_q.shape[0])
     return _launch(x_q, w_q, corr, mult, b, float(out_zp), e)
-
-
-qmatmul_requant_flipout.launches = 0

@@ -52,6 +52,7 @@ from bayesian_torch_tpu_torch.ops.cuda.sampled_weights import (_check_window,
                                                               _window_kw)
 from bayesian_torch_tpu_torch.ops.sampling import (draw_salt, normal_fused,
                                                    sigma_from_rho)
+from bayesian_torch_tpu_torch.utils import tracing
 
 
 def sampled_weight(mu, sigma, eps):
@@ -233,35 +234,37 @@ def _dw(seed, g, x, counter, window=None):
     return dmu, dsig
 
 
+@tracing.launch_counter
+@tracing.spanned("kernel.sampled_matmul_dx")
 def sampled_matmul_dx(seed, g, mu, sigma, window=None):
     """K-D: dx = g @ (mu + sigma * eps) for g (M, N), mu and sigma
     (N, K); f32 (M, K). CPU tensors take the plain version."""
     return _dx(seed, g[None], mu, sigma, sampled_matmul_dx, window)[0]
 
 
+@tracing.launch_counter
+@tracing.spanned("kernel.sampled_matmul_dw")
 def sampled_matmul_dw(seed, g, x, window=None):
     """K-E: (dmu, dsigma) = (g^T x, g^T x * eps) for g (M, N), x (M, K);
     f32, each (N, K). CPU tensors take the plain version."""
     return _dw(seed, g[None], x, sampled_matmul_dw, window)
 
 
+@tracing.launch_counter
+@tracing.spanned("kernel.sampled_matmul_dx_batched")
 def sampled_matmul_dx_batched(seed, g, mu, sigma, window=None):
     """K-D with lanes: dx_s = g_s @ W_s for g (S, M, N); f32 (S, M, K).
     CPU tensors take the plain version."""
     return _dx(seed, g, mu, sigma, sampled_matmul_dx_batched, window)
 
 
+@tracing.launch_counter
+@tracing.spanned("kernel.sampled_matmul_dw_batched")
 def sampled_matmul_dw_batched(seed, g, x, window=None):
     """K-E with lanes: (sum_s g_s^T x_s, sum_s g_s^T x_s * eps_s) for g
     (S, M, N), x (S, M, K) or shared (M, K); f32, each (N, K). CPU
     tensors take the plain version."""
     return _dw(seed, g, x, sampled_matmul_dw_batched, window)
-
-
-sampled_matmul_dx.launches = 0
-sampled_matmul_dw.launches = 0
-sampled_matmul_dx_batched.launches = 0
-sampled_matmul_dw_batched.launches = 0
 
 
 class _SampledMatmul(torch.autograd.Function):
@@ -276,7 +279,9 @@ class _SampledMatmul(torch.autograd.Function):
         ctx.save_for_backward(x, mu, sigma)
         counter = sampled_matmul if num_samples is None \
             else sampled_matmul_batched
-        return _forward(seed, x, mu, sigma, num_samples, counter, window)
+        with tracing.kernel_span(counter):
+            return _forward(seed, x, mu, sigma, num_samples, counter,
+                            window)
 
     @staticmethod
     def backward(ctx, g):
@@ -300,6 +305,7 @@ class _SampledMatmul(torch.autograd.Function):
         return None, None, dx, dmu, dsig, None
 
 
+@tracing.launch_counter
 def sampled_matmul(seed, x, mu, rho, *, out_dtype=None, window=None):
     """out = x @ (mu + softplus(rho) * eps)^T for x (M, K), mu/rho (N, K);
     returns (M, N) in ``out_dtype`` (default: x's dtype), eps in the
@@ -318,6 +324,7 @@ def sampled_matmul(seed, x, mu, rho, *, out_dtype=None, window=None):
                                 window).to(out_dtype)
 
 
+@tracing.launch_counter
 def sampled_matmul_batched(seed, x, mu, rho, num_samples=None, *,
                            out_dtype=None, window=None):
     """All S lanes in one launch: lane s = x_s @ (mu + softplus(rho) *
@@ -346,7 +353,3 @@ def sampled_matmul_batched(seed, x, mu, rho, num_samples=None, *,
     sigma = sigma_from_rho(rho.float())
     return _SampledMatmul.apply(seed, int(num_samples), x, mu, sigma,
                                 window).to(out_dtype)
-
-
-sampled_matmul.launches = 0
-sampled_matmul_batched.launches = 0

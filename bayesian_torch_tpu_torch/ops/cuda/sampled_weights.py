@@ -39,6 +39,7 @@ import torch
 from bayesian_torch_tpu_torch.ops.sampling import (check_counters,
                                                    draw_salt, normal_fused,
                                                    sigma_from_rho)
+from bayesian_torch_tpu_torch.utils import tracing
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 _G_DTYPES = (torch.float32, torch.bfloat16)
@@ -179,6 +180,8 @@ def _launch_noise_grad(seed, g, rho, what, window=None):
     return out
 
 
+@tracing.launch_counter
+@tracing.spanned("kernel.dsigma")
 def dsigma(seed, g, window=None):
     """K-C, dsigma mode: sum_s g[s] * eps(seed, s) for g (S, *shape),
     f32 out. CPU tensors take ``dsigma_plain``."""
@@ -189,6 +192,8 @@ def dsigma(seed, g, window=None):
     return out
 
 
+@tracing.launch_counter
+@tracing.spanned("kernel.drho")
 def drho(seed, g, rho, window=None):
     """K-C, rho mode: g * eps(seed, 0) * sigmoid(rho) for a single draw
     g of rho's shape, f32 out. CPU tensors take ``drho_plain``."""
@@ -202,10 +207,6 @@ def drho(seed, g, rho, window=None):
     return out
 
 
-dsigma.launches = 0
-drho.launches = 0
-
-
 class _BatchSampler(torch.autograd.Function):
     """K-A forward, K-C backward; saves (seed, window), never eps."""
 
@@ -213,11 +214,12 @@ class _BatchSampler(torch.autograd.Function):
     def forward(ctx, seed, mu, sigma, num_samples, out_dtype, window):
         ctx.seed, ctx.window = seed, window
         ctx.dtypes = (mu.dtype, sigma.dtype)
-        if _on_cpu(mu, sigma):
-            return sample_scaled_normals_batch_plain(
-                seed, mu, sigma, num_samples, out_dtype, window)
-        return _launch_sample(seed, mu, sigma, num_samples, out_dtype,
-                              window=window)
+        with tracing.kernel_span(sample_scaled_normals_batch):
+            if _on_cpu(mu, sigma):
+                return sample_scaled_normals_batch_plain(
+                    seed, mu, sigma, num_samples, out_dtype, window)
+            return _launch_sample(seed, mu, sigma, num_samples, out_dtype,
+                                  window=window)
 
     @staticmethod
     def backward(ctx, g):
@@ -240,12 +242,14 @@ class _GaussianSampler(torch.autograd.Function):
         ctx.seed, ctx.window = seed, window
         ctx.mu_dtype = mu.dtype
         ctx.save_for_backward(rho)
-        if _on_cpu(mu, rho):
-            w = sample_scaled_normals_batch_plain(
-                seed, mu, sigma_from_rho(rho.float()), 1, out_dtype, window)
-        else:
-            w = _launch_sample(seed, mu, rho, 1, out_dtype, rho_mode=True,
-                               window=window)
+        with tracing.kernel_span(sample_scaled_normals_batch):
+            if _on_cpu(mu, rho):
+                w = sample_scaled_normals_batch_plain(
+                    seed, mu, sigma_from_rho(rho.float()), 1, out_dtype,
+                    window)
+            else:
+                w = _launch_sample(seed, mu, rho, 1, out_dtype,
+                                   rho_mode=True, window=window)
         return w[0]
 
     @staticmethod
@@ -277,6 +281,7 @@ def _check_window(num_samples, n, window):
     check_counters(lane0 + num_samples, stride)
 
 
+@tracing.launch_counter  # K-A launches, from any caller
 def sample_scaled_normals_batch(seed, mu, sigma, num_samples,
                                 out_dtype=torch.bfloat16, window=None):
     """All ``num_samples`` draws of mu + sigma * eps: (S, *mu.shape), or
@@ -289,9 +294,6 @@ def sample_scaled_normals_batch(seed, mu, sigma, num_samples,
     _check_window(num_samples, mu.numel(), window)
     return _BatchSampler.apply(seed, mu, sigma, num_samples, out_dtype,
                                window)
-
-
-sample_scaled_normals_batch.launches = 0  # K-A launches, from any caller
 
 
 def sample_gaussian(seed, mu, rho, out_dtype=torch.bfloat16, window=None):

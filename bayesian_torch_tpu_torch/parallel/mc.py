@@ -97,6 +97,7 @@ from bayesian_torch_tpu_torch.ops.sampling import (DRAWS_LAST, DrawWindow,
                                                    window_kwargs)
 from bayesian_torch_tpu_torch.parallel import _comm
 from bayesian_torch_tpu_torch.parallel.mesh import Mesh
+from bayesian_torch_tpu_torch.utils import tracing
 
 _PRESAMPLE = ("auto", "on", "off", "xla", "hash")
 _BN_STATS = ("ema", "freeze")
@@ -116,6 +117,7 @@ def _is_flipout(layer):
     return getattr(layer, "estimator", None) == "flipout"
 
 
+@tracing.spanned("presample")
 def _presample_layers(model: nn.Module, num_mc: int):
     """Draw every Bayesian layer's ``num_mc`` weight sets in ONE batch
     sampler launch per compute dtype (one launch for a model in one
@@ -259,6 +261,7 @@ def _draws_in_forward(model):
                for mod in model.modules())
 
 
+@tracing.spanned("bn_ema")
 def _apply_bn_ema(mod, mc_group=None):
     """Average the recorded per-draw batch statistics and apply one EMA
     update, with the factor semantics of torch's own update (momentum, or
@@ -370,6 +373,7 @@ def _mc_batch_stats(model: nn.Module, bn_stats: str, mc_group=None):
             mod._mc_stats = None
 
 
+@tracing.spanned("mc_forward")
 def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
                return_kl: bool = True, compute_kl: Optional[bool] = None,
                presample: str = "auto", bn_stats: str = "ema",
@@ -545,23 +549,24 @@ def _forward_loop(run, model, x, num_mc, presampled, kl_layers, compute_kl,
     acc, outs, kl = None, [], 0.0
     last = num_mc - 1 if own is None else own[-1]
     for s in range(num_mc):
-        for mod in kl_layers:
-            mod.compute_kl = compute_kl and s == last
-        for layer, attrs in presampled:
-            for name, draws in attrs.items():
-                setattr(layer, name, draws[s])
-        if own is not None and s not in own:
-            with torch.no_grad():
-                model(x)
-            continue
-        out, kl_s = _split(run(x))
-        if s == last:
-            kl = kl_s
-        if reduce == "mean":
-            term = out.float() / num_mc
-            acc = term if acc is None else acc + term
-        else:
-            outs.append(out)
+        with tracing.span("draw"):
+            for mod in kl_layers:
+                mod.compute_kl = compute_kl and s == last
+            for layer, attrs in presampled:
+                for name, draws in attrs.items():
+                    setattr(layer, name, draws[s])
+            if own is not None and s not in own:
+                with torch.no_grad():
+                    model(x)
+                continue
+            out, kl_s = _split(run(x))
+            if s == last:
+                kl = kl_s
+            if reduce == "mean":
+                term = out.float() / num_mc
+                acc = term if acc is None else acc + term
+            else:
+                outs.append(out)
     return (acc if reduce == "mean" else torch.stack(outs)), kl
 
 
@@ -720,7 +725,7 @@ def _forward_draws(run, model, x, num_mc, presampled, kl_layers, compute_kl,
             setattr(layer, name, stacked)
     for mod in kl_layers:
         mod.compute_kl = compute_kl
-    with _draw_axis(model, num_mc):
+    with tracing.span("draw"), _draw_axis(model, num_mc):
         out, kl = _split(run(x))
     outs = out.reshape(out.shape[:-1] + (num_mc, -1)).movedim(-2, 0)
     return (outs.float().mean(0) if reduce == "mean" else outs), kl

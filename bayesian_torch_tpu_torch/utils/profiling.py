@@ -1,9 +1,9 @@
-"""Profiling and speed-of-light helpers (counterpart of
+"""Profiling helpers (counterpart of
 ``bayesian_torch_tpu/utils/profiling.py``), on ``torch.profiler``.
 
 ``trace`` writes a chrome trace of its block; ``summarize_trace`` sums the
-device rows of the traces in a directory by name. ``device_peak_tflops``
-gives the card's dense bf16 peak, which ``sol_fraction`` divides by.
+device rows of the traces in a directory by name. The port's spans
+(``utils/tracing.py``) are on inside ``trace``.
 """
 
 from __future__ import annotations
@@ -17,34 +17,8 @@ from collections import Counter
 
 import torch
 
-# dense bf16 TFLOP/s by card (NVIDIA's data sheets: tensor cores, no
-# sparsity), keyed by a part of torch.cuda.get_device_name(), the first
-# match winning; the SXM figure is the one the bounds in PERF.md use
-PEAK_BF16_TFLOPS = {
-    "h100 pcie": 756.0,
-    "h100": 989.0,
-}
-
 # chrome-trace categories of the rows that ran on the device
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def device_peak_tflops(default: float = 989.0) -> float:
-    """The dense bf16 peak of card 0 in TFLOP/s, or ``default`` for a card
-    not in ``PEAK_BF16_TFLOPS`` or without CUDA."""
-    if not torch.cuda.is_available():
-        return default
-    name = torch.cuda.get_device_name(0).lower()
-    for part, peak in PEAK_BF16_TFLOPS.items():
-        if part in name:
-            return peak
-    return default
-
-
-def sol_fraction(flops_per_step: float, step_seconds: float) -> float:
-    """Fraction of bf16 speed-of-light achieved by a step."""
-    achieved = flops_per_step / step_seconds / 1e12
-    return achieved / device_peak_tflops()
 
 
 @contextlib.contextmanager

@@ -12,10 +12,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from bayesian_torch_tpu_torch.layers import (LinearFlipout,
-                                             LinearReparameterization)
-from bayesian_torch_tpu_torch.layers.conv_base import _BaseConvLayer
-
 
 def entropy(prob):
     """-sum p log p along the last axis."""
@@ -46,6 +42,11 @@ def get_rho(sigma, delta):
 
 def _moped_kind(mod):
     """"conv", "linear" or "bn" for a module MOPED writes, else None."""
+    # the layers import this package (``utils.tracing``): imported here
+    from bayesian_torch_tpu_torch.layers import (LinearFlipout,
+                                                 LinearReparameterization)
+    from bayesian_torch_tpu_torch.layers.conv_base import _BaseConvLayer
+
     if isinstance(mod, _BaseConvLayer):  # Conv{1,2,3}d, both estimators
         return "conv"
     if isinstance(mod, (LinearReparameterization, LinearFlipout)):

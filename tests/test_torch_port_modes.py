@@ -15,7 +15,7 @@
 - The ImageNet trainer with ``--remat --structured-mc`` trains to the same
   weights as without them (remat replays the draws), and evaluates.
 - ``summarize_trace`` on a CPU trace written by ``trace`` (no device rows)
-  and on a hand-made chrome trace with kernel rows; the peak table.
+  and on a hand-made chrome trace with kernel rows.
 """
 
 import gzip
@@ -286,19 +286,3 @@ def test_summarize_a_chrome_trace_with_kernel_rows(tmp_path):
     assert profiling.summarize_trace(str(tmp_path), top=1) == [("k_a", 2.0)]
     host = profiling.summarize_trace(str(tmp_path), device_only=False)
     assert host[0] == ("aten::mm", 9.0)
-
-
-def test_device_peak_and_sol_fraction(monkeypatch):
-    assert profiling.device_peak_tflops(123.0) == 123.0  # no card here
-    assert not any("v5" in k or "v6" in k or "tpu" in k
-                   for k in profiling.PEAK_BF16_TFLOPS)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    for name, peak in (("NVIDIA H100 80GB HBM3", 989.0),
-                       ("NVIDIA H100 PCIe", 756.0),
-                       ("Some Other Card", 50.0)):
-        monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0,
-                            n=name: n)
-        assert profiling.device_peak_tflops(50.0) == peak
-    monkeypatch.setattr(torch.cuda, "get_device_name",
-                        lambda i=0: "NVIDIA H100 80GB HBM3")
-    assert profiling.sol_fraction(989e12 * 0.25, 0.5) == pytest.approx(0.5)
