@@ -211,22 +211,32 @@ struct Salts {
   uint32_t salt0, step, ctr0;
 };
 
-inline Salts salts(uint64_t seed, int64_t n) {
-  const uint32_t lo = (uint32_t)(seed & 0xFFFFFFFFull);
-  const uint32_t hi = (uint32_t)(seed >> 32);
-  return Salts{btt_draw_salt(lo, hi, 0u, (uint32_t)n),
-               (uint32_t)n * BTT_GOLDEN, 0u};
+// The seed's part of every salt of a launch: draw 0's salt
+// (btt_draw_salt(seed, 0, n), the same for every n). On the device too: a
+// kernel that reads its seed from device memory (a launch captured into a
+// CUDA graph, whose seed changes between replays) adds it there to the
+// rest of its salts (window_salts).
+__host__ __device__ inline uint32_t seed_salt(uint64_t seed) {
+  return btt_draw_salt((uint32_t)(seed & 0xFFFFFFFFull),
+                       (uint32_t)(seed >> 32), 0u, 0u);
 }
 
 // A window of a larger launch: lane s of this launch is lane lane0 + s of
 // a launch over lane_stride elements a lane, and its element i is that
 // lane's element offset + i. A rank's block of draws [s0, s1) takes
 // lane0 = s0; a dim-0 shard r of n_r elements takes offset = r * n_r.
+// These are its salts less the seed's part (seed_salt).
+inline Salts window_salts(int64_t lane0, int64_t lane_stride,
+                          int64_t offset) {
+  const uint32_t step = (uint32_t)lane_stride * BTT_GOLDEN;
+  return Salts{(uint32_t)lane0 * step, step, (uint32_t)offset};
+}
+
 inline Salts salts(uint64_t seed, int64_t lane0, int64_t lane_stride,
                    int64_t offset) {
-  const Salts full = salts(seed, lane_stride);
-  return Salts{full.salt0 + (uint32_t)lane0 * full.step, full.step,
-               (uint32_t)offset};
+  Salts s = window_salts(lane0, lane_stride, offset);
+  s.salt0 += seed_salt(seed);
+  return s;
 }
 
 // The vector path's alignment: n a multiple of 4 and every pointer

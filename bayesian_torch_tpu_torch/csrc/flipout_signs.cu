@@ -49,6 +49,11 @@
 // bits) and the offsets by that dim's strides, with 16-byte accesses where
 // an operand is contiguous and aligned; elsewhere it steps an odometer
 // element by element. A grid-stride loop over one wave of blocks. No shared memory.
+//
+// The lanes' salts come in the geometry, or, where lane_salts is set, from
+// device memory (int64 a lane, lane_salt_stride apart): a launch captured
+// into a CUDA graph keeps its geometry, so a replay reads that batch's
+// salts from a buffer written before it.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -77,6 +82,8 @@ struct BttSignGeom {
   int32_t nd;
   int32_t lanes;
   uint32_t salts[BTT_SIGN_LANES];
+  const int64_t* lane_salts;  // NULL: `salts` holds them
+  int64_t lane_salt_stride;
 };
 
 }  // extern "C"
@@ -91,6 +98,15 @@ constexpr int kBlocksPerSM = 2048 / kThreads;
 
 __device__ __forceinline__ uint32_t neg_bit(uint32_t salt, int64_t c) {
   return btt_splitmix32(salt + ((uint32_t)c + 1u) * BTT_GOLDEN) >> 31;
+}
+
+// A lane's salt: from device memory where the geometry points there, else
+// the one it holds (`held`). Scalars only: a reference to the geometry, a
+// kernel parameter, would copy it to local memory.
+__device__ __forceinline__ uint32_t lane_salt(const int64_t* dev,
+                                              int64_t stride, int64_t lane,
+                                              uint32_t held) {
+  return dev != nullptr ? (uint32_t)dev[lane * stride] : held;
 }
 
 // A chunk of U as 16-byte pieces.
@@ -352,6 +368,11 @@ __global__ void __launch_bounds__(kThreads)
     sign_kernel(const BttSignGeom g, const Op op) {
   const int64_t chunks = (g.numel + Op::kN - 1) / Op::kN;
   const int nd = g.nd;
+  const int64_t* const dev = g.lane_salts;
+  const int64_t dstride = g.lane_salt_stride;
+  // one lane (a draw of the loop): its salt read once, before the walk
+  const bool one = g.lanes == 1;
+  const uint32_t salt1 = one ? lane_salt(dev, dstride, 0, g.salts[0]) : 0u;
   for (int64_t ch = (int64_t)blockIdx.x * kThreads + threadIdx.x;
        ch < chunks; ch += (int64_t)gridDim.x * kThreads) {
     const int64_t w0 = ch * Op::kN;
@@ -380,21 +401,26 @@ __global__ void __launch_bounds__(kThreads)
       const uint32_t hs = (uint32_t)g.ctr[0] * BTT_GOLDEN;
       uint32_t negs = 0;
       if (g.lane[0] == 0) {
-        const uint32_t base = g.salts[lane] + h0;
+        const uint32_t base =
+            (one ? salt1 : lane_salt(dev, dstride, lane, g.salts[lane])) + h0;
 #pragma unroll
         for (int j = 0; j < Op::kN; ++j)
           negs |= (btt_splitmix32(base + j * hs) >> 31) << j;
       } else {
 #pragma unroll
         for (int j = 0; j < Op::kN; ++j)
-          negs |= (btt_splitmix32(g.salts[lane + j * g.lane[0]] + h0 + j * hs)
-                   >> 31) << j;
+          negs |= (btt_splitmix32(
+                       lane_salt(dev, dstride, lane + j * g.lane[0],
+                                 g.salts[lane + j * g.lane[0]]) +
+                       h0 + j * hs) >> 31) << j;
       }
       op.run_chunk(yo, g.y[0], ao, g.a[0], bo, g.b[0], negs);
       continue;
     }
     for (int j = 0; j < Op::kN && w0 + j < g.numel; ++j) {
-      op.run1(yo, ao, bo, neg_bit(g.salts[lane], c));
+      op.run1(yo, ao, bo,
+              neg_bit(one ? salt1 : lane_salt(dev, dstride, lane,
+                                              g.salts[lane]), c));
 #pragma unroll
       for (int k = 0; k < BTT_SIGN_DIMS; ++k) {
         if (k >= nd) break;

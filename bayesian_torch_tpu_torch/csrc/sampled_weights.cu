@@ -24,6 +24,10 @@
 // - The normals of a group (a draw's four elements, or a narrow thread's
 //   draws) run each Box-Muller step over all of them (btt_hash_normals),
 //   so their chains interleave; the bits of eps are btt_hash_normal's.
+// - The seed comes by value, its salts derived on the host, or from device
+//   memory, each thread adding its part of the salts (btt_ew::seed_salt) to
+//   the window's: a launch captured into a CUDA graph keeps its arguments,
+//   so a replay reads that batch's seed from a buffer written before it.
 // No shared memory.
 
 #include <cuda_bf16.h>
@@ -35,6 +39,7 @@
 namespace {
 
 using btt_ew::Pack;
+
 
 __device__ __forceinline__ float sample(float mu, float sigma, float eps) {
   // no contraction: rounds like the plain torch mu + sigma * eps
@@ -54,11 +59,15 @@ __global__ void __launch_bounds__(btt_ew::threads<kVec>(),
                                   kVec == 1 ? 1 : btt_ew::kWideBlocks)
     batch_sample_kernel(const U* __restrict__ mu, const U* __restrict__ sigma,
                         T* __restrict__ out, int64_t n, int num_samples,
-                        uint32_t salt0, uint32_t step, uint32_t ctr0,
+                        btt_ew::Salts salts, const uint64_t* seed,
                         bool vector_ok) {
   const int64_t i =
       ((int64_t)blockIdx.x * btt_ew::threads<kVec>() + threadIdx.x) * kVec;
   if (i >= n) return;
+  // seed: in device memory, the salts given less its part; else NULL
+  const uint32_t salt0 =
+      salts.salt0 + (seed != nullptr ? btt_ew::seed_salt(*seed) : 0u);
+  const uint32_t step = salts.step, ctr0 = salts.ctr0;
   const bool full = vector_ok && i + kVec <= n;
   Pack<U, kVec> mp, sp;
   mp.load(mu, i, n, full);
@@ -87,37 +96,34 @@ __global__ void __launch_bounds__(btt_ew::threads<kVec>(),
 
 template <typename T, typename U, int kVec, bool kRho>
 void launch(const U* mu, const U* sigma, T* out, int64_t n, int S,
-            btt_ew::Salts salts, bool vector_ok, unsigned blocks,
-            cudaStream_t stream) {
+            btt_ew::Salts salts, const uint64_t* seed, bool vector_ok,
+            unsigned blocks, cudaStream_t stream) {
   const dim3 grid(blocks), block(btt_ew::threads<kVec>());
   if (S == 1)
     batch_sample_kernel<T, U, 1, kVec, kRho><<<grid, block, 0, stream>>>(
-        mu, sigma, out, n, S, salts.salt0, salts.step, salts.ctr0,
-        vector_ok);
+        mu, sigma, out, n, S, salts, seed, vector_ok);
   else if (S == 4)
     batch_sample_kernel<T, U, 4, kVec, kRho><<<grid, block, 0, stream>>>(
-        mu, sigma, out, n, S, salts.salt0, salts.step, salts.ctr0,
-        vector_ok);
+        mu, sigma, out, n, S, salts, seed, vector_ok);
   else
     batch_sample_kernel<T, U, 0, kVec, kRho><<<grid, block, 0, stream>>>(
-        mu, sigma, out, n, S, salts.salt0, salts.step, salts.ctr0,
-        vector_ok);
+        mu, sigma, out, n, S, salts, seed, vector_ok);
 }
 
 template <typename T, typename U>
 void launch(const void* mu_v, const void* sigma_v, void* out_v, int64_t n,
-            int S, btt_ew::Salts salts, bool vector_ok, bool rho_mode,
-            btt_ew::Shape shape, cudaStream_t stream) {
+            int S, btt_ew::Salts salts, const uint64_t* seed, bool vector_ok,
+            bool rho_mode, btt_ew::Shape shape, cudaStream_t stream) {
   const U* mu = static_cast<const U*>(mu_v);
   const U* sigma = static_cast<const U*>(sigma_v);
   T* out = static_cast<T*>(out_v);
   const unsigned blocks = shape.blocks;
   if (shape.vec == 1) {
-    if (rho_mode) launch<T, U, 1, true>(mu, sigma, out, n, S, salts, false, blocks, stream);
-    else launch<T, U, 1, false>(mu, sigma, out, n, S, salts, false, blocks, stream);
+    if (rho_mode) launch<T, U, 1, true>(mu, sigma, out, n, S, salts, seed, false, blocks, stream);
+    else launch<T, U, 1, false>(mu, sigma, out, n, S, salts, seed, false, blocks, stream);
   } else {
-    if (rho_mode) launch<T, U, 4, true>(mu, sigma, out, n, S, salts, vector_ok, blocks, stream);
-    else launch<T, U, 4, false>(mu, sigma, out, n, S, salts, vector_ok, blocks, stream);
+    if (rho_mode) launch<T, U, 4, true>(mu, sigma, out, n, S, salts, seed, vector_ok, blocks, stream);
+    else launch<T, U, 4, false>(mu, sigma, out, n, S, salts, seed, vector_ok, blocks, stream);
   }
 }
 
@@ -132,14 +138,16 @@ extern "C" {
 // s, element offset + i of a launch over lane_stride elements a lane
 // (btt_ew::salts): lane0 = offset = 0 and lane_stride = n is the whole
 // launch, others a window of a larger one. The launch shape comes from n and the current device
-// (btt_ew::launch_shape). Returns the launch's cudaGetLastError(), or the
-// error that kept it from launching.
+// (btt_ew::launch_shape). seed_ptr NULL takes `seed`; else the seed is the
+// uint64 at seed_ptr, which the kernel reads when it runs. Returns the
+// launch's cudaGetLastError(), or the error that kept it from launching.
 int btt_sample_scaled_normals_batch(const void* mu, const void* sigma,
                                     int in_bf16, void* out, int64_t n,
                                     int num_samples, uint64_t seed,
-                                    int out_bf16, int rho_mode,
-                                    int64_t lane0, int64_t lane_stride,
-                                    int64_t offset, cudaStream_t stream) {
+                                    const void* seed_ptr, int out_bf16,
+                                    int rho_mode, int64_t lane0,
+                                    int64_t lane_stride, int64_t offset,
+                                    cudaStream_t stream) {
   if (n <= 0 || num_samples <= 0) return (int)cudaSuccess;
   btt_ew::Shape shape;
   const cudaError_t e = btt_ew::launch_shape(n, &shape);
@@ -148,21 +156,24 @@ int btt_sample_scaled_normals_batch(const void* mu, const void* sigma,
   const bool vector_ok = btt_ew::aligned4(n, mu, in_align) &&
                          btt_ew::aligned4(n, sigma, in_align) &&
                          btt_ew::aligned4(n, out, out_bf16 ? 8 : 16);
+  const uint64_t* dev = static_cast<const uint64_t*>(seed_ptr);
   const btt_ew::Salts salts =
-      btt_ew::salts(seed, lane0, lane_stride, offset);
+      dev != nullptr ? btt_ew::window_salts(lane0, lane_stride, offset)
+                     : btt_ew::salts(seed, lane0, lane_stride, offset);
   const bool rho = rho_mode != 0;
   if (out_bf16 && in_bf16)
     launch<__nv_bfloat16, __nv_bfloat16>(mu, sigma, out, n, num_samples,
-                                         salts, vector_ok, rho, shape, stream);
+                                         salts, dev, vector_ok, rho, shape,
+                                         stream);
   else if (out_bf16)
-    launch<__nv_bfloat16, float>(mu, sigma, out, n, num_samples, salts,
+    launch<__nv_bfloat16, float>(mu, sigma, out, n, num_samples, salts, dev,
                                  vector_ok, rho, shape, stream);
   else if (in_bf16)
-    launch<float, __nv_bfloat16>(mu, sigma, out, n, num_samples, salts,
+    launch<float, __nv_bfloat16>(mu, sigma, out, n, num_samples, salts, dev,
                                  vector_ok, rho, shape, stream);
   else
-    launch<float, float>(mu, sigma, out, n, num_samples, salts, vector_ok,
-                         rho, shape, stream);
+    launch<float, float>(mu, sigma, out, n, num_samples, salts, dev,
+                         vector_ok, rho, shape, stream);
   return (int)cudaGetLastError();
 }
 

@@ -209,9 +209,15 @@ class BaseVariationalLayer(nn.Module):
         attached (``_presampled_signs``: (2,) for one draw, (S, 2) under
         the draw axis), else fresh ones under one seed of the layer's
         generator. One (input, output) pair, or ``num_draws`` pairs (this
-        rank's draws under a mesh that splits them)."""
+        rank's draws under a mesh that splits them). Salts on the device
+        (a draw of a CUDA graph's loop, ``parallel/mc_graph.py``) come
+        back as two one-element views, which K-H reads on the device:
+        reading them on the host would wait for the card inside the
+        capture."""
         signs = getattr(self, "_presampled_signs", None)
         if signs is not None:
+            if signs.is_cuda:
+                return signs[0:1], signs[1:2]
             salts = signs.tolist()
             return [tuple(p) for p in salts] if num_draws else tuple(salts)
         seed = draw_seed(self.generator)

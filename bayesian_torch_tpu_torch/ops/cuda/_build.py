@@ -34,11 +34,12 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # mu, sigma (or rho), in_bf16, out, n, num_samples, seed, out_bf16,
-    # rho_mode, lane0, lane stride, offset, stream
+    # mu, sigma (or rho), in_bf16, out, n, num_samples, seed, the seed in
+    # device memory (or NULL), out_bf16, rho_mode, lane0, lane stride,
+    # offset, stream
     "btt_sample_scaled_normals_batch": (_P, _P, ctypes.c_int, _P,
                                         ctypes.c_int64, ctypes.c_int,
-                                        ctypes.c_uint64, ctypes.c_int,
+                                        ctypes.c_uint64, _P, ctypes.c_int,
                                         ctypes.c_int, ctypes.c_int64,
                                         ctypes.c_int64, ctypes.c_int64, _P),
     # x, x lane stride, mu, sigma, out, S, M, N, K, seed, lane0, lane

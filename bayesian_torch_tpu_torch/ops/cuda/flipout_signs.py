@@ -7,7 +7,11 @@ Every wrapper takes a ``SignBlock`` (``ops/sampling.py``): lane s is the
 block of ``shape`` at ``start`` of ``rademacher_fused(salts[s], whole)``,
 the lanes on a dim inserted at ``axis``. An operand has the laid-out shape
 (``block.lanes_shape``), or size 1 on the lane dim where it is shared
-across the lanes (on no other dim).
+across the lanes (on no other dim). The salts are ints, or a 1-D int64
+tensor on the operands' device, which K-H1 and K-H2 read when they run: a
+launch captured into a CUDA graph (``parallel/mc_graph.py``) keeps its
+geometry, so each replay takes the salts written into that tensor before
+it. The plain versions take the same tensor.
 
 - ``sign_flip(x, block)``: K-H1, ``x * signs`` in x's dtype (a flip of
   the sign bit); ``sign_flip(None, block, dtype, device)`` writes the
@@ -71,7 +75,9 @@ class _Geometry(ctypes.Structure):
                 ("y", ctypes.c_int64 * _DIMS), ("a", ctypes.c_int64 * _DIMS),
                 ("b", ctypes.c_int64 * _DIMS), ("nd", ctypes.c_int32),
                 ("lanes", ctypes.c_int32),
-                ("salts", ctypes.c_uint32 * _LANES)]
+                ("salts", ctypes.c_uint32 * _LANES),
+                ("lane_salts", ctypes.c_void_p),
+                ("lane_salt_stride", ctypes.c_int64)]
 
 
 def _whole_strides(whole):
@@ -284,6 +290,13 @@ def _geometry(block, y, operands):
         g.a[k] = st[1] if len(st) > 1 else 0
         g.b[k] = st[2] if len(st) > 2 else 0
     g.lanes = len(block.salts)
+    if torch.is_tensor(block.salts):
+        salts = block.salts
+        if salts.dtype != torch.int64 or salts.device != y.device:
+            raise ValueError(f"salts of {salts.dtype} on {salts.device}: "
+                             f"the kernel reads int64 on {y.device}")
+        g.lane_salts, g.lane_salt_stride = salts.data_ptr(), salts.stride(0)
+        return g
     for s, salt in enumerate(block.salts):
         g.salts[s] = salt & _M32
     return g

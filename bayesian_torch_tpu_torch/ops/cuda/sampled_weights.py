@@ -25,6 +25,12 @@ those lanes of the whole launch element for element, and a dim-0 shard r
 of n_r elements passes ``offset = r * n_r`` (``parallel/mc.py``,
 ``parallel/tp.py``).
 
+K-A's seed is an int, or a one-element int64 tensor on the launch's
+device, which the kernel reads when it runs: a launch captured into a
+CUDA graph (``parallel/mc_graph.py``) keeps its arguments, so each replay
+draws under the seed written into that tensor before it. The plain
+version takes the same tensor and computes the same salts from it.
+
 A CPU tensor takes the plain versions, forward and backward. A CUDA
 tensor launches the kernels or raises. Both kernels' C entries choose
 their launch shape from n and the card (``csrc/elementwise.cuh``).
@@ -133,15 +139,30 @@ def _operands(*tensors):
     return [t.detach().to(kind).contiguous() for t in tensors]
 
 
+def _seed_args(seed, device):
+    """(the seed by value, the address of the seed on ``device`` or None)
+    of a K-A launch: an int, or a one-element int64 tensor on the launch's
+    device that the kernel reads when it runs."""
+    if not torch.is_tensor(seed):
+        return seed & 0xFFFFFFFFFFFFFFFF, None
+    if seed.dtype != torch.int64 or seed.numel() != 1 \
+            or seed.device != device:
+        raise ValueError(f"a seed tensor is one int64 on {device}, got "
+                         f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
+    return 0, seed.data_ptr()
+
+
 def _launch_sample(seed, mu, sigma, num_samples, out_dtype, rho_mode=False,
                    window=None):
     """K-A on CUDA tensors: (S, *mu.shape) in ``out_dtype``. With
     ``rho_mode``, ``sigma`` holds rho and the kernel takes its softplus.
-    mu and sigma in bf16 are read as they are, else in f32."""
+    mu and sigma in bf16 are read as they are, else in f32. ``seed``: an
+    int, or a one-element int64 tensor on mu's device (module docstring)."""
     build, lib = _library()
     mu_k, sigma_k = _operands(mu, sigma)
     n = mu_k.numel()
     lane0, stride, offset = _window(window, n)
+    seed_value, seed_ptr = _seed_args(seed, mu.device)
     out = torch.empty((num_samples,) + tuple(mu.shape), dtype=out_dtype,
                       device=mu.device)
     with torch.cuda.device(mu.device):
@@ -149,7 +170,7 @@ def _launch_sample(seed, mu, sigma, num_samples, out_dtype, rho_mode=False,
         code = lib.btt_sample_scaled_normals_batch(
             mu_k.data_ptr(), sigma_k.data_ptr(),
             int(mu_k.dtype == torch.bfloat16), out.data_ptr(), n,
-            num_samples, seed & 0xFFFFFFFFFFFFFFFF,
+            num_samples, seed_value, seed_ptr,
             int(out_dtype == torch.bfloat16), int(rho_mode), lane0,
             stride, offset, stream)
     build.check(lib, code, "sample_scaled_normals_batch")
@@ -286,7 +307,9 @@ def sample_scaled_normals_batch(seed, mu, sigma, num_samples,
                                 out_dtype=torch.bfloat16, window=None):
     """All ``num_samples`` draws of mu + sigma * eps: (S, *mu.shape), or
     the lanes of a counter ``window`` (module docstring). Differentiable
-    in mu and sigma (backward: K-C, dsigma mode, on the same window)."""
+    in mu and sigma (backward: K-C, dsigma mode, on the same window).
+    ``seed``: an int, or a one-element int64 tensor on mu's device, read
+    where the draws are made (module docstring; forward only)."""
     _check_sampler_args(mu, sigma, "sigma", out_dtype)
     num_samples = int(num_samples)
     if num_samples < 1:

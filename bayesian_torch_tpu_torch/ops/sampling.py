@@ -359,7 +359,9 @@ class SignBlock(NamedTuple):
     ``rademacher_fused(salts[s], whole)``, every element keeping the
     counter it has in ``whole``; the lanes lie on a dim inserted at
     ``axis`` (None: one salt and no lane dim). K-H computes such signs
-    inside the product that uses them (``ops/cuda/flipout_signs.py``)."""
+    inside the product that uses them (``ops/cuda/flipout_signs.py``).
+    ``salts``: a tuple of ints, or a 1-D int64 tensor read where the signs
+    are hashed (a CUDA graph's salt buffer)."""
 
     salts: tuple
     shape: tuple
@@ -377,14 +379,16 @@ class SignBlock(NamedTuple):
 
 
 def sign_block(salts, shape, axis=None, output=False):
-    """The ``SignBlock`` of lanes ``salts`` over a tensor of ``shape``
-    (lanes at ``axis``; None: one salt) as this call draws it: under a
+    """The ``SignBlock`` of lanes ``salts`` (ints, or a 1-D int64 tensor
+    of them, kept as it is) over a tensor of ``shape`` (lanes at
+    ``axis``; None: one salt) as this call draws it: under a
     ``DrawWindow`` that splits the batch, ``shape`` leads with this rank's
     rows, which take the counters they have in the whole batch;
     ``output``: the signs of a layer's output, which inside a ``tp_shard``
     are the shard's channels of the whole output's signs."""
     shape = tuple(int(d) for d in shape)
-    salts = tuple(int(v) for v in salts)
+    salts = salts.reshape(-1) if torch.is_tensor(salts) \
+        else tuple(int(v) for v in salts)
     if axis is None and len(salts) != 1:
         raise ValueError(f"{len(salts)} salts need a lane axis")
     whole, start = list(shape), [0] * len(shape)
@@ -465,22 +469,29 @@ def cast_to(compute_dtype, *tensors):
     return tuple(None if t is None else t.to(compute_dtype) for t in tensors)
 
 
+def _one_lane(salt):
+    """``sign_block``'s salts of one lane: ``[salt]``, or a one-element
+    tensor as it is."""
+    return salt if torch.is_tensor(salt) else [salt]
+
+
 def flipout_combine(x, products, salts, sign_in=None, sign_out=None):
     """The Flipout algebra ``mean + sign_out * pert`` where ``products(x,
     x * sign_in)`` gives ``(mean, pert)``; signs not given come from
-    ``salts`` (input-sign salt, output-sign salt), hashed inside the two
-    products that use them (K-H1 and K-H2 on a CUDA device)."""
+    ``salts`` (input-sign salt, output-sign salt: ints, or one-element
+    int64 tensors), hashed inside the two products that use them (K-H1 and
+    K-H2 on a CUDA device)."""
     from bayesian_torch_tpu_torch.ops.cuda.flipout_signs import (
         sign_combine, sign_flip)
 
     if sign_in is None:
-        x_pert = sign_flip(x, sign_block([salts[0]], x.shape))
+        x_pert = sign_flip(x, sign_block(_one_lane(salts[0]), x.shape))
     else:
         x_pert = x * sign_in
     mean_out, pert = products(x, x_pert)
     if sign_out is None:
         return sign_combine(mean_out, pert, sign_block(
-            [salts[1]], mean_out.shape, output=True))
+            _one_lane(salts[1]), mean_out.shape, output=True))
     return mean_out + pert * sign_out
 
 

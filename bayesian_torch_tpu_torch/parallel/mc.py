@@ -73,7 +73,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import warnings
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -95,7 +95,7 @@ from bayesian_torch_tpu_torch.ops.sampling import (DRAWS_LAST, DrawWindow,
                                                    sigma_from_rho,
                                                    sign_salts,
                                                    window_kwargs)
-from bayesian_torch_tpu_torch.parallel import _comm
+from bayesian_torch_tpu_torch.parallel import _comm, mc_graph
 from bayesian_torch_tpu_torch.parallel.mesh import Mesh
 from bayesian_torch_tpu_torch.utils import tracing
 
@@ -153,13 +153,19 @@ def _presample_layers(model: nn.Module, num_mc: int):
     column-parallel shard (``parallel/tp.py``) draws its own window of its
     layer's place in the buffer, one launch a layer; a transposed shard is
     presampled whole, its tensors gathered.
+
+    Two halves: ``_presample_numbers`` takes from the generators what the
+    draws need, ``_presample_apply`` makes the draws from those numbers on
+    the device. A CUDA graph of the batch (``parallel/mc_graph.py``) runs
+    the first on the host before each replay and captures the second.
     """
     with contextlib.ExitStack() as stack:
         for layer in iter_bayesian_layers(model):
             tp = getattr(layer, "_tp", None)
             if tp is not None and not tp.column:
                 stack.enter_context(tp.whole(layer))
-        return _presample_draws(model, num_mc)
+        return _presample_apply(model, num_mc,
+                                _presample_numbers(model, num_mc))
 
 
 def _column_shard(layer):
@@ -168,7 +174,43 @@ def _column_shard(layer):
     return tp if tp is not None and tp.column else None
 
 
-def _presample_draws(model, num_mc):
+class _Numbers(NamedTuple):
+    """What a presample takes from the layers' generators, in the order
+    the draws take it: ``groups`` (``{dtype: [layers]}``, one sampler
+    launch each) and a seed for each (``seeds``); each biased layer's bias
+    noise (``eps_b``: ``{layer: (lanes, *bias shape) f32}``) and each
+    Flipout layer's sign salts (``salts``: ``{layer: (lanes, 2) int64}``);
+    each INT8 layer's record (``records``), which its build makes as it
+    draws. On the host, or (``on``) views of a CUDA graph's static buffer,
+    the seeds then one-element int64 tensors."""
+
+    groups: dict
+    seeds: list
+    eps_b: dict
+    salts: dict
+    records: dict
+
+    def tensors(self):
+        """The numbers as CPU tensors, seeds first, in a fixed order."""
+        return [torch.tensor(self.seeds, dtype=torch.int64),
+                *self.eps_b.values(), *self.salts.values()]
+
+    def on(self, views):
+        """These numbers read from ``views``, device tensors laid out as
+        ``tensors()``."""
+        seeds, rest = views[0], views[1:]
+        k = len(self.eps_b)
+        return self._replace(
+            seeds=[seeds[i:i + 1] for i in range(len(self.seeds))],
+            eps_b=dict(zip(self.eps_b, rest[:k])),
+            salts=dict(zip(self.salts, rest[k:])))
+
+
+def _presample_numbers(model, num_mc):
+    """The presample's host half: every number it takes from the layers'
+    generators, in the order the eager presample always took them (each
+    group's seed, then layer by layer an INT8 layer's build, the bias
+    noise, the Flipout salts' seed), as a ``_Numbers``."""
     lane0, lanes = _local_lanes(num_mc)
     groups = {}
     for layer in iter_bayesian_layers(model):
@@ -179,9 +221,43 @@ def _presample_draws(model, num_mc):
         if post is not None and not layer.quant_prepare:
             dtype = layer.compute_dtype or post[0].dtype
             groups.setdefault(dtype, []).append(layer)
+    seeds = [draw_seed(group[0].generator) for group in groups.values()]
+    drawn = {layer for group in groups.values() for layer in group}
+
+    def mine(seq):
+        return seq[lane0:lane0 + lanes]
+
+    eps_b, salts, records = {}, {}, {}
+    for layer in iter_bayesian_layers(model):
+        if isinstance(layer, _QuantizedLayerBase):
+            record = layer.presample(num_mc)
+            if record:
+                records[layer] = {k: mine(v) for k, v in record.items()}
+        if layer not in drawn:
+            continue
+        if layer.mu_bias is not None:
+            tp = _column_shard(layer)
+            shape = tuple(layer.mu_bias.shape) if tp is None \
+                else tp.whole_shape(layer.mu_bias)
+            eps = mine(torch.randn((num_mc,) + shape,
+                                   generator=layer.generator))
+            eps_b[layer] = eps if tp is None else tp.take(eps, 1)
+        if _is_flipout(layer):
+            seed = draw_seed(layer.generator)
+            salts[layer] = mine(torch.tensor(
+                [sign_salts(seed, s) for s in range(num_mc)],
+                dtype=torch.int64))
+    return _Numbers(groups, seeds, eps_b, salts, records)
+
+
+def _presample_apply(model, num_mc, numbers):
+    """The presample's device half: every layer's draws from ``numbers``
+    (``_presample_numbers``), as ``[(layer, {attr: a sequence over the
+    draws})]``. Salts on the device stay there: the layers hand them to
+    K-H as tensors (``_sign_salts``)."""
+    lane0, lanes = _local_lanes(num_mc)
     draws = {}
-    for dtype, group in groups.items():
-        seed = draw_seed(group[0].generator)
+    for (dtype, group), seed in zip(numbers.groups.items(), numbers.seeds):
         mus = [(torch.zeros_like(_posterior(layer)[0]) if _is_flipout(layer)
                 else _posterior(layer)[0]) for layer in group]
         sigmas = [sigma_from_rho(_posterior(layer)[1]) for layer in group]
@@ -208,37 +284,22 @@ def _presample_draws(model, num_mc):
         for layer, mu, w in zip(group, mus, parts):
             draws[layer] = w.reshape((lanes,) + tuple(mu.shape))
 
-    def mine(seq):
-        return seq[lane0:lane0 + lanes]
-
     touched = []
     for layer in iter_bayesian_layers(model):
-        if isinstance(layer, _QuantizedLayerBase):
-            record = layer.presample(num_mc)
-            if record:
-                touched.append((layer, {k: mine(v)
-                                        for k, v in record.items()}))
+        record = numbers.records.get(layer)
+        if record:
+            touched.append((layer, record))
         if layer not in draws:
             continue
         attrs = {"_presampled_w": draws[layer]}
-        if layer.mu_bias is not None:
-            tp = _column_shard(layer)
-            shape = tuple(layer.mu_bias.shape) if tp is None \
-                else tp.whole_shape(layer.mu_bias)
-            eps_b = mine(torch.randn((num_mc,) + shape,
-                                     generator=layer.generator))
-            if tp is not None:
-                eps_b = tp.take(eps_b, 1)
-            b = sigma_from_rho(layer.rho_bias) * eps_b.to(
+        if layer in numbers.eps_b:
+            b = sigma_from_rho(layer.rho_bias) * numbers.eps_b[layer].to(
                 layer.mu_bias.device)
             # Flipout: the mean bias rides the mean path
             attrs["_presampled_b"] = b if _is_flipout(layer) \
                 else layer.mu_bias + b
-        if _is_flipout(layer):
-            seed = draw_seed(layer.generator)
-            attrs["_presampled_signs"] = mine(torch.tensor(
-                [sign_salts(seed, s) for s in range(num_mc)],
-                dtype=torch.int64))
+        if layer in numbers.salts:
+            attrs["_presampled_signs"] = numbers.salts[layer]
         touched.append((layer, attrs))
     return touched
 
@@ -496,41 +557,62 @@ def mc_forward(model: nn.Module, x, num_mc: int, *, mesh=None,
             and not _draws_in_forward(model)))
     kl_layers = [mod for mod in model.modules()
                  if getattr(mod, "compute_kl", None) is True]
-    presampled = []
-    grad = contextlib.nullcontext() if training else torch.no_grad()
-    bn = (_mc_batch_stats(model, bn_stats,
-                          block.mc_group if block is not None else None)
-          if training and num_mc > 1 else contextlib.nullcontext())
-    try:
-        with grad, draw_window(None if block is None else block.window):
-            if presample == "on" and num_mc > 1:
-                presampled = _presample_layers(model, num_mc)
-            run = model
-            if channels_last_model and not structured:
-                # F12: a merge of the draws-last axis runs draw by draw;
-                # JAX's structured mode reads it as it lies
-                run = functools.partial(_draws_last_call, model)
-            if remat_policy is not None and torch.is_grad_enabled():
-                run = functools.partial(remat.checkpoint, model, run,
-                                        policy=remat_policy)
-            with bn:
-                if block is None:
-                    forward = _forward_draws if vmap else _forward_loop
-                    result, kl = forward(run, model, x, num_mc, presampled,
-                                         kl_layers, compute_kl, reduce)
-                else:
-                    result, kl = block.forward(
-                        run, model, x, presampled, kl_layers, compute_kl,
-                        vmap)
-        if block is not None:
-            result, kl = block.gather(result, kl, reduce, vmap, training)
-    finally:
-        for layer, attrs in presampled:
-            for name in attrs:
-                if name in vars(layer):
-                    delattr(layer, name)
-        for mod in kl_layers:
-            mod.compute_kl = True
+    def batch(x, numbers=None):
+        """The batch, its draws made of ``numbers`` where given (a CUDA
+        graph's, ``parallel/mc_graph.py``)."""
+        presampled = []
+        grad = contextlib.nullcontext() if training else torch.no_grad()
+        bn = (_mc_batch_stats(model, bn_stats,
+                              block.mc_group if block is not None else None)
+              if training and num_mc > 1 else contextlib.nullcontext())
+        try:
+            with grad, draw_window(None if block is None else block.window):
+                if numbers is not None:
+                    presampled = _presample_apply(model, num_mc, numbers)
+                elif presample == "on" and num_mc > 1:
+                    presampled = _presample_layers(model, num_mc)
+                run = model
+                if channels_last_model and not structured:
+                    # F12: a merge of the draws-last axis runs draw by
+                    # draw; JAX's structured mode reads it as it lies
+                    run = functools.partial(_draws_last_call, model)
+                if remat_policy is not None and torch.is_grad_enabled():
+                    run = functools.partial(remat.checkpoint, model, run,
+                                            policy=remat_policy)
+                with bn:
+                    if block is None:
+                        forward = _forward_draws if vmap else _forward_loop
+                        result, kl = forward(run, model, x, num_mc,
+                                             presampled, kl_layers,
+                                             compute_kl, reduce)
+                    else:
+                        result, kl = block.forward(
+                            run, model, x, presampled, kl_layers,
+                            compute_kl, vmap)
+            if block is not None:
+                result, kl = block.gather(result, kl, reduce, vmap,
+                                          training)
+        finally:
+            for layer, attrs in presampled:
+                for name in attrs:
+                    if name in vars(layer):
+                        delattr(layer, name)
+            for mod in kl_layers:
+                mod.compute_kl = True
+        return result, kl
+
+    if mc_graph.engages(model, x.device if torch.is_tensor(x) else None,
+                        num_mc, vmap=vmap, presample=presample, mesh=mesh,
+                        remat_policy=remat_policy):
+        # an eval batch replayed from a CUDA graph (parallel/mc_graph.py)
+        result, kl = mc_graph.forward(
+            model, x, (num_mc, reduce, compute_kl),
+            host=lambda: _presample_numbers(model, num_mc),
+            device_fn=batch, eager=lambda: batch(x))
+    else:
+        if training:
+            mc_graph.release(model)
+        result, kl = batch(x)
     if return_kl:
         return result, torch.as_tensor(kl, dtype=torch.float32)
     return result

@@ -35,6 +35,10 @@ registers with ``launch_counter``, which sets its ``launches`` attribute
 to 0; the wrapper counts a launch by ``wrapper.launches += 1``, and
 ``launches()`` reads every counter. ``kernel_span(wrapper)`` is the span
 ``kernel.<wrapper>`` around the wrapper's route to its launch.
+``add_launches`` adds counts to the counters: a CUDA graph's replay adds
+what its capture counted (``parallel/mc_graph.py``). ``captures``,
+``replays`` and ``fallbacks`` count that module's captures, replays and
+captures that failed, kept and recorded as the launch counters are.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import functools
 import itertools
 import threading
 import time
+import types
 
 from torch.autograd import profiler as _profiler
 
@@ -69,6 +74,22 @@ def launch_counter(wrapper):
 def launches() -> dict:
     """``{wrapper name: launches}`` of every registered counter."""
     return {name: fn.launches for name, fn in _COUNTERS.items()}
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``{wrapper name: launches}`` to the registered counters."""
+    for name, n in counts.items():
+        _COUNTERS[name].launches += n
+
+
+def _counter(name):
+    """A count that is no wrapper's, registered as ``name``."""
+    return launch_counter(types.SimpleNamespace(__name__=name))
+
+
+captures = _counter("captures")
+replays = _counter("replays")
+fallbacks = _counter("fallbacks")
 
 
 class _Unit:

@@ -95,11 +95,19 @@ prints one line per shape and a JSON summary last.
   output, ``int8.qadd``). Run from a parent's and a change's checkout in
   turns for the before and after (the same file in both: its parts
   missing from a checkout are skipped).
+- ``graph``: the benchmark's two prediction batches (ResNet-50 bf16 NHWC
+  MC-10, Reparameterization bs128 and Flipout bs256) eager and replayed
+  from their CUDA graph (``parallel/mc_graph.py``): the host's issue and
+  wall ms a batch, busy ms and rows of a profiled batch, the eager call's
+  peak allocation beside the graph pool's reserved bytes, the capture's
+  ms, the key's us, and whether three replays equal three eager batches
+  bit for bit. A checkout without the graph times eager alone.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import math
@@ -1380,9 +1388,119 @@ def int8_logits_digest(qmodel, x):
     return hashlib.sha256(logits.float().cpu().numpy().tobytes()).hexdigest()
 
 
+def graph(out):
+    """The eval MC-10 batch of the benchmark's two prediction cells
+    (ResNet-50 bf16 NHWC: Reparameterization at bs128, Flipout at bs256)
+    eager and replayed from its CUDA graph (``parallel/mc_graph.py``; a
+    checkout without it times eager alone): the host's issue and the wall
+    ms a batch, the device busy ms, idle share and rows of a profiled
+    batch, the eager call's peak allocation against the graph pool's
+    reserved bytes, the capture's ms, the key's us, and whether three
+    replayed batches equal three eager ones bit for bit."""
+    import torch
+
+    from bayesian_torch_tpu_torch.parallel import mc as tmc
+    from bayesian_torch_tpu_torch.models.bayesian import (
+        resnet_flipout_large, resnet_variational_large)
+
+    try:
+        from bayesian_torch_tpu_torch.parallel import mc_graph
+    except ImportError:
+        mc_graph = None
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for factory, batch in ((resnet_variational_large.resnet50, BATCH),
+                           (resnet_flipout_large.resnet50, 2 * BATCH)):
+        model = factory(num_classes=1000, device="cuda", data_format="NHWC",
+                        generator=torch.Generator().manual_seed(5)).eval()
+        for mod in model.modules():
+            if hasattr(mod, "compute_dtype"):
+                mod.compute_dtype = torch.bfloat16
+        xs = [torch.randn(batch, IMAGE, IMAGE, 3, generator=gen,
+                          device="cuda") for _ in range(3)]
+        what = f"{model.conv1.estimator} MC-{S} bs{batch}"
+
+        def call(j=0):
+            return tmc.mc_forward(model, xs[j % 3], S, reduce="mean")
+
+        def timed(n):
+            issue, wall = [], []
+            for j in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call(j)
+                issue.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(issue), statistics.median(wall)
+
+        def profiled():
+            torch.cuda.synchronize()
+            with device_trace() as prof:
+                call()
+                torch.cuda.synchronize()
+            rows = device_rows(prof)
+            return dict(busy_ms=busy_ms(rows), rows=len(rows))
+
+        r = dict(path=what)
+        engages = mc_graph.engages if mc_graph else None
+        if mc_graph:
+            mc_graph.engages = lambda *a, **k: False
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        call()
+        torch.cuda.synchronize()
+        r["eager_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        r["eager_issue_ms"], r["eager_wall_ms"] = timed(6)
+        r["eager_profiled"] = profiled()
+        if mc_graph:
+            mc_graph.engages = engages
+            mc_graph.reset()
+            state = model.conv1.generator.get_state()
+            call(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(1)
+            torch.cuda.synchronize()
+            r["capture_ms"] = (time.perf_counter() - t0) * 1e3
+            got = [call(2)]
+            pools = collections.Counter()
+            for seg in torch.cuda.memory_snapshot():
+                pools[tuple(seg.get("segment_pool_id", (0, 0)))] += \
+                    seg["total_size"]
+            r["pool_reserved_bytes"] = sum(
+                n for k, n in pools.items() if k != (0, 0))
+            r["reserved_bytes"] = torch.cuda.memory_reserved()
+            mods = list(model.modules())
+            keys = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                mc_graph.key(mods, xs[0], (S, "mean", True))
+                keys.append((time.perf_counter() - t0) * 1e6)
+            r["key_us"] = statistics.median(keys)
+            r["graph_issue_ms"], r["graph_wall_ms"] = timed(6)
+            r["graph_profiled"] = profiled()
+            model.conv1.generator.set_state(state)
+            got = [call(j) for j in range(3)]
+            mc_graph.engages = lambda *a, **k: False
+            model.conv1.generator.set_state(state)
+            want = [call(j) for j in range(3)]
+            mc_graph.engages = engages
+            r["equal"] = all(torch.equal(a, b) for g, w in zip(got, want)
+                             for a, b in zip(g, w))
+        print(f"[graph] {what}: " + ", ".join(
+            f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in r.items() if k != "path"), flush=True)
+        out.append(r)
+        del model, xs
+        torch.cuda.empty_cache()
+
+
 SECTIONS = dict(sampler=sampler, sampled=sampled, windowed=windowed,
                 paths=paths, kg=kg_sites, kg_cl=kg_cl_sites, probe=probe,
-                kf=kf, nhwc=nhwc_dot, signs=signs, flipout=flipout)
+                kf=kf, nhwc=nhwc_dot, signs=signs, flipout=flipout,
+                graph=graph)
 
 
 def main(argv=None):

@@ -1686,3 +1686,192 @@ def test_sign_kernel_second_derivatives_equal_plain_autograd(cuda):
     want = second(lambda v: v * sign, lambda m, p: m + p * sign)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+# --- K-A's seed and K-H's salts read from device memory, and the CUDA graph
+# of the eval draw loop (parallel/mc_graph.py) ----------------------------
+
+
+@pytest.mark.parametrize("n", [5, 4096 + 5, 2_000_000])
+@pytest.mark.parametrize("num_samples", [1, 4, 10])
+@pytest.mark.parametrize("window", [None, (3, 2_100_000, 17)])
+def test_batch_sampler_device_seed_equals_seed_by_value(cuda, n, num_samples,
+                                                        window):
+    """K-A with its seed in device memory (derived into salts in the
+    kernel) writes the bits of the launch given the seed by value, in
+    every dtype pair, both launch shapes and under a window."""
+    mu, sigma, _ = _posterior((n,), cuda)
+    seed = 0x7FFF_1234_5678_9ABC
+    dev = torch.tensor([seed], device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        m, s = mu.to(dtype), sigma.to(dtype)
+        for out in (torch.float32, torch.bfloat16):
+            want = sample_scaled_normals_batch(seed, m, s, num_samples, out,
+                                               window)
+            got = sample_scaled_normals_batch(dev, m, s, num_samples, out,
+                                              window)
+            assert torch.equal(got.view(torch.int16 if out == torch.bfloat16
+                                        else torch.int32),
+                               want.view(torch.int16 if out == torch.bfloat16
+                                         else torch.int32))
+    with pytest.raises(ValueError, match="one int64"):
+        sample_scaled_normals_batch(dev.cpu(), mu, sigma, 2)
+
+
+def test_sign_kernels_device_salts_equal_salts_by_value(cuda):
+    """K-H1 and K-H2 with their lanes' salts read from an int64 tensor
+    (a row of a CUDA graph's salt buffer, strided) give the bits of the
+    launch given them by value, in the layouts the Flipout paths use and
+    across the 256-lane chunks."""
+    from bayesian_torch_tpu_torch.ops import sampling as ts
+    from bayesian_torch_tpu_torch.ops.cuda import flipout_signs as kh
+
+    salts = [ts.sign_salts(9, s)[s % 2] for s in range(300)]
+    table = torch.tensor([[v, 7] for v in salts], device=cuda)
+    g = torch.Generator().manual_seed(5)
+    for lanes, shape, axis in ((1, (3, 5, 7, 9), None), (10, (4, 6, 7, 7), 1),
+                               (10, (4, 7, 7, 6), 3), (300, (2, 3, 8), 1)):
+        by_value = ts.sign_block(salts[:lanes], shape, axis)
+        on_card = ts.sign_block(table[:lanes, 0], shape, axis)
+        x = torch.randn(by_value.lanes_shape, generator=g).to(cuda)
+        p = torch.randn(by_value.lanes_shape, generator=g).to(cuda)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, pd = x.to(dtype), p.to(dtype)
+            assert torch.equal(kh.sign_flip(xd, on_card),
+                               kh.sign_flip(xd, by_value))
+            assert torch.equal(kh.sign_combine(xd, pd, on_card),
+                               kh.sign_combine(xd, pd, by_value))
+
+
+def _graph_model(estimator, cuda):
+    from bayesian_torch_tpu_torch.models.bayesian import (resnet_flipout,
+                                                          resnet_variational)
+
+    factory = (resnet_flipout if estimator == "flipout"
+               else resnet_variational).resnet20
+    return factory(generator=torch.Generator().manual_seed(3),
+                   device=cuda).eval()
+
+
+@pytest.fixture
+def graphs(cuda):
+    from bayesian_torch_tpu_torch.parallel import mc_graph
+
+    mc_graph.reset()
+    yield mc_graph
+    mc_graph.reset()
+
+
+def _graph_counts():
+    from bayesian_torch_tpu_torch.utils import tracing
+
+    got = tracing.launches()
+    return [got[k] for k in ("captures", "replays", "fallbacks")]
+
+
+@pytest.mark.parametrize("estimator", ["reparameterization", "flipout"])
+def test_graph_batches_equal_eager_batches(cuda, graphs, monkeypatch,
+                                           estimator):
+    """Three eval MC batches through ``mc_forward`` (the first eager, the
+    second captured and replayed, the third replayed) give the eager
+    path's means and KLs bit for bit, each on fresh draws; the first
+    replay's returned tensors are unchanged after the next; 1 capture and
+    2 replays; the replays count the kernels' launches as eager does."""
+    from bayesian_torch_tpu_torch.parallel import mc as tmc
+
+    model = _graph_model(estimator, cuda)
+    gen = model.conv1.generator
+    state = gen.get_state()
+    g = torch.Generator().manual_seed(8)
+    xs = [torch.randn(16, 3, 32, 32, generator=g).to(cuda) for _ in range(3)]
+    before = _graph_counts()
+    a0 = ka.sample_scaled_normals_batch.launches
+    got = [tmc.mc_forward(model, x, 4, reduce="mean") for x in xs]
+    kept = [t.clone() for t in got[1]]
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_graph_counts(), before)] == [1, 2, 0]
+    assert ka.sample_scaled_normals_batch.launches - a0 == 3
+    monkeypatch.setattr(graphs, "engages", lambda *a, **k: False)
+    gen.set_state(state)
+    want = [tmc.mc_forward(model, x, 4, reduce="mean") for x in xs]
+    for (m, kl), (wm, wkl) in zip(got, want):
+        assert torch.equal(m, wm) and torch.equal(kl, wkl)
+    assert not torch.equal(got[1][0], got[2][0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], kept))
+
+
+def test_graph_recaptures_a_replaced_parameter(cuda, graphs, monkeypatch):
+    """An in-place edit of a parameter is read by the next replay; a
+    replaced parameter makes a new key (eager once, then a capture); a
+    collected model takes its graphs with it."""
+    import gc
+
+    from bayesian_torch_tpu_torch.parallel import mc as tmc
+
+    model = _graph_model("reparameterization", cuda)
+    x = torch.randn(8, 3, 32, 32, generator=torch.Generator().manual_seed(2)
+                    ).to(cuda)
+    for _ in range(2):
+        tmc.mc_forward(model, x, 3, reduce="mean")
+    before = _graph_counts()
+    with torch.no_grad():
+        model.linear.mu_weight.mul_(2.0)
+    gen = model.conv1.generator
+    state = gen.get_state()
+    edited = tmc.mc_forward(model, x, 3, reduce="mean")
+    assert [a - b for a, b in zip(_graph_counts(), before)] == [0, 1, 0]
+    with monkeypatch.context() as m:
+        m.setattr(graphs, "engages", lambda *a, **k: False)
+        gen.set_state(state)
+        want = tmc.mc_forward(model, x, 3, reduce="mean")
+    assert torch.equal(edited[0], want[0]) and torch.equal(edited[1], want[1])
+    model.linear.mu_weight = torch.nn.Parameter(
+        model.linear.mu_weight.detach().clone())
+    for _ in range(2):
+        tmc.mc_forward(model, x, 3, reduce="mean")
+    assert [a - b for a, b in zip(_graph_counts(), before)] == [1, 2, 0]
+    (dev,) = graphs._DEVICES.values()
+    assert len(dev.graphs) == 2
+    del model
+    gc.collect()
+    assert not dev.graphs
+
+
+@pytest.mark.parametrize("change", ["bn_eps", "training"])
+def test_graph_captures_anew_after_a_changed_value_or_training(
+        cuda, graphs, monkeypatch, change):
+    """A BatchNorm's ``eps`` changed after the capture makes a new key
+    (eager once, then a capture) whose replays read the new value; a
+    training batch drops the model's graphs, whose pool the allocator can
+    then free, so the next eval batches capture anew; the batches equal
+    eager ones bit for bit."""
+    from bayesian_torch_tpu_torch.parallel import mc as tmc
+
+    model = _graph_model("reparameterization", cuda)
+    x = torch.randn(8, 3, 32, 32, generator=torch.Generator().manual_seed(4)
+                    ).to(cuda)
+    for _ in range(2):
+        tmc.mc_forward(model, x, 3, reduce="mean")
+    (dev,) = graphs._DEVICES.values()
+    before = _graph_counts()
+    if change == "bn_eps":
+        model.bn1.eps = 1e-3
+    else:
+        model.train()
+        tmc.mc_forward(model, x, 3, reduce="mean")
+        assert not dev.graphs
+        torch.cuda.empty_cache()  # the pool, with no graph left, is freed
+        assert not [seg for seg in torch.cuda.memory_snapshot() if tuple(
+            seg.get("segment_pool_id", (0, 0))) == tuple(dev.pool)]
+        model.eval()
+    gen = model.conv1.generator
+    state = gen.get_state()
+    got = [tmc.mc_forward(model, x, 3, reduce="mean") for _ in range(3)]
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_graph_counts(), before)] == [1, 2, 0]
+    assert len(dev.graphs) == (2 if change == "bn_eps" else 1)
+    monkeypatch.setattr(graphs, "engages", lambda *a, **k: False)
+    gen.set_state(state)
+    want = [tmc.mc_forward(model, x, 3, reduce="mean") for _ in range(3)]
+    for (m, kl), (wm, wkl) in zip(got, want):
+        assert torch.equal(m, wm) and torch.equal(kl, wkl)
